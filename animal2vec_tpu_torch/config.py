@@ -1,4 +1,5 @@
-"""Configuration of finetuned inference: the a2v-large finetune preset.
+"""Configuration of the a2v-large finetune preset: the model and inference
+fields (``FinetuneConfig``) and the training recipe (``FinetuneTrainConfig``).
 
 The JAX package reads a YAML tree (``animal2vec_tpu/config.py``); the port
 needs only the fields that the finetuned forward path and long-file
@@ -86,6 +87,11 @@ class FinetuneConfig:
             return self.max_sample_size / self.sample_rate
         return 10.0
 
+    @property
+    def n_blocks(self) -> int:
+        """Transformer blocks in the model: prenet and trunk."""
+        return self.prenet_depth + self.depth
+
     def criterion(self, threshold: Optional[float] = None) -> dict:
         """The method dict that ``evalx.segmentation.fuse_predict`` reads."""
         return {
@@ -98,3 +104,65 @@ class FinetuneConfig:
             "lowP": self.lowP,
             "iou_threshold": self.iou_threshold,
         }
+
+
+@dataclass(frozen=True)
+class FinetuneTrainConfig:
+    """The finetune recipe of ``finetune_100.yaml``: the fields that the JAX
+    ``finetune_loss``, ``build_finetune_encoder_cfg`` and ``build_optimizer``
+    read, with the values ``load_config`` resolves them to. Dropout rates map
+    onto the encoder as ``build_finetune_encoder_cfg`` maps them: ``dropout``
+    is the attention output dropout, the post-MLP dropout and the prenet
+    dropout; ``layerdrop`` holds for the prenet and the trunk."""
+
+    # finetune.*: freeze gate, frontend gradient, masking as regularization
+    freeze_finetune_updates: int = 10_000
+    feature_grad_mult: float = 0.0
+    apply_mask: bool = True
+    mask_prob: float = 0.825
+    mask_length: int = 4
+    mask_channel_prob: float = 0.5
+    mask_channel_length: int = 64
+    zero_mask: bool = False
+    mask_noise_std: float = 0.01  # model.modalities.audio.mask_noise_std
+    layer_decay: float = 1.0
+    # finetune.*: dropouts
+    dropout: float = 0.1
+    dropout_input: float = 0.0
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.2
+    final_dropout: float = 0.0
+    layerdrop: float = 0.1
+    drop_path: float = 0.0
+    update_alibi: bool = True
+    # finetune.mixup.*
+    source_mixup: float = 0.5
+    mixup_prob: float = 1.0
+    same_mixup: bool = True
+    mixing_window_length: float = 0.05
+    gain_mode: str = "A_weighting"
+    target_mixup: bool = True
+    # criterion.*
+    use_focal_loss: bool = True
+    label_smoothing: float = 0.09
+    report_accuracy: bool = True
+    # optimization.*
+    lr: float = 3e-5
+    max_update: int = 30_000
+    update_freq: int = 9
+    clip_norm: float = 0.0
+    adam_betas: Tuple[float, float] = (0.9, 0.98)
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_updates: int = 2_000
+    warmup_init_lr: float = 1e-10
+    min_lr: float = 5e-6
+    schedule: str = "cosine"
+
+    def __post_init__(self):
+        if self.drop_path != 0.0:
+            raise NotImplementedError("drop-path is not ported (the recipe sets it to 0)")
+        if not self.update_alibi:
+            raise NotImplementedError("a frozen ALiBi scale is not ported (the recipe learns it)")
+        if self.schedule not in ("cosine", "constant"):
+            raise ValueError(f"schedule={self.schedule!r}: 'cosine' or 'constant'")

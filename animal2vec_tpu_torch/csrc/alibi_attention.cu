@@ -1,13 +1,19 @@
-// ALiBi flash-attention forward for inference, bf16 in and out, D = 64.
+// ALiBi flash-attention forward, bf16 in and out, D = 64.
 //
 // Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
-//   _kernel_serve_nk1 (batch-uniform positions, one key block) and the
-//   inference forward of _kernel (per-row positions, any number of key
-//   blocks; its lse output and hash dropout are not ported yet).
+//   _kernel_serve_nk1 (batch-uniform positions, one key block) and
+//   _kernel (per-row positions, any number of key blocks, the logsumexp
+//   residual of the backward and the in-kernel hash dropout).
 //
-//   out[b,h,i] = softmax_j(q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j|
-//                          (0 when either position is < 0 and the sentinel
-//                          rule is on), key j padded -> -1e9) . v_j
+//   out[b,h,i] = sum_j keep_ij / (1 - r) * softmax_j(s_ij) . v_j
+//   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j| (0 when either
+//          position is < 0 and the sentinel rule is on), key j padded -> -1e9
+//   lse[b*H+h, i] = m_i + log(max(l_i, 1e-30))   (training launches only)
+//
+// keep_ij is the counter hash of (seed + (b*H+h) * 0xC2B2AE3D, i, j) over
+// global query and key indices (common.cuh drop_hash), so the backward
+// kernels regenerate it. As on the TPU the softmax denominator l sums the
+// undropped weights and the dropout scales the weights of P.V only.
 //
 // Design: one thread block per (64-query tile, head, batch) with four warps,
 // each owning 16 query rows. K/V tiles of 64 keys are staged in shared
@@ -21,16 +27,18 @@
 // kernel: padded keys score a finite -1e9, so a row whose keys are all padded
 // averages V instead of producing NaN, and the denominator is clamped at
 // 1e-30. Keys past T (2000 is not a multiple of 64) are dropped by bounds
-// (weight exactly 0), not padded.
+// (weight exactly 0), not padded. The serving launches (no lse, no dropout)
+// compile without the training code (template TRAIN = false).
 //
 // Bound on the H100: at the serving shape (B=32, H=16, T=2000) the kernel
 // does 4*B*H*T^2*D = 0.52 TFLOP of tensor-core work (two products of
 // 2*T^2*D per (b, h)) and the bias/softmax costs ~10 fp32 instructions per
 // score (2.0e9 scores); it reads qkv once per query tile (3 x 262 MB from L2,
-// since a head's K/V is 256 KB) and writes 131 MB. Which of the mma.sync
-// rate and the fp32 exp/bias work bounds it has not been measured; wgmma,
-// exp2 with a folded log2(e) and a double-buffered K/V pipeline are the
-// levers for a later change.
+// since a head's K/V is 256 KB) and writes 131 MB. The training launch adds
+// ~12 integer instructions of hash per score when dropout is on. Which of the
+// mma.sync rate and the per-score fp32/integer work bounds it has not been
+// measured; wgmma, exp2 with a folded log2(e) and a double-buffered K/V
+// pipeline are the levers for a later change.
 #include "common.cuh"
 
 namespace a2v {
@@ -45,15 +53,27 @@ constexpr float kMaskScore = -1e9f;  // NEG_INF of the TPU kernel
 
 using bf16 = __nv_bfloat16;
 
-template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL>
+// Runtime arguments of a launch beyond the tensors.
+struct FwdArgs {
+  int mask_per_row;
+  int B, H, T;
+  float sm_scale;
+  uint32_t seed;        // dropout seed (int32 bits)
+  uint32_t thresh;      // keep when hash >= thresh; 0 = no dropout
+  float keep_scale;     // 1 / (1 - rate)
+};
+
+template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN>
 __global__ void __launch_bounds__(kThreads)
 alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
                        const float* __restrict__ slopes,  // (H,)
                        const int* __restrict__ pos,       // (1 or B, T)
                        const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
-                       int mask_per_row,
                        bf16* __restrict__ out,            // (B, H, T, D)
-                       int B, int H, int T, float sm_scale) {
+                       float* __restrict__ lse,           // (B*H, T), TRAIN only
+                       FwdArgs a) {
+  const int B = a.B, H = a.H, T = a.T;
+  const float sm_scale = a.sm_scale;
   __shared__ __align__(16) bf16 sQ[kBQ * kLds];
   __shared__ __align__(16) bf16 sK[kBK * kLds];
   __shared__ __align__(16) bf16 sV[kBK * kLds];
@@ -73,7 +93,9 @@ alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
   const bf16* v = k + plane;
   const int* posr = pos + (UNIFORM_POS ? 0 : static_cast<size_t>(b) * T);
   const uint8_t* maskr =
-      HAS_MASK ? mask + (mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
+      HAS_MASK ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
+  const uint32_t seed_word = a.seed + static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du;
+  const bool drop = TRAIN && a.thresh != 0u;
 
   for (int c = tid; c < kBQ * kD / 8; c += kThreads) {
     const int r = c >> 3, col = (c & 7) * 8, row = q0 + r;
@@ -169,9 +191,12 @@ alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
     for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
+        float p = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;  // denominator from the fp32, undropped weights
+        if (drop)
+          p *= drop_factor(seed_word, q0 + r0 + 8 * (e >> 1), k0 + j * 8 + 2 * i4 + (e & 1),
+                           a.thresh, a.keep_scale);
         s[j][e] = p;
-        l[e >> 1] += p;  // denominator from the fp32 weights, as on the TPU
       }
     }
 #pragma unroll
@@ -221,41 +246,61 @@ alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
       *reinterpret_cast<uint32_t*>(&orow[static_cast<size_t>(row1) * kD + col]) =
           pack_bf16(o[dn][2] / l[1], o[dn][3] / l[1]);
   }
+  if (TRAIN && lse != nullptr && i4 == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * T;
+    if (row0 < T) lrow[row0] = m[0] + logf(l[0]);
+    if (row1 < T) lrow[row1] = m[1] + logf(l[1]);
+  }
+}
+
+template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL>
+void launch_train(bool train, dim3 grid, cudaStream_t stream, const bf16* qkv,
+                  const float* slopes, const int* pos, const uint8_t* mask, bf16* out,
+                  float* lse, const FwdArgs& a) {
+  if (train)
+    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, HAS_SENTINEL, true>
+        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
+  else
+    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, HAS_SENTINEL, false>
+        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
 }
 
 template <bool UNIFORM_POS, bool HAS_MASK>
-void launch_sentinel(bool has_sentinel, dim3 grid, cudaStream_t stream, const bf16* qkv,
-                     const float* slopes, const int* pos, const uint8_t* mask, int mask_per_row,
-                     bf16* out, int B, int H, int T, float sm_scale) {
+void launch_sentinel(bool has_sentinel, bool train, dim3 grid, cudaStream_t stream,
+                     const bf16* qkv, const float* slopes, const int* pos, const uint8_t* mask,
+                     bf16* out, float* lse, const FwdArgs& a) {
   if (has_sentinel)
-    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, true><<<grid, kThreads, 0, stream>>>(
-        qkv, slopes, pos, mask, mask_per_row, out, B, H, T, sm_scale);
+    launch_train<UNIFORM_POS, HAS_MASK, true>(train, grid, stream, qkv, slopes, pos, mask, out,
+                                              lse, a);
   else
-    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, false><<<grid, kThreads, 0, stream>>>(
-        qkv, slopes, pos, mask, mask_per_row, out, B, H, T, sm_scale);
+    launch_train<UNIFORM_POS, HAS_MASK, false>(train, grid, stream, qkv, slopes, pos, mask, out,
+                                               lse, a);
 }
 
 template <bool UNIFORM_POS>
-void launch_mask(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t stream,
+void launch_mask(bool has_mask, bool has_sentinel, bool train, dim3 grid, cudaStream_t stream,
                  const bf16* qkv, const float* slopes, const int* pos, const uint8_t* mask,
-                 int mask_per_row, bf16* out, int B, int H, int T, float sm_scale) {
+                 bf16* out, float* lse, const FwdArgs& a) {
   if (has_mask)
-    launch_sentinel<UNIFORM_POS, true>(has_sentinel, grid, stream, qkv, slopes, pos, mask,
-                                       mask_per_row, out, B, H, T, sm_scale);
+    launch_sentinel<UNIFORM_POS, true>(has_sentinel, train, grid, stream, qkv, slopes, pos, mask,
+                                       out, lse, a);
   else
-    launch_sentinel<UNIFORM_POS, false>(has_sentinel, grid, stream, qkv, slopes, pos, mask,
-                                        mask_per_row, out, B, H, T, sm_scale);
+    launch_sentinel<UNIFORM_POS, false>(has_sentinel, train, grid, stream, qkv, slopes, pos,
+                                        mask, out, lse, a);
 }
 
 }  // namespace
 }  // namespace a2v
 
 // C entry, bound with ctypes. positions are (pos_per_row ? B : 1, T) int32;
-// mask is null or (mask_per_row ? B : 1, T) uint8. Returns a cudaError_t.
+// mask is null or (mask_per_row ? B : 1, T) uint8. lse is null (serving) or
+// (B*H, T) fp32; a launch with an lse or a nonzero dropout threshold takes
+// the training template. Returns a cudaError_t.
 extern "C" int a2v_alibi_attention(const void* qkv, const void* slopes, const void* pos,
                                    int pos_per_row, const void* mask, int mask_per_row,
-                                   void* out, int B, int H, int T, int D, int has_sentinel,
-                                   float sm_scale, void* stream) {
+                                   void* out, void* lse, int B, int H, int T, int D,
+                                   int has_sentinel, float sm_scale, int seed,
+                                   unsigned int thresh, float keep_scale, void* stream) {
   using namespace a2v;
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -266,11 +311,13 @@ extern "C" int a2v_alibi_attention(const void* qkv, const void* slopes, const vo
   const auto* p = static_cast<const int*>(pos);
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
+  auto* ls = static_cast<float*>(lse);
+  const bool train = ls != nullptr || thresh != 0u;
+  const FwdArgs a{mask_per_row, B, H, T, sm_scale, static_cast<uint32_t>(seed), thresh,
+                  keep_scale};
   if (pos_per_row)
-    launch_mask<false>(mk != nullptr, has_sentinel != 0, grid, s, q, sl, p, mk, mask_per_row, o,
-                       B, H, T, sm_scale);
+    launch_mask<false>(mk != nullptr, has_sentinel != 0, train, grid, s, q, sl, p, mk, o, ls, a);
   else
-    launch_mask<true>(mk != nullptr, has_sentinel != 0, grid, s, q, sl, p, mk, mask_per_row, o,
-                      B, H, T, sm_scale);
+    launch_mask<true>(mk != nullptr, has_sentinel != 0, train, grid, s, q, sl, p, mk, o, ls, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,4 +65,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Counter-based dropout hash of animal2vec_tpu/ops/pallas_attention.py
+// _dropout_keep and ops/fused_mlp.py _hash_keep: a murmur-style finalizer
+// over (row, col) mixed with the seed word (attention: seed + bh *
+// 0xC2B2AE3D; fused block: the seed). An element is kept when the hash is
+// >= the host-computed threshold min(int(rate * 2^32), 2^32 - 1).
+__device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, uint32_t col) {
+  uint32_t z = row * 0x9E3779B1u + col * 0x85EBCA77u;
+  z ^= seed_word;
+  z ^= z >> 15;
+  z *= 0x2C1B3C6Du;
+  z ^= z >> 12;
+  z *= 0x297A2D39u;
+  z ^= z >> 15;
+  return z;
+}
+
+// Dropout factor of one element: keep_scale (1 / (1 - rate)) or 0.
+__device__ __forceinline__ float drop_factor(uint32_t seed_word, uint32_t row, uint32_t col,
+                                             uint32_t thresh, float keep_scale) {
+  return drop_hash(seed_word, row, col) >= thresh ? keep_scale : 0.f;
+}
+
 }  // namespace a2v

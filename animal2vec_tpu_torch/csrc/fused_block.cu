@@ -1,24 +1,33 @@
-// Post-LN MLP sub-block of an AltBlock for inference, bf16 storage:
+// Post-LN MLP sub-block of an AltBlock, bf16 storage, with the training
+// hash dropout:
 //
-//   r = LN1(x);  t = fc2(GELU(fc1 r + b1)) + b2;  x_out = LN2(bf16(r + t))
+//   r = LN1(x);  h = drop_a(GELU(fc1 r + b1));  t = drop_b(fc2 h + b2)
+//   x_out = LN2(bf16(r + drop_c(t)))            -> (x_out, t)
 //
-// Replaces the TPU kernel animal2vec_tpu/ops/fused_mlp.py:_kernel_bf16_block
-// (its hash dropout is not ported yet). Numerics follow it: LayerNorm
-// statistics in fp32 over C, r cast back to bf16 before fc1, both products
-// bf16 x bf16 with fp32 accumulation, bias + exact-erf GELU in fp32, h cast
-// to bf16 before fc2, the tap t = bf16(acc + b2), and the residual add in
-// bf16 before LN2's fp32 statistics.
+// Replaces the TPU kernel animal2vec_tpu/ops/fused_mlp.py:_kernel_bf16_block.
+// Numerics follow it: LayerNorm statistics in fp32 over C, r cast back to
+// bf16 before fc1, both products bf16 x bf16 with fp32 accumulation, bias +
+// exact-erf GELU in fp32, h cast to bf16 before fc2, the tap t = bf16(acc +
+// b2) (after drop_b, before drop_c), and the residual add in bf16 before
+// LN2's fp32 statistics. The three dropout sites are those of the TPU kernel:
+// drop_a after GELU (seed 0, activation rate), drop_b after fc2 (seed 1,
+// the same rate), drop_c on the residual branch (seed 2, post-mlp rate), each
+// keep = drop_hash(seed, global row, global column) >= threshold
+// (common.cuh), scaled by 1 / (1 - rate). Rows are rows of the flattened
+// (N, C) input; columns are hidden (fc1) or output (fc2, residual) columns.
 //
 // Design: one C entry makes four launches on the caller's stream:
 //   1. ln_rows           x -> r (bf16), one warp per row;
-//   2. gemm_bias_act     h = GELU(r W1 + b1), bf16 (N, M) scratch;
-//   3. gemm_bias_act     t = h W2 + b2 (the layer tap);
-//   4. ln_rows           x_out = LN2(bf16(r + t)).
+//   2. gemm_bias_act     h = drop_a(GELU(r W1 + b1)), bf16 (N, M) scratch;
+//   3. gemm_bias_act     t = drop_b(h W2 + b2) (the layer tap);
+//   4. ln_rows           x_out = LN2(bf16(r + drop_c(t))).
 // The GEMM is 128x128 output tiles, K steps of 32 double-buffered through
 // shared memory by cp.async, eight warps each computing 64x32 with mma.sync
 // m16n8k16 from 32-bit fragment loads (the padded 40-element shared rows make
 // them conflict-free). Both weights come in nn.Linear layout, (out, in) with
-// the reduction dim contiguous, which is the B-fragment layout.
+// the reduction dim contiguous, which is the B-fragment layout. The dropout
+// lives in the epilogues (template DROP), so the serving launches compile
+// without it.
 //
 // Bound on the H100 at the serving shape (N = 32 x 2000 rows, C = 1024,
 // M = 4096): fc1 + fc2 are 1.07 TFLOP per layer (1.1 ms at the 989 TFLOP/s
@@ -27,7 +36,8 @@
 // this design round-trips h through device memory: 2 x N x M x 2 B = 1.05 GB
 // per layer (0.31 ms at 3.35 TB/s), about half of the block's 2.0 GB of
 // traffic (x, r three times, t twice, x_out). Keeping h on chip needs the
-// fc1 -> fc2 fusion of a later change.
+// fc1 -> fc2 fusion of a later change. The dropout hash adds ~12 integer
+// instructions per element of h, t and the residual branch.
 #include "common.cuh"
 
 namespace a2v {
@@ -46,14 +56,21 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
-// C[N, NOUT] = act(A[N, K] W[NOUT, K]^T + bias), bf16 out, fp32 accumulate.
-// Needs K % 32 == 0 and NOUT % 2 == 0; rows past N are zero-filled on load
-// and not stored.
-template <bool GELU>
+// Dropout of one site: keep when drop_hash(seed, row, col) >= thresh.
+struct DropSite {
+  uint32_t seed;
+  uint32_t thresh;
+  float keep_scale;  // 1 / (1 - rate)
+};
+
+// C[N, NOUT] = drop(act(A[N, K] W[NOUT, K]^T + bias)), bf16 out, fp32
+// accumulate. Needs K % 32 == 0 and NOUT % 2 == 0; rows past N are
+// zero-filled on load and not stored.
+template <bool GELU, bool DROP>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                      const float* __restrict__ bias, bf16* __restrict__ C, int N, int K,
-                     int NOUT) {
+                     int NOUT, DropSite drop) {
   __shared__ __align__(16) bf16 sA[2][kTile * kLds];
   __shared__ __align__(16) bf16 sW[2][kTile * kLds];
 
@@ -137,6 +154,10 @@ gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
           x0 = gelu_erf(x0);
           x1 = gelu_erf(x1);
         }
+        if (DROP) {
+          x0 *= drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale);
+          x1 *= drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale);
+        }
         *reinterpret_cast<uint32_t*>(&C[static_cast<size_t>(row) * NOUT + col]) =
             pack_bf16(x0, x1);
       }
@@ -150,13 +171,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// y = LN(z) * scale + bias in fp32, stored bf16; z = x, or bf16(x + t) when
-// RESID (the storage-dtype residual add). Needs C % 128 == 0, C <= 1024.
-template <bool RESID>
+// y = LN(z) * scale + bias in fp32, stored bf16; z = x, or bf16(x +
+// drop(t)) when RESID (the storage-dtype residual add; drop(t) rounds to bf16
+// first). Needs C % 128 == 0, C <= 1024.
+template <bool RESID, bool DROP>
 __global__ void __launch_bounds__(kLnThreads)
 ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t,
                const float* __restrict__ scale, const float* __restrict__ bias,
-               bf16* __restrict__ y, int N, int C, float eps) {
+               bf16* __restrict__ y, int N, int C, float eps, DropSite drop) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kLnThreads / 32) + warp;
   if (row >= N) return;
@@ -173,8 +195,15 @@ ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t,
       for (int p = 0; p < 2; ++p) {
         float2 v = __bfloat1622float2(xp[p]);
         if (RESID) {
-          const float2 tv =
+          float2 tv =
               __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(t + base + c)[p]);
+          if (DROP) {
+            const int col = c + 2 * p;
+            tv.x = __bfloat162float(__float2bfloat16_rn(
+                tv.x * drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale)));
+            tv.y = __bfloat162float(__float2bfloat16_rn(
+                tv.y * drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale)));
+          }
           v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
           v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));
         }
@@ -214,17 +243,32 @@ ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t,
   }
 }
 
+template <bool GELU>
+void launch_gemm(bool drop, dim3 grid, cudaStream_t s, const bf16* A, const bf16* W,
+                 const float* bias, bf16* C, int N, int K, int NOUT, const DropSite& site) {
+  if (drop)
+    gemm_bias_act_kernel<GELU, true><<<grid, kGemmThreads, 0, s>>>(A, W, bias, C, N, K, NOUT,
+                                                                   site);
+  else
+    gemm_bias_act_kernel<GELU, false><<<grid, kGemmThreads, 0, s>>>(A, W, bias, C, N, K, NOUT,
+                                                                    site);
+}
+
 }  // namespace
 }  // namespace a2v
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1t: (M, C) and
 // w2t: (C, M) bf16 (nn.Linear layout); h: (N, M) bf16 scratch; LayerNorm
-// scales/biases and b1 (M), b2 (C) fp32. Returns a cudaError_t.
+// scales/biases and b1 (M), b2 (C) fp32. seeds are the three int32 dropout
+// seeds [after GELU, after fc2, post-mlp]; a threshold of 0 turns a site
+// off (act_thresh covers the first two sites). Returns a cudaError_t.
 extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void* ln1_bias,
                                const void* w1t, const void* b1, const void* w2t, const void* b2,
                                const void* ln2_scale, const void* ln2_bias, void* r, void* h,
                                void* t, void* x_out, int N, int C, int M, float eps,
-                               void* stream) {
+                               int seed_act, int seed_fc2, int seed_post,
+                               unsigned int act_thresh, float act_scale,
+                               unsigned int post_thresh, float post_scale, void* stream) {
   using namespace a2v;
   if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
       M % 128 != 0 || (N + kTile - 1) / kTile > 65535)
@@ -236,20 +280,30 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
   auto* tb = static_cast<bf16*>(t);
   const int ln_blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
   const int row_tiles = (N + kTile - 1) / kTile;
+  const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale};
+  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale};
+  const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale};
   cudaError_t err;
 
-  ln_rows_kernel<false><<<ln_blocks, kLnThreads, 0, s>>>(
+  ln_rows_kernel<false, false><<<ln_blocks, kLnThreads, 0, s>>>(
       xb, nullptr, static_cast<const float*>(ln1_scale), static_cast<const float*>(ln1_bias),
-      rb, N, C, eps);
+      rb, N, C, eps, site_post);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm_bias_act_kernel<true><<<dim3(M / kTile, row_tiles), kGemmThreads, 0, s>>>(
-      rb, static_cast<const bf16*>(w1t), static_cast<const float*>(b1), hb, N, C, M);
+  launch_gemm<true>(act_thresh != 0u, dim3(M / kTile, row_tiles), s, rb,
+                    static_cast<const bf16*>(w1t), static_cast<const float*>(b1), hb, N, C, M,
+                    site_act);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm_bias_act_kernel<false><<<dim3(C / kTile, row_tiles), kGemmThreads, 0, s>>>(
-      hb, static_cast<const bf16*>(w2t), static_cast<const float*>(b2), tb, N, M, C);
+  launch_gemm<false>(act_thresh != 0u, dim3(C / kTile, row_tiles), s, hb,
+                     static_cast<const bf16*>(w2t), static_cast<const float*>(b2), tb, N, M, C,
+                     site_fc2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ln_rows_kernel<true><<<ln_blocks, kLnThreads, 0, s>>>(
-      rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-      static_cast<bf16*>(x_out), N, C, eps);
+  if (post_thresh != 0u)
+    ln_rows_kernel<true, true><<<ln_blocks, kLnThreads, 0, s>>>(
+        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
+        static_cast<bf16*>(x_out), N, C, eps, site_post);
+  else
+    ln_rows_kernel<true, false><<<ln_blocks, kLnThreads, 0, s>>>(
+        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
+        static_cast<bf16*>(x_out), N, C, eps, site_post);
   return static_cast<int>(cudaGetLastError());
 }

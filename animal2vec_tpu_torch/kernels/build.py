@@ -1,6 +1,7 @@
 """Build and load the Hopper kernels of ``animal2vec_tpu_torch/csrc``.
 
-The ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+The ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc``
+process per source, all started together, and linked into one shared
 library with a plain C interface, which ``ctypes`` loads. The build runs at
 first use (never at import), into ``animal2vec_tpu_torch/_build/<hash>/``
 keyed by a hash of the sources and flags, so a fresh checkout builds once
@@ -24,20 +25,33 @@ BUILD_ROOT = PACKAGE / "_build"
 LIB_NAME = "liba2v_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+# dropout arguments of the attention entries: seed, threshold, keep scale
+_DROP = (_I, _U, _F)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
-    # qkv, slopes, pos, pos_per_row, mask, mask_per_row, out, B, H, T, D,
-    # has_sentinel, sm_scale, stream
-    "a2v_alibi_attention": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, slopes, pos, pos_per_row, mask, mask_per_row, out, lse, B, H, T, D,
+    # has_sentinel, sm_scale, seed, thresh, keep_scale, stream
+    "a2v_alibi_attention": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F)
+    + _DROP + (_P,),
+    # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
+    # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
+    # keep_scale, stream
+    "a2v_alibi_attention_bwd_dq": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
+    + _DROP + (_P,),
+    # as bwd_dq with dk, dv in place of dq, dslope_part
+    "a2v_alibi_attention_bwd_dkv": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
+    + _DROP + (_P,),
     # x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale, ln2_bias, r, h, t,
-    # x_out, N, C, M, eps, stream
-    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _P),
+    # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
+    # act_scale, post_thresh, post_scale, stream
+    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _P),
 }
 
 
@@ -75,17 +89,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, jobs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    log = []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            (out_dir / "build.log").write_text("\n".join(log))
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+           *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
+    log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees whole files only
     return lib
 

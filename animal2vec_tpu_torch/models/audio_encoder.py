@@ -35,8 +35,16 @@ class PosConvBlock(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, cfg: FinetuneConfig):
+    """``local_grad_mult`` scales the gradient into the conv frontend
+    (``grad_multiply``, ``audio_encoder.py:32-39, 169-177``); at 0 the frontend
+    runs under ``torch.no_grad()``, which stops the gradient as JAX's
+    ``stop_gradient`` does and keeps no activations for a backward. The
+    prenet takes ``prenet_dropout``, ``layerdrop`` and the block rates."""
+
+    def __init__(self, cfg: FinetuneConfig, local_grad_mult: float = 1.0,
+                 prenet_dropout: float = 0.0, layerdrop: float = 0.0, **rates: float):
         super().__init__()
+        self.local_grad_mult = local_grad_mult
         self.conv_layers = [tuple(c) for c in cfg.conv_layers]
         feature_dim = self.conv_layers[-1][0]
         self.local_encoder = ConvFeatureExtractor(
@@ -50,7 +58,8 @@ class AudioEncoder(nn.Module):
             for _ in range(cfg.conv_pos_depth)
         )
         self.context_encoder = PrenetEncoder(
-            cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps
+            cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps,
+            prenet_dropout, layerdrop, **rates,
         )
         # one learned scale per head shared by all layers: (1, 1, H, 1, 1)
         self.alibi_scale = nn.Parameter(
@@ -63,7 +72,15 @@ class AudioEncoder(nn.Module):
 
     def local_features(self, source: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, T_wav) -> (B, T_feat, embed): conv stack + fp32 LN + linear."""
-        x = self.project_norm(self.local_encoder(source, dtype))
+        mult = self.local_grad_mult
+        if mult == 0.0:
+            with torch.no_grad():
+                x = self.local_encoder(source, dtype)
+        else:
+            x = self.local_encoder(source, dtype)
+            if mult != 1.0:
+                x = x * mult + x.detach() * (1.0 - mult)
+        x = self.project_norm(x)
         w = self.project_linear
         return F.linear(x, w.weight.to(x.dtype), w.bias.to(x.dtype))
 
@@ -72,8 +89,8 @@ class AudioEncoder(nn.Module):
             x = blk(x)
         return x
 
-    def prenet(self, x, padding_mask, bias: AlibiSpec) -> torch.Tensor:
-        return self.context_encoder(x, padding_mask, bias)
+    def prenet(self, x, padding_mask, bias: AlibiSpec, rngs=None) -> torch.Tensor:
+        return self.context_encoder(x, padding_mask, bias, rngs)
 
     def alibi_spec(self, positions: torch.Tensor) -> AlibiSpec:
         """Structured ALiBi with the learned scale, clipped at 0, folded into

@@ -1,9 +1,14 @@
-"""Inference arm of the data2vec-2 encoder: the port of
+"""The data2vec-2 encoder of the finetune model: the port of
 ``animal2vec_tpu/models/data2vec2.Data2VecMulti.extract_features`` and
-``encode`` with no masking (``data2vec2.py:215-374``, ``:443-478``).
+``encode`` without keep-set removal (``data2vec2.py:215-374``, ``:443-478``).
+
+Training applies masking as regularization in place: masked time steps are
+zeroed or, with ``zero_mask`` False, filled with ``mask_noise_std * N(0, 1)``,
+and a channel mask zeroes whole feature channels, before the relative
+positions (``data2vec2.py:250-272``). Positions stay batch-uniform (1, T).
 
 The JAX trunk pads the sequence to the TPU kernel's block length
-(``data2vec2.py:318-344``); the port does not, the attention kernel masks the
+(``data2vec2.py:318-344``); the port does not, the attention kernels mask the
 ragged tail by bounds.
 """
 
@@ -17,36 +22,66 @@ import torch.nn as nn
 from animal2vec_tpu_torch.config import FinetuneConfig
 from animal2vec_tpu_torch.models.audio_encoder import AudioEncoder
 from animal2vec_tpu_torch.models.modules import BlockStack
+from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
+from animal2vec_tpu_torch.ops.masking import apply_mask
 
 
 class Data2VecMulti(nn.Module):
-    def __init__(self, cfg: FinetuneConfig, dtype: torch.dtype = torch.float32):
+    """``rates`` are the training dropouts (all 0 for inference):
+    ``encoder_dropout``, ``attention_dropout``, ``activation_dropout`` and
+    ``post_mlp_drop`` for every block, ``layerdrop`` and ``prenet_dropout``,
+    ``dropout_input`` after the prenet, ``local_grad_mult`` for the frontend
+    and ``mask_noise_std`` for the noise fill."""
+
+    def __init__(self, cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
+                 local_grad_mult: float = 1.0, layerdrop: float = 0.0,
+                 prenet_dropout: float = 0.0, dropout_input: float = 0.0,
+                 mask_noise_std: float = 0.01, **rates: float):
         super().__init__()
         self.dtype = dtype
-        self.audio_encoder = AudioEncoder(cfg)
+        self.dropout_input, self.mask_noise_std = dropout_input, mask_noise_std
+        self.audio_encoder = AudioEncoder(cfg, local_grad_mult, prenet_dropout, layerdrop,
+                                          **rates)
         self.blocks = BlockStack(
-            cfg.depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps
+            cfg.depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps, layerdrop,
+            **rates,
         )
 
-    def encode(self, local: torch.Tensor, padding_mask: Optional[torch.Tensor] = None):
-        """Relative positions, prenet and trunk on (B, T, C) local features;
-        returns (x, per-layer taps, padding_mask)."""
+    def encode(self, local: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None,
+               channel_mask: Optional[torch.Tensor] = None, zero_mask: bool = True,
+               rngs: Optional[Rngs] = None):
+        """Masking, relative positions, prenet and trunk on (B, T, C) local
+        features; returns (x, per-layer taps, padding_mask, layer keeps)."""
         enc = self.audio_encoder
-        x = local + enc.relative_positions(local)
+        x = local
+        if mask is not None:
+            x = apply_mask(x, mask.to(x.device), zero_mask, self.mask_noise_std,
+                           None if zero_mask else rngs.device)
+        if channel_mask is not None:
+            x = x * (1 - channel_mask.to(x.device, x.dtype)[:, None, :])
+        x = x + enc.relative_positions(x)
         # (1, T): batch-uniform contiguous positions (the kernel's uniform case)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
         bias = enc.alibi_spec(positions)
-        x = enc.prenet(x, padding_mask, bias)
-        x, taps = self.blocks(x, padding_mask, bias)
-        return x, taps, padding_mask
+        x = enc.prenet(x, padding_mask, bias, rngs)
+        if self.training and self.dropout_input > 0.0:
+            x = dropout(x, self.dropout_input, rngs.device)
+        x, taps, keeps = self.blocks(x, padding_mask, bias, rngs)
+        return x, taps, padding_mask, keeps
 
     def extract_features(self, source: torch.Tensor,
-                         padding_mask: Optional[torch.Tensor] = None) -> dict:
+                         padding_mask: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         channel_mask: Optional[torch.Tensor] = None,
+                         zero_mask: bool = True, rngs: Optional[Rngs] = None) -> dict:
         """(B, T_wav) waveform -> {"x", "layer_results" (list of taps),
-        "padding_mask"}."""
+        "padding_mask", "layer_keeps"}; ``mask`` (B, T_feat) and
+        ``channel_mask`` (B, C) are 0/1, 1 = masked."""
         enc = self.audio_encoder
         local = enc.local_features(source, self.dtype)
         if padding_mask is not None:
             padding_mask = enc.convert_padding_mask(padding_mask, local.shape[1])
-        x, taps, pad = self.encode(local, padding_mask)
-        return {"x": x, "layer_results": taps, "padding_mask": pad}
+        x, taps, pad, keeps = self.encode(local, padding_mask, mask, channel_mask, zero_mask,
+                                          rngs)
+        return {"x": x, "layer_results": taps, "padding_mask": pad, "layer_keeps": keeps}

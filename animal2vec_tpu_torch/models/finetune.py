@@ -1,8 +1,18 @@
-"""Frame-level multi-label finetune model for inference: the port of
+"""Frame-level multi-label finetune model: the port of
 ``animal2vec_tpu/models/finetune.FinetuneModel`` and
 ``train/build.build_finetune_model``.
 
-encoder -> fp32 mean of the last k trunk MLP taps, cast back -> Linear.
+encoder -> fp32 mean of the last k kept trunk MLP taps, cast back -> freeze
+gate -> final dropout -> Linear.
+
+With ``train`` (a ``FinetuneTrainConfig``) the encoder gets the recipe's
+dropouts, layerdrop and frontend gradient scale as
+``train/build.build_finetune_encoder_cfg`` maps them; without it every rate
+is 0 (inference). The freeze gate (``finetune.py:69-76``): with
+``finetune_encoder`` False the encoder runs under ``torch.no_grad()``, so
+only the head gets gradients and no encoder backward runs; JAX returns
+zero gradients there, which the optimizer reproduces by filling zeros
+(``train.optim``).
 """
 
 from __future__ import annotations
@@ -14,26 +24,55 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.config import FinetuneConfig
+from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
 from animal2vec_tpu_torch.models.modules import top_k_tap_average
+from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
+
+
+def encoder_rates(train: Optional[FinetuneTrainConfig]) -> dict:
+    """The encoder's keyword rates for a training recipe (all 0 for None),
+    as ``build_finetune_encoder_cfg`` (``train/build.py:56-82``) sets them."""
+    if train is None:
+        return {}
+    return dict(
+        local_grad_mult=train.feature_grad_mult, layerdrop=train.layerdrop,
+        prenet_dropout=train.dropout, dropout_input=train.dropout_input,
+        mask_noise_std=train.mask_noise_std, encoder_dropout=train.dropout,
+        attention_dropout=train.attention_dropout,
+        activation_dropout=train.activation_dropout, post_mlp_drop=train.dropout,
+    )
 
 
 class FinetuneModel(nn.Module):
-    def __init__(self, cfg: FinetuneConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
+                 train: Optional[FinetuneTrainConfig] = None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Data2VecMulti(cfg, dtype)
+        self.final_dropout = 0.0 if train is None else train.final_dropout
+        self.zero_mask = True if train is None else train.zero_mask
+        self.encoder = Data2VecMulti(cfg, dtype, **encoder_rates(train))
         self.proj = nn.Linear(cfg.embed_dim, len(cfg.labels))
 
     def forward(self, source: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> dict:
+                padding_mask: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                channel_mask: Optional[torch.Tensor] = None,
+                finetune_encoder: bool = True,
+                rngs: Optional[Rngs] = None) -> dict:
         """(B, T_wav) -> {"encoder_out": (B, T, n_classes) logits in the
-        compute dtype, "padding_mask", "layer_results": per-layer taps}."""
-        res = self.encoder.extract_features(source, padding_mask)
-        taps = res["layer_results"]
-        x = top_k_tap_average(taps, self.cfg.average_top_k_layers).to(taps[-1].dtype)
+        compute dtype, "padding_mask", "layer_results": per-layer taps}.
+        ``mask``/``channel_mask`` apply masking as regularization;
+        ``finetune_encoder`` is the freeze gate."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and finetune_encoder):
+            res = self.encoder.extract_features(source, padding_mask, mask, channel_mask,
+                                                self.zero_mask, rngs)
+            taps = res["layer_results"]
+            x = top_k_tap_average(taps, self.cfg.average_top_k_layers,
+                                  res["layer_keeps"]).to(taps[-1].dtype)
+        if self.training and self.final_dropout > 0.0:
+            x = dropout(x, self.final_dropout, rngs.device)
         logits = F.linear(x, self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype))
         return {
             "encoder_out": logits,
@@ -61,9 +100,16 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
-                         seed: int = 0) -> FinetuneModel:
-    """An fp32 FinetuneModel on the CPU, initialized from ``seed``, that
-    computes in ``dtype``."""
-    model = FinetuneModel(cfg, dtype)
+                         seed: int = 0, device="cuda",
+                         train: Optional[FinetuneTrainConfig] = None) -> FinetuneModel:
+    """An fp32 FinetuneModel on ``device`` (the card unless the caller asks
+    for the CPU) that computes in ``dtype``, in eval mode. The weights are
+    drawn from ``seed`` on a CPU generator, so they do not depend on the
+    device. ``train`` gives the training recipe's rates."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_finetune_model: CUDA is not available; "
+                           "pass device='cpu' to build on the CPU")
+    model = FinetuneModel(cfg, dtype, train)
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.eval()
+    return model.to(device).eval()

@@ -1,26 +1,35 @@
-"""Transformer building blocks of the inference path: the port of
-``animal2vec_tpu/models/modules.py`` (post-LN AltBlock serving arm,
-feature-last (B, T, C) layout).
+"""Transformer building blocks: the port of ``animal2vec_tpu/models/modules.py``
+(post-LN AltBlock, feature-last (B, T, C) layout), with its serving and
+training arms.
 
 Each module computes in the dtype of its input and casts its weights to it
-at use (a no-op once ``weights.serving_cast`` stored them in bf16); LayerNorm
-statistics are fp32. The per-block work goes through two ops with CUDA
-kernels: ``ops.attention.alibi_flash_attention_packed`` and
-``ops.fused_mlp.fused_block_mlp``. Where JAX scans over stacked per-layer
+at use (a no-op once ``weights.serving_cast`` stored them in bf16; in
+training the fp32 master weights are cast, and autograd carries the
+gradient back to them); LayerNorm statistics are fp32. The per-block work
+goes through ops with CUDA kernels: ``ops.attention.alibi_flash_attention_btc``
+and ``ops.fused_mlp.fused_block_mlp``, each of which launches its bare
+forward when no gradient is wanted and its autograd Function otherwise. Where JAX scans over stacked per-layer
 params, the port loops over one module per layer.
+
+Training arms run when the module is in ``train()`` mode. Their random
+draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
+the int32 hash seeds of the kernels on its host generator, elementwise
+dropout masks on its device generator. Drop-path is not ported (the
+finetune recipe sets it to 0).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from animal2vec_tpu_torch.models.attention import AlibiSpec
-from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_packed
+from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_btc
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
+from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
 
 
@@ -61,44 +70,45 @@ def conv1d_same(
     return F.conv1d(xb, w, b, stride=stride, groups=groups).transpose(1, 2)
 
 
-class QKVProj(nn.Linear):
-    """Fused qkv projection straight into the kernel's packed
-    (3, B, H, T, E) layout."""
-
-    def forward(self, x: torch.Tensor, heads: int) -> torch.Tensor:
-        b, t, _ = x.shape
-        y = F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
-        e = y.shape[-1] // (3 * heads)
-        return y.view(b, t, 3, heads, e).permute(2, 0, 3, 1, 4).contiguous()
+def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
-class OutProj(nn.Linear):
-    """Attention output projection from the kernel's (B, H, T, E) layout."""
-
-    def forward(self, out: torch.Tensor) -> torch.Tensor:
-        b, h, t, e = out.shape
-        y = out.permute(0, 2, 1, 3).reshape(b, t, h * e)
-        return F.linear(y, self.weight.to(y.dtype), self.bias.to(y.dtype))
+def _need(rngs: Optional[Rngs], what: str) -> Rngs:
+    if rngs is None:
+        raise ValueError(f"{what} in training mode needs an Rngs")
+    return rngs
 
 
 class AltAttention(nn.Module):
-    """Multi-head self-attention with structured ALiBi bias (serving arm of
-    ``AltAttention``, ``modules.py:422-432``)."""
+    """Multi-head self-attention with structured ALiBi bias (``AltAttention``,
+    ``modules.py:374-446``) through the (B, T, 3C) entry; in training with
+    in-kernel hash dropout at ``attn_drop`` (one int32 seed per call) and
+    ``proj_drop`` after the out projection."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = QKVProj(dim, 3 * dim)
-        self.proj = OutProj(dim, dim)
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
-        packed = self.qkv(x, self.num_heads)
-        out = alibi_flash_attention_packed(
-            packed, bias.slopes, bias.positions, padding_mask, bias.has_sentinel
+        seed, rate = None, 0.0
+        if self.training and self.attn_drop > 0.0:
+            seed, rate = _need(rngs, "attention dropout").int32_seeds(1)[0], self.attn_drop
+        out = alibi_flash_attention_btc(
+            _linear(x, self.qkv), self.num_heads, bias.slopes, bias.positions, padding_mask,
+            bias.has_sentinel, rate, seed,
         )
-        return self.proj(out)
+        out = _linear(out, self.proj)
+        if self.training and self.proj_drop > 0.0:
+            out = dropout(out, self.proj_drop, _need(rngs, "dropout").device)
+        return out
 
 
 class Mlp(nn.Module):
@@ -113,67 +123,109 @@ class Mlp(nn.Module):
 class AltBlock(nn.Module):
     """Post-LN transformer block returning (x, layer tap) (``AltBlock``
     post-LN branch, ``modules.py:557-643``). The tap is the MLP output ``t``,
-    not the block output."""
+    not the block output. In training the fused block applies the hash
+    dropout at its three sites (after GELU and after fc2 at
+    ``activation_dropout``, on the residual branch at ``post_mlp_drop``)
+    from three int32 seeds."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, encoder_dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 post_mlp_drop: float = 0.0):
         super().__init__()
         self.eps = eps
-        self.attn = AltAttention(dim, num_heads)
+        self.act_rate, self.post_rate = activation_dropout, post_mlp_drop
+        self.attn = AltAttention(dim, num_heads, attention_dropout, encoder_dropout)
         self.norm1 = Fp32LayerNorm(dim, eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.norm2 = Fp32LayerNorm(dim, eps)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        rngs: Optional[Rngs] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = x + self.attn(x, padding_mask, bias)
+        x = x + self.attn(x, padding_mask, bias, rngs)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        seeds, act_rate, post_rate = None, 0.0, 0.0
+        if self.training and (self.act_rate > 0.0 or self.post_rate > 0.0):
+            seeds = _need(rngs, "block dropout").int32_seeds(3)
+            act_rate, post_rate = self.act_rate, self.post_rate
         return fused_block_mlp(
-            x, self.norm1.weight, self.norm1.bias, fc1.weight.t(), fc2.weight.t(),
-            fc1.bias, fc2.bias, self.norm2.weight, self.norm2.bias, self.eps,
+            x, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
+            fc2.weight.to(x.dtype).t(), fc1.bias, fc2.bias, self.norm2.weight,
+            self.norm2.bias, self.eps, seeds, act_rate, post_rate,
         )
 
 
 class BlockStack(nn.Module):
-    """``depth`` AltBlocks run in a loop (``BlockStack``); returns (x, taps)
-    with one (B, T, C) tap per layer."""
+    """``depth`` AltBlocks run in a loop (``BlockStack``); returns (x, taps,
+    keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
+    each layer is kept with probability 1 - layerdrop, drawn on the host: a
+    dropped layer is skipped, its tap is its input x and its keep is 0
+    (``modules.py:768-775``). ``keeps`` is None when no layer can drop."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
-                 eps: float):
+                 eps: float, layerdrop: float = 0.0, **rates: float):
         super().__init__()
+        self.layerdrop = layerdrop
         self.layers = nn.ModuleList(
-            AltBlock(dim, num_heads, mlp_ratio, eps) for _ in range(depth)
+            AltBlock(dim, num_heads, mlp_ratio, eps, **rates) for _ in range(depth)
         )
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec
-    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        taps = []
-        for block in self.layers:
-            x, tap = block(x, padding_mask, bias)
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        rngs: Optional[Rngs] = None,
+    ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[List[float]]]:
+        drop = self.training and self.layerdrop > 0.0
+        if drop:
+            draws = torch.rand((len(self.layers),), generator=_need(rngs, "layerdrop").host)
+        taps, keeps = [], []
+        for i, block in enumerate(self.layers):
+            if drop and float(draws[i]) < self.layerdrop:
+                taps.append(x)
+                keeps.append(0.0)
+                continue
+            x, tap = block(x, padding_mask, bias, rngs)
             taps.append(tap)
-        return x, taps
+            keeps.append(1.0)
+        return x, taps, keeps if drop else None
 
 
-def top_k_tap_average(taps: List[torch.Tensor], k: int) -> torch.Tensor:
-    """fp32 mean of the last ``k`` layer taps (``top_k_tap_average`` with no
-    layerdrop, ``modules.py:915-929``)."""
-    return torch.stack(taps[-k:]).float().mean(dim=0)
+def top_k_tap_average(taps: Sequence[torch.Tensor], k: int,
+                      keeps: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """fp32 mean of the last ``k`` kept layer taps (``top_k_tap_average``,
+    ``modules.py:915-933``): layer i counts when it is kept and at most k - 1
+    kept layers follow it; ``keeps`` None keeps every layer."""
+    if keeps is None:
+        return torch.stack(list(taps[-k:])).float().mean(dim=0)
+    chosen, later = [], 0.0
+    for tap, keep in zip(reversed(taps), reversed(keeps)):
+        later += keep
+        if keep and later <= k:
+            chosen.append(tap)
+    if not chosen:  # every layer dropped: the JAX weights are all 0
+        return torch.zeros_like(taps[-1], dtype=torch.float32)
+    return torch.stack(chosen).float().sum(dim=0) / len(chosen)
 
 
 class PrenetEncoder(nn.Module):
-    """Post-LN prenet: LayerNorm first, then the block stack; its taps are
-    discarded (``PrenetEncoder``, ``modules.py:936-974``)."""
+    """Post-LN prenet: LayerNorm first, then dropout and the block stack;
+    its taps are discarded (``PrenetEncoder``, ``modules.py:936-974``)."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
-                 eps: float):
+                 eps: float, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
+                 **rates: float):
         super().__init__()
+        self.prenet_dropout = prenet_dropout
         self.norm = Fp32LayerNorm(dim, eps)
-        self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps)
+        self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps, layerdrop, **rates)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
-        x, _ = self.blocks(self.norm(x), padding_mask, bias)
+        x = self.norm(x)
+        if self.training and self.prenet_dropout > 0.0:
+            x = dropout(x, self.prenet_dropout, _need(rngs, "prenet dropout").device)
+        x, _, _ = self.blocks(x, padding_mask, bias, rngs)
         return x

@@ -1,41 +1,62 @@
-"""ALiBi attention over packed qkv: the port of
-``animal2vec_tpu/ops/pallas_attention.alibi_flash_attention_packed``.
+"""ALiBi flash attention over packed qkv: the port of
+``animal2vec_tpu/ops/pallas_attention.alibi_flash_attention_packed`` (the
+forward) and ``alibi_flash_attention_btc`` (the training entry, with the
+backward kernels).
 
-``alibi_flash_attention_packed`` keeps the JAX signature and layout:
-``qkv`` (3, B, H, T, D), ``positions`` (1, T) when batch-uniform or (B, T),
-``padding_mask`` (B, T) bool (True = padded key) or None, output
-(B, H, T, D). On a CUDA tensor it launches the hand-written kernel
-(``csrc/alibi_attention.cu``); on a CPU tensor it runs
-``alibi_attention_plain``, a transcription of the JAX
-``_reference_attention``; any other device raises.
+``alibi_flash_attention_packed`` keeps the JAX layout: ``qkv`` (3, B, H, T,
+D), ``positions`` (1, T) when batch-uniform or (B, T), ``padding_mask``
+(B, T) bool (True = padded key) or None, output (B, H, T, D), and with
+``return_lse`` the (B*H, T) fp32 logsumexp the backward reads. On a CUDA
+tensor it launches the hand-written kernel (``csrc/alibi_attention.cu``);
+on a CPU tensor it runs ``alibi_attention_plain``, a transcription of the
+JAX ``_reference_attention``; any other device raises.
 
-Semantics (both versions): scores ``q.k / sqrt(D) - slope_h * |pos_i -
+``alibi_flash_attention_btc`` is the model's entry, for serving and
+training: (B, T, 3C) in, (B, T, C) out, differentiable in ``qkv_btc`` and
+``slopes``. On CUDA with no gradient wanted (grad mode off, or neither
+input requires grad) it copies qkv into the packed layout and makes one
+forward launch without lse. Otherwise it is a
+``torch.autograd.Function`` whose forward copies qkv into the packed layout,
+launches the forward kernel with the lse output and saves the packed qkv,
+the output and the lse (the packed copy takes the place of the JAX entry's
+(B, T, 3C) residual: the same bytes, and the backward needs no second layout
+copy); its backward computes ``delta = rowsum(dO * O)`` in fp32 with one
+torch op and launches the dq kernel (``attention_dq``, with one slope
+partial per (b, h, 64-query tile), summed here) and the dk/dv kernel
+(``attention_dkv``) of ``csrc/alibi_attention_bwd.cu``. On CPU tensors
+autograd through ``alibi_attention_plain`` is the backward.
+
+Semantics (all versions): scores ``q.k / sqrt(D) - slope_h * |pos_i -
 pos_j|`` in fp32, zero bias where either position is < 0 when
 ``has_sentinel``, padded keys replaced by a finite -1e9 (a row whose keys are
 all padded returns the mean of V over the T keys; the TPU kernel also
-averages its zero pad keys there), fp32 softmax.
+averages its zero pad keys there), fp32 softmax. Attention dropout scales
+the normalized weights by ``keep / (1 - rate)`` with the hash mask of
+``ops.dropout.dropout_keep`` over (seed, b*H + h, query, key), after the
+undropped denominator. Gradients follow the math: the -1e9 fill of a padded
+key is a constant, so no gradient reaches q, k or the slopes through it.
+The TPU backward kernels agree on every row that has a live key; in a row
+whose keys are all padded they take exp(-1e9 - lse) = 1 (lse rounds to
+-1e9) and pass gradient through the fill (see the kernel's note).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
 
 NEG_INF = -1e9
+DEAD_LSE = -5e8  # an lse below this marks a query row whose keys are all padded
+Q_TILE = 64  # query rows per block of the dq kernel: one slope partial each
 
 
-def alibi_attention_plain(
-    qkv: torch.Tensor,
-    slopes: torch.Tensor,
-    positions: torch.Tensor,
-    padding_mask: Optional[torch.Tensor] = None,
-    has_sentinel: bool = False,
-) -> torch.Tensor:
-    """Materialized-score reference of the kernel (any device)."""
-    q, k, v = qkv.unbind(0)  # (B, H, T, D) each
+def _scores(qkv, slopes, positions, padding_mask, has_sentinel):
+    """fp32 scores (B, H, T, T) and the ALiBi distances (1 or B, T, T)."""
+    q, k, _ = qkv.unbind(0)  # (B, H, T, D) each
     d = q.shape[-1]
     logits = torch.matmul(q.float() * d**-0.5, k.float().transpose(-1, -2))
     pos = positions.float()  # (1 or B, T)
@@ -45,29 +66,102 @@ def alibi_attention_plain(
     logits = logits + (-dist)[:, None] * slopes.float()[None, :, None, None]
     if padding_mask is not None:
         logits = logits.masked_fill(padding_mask.bool()[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(q.dtype), v)
+    return logits, dist
 
 
-def alibi_flash_attention_packed(
+def _keep_factor(b, h, t, rate, seed, device):
+    """(B, H, T, T) fp32 dropout factor keep / (1 - rate)."""
+    bh = (torch.arange(b, device=device)[:, None] * h
+          + torch.arange(h, device=device)[None, :])[:, :, None, None]
+    rows = torch.arange(t, device=device)[None, None, :, None]
+    cols = torch.arange(t, device=device)[None, None, None, :]
+    return dropout_keep(int(seed), bh, rows, cols, rate) / (1.0 - rate)
+
+
+def alibi_attention_plain(
     qkv: torch.Tensor,
     slopes: torch.Tensor,
     positions: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     has_sentinel: bool = False,
-) -> torch.Tensor:
-    """Inference ALiBi attention; kernel on CUDA, plain version on CPU."""
-    if qkv.device.type == "cpu":
-        return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"alibi attention runs on cuda or cpu tensors, got {qkv.device}")
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+    return_lse: bool = False,
+):
+    """Materialized-score reference of the forward kernel (any device);
+    differentiable. With ``return_lse`` returns (out, lse (B*H, T) fp32)."""
+    logits, _ = _scores(qkv, slopes, positions, padding_mask, has_sentinel)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        b, h, t, _ = probs.shape
+        probs = probs * _keep_factor(b, h, t, dropout_rate, seed, probs.device)
+    out = torch.matmul(probs.to(qkv.dtype), qkv[2])
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(-1, logits.shape[2])
+
+
+def attention_bwd_plain(
+    qkv: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = False,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference of the two backward kernels on their inputs (the forward's
+    lse, delta = rowsum(dO * O), both (B*H, T) fp32), written out on
+    materialized fp32 scores with the kernels' roundings (P * f and dS cast
+    to qkv's dtype before their products). Returns dqkv (3, B, H, T, D) in
+    qkv's dtype and the slope partials (B, H, ceil(T / 64)) fp32, one per
+    query tile of the dq kernel; the partials use the row's delta summed
+    from P and dP, not ``delta`` (see ``csrc/alibi_attention_bwd.cu``)."""
+    b, h, t, d = qkv.shape[1:]
+    logits, dist = _scores(qkv, slopes, positions, padding_mask, has_sentinel)
+    lse = lse.reshape(b, h, t, 1)
+    # a row whose keys are all padded (lse rounds to -1e9) weighs them 1/T
+    p = torch.where(lse < DEAD_LSE, 1.0 / t, torch.exp(logits - lse))
+    f = (_keep_factor(b, h, t, dropout_rate, seed, p.device) if dropout_rate > 0.0
+         else torch.ones((), device=p.device))
+    q, k, v = (x.float() for x in qkv.unbind(0))
+    do = dout.float()
+    dpf = torch.matmul(do, v.transpose(-1, -2)) * f
+    ds = p * (dpf - delta.reshape(b, h, t, 1))
+    p_live = p
+    if padding_mask is not None:
+        padded = padding_mask.bool()[:, None, None, :]
+        ds = ds.masked_fill(padded, 0.0)
+        p_live = p.masked_fill(padded, 0.0)
+    ds_r = ds.to(qkv.dtype).float()
+    scale = d**-0.5
+    dq = scale * torch.matmul(ds_r, k)
+    dk = scale * torch.matmul(ds_r.transpose(-1, -2), q)
+    dv = torch.matmul((p * f).to(qkv.dtype).float().transpose(-1, -2), do)
+    n_qt = -(-t // Q_TILE)
+    # the slope gradient -sum_j dS dist with the row's delta recomputed as
+    # sum_j P f dP, as the dq kernel sums it
+    pdp = p_live * dpf
+    dist = dist[:, None]
+    per_row = -((pdp * dist).sum(-1) - pdp.sum(-1) * (p_live * dist).sum(-1))  # (B, H, T)
+    per_row = torch.nn.functional.pad(per_row, (0, n_qt * Q_TILE - t))
+    parts = per_row.reshape(b, h, n_qt, Q_TILE).sum(-1)
+    return torch.stack([dq, dk, dv]).to(qkv.dtype), parts
+
+
+def _kernel_args(qkv, slopes, positions, padding_mask):
+    """Check the kernels' inputs; return (b, h, t, d, slopes fp32, positions
+    int32, pos_per_row, mask uint8 or None, mask_per_row)."""
     if qkv.dim() != 5 or qkv.shape[0] != 3:
         raise ValueError(f"qkv must be (3, B, H, T, D), got {tuple(qkv.shape)}")
     _, b, h, t, d = qkv.shape
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError(f"the kernel takes contiguous bf16 qkv, got {qkv.dtype}")
+        raise ValueError(f"the kernels take contiguous bf16 qkv, got {qkv.dtype}")
     if d != 64:
-        raise ValueError(f"the kernel is built for head dim 64, got {d}")
+        raise ValueError(f"the kernels are built for head dim 64, got {d}")
     if positions.dim() != 2 or positions.shape[1] != t or positions.shape[0] not in (1, b):
         raise ValueError(f"positions must be (1, T) or (B, T), got {tuple(positions.shape)}")
     if slopes.shape != (h,):
@@ -75,7 +169,7 @@ def alibi_flash_attention_packed(
     tensors = [slopes, positions] + ([] if padding_mask is None else [padding_mask])
     if any(x.device != qkv.device for x in tensors):
         raise ValueError("slopes, positions and padding_mask must be on qkv's device")
-    slopes = slopes.to(torch.float32).contiguous()
+    slopes = slopes.detach().to(torch.float32).contiguous()
     positions = positions.to(torch.int32).contiguous()
     mask_per_row = 0
     if padding_mask is not None:
@@ -85,18 +179,212 @@ def alibi_flash_attention_packed(
             )
         padding_mask = padding_mask.to(torch.bool).contiguous()
         mask_per_row = int(padding_mask.shape[0] == b and b > 1)
+    pos_per_row = int(positions.shape[0] == b and b > 1)
+    return b, h, t, d, slopes, positions, pos_per_row, padding_mask, mask_per_row
+
+
+def _dropout_args(dropout_rate: float, seed):
+    """(seed, uint32 threshold, keep scale) of a launch."""
+    if dropout_rate == 0.0:
+        return 0, 0, 1.0
+    if seed is None:
+        raise ValueError("a nonzero dropout_rate needs an int32 seed")
+    return int(seed), keep_threshold(dropout_rate), keep_scale(dropout_rate)
+
+
+def _check_device(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
+
+
+def alibi_flash_attention_packed(
+    qkv: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = False,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+    return_lse: bool = False,
+):
+    """ALiBi attention forward; kernel on CUDA, plain version on CPU. With
+    ``return_lse`` returns (out, lse); serving calls (no lse, no dropout)
+    take the kernel's inference template."""
+    if qkv.device.type == "cpu":
+        return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
+                                     dropout_rate, seed, return_lse)
+    _check_device(qkv, "alibi attention")
+    b, h, t, d, slopes, positions, pos_per_row, padding_mask, mask_per_row = _kernel_args(
+        qkv, slopes, positions, padding_mask
+    )
+    seed_i, thresh, scale = _dropout_args(dropout_rate, seed)
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention(
-            qkv.data_ptr(), slopes.data_ptr(), positions.data_ptr(),
-            int(positions.shape[0] == b and b > 1),
+            qkv.data_ptr(), slopes.data_ptr(), positions.data_ptr(), pos_per_row,
             None if padding_mask is None else padding_mask.data_ptr(), mask_per_row,
-            out.data_ptr(), b, h, t, d, int(has_sentinel), d**-0.5, stream,
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t, d,
+            int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
         )
     check(err, "alibi attention kernel")
     alibi_flash_attention_packed.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 alibi_flash_attention_packed.launches = 0
+
+
+def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed):
+    args = _kernel_args(qkv, slopes, positions, padding_mask)
+    b, h, t, d = args[:4]
+    for name, x, shape, dtype in (("dout", dout, (b, h, t, d), torch.bfloat16),
+                                  ("lse", lse, (b * h, t), torch.float32),
+                                  ("delta", delta, (b * h, t), torch.float32)):
+        if x.shape != shape or x.dtype != dtype or not x.is_contiguous() \
+                or x.device != qkv.device:
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} on qkv's device, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return args, _dropout_args(dropout_rate, seed)
+
+
+def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
+                 has_sentinel=False, dropout_rate=0.0, seed=None, dq=None):
+    """dq (B, H, T, D) and the slope partials (B, H, ceil(T / 64)) of the
+    flash backward. ``dq`` may be a preallocated contiguous output (a plane
+    of the (3, B, H, T, D) gradient). Kernel on CUDA, ``attention_bwd_plain``
+    on CPU."""
+    if qkv.device.type == "cpu":
+        dqkv, parts = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions,
+                                          padding_mask, has_sentinel, dropout_rate, seed)
+        return dqkv[0], parts
+    _check_device(qkv, "alibi attention dq")
+    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale) = \
+        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed)
+    if dq is None:
+        dq = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    parts = torch.empty((b, h, -(-t // Q_TILE)), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_bwd_dq(
+            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
+            pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
+            mask_per_row, dq.data_ptr(), parts.data_ptr(), b, h, t, d, int(has_sentinel),
+            d**-0.5, seed_i, thresh, scale, stream,
+        )
+    check(err, "alibi attention dq kernel")
+    attention_dq.launches += 1
+    return dq, parts
+
+
+attention_dq.launches = 0
+
+
+def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
+                  has_sentinel=False, dropout_rate=0.0, seed=None, dk=None, dv=None):
+    """dk and dv (B, H, T, D) of the flash backward; optional preallocated
+    contiguous outputs. Kernel on CUDA, ``attention_bwd_plain`` on CPU."""
+    if qkv.device.type == "cpu":
+        dqkv, _ = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions, padding_mask,
+                                      has_sentinel, dropout_rate, seed)
+        return dqkv[1], dqkv[2]
+    _check_device(qkv, "alibi attention dk/dv")
+    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale) = \
+        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed)
+    if dk is None:
+        dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    if dv is None:
+        dv = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_bwd_dkv(
+            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
+            pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
+            mask_per_row, dk.data_ptr(), dv.data_ptr(), b, h, t, d, int(has_sentinel),
+            d**-0.5, seed_i, thresh, scale, stream,
+        )
+    check(err, "alibi attention dk/dv kernel")
+    attention_dkv.launches += 1
+    return dk, dv
+
+
+attention_dkv.launches = 0
+
+
+def btc_to_packed(qkv_btc: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, T, 3C) -> contiguous (3, B, H, T, C/H)."""
+    b, t, c3 = qkv_btc.shape
+    return qkv_btc.reshape(b, t, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4).contiguous()
+
+
+def _bhtd_to_btc(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, e = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * e)
+
+
+class _AttentionBTC(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv_btc, slopes, heads, positions, padding_mask, has_sentinel,
+                dropout_rate, seed):
+        packed = btc_to_packed(qkv_btc, heads)
+        out, lse = alibi_flash_attention_packed(
+            packed, slopes, positions, padding_mask, has_sentinel, dropout_rate, seed,
+            return_lse=True,
+        )
+        ctx.save_for_backward(packed, slopes, positions, padding_mask, out, lse)
+        ctx.conf = (has_sentinel, dropout_rate, seed)
+        return _bhtd_to_btc(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, slopes, positions, padding_mask, out, lse = ctx.saved_tensors
+        has_sentinel, rate, seed = ctx.conf
+        _, b, h, t, e = packed.shape
+        dout = g.reshape(b, t, h, e).permute(0, 2, 1, 3).to(packed.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
+        dqkv = torch.empty_like(packed)
+        args = (packed, dout, lse, delta, slopes, positions, padding_mask, has_sentinel, rate,
+                seed)
+        _, parts = attention_dq(*args, dq=dqkv[0])
+        attention_dkv(*args, dk=dqkv[1], dv=dqkv[2])
+        dqkv_btc = dqkv.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * e)
+        dslopes = parts.sum(dim=(0, 2)).to(slopes.dtype)
+        return dqkv_btc, dslopes, None, None, None, None, None, None
+
+
+def alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask=None,
+                              has_sentinel=False, dropout_rate=0.0, seed=None):
+    """The training entry's plain version (any device; autograd is its
+    backward)."""
+    out = alibi_attention_plain(btc_to_packed(qkv_btc, heads), slopes, positions,
+                                padding_mask, has_sentinel, dropout_rate, seed)
+    return _bhtd_to_btc(out)
+
+
+def alibi_flash_attention_btc(
+    qkv_btc: torch.Tensor,
+    heads: int,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = False,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> torch.Tensor:
+    """The model's attention entry: (B, T, 3C) qkv -> (B, T, C),
+    differentiable in ``qkv_btc`` and ``slopes``. On CUDA the autograd
+    Function (forward with lse, then the backward kernels) when a gradient
+    is wanted, else one forward launch without lse (serving: rate 0 takes
+    the inference template); autograd through the plain version on CPU."""
+    if qkv_btc.device.type == "cpu":
+        return alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask,
+                                         has_sentinel, dropout_rate, seed)
+    _check_device(qkv_btc, "alibi attention")
+    rate = float(dropout_rate)
+    if torch.is_grad_enabled() and (qkv_btc.requires_grad or slopes.requires_grad):
+        return _AttentionBTC.apply(qkv_btc, slopes, heads, positions, padding_mask,
+                                   has_sentinel, rate, seed)
+    out = alibi_flash_attention_packed(btc_to_packed(qkv_btc, heads), slopes, positions,
+                                       padding_mask, has_sentinel, rate, seed)
+    return _bhtd_to_btc(out)

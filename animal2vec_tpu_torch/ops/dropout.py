@@ -1,0 +1,108 @@
+"""Dropout for training: the counter-based hash masks of the kernels and the
+generator-driven masks of plain tensor code.
+
+``dropout_keep`` is the port of ``animal2vec_tpu/ops/pallas_attention.
+_dropout_keep`` (the attention kernels mix the batch*head index into the
+seed) and ``hash_keep`` of ``animal2vec_tpu/ops/fused_mlp._hash_keep`` (the
+fused block, no head index). Both are a murmur-style finalizer over
+(seed, global row, global column) in uint32 arithmetic, so a kernel can
+regenerate the same mask in its backward without storing it. Here the
+uint32 arithmetic runs in int64 masked to 32 bits; the CUDA kernels compute
+the same bits (``csrc/common.cuh``). The keep threshold is computed once on
+the host, ``keep_threshold``, and passed to the kernels as an unsigned
+integer: a float32 computation of ``rate * 2**32`` on the device rounds
+differently.
+
+``Rngs`` carries the two generators a training step draws from: a CPU
+generator for host-side decisions (layerdrop, the int32 kernel seeds, the
+mixup permutation, the span masks), so that no host decision waits on the
+device, and a generator on the compute device for elementwise masks and
+noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_U32 = 0xFFFFFFFF
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold: an element is kept when its hash is >= it."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def keep_scale(rate: float) -> float:
+    """The factor a kept element is multiplied by, ``1 / (1 - rate)``."""
+    return 1.0 / (1.0 - rate)
+
+
+def _as_u32(v) -> torch.Tensor:
+    if not isinstance(v, torch.Tensor):
+        v = torch.tensor(v, dtype=torch.int64)
+    return v.to(torch.int64) & _U32
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2**32 for uint32 values held in int64, in two halves so
+    that no int64 product overflows."""
+    lo = a * (c & 0xFFFF)
+    hi = (a * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
+def _finalize(z: torch.Tensor) -> torch.Tensor:
+    z = z ^ (z >> 15)
+    z = _mul32(z, 0x2C1B3C6D)
+    z = z ^ (z >> 12)
+    z = _mul32(z, 0x297A2D39)
+    return z ^ (z >> 15)
+
+
+def _mix(rows, cols) -> torch.Tensor:
+    return (_mul32(_as_u32(rows), 0x9E3779B1) + _mul32(_as_u32(cols), 0x85EBCA77)) & _U32
+
+
+def dropout_keep(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Attention keep mask (fp32 0/1) over broadcastable int ``bh`` (batch *
+    heads + head), ``rows`` (global query index) and ``cols`` (global key
+    index); ``seed`` is an int32."""
+    z = _mix(rows, cols) ^ ((_as_u32(seed) + _mul32(_as_u32(bh), 0xC2B2AE3D)) & _U32)
+    return (_finalize(z) >= keep_threshold(rate)).to(torch.float32)
+
+
+def hash_keep(seed, rows, cols, rate: float) -> torch.Tensor:
+    """Fused-block keep mask (fp32 0/1) over broadcastable global ``rows``
+    and ``cols``; ``seed`` is an int32."""
+    z = _mix(rows, cols) ^ _as_u32(seed)
+    return (_finalize(z) >= keep_threshold(rate)).to(torch.float32)
+
+
+@dataclasses.dataclass
+class Rngs:
+    host: torch.Generator    # CPU: layerdrop, kernel seeds, mixup, span masks
+    device: torch.Generator  # on the compute device: dropout masks, mask noise
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "Rngs":
+        device = torch.device(device)
+        return cls(torch.Generator().manual_seed(seed),
+                   torch.Generator(device=device).manual_seed(seed + 1))
+
+    def int32_seeds(self, n: int) -> list:
+        """``n`` int32 hash seeds drawn on the host."""
+        draw = torch.randint(INT32_MIN, INT32_MAX + 1, (n,), generator=self.host,
+                             dtype=torch.int64)
+        return [int(s) for s in draw]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator`` (``F.dropout``
+    takes no generator). ``rate`` 0 returns ``x``."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,29 +1,57 @@
 """Fused post-LN MLP sub-block: the port of
-``animal2vec_tpu/ops/fused_mlp.fused_block_mlp`` (inference, no dropout).
+``animal2vec_tpu/ops/fused_mlp.fused_block_mlp`` (bf16 path, with the
+training hash dropout).
 
-    r = LN1(x);  t = fc2(GELU(fc1 r));  x_out = LN2(r + t)  ->  (x_out, t)
+    r = LN1(x);  h = drop_a(GELU(fc1 r));  t = drop_b(fc2 h)
+    x_out = LN2(r + drop_c(t))  ->  (x_out, t)
 
-``t`` is the layer tap (the ffn target). Weights come in the JAX layout,
-``w1`` (C, M) and ``w2`` (M, C); the model passes ``Linear.weight.t()``
-views, which the kernel reads without a copy. On a CUDA tensor the wrapper
-launches the hand-written kernel (``csrc/fused_block.cu``, bf16 only); on a
-CPU tensor it runs ``fused_block_plain``, a transcription of the JAX
-``_ref_block_bf16``; any other device raises.
+``t`` is the layer tap (the ffn target), taken before the post-mlp dropout
+``drop_c``. Weights come in the JAX layout, ``w1`` (C, M) and ``w2`` (M, C);
+the model passes ``Linear.weight.t()`` views, which the kernel reads without
+a copy. On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/fused_block.cu``, bf16 only); on a CPU tensor it runs
+``fused_block_plain``, a transcription of the JAX ``_ref_block_bf16``; any
+other device raises.
 
 Numerics (both versions): fp32 LayerNorm statistics, r cast back to the
-storage dtype before fc1, fp32 accumulation, bias + exact-erf GELU in fp32,
-h cast to the storage dtype before fc2, and the residual add ``r + t`` in the
-storage dtype before LN2.
+storage dtype before fc1, fp32 accumulation, bias + exact-erf GELU and the
+first dropout in fp32, h cast to the storage dtype before fc2, the second
+dropout on the fp32 fc2 sum, the post dropout on t rounded back to the
+storage dtype, and the residual add ``r + drop_c(t)`` in the storage dtype
+before LN2.
+
+Dropout (``seeds`` = three int32, ``act_rate`` for the first two sites,
+``post_rate`` for the third): keep masks from ``ops.dropout.hash_keep``
+over (seed, row, column), rows of the flattened (N, C) input. The JAX
+finetune trunk runs on sequences padded to the TPU kernel's block length, so
+its rows are b * T_pad + t; the port does not pad and its rows are b * T +
+t. The masks are the same function of (seed, row, column), with the same
+statistics, but realize differently at model level: mask equality is tested
+on this op.
+
+Training: on CUDA the wrapper is a ``torch.autograd.Function``. Its forward
+launches the kernel and saves only the inputs; its backward recomputes the
+block through ``fused_block_plain``'s math under autograd, as the JAX
+``_fused_block_bf16_bwd`` recomputes through ``_ref_block_bf16``, with the
+two products as bf16 GEMMs (torch.matmul, bf16 out). There the recompute
+rounds each product to bf16 before its bias is added, where the JAX
+reference keeps fc1's fp32 sum through bias, GELU and dropout and rounds
+only before fc2. The recompute regenerates the three keep masks with
+``hash_keep``'s int64 torch arithmetic over (N, M) and twice (N, C) per
+call: on an H100 that is the largest cost of an a2v-large train step
+(``PERF.md`` section 5), and it is meant to move into a kernel, with the
+torch version kept for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.ops.dropout import hash_keep, keep_scale, keep_threshold
 
 
 def _ln(z: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -38,6 +66,45 @@ def _ln(z: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return y
 
 
+def _fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a.float(), b.float())
+
+
+def _storage_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a, b).float()
+
+
+def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                seeds, act_rate, post_rate, matmul):
+    dtype = x.dtype
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c)
+    rows = torch.arange(x2.shape[0], device=x.device)[:, None]
+
+    def drop(v, seed, rate):
+        cols = torch.arange(v.shape[1], device=v.device)[None, :]
+        return v * (hash_keep(seed, rows, cols, rate) / (1.0 - rate))
+
+    r = _ln(x2, ln1_scale, ln1_bias, eps).to(dtype)
+    h = matmul(r, w1.to(dtype))
+    if b1 is not None:
+        h = h + b1.float()
+    h = F.gelu(h)
+    if act_rate > 0.0:
+        h = drop(h, seeds[0], act_rate)
+    t = matmul(h.to(dtype), w2.to(dtype))
+    if b2 is not None:
+        t = t + b2.float()
+    if act_rate > 0.0:
+        t = drop(t, seeds[1], act_rate)
+    t = t.to(dtype)
+    td = t
+    if post_rate > 0.0:
+        td = drop(t.float(), seeds[2], post_rate).to(dtype)
+    x_out = _ln(r + td, ln2_scale, ln2_bias, eps).to(dtype)
+    return x_out.reshape(x.shape), t.reshape(x.shape)
+
+
 def fused_block_plain(
     x: torch.Tensor,
     ln1_scale: Optional[torch.Tensor],
@@ -49,42 +116,25 @@ def fused_block_plain(
     ln2_scale: Optional[torch.Tensor],
     ln2_bias: Optional[torch.Tensor],
     eps: float = 1e-5,
+    seeds: Optional[Sequence[int]] = None,
+    act_rate: float = 0.0,
+    post_rate: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference of the kernel (any device); products in fp32 on the
-    storage-dtype operands."""
-    dtype = x.dtype
-    r = _ln(x, ln1_scale, ln1_bias, eps).to(dtype)
-    h = torch.matmul(r.float(), w1.to(dtype).float())
-    if b1 is not None:
-        h = h + b1.float()
-    h = F.gelu(h)
-    t = torch.matmul(h.to(dtype).float(), w2.to(dtype).float())
-    if b2 is not None:
-        t = t + b2.float()
-    t = t.to(dtype)
-    x_out = _ln(r + t, ln2_scale, ln2_bias, eps).to(dtype)
-    return x_out, t
+    """Reference of the kernel (any device, differentiable); products in
+    fp32 on the storage-dtype operands."""
+    _check_rates(seeds, act_rate, post_rate)
+    return _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                       seeds, act_rate, post_rate, _fp32_matmul)
 
 
-def fused_block_mlp(
-    x: torch.Tensor,
-    ln1_scale: Optional[torch.Tensor],
-    ln1_bias: Optional[torch.Tensor],
-    w1: torch.Tensor,
-    w2: torch.Tensor,
-    b1: Optional[torch.Tensor],
-    b2: Optional[torch.Tensor],
-    ln2_scale: Optional[torch.Tensor],
-    ln2_bias: Optional[torch.Tensor],
-    eps: float = 1e-5,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x_out, t) for x (..., C); kernel on CUDA, plain version on CPU."""
-    if x.device.type == "cpu":
-        return fused_block_plain(
-            x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"fused block runs on cuda or cpu tensors, got {x.device}")
+def _check_rates(seeds, act_rate, post_rate):
+    if (act_rate > 0.0 or post_rate > 0.0) and (seeds is None or len(seeds) != 3):
+        raise ValueError("a nonzero dropout rate needs three int32 seeds")
+
+
+def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+            seeds, act_rate, post_rate):
+    """One launch of the kernel: (x_out, t)."""
     c = x.shape[-1]
     m = w1.shape[1]
     if w1.shape != (c, m) or w2.shape != (m, c):
@@ -107,31 +157,90 @@ def fused_block_mlp(
             return torch.full((size,), fill, dtype=torch.float32, device=dev)
         if v.shape != (size,) or v.device != dev:
             raise ValueError(f"expected a ({size},) vector on {dev}, got {tuple(v.shape)} on {v.device}")
-        return v.to(torch.float32).contiguous()
+        return v.detach().to(torch.float32).contiguous()
 
     l1s, l1b = vec(ln1_scale, c, 1.0), vec(ln1_bias, c, 0.0)
     l2s, l2b = vec(ln2_scale, c, 1.0), vec(ln2_bias, c, 0.0)
     b1v, b2v = vec(b1, m, 0.0), vec(b2, c, 0.0)
-    w1t = w1.t().contiguous()  # (M, C): a no-op for Linear.weight.t() views
-    w2t = w2.t().contiguous()  # (C, M)
+    w1t = w1.detach().t().contiguous()  # (M, C): a no-op for Linear.weight.t() views
+    w2t = w2.detach().t().contiguous()  # (C, M)
     if w1t.device != dev or w2t.device != dev:
         raise ValueError("weights must be on x's device")
+    s0, s1, s2 = (int(v) for v in seeds) if seeds is not None else (0, 0, 0)
+    act_t = keep_threshold(act_rate) if act_rate > 0.0 else 0
+    post_t = keep_threshold(post_rate) if post_rate > 0.0 else 0
     n = x.numel() // c
     r = torch.empty((n, c), dtype=x.dtype, device=dev)
     h = torch.empty((n, m), dtype=x.dtype, device=dev)
-    t = torch.empty_like(x)
-    x_out = torch.empty_like(x)
+    t = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    x_out = torch.empty(x.shape, dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_fused_block(
             x.data_ptr(), l1s.data_ptr(), l1b.data_ptr(), w1t.data_ptr(), b1v.data_ptr(),
             w2t.data_ptr(), b2v.data_ptr(), l2s.data_ptr(), l2b.data_ptr(),
             r.data_ptr(), h.data_ptr(), t.data_ptr(), x_out.data_ptr(),
-            n, c, m, float(eps), stream,
+            n, c, m, float(eps), s0, s1, s2,
+            act_t, keep_scale(act_rate) if act_t else 1.0,
+            post_t, keep_scale(post_rate) if post_t else 1.0, stream,
         )
     check(err, "fused block kernel")
     fused_block_mlp.launches += 1
     return x_out, t
+
+
+class _FusedBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                seeds, act_rate, post_rate):
+        ctx.save_for_backward(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias)
+        ctx.conf = (eps, seeds, act_rate, post_rate)
+        return _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                       seeds, act_rate, post_rate)
+
+    @staticmethod
+    def backward(ctx, g_out, g_tap):
+        eps, seeds, act_rate, post_rate = ctx.conf
+        need = ctx.needs_input_grad[:9]
+        with torch.enable_grad():
+            leaves = [None if v is None else v.detach().requires_grad_(n)
+                      for v, n in zip(ctx.saved_tensors, need)]
+            outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _storage_matmul)
+            wrt = [v for v, n in zip(leaves, need) if n and v is not None]
+            grads = iter(torch.autograd.grad(outs, wrt, (g_out, g_tap), allow_unused=True))
+        out = [next(grads) if n and v is not None else None for v, n in zip(leaves, need)]
+        return (*out, None, None, None, None)
+
+
+def fused_block_mlp(
+    x: torch.Tensor,
+    ln1_scale: Optional[torch.Tensor],
+    ln1_bias: Optional[torch.Tensor],
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    b2: Optional[torch.Tensor],
+    ln2_scale: Optional[torch.Tensor],
+    ln2_bias: Optional[torch.Tensor],
+    eps: float = 1e-5,
+    seeds: Optional[Sequence[int]] = None,
+    act_rate: float = 0.0,
+    post_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x_out, t) for x (..., C); kernel on CUDA (differentiable), plain
+    version on CPU."""
+    args = (x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps)
+    if x.device.type == "cpu":
+        return fused_block_plain(*args, seeds, act_rate, post_rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused block runs on cuda or cpu tensors, got {x.device}")
+    _check_rates(seeds, act_rate, post_rate)
+    seeds = None if seeds is None else tuple(int(s) for s in seeds)
+    if torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args
+    ):
+        return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate))
+    return _launch(*args, seeds, float(act_rate), float(post_rate))
 
 
 fused_block_mlp.launches = 0

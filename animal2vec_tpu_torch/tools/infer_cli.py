@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from animal2vec_tpu.evalx.segmentation import fuse_predict  # numpy/scipy, no jax
+from animal2vec_tpu_torch.evalx.segmentation import fuse_predict
 from animal2vec_tpu_torch.config import FinetuneConfig
 from animal2vec_tpu_torch.data.wavio import read_wav
 from animal2vec_tpu_torch.models.finetune import FinetuneModel

@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from animal2vec_tpu_torch.config import FinetuneConfig
@@ -45,6 +46,19 @@ def self_device_us(event) -> float:
     return 0.0
 
 
+def kernel_rows(prof):
+    """(device us, calls, name) of each kernel, largest first. Only device
+    rows that are not annotations count: a host row (an aten op, an
+    autograd Function) and the device span of a range (an optimizer step)
+    repeat the device time of the kernels inside them."""
+    return sorted(
+        ((self_device_us(e), e.count, e.key) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+         and self_device_us(e) > 0),
+        reverse=True,
+    )
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -65,9 +79,8 @@ def main(argv=None):
     library()
 
     cfg = FinetuneConfig()
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=0)
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=0, device=dev)
     model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
-    model = model.to(dev).eval()
     wav_len = round(args.seconds * cfg.sample_rate)
     src = torch.from_numpy(
         np.random.default_rng(0).normal(size=(args.batch, wav_len)).astype(np.float32)
@@ -90,12 +103,7 @@ def main(argv=None):
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    # kernel rows only: an aten op's self device time repeats its kernels'
-    rows = sorted(
-        ((self_device_us(e), e.count, e.key) for e in prof.key_averages()
-         if self_device_us(e) > 0 and not e.key.startswith("aten::")),
-        reverse=True,
-    )
+    rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
     print(f"profiled forward: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall:.3f}")

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's finetuned a2v-large inference once on one GPU.
+"""Drive the PyTorch port's a2v-large serving and finetune training paths
+once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -9,16 +10,30 @@ Phases, one line or more each; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from animal2vec_tpu_torch/csrc (nvcc, sm_90a);
-3. the ALiBi attention kernel against its plain version, at the serving
-   shape (uniform positions) and with per-row positions, sentinels and a
-   padding mask that includes a fully padded row;
+3. the ALiBi attention forward kernel against its plain version, at the
+   serving shape (uniform positions) and with per-row positions, sentinels
+   and a padding mask that includes a fully padded row;
+3b. the attention training kernels at b4, T 2000 with dropout 0.2 and one
+   padded row: forward (out, lse), dq with the slope partials and dk/dv
+   against their plain versions, and the training entry's gradients against
+   autograd of the plain version;
 4. the fused post-LN block kernel against its plain version;
+4b. the fused block with its three dropout sites at N = 4 x 2000: forward
+   against the plain version, backward against autograd of the plain one;
 5. the full a2v-large FinetuneModel (8 prenet + 16 trunk blocks, seeded
    random weights, bf16 serving cast): kernel path against plain path,
    launch counts per forward;
-6. the main path: three synthetic recordings (25 s, 65 s, 130 s) served
+6. the serving path: three synthetic recordings (25 s, 65 s, 130 s) served
    through infer_long_file in 10-s windows;
-7. b32 throughput, and each kernel's time beside its plain version's.
+7. b32 throughput; each kernel's time beside its plain version's, the
+   PyTorch library call's (scaled_dot_product_attention with the ALiBi
+   bias as a float mask) and the bound the card's peak rates set, at the
+   serving shape and at the training shape;
+8. the training path: the full a2v-large finetune model with the
+   finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
+   windows with the freeze gate open, launch counts per step; then at b1
+   with every rate at 0 the kernel path's gradients against the plain
+   path's; ms per train step and b4 clips/s.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -26,6 +41,7 @@ The last two lines are a JSON object describing the kernels and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -49,6 +65,31 @@ BLOCK_TOL = (3e-2, 2e-2)  # atol, rtol vs the plain version (bf16 storage)
 # attention kernel also fails the full-model comparison
 MODEL_TOL = 2e-2
 SERVE_SECONDS = (25, 65, 130)
+TRAIN_BATCH, DROP_SEED, ATTN_DROP = 4, -123457, 0.2
+# training kernels against their plain versions on the same bf16 inputs and
+# the same lse and delta; lse is an fp32 sum of exponentials in another
+# order. The backward reference rounds P * f, dS and dq, dk, dv to bf16 at
+# the kernels' points, so what is left is fp32 summation order and the rare
+# bf16 rounding it flips: one output ulp (2^-8 to 2^-7 relative, under the
+# rtol) and a small atol for values near 0. Measured on an H100: max abs
+# 7.8e-3 for each of dq, dk, dv at |values| up to 30, worst ratio to this
+# tolerance 0.50; per-(b, h) relative norm at most 2.2e-4 (tolerance ~5x).
+LSE_TOL = (1e-3, 1e-5)
+BWD_TOL = (5e-3, 1e-2)
+REL_HEAD = 1e-3
+SLOPE_PART_TOL = (1e-2, 1e-3)  # fp32 sums of up to 64 x T terms
+# relative norm of a gradient against autograd of the plain version in
+# fp32 on the same bf16 inputs: bf16 rounding of P, dS and the outputs,
+# 2^-9 each (about 2.5e-3 measured for dqkv, 3e-6 for the slopes)
+REL_QKV, REL_SLOPES = 1e-2, 1e-3
+REL_BLOCK = 1e-2  # fused block backward: bf16 GEMM recompute vs fp32 plain
+# full-model gradients, kernel path against plain path at b1, relative norm
+# per parameter tensor: about 5x the largest measured on an H100 (1.0e-2,
+# the ALiBi scale's; median 1.3e-3), so that a wrong mask or a wrong
+# backward product (errors of order 1) fails
+MODEL_GRAD_TOL = 5e-2
+# the H100 SXM data sheet's dense peaks (at 700 W)
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def card_line() -> str:
@@ -87,6 +128,72 @@ def check_close(name, got, want, tol):
     if not (err <= bound).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_err
+
+
+def rel_norm(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def check_rel(name, got, want, tol):
+    rel = rel_norm(got, want)
+    print(f"{name}: relative norm error {rel:.3e} (tolerance {tol})")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite result")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: disagrees with its reference")
+    return rel
+
+
+def check_heads(name, labels, gots, wants, tol):
+    """Relative norm error per (b, h) of each (B, H, T, D) gradient, so that
+    a fault confined to a few heads cannot hide in a global norm or under
+    an atol sized for the largest values (norms below 1e-3 count as 1e-3)."""
+    for label, got, want in zip(labels, gots, wants):
+        want = want.float()
+        rel = ((got.float() - want).flatten(2).norm(dim=-1)
+               / want.flatten(2).norm(dim=-1).clamp_min(1e-3))
+        worst = rel.max().item()
+        print(f"{name} {label}: relative norm error per (b, h) max {worst:.3e}, "
+              f"median {rel.median().item():.3e} (tolerance {tol})")
+        if not worst <= tol:
+            raise AssertionError(f"{name} {label}: a head disagrees with its plain version")
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it): the larger of operations over the bf16
+    tensor peak and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bounds(b, h, t, d=64):
+    """Bounds of the forward (with lse), dq and dk/dv kernels: 2, 3 and 4
+    products of 2*T^2*D per (b, h); each input read once (bf16 q, k, v, dO;
+    fp32 lse, delta), each output written once."""
+    bhtd, bht = b * h * t * d, b * h * t
+    flops = 2 * bhtd * t
+    return {
+        "forward": bound(2 * flops, 2 * 3 * bhtd + 2 * bhtd + 4 * bht),
+        "dq": bound(3 * flops, 2 * 4 * bhtd + 2 * 4 * bht + 2 * bhtd + 4 * b * h * -(-t // 64)),
+        "dkv": bound(4 * flops, 2 * 4 * bhtd + 2 * 4 * bht + 2 * 2 * bhtd),
+    }
+
+
+def block_bound(n, c=1024, m=4096):
+    """fc1 and fc2 (2*N*C*M each); x read, x_out and t written, bf16 weights
+    and fp32 vectors read once."""
+    return bound(4 * n * c * m, 2 * n * c * 3 + 2 * 2 * c * m + 4 * (5 * c + m))
+
+
+def sdpa_args(qkv, slopes, t, requires_grad=False):
+    """q, k, v (B, H, T, D) and the ALiBi bias as a (1, H, T, T) float mask
+    in the inputs' dtype, for torch's scaled_dot_product_attention."""
+    q, k, v = (x.detach().clone().requires_grad_(requires_grad) for x in qkv.unbind(0))
+    pos = torch.arange(t, device=qkv.device, dtype=torch.float32)
+    dist = (pos[:, None] - pos[None, :]).abs()
+    bias = (-dist[None, None] * slopes.float()[None, :, None, None]).to(qkv.dtype)
+    return q, k, v, bias
 
 
 def cuda_ms(fn, iters=10, warmup=2) -> float:
@@ -141,6 +248,70 @@ def phase_attention(dev):
     return max(err_uniform, err_rows)
 
 
+def train_attention_inputs(dev):
+    """b4 x T 2000 x 16 heads bf16 qkv, slopes, uniform positions, row 1
+    padding its last 300 keys, and a seeded cotangent."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    b, h, t = TRAIN_BATCH, 16, 2000
+    qkv, slopes = attention_inputs(gen, b, h, t, dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)[None]
+    mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    mask[1, -300:] = True
+    dout = torch.randn((b, h, t, 64), generator=gen, device=dev).to(torch.bfloat16)
+    return qkv, slopes, pos, mask, dout
+
+
+def phase_attention_train(dev):
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
+        attention_dkv, attention_dq,
+    )
+
+    qkv, slopes, pos, mask, dout = train_attention_inputs(dev)
+    b, h, t = qkv.shape[1:4]
+    drop = (ATTN_DROP, DROP_SEED)
+    out, lse = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                            return_lse=True)
+    out_p, lse_p = alibi_attention_plain(qkv.float(), slopes, pos, mask, False, *drop,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    name = f"attention training (b{b}, T {t}, dropout {ATTN_DROP}, row 1 padded)"
+    err_fwd = check_close(f"{name} out", out, out_p, ATTN_TOL)
+    check_close(f"{name} lse", lse, lse_p, LSE_TOL)
+    del out_p, lse_p
+    delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
+    args = (qkv, dout, lse, delta, slopes, pos, mask, False, *drop)
+    dq, parts = attention_dq(*args)
+    dk, dv = attention_dkv(*args)
+    # the reference on the same bf16 qkv and dout rounds P * f, dS and its
+    # outputs to bf16 where the kernels round them
+    want, parts_p = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err_dq = check_close(f"{name} dq", dq, want[0], BWD_TOL)
+    err_dkv = max(check_close(f"{name} dk", dk, want[1], BWD_TOL),
+                  check_close(f"{name} dv", dv, want[2], BWD_TOL))
+    check_heads(name, ("dq", "dk", "dv"), (dq, dk, dv), want, REL_HEAD)
+    check_close(f"{name} slope partials", parts, parts_p, SLOPE_PART_TOL)
+    del want, parts_p
+    # the autograd Function against autograd of the plain version: the same
+    # seeded cotangent, the plain version in fp32 on the same bf16 inputs
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_btc_plain, alibi_flash_attention_btc,
+    )
+
+    qkv_btc = qkv.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * 64)
+    g = dout.permute(0, 2, 1, 3).reshape(b, t, h * 64)
+    x, s = qkv_btc.clone().requires_grad_(), slopes.clone().requires_grad_()
+    gx, gs = torch.autograd.grad(
+        alibi_flash_attention_btc(x, h, s, pos, mask, False, *drop), (x, s), g)
+    xf, sf = qkv_btc.float().requires_grad_(), slopes.clone().requires_grad_()
+    gxf, gsf = torch.autograd.grad(
+        alibi_attention_btc_plain(xf, h, sf, pos, mask, False, *drop), (xf, sf), g.float())
+    check_rel(f"{name} d qkv vs autograd of plain", gx, gxf, REL_QKV)
+    check_rel(f"{name} d slopes vs autograd of plain", gs, gsf, REL_SLOPES)
+    return err_fwd, err_dq, err_dkv
+
+
 def block_inputs(gen, n, c, m, dev):
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=gen, device=dev) * scale + shift
@@ -166,49 +337,78 @@ def phase_block(dev):
     return max(err_t, err_x)
 
 
+def phase_block_train(dev):
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n = TRAIN_BATCH * 2000
+    args = block_inputs(gen, n, 1024, 4096, dev)
+    drop = ((11, -22, 2**31 - 5), 0.1, 0.1)
+    xo, t = fused_block_mlp(*args, *drop)
+    xo_p, t_p = fused_block_plain(*args, *drop)
+    torch.cuda.synchronize()
+    name = f"fused block training (N {n}, act and post dropout 0.1)"
+    err = max(check_close(f"{name} tap t", t, t_p, BLOCK_TOL),
+              check_close(f"{name} x_out", xo, xo_p, BLOCK_TOL))
+    cot = tuple(torch.randn(xo.shape, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    leaves = [a.clone().requires_grad_() if isinstance(a, torch.Tensor) else a for a in args]
+    g1 = torch.autograd.grad(fused_block_mlp(*leaves, *drop), leaves[:9], cot)
+    leaves_p = [a.clone().requires_grad_() if isinstance(a, torch.Tensor) else a for a in args]
+    g2 = torch.autograd.grad(fused_block_plain(*leaves_p, *drop), leaves_p[:9], cot)
+    for label, x, y in zip(("x", "ln1 scale", "ln1 bias", "w1", "w2", "b1", "b2", "ln2 scale",
+                            "ln2 bias"), g1, g2):
+        check_rel(f"{name} grad {label} vs autograd of plain", x, y, REL_BLOCK)
+    return err
+
+
 class PlainOps:
-    """Route the model's two kernel ops to their plain versions, for the
+    """Route the model's kernel ops to their plain versions, for the
     on-card comparison of the kernel path with the plain path."""
 
     def __enter__(self):
         from animal2vec_tpu_torch.models import modules
-        from animal2vec_tpu_torch.ops.attention import alibi_attention_plain
+        from animal2vec_tpu_torch.ops.attention import alibi_attention_btc_plain
         from animal2vec_tpu_torch.ops.fused_mlp import fused_block_plain
 
-        self.saved = (modules.alibi_flash_attention_packed, modules.fused_block_mlp)
-        modules.alibi_flash_attention_packed = alibi_attention_plain
+        self.saved = (modules.alibi_flash_attention_btc, modules.fused_block_mlp)
+        modules.alibi_flash_attention_btc = alibi_attention_btc_plain
         modules.fused_block_mlp = fused_block_plain
         return self
 
     def __exit__(self, *exc):
         from animal2vec_tpu_torch.models import modules
 
-        modules.alibi_flash_attention_packed, modules.fused_block_mlp = self.saved
+        modules.alibi_flash_attention_btc, modules.fused_block_mlp = self.saved
         return False
 
 
-def counts():
-    from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_packed
+def _counted():
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_flash_attention_packed, attention_dkv, attention_dq,
+    )
     from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
 
-    return alibi_flash_attention_packed.launches, fused_block_mlp.launches
+    return alibi_flash_attention_packed, attention_dq, attention_dkv, fused_block_mlp
+
+
+def counts():
+    """Launches of (attention forward, dq, dk/dv, fused block)."""
+    return tuple(f.launches for f in _counted())
 
 
 def reset_counts():
-    from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_packed
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
-
-    alibi_flash_attention_packed.launches = 0
-    fused_block_mlp.launches = 0
+    for f in _counted():
+        f.launches = 0
 
 
 def build_model(cfg, dev):
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.weights import serving_cast
 
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED)
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
     model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
-    return model.to(dev).eval()
+    return model
 
 
 def phase_model(model, cfg, dev):
@@ -223,7 +423,7 @@ def phase_model(model, cfg, dev):
         with PlainOps():
             logits_p = model(src)["encoder_out"]
         torch.cuda.synchronize()
-    per_forward = (after[0] - before[0], after[1] - before[1])
+    per_forward = (after[0] - before[0], after[3] - before[3])
     print(f"model launches per forward: attention {per_forward[0]}, "
           f"fused block {per_forward[1]} (expected {n_blocks} each)")
     if per_forward != (n_blocks, n_blocks):
@@ -263,7 +463,10 @@ def phase_serve(model, cfg, dev):
         ]
         torch.cuda.synchronize()
         seconds_taken = time.perf_counter() - t0
-        launches = counts()
+        fwd, dq, dkv, blk = counts()
+    launches = (fwd, blk)
+    if dq or dkv:
+        raise AssertionError(f"serving launched backward kernels: dq {dq}, dk/dv {dkv}")
     n_forwards = len(SERVE_SECONDS)  # each recording fits one batch of <= 32 windows
     n_blocks = cfg.prenet_depth + cfg.depth
     for seconds, events in zip(SERVE_SECONDS, results):
@@ -297,43 +500,243 @@ def phase_throughput(model, card, dev):
     print(f"throughput b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch) on {card}")
 
 
+def train_batch(cfg, dev, batch=TRAIN_BATCH, seed=SEED + 6):
+    """One micro-batch (leading axis 1) of 10-s windows and frame labels at
+    10 % ones, as bench.py's finetune step makes them."""
+    rng = np.random.default_rng(seed)
+    frames = WAV_LEN // 40
+    return {
+        "source": torch.from_numpy(
+            rng.normal(size=(1, batch, WAV_LEN)).astype(np.float32)).to(dev),
+        "target": torch.from_numpy(
+            (rng.random((1, batch, frames, len(cfg.labels))) < 0.1).astype(np.float32)).to(dev),
+    }
+
+
+def phase_train(cfg, card, dev):
+    """The training path: finetune_100.yaml's recipe (mixup, span and
+    channel masks with the noise fill, dropout 0.1 / attention 0.2,
+    layerdrop 0.1, focal loss, Adam with warmup and cosine) at update_freq 1.
+    The state starts at step 10 000, the first update after the freeze gate
+    opens, so that every backward kernel runs and the learning rate is the
+    schedule's, not the warmup's 1e-10."""
+    from animal2vec_tpu_torch.config import FinetuneTrainConfig
+    from animal2vec_tpu_torch.models.finetune import build_finetune_model
+    from animal2vec_tpu_torch.models.modules import AltBlock
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.finetune_step import make_finetune_train_step
+    from animal2vec_tpu_torch.train.state import FinetuneState
+
+    tcfg = dataclasses.replace(FinetuneTrainConfig(), update_freq=1)
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
+    state = FinetuneState.create(model, tcfg)
+    state.step = tcfg.freeze_finetune_updates
+    step_fn = make_finetune_train_step(tcfg)
+    batch = train_batch(cfg, dev)
+    rngs = Rngs.from_seed(SEED, dev)
+    ran = [0]  # blocks run in this step (layerdrop skips the others)
+    blocks = {}  # runs per block over the checked steps
+
+    def counter(name):
+        def hook(module, args):
+            ran[0] += 1
+            blocks[name] += 1
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, AltBlock):
+            blocks[name] = 0
+            mod.register_forward_pre_hook(counter(name))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    n_blocks = cfg.n_blocks
+    totals = [0, 0, 0, 0]
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        ran[0] = 0
+        reset_counts()
+        metrics = step_fn(state, batch, rngs)
+        torch.cuda.synchronize()
+        got = counts()
+        loss = float(metrics["loss"])
+        print(f"train step {i + 1}: loss {loss:.5f}; launches attention forward {got[0]}, "
+              f"dq {got[1]}, dk/dv {got[2]}, fused block {got[3]} (expected {ran[0]} each: "
+              f"{n_blocks} blocks less {n_blocks - ran[0]} dropped by layerdrop)")
+        if not np.isfinite(loss):
+            raise AssertionError("non-finite training loss")
+        if got != (ran[0],) * 4 or ran[0] == 0:
+            raise AssertionError(f"train step launch counts {got} != {ran[0]} each")
+        for n, p in model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"missing or non-finite gradient: {n}")
+        totals = [a + b for a, b in zip(totals, got)]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    after = dict(model.named_parameters())
+    frontend = [n for n in before if ".local_encoder." in n]
+    if any(not torch.equal(before[n], after[n]) for n in frontend):
+        raise AssertionError("feature_grad_mult 0: the conv frontend must not change")
+    # the last trunk block's norm2 feeds no loss term (the head reads the MLP
+    # taps), so its gradient is 0 and Adam leaves it; every other parameter
+    # of a block that ran in some step moves
+    last = f"encoder.blocks.layers.{cfg.depth - 1}.norm2."
+    for bname, runs in blocks.items():
+        names = [n for n in before if n.startswith(bname + ".")]
+        moved = {n: not torch.equal(before[n], after[n]) for n in names}
+        want = {n: runs > 0 and not n.startswith(last) for n in names}
+        if moved != want:
+            raise AssertionError(f"block {bname} (ran {runs} times): moved {moved}")
+    print(f"train steps: every block that ran changed ({sum(v > 0 for v in blocks.values())} "
+          f"of {len(blocks)}), frontend ({len(frontend)} tensors) unchanged; "
+          f"peak memory {peak_gb:.2f} GiB")
+
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step_fn(state, batch, rngs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"train step b{TRAIN_BATCH} (finetune_100 recipe, update_freq 1): "
+          f"{dt * 1e3:.1f} ms per step, {TRAIN_BATCH / dt:.2f} 10-s clips/s on {card}")
+    del state, model
+    torch.cuda.empty_cache()
+    return tuple(totals)
+
+
+def phase_train_grads(cfg, dev):
+    """At b1 with every rate at 0 (no mixup, masks, dropout or layerdrop),
+    the full model's gradients through the kernels against those through
+    the plain versions, one relative norm per parameter tensor."""
+    from animal2vec_tpu_torch.config import FinetuneTrainConfig
+    from animal2vec_tpu_torch.models.finetune import build_finetune_model
+    from animal2vec_tpu_torch.train.finetune_step import finetune_loss
+
+    tcfg = dataclasses.replace(
+        FinetuneTrainConfig(), freeze_finetune_updates=0, apply_mask=False,
+        mask_channel_prob=0.0, dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
+        layerdrop=0.0, source_mixup=-1.0, update_freq=1)
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
+    mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=1, seed=SEED + 7).items()}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = finetune_loss(model, mb, None, 0, tcfg, train=True)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    loss_k, g_k = grads()
+    with PlainOps():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    rels = {n: rel_norm(g_k[n], g_p[n]) for n in g_p if g_p[n].norm() > 0}
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"model gradients b1, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"relative norm per tensor: max {worst[0][1]:.3e}, median "
+          f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors "
+          f"(tolerance {MODEL_GRAD_TOL}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
+    if set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
+        raise AssertionError("the two paths give gradients to different parameters")
+    if not max(rels.values()) <= MODEL_GRAD_TOL:
+        raise AssertionError("full-model kernel-path gradients disagree with the plain path")
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+
+
 def phase_kernel_times(dev):
+    """Each kernel beside its plain version, the library call and its
+    bound: the serving shape (b32) and the training shape (b4, dropout)."""
+    import torch.nn.functional as F
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_attention_plain, alibi_flash_attention_packed,
+        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
+        attention_dkv, attention_dq,
     )
     from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    times = {}
+    rows = {}
+
+    def row(key, ms, plain_ms, library_ms, bnd):
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        print(f"{key}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]})")
+
     with torch.inference_mode():
         qkv, slopes = attention_inputs(gen, 32, 16, 2000, dev)
         pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
-        times["attention"] = (
+        q, k, v, bias = sdpa_args(qkv, slopes, 2000)
+        row("attention forward, b32 serving",
             cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos, None, False)),
             cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos, None, False), iters=3),
-        )
-        # the per-row template (no main-path caller yet): sorted keep-sets of
-        # 0..2499, every other row padding its last 300 keys
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
+            attention_bounds(32, 16, 2000)["forward"])
+        del q, k, v, bias
+        # the per-row template: sorted keep-sets of 0..2499, every other row
+        # padding its last 300 keys
         rng = np.random.default_rng(SEED + 3)
         pos_rows = torch.from_numpy(np.stack(
             [np.sort(rng.choice(2500, 2000, replace=False)) for _ in range(32)]
         ).astype(np.int32)).to(dev)
         mask = torch.zeros((32, 2000), dtype=torch.bool, device=dev)
         mask[::2, -300:] = True
-        times["attention per-row + mask"] = (
-            cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos_rows, mask, False)),
-            cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos_rows, mask, False), iters=3),
-        )
+        ms = cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos_rows, mask, False))
+        plain_ms = cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos_rows, mask, False),
+                           iters=3)
+        print(f"attention forward, b32 per-row positions + mask: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
         del qkv
         torch.cuda.empty_cache()
         args = block_inputs(gen, 32 * 2000, 1024, 4096, dev)
-        times["fused_block"] = (
-            cuda_ms(lambda: fused_block_mlp(*args)),
-            cuda_ms(lambda: fused_block_plain(*args), iters=3),
-        )
-    for name, (ms, plain_ms) in times.items():
-        print(f"{name} at b32 serving shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return times
+        row("fused block, b32 serving", cuda_ms(lambda: fused_block_mlp(*args)),
+            cuda_ms(lambda: fused_block_plain(*args), iters=3), None, block_bound(32 * 2000))
+        del args
+        torch.cuda.empty_cache()
+
+        # training shape: b4, T 2000, dropout 0.2, row 1 padded
+        qkv, slopes, pos, mask, dout = train_attention_inputs(dev)
+        b, h, t = qkv.shape[1:4]
+        drop = (ATTN_DROP, DROP_SEED)
+        bounds = attention_bounds(b, h, t)
+        out, lse = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                                return_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
+        bwd = (qkv, dout, lse, delta, slopes, pos, mask, False, *drop)
+        q, k, v, bias = sdpa_args(qkv, slopes, t)
+        row(f"attention forward + lse + dropout, b{b} training",
+            cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                                         return_lse=True)),
+            cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos, mask, False, *drop,
+                                                  return_lse=True), iters=3),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                           dropout_p=ATTN_DROP)),
+            bounds["forward"])
+        plain_bwd = cuda_ms(lambda: attention_bwd_plain(*bwd), iters=3)
+    # the library yardstick of the backward: SDPA forward and backward
+    # through autograd with the float bias, at the same shape
+    q, k, v, bias = sdpa_args(qkv, slopes, t, requires_grad=True)
+    g = dout.clone()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=ATTN_DROP)
+        torch.autograd.grad(o, (q, k, v), g)
+
+    lib_bwd = cuda_ms(sdpa_fwd_bwd)
+    row(f"attention dq + slope partials, b{b} training", cuda_ms(lambda: attention_dq(*bwd)),
+        plain_bwd, lib_bwd, bounds["dq"])
+    row(f"attention dk/dv, b{b} training", cuda_ms(lambda: attention_dkv(*bwd)),
+        plain_bwd, lib_bwd, bounds["dkv"])
+    print("  (plain: attention_bwd_plain computes dq, dk, dv and the partials in one call; "
+          "library: SDPA forward + backward with the float ALiBi mask, dropout 0.2)")
+    del q, k, v, bias, qkv, dout
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        n = TRAIN_BATCH * 2000
+        args = block_inputs(gen, n, 1024, 4096, dev)
+        drop_b = ((11, -22, 2**31 - 5), 0.1, 0.1)
+        row(f"fused block + dropout, N {n} training",
+            cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
+            cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(n))
+    return rows
 
 
 def main() -> int:
@@ -361,29 +764,42 @@ def main() -> int:
         print("  ptxas:", line)
 
     attn_err = phase_attention(dev)
-    block_err = phase_block(dev)
+    fwd_err, dq_err, dkv_err = phase_attention_train(dev)
+    block_err = max(phase_block(dev), phase_block_train(dev))
 
     cfg = FinetuneConfig()
     model = build_model(cfg, dev)
     phase_model(model, cfg, dev)
-    launches = phase_serve(model, cfg, dev)
+    serving = phase_serve(model, cfg, dev)
     phase_throughput(model, card, dev)
     del model
     torch.cuda.empty_cache()
     times = phase_kernel_times(dev)
+    training = phase_train(cfg, card, dev)
+    phase_train_grads(cfg, dev)
 
+    def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
+        e = {"name": name, "route": "cuda", "source": f"animal2vec_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches, "launches_serving": serving_launches,
+             "max_abs_err": err, **times[key]}
+        if serving_key:
+            e.update({f"serving_{k}": v for k, v in times[serving_key].items()})
+        return e
+
+    pa = "animal2vec_tpu/ops/pallas_attention.py"
     kernels = [
-        {"name": "alibi_flash_attention", "route": "cuda",
-         "source": "animal2vec_tpu_torch/csrc/alibi_attention.cu",
-         "replaces": "animal2vec_tpu/ops/pallas_attention.py:891, "
-                     "animal2vec_tpu/ops/pallas_attention.py:113",
-         "launches": launches[0], "max_abs_err": attn_err,
-         "ms": times["attention"][0], "plain_ms": times["attention"][1]},
-        {"name": "fused_block", "route": "cuda",
-         "source": "animal2vec_tpu_torch/csrc/fused_block.cu",
-         "replaces": "animal2vec_tpu/ops/fused_mlp.py:175",
-         "launches": launches[1], "max_abs_err": block_err,
-         "ms": times["fused_block"][0], "plain_ms": times["fused_block"][1]},
+        entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:891, {pa}:113",
+              training[0], serving[0], max(attn_err, fwd_err),
+              f"attention forward + lse + dropout, b{TRAIN_BATCH} training",
+              "attention forward, b32 serving"),
+        entry("alibi_attention_dq", "alibi_attention_bwd.cu", f"{pa}:330", training[1], 0,
+              dq_err, f"attention dq + slope partials, b{TRAIN_BATCH} training"),
+        entry("alibi_attention_dkv", "alibi_attention_bwd.cu", f"{pa}:390", training[2], 0,
+              dkv_err, f"attention dk/dv, b{TRAIN_BATCH} training"),
+        entry("fused_block", "fused_block.cu", "animal2vec_tpu/ops/fused_mlp.py:175",
+              training[3], serving[1], block_err,
+              f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
+              "fused block, b32 serving"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

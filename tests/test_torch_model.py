@@ -212,14 +212,28 @@ def test_cli_main_serves_npz_weights(serving, tmp_path):
 def test_seeded_init_is_deterministic():
     cfg = dataclasses.replace(FinetuneConfig(), conv_layers=TINY_LAYERS,
                               average_top_k_layers=3, **TINY)
-    a = build_finetune_model(cfg, seed=7).state_dict()
-    b = build_finetune_model(cfg, seed=7).state_dict()
-    c = build_finetune_model(cfg, seed=8).state_dict()
+    a = build_finetune_model(cfg, seed=7, device="cpu").state_dict()
+    b = build_finetune_model(cfg, seed=7, device="cpu").state_dict()
+    c = build_finetune_model(cfg, seed=8, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["proj.weight"], c["proj.weight"])
     # mel-spaced sinc filters, not a degenerate zero init
     low = a["encoder.audio_encoder.local_encoder.conv_0.low_hz"]
     assert torch.all(torch.diff(low[:, 0]) > 0)
+
+
+def test_build_finetune_model_defaults_to_the_card(monkeypatch):
+    """With no device argument the factory builds on CUDA: without a card
+    it raises instead of carrying on on the CPU; device="cpu" builds there,
+    with the same seeded weights as on any device."""
+    cfg = dataclasses.replace(FinetuneConfig(), conv_layers=TINY_LAYERS,
+                              average_top_k_layers=3, **TINY)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_finetune_model(cfg)
+    model = build_finetune_model(cfg, device="cpu")
+    assert not model.training
+    assert all(p.device.type == "cpu" and p.dtype == torch.float32 for p in model.parameters())
 
 
 @pytest.mark.slow
