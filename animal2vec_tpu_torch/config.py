@@ -11,13 +11,18 @@ Smaller models for tests are ``dataclasses.replace(FinetuneConfig(), ...)``.
 Only what the port implements is configurable: post-LN AltBlocks with
 affine LayerNorms, the ``layer_norm`` extractor mode, ``layer_norm`` or
 ``instance`` sinc norms, no LayerNorm before the positional convs, and one
-learned ALiBi scale per head shared by all layers.
+learned ALiBi scale per head shared by all layers. The int8 serving modes
+take the JAX package's lane-aligned route only (its Pallas kernels, every
+width a multiple of 128); at other widths JAX composes int8 in XLA with
+other numerics, and the port refuses them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+MATMUL_IMPLS = ("bf16", "int8", "int8_attn")  # model.matmul_impl
 
 MEERKAT_LABELS = (
     "beep", "synch", "sn", "cc", "ld", "oth", "mo", "al", "soc", "agg",
@@ -46,6 +51,12 @@ class FinetuneConfig:
     num_heads: int = 16
     mlp_ratio: float = 4.0
     norm_eps: float = 1e-5
+    # serving-only int8 (model.matmul_impl): "int8" quantizes the MLP only,
+    # each post-LN block's fc1/fc2 through the fused int8 block (the JAX
+    # config's comment says qkv/out too, but its AltBlock, modules.py:506-541,
+    # keeps attention bf16); "int8_attn" adds the qkv and out projections and
+    # int8 QK^T and PV inside the attention. Training raises in either.
+    matmul_impl: str = "bf16"
     # learned per-head ALiBi scale, clipped at 0 and folded into the slopes
     alibi_scale: float = 1.0
     # head: mean of the last k trunk MLP taps -> linear over the labels
@@ -71,6 +82,17 @@ class FinetuneConfig:
             raise ValueError(
                 f"embed_dim {self.embed_dim} is not a multiple of "
                 f"num_heads {self.num_heads}"
+            )
+        if self.matmul_impl not in MATMUL_IMPLS:
+            raise ValueError(
+                f"matmul_impl={self.matmul_impl!r}: expected one of {MATMUL_IMPLS}"
+            )
+        hidden = int(self.embed_dim * self.mlp_ratio)
+        if self.matmul_impl != "bf16" and (self.embed_dim % 128 or hidden % 128):
+            raise ValueError(
+                f"matmul_impl={self.matmul_impl!r} needs embed_dim and the MLP width "
+                f"in multiples of 128 (the int8 kernels' route), got {self.embed_dim} "
+                f"and {hidden}"
             )
         if not 0 < self.average_top_k_layers <= self.depth:
             raise ValueError(

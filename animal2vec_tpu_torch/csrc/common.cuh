@@ -1,5 +1,6 @@
 // Shared device helpers for the Hopper kernels: cp.async copies, the
-// bf16 m16n8k16 tensor-core MMA (mma.sync, fp32 accumulate) and ldmatrix.
+// bf16 m16n8k16 tensor-core MMA (mma.sync, fp32 accumulate), ldmatrix, the
+// dropout hash, and the int8 quantizer and m16n8k32 int8 MMA.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA), lane = 4*g + i:
 //   A (16x16, row-major): reg0 = A[g][2i..2i+1],   reg1 = A[g+8][2i..2i+1],
@@ -65,6 +66,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Exact-erf GELU in fp32.
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+}
+
 // Counter-based dropout hash of animal2vec_tpu/ops/pallas_attention.py
 // _dropout_keep and ops/fused_mlp.py _hash_keep: a murmur-style finalizer
 // over (row, col) mixed with the seed word (attention: seed + bh *
@@ -85,6 +103,41 @@ __device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, 
 __device__ __forceinline__ float drop_factor(uint32_t seed_word, uint32_t row, uint32_t col,
                                              uint32_t thresh, float keep_scale) {
   return drop_hash(seed_word, row, col) >= thresh ? keep_scale : 0.f;
+}
+
+// int8 quantization (ops/int8_mm.py): a scale is max(max|v| * kInv127,
+// 1e-12), the product XLA makes of the JAX code's division by 127; a value
+// is rint(v / s) with an IEEE division (nvcc's default -prec-div=true; never
+// build with fast-math), round half to even, within [-127, 127].
+constexpr float kInv127 = 1.0f / 127.0f;
+
+__device__ __forceinline__ int quantize_s8(float v, float s) {
+  return __float2int_rn(__fdiv_rn(v, s));
+}
+
+// Four int8 values in one 32-bit register, the first in the low byte.
+__device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
+  return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
+}
+
+// d += a (16x32 int8) * b (32x8 int8), int32 accumulate (exact).
+// mma.sync.m16n8k32 fragments, lane = 4*g + i, four int8 per register with
+// the lowest column (row, for B) in the low byte:
+//   A (row-major): a0 = A[g][4i..4i+3],    a1 = A[g+8][4i..4i+3],
+//                  a2 = A[g][16+4i..+3],   a3 = A[g+8][16+4i..+3]
+//   B ("col"):     b0 = B[4i..4i+3][g],    b1 = B[16+4i..+3][g]
+//   C (int32):     c0,c1 = C[g][2i..2i+1], c2,c3 = C[g+8][2i..2i+1]
+__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_s8x4(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 }  // namespace a2v

@@ -38,7 +38,7 @@
 // traffic (x, r three times, t twice, x_out). Keeping h on chip needs the
 // fc1 -> fc2 fusion of a later change. The dropout hash adds ~12 integer
 // instructions per element of h, t and the residual branch.
-#include "common.cuh"
+#include "layernorm.cuh"
 
 namespace a2v {
 namespace {
@@ -49,19 +49,6 @@ constexpr int kTile = 128;          // GEMM output tile, rows and columns
 constexpr int kBK = 32;             // GEMM reduction step
 constexpr int kLds = kBK + 8;       // padded shared row (80 B)
 constexpr int kGemmThreads = 256;   // 8 warps as 2 (rows) x 4 (columns)
-constexpr int kLnThreads = 256;     // 8 rows per block, one warp per row
-constexpr int kLnMaxPerLane = 32;   // C <= 1024
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-}
-
-// Dropout of one site: keep when drop_hash(seed, row, col) >= thresh.
-struct DropSite {
-  uint32_t seed;
-  uint32_t thresh;
-  float keep_scale;  // 1 / (1 - rate)
-};
 
 // C[N, NOUT] = drop(act(A[N, K] W[NOUT, K]^T + bias)), bf16 out, fp32
 // accumulate. Needs K % 32 == 0 and NOUT % 2 == 0; rows past N are
@@ -165,84 +152,6 @@ gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// y = LN(z) * scale + bias in fp32, stored bf16; z = x, or bf16(x +
-// drop(t)) when RESID (the storage-dtype residual add; drop(t) rounds to bf16
-// first). Needs C % 128 == 0, C <= 1024.
-template <bool RESID, bool DROP>
-__global__ void __launch_bounds__(kLnThreads)
-ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ t,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               bf16* __restrict__ y, int N, int C, float eps, DropSite drop) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kLnThreads / 32) + warp;
-  if (row >= N) return;
-  const int n_chunks = C / 128;  // 4 values per lane per chunk
-  const size_t base = static_cast<size_t>(row) * C;
-  float z[kLnMaxPerLane];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kLnMaxPerLane / 4; ++j) {
-    if (j < n_chunks) {
-      const int c = j * 128 + lane * 4;
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(x + base + c);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        float2 v = __bfloat1622float2(xp[p]);
-        if (RESID) {
-          float2 tv =
-              __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(t + base + c)[p]);
-          if (DROP) {
-            const int col = c + 2 * p;
-            tv.x = __bfloat162float(__float2bfloat16_rn(
-                tv.x * drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale)));
-            tv.y = __bfloat162float(__float2bfloat16_rn(
-                tv.y * drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale)));
-          }
-          v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
-          v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));
-        }
-        z[j * 4 + 2 * p] = v.x;
-        z[j * 4 + 2 * p + 1] = v.y;
-        sum += v.x + v.y;
-      }
-    }
-  }
-  const float mean = warp_sum(sum) / C;
-  float sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < kLnMaxPerLane / 4; ++j) {
-    if (j < n_chunks) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = z[j * 4 + e] - mean;
-        sq += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / C + eps);
-#pragma unroll
-  for (int j = 0; j < kLnMaxPerLane / 4; ++j) {
-    if (j < n_chunks) {
-      const int c = j * 128 + lane * 4;
-      uint32_t packed[2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int e = 2 * p;
-        const float y0 = (z[j * 4 + e] - mean) * rstd * scale[c + e] + bias[c + e];
-        const float y1 = (z[j * 4 + e + 1] - mean) * rstd * scale[c + e + 1] + bias[c + e + 1];
-        packed[p] = pack_bf16(y0, y1);
-      }
-      *reinterpret_cast<uint2*>(y + base + c) = make_uint2(packed[0], packed[1]);
-    }
-  }
-}
-
 template <bool GELU>
 void launch_gemm(bool drop, dim3 grid, cudaStream_t s, const bf16* A, const bf16* W,
                  const float* bias, bf16* C, int N, int K, int NOUT, const DropSite& site) {
@@ -285,9 +194,9 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
   const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale};
   cudaError_t err;
 
-  ln_rows_kernel<false, false><<<ln_blocks, kLnThreads, 0, s>>>(
+  ln_rows_kernel<false, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
       xb, nullptr, static_cast<const float*>(ln1_scale), static_cast<const float*>(ln1_bias),
-      rb, N, C, eps, site_post);
+      rb, nullptr, nullptr, N, C, eps, site_post);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   launch_gemm<true>(act_thresh != 0u, dim3(M / kTile, row_tiles), s, rb,
                     static_cast<const bf16*>(w1t), static_cast<const float*>(b1), hb, N, C, M,
@@ -298,12 +207,12 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
                      site_fc2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (post_thresh != 0u)
-    ln_rows_kernel<true, true><<<ln_blocks, kLnThreads, 0, s>>>(
+    ln_rows_kernel<true, true, false><<<ln_blocks, kLnThreads, 0, s>>>(
         rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), N, C, eps, site_post);
+        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post);
   else
-    ln_rows_kernel<true, false><<<ln_blocks, kLnThreads, 0, s>>>(
+    ln_rows_kernel<true, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
         rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), N, C, eps, site_post);
+        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,14 @@ SIGNATURES = {
     # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
     # act_scale, post_thresh, post_scale, stream
     "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _P),
+    # x, w_q, w_s, bias, x_q, x_s, out, N, K, M, stream
+    "a2v_int8_dense": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,
+    # ln2_bias, r, r_q, r_s, h, h_q, h_s, t, x_out, N, C, M, chunk, eps, stream
+    "a2v_fused_block_int8": (_P,) * 19 + (_I,) * 4 + (_F, _P),
+    # q8, qs, k8, ks, v8t, vsc, slopes, pos, pos_per_row, mask, mask_per_row,
+    # out, B, H, T, D, Tv, t_pad, span, has_sentinel, stream
+    "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P) + (_I,) * 8 + (_P,),
 }
 
 

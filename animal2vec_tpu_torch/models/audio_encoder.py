@@ -39,7 +39,9 @@ class AudioEncoder(nn.Module):
     (``grad_multiply``, ``audio_encoder.py:32-39, 169-177``); at 0 the frontend
     runs under ``torch.no_grad()``, which stops the gradient as JAX's
     ``stop_gradient`` does and keeps no activations for a backward. The
-    prenet takes ``prenet_dropout``, ``layerdrop`` and the block rates."""
+    prenet takes ``prenet_dropout``, ``layerdrop``, the block rates and the
+    config's ``matmul_impl``, as the trunk does (one ``BlockConfig``,
+    ``data2vec2.py:52-68``)."""
 
     def __init__(self, cfg: FinetuneConfig, local_grad_mult: float = 1.0,
                  prenet_dropout: float = 0.0, layerdrop: float = 0.0, **rates: float):
@@ -59,7 +61,7 @@ class AudioEncoder(nn.Module):
         )
         self.context_encoder = PrenetEncoder(
             cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps,
-            prenet_dropout, layerdrop, **rates,
+            prenet_dropout, layerdrop, cfg.matmul_impl, **rates,
         )
         # one learned scale per head shared by all layers: (1, 1, H, 1, 1)
         self.alibi_scale = nn.Parameter(

@@ -8,8 +8,13 @@ and a channel mask zeroes whole feature channels, before the relative
 positions (``data2vec2.py:250-272``). Positions stay batch-uniform (1, T).
 
 The JAX trunk pads the sequence to the TPU kernel's block length
-(``data2vec2.py:318-344``); the port does not, the attention kernels mask the
-ragged tail by bounds.
+(``data2vec2.py:318-344``). In bf16 and ``int8`` the pad rows change no real
+row (they are masked keys, and every other op is per row), so the port does
+not pad and the attention kernels mask the ragged tail by bounds. In
+``int8_attn`` they do: the per-channel v scales of the int8 attention span
+every row of the padded sequence. There the port pads as JAX does (zero
+rows at position 0, masked as keys, run through prenet and trunk, cut off
+after it), so that its scales are JAX's.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from animal2vec_tpu_torch.config import FinetuneConfig
 from animal2vec_tpu_torch.models.audio_encoder import AudioEncoder
 from animal2vec_tpu_torch.models.modules import BlockStack
+from animal2vec_tpu_torch.ops.attention import int8_spans
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 from animal2vec_tpu_torch.ops.masking import apply_mask
 
@@ -39,12 +46,13 @@ class Data2VecMulti(nn.Module):
                  mask_noise_std: float = 0.01, **rates: float):
         super().__init__()
         self.dtype = dtype
+        self.pad_trunk = cfg.matmul_impl == "int8_attn"
         self.dropout_input, self.mask_noise_std = dropout_input, mask_noise_std
         self.audio_encoder = AudioEncoder(cfg, local_grad_mult, prenet_dropout, layerdrop,
                                           **rates)
         self.blocks = BlockStack(
             cfg.depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps, layerdrop,
-            **rates,
+            cfg.matmul_impl, **rates,
         )
 
     def encode(self, local: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
@@ -62,12 +70,23 @@ class Data2VecMulti(nn.Module):
             x = x * (1 - channel_mask.to(x.device, x.dtype)[:, None, :])
         x = x + enc.relative_positions(x)
         # (1, T): batch-uniform contiguous positions (the kernel's uniform case)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+        t = x.shape[1]
+        positions = torch.arange(t, dtype=torch.int32, device=x.device)[None]
+        run_mask = padding_mask
+        pad = int8_spans(t)[1] - t if self.pad_trunk else 0
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            positions = F.pad(positions, (0, pad))
+            if run_mask is None:
+                run_mask = torch.zeros((x.shape[0], t), dtype=torch.bool, device=x.device)
+            run_mask = F.pad(run_mask.bool(), (0, pad), value=True)
         bias = enc.alibi_spec(positions)
-        x = enc.prenet(x, padding_mask, bias, rngs)
+        x = enc.prenet(x, run_mask, bias, rngs)
         if self.training and self.dropout_input > 0.0:
             x = dropout(x, self.dropout_input, rngs.device)
-        x, taps, keeps = self.blocks(x, padding_mask, bias, rngs)
+        x, taps, keeps = self.blocks(x, run_mask, bias, rngs)
+        if pad:
+            x, taps = x[:, :t], [tap[:, :t] for tap in taps]
         return x, taps, padding_mask, keeps
 
     def extract_features(self, source: torch.Tensor,

@@ -5,6 +5,11 @@
 encoder -> fp32 mean of the last k kept trunk MLP taps, cast back -> freeze
 gate -> final dropout -> Linear.
 
+``cfg.matmul_impl`` selects the serving numerics of the blocks (bf16,
+``int8`` or ``int8_attn``); the int8 weights are quantized from the stored
+weights after every ``load_state_dict`` and are not part of the state dict,
+so one set of weights serves all three modes.
+
 With ``train`` (a ``FinetuneTrainConfig``) the encoder gets the recipe's
 dropouts, layerdrop and frontend gradient scale as
 ``train/build.build_finetune_encoder_cfg`` maps them; without it every rate
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
-from animal2vec_tpu_torch.models.modules import top_k_tap_average
+from animal2vec_tpu_torch.models.modules import AltBlock, top_k_tap_average
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 
 
@@ -54,6 +59,17 @@ class FinetuneModel(nn.Module):
         self.zero_mask = True if train is None else train.zero_mask
         self.encoder = Data2VecMulti(cfg, dtype, **encoder_rates(train))
         self.proj = nn.Linear(cfg.embed_dim, len(cfg.labels))
+        # the int8 modes' buffers follow every load of the weights
+        self.register_load_state_dict_post_hook(lambda module, _: module.quantize_weights())
+
+    def quantize_weights(self) -> None:
+        """Quantize the int8 modes' weights (``cfg.matmul_impl``) of every
+        block from the stored ones, into non-persistent buffers; a no-op in
+        bf16. Runs after ``load_state_dict``; call it after changing the
+        weights any other way."""
+        for mod in self.modules():
+            if isinstance(mod, AltBlock):
+                mod.quantize_weights()
 
     def forward(self, source: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -105,11 +121,13 @@ def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32
     """An fp32 FinetuneModel on ``device`` (the card unless the caller asks
     for the CPU) that computes in ``dtype``, in eval mode. The weights are
     drawn from ``seed`` on a CPU generator, so they do not depend on the
-    device. ``train`` gives the training recipe's rates."""
+    device. ``train`` gives the training recipe's rates; ``cfg.matmul_impl``
+    int8 modes get their quantized weights."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_finetune_model: CUDA is not available; "
                            "pass device='cpu' to build on the CPU")
     model = FinetuneModel(cfg, dtype, train)
     init_params(model, torch.Generator().manual_seed(seed))
+    model.quantize_weights()
     return model.to(device).eval()

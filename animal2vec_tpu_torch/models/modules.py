@@ -11,6 +11,17 @@ and ``ops.fused_mlp.fused_block_mlp``, each of which launches its bare
 forward when no gradient is wanted and its autograd Function otherwise. Where JAX scans over stacked per-layer
 params, the port loops over one module per layer.
 
+``matmul_impl`` selects the serving numerics of every block: "int8" runs
+the MLP sub-block through ``ops.fused_mlp.fused_block_int8``, "int8_attn"
+also the qkv and out projections through ``ops.int8_mm.int8_dense`` and the
+attention through ``ops.attention.alibi_flash_attention_int8``
+(``modules.py:506-541``). The int8 weights are quantized once from the
+stored weights by ``quantize_weights`` into non-persistent buffers, so one
+state dict serves every mode; a module quantizes when its weights are
+loaded (``FinetuneModel`` calls it after ``load_state_dict``). The int8
+modes are serving-only: ``train()`` forwards raise, as the JAX int8
+kernels have no vjp.
+
 Training arms run when the module is in ``train()`` mode. Their random
 draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
 the int32 hash seeds of the kernels on its host generator, elementwise
@@ -26,11 +37,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from animal2vec_tpu_torch.config import MATMUL_IMPLS
 from animal2vec_tpu_torch.models.attention import AlibiSpec
-from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_btc
+from animal2vec_tpu_torch.ops.attention import (
+    alibi_flash_attention_btc, alibi_flash_attention_int8,
+)
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
-from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
+from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_mlp
+from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_weight
 
 
 class Fp32LayerNorm(nn.Module):
@@ -80,24 +95,61 @@ def _need(rngs: Optional[Rngs], what: str) -> Rngs:
     return rngs
 
 
+def _quantized(module: nn.Module, *names: str) -> List[torch.Tensor]:
+    """The int8 buffers of a serving module; raises in training or before
+    ``quantize_weights``."""
+    if module.training:
+        raise RuntimeError("the int8 matmul_impl modes are serving-only: call eval() "
+                           "(their kernels have no backward)")
+    bufs = [getattr(module, n) for n in names]
+    if any(b is None for b in bufs):
+        raise RuntimeError("int8 weights are not quantized: call quantize_weights() "
+                           "after changing the weights")
+    return bufs
+
+
+def _int8_buffers(module: nn.Module, *names: str) -> None:
+    for n in names:
+        module.register_buffer(n, None, persistent=False)
+
+
 class AltAttention(nn.Module):
     """Multi-head self-attention with structured ALiBi bias (``AltAttention``,
     ``modules.py:374-446``) through the (B, T, 3C) entry; in training with
     in-kernel hash dropout at ``attn_drop`` (one int32 seed per call) and
-    ``proj_drop`` after the out projection."""
+    ``proj_drop`` after the out projection. With ``int8`` (serving) the
+    projections run int8 with their biases added after, in the storage
+    dtype, and the attention takes int8 products (``modules.py:409-421``)."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.int8 = int8
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        _int8_buffers(self, "qkv_q", "qkv_s", "proj_q", "proj_s")
+
+    @torch.no_grad()
+    def quantize_weights(self) -> None:
+        if self.int8:
+            self.qkv_q, self.qkv_s = quantize_weight(self.qkv.weight)
+            self.proj_q, self.proj_s = quantize_weight(self.proj.weight)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
         rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
+        if self.int8:
+            qkv_q, qkv_s, proj_q, proj_s = _quantized(self, "qkv_q", "qkv_s", "proj_q",
+                                                      "proj_s")
+            b, t, c = x.shape
+            qkv = int8_dense(x, qkv_q, qkv_s) + self.qkv.bias.to(x.dtype)
+            q, k, v = qkv.view(b, t, 3, self.num_heads, c // self.num_heads).unbind(2)
+            out = alibi_flash_attention_int8(q, k, v, bias.slopes, bias.positions, padding_mask,
+                                             bias.has_sentinel)
+            return int8_dense(out.reshape(b, t, c), proj_q, proj_s) + self.proj.bias.to(x.dtype)
         seed, rate = None, 0.0
         if self.training and self.attn_drop > 0.0:
             seed, rate = _need(rngs, "attention dropout").int32_seeds(1)[0], self.attn_drop
@@ -126,19 +178,34 @@ class AltBlock(nn.Module):
     not the block output. In training the fused block applies the hash
     dropout at its three sites (after GELU and after fc2 at
     ``activation_dropout``, on the residual branch at ``post_mlp_drop``)
-    from three int32 seeds."""
+    from three int32 seeds. ``matmul_impl`` "int8" or "int8_attn" runs the
+    MLP sub-block through the int8 fused block (serving)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  eps: float = 1e-5, encoder_dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 post_mlp_drop: float = 0.0):
+                 post_mlp_drop: float = 0.0, matmul_impl: str = "bf16"):
         super().__init__()
+        if matmul_impl not in MATMUL_IMPLS:
+            raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
         self.eps = eps
         self.act_rate, self.post_rate = activation_dropout, post_mlp_drop
-        self.attn = AltAttention(dim, num_heads, attention_dropout, encoder_dropout)
+        self.int8 = matmul_impl != "bf16"
+        self.attn = AltAttention(dim, num_heads, attention_dropout, encoder_dropout,
+                                 int8=matmul_impl == "int8_attn")
         self.norm1 = Fp32LayerNorm(dim, eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.norm2 = Fp32LayerNorm(dim, eps)
+        _int8_buffers(self, "w1_q", "w1_s", "w2_q", "w2_s")
+
+    @torch.no_grad()
+    def quantize_weights(self) -> None:
+        """Quantize the int8 modes' weights from the stored ones (a no-op in
+        bf16)."""
+        self.attn.quantize_weights()
+        if self.int8:
+            self.w1_q, self.w1_s = quantize_weight(self.mlp.fc1.weight)
+            self.w2_q, self.w2_s = quantize_weight(self.mlp.fc2.weight)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
@@ -146,6 +213,12 @@ class AltBlock(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x + self.attn(x, padding_mask, bias, rngs)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if self.int8:
+            w1_q, w1_s, w2_q, w2_s = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s")
+            return fused_block_int8(
+                x, self.norm1.weight, self.norm1.bias, w1_q, w1_s, fc1.bias, w2_q, w2_s,
+                fc2.bias, self.norm2.weight, self.norm2.bias, self.eps,
+            )
         seeds, act_rate, post_rate = None, 0.0, 0.0
         if self.training and (self.act_rate > 0.0 or self.post_rate > 0.0):
             seeds = _need(rngs, "block dropout").int32_seeds(3)
@@ -165,11 +238,13 @@ class BlockStack(nn.Module):
     (``modules.py:768-775``). ``keeps`` is None when no layer can drop."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
-                 eps: float, layerdrop: float = 0.0, **rates: float):
+                 eps: float, layerdrop: float = 0.0, matmul_impl: str = "bf16",
+                 **rates: float):
         super().__init__()
         self.layerdrop = layerdrop
         self.layers = nn.ModuleList(
-            AltBlock(dim, num_heads, mlp_ratio, eps, **rates) for _ in range(depth)
+            AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl, **rates)
+            for _ in range(depth)
         )
 
     def forward(
@@ -214,11 +289,12 @@ class PrenetEncoder(nn.Module):
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
-                 **rates: float):
+                 matmul_impl: str = "bf16", **rates: float):
         super().__init__()
         self.prenet_dropout = prenet_dropout
         self.norm = Fp32LayerNorm(dim, eps)
-        self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps, layerdrop, **rates)
+        self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps, layerdrop,
+                                 matmul_impl, **rates)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,

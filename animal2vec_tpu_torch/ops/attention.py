@@ -45,9 +45,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from animal2vec_tpu_torch.kernels.build import check, library
 from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
+from animal2vec_tpu_torch.ops.int8_mm import INV_127, quantize_rows
 
 NEG_INF = -1e9
 DEAD_LSE = -5e8  # an lse below this marks a query row whose keys are all padded
@@ -388,3 +390,161 @@ def alibi_flash_attention_btc(
     out = alibi_flash_attention_packed(btc_to_packed(qkv_btc, heads), slopes, positions,
                                        padding_mask, has_sentinel, rate, seed)
     return _bhtd_to_btc(out)
+
+
+# int8 serving attention: the port of ``alibi_flash_attention_int8`` and its
+# kernel ``_kernel_q8`` (``pallas_attention.py:715-888``). q and k are
+# quantized per row over D (``D**-0.5`` folded into q before its max), v per
+# channel over T. Over each span of ``span`` keys:
+#
+#   s = fp32(q8 . k8) * qs * ks - slope * |pos_q - pos_k|   (0 at sentinels)
+#   s = -1e9 at padded keys;  m' = max(m, max_span s);  p = exp(s - m')
+#   l = exp(m - m') * l + sum p               (unquantized fp32 p)
+#   acc = exp(m - m') * acc + fp32(round(127 p) . v8) * (vs * fp32(1/127))
+#
+# and out = acc / max(l, 1e-30). P is quantized against the running max
+# after each whole span, so the result depends on the span: the JAX key
+# block (``int8_spans``, 2048 keys at most). Like the JAX wrapper, keys past
+# T up to the padded length count as padded keys with zero v (their weight
+# is 0 unless a row's every key is padded). m starts at -1e9, so such a row
+# stays finite. Serving only: no dropout, no backward.
+
+
+def int8_spans(t: int, block_q: int = 1024, block_k: int = 2048) -> Tuple[int, int]:
+    """(span, padded length) of the int8 attention over T keys: the JAX
+    kernel's key block and padded length (``_fwd_blocks``)."""
+    ceil = lambda x, m: -(-x // m) * m
+    bq, bk = min(block_q, ceil(t, 128)), min(block_k, ceil(t, 128))
+    if bk > bq:
+        bk = bk // bq * bq
+    elif bq > bk:
+        bq = bq // bk * bk
+    return bk, ceil(t, max(bq, bk))
+
+
+def quantize_qkv_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, T, H, D) q, k, v -> q8, qs, k8, ks, v8, vs: int8 values of the
+    inputs' shape, (B, T, H) fp32 row scales of q (with ``D**-0.5`` folded
+    in) and k, (B, H, D) fp32 channel scales of v."""
+    q8, qs = quantize_rows(q.float() * q.shape[-1] ** -0.5)
+    k8, ks = quantize_rows(k)
+    v32 = v.float()
+    vs = torch.clamp_min(v32.abs().amax(dim=1) * INV_127, 1e-12)
+    return q8, qs, k8, ks, torch.round(v32 / vs[:, None]).to(torch.int8), vs
+
+
+def alibi_attention_int8_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = True,
+    block_q: int = 1024,
+    block_k: int = 2048,
+) -> torch.Tensor:
+    """Reference of the int8 kernel (any device): (B, T, H, D) in q's dtype,
+    the int8 products exact in float64, one batch row at a time."""
+    b, t, h, d = q.shape
+    span, t_pad = int8_spans(t, block_q, block_k)
+    q8, qs, k8, ks, v8, vs = quantize_qkv_int8(q, k, v)
+    pad = t_pad - t
+    k8, v8 = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k8, v8))
+    ks = F.pad(ks, (0, 0, 0, pad))
+    pos = F.pad(positions.to(torch.int32).expand(b, t), (0, pad)).float()
+    padded = torch.zeros((b, t_pad), dtype=torch.bool, device=q.device)
+    padded[:, t:] = True
+    if padding_mask is not None:
+        padded[:, :t] = padding_mask.bool()
+    neg_slopes = -slopes.float()[:, None, None]
+    vsc = vs * INV_127
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        qb = q8[bi].transpose(0, 1).double()  # (H, T, D)
+        qsb = qs[bi].t()[:, :, None]
+        m = torch.full((h, t), NEG_INF, device=q.device)
+        l = torch.zeros((h, t), device=q.device)
+        acc = torch.zeros((h, t, d), device=q.device)
+        for k0 in range(0, t_pad, span):
+            keys = slice(k0, k0 + span)
+            s = torch.matmul(qb, k8[bi, keys].permute(1, 2, 0).double()).float()
+            s = s * qsb * ks[bi, keys].t()[:, None, :]
+            pq, pk = pos[bi, :t, None], pos[bi, None, keys]
+            dist = (pq - pk).abs()
+            if has_sentinel:
+                dist = dist.masked_fill((pq < 0) | (pk < 0), 0.0)
+            s = (s + neg_slopes * dist).masked_fill(padded[bi, None, None, keys], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = alpha * l + p.sum(dim=-1)
+            p8 = torch.round(p * 127.0).double()
+            pv = torch.matmul(p8, v8[bi, keys].transpose(0, 1).double()).float()
+            acc = acc * alpha[..., None] + pv * vsc[bi][:, None, :]
+            m = m_new
+        out[bi] = (acc / torch.clamp_min(l, 1e-30)[..., None]).transpose(0, 1)
+    return out.to(q.dtype)
+
+
+def alibi_flash_attention_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = True,
+    block_q: int = 1024,
+    block_k: int = 2048,
+) -> torch.Tensor:
+    """int8 ALiBi attention of (B, T, H, D) q, k, v (any strides) ->
+    (B, T, H, D) in q's dtype. On CUDA the wrapper quantizes q, k and v
+    with torch ops (v8 written transposed, (B, H, D, T) with T padded to a
+    multiple of 16, the PV product's B layout) and launches the kernel
+    (``csrc/alibi_attention_int8.cu``); on CPU the plain version runs."""
+    if q.device.type == "cpu":
+        return alibi_attention_int8_plain(q, k, v, slopes, positions, padding_mask,
+                                          has_sentinel, block_q, block_k)
+    _check_device(q, "int8 alibi attention")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    if d != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
+    if positions.dim() != 2 or positions.shape[1] != t or positions.shape[0] not in (1, b):
+        raise ValueError(f"positions must be (1, T) or (B, T), got {tuple(positions.shape)}")
+    if slopes.shape != (h,):
+        raise ValueError(f"slopes must be ({h},), got {tuple(slopes.shape)}")
+    if padding_mask is not None and padding_mask.shape not in ((b, t), (1, t)):
+        raise ValueError(f"padding_mask must be (B, T) or (1, T), got {tuple(padding_mask.shape)}")
+    others = [slopes, positions, k, v] + ([] if padding_mask is None else [padding_mask])
+    if any(x.device != q.device for x in others):
+        raise ValueError("k, v, slopes, positions and padding_mask must be on q's device")
+    span, t_pad = int8_spans(t, block_q, block_k)
+    # the kernel reads q8, k8 (B, T, H, D) and their scales densely, whatever
+    # the strides of q and k
+    q8, qs, k8, ks, v8, vs = (a.contiguous() for a in quantize_qkv_int8(q, k, v))
+    t_v = -(-t // 16) * 16
+    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, t_v - t)).contiguous()
+    vsc = (vs * INV_127).contiguous()
+    sl = slopes.detach().to(torch.float32).contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    mask = None if padding_mask is None else padding_mask.to(torch.bool).contiguous()
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_int8(
+            q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
+            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), int(pos.shape[0] == b and b > 1),
+            None if mask is None else mask.data_ptr(),
+            int(mask is not None and mask.shape[0] == b and b > 1), out.data_ptr(),
+            b, h, t, d, t_v, t_pad, span, int(has_sentinel), stream,
+        )
+    check(err, "int8 alibi attention kernel")
+    alibi_flash_attention_int8.launches += 1
+    return out
+
+
+alibi_flash_attention_int8.launches = 0

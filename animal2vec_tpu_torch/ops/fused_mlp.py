@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from animal2vec_tpu_torch.kernels.build import check, library
 from animal2vec_tpu_torch.ops.dropout import hash_keep, keep_scale, keep_threshold
+from animal2vec_tpu_torch.ops.int8_mm import int_matmul, quantize_rows
 
 
 def _ln(z: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -244,3 +245,141 @@ def fused_block_mlp(
 
 
 fused_block_mlp.launches = 0
+
+
+# int8 serving block: the port of the int8 arm of the JAX ``fused_block_mlp``
+# (``_kernel_int8_block``, ``fused_mlp.py:273-329``)
+#
+#   r = dtype(LN1(x));  r_q, rs = quantize_rows(r)
+#   h = GELU(fp32(r_q W1_q^T) * rs * w1s + b1)                  (fp32)
+#   for each hidden chunk j:  h_q, hs = quantize_rows(h[:, j])
+#       acc += fp32(h_q W2_q[:, j]^T) * hs * w2s                (fp32)
+#   t = dtype(acc + b2);  x_out = dtype(LN2(r + t))             (r + t in dtype)
+#
+# Weights in nn.Linear layout as ``ops.int8_mm.quantize_weight`` leaves them:
+# w1_q (M, C) with w1_s (M,), w2_q (C, M) with w2_s (C,). h is re-quantized
+# per (row, hidden chunk): the chunk is the JAX block_m, 1024 halved until it
+# divides M (``hidden_chunk``), and no int32 sum spans two chunks. The JAX
+# kernel's GELU takes the A&S erf (1.5e-7 from erf), the port's erf: an h
+# value on a rounding boundary of its chunk's scale may quantize one step
+# apart. Serving only: there is no backward (the JAX kernel has no vjp).
+
+
+def hidden_chunk(m: int, block_m: int = 1024) -> int:
+    """The int8 block's re-quantization chunk for hidden width M."""
+    chunk = min(block_m, m)
+    while m % chunk:
+        chunk //= 2
+    return chunk
+
+
+def fused_block_int8_plain(
+    x: torch.Tensor,
+    ln1_scale: Optional[torch.Tensor],
+    ln1_bias: Optional[torch.Tensor],
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: Optional[torch.Tensor],
+    ln2_scale: Optional[torch.Tensor],
+    ln2_bias: Optional[torch.Tensor],
+    eps: float = 1e-5,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference of the int8 kernel (any device): (x_out, t), the int8
+    products exact in float64."""
+    dtype = x.dtype
+    c = x.shape[-1]
+    m = w1_q.shape[0]
+    chunk = hidden_chunk(m) if chunk is None else chunk
+    r = _ln(x.reshape(-1, c), ln1_scale, ln1_bias, eps).to(dtype)
+    r_q, r_s = quantize_rows(r)
+    h = int_matmul(r_q, w1_q) * r_s[:, None] * w1_s.float()
+    if b1 is not None:
+        h = h + b1.float()
+    h = F.gelu(h)
+    acc = torch.zeros((r.shape[0], c), dtype=torch.float32, device=x.device)
+    for j in range(0, m, chunk):
+        h_q, h_s = quantize_rows(h[:, j:j + chunk])
+        acc = acc + int_matmul(h_q, w2_q[:, j:j + chunk]) * h_s[:, None] * w2_s.float()
+    if b2 is not None:
+        acc = acc + b2.float()
+    t = acc.to(dtype)
+    x_out = _ln(r + t, ln2_scale, ln2_bias, eps).to(dtype)
+    return x_out.reshape(x.shape), t.reshape(x.shape)
+
+
+def fused_block_int8(
+    x: torch.Tensor,
+    ln1_scale: Optional[torch.Tensor],
+    ln1_bias: Optional[torch.Tensor],
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: Optional[torch.Tensor],
+    ln2_scale: Optional[torch.Tensor],
+    ln2_bias: Optional[torch.Tensor],
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x_out, t) of the int8 block for x (..., C); kernel on CUDA
+    (``csrc/fused_block_int8.cu``), plain version on CPU."""
+    args = (x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale, ln2_bias, eps)
+    if x.device.type == "cpu":
+        return fused_block_int8_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8 fused block runs on cuda or cpu tensors, got {x.device}")
+    c = x.shape[-1]
+    m = w1_q.shape[0]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous bf16 x, got {x.dtype}")
+    for name, w, shape in (("w1_q", w1_q, (m, c)), ("w2_q", w2_q, (c, m))):
+        if w.dtype != torch.int8 or w.shape != shape or not w.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "
+                             f"{tuple(w.shape)}")
+    if c % 128 or c > 1024 or m % 128:
+        raise ValueError(f"the kernel needs C % 128 == 0, C <= 1024 and M % 128 == 0, "
+                         f"got C={c}, M={m}")
+    dev = x.device
+
+    def vec(v, size, fill):
+        if v is None:
+            return torch.full((size,), fill, dtype=torch.float32, device=dev)
+        if v.shape != (size,) or v.device != dev:
+            raise ValueError(f"expected a ({size},) vector on {dev}, got {tuple(v.shape)} on {v.device}")
+        return v.detach().to(torch.float32).contiguous()
+
+    l1s, l1b = vec(ln1_scale, c, 1.0), vec(ln1_bias, c, 0.0)
+    l2s, l2b = vec(ln2_scale, c, 1.0), vec(ln2_bias, c, 0.0)
+    b1v, b2v = vec(b1, m, 0.0), vec(b2, c, 0.0)
+    w1s, w2s = vec(w1_s, m, 1.0), vec(w2_s, c, 1.0)
+    if w1_q.device != dev or w2_q.device != dev:
+        raise ValueError("weights must be on x's device")
+    chunk = hidden_chunk(m)
+    n = x.numel() // c
+    r = torch.empty((n, c), dtype=x.dtype, device=dev)
+    r_q = torch.empty((n, c), dtype=torch.int8, device=dev)
+    r_s = torch.empty((n,), dtype=torch.float32, device=dev)
+    h = torch.empty((n, m), dtype=torch.float32, device=dev)
+    h_q = torch.empty((n, m), dtype=torch.int8, device=dev)
+    h_s = torch.empty((n, m // chunk), dtype=torch.float32, device=dev)
+    t = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    x_out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_fused_block_int8(
+            x.data_ptr(), l1s.data_ptr(), l1b.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(),
+            b1v.data_ptr(), w2_q.data_ptr(), w2s.data_ptr(), b2v.data_ptr(), l2s.data_ptr(),
+            l2b.data_ptr(), r.data_ptr(), r_q.data_ptr(), r_s.data_ptr(), h.data_ptr(),
+            h_q.data_ptr(), h_s.data_ptr(), t.data_ptr(), x_out.data_ptr(), n, c, m, chunk,
+            float(eps), stream,
+        )
+    check(err, "int8 fused block kernel")
+    fused_block_int8.launches += 1
+    return x_out, t
+
+
+fused_block_int8.launches = 0

@@ -11,7 +11,8 @@ Usage:
 
 ``params.npz`` holds the JAX FinetuneModel params keyed by their "/"-joined
 paths; ``field=value`` overrides fields of the a2v-large preset
-(``animal2vec_tpu_torch.config.FinetuneConfig``).
+(``animal2vec_tpu_torch.config.FinetuneConfig``), e.g. ``matmul_impl=int8``
+or ``matmul_impl=int8_attn`` for the int8 serving numerics.
 """
 
 from __future__ import annotations
@@ -86,7 +87,9 @@ def infer_long_file(
 
 def load_finetuned(weights: str, cfg: FinetuneConfig, device: torch.device) -> FinetuneModel:
     """FinetuneModel computing in bf16 from an npz of JAX params, weights
-    stored as ``serving_cast`` leaves them."""
+    stored as ``serving_cast`` leaves them; with ``cfg.matmul_impl`` int8 the
+    load quantizes them (from the bf16 weights, as JAX serving quantizes its
+    cast tree)."""
     model = FinetuneModel(cfg, dtype=torch.bfloat16)
     sd = serving_cast(params_from_jax(load_params_npz(weights)))
     model.load_state_dict(sd, strict=True, assign=True)

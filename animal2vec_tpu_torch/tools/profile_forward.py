@@ -5,15 +5,17 @@ against the whole forward (CUDA events), and from one torch.profiler run
 the wall time, the device's busy time and idle share, and the device time
 per kernel name (the 30 largest). Weights are random from seed 0 (mel sinc
 init, bf16 serving cast), as in ``chip_smoke.py``; the input is ``--batch``
-windows of ``--seconds`` of noise.
+windows of ``--seconds`` of noise; ``--matmul-impl`` picks the serving
+numerics (bf16, int8, int8_attn).
 
   python -m animal2vec_tpu_torch.tools.profile_forward [--batch 32] \
-      [--seconds 10] [--trace trace.json]
+      [--seconds 10] [--matmul-impl int8] [--trace trace.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -22,7 +24,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from animal2vec_tpu_torch.config import FinetuneConfig
+from animal2vec_tpu_torch.config import MATMUL_IMPLS, FinetuneConfig
 from animal2vec_tpu_torch.kernels.build import library
 from animal2vec_tpu_torch.models.finetune import build_finetune_model
 from animal2vec_tpu_torch.weights import serving_cast
@@ -64,6 +66,7 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--seconds", type=float, default=10.0, help="window length")
+    parser.add_argument("--matmul-impl", default="bf16", choices=MATMUL_IMPLS)
     parser.add_argument("--trace", default="", help="write a chrome trace here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -78,7 +81,7 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0])
     library()
 
-    cfg = FinetuneConfig()
+    cfg = dataclasses.replace(FinetuneConfig(), matmul_impl=args.matmul_impl)
     model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=0, device=dev)
     model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
     wav_len = round(args.seconds * cfg.sample_rate)
@@ -92,7 +95,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         frontend = cuda_ms(lambda: model.encoder.audio_encoder.local_features(src, torch.bfloat16))
         forward = cuda_ms(lambda: model(src))
-        print(f"b{args.batch} x {args.seconds:g}-s windows: frontend (local_features) "
+        print(f"{args.matmul_impl} b{args.batch} x {args.seconds:g}-s windows: frontend (local_features) "
               f"{frontend:.2f} ms of a {forward:.2f} ms forward (CUDA events, 5 runs each)")
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

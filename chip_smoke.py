@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's a2v-large serving and finetune training paths
-once on one GPU.
+"""Drive the PyTorch port's a2v-large serving paths (bf16 and the int8
+modes) and its finetune training path once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -20,15 +20,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
 4. the fused post-LN block kernel against its plain version;
 4b. the fused block with its three dropout sites at N = 4 x 2000: forward
    against the plain version, backward against autograd of the plain one;
+4c. the int8 kernels against their plain versions: the dense projection at
+   N 8000 (3072 and 1024 outputs), the int8 block at N 8000, the int8
+   attention at b4, T 2000 (uniform; per-row positions, sentinels, mask)
+   and at T 4000 (two key spans);
 5. the full a2v-large FinetuneModel (8 prenet + 16 trunk blocks, seeded
    random weights, bf16 serving cast): kernel path against plain path,
-   launch counts per forward;
+   launch counts per forward, no plain version called on a CUDA tensor;
 6. the serving path: three synthetic recordings (25 s, 65 s, 130 s) served
-   through infer_long_file in 10-s windows;
-7. b32 throughput; each kernel's time beside its plain version's, the
-   PyTorch library call's (scaled_dot_product_attention with the ALiBi
-   bias as a float mask) and the bound the card's peak rates set, at the
-   serving shape and at the training shape;
+   through infer_long_file in 10-s windows; then b32 throughput; then 5
+   and 6 again with the same weights served with matmul_impl int8 and
+   int8_attn (logits also against the bf16 model's);
+7. each kernel's time beside its plain version's, the PyTorch library
+   call's (scaled_dot_product_attention with the ALiBi bias as a float
+   mask; torch._int_mm for the int8 product) and the bound the card's peak
+   rates set, at the serving shape and at the training shape;
 8. the training path: the full a2v-large finetune model with the
    finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
    windows with the freeze gate open, launch counts per step; then at b1
@@ -88,8 +94,22 @@ REL_BLOCK = 1e-2  # fused block backward: bf16 GEMM recompute vs fp32 plain
 # the ALiBi scale's; median 1.3e-3), so that a wrong mask or a wrong
 # backward product (errors of order 1) fails
 MODEL_GRAD_TOL = 5e-2
+# int8 kernels against their plain versions on the same inputs: the int32
+# sums are exact on both sides and the quantizers the same torch code, so
+# what is left is the fp32 order of the dequant and the sums, exp and erf
+# (a value at an int8 rounding boundary lands one step apart and moves its
+# row by a step of the next product) and the bf16 output rounding.
+INT8_DENSE_TOL = (1e-2, 1e-2)
+INT8_BLOCK_TOL = BLOCK_TOL
+INT8_ATTN_TOL = (2e-2, 2e-2)
+# full a2v-large int8 models at b2, relative norm of the logits: kernel path
+# against plain path (int8 roundings that land apart compound over 24
+# layers), and each int8 mode against the bf16 model on the same weights
+INT8_MODEL_REL = 5e-2
+INT8_VS_BF16_REL = 0.3
+MODES = ("int8", "int8_attn")
 # the H100 SXM data sheet's dense peaks (at 700 W)
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def card_line() -> str:
@@ -105,7 +125,8 @@ def ptxas_summary(log: str):
     kernel, its template flags, registers, spills and shared memory."""
     name, spills = None, ""
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '[^']*?(\d+)([a-z_]+_kernel)(I[^']*?E)?E", line)
+        entry = re.search(
+            r"Compiling entry function '[^']*?(\d+)([a-z][a-z_0-9]*_kernel)(I[^']*?E)?E", line)
         if entry:
             flags = re.findall(r"Lb([01])E", entry.group(3) or "")
             name = entry.group(2) + (f"<{','.join(flags)}>" if flags else "")
@@ -160,10 +181,10 @@ def check_heads(name, labels, gots, wants, tol):
             raise AssertionError(f"{name} {label}: a head disagrees with its plain version")
 
 
-def bound(flops, nbytes):
-    """(bound ms, what bounds it): the larger of operations over the bf16
-    tensor peak and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(bound ms, what bounds it): the larger of operations over the tensor
+    peak of their type (bf16 unless given) and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -184,6 +205,24 @@ def block_bound(n, c=1024, m=4096):
     """fc1 and fc2 (2*N*C*M each); x read, x_out and t written, bf16 weights
     and fp32 vectors read once."""
     return bound(4 * n * c * m, 2 * n * c * 3 + 2 * 2 * c * m + 4 * (5 * c + m))
+
+
+def int8_dense_bound(n, k, m):
+    """x (bf16) read, W (int8) and its fp32 scales read, y (bf16) written;
+    2*N*K*M int8 operations."""
+    return bound(2 * n * k * m, 2 * n * k + k * m + 4 * m + 2 * n * m, PEAK_INT8_OPS)
+
+
+def int8_block_bound(n, c=1024, m=4096):
+    """fc1 and fc2 in int8 (2*N*C*M each); x read, x_out and t written, int8
+    weights and fp32 vectors read once."""
+    return bound(4 * n * c * m, 2 * n * c * 3 + 2 * c * m + 4 * (6 * c + 2 * m), PEAK_INT8_OPS)
+
+
+def int8_attention_bound(b, h, t, d=64):
+    """Q.K^T and P.V in int8 (2*T^2*D each per (b, h)); bf16 q, k, v read and
+    out written."""
+    return bound(4 * b * h * t * t * d, 2 * 4 * b * h * t * d, PEAK_INT8_OPS)
 
 
 def sdpa_args(qkv, slopes, t, requires_grad=False):
@@ -362,44 +401,199 @@ def phase_block_train(dev):
     return err
 
 
+# the model's kernel entries (models/modules.py names) and their plain versions
+PLAIN_OF = {
+    "alibi_flash_attention_btc": ("attention", "alibi_attention_btc_plain"),
+    "fused_block_mlp": ("fused_mlp", "fused_block_plain"),
+    "fused_block_int8": ("fused_mlp", "fused_block_int8_plain"),
+    "int8_dense": ("int8_mm", "int8_dense_plain"),
+    "alibi_flash_attention_int8": ("attention", "alibi_attention_int8_plain"),
+}
+
+
+def _swap(module, names):
+    saved = {n: getattr(module, n) for n in names}
+    for n, f in names.items():
+        setattr(module, n, f)
+    return saved
+
+
+def int8_block_inputs(gen, n, dev):
+    """block_inputs with its weights quantized, in the int8 entry's order."""
+    from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
+
+    x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps = block_inputs(gen, n, 1024, 4096, dev)
+    w1_q, w1_s = quantize_weight(w1.t())  # (M, C): nn.Linear layout
+    w2_q, w2_s = quantize_weight(w2.t())
+    return x, l1s, l1b, w1_q, w1_s, b1, w2_q, w2_s, b2, l2s, l2b, eps
+
+
+def int8_attention_inputs(gen, b, h, t, dev):
+    """(B, T, H, 64) bf16 q, k, v views of one (B, T, 3C) projection, as the
+    model hands them over, and the ALiBi slopes."""
+    from animal2vec_tpu_torch.ops.alibi import alibi_slopes
+
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+    slopes = torch.from_numpy(alibi_slopes(h).copy()).to(dev)
+    return (*qkv.unbind(2), slopes)
+
+
+def phase_int8_kernels(dev):
+    """The int8 kernels against their plain versions: the dense projection
+    at N 8000 for the qkv (3072) and out (1024) shapes, the int8 block at N
+    8000, and the int8 attention at b4, T 2000 (uniform positions; per-row
+    positions with sentinels and a padding mask that includes a fully padded
+    row) and at T 4000 (two key spans)."""
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_int8_plain, alibi_flash_attention_int8,
+    )
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
+    from animal2vec_tpu_torch.ops.int8_mm import int8_dense, int8_dense_plain, quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    errs = {}
+    x = torch.randn((8000, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    for m in (3072, 1024):
+        w = torch.randn((m, 1024), generator=gen, device=dev) * (2.0 / (1024 + m)) ** 0.5
+        w_q, w_s = quantize_weight(w.to(torch.bfloat16))
+        got = int8_dense(x, w_q, w_s)
+        want = int8_dense_plain(x, w_q, w_s)
+        torch.cuda.synchronize()
+        errs[f"dense {m}"] = check_close(f"int8 dense (8000, 1024) -> {m}", got, want,
+                                         INT8_DENSE_TOL)
+    args = int8_block_inputs(gen, 8000, dev)
+    xo, t = fused_block_int8(*args)
+    xo_p, t_p = fused_block_int8_plain(*args)
+    torch.cuda.synchronize()
+    errs["block"] = max(check_close("int8 block tap t (8000,1024,4096)", t, t_p, INT8_BLOCK_TOL),
+                        check_close("int8 block x_out (8000,1024,4096)", xo, xo_p,
+                                    INT8_BLOCK_TOL))
+    del xo, t, xo_p, t_p, args
+
+    b, h = 4, 16
+    q, k, v, slopes = int8_attention_inputs(gen, b, h, 2000, dev)
+    pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
+    errs["attention"] = check_close(
+        "int8 attention uniform (4, 2000, 16, 64)", alibi_flash_attention_int8(q, k, v, slopes, pos),
+        alibi_attention_int8_plain(q, k, v, slopes, pos), INT8_ATTN_TOL)
+    rng = np.random.default_rng(SEED + 8)
+    rows = [np.sort(rng.choice(2500, 1998, replace=False)) for _ in range(b)]
+    pos_rows = torch.from_numpy(
+        np.stack([np.concatenate([[-1, -1], r]) for r in rows]).astype(np.int32)).to(dev)
+    mask = torch.zeros((b, 2000), dtype=torch.bool, device=dev)
+    mask[2, -300:] = True
+    mask[3] = True
+    got = alibi_flash_attention_int8(q, k, v, slopes, pos_rows, mask, True)
+    want = alibi_attention_int8_plain(q, k, v, slopes, pos_rows, mask, True)
+    errs["attention"] = max(errs["attention"], check_close(
+        "int8 attention per-row + sentinel + mask", got, want, INT8_ATTN_TOL))
+    q, k, v, slopes = int8_attention_inputs(gen, b, h, 4000, dev)
+    pos = torch.arange(4000, dtype=torch.int32, device=dev)[None]
+    mask = torch.zeros((b, 4000), dtype=torch.bool, device=dev)
+    mask[1, -300:] = True
+    errs["attention"] = max(errs["attention"], check_close(
+        "int8 attention T 4000 (two key spans), row 1 padded",
+        alibi_flash_attention_int8(q, k, v, slopes, pos, mask),
+        alibi_attention_int8_plain(q, k, v, slopes, pos, mask), INT8_ATTN_TOL))
+    torch.cuda.synchronize()
+    return errs
+
+
+def int8_model(model, cfg, mode, dev):
+    """The bf16-cast model's weights served in an int8 mode (quantized at
+    load)."""
+    from animal2vec_tpu_torch.models.finetune import FinetuneModel
+
+    out = FinetuneModel(dataclasses.replace(cfg, matmul_impl=mode), dtype=torch.bfloat16)
+    out.load_state_dict(model.state_dict(), strict=True, assign=True)
+    return out.to(dev).eval()
+
+
 class PlainOps:
     """Route the model's kernel ops to their plain versions, for the
     on-card comparison of the kernel path with the plain path."""
 
     def __enter__(self):
-        from animal2vec_tpu_torch.models import modules
-        from animal2vec_tpu_torch.ops.attention import alibi_attention_btc_plain
-        from animal2vec_tpu_torch.ops.fused_mlp import fused_block_plain
+        import importlib
 
-        self.saved = (modules.alibi_flash_attention_btc, modules.fused_block_mlp)
-        modules.alibi_flash_attention_btc = alibi_attention_btc_plain
-        modules.fused_block_mlp = fused_block_plain
+        from animal2vec_tpu_torch.models import modules
+
+        ops = {n: getattr(importlib.import_module(f"animal2vec_tpu_torch.ops.{m}"), f)
+               for n, (m, f) in PLAIN_OF.items()}
+        self.saved = _swap(modules, ops)
         return self
 
     def __exit__(self, *exc):
         from animal2vec_tpu_torch.models import modules
 
-        modules.alibi_flash_attention_btc, modules.fused_block_mlp = self.saved
+        _swap(modules, self.saved)
+        return False
+
+
+class PlainSpy:
+    """Count the calls of every plain version on a CUDA tensor (the kernel
+    path must make none): each plain function is wrapped where its module
+    looks it up."""
+
+    def __enter__(self):
+        import importlib
+
+        self.cuda_calls = 0
+        self.saved = []
+        plain = {(m, f) for m, f in PLAIN_OF.values()} | {("attention", "alibi_attention_plain"),
+                                                          ("attention", "attention_bwd_plain")}
+        for m, f in sorted(plain):
+            mod = importlib.import_module(f"animal2vec_tpu_torch.ops.{m}")
+            self.saved.append((mod, _swap(mod, {f: self._spy(getattr(mod, f))})))
+        return self
+
+    def _spy(self, fn):
+        def wrapped(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.cuda_calls += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, saved in self.saved:
+            _swap(mod, saved)
         return False
 
 
 def _counted():
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_packed, attention_dkv, attention_dq,
+        alibi_flash_attention_int8, alibi_flash_attention_packed, attention_dkv, attention_dq,
     )
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_mlp
+    from animal2vec_tpu_torch.ops.int8_mm import int8_dense
 
-    return alibi_flash_attention_packed, attention_dq, attention_dkv, fused_block_mlp
+    return {"attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
+            "block": fused_block_mlp, "int8_dense": int8_dense, "int8_block": fused_block_int8,
+            "int8_attention": alibi_flash_attention_int8}
 
 
 def counts():
-    """Launches of (attention forward, dq, dk/dv, fused block)."""
-    return tuple(f.launches for f in _counted())
+    """Launches of each kernel entry since the last reset."""
+    return {k: f.launches for k, f in _counted().items()}
 
 
 def reset_counts():
-    for f in _counted():
+    for f in _counted().values():
         f.launches = 0
+
+
+def forward_launches(mode, n_blocks):
+    """The launches of one forward of the model in a matmul_impl mode."""
+    want = dict.fromkeys(_counted(), 0)
+    if mode == "int8_attn":
+        want.update(int8_dense=2 * n_blocks, int8_attention=n_blocks, int8_block=n_blocks)
+    else:
+        want.update(attention=n_blocks, **{"block" if mode == "bf16" else "int8_block": n_blocks})
+    return want
+
+
+def launch_line(got):
+    return ", ".join(f"{k} {v}" for k, v in got.items() if v)
 
 
 def build_model(cfg, dev):
@@ -411,34 +605,54 @@ def build_model(cfg, dev):
     return model
 
 
-def phase_model(model, cfg, dev):
+def phase_model(model, cfg, dev, mode="bf16", bf16_logits=None):
+    """One b2 forward through the kernels (launch counts, no plain version
+    on a CUDA tensor) against the plain path; the int8 modes also against
+    the bf16 model's logits. Returns the logits."""
     n_blocks = cfg.prenet_depth + cfg.depth
     src = torch.from_numpy(
         np.random.default_rng(SEED).normal(size=(2, WAV_LEN)).astype(np.float32)
     ).to(dev)
     with torch.inference_mode():
-        before = counts()
-        logits = model(src)["encoder_out"]
-        after = counts()
+        reset_counts()
+        with PlainSpy() as spy:
+            logits = model(src)["encoder_out"]
+        got = counts()
         with PlainOps():
             logits_p = model(src)["encoder_out"]
         torch.cuda.synchronize()
-    per_forward = (after[0] - before[0], after[3] - before[3])
-    print(f"model launches per forward: attention {per_forward[0]}, "
-          f"fused block {per_forward[1]} (expected {n_blocks} each)")
-    if per_forward != (n_blocks, n_blocks):
+    want = forward_launches(mode, n_blocks)
+    print(f"{mode} model launches per forward: {launch_line(got)} (expected "
+          f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+    if got != want:
         raise AssertionError("the model did not launch each kernel once per block")
+    if spy.cuda_calls:
+        raise AssertionError("the kernel path called a plain version on a CUDA tensor")
     frames = WAV_LEN // 40
     if tuple(logits.shape) != (2, frames, len(cfg.labels)) or not torch.isfinite(logits).all():
         raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
     err = (logits.float() - logits_p.float()).abs().max().item()
-    print(f"model logits kernel vs plain path: max_abs_err {err:.3e} "
-          f"(tolerance {MODEL_TOL}), |logits| max {logits.float().abs().max().item():.3f}")
-    if not err <= MODEL_TOL:
-        raise AssertionError("full-model kernel path disagrees with the plain path")
+    rel = rel_norm(logits, logits_p)
+    print(f"{mode} model logits kernel vs plain path: max_abs_err {err:.3e}, relative norm "
+          f"{rel:.3e}, |logits| max {logits.float().abs().max().item():.3f}")
+    if mode == "bf16":
+        print(f"  (tolerance {MODEL_TOL} max abs)")
+        if not err <= MODEL_TOL:
+            raise AssertionError("full-model kernel path disagrees with the plain path")
+        return logits
+    print(f"  (tolerance {INT8_MODEL_REL} relative norm)")
+    if not rel <= INT8_MODEL_REL:
+        raise AssertionError(f"{mode} full-model kernel path disagrees with the plain path")
+    rel_bf16 = rel_norm(logits, bf16_logits)
+    print(f"{mode} model logits against the bf16 model's: relative norm {rel_bf16:.3e}, max abs "
+          f"{(logits.float() - bf16_logits.float()).abs().max().item():.3e} "
+          f"(bound {INT8_VS_BF16_REL} relative norm)")
+    if not rel_bf16 <= INT8_VS_BF16_REL:
+        raise AssertionError(f"{mode} logits stray from the bf16 model's")
+    return logits
 
 
-def phase_serve(model, cfg, dev):
+def phase_serve(model, cfg, dev, mode="bf16"):
     from animal2vec_tpu_torch.data.wavio import write_wav
     from animal2vec_tpu_torch.tools.infer_cli import infer_long_file
 
@@ -457,16 +671,15 @@ def phase_serve(model, cfg, dev):
             paths.append(path)
         reset_counts()
         t0 = time.perf_counter()
-        results = [
-            infer_long_file(p, model, cfg, max_batch_size=32, segment_length=10.0, device=dev)
-            for p in paths
-        ]
+        with PlainSpy() as spy:
+            results = [
+                infer_long_file(p, model, cfg, max_batch_size=32, segment_length=10.0,
+                                device=dev)
+                for p in paths
+            ]
         torch.cuda.synchronize()
         seconds_taken = time.perf_counter() - t0
-        fwd, dq, dkv, blk = counts()
-    launches = (fwd, blk)
-    if dq or dkv:
-        raise AssertionError(f"serving launched backward kernels: dq {dq}, dk/dv {dkv}")
+        launches = counts()
     n_forwards = len(SERVE_SECONDS)  # each recording fits one batch of <= 32 windows
     n_blocks = cfg.prenet_depth + cfg.depth
     for seconds, events in zip(SERVE_SECONDS, results):
@@ -476,14 +689,15 @@ def phase_serve(model, cfg, dev):
                     and 0.0 <= ev["likelihood"] <= 1.0):
                 raise AssertionError(f"malformed event {ev}")
         print(f"served {seconds}-s recording ({-(-seconds // 10)} windows): {n_events} events")
-    print(f"served 3 recordings in {seconds_taken:.3f} s; launches attention "
-          f"{launches[0]}, fused block {launches[1]}")
-    if launches != (n_forwards * n_blocks,) * 2:
-        raise AssertionError(f"main path launch counts {launches} != {n_forwards * n_blocks}")
+    want = {k: n_forwards * v for k, v in forward_launches(mode, n_blocks).items()}
+    print(f"{mode}: served 3 recordings in {seconds_taken:.3f} s; launches "
+          f"{launch_line(launches)}; plain-version calls on CUDA tensors {spy.cuda_calls}")
+    if launches != want or spy.cuda_calls:
+        raise AssertionError(f"main path launch counts {launches} != {want}, or a plain call")
     return launches
 
 
-def phase_throughput(model, card, dev):
+def phase_throughput(model, card, dev, mode="bf16"):
     src = torch.from_numpy(
         np.random.default_rng(SEED + 2).normal(size=(32, WAV_LEN)).astype(np.float32)
     ).to(dev)
@@ -492,12 +706,18 @@ def phase_throughput(model, card, dev):
             model(src)
         torch.cuda.synchronize()
         iters = 5
+        reset_counts()
         t0 = time.perf_counter()
         for _ in range(iters):
             model(src)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / iters
-    print(f"throughput b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch) on {card}")
+        launched = counts()
+    print(f"{mode} throughput b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch) on "
+          f"{card}; launches per b32 forward: {launch_line(launched)} over {iters}")
+    want = forward_launches(mode, model.cfg.n_blocks)
+    if launched != {k: iters * v for k, v in want.items()}:
+        raise AssertionError(f"b32 launches {launched} != {iters} x {want}")
 
 
 def train_batch(cfg, dev, batch=TRAIN_BATCH, seed=SEED + 6):
@@ -556,15 +776,16 @@ def phase_train(cfg, card, dev):
         reset_counts()
         metrics = step_fn(state, batch, rngs)
         torch.cuda.synchronize()
-        got = counts()
+        launched = counts()
+        got = tuple(launched[k] for k in ("attention", "dq", "dkv", "block"))
         loss = float(metrics["loss"])
         print(f"train step {i + 1}: loss {loss:.5f}; launches attention forward {got[0]}, "
               f"dq {got[1]}, dk/dv {got[2]}, fused block {got[3]} (expected {ran[0]} each: "
               f"{n_blocks} blocks less {n_blocks - ran[0]} dropped by layerdrop)")
         if not np.isfinite(loss):
             raise AssertionError("non-finite training loss")
-        if got != (ran[0],) * 4 or ran[0] == 0:
-            raise AssertionError(f"train step launch counts {got} != {ran[0]} each")
+        if got != (ran[0],) * 4 or ran[0] == 0 or sum(launched.values()) != 4 * ran[0]:
+            raise AssertionError(f"train step launch counts {launched} != {ran[0]} each")
         for n, p in model.named_parameters():
             if p.grad is None or not torch.isfinite(p.grad).all():
                 raise AssertionError(f"missing or non-finite gradient: {n}")
@@ -736,7 +957,48 @@ def phase_kernel_times(dev):
         row(f"fused block + dropout, N {n} training",
             cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
             cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(n))
+        del args
+        torch.cuda.empty_cache()
+        int8_kernel_times(gen, dev, row)
     return rows
+
+
+def int8_kernel_times(gen, dev, row):
+    """The int8 kernels at the b32 serving shapes (N = 64 000 rows, T 2000):
+    the wrapper as the model calls it (quantization included) beside its
+    plain version; the dense projection also beside torch._int_mm, the int8
+    product alone on the same quantized operands."""
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_int8_plain, alibi_flash_attention_int8, quantize_qkv_int8,
+    )
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
+    from animal2vec_tpu_torch.ops.int8_mm import (
+        int8_dense, int8_dense_plain, quantize_rows, quantize_weight,
+    )
+
+    n = 32 * 2000
+    x = torch.randn((n, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    x_q, _ = quantize_rows(x)
+    for m, what in ((3072, "qkv"), (1024, "out")):
+        w = torch.randn((m, 1024), generator=gen, device=dev) * (2.0 / (1024 + m)) ** 0.5
+        w_q, w_s = quantize_weight(w.to(torch.bfloat16))
+        row(f"int8 dense {what} projection, b32 serving", cuda_ms(lambda: int8_dense(x, w_q, w_s)),
+            cuda_ms(lambda: int8_dense_plain(x, w_q, w_s), iters=3),
+            cuda_ms(lambda: torch._int_mm(x_q, w_q.t())), int8_dense_bound(n, 1024, m))
+    print("  (library: torch._int_mm, the int8 product alone on pre-quantized operands)")
+    del x, x_q
+    args = int8_block_inputs(gen, n, dev)
+    row("int8 fused block, b32 serving", cuda_ms(lambda: fused_block_int8(*args)),
+        cuda_ms(lambda: fused_block_int8_plain(*args), iters=3), None, int8_block_bound(n))
+    del args
+    torch.cuda.empty_cache()
+    q, k, v, slopes = int8_attention_inputs(gen, 32, 16, 2000, dev)
+    pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
+    row("int8 attention, b32 serving", cuda_ms(lambda: alibi_flash_attention_int8(q, k, v, slopes, pos)),
+        cuda_ms(lambda: alibi_attention_int8_plain(q, k, v, slopes, pos), iters=1, warmup=1),
+        None, int8_attention_bound(32, 16, 2000))
+    print(f"  (of which the torch quantization of q, k and v: "
+          f"{cuda_ms(lambda: quantize_qkv_int8(q, k, v)):.3f} ms)")
 
 
 def main() -> int:
@@ -766,12 +1028,19 @@ def main() -> int:
     attn_err = phase_attention(dev)
     fwd_err, dq_err, dkv_err = phase_attention_train(dev)
     block_err = max(phase_block(dev), phase_block_train(dev))
+    int8_errs = phase_int8_kernels(dev)
 
     cfg = FinetuneConfig()
     model = build_model(cfg, dev)
-    phase_model(model, cfg, dev)
-    serving = phase_serve(model, cfg, dev)
+    bf16_logits = phase_model(model, cfg, dev)
+    serving = {"bf16": phase_serve(model, cfg, dev)}
     phase_throughput(model, card, dev)
+    for mode in MODES:
+        served = int8_model(model, cfg, mode, dev)
+        phase_model(served, cfg, dev, mode, bf16_logits)
+        serving[mode] = phase_serve(served, cfg, dev, mode)
+        phase_throughput(served, card, dev, mode)
+        del served
     del model
     torch.cuda.empty_cache()
     times = phase_kernel_times(dev)
@@ -786,10 +1055,20 @@ def main() -> int:
             e.update({f"serving_{k}": v for k, v in times[serving_key].items()})
         return e
 
+    def int8_entry(name, source, replaces, counted, err, key, extra_key=None):
+        # launches: the int8 serving runs (three recordings in each int8 mode)
+        per_mode = {f"launches_{m}": serving[m][counted] for m in MODES}
+        e = entry(name, source, replaces, sum(per_mode.values()), serving["bf16"][counted], err,
+                  key)
+        e.update(per_mode)
+        if extra_key:
+            e.update({f"out_proj_{k}": v for k, v in times[extra_key].items()})
+        return e
+
     pa = "animal2vec_tpu/ops/pallas_attention.py"
     kernels = [
         entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:891, {pa}:113",
-              training[0], serving[0], max(attn_err, fwd_err),
+              training[0], serving["bf16"]["attention"], max(attn_err, fwd_err),
               f"attention forward + lse + dropout, b{TRAIN_BATCH} training",
               "attention forward, b32 serving"),
         entry("alibi_attention_dq", "alibi_attention_bwd.cu", f"{pa}:330", training[1], 0,
@@ -797,9 +1076,18 @@ def main() -> int:
         entry("alibi_attention_dkv", "alibi_attention_bwd.cu", f"{pa}:390", training[2], 0,
               dkv_err, f"attention dk/dv, b{TRAIN_BATCH} training"),
         entry("fused_block", "fused_block.cu", "animal2vec_tpu/ops/fused_mlp.py:175",
-              training[3], serving[1], block_err,
+              training[3], serving["bf16"]["block"], block_err,
               f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
               "fused block, b32 serving"),
+        int8_entry("int8_dense", "int8_dense.cu", "animal2vec_tpu/ops/int8_mm.py:60",
+                   "int8_dense", max(int8_errs["dense 3072"], int8_errs["dense 1024"]),
+                   "int8 dense qkv projection, b32 serving",
+                   "int8 dense out projection, b32 serving"),
+        int8_entry("fused_block_int8", "fused_block_int8.cu",
+                   "animal2vec_tpu/ops/fused_mlp.py:273", "int8_block", int8_errs["block"],
+                   "int8 fused block, b32 serving"),
+        int8_entry("alibi_flash_attention_int8", "alibi_attention_int8.cu", f"{pa}:715",
+                   "int8_attention", int8_errs["attention"], "int8 attention, b32 serving"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

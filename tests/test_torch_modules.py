@@ -110,6 +110,7 @@ def test_config_preset_matches_finetune_100_yaml():
         "max_duration_s": crit.max_duration_s,
         "lowP": crit.lowP,
         "iou_threshold": crit.iou_threshold,
+        "matmul_impl": m.matmul_impl,
     }
     ours = FinetuneConfig()
     assert set(expected) == {f.name for f in dataclasses.fields(ours)}
@@ -176,7 +177,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "print(json.dumps({'n': len(names), 'loaded': sorted(m for m in sys.modules\n"
+        "print(json.dumps({'names': names, 'loaded': sorted(m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'animal2vec_tpu'))}))\n"
     )
     env = dict(os.environ, PYTHONPATH="")
@@ -185,7 +186,9 @@ def test_port_imports_no_jax():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1, out.stdout  # chip_smoke printed nothing on import
     res = json.loads(lines[0])
-    assert res["n"] >= 25
+    assert len(res["names"]) >= 26
+    assert {"animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
+            "animal2vec_tpu_torch.ops.attention"} <= set(res["names"])
     assert res["loaded"] == [], res["loaded"]
 
 
