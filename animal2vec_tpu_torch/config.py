@@ -30,6 +30,19 @@ MEERKAT_LABELS = (
 )
 
 
+def _check_trunk(embed_dim: int, num_heads: int, mlp_ratio: float, matmul_impl: str) -> None:
+    if embed_dim % num_heads:
+        raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
+    if matmul_impl not in MATMUL_IMPLS:
+        raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
+    hidden = int(embed_dim * mlp_ratio)
+    if matmul_impl != "bf16" and (embed_dim % 128 or hidden % 128):
+        raise ValueError(
+            f"matmul_impl={matmul_impl!r} needs embed_dim and the MLP width in multiples of "
+            f"128 (the int8 kernels' route), got {embed_dim} and {hidden}"
+        )
+
+
 @dataclass(frozen=True)
 class FinetuneConfig:
     # conv frontend: [(dim, kernel, stride), ...] (task.conv_feature_layers)
@@ -78,22 +91,7 @@ class FinetuneConfig:
                 f"sinc_norm={self.sinc_norm!r}: the port implements "
                 "'layer_norm' and 'instance'"
             )
-        if self.embed_dim % self.num_heads:
-            raise ValueError(
-                f"embed_dim {self.embed_dim} is not a multiple of "
-                f"num_heads {self.num_heads}"
-            )
-        if self.matmul_impl not in MATMUL_IMPLS:
-            raise ValueError(
-                f"matmul_impl={self.matmul_impl!r}: expected one of {MATMUL_IMPLS}"
-            )
-        hidden = int(self.embed_dim * self.mlp_ratio)
-        if self.matmul_impl != "bf16" and (self.embed_dim % 128 or hidden % 128):
-            raise ValueError(
-                f"matmul_impl={self.matmul_impl!r} needs embed_dim and the MLP width "
-                f"in multiples of 128 (the int8 kernels' route), got {self.embed_dim} "
-                f"and {hidden}"
-            )
+        _check_trunk(self.embed_dim, self.num_heads, self.mlp_ratio, self.matmul_impl)
         if not 0 < self.average_top_k_layers <= self.depth:
             raise ValueError(
                 f"average_top_k_layers={self.average_top_k_layers} must lie "
@@ -126,6 +124,71 @@ class FinetuneConfig:
             "lowP": self.lowP,
             "iou_threshold": self.iou_threshold,
         }
+
+
+@dataclass(frozen=True)
+class ImageConfig:
+    """The image modality's serving model (data2vec-2 feature extraction on
+    (B, H, W, 3) images): the fields that ``Data2VecMulti.extract_features
+    (imgs, "IMAGE")`` reads, with the JAX package's defaults (``ModelConfig``
+    for the trunk, ``ImageModalityConfig`` for the patches, ALiBi and the
+    prenet, resolved as ``config.resolve`` does: one ALiBi head per trunk
+    head). Those make a ViT-B/16: 4 prenet + 8 trunk blocks of 768 with 12
+    heads of 64, MLP 3072, 196 patches of 16 x 16 (``tests/test_torch_image_*``
+    compare the fields one by one).
+
+    Blocks are post-LN or, with ``layer_norm_first``, pre-LN with a final
+    LayerNorm after the trunk. With ``use_alibi_encoder`` every attention
+    takes the 2-D ALiBi bias of the patch grid (``alibi_distance``),
+    multiplied by a learned scale clipped at 0 (one, or one per head with
+    ``learned_alibi_scale_per_head``). Not ported: extra (CLS) tokens and
+    per-layer ALiBi scales (they raise), the decoders (pretraining)."""
+
+    input_size: int = 224
+    patch_size: int = 16
+    in_chans: int = 3
+    patch_embed_dim: int = 768  # image.embed_dim; != embed_dim adds patch_proj
+    fixed_positions: bool = True  # add the 2-D sin-cos table to the patches
+    prenet_depth: int = 4
+    depth: int = 8
+    embed_dim: int = 768
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    norm_eps: float = 1e-6
+    layer_norm_first: bool = False
+    end_of_block_targets: bool = False  # a layer's tap: the MLP output, or the block's
+    matmul_impl: str = "bf16"  # as FinetuneConfig.matmul_impl
+    use_alibi_encoder: bool = False
+    alibi_scale: float = 1.0
+    learned_alibi_scale_per_head: bool = False
+    learned_alibi_scale_per_layer: bool = False
+    alibi_distance: str = "manhattan"  # or "euclidean"
+    num_extra_tokens: int = 0
+
+    def __post_init__(self):
+        if self.num_extra_tokens:
+            raise NotImplementedError("extra (CLS) tokens are not ported")
+        if self.learned_alibi_scale_per_layer:
+            raise NotImplementedError("per-layer ALiBi scales are not ported")
+        if self.alibi_distance not in ("manhattan", "euclidean"):
+            raise ValueError(f"alibi_distance={self.alibi_distance!r}: 'manhattan' or 'euclidean'")
+        if self.input_size % self.patch_size:
+            raise ValueError(f"input_size {self.input_size} is not a multiple of patch_size "
+                             f"{self.patch_size}")
+        _check_trunk(self.embed_dim, self.num_heads, self.mlp_ratio, self.matmul_impl)
+
+    @property
+    def grid_size(self) -> int:
+        return self.input_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size**2
+
+    @property
+    def n_blocks(self) -> int:
+        """Transformer blocks in the model: prenet and trunk."""
+        return self.prenet_depth + self.depth
 
 
 @dataclass(frozen=True)

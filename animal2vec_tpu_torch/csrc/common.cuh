@@ -99,6 +99,13 @@ __device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, 
   return z;
 }
 
+// Dropout of one site: keep when drop_hash(seed, row, col) >= thresh.
+struct DropSite {
+  uint32_t seed;
+  uint32_t thresh;
+  float keep_scale;  // 1 / (1 - rate)
+};
+
 // Dropout factor of one element: keep_scale (1 / (1 - rate)) or 0.
 __device__ __forceinline__ float drop_factor(uint32_t seed_word, uint32_t row, uint32_t col,
                                              uint32_t thresh, float keep_scale) {

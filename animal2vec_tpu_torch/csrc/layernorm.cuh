@@ -19,13 +19,6 @@ namespace {
 constexpr int kLnThreads = 256;     // 8 rows per block, one warp per row
 constexpr int kLnMaxPerLane = 32;   // C <= 1024
 
-// Dropout of one site: keep when drop_hash(seed, row, col) >= thresh.
-struct DropSite {
-  uint32_t seed;
-  uint32_t thresh;
-  float keep_scale;  // 1 / (1 - rate)
-};
-
 // Needs C % 128 == 0, C <= 1024. q and q_scale are read only with QUANT.
 template <bool RESID, bool DROP, bool QUANT>
 __global__ void __launch_bounds__(kLnThreads)

@@ -1,10 +1,23 @@
-"""Structured ALiBi bias: the port of ``animal2vec_tpu/models/attention.AlibiSpec``."""
+"""Attention dispatch: the port of ``animal2vec_tpu/models/attention.py``
+(``AlibiSpec`` and ``multihead_attention``).
+
+A structured ``AlibiSpec`` goes to the ALiBi flash kernels, which compute
+the bias inline; a dense bias (the image modality's 2-D ALiBi) or no bias
+goes to the dense-bias flash kernel. The JAX package sends a dense bias to
+its TPU flash kernel only at T >= 1024 on a TPU and to ``xla_attention``
+otherwise; the port takes its kernel for every CUDA tensor and computes
+``xla_attention``'s function at every length (``ops/bias_attention.py``).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import torch
+
+from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_btc
+from animal2vec_tpu_torch.ops.bias_attention import bias_flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,3 +31,29 @@ class AlibiSpec:
     slopes: torch.Tensor     # (H,) fp32, learned scale folded in
     positions: torch.Tensor  # (1 or B, T) int32
     has_sentinel: bool = False
+
+
+# None, a structured ALiBi bias, or a dense fp32 (1 or B, H, T, T) bias
+Bias = Union[AlibiSpec, torch.Tensor, None]
+
+
+def multihead_attention(
+    qkv: torch.Tensor,
+    heads: int,
+    bias: Bias = None,
+    padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Attention of the (B, T, 3C) qkv projection -> (B, T, C). An
+    ``AlibiSpec`` takes ``alibi_flash_attention_btc`` (serving and training,
+    with its hash dropout); a dense bias or None takes ``bias_flash_attention``
+    on the q, k, v views of ``qkv`` (serving: no dropout, no backward)."""
+    if isinstance(bias, AlibiSpec):
+        return alibi_flash_attention_btc(qkv, heads, bias.slopes, bias.positions, padding_mask,
+                                         bias.has_sentinel, dropout_rate, seed)
+    if dropout_rate > 0.0:
+        raise NotImplementedError("attention dropout with a dense bias is not ported")
+    b, t, c3 = qkv.shape
+    q, k, v = qkv.reshape(b, t, 3, heads, c3 // (3 * heads)).unbind(2)
+    return bias_flash_attention(q, k, v, bias, padding_mask).reshape(b, t, c3 // 3)

@@ -1,6 +1,7 @@
 """Frame-level multi-label finetune model: the port of
 ``animal2vec_tpu/models/finetune.FinetuneModel`` and
-``train/build.build_finetune_model``.
+``train/build.build_finetune_model``; and ``build_image_model``, the image
+modality's serving model (a ``Data2VecMulti`` of an ``ImageConfig``).
 
 encoder -> fp32 mean of the last k kept trunk MLP taps, cast back -> freeze
 gate -> final dropout -> Linear.
@@ -29,10 +30,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig
+from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig, ImageConfig
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
-from animal2vec_tpu_torch.models.modules import AltBlock, top_k_tap_average
+from animal2vec_tpu_torch.models.images import PatchEmbed
+from animal2vec_tpu_torch.models.modules import top_k_tap_average
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 
 
@@ -57,19 +59,16 @@ class FinetuneModel(nn.Module):
         self.cfg = cfg
         self.final_dropout = 0.0 if train is None else train.final_dropout
         self.zero_mask = True if train is None else train.zero_mask
+        # the encoder quantizes the int8 modes' weights after every load
         self.encoder = Data2VecMulti(cfg, dtype, **encoder_rates(train))
         self.proj = nn.Linear(cfg.embed_dim, len(cfg.labels))
-        # the int8 modes' buffers follow every load of the weights
-        self.register_load_state_dict_post_hook(lambda module, _: module.quantize_weights())
 
     def quantize_weights(self) -> None:
         """Quantize the int8 modes' weights (``cfg.matmul_impl``) of every
         block from the stored ones, into non-persistent buffers; a no-op in
         bf16. Runs after ``load_state_dict``; call it after changing the
         weights any other way."""
-        for mod in self.modules():
-            if isinstance(mod, AltBlock):
-                mod.quantize_weights()
+        self.encoder.quantize_weights()
 
     def forward(self, source: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -82,8 +81,8 @@ class FinetuneModel(nn.Module):
         ``mask``/``channel_mask`` apply masking as regularization;
         ``finetune_encoder`` is the freeze gate."""
         with torch.set_grad_enabled(torch.is_grad_enabled() and finetune_encoder):
-            res = self.encoder.extract_features(source, padding_mask, mask, channel_mask,
-                                                self.zero_mask, rngs)
+            res = self.encoder.extract_features(source, "AUDIO", padding_mask, mask,
+                                                channel_mask, self.zero_mask, rngs)
             taps = res["layer_results"]
             x = top_k_tap_average(taps, self.cfg.average_top_k_layers,
                                   res["layer_keeps"]).to(taps[-1].dtype)
@@ -99,11 +98,17 @@ class FinetuneModel(nn.Module):
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: xavier-uniform dense
-    kernels, he-normal convs, zero biases; norms, PSwish, the sinc filterbank
-    (mel-spaced) and the ALiBi scales keep their constructor values."""
+    kernels and patch embeddings, he-normal convs, zero biases; norms,
+    PSwish, the sinc filterbank (mel-spaced) and the ALiBi scales keep their
+    constructor values."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, PatchEmbed):
+                d, c, p, _ = mod.weight.shape
+                bound = math.sqrt(6.0 / ((c + d) * p * p))
+                mod.weight.uniform_(-bound, bound, generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Linear):
                 fan_out, fan_in = mod.weight.shape
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 mod.weight.uniform_(-bound, bound, generator=generator)
@@ -128,6 +133,23 @@ def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32
         raise RuntimeError("build_finetune_model: CUDA is not available; "
                            "pass device='cpu' to build on the CPU")
     model = FinetuneModel(cfg, dtype, train)
+    init_params(model, torch.Generator().manual_seed(seed))
+    model.quantize_weights()
+    return model.to(device).eval()
+
+
+def build_image_model(cfg: ImageConfig, dtype: torch.dtype = torch.float32, seed: int = 0,
+                      device="cuda") -> Data2VecMulti:
+    """The image modality's serving model, ``extract_features(imgs, "IMAGE")``
+    on (B, H, W, 3) images: fp32 weights drawn from ``seed`` on a CPU
+    generator (so they do not depend on the device), computing in ``dtype``,
+    on ``device`` (the card unless the caller asks for the CPU), in eval
+    mode, with ``cfg.matmul_impl``'s int8 weights quantized."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_image_model: CUDA is not available; "
+                           "pass device='cpu' to build on the CPU")
+    model = Data2VecMulti(cfg, dtype)
     init_params(model, torch.Generator().manual_seed(seed))
     model.quantize_weights()
     return model.to(device).eval()

@@ -1,24 +1,30 @@
 """Transformer building blocks: the port of ``animal2vec_tpu/models/modules.py``
-(post-LN AltBlock, feature-last (B, T, C) layout), with its serving and
-training arms.
+(AltBlock post-LN and, for serving, pre-LN; feature-last (B, T, C) layout),
+with its serving and training arms.
 
 Each module computes in the dtype of its input and casts its weights to it
 at use (a no-op once ``weights.serving_cast`` stored them in bf16; in
 training the fp32 master weights are cast, and autograd carries the
 gradient back to them); LayerNorm statistics are fp32. The per-block work
-goes through ops with CUDA kernels: ``ops.attention.alibi_flash_attention_btc``
-and ``ops.fused_mlp.fused_block_mlp``, each of which launches its bare
-forward when no gradient is wanted and its autograd Function otherwise. Where JAX scans over stacked per-layer
-params, the port loops over one module per layer.
+goes through ops with CUDA kernels: the attention through
+``models.attention.multihead_attention`` (the ALiBi kernels for an
+``AlibiSpec``, the dense-bias kernel for the image modality's dense bias or
+none), the post-LN MLP sub-block through ``ops.fused_mlp.fused_block_mlp``
+and a pre-LN block's MLP through ``ops.fused_mlp.fused_mlp``; the ALiBi
+attention and the post-LN block launch their bare forward when no gradient
+is wanted and their autograd Function otherwise. Where JAX scans over
+stacked per-layer params, the port loops over one module per layer.
 
 ``matmul_impl`` selects the serving numerics of every block: "int8" runs
-the MLP sub-block through ``ops.fused_mlp.fused_block_int8``, "int8_attn"
-also the qkv and out projections through ``ops.int8_mm.int8_dense`` and the
-attention through ``ops.attention.alibi_flash_attention_int8``
-(``modules.py:506-541``). The int8 weights are quantized once from the
-stored weights by ``quantize_weights`` into non-persistent buffers, so one
-state dict serves every mode; a module quantizes when its weights are
-loaded (``FinetuneModel`` calls it after ``load_state_dict``). The int8
+the MLP sub-block through ``ops.fused_mlp.fused_block_int8`` (post-LN) or
+``fused_mlp_int8`` (pre-LN), "int8_attn" also the qkv and out projections
+through ``ops.int8_mm.int8_dense`` and an ``AlibiSpec`` attention through
+``ops.attention.alibi_flash_attention_int8`` (``modules.py:506-541``); a
+dense-bias attention stays bf16 there, as in JAX (``modules.py:387,
+433-444``). The int8 weights are quantized once from the stored weights by
+``quantize_weights`` into non-persistent buffers, so one state dict serves
+every mode; a module quantizes when its weights are loaded (the encoder,
+``models.data2vec2.Data2VecMulti``, calls it after ``load_state_dict``). The int8
 modes are serving-only: ``train()`` forwards raise, as the JAX int8
 kernels have no vjp.
 
@@ -26,7 +32,8 @@ Training arms run when the module is in ``train()`` mode. Their random
 draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
 the int32 hash seeds of the kernels on its host generator, elementwise
 dropout masks on its device generator. Drop-path is not ported (the
-finetune recipe sets it to 0).
+finetune recipe sets it to 0), nor is training of pre-LN blocks or of a
+dense-bias attention (the image modality is served only): those raise.
 """
 
 from __future__ import annotations
@@ -38,13 +45,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from animal2vec_tpu_torch.config import MATMUL_IMPLS
-from animal2vec_tpu_torch.models.attention import AlibiSpec
-from animal2vec_tpu_torch.ops.attention import (
-    alibi_flash_attention_btc, alibi_flash_attention_int8,
-)
+from animal2vec_tpu_torch.models.attention import AlibiSpec, Bias, multihead_attention
+from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
-from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_mlp
+from animal2vec_tpu_torch.ops.fused_mlp import (
+    fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
+)
 from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_weight
 
 
@@ -114,12 +121,13 @@ def _int8_buffers(module: nn.Module, *names: str) -> None:
 
 
 class AltAttention(nn.Module):
-    """Multi-head self-attention with structured ALiBi bias (``AltAttention``,
-    ``modules.py:374-446``) through the (B, T, 3C) entry; in training with
-    in-kernel hash dropout at ``attn_drop`` (one int32 seed per call) and
-    ``proj_drop`` after the out projection. With ``int8`` (serving) the
-    projections run int8 with their biases added after, in the storage
-    dtype, and the attention takes int8 products (``modules.py:409-421``)."""
+    """Multi-head self-attention (``AltAttention``, ``modules.py:374-446``)
+    through ``multihead_attention`` on the (B, T, 3C) projection; in training
+    (structured ALiBi only) with in-kernel hash dropout at ``attn_drop`` (one
+    int32 seed per call) and ``proj_drop`` after the out projection. With
+    ``int8`` (serving) the projections run int8 with their biases added after,
+    in the storage dtype, and an ``AlibiSpec`` attention takes int8 products
+    (``modules.py:409-421``); a dense bias keeps the bf16 attention."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, int8: bool = False):
@@ -138,25 +146,30 @@ class AltAttention(nn.Module):
             self.proj_q, self.proj_s = quantize_weight(self.proj.weight)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
         rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
+        alibi = isinstance(bias, AlibiSpec)
+        if self.training and not alibi:
+            raise NotImplementedError("attention with a dense bias or none (the image modality) "
+                                      "is serving-only in the port")
         if self.int8:
             qkv_q, qkv_s, proj_q, proj_s = _quantized(self, "qkv_q", "qkv_s", "proj_q",
                                                       "proj_s")
             b, t, c = x.shape
             qkv = int8_dense(x, qkv_q, qkv_s) + self.qkv.bias.to(x.dtype)
-            q, k, v = qkv.view(b, t, 3, self.num_heads, c // self.num_heads).unbind(2)
-            out = alibi_flash_attention_int8(q, k, v, bias.slopes, bias.positions, padding_mask,
-                                             bias.has_sentinel)
-            return int8_dense(out.reshape(b, t, c), proj_q, proj_s) + self.proj.bias.to(x.dtype)
+            if alibi:
+                q, k, v = qkv.view(b, t, 3, self.num_heads, c // self.num_heads).unbind(2)
+                out = alibi_flash_attention_int8(q, k, v, bias.slopes, bias.positions,
+                                                 padding_mask, bias.has_sentinel).reshape(b, t, c)
+            else:
+                out = multihead_attention(qkv, self.num_heads, bias, padding_mask)
+            return int8_dense(out, proj_q, proj_s) + self.proj.bias.to(x.dtype)
         seed, rate = None, 0.0
         if self.training and self.attn_drop > 0.0:
             seed, rate = _need(rngs, "attention dropout").int32_seeds(1)[0], self.attn_drop
-        out = alibi_flash_attention_btc(
-            _linear(x, self.qkv), self.num_heads, bias.slopes, bias.positions, padding_mask,
-            bias.has_sentinel, rate, seed,
-        )
+        out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask, rate,
+                                  seed)
         out = _linear(out, self.proj)
         if self.training and self.proj_drop > 0.0:
             out = dropout(out, self.proj_drop, _need(rngs, "dropout").device)
@@ -164,30 +177,51 @@ class AltAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 parameters; the post-LN block consumes them fused."""
+    """fc1 -> exact GELU -> fc2 (``Mlp``, ``modules.py:210-272``). A post-LN
+    block consumes the parameters fused with its LayerNorms; a pre-LN block
+    calls the module: the fused MLP, or with ``int8_weights`` (w1_q, w1_s,
+    w2_q, w2_s) its int8 twin. Serving only."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, x: torch.Tensor,
+                int8_weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("the MLP of a pre-LN block is serving-only in the port")
+        fc1, fc2 = self.fc1, self.fc2
+        if int8_weights is not None:
+            w1_q, w1_s, w2_q, w2_s = int8_weights
+            return fused_mlp_int8(x, w1_q, w1_s, fc1.bias, w2_q, w2_s, fc2.bias)
+        return fused_mlp(x, fc1.weight.to(x.dtype), fc2.weight.to(x.dtype), fc1.bias, fc2.bias)
+
 
 class AltBlock(nn.Module):
-    """Post-LN transformer block returning (x, layer tap) (``AltBlock``
-    post-LN branch, ``modules.py:557-643``). The tap is the MLP output ``t``,
-    not the block output. In training the fused block applies the hash
-    dropout at its three sites (after GELU and after fc2 at
-    ``activation_dropout``, on the residual branch at ``post_mlp_drop``)
-    from three int32 seeds. ``matmul_impl`` "int8" or "int8_attn" runs the
-    MLP sub-block through the int8 fused block (serving)."""
+    """Transformer block returning (x, layer tap) (``AltBlock``,
+    ``modules.py:546-643``). The tap is the MLP output ``t`` with
+    ``ffn_targets``, else the block output.
+
+    Post-LN (the default): attention, then the fused MLP sub-block with both
+    LayerNorms. In training the fused block applies the hash dropout at its
+    three sites (after GELU and after fc2 at ``activation_dropout``, on the
+    residual branch at ``post_mlp_drop``) from three int32 seeds.
+    ``matmul_impl`` "int8" or "int8_attn" runs the MLP sub-block through the
+    int8 fused block (serving).
+
+    Pre-LN (``layer_norm_first``, serving only): ``x + attn(norm1(x))``, then
+    the MLP of ``norm2`` of that, in int8 through the int8 fused MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  eps: float = 1e-5, encoder_dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 post_mlp_drop: float = 0.0, matmul_impl: str = "bf16"):
+                 post_mlp_drop: float = 0.0, matmul_impl: str = "bf16",
+                 layer_norm_first: bool = False, ffn_targets: bool = True):
         super().__init__()
         if matmul_impl not in MATMUL_IMPLS:
             raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
+        self.layer_norm_first, self.ffn_targets = layer_norm_first, ffn_targets
         self.eps = eps
         self.act_rate, self.post_rate = activation_dropout, post_mlp_drop
         self.int8 = matmul_impl != "bf16"
@@ -208,9 +242,28 @@ class AltBlock(nn.Module):
             self.w2_q, self.w2_s = quantize_weight(self.mlp.fc2.weight)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
         rngs: Optional[Rngs] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.layer_norm_first:
+            x, t = self._pre_ln(x, padding_mask, bias)
+        else:
+            x, t = self._post_ln(x, padding_mask, bias, rngs)
+        return x, (t if self.ffn_targets else x)
+
+    def _pre_ln(self, x, padding_mask, bias):
+        if self.training:
+            raise NotImplementedError("pre-LN blocks are serving-only in the port")
+        x = x + self.attn(self.norm1(x), padding_mask, bias)
+        int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s") if self.int8 else None
+        # The reference's pre-LN branch (modules.py:551-554, after fairseq's
+        # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + post_drop(t)``: the
+        # residual x is not added back, and with dropout off the block gives
+        # 2 * mlp(norm2(x)). The port computes what the reference computes.
+        t = self.mlp(self.norm2(x), int8_weights)
+        return t + t, t
+
+    def _post_ln(self, x, padding_mask, bias, rngs):
         x = x + self.attn(x, padding_mask, bias, rngs)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.int8:
@@ -231,24 +284,24 @@ class AltBlock(nn.Module):
 
 
 class BlockStack(nn.Module):
-    """``depth`` AltBlocks run in a loop (``BlockStack``); returns (x, taps,
-    keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
+    """``depth`` AltBlocks run in a loop (``BlockStack``), each given the same
+    bias; returns (x, taps, keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
     each layer is kept with probability 1 - layerdrop, drawn on the host: a
     dropped layer is skipped, its tap is its input x and its keep is 0
     (``modules.py:768-775``). ``keeps`` is None when no layer can drop."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, layerdrop: float = 0.0, matmul_impl: str = "bf16",
-                 **rates: float):
+                 **block_kw):
         super().__init__()
         self.layerdrop = layerdrop
         self.layers = nn.ModuleList(
-            AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl, **rates)
+            AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl, **block_kw)
             for _ in range(depth)
         )
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
         rngs: Optional[Rngs] = None,
     ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[List[float]]]:
         drop = self.training and self.layerdrop > 0.0
@@ -284,24 +337,29 @@ def top_k_tap_average(taps: Sequence[torch.Tensor], k: int,
 
 
 class PrenetEncoder(nn.Module):
-    """Post-LN prenet: LayerNorm first, then dropout and the block stack;
-    its taps are discarded (``PrenetEncoder``, ``modules.py:936-974``)."""
+    """The prenet: dropout and the block stack, with its LayerNorm before
+    them (post-LN blocks) or after them (pre-LN); its taps are discarded
+    (``PrenetEncoder``, ``modules.py:936-974``)."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
-                 matmul_impl: str = "bf16", **rates: float):
+                 matmul_impl: str = "bf16", layer_norm_first: bool = False, **block_kw):
         super().__init__()
         self.prenet_dropout = prenet_dropout
+        self.layer_norm_first = layer_norm_first
         self.norm = Fp32LayerNorm(dim, eps)
         self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps, layerdrop,
-                                 matmul_impl, **rates)
+                                 matmul_impl, layer_norm_first=layer_norm_first, **block_kw)
 
     def forward(
-        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: AlibiSpec,
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
         rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
-        x = self.norm(x)
+        if not self.layer_norm_first:
+            x = self.norm(x)
         if self.training and self.prenet_dropout > 0.0:
             x = dropout(x, self.prenet_dropout, _need(rngs, "prenet dropout").device)
         x, _, _ = self.blocks(x, padding_mask, bias, rngs)
+        if self.layer_norm_first:
+            x = self.norm(x)
         return x

@@ -1,6 +1,7 @@
 """Fused post-LN MLP sub-block: the port of
 ``animal2vec_tpu/ops/fused_mlp.fused_block_mlp`` (bf16 path, with the
-training hash dropout).
+training hash dropout; its int8 serving twin below), and the plain fused
+MLP of pre-LN blocks, ``fused_mlp`` (bf16 and int8, at the end).
 
     r = LN1(x);  h = drop_a(GELU(fc1 r));  t = drop_b(fc2 h)
     x_out = LN2(r + drop_c(t))  ->  (x_out, t)
@@ -30,13 +31,18 @@ statistics, but realize differently at model level: mask equality is tested
 on this op.
 
 Training: on CUDA the wrapper is a ``torch.autograd.Function``. Its forward
-launches the kernel and saves only the inputs; its backward recomputes the
-block through ``fused_block_plain``'s math under autograd, as the JAX
-``_fused_block_bf16_bwd`` recomputes through ``_ref_block_bf16``, with the
-two products as bf16 GEMMs (torch.matmul, bf16 out). There the recompute
-rounds each product to bf16 before its bias is added, where the JAX
-reference keeps fc1's fp32 sum through bias, GELU and dropout and rounds
-only before fc2. The recompute regenerates the three keep masks with
+launches the kernel and saves only the inputs; its backward
+(``fused_block_recompute``) recomputes the block through
+``fused_block_plain``'s math under autograd, as the JAX
+``_fused_block_bf16_bwd`` recomputes through ``_ref_block_bf16``. The two
+products are ``_Fp32SumMatmul``: the fp32 sum of the storage-dtype operands
+(a bf16 GEMM with an fp32 output on CUDA), kept in fp32 through the bias,
+GELU and the dropouts, as JAX's ``dot_general(..., preferred_element_type=
+float32)``. Their backward takes JAX's transpose rule (the fp32 cotangent
+times the bf16 operand, summed in fp32, rounded once to the operand's
+dtype) with bf16 GEMMs only: the fp32 cotangent is split into a bf16 head
+and a bf16 tail (``g = hi + lo`` to about 2^-17), two products whose fp32
+sums add up. The recompute regenerates the three keep masks with
 ``hash_keep``'s int64 torch arithmetic over (N, M) and twice (N, C) per
 call: on an H100 that is the largest cost of an a2v-large train step
 (``PERF.md`` section 5), and it is meant to move into a kernel, with the
@@ -71,8 +77,47 @@ def _fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def _storage_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(a, b).float()
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 a @ b of two 2-D storage-dtype matrices: the exact products
+    summed in fp32 (a bf16 GEMM with an fp32 output on CUDA)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return _fp32_matmul(a, b)
+
+
+def _halves(g: torch.Tensor, dtype: torch.dtype):
+    """An fp32 cotangent as two storage-dtype parts whose sum it is to about
+    2^-17 (for bf16): the head and what the head leaves."""
+    hi = g.to(dtype)
+    return hi, (g - hi.float()).to(dtype)
+
+
+class _Fp32SumMatmul(torch.autograd.Function):
+    """a @ b in fp32 for storage-dtype a, b (JAX's ``dot_general`` with
+    ``preferred_element_type=float32``). The gradients follow JAX's transpose
+    rule: the fp32 cotangent times the other operand, summed in fp32 and
+    rounded once to the operand's dtype; on bf16 operands the cotangent goes
+    in as its two bf16 halves."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        if a.dtype == torch.float32:
+            parts = (g,)
+        else:
+            parts = _halves(g, a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = sum(_mm32(p, b.t()) for p in parts).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = sum(_mm32(a.t(), p) for p in parts).to(b.dtype)
+        return ga, gb
 
 
 def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
@@ -128,6 +173,15 @@ def fused_block_plain(
                        seeds, act_rate, post_rate, _fp32_matmul)
 
 
+def _vec(v: Optional[torch.Tensor], size: int, fill: float, dev) -> torch.Tensor:
+    """A kernel's contiguous fp32 (size,) vector argument; ``fill`` for None."""
+    if v is None:
+        return torch.full((size,), fill, dtype=torch.float32, device=dev)
+    if v.shape != (size,) or v.device != dev:
+        raise ValueError(f"expected a ({size},) vector on {dev}, got {tuple(v.shape)} on {v.device}")
+    return v.detach().to(torch.float32).contiguous()
+
+
 def _check_rates(seeds, act_rate, post_rate):
     if (act_rate > 0.0 or post_rate > 0.0) and (seeds is None or len(seeds) != 3):
         raise ValueError("a nonzero dropout rate needs three int32 seeds")
@@ -152,17 +206,9 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
     if c % 128 or c > 1024 or m % 128:
         raise ValueError(f"the kernel needs C % 128 == 0, C <= 1024 and M % 128 == 0, got C={c}, M={m}")
     dev = x.device
-
-    def vec(v, size, fill):
-        if v is None:
-            return torch.full((size,), fill, dtype=torch.float32, device=dev)
-        if v.shape != (size,) or v.device != dev:
-            raise ValueError(f"expected a ({size},) vector on {dev}, got {tuple(v.shape)} on {v.device}")
-        return v.detach().to(torch.float32).contiguous()
-
-    l1s, l1b = vec(ln1_scale, c, 1.0), vec(ln1_bias, c, 0.0)
-    l2s, l2b = vec(ln2_scale, c, 1.0), vec(ln2_bias, c, 0.0)
-    b1v, b2v = vec(b1, m, 0.0), vec(b2, c, 0.0)
+    l1s, l1b = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev)
+    l2s, l2b = _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0, dev)
+    b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c, 0.0, dev)
     w1t = w1.detach().t().contiguous()  # (M, C): a no-op for Linear.weight.t() views
     w2t = w2.detach().t().contiguous()  # (C, M)
     if w1t.device != dev or w2t.device != dev:
@@ -201,16 +247,26 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_tap):
-        eps, seeds, act_rate, post_rate = ctx.conf
-        need = ctx.needs_input_grad[:9]
-        with torch.enable_grad():
-            leaves = [None if v is None else v.detach().requires_grad_(n)
-                      for v, n in zip(ctx.saved_tensors, need)]
-            outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _storage_matmul)
-            wrt = [v for v, n in zip(leaves, need) if n and v is not None]
-            grads = iter(torch.autograd.grad(outs, wrt, (g_out, g_tap), allow_unused=True))
-        out = [next(grads) if n and v is not None else None for v, n in zip(leaves, need)]
-        return (*out, None, None, None, None)
+        grads = fused_block_recompute(ctx.saved_tensors, ctx.conf, (g_out, g_tap),
+                                      ctx.needs_input_grad[:9])
+        return (*grads, None, None, None, None)
+
+
+def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9):
+    """The backward of the kernel's autograd Function (any device): the block
+    recomputed from its nine tensor ``inputs`` (x, ln1_scale, ln1_bias, w1,
+    w2, b1, b2, ln2_scale, ln2_bias; None where absent) under autograd with
+    the fp32-sum products, for ``conf`` = (eps, seeds, act_rate, post_rate)
+    and the cotangents of (x_out, t). Returns one gradient per input, None
+    where ``needs`` is false or the input is None."""
+    eps, seeds, act_rate, post_rate = conf
+    with torch.enable_grad():
+        leaves = [None if v is None else v.detach().requires_grad_(n)
+                  for v, n in zip(inputs, needs)]
+        outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply)
+        wrt = [v for v, n in zip(leaves, needs) if n and v is not None]
+        grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
+    return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
 
 
 def fused_block_mlp(
@@ -292,23 +348,29 @@ def fused_block_int8_plain(
     products exact in float64."""
     dtype = x.dtype
     c = x.shape[-1]
+    r = _ln(x.reshape(-1, c), ln1_scale, ln1_bias, eps).to(dtype)
+    t = _int8_mlp(r, w1_q, w1_s, b1, w2_q, w2_s, b2, chunk).to(dtype)
+    x_out = _ln(r + t, ln2_scale, ln2_bias, eps).to(dtype)
+    return x_out.reshape(x.shape), t.reshape(x.shape)
+
+
+def _int8_mlp(x2, w1_q, w1_s, b1, w2_q, w2_s, b2, chunk=None) -> torch.Tensor:
+    """fp32 sum + b2 of the int8 MLP on (N, C) rows ``x2`` (quantized per
+    row here), h re-quantized per (row, chunk); the int8 products exact."""
     m = w1_q.shape[0]
     chunk = hidden_chunk(m) if chunk is None else chunk
-    r = _ln(x.reshape(-1, c), ln1_scale, ln1_bias, eps).to(dtype)
-    r_q, r_s = quantize_rows(r)
-    h = int_matmul(r_q, w1_q) * r_s[:, None] * w1_s.float()
+    x_q, x_s = quantize_rows(x2)
+    h = int_matmul(x_q, w1_q) * x_s[:, None] * w1_s.float()
     if b1 is not None:
         h = h + b1.float()
     h = F.gelu(h)
-    acc = torch.zeros((r.shape[0], c), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((x2.shape[0], w2_q.shape[0]), dtype=torch.float32, device=x2.device)
     for j in range(0, m, chunk):
         h_q, h_s = quantize_rows(h[:, j:j + chunk])
         acc = acc + int_matmul(h_q, w2_q[:, j:j + chunk]) * h_s[:, None] * w2_s.float()
     if b2 is not None:
         acc = acc + b2.float()
-    t = acc.to(dtype)
-    x_out = _ln(r + t, ln2_scale, ln2_bias, eps).to(dtype)
-    return x_out.reshape(x.shape), t.reshape(x.shape)
+    return acc
 
 
 def fused_block_int8(
@@ -344,18 +406,10 @@ def fused_block_int8(
         raise ValueError(f"the kernel needs C % 128 == 0, C <= 1024 and M % 128 == 0, "
                          f"got C={c}, M={m}")
     dev = x.device
-
-    def vec(v, size, fill):
-        if v is None:
-            return torch.full((size,), fill, dtype=torch.float32, device=dev)
-        if v.shape != (size,) or v.device != dev:
-            raise ValueError(f"expected a ({size},) vector on {dev}, got {tuple(v.shape)} on {v.device}")
-        return v.detach().to(torch.float32).contiguous()
-
-    l1s, l1b = vec(ln1_scale, c, 1.0), vec(ln1_bias, c, 0.0)
-    l2s, l2b = vec(ln2_scale, c, 1.0), vec(ln2_bias, c, 0.0)
-    b1v, b2v = vec(b1, m, 0.0), vec(b2, c, 0.0)
-    w1s, w2s = vec(w1_s, m, 1.0), vec(w2_s, c, 1.0)
+    l1s, l1b = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev)
+    l2s, l2b = _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0, dev)
+    b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c, 0.0, dev)
+    w1s, w2s = _vec(w1_s, m, 1.0, dev), _vec(w2_s, c, 1.0, dev)
     if w1_q.device != dev or w2_q.device != dev:
         raise ValueError("weights must be on x's device")
     chunk = hidden_chunk(m)
@@ -383,3 +437,153 @@ def fused_block_int8(
 
 
 fused_block_int8.launches = 0
+
+
+# Plain two-layer MLP of pre-LN blocks: the port of the JAX ``fused_mlp``
+# (``fused_mlp.py:601``), bf16 (``_kernel_bf16``, :112) and int8
+# (``_kernel_int8``, :66), which ``models/modules.Mlp`` runs:
+#
+#   bf16:  out = dtype(dtype(GELU(x W1^T + b1)) W2^T + b2)      (fp32 sums)
+#   int8:  out = dtype(int8 MLP of x, quantized per row)         (_int8_mlp)
+#
+# Weights in nn.Linear layout: w1 (M, C), w2 (C2, M) (int8: w1_q, w2_q from
+# ``ops.int8_mm.quantize_weight`` with their scales). The output has x's
+# dtype and x's leading dims. Serving only: the JAX int8 kernel has no vjp,
+# and the bf16 one is reached in training only by pre-LN blocks, which the
+# port serves but does not train.
+
+
+def fused_mlp_plain(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    b1: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reference of the bf16 kernel (any device): products in fp32 on the
+    storage-dtype operands, h rounded to x's dtype before fc2."""
+    dtype = x.dtype
+    h = _fp32_matmul(x, w1.to(dtype).t())
+    if b1 is not None:
+        h = h + b1.float()
+    y = _fp32_matmul(F.gelu(h).to(dtype), w2.to(dtype).t())
+    if b2 is not None:
+        y = y + b2.float()
+    return y.to(dtype)
+
+
+def fused_mlp(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    b1: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """fc2(GELU(fc1 x)) for x (..., C); kernel on CUDA (``csrc/fused_mlp.cu``,
+    bf16), plain version on CPU."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, w2, b1, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused MLP runs on cuda or cpu tensors, got {x.device}")
+    c = x.shape[-1]
+    m, c2 = w1.shape[0], w2.shape[0]
+    if w1.shape != (m, c) or w2.shape != (c2, m):
+        raise ValueError(f"w1 must be (M, C) and w2 (C2, M) for C={c}: got {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)}")
+    if any(v.dtype != torch.bfloat16 for v in (x, w1, w2)) or not x.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous bf16 x and bf16 weights, got {x.dtype}, "
+                         f"{w1.dtype}, {w2.dtype}")
+    if c % 32 or m % 32 or c2 % 2:
+        raise ValueError(f"the kernel needs C and M in multiples of 32 and C2 even, got C={c}, "
+                         f"M={m}, C2={c2}")
+    dev = x.device
+    if w1.device != dev or w2.device != dev:
+        raise ValueError("weights must be on x's device")
+    w1c, w2c = w1.detach().contiguous(), w2.detach().contiguous()
+    b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c2, 0.0, dev)
+    n = x.numel() // c
+    h = torch.empty((n, m), dtype=x.dtype, device=dev)
+    out = torch.empty((*x.shape[:-1], c2), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_fused_mlp(
+            x.data_ptr(), w1c.data_ptr(), b1v.data_ptr(), w2c.data_ptr(), b2v.data_ptr(),
+            h.data_ptr(), out.data_ptr(), n, c, m, c2, stream,
+        )
+    check(err, "fused MLP kernel")
+    fused_mlp.launches += 1
+    return out
+
+
+fused_mlp.launches = 0
+
+
+def fused_mlp_int8_plain(
+    x: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: Optional[torch.Tensor],
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Reference of the int8 kernel (any device), the int8 products exact in
+    float64."""
+    c = x.shape[-1]
+    out = _int8_mlp(x.reshape(-1, c), w1_q, w1_s, b1, w2_q, w2_s, b2, chunk)
+    return out.to(x.dtype).reshape(*x.shape[:-1], w2_q.shape[0])
+
+
+def fused_mlp_int8(
+    x: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The int8 MLP of x (..., C); kernel on CUDA (``csrc/fused_mlp_int8.cu``,
+    bf16 x), plain version on CPU."""
+    if x.device.type == "cpu":
+        return fused_mlp_int8_plain(x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8 fused MLP runs on cuda or cpu tensors, got {x.device}")
+    c = x.shape[-1]
+    m, c2 = w1_q.shape[0], w2_q.shape[0]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous bf16 x, got {x.dtype}")
+    for name, w, shape in (("w1_q", w1_q, (m, c)), ("w2_q", w2_q, (c2, m))):
+        if w.dtype != torch.int8 or w.shape != shape or not w.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "
+                             f"{tuple(w.shape)}")
+    chunk = hidden_chunk(m)
+    if c % 64 or chunk % 64 or c2 % 8:
+        raise ValueError(f"the kernel needs C and the hidden chunk in multiples of 64 and C2 % 8 "
+                         f"== 0, got C={c}, chunk={chunk}, C2={c2}")
+    dev = x.device
+    if w1_q.device != dev or w2_q.device != dev:
+        raise ValueError("weights must be on x's device")
+    b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c2, 0.0, dev)
+    w1s, w2s = _vec(w1_s, m, 1.0, dev), _vec(w2_s, c2, 1.0, dev)
+    n = x.numel() // c
+    x_q = torch.empty((n, c), dtype=torch.int8, device=dev)
+    x_s = torch.empty((n,), dtype=torch.float32, device=dev)
+    h = torch.empty((n, m), dtype=torch.float32, device=dev)
+    h_q = torch.empty((n, m), dtype=torch.int8, device=dev)
+    h_s = torch.empty((n, m // chunk), dtype=torch.float32, device=dev)
+    out = torch.empty((*x.shape[:-1], c2), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_fused_mlp_int8(
+            x.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(), b1v.data_ptr(), w2_q.data_ptr(),
+            w2s.data_ptr(), b2v.data_ptr(), x_q.data_ptr(), x_s.data_ptr(), h.data_ptr(),
+            h_q.data_ptr(), h_s.data_ptr(), out.data_ptr(), n, c, m, c2, chunk, stream,
+        )
+    check(err, "int8 fused MLP kernel")
+    fused_mlp_int8.launches += 1
+    return out
+
+
+fused_mlp_int8.launches = 0

@@ -1,13 +1,17 @@
 """JAX parameter trees -> the port's state dict, and the serving cast.
 
-``params_from_jax`` takes the JAX ``FinetuneModel`` params as nested dicts of
-numpy arrays (or ``load_params_npz`` of an ``.npz`` whose keys are the
-"/"-joined JAX param paths) and returns a state dict for
-``animal2vec_tpu_torch.models.finetune.FinetuneModel``:
+``params_from_jax`` takes the JAX ``FinetuneModel`` params, or those of an
+image ``Data2VecMulti``, as nested dicts of numpy arrays (or
+``load_params_npz`` of an ``.npz`` whose keys are the "/"-joined JAX param
+paths) and returns a state dict for
+``animal2vec_tpu_torch.models.finetune.FinetuneModel`` or the port's image
+``Data2VecMulti`` (``build_image_model``):
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * conv ``kernel`` (K, C_in/g, C_out) -> ``weight`` (C_out, C_in/g, K), the
   frontend's ``conv_{i}_kernel`` -> ``conv_{i}.weight``;
+* the patch embedding's HWIO ``kernel`` (p, p, C_in, C_out) -> OIHW
+  ``weight`` (C_out, C_in, p, p);
 * LayerNorm ``scale`` -> ``weight``;
 * the scan-stacked ``blocks/block`` params (leading depth axis) -> one module
   per layer, ``blocks.layers.{i}``;
@@ -48,7 +52,7 @@ def _torch_entry(path: tuple, arr: np.ndarray):
         names.append(hit.group(1))
         leaf = "kernel"
     if leaf == "kernel":
-        arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
+        arr = np.transpose(arr, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[arr.ndim])
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
@@ -56,7 +60,7 @@ def _torch_entry(path: tuple, arr: np.ndarray):
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX FinetuneModel params (nested dicts of arrays) -> port state dict."""
+    """JAX params (nested dicts of arrays) -> port state dict."""
     sd = {}
     for path, arr in _flatten(tree).items():
         if "block" in path and path[path.index("block") - 1] == "blocks":

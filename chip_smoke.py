@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's a2v-large serving paths (bf16 and the int8
-modes) and its finetune training path once on one GPU.
+modes), its finetune training path and its ViT-B/16 image serving path
+(post-LN and pre-LN, bf16 and the int8 modes) once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -17,6 +18,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    padded row: forward (out, lse), dq with the slope partials and dk/dv
    against their plain versions, and the training entry's gradients against
    autograd of the plain version;
+3c. the dense-bias attention kernel against its plain version at b64, H 12,
+   T 196: the batch-uniform 2-D ALiBi bias, no bias, a key mask with one
+   fully masked row; and at b8, T 1024;
 4. the fused post-LN block kernel against its plain version;
 4b. the fused block with its three dropout sites at N = 4 x 2000: forward
    against the plain version, backward against autograd of the plain one;
@@ -24,6 +28,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    N 8000 (3072 and 1024 outputs), the int8 block at N 8000, the int8
    attention at b4, T 2000 (uniform; per-row positions, sentinels, mask)
    and at T 4000 (two key spans);
+4d. the plain fused MLP and its int8 twin at the image serving shape (N =
+   64 x 196, C 768, M 3072), and the fused blocks of 4 and 4c at C 768;
 5. the full a2v-large FinetuneModel (8 prenet + 16 trunk blocks, seeded
    random weights, bf16 serving cast): kernel path against plain path,
    launch counts per forward, no plain version called on a CUDA tensor;
@@ -34,12 +40,19 @@ Phases, one line or more each; any failure raises and exits non-zero:
 7. each kernel's time beside its plain version's, the PyTorch library
    call's (scaled_dot_product_attention with the ALiBi bias as a float
    mask; torch._int_mm for the int8 product) and the bound the card's peak
-   rates set, at the serving shape and at the training shape;
+   rates set, at the serving shape and at the training shape, and the image
+   kernels at the image serving shapes;
 8. the training path: the full a2v-large finetune model with the
    finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
    windows with the freeze gate open, launch counts per step; then at b1
    with every rate at 0 the kernel path's gradients against the plain
-   path's; ms per train step and b4 clips/s.
+   path's; ms per train step and b4 clips/s;
+9. the image serving path: the ViT-B/16 image model (seeded random weights,
+   bf16 serving cast, 2-D ALiBi bias) on b64 of 224 x 224 images through
+   extract_features(imgs, "IMAGE"), with post-LN and pre-LN blocks, each in
+   bf16, int8 and int8_attn: kernel path against plain path and the int8
+   modes against bf16 (relative norm of the features), launch counts per
+   forward, no plain version called on a CUDA tensor; images/s.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -108,6 +121,22 @@ INT8_ATTN_TOL = (2e-2, 2e-2)
 INT8_MODEL_REL = 5e-2
 INT8_VS_BF16_REL = 0.3
 MODES = ("int8", "int8_attn")
+# the image modality (ViT-B/16 data2vec-2 features, 2-D ALiBi bias): b64 of
+# 224 x 224 images, 196 patches. The dense-bias attention is held as the
+# ALiBi one (ATTN_TOL), the plain fused MLP as the fused block (BLOCK_TOL)
+# and its int8 twin as the int8 block (INT8_BLOCK_TOL).
+IMAGE_BATCH, IMAGE_T, IMAGE_HEADS = 64, 196, 12
+# the full model's features x, kernel path against plain path, relative
+# norm: bf16 roundings in another order through 12 blocks (measured on an
+# H100: 8.1e-3 post-LN, 9.6e-3 pre-LN); int8 roundings that land apart
+# compound until the two paths differ by about the int8 noise itself
+# (measured: 1.7e-2 to 1.9e-2 post-LN; 3.9e-2 to 4.1e-2 pre-LN, whose
+# blocks add no residual, against 3.8e-2 to 4.2e-2 from the bf16 model).
+# About 3x and 2.5x those, so that a wrong mask, scale or product (an error
+# of order 1) fails; each int8 mode also against the bf16 model on the same
+# weights (INT8_VS_BF16_REL)
+IMAGE_REL, IMAGE_INT8_REL = 3e-2, 0.1
+IMAGE_MODES = ("bf16",) + MODES
 # the H100 SXM data sheet's dense peaks (at 700 W)
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
@@ -223,6 +252,24 @@ def int8_attention_bound(b, h, t, d=64):
     """Q.K^T and P.V in int8 (2*T^2*D each per (b, h)); bf16 q, k, v read and
     out written."""
     return bound(4 * b * h * t * t * d, 2 * 4 * b * h * t * d, PEAK_INT8_OPS)
+
+
+def bias_attention_bound(b, h, t, d=64, bias_planes=1):
+    """Q.K^T and P.V (2*T^2*D each per (b, h)); bf16 q, k, v read and out
+    written, the fp32 bias planes read once."""
+    return bound(4 * b * h * t * t * d, 2 * 4 * b * h * t * d + 4 * bias_planes * h * t * t)
+
+
+def mlp_bound(n, c, m):
+    """fc1 and fc2 (2*N*C*M each); x read and out written, bf16 weights and
+    fp32 biases read once."""
+    return bound(4 * n * c * m, 2 * n * c * 2 + 2 * 2 * c * m + 4 * (m + c))
+
+
+def int8_mlp_bound(n, c, m):
+    """fc1 and fc2 in int8 (2*N*C*M each); x read and out written, int8
+    weights and their fp32 scales and biases read once."""
+    return bound(4 * n * c * m, 2 * n * c * 2 + 2 * c * m + 4 * 2 * (m + c), PEAK_INT8_OPS)
 
 
 def sdpa_args(qkv, slopes, t, requires_grad=False):
@@ -401,13 +448,17 @@ def phase_block_train(dev):
     return err
 
 
-# the model's kernel entries (models/modules.py names) and their plain versions
+# the model's kernel entries, by the models/ module that looks each up, and
+# their plain versions in ops/
 PLAIN_OF = {
-    "alibi_flash_attention_btc": ("attention", "alibi_attention_btc_plain"),
-    "fused_block_mlp": ("fused_mlp", "fused_block_plain"),
-    "fused_block_int8": ("fused_mlp", "fused_block_int8_plain"),
-    "int8_dense": ("int8_mm", "int8_dense_plain"),
-    "alibi_flash_attention_int8": ("attention", "alibi_attention_int8_plain"),
+    ("attention", "alibi_flash_attention_btc"): ("attention", "alibi_attention_btc_plain"),
+    ("attention", "bias_flash_attention"): ("bias_attention", "bias_attention_plain"),
+    ("modules", "fused_block_mlp"): ("fused_mlp", "fused_block_plain"),
+    ("modules", "fused_block_int8"): ("fused_mlp", "fused_block_int8_plain"),
+    ("modules", "int8_dense"): ("int8_mm", "int8_dense_plain"),
+    ("modules", "alibi_flash_attention_int8"): ("attention", "alibi_attention_int8_plain"),
+    ("modules", "fused_mlp"): ("fused_mlp", "fused_mlp_plain"),
+    ("modules", "fused_mlp_int8"): ("fused_mlp", "fused_mlp_int8_plain"),
 }
 
 
@@ -418,11 +469,11 @@ def _swap(module, names):
     return saved
 
 
-def int8_block_inputs(gen, n, dev):
+def int8_block_inputs(gen, n, dev, c=1024, m=4096):
     """block_inputs with its weights quantized, in the int8 entry's order."""
     from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
 
-    x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps = block_inputs(gen, n, 1024, 4096, dev)
+    x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps = block_inputs(gen, n, c, m, dev)
     w1_q, w1_s = quantize_weight(w1.t())  # (M, C): nn.Linear layout
     w2_q, w2_s = quantize_weight(w2.t())
     return x, l1s, l1b, w1_q, w1_s, b1, w2_q, w2_s, b2, l2s, l2b, eps
@@ -499,12 +550,91 @@ def phase_int8_kernels(dev):
     return errs
 
 
+def bias_attention_inputs(gen, b, h, t, dev):
+    """(B, T, H, 64) bf16 q, k, v views of one (B, T, 3, H, D) projection, as
+    the model hands them over."""
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+    return qkv.unbind(2)
+
+
+def image_bias(h, t, dev):
+    """The 2-D ALiBi bias of a square grid of t patches, (1, H, T, T) fp32."""
+    from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
+
+    return torch.from_numpy(alibi_bias_2d(t, h)[None]).to(dev)
+
+
+def phase_bias_attention(dev):
+    """3c. The dense-bias attention kernel against its plain version at b64,
+    H 12, T 196 (not a multiple of 64): the batch-uniform 2-D ALiBi bias, no
+    bias, and the bias with a per-batch key mask whose row 3 masks every key;
+    then at b8, T 1024 (16 key tiles)."""
+    from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, h, t = IMAGE_BATCH, IMAGE_HEADS, IMAGE_T
+    q, k, v = bias_attention_inputs(gen, b, h, t, dev)
+    bias = image_bias(h, t, dev)
+    mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    mask[1, -50:] = True
+    mask[3] = True
+    errs = []
+    for label, bb, mm in (("2-D ALiBi, batch-uniform", bias, None), ("no bias", None, None),
+                          ("2-D ALiBi, key mask, row 3 fully masked", bias, mask)):
+        got = bias_flash_attention(q, k, v, bb, mm)
+        want = bias_attention_plain(q.float(), k.float(), v.float(), bb, mm)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"bias attention b{b} T {t} {label}", got, want, ATTN_TOL))
+    q, k, v = bias_attention_inputs(gen, 8, h, 1024, dev)
+    bias = image_bias(h, 1024, dev)
+    got = bias_flash_attention(q, k, v, bias)
+    want = bias_attention_plain(q.float(), k.float(), v.float(), bias)
+    torch.cuda.synchronize()
+    errs.append(check_close("bias attention b8 T 1024 2-D ALiBi", got, want, ATTN_TOL))
+    return max(errs)
+
+
+def phase_mlp(dev):
+    """4d. The plain fused MLP (#8) and its int8 twin (#9) against their
+    plain versions at the ViT-B/16 serving shape (N = 64 x 196 rows, C 768,
+    M 3072: three hidden chunks), and the fused blocks #6 and #7 at C 768."""
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_block_int8, fused_block_int8_plain, fused_block_mlp, fused_block_plain, fused_mlp,
+        fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+    )
+    from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    n, c, m = IMAGE_BATCH * IMAGE_T, 768, 3072
+    args = block_inputs(gen, n, c, m, dev)
+    x, _, _, w1, w2, b1, b2 = args[:7]
+    w1l, w2l = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear layout
+    errs = {"mlp": check_close(f"fused MLP ({n},{c},{m})", fused_mlp(x, w1l, w2l, b1, b2),
+                               fused_mlp_plain(x, w1l, w2l, b1, b2), BLOCK_TOL)}
+    w1_q, w1_s = quantize_weight(w1l)
+    w2_q, w2_s = quantize_weight(w2l)
+    int8_args = (x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    errs["int8_mlp"] = check_close(f"int8 fused MLP ({n},{c},{m})", fused_mlp_int8(*int8_args),
+                                   fused_mlp_int8_plain(*int8_args), INT8_BLOCK_TOL)
+    xo, t = fused_block_mlp(*args)
+    xo_p, t_p = fused_block_plain(*args)
+    errs["block"] = max(check_close(f"fused block tap t ({n},{c},{m})", t, t_p, BLOCK_TOL),
+                        check_close(f"fused block x_out ({n},{c},{m})", xo, xo_p, BLOCK_TOL))
+    args = int8_block_inputs(gen, n, dev, c, m)
+    xo, t = fused_block_int8(*args)
+    xo_p, t_p = fused_block_int8_plain(*args)
+    torch.cuda.synchronize()
+    errs["int8_block"] = max(
+        check_close(f"int8 block tap t ({n},{c},{m})", t, t_p, INT8_BLOCK_TOL),
+        check_close(f"int8 block x_out ({n},{c},{m})", xo, xo_p, INT8_BLOCK_TOL))
+    return errs
+
+
 def int8_model(model, cfg, mode, dev):
     """The bf16-cast model's weights served in an int8 mode (quantized at
-    load)."""
-    from animal2vec_tpu_torch.models.finetune import FinetuneModel
-
-    out = FinetuneModel(dataclasses.replace(cfg, matmul_impl=mode), dtype=torch.bfloat16)
+    load), by a model of the same class (FinetuneModel or the image
+    Data2VecMulti)."""
+    out = type(model)(dataclasses.replace(cfg, matmul_impl=mode), torch.bfloat16)
     out.load_state_dict(model.state_dict(), strict=True, assign=True)
     return out.to(dev).eval()
 
@@ -516,17 +646,16 @@ class PlainOps:
     def __enter__(self):
         import importlib
 
-        from animal2vec_tpu_torch.models import modules
-
-        ops = {n: getattr(importlib.import_module(f"animal2vec_tpu_torch.ops.{m}"), f)
-               for n, (m, f) in PLAIN_OF.items()}
-        self.saved = _swap(modules, ops)
+        self.saved = []
+        for (user, name), (m, f) in PLAIN_OF.items():
+            mod = importlib.import_module(f"animal2vec_tpu_torch.models.{user}")
+            plain = getattr(importlib.import_module(f"animal2vec_tpu_torch.ops.{m}"), f)
+            self.saved.append((mod, _swap(mod, {name: plain})))
         return self
 
     def __exit__(self, *exc):
-        from animal2vec_tpu_torch.models import modules
-
-        _swap(modules, self.saved)
+        for mod, saved in reversed(self.saved):
+            _swap(mod, saved)
         return False
 
 
@@ -564,12 +693,16 @@ def _counted():
     from animal2vec_tpu_torch.ops.attention import (
         alibi_flash_attention_int8, alibi_flash_attention_packed, attention_dkv, attention_dq,
     )
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_mlp
+    from animal2vec_tpu_torch.ops.bias_attention import bias_flash_attention
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
+    )
     from animal2vec_tpu_torch.ops.int8_mm import int8_dense
 
     return {"attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
             "block": fused_block_mlp, "int8_dense": int8_dense, "int8_block": fused_block_int8,
-            "int8_attention": alibi_flash_attention_int8}
+            "int8_attention": alibi_flash_attention_int8, "bias_attention": bias_flash_attention,
+            "mlp": fused_mlp, "int8_mlp": fused_mlp_int8}
 
 
 def counts():
@@ -718,6 +851,85 @@ def phase_throughput(model, card, dev, mode="bf16"):
     want = forward_launches(mode, model.cfg.n_blocks)
     if launched != {k: iters * v for k, v in want.items()}:
         raise AssertionError(f"b32 launches {launched} != {iters} x {want}")
+
+
+def image_forward_launches(mode, layer_norm_first, n_blocks):
+    """The launches of one image forward in a matmul_impl mode and layout:
+    one dense-bias attention and one MLP kernel per block, and in int8_attn
+    the qkv and out projections."""
+    want = dict.fromkeys(_counted(), 0)
+    if layer_norm_first:
+        want["mlp" if mode == "bf16" else "int8_mlp"] = n_blocks
+    else:
+        want["block" if mode == "bf16" else "int8_block"] = n_blocks
+    want["bias_attention"] = n_blocks
+    if mode == "int8_attn":
+        want["int8_dense"] = 2 * n_blocks
+    return want
+
+
+def phase_image(card, dev):
+    """9. The image modality's serving path: the ViT-B/16 image model (the
+    repo's image defaults, 4 prenet + 8 trunk blocks of 768, the 2-D ALiBi
+    bias on) on b64 of 224 x 224 images, with post-LN and pre-LN blocks, each
+    in bf16, int8 and int8_attn on the same seeded weights: one forward
+    through the kernels (launch counts, no plain version on a CUDA tensor)
+    against the plain path, the int8 modes also against the bf16 model's
+    features; then images/s (host clock over 5 forwards after 2). Returns
+    the launches of the checked forwards."""
+    from animal2vec_tpu_torch.config import ImageConfig
+    from animal2vec_tpu_torch.models.finetune import build_image_model
+    from animal2vec_tpu_torch.weights import serving_cast
+
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 11).normal(
+        size=(IMAGE_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    launches = dict.fromkeys(_counted(), 0)
+    for pre_ln in (False, True):
+        cfg = dataclasses.replace(ImageConfig(), use_alibi_encoder=True, layer_norm_first=pre_ln)
+        base = build_image_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+        base.load_state_dict(serving_cast(base.state_dict()), strict=True, assign=True)
+        layout = "pre-LN" if pre_ln else "post-LN"
+        x_bf16 = None
+        for mode in IMAGE_MODES:
+            model = base if mode == "bf16" else int8_model(base, cfg, mode, dev)
+            name = f"image {layout} {mode}"
+            with torch.inference_mode():
+                reset_counts()
+                with PlainSpy() as spy:
+                    x = model.extract_features(imgs, "IMAGE")["x"]
+                torch.cuda.synchronize()
+                got = counts()
+                with PlainOps():
+                    x_p = model.extract_features(imgs, "IMAGE")["x"]
+                for _ in range(2):
+                    model.extract_features(imgs, "IMAGE")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    model.extract_features(imgs, "IMAGE")
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) / 5
+            want = image_forward_launches(mode, pre_ln, cfg.n_blocks)
+            print(f"{name} launches per forward: {launch_line(got)} (expected "
+                  f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+            if got != want or spy.cuda_calls:
+                raise AssertionError(f"{name}: launch counts {got} != {want}, or a plain call")
+            launches = {k: launches[k] + v for k, v in got.items()}
+            if tuple(x.shape) != (IMAGE_BATCH, IMAGE_T, cfg.embed_dim):
+                raise AssertionError(f"{name}: features of shape {tuple(x.shape)}")
+            tol = IMAGE_REL if mode == "bf16" else IMAGE_INT8_REL
+            check_rel(f"{name} features x, kernel vs plain path", x, x_p, tol)
+            if mode == "bf16":
+                x_bf16 = x
+            else:
+                check_rel(f"{name} features x against the bf16 model's", x, x_bf16,
+                          INT8_VS_BF16_REL)
+            print(f"{name} throughput b{IMAGE_BATCH}: {IMAGE_BATCH / dt:.1f} images/s "
+                  f"({dt * 1e3:.2f} ms per forward) on {card}")
+            del model, x_p
+        del base, x_bf16
+        torch.cuda.empty_cache()
+    return launches
 
 
 def train_batch(cfg, dev, batch=TRAIN_BATCH, seed=SEED + 6):
@@ -960,6 +1172,7 @@ def phase_kernel_times(dev):
         del args
         torch.cuda.empty_cache()
         int8_kernel_times(gen, dev, row)
+        image_kernel_times(gen, dev, row)
     return rows
 
 
@@ -1001,6 +1214,46 @@ def int8_kernel_times(gen, dev, row):
           f"{cuda_ms(lambda: quantize_qkv_int8(q, k, v)):.3f} ms)")
 
 
+def image_kernel_times(gen, dev, row):
+    """The image modality's kernels at the ViT-B/16 b64 serving shapes (N =
+    64 x 196 rows, C 768, M 3072; H 12, T 196 with the 2-D ALiBi bias): the
+    fused MLP and its int8 twin (with x's quantization) beside their plain
+    versions and the int8 products alone (torch._int_mm), the dense-bias
+    attention beside SDPA with the bias as a bf16 float mask."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+    )
+    from animal2vec_tpu_torch.ops.int8_mm import quantize_rows, quantize_weight
+
+    n, c, m = IMAGE_BATCH * IMAGE_T, 768, 3072
+    x, _, _, w1, w2, b1, b2 = block_inputs(gen, n, c, m, dev)[:7]
+    w1l, w2l = w1.t().contiguous(), w2.t().contiguous()
+    row("fused MLP, b64 ViT-B serving", cuda_ms(lambda: fused_mlp(x, w1l, w2l, b1, b2)),
+        cuda_ms(lambda: fused_mlp_plain(x, w1l, w2l, b1, b2), iters=3), None, mlp_bound(n, c, m))
+    w1_q, w1_s = quantize_weight(w1l)
+    w2_q, w2_s = quantize_weight(w2l)
+    args = (x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    row("int8 fused MLP, b64 ViT-B serving", cuda_ms(lambda: fused_mlp_int8(*args)),
+        cuda_ms(lambda: fused_mlp_int8_plain(*args), iters=3), None, int8_mlp_bound(n, c, m))
+    x_q, _ = quantize_rows(x)
+    h_q = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
+    print(f"  (the int8 products alone, torch._int_mm on pre-quantized operands: fc1 "
+          f"{cuda_ms(lambda: torch._int_mm(x_q, w1_q.t())):.3f} ms, fc2 "
+          f"{cuda_ms(lambda: torch._int_mm(h_q, w2_q.t())):.3f} ms)")
+    del x, x_q, h_q, args
+    q, k, v = bias_attention_inputs(gen, IMAGE_BATCH, IMAGE_HEADS, IMAGE_T, dev)
+    bias = image_bias(IMAGE_HEADS, IMAGE_T, dev)
+    qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, D) views
+    mask = bias.to(torch.bfloat16)
+    row("bias attention, b64 ViT-B serving", cuda_ms(lambda: bias_flash_attention(q, k, v, bias)),
+        cuda_ms(lambda: bias_attention_plain(q, k, v, bias), iters=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+        bias_attention_bound(IMAGE_BATCH, IMAGE_HEADS, IMAGE_T))
+    print("  (library: SDPA with the 2-D ALiBi bias as a (1, H, T, T) bf16 float mask)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1027,8 +1280,10 @@ def main() -> int:
 
     attn_err = phase_attention(dev)
     fwd_err, dq_err, dkv_err = phase_attention_train(dev)
+    bias_err = phase_bias_attention(dev)
     block_err = max(phase_block(dev), phase_block_train(dev))
     int8_errs = phase_int8_kernels(dev)
+    mlp_errs = phase_mlp(dev)
 
     cfg = FinetuneConfig()
     model = build_model(cfg, dev)
@@ -1046,6 +1301,7 @@ def main() -> int:
     times = phase_kernel_times(dev)
     training = phase_train(cfg, card, dev)
     phase_train_grads(cfg, dev)
+    image = phase_image(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         e = {"name": name, "route": "cuda", "source": f"animal2vec_tpu_torch/csrc/{source}",
@@ -1075,19 +1331,31 @@ def main() -> int:
               dq_err, f"attention dq + slope partials, b{TRAIN_BATCH} training"),
         entry("alibi_attention_dkv", "alibi_attention_bwd.cu", f"{pa}:390", training[2], 0,
               dkv_err, f"attention dk/dv, b{TRAIN_BATCH} training"),
-        entry("fused_block", "fused_block.cu", "animal2vec_tpu/ops/fused_mlp.py:175",
-              training[3], serving["bf16"]["block"], block_err,
-              f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
-              "fused block, b32 serving"),
+        dict(entry("fused_block", "fused_block.cu", "animal2vec_tpu/ops/fused_mlp.py:175",
+                   training[3], serving["bf16"]["block"], max(block_err, mlp_errs["block"]),
+                   f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
+                   "fused block, b32 serving"), launches_image=image["block"]),
         int8_entry("int8_dense", "int8_dense.cu", "animal2vec_tpu/ops/int8_mm.py:60",
                    "int8_dense", max(int8_errs["dense 3072"], int8_errs["dense 1024"]),
                    "int8 dense qkv projection, b32 serving",
                    "int8 dense out projection, b32 serving"),
-        int8_entry("fused_block_int8", "fused_block_int8.cu",
-                   "animal2vec_tpu/ops/fused_mlp.py:273", "int8_block", int8_errs["block"],
-                   "int8 fused block, b32 serving"),
+        dict(int8_entry("fused_block_int8", "fused_block_int8.cu",
+                        "animal2vec_tpu/ops/fused_mlp.py:273", "int8_block",
+                        max(int8_errs["block"], mlp_errs["int8_block"]),
+                        "int8 fused block, b32 serving"), launches_image=image["int8_block"]),
         int8_entry("alibi_flash_attention_int8", "alibi_attention_int8.cu", f"{pa}:715",
                    "int8_attention", int8_errs["attention"], "int8 attention, b32 serving"),
+        # the image kernels: launches of phase 9's six checked b64 forwards (whose
+        # post-LN runs also launch #6 and #7: "launches_image" below)
+        entry("fused_mlp", "fused_mlp.cu", "animal2vec_tpu/ops/fused_mlp.py:112", image["mlp"],
+              image["mlp"], mlp_errs["mlp"], "fused MLP, b64 ViT-B serving"),
+        entry("fused_mlp_int8", "fused_mlp_int8.cu", "animal2vec_tpu/ops/fused_mlp.py:66",
+              image["int8_mlp"], image["int8_mlp"], mlp_errs["int8_mlp"],
+              "int8 fused MLP, b64 ViT-B serving"),
+        entry("bias_flash_attention", "bias_attention.cu",
+              "animal2vec_tpu/models/attention.py:115 (jax.experimental.pallas.ops.tpu."
+              "flash_attention)", image["bias_attention"], image["bias_attention"], bias_err,
+              "bias attention, b64 ViT-B serving"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

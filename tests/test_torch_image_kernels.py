@@ -1,0 +1,81 @@
+"""The image modality's hand-written kernels against their plain versions on
+the card (``gpu`` marker; they skip without CUDA): the dense-bias flash
+attention (#11) and the plain fused MLP in bf16 (#8) and int8 (#9). This
+file imports no JAX module, so that it runs on a card's machine without
+flax: ``python3 -m pytest tests/test_torch_image_kernels.py -m gpu``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
+from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
+from animal2vec_tpu_torch.ops.fused_mlp import (
+    fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+)
+from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
+
+
+def _mlp_inputs(n, c, m, seed):
+    rng = np.random.default_rng(seed)
+    w = (2.0 / (c + m)) ** 0.5
+
+    def rnd(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return rnd(n, c), rnd(m, c, scale=w), rnd(c, m, scale=w), rnd(m, scale=0.1), rnd(c, scale=0.1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", ["uniform", "per-row", None])
+@pytest.mark.parametrize("t", [196, 1024])
+def test_bias_attention_kernel_matches_plain_on_card(cuda, bias, t):
+    """The kernel on the q, k, v views of one (B, T, 3, H, D) projection at T
+    196 (not a multiple of 64) and 1024, a key mask with one fully masked
+    row; tolerance 1e-2 + 1e-2 |plain| against the plain version in fp32."""
+    b, h = 4, 12
+    gen = torch.Generator(device=cuda).manual_seed(46)
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dense = None
+    if bias == "uniform":
+        dense = torch.from_numpy(alibi_bias_2d(t, h)[None]).to(cuda)
+    elif bias == "per-row":
+        dense = torch.randn((b, h, t, t), generator=gen, device=cuda)
+    if dense is not None and t == 1024:
+        dense = dense * 0.1  # the 2-D grid of 1024 patches reaches distances of 62
+    mask = torch.zeros((b, t), dtype=torch.bool, device=cuda)
+    mask[1, -50:] = True
+    mask[3] = True
+    before = bias_flash_attention.launches
+    got = bias_flash_attention(q, k, v, dense, mask)
+    torch.cuda.synchronize()
+    assert bias_flash_attention.launches == before + 1
+    want = bias_attention_plain(q.float(), k.float(), v.float(), dense, mask)
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want).abs() <= 1e-2 + 1e-2 * want.abs()).all()
+
+
+@pytest.mark.gpu
+def test_fused_mlp_kernels_match_plain_on_card(cuda):
+    """#8 and #9 at C 768, M 3072 (three hidden chunks): tolerance 3e-2 +
+    2e-2 |plain| in bf16 storage, as the fused block."""
+    x, w1, w2, b1, b2 = _mlp_inputs(1000, 768, 3072, seed=47)
+    xc = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    w1c, w2c = (torch.from_numpy(w).to(cuda, torch.bfloat16) for w in (w1, w2))
+    b1c, b2c = torch.from_numpy(b1).to(cuda), torch.from_numpy(b2).to(cuda)
+    w1_q, w1_s = quantize_weight(w1c)
+    w2_q, w2_s = quantize_weight(w2c)
+    for got, want in ((fused_mlp(xc, w1c, w2c, b1c, b2c), fused_mlp_plain(xc, w1c, w2c, b1c, b2c)),
+                      (fused_mlp_int8(xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c),
+                       fused_mlp_int8_plain(xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c))):
+        torch.cuda.synchronize()
+        assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
