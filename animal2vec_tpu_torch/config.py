@@ -1,5 +1,7 @@
 """Configuration of the a2v-large finetune preset: the model and inference
-fields (``FinetuneConfig``) and the training recipe (``FinetuneTrainConfig``).
+fields (``FinetuneConfig``) and the training recipe (``FinetuneTrainConfig``);
+the image serving model (``ImageConfig``); and data2vec-2 pretraining
+(``PretrainConfig``: the a2v-large recipe, and ``PretrainConfig.vit_b16``).
 
 The JAX package reads a YAML tree (``animal2vec_tpu/config.py``); the port
 needs only the fields that the finetuned forward path and long-file
@@ -20,7 +22,7 @@ other numerics, and the port refuses them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 MATMUL_IMPLS = ("bf16", "int8", "int8_attn")  # model.matmul_impl
 
@@ -142,7 +144,8 @@ class ImageConfig:
     takes the 2-D ALiBi bias of the patch grid (``alibi_distance``),
     multiplied by a learned scale clipped at 0 (one, or one per head with
     ``learned_alibi_scale_per_head``). Not ported: extra (CLS) tokens and
-    per-layer ALiBi scales (they raise), the decoders (pretraining)."""
+    per-layer ALiBi scales (they raise). Pretraining adds the decoder
+    (``PretrainConfig``)."""
 
     input_size: int = 224
     patch_size: int = 16
@@ -192,6 +195,32 @@ class ImageConfig:
 
 
 @dataclass(frozen=True)
+class OptimizationConfig:
+    """The optimizer and its schedule (``optimization.*``), with the JAX
+    ``OptimizationConfig``'s defaults: Adam with decoupled weight decay,
+    global-norm clipping at ``clip_norm`` (0 = none), a linear warmup from
+    ``warmup_init_lr`` over ``warmup_updates`` steps, then a cosine decay to
+    ``min_lr`` at ``max_update`` (or a constant ``lr``); gradients of
+    ``update_freq`` micro-batches per update."""
+
+    lr: float = 1e-4
+    max_update: int = 100_000
+    update_freq: int = 1
+    clip_norm: float = 1.0
+    adam_betas: Tuple[float, float] = (0.9, 0.98)
+    adam_eps: float = 1e-6
+    weight_decay: float = 0.01
+    warmup_updates: int = 10_000
+    warmup_init_lr: float = 0.0
+    min_lr: float = 0.0
+    schedule: str = "cosine"
+
+    def __post_init__(self):
+        if self.schedule not in ("cosine", "constant"):
+            raise ValueError(f"schedule={self.schedule!r}: 'cosine' or 'constant'")
+
+
+@dataclass(frozen=True)
 class FinetuneTrainConfig:
     """The finetune recipe of ``finetune_100.yaml``: the fields that the JAX
     ``finetune_loss``, ``build_finetune_encoder_cfg`` and ``build_optimizer``
@@ -232,22 +261,118 @@ class FinetuneTrainConfig:
     label_smoothing: float = 0.09
     report_accuracy: bool = True
     # optimization.*
-    lr: float = 3e-5
-    max_update: int = 30_000
-    update_freq: int = 9
-    clip_norm: float = 0.0
-    adam_betas: Tuple[float, float] = (0.9, 0.98)
-    adam_eps: float = 1e-8
-    weight_decay: float = 0.0
-    warmup_updates: int = 2_000
-    warmup_init_lr: float = 1e-10
-    min_lr: float = 5e-6
-    schedule: str = "cosine"
+    optimization: OptimizationConfig = OptimizationConfig(
+        lr=3e-5, max_update=30_000, update_freq=9, clip_norm=0.0, adam_eps=1e-8,
+        weight_decay=0.0, warmup_updates=2_000, warmup_init_lr=1e-10, min_lr=5e-6)
 
     def __post_init__(self):
         if self.drop_path != 0.0:
             raise NotImplementedError("drop-path is not ported (the recipe sets it to 0)")
         if not self.update_alibi:
             raise NotImplementedError("a frozen ALiBi scale is not ported (the recipe learns it)")
-        if self.schedule not in ("cosine", "constant"):
-            raise ValueError(f"schedule={self.schedule!r}: 'cosine' or 'constant'")
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    """A modality's conv decoder (``DecoderConfig``): ``decoder_layers``
+    grouped conv -> LayerNorm -> GELU blocks of ``decoder_dim`` with
+    residuals, then one projection to the model width. The defaults are the
+    JAX ``DecoderConfig``'s (the image modality's)."""
+
+    decoder_dim: int = 384
+    decoder_groups: int = 16
+    decoder_kernel: int = 5
+    decoder_layers: int = 5
+    input_dropout: float = 0.1
+    decoder_residual: bool = True
+
+    def __post_init__(self):
+        if self.decoder_dim % self.decoder_groups:
+            raise ValueError(f"decoder_dim {self.decoder_dim} is not a multiple of "
+                             f"decoder_groups {self.decoder_groups}")
+
+
+@dataclass(frozen=True)
+class PretrainConfig:
+    """data2vec-2 pretraining (student / EMA-teacher masked regression): the
+    encoder ``model`` (a ``FinetuneConfig`` for audio, an ``ImageConfig``
+    for images), its modality's decoder, and the fields that the JAX
+    ``pretrain_loss``, ``PretrainState`` and ``build_optimizer`` read. The
+    defaults are what ``load_config("animal2vec_tpu/configs/a2v_large_pretrain.yaml")``
+    resolves to (``tests/test_torch_pretrain_ops.py`` compares them field by
+    field); ``vit_b16`` is the image cell.
+
+    Refused: k > depth (``average_top_k_layers``: the JAX streamed teacher
+    sums the taps of every layer but divides by k, so its targets come out
+    at depth / k of the stacked average; the port averages the last k
+    taps), the int8 ``matmul_impl`` modes (serving-only), and attention
+    dropout with a dense bias or none (the image modality: JAX draws it with
+    ``jax.random``). The fields that take one value in both recipes are not
+    fields: the targets are the instance-normed taps (per layer, over time)
+    averaged and not normalized again; the loss is the squared error times
+    1/sqrt(C) at the masked tokens, with no reconstruction term and no
+    linear probe (``task.with_labels`` false); masked tokens are zeroed
+    before the student; no layerdrop, input or activation dropout, and the
+    frontend's full gradient."""
+
+    model: Union[FinetuneConfig, ImageConfig] = FinetuneConfig()
+    decoder: DecoderConfig = DecoderConfig(768, 16, 7, 4, 0.1)
+    clone_batch: int = 12
+    # masking (model.modalities.<modality>.*): spans for audio, 2-D blocks
+    # for images; mask_noise_std is the decoder's mask tokens' noise
+    mask_prob: float = 1.5
+    mask_length: int = 2
+    mask_noise_std: float = 0.01
+    # teacher targets
+    average_top_k_layers: int = 16
+    ema_decay: float = 0.9997
+    ema_end_decay: float = 1.0
+    ema_anneal_end_step: int = 300_000
+    ema_encoder_only: bool = False
+    # dropouts (model.*, modality prenet_dropout)
+    encoder_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    post_mlp_drop: float = 0.1
+    prenet_dropout: float = 0.1
+    # model.mixup.* (audio only; source_mixup < 0 turns it off)
+    source_mixup: float = 0.5
+    mixup_prob: float = 1.0
+    same_mixup: bool = True
+    mixing_window_length: float = 0.05
+    gain_mode: str = "A_weighting"
+    optimization: OptimizationConfig = OptimizationConfig(max_update=384_230, update_freq=5)
+
+    def __post_init__(self):
+        depth = self.model.depth
+        if not 0 < self.average_top_k_layers <= depth:
+            raise ValueError(
+                f"average_top_k_layers={self.average_top_k_layers} must lie in [1, depth={depth}]"
+                " (the JAX teacher sums the taps of every layer and divides by k)")
+        if self.model.matmul_impl != "bf16":
+            raise NotImplementedError("the int8 matmul_impl modes are serving-only")
+        if self.modality == "IMAGE" and self.attention_dropout > 0.0:
+            raise NotImplementedError("attention dropout with a dense bias or none is not ported")
+        if self.clone_batch < 1:
+            raise ValueError(f"clone_batch={self.clone_batch} must be >= 1")
+
+    @property
+    def modality(self) -> str:
+        return "IMAGE" if isinstance(self.model, ImageConfig) else "AUDIO"
+
+    @classmethod
+    def vit_b16(cls, **overrides) -> "PretrainConfig":
+        """The image cell: a ViT-B/16 (``ImageConfig`` with the 2-D ALiBi
+        bias and one learned scale) with the JAX ``ModelConfig`` /
+        ``ImageModalityConfig`` / ``DecoderConfig`` / ``OptimizationConfig``
+        defaults, the overrides of JAX's own image pretrain test (ALiBi on,
+        dropouts 0, instance-norm target layers, ``clone_batch`` 2) and k =
+        8, all the trunk's layers."""
+        fields = dict(
+            model=ImageConfig(use_alibi_encoder=True), decoder=DecoderConfig(), clone_batch=2,
+            mask_prob=0.7, mask_length=5, average_top_k_layers=8, ema_decay=0.999,
+            ema_end_decay=0.9999, ema_anneal_end_step=100_000, ema_encoder_only=True,
+            encoder_dropout=0.0, attention_dropout=0.0, post_mlp_drop=0.0, prenet_dropout=0.0,
+            source_mixup=-1.0, optimization=OptimizationConfig(),
+        )
+        fields.update(overrides)
+        return cls(**fields)

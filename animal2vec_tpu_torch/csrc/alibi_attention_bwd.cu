@@ -56,18 +56,14 @@
 // per score (~25 fp32/integer instructions), which mma.sync does not hide.
 // wgmma and a deeper K/V (or Q/dO) pipeline are the levers for a later
 // change.
-#include "common.cuh"
+#include "flash_bwd_tiles.cuh"
 
 namespace a2v {
 namespace {
 
-constexpr int kD = 64;
-constexpr int kTile = 64;         // rows per block and per loop step
-constexpr int kLds = kD + 8;      // padded shared row: conflict-free 32-bit reads
-constexpr int kThreads = 128;     // four warps x 16 rows
-constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
+using namespace flash_bwd;
 
-using bf16 = __nv_bfloat16;
+constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
 
 struct BwdArgs {
   int pos_per_row, mask_per_row, has_sentinel;
@@ -78,87 +74,14 @@ struct BwdArgs {
   float keep_scale;  // 1 / (1 - rate)
 };
 
-// 16-byte rows of a 64 x 64 bf16 tile into padded shared rows; rows past T
-// are zero-filled.
+// rows of one (T, D) head plane
 __device__ __forceinline__ void stage_tile(bf16* smem, const bf16* src, int row0, int T,
                                            int tid) {
-  for (int c = tid; c < kTile * kD / 8; c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8, row = row0 + r;
-    cp_async_16(&smem[r * kLds + col], src + static_cast<size_t>(row < T ? row : 0) * kD + col,
-                row < T);
-  }
-}
-
-// A fragments of this warp's 16 rows (r0 = warp * 16 + g) of a staged tile.
-__device__ __forceinline__ void row_fragments(uint32_t (&f)[kD / 16][4], const bf16* smem,
-                                              int r0, int i4) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * i4;
-    f[kk][0] = ld_u32(&smem[r0 * kLds + c]);
-    f[kk][1] = ld_u32(&smem[(r0 + 8) * kLds + c]);
-    f[kk][2] = ld_u32(&smem[r0 * kLds + c + 8]);
-    f[kk][3] = ld_u32(&smem[(r0 + 8) * kLds + c + 8]);
-  }
-}
-
-// acc[j] (16 x 8, j = 0..7) = A (16 x D fragments) . rows[j*8 .. j*8+7]^T of
-// a staged tile: the B operand is the tile's rows read as columns.
-__device__ __forceinline__ void rows_product(float (&acc)[kTile / 8][4],
-                                             const uint32_t (&a)[kD / 16][4], const bf16* smem,
-                                             int g, int i4) {
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const bf16* row = &smem[(j * 8 + g) * kLds + 2 * i4];
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint32_t b[2] = {ld_u32(row + kk * 16), ld_u32(row + kk * 16 + 8)};
-      mma_16816(acc[j], a[kk], b);
-    }
-  }
-}
-
-// out (16 x D) += A . tile, where A is the bf16 of acc (16 x 64, accumulator
-// layout) and the tile (64 x D) is staged in shared memory; its B operands
-// come transposed by ldmatrix.
-__device__ __forceinline__ void acc_times_tile(float (&out)[kD / 8][4],
-                                               const float (&acc)[kTile / 8][4],
-                                               const bf16* smem, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(acc[2 * kk][0], acc[2 * kk][1]),
-                            pack_bf16(acc[2 * kk][2], acc[2 * kk][3]),
-                            pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]),
-                            pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3])};
-    const int tile = lane >> 3;
-    const int row = kk * 16 + (tile & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; dn += 2) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, &smem[row * kLds + (dn + (tile >> 1)) * 8]);
-      mma_16816(out[dn], pa, bv);
-      mma_16816(out[dn + 1], pa, bv + 2);
-    }
-  }
+  stage_rows(smem, src, kD, row0, T, tid);
 }
 
 __device__ __forceinline__ float alibi_dist(float pq, float pk, bool sentinel) {
   return (sentinel && (pq < 0.f || pk < 0.f)) ? 0.f : fabsf(pq - pk);
-}
-
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kD / 8][4], int row0,
-                                           int row1, int T, float scale, int i4) {
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    const int col = dn * 8 + 2 * i4;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(&dst[static_cast<size_t>(row0) * kD + col]) =
-          pack_bf16(acc[dn][0] * scale, acc[dn][1] * scale);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(&dst[static_cast<size_t>(row1) * kD + col]) =
-          pack_bf16(acc[dn][2] * scale, acc[dn][3] * scale);
-  }
 }
 
 // One block per (64-query tile, head, batch): dq rows and the block's
@@ -272,7 +195,7 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     acc_times_tile(acc_dq, s, sK, lane);  // dq += dS K
   }
 
-  store_rows(dq + bh * head, acc_dq, q0 + r0, q0 + r0 + 8, T, a.sm_scale, i4);
+  store_rows(dq + bh * head, kD, acc_dq, q0 + r0, q0 + r0 + 8, T, a.sm_scale, i4);
 
   // row totals over the quad of lanes that share a row, then
   // -sum_j dS dist = -(sum P f dP dist - D * sum P dist) per row
@@ -401,8 +324,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     acc_times_tile(acc_dk, dpt, sQ, lane);  // dk += dS^T Q
   }
 
-  store_rows(dk + bh * head, acc_dk, k0 + r0, k0 + r0 + 8, T, a.sm_scale, i4);
-  store_rows(dv + bh * head, acc_dv, k0 + r0, k0 + r0 + 8, T, 1.f, i4);
+  store_rows(dk + bh * head, kD, acc_dk, k0 + r0, k0 + r0 + 8, T, a.sm_scale, i4);
+  store_rows(dv + bh * head, kD, acc_dv, k0 + r0, k0 + r0 + 8, T, 1.f, i4);
 }
 
 int check_args(int B, int H, int T, int D) {

@@ -64,6 +64,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ bias,    // (1 or B, H, T, T)
                       const uint8_t* __restrict__ mask,  // (B, T), 1 = padded key
                       bf16* __restrict__ out,            // (B, T, H, D)
+                      float* __restrict__ lse,           // null or (B*H, T)
                       BiasArgs a) {
   const int H = a.H, T = a.T;
   __shared__ __align__(16) bf16 sQ[kBQ * kLds];
@@ -218,6 +219,11 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (lse != nullptr && i4 == 0) {  // the backward's logsumexp, m + log l
+    const size_t bh = static_cast<size_t>(b) * H + h;
+    if (row0 < T) lse[bh * T + row0] = m[0] + logf(l[0]);
+    if (row1 < T) lse[bh * T + row1] = m[1] + logf(l[1]);
+  }
   const size_t row_stride = static_cast<size_t>(H) * kD;
   bf16* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * kD;
 #pragma unroll
@@ -234,14 +240,14 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <bool HAS_BIAS, bool UNIFORM_BIAS>
 void launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
-                 const bf16* v, const float* bias, const uint8_t* mask, bf16* out,
+                 const bf16* v, const float* bias, const uint8_t* mask, bf16* out, float* lse,
                  const BiasArgs& a) {
   if (has_mask)
-    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, true><<<grid, kThreads, 0, s>>>(q, k, v, bias,
-                                                                                 mask, out, a);
+    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, true><<<grid, kThreads, 0, s>>>(
+        q, k, v, bias, mask, out, lse, a);
   else
-    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, false><<<grid, kThreads, 0, s>>>(q, k, v, bias,
-                                                                                  mask, out, a);
+    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, false><<<grid, kThreads, 0, s>>>(
+        q, k, v, bias, mask, out, lse, a);
 }
 
 }  // namespace
@@ -250,11 +256,13 @@ void launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const 
 // C entry, bound with ctypes. q, k, v: bf16 (B, T, H, D) with element
 // strides (stride_b, stride_t, D, 1), 16-byte aligned, strides multiples of
 // 8; bias null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null
-// or (B, T) uint8; out (B, T, H, D) bf16 contiguous. Returns a cudaError_t.
+// or (B, T) uint8; out (B, T, H, D) bf16 contiguous; lse null (serving) or
+// (B*H, T) fp32, the logsumexp of each score row for the backward
+// (bias_attention_bwd.cu). Returns a cudaError_t.
 extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
                                   long long stride_b, long long stride_t, const void* bias,
-                                  int bias_uniform, const void* mask, void* out, int B, int H,
-                                  int T, int D, float sm_scale, void* stream) {
+                                  int bias_uniform, const void* mask, void* out, void* lse,
+                                  int B, int H, int T, int D, float sm_scale, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
@@ -268,13 +276,14 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   const auto* bp = static_cast<const float*>(bias);
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<bf16*>(out);
+  auto* lp = static_cast<float*>(lse);
   const BiasArgs a{stride_b, stride_t, H, T, sm_scale};
   const bool has_mask = mp != nullptr;
   if (bp == nullptr)
-    launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, a);
+    launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
   else if (bias_uniform)
-    launch_mask<true, true>(has_mask, grid, s, qp, kp, vp, bp, mp, op, a);
+    launch_mask<true, true>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
   else
-    launch_mask<true, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, a);
+    launch_mask<true, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
   return static_cast<int>(cudaGetLastError());
 }

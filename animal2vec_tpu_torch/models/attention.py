@@ -48,7 +48,8 @@ def multihead_attention(
     """Attention of the (B, T, 3C) qkv projection -> (B, T, C). An
     ``AlibiSpec`` takes ``alibi_flash_attention_btc`` (serving and training,
     with its hash dropout); a dense bias or None takes ``bias_flash_attention``
-    on the q, k, v views of ``qkv`` (serving: no dropout, no backward)."""
+    on the q, k, v views of ``qkv`` (serving and training, differentiable in
+    the bias too; no dropout: a rate > 0 raises)."""
     if isinstance(bias, AlibiSpec):
         return alibi_flash_attention_btc(qkv, heads, bias.slopes, bias.positions, padding_mask,
                                          bias.has_sentinel, dropout_rate, seed)

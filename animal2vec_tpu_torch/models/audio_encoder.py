@@ -1,6 +1,6 @@
 """Audio modality encoder: the port of ``animal2vec_tpu/models/audio_encoder.py``
-(conv frontend, feature projection, grouped-conv relative positions, prenet
-and the learned per-head ALiBi scale)."""
+(conv frontend, feature projection, grouped-conv relative positions, prenet,
+the learned per-head ALiBi scale and the pretraining ``Decoder1d``)."""
 
 from __future__ import annotations
 
@@ -8,10 +8,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.config import FinetuneConfig
+from typing import Optional
+
+from animal2vec_tpu_torch.config import DecoderConfig, FinetuneConfig
 from animal2vec_tpu_torch.models.attention import AlibiSpec
 from animal2vec_tpu_torch.models.frontend import ConvFeatureExtractor
-from animal2vec_tpu_torch.models.modules import Fp32LayerNorm, PrenetEncoder, conv1d_same
+from animal2vec_tpu_torch.models.modules import (
+    Decoder1d, Fp32LayerNorm, PrenetEncoder, conv1d_same,
+)
 from animal2vec_tpu_torch.ops.alibi import alibi_slopes
 from animal2vec_tpu_torch.ops.conv_arith import strided_pad_1d
 
@@ -41,10 +45,11 @@ class AudioEncoder(nn.Module):
     ``stop_gradient`` does and keeps no activations for a backward. The
     prenet takes ``prenet_dropout``, ``layerdrop``, the block rates and the
     config's ``matmul_impl``, as the trunk does (one ``BlockConfig``,
-    ``data2vec2.py:52-68``)."""
+    ``data2vec2.py:52-68``). ``decoder`` adds the pretraining ``Decoder1d``."""
 
     def __init__(self, cfg: FinetuneConfig, local_grad_mult: float = 1.0,
-                 prenet_dropout: float = 0.0, layerdrop: float = 0.0, **rates: float):
+                 prenet_dropout: float = 0.0, layerdrop: float = 0.0,
+                 decoder: Optional[DecoderConfig] = None, **rates: float):
         super().__init__()
         self.local_grad_mult = local_grad_mult
         self.conv_layers = [tuple(c) for c in cfg.conv_layers]
@@ -71,6 +76,10 @@ class AudioEncoder(nn.Module):
             "base_slopes", torch.from_numpy(alibi_slopes(cfg.num_heads).copy()),
             persistent=False,
         )
+        if decoder is not None:
+            self.decoder = Decoder1d(cfg.embed_dim, cfg.embed_dim, decoder.decoder_dim,
+                                     decoder.decoder_kernel, decoder.decoder_groups,
+                                     decoder.decoder_layers, decoder.decoder_residual)
 
     def local_features(self, source: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, T_wav) -> (B, T_feat, embed): conv stack + fp32 LN + linear."""
@@ -96,7 +105,8 @@ class AudioEncoder(nn.Module):
 
     def alibi_spec(self, positions: torch.Tensor) -> AlibiSpec:
         """Structured ALiBi with the learned scale, clipped at 0, folded into
-        the slopes."""
+        the slopes; ``positions`` (1, T) batch-uniform, or (B, K) int32 per
+        row (a pretraining student's keep-set ids, ``data2vec2.py:280-281``)."""
         scale = torch.clamp(self.alibi_scale.float(), min=0.0)
         return AlibiSpec(self.base_slopes * scale[0].reshape(-1), positions)
 

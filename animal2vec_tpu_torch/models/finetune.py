@@ -1,7 +1,9 @@
 """Frame-level multi-label finetune model: the port of
 ``animal2vec_tpu/models/finetune.FinetuneModel`` and
-``train/build.build_finetune_model``; and ``build_image_model``, the image
-modality's serving model (a ``Data2VecMulti`` of an ``ImageConfig``).
+``train/build.build_finetune_model``; ``build_image_model``, the image
+modality's serving model (a ``Data2VecMulti`` of an ``ImageConfig``); and
+``build_pretrain_model`` (``train/build.build_pretrain_model``), the
+data2vec-2 model that pretraining trains.
 
 encoder -> fp32 mean of the last k kept trunk MLP taps, cast back -> freeze
 gate -> final dropout -> Linear.
@@ -30,11 +32,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig, ImageConfig
+from animal2vec_tpu_torch.config import (
+    FinetuneConfig, FinetuneTrainConfig, ImageConfig, PretrainConfig,
+)
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
 from animal2vec_tpu_torch.models.images import PatchEmbed
-from animal2vec_tpu_torch.models.modules import top_k_tap_average
+from animal2vec_tpu_torch.models.modules import (
+    Conv1dBlockNorm, Conv2dBlockNorm, top_k_tap_average,
+)
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 
 
@@ -113,11 +119,18 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv1d, PosConvBlock)):
-                fan_in = mod.weight.shape[1] * mod.weight.shape[2]
+            elif isinstance(mod, (nn.Conv1d, PosConvBlock, Conv1dBlockNorm, Conv2dBlockNorm)):
+                fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+
+
+def _on(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA is not available; pass device='cpu' to build on the CPU")
+    return device
 
 
 def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
@@ -128,14 +141,35 @@ def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32
     drawn from ``seed`` on a CPU generator, so they do not depend on the
     device. ``train`` gives the training recipe's rates; ``cfg.matmul_impl``
     int8 modes get their quantized weights."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_finetune_model: CUDA is not available; "
-                           "pass device='cpu' to build on the CPU")
+    device = _on(device, "build_finetune_model")
     model = FinetuneModel(cfg, dtype, train)
     init_params(model, torch.Generator().manual_seed(seed))
     model.quantize_weights()
     return model.to(device).eval()
+
+
+def pretrain_rates(cfg: PretrainConfig) -> dict:
+    """The model's keyword rates of a pretraining recipe (the JAX
+    ``ModelConfig`` and modality fields that ``Data2VecMulti`` reads; the
+    others keep the model's defaults, which both recipes take)."""
+    return dict(
+        prenet_dropout=cfg.prenet_dropout, mask_noise_std=cfg.mask_noise_std,
+        encoder_dropout=cfg.encoder_dropout, attention_dropout=cfg.attention_dropout,
+        post_mlp_drop=cfg.post_mlp_drop,
+    )
+
+
+def build_pretrain_model(cfg: PretrainConfig, dtype: torch.dtype = torch.float32, seed: int = 0,
+                         device="cuda") -> Data2VecMulti:
+    """The data2vec-2 model of ``cfg.model``'s modality with its decoder and
+    the recipe's rates: fp32 weights drawn from ``seed`` on a CPU generator
+    (so they do not depend on the device), computing in ``dtype``, on
+    ``device`` (the card unless the caller asks for the CPU), in train
+    mode."""
+    device = _on(device, "build_pretrain_model")
+    model = Data2VecMulti(cfg.model, dtype, pretrain=cfg, **pretrain_rates(cfg))
+    init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(device).train()
 
 
 def build_image_model(cfg: ImageConfig, dtype: torch.dtype = torch.float32, seed: int = 0,
@@ -145,10 +179,7 @@ def build_image_model(cfg: ImageConfig, dtype: torch.dtype = torch.float32, seed
     generator (so they do not depend on the device), computing in ``dtype``,
     on ``device`` (the card unless the caller asks for the CPU), in eval
     mode, with ``cfg.matmul_impl``'s int8 weights quantized."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_image_model: CUDA is not available; "
-                           "pass device='cpu' to build on the CPU")
+    device = _on(device, "build_image_model")
     model = Data2VecMulti(cfg, dtype)
     init_params(model, torch.Generator().manual_seed(seed))
     model.quantize_weights()

@@ -1,13 +1,16 @@
 """The image modality's encoder: the port of ``animal2vec_tpu/models/images.py``
 (``sincos_pos_embed_2d``, ``PatchEmbed``, ``patchify``/``unpatchify`` and
-``ImageEncoder`` without its decoders, which pretraining needs).
+``ImageEncoder`` with its ``Decoder2d`` for pretraining).
 
 Images come in NHWC, (B, H, W, C), as in JAX. ``local_features`` cuts them
 into p x p patches with a stride-p conv (a stock conv, as XLA composed it)
 and projects them to the model width when the patch width differs; the trunk
 and the prenet are the port's AltBlocks. With ``use_alibi_encoder`` every
 attention of the model takes one fp32 (1, H, P, P) bias: the 2-D ALiBi bias
-of the patch grid times the learned scale, clipped at 0.
+of the patch grid times the learned scale, clipped at 0. A pretraining
+student takes it per row at its keep-set (``masked_alibi``): (B, H, K, K)
+fp32, the gathered grid bias times the scale, so that the attention's bias
+gradient reaches the learned scale.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.config import ImageConfig
-from animal2vec_tpu_torch.models.modules import PrenetEncoder
+from animal2vec_tpu_torch.config import DecoderConfig, ImageConfig
+from animal2vec_tpu_torch.models.modules import Decoder2d, PrenetEncoder
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
+from animal2vec_tpu_torch.ops.masking import MaskInfo, masked_alibi
 
 
 def sincos_pos_embed_2d(embed_dim: int, grid_size: int) -> np.ndarray:
@@ -77,9 +81,12 @@ class PatchEmbed(nn.Module):
 
 class ImageEncoder(nn.Module):
     """The image branch's parameters and sub-computations (``ImageEncoder``,
-    ``images.py:94-193``); the orchestration is ``models/data2vec2.py``'s."""
+    ``images.py:94-193``); the orchestration is ``models/data2vec2.py``'s.
+    The prenet takes ``prenet_dropout``, ``layerdrop`` and the block rates;
+    ``decoder`` adds the pretraining ``Decoder2d``."""
 
-    def __init__(self, cfg: ImageConfig):
+    def __init__(self, cfg: ImageConfig, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
+                 decoder: Optional[DecoderConfig] = None, **rates: float):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, cfg.patch_embed_dim)
@@ -89,9 +96,15 @@ class ImageEncoder(nn.Module):
             sincos_pos_embed_2d(cfg.embed_dim, cfg.grid_size))[None], persistent=False)
         self.context_encoder = PrenetEncoder(
             cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps,
-            matmul_impl=cfg.matmul_impl, layer_norm_first=cfg.layer_norm_first,
-            ffn_targets=not cfg.end_of_block_targets,
+            prenet_dropout, layerdrop, matmul_impl=cfg.matmul_impl,
+            layer_norm_first=cfg.layer_norm_first, ffn_targets=not cfg.end_of_block_targets,
+            **rates,
         )
+        if decoder is not None:
+            self.decoder = Decoder2d(cfg.embed_dim, cfg.embed_dim, decoder.decoder_dim,
+                                     decoder.decoder_kernel, decoder.decoder_groups,
+                                     decoder.decoder_layers, cfg.grid_size,
+                                     decoder.decoder_residual)
         if cfg.use_alibi_encoder:
             n_heads = cfg.num_heads if cfg.learned_alibi_scale_per_head else 1
             self.alibi_scale = nn.Parameter(torch.full((1, 1, n_heads, 1, 1), cfg.alibi_scale))
@@ -110,13 +123,18 @@ class ImageEncoder(nn.Module):
             return x
         return x + self.pos_embed.to(x.dtype)
 
-    def scaled_alibi(self) -> Optional[torch.Tensor]:
-        """The fp32 (1, H, P, P) attention bias of every block, or None
-        (``scaled_alibi``, ``images.py:158-165``)."""
+    def scaled_alibi(self, mask_info: Optional[MaskInfo] = None) -> Optional[torch.Tensor]:
+        """The fp32 attention bias of every block, or None (``scaled_alibi``,
+        ``images.py:158-165``): (1, H, P, P), or with ``mask_info`` each
+        row's (B, H, K, K) keep-set bias (``masked_alibi``,
+        ``data2vec2.py:295-298``)."""
         if not self.cfg.use_alibi_encoder:
             return None
         scale = self.alibi_scale.float().clamp_min(0.0)[0].reshape(-1, 1, 1)
-        return (self.alibi_bias * scale)[None]
+        if mask_info is None:
+            return (self.alibi_bias * scale)[None]
+        return masked_alibi(self.alibi_bias[None], mask_info) * scale
 
-    def prenet(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.context_encoder(x, None, bias)
+    def prenet(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], rngs=None) -> torch.Tensor:
+        return self.context_encoder(x, padding_mask, bias, rngs)

@@ -31,9 +31,17 @@ kernels have no vjp.
 Training arms run when the module is in ``train()`` mode. Their random
 draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
 the int32 hash seeds of the kernels on its host generator, elementwise
-dropout masks on its device generator. Drop-path is not ported (the
-finetune recipe sets it to 0), nor is training of pre-LN blocks or of a
-dense-bias attention (the image modality is served only): those raise.
+dropout masks on its device generator. A dense-bias attention (the image
+modality) trains through the dense-bias kernels' autograd Function, a
+pre-LN block's MLP through the fused MLP's. Drop-path is not ported (the
+recipes set it to 0), nor is attention dropout with a dense bias (JAX draws
+it with ``jax.random``) or activation dropout in a pre-LN block (JAX leaves
+its fused MLP there): those raise.
+
+The decoders of data2vec-2 pretraining (``Decoder1d`` for audio,
+``Decoder2d`` for images) are grouped convs, each followed by a LayerNorm
+without affine in fp32 and exact GELU, as ``F.conv1d`` / ``F.conv2d``
+compose them.
 """
 
 from __future__ import annotations
@@ -122,9 +130,10 @@ def _int8_buffers(module: nn.Module, *names: str) -> None:
 
 class AltAttention(nn.Module):
     """Multi-head self-attention (``AltAttention``, ``modules.py:374-446``)
-    through ``multihead_attention`` on the (B, T, 3C) projection; in training
-    (structured ALiBi only) with in-kernel hash dropout at ``attn_drop`` (one
-    int32 seed per call) and ``proj_drop`` after the out projection. With
+    through ``multihead_attention`` on the (B, T, 3C) projection; in training with
+    ``proj_drop`` after the out projection and, for structured ALiBi, the
+    in-kernel hash dropout at ``attn_drop`` (one int32 seed per call; a
+    dense bias with ``attn_drop`` > 0 raises). With
     ``int8`` (serving) the projections run int8 with their biases added after,
     in the storage dtype, and an ``AlibiSpec`` attention takes int8 products
     (``modules.py:409-421``); a dense bias keeps the bf16 attention."""
@@ -150,9 +159,6 @@ class AltAttention(nn.Module):
         rngs: Optional[Rngs] = None,
     ) -> torch.Tensor:
         alibi = isinstance(bias, AlibiSpec)
-        if self.training and not alibi:
-            raise NotImplementedError("attention with a dense bias or none (the image modality) "
-                                      "is serving-only in the port")
         if self.int8:
             qkv_q, qkv_s, proj_q, proj_s = _quantized(self, "qkv_q", "qkv_s", "proj_q",
                                                       "proj_s")
@@ -179,8 +185,8 @@ class AltAttention(nn.Module):
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (``Mlp``, ``modules.py:210-272``). A post-LN
     block consumes the parameters fused with its LayerNorms; a pre-LN block
-    calls the module: the fused MLP, or with ``int8_weights`` (w1_q, w1_s,
-    w2_q, w2_s) its int8 twin. Serving only."""
+    calls the module: the fused MLP (in training its autograd Function), or
+    with ``int8_weights`` (w1_q, w1_s, w2_q, w2_s, serving) its int8 twin."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -189,8 +195,6 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 int8_weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the MLP of a pre-LN block is serving-only in the port")
         fc1, fc2 = self.fc1, self.fc2
         if int8_weights is not None:
             w1_q, w1_s, w2_q, w2_s = int8_weights
@@ -210,8 +214,10 @@ class AltBlock(nn.Module):
     ``matmul_impl`` "int8" or "int8_attn" runs the MLP sub-block through the
     int8 fused block (serving).
 
-    Pre-LN (``layer_norm_first``, serving only): ``x + attn(norm1(x))``, then
-    the MLP of ``norm2`` of that, in int8 through the int8 fused MLP."""
+    Pre-LN (``layer_norm_first``): ``x + attn(norm1(x))``, then the MLP of
+    ``norm2`` of that (in int8 through the int8 fused MLP), in training with
+    ``post_mlp_drop`` on its residual branch; ``activation_dropout`` raises
+    there."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  eps: float = 1e-5, encoder_dropout: float = 0.0,
@@ -246,21 +252,23 @@ class AltBlock(nn.Module):
         rngs: Optional[Rngs] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.layer_norm_first:
-            x, t = self._pre_ln(x, padding_mask, bias)
+            x, t = self._pre_ln(x, padding_mask, bias, rngs)
         else:
             x, t = self._post_ln(x, padding_mask, bias, rngs)
         return x, (t if self.ffn_targets else x)
 
-    def _pre_ln(self, x, padding_mask, bias):
-        if self.training:
-            raise NotImplementedError("pre-LN blocks are serving-only in the port")
-        x = x + self.attn(self.norm1(x), padding_mask, bias)
+    def _pre_ln(self, x, padding_mask, bias, rngs):
+        if self.training and self.act_rate > 0.0:
+            raise NotImplementedError("activation dropout in a pre-LN block is not ported")
+        x = x + self.attn(self.norm1(x), padding_mask, bias, rngs)
         int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s") if self.int8 else None
         # The reference's pre-LN branch (modules.py:551-554, after fairseq's
         # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + post_drop(t)``: the
         # residual x is not added back, and with dropout off the block gives
         # 2 * mlp(norm2(x)). The port computes what the reference computes.
         t = self.mlp(self.norm2(x), int8_weights)
+        if self.training and self.post_rate > 0.0:
+            return t + dropout(t, self.post_rate, _need(rngs, "dropout").device), t
         return t + t, t
 
     def _post_ln(self, x, padding_mask, bias, rngs):
@@ -363,3 +371,105 @@ class PrenetEncoder(nn.Module):
         if self.layer_norm_first:
             x = self.norm(x)
         return x
+
+
+def fp32_instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Instance norm over the time axis of (B, T, C) with fp32 statistics,
+    no affine, cast back (``fp32_instance_norm``, ``modules.py:122-128``)."""
+    x32 = x.float()
+    mean = x32.mean(dim=1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _same_pad(k: int) -> Tuple[int, int]:
+    """A k//2 conv pad followed by SamePad: (k//2, k//2 - (k even))."""
+    return k // 2, k // 2 - (1 if k % 2 == 0 else 0)
+
+
+class Conv1dBlockNorm(nn.Module):
+    """Grouped conv -> LayerNorm (no affine, fp32) -> exact GELU, one block of
+    ``Decoder1d`` (``Conv1dBlockNorm``, ``modules.py:1033-1065``); weight (out,
+    in/groups, k), the bias added in the compute dtype."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: int, groups: int):
+        super().__init__()
+        self.kernel, self.groups = kernel, groups
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim // groups, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.norm = Fp32LayerNorm(out_dim, affine=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv1d_same(x, self.weight, self.bias, 1, self.groups, pad=_same_pad(self.kernel))
+        return F.gelu(self.norm(y))
+
+
+class Conv2dBlockNorm(nn.Module):
+    """The 2-D twin of ``Conv1dBlockNorm`` on (B, H, W, C) (``Conv2dBlockNorm``,
+    ``modules.py:1105-1136``); weight (out, in/groups, k, k). The bias is
+    added in the compute dtype, as ``Conv1dBlockNorm`` adds it: JAX adds its
+    fp32 bias to the conv output, which turns a bf16 block's output fp32, and
+    the next block's conv then refuses the mixed dtypes, so the JAX image
+    decoder runs in fp32 only. In fp32 the two agree."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: int, groups: int):
+        super().__init__()
+        self.kernel, self.groups = kernel, groups
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.norm = Fp32LayerNorm(out_dim, affine=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = _same_pad(self.kernel)
+        xb = F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi))
+        y = F.conv2d(xb, self.weight.to(x.dtype), self.bias.to(x.dtype), groups=self.groups)
+        return F.gelu(self.norm(y.permute(0, 2, 3, 1)))
+
+
+def _decode(blocks: nn.ModuleList, x: torch.Tensor, residual_on: bool) -> torch.Tensor:
+    residual = x
+    for blk in blocks:
+        y = blk(x)
+        if residual_on and residual.shape[-1] == y.shape[-1]:
+            y = y + residual
+        residual = x = y
+    return x
+
+
+class Decoder1d(nn.Module):
+    """The audio decoder (``Decoder1d``, ``modules.py:1068-1102``): conv blocks
+    with residuals where the widths agree, then ``proj`` to ``out_dim``; (B,
+    T, C) in and out."""
+
+    def __init__(self, in_dim: int, out_dim: int, decoder_dim: int, kernel: int, groups: int,
+                 layers: int, residual: bool = True):
+        super().__init__()
+        self.residual = residual
+        self.blocks = nn.ModuleList(
+            Conv1dBlockNorm(in_dim if i == 0 else decoder_dim, decoder_dim, kernel, groups)
+            for i in range(layers)
+        )
+        self.proj = nn.Linear(decoder_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(_decode(self.blocks, x, self.residual), self.proj)
+
+
+class Decoder2d(nn.Module):
+    """The image decoder (``Decoder2d``, ``modules.py:1139-1181``): the (B, P,
+    C) patches as a (B, h, w, C) grid through 2-D conv blocks, then ``proj``."""
+
+    def __init__(self, in_dim: int, out_dim: int, decoder_dim: int, kernel: int, groups: int,
+                 layers: int, grid: int, residual: bool = True):
+        super().__init__()
+        self.residual, self.grid = residual, grid
+        self.blocks = nn.ModuleList(
+            Conv2dBlockNorm(in_dim if i == 0 else decoder_dim, decoder_dim, kernel, groups)
+            for i in range(layers)
+        )
+        self.proj = nn.Linear(decoder_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c = x.shape
+        y = _decode(self.blocks, x.reshape(b, self.grid, self.grid, c), self.residual)
+        return _linear(y.reshape(b, t, -1), self.proj)

@@ -13,33 +13,48 @@ T, T); ``padding_mask`` is None or (B, T) bool, True = padded key; the
 output is (B, T, H, D) in q's dtype. A query row whose keys are all padded
 returns the mean of V over the T keys, as ``xla_attention``'s softmax does.
 
-On a CUDA tensor ``bias_flash_attention`` launches the hand-written flash
-kernel (``csrc/bias_attention.cu``, bf16, D = 64); on a CPU tensor it runs
-``bias_attention_plain``, a transcription of ``xla_attention``; any other
-device raises. The kernel reads q, k and v in place with their batch and
-time strides (each row's heads packed, the three with the same strides), so
-the model passes the q, k, v views of its (B, T, 3, H, D) projection and
-makes no packed copy (the ALiBi kernels' ``btc_to_packed`` copy is the
-largest copy of the a2v-large forward, ``PERF.md`` section 5). A
+``bias_flash_attention`` is the model's entry, differentiable in q, k, v
+and the bias. On a CUDA tensor with no gradient wanted (grad mode off, or
+no input requires grad: serving, the EMA teacher) it makes one launch of
+the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, D = 64).
+Otherwise it is a ``torch.autograd.Function``: its forward launches the
+kernel with the (B*H, T) fp32 logsumexp; its backward computes ``delta =
+rowsum(dO * O)`` in fp32 with one torch op and launches the dq + dbias
+kernel (``bias_attention_dq``) and the dk/dv kernel (``bias_attention_dkv``)
+of ``csrc/bias_attention_bwd.cu``, which write dq, dk and dv into one (B,
+T, 3, H, D) gradient. The gradient is ``xla_attention``'s: dbias is dS =
+P * (dP - delta) in fp32, 0 at padded keys; a batch-uniform (1, H, T, T)
+bias gets the sum over the batch (the transpose of the broadcast). On a CPU
+tensor the plain version runs and autograd through it is the backward; any
+other device raises. The kernels read q, k and v in place with their batch
+and time strides (each row's heads packed, the three with the same
+strides), so the model passes the q, k, v views of its (B, T, 3, H, D)
+projection and makes no packed copy (the ALiBi kernels' ``btc_to_packed``
+copy is the largest copy of the a2v-large forward, ``PERF.md`` section 5). A
 batch-uniform bias, (1, H, T, T) or expanded with batch stride 0, is read
-with batch stride 0 and never expanded in memory.
+with batch stride 0 and never expanded in memory. ``bias_attention_bwd_plain``
+is the two backward kernels' plain version on their inputs (the forward's
+lse and delta), with their bf16 roundings.
 
 jax's stock TPU kernel computes ``softmax((q.k + bias) * D^-0.5)``: it
 weakens the bias by D^-0.5, where ``xla_attention`` (below 1024 tokens and
 on every other backend) and the fairseq reference add it after the scale.
 The port follows ``xla_attention`` at every length
-(``tests/test_torch_bias_attention.py`` records the difference).
+(``tests/test_torch_image_ops.py`` and
+``tests/test_torch_bias_attention_train.py`` record the difference, forward
+and backward).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from animal2vec_tpu_torch.kernels.build import check, library
 
 NEG_INF = -1e10  # models/attention.py NEG_INF
+DEAD_LSE = -5e9  # an lse below this marks a query row whose keys are all padded
 
 
 def bias_attention_plain(
@@ -48,8 +63,10 @@ def bias_attention_plain(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Materialized-score reference (any device): ``xla_attention``."""
+    return_lse: bool = False,
+):
+    """Materialized-score reference (any device, differentiable):
+    ``xla_attention``. With ``return_lse`` returns (out, lse (B*H, T) fp32)."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", (q * d**-0.5).float(), k.float())
     if bias is not None:
@@ -57,35 +74,51 @@ def bias_attention_plain(
     if padding_mask is not None:
         logits = logits.masked_fill(padding_mask.bool()[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(-1, logits.shape[2])
 
 
-def _bias_arg(bias: torch.Tensor, b: int, h: int, t: int, dev):
-    """(contiguous fp32 bias, uniform): a batch-uniform bias as its one
-    (1, H, T, T) plane."""
-    if bias.dim() != 4 or bias.shape[1:] != (h, t, t) or bias.shape[0] not in (1, b):
-        raise ValueError(f"bias must be (1 or {b}, {h}, {t}, {t}), got {tuple(bias.shape)}")
-    if bias.dtype != torch.float32 or bias.device != dev:
-        raise ValueError(f"bias must be fp32 on {dev}, got {bias.dtype} on {bias.device}")
-    uniform = bias.shape[0] == 1 or bias.stride(0) == 0
-    if uniform:
-        bias = bias[:1]
-    return bias.detach().contiguous(), uniform
-
-
-def bias_flash_attention(
+def bias_attention_bwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Dense-bias attention of (B, T, H, D) q, k, v -> (B, T, H, D); kernel
-    on CUDA, plain version on CPU."""
-    if q.device.type == "cpu":
-        return bias_attention_plain(q, k, v, bias, padding_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference of the two backward kernels on their inputs (the forward's
+    lse and delta = rowsum(dO * O), both (B*H, T) fp32), written out on
+    materialized fp32 scores with the kernels' roundings (dS and P cast to
+    q's dtype before their products). Returns dq, dk, dv (B, T, H, D) in q's
+    dtype and dbias = dS, fp32 (B, H, T, T)."""
+    b, t, h, d = q.shape
+    scale = d**-0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    lse = lse.reshape(b, h, t, 1)
+    dead = lse < DEAD_LSE
+    padded = torch.zeros((b, 1, 1, t), dtype=torch.bool, device=q.device)
+    if padding_mask is not None:
+        padded = padding_mask.bool()[:, None, None, :]
+    p = torch.exp(logits - lse).masked_fill(dead | padded, 0.0)
+    # a row whose keys are all padded weighs each of them 1/T in the forward
+    p_v = torch.where(dead & padded, 1.0 / t, p)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - delta.reshape(b, h, t, 1))
+    ds_r = ds.to(q.dtype).float()
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds_r, k.float())
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds_r, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_v.to(q.dtype).float(), dout.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds
+
+
+def _check_qkv(q, k, v):
+    """Check the kernels' q, k, v; return (b, t, h, d, strides)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -99,29 +132,196 @@ def bias_flash_attention(
     if strides[0] % 8 or strides[1] % 8 or any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the kernel reads 16-byte chunks: q, k, v must be 16-byte aligned "
                          "with strides in multiples of 8")
-    dev = q.device
-    if k.device != dev or v.device != dev:
+    if k.device != q.device or v.device != q.device:
         raise ValueError("k and v must be on q's device")
-    uniform = False
-    if bias is not None:
-        bias, uniform = _bias_arg(bias, b, h, t, dev)
-    if padding_mask is not None:
-        if padding_mask.shape != (b, t) or padding_mask.device != dev:
-            raise ValueError(f"padding_mask must be ({b}, {t}) on {dev}, got "
-                             f"{tuple(padding_mask.shape)} on {padding_mask.device}")
-        padding_mask = padding_mask.to(torch.bool).contiguous()
+    return b, t, h, d, strides
+
+
+def _bias_arg(bias: Optional[torch.Tensor], b: int, h: int, t: int, dev):
+    """(contiguous fp32 bias or None, uniform): a batch-uniform bias as its
+    one (1, H, T, T) plane."""
+    if bias is None:
+        return None, False
+    if bias.dim() != 4 or bias.shape[1:] != (h, t, t) or bias.shape[0] not in (1, b):
+        raise ValueError(f"bias must be (1 or {b}, {h}, {t}, {t}), got {tuple(bias.shape)}")
+    if bias.dtype != torch.float32 or bias.device != dev:
+        raise ValueError(f"bias must be fp32 on {dev}, got {bias.dtype} on {bias.device}")
+    uniform = bias.shape[0] == 1 or bias.stride(0) == 0
+    if uniform:
+        bias = bias[:1]
+    return bias.detach().contiguous(), uniform
+
+
+def _mask_arg(padding_mask: Optional[torch.Tensor], b: int, t: int, dev):
+    if padding_mask is None:
+        return None
+    if padding_mask.shape != (b, t) or padding_mask.device != dev:
+        raise ValueError(f"padding_mask must be ({b}, {t}) on {dev}, got "
+                         f"{tuple(padding_mask.shape)} on {padding_mask.device}")
+    return padding_mask.to(torch.bool).contiguous()
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False):
+    """The forward kernel's function: out (B, T, H, D) and, with
+    ``with_lse``, the (B*H, T) fp32 logsumexp. On CUDA one launch of the
+    kernel, on CPU the plain version; not differentiable (the model's entry
+    is ``bias_flash_attention``)."""
+    if q.device.type == "cpu":
+        return bias_attention_plain(q, k, v, bias, padding_mask, return_lse=with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
+    b, t, h, d, strides = _check_qkv(q, k, v)
+    dev = q.device
+    bias, uniform = _bias_arg(bias, b, h, t, dev)
+    padding_mask = _mask_arg(padding_mask, b, t, dev)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=dev) if with_lse else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_bias_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1],
-            None if bias is None else bias.data_ptr(), int(uniform),
-            None if padding_mask is None else padding_mask.data_ptr(), out.data_ptr(),
-            b, h, t, d, d**-0.5, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], _ptr(bias),
+            int(uniform), _ptr(padding_mask), out.data_ptr(), _ptr(lse), b, h, t, d, d**-0.5,
+            stream,
         )
     check(err, "bias attention kernel")
     bias_flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_args(q, k, v, dout, lse, delta, bias, padding_mask, out):
+    """Checked arguments of the backward kernels: (b, t, h, d, strides,
+    bias, uniform, mask, the (B, T, 3, H, D) gradient's strides)."""
+    b, t, h, d, strides = _check_qkv(q, k, v)
+    dev = q.device
+    for name, x, shape, dtype in (("dout", dout, (b, t, h, d), torch.bfloat16),
+                                  ("lse", lse, (b * h, t), torch.float32),
+                                  ("delta", delta, (b * h, t), torch.float32)):
+        if x.shape != shape or x.dtype != dtype or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} on q's device, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if out.shape != (b, t, h, d) or out.stride() != (3 * t * h * d, 3 * h * d, d, 1) \
+            or out.dtype != q.dtype or out.device != dev:
+        raise ValueError("gradient outputs must be planes of one (B, T, 3, H, D) tensor")
+    bias, uniform = _bias_arg(bias, b, h, t, dev)
+    return b, t, h, d, strides, bias, uniform, _mask_arg(padding_mask, b, t, dev), out.stride()
+
+
+def _grad_planes(q):
+    b, t, h, d = q.shape
+    return torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device).unbind(2)
+
+
+def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dq=None,
+                      want_dbias=True):
+    """dq (B, T, H, D) and, with ``want_dbias`` and a bias, dbias = dS (B,
+    H, T, T) fp32 (else None) of the backward. ``dq`` may be a preallocated
+    plane of a (B, T, 3, H, D) gradient. Kernel on CUDA,
+    ``bias_attention_bwd_plain`` on CPU."""
+    if q.device.type == "cpu":
+        dq_p, _, _, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask)
+        return dq_p, (ds if want_dbias and bias is not None else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"bias attention dq runs on cuda or cpu tensors, got {q.device}")
+    dq = _grad_planes(q)[0] if dq is None else dq
+    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
+        q, k, v, dout, lse, delta, bias, padding_mask, dq)
+    dbias = None
+    if want_dbias and bias is not None:
+        dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_bias_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
+            dq.data_ptr(), out_strides[0], out_strides[1], _ptr(dbias), b, h, t, d, d**-0.5,
+            stream,
+        )
+    check(err, "bias attention dq kernel")
+    bias_attention_dq.launches += 1
+    return dq, dbias
+
+
+bias_attention_dq.launches = 0
+
+
+def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dk=None,
+                       dv=None):
+    """dk and dv (B, T, H, D) of the backward; ``dk`` and ``dv`` may be
+    preallocated planes of a (B, T, 3, H, D) gradient. Kernel on CUDA,
+    ``bias_attention_bwd_plain`` on CPU."""
+    if q.device.type == "cpu":
+        _, dk_p, dv_p, _ = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask)
+        return dk_p, dv_p
+    if q.device.type != "cuda":
+        raise ValueError(f"bias attention dk/dv runs on cuda or cpu tensors, got {q.device}")
+    if dk is None or dv is None:
+        _, dk, dv = _grad_planes(q)
+    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
+        q, k, v, dout, lse, delta, bias, padding_mask, dk)
+    if dv.stride() != dk.stride() or dv.shape != dk.shape:
+        raise ValueError("dk and dv must be planes of one (B, T, 3, H, D) tensor")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_bias_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
+            dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1], b, h, t, d, d**-0.5,
+            stream,
+        )
+    check(err, "bias attention dk/dv kernel")
+    bias_attention_dkv.launches += 1
+    return dk, dv
+
+
+bias_attention_dkv.launches = 0
+
+
+class _BiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, padding_mask):
+        out, lse = bias_attention_forward(q, k, v, bias, padding_mask, True)
+        ctx.save_for_backward(q, k, v, bias, padding_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, padding_mask, out, lse = ctx.saved_tensors
+        b, t, h, _ = q.shape
+        dout = g.to(q.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+        dq, dk, dv = _grad_planes(q)
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        args = (q, k, v, dout, lse, delta, bias, padding_mask)
+        _, dbias = bias_attention_dq(*args, dq=dq, want_dbias=want_dbias)
+        bias_attention_dkv(*args, dk=dk, dv=dv)
+        if dbias is not None and bias.shape[0] == 1 and b > 1:
+            dbias = dbias.sum(0, keepdim=True)  # the transpose of the broadcast
+        return dq, dk, dv, dbias, None
+
+
+def bias_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dense-bias attention of (B, T, H, D) q, k, v -> (B, T, H, D),
+    differentiable in q, k, v and the bias: on CUDA one forward launch when
+    no gradient is wanted, else the autograd Function (forward with lse, the
+    backward kernels); autograd through the plain version on CPU."""
+    if q.device.type == "cpu":
+        return bias_attention_plain(q, k, v, bias, padding_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
+    inputs = (q, k, v) + (() if bias is None else (bias,))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return _BiasAttention.apply(q, k, v, bias, padding_mask)
+    return bias_attention_forward(q, k, v, bias, padding_mask, False)
 
 
 bias_flash_attention.launches = 0

@@ -448,9 +448,9 @@ fused_block_int8.launches = 0
 #
 # Weights in nn.Linear layout: w1 (M, C), w2 (C2, M) (int8: w1_q, w2_q from
 # ``ops.int8_mm.quantize_weight`` with their scales). The output has x's
-# dtype and x's leading dims. Serving only: the JAX int8 kernel has no vjp,
-# and the bf16 one is reached in training only by pre-LN blocks, which the
-# port serves but does not train.
+# dtype and x's leading dims. int8 is serving only (the JAX int8 kernel has
+# no vjp); the bf16 one is reached in training by pre-LN blocks, whose
+# backward recomputes through the plain math (``_fused_bf16_bwd``).
 
 
 def fused_mlp_plain(
@@ -472,19 +472,8 @@ def fused_mlp_plain(
     return y.to(dtype)
 
 
-def fused_mlp(
-    x: torch.Tensor,
-    w1: torch.Tensor,
-    w2: torch.Tensor,
-    b1: Optional[torch.Tensor] = None,
-    b2: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """fc2(GELU(fc1 x)) for x (..., C); kernel on CUDA (``csrc/fused_mlp.cu``,
-    bf16), plain version on CPU."""
-    if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, w2, b1, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused MLP runs on cuda or cpu tensors, got {x.device}")
+def _launch_mlp(x, w1, w2, b1, b2) -> torch.Tensor:
+    """One launch of the bf16 kernel (checked inputs)."""
     c = x.shape[-1]
     m, c2 = w1.shape[0], w2.shape[0]
     if w1.shape != (m, c) or w2.shape != (c2, m):
@@ -513,6 +502,63 @@ def fused_mlp(
     check(err, "fused MLP kernel")
     fused_mlp.launches += 1
     return out
+
+
+def _mlp_recompute(x, w1, w2, b1, b2) -> torch.Tensor:
+    """``fused_mlp_plain``'s math on (N, C) with the two products as
+    ``_Fp32SumMatmul`` (bf16 GEMMs with fp32 sums and JAX's transpose rule):
+    the backward's recompute, as JAX's ``_fused_bf16_bwd`` differentiates
+    ``_ref_mlp_bf16``."""
+    dtype = x.dtype
+    h = _Fp32SumMatmul.apply(x, w1.to(dtype).t())
+    if b1 is not None:
+        h = h + b1.float()
+    y = _Fp32SumMatmul.apply(F.gelu(h).to(dtype), w2.to(dtype).t())
+    if b2 is not None:
+        y = y + b2.float()
+    return y.to(dtype)
+
+
+class _FusedMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w2, b1, b2):
+        ctx.save_for_backward(x, w1, w2, b1, b2)
+        return _launch_mlp(x, w1, w2, b1, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        c = saved[0].shape[-1]
+        with torch.enable_grad():
+            out = _mlp_recompute(leaves[0].reshape(-1, c), *leaves[1:])
+        wanted = [t for t, need in zip(leaves, ctx.needs_input_grad) if need and t is not None]
+        got = iter(torch.autograd.grad(out, wanted, g.reshape(out.shape)))
+        return tuple(next(got) if need and t is not None else None
+                     for t, need in zip(leaves, ctx.needs_input_grad))
+
+
+def fused_mlp(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    b1: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """fc2(GELU(fc1 x)) for x (..., C), differentiable in every input. On
+    CUDA one launch of the kernel (``csrc/fused_mlp.cu``, bf16) when no
+    gradient is wanted, else the autograd Function: the kernel forward, and
+    a backward that recomputes through ``_mlp_recompute`` in torch GEMMs.
+    On CPU the plain version, with autograd through it."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, w2, b1, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused MLP runs on cuda or cpu tensors, got {x.device}")
+    inputs = [t for t in (x, w1, w2, b1, b2) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedMlp.apply(x, w1, w2, b1, b2)
+    return _launch_mlp(x, w1, w2, b1, b2)
 
 
 fused_mlp.launches = 0

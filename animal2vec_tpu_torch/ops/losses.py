@@ -1,8 +1,11 @@
-"""Finetune losses: the port of ``animal2vec_tpu/ops/losses.py``
+"""Losses: the port of ``animal2vec_tpu/ops/losses.py``
 (``sigmoid_focal_loss``, RetinaNet alpha 0.25 gamma 2, and
-``label_smoothed_nll_loss``), computed in fp32."""
+``label_smoothed_nll_loss`` for finetuning; ``d2v_regression_loss`` for
+pretraining), computed in fp32."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,3 +52,11 @@ def label_smoothed_nll_loss(
     nll = -lprobs.gather(1, targets[:, None])[:, 0]
     smooth = -lprobs.mean(dim=-1)
     return _reduce((1.0 - epsilon) * nll + epsilon * smooth, reduction)
+
+
+def d2v_regression_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-element regression loss of student predictions ``x`` against
+    teacher targets ``y``, (N, D) fp32 out: the squared error times
+    1/sqrt(D) (the recipes' ``loss_beta`` 0 and ``loss_scale`` None)."""
+    d = x.shape[-1]
+    return (x.reshape(-1, d).float() - y.reshape(-1, d).float()) ** 2 * (1.0 / math.sqrt(d))

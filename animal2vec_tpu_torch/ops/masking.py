@@ -1,6 +1,8 @@
-"""Static-count span masking for finetuning: the port of
-``animal2vec_tpu/ops/masking.py`` (``expected_span_mask_tokens``,
-``span_mask``, ``exactify_mask``, ``channel_mask`` and ``apply_mask``).
+"""Static-count masking: the port of ``animal2vec_tpu/ops/masking.py``
+(``expected_span_mask_tokens``, ``span_mask``, ``exactify_mask``,
+``channel_mask`` and ``apply_mask`` for finetuning; ``block_mask_2d``,
+``MaskInfo``, ``make_mask_info_static``, ``gather_keep``,
+``scatter_with_mask_tokens`` and ``masked_alibi`` for pretraining).
 
 Every row gets exactly M masked tokens, M a function of the hyper-
 parameters (``expected_span_mask_tokens``): n_spans distinct starts per row
@@ -15,6 +17,7 @@ hold the samplers to their invariants and the deterministic parts to JAX.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -99,3 +102,96 @@ def apply_mask(
         raise ValueError("the noise fill needs a generator")
     noise = noise_std * torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
     return x * (1 - m) + noise * m
+
+
+def block_mask_2d(
+    batch: int,
+    num_patches: int,
+    mask_prob: float,
+    mask_length: int,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """(B, P) int32 2-D block mask of a square patch grid with a static count:
+    block seeds drawn on the grid, dilated to L x L blocks down and to the
+    right, then exactified to int(P * mask_prob) tokens, clipped to [1, P -
+    1] (the JAX sampler with the image recipe's ``mask_prob_adjust`` 0 and
+    no ``inverse_mask``)."""
+    n = int(np.sqrt(num_patches))
+    if n * n != num_patches:
+        raise ValueError(f"num_patches={num_patches} is not a square grid")
+    target = int(num_patches * mask_prob)
+    n_seeds = max(1, int(mask_prob * num_patches / (mask_length**2)))
+    dev = generator.device
+    noise = torch.rand((batch, num_patches), generator=generator, device=dev)
+    seeds = torch.argsort(noise, dim=1)[:, :n_seeds]
+    grid = torch.zeros((batch, num_patches), dtype=torch.int32, device=dev).scatter_(1, seeds, 1)
+    grid = grid.reshape(batch, n, n)
+    out = grid.clone()
+    for di in range(mask_length):
+        for dj in range(mask_length):
+            out[:, di:, dj:] = torch.maximum(out[:, di:, dj:], grid[:, :n - di, :n - dj])
+    return exactify_mask(out.reshape(batch, num_patches), max(1, min(target, num_patches - 1)),
+                         generator)
+
+
+class MaskInfo(NamedTuple):
+    """A static-count mask and its bookkeeping: ``mask`` (B, T) int32, 1 =
+    masked; ``ids_shuffle`` (B, T), the stable argsort of the mask (kept
+    positions first, in order); ``ids_restore`` (B, T), its inverse;
+    ``ids_keep`` (B, K), the kept positions."""
+
+    mask: torch.Tensor
+    ids_shuffle: torch.Tensor
+    ids_restore: torch.Tensor
+    ids_keep: torch.Tensor
+
+
+def make_mask_info_static(mask: torch.Tensor, m_tokens: int) -> MaskInfo:
+    """The ``MaskInfo`` of a (B, T) mask with ``m_tokens`` masked per row."""
+    t = mask.shape[1]
+    mask = mask.to(torch.int32)
+    ids_shuffle = torch.argsort(mask, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1)
+    return MaskInfo(mask, ids_shuffle, ids_restore, ids_shuffle[:, :t - m_tokens])
+
+
+def take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """x (B, T, C) at the (B, K) time indices ``ids`` -> (B, K, C)."""
+    return torch.gather(x, 1, ids[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def gather_keep(x: torch.Tensor, mask_info: MaskInfo) -> torch.Tensor:
+    """The kept tokens: (B, T, C) -> (B, K, C)."""
+    return take_rows(x, mask_info.ids_keep)
+
+
+def scatter_with_mask_tokens(
+    x_keep: torch.Tensor,
+    mask_info: MaskInfo,
+    noise_std: float,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The decoder's input: (B, K, C) kept tokens back at their positions of
+    a (B, T, C) sequence whose masked positions hold ``noise_std * N(0, 1)``
+    mask tokens (zeros when ``noise_std`` is 0)."""
+    b, k, d = x_keep.shape
+    shape = (b, mask_info.ids_restore.shape[1] - k, d)
+    if noise_std:
+        if generator is None:
+            raise ValueError("mask tokens with noise need a generator")
+        tokens = noise_std * torch.randn(shape, generator=generator, device=x_keep.device,
+                                         dtype=x_keep.dtype)
+    else:
+        tokens = x_keep.new_zeros(shape)
+    return take_rows(torch.cat([x_keep, tokens], dim=1), mask_info.ids_restore)
+
+
+def masked_alibi(alibi_bias: torch.Tensor, mask_info: MaskInfo) -> torch.Tensor:
+    """The (B, H, K, K) rows and columns of a (B or 1, H, T, T) bias at each
+    row's kept positions."""
+    idx = mask_info.ids_keep
+    b, k = idx.shape
+    bias = alibi_bias.expand(b, -1, -1, -1)
+    h, t = bias.shape[1], bias.shape[2]
+    bias = torch.gather(bias, 2, idx[:, None, :, None].expand(b, h, k, t))
+    return torch.gather(bias, 3, idx[:, None, None, :].expand(b, h, k, k))

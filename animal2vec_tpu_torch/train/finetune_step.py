@@ -116,7 +116,7 @@ def make_finetune_train_step(
     ``batch`` has a leading axis of ``update_freq`` micro-batches; the
     gradients of the micro-batches' mean losses are averaged and applied
     once, and ``state.step`` advances by one."""
-    accum = max(1, cfg.update_freq)
+    accum = max(1, cfg.optimization.update_freq)
 
     def train_step(state: FinetuneState, batch: Batch, rngs: Rngs) -> Metrics:
         state.zero_grad()

@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from animal2vec_tpu_torch.config import FinetuneTrainConfig
+from animal2vec_tpu_torch.config import OptimizationConfig
 
 Schedule = Callable[[int], float]
 
@@ -36,7 +36,7 @@ PRENET_PREFIX = "encoder.audio_encoder.context_encoder.blocks.layers."
 TRUNK_PREFIX = "encoder.blocks.layers."
 
 
-def build_lr_schedule(cfg: FinetuneTrainConfig) -> Schedule:
+def build_lr_schedule(cfg: OptimizationConfig) -> Schedule:
     """step -> lr: linear warmup from ``warmup_init_lr`` to ``lr`` over
     ``warmup_updates`` steps, then optax's ``cosine_decay_schedule`` from
     ``lr`` to ``min_lr`` over ``max_update - warmup_updates`` steps (or a
@@ -143,13 +143,15 @@ class OptaxAdam(torch.optim.Optimizer):
             p.add_((update * (-lr * group["scale"])).to(p.dtype))
 
 
-def build_optimizer(cfg: FinetuneTrainConfig, model: torch.nn.Module, prenet_depth: int,
-                    trunk_depth: int) -> Tuple[OptaxAdam, Schedule]:
-    """The finetune optimizer over the model's trainable parameters and its
-    schedule (``build_optimizer`` with ``init_finetune``'s layer scales)."""
+def build_optimizer(cfg: OptimizationConfig, model: torch.nn.Module, prenet_depth: int = 0,
+                    trunk_depth: int = 0, layer_decay: float = 1.0) -> Tuple[OptaxAdam, Schedule]:
+    """The optimizer over the model's trainable parameters and its schedule
+    (``build_optimizer``): global-norm clipping at ``clip_norm``, Adam, the
+    decay mask, and with ``layer_decay`` < 1 ``init_finetune``'s layer
+    scales over the prenet and trunk layers (finetuning; pretraining has
+    none)."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    scales = layer_decay_scales([n for n, _ in named], cfg.layer_decay, prenet_depth,
-                                trunk_depth)
+    scales = layer_decay_scales([n for n, _ in named], layer_decay, prenet_depth, trunk_depth)
     opt = OptaxAdam(named, cfg.adam_betas, cfg.adam_eps, cfg.weight_decay,
                     decay_mask(named), scales, cfg.clip_norm)
     return opt, build_lr_schedule(cfg)

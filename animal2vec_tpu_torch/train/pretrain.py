@@ -1,0 +1,186 @@
+"""data2vec-2 pretraining steps: the port of ``animal2vec_tpu/train/pretrain.py``.
+
+``pretrain_loss``: BC mixup (audio, training), the local features, the
+clone batch (each row repeated ``clone_batch`` times, each clone with its
+own mask), the static-count mask (2-D blocks for images, spans for audio)
+and its ``MaskInfo``, the keep-set student, the decoder, the EMA teacher on
+the unmasked, un-cloned local features, and the masked regression of the
+decoder's predictions on the teacher's targets at the masked positions.
+``make_pretrain_train_step`` accumulates gradients over ``update_freq``
+micro-batches (the batch carries a leading micro-batch axis, as in JAX),
+applies one update, then one EMA step of the teacher.
+
+The teacher (``teacher_targets``) is the student module in eval mode,
+without gradient, over the student's parameters overlaid with the EMA ones
+(``torch.func.functional_call``): it sums the normalized taps of its last k
+trunk layers, and the targets are that sum divided by k, finished. It reads
+the student's own local features, detached.
+
+Random draws come from an explicit ``ops.dropout.Rngs``: the mixup draws
+and the masks on its host generator, the kernels' int32 seeds and layerdrop
+too, elementwise dropout and the mask tokens' noise on its device generator.
+``jax.random`` and torch draw differently from one seed, so the mask draw is
+a parameter (``draw_mask``) that tests set to one given mask on both sides.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from animal2vec_tpu_torch.config import PretrainConfig
+from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
+from animal2vec_tpu_torch.ops.dropout import Rngs
+from animal2vec_tpu_torch.ops.losses import d2v_regression_loss
+from animal2vec_tpu_torch.ops.masking import (
+    block_mask_2d, expected_span_mask_tokens, make_mask_info_static, span_mask, take_rows,
+)
+from animal2vec_tpu_torch.ops.mixup import bc_mixup
+from animal2vec_tpu_torch.ops.stats import compute_var
+from animal2vec_tpu_torch.train.state import PretrainState, ema_decay_at, merge_params
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+# (rows, time steps, rngs) -> (rows, T) 0/1 mask with mask_tokens(cfg, T) ones per row
+MaskDraw = Callable[[int, int, Rngs], torch.Tensor]
+
+
+def _block_masked(cfg: PretrainConfig) -> bool:
+    return cfg.modality == "IMAGE" and cfg.mask_length > 1
+
+
+def mask_tokens(cfg: PretrainConfig, t: int) -> int:
+    """The static number of masked tokens per row of a T-step sequence."""
+    if _block_masked(cfg):
+        return max(1, min(int(t * cfg.mask_prob), t - 1))
+    return expected_span_mask_tokens(t, cfg.mask_prob, cfg.mask_length)
+
+
+def draw_pretrain_mask(cfg: PretrainConfig, rows: int, t: int, rngs: Rngs) -> torch.Tensor:
+    """The recipe's mask on the host generator: 2-D blocks (images with
+    ``mask_length`` > 1) or spans."""
+    if _block_masked(cfg):
+        return block_mask_2d(rows, t, cfg.mask_prob, cfg.mask_length, rngs.host)
+    return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.host)
+
+
+@torch.no_grad()
+def teacher_targets(model: Data2VecMulti, ema: Dict[str, torch.Tensor],
+                    local: torch.Tensor) -> torch.Tensor:
+    """The EMA teacher's (B, T, C) fp32 targets of the unmasked local
+    features."""
+    was_training = model.training
+    model.eval()
+    try:
+        _, t_sum, _, _ = torch.func.functional_call(
+            model, merge_params(model, ema), (local.detach(),),
+            {"method": "encode", "reduce_targets": True})
+    finally:
+        model.train(was_training)
+    return t_sum / model.pretrain.average_top_k_layers
+
+
+def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Batch,
+                  rngs: Rngs, cfg: PretrainConfig, train: bool = True,
+                  draw_mask: Optional[MaskDraw] = None) -> Tuple[torch.Tensor, Metrics]:
+    """The loss (summed regression over the masked tokens / their count) and
+    the metrics of one (micro-)batch: ``source`` (B, T_wav) or (B, H, W, C),
+    optional ``n_valid`` (eval batches padded by repeated rows). Puts the
+    model in train or eval mode."""
+    mode = cfg.modality
+    source = batch["source"]
+    if train and mode == "AUDIO" and cfg.source_mixup >= 0 and cfg.mixup_prob > 0:
+        source, _ = bc_mixup(source, None, cfg.source_mixup, cfg.mixup_prob, cfg.same_mixup,
+                             cfg.gain_mode, model.cfg.sample_rate, cfg.mixing_window_length,
+                             False, rngs.host)
+    model.train(train)
+    local = model.local_features(source)
+    b, t, c = local.shape
+    clone = cfg.clone_batch
+    local_c = local.repeat_interleave(clone, dim=0) if clone > 1 else local
+    draw = draw_mask or (lambda rows, steps, r: draw_pretrain_mask(cfg, rows, steps, r))
+    m_tokens = mask_tokens(cfg, t)
+    info = make_mask_info_static(draw(b * clone, t, rngs).to(local.device), m_tokens)
+
+    x, _, _, _ = model.encode(local_c, rngs=rngs, mask_info=info, remove_masked=True)
+    xs = model.decode_d2v(x, info, rngs)
+    y = teacher_targets(model, ema, local)  # (B, T, C) fp32
+
+    # the clone rows [i*clone, (i+1)*clone) read sample i's targets: fold the
+    # clone axis into the gather index instead of repeating y
+    ids_masked = info.ids_shuffle[:, info.ids_keep.shape[1]:]  # (B*clone, M)
+    m_cnt = ids_masked.shape[1]
+    y_m = take_rows(y, ids_masked.reshape(b, clone * m_cnt)).reshape(b * clone, m_cnt, c)
+
+    n_valid = batch.get("n_valid")
+    dev = local.device
+    if n_valid is not None:
+        row_w = (torch.arange(b, device=dev) < n_valid).float()
+        n_rows = torch.as_tensor(n_valid, dtype=torch.float32, device=dev)
+    else:
+        row_w = torch.ones((b,), device=dev)
+        n_rows = torch.tensor(float(b), device=dev)
+    clone_w = row_w.repeat_interleave(clone) if clone > 1 else row_w
+    sample_size = n_rows * clone * m_cnt
+
+    losses: Dict[str, torch.Tensor] = {}
+    metrics: Metrics = {}
+    for i, xd in enumerate(xs):
+        x_m = take_rows(xd, ids_masked)
+        name = f"{mode}_regression_{i}" if len(xs) > 1 else f"{mode}_regression"
+        reg = d2v_regression_loss(x_m, y_m).reshape(b * clone, -1) * clone_w[:, None]
+        losses[name] = reg.sum()
+        metrics[f"pred_var_{i}" if len(xs) > 1 else "pred_var"] = compute_var(x_m.detach())
+
+    loss = sum(losses.values()) / sample_size
+    metrics["target_var"] = compute_var(y_m)
+    metrics["masked_pct"] = torch.tensor(m_tokens / t, dtype=torch.float32, device=dev)
+    metrics["sample_size"] = sample_size
+    for k, v in losses.items():
+        metrics[f"loss_{k}"] = v.detach() / sample_size
+    return loss, metrics
+
+
+def make_pretrain_train_step(
+    cfg: PretrainConfig, draw_mask: Optional[MaskDraw] = None,
+) -> Callable[[PretrainState, Batch, Rngs], Metrics]:
+    """``train_step(state, batch, rngs) -> metrics``: every tensor of
+    ``batch`` has a leading axis of ``update_freq`` micro-batches; the
+    gradients of the micro-batches' losses are averaged and applied once,
+    then the teacher takes its EMA step and ``state.step`` advances by
+    one."""
+    accum = max(1, cfg.optimization.update_freq)
+
+    def train_step(state: PretrainState, batch: Batch, rngs: Rngs) -> Metrics:
+        state.zero_grad()
+        total: Metrics = {}
+        for i in range(accum):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss, metrics = pretrain_loss(state.model, state.ema, mb, rngs, cfg, True, draw_mask)
+            (loss / accum).backward()
+            metrics["loss"] = loss.detach()
+            for k, v in metrics.items():
+                total[k] = total[k] + v if k in total else v
+        state.apply_gradients()
+        out = {k: v / accum for k, v in total.items()}
+        out["ema_decay"] = torch.tensor(ema_decay_at(cfg, state.step) * 1000.0)
+        return out
+
+    return train_step
+
+
+def make_pretrain_eval_step(
+    cfg: PretrainConfig, draw_mask: Optional[MaskDraw] = None,
+) -> Callable[[PretrainState, Batch, Rngs], Metrics]:
+    """``eval_step(state, batch, rngs) -> metrics`` of one batch in eval mode
+    (masks and clones as in training; no mixup, no dropout)."""
+
+    def eval_step(state: PretrainState, batch: Batch, rngs: Rngs) -> Metrics:
+        with torch.no_grad():
+            loss, metrics = pretrain_loss(state.model, state.ema, batch, rngs, cfg, False,
+                                          draw_mask)
+        metrics["loss"] = loss
+        return metrics
+
+    return eval_step

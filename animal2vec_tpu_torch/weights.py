@@ -1,21 +1,24 @@
 """JAX parameter trees -> the port's state dict, and the serving cast.
 
-``params_from_jax`` takes the JAX ``FinetuneModel`` params, or those of an
-image ``Data2VecMulti``, as nested dicts of numpy arrays (or
-``load_params_npz`` of an ``.npz`` whose keys are the "/"-joined JAX param
-paths) and returns a state dict for
-``animal2vec_tpu_torch.models.finetune.FinetuneModel`` or the port's image
-``Data2VecMulti`` (``build_image_model``):
+``params_from_jax`` takes the JAX ``FinetuneModel`` params, or those of a
+``Data2VecMulti`` (image serving, or pretraining with its decoders; or its
+EMA teacher's subset), as nested dicts of numpy
+arrays (or ``load_params_npz`` of an ``.npz`` whose keys are the "/"-joined
+JAX param paths) and returns a state dict for
+``animal2vec_tpu_torch.models.finetune.FinetuneModel`` or the port's
+``Data2VecMulti`` (``build_image_model``, ``build_pretrain_model``; an EMA
+subset gives the teacher dict of ``train.state.PretrainState``):
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * conv ``kernel`` (K, C_in/g, C_out) -> ``weight`` (C_out, C_in/g, K), the
   frontend's ``conv_{i}_kernel`` -> ``conv_{i}.weight``;
-* the patch embedding's HWIO ``kernel`` (p, p, C_in, C_out) -> OIHW
-  ``weight`` (C_out, C_in, p, p);
+* 2-D conv HWIO ``kernel`` (kh, kw, C_in/g, C_out), the patch embedding's
+  and the image decoder's, -> OIHW ``weight`` (C_out, C_in/g, kh, kw);
 * LayerNorm ``scale`` -> ``weight``;
 * the scan-stacked ``blocks/block`` params (leading depth axis) -> one module
   per layer, ``blocks.layers.{i}``;
-* ``pos_blocks_{i}`` -> ``pos_blocks.{i}``.
+* ``pos_blocks_{i}`` -> ``pos_blocks.{i}``, a decoder's ``blocks_{i}`` ->
+  ``blocks.{i}``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_LIST_MODULES = re.compile(r"^(pos_blocks)_(\d+)$")
+_LIST_MODULES = re.compile(r"^(pos_blocks|blocks)_(\d+)$")
 _EXTRACTOR_KERNEL = re.compile(r"^(conv_\d+)_kernel$")
 
 

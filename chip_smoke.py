@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's a2v-large serving paths (bf16 and the int8
-modes), its finetune training path and its ViT-B/16 image serving path
-(post-LN and pre-LN, bf16 and the int8 modes) once on one GPU.
+modes), its finetune training path, its ViT-B/16 image serving path
+(post-LN and pre-LN, bf16 and the int8 modes) and its data2vec-2
+pretraining paths (ViT-B/16 images and a2v-large audio) once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -21,6 +22,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
 3c. the dense-bias attention kernel against its plain version at b64, H 12,
    T 196: the batch-uniform 2-D ALiBi bias, no bias, a key mask with one
    fully masked row; and at b8, T 1024;
+3d. the dense-bias training kernels: the forward with lse, dq + dbias and
+   dk/dv against their plain versions, and the autograd Function against
+   autograd of the plain version, at the ViT-B/16 pretraining student's b128
+   (64 x clone 2) x 59 kept patches with a per-row bias, at b64 T 196 with
+   the uniform 2-D ALiBi bias and with none, and at b8 T 1024 with a fully
+   masked key row;
+3e. the ALiBi training kernels (#2 with lse, #3, #4) at the a2v-large
+   pretraining student's shape: b60 (5 x clone 12), 125 kept tokens at
+   per-row keep-set positions, dropout 0.1;
 4. the fused post-LN block kernel against its plain version;
 4b. the fused block with its three dropout sites at N = 4 x 2000: forward
    against the plain version, backward against autograd of the plain one;
@@ -52,7 +62,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
    extract_features(imgs, "IMAGE"), with post-LN and pre-LN blocks, each in
    bf16, int8 and int8_attn: kernel path against plain path and the int8
    modes against bf16 (relative norm of the features), launch counts per
-   forward, no plain version called on a CUDA tensor; images/s.
+   forward, no plain version called on a CUDA tensor; images/s;
+10. ViT-B/16 data2vec-2 pretraining (the image cell, ``PretrainConfig.
+   vit_b16``: 4 prenet + 8 trunk blocks of 768, 196 patches, ``Decoder2d``
+   384/5/16/5, post-LN): three steps on b64 images x clone 2 (finite loss
+   and gradients, launch counts per step, no plain version on a CUDA
+   tensor, the teacher subset of ``ema_param_label`` moved by exactly
+   (1 - d)(s - t)), ms per step and images/s, peak memory; then at b2 with
+   every rate at 0 the kernel path's gradients against the plain path's
+   (the learned ALiBi scale included); then one pre-LN step (#8 in
+   training);
+11. a2v-large data2vec-2 pretraining with the a2v_large_pretrain.yaml
+   recipe: three steps of update_freq 5 micro-batches of b5 10-s windows x
+   clone 12 (the same checks; no dense-bias kernel), ms per step, clips/s
+   and peak memory; then b1 x clone 2 gradients, kernel path against plain
+   path.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -95,6 +119,11 @@ TRAIN_BATCH, DROP_SEED, ATTN_DROP = 4, -123457, 0.2
 # tolerance 0.50; per-(b, h) relative norm at most 2.2e-4 (tolerance ~5x).
 LSE_TOL = (1e-3, 1e-5)
 BWD_TOL = (5e-3, 1e-2)
+# the dense bias's gradient dS = P (dP - delta) is fp32 on both sides; what
+# is left is the fp32 order of dP's sums. A typical |dS| is about 8 / T
+# (8e-3 at T 1024), so the atol stays far below it: a dS that is mostly 0
+# fails. Measured on an H100: max abs 4.3e-6.
+DBIAS_TOL = (1e-5, 1e-2)
 REL_HEAD = 1e-3
 SLOPE_PART_TOL = (1e-2, 1e-3)  # fp32 sums of up to 64 x T terms
 # relative norm of a gradient against autograd of the plain version in
@@ -126,6 +155,11 @@ MODES = ("int8", "int8_attn")
 # ALiBi one (ATTN_TOL), the plain fused MLP as the fused block (BLOCK_TOL)
 # and its int8 twin as the int8 block (INT8_BLOCK_TOL).
 IMAGE_BATCH, IMAGE_T, IMAGE_HEADS = 64, 196, 12
+# a ViT-B/16 pretraining student keeps 196 - int(196 * 0.7) = 59 patches
+STUDENT_T = IMAGE_T - int(IMAGE_T * 0.7)
+# the teacher's EMA step against torch.lerp(t, s, 1 - d) on the same fp32
+# tensors: a few ulps of parameters below 1 in magnitude
+EMA_TOL = 1e-6
 # the full model's features x, kernel path against plain path, relative
 # norm: bf16 roundings in another order through 12 blocks (measured on an
 # H100: 8.1e-3 post-LN, 9.6e-3 pre-LN); int8 roundings that land apart
@@ -195,18 +229,25 @@ def check_rel(name, got, want, tol):
     return rel
 
 
-def check_heads(name, labels, gots, wants, tol):
+def check_heads(name, labels, gots, wants, tol, ulps=0):
     """Relative norm error per (b, h) of each (B, H, T, D) gradient, so that
     a fault confined to a few heads cannot hide in a global norm or under
-    an atol sized for the largest values (norms below 1e-3 count as 1e-3)."""
+    an atol sized for the largest values (norms below 1e-3 count as 1e-3).
+    ``ulps`` admits that many bf16 steps (2^-8) of a head's largest value on
+    top of ``tol``: in a head of a few thousand values one rounding that
+    lands a step apart moves the relative norm by up to 2^-8 times the
+    largest value over the norm (measured on an H100: 1.5e-3 at T 59)."""
     for label, got, want in zip(labels, gots, wants):
-        want = want.float()
-        rel = ((got.float() - want).flatten(2).norm(dim=-1)
-               / want.flatten(2).norm(dim=-1).clamp_min(1e-3))
+        want = want.float().flatten(2)
+        norm = want.norm(dim=-1).clamp_min(1e-3)
+        rel = (got.float().flatten(2) - want).norm(dim=-1) / norm
+        allowed = tol + ulps * 2.0**-8 * want.abs().amax(dim=-1) / norm
         worst = rel.max().item()
         print(f"{name} {label}: relative norm error per (b, h) max {worst:.3e}, "
-              f"median {rel.median().item():.3e} (tolerance {tol})")
-        if not worst <= tol:
+              f"median {rel.median().item():.3e} (tolerance {tol}"
+              + (f" + {ulps} bf16 steps of the head's largest value; worst ratio "
+                 f"{(rel / allowed).max().item():.3f})" if ulps else ")"))
+        if not (rel <= allowed).all():
             raise AssertionError(f"{name} {label}: a head disagrees with its plain version")
 
 
@@ -348,20 +389,45 @@ def train_attention_inputs(dev):
 
 
 def phase_attention_train(dev):
+    """3b. The training kernels at b4, T 2000, dropout 0.2, row 1 padded."""
+    qkv, slopes, pos, mask, dout = train_attention_inputs(dev)
+    b, h, t = qkv.shape[1:4]
+    return check_attention_train(f"attention training (b{b}, T {t}, dropout {ATTN_DROP}, "
+                                 f"row 1 padded)", qkv, slopes, pos, mask, dout,
+                                 (ATTN_DROP, DROP_SEED))
+
+
+def phase_student_attention(dev):
+    """3e. The ALiBi training kernels at the a2v-large pretraining student's
+    shape: b60 (5 clips x clone 12), 125 kept tokens per row at their own
+    positions (sorted keep-sets of 0..1999), 16 heads, dropout 0.1."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, h, t = 60, 16, 125
+    qkv, slopes = attention_inputs(gen, b, h, t, dev)
+    rng = np.random.default_rng(SEED + 13)
+    pos = torch.from_numpy(np.stack([np.sort(rng.choice(2000, t, replace=False))
+                                     for _ in range(b)]).astype(np.int32)).to(dev)
+    dout = torch.randn((b, h, t, 64), generator=gen, device=dev).to(torch.bfloat16)
+    return check_attention_train(f"attention pretraining student (b{b}, T {t}, keep-set "
+                                 f"positions, dropout 0.1)", qkv, slopes, pos, None, dout,
+                                 (0.1, DROP_SEED + 1))
+
+
+def check_attention_train(name, qkv, slopes, pos, mask, dout, drop):
+    """The forward with lse, dq with the slope partials and dk/dv against
+    their plain versions, and the training entry against autograd of the
+    plain version; returns the forward, dq and dk/dv errors."""
     from animal2vec_tpu_torch.ops.attention import (
         alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
         attention_dkv, attention_dq,
     )
 
-    qkv, slopes, pos, mask, dout = train_attention_inputs(dev)
     b, h, t = qkv.shape[1:4]
-    drop = (ATTN_DROP, DROP_SEED)
     out, lse = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
                                             return_lse=True)
     out_p, lse_p = alibi_attention_plain(qkv.float(), slopes, pos, mask, False, *drop,
                                          return_lse=True)
     torch.cuda.synchronize()
-    name = f"attention training (b{b}, T {t}, dropout {ATTN_DROP}, row 1 padded)"
     err_fwd = check_close(f"{name} out", out, out_p, ATTN_TOL)
     check_close(f"{name} lse", lse, lse_p, LSE_TOL)
     del out_p, lse_p
@@ -669,8 +735,9 @@ class PlainSpy:
 
         self.cuda_calls = 0
         self.saved = []
-        plain = {(m, f) for m, f in PLAIN_OF.values()} | {("attention", "alibi_attention_plain"),
-                                                          ("attention", "attention_bwd_plain")}
+        plain = {(m, f) for m, f in PLAIN_OF.values()} | {
+            ("attention", "alibi_attention_plain"), ("attention", "attention_bwd_plain"),
+            ("bias_attention", "bias_attention_bwd_plain")}
         for m, f in sorted(plain):
             mod = importlib.import_module(f"animal2vec_tpu_torch.ops.{m}")
             self.saved.append((mod, _swap(mod, {f: self._spy(getattr(mod, f))})))
@@ -693,7 +760,9 @@ def _counted():
     from animal2vec_tpu_torch.ops.attention import (
         alibi_flash_attention_int8, alibi_flash_attention_packed, attention_dkv, attention_dq,
     )
-    from animal2vec_tpu_torch.ops.bias_attention import bias_flash_attention
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_dkv, bias_attention_dq, bias_flash_attention,
+    )
     from animal2vec_tpu_torch.ops.fused_mlp import (
         fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
     )
@@ -702,6 +771,7 @@ def _counted():
     return {"attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
             "block": fused_block_mlp, "int8_dense": int8_dense, "int8_block": fused_block_int8,
             "int8_attention": alibi_flash_attention_int8, "bias_attention": bias_flash_attention,
+            "bias_dq": bias_attention_dq, "bias_dkv": bias_attention_dkv,
             "mlp": fused_mlp, "int8_mlp": fused_mlp_int8}
 
 
@@ -959,7 +1029,9 @@ def phase_train(cfg, card, dev):
     from animal2vec_tpu_torch.train.finetune_step import make_finetune_train_step
     from animal2vec_tpu_torch.train.state import FinetuneState
 
-    tcfg = dataclasses.replace(FinetuneTrainConfig(), update_freq=1)
+    base = FinetuneTrainConfig()
+    tcfg = dataclasses.replace(base, optimization=dataclasses.replace(base.optimization,
+                                                                       update_freq=1))
     model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
     state = FinetuneState.create(model, tcfg)
     state.step = tcfg.freeze_finetune_updates
@@ -1045,7 +1117,7 @@ def phase_train_grads(cfg, dev):
     tcfg = dataclasses.replace(
         FinetuneTrainConfig(), freeze_finetune_updates=0, apply_mask=False,
         mask_channel_prob=0.0, dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
-        layerdrop=0.0, source_mixup=-1.0, update_freq=1)
+        layerdrop=0.0, source_mixup=-1.0)
     model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
     mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=1, seed=SEED + 7).items()}
 
@@ -1173,6 +1245,7 @@ def phase_kernel_times(dev):
         torch.cuda.empty_cache()
         int8_kernel_times(gen, dev, row)
         image_kernel_times(gen, dev, row)
+    pretrain_kernel_times(gen, dev, row)
     return rows
 
 
@@ -1254,6 +1327,314 @@ def image_kernel_times(gen, dev, row):
     print("  (library: SDPA with the 2-D ALiBi bias as a (1, H, T, T) bf16 float mask)")
 
 
+def bias_attention_bwd_bounds(b, h, t, d=64, bias_rows=1, dbias=True):
+    """Bounds of the dense-bias forward with lse, dq + dbias and dk/dv: 2, 3
+    and 4 products of 2*T^2*D per (b, h); bf16 q, k, v, dO and fp32 lse,
+    delta read once, the fp32 bias planes (``bias_rows`` of them) read once,
+    the outputs written once (dbias: B planes of fp32)."""
+    bhtd, bht, plane = b * h * t * d, b * h * t, 4 * h * t * t
+    flops = 2 * bhtd * t
+    return {
+        "forward": bound(2 * flops, 2 * 4 * bhtd + 4 * bht + bias_rows * plane),
+        "dq": bound(3 * flops, 2 * 4 * bhtd + 2 * 4 * bht + bias_rows * plane + 2 * bhtd
+                    + (b * plane if dbias else 0)),
+        "dkv": bound(4 * flops, 2 * 4 * bhtd + 2 * 4 * bht + bias_rows * plane + 2 * 2 * bhtd),
+    }
+
+
+def keep_set_bias(rng, b, h, keep, dev, scale=0.7):
+    """The per-row (B, H, K, K) fp32 bias a ViT-B/16 pretraining student
+    takes: the 196-patch grid's 2-D ALiBi bias at each row's sorted random
+    keep-set of ``keep`` patches, times a learned scale."""
+    from animal2vec_tpu_torch.ops.masking import MaskInfo, masked_alibi
+
+    ids = torch.from_numpy(np.stack([np.sort(rng.choice(IMAGE_T, keep, replace=False))
+                                     for _ in range(b)])).to(dev)
+    return masked_alibi(image_bias(h, IMAGE_T, dev), MaskInfo(None, None, None, ids)) * scale
+
+
+def phase_bias_attention_train(dev):
+    """3d. The dense-bias training kernels: the forward with lse, dq + dbias
+    and dk/dv against their plain versions on the same bf16 inputs, lse and
+    delta; then the autograd Function against autograd of the plain version
+    in fp32. Shapes: the ViT-B/16 pretraining student (b128 = 64 x clone 2,
+    H 12, 59 kept patches, per-row keep-set bias), the teacher's b64 T 196
+    with the batch-uniform 2-D ALiBi bias and with none, and b8 T 1024 with
+    a key mask whose row 3 masks every key."""
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
+        bias_attention_plain, bias_flash_attention,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    h = IMAGE_HEADS
+    mask = torch.zeros((8, 1024), dtype=torch.bool, device=dev)
+    mask[1, -100:] = True
+    mask[3] = True
+    cases = (
+        ("per-row keep-set bias", 2 * IMAGE_BATCH, STUDENT_T,
+         keep_set_bias(rng, 2 * IMAGE_BATCH, h, STUDENT_T, dev), None),
+        ("2-D ALiBi, batch-uniform", IMAGE_BATCH, IMAGE_T, image_bias(h, IMAGE_T, dev), None),
+        ("no bias", IMAGE_BATCH, IMAGE_T, None, None),
+        ("2-D ALiBi x 0.1, key mask, row 3 fully masked", 8, 1024,
+         image_bias(h, 1024, dev) * 0.1, mask),
+    )
+    errs = {"forward": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, b, t, bias, pad in cases:
+        name = f"bias attention training b{b} T {t} {label}"
+        q, k, v = bias_attention_inputs(gen, b, h, t, dev)
+        out, lse = bias_attention_forward(q, k, v, bias, pad, with_lse=True)
+        out_p, lse_p = bias_attention_plain(q.float(), k.float(), v.float(), bias, pad,
+                                            return_lse=True)
+        torch.cuda.synchronize()
+        errs["forward"] = max(errs["forward"], check_close(f"{name} out", out, out_p, ATTN_TOL))
+        check_close(f"{name} lse", lse, lse_p, LSE_TOL)
+        dout = torch.randn((b, t, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+        args = (q, k, v, dout, lse, delta, bias, pad)
+        dq, dbias = bias_attention_dq(*args)
+        dk, dv = bias_attention_dkv(*args)
+        want = bias_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs["dq"] = max(errs["dq"], check_close(f"{name} dq", dq, want[0], BWD_TOL))
+        errs["dkv"] = max(errs["dkv"], check_close(f"{name} dk", dk, want[1], BWD_TOL),
+                          check_close(f"{name} dv", dv, want[2], BWD_TOL))
+        check_heads(name, ("dq", "dk", "dv"), [x.transpose(1, 2) for x in (dq, dk, dv)],
+                    [x.transpose(1, 2) for x in want[:3]], REL_HEAD, ulps=2)
+        if bias is not None:
+            errs["dq"] = max(errs["dq"],
+                             check_close(f"{name} dbias", dbias, want[3], DBIAS_TOL))
+        del want, out_p, lse_p
+        # the autograd Function (the model's entry) on the views of one
+        # (B, T, 3, H, D) projection against autograd of the plain version
+        qkv = torch.stack((q, k, v), dim=2)
+        leaves = [qkv.clone().requires_grad_()]
+        leaves_p = [qkv.float().requires_grad_()]
+        if bias is not None:
+            leaves.append(bias.clone().requires_grad_())
+            leaves_p.append(bias.clone().requires_grad_())
+        got = torch.autograd.grad(
+            bias_flash_attention(*leaves[0].unbind(2), *leaves[1:], pad), leaves, dout)
+        ref = torch.autograd.grad(
+            bias_attention_plain(*leaves_p[0].unbind(2), *leaves_p[1:], pad), leaves_p,
+            dout.float())
+        check_rel(f"{name} d qkv vs autograd of plain", got[0], ref[0], REL_QKV)
+        if bias is not None:
+            check_rel(f"{name} d bias vs autograd of plain", got[1], ref[1], REL_QKV)
+        del qkv, leaves, leaves_p, got, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def pretrain_launches(cfg, pre_ln=False):
+    """The launches of one pretraining step (``update_freq`` micro-batches):
+    the student's blocks with their backward, the teacher's forward only."""
+    n = cfg.model.n_blocks
+    want = dict.fromkeys(_counted(), 0)
+    if cfg.modality == "IMAGE":
+        want.update({"bias_attention": 2 * n, "bias_dq": n, "bias_dkv": n,
+                     ("mlp" if pre_ln else "block"): 2 * n})
+    else:
+        want.update(attention=2 * n, dq=n, dkv=n, block=2 * n)
+    return {k: v * cfg.optimization.update_freq for k, v in want.items()}
+
+
+def pretrain_batch(cfg, dev, batch, seed, accum=None):
+    """``accum`` micro-batches (the config's update_freq by default) of
+    ``batch`` 10-s windows or images (224 x 224 for ViT-B/16)."""
+    rng = np.random.default_rng(seed)
+    side = None if cfg.modality == "AUDIO" else cfg.model.input_size
+    one = (WAV_LEN,) if side is None else (side, side, cfg.model.in_chans)
+    shape = (accum or cfg.optimization.update_freq, batch) + one
+    return {"source": torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)}
+
+
+def phase_pretrain(cfg, card, dev, batch, label, unit, pre_ln=False, steps=3):
+    """Pretraining steps of the full-width model ``cfg`` at ``batch`` x
+    ``clone_batch``, from the last warmup step: ``steps`` checked steps (finite loss and gradients, the
+    launch counts, no plain version on a CUDA tensor, the teacher subset of
+    ``ema_param_label`` and its EMA step of exactly (1 - d)(s - t)), then 3
+    timed ones. Returns the launches of the checked steps."""
+    from animal2vec_tpu_torch.models.data2vec2 import ema_param_label
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step
+    from animal2vec_tpu_torch.train.state import PretrainState, ema_decay_at
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    state = PretrainState.create(model, cfg)
+    # start at the end of the warmup: its first learning rate is 0, which
+    # would leave student and teacher where they are
+    state.step = cfg.optimization.warmup_updates
+    params = dict(model.named_parameters())
+    subset = {n for n in params if ema_param_label(n, cfg.ema_encoder_only)}
+    frontend = ("local_encoder", "project_", "patch_embed", "decoder")
+    if set(state.ema) != subset or any(f in n for n in subset for f in frontend):
+        raise AssertionError(f"{label}: the teacher subset is not ema_param_label's")
+    print(f"{label}: teacher subset {len(subset)} of {len(params)} tensors "
+          f"(ema_encoder_only {cfg.ema_encoder_only}), no frontend or decoder tensor")
+    step_fn = make_pretrain_train_step(cfg)
+    data = pretrain_batch(cfg, dev, batch, SEED + 14)
+    rngs = Rngs.from_seed(SEED, dev)
+    want = pretrain_launches(cfg, pre_ln)
+    totals = dict.fromkeys(_counted(), 0)
+    for i in range(steps):
+        before = {n: t.clone() for n, t in state.ema.items()}
+        reset_counts()
+        with PlainSpy() as spy:
+            metrics = step_fn(state, data, rngs)
+        torch.cuda.synchronize()
+        got = counts()
+        loss = float(metrics["loss"])
+        d = ema_decay_at(cfg, state.step)
+        ema_err = max((state.ema[n] - torch.lerp(before[n], params[n].detach().float(), 1.0 - d))
+                      .abs().max().item() for n in subset)
+        moved = sum(not torch.equal(before[n], state.ema[n]) for n in subset)
+        print(f"{label} step {i + 1}: loss {loss:.5f}, target_var "
+              f"{float(metrics['target_var']):.4f}; launches {launch_line(got)} (expected "
+              f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}; "
+              f"EMA d {d:.6f}: {moved} of {len(subset)} teacher tensors moved, max "
+              f"|t' - lerp(t, s, 1 - d)| {ema_err:.2e}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label}: non-finite loss")
+        for n, p in params.items():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{label}: missing or non-finite gradient {n}")
+        if got != want or spy.cuda_calls:
+            raise AssertionError(f"{label}: launch counts {got} != {want}, or a plain call")
+        if not ema_err <= EMA_TOL or moved == 0:
+            raise AssertionError(f"{label}: the teacher did not take the EMA step")
+        totals = {k: totals[k] + v for k, v in got.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step_fn(state, data, rngs)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    n = batch * cfg.optimization.update_freq
+    print(f"{label} b{batch} x clone {cfg.clone_batch} x update_freq {n // batch}: "
+          f"{dt * 1e3:.1f} ms per step, {n / dt:.2f} {unit}/s, peak memory {peak_gb:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) on {card}")
+    del state, model, params, data
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_pretrain_grads(cfg, dev, batch, label):
+    """At ``batch`` x clone 2 with every rate at 0 (no mixup, dropout, noise
+    fills or decoder input dropout), the biases moved off 0, and one mask
+    drawn once, the loss's gradients through the kernels against those
+    through the plain versions, one relative norm per parameter tensor (the
+    learned ALiBi scale included)."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import draw_pretrain_mask, pretrain_loss
+    from animal2vec_tpu_torch.train.state import ema_subset
+
+    cfg = dataclasses.replace(
+        cfg, clone_batch=2, encoder_dropout=0.0, attention_dropout=0.0,
+        post_mlp_drop=0.0, prenet_dropout=0.0, mask_noise_std=0.0,
+        source_mixup=-1.0, decoder=dataclasses.replace(cfg.decoder, input_dropout=0.0))
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    # At init the decoder's biases are 0 and, with the noise fill off, so
+    # are its mask tokens: at a masked frame whose receptive field holds no
+    # kept token the decoder's LayerNorm normalizes a zero vector, and its
+    # backward scales by rsqrt(1e-5) = 316, so the bias gradients amplify
+    # any rounding the two paths take apart. Seeded biases away from 0, as
+    # the CPU tests jitter theirs, make the comparison well-conditioned.
+    gen = torch.Generator().manual_seed(SEED + 18)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.add_((0.05 * torch.randn(p.shape, generator=gen)).to(p.device))
+    ema = ema_subset(model, cfg.ema_encoder_only)
+    mb = {k: v[0] for k, v in pretrain_batch(cfg, dev, batch, SEED + 15).items()}
+    masks = {}
+
+    def draw(rows, t, rngs):
+        if (rows, t) not in masks:
+            masks[rows, t] = draw_pretrain_mask(cfg, rows, t, Rngs.from_seed(SEED + 16, "cpu"))
+        return masks[rows, t]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = pretrain_loss(model, ema, mb, Rngs.from_seed(SEED, dev), cfg, True, draw)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                                      for n, p in model.named_parameters()}
+
+    loss_k, g_k = grads()
+    with PlainOps():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    rels = {n: rel_norm(g_k[n], g_p[n]) for n in g_p if g_p[n].norm() > 0}
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    scale = [n for n in rels if n.endswith("alibi_scale")]
+    print(f"{label} gradients b{batch} x clone 2, kernel vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; relative norm per tensor: max {worst[0][1]:.3e}, median "
+          f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors (tolerance "
+          f"{MODEL_GRAD_TOL}); ALiBi scale {[f'{rels[n]:.2e}' for n in scale]}; worst "
+          f"{[(n, f'{r:.2e}') for n, r in worst]}")
+    if not scale or set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
+        raise AssertionError(f"{label}: the paths give gradients to different parameters")
+    if not max(rels.values()) <= MODEL_GRAD_TOL:
+        raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def pretrain_kernel_times(gen, dev, row):
+    """The dense-bias training kernels at the ViT-B/16 pretraining student's
+    shape (b128, H 12, 59 kept patches, per-row bias): the forward with lse,
+    dq + dbias and dk/dv beside their plain versions, and the library call:
+    SDPA with the bias as a bf16 float mask, forward alone and forward +
+    backward with the mask requiring grad."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
+        bias_attention_plain,
+    )
+
+    b, h, t = 2 * IMAGE_BATCH, IMAGE_HEADS, STUDENT_T
+    bias = keep_set_bias(np.random.default_rng(SEED + 17), b, h, t, dev)
+    q, k, v = bias_attention_inputs(gen, b, h, t, dev)
+    dout = torch.randn((b, t, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+    bounds = bias_attention_bwd_bounds(b, h, t, bias_rows=b)
+    with torch.inference_mode():
+        out, lse = bias_attention_forward(q, k, v, bias, None, True)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+        args = (q, k, v, dout, lse, delta, bias)
+        qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))
+        mask = bias.to(torch.bfloat16)
+        row("bias attention forward + lse, b128 ViT-B pretraining student",
+            cuda_ms(lambda: bias_attention_forward(q, k, v, bias, None, True)),
+            cuda_ms(lambda: bias_attention_plain(q, k, v, bias, return_lse=True), iters=3),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+            bounds["forward"])
+        plain_bwd = cuda_ms(lambda: bias_attention_bwd_plain(*args), iters=3)
+    leaves = [a.detach().clone().requires_grad_() for a in (qs, ks, vs, mask)]
+    g = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+        torch.autograd.grad(o, leaves, g)
+
+    lib_bwd = cuda_ms(sdpa_fwd_bwd)
+    row("bias attention dq + dbias, b128 ViT-B pretraining student",
+        cuda_ms(lambda: bias_attention_dq(*args)), plain_bwd, lib_bwd, bounds["dq"])
+    row("bias attention dk/dv, b128 ViT-B pretraining student",
+        cuda_ms(lambda: bias_attention_dkv(*args)), plain_bwd, lib_bwd, bounds["dkv"])
+    print("  (plain: bias_attention_bwd_plain computes dq, dk, dv and dbias in one call; "
+          "library: SDPA forward + backward with the per-row bias as a bf16 mask requiring "
+          "grad)")
+    del q, k, v, dout, leaves, bias
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1281,6 +1662,9 @@ def main() -> int:
     attn_err = phase_attention(dev)
     fwd_err, dq_err, dkv_err = phase_attention_train(dev)
     bias_err = phase_bias_attention(dev)
+    bias_train = phase_bias_attention_train(dev)
+    student = phase_student_attention(dev)
+    fwd_err, dq_err, dkv_err = (max(a, b) for a, b in zip((fwd_err, dq_err, dkv_err), student))
     block_err = max(phase_block(dev), phase_block_train(dev))
     int8_errs = phase_int8_kernels(dev)
     mlp_errs = phase_mlp(dev)
@@ -1303,6 +1687,23 @@ def main() -> int:
     phase_train_grads(cfg, dev)
     image = phase_image(card, dev)
 
+    from animal2vec_tpu_torch.config import ImageConfig, PretrainConfig
+
+    vit = PretrainConfig.vit_b16()
+    pre_image = phase_pretrain(vit, card, dev, IMAGE_BATCH, "image pretrain (ViT-B/16 post-LN)",
+                               "images")
+    phase_pretrain_grads(vit, dev, 2, "image pretrain (ViT-B/16 post-LN)")
+    vit_pre_ln = PretrainConfig.vit_b16(
+        model=ImageConfig(use_alibi_encoder=True, layer_norm_first=True))
+    pre_image_ln = phase_pretrain(vit_pre_ln, card, dev, IMAGE_BATCH,
+                                  "image pretrain (ViT-B/16 pre-LN)", "images", pre_ln=True,
+                                  steps=1)
+    a2v = PretrainConfig()
+    pre_audio = phase_pretrain(a2v, card, dev, 5, "audio pretrain (a2v-large, "
+                               "a2v_large_pretrain.yaml)", "10-s clips")
+    phase_pretrain_grads(a2v, dev, 1, "audio pretrain (a2v-large)")
+    pretrain = {k: pre_image[k] + pre_image_ln[k] + pre_audio[k] for k in pre_image}
+
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         e = {"name": name, "route": "cuda", "source": f"animal2vec_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches, "launches_serving": serving_launches,
@@ -1322,6 +1723,7 @@ def main() -> int:
         return e
 
     pa = "animal2vec_tpu/ops/pallas_attention.py"
+    fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [
         entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:891, {pa}:113",
               training[0], serving["bf16"]["attention"], max(attn_err, fwd_err),
@@ -1352,11 +1754,28 @@ def main() -> int:
         entry("fused_mlp_int8", "fused_mlp_int8.cu", "animal2vec_tpu/ops/fused_mlp.py:66",
               image["int8_mlp"], image["int8_mlp"], mlp_errs["int8_mlp"],
               "int8 fused MLP, b64 ViT-B serving"),
-        entry("bias_flash_attention", "bias_attention.cu",
-              "animal2vec_tpu/models/attention.py:115 (jax.experimental.pallas.ops.tpu."
-              "flash_attention)", image["bias_attention"], image["bias_attention"], bias_err,
-              "bias attention, b64 ViT-B serving"),
+        dict(entry("bias_flash_attention", "bias_attention.cu",
+                   "animal2vec_tpu/models/attention.py:115 (jax.experimental.pallas.ops.tpu."
+                   "flash_attention)", image["bias_attention"] + pretrain["bias_attention"],
+                   image["bias_attention"], max(bias_err, bias_train["forward"]),
+                   "bias attention, b64 ViT-B serving"),
+             launches_pretrain=pretrain["bias_attention"],
+             **{f"training_{k}": v for k, v in times[
+                 "bias attention forward + lse, b128 ViT-B pretraining student"].items()}),
+        entry("bias_attention_dq", "bias_attention_bwd.cu",
+              f"{fa}:1287 (_flash_attention_bwd_dq, with ds; {fa}:254-315 "
+              "_flash_attention_bwd)", pretrain["bias_dq"], 0, bias_train["dq"],
+              "bias attention dq + dbias, b128 ViT-B pretraining student"),
+        entry("bias_attention_dkv", "bias_attention_bwd.cu",
+              f"{fa}:941 (_flash_attention_bwd_dkv)", pretrain["bias_dkv"], 0,
+              bias_train["dkv"], "bias attention dk/dv, b128 ViT-B pretraining student"),
     ]
+    # the pretraining paths' launches (phases 10 and 11) of the kernels that
+    # earlier paths launch too
+    for e, key in zip(kernels, ("attention", "dq", "dkv", "block", None, None, None, "mlp")):
+        if key:
+            e["launches_pretrain"] = pretrain[key]
+            e["launches"] += pretrain[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

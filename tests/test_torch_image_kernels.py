@@ -1,6 +1,8 @@
 """The image modality's hand-written kernels against their plain versions on
 the card (``gpu`` marker; they skip without CUDA): the dense-bias flash
-attention (#11) and the plain fused MLP in bf16 (#8) and int8 (#9). This
+attention (#11), its backward kernels (#11b: dq with the bias gradient,
+and dk/dv) and their autograd Function, and the plain fused MLP in bf16
+(#8, also its training Function) and int8 (#9). This
 file imports no JAX module, so that it runs on a card's machine without
 flax: ``python3 -m pytest tests/test_torch_image_kernels.py -m gpu``.
 """
@@ -10,7 +12,10 @@ import pytest
 import torch
 
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
-from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
+from animal2vec_tpu_torch.ops.bias_attention import (
+    bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
+    bias_attention_plain, bias_flash_attention,
+)
 from animal2vec_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
 )
@@ -79,3 +84,81 @@ def test_fused_mlp_kernels_match_plain_on_card(cuda):
                        fused_mlp_int8_plain(xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c))):
         torch.cuda.synchronize()
         assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,bias", [(32, 59, "per-row"), (8, 196, "uniform"), (8, 196, None),
+                                      (4, 1024, "uniform")])
+def test_bias_attention_backward_kernels_match_plain_on_card(cuda, b, t, bias):
+    """#11 with lse, dq + dbias and dk/dv against their plain versions on
+    the same bf16 inputs, lse and delta (a fully masked key row at T 1024):
+    5e-3 + 1e-2 |plain| (lse 1e-3), and the fp32 dbias 1e-5 + 1e-2 |plain|
+    (far below a typical |dS| of about 8 / T); then the autograd Function
+    against autograd of the plain version in fp32, 1e-2 relative norm."""
+    h = 12
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dense = None
+    if bias == "uniform":
+        dense = torch.from_numpy(alibi_bias_2d(t, h)[None]).to(cuda) * (0.1 if t == 1024 else 1)
+    elif bias == "per-row":
+        dense = torch.randn((b, h, t, t), generator=gen, device=cuda)
+    mask = None
+    if t == 1024:
+        mask = torch.zeros((b, t), dtype=torch.bool, device=cuda)
+        mask[1, -50:] = True
+        mask[3] = True
+    out, lse = bias_attention_forward(q, k, v, dense, mask, with_lse=True)
+    out_p, lse_p = bias_attention_plain(q.float(), k.float(), v.float(), dense, mask,
+                                        return_lse=True)
+    assert ((out.float() - out_p).abs() <= 1e-2 + 1e-2 * out_p.abs()).all()
+    assert ((lse - lse_p).abs() <= 1e-3 + 1e-5 * lse_p.abs()).all()
+    dout = torch.randn((b, t, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+    args = (q, k, v, dout, lse, delta, dense, mask)
+    before = (bias_attention_dq.launches, bias_attention_dkv.launches)
+    dq, dbias = bias_attention_dq(*args)
+    dk, dv = bias_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert (bias_attention_dq.launches, bias_attention_dkv.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = bias_attention_bwd_plain(*args)
+    gots = (dq, dk, dv) + (() if dense is None else (dbias,))
+    for got, ref, atol in zip(gots, want, (5e-3, 5e-3, 5e-3, 1e-5)):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - ref.float()).abs() <= atol + 1e-2 * ref.float().abs()).all()
+    leaves = [qkv.clone().requires_grad_()] + ([] if dense is None else
+                                               [dense.clone().requires_grad_()])
+    leaves_p = [qkv.float().requires_grad_()] + ([] if dense is None else
+                                                 [dense.clone().requires_grad_()])
+    got = torch.autograd.grad(bias_flash_attention(*leaves[0].unbind(2), *leaves[1:], mask),
+                              leaves, dout)
+    ref = torch.autograd.grad(bias_attention_plain(*leaves_p[0].unbind(2), *leaves_p[1:], mask),
+                              leaves_p, dout.float())
+    assert all(_rel(g, r) <= 1e-2 for g, r in zip(got, ref))
+    if dense is not None:
+        assert got[1].shape == dense.shape
+
+
+@pytest.mark.gpu
+def test_fused_mlp_training_function_matches_plain_on_card(cuda):
+    """#8's autograd Function (kernel forward, recompute backward in bf16
+    GEMMs with fp32 sums) against autograd of the plain version in fp32 on
+    the same bf16 inputs: 1e-2 relative norm per gradient."""
+    x, w1, w2, b1, b2 = _mlp_inputs(1000, 768, 3072, seed=49)
+    vals = [torch.from_numpy(a).to(cuda) for a in (x, w1, w2, b1, b2)]
+    vals[:3] = [a.to(torch.bfloat16) for a in vals[:3]]
+    g = torch.randn((1000, 768), generator=torch.Generator(device=cuda).manual_seed(50),
+                    device=cuda).to(torch.bfloat16)
+    leaves = [a.clone().requires_grad_() for a in vals]
+    before = fused_mlp.launches
+    got = torch.autograd.grad(fused_mlp(*leaves), leaves, g)
+    assert fused_mlp.launches == before + 1
+    leaves_p = [a.float().requires_grad_() for a in vals]
+    ref = torch.autograd.grad(fused_mlp_plain(*leaves_p), leaves_p, g.float())
+    assert all(_rel(a, r) <= 1e-2 for a, r in zip(got, ref))

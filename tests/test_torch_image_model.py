@@ -204,7 +204,14 @@ def test_build_image_model_and_serving_only():
         model.extract_features(imgs)  # the JAX method's default mode, AUDIO
     with pytest.raises(NotImplementedError, match="serving"):
         model.train().extract_features(imgs, "IMAGE")
+    # the int8 blocks are serving-only; a bf16 block with a dense bias or
+    # none trains (pretraining, tests/test_torch_pretrain_*.py)
     for pre_ln in (False, True):
-        blk = AltBlock(128, 2, mlp_ratio=2.0, layer_norm_first=pre_ln).train()
-        with pytest.raises(NotImplementedError, match="serving-only"):
-            blk(torch.zeros(1, 16, 128), None, None)
+        blk = AltBlock(128, 2, mlp_ratio=2.0, layer_norm_first=pre_ln, matmul_impl="int8")
+        blk.quantize_weights()
+        with pytest.raises(RuntimeError, match="serving-only"):
+            blk.train()(torch.zeros(1, 16, 128), None, None)
+        x = torch.zeros(1, 16, 128, requires_grad=True)
+        out, _ = AltBlock(128, 2, mlp_ratio=2.0, layer_norm_first=pre_ln).train()(x, None, None)
+        out.sum().backward()
+        assert x.grad is not None

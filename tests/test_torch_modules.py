@@ -186,9 +186,11 @@ def test_port_imports_no_jax():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1, out.stdout  # chip_smoke printed nothing on import
     res = json.loads(lines[0])
-    assert len(res["names"]) >= 26
+    assert len(res["names"]) >= 27
     assert {"animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
-            "animal2vec_tpu_torch.ops.attention"} <= set(res["names"])
+            "animal2vec_tpu_torch.ops.attention", "animal2vec_tpu_torch.ops.bias_attention",
+            "animal2vec_tpu_torch.train.pretrain", "animal2vec_tpu_torch.train.state"
+            } <= set(res["names"])
     assert res["loaded"] == [], res["loaded"]
 
 

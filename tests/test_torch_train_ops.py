@@ -25,6 +25,7 @@ from animal2vec_tpu.ops.pallas_attention import _dropout_keep
 from animal2vec_tpu.train import optim as jax_optim
 
 from animal2vec_tpu_torch.config import FinetuneTrainConfig
+from animal2vec_tpu_torch.config import OptimizationConfig as PortOptimizationConfig
 from animal2vec_tpu_torch.ops import losses, masking, mixup, stats
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout_keep, hash_keep, keep_threshold
 from animal2vec_tpu_torch.train import optim
@@ -203,8 +204,8 @@ def _opt_cfgs(**kw):
                   min_lr=2e-5, adam_betas=(0.9, 0.98), adam_eps=1e-6, clip_norm=0.0,
                   weight_decay=0.0, update_freq=1)
     common.update(kw)
-    ours = dataclasses.replace(FinetuneTrainConfig(), **common)
-    ref = OptimizationConfig(**{k: v for k, v in common.items()})
+    ours = PortOptimizationConfig(**common)
+    ref = OptimizationConfig(**common)
     return ours, ref
 
 
@@ -343,16 +344,15 @@ def test_train_preset_matches_finetune_100_yaml():
         "gain_mode": mix.gain_mode, "target_mixup": mix.target_mixup,
         "use_focal_loss": crit.use_focal_loss, "label_smoothing": crit.label_smoothing,
         "report_accuracy": crit.report_accuracy,
-        "lr": opt.lr, "max_update": opt.max_update, "update_freq": opt.update_freq,
-        "clip_norm": opt.clip_norm, "adam_betas": tuple(opt.adam_betas),
-        "adam_eps": opt.adam_eps, "weight_decay": opt.weight_decay,
-        "warmup_updates": opt.warmup_updates, "warmup_init_lr": opt.warmup_init_lr,
-        "min_lr": opt.min_lr, "schedule": opt.schedule,
     }
     ours = FinetuneTrainConfig()
-    assert set(expected) == {f.name for f in dataclasses.fields(ours)}
+    assert set(expected) | {"optimization"} == {f.name for f in dataclasses.fields(ours)}
     for name, value in expected.items():
         assert getattr(ours, name) == value, name
+    for f in dataclasses.fields(PortOptimizationConfig):
+        want = getattr(opt, f.name)
+        assert getattr(ours.optimization, f.name) == (tuple(want) if f.name == "adam_betas"
+                                                      else want), f.name
     assert ft.sample_rate == jcfg.task.sample_rate
     with pytest.raises(NotImplementedError):
         FinetuneTrainConfig(drop_path=0.1)

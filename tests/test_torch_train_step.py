@@ -29,7 +29,7 @@ from animal2vec_tpu.train.finetune_step import make_finetune_train_step as jax_m
 from animal2vec_tpu.train.optim import build_optimizer as jax_build_optimizer
 from animal2vec_tpu.train.state import FinetuneState as JaxFinetuneState
 
-from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig
+from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig, OptimizationConfig
 from animal2vec_tpu_torch.models.finetune import FinetuneModel, build_finetune_model
 from animal2vec_tpu_torch.models.modules import top_k_tap_average
 from animal2vec_tpu_torch.ops.dropout import Rngs
@@ -53,7 +53,8 @@ def _train_cfg(freeze):
     return dataclasses.replace(
         FinetuneTrainConfig(), freeze_finetune_updates=freeze, apply_mask=False,
         mask_channel_prob=0.0, dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
-        layerdrop=0.0, source_mixup=-1.0, label_smoothing=0.0, **OPT,
+        layerdrop=0.0, source_mixup=-1.0, label_smoothing=0.0,
+        optimization=OptimizationConfig(**OPT),
     )
 
 
@@ -120,9 +121,10 @@ def test_recipe_step_draws_and_trains():
     the step exactly."""
     cfg = dataclasses.replace(FinetuneConfig(), conv_layers=TINY_LAYERS, average_top_k_layers=3,
                               labels=("a", "b", "c", "d"), **TINY)
-    tcfg = dataclasses.replace(FinetuneTrainConfig(), freeze_finetune_updates=0,
-                               mask_channel_length=4, layerdrop=0.3, warmup_updates=0,
-                               update_freq=2)
+    base = FinetuneTrainConfig()
+    tcfg = dataclasses.replace(base, freeze_finetune_updates=0, mask_channel_length=4,
+                               layerdrop=0.3, optimization=dataclasses.replace(
+                                   base.optimization, warmup_updates=0, update_freq=2))
     batch = {k: torch.from_numpy(v) for k, v in _batch(seed=4).items()}
     runs = []
     for _ in range(2):
