@@ -30,40 +30,82 @@
 // evaluates exp(-1e9 - lse) = 1 there and passes dS of the masked scores to
 // dq, dk and the slopes. Keys and queries past T are dropped by bounds.
 //
-// Design: both kernels keep the forward kernel's layout
-// (alibi_attention.cu): four warps of 16 rows,
-// 64-row tiles staged in shared memory with cp.async, mma.sync m16n8k16 with
-// fp32 accumulation, and the fp32 accumulator of one product reused in
-// registers as the bf16 A operand of the next (the accumulator layout is the
-// A-operand layout). The dq kernel owns 64 query rows and loops over key
-// tiles: S = Q K^T and dP = dO V^T from row fragments of K and V, then
-// dq += dS K with K's B operand from ldmatrix.trans. The dk/dv kernel owns
-// 64 keys and loops over query tiles in the transposed formulation: S^T =
-// K Q^T and dP^T = V dO^T with K and V as the A operands, so that (P f)^T
-// and dS^T come out in the A layout of dv += (P f)^T dO and dk += dS^T Q,
-// whose B operands are dO and Q through ldmatrix.trans. Nothing is staged
-// through shared memory between products and no atomics are used: the slope
-// gradient is reduced inside each block (quad shuffles for the row sums,
-// then warp shuffles and shared memory) to one fp32 partial per (b, h,
-// query tile), and torch sums the partials (deterministic).
-//
 // Bound on the H100 at the training shape (B=4, H=16, T=2000): the dq kernel
 // does 3 products of 2*T^2*D per (b, h), 6*B*H*T^2*D = 98 GFLOP (0.10 ms at
 // the 989 TFLOP/s bf16 peak); the dk/dv kernel 4 products, 131 GFLOP
 // (0.13 ms); each reads q, k, v, dO (4 x 16 MB) and writes 16 or 32 MB, a
-// few microseconds at 3.35 TB/s. Both are bound by operations; besides the
-// products each recomputes the bias, the exponential and the dropout hash
-// per score (~25 fp32/integer instructions), which mma.sync does not hide.
-// wgmma and a deeper K/V (or Q/dO) pipeline are the levers for a later
-// change.
-#include "flash_bwd_tiles.cuh"
+// few microseconds at 3.35 TB/s. Both are bound by operations. Besides the
+// products each recomputes, for each of the B*H*T^2 = 256 M scores, the
+// bias, the exponential and (with dropout) the hash: the dq loop compiles
+// to ~1080 instructions a thread per 64-key tile (32 scores), ~34 a score
+// with the hash's ~10, which at 4 warp-instructions per SM and clock is
+// ~0.3 ms a kernel, more than the products' bound: the scalar pass, not the
+// tensor cores, sets the pace (dropout 0 runs 12-20 % faster).
+//
+// Design (Hopper, sm_90a): one warpgroup (128 threads) per block owns 64
+// rows (queries for dq, keys for dk/dv), wgmma's M, and loops over the
+// other side's 64-row tiles. All five products are wgmma m64n64k16 with
+// fp32 accumulation (sm90.cuh):
+//   dq kernel:   S = Q K^T, dP = dO V^T        (SS: both tiles in shared)
+//                dq += dS K                    (RS: dS from registers, K MN-major)
+//   dk/dv:       S^T = K Q^T, dP^T = V dO^T    (SS)
+//                dv += (P f)^T dO, dk += dS^T Q (RS, B MN-major)
+// The accumulator of S (S^T) and dP (dP^T) holds P and dS after the scalar
+// pass, and its bf16 is the register A operand of the next product, so
+// nothing is staged through shared memory between products. Every tile
+// lives in shared memory in the 128-byte swizzle, 1024-byte aligned, so
+// that one descriptor reads it K-major for S and MN-major for the RS
+// products. The streamed pair (K, V for dq; Q, dO for dk/dv) comes through
+// a ring of kStages buffers filled by cp.async: the copies of tile t +
+// kStages - 1 are in flight while tile t's products and scalar pass run
+// (the wait is cp.async.wait_group kStages - 2). Two stages: one tile's
+// compute (~1000 instructions a thread) outlasts the next tile's copy, and
+// a build with a third stage (17 KB more shared memory a block) ran both
+// kernels slower on an H100 at every shape of chip_smoke.py phase 7.
+// The pair's side data (key positions, sentinel factors and mask bias for
+// dq; lse, delta, positions for dk/dv) is loaded into registers when its
+// tile's copy is issued and written into its ring slot after the tile in
+// hand is done, so its latency hides too. The blocks of an SM (3 for dq at
+// 168 registers, 2 for dk/dv at up to 222, set by registers) overlap one
+// block's scalar pass with another's products. One warpgroup a block, not
+// two sharing each staged tile: 256 threads at those register counts fit
+// one block an SM, so the blocks could no longer overlap one another, and
+// the tile traffic that sharing would halve already hides behind the
+// scalar pass. S and dP read A (Q, dO; K, V) from shared memory: a build
+// holding it in registers (RS) ran a few percent faster at the training
+// shape but spilled dq at 3 blocks an SM.
+// Both kernels are deterministic and use no atomics: the slope gradient is
+// reduced inside each block (quad shuffles for the row sums, then warp
+// shuffles and shared memory) to one fp32 partial per (b, h, query tile),
+// and torch sums the partials.
+// The scalar pass takes ex2 (the dk/dv kernel with log2(e) folded into its
+// constants; the dq kernel rounds the logit as the forward does, see
+// there); dropout and sentinels are template flags, so a run without them
+// pays neither.
+#include <cmath>
+
+#include "sm90.cuh"
 
 namespace a2v {
 namespace {
 
-using namespace flash_bwd;
+using bf16 = __nv_bfloat16;
+using namespace sm90;
 
+constexpr int kD = 64;
+constexpr int kTile = 64;      // rows per block and per loop step
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStages = 2;     // ring depth of the streamed pair (see the note above)
 constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileBytes = kTileElems * 2;
+
+// dynamic shared memory: the block's two tiles, the ring of pairs, the
+// ring's side data, and slack to align the base to 1024 bytes
+constexpr int kDqSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + kStages * kTile * 16 +
+                        kTileAlign;
+constexpr int kDkvSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + kStages * kTile * 20 +
+                         kTileAlign;
 
 struct BwdArgs {
   int pos_per_row, mask_per_row, has_sentinel;
@@ -74,19 +116,21 @@ struct BwdArgs {
   float keep_scale;  // 1 / (1 - rate)
 };
 
-// rows of one (T, D) head plane
-__device__ __forceinline__ void stage_tile(bf16* smem, const bf16* src, int row0, int T,
-                                           int tid) {
-  stage_rows(smem, src, kD, row0, T, tid);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float alibi_dist(float pq, float pk, bool sentinel) {
-  return (sentinel && (pq < 0.f || pk < 0.f)) ? 0.f : fabsf(pq - pk);
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + kTileAlign - 1) & ~uint32_t(kTileAlign - 1)) - a);
 }
 
 // One block per (64-query tile, head, batch): dq rows and the block's
 // slope-gradient partial.
-__global__ void __launch_bounds__(kThreads)
+template <bool kDrop, bool kSentinel>
+__global__ void __launch_bounds__(kThreads, 3)
 alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
                           const bf16* __restrict__ dout,    // (B, H, T, D)
                           const float* __restrict__ lse,    // (B*H, T)
@@ -97,13 +141,14 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
                           bf16* __restrict__ dq,            // (B, H, T, D)
                           float* __restrict__ dslope_part,  // (B, H, n_qtiles)
                           BwdArgs a) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLds];
-  __shared__ __align__(16) bf16 sDO[kTile * kLds];
-  __shared__ __align__(16) bf16 sK[kTile * kLds];
-  __shared__ __align__(16) bf16 sV[kTile * kLds];
-  __shared__ float sPosK[kTile];
-  __shared__ int sFlagK[kTile];  // 0 = live key, 1 = padded, 2 = past T
+  extern __shared__ uint8_t smem_raw[];
   __shared__ float sRed[kThreads / 32];
+  bf16* const sQ = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sDO = sQ + kTileElems;
+  bf16* const sRing = sDO + kTileElems;  // stage s: K at 2s tiles in, V after it
+  // per key of each stage: {position, sentinel factor (0 or 1), bias (0 or
+  // -inf: padded or past T), unused}
+  float4* const sKey = reinterpret_cast<float4*>(sRing + kStages * 2 * kTileElems);
 
   const int T = a.T, H = a.H;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -117,85 +162,150 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   const bf16* v = k + plane;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
-  const uint32_t seed_word = a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
-  const bool drop = a.thresh != 0u;
-  const bool sentinel = a.has_sentinel != 0;
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
+  const int n_tiles = (T + kTile - 1) / kTile;
+  const uint64_t desc_q = desc_sw128(sQ), desc_ring = desc_sw128(sRing);
 
-  stage_tile(sQ, q, q0, T, tid);
-  stage_tile(sDO, dout + bh * head, q0, T, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  auto stage_pair = [&](int kt) {
+    bf16* dst = sRing + (kt % kStages) * 2 * kTileElems;
+    stage_tile<kThreads>(dst, k, kD, kt * kTile, T, tid);
+    stage_tile<kThreads>(dst + kTileElems, v, kD, kt * kTile, T, tid);
+  };
+  // threads < 64 read key kt*64 + tid's position and mask flag ...
+  auto load_key = [&](int kt, int& p, int& m) {
+    const int key = kt * kTile + tid;
+    p = key < T ? posr[key] : 0;
+    m = key >= T || (maskr && maskr[key]);
+  };
+  // ... and write its side data into the tile's ring slot
+  auto store_key = [&](int kt, int p, int m) {
+    sKey[(kt % kStages) * kTile + tid] =
+        make_float4(static_cast<float>(p), (kSentinel && p < 0) ? 0.f : 1.f,
+                    m ? -INFINITY : 0.f, 0.f);
+  };
 
-  const int r0 = warp * 16 + g;
-  uint32_t qf[kD / 16][4], dof[kD / 16][4];
-  row_fragments(qf, sQ, r0, i4);
-  row_fragments(dof, sDO, r0, i4);
-  float pq[2], lse_r[2], delta_r[2];
-  int rflag[2];  // 0 = live row, 1 = every key padded, 2 = past T
+  // prologue: Q, dO and the first kStages - 1 pairs, one commit group each
+  stage_tile<kThreads>(sQ, q, kD, q0, T, tid);
+  stage_tile<kThreads>(sDO, dout + bh * head, kD, q0, T, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage_pair(s);
+    cp_async_commit();
+  }
+  if (tid < kTile) {
+    for (int s = 0; s < kStages - 1 && s < n_tiles; ++s) {
+      int p, m;
+      load_key(s, p, m);
+      store_key(s, p, m);
+    }
+  }
+
+  // this thread's rows q0 + 16 warp + g + 8r. The logit is rounded as the
+  // forward kernel and the plain version round it (the bias -slope dist to
+  // fp32, then its sum with q.k / sqrt(D)) and lse is taken off after, in
+  // natural units: the slope partial -(sum P f dP dist - D sum P dist) is
+  // quadratic in the scale of a row's P, and D sum P dist reaches ~4e3 in
+  // rows whose near keys are padded, so a rounding shared by the row's few
+  // weighty keys (log2(e) folded into -lse and the slope, or -slope dist -
+  // lse summed first) moved partials by 3e-2 to 9e-2 on an H100.
+  const float slope = slopes[h];
+  float pq[2], nl[2], dl[2], sl[2], rmul[2];
+  uint32_t zrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + 8 * r;
+    const int row = q0 + warp * 16 + g + 8 * r;
     const bool in = row < T;
-    pq[r] = in ? static_cast<float>(posr[row]) : 0.f;
-    lse_r[r] = in ? lse[bh * T + row] : 0.f;
-    delta_r[r] = in ? delta[bh * T + row] : 0.f;
-    rflag[r] = !in ? 2 : (lse_r[r] < kDeadLse ? 1 : 0);
+    const int p = in ? posr[row] : 0;
+    pq[r] = static_cast<float>(p);
+    rmul[r] = (kSentinel && p < 0) ? 0.f : 1.f;
+    sl[r] = slope * rmul[r];
+    // a row past T weighs every key 0
+    nl[r] = in ? -lse[bh * T + row] : -INFINITY;
+    dl[r] = in ? delta[bh * T + row] : 0.f;
+    zrow[r] = static_cast<uint32_t>(row) * kHashRow;
   }
-  const float slope = slopes[h];
 
-  float acc_dq[kD / 8][4];
+  float acc_dq[32], sc[32], dp[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
-    acc_dq[dn][0] = acc_dq[dn][1] = acc_dq[dn][2] = acc_dq[dn][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc_dq[i] = 0.f;
   // per-row sums over this thread's keys for the slope gradient:
-  // sum P f dP dist, sum P dist and sum P f dP (the in-kernel delta)
+  // sum P f dP dist, sum P dist and sum P f dP (the in-kernel delta), with
+  // dist short of the row's sentinel factor
   float a_pd[2] = {0.f, 0.f}, b_pd[2] = {0.f, 0.f}, d_pd[2] = {0.f, 0.f};
 
-  const int n_tiles = (T + kTile - 1) / kTile;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(sK, k, k0, T, tid);
-    stage_tile(sV, v, k0, T, tid);
-    cp_async_commit();
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      const bool live = key < T;
-      sPosK[tid] = live ? static_cast<float>(posr[key]) : 0.f;
-      sFlagK[tid] = !live ? 2 : ((maskr && maskr[key]) ? 1 : 0);
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile kt have landed
+    fence_proxy_async();
+    __syncthreads();  // tile kt visible to all; every thread is done with tile kt - 1
+    const int nt = kt + kStages - 1;
+    int np = 0, nm = 0;
+    if (nt < n_tiles) {
+      stage_pair(nt);  // into the slot tile kt - 1 used
+      if (tid < kTile) load_key(nt, np, nm);
     }
-    cp_async_wait<0>();
-    __syncthreads();
+    cp_async_commit();
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    rows_product(s, qf, sK, g, i4);    // Q K^T
-    rows_product(dp, dof, sV, g, i4);  // dO V^T
+    const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * kDescTile;
+    wgmma_fence();
+    gemm_tile_nt(sc, desc_q, desc_k);                          // S = Q K^T
+    wgmma_commit();
+    gemm_tile_nt(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const float4* key = sKey + (kt % kStages) * kTile;
+    const uint32_t zt = static_cast<uint32_t>(kt * kTile + 2 * i4) * kHashCol;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * i4 + (e & 1);
-        const int kflag = sFlagK[col];
-        const float dist = alibi_dist(pq[r], sPosK[col], sentinel);
-        float p = 0.f;  // only live keys reach dS
-        if (kflag == 0 && rflag[r] != 2)
-          p = expf(s[j][e] * a.sm_scale - slope * dist - lse_r[r]);
-        float dpv = dp[j][e];
-        if (drop)
-          dpv *= drop_factor(seed_word, q0 + r0 + 8 * r, k0 + col, a.thresh, a.keep_scale);
-        const float ds = kflag == 0 ? p * (dpv - delta_r[r]) : 0.f;
-        const float pdp = p * dpv;  // p is 0 unless the key is live
-        a_pd[r] += pdp * dist;
-        b_pd[r] += p * dist;
-        d_pd[r] += pdp;
-        s[j][e] = ds;
+      for (int e = 0; e < 2; ++e) {
+        const float4 kd = key[8 * j + 2 * i4 + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float dist = fabsf(pq[r] - kd.x);
+          if (kSentinel) dist *= kd.y;
+          const float logit = fmaf(sc[i], a.sm_scale, -__fmul_rn(sl[r], dist));
+          const float p = ex2((logit + (nl[r] + kd.z)) * kLog2e);
+          float dpv = dp[i];
+          if (kDrop) {
+            const uint32_t z = zrow[r] + zt + static_cast<uint32_t>(8 * j + e) * kHashCol;
+            dpv = drop_mix_seeded(seed_mix, z) >= a.thresh ? dpv * a.keep_scale : 0.f;
+          }
+          const float pdp = p * dpv;  // p is 0 unless the key is live
+          a_pd[r] = fmaf(pdp, dist, a_pd[r]);
+          b_pd[r] = fmaf(p, dist, b_pd[r]);
+          d_pd[r] += pdp;
+          sc[i] = fmaf(-p, dl[r], pdp);  // dS
+        }
       }
     }
-    acc_times_tile(acc_dq, s, sK, lane);  // dq += dS K
+    uint32_t fds[4][4];
+    frag_from_acc(fds, sc);
+    wgmma_fence();
+    fence_regs(acc_dq);
+    gemm_frag_tile(acc_dq, fds, desc_k);  // dq += dS K
+    wgmma_commit();
+    if (nt < n_tiles && tid < kTile) store_key(nt, np, nm);
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(fds);
   }
 
-  store_rows(dq + bh * head, kD, acc_dq, q0 + r0, q0 + r0 + 8, T, a.sm_scale, i4);
+  // dq rows, scaled, as bf16
+  bf16* dqr = dq + bh * head;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < T) {
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(&dqr[static_cast<size_t>(row) * kD + 8 * j + 2 * i4]) =
+            pack_bf16(acc_dq[4 * j + 2 * r] * a.sm_scale, acc_dq[4 * j + 2 * r + 1] * a.sm_scale);
+    }
+  }
 
   // row totals over the quad of lanes that share a row, then
   // -sum_j dS dist = -(sum P f dP dist - D * sum P dist) per row
@@ -208,10 +318,9 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
       b_pd[r] += __shfl_xor_sync(0xffffffffu, b_pd[r], off);
       d_pd[r] += __shfl_xor_sync(0xffffffffu, d_pd[r], off);
     }
-    if (i4 == 0) dsl -= a_pd[r] - d_pd[r] * b_pd[r];
+    if (i4 == 0) dsl -= rmul[r] * (a_pd[r] - d_pd[r] * b_pd[r]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) dsl += __shfl_xor_sync(0xffffffffu, dsl, off);
+  dsl = warp_sum(dsl);
   if (lane == 0) sRed[warp] = dsl;
   __syncthreads();
   if (tid == 0)
@@ -219,7 +328,8 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
 }
 
 // One block per (64-key tile, head, batch): dk and dv rows.
-__global__ void __launch_bounds__(kThreads)
+template <bool kDrop, bool kSentinel>
+__global__ void __launch_bounds__(kThreads, 2)
 alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            const float* __restrict__ slopes, const int* __restrict__ pos,
@@ -227,10 +337,15 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
                            bf16* __restrict__ dk,  // (B, H, T, D)
                            bf16* __restrict__ dv,  // (B, H, T, D)
                            BwdArgs a) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLds];   // K first, then Q tiles
-  __shared__ __align__(16) bf16 sDO[kTile * kLds];  // V first, then dO tiles
-  __shared__ float sPosQ[kTile], sLse[kTile], sDelta[kTile];
-  __shared__ int sFlagQ[kTile];  // 0 = live row, 1 = every key padded, 2 = past T
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sK = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sV = sK + kTileElems;
+  bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
+  // per query of each stage: {position, sentinel factor, -lse log2(e) (-inf
+  // past T), delta}, and the weight 1/T of a padded key in a row whose keys
+  // are all padded (0 elsewhere)
+  float4* const sQry = reinterpret_cast<float4*>(sRing + kStages * 2 * kTileElems);
+  float* const sDead = reinterpret_cast<float*>(sQry + kStages * kTile);
 
   const int T = a.T, H = a.H;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -245,87 +360,157 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   const bf16* dor = dout + bh * head;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
-  const uint32_t seed_word = a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du;
-  const bool drop = a.thresh != 0u;
-  const bool sentinel = a.has_sentinel != 0;
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
   const float inv_t = 1.f / T;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  const uint64_t desc_k = desc_sw128(sK), desc_ring = desc_sw128(sRing);
 
-  // this warp's 16 keys as A operands
-  stage_tile(sQ, k, k0, T, tid);
-  stage_tile(sDO, v, k0, T, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t kf[kD / 16][4], vf[kD / 16][4];
-  row_fragments(kf, sQ, r0, i4);
-  row_fragments(vf, sDO, r0, i4);
-  float pk[2];
-  int kflag[2];  // 0 = live key, 1 = padded, 2 = past T
+  auto stage_pair = [&](int qt) {
+    bf16* dst = sRing + (qt % kStages) * 2 * kTileElems;
+    stage_tile<kThreads>(dst, q, kD, qt * kTile, T, tid);
+    stage_tile<kThreads>(dst + kTileElems, dor, kD, qt * kTile, T, tid);
+  };
+  // threads < 64 read query qt*64 + tid's position, lse and delta ...
+  auto load_query = [&](int qt, int& p, float& l, float& dl) {
+    const int row = qt * kTile + tid;
+    const bool in = row < T;
+    p = in ? posr[row] : 0;
+    l = in ? lse[bh * T + row] : INFINITY;  // a query past T weighs every key 0
+    dl = in ? delta[bh * T + row] : 0.f;
+  };
+  // ... and write its side data into the tile's ring slot
+  auto store_query = [&](int qt, int p, float l, float dl) {
+    const int slot = (qt % kStages) * kTile + tid;
+    sQry[slot] = make_float4(static_cast<float>(p), (kSentinel && p < 0) ? 0.f : 1.f,
+                             -l * kLog2e, dl);
+    sDead[slot] = l < kDeadLse ? inv_t : 0.f;
+  };
+
+  // prologue: K, V and the first kStages - 1 pairs, one commit group each
+  stage_tile<kThreads>(sK, k, kD, k0, T, tid);
+  stage_tile<kThreads>(sV, v, kD, k0, T, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage_pair(s);
+    cp_async_commit();
+  }
+  if (tid < kTile) {
+    for (int s = 0; s < kStages - 1 && s < n_tiles; ++s) {
+      int p;
+      float l, dl;
+      load_query(s, p, l, dl);
+      store_query(s, p, l, dl);
+    }
+  }
+
+  // this thread's keys k0 + 16 warp + g + 8r (rows of S^T)
+  const float slope = slopes[h];
+  const float cs = a.sm_scale * kLog2e;
+  float pk[2], sl2[2];
+  bool kpad[2];  // a padded key: P = 1/T in rows of padded keys, dS = 0
+  uint32_t zkey[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + r0 + 8 * r;
+    const int key = k0 + warp * 16 + g + 8 * r;
     const bool in = key < T;
-    pk[r] = in ? static_cast<float>(posr[key]) : 0.f;
-    kflag[r] = !in ? 2 : ((maskr && maskr[key]) ? 1 : 0);
+    const int p = in ? posr[key] : 0;
+    pk[r] = static_cast<float>(p);
+    sl2[r] = (kSentinel && p < 0) ? 0.f : slope * kLog2e;
+    kpad[r] = in && maskr && maskr[key];
+    zkey[r] = static_cast<uint32_t>(key) * kHashCol;
   }
-  const float slope = slopes[h];
 
-  float acc_dk[kD / 8][4], acc_dv[kD / 8][4];
+  float acc_dk[32], acc_dv[32], st[32], dpt[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    acc_dk[dn][0] = acc_dk[dn][1] = acc_dk[dn][2] = acc_dk[dn][3] = 0.f;
-    acc_dv[dn][0] = acc_dv[dn][1] = acc_dv[dn][2] = acc_dv[dn][3] = 0.f;
-  }
+  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
-  const int n_tiles = (T + kTile - 1) / kTile;
   for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_tile(sQ, q, q0, T, tid);
-    stage_tile(sDO, dor, q0, T, tid);
-    cp_async_commit();
-    if (tid < kTile) {
-      const int row = q0 + tid;
-      const bool in = row < T;
-      const float l = in ? lse[bh * T + row] : 0.f;
-      sPosQ[tid] = in ? static_cast<float>(posr[row]) : 0.f;
-      sLse[tid] = l;
-      sDelta[tid] = in ? delta[bh * T + row] : 0.f;
-      sFlagQ[tid] = !in ? 2 : (l < kDeadLse ? 1 : 0);
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile qt have landed
+    fence_proxy_async();
+    __syncthreads();  // tile qt visible to all; every thread is done with tile qt - 1
+    const int nt = qt + kStages - 1;
+    int np = 0;
+    float nl = 0.f, nd = 0.f;
+    if (nt < n_tiles) {
+      stage_pair(nt);  // into the slot tile qt - 1 used
+      if (tid < kTile) load_query(nt, np, nl, nd);
     }
-    cp_async_wait<0>();
-    __syncthreads();
+    cp_async_commit();
 
-    float st[kTile / 8][4], dpt[kTile / 8][4];
-    rows_product(st, kf, sQ, g, i4);    // S^T = K Q^T
-    rows_product(dpt, vf, sDO, g, i4);  // dP^T = V dO^T
+    const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * kDescTile;
+    wgmma_fence();
+    gemm_tile_nt(st, desc_k, desc_q);                          // S^T = K Q^T
+    wgmma_commit();
+    gemm_tile_nt(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const float4* qry = sQry + (qt % kStages) * kTile;
+    const float* dead = sDead + (qt % kStages) * kTile;
+    const uint32_t zt = static_cast<uint32_t>(qt * kTile + 2 * i4) * kHashRow;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * i4 + (e & 1);
-        const int qflag = sFlagQ[col];
-        float p = 0.f;  // a padded key weighs 0, or 1/T in a row of padded keys
-        if (kflag[r] == 0 && qflag != 2)
-          p = expf(st[j][e] * a.sm_scale - slope * alibi_dist(sPosQ[col], pk[r], sentinel) -
-                   sLse[col]);
-        else if (kflag[r] == 1 && qflag == 1)
-          p = inv_t;
-        const float f = drop ? drop_factor(seed_word, q0 + col, k0 + r0 + 8 * r, a.thresh,
-                                           a.keep_scale)
-                             : 1.f;
-        const float ds = kflag[r] == 0 ? p * (dpt[j][e] * f - sDelta[col]) : 0.f;
-        st[j][e] = p * f;
-        dpt[j][e] = ds;
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * i4 + e;
+        const float4 qd = qry[col];
+        const float pd = dead[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float dist = fabsf(qd.x - pk[r]);
+          if (kSentinel) dist *= qd.y;
+          float p = ex2(fmaf(st[i], cs, fmaf(-sl2[r], dist, qd.z)));
+          float f = 1.f;
+          if (kDrop) {
+            const uint32_t z = zt + static_cast<uint32_t>(8 * j + e) * kHashRow + zkey[r];
+            f = drop_mix_seeded(seed_mix, z) >= a.thresh ? a.keep_scale : 0.f;
+          }
+          float ds = p * fmaf(dpt[i], f, -qd.w);
+          if (kpad[r]) {
+            p = pd;
+            ds = 0.f;
+          }
+          st[i] = p * f;
+          dpt[i] = ds;
+        }
       }
     }
-    acc_times_tile(acc_dv, st, sDO, lane);  // dv += (P f)^T dO
-    acc_times_tile(acc_dk, dpt, sQ, lane);  // dk += dS^T Q
+    uint32_t fpf[4][4], fds[4][4];
+    frag_from_acc(fpf, st);
+    frag_from_acc(fds, dpt);
+    wgmma_fence();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    gemm_frag_tile(acc_dv, fpf, desc_q + kDescTile);  // dv += (P f)^T dO
+    gemm_frag_tile(acc_dk, fds, desc_q);               // dk += dS^T Q
+    wgmma_commit();
+    if (nt < n_tiles && tid < kTile) store_query(nt, np, nl, nd);
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    fence_regs(fpf);
+    fence_regs(fds);
   }
 
-  store_rows(dk + bh * head, kD, acc_dk, k0 + r0, k0 + r0 + 8, T, a.sm_scale, i4);
-  store_rows(dv + bh * head, kD, acc_dv, k0 + r0, k0 + r0 + 8, T, 1.f, i4);
+  bf16* dkr = dk + bh * head;
+  bf16* dvr = dv + bh * head;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key < T) {
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const size_t at = static_cast<size_t>(key) * kD + 8 * j + 2 * i4;
+        *reinterpret_cast<uint32_t*>(&dkr[at]) =
+            pack_bf16(acc_dk[4 * j + 2 * r] * a.sm_scale, acc_dk[4 * j + 2 * r + 1] * a.sm_scale);
+        *reinterpret_cast<uint32_t*>(&dvr[at]) =
+            pack_bf16(acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
 }
 
 int check_args(int B, int H, int T, int D) {
@@ -352,8 +537,18 @@ extern "C" int a2v_alibi_attention_bwd_dq(const void* qkv, const void* dout, con
   if (int err = check_args(B, H, T, D)) return err;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale};
-  alibi_attention_dq_kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, bf16*, float*, BwdArgs);
+  const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
+  const Kernel kernel =
+      drop ? (sentinel ? alibi_attention_dq_kernel<true, true> : alibi_attention_dq_kernel<true, false>)
+           : (sentinel ? alibi_attention_dq_kernel<false, true>
+                       : alibi_attention_dq_kernel<false, false>);
+  if (cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem))
+    return static_cast<int>(err);
+  kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, kDqSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), static_cast<const int*>(pos),
@@ -372,8 +567,19 @@ extern "C" int a2v_alibi_attention_bwd_dkv(const void* qkv, const void* dout, co
   if (int err = check_args(B, H, T, D)) return err;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale};
-  alibi_attention_dkv_kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, bf16*, bf16*, BwdArgs);
+  const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
+  const Kernel kernel =
+      drop ? (sentinel ? alibi_attention_dkv_kernel<true, true>
+                       : alibi_attention_dkv_kernel<true, false>)
+           : (sentinel ? alibi_attention_dkv_kernel<false, true>
+                       : alibi_attention_dkv_kernel<false, false>);
+  if (cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem))
+    return static_cast<int>(err);
+  kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, kDkvSmem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), static_cast<const int*>(pos),

@@ -88,15 +88,28 @@ __device__ __forceinline__ float gelu_erf(float x) {
 // over (row, col) mixed with the seed word (attention: seed + bh *
 // 0xC2B2AE3D; fused block: the seed). An element is kept when the hash is
 // >= the host-computed threshold min(int(rate * 2^32), 2^32 - 1).
-__device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, uint32_t col) {
-  uint32_t z = row * 0x9E3779B1u + col * 0x85EBCA77u;
-  z ^= seed_word;
-  z ^= z >> 15;
+// A kernel that walks a tile may add the row and column terms itself
+// (kHashRow * row + kHashCol * col, wrapping) and finish with
+// drop_mix_seeded(drop_seed_mix(seed_word), z), the seed's part of the
+// first xorshift done once: (z ^ s) ^ ((z ^ s) >> 15) = z ^ (z >> 15) ^
+// (s ^ (s >> 15)).
+constexpr uint32_t kHashRow = 0x9E3779B1u, kHashCol = 0x85EBCA77u;
+
+__device__ __forceinline__ uint32_t drop_seed_mix(uint32_t seed_word) {
+  return seed_word ^ (seed_word >> 15);
+}
+
+__device__ __forceinline__ uint32_t drop_mix_seeded(uint32_t seed_mix, uint32_t z) {
+  z ^= (z >> 15) ^ seed_mix;
   z *= 0x2C1B3C6Du;
   z ^= z >> 12;
   z *= 0x297A2D39u;
   z ^= z >> 15;
   return z;
+}
+
+__device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, uint32_t col) {
+  return drop_mix_seeded(drop_seed_mix(seed_word), row * kHashRow + col * kHashCol);
 }
 
 // Dropout of one site: keep when drop_hash(seed, row, col) >= thresh.

@@ -1,0 +1,187 @@
+// Hopper (sm_90a) building blocks of the wgmma kernels: tiles of 64-element
+// bf16 rows (128 bytes, D = 64) in the 128-byte swizzled shared-memory
+// layout, staged by cp.async; the wgmma descriptor of such a tile; the
+// wgmma m64n64k16 bf16 products (fp32 accumulate) with both operands in
+// shared memory (SS) or A in registers (RS); and the fences that order
+// them.
+//
+// One warpgroup (four warps, 128 threads) issues each product for 64 rows;
+// warp w owns rows 16w .. 16w + 15. Register layouts (PTX ISA, "wgmma
+// .m64nNk16"), lane = 4*g + i:
+//   D (64 x 64 fp32, 32 registers): d[4j + 2r + e] = D[16w + g + 8r][8j + 2i + e]
+//     (the mma.sync m16n8 accumulator layout, once per 8 columns);
+//   A (64 x 16 bf16, RS, 4 registers): the mma.sync m16n8k16 A layout of the
+//     warp's 16 rows (common.cuh). So the bf16 of columns 16kk .. 16kk + 15
+//     of an accumulator is the A operand of step kk of the next product:
+//     frag_from_acc below.
+#pragma once
+
+#include "common.cuh"
+
+namespace a2v {
+namespace sm90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRowElems = 64;               // a tile row: 64 bf16 = 128 bytes
+constexpr int kTileRows = 64;               // wgmma's M, and the N of these products
+constexpr int kTileElems = kTileRows * kRowElems;  // one 8 KB tile
+constexpr int kTileAlign = 1024;            // the swizzle repeats every 8 rows
+
+// 128-byte swizzle: row r of a tile keeps its 16-byte chunk c at chunk
+// c ^ (r % 8), the layout that wgmma's descriptor (layout 1) and TMA's
+// SWIZZLE_128B use. The hardware XORs address bits [4, 7) with bits [7, 10),
+// so a tile's base must be 1024-byte aligned. Returns the element offset.
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * kRowElems + ((chunk ^ (row & 7)) << 3);
+}
+
+// Rows row0 .. row0 + 63 of a plane of 64-element bf16 rows (row_stride
+// elements apart) into a swizzled tile by cp.async, 16 bytes at a time;
+// rows at or past T are zero-filled. The caller commits the group.
+template <int kThreads>
+__device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src, long long row_stride,
+                                           int row0, int T, int tid) {
+  static_assert(kTileRows * 8 % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < kTileRows * 8 / kThreads; ++i) {
+    const int c = tid + i * kThreads, r = c >> 3, ch = c & 7, row = row0 + r;
+    const bool in = row < T;
+    cp_async_16(tile + sw128(r, ch), src + (in ? row : 0) * row_stride + ch * 8, in);
+  }
+}
+
+// wgmma descriptor of a swizzled tile: start address >> 4 in bits [0, 14);
+// leading byte offset in [16, 30), which a 128-byte-swizzled operand whose
+// K (or MN) extent is one 128-byte row never uses (1 by convention); stride
+// byte offset 1024 >> 4 in [32, 46), the step between groups of 8 rows;
+// base offset 0 (1024-aligned tiles) in [49, 52); layout 1, the 128-byte
+// swizzle, in [62, 64). The one descriptor reads the tile
+//   K-major (rows along M or N, a row's 64 elements along K; transpose bit
+//     0): the k16 step kk starts 32 * kk bytes in, inside the swizzle atom;
+//   MN-major (rows along K, a row's 64 elements along N; transpose bit 1,
+//     for B): the k16 step kk starts 16 rows = 2048 * kk bytes in.
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  return (static_cast<uint64_t>(smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+constexpr uint64_t kDescStepK = 32 >> 4;     // K-major: 16 elements along the row
+constexpr uint64_t kDescStepMN = 2048 >> 4;  // MN-major: 16 rows
+constexpr uint64_t kDescTile = (kTileElems * 2) >> 4;  // the next tile
+
+// Before a wgmma whose accumulator or A registers ordinary code wrote.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most N committed groups of this thread's warpgroup are pending;
+// before any thread reads their accumulators.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async and st.shared write through the generic proxy; wgmma reads
+// shared memory through the async proxy. After the writes have landed (the
+// cp.async wait) and before the barrier that precedes the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma uses across its issue or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+#define A2V_D32(c)                                                                          \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]),     \
+      c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),     \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+#define A2V_D32_REGS                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define A2V_RW(x) "+f"(x)
+#define A2V_WO(x) "=f"(x)
+
+// d (64 x 64) = or += A (64 x 16, K-major, descriptor) . B (16 x 64,
+// descriptor; kTransB 0: K-major, 1: MN-major). kAccumulate false
+// overwrites d (scale-d 0), and d is then write-only to the compiler.
+template <bool kAccumulate, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " A2V_D32_REGS
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : A2V_D32(A2V_RW)
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " A2V_D32_REGS
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : A2V_D32(A2V_WO)
+        : "l"(desc_a), "l"(desc_b), "r"(0), "n"(kTransB));
+  }
+}
+
+// d (64 x 64) += A (64 x 16 bf16 in registers, the layout above) . B (16 x
+// 64, descriptor; kTransB as above).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " A2V_D32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : A2V_D32(A2V_RW)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
+}
+
+#undef A2V_D32
+#undef A2V_D32_REGS
+#undef A2V_RW
+#undef A2V_WO
+
+// d = A . B^T for two swizzled 64 x 64 tiles (descriptors) read K-major
+// (rows of A along M, rows of B along N, D = 64 along K): four k16 steps.
+// Issue only; the caller commits and waits.
+__device__ __forceinline__ void gemm_tile_nt(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_ss<false, 0>(d, da, db);
+#pragma unroll
+  for (int kk = 1; kk < kRowElems / 16; ++kk)
+    wgmma_ss<true, 0>(d, da + kk * kDescStepK, db + kk * kDescStepK);
+}
+
+// d += A . B with A (64 x 64) in registers as four k16 fragments and B a
+// swizzled 64 x 64 tile (descriptor) whose rows run along K (MN-major).
+// Issue only.
+__device__ __forceinline__ void gemm_frag_tile(float (&d)[32], const uint32_t (&a)[4][4],
+                                               uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < kTileRows / 16; ++kk) wgmma_rs<1>(d, a[kk], db + kk * kDescStepMN);
+}
+
+// bf16 A fragments of a 64 x 64 fp32 accumulator (columns along K).
+__device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+  }
+}
+
+}  // namespace sm90
+}  // namespace a2v

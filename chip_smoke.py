@@ -51,7 +51,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    call's (scaled_dot_product_attention with the ALiBi bias as a float
    mask; torch._int_mm for the int8 product) and the bound the card's peak
    rates set, at the serving shape and at the training shape, and the image
-   kernels at the image serving shapes;
+   kernels at the image serving shapes; the backward kernels (#3, #4) also
+   beside SDPA's backward alone, at dropout 0 and at the a2v-large
+   pretraining student's b60 T125, with achieved TFLOP/s;
 8. the training path: the full a2v-large finetune model with the
    finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
    windows with the freeze gate open, launch counts per step; then at b1
@@ -1216,8 +1218,9 @@ def phase_kernel_times(dev):
                                                            dropout_p=ATTN_DROP)),
             bounds["forward"])
         plain_bwd = cuda_ms(lambda: attention_bwd_plain(*bwd), iters=3)
-    # the library yardstick of the backward: SDPA forward and backward
-    # through autograd with the float bias, at the same shape
+    # the library yardsticks of the backward: SDPA forward and backward
+    # through autograd with the float bias, at the same shape and dropout,
+    # and SDPA's backward alone (its forward once, outside the timed loop)
     q, k, v, bias = sdpa_args(qkv, slopes, t, requires_grad=True)
     g = dout.clone()
 
@@ -1225,14 +1228,42 @@ def phase_kernel_times(dev):
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=ATTN_DROP)
         torch.autograd.grad(o, (q, k, v), g)
 
-    lib_bwd = cuda_ms(sdpa_fwd_bwd)
-    row(f"attention dq + slope partials, b{b} training", cuda_ms(lambda: attention_dq(*bwd)),
-        plain_bwd, lib_bwd, bounds["dq"])
-    row(f"attention dk/dv, b{b} training", cuda_ms(lambda: attention_dkv(*bwd)),
-        plain_bwd, lib_bwd, bounds["dkv"])
-    print("  (plain: attention_bwd_plain computes dq, dk, dv and the partials in one call; "
-          "library: SDPA forward + backward with the float ALiBi mask, dropout 0.2)")
-    del q, k, v, bias, qkv, dout
+    lib_fwd_bwd = cuda_ms(sdpa_fwd_bwd)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=ATTN_DROP)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True))
+    del o
+    dq_ms, dkv_ms = cuda_ms(lambda: attention_dq(*bwd)), cuda_ms(lambda: attention_dkv(*bwd))
+    row(f"attention dq + slope partials, b{b} training", dq_ms, plain_bwd, lib_fwd_bwd,
+        bounds["dq"])
+    row(f"attention dk/dv, b{b} training", dkv_ms, plain_bwd, lib_fwd_bwd, bounds["dkv"])
+    print(f"  (plain: attention_bwd_plain computes dq, dk, dv and the partials in one call; "
+          f"library: SDPA forward + backward with the float ALiBi mask, dropout {ATTN_DROP}; "
+          f"SDPA's backward alone {lib_bwd:.3f} ms; dq + dk/dv {dq_ms + dkv_ms:.3f} ms)")
+    extra = {"dq": {"library_bwd_ms": lib_bwd}, "dkv": {"library_bwd_ms": lib_bwd}}
+    bwd_splits(extra, f"b{b} T {t} dropout 0", b, h, t, (*bwd[:8], 0.0, None), "dropout0")
+    extra["dq"]["tflops"] = tflops("dq", b, h, t, dq_ms)
+    extra["dkv"]["tflops"] = tflops("dkv", b, h, t, dkv_ms)
+    # the a2v-large pretraining student: b60 (5 x clone 12), 125 kept tokens
+    # at per-row keep-set positions, dropout 0.1
+    rng = np.random.default_rng(SEED + 19)
+    bs, ts = 60, 125
+    qkv_s, slopes_s = attention_inputs(gen, bs, h, ts, dev)
+    pos_s = torch.from_numpy(np.stack([np.sort(rng.choice(2000, ts, replace=False))
+                                       for _ in range(bs)]).astype(np.int32)).to(dev)
+    dout_s = torch.randn((bs, h, ts, 64), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        out_s, lse_s = alibi_flash_attention_packed(qkv_s, slopes_s, pos_s, None, False, 0.1,
+                                                    DROP_SEED, return_lse=True)
+    delta_s = (dout_s.float() * out_s.float()).sum(-1).reshape(bs * h, ts)
+    bwd_splits(extra, f"b{bs} T {ts} keep-set positions, dropout 0.1", bs, h, ts,
+               (qkv_s, dout_s, lse_s, delta_s, slopes_s, pos_s, None, False, 0.1, DROP_SEED),
+               "student")
+    rows[f"attention dq + slope partials, b{b} training"].update(extra["dq"])
+    rows[f"attention dk/dv, b{b} training"].update(extra["dkv"])
+    print(f"attention dq / dk/dv at b{b} T {t}: {extra['dq']['tflops']:.1f} / "
+          f"{extra['dkv']['tflops']:.1f} TFLOP/s (bounds {bounds['dq'][0]:.3f} / "
+          f"{bounds['dkv'][0]:.3f} ms)")
+    del q, k, v, bias, qkv, dout, qkv_s, dout_s
     torch.cuda.empty_cache()
     with torch.inference_mode():
         n = TRAIN_BATCH * 2000
@@ -1247,6 +1278,47 @@ def phase_kernel_times(dev):
         image_kernel_times(gen, dev, row)
     pretrain_kernel_times(gen, dev, row)
     return rows
+
+
+def tflops(kernel, b, h, t, ms, d=64):
+    """Achieved TFLOP/s of the dq (3 products of 2*T^2*D per (b, h)) or
+    dk/dv (4) kernel in ``ms``."""
+    return (3 if kernel == "dq" else 4) * 2 * b * h * t * t * d / (ms * 1e-3) / 1e12
+
+
+def device_ms(fn, kernel, iters=10):
+    """Device time per call of the CUDA kernels whose name holds ``kernel``,
+    by torch.profiler over ``iters`` calls of fn after one: the CUDA-event
+    time of a kernel shorter than its wrapper's host work measures the
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+    from animal2vec_tpu_torch.tools.profile_forward import kernel_rows
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for us, _, name in kernel_rows(prof) if kernel in name) / iters / 1e3
+
+
+def bwd_splits(extra, label, b, h, t, args, prefix):
+    """Times of the dq and dk/dv kernels on ``args`` (CUDA events around the
+    wrapper, and device time) beside their bounds and achieved TFLOP/s (of
+    the device time), into extra["dq"] and extra["dkv"] under ``prefix``."""
+    from animal2vec_tpu_torch.ops.attention import attention_dkv, attention_dq
+
+    bounds = attention_bounds(b, h, t)
+    for kernel, fn in (("dq", attention_dq), ("dkv", attention_dkv)):
+        ms = cuda_ms(lambda: fn(*args))
+        dev_ms = device_ms(lambda: fn(*args), f"alibi_attention_{kernel}_kernel")
+        rate = tflops(kernel, b, h, t, dev_ms)
+        extra[kernel].update({f"{prefix}_ms": ms, f"{prefix}_device_ms": dev_ms,
+                              f"{prefix}_bound_ms": bounds[kernel][0],
+                              f"{prefix}_tflops": rate})
+        print(f"attention {kernel}, {label}: kernel {ms:.3f} ms (device {dev_ms:.3f} ms), "
+              f"{rate:.1f} TFLOP/s, bound {bounds[kernel][0]:.3f} ms ({bounds[kernel][1]})")
 
 
 def int8_kernel_times(gen, dev, row):
