@@ -13,52 +13,110 @@
 // The TPU kernel adds the bias before its sm_scale, (q.k + bias) / sqrt(D),
 // which weakens the bias by 1/sqrt(D); the port does not copy that. A query
 // row whose keys are all padded scores -1e10 everywhere and returns the mean
-// of V over the T keys, as xla_attention's softmax does.
-//
-// Design: one thread block per (64-query tile, head, batch) with four warps,
-// each owning 16 query rows, as alibi_attention.cu. q, k and v are read in
-// place from (B, T, H, D) views with any batch and time strides (the model
-// hands over the q, k, v thirds of its (B, T, 3, H, D) projection): a head's
-// row is 128 contiguous bytes, so the tiles still arrive as 16-byte cp.async
-// chunks and no packed copy of qkv is made. K/V tiles of 64 keys are staged
-// in shared memory; S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate); P stays in registers between the two products; V's B
-// operand comes out of shared memory by ldmatrix.trans. Each thread reads the
-// fp32 bias of its own scores straight from device memory (a (1, H, T, T)
-// bias of the image serving shape is 1.8 MB and stays in L2); a batch-uniform
-// bias is read with batch stride 0. Keys past T (196 is not a multiple of 64)
-// are dropped by bounds. The output is written as (B, T, H, D), the out
-// projection's (B, T, C) input.
+// of V over the T keys, as xla_attention's softmax does. With lse the
+// kernel also writes each row's logsumexp m + log l (the running max and
+// the sum of exp(s - m)), which the backward (bias_attention_bwd.cu) reads.
 //
 // Bound on the H100 at the image serving shape (B = 64, H = 12, T = 196):
 // the two products are 7.6 GFLOP (8 us at the bf16 peak) against 77 MB of
-// q, k, v and out (23 us at 3.35 TB/s): bound by bytes, and short: the
-// launch and the first tiles' latency weigh as much as either. Which of the
-// fp32 per-score work and the mma.sync rate bounds it at T 1024 has not been
-// measured; wgmma and a double-buffered K/V pipeline are the levers.
-#include "common.cuh"
+// q, k, v and out and the 1.8 MB bias plane (23 us at 3.35 TB/s): bound by
+// bytes, and short, so latency that is not overlapped (a tile's copies, the
+// bias reads) and work on empty keys weigh as much as either.
+//
+// Design (Hopper, sm_90a): one warpgroup (128 threads) per block owns 64
+// query rows of one (batch, head), wgmma's M, and walks the keys in tiles
+// of 64 with an online softmax (running max and sum, fp32). q, k and
+// v are read in place from (B, T, H, D) views with any batch and time
+// strides (the model hands over the q, k, v thirds of its (B, T, 3, H, D)
+// projection): a head's row is 128 contiguous bytes, so every tile arrives
+// as 16-byte cp.async chunks into the 128-byte swizzle of csrc/sm90.cuh, and
+// no packed copy of qkv is made.
+//   - S = Q K^T is an SS wgmma (m64n64k16, four k-steps over D) from the
+//     swizzled Q and K tiles; O += P V an RS wgmma whose A is the bf16 of
+//     S's accumulator after the scalar pass (frag_from_acc), with V read
+//     MN-major: P never leaves registers.
+//   - A ring of two stages holds each key tile's K, V, fp32 bias rows and
+//     key-mask flags: the copies of tile t + 1 are in flight while tile t's
+//     products and scalar pass run, so no tile's latency is exposed (the
+//     mma.sync kernel this replaces waited for each tile before its
+//     products and read each score's bias from device memory inside the
+//     scalar pass). The bias rows (64 x 64 fp32, 16 KB) are staged by
+//     cp.async in 16-byte chunks when the rows are 16-byte aligned (T % 4
+//     == 0: the image grid's 196 and 1024), else 4 bytes at a time (the
+//     student's 59), into an XOR swizzle of 16-byte chunks by row, (chunk
+//     ^ 2 (row % 4)), that makes each thread's float2 reads conflict-free.
+//     A batch-uniform (1, H, T, T) bias is read with batch stride 0 and
+//     stays in L2; a per-row (B, H, T, T) bias (pretraining's student)
+//     goes the same way.
+//   - The last key tile is narrowed to the live keys: at T 196 it holds 4
+//     of 64. When it holds at most 32, S is computed in 8-key column groups
+//     (wgmma m64n8k16, as many as the keys need) and P V takes only the
+//     k16 steps that hold live keys; the scalar pass skips the rest. Keys
+//     past T score -inf and their V rows are zero-filled.
+//   - The scalar pass forms x - m before its exponential, expf(x - m), so
+//     that a row whose keys are all padded gets exactly 1 per key, and
+//     rounds the score and its exponential as the backward
+//     (bias_attention_bwd.cu) does when it rebuilds P from the lse; the
+//     bounds checks run on the last tile only.
+// Shared memory: Q 8 KB, two stages of K and V (32 KB), of bias (32 KB, only
+// with a bias) and flags, 1 KB of alignment slack: 73.5 KB with a bias, so
+// that three blocks share an SM and one block's scalar pass overlaps
+// another's products and copies. Measured slower on an H100 (PERF.md):
+// blocks of two or four warpgroups sharing each K/V tile, blocks that walk
+// several batch rows with the uniform bias kept in shared memory, a third
+// ring stage, and copying only the live rows of the last tiles.
+#include <cmath>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace a2v {
 namespace {
 
-constexpr int kD = 64;
-constexpr int kBQ = 64;           // query rows per block (4 warps x 16)
-constexpr int kBK = 64;           // keys per tile
-constexpr int kLds = kD + 8;      // padded shared row: conflict-free 32-bit reads
-constexpr int kThreads = 128;
-constexpr float kMasked = -1e10f;  // NEG_INF of models/attention.py
-
 using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int kD = 64;
+constexpr int kTile = 64;          // query rows per block; keys per tile
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kStages = 2;         // ring depth of the key tiles
+constexpr float kMasked = -1e10f;  // NEG_INF of models/attention.py
+constexpr int kTileBytes = kTileElems * 2;
+constexpr int kBiasTileBytes = kTile * kTile * 4;
+
+// dynamic shared memory: Q, the ring's K tiles, its V tiles, its bias
+// tiles (with a bias), its flags, and slack to align the base to 1024 bytes
+constexpr int smem_bytes(bool has_bias) {
+  return kTileBytes * (1 + 2 * kStages) + (has_bias ? kStages * kBiasTileBytes : 0) +
+         kStages * kTile * 4 + kTileAlign;
+}
 
 struct BiasArgs {
   long long stride_b;  // elements between batch rows of q, k and v
   long long stride_t;  // elements between time rows
   int H, T;
   float sm_scale;
+  int bias16;  // the bias rows are 16-byte aligned: staged in 16-byte chunks
 };
 
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// fp32 element (row r, column c) of a swizzled 64 x 64 bias tile
+__device__ __forceinline__ int bias_at(int r, int c) {
+  return r * kTile + ((((c >> 2) ^ ((r & 3) << 1))) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + kTileAlign - 1) & ~uint32_t(kTileAlign - 1)) - a);
+}
+
 template <bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ bias,    // (1 or B, H, T, T)
@@ -66,15 +124,15 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       bf16* __restrict__ out,            // (B, T, H, D)
                       float* __restrict__ lse,           // null or (B*H, T)
                       BiasArgs a) {
-  const int H = a.H, T = a.T;
-  __shared__ __align__(16) bf16 sQ[kBQ * kLds];
-  __shared__ __align__(16) bf16 sK[kBK * kLds];
-  __shared__ __align__(16) bf16 sV[kBK * kLds];
-  __shared__ int sFlagK[kBK];  // 0 = live key, 1 = padded, 2 = past T
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sQ = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sK = sQ + kTileElems;          // stage s at s tiles in
+  bf16* const sV = sK + kStages * kTileElems;
+  float* const sBias = reinterpret_cast<float*>(sV + kStages * kTileElems);
+  int* const sPad = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kStages * kTile * kTile : 0));
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int H = a.H, T = a.T;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
 
@@ -82,89 +140,134 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + head;
   const bf16* kb = k + head;
   const bf16* vb = v + head;
+  const float* plane =
+      HAS_BIAS ? bias + (static_cast<size_t>(UNIFORM_BIAS ? 0 : b) * H + h) * T * T : nullptr;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<size_t>(b) * T : nullptr;
+  const int n_tiles = (T + kTile - 1) / kTile;
 
-  for (int c = tid; c < kBQ * kD / 8; c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8, row = q0 + r;
-    cp_async_16(&sQ[r * kLds + col],
-                qb + static_cast<long long>(row < T ? row : 0) * a.stride_t + col, row < T);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[kD / 16][4];
+  // key tile kt's K, V and bias rows into its ring slot; one commit group
+  auto stage = [&](int kt) {
+    const int slot = kt % kStages, k0 = kt * kTile;
+    stage_tile<kThreads>(sK + slot * kTileElems, kb, a.stride_t, k0, T, tid);
+    stage_tile<kThreads>(sV + slot * kTileElems, vb, a.stride_t, k0, T, tid);
+    if constexpr (HAS_BIAS) {
+      float* dst = sBias + slot * kTile * kTile;
+      if (a.bias16) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * i4;
-    qf[kk][0] = ld_u32(&sQ[r0 * kLds + c]);
-    qf[kk][1] = ld_u32(&sQ[(r0 + 8) * kLds + c]);
-    qf[kk][2] = ld_u32(&sQ[r0 * kLds + c + 8]);
-    qf[kk][3] = ld_u32(&sQ[(r0 + 8) * kLds + c + 8]);
-  }
-  const int row0 = q0 + r0, row1 = row0 + 8;
-  // this thread's two bias rows (null past T: those rows are not stored)
-  const float* brow[2] = {nullptr, nullptr};
-  if (HAS_BIAS) {
-    const float* plane =
-        bias + (static_cast<size_t>(UNIFORM_BIAS ? 0 : b) * H + h) * static_cast<size_t>(T) * T;
-    if (row0 < T) brow[0] = plane + static_cast<size_t>(row0) * T;
-    if (row1 < T) brow[1] = plane + static_cast<size_t>(row1) * T;
-  }
+        for (int i = 0; i < kTile * 16 / kThreads; ++i) {
+          const int c = tid + i * kThreads, r = c >> 4, ch = c & 15;
+          const int row = q0 + r, col = k0 + 4 * ch;
+          const bool in = row < T && col < T;
+          cp_async_16(dst + bias_at(r, 4 * ch),
+                      plane + (in ? static_cast<size_t>(row) * T + col : 0), in);
+        }
+      } else {
+#pragma unroll 8
+        for (int i = 0; i < kTile * kTile / kThreads; ++i) {
+          const int c = tid + i * kThreads, r = c >> 6, cc = c & 63;
+          const int row = q0 + r, col = k0 + cc;
+          const bool in = row < T && col < T;
+          cp_async_4(dst + bias_at(r, cc), plane + (in ? static_cast<size_t>(row) * T + col : 0),
+                     in);
+        }
+      }
+    }
+  };
+  // threads < 64 read key kt * 64 + tid's mask flag ...
+  auto load_pad = [&](int kt) {
+    const int key = kt * kTile + tid;
+    return key < T && mrow[key] ? 1 : 0;
+  };
 
+  // prologue: Q, then the first key tile, one commit group each
+  stage_tile<kThreads>(sQ, qb, a.stride_t, q0, T, tid);
+  cp_async_commit();
+  stage(0);
+  cp_async_commit();
+  if (HAS_MASK && tid < kTile) sPad[tid] = load_pad(0);
+
+  // this thread's rows q0 + 16 warp + g + 8r
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};
-  float o[kD / 8][4];
+  float o[32], sc[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  const uint64_t desc_q = desc_sw128(sQ), desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
 
-  const int n_tiles = (T + kBK - 1) / kBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < kBK * kD / 8; c += kThreads) {
-      const int r = c >> 3, col = (c & 7) * 8, key = k0 + r;
-      const long long src = static_cast<long long>(key < T ? key : 0) * a.stride_t + col;
-      cp_async_16(&sK[r * kLds + col], kb + src, key < T);
-      cp_async_16(&sV[r * kLds + col], vb + src, key < T);
+    cp_async_wait<0>();  // this thread's copies of tile kt (and Q) have landed
+    fence_proxy_async();
+    __syncthreads();  // tile kt visible to all; every thread is done with tile kt - 1
+    const int nt = kt + 1;
+    int npad = 0;
+    if (nt < n_tiles) {
+      stage(nt);  // into the slot tile kt - 1 used
+      if (HAS_MASK && tid < kTile) npad = load_pad(nt);
     }
     cp_async_commit();
-    if (tid < kBK) {
-      const int key = k0 + tid;
-      sFlagK[tid] = key >= T ? 2 : ((HAS_MASK && mrow[key]) ? 1 : 0);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[kBK / 8][4];
+    const int slot = kt % kStages, k0 = kt * kTile;
+    const int width = min(kTile, T - k0);  // keys of this tile below T
+    const int n_groups = (width + 7) >> 3;  // 8-key column groups S holds
+    const int n_steps = (width + 15) >> 4;  // k16 steps of P V
+    const uint64_t dk = desc_k + slot * kDescTile;
+    wgmma_fence();
+    if (n_groups > 4) {
+      gemm_tile_nt(sc, desc_q, dk);  // S = Q K^T, all 64 keys
+    } else {
+      // a narrow last tile: S in 8-key column groups (rows 8j.. of the K tile
+      // start 1024 bytes apart)
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* krow = &sK[(j * 8 + g) * kLds + 2 * i4];
+      for (int j = 0; j < 4; ++j) {
+        if (j < n_groups) {
+          const uint64_t dkj = dk + j * (1024 >> 4);
+          wgmma_ss_n8<false>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3], desc_q, dkj);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t bk[2] = {ld_u32(krow + kk * 16), ld_u32(krow + kk * 16 + 8)};
-        mma_16816(s[j], qf[kk], bk);
+          for (int kk = 1; kk < kD / 16; ++kk)
+            wgmma_ss_n8<true>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3],
+                              desc_q + kk * kDescStepK, dkj + kk * kDescStepK);
+        }
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
 
-    // scale + bias, then the key mask, then the running row max
+    // scale + bias, then the key mask, then the running row max; on the
+    // last tile (kEdge) keys past T, and the column groups S did not
+    // compute, score -inf
+    const float* bt = sBias + slot * kTile * kTile;
+    const int* pad = sPad + slot * kTile;
     float mx[2] = {-INFINITY, -INFINITY};
+    auto scores = [&](auto edge) {
+      constexpr bool kEdge = decltype(edge)::value;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+      for (int j = 0; j < kTile / 8; ++j) {
+        if (kEdge && j >= 2 * n_steps) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * i4 + (e & 1);
-        const int flag = sFlagK[col];
-        float x = s[j][e] * a.sm_scale;
-        if (HAS_BIAS && flag != 2 && brow[e >> 1] != nullptr) x += __ldg(brow[e >> 1] + k0 + col);
-        x = flag == 0 ? x : (flag == 1 ? kMasked : -INFINITY);
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r, col = 8 * j + 2 * i4;
+          float2 bv = make_float2(0.f, 0.f);
+          if constexpr (HAS_BIAS) bv = *reinterpret_cast<const float2*>(bt + bias_at(row, col));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * r + e;
+            float x = sc[i] * a.sm_scale;
+            if constexpr (HAS_BIAS) x += e ? bv.y : bv.x;
+            if (HAS_MASK && pad[col + e]) x = kMasked;
+            if (kEdge && col + e >= width) x = -INFINITY;
+            sc[i] = x;
+            mx[r] = fmaxf(mx[r], x);
+          }
+        }
       }
-    }
+    };
+    if (width < kTile)
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+    // p = exp(x - m), rounded as the backward rounds exp(x - lse): x - m
+    // is exact 0 at the max and in a row whose keys are all padded
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -176,41 +279,34 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < kTile / 8; ++j) {
+      if (j < 2 * n_steps) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[j][e] = p;
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(sc[4 * j + e] - m[e >> 1]);
+          l[e >> 1] += p;
+          sc[4 * j + e] = p;
+        }
       }
     }
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      o[dn][0] *= alpha[0];
-      o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1];
-      o[dn][3] *= alpha[1];
-    }
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 form the A
-    // operand of k-step kk; ldmatrix.trans gives V's B operands for two
-    // d-tiles at a time.
+    // O += P V over the k16 steps that hold live keys
+    uint32_t pf[4][4];
+    frag_from_acc(pf, sc);
+    const uint64_t dv = desc_v + slot * kDescTile;
+    wgmma_fence();
+    fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int tile = lane >> 3;
-      const int key = kk * 16 + (tile & 1) * 8 + (lane & 7);
-#pragma unroll
-      for (int dn = 0; dn < kD / 8; dn += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &sV[key * kLds + (dn + (tile >> 1)) * 8]);
-        mma_16816(o[dn], pa, bv);
-        mma_16816(o[dn + 1], pa, bv + 2);
-      }
-    }
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      if (kk < n_steps) wgmma_rs<1>(o, pf[kk], dv + kk * kDescStepMN);
+    wgmma_commit();
+    // ... and write it into the next tile's slot
+    if (HAS_MASK && nt < n_tiles && tid < kTile) sPad[(nt % kStages) * kTile + tid] = npad;
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
   }
 
   // the row max contributes exp(0) = 1, so l >= 1
@@ -219,35 +315,42 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (lse != nullptr && i4 == 0) {  // the backward's logsumexp, m + log l
-    const size_t bh = static_cast<size_t>(b) * H + h;
-    if (row0 < T) lse[bh * T + row0] = m[0] + logf(l[0]);
-    if (row1 < T) lse[bh * T + row1] = m[1] + logf(l[1]);
-  }
   const size_t row_stride = static_cast<size_t>(H) * kD;
   bf16* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * kD;
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    const int col = dn * 8 + 2 * i4;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row0) * row_stride + col]) =
-          pack_bf16(o[dn][0] / l[0], o[dn][1] / l[0]);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row1) * row_stride + col]) =
-          pack_bf16(o[dn][2] / l[1], o[dn][3] / l[1]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= T) continue;
+    if (lse != nullptr && i4 == 0)  // the backward's logsumexp, m + log l
+      lse[(static_cast<size_t>(b) * H + h) * T + row] = m[r] + logf(l[r]);
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row) * row_stride + 8 * j + 2 * i4]) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
 template <bool HAS_BIAS, bool UNIFORM_BIAS>
-void launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
-                 const bf16* v, const float* bias, const uint8_t* mask, bf16* out, float* lse,
-                 const BiasArgs& a) {
-  if (has_mask)
-    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, true><<<grid, kThreads, 0, s>>>(
-        q, k, v, bias, mask, out, lse, a);
-  else
-    bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, false><<<grid, kThreads, 0, s>>>(
-        q, k, v, bias, mask, out, lse, a);
+int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
+                const bf16* v, const float* bias, const uint8_t* mask, bf16* out, float* lse,
+                const BiasArgs& a) {
+  constexpr auto with_mask = bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, true>;
+  constexpr auto without_mask = bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, false>;
+  constexpr int smem = smem_bytes(HAS_BIAS);
+  // the shared-memory limit above 48 KB, raised once per process for both
+  static const cudaError_t attr = [] {
+    const cudaError_t err =
+        cudaFuncSetAttribute(with_mask, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return err != cudaSuccess ? err
+                              : cudaFuncSetAttribute(
+                                    without_mask, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    smem);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  (has_mask ? with_mask : without_mask)<<<grid, kThreads, smem, s>>>(q, k, v, bias, mask, out,
+                                                                     lse, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -268,7 +371,7 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
       stride_t % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((T + kTile - 1) / kTile, H, B);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
@@ -277,13 +380,11 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<bf16*>(out);
   auto* lp = static_cast<float*>(lse);
-  const BiasArgs a{stride_b, stride_t, H, T, sm_scale};
+  const BiasArgs a{stride_b, stride_t, H, T, sm_scale, T % 4 == 0 && !misaligned(bias)};
   const bool has_mask = mp != nullptr;
   if (bp == nullptr)
-    launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
-  else if (bias_uniform)
-    launch_mask<true, true>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
-  else
-    launch_mask<true, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
-  return static_cast<int>(cudaGetLastError());
+    return launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
+  if (bias_uniform)
+    return launch_mask<true, true>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
+  return launch_mask<true, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
 }

@@ -9,21 +9,25 @@
 // fp32 dequant in the order (acc * xs) * ws, the fp32 bias, one bf16
 // rounding.
 //
-// Design: two launches on the caller's stream. The first quantizes x, one
-// warp per row, into an int8 (N, K) scratch and its (N,) fp32 scales (the
-// TPU kernel quantizes its row tile into VMEM once per row block; here the
-// quantized rows go through device memory, N x K bytes, half of x's). The
-// second is the int8 GEMM of int8_gemm.cuh with W_q in nn.Linear layout
-// (M, K) as its B operand.
-//
 // Bound on the H100 at the serving shapes (N = 32 x 2000 rows, K = 1024):
 // the qkv projection (M = 3072) does 0.40 TOP of int8 work, 0.20 ms at the
 // 1,979 TOP/s int8 peak, against 0.53 GB of x, W and y (0.16 ms at 3.35
 // TB/s), so it is bound by operations; the out projection (M = 1024) is
-// bound by its 0.26 GB of bytes (0.08 ms). mma.sync reaches a fraction of
-// the int8 peak; wgmma, and quantizing x inside the GEMM's prologue, are the
-// levers for a later change.
+// bound by its 0.26 GB of bytes (0.08 ms).
+//
+// Design: two launches on the caller's stream. The first quantizes x, one
+// warp per row, into an int8 (N, K) scratch and its (N,) fp32 scales
+// (int8_gemm.cuh's quantize_segments_kernel, shared with the int8 block and
+// MLP; the TPU kernel quantizes its row tile into VMEM once per row block,
+// here the quantized rows go through device memory, N x K bytes, half of
+// x's). The second is the wgmma GEMM of int8_gemm_sm90.cuh with W_q in
+// nn.Linear layout (M, K) as its K-major B operand: the int8 tensor cores
+// reach their rate only through wgmma, which reads both operands from
+// swizzled shared-memory tiles that a 3-stage cp.async ring keeps filled
+// (the mma.sync GEMM it replaces was paced by its 32-bit shared-memory
+// fragment loads).
 #include "int8_gemm.cuh"
+#include "int8_gemm_sm90.cuh"
 
 // C entry, bound with ctypes. x (N, K) bf16; w_q (M, K) int8; w_s (M,)
 // fp32; bias null or (M,) fp32; x_q (N, K) int8 and x_s (N,) fp32 scratch;
@@ -32,8 +36,8 @@ extern "C" int a2v_int8_dense(const void* x, const void* w_q, const void* w_s,
                               const void* bias, void* x_q, void* x_s, void* out, int N, int K,
                               int M, void* stream) {
   using namespace a2v;
-  if (N <= 0 || K <= 0 || K % kS8BK != 0 || M <= 0 || M % 8 != 0 ||
-      (N + kS8Tile - 1) / kS8Tile > 65535)
+  if (N <= 0 || K <= 0 || K % 64 != 0 || M <= 0 || M % 8 != 0 ||
+      (N + kG8Tile - 1) / kG8Tile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* xq = static_cast<int8_t*>(x_q);
@@ -42,9 +46,13 @@ extern "C" int a2v_int8_dense(const void* x, const void* w_q, const void* w_s,
       static_cast<const __nv_bfloat16*>(x), xq, xs, N, K, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kS8Tile - 1) / kS8Tile, (N + kS8Tile - 1) / kS8Tile);
-  gemm_s8_kernel<false, __nv_bfloat16><<<grid, kS8Threads, 0, s>>>(
+  // the shared-memory limit above 48 KB, raised once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_s8_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kG8Smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((M + kG8Tile - 1) / kG8Tile, (N + kG8Tile - 1) / kG8Tile);
+  gemm_s8_sm90_kernel<<<grid, kG8Threads, kG8Smem, s>>>(
       xq, static_cast<const int8_t*>(w_q), xs, static_cast<const float*>(w_s),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), N, K, M, K);
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), N, K, M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// int8 GEMM and segment quantizer shared by int8_dense.cu and
-// fused_block_int8.cu.
+// The mma.sync int8 GEMM of the int8 block (fused_block_int8.cu) and the
+// int8 MLP (fused_mlp_int8.cu), and the segment quantizer they share with
+// int8_dense.cu (whose GEMM is int8_gemm_sm90.cuh's wgmma kernel).
 //
 // quantize_segments_kernel: x (rows, len), bf16 or fp32, cut into segments
 // of seg_len columns; each (row, segment) gets its own int8 scale (ops/

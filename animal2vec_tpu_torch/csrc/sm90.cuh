@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels: tiles of 64-element
-// bf16 rows (128 bytes, D = 64) in the 128-byte swizzled shared-memory
-// layout, staged by cp.async; the wgmma descriptor of such a tile; the
-// wgmma m64n64k16 bf16 products (fp32 accumulate) with both operands in
-// shared memory (SS) or A in registers (RS); and the fences that order
-// them.
+// Hopper (sm_90a) building blocks of the wgmma kernels: tiles of 128-byte
+// rows (64 bf16, D = 64; or 128 int8 along K) in the 128-byte swizzled
+// shared-memory layout, staged by cp.async; the wgmma descriptor of such a
+// tile; the wgmma m64n64k16 bf16 products (fp32 accumulate) with both
+// operands in shared memory (SS) or A in registers (RS), and the m64n8k16
+// SS product of one 8-column group; the int8 wgmma m64n128k32 (int32
+// accumulate, SS); and the fences that order them.
 //
 // One warpgroup (four warps, 128 threads) issues each product for 64 rows;
 // warp w owns rows 16w .. 16w + 15. Register layouts (PTX ISA, "wgmma
@@ -96,6 +97,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 #pragma unroll
@@ -150,8 +156,66 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(kTransB));
 }
 
+// d0..d3 (64 x 8, the accumulator layout above with j = 0) = or += A (64 x 16, K-major,
+// descriptor) . B (16 x 8, K-major descriptor: 8 rows along N): one
+// column group of an S tile, for the narrow last key tile of a row.
+template <bool kAccumulate>
+__device__ __forceinline__ void wgmma_ss_n8(float& d0, float& d1, float& d2, float& d3,
+                                            uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : A2V_RW(d0), A2V_RW(d1), A2V_RW(d2), A2V_RW(d3)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : A2V_WO(d0), A2V_WO(d1), A2V_WO(d2), A2V_WO(d3)
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+  }
+}
+
+#define A2V_D64(c)                                                                      \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]),      \
+      c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]),    \
+      c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]),   \
+      c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]),   \
+      c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]),   \
+      c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]),   \
+      c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),   \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define A2V_D64_REGS                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "    \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "    \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define A2V_RI(x) "+r"(x)
+
+// int8: d (64 x 128 int32, 64 registers) = (scale_d 0) or += (scale_d 1)
+// A (64 x 32 s8) . B (32 x 128 s8), both K-major descriptors (8-bit
+// operands of wgmma must be K-major): a 128-byte swizzled row holds 128
+// int8 along K, four k32 steps of kDescStepK. The accumulator layout is
+// the fp32 one above, once per 8 columns: d[4j + 2r + e] = D[16w + g +
+// 8r][8j + 2i + e], j < 16. The int32 sums are exact.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " A2V_D64_REGS
+      ", %64, %65, p;\n}\n"
+      : A2V_D64(A2V_RI)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 #undef A2V_D32
 #undef A2V_D32_REGS
+#undef A2V_D64
+#undef A2V_D64_REGS
+#undef A2V_RI
 #undef A2V_RW
 #undef A2V_WO
 

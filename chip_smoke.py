@@ -20,8 +20,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    against their plain versions, and the training entry's gradients against
    autograd of the plain version;
 3c. the dense-bias attention kernel against its plain version at b64, H 12,
-   T 196: the batch-uniform 2-D ALiBi bias, no bias, a key mask with one
-   fully masked row; and at b8, T 1024;
+   T 196: the batch-uniform 2-D ALiBi bias, a per-row bias, no bias, a key
+   mask with one fully masked row; at b128 T 59 with a per-row bias and the
+   lse; and at b8, T 1024;
 3d. the dense-bias training kernels: the forward with lse, dq + dbias and
    dk/dv against their plain versions, and the autograd Function against
    autograd of the plain version, at the ViT-B/16 pretraining student's b128
@@ -35,9 +36,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
 4b. the fused block with its three dropout sites at N = 4 x 2000: forward
    against the plain version, backward against autograd of the plain one;
 4c. the int8 kernels against their plain versions: the dense projection at
-   N 8000 (3072 and 1024 outputs), the int8 block at N 8000, the int8
-   attention at b4, T 2000 (uniform; per-row positions, sentinels, mask)
-   and at T 4000 (two key spans);
+   N 8000 (K 1024 to 3072 and 1024 outputs, K 768 to 2304 and 768), at N
+   64 000 (the first two) and at N 12 544 (the last two), with and without
+   bias, with the count of elements that differ; the int8 block at
+   N 8000, the int8 attention at b4, T 2000 (uniform; per-row positions,
+   sentinels, mask) and at T 4000 (two key spans);
 4d. the plain fused MLP and its int8 twin at the image serving shape (N =
    64 x 196, C 768, M 3072), and the fused blocks of 4 and 4c at C 768;
 5. the full a2v-large FinetuneModel (8 prenet + 16 trunk blocks, seeded
@@ -53,7 +56,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
    rates set, at the serving shape and at the training shape, and the image
    kernels at the image serving shapes; the backward kernels (#3, #4) also
    beside SDPA's backward alone, at dropout 0 and at the a2v-large
-   pretraining student's b60 T125, with achieved TFLOP/s;
+   pretraining student's b60 T125, with achieved TFLOP/s; the int8 dense
+   projection also split by device time into its quantization and GEMM
+   launches, the GEMM beside torch._int_mm's device time with TOP/s, also
+   at the ViT-B/16 widths; the dense-bias forward and SDPA also by device
+   time;
 8. the training path: the full a2v-large finetune model with the
    finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
    windows with the freeze gate open, launch counts per step; then at b1
@@ -559,8 +566,9 @@ def int8_attention_inputs(gen, b, h, t, dev):
 
 def phase_int8_kernels(dev):
     """The int8 kernels against their plain versions: the dense projection
-    at N 8000 for the qkv (3072) and out (1024) shapes, the int8 block at N
-    8000, and the int8 attention at b4, T 2000 (uniform positions; per-row
+    for a2v-large's qkv (3072) and out (1024) shapes at N 8000 and 64 000 and
+    ViT-B/16's (768 to 2304 and 768) at N 8000 and 12 544, with and without
+    bias, the int8 block at N 8000, and the int8 attention at b4, T 2000 (uniform positions; per-row
     positions with sentinels and a padding mask that includes a fully padded
     row) and at T 4000 (two key spans)."""
     from animal2vec_tpu_torch.ops.attention import (
@@ -570,16 +578,27 @@ def phase_int8_kernels(dev):
     from animal2vec_tpu_torch.ops.int8_mm import int8_dense, int8_dense_plain, quantize_weight
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    errs = {}
-    x = torch.randn((8000, 1024), generator=gen, device=dev).to(torch.bfloat16)
-    for m in (3072, 1024):
-        w = torch.randn((m, 1024), generator=gen, device=dev) * (2.0 / (1024 + m)) ** 0.5
+    errs = {"dense": 0.0}
+    # the a2v-large qkv and out projections and the ViT-B/16 ones: at N 8000
+    # (a partial row tile) and at the grids the main path launches, N 64 000
+    # (a2v-large b32) and N 12 544 (ViT-B/16 b64). The int32 sums are exact
+    # and the epilogue rounds as the plain version does, so the count of
+    # elements that differ is printed beside the tolerance check.
+    shapes = [(8000, k, m) for k, m in ((1024, 3072), (1024, 1024), (768, 2304), (768, 768))]
+    shapes += [(64_000, 1024, 3072), (64_000, 1024, 1024), (12_544, 768, 2304), (12_544, 768, 768)]
+    for n, k, m in shapes:
+        x = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((m, k), generator=gen, device=dev) * (2.0 / (k + m)) ** 0.5
         w_q, w_s = quantize_weight(w.to(torch.bfloat16))
-        got = int8_dense(x, w_q, w_s)
-        want = int8_dense_plain(x, w_q, w_s)
-        torch.cuda.synchronize()
-        errs[f"dense {m}"] = check_close(f"int8 dense (8000, 1024) -> {m}", got, want,
-                                         INT8_DENSE_TOL)
+        for bias in (None, torch.randn((m,), generator=gen, device=dev) * 0.1):
+            got = int8_dense(x, w_q, w_s, bias)
+            want = int8_dense_plain(x, w_q, w_s, bias)
+            torch.cuda.synchronize()
+            label = f"int8 dense ({n}, {k}) -> {m}{' + bias' if bias is not None else ''}"
+            errs["dense"] = max(errs["dense"], check_close(label, got, want, INT8_DENSE_TOL))
+            print(f"{label}: {(got != want).sum().item()} of {got.numel()} elements differ "
+                  f"from the plain version")
+    del x, got, want
     args = int8_block_inputs(gen, 8000, dev)
     xo, t = fused_block_int8(*args)
     xo_p, t_p = fused_block_int8_plain(*args)
@@ -634,25 +653,41 @@ def image_bias(h, t, dev):
 
 def phase_bias_attention(dev):
     """3c. The dense-bias attention kernel against its plain version at b64,
-    H 12, T 196 (not a multiple of 64): the batch-uniform 2-D ALiBi bias, no
-    bias, and the bias with a per-batch key mask whose row 3 masks every key;
-    then at b8, T 1024 (16 key tiles)."""
-    from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
+    H 12, T 196 (not a multiple of 64): the batch-uniform 2-D ALiBi bias, a
+    per-row bias, no bias, and the uniform bias with a per-batch key mask
+    whose row 3 masks every key; at the ViT-B/16 student's b128 T 59 with a
+    per-row bias and the lse the backward reads; then at b8, T 1024 (16 key
+    tiles)."""
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_forward, bias_attention_plain, bias_flash_attention,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     b, h, t = IMAGE_BATCH, IMAGE_HEADS, IMAGE_T
     q, k, v = bias_attention_inputs(gen, b, h, t, dev)
     bias = image_bias(h, t, dev)
+    per_row = torch.randn((b, h, t, t), generator=gen, device=dev)
     mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
     mask[1, -50:] = True
     mask[3] = True
     errs = []
-    for label, bb, mm in (("2-D ALiBi, batch-uniform", bias, None), ("no bias", None, None),
+    for label, bb, mm in (("2-D ALiBi, batch-uniform", bias, None), ("per-row bias", per_row, None),
+                          ("no bias", None, None),
                           ("2-D ALiBi, key mask, row 3 fully masked", bias, mask)):
         got = bias_flash_attention(q, k, v, bb, mm)
         want = bias_attention_plain(q.float(), k.float(), v.float(), bb, mm)
         torch.cuda.synchronize()
         errs.append(check_close(f"bias attention b{b} T {t} {label}", got, want, ATTN_TOL))
+    del per_row
+    bs = 2 * IMAGE_BATCH
+    q, k, v = bias_attention_inputs(gen, bs, h, STUDENT_T, dev)
+    bias = torch.randn((bs, h, STUDENT_T, STUDENT_T), generator=gen, device=dev)
+    got, lse = bias_attention_forward(q, k, v, bias, None, with_lse=True)
+    want, lse_p = bias_attention_plain(q.float(), k.float(), v.float(), bias, return_lse=True)
+    torch.cuda.synchronize()
+    errs.append(check_close(f"bias attention b{bs} T {STUDENT_T} per-row bias", got, want,
+                            ATTN_TOL))
+    check_close(f"bias attention b{bs} T {STUDENT_T} per-row bias lse", lse, lse_p, LSE_TOL)
     q, k, v = bias_attention_inputs(gen, 8, h, 1024, dev)
     bias = image_bias(h, 1024, dev)
     got = bias_flash_attention(q, k, v, bias)
@@ -1274,9 +1309,9 @@ def phase_kernel_times(dev):
             cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(n))
         del args
         torch.cuda.empty_cache()
-        int8_kernel_times(gen, dev, row)
-        image_kernel_times(gen, dev, row)
-    pretrain_kernel_times(gen, dev, row)
+        int8_kernel_times(gen, dev, row, rows)
+        image_kernel_times(gen, dev, row, rows)
+    pretrain_kernel_times(gen, dev, row, rows)
     return rows
 
 
@@ -1321,11 +1356,12 @@ def bwd_splits(extra, label, b, h, t, args, prefix):
               f"{rate:.1f} TFLOP/s, bound {bounds[kernel][0]:.3f} ms ({bounds[kernel][1]})")
 
 
-def int8_kernel_times(gen, dev, row):
+def int8_kernel_times(gen, dev, row, rows):
     """The int8 kernels at the b32 serving shapes (N = 64 000 rows, T 2000):
     the wrapper as the model calls it (quantization included) beside its
     plain version; the dense projection also beside torch._int_mm, the int8
-    product alone on the same quantized operands."""
+    product alone on the same quantized operands, and split by device time
+    into its quantization and GEMM launches."""
     from animal2vec_tpu_torch.ops.attention import (
         alibi_attention_int8_plain, alibi_flash_attention_int8, quantize_qkv_int8,
     )
@@ -1340,9 +1376,23 @@ def int8_kernel_times(gen, dev, row):
     for m, what in ((3072, "qkv"), (1024, "out")):
         w = torch.randn((m, 1024), generator=gen, device=dev) * (2.0 / (1024 + m)) ** 0.5
         w_q, w_s = quantize_weight(w.to(torch.bfloat16))
-        row(f"int8 dense {what} projection, b32 serving", cuda_ms(lambda: int8_dense(x, w_q, w_s)),
+        key = f"int8 dense {what} projection, b32 serving"
+        row(key, cuda_ms(lambda: int8_dense(x, w_q, w_s)),
             cuda_ms(lambda: int8_dense_plain(x, w_q, w_s), iters=3),
             cuda_ms(lambda: torch._int_mm(x_q, w_q.t())), int8_dense_bound(n, 1024, m))
+        # device time of each launch: the GEMM alone beside torch._int_mm on
+        # the same quantized operands, like for like
+        split = {"gemm_device_ms": device_ms(lambda: int8_dense(x, w_q, w_s), "gemm_s8_sm90"),
+                 "quantize_device_ms": device_ms(lambda: int8_dense(x, w_q, w_s),
+                                                 "quantize_segments"),
+                 "library_device_ms": device_ms(lambda: torch._int_mm(x_q, w_q.t()), "")}
+        split["gemm_tops"] = 2 * n * 1024 * m / (split["gemm_device_ms"] * 1e-3) / 1e12
+        split["library_tops"] = 2 * n * 1024 * m / (split["library_device_ms"] * 1e-3) / 1e12
+        rows[key].update(split)
+        print(f"  {what}: GEMM launch {split['gemm_device_ms']:.4f} ms device "
+              f"({split['gemm_tops']:.1f} TOP/s), quantization launch "
+              f"{split['quantize_device_ms']:.4f} ms; torch._int_mm "
+              f"{split['library_device_ms']:.4f} ms device ({split['library_tops']:.1f} TOP/s)")
     print("  (library: torch._int_mm, the int8 product alone on pre-quantized operands)")
     del x, x_q
     args = int8_block_inputs(gen, n, dev)
@@ -1359,18 +1409,27 @@ def int8_kernel_times(gen, dev, row):
           f"{cuda_ms(lambda: quantize_qkv_int8(q, k, v)):.3f} ms)")
 
 
-def image_kernel_times(gen, dev, row):
+def attention_device_ms(kernel_fn, library_fn):
+    """Device time (torch.profiler) of the dense-bias forward kernel and of
+    every kernel one library call launches."""
+    return {"device_ms": device_ms(kernel_fn, "bias_attention_kernel"),
+            "library_device_ms": device_ms(library_fn, "")}
+
+
+def image_kernel_times(gen, dev, row, rows):
     """The image modality's kernels at the ViT-B/16 b64 serving shapes (N =
     64 x 196 rows, C 768, M 3072; H 12, T 196 with the 2-D ALiBi bias): the
     fused MLP and its int8 twin (with x's quantization) beside their plain
-    versions and the int8 products alone (torch._int_mm), the dense-bias
-    attention beside SDPA with the bias as a bf16 float mask."""
+    versions and the int8 products alone (torch._int_mm), the int8 dense
+    projection's GEMM launch at the qkv and out widths beside
+    torch._int_mm (device times), the dense-bias attention beside SDPA with
+    the bias as a bf16 float mask, both also by device time."""
     import torch.nn.functional as F
     from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
     from animal2vec_tpu_torch.ops.fused_mlp import (
         fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
     )
-    from animal2vec_tpu_torch.ops.int8_mm import quantize_rows, quantize_weight
+    from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_rows, quantize_weight
 
     n, c, m = IMAGE_BATCH * IMAGE_T, 768, 3072
     x, _, _, w1, w2, b1, b2 = block_inputs(gen, n, c, m, dev)[:7]
@@ -1383,6 +1442,17 @@ def image_kernel_times(gen, dev, row):
     row("int8 fused MLP, b64 ViT-B serving", cuda_ms(lambda: fused_mlp_int8(*args)),
         cuda_ms(lambda: fused_mlp_int8_plain(*args), iters=3), None, int8_mlp_bound(n, c, m))
     x_q, _ = quantize_rows(x)
+    # #10 at the ViT-B/16 qkv (768 -> 2304) and out (768 -> 768) widths:
+    # its GEMM launch beside torch._int_mm, device times
+    dense_row = rows["int8 dense qkv projection, b32 serving"]
+    for what, width in (("qkv", 3 * c), ("out", c)):
+        wd_q, wd_s = quantize_weight(w1l[:width])
+        gemm = device_ms(lambda: int8_dense(x, wd_q, wd_s), "gemm_s8_sm90")
+        lib = device_ms(lambda: torch._int_mm(x_q, wd_q.t()), "")
+        dense_row.update({f"image_{what}_gemm_device_ms": gemm,
+                          f"image_{what}_library_device_ms": lib})
+        print(f"  int8 dense {what} projection, b64 ViT-B (N {n}, K {c} -> {width}): GEMM "
+              f"launch {gemm:.4f} ms device, torch._int_mm {lib:.4f} ms device")
     h_q = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
     print(f"  (the int8 products alone, torch._int_mm on pre-quantized operands: fc1 "
           f"{cuda_ms(lambda: torch._int_mm(x_q, w1_q.t())):.3f} ms, fc2 "
@@ -1392,10 +1462,18 @@ def image_kernel_times(gen, dev, row):
     bias = image_bias(IMAGE_HEADS, IMAGE_T, dev)
     qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, D) views
     mask = bias.to(torch.bfloat16)
-    row("bias attention, b64 ViT-B serving", cuda_ms(lambda: bias_flash_attention(q, k, v, bias)),
+    key = "bias attention, b64 ViT-B serving"
+    row(key, cuda_ms(lambda: bias_flash_attention(q, k, v, bias)),
         cuda_ms(lambda: bias_attention_plain(q, k, v, bias), iters=3),
         cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
         bias_attention_bound(IMAGE_BATCH, IMAGE_HEADS, IMAGE_T))
+    rows[key].update(attention_device_ms(lambda: bias_flash_attention(q, k, v, bias),
+                                         lambda: F.scaled_dot_product_attention(
+                                             qs, ks, vs, attn_mask=mask)))
+    rows[key]["no_bias_device_ms"] = device_ms(lambda: bias_flash_attention(q, k, v),
+                                               "bias_attention_kernel")
+    print(f"  device time: kernel {rows[key]['device_ms']:.4f} ms (no bias "
+          f"{rows[key]['no_bias_device_ms']:.4f}), SDPA {rows[key]['library_device_ms']:.4f} ms")
     print("  (library: SDPA with the 2-D ALiBi bias as a (1, H, T, T) bf16 float mask)")
 
 
@@ -1659,7 +1737,7 @@ def phase_pretrain_grads(cfg, dev, batch, label):
     torch.cuda.empty_cache()
 
 
-def pretrain_kernel_times(gen, dev, row):
+def pretrain_kernel_times(gen, dev, row, rows):
     """The dense-bias training kernels at the ViT-B/16 pretraining student's
     shape (b128, H 12, 59 kept patches, per-row bias): the forward with lse,
     dq + dbias and dk/dv beside their plain versions, and the library call:
@@ -1682,11 +1760,16 @@ def pretrain_kernel_times(gen, dev, row):
         args = (q, k, v, dout, lse, delta, bias)
         qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))
         mask = bias.to(torch.bfloat16)
-        row("bias attention forward + lse, b128 ViT-B pretraining student",
-            cuda_ms(lambda: bias_attention_forward(q, k, v, bias, None, True)),
+        key = "bias attention forward + lse, b128 ViT-B pretraining student"
+        row(key, cuda_ms(lambda: bias_attention_forward(q, k, v, bias, None, True)),
             cuda_ms(lambda: bias_attention_plain(q, k, v, bias, return_lse=True), iters=3),
             cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
             bounds["forward"])
+        rows[key].update(attention_device_ms(
+            lambda: bias_attention_forward(q, k, v, bias, None, True),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)))
+        print(f"  device time: kernel {rows[key]['device_ms']:.4f} ms, SDPA "
+              f"{rows[key]['library_device_ms']:.4f} ms")
         plain_bwd = cuda_ms(lambda: bias_attention_bwd_plain(*args), iters=3)
     leaves = [a.detach().clone().requires_grad_() for a in (qs, ks, vs, mask)]
     g = dout.transpose(1, 2)
@@ -1810,7 +1893,7 @@ def main() -> int:
                    f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
                    "fused block, b32 serving"), launches_image=image["block"]),
         int8_entry("int8_dense", "int8_dense.cu", "animal2vec_tpu/ops/int8_mm.py:60",
-                   "int8_dense", max(int8_errs["dense 3072"], int8_errs["dense 1024"]),
+                   "int8_dense", int8_errs["dense"],
                    "int8 dense qkv projection, b32 serving",
                    "int8 dense out projection, b32 serving"),
         dict(int8_entry("fused_block_int8", "fused_block_int8.cu",

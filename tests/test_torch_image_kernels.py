@@ -41,11 +41,13 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bias", ["uniform", "per-row", None])
-@pytest.mark.parametrize("t", [196, 1024])
+@pytest.mark.parametrize("t", [25, 144, 196, 1024])
 def test_bias_attention_kernel_matches_plain_on_card(cuda, bias, t):
     """The kernel on the q, k, v views of one (B, T, 3, H, D) projection at T
-    196 (not a multiple of 64) and 1024, a key mask with one fully masked
-    row; tolerance 1e-2 + 1e-2 |plain| against the plain version in fp32."""
+    196 (not a multiple of 64) and 1024, and at the narrow last key tiles of
+    T 25 (one tile, bias rows not 16-byte aligned) and T 144 (16 keys), a
+    key mask with one fully masked row; tolerance 1e-2 + 1e-2 |plain|
+    against the plain version in fp32."""
     b, h = 4, 12
     gen = torch.Generator(device=cuda).manual_seed(46)
     qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
@@ -67,6 +69,32 @@ def test_bias_attention_kernel_matches_plain_on_card(cuda, bias, t):
     want = bias_attention_plain(q.float(), k.float(), v.float(), dense, mask)
     assert torch.isfinite(got).all()
     assert ((got.float() - want).abs() <= 1e-2 + 1e-2 * want.abs()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", ["per-row", None])
+def test_bias_attention_kernel_with_lse_at_student_length_on_card(cuda, bias):
+    """The ViT-B/16 pretraining student's 59 kept patches (one key tile, not
+    a multiple of 4: the bias rows are not 16-byte aligned) with the lse the
+    backward reads, and a key mask with one fully masked row: out 1e-2 +
+    1e-2 |plain| against the plain version in fp32, lse 1e-3 + 1e-5 |plain|."""
+    b, h, t = 16, 12, 59
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dense = None if bias is None else torch.randn((b, h, t, t), generator=gen, device=cuda)
+    mask = torch.zeros((b, t), dtype=torch.bool, device=cuda)
+    mask[1, -20:] = True
+    mask[3] = True
+    before = bias_flash_attention.launches
+    out, lse = bias_attention_forward(q, k, v, dense, mask, with_lse=True)
+    torch.cuda.synchronize()
+    assert bias_flash_attention.launches == before + 1
+    out_p, lse_p = bias_attention_plain(q.float(), k.float(), v.float(), dense, mask,
+                                        return_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert ((out.float() - out_p).abs() <= 1e-2 + 1e-2 * out_p.abs()).all()
+    assert ((lse - lse_p).abs() <= 1e-3 + 1e-5 * lse_p.abs()).all()
 
 
 @pytest.mark.gpu

@@ -291,6 +291,23 @@ def test_int8_dense_kernel_matches_plain_on_card(cuda, m):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(1024, 3072), (1024, 1024), (768, 2304), (768, 768)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_dense_kernel_is_bit_exact_on_card(cuda, k, m, with_bias):
+    """a2v-large's and ViT-B/16's qkv and out projections at N 2100 (a
+    partial row tile): the int32 sums are exact and the epilogue rounds each
+    product and sum on its own, ((acc * xs) * ws) + bias, as the plain
+    version does, so the bf16 outputs are equal bit for bit."""
+    rng = np.random.default_rng(k + m)
+    x = torch.from_numpy(_rnd(rng, 2100, k)).to(cuda, torch.bfloat16)
+    w_q, w_s = quantize_weight(torch.from_numpy(_rnd(rng, m, k, scale=0.03)).to(cuda))
+    bias = torch.from_numpy(_rnd(rng, m, scale=0.1)).to(cuda) if with_bias else None
+    y = int8_dense(x, w_q, w_s, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(y, int8_dense_plain(x, w_q, w_s, bias))
+
+
+@pytest.mark.gpu
 def test_int8_block_kernel_matches_plain_on_card(cuda):
     x, w1, w2, vecs = _block_inputs(1000, 1024, 4096, seed=50)
     w1_q, w1_s = quantize_weight(torch.from_numpy(w1).to(cuda))
