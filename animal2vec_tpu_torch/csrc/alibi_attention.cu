@@ -1,14 +1,15 @@
-// ALiBi flash-attention forward, bf16 in and out, D = 64.
+// ALiBi flash-attention forward of training, bf16 in and out, D = 64: the
+// launches with the logsumexp residual of the backward or the in-kernel
+// hash dropout. The serving launches (neither) run alibi_attention_serve.cu.
 //
-// Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
-//   _kernel_serve_nk1 (batch-uniform positions, one key block) and
-//   _kernel (per-row positions, any number of key blocks, the logsumexp
-//   residual of the backward and the in-kernel hash dropout).
+// Replaces the TPU kernel animal2vec_tpu/ops/pallas_attention.py:_kernel
+// (per-row positions, any number of key blocks, the logsumexp residual and
+// the in-kernel hash dropout).
 //
 //   out[b,h,i] = sum_j keep_ij / (1 - r) * softmax_j(s_ij) . v_j
 //   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j| (0 when either
 //          position is < 0 and the sentinel rule is on), key j padded -> -1e9
-//   lse[b*H+h, i] = m_i + log(max(l_i, 1e-30))   (training launches only)
+//   lse[b*H+h, i] = m_i + log(max(l_i, 1e-30))   (when an lse is asked for)
 //
 // keep_ij is the counter hash of (seed + (b*H+h) * 0xC2B2AE3D, i, j) over
 // global query and key indices (common.cuh drop_hash), so the backward
@@ -27,18 +28,15 @@
 // kernel: padded keys score a finite -1e9, so a row whose keys are all padded
 // averages V instead of producing NaN, and the denominator is clamped at
 // 1e-30. Keys past T (2000 is not a multiple of 64) are dropped by bounds
-// (weight exactly 0), not padded. The serving launches (no lse, no dropout)
-// compile without the training code (template TRAIN = false).
+// (weight exactly 0), not padded.
 //
-// Bound on the H100: at the serving shape (B=32, H=16, T=2000) the kernel
-// does 4*B*H*T^2*D = 0.52 TFLOP of tensor-core work (two products of
+// Bound on the H100: at the finetune shape (B=4, H=16, T=2000) the kernel
+// does 4*B*H*T^2*D = 0.066 TFLOP of tensor-core work (two products of
 // 2*T^2*D per (b, h)) and the bias/softmax costs ~10 fp32 instructions per
-// score (2.0e9 scores); it reads qkv once per query tile (3 x 262 MB from L2,
-// since a head's K/V is 256 KB) and writes 131 MB. The training launch adds
-// ~12 integer instructions of hash per score when dropout is on. Which of the
-// mma.sync rate and the per-score fp32/integer work bounds it has not been
-// measured; wgmma, exp2 with a folded log2(e) and a double-buffered K/V
-// pipeline are the levers for a later change.
+// score (2.6e8 scores); the dropout adds ~12 integer instructions of hash
+// per score. Which of the mma.sync rate and the per-score work bounds it has
+// not been measured; alibi_attention_serve.cu's wgmma design, with the lse
+// and the dropout added, is the lever for a later change.
 #include "common.cuh"
 
 namespace a2v {
@@ -63,14 +61,14 @@ struct FwdArgs {
   float keep_scale;     // 1 / (1 - rate)
 };
 
-template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN>
+template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL>
 __global__ void __launch_bounds__(kThreads)
 alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
                        const float* __restrict__ slopes,  // (H,)
                        const int* __restrict__ pos,       // (1 or B, T)
                        const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
                        bf16* __restrict__ out,            // (B, H, T, D)
-                       float* __restrict__ lse,           // (B*H, T), TRAIN only
+                       float* __restrict__ lse,           // null or (B*H, T)
                        FwdArgs a) {
   const int B = a.B, H = a.H, T = a.T;
   const float sm_scale = a.sm_scale;
@@ -95,7 +93,7 @@ alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
   const uint8_t* maskr =
       HAS_MASK ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
   const uint32_t seed_word = a.seed + static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du;
-  const bool drop = TRAIN && a.thresh != 0u;
+  const bool drop = a.thresh != 0u;
 
   for (int c = tid; c < kBQ * kD / 8; c += kThreads) {
     const int r = c >> 3, col = (c & 7) * 8, row = q0 + r;
@@ -246,63 +244,53 @@ alibi_attention_kernel(const bf16* __restrict__ qkv,      // (3, B, H, T, D)
       *reinterpret_cast<uint32_t*>(&orow[static_cast<size_t>(row1) * kD + col]) =
           pack_bf16(o[dn][2] / l[1], o[dn][3] / l[1]);
   }
-  if (TRAIN && lse != nullptr && i4 == 0) {
+  if (lse != nullptr && i4 == 0) {
     float* lrow = lse + (static_cast<size_t>(b) * H + h) * T;
     if (row0 < T) lrow[row0] = m[0] + logf(l[0]);
     if (row1 < T) lrow[row1] = m[1] + logf(l[1]);
   }
 }
 
-template <bool UNIFORM_POS, bool HAS_MASK, bool HAS_SENTINEL>
-void launch_train(bool train, dim3 grid, cudaStream_t stream, const bf16* qkv,
-                  const float* slopes, const int* pos, const uint8_t* mask, bf16* out,
-                  float* lse, const FwdArgs& a) {
-  if (train)
-    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, HAS_SENTINEL, true>
-        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
-  else
-    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, HAS_SENTINEL, false>
-        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
-}
-
 template <bool UNIFORM_POS, bool HAS_MASK>
-void launch_sentinel(bool has_sentinel, bool train, dim3 grid, cudaStream_t stream,
-                     const bf16* qkv, const float* slopes, const int* pos, const uint8_t* mask,
-                     bf16* out, float* lse, const FwdArgs& a) {
+void launch_sentinel(bool has_sentinel, dim3 grid, cudaStream_t stream, const bf16* qkv,
+                     const float* slopes, const int* pos, const uint8_t* mask, bf16* out,
+                     float* lse, const FwdArgs& a) {
   if (has_sentinel)
-    launch_train<UNIFORM_POS, HAS_MASK, true>(train, grid, stream, qkv, slopes, pos, mask, out,
-                                              lse, a);
+    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, true>
+        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
   else
-    launch_train<UNIFORM_POS, HAS_MASK, false>(train, grid, stream, qkv, slopes, pos, mask, out,
-                                               lse, a);
+    alibi_attention_kernel<UNIFORM_POS, HAS_MASK, false>
+        <<<grid, kThreads, 0, stream>>>(qkv, slopes, pos, mask, out, lse, a);
 }
 
 template <bool UNIFORM_POS>
-void launch_mask(bool has_mask, bool has_sentinel, bool train, dim3 grid, cudaStream_t stream,
+void launch_mask(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t stream,
                  const bf16* qkv, const float* slopes, const int* pos, const uint8_t* mask,
                  bf16* out, float* lse, const FwdArgs& a) {
   if (has_mask)
-    launch_sentinel<UNIFORM_POS, true>(has_sentinel, train, grid, stream, qkv, slopes, pos, mask,
-                                       out, lse, a);
+    launch_sentinel<UNIFORM_POS, true>(has_sentinel, grid, stream, qkv, slopes, pos, mask, out,
+                                       lse, a);
   else
-    launch_sentinel<UNIFORM_POS, false>(has_sentinel, train, grid, stream, qkv, slopes, pos,
-                                        mask, out, lse, a);
+    launch_sentinel<UNIFORM_POS, false>(has_sentinel, grid, stream, qkv, slopes, pos, mask, out,
+                                        lse, a);
 }
 
 }  // namespace
 }  // namespace a2v
 
 // C entry, bound with ctypes. positions are (pos_per_row ? B : 1, T) int32;
-// mask is null or (mask_per_row ? B : 1, T) uint8. lse is null (serving) or
-// (B*H, T) fp32; a launch with an lse or a nonzero dropout threshold takes
-// the training template. Returns a cudaError_t.
+// mask is null or (mask_per_row ? B : 1, T) uint8. lse is null or (B*H, T)
+// fp32; a launch needs an lse or a nonzero dropout threshold (serving
+// launches, with neither, go to a2v_alibi_attention_serve). Returns a
+// cudaError_t.
 extern "C" int a2v_alibi_attention(const void* qkv, const void* slopes, const void* pos,
                                    int pos_per_row, const void* mask, int mask_per_row,
                                    void* out, void* lse, int B, int H, int T, int D,
                                    int has_sentinel, float sm_scale, int seed,
                                    unsigned int thresh, float keep_scale, void* stream) {
   using namespace a2v;
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535)
+  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      (lse == nullptr && thresh == 0u))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kBQ - 1) / kBQ, H, B);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -312,12 +300,11 @@ extern "C" int a2v_alibi_attention(const void* qkv, const void* slopes, const vo
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
   auto* ls = static_cast<float*>(lse);
-  const bool train = ls != nullptr || thresh != 0u;
   const FwdArgs a{mask_per_row, B, H, T, sm_scale, static_cast<uint32_t>(seed), thresh,
                   keep_scale};
   if (pos_per_row)
-    launch_mask<false>(mk != nullptr, has_sentinel != 0, train, grid, s, q, sl, p, mk, o, ls, a);
+    launch_mask<false>(mk != nullptr, has_sentinel != 0, grid, s, q, sl, p, mk, o, ls, a);
   else
-    launch_mask<true>(mk != nullptr, has_sentinel != 0, train, grid, s, q, sl, p, mk, o, ls, a);
+    launch_mask<true>(mk != nullptr, has_sentinel != 0, grid, s, q, sl, p, mk, o, ls, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -116,17 +116,6 @@ struct BwdArgs {
   float keep_scale;  // 1 / (1 - rate)
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
-  const uint32_t a = smem_addr(raw);
-  return raw + (((a + kTileAlign - 1) & ~uint32_t(kTileAlign - 1)) - a);
-}
-
 // One block per (64-query tile, head, batch): dq rows and the block's
 // slope-gradient partial.
 template <bool kDrop, bool kSentinel>
@@ -143,7 +132,7 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
                           BwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ float sRed[kThreads / 32];
-  bf16* const sQ = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sDO = sQ + kTileElems;
   bf16* const sRing = sDO + kTileElems;  // stage s: K at 2s tiles in, V after it
   // per key of each stage: {position, sentinel factor (0 or 1), bias (0 or
@@ -338,7 +327,7 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
                            bf16* __restrict__ dv,  // (B, H, T, D)
                            BwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  bf16* const sK = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sV = sK + kTileElems;
   bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
   // per query of each stage: {position, sentinel factor, -lse log2(e) (-inf

@@ -1,0 +1,319 @@
+// ALiBi flash-attention forward of serving (no lse, no dropout), bf16 in
+// and out, D = 64, on Hopper's wgmma.
+//
+// Replaces the TPU kernel animal2vec_tpu/ops/pallas_attention.py:
+// _kernel_serve_nk1 (batch-uniform positions, one key block), and the
+// serving launches of _kernel (per-row positions): every forward that
+// returns no logsumexp and drops nothing. alibi_attention.cu keeps the
+// launches with an lse or a dropout threshold (training).
+//
+//   out[b,i,h] = sum_j softmax_j(s_ij) . v_j
+//   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j| (0 when either
+//          position is < 0 and the sentinel rule is on), key j padded -> -1e9
+//
+// As in the TPU kernel padded keys score a finite -1e9, so a query row
+// whose keys are all padded averages V instead of producing NaN, and the
+// denominator is clamped at 1e-30; keys past T have weight exactly 0.
+//
+// q, k and v are read in place: (B, T, H, D) views with one set of element
+// strides (batch, head, token), a head's row 128 contiguous bytes. The
+// model hands over the q, k, v thirds of its (B, T, 3, H, D) projection
+// (token stride 3C) and takes out as (B, T, H, D), so neither the packed
+// (3, B, H, T, D) copy of qkv nor the copy of the output back to (B, T, C)
+// is made; the packed layout itself is the same views with token stride D.
+//
+// Bound on the H100 at the serving shape (B = 32, H = 16, T = 2000): the
+// two products are 4 B H T^2 D = 0.52 TFLOP (0.53 ms at the 989 TFLOP/s
+// bf16 peak) against 0.52 GB of q, k, v and out (0.16 ms at 3.35 TB/s):
+// bound by operations. Beside them every score (2.05e9) takes one
+// exponential on the special-function unit (16 a clock per SM: 0.53 ms
+// alone) and about eight fp32 instructions (bias, scale, mask, max, sum).
+//
+// Design (sm_90a): a block of kWG warpgroups (128 threads each) owns
+// kWG x 64 query rows of one (batch, head), each warpgroup 64 rows, wgmma's
+// M, and walks the keys in tiles of 64 with an online softmax (running max
+// and sum, fp32) in the log2 domain: log2(e) is folded into the score's
+// scale and the slope, so each weight is one ex2. The warpgroups share a
+// ring of two key tiles in shared memory (128-byte swizzled K and V tiles
+// staged by cp.async, csrc/sm90.cuh, and each key's position and mask
+// entry): the copies of tile t + 1 are in flight while tile t's products
+// and scalar pass run (the mma.sync kernel this replaces waited for each
+// tile before its products).
+//   - S = Q K^T is an SS wgmma (m64n64k16, four k-steps over D) from the
+//     warpgroup's swizzled Q tile and the K tile; O += P V an RS wgmma
+//     whose A is the bf16 of S's accumulator after the scalar pass
+//     (frag_from_acc), with V read MN-major: P never leaves registers.
+//   - The bias is computed inline from the positions (|pos_i - pos_j|
+//     times the slope), and a key's mask entry is +inf (live), -1e9
+//     (padded) or -inf (past T): a padded or absent key's score is replaced
+//     by its entry (-1e9 in the log2 domain gives the same weights: 0
+//     beside any live key, equal ones in a row whose keys are all padded).
+//     Without a padding mask only the last tile holds such keys, and the
+//     others skip the test.
+//   - The running output is rescaled only when a row's max rose in the
+//     tile (a vote per warp): along an ALiBi row the max stops rising once
+//     the tile holding the row's own position has passed.
+//   - Every wgmma group is issued unconditionally: a product issued under
+//     a branch (the last tile's k16 steps that hold no live key) made
+//     ptxas fence and serialize each of them, which measured slower.
+// Two warpgroups a block, two blocks an SM (<= 128 registers). Measured
+// slower on an H100 (PERF.md): three warpgroups, one, a third ring stage,
+// tiles of 128 keys (S by m64n128k16; 186-213 registers at one block an
+// SM, spills at two), and tile t - 1's P V left in flight through tile t's
+// scalar pass (ptxas fences the in-flight products again).
+#include <cmath>
+#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace a2v {
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int kD = 64;
+constexpr int kTile = 64;               // keys per tile; query rows per warpgroup
+constexpr int kWG = 2;                  // warpgroups per block
+constexpr int kThreads = 128 * kWG;
+constexpr int kStages = 2;              // ring depth of the key tiles
+constexpr float kMasked = -1e9f;        // NEG_INF of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmem = kTileElems * 2 * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
+
+struct ServeArgs {
+  long long stride_b, stride_h, stride_t;  // elements, shared by q, k and v
+  long long out_b, out_h, out_t;           // elements of out
+  int H, T;
+  int pos_row;   // elements between batch rows of positions (0: batch-uniform)
+  int mask_row;  // elements between batch rows of the padding mask
+  float scale2;  // D^-0.5 * log2(e)
+};
+
+template <bool HAS_MASK, bool HAS_SENTINEL>
+__global__ void __launch_bounds__(kThreads, 2)
+alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v,
+                   const float* __restrict__ slopes,  // (H,)
+                   const int* __restrict__ pos,       // (1 or B, T)
+                   const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
+                   bf16* __restrict__ out, ServeArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* const sK = sQ + kWG * kTileElems;  // stage s at s tiles in
+  bf16* const sV = sK + kStages * kTileElems;
+  float2* const sKey = reinterpret_cast<float2*>(sV + kStages * kTileElems);  // {pos, entry}
+
+  const int T = a.T, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kTile * kWG;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, i4 = lane & 3;
+
+  const long long head = b * a.stride_b + h * a.stride_h;
+  const bf16* qb = q + head;
+  const bf16* kb = k + head;
+  const bf16* vb = v + head;
+  const int* posr = pos + static_cast<long long>(b) * a.pos_row;
+  const uint8_t* mrow = HAS_MASK ? mask + static_cast<long long>(b) * a.mask_row : nullptr;
+  const int n_tiles = (T + kTile - 1) / kTile;
+
+  // key tile kt's K and V into its ring slot; one commit group
+  auto stage = [&](int kt) {
+    const int slot = kt % kStages;
+    stage_tile<kThreads>(sK + slot * kTileElems, kb, a.stride_t, kt * kTile, T, tid);
+    stage_tile<kThreads>(sV + slot * kTileElems, vb, a.stride_t, kt * kTile, T, tid);
+  };
+  // threads < 64: key kt * 64 + tid's position and mask entry
+  auto key_entry = [&](int kt) {
+    const int key = kt * kTile + tid;
+    if (key >= T) return make_float2(0.f, -INFINITY);
+    return make_float2(static_cast<float>(posr[key]),
+                       HAS_MASK && mrow[key] ? kMasked : INFINITY);
+  };
+
+  // prologue: the Q tiles with key tile 0, then tiles 1 .. kStages - 2, one
+  // commit group each
+#pragma unroll
+  for (int w = 0; w < kWG; ++w)
+    stage_tile<kThreads>(sQ + w * kTileElems, qb, a.stride_t, q0 + w * kTile, T, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage(s);
+    cp_async_commit();
+    if (s < n_tiles && tid < kTile) sKey[s * kTile + tid] = key_entry(s);
+  }
+
+  // this thread's rows q0 + 64 wg + 16 warp + g + 8r; a sentinel query row
+  // (position < 0) has no bias, as if its slope were 0
+  float pq[2], slope2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+    pq[r] = row < T ? static_cast<float>(posr[row]) : 0.f;
+    slope2[r] = HAS_SENTINEL && pq[r] < 0.f ? 0.f : slopes[h] * kLog2e;
+  }
+  float m[2] = {kMasked, kMasked};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};
+  float o[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  const uint64_t desc_q = desc_sw128(sQ) + wg * kDescTile;
+  const uint64_t desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile kt (and Q) have landed
+    fence_proxy_async();
+    __syncthreads();  // tile kt visible to all; every thread is done with tile kt - 1
+    const int nt = kt + kStages - 1;
+    float2 nkey = make_float2(0.f, 0.f);
+    if (nt < n_tiles) {
+      stage(nt);  // into the slot tile kt - 1 used
+      if (tid < kTile) nkey = key_entry(nt);
+    }
+    cp_async_commit();
+
+    const int slot = kt % kStages;
+    wgmma_fence();
+    gemm_tile_nt(sc, desc_q, desc_k + slot * kDescTile);  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // x = s D^-0.5 log2(e) - slope log2(e) |pos_i - pos_j|, then the mask
+    // entry (kEntry: a padding mask, or the last tile), then the row max
+    const float4* keys = reinterpret_cast<const float4*>(sKey + slot * kTile);
+    float mx[2] = {-INFINITY, -INFINITY};
+    auto scores = [&](auto entry) {
+      constexpr bool kEntry = decltype(entry)::value;
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const float4 kv = keys[4 * j + i4];  // keys 8j + 2 i4 and 8j + 2 i4 + 1
+        const float pk[2] = {kv.x, kv.z}, ent[2] = {kv.y, kv.w};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * r + e;
+            float dist = fabsf(pq[r] - pk[e]);
+            if (HAS_SENTINEL && pk[e] < 0.f) dist = 0.f;
+            float x = fmaf(sc[i], a.scale2, -slope2[r] * dist);
+            if (kEntry && ent[e] != INFINITY) x = ent[e];
+            sc[i] = x;
+            mx[r] = fmaxf(mx[r], x);
+          }
+        }
+      }
+    };
+    if (HAS_MASK || kt == n_tiles - 1)
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += p;  // the denominator from the fp32 weights
+      sc[i] = p;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
+
+    // O += P V (keys past T have P = 0 and zero-filled V rows)
+    uint32_t pf[4][4];
+    frag_from_acc(pf, sc);
+    wgmma_fence();
+    fence_regs(o);
+    gemm_frag_tile(o, pf, desc_v + slot * kDescTile);
+    wgmma_commit();
+    // ... and write the next tile's keys into their slot
+    if (nt < n_tiles && tid < kTile) sKey[(nt % kStages) * kTile + tid] = nkey;
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  bf16* ob = out + b * a.out_b + h * a.out_h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+    if (row >= T) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* orow = ob + row * a.out_t;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * i4) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <bool HAS_MASK, bool HAS_SENTINEL>
+int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+           const float* slopes, const int* pos, const uint8_t* mask, bf16* out,
+           const ServeArgs& a) {
+  constexpr auto kernel = alibi_serve_kernel<HAS_MASK, HAS_SENTINEL>;
+  // the shared-memory limit above 48 KB, raised once per process and instance
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, mask, out, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace a2v
+
+// C entry, bound with ctypes. q, k, v: bf16 (B, T, H, D) with element
+// strides (stride_b, stride_t, stride_h, 1), 16-byte aligned, strides
+// multiples of 8; out: bf16 (B, T, H, D) with strides (out_b, out_t, out_h,
+// 1), 16-byte aligned, strides multiples of 8; slopes fp32 (H,); positions
+// int32 (pos_per_row ? B : 1, T); mask null or uint8 (mask_per_row ? B : 1,
+// T). Returns a cudaError_t.
+extern "C" int a2v_alibi_attention_serve(const void* q, const void* k, const void* v,
+                                         long long stride_b, long long stride_t,
+                                         long long stride_h, const void* slopes,
+                                         const void* pos, int pos_per_row, const void* mask,
+                                         int mask_per_row, void* out, long long out_b,
+                                         long long out_t, long long out_h, int B, int H, int T,
+                                         int D, int has_sentinel, float sm_scale, void* stream) {
+  using namespace a2v;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  const long long strides[] = {stride_b, stride_t, stride_h, out_b, out_t, out_h};
+  for (const long long st : strides)
+    if (st % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* sl = static_cast<const float*>(slopes);
+  const auto* p = static_cast<const int*>(pos);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  auto* o = static_cast<bf16*>(out);
+  const ServeArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T,
+                    pos_per_row ? T : 0, mask_per_row ? T : 0, sm_scale * kLog2e};
+  if (mk != nullptr)
+    return has_sentinel ? launch<true, true>(grid, s, qp, kp, vp, sl, p, mk, o, a)
+                        : launch<true, false>(grid, s, qp, kp, vp, sl, p, mk, o, a);
+  return has_sentinel ? launch<false, true>(grid, s, qp, kp, vp, sl, p, mk, o, a)
+                      : launch<false, false>(grid, s, qp, kp, vp, sl, p, mk, o, a);
+}

@@ -1,0 +1,183 @@
+// bf16 GEMM for Hopper (sm_90a) with the fused bias / GELU / dropout
+// epilogue: wgmma on 128-byte swizzled shared-memory tiles behind a
+// cp.async ring. fused_block.cu's two products (#6); the plain fused MLP
+// (#8, fused_mlp.cu) still runs bf16_gemm.cuh's mma.sync GEMM.
+//
+//   C[N, NOUT] = bf16(drop(act(A[N, K] W[NOUT, K]^T + bias)))
+//
+// A and W are bf16 row-major, both K-major as wgmma reads them from shared
+// memory, so nn.Linear's (out, in) weight needs no transpose. The sums are
+// fp32; the epilogue is bf16_gemm.cuh's: the fp32 bias, the exact-erf GELU
+// (GELU), the hash dropout drop_factor(seed, global row, global column)
+// (DROP; common.cuh, bit for bit the mask of the plain version and of the
+// backward's recompute) and one rounding to bf16.
+//
+// Design: one block of two warpgroups per 128 x 128 output tile; each
+// warpgroup owns 64 rows and issues wgmma m64n128k16 with A (its 64 rows)
+// and W (the tile's 128 columns) read from shared memory (SS). A K step is
+// 64 bf16 = one 128-byte swizzled row, four k16 steps. The (A, W) tiles of
+// three K steps live in a ring in dynamic shared memory, filled by
+// cp.async 16 bytes at a time by all 256 threads: the copies of step t + 2
+// are in flight while step t's products run. Rows past N and columns past
+// NOUT are zero-filled and not stored. blockIdx.x walks the output columns,
+// so the blocks that share an A row tile run together and W (8 MB at 4096
+// x 1024) stays in L2. The epilogue is computed from the wgmma accumulator
+// layout (sm90.cuh), thread (warp w, lane 4g + i) holding rows 16w + g + 8r
+// and columns 8j + 2i + e of its warpgroup's 64 rows; it writes the bf16
+// results into padded shared-memory rows (272 bytes: conflict-free) and
+// stores them as 16-byte row chunks.
+//
+// Bound on the H100 at a2v-large's b32 block (N = 64 000, C = 1024, M =
+// 4096): each product is 0.54 TFLOP, 0.54 ms at the 989 TFLOP/s bf16 peak,
+// against 0.66 GB of A, W and C (fc1; 0.20 ms at 3.35 TB/s): bound by
+// operations. A 128 x 128 tile brings 32 KB from L2 per K step for 1 M
+// multiply-adds, 32 per byte; wgmma reads both operands from shared memory
+// at 64 + 128 rows of 128 bytes per k16 step of a warpgroup. Two blocks an
+// SM (<= 128 registers, 2 x 97 KB): one block's epilogue (the bias, GELU,
+// dropout and stores) overlaps the other's products. Measured on an H100
+// (PERF.md): the staged 16-byte stores beat 4-byte stores straight from
+// the accumulator layout (b32 fc1 1.13-1.18 against 1.24-1.27 ms, fc2 0.91
+// against 1.03); slower were 128 x 256 tiles (fc2 0.93 against 1.04 ms
+// with a wgmma group in flight, but fc1 1.60 against 1.24 at one block an
+// SM), a fourth stage at one block an SM, a wgmma group left in flight
+// across the loop's barrier, and a warp-specialized block (a producer
+// warpgroup filling the ring by cp.async and mbarriers for two consumer
+// warpgroups).
+#pragma once
+
+#include "sm90.cuh"
+
+namespace a2v {
+namespace {
+
+constexpr int kG16BM = 128;       // output tile rows: two warpgroups of 64
+constexpr int kG16BN = 128;       // output tile columns (wgmma's N)
+constexpr int kG16BK = 64;        // K step: one 128-byte swizzled row of bf16
+constexpr int kG16Stages = 3;     // ring depth: two steps in flight
+constexpr int kG16Threads = 256;
+constexpr int kG16StageElems = (kG16BM + kG16BN) * kG16BK;  // A, then W
+constexpr int kG16Smem = kG16Stages * kG16StageElems * 2 + sm90::kTileAlign;
+
+// Needs K % 64 == 0, NOUT % 8 == 0 and a 16-byte aligned C.
+template <bool GELU, bool DROP>
+__global__ void __launch_bounds__(kG16Threads, 2)
+gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int N, int K,
+                      int NOUT, DropSite drop) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const ring = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+
+  const int n0 = blockIdx.x * kG16BN;  // output columns
+  const int m0 = blockIdx.y * kG16BM;  // rows
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, i4 = lane & 3;
+  const int n_steps = K / kG16BK;
+
+  // step kt's A rows (two 64-row tiles) and W rows (kG16BN / 64 tiles) into
+  // its ring slot; the caller commits
+  auto stage = [&](int kt) {
+    bf16* dst = ring + (kt % kG16Stages) * kG16StageElems;
+    const int k0 = kt * kG16BK;
+#pragma unroll
+    for (int t = 0; t < kG16BM / kTileRows; ++t)
+      stage_tile<kG16Threads>(dst + t * kTileElems, A + k0, K, m0 + t * kTileRows, N, tid);
+#pragma unroll
+    for (int t = 0; t < kG16BN / kTileRows; ++t)
+      stage_tile<kG16Threads>(dst + (kG16BM / kTileRows + t) * kTileElems, W + k0, K,
+                              n0 + t * kTileRows, NOUT, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kG16Stages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
+
+  float acc[kG16BN / 2];
+#pragma unroll
+  for (int i = 0; i < kG16BN / 2; ++i) acc[i] = 0.f;
+
+  const uint64_t desc_ring = desc_sw128(ring);
+  for (int kt = 0; kt < n_steps; ++kt) {
+    cp_async_wait<kG16Stages - 2>();  // this thread's copies of step kt have landed
+    fence_proxy_async();
+    __syncthreads();  // step kt visible to all; every warpgroup is done with step kt - 1
+    if (kt + kG16Stages - 1 < n_steps) stage(kt + kG16Stages - 1);  // into step kt - 1's slot
+    cp_async_commit();
+
+    const uint64_t slot = desc_ring + (((kt % kG16Stages) * kG16StageElems * 2) >> 4);
+    const uint64_t da = slot + wg * kDescTile;                  // this warpgroup's 64 rows
+    const uint64_t db = slot + (kG16BM / kTileRows) * kDescTile;  // the kG16BN W rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kG16BK / 16; ++kk)
+      wgmma_bf16_n128(acc, da + kk * kDescStepK, db + kk * kDescStepK, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // epilogue through shared memory: each warpgroup writes its 64 x 128
+  // bf16 outputs into its own padded rows (272 bytes: conflict-free), then
+  // stores them as 16-byte row chunks
+  __syncthreads();  // every warpgroup's products have read the ring
+  constexpr int kLdo = kG16BN + 8;  // elements per staged row
+  bf16* const so = ring + wg * 64 * kLdo;
+#pragma unroll
+  for (int j = 0; j < kG16BN / 8; ++j) {
+    const int cl = 8 * j + 2 * i4, col = n0 + cl;
+    const float b0 = col < NOUT ? bias[col] : 0.f, b1 = col < NOUT ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rl = 16 * warp + g + 8 * r, row = m0 + 64 * wg + rl;
+      float x0 = acc[4 * j + 2 * r] + b0;
+      float x1 = acc[4 * j + 2 * r + 1] + b1;
+      if (GELU) {
+        x0 = gelu_erf(x0);
+        x1 = gelu_erf(x1);
+      }
+      if (DROP) {
+        x0 *= drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale);
+        x1 *= drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale);
+      }
+      *reinterpret_cast<uint32_t*>(so + rl * kLdo + cl) = pack_bf16(x0, x1);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup's rows
+  const int wt = tid & 127;
+#pragma unroll
+  for (int i = 0; i < 64 * kG16BN / 8 / 128; ++i) {
+    const int c = wt + i * 128, rl = c / (kG16BN / 8), ch = c % (kG16BN / 8);
+    const int row = m0 + 64 * wg + rl, col = n0 + 8 * ch;
+    if (row < N && col < NOUT)
+      *reinterpret_cast<uint4*>(&C[static_cast<size_t>(row) * NOUT + col]) =
+          *reinterpret_cast<const uint4*>(so + rl * kLdo + 8 * ch);
+  }
+}
+
+// One GEMM launch on stream s: C = bf16(drop(act(A W^T + bias))) over N
+// rows, the dropout template when `drop`. Returns a cudaError_t.
+template <bool GELU>
+int launch_gemm_sm90(bool drop, cudaStream_t s, const __nv_bfloat16* A, const __nv_bfloat16* W,
+                     const float* bias, __nv_bfloat16* C, int N, int K, int NOUT,
+                     const DropSite& site) {
+  constexpr auto with_drop = gemm_bf16_sm90_kernel<GELU, true>;
+  constexpr auto without_drop = gemm_bf16_sm90_kernel<GELU, false>;
+  // the shared-memory limit above 48 KB, raised once per process for both
+  static const cudaError_t attr = [] {
+    const cudaError_t err =
+        cudaFuncSetAttribute(with_drop, cudaFuncAttributeMaxDynamicSharedMemorySize, kG16Smem);
+    return err != cudaSuccess ? err
+                              : cudaFuncSetAttribute(without_drop,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     kG16Smem);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((NOUT + kG16BN - 1) / kG16BN, (N + kG16BM - 1) / kG16BM);
+  (drop ? with_drop : without_drop)<<<grid, kG16Threads, kG16Smem, s>>>(A, W, bias, C, N, K,
+                                                                         NOUT, site);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace a2v

@@ -110,11 +110,6 @@ __device__ __forceinline__ int bias_at(int r, int c) {
   return r * kTile + ((((c >> 2) ^ ((r & 3) << 1))) << 2) + (c & 3);
 }
 
-__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
-  const uint32_t a = smem_addr(raw);
-  return raw + (((a + kTileAlign - 1) & ~uint32_t(kTileAlign - 1)) - a);
-}
-
 template <bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads, 3)
 bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -125,7 +120,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float* __restrict__ lse,           // null or (B*H, T)
                       BiasArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  bf16* const sQ = reinterpret_cast<bf16*>(align_smem(smem_raw));
+  bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sK = sQ + kTileElems;          // stage s at s tiles in
   bf16* const sV = sK + kStages * kTileElems;
   float* const sBias = reinterpret_cast<float*>(sV + kStages * kTileElems);

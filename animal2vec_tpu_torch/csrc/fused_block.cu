@@ -18,22 +18,23 @@
 //
 // Design: one C entry makes four launches on the caller's stream:
 //   1. ln_rows           x -> r (bf16), one warp per row;
-//   2. gemm_bias_act     h = drop_a(GELU(r W1 + b1)), bf16 (N, M) scratch;
-//   3. gemm_bias_act     t = drop_b(h W2 + b2) (the layer tap);
+//   2. gemm_bf16_sm90    h = drop_a(GELU(r W1 + b1)), bf16 (N, M) scratch;
+//   3. gemm_bf16_sm90    t = drop_b(h W2 + b2) (the layer tap);
 //   4. ln_rows           x_out = LN2(bf16(r + drop_c(t))).
-// The GEMM is bf16_gemm.cuh's (128x128 tiles on mma.sync, the bias, GELU and
-// dropout in its epilogue); both weights come in nn.Linear layout.
+// The GEMM is bf16_gemm_sm90.cuh's: wgmma m64n128k16 on 128-byte swizzled
+// shared-memory tiles behind a 3-stage cp.async ring, 128 x 128 output
+// tiles, the bias, GELU and dropout in its epilogue; both weights come in
+// nn.Linear layout, K-major as wgmma reads them.
 //
 // Bound on the H100 at the serving shape (N = 32 x 2000 rows, C = 1024,
 // M = 4096): fc1 + fc2 are 1.07 TFLOP per layer (1.1 ms at the 989 TFLOP/s
-// bf16 peak), so the block is compute-bound; mma.sync reaches a fraction of
-// that peak, wgmma is the lever for a later change. Unlike the TPU kernel
-// this design round-trips h through device memory: 2 x N x M x 2 B = 1.05 GB
+// bf16 peak), so the block is compute-bound. Unlike the TPU kernel this
+// design round-trips h through device memory: 2 x N x M x 2 B = 1.05 GB
 // per layer (0.31 ms at 3.35 TB/s), about half of the block's 2.0 GB of
 // traffic (x, r three times, t twice, x_out). Keeping h on chip needs the
 // fc1 -> fc2 fusion of a later change. The dropout hash adds ~12 integer
 // instructions per element of h, t and the residual branch.
-#include "bf16_gemm.cuh"
+#include "bf16_gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1t: (M, C) and
@@ -51,7 +52,7 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
   using namespace a2v;
   using bf16 = __nv_bfloat16;
   if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
-      M % 128 != 0 || (N + kTile - 1) / kTile > 65535)
+      M % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -68,14 +69,14 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
       xb, nullptr, static_cast<const float*>(ln1_scale), static_cast<const float*>(ln1_bias),
       rb, nullptr, nullptr, N, C, eps, site_post);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  launch_gemm<true>(act_thresh != 0u, gemm_grid(N, M), s, rb,
-                    static_cast<const bf16*>(w1t), static_cast<const float*>(b1), hb, N, C, M,
-                    site_act);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  launch_gemm<false>(act_thresh != 0u, gemm_grid(N, C), s, hb,
-                     static_cast<const bf16*>(w2t), static_cast<const float*>(b2), tb, N, M, C,
-                     site_fc2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_gemm_sm90<true>(
+           act_thresh != 0u, s, rb, static_cast<const bf16*>(w1t), static_cast<const float*>(b1),
+           hb, N, C, M, site_act))) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_gemm_sm90<false>(
+           act_thresh != 0u, s, hb, static_cast<const bf16*>(w2t), static_cast<const float*>(b2),
+           tb, N, M, C, site_fc2))) != cudaSuccess)
+    return static_cast<int>(err);
   if (post_thresh != 0u)
     ln_rows_kernel<true, true, false><<<ln_blocks, kLnThreads, 0, s>>>(
         rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),

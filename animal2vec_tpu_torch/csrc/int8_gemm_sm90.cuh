@@ -55,11 +55,6 @@ constexpr int kG8TileBytes = kG8Tile * kG8BK;    // 16 KB
 constexpr int kG8StageBytes = 2 * kG8TileBytes;  // A and W
 constexpr int kG8Smem = kG8Stages * kG8StageBytes + sm90::kTileAlign;
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
-  const uint32_t a = smem_addr(raw);
-  return raw + (((a + sm90::kTileAlign - 1) & ~uint32_t(sm90::kTileAlign - 1)) - a);
-}
-
 // Rows row0 .. row0 + 127 of an (n_rows, K) int8 matrix, columns k0 ..
 // k0 + 127, into a swizzled tile (chunk c of row r at byte r * 128 +
 // ((c ^ (r % 8)) << 4)); rows past n_rows and columns past K zero-filled.
@@ -89,7 +84,7 @@ gemm_s8_sm90_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                     int NOUT) {
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
-  int8_t* const ring = reinterpret_cast<int8_t*>(align_1024(smem_raw));
+  int8_t* const ring = reinterpret_cast<int8_t*>(sm90::align_tiles(smem_raw));
 
   const int n0 = blockIdx.x * kG8Tile;  // output columns
   const int m0 = blockIdx.y * kG8Tile;  // rows

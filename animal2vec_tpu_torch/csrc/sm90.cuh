@@ -2,9 +2,10 @@
 // rows (64 bf16, D = 64; or 128 int8 along K) in the 128-byte swizzled
 // shared-memory layout, staged by cp.async; the wgmma descriptor of such a
 // tile; the wgmma m64n64k16 bf16 products (fp32 accumulate) with both
-// operands in shared memory (SS) or A in registers (RS), and the m64n8k16
-// SS product of one 8-column group; the int8 wgmma m64n128k32 (int32
-// accumulate, SS); and the fences that order them.
+// operands in shared memory (SS) or A in registers (RS), the m64n8k16 SS
+// product of one 8-column group, and the SS m64n128k16 product of the bf16
+// GEMM (bf16_gemm_sm90.cuh); the int8 wgmma m64n128k32 (int32 accumulate,
+// SS); and the fences that order them.
 //
 // One warpgroup (four warps, 128 threads) issues each product for 64 rows;
 // warp w owns rows 16w .. 16w + 15. Register layouts (PTX ISA, "wgmma
@@ -43,13 +44,22 @@ __device__ __forceinline__ int sw128(int row, int chunk) {
 template <int kThreads>
 __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src, long long row_stride,
                                            int row0, int T, int tid) {
-  static_assert(kTileRows * 8 % kThreads == 0, "whole chunks per thread");
+  constexpr int kChunks = kTileRows * 8;
 #pragma unroll
-  for (int i = 0; i < kTileRows * 8 / kThreads; ++i) {
+  for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
     const int c = tid + i * kThreads, r = c >> 3, ch = c & 7, row = row0 + r;
+    if (kChunks % kThreads != 0 && c >= kChunks) break;
     const bool in = row < T;
     cp_async_16(tile + sw128(r, ch), src + (in ? row : 0) * row_stride + ch * 8, in);
   }
+}
+
+// The first 1024-byte aligned address at or after raw: the base of the
+// swizzled tiles in dynamic shared memory (which the kernels size with
+// kTileAlign bytes of slack).
+__device__ __forceinline__ uint8_t* align_tiles(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + kTileAlign - 1) & ~uint32_t(kTileAlign - 1)) - a);
 }
 
 // wgmma descriptor of a swizzled tile: start address >> 4 in bits [0, 14);
@@ -208,6 +218,21 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uin
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " A2V_D64_REGS
       ", %64, %65, p;\n}\n"
       : A2V_D64(A2V_RI)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The bf16 GEMM's product (bf16_gemm_sm90.cuh), SS with both operands
+// K-major (A: 64 rows along M, B: 128 rows along N, one 128-byte swizzled
+// row of 64 elements along K each): d (64 x 128 fp32, 64 registers, the
+// layout above once per 8 columns, j < 16) = (scale_d 0) or += (scale_d 1)
+// A (64 x 16) . B (16 x 128).
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " A2V_D64_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : A2V_D64(A2V_RW)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

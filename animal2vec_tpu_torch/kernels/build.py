@@ -41,6 +41,11 @@ SIGNATURES = {
     # has_sentinel, sm_scale, seed, thresh, keep_scale, stream
     "a2v_alibi_attention": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F)
     + _DROP + (_P,),
+    # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, mask,
+    # mask_per_row, out, out_stride_b, out_stride_t, out_stride_h, B, H, T, D,
+    # has_sentinel, sm_scale, stream
+    "a2v_alibi_attention_serve": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _L, _L, _L)
+    + (_I,) * 5 + (_F, _P),
     # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
     # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
     # keep_scale, stream

@@ -7,24 +7,36 @@ backward kernels).
 D), ``positions`` (1, T) when batch-uniform or (B, T), ``padding_mask``
 (B, T) bool (True = padded key) or None, output (B, H, T, D), and with
 ``return_lse`` the (B*H, T) fp32 logsumexp the backward reads. On a CUDA
-tensor it launches the hand-written kernel (``csrc/alibi_attention.cu``);
-on a CPU tensor it runs ``alibi_attention_plain``, a transcription of the
-JAX ``_reference_attention``; any other device raises.
+tensor a launch with an lse or a dropout rate runs the training kernel
+(``csrc/alibi_attention.cu``), a serving launch (neither)
+``alibi_flash_attention_serve`` on the packed planes; on a CPU tensor it
+runs ``alibi_attention_plain``, a transcription of the JAX
+``_reference_attention``; any other device raises.
+
+``alibi_flash_attention_serve`` is the serving kernel's entry
+(``csrc/alibi_attention_serve.cu``, no lse, no dropout): (B, T, H, D)
+views of q, k and v with one set of strides, read in place, into a (B, T,
+H, D) output of any strides. The projection's (B, T, 3, H, D) thirds and
+the packed layout's planes (transposed to (B, T, H, D)) are both such
+views.
 
 ``alibi_flash_attention_btc`` is the model's entry, for serving and
 training: (B, T, 3C) in, (B, T, C) out, differentiable in ``qkv_btc`` and
-``slopes``. On CUDA with no gradient wanted (grad mode off, or neither
-input requires grad) it copies qkv into the packed layout and makes one
-forward launch without lse. Otherwise it is a
-``torch.autograd.Function`` whose forward copies qkv into the packed layout,
-launches the forward kernel with the lse output and saves the packed qkv,
-the output and the lse (the packed copy takes the place of the JAX entry's
-(B, T, 3C) residual: the same bytes, and the backward needs no second layout
-copy); its backward computes ``delta = rowsum(dO * O)`` in fp32 with one
-torch op and launches the dq kernel (``attention_dq``, with one slope
-partial per (b, h, 64-query tile), summed here) and the dk/dv kernel
-(``attention_dkv``) of ``csrc/alibi_attention_bwd.cu``. On CPU tensors
-autograd through ``alibi_attention_plain`` is the backward.
+``slopes``. With no gradient wanted (grad mode off, or neither input
+requires grad) and no dropout it hands the q, k, v thirds of ``qkv_btc``
+to ``alibi_flash_attention_serve`` and returns its (B, T, H, D) output
+viewed as (B, T, C): no copy either way (on CPU tensors the plain version
+runs on the same views). With dropout and no gradient it makes one
+training-kernel launch on a packed copy. With a gradient wanted on CUDA it
+is a ``torch.autograd.Function`` whose forward copies qkv into the packed
+layout, launches the training kernel with the lse output and saves the
+packed qkv, the output and the lse (the packed copy takes the place of the
+JAX entry's (B, T, 3C) residual: the same bytes, and the backward needs no
+second layout copy); its backward computes ``delta = rowsum(dO * O)`` in
+fp32 with one torch op and launches the dq kernel (``attention_dq``, with
+one slope partial per (b, h, 64-query tile), summed here) and the dk/dv
+kernel (``attention_dkv``) of ``csrc/alibi_attention_bwd.cu``. On CPU
+tensors autograd through ``alibi_attention_plain`` is the backward.
 
 Semantics (all versions): scores ``q.k / sqrt(D) - slope_h * |pos_i -
 pos_j|`` in fp32, zero bias where either position is < 0 when
@@ -164,12 +176,19 @@ def _kernel_args(qkv, slopes, positions, padding_mask):
         raise ValueError(f"the kernels take contiguous bf16 qkv, got {qkv.dtype}")
     if d != 64:
         raise ValueError(f"the kernels are built for head dim 64, got {d}")
+    return (b, h, t, d) + _side_args(b, h, t, qkv.device, slopes, positions, padding_mask)
+
+
+def _side_args(b, h, t, device, slopes, positions, padding_mask):
+    """Check slopes, positions and the padding mask of a launch; return
+    (slopes fp32, positions int32, pos_per_row, mask uint8 or None,
+    mask_per_row)."""
     if positions.dim() != 2 or positions.shape[1] != t or positions.shape[0] not in (1, b):
         raise ValueError(f"positions must be (1, T) or (B, T), got {tuple(positions.shape)}")
     if slopes.shape != (h,):
         raise ValueError(f"slopes must be ({h},), got {tuple(slopes.shape)}")
     tensors = [slopes, positions] + ([] if padding_mask is None else [padding_mask])
-    if any(x.device != qkv.device for x in tensors):
+    if any(x.device != device for x in tensors):
         raise ValueError("slopes, positions and padding_mask must be on qkv's device")
     slopes = slopes.detach().to(torch.float32).contiguous()
     positions = positions.to(torch.int32).contiguous()
@@ -182,7 +201,7 @@ def _kernel_args(qkv, slopes, positions, padding_mask):
         padding_mask = padding_mask.to(torch.bool).contiguous()
         mask_per_row = int(padding_mask.shape[0] == b and b > 1)
     pos_per_row = int(positions.shape[0] == b and b > 1)
-    return b, h, t, d, slopes, positions, pos_per_row, padding_mask, mask_per_row
+    return slopes, positions, pos_per_row, padding_mask, mask_per_row
 
 
 def _dropout_args(dropout_rate: float, seed):
@@ -199,6 +218,72 @@ def _check_device(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """A (..., D) view the serving kernel reads or writes: 16-byte aligned
+    rows of contiguous elements, every stride a multiple of 8."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in x.stride()[:-1]))
+
+
+def alibi_flash_attention_serve(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = False,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """ALiBi attention forward without lse or dropout of (B, T, H, D) views
+    ``q``, ``k``, ``v`` that share one set of strides, into ``out`` (B, T,
+    H, D) of any strides (a new contiguous tensor when None), which it
+    returns. Kernel on CUDA (``csrc/alibi_attention_serve.cu``, q, k, v read
+    in place), ``alibi_attention_plain`` on CPU."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    if out is None:
+        out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"out must be a {q.dtype} {tuple(q.shape)} on q's device, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if q.device.type == "cpu":
+        packed = torch.stack([q, k, v]).transpose(2, 3)  # (3, B, H, T, D)
+        out.copy_(alibi_attention_plain(packed, slopes, positions, padding_mask,
+                                        has_sentinel).transpose(1, 2))
+        return out
+    _check_device(q, "alibi attention")
+    if q.dtype != torch.bfloat16 or d != 64:
+        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("k and v must be on q's device")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
+    if not all(_aligned(x) for x in (q, k, v, out)):
+        raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
+                         "last dim and strides in multiples of 8")
+    sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q.device, slopes, positions,
+                                                          padding_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_serve(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
+            out.stride(0), out.stride(1), out.stride(2), b, h, t, d, int(has_sentinel), d**-0.5,
+            stream,
+        )
+    check(err, "alibi attention serving kernel")
+    alibi_flash_attention_serve.launches += 1
+    return out
+
+
+alibi_flash_attention_serve.launches = 0
+
+
 def alibi_flash_attention_packed(
     qkv: torch.Tensor,
     slopes: torch.Tensor,
@@ -211,7 +296,7 @@ def alibi_flash_attention_packed(
 ):
     """ALiBi attention forward; kernel on CUDA, plain version on CPU. With
     ``return_lse`` returns (out, lse); serving calls (no lse, no dropout)
-    take the kernel's inference template."""
+    go to ``alibi_flash_attention_serve`` on the packed planes."""
     if qkv.device.type == "cpu":
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
                                      dropout_rate, seed, return_lse)
@@ -221,6 +306,11 @@ def alibi_flash_attention_packed(
     )
     seed_i, thresh, scale = _dropout_args(dropout_rate, seed)
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    if not return_lse and thresh == 0:
+        alibi_flash_attention_serve(*(x.transpose(1, 2) for x in qkv.unbind(0)), slopes,
+                                    positions, padding_mask, has_sentinel,
+                                    out=out.transpose(1, 2))
+        return out
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -230,7 +320,7 @@ def alibi_flash_attention_packed(
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t, d,
             int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
         )
-    check(err, "alibi attention kernel")
+    check(err, "alibi attention training kernel")
     alibi_flash_attention_packed.launches += 1
     return (out, lse) if return_lse else out
 
@@ -375,16 +465,24 @@ def alibi_flash_attention_btc(
     seed: Optional[int] = None,
 ) -> torch.Tensor:
     """The model's attention entry: (B, T, 3C) qkv -> (B, T, C),
-    differentiable in ``qkv_btc`` and ``slopes``. On CUDA the autograd
-    Function (forward with lse, then the backward kernels) when a gradient
-    is wanted, else one forward launch without lse (serving: rate 0 takes
-    the inference template); autograd through the plain version on CPU."""
+    differentiable in ``qkv_btc`` and ``slopes``. Without a gradient wanted
+    and without dropout (serving) ``alibi_flash_attention_serve`` on the q,
+    k, v thirds of ``qkv_btc``, its (B, T, H, D) output viewed as (B, T,
+    C); on CUDA the autograd Function (forward with lse, then the backward
+    kernels) when a gradient is wanted, else one training-kernel launch
+    without lse (dropout); autograd through the plain version on CPU."""
+    rate = float(dropout_rate)
+    wants_grad = torch.is_grad_enabled() and (qkv_btc.requires_grad or slopes.requires_grad)
+    if not wants_grad and rate == 0.0:
+        b, t, c3 = qkv_btc.shape
+        q, k, v = qkv_btc.reshape(b, t, 3, heads, c3 // (3 * heads)).unbind(2)
+        out = alibi_flash_attention_serve(q, k, v, slopes, positions, padding_mask, has_sentinel)
+        return out.view(b, t, c3 // 3)
     if qkv_btc.device.type == "cpu":
         return alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask,
                                          has_sentinel, dropout_rate, seed)
     _check_device(qkv_btc, "alibi attention")
-    rate = float(dropout_rate)
-    if torch.is_grad_enabled() and (qkv_btc.requires_grad or slopes.requires_grad):
+    if wants_grad:
         return _AttentionBTC.apply(qkv_btc, slopes, heads, positions, padding_mask,
                                    has_sentinel, rate, seed)
     out = alibi_flash_attention_packed(btc_to_packed(qkv_btc, heads), slopes, positions,

@@ -12,9 +12,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from animal2vec_tpu_torch/csrc (nvcc, sm_90a);
-3. the ALiBi attention forward kernel against its plain version, at the
-   serving shape (uniform positions) and with per-row positions, sentinels
-   and a padding mask that includes a fully padded row;
+3. the ALiBi serving kernel (#1) against its plain version at b4, T 2000,
+   through the packed entry and through the model's (B, T, 3C) entry that
+   it reads in place, with uniform positions and with per-row positions,
+   sentinels and a padding mask that includes a fully padded row;
 3b. the attention training kernels at b4, T 2000 with dropout 0.2 and one
    padded row: forward (out, lse), dq with the slope partials and dk/dv
    against their plain versions, and the training entry's gradients against
@@ -54,7 +55,13 @@ Phases, one line or more each; any failure raises and exits non-zero:
    call's (scaled_dot_product_attention with the ALiBi bias as a float
    mask; torch._int_mm for the int8 product) and the bound the card's peak
    rates set, at the serving shape and at the training shape, and the image
-   kernels at the image serving shapes; the backward kernels (#3, #4) also
+   kernels at the image serving shapes; the serving attention (#1, reading
+   the (B, T, 3C) projection in place) also by device time beside SDPA's,
+   and the fused block's (#6) two GEMM launches by device time beside
+   F.linear at the same shapes, at b32 and at the ViT-B/16 widths, all with
+   achieved TFLOP/s; #1 (uniform in place, and per-row positions with a
+   mask) and #6 are also held against their plain versions on the timed
+   b32 inputs (N 64 000 for #6); the backward kernels (#3, #4) also
    beside SDPA's backward alone, at dropout 0 and at the a2v-large
    pretraining student's b60 T125, with achieved TFLOP/s; the int8 dense
    projection also split by device time into its quantization and GEMM
@@ -268,12 +275,14 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
 
 
 def attention_bounds(b, h, t, d=64):
-    """Bounds of the forward (with lse), dq and dk/dv kernels: 2, 3 and 4
+    """Bounds of the serving forward, the forward with lse, dq and dk/dv
+    kernels: 2, 2, 3 and 4
     products of 2*T^2*D per (b, h); each input read once (bf16 q, k, v, dO;
     fp32 lse, delta), each output written once."""
     bhtd, bht = b * h * t * d, b * h * t
     flops = 2 * bhtd * t
     return {
+        "serve": bound(2 * flops, 2 * 3 * bhtd + 2 * bhtd),
         "forward": bound(2 * flops, 2 * 3 * bhtd + 2 * bhtd + 4 * bht),
         "dq": bound(3 * flops, 2 * 4 * bhtd + 2 * 4 * bht + 2 * bhtd + 4 * b * h * -(-t // 64)),
         "dkv": bound(4 * flops, 2 * 4 * bhtd + 2 * 4 * bht + 2 * 2 * bhtd),
@@ -353,9 +362,21 @@ def attention_inputs(gen, b, h, t, dev):
 
 
 def phase_attention(dev):
+    """3. The serving kernel (#1) through the packed entry and through the
+    model's (B, T, 3C) entry, which it reads in place: uniform positions,
+    then per-row positions with sentinels and a mask."""
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_attention_plain, alibi_flash_attention_packed,
+        alibi_attention_plain, alibi_flash_attention_btc, alibi_flash_attention_packed,
     )
+
+    def in_place(qkv, slopes, pos, mask, sentinel):
+        """The (B, T, 3C) projection layout through the model's entry, its
+        (B, T, C) output as (B, H, T, D)."""
+        _, b, h, t, d = qkv.shape
+        qkv_btc = qkv.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * d)
+        with torch.inference_mode():
+            out = alibi_flash_attention_btc(qkv_btc, h, slopes, pos, mask, sentinel)
+        return out.reshape(b, t, h, d).transpose(1, 2)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, h, t = 4, 16, 2000
@@ -365,6 +386,10 @@ def phase_attention(dev):
     want = alibi_attention_plain(qkv.float(), slopes, pos, None, False)
     torch.cuda.synchronize()
     err_uniform = check_close("attention uniform (4,16,2000,64)", got, want, ATTN_TOL)
+    got = in_place(qkv, slopes, pos, None, False)
+    torch.cuda.synchronize()
+    err_uniform = max(err_uniform, check_close("attention uniform, (B, T, 3C) read in place",
+                                               got, want, ATTN_TOL))
 
     # per-row positions: sorted random keep-sets of 0..2499, two sentinel
     # (extra-token) positions in front; row 2 pads its last 300 keys, row 3
@@ -381,6 +406,10 @@ def phase_attention(dev):
     want = alibi_attention_plain(qkv.float(), slopes, pos_rows, mask, True)
     torch.cuda.synchronize()
     err_rows = check_close("attention per-row + sentinel + mask", got, want, ATTN_TOL)
+    got = in_place(qkv, slopes, pos_rows, mask, True)
+    torch.cuda.synchronize()
+    err_rows = max(err_rows, check_close("attention per-row + sentinel + mask, (B, T, 3C) read "
+                                         "in place", got, want, ATTN_TOL))
     return max(err_uniform, err_rows)
 
 
@@ -795,7 +824,8 @@ class PlainSpy:
 
 def _counted():
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_int8, alibi_flash_attention_packed, attention_dkv, attention_dq,
+        alibi_flash_attention_int8, alibi_flash_attention_packed, alibi_flash_attention_serve,
+        attention_dkv, attention_dq,
     )
     from animal2vec_tpu_torch.ops.bias_attention import (
         bias_attention_dkv, bias_attention_dq, bias_flash_attention,
@@ -805,7 +835,8 @@ def _counted():
     )
     from animal2vec_tpu_torch.ops.int8_mm import int8_dense
 
-    return {"attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
+    return {"serve_attention": alibi_flash_attention_serve,
+            "attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
             "block": fused_block_mlp, "int8_dense": int8_dense, "int8_block": fused_block_int8,
             "int8_attention": alibi_flash_attention_int8, "bias_attention": bias_flash_attention,
             "bias_dq": bias_attention_dq, "bias_dkv": bias_attention_dkv,
@@ -828,7 +859,8 @@ def forward_launches(mode, n_blocks):
     if mode == "int8_attn":
         want.update(int8_dense=2 * n_blocks, int8_attention=n_blocks, int8_block=n_blocks)
     else:
-        want.update(attention=n_blocks, **{"block" if mode == "bf16" else "int8_block": n_blocks})
+        want.update(serve_attention=n_blocks,
+                    **{"block" if mode == "bf16" else "int8_block": n_blocks})
     return want
 
 
@@ -1185,16 +1217,18 @@ def phase_train_grads(cfg, dev):
 
 def phase_kernel_times(dev):
     """Each kernel beside its plain version, the library call and its
-    bound: the serving shape (b32) and the training shape (b4, dropout)."""
+    bound: the serving shape (b32) and the training shape (b4, dropout).
+    Returns the rows and the b32 serving grids' max_abs_err of #1 and #6,
+    each held against its plain version on the timed inputs."""
     import torch.nn.functional as F
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
-        attention_dkv, attention_dq,
+        alibi_attention_plain, alibi_flash_attention_btc, alibi_flash_attention_packed,
+        attention_bwd_plain, attention_dkv, attention_dq,
     )
     from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    rows = {}
+    rows, errs = {}, {}
 
     def row(key, ms, plain_ms, library_ms, bnd):
         rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1207,12 +1241,33 @@ def phase_kernel_times(dev):
         qkv, slopes = attention_inputs(gen, 32, 16, 2000, dev)
         pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
         q, k, v, bias = sdpa_args(qkv, slopes, 2000)
-        row("attention forward, b32 serving",
-            cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos, None, False)),
+        # the serving kernel as the model calls it: the (B, T, 3C) projection
+        # read in place, the (B, T, C) output written in place
+        qkv_btc = qkv.permute(1, 3, 0, 2, 4).reshape(32, 2000, 3 * 16 * 64)
+        serve = lambda: alibi_flash_attention_btc(qkv_btc, 16, slopes, pos)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        key = "attention forward, b32 serving"
+        row(key, cuda_ms(serve),
             cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos, None, False), iters=3),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
-            attention_bounds(32, 16, 2000)["forward"])
+            cuda_ms(sdpa), attention_bounds(32, 16, 2000)["serve"])
+        flops = 4 * 32 * 16 * 2000**2 * 64
+        split = {"device_ms": device_ms(serve, "alibi_serve_kernel"),
+                 "library_device_ms": device_ms(sdpa, "")}
+        split["tflops"] = flops / (split["device_ms"] * 1e-3) / 1e12
+        split["library_tflops"] = flops / (split["library_device_ms"] * 1e-3) / 1e12
+        rows[key].update(split)
+        print(f"  device time: kernel {split['device_ms']:.4f} ms ({split['tflops']:.1f} "
+              f"TFLOP/s), SDPA {split['library_device_ms']:.4f} ms "
+              f"({split['library_tflops']:.1f} TFLOP/s)")
         del q, k, v, bias
+        # the timed grid held against the plain version on the same inputs
+        got = serve().reshape(32, 2000, 16, 64).transpose(1, 2)
+        want = alibi_attention_plain(qkv.float(), slopes, pos, None, False)
+        torch.cuda.synchronize()
+        errs["attention"] = check_close("attention b32 serving, (B, T, 3C) read in place",
+                                        got, want, ATTN_TOL)
+        del got, want, qkv_btc
+        torch.cuda.empty_cache()
         # the per-row template: sorted keep-sets of 0..2499, every other row
         # padding its last 300 keys
         rng = np.random.default_rng(SEED + 3)
@@ -1226,12 +1281,24 @@ def phase_kernel_times(dev):
                            iters=3)
         print(f"attention forward, b32 per-row positions + mask: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms")
-        del qkv
+        got = alibi_flash_attention_packed(qkv, slopes, pos_rows, mask, False)
+        want = alibi_attention_plain(qkv.float(), slopes, pos_rows, mask, False)
+        torch.cuda.synchronize()
+        errs["attention"] = max(errs["attention"], check_close(
+            "attention b32 per-row positions + mask", got, want, ATTN_TOL))
+        del got, want, qkv
         torch.cuda.empty_cache()
         args = block_inputs(gen, 32 * 2000, 1024, 4096, dev)
         row("fused block, b32 serving", cuda_ms(lambda: fused_block_mlp(*args)),
             cuda_ms(lambda: fused_block_plain(*args), iters=3), None, block_bound(32 * 2000))
-        del args
+        rows["fused block, b32 serving"].update(block_gemm_splits(args))
+        (xo, t), (xo_p, t_p) = fused_block_mlp(*args), fused_block_plain(*args)
+        torch.cuda.synchronize()
+        errs["block"] = max(check_close("fused block tap t, b32 serving (64000,1024,4096)",
+                                        t, t_p, BLOCK_TOL),
+                            check_close("fused block x_out, b32 serving (64000,1024,4096)",
+                                        xo, xo_p, BLOCK_TOL))
+        del args, xo, t, xo_p, t_p
         torch.cuda.empty_cache()
 
         # training shape: b4, T 2000, dropout 0.2, row 1 padded
@@ -1293,6 +1360,23 @@ def phase_kernel_times(dev):
     bwd_splits(extra, f"b{bs} T {ts} keep-set positions, dropout 0.1", bs, h, ts,
                (qkv_s, dout_s, lse_s, delta_s, slopes_s, pos_s, None, False, 0.1, DROP_SEED),
                "student")
+    # SDPA's backward alone at the student's shape: the per-row ALiBi bias as
+    # a (B, H, T, T) bf16 float mask, dropout 0.1 (its forward once, outside
+    # the timed loop)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in qkv_s.unbind(0))
+    ps = pos_s.float()
+    mask_s = (-(ps[:, None, :, None] - ps[:, None, None, :]).abs()
+              * slopes_s.float()[None, :, None, None]).to(torch.bfloat16)
+    o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_s, dropout_p=0.1)
+    student_bwd = lambda: torch.autograd.grad(o, (qs, ks, vs), dout_s, retain_graph=True)
+    lib_student = {"student_library_bwd_ms": cuda_ms(student_bwd),
+                   "student_library_bwd_device_ms": device_ms(student_bwd, "")}
+    extra["dq"].update(lib_student)
+    extra["dkv"].update(lib_student)
+    print(f"  SDPA's backward alone at b{bs} T {ts} (per-row bias as a bf16 mask, dropout "
+          f"0.1): {lib_student['student_library_bwd_ms']:.3f} ms "
+          f"(device {lib_student['student_library_bwd_device_ms']:.4f} ms)")
+    del o, qs, ks, vs, mask_s
     rows[f"attention dq + slope partials, b{b} training"].update(extra["dq"])
     rows[f"attention dk/dv, b{b} training"].update(extra["dkv"])
     print(f"attention dq / dk/dv at b{b} T {t}: {extra['dq']['tflops']:.1f} / "
@@ -1312,7 +1396,7 @@ def phase_kernel_times(dev):
         int8_kernel_times(gen, dev, row, rows)
         image_kernel_times(gen, dev, row, rows)
     pretrain_kernel_times(gen, dev, row, rows)
-    return rows
+    return rows, errs
 
 
 def tflops(kernel, b, h, t, ms, d=64):
@@ -1336,6 +1420,35 @@ def device_ms(fn, kernel, iters=10):
             fn()
         torch.cuda.synchronize()
     return sum(us for us, _, name in kernel_rows(prof) if kernel in name) / iters / 1e3
+
+
+def block_gemm_splits(args):
+    """Device time of the fused block's two GEMM launches (fc1 with GELU,
+    fc2) beside F.linear at the same shapes (every kernel of one call), with
+    achieved TFLOP/s; ``args`` are fused_block_mlp's (bf16 x, weights in the
+    JAX layout)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
+
+    x, w1, w2, b1, b2 = args[0], args[3], args[4], args[5], args[6]
+    (n, c), m = x.shape, w1.shape[1]
+    hid = torch.randn((n, m), device=x.device).to(torch.bfloat16)
+    w1l, w2l = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear layout
+    split = {}
+    for name, kernel, lib in (
+            ("fc1", "gemm_bf16_sm90_kernel<true", lambda: F.linear(x, w1l, b1.to(x.dtype))),
+            ("fc2", "gemm_bf16_sm90_kernel<false", lambda: F.linear(hid, w2l, b2.to(x.dtype)))):
+        ms = device_ms(lambda: fused_block_mlp(*args), kernel)
+        lib_ms = device_ms(lib, "")
+        if not ms > 0:
+            raise AssertionError(f"no device time of a kernel named {kernel}")
+        split.update({f"{name}_device_ms": ms, f"{name}_tflops": 2 * n * c * m / ms / 1e9,
+                      f"{name}_library_device_ms": lib_ms,
+                      f"{name}_library_tflops": 2 * n * c * m / lib_ms / 1e9})
+        print(f"  {name} (N {n}, {c if name == 'fc1' else m} -> {m if name == 'fc1' else c}): "
+              f"GEMM launch {ms:.4f} ms device ({split[f'{name}_tflops']:.1f} TFLOP/s), "
+              f"F.linear {lib_ms:.4f} ms device ({split[f'{name}_library_tflops']:.1f} TFLOP/s)")
+    return split
 
 
 def bwd_splits(extra, label, b, h, t, args, prefix):
@@ -1419,6 +1532,7 @@ def attention_device_ms(kernel_fn, library_fn):
 def image_kernel_times(gen, dev, row, rows):
     """The image modality's kernels at the ViT-B/16 b64 serving shapes (N =
     64 x 196 rows, C 768, M 3072; H 12, T 196 with the 2-D ALiBi bias): the
+    fused block with its GEMM launches beside F.linear (device times), the
     fused MLP and its int8 twin (with x's quantization) beside their plain
     versions and the int8 products alone (torch._int_mm), the int8 dense
     projection's GEMM launch at the qkv and out widths beside
@@ -1427,12 +1541,17 @@ def image_kernel_times(gen, dev, row, rows):
     import torch.nn.functional as F
     from animal2vec_tpu_torch.ops.bias_attention import bias_attention_plain, bias_flash_attention
     from animal2vec_tpu_torch.ops.fused_mlp import (
-        fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+        fused_block_mlp, fused_block_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
+        fused_mlp_plain,
     )
     from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_rows, quantize_weight
 
     n, c, m = IMAGE_BATCH * IMAGE_T, 768, 3072
-    x, _, _, w1, w2, b1, b2 = block_inputs(gen, n, c, m, dev)[:7]
+    block_args = block_inputs(gen, n, c, m, dev)
+    x, _, _, w1, w2, b1, b2 = block_args[:7]
+    row("fused block, b64 ViT-B serving", cuda_ms(lambda: fused_block_mlp(*block_args)),
+        cuda_ms(lambda: fused_block_plain(*block_args), iters=3), None, block_bound(n, c, m))
+    rows["fused block, b64 ViT-B serving"].update(block_gemm_splits(block_args))
     w1l, w2l = w1.t().contiguous(), w2.t().contiguous()
     row("fused MLP, b64 ViT-B serving", cuda_ms(lambda: fused_mlp(x, w1l, w2l, b1, b2)),
         cuda_ms(lambda: fused_mlp_plain(x, w1l, w2l, b1, b2), iters=3), None, mlp_bound(n, c, m))
@@ -1449,15 +1568,18 @@ def image_kernel_times(gen, dev, row, rows):
         wd_q, wd_s = quantize_weight(w1l[:width])
         gemm = device_ms(lambda: int8_dense(x, wd_q, wd_s), "gemm_s8_sm90")
         lib = device_ms(lambda: torch._int_mm(x_q, wd_q.t()), "")
+        bnd = int8_dense_bound(n, c, width)
         dense_row.update({f"image_{what}_gemm_device_ms": gemm,
-                          f"image_{what}_library_device_ms": lib})
+                          f"image_{what}_library_device_ms": lib,
+                          f"image_{what}_bound_ms": bnd[0], f"image_{what}_bound_by": bnd[1]})
         print(f"  int8 dense {what} projection, b64 ViT-B (N {n}, K {c} -> {width}): GEMM "
-              f"launch {gemm:.4f} ms device, torch._int_mm {lib:.4f} ms device")
+              f"launch {gemm:.4f} ms device, torch._int_mm {lib:.4f} ms device, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
     h_q = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
     print(f"  (the int8 products alone, torch._int_mm on pre-quantized operands: fc1 "
           f"{cuda_ms(lambda: torch._int_mm(x_q, w1_q.t())):.3f} ms, fc2 "
           f"{cuda_ms(lambda: torch._int_mm(h_q, w2_q.t())):.3f} ms)")
-    del x, x_q, h_q, args
+    del x, x_q, h_q, args, block_args
     q, k, v = bias_attention_inputs(gen, IMAGE_BATCH, IMAGE_HEADS, IMAGE_T, dev)
     bias = image_bias(IMAGE_HEADS, IMAGE_T, dev)
     qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))  # (B, H, T, D) views
@@ -1586,7 +1708,8 @@ def pretrain_launches(cfg, pre_ln=False):
         want.update({"bias_attention": 2 * n, "bias_dq": n, "bias_dkv": n,
                      ("mlp" if pre_ln else "block"): 2 * n})
     else:
-        want.update(attention=2 * n, dq=n, dkv=n, block=2 * n)
+        # the student's attention with lse and dropout, the teacher's serving
+        want.update(attention=n, serve_attention=n, dq=n, dkv=n, block=2 * n)
     return {k: v * cfg.optimization.update_freq for k, v in want.items()}
 
 
@@ -1837,7 +1960,9 @@ def main() -> int:
         del served
     del model
     torch.cuda.empty_cache()
-    times = phase_kernel_times(dev)
+    times, b32_errs = phase_kernel_times(dev)
+    attn_err = max(attn_err, b32_errs["attention"])
+    block_err = max(block_err, b32_errs["block"])
     training = phase_train(cfg, card, dev)
     phase_train_grads(cfg, dev)
     image = phase_image(card, dev)
@@ -1880,10 +2005,15 @@ def main() -> int:
     pa = "animal2vec_tpu/ops/pallas_attention.py"
     fa = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     kernels = [
-        entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:891, {pa}:113",
-              training[0], serving["bf16"]["attention"], max(attn_err, fwd_err),
-              f"attention forward + lse + dropout, b{TRAIN_BATCH} training",
-              "attention forward, b32 serving"),
+        # the serving kernel: the bf16 and int8 serving runs' launches and the
+        # pretraining teacher's ("launches_pretrain" below)
+        dict(entry("alibi_flash_attention_serve", "alibi_attention_serve.cu", f"{pa}:891",
+                   serving["bf16"]["serve_attention"] + serving["int8"]["serve_attention"],
+                   serving["bf16"]["serve_attention"], attn_err,
+                   "attention forward, b32 serving"),
+             launches_int8=serving["int8"]["serve_attention"]),
+        entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:113", training[0], 0,
+              fwd_err, f"attention forward + lse + dropout, b{TRAIN_BATCH} training"),
         entry("alibi_attention_dq", "alibi_attention_bwd.cu", f"{pa}:330", training[1], 0,
               dq_err, f"attention dq + slope partials, b{TRAIN_BATCH} training"),
         entry("alibi_attention_dkv", "alibi_attention_bwd.cu", f"{pa}:390", training[2], 0,
@@ -1891,7 +2021,8 @@ def main() -> int:
         dict(entry("fused_block", "fused_block.cu", "animal2vec_tpu/ops/fused_mlp.py:175",
                    training[3], serving["bf16"]["block"], max(block_err, mlp_errs["block"]),
                    f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
-                   "fused block, b32 serving"), launches_image=image["block"]),
+                   "fused block, b32 serving"), launches_image=image["block"],
+             **{f"image_{k}": v for k, v in times["fused block, b64 ViT-B serving"].items()}),
         int8_entry("int8_dense", "int8_dense.cu", "animal2vec_tpu/ops/int8_mm.py:60",
                    "int8_dense", int8_errs["dense"],
                    "int8 dense qkv projection, b32 serving",
@@ -1927,7 +2058,8 @@ def main() -> int:
     ]
     # the pretraining paths' launches (phases 10 and 11) of the kernels that
     # earlier paths launch too
-    for e, key in zip(kernels, ("attention", "dq", "dkv", "block", None, None, None, "mlp")):
+    for e, key in zip(kernels, ("serve_attention", "attention", "dq", "dkv", "block", None, None,
+                                None, "mlp")):
         if key:
             e["launches_pretrain"] = pretrain[key]
             e["launches"] += pretrain[key]

@@ -24,7 +24,10 @@ from animal2vec_tpu.ops.pallas_attention import (
 from animal2vec_tpu_torch.ops.alibi import alibi_slopes
 from animal2vec_tpu_torch.ops.attention import (
     alibi_attention_plain,
+    alibi_flash_attention_btc,
     alibi_flash_attention_packed,
+    alibi_flash_attention_serve,
+    btc_to_packed,
 )
 
 FP32_TOL = 1e-5
@@ -131,6 +134,36 @@ def test_cpu_runs_plain_version_without_counting():
     np.testing.assert_array_equal(ours, plain)
 
 
+@pytest.mark.parametrize("layout", ["uniform", "per_row_masked_sentinel"])
+def test_btc_serving_reads_the_projection_in_place(layout):
+    """Without a gradient the model's entry hands the q, k, v thirds of the
+    (B, T, 3C) projection to the serving entry and views its (B, T, H, D)
+    output as (B, T, C): the layout the serving kernel reads and writes in
+    place. It equals the plain version on the packed copy, reshaped."""
+    b, h, t, d = 3, 3, 50, 16
+    qkv, slopes = _inputs(b, h, t, d, seed=9)
+    qkv_btc = torch.from_numpy(qkv).permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * d)
+    mask, sentinel = None, False
+    if layout == "uniform":
+        pos = torch.arange(t, dtype=torch.int32)[None]
+    else:
+        pos = torch.from_numpy(_gathered_positions(b, t, seed=10, sentinels=2))
+        m = np.zeros((b, t), bool)
+        m[1, -13:] = True
+        m[2] = True
+        mask, sentinel = torch.from_numpy(m), True
+    before = alibi_flash_attention_serve.launches
+    with torch.no_grad():
+        got = alibi_flash_attention_btc(qkv_btc, h, torch.from_numpy(slopes), pos, mask,
+                                        sentinel)
+    assert alibi_flash_attention_serve.launches == before
+    assert got.shape == (b, t, h * d) and got.is_contiguous()
+    want = alibi_attention_plain(btc_to_packed(qkv_btc, h), torch.from_numpy(slopes), pos,
+                                 mask, sentinel)
+    want = want.permute(0, 2, 1, 3).reshape(b, t, h * d)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=FP32_TOL)
+
+
 def test_other_devices_raise():
     qkv = torch.empty((3, 1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -147,9 +180,15 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["packed", "btc_in_place"])
+@pytest.mark.parametrize("t", [40, 333, 2000])
 @pytest.mark.parametrize("layout", ["uniform", "per_row_masked_sentinel"])
-def test_kernel_matches_plain_on_card(cuda, layout):
-    b, h, t, d = 2, 4, 333, 64
+def test_kernel_matches_plain_on_card(cuda, layout, t, entry):
+    """The serving kernel through the packed entry and through the model's
+    (B, T, 3C) entry, which it reads in place: T below one key tile, a
+    ragged one and the 10-s window's; per-row positions with two sentinels
+    and a mask that pads part of row 1 and all of row 2."""
+    b, h, d = 3, 4, 64
     qkv, slopes = _inputs(b, h, t, d, seed=7)
     qkv_t = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
     slopes_t = torch.from_numpy(slopes).to(cuda)
@@ -159,12 +198,19 @@ def test_kernel_matches_plain_on_card(cuda, layout):
     else:
         pos = torch.from_numpy(_gathered_positions(b, t, seed=8, sentinels=2)).to(cuda)
         m = np.zeros((b, t), bool)
-        m[1, -50:] = True
+        m[1, -t // 4:] = True
+        m[2] = True
         mask, sentinel = torch.from_numpy(m).to(cuda), True
-    before = alibi_flash_attention_packed.launches
-    got = alibi_flash_attention_packed(qkv_t, slopes_t, pos, mask, sentinel)
+    before = alibi_flash_attention_serve.launches
+    if entry == "packed":
+        got = alibi_flash_attention_packed(qkv_t, slopes_t, pos, mask, sentinel)
+    else:
+        qkv_btc = qkv_t.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * d)
+        with torch.no_grad():
+            got = alibi_flash_attention_btc(qkv_btc, h, slopes_t, pos, mask, sentinel)
+        got = got.reshape(b, t, h, d).transpose(1, 2)
     torch.cuda.synchronize()
-    assert alibi_flash_attention_packed.launches == before + 1
+    assert alibi_flash_attention_serve.launches == before + 1
     want = alibi_attention_plain(qkv_t.float(), slopes_t, pos, mask, sentinel)
     err = (got.float() - want).abs()
     assert (err <= 1e-2 + 1e-2 * want.abs()).all(), err.max().item()

@@ -104,9 +104,12 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000, 1024, 4096), (333, 768, 3072)])
 @pytest.mark.parametrize("affine", [True, False])
-def test_kernel_matches_plain_on_card(cuda, affine):
-    x, ln, w1, w2, b1, b2 = _inputs(1000, 1024, 4096, seed=13, affine=affine)
+def test_kernel_matches_plain_on_card(cuda, affine, shape):
+    """a2v-large's and ViT-B/16's widths, at row counts that leave the last
+    128-row tile of the GEMMs part empty."""
+    x, ln, w1, w2, b1, b2 = _inputs(*shape, seed=13, affine=affine)
     t = lambda a, dt=torch.float32: None if a is None else torch.from_numpy(a).to(cuda, dt)
     args = (t(x, torch.bfloat16), t(ln[0]), t(ln[1]), t(w1, torch.bfloat16),
             t(w2, torch.bfloat16), t(b1), t(b2), t(ln[2]), t(ln[3]), 1e-5)
