@@ -1,10 +1,11 @@
-// int8 ALiBi flash-attention forward of serving, D = 64, bf16 out.
+// int8 ALiBi flash-attention forward of serving, D = 64, bf16 out, on
+// Hopper's int8 wgmma; and the one CUDA pass that quantizes its q, k, v.
 //
 // Replaces the TPU kernel animal2vec_tpu/ops/pallas_attention.py:_kernel_q8
-// (wrapper alibi_flash_attention_int8). The wrapper (ops/attention.py)
-// quantizes q and k per row over D (D^-0.5 folded into q's scale) and v per
-// channel over T with torch ops, as the JAX wrapper does with XLA ops. Over
-// each span of `span` keys (the TPU kernel's key block, 2048 at most):
+// and its wrapper's quantization (alibi_flash_attention_int8, :816-831,
+// XLA ops there). q and k are quantized per row over D (D^-0.5 folded into
+// q before its max), v per channel over T. Over each span of `span` keys
+// (the TPU kernel's key block, 2048 at most):
 //
 //   s  = fp32(q8 . k8) * qs * ks - slope * |pos_i - pos_j|  (0 at sentinels)
 //   s  = -1e9 at padded keys and at keys in [T, t_pad)
@@ -14,200 +15,325 @@
 //
 // and out = bf16(acc / max(l, 1e-30)), with m starting at -1e9. P is
 // quantized against the running max of the whole span, as on the TPU, where
-// a span is one grid step: so each span is walked twice in 64-key tiles,
-// first for its row max (one extra int8 Q.K^T pass), then for P and P.V.
-// Keys in [T, t_pad) are the TPU wrapper's padding: masked, with zero v, so
-// a row whose every key is padded averages V over t_pad keys and stays
-// finite.
+// a span is one grid step: so each span is walked twice, first for its row
+// max (an extra int8 Q K^T), then for P and P V (a pass with a per-tile
+// rescale would round P otherwise). Keys in [T, t_pad) are the TPU
+// wrapper's padding: masked, with zero v, so a row whose every key is
+// padded averages V over t_pad keys and stays finite.
 //
-// Design: one thread block per (64-query tile, head, batch), four warps of
-// 16 query rows. Q's int8 fragments stay in registers; K tiles (64 keys x
-// 64 B) and V tiles (64 channels x 64 keys, from the wrapper's transposed
-// (B, H, D, T) v8) are staged in shared memory by cp.async. Both products
-// are mma.sync m16n8k32 (int8 in, int32 accumulate, exact). The S
-// accumulator is not the A layout of the P.V product, but the order of the
-// 32 keys of a k-step is free: P's A fragment takes, for thread (g, i), the
-// keys 2i, 2i+1, 8+2i, 9+2i (and +16), which it already holds, and V's B
-// fragment reads the same keys as two 16-bit pairs from the transposed V
-// tile. The int32 P.V sum spans a whole span (127 x 127 x 2048 < 2^31) and
-// is folded into fp32 once per span, in the TPU kernel's order. q, k and
-// the output keep the (B, T, H, D) layout of the projections: no permute.
+// The quantization pass (two launches, 16-byte loads) reads q, k and v
+// where the model leaves them, the (B, T, H, D) views of the qkv
+// projection's (B, T, 3, H, D) output (any batch, token and head strides,
+// D contiguous), and writes, bit for bit ops/attention.quantize_qkv_int8's
+// values (max|x| * fp32(1/127) floored at 1e-12, an IEEE division, round
+// half to even):
+//   1. quantize_qk: q8, k8 (B, H, T, D) int8 and qs, ks (B, H, T) fp32, one
+//      (token, head) row per 8 threads;
+//   2. quantize_v: per (b, h) block, v's per-channel max over all T, then
+//      v8^T (B, H, D, t_pad) int8, zero past T, with the keys of every 32
+//      in the order the P V product reads them (below), and vsc = vs *
+//      fp32(1/127) (B, H, D).
 //
-// Bound on the H100 at the serving shape (B = 32, H = 16, T = 2000): the two
-// products are 4*B*H*T^2*D = 0.52 TOP of int8 work, 0.26 ms at the 1,979
-// TOP/s int8 peak, above the 0.52 GB of bf16 q, k, v and out (0.16 ms at
-// 3.35 TB/s). The design does a third int8 product (the row-max pass) and
-// ~15 fp32 and integer instructions per score twice (dequant, bias, mask,
-// exp, rint), which the bf16 kernel's per-score cost suggests will bound it
-// well above that; wgmma and one pass with a P rescale per tile (which
-// changes the rounding, unlike the TPU kernel) are for a later change.
-#include "common.cuh"
+// The kernel (sm_90a): a block of two warpgroups owns 128 query rows of one
+// (batch, head), each warpgroup 64 rows, wgmma's M. The warpgroups share a
+// 2-stage cp.async ring whose slots hold 128 keys: two K8 tiles (64 keys x
+// 64 B), in pass 2 also the 64 channels' v8^T for them (two tiles), and
+// each key's position, scale and mask entry (+inf live, -1e9 padded or
+// past T). The walk is one stream of steps, span by span, the span's keys
+// in pass 1 and then again in pass 2, so the copies of the next step are
+// in flight across the boundary between passes and spans; a step works
+// through its two 64-key halves one after the other (one S accumulator),
+// so a barrier serves 128 keys.
+//   - S = Q8 K8^T: SS wgmma m64n64k32 s8 x s8 -> s32, two k32 steps over D.
+//     A staged row is 64 int8 = 64 bytes, held in the first half of a
+//     128-byte swizzled row (sm90.cuh's sw128 layout and descriptor; the
+//     k32 steps start 0 and 32 bytes in), so the int8 tiles take the bf16
+//     kernels' proven descriptor at twice the bytes.
+//   - The dequant ((fp32(s) * qs) * ks), the bias, the mask entry and the
+//     max in fp32, each product and sum rounded on its own, in the TPU
+//     kernel's order, so the scores and the span's max are the plain
+//     version's. fp32(s) and rint(127 p) take the magic-number conversions
+//     (two full-rate instructions each, not I2F / F2I). Pass 1 keeps only
+//     each row's max; pass 2 computes p = ex2((s - m') log2(e)), the fp32
+//     sum l and rint(127 p). ex2.approx is a few fp32 ulps from exp where
+//     expf is one or two, so a P value near a rounding boundary of 127 p
+//     lands one step apart somewhat more often (each such value moves its
+//     row by one step of P V, within the tolerance the kernel is held to);
+//     it measured 0.43 ms faster than expf at b32 (PERF.md). Folding
+//     log2(e) into the scale and the slope, one instruction less, rounds
+//     the scores themselves: an error relative to |s| (the bias reaches
+//     hundreds) that flipped ten times as many P values.
+//   - O_int32 += P8 V8: RS wgmma m64n64k32 with P8 packed from the S
+//     accumulator's registers as the A operand. The accumulator gives a
+//     thread the keys 8j + 2i + {0, 1} of its rows; the A fragment wants
+//     the k32 step's columns 4i .. 4i + 3 and 16 + 4i .. 16 + 4i + 3. So
+//     A's column a of a 32-key step carries the key
+//       perm(a) = 16 (a >> 4) + 8 ((a >> 1) & 1) + 2 ((a >> 2) & 3) + (a & 1)
+//     (columns 4i .. 4i + 3 hold keys 2i, 2i + 1, 8 + 2i, 9 + 2i, which the
+//     thread holds), and the quantization pass writes v8^T with the same
+//     order in every 32 keys: byte a of a group holds key perm(a), and key
+//     k sits at a = 16 (k >> 4) + 8 ((k >> 2) & 1) + 4 ((k >> 1) & 1) + 2
+//     ((k >> 3) & 1) + (k & 1). The dot product over a 32-key step does not
+//     depend on the order of its keys.
+//   - The int32 P V sum spans the whole span (127 x 127 x 2048 < 2^31) and
+//     is folded into fp32 once per span, in the TPU kernel's order; the
+//     last span writes the output, and with two spans or more the fp32
+//     sums wait in a global scratch between spans (the registers hold S,
+//     the int32 O and P's fragments).
+// Two blocks an SM (128 registers, 2 x 84 KB of shared memory). ptxas
+// spills a few values (8-60 bytes stored a thread, up to 376 loaded in the
+// masked instances); the loops over a step's two halves rolled up spill
+// less and measured 2-7 % slower (PERF.md), as did the previous design
+// (64-key pass-2 steps, unspilled, 3-5 % slower).
+//
+// Bound on the H100 at the serving shape (B = 32, H = 16, T = 2000): the
+// three products (Q K^T twice, P V) are 6 B H T^2 D = 0.79 TOP of int8
+// work, 0.40 ms at the 1,979 TOP/s int8 peak; the two products the
+// function needs, 0.26 ms, above the 0.52 GB of bf16 q, k, v and out (0.16
+// ms at 3.35 TB/s). Beside them every score (2.05e9 a pass) takes about
+// ten fp32 instructions in pass 1 and sixteen and an ex2 in pass 2, and
+// each step a barrier and a wait for its products: the scalar passes and
+// the step's synchronization, not the tensor cores, bound the kernel
+// (PERF.md: timing builds without pass 1, the bias or the exponential).
+#include <cmath>
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace a2v {
 namespace {
 
-constexpr int kD = 64;
-constexpr int kBQ = 64;           // query rows per block (4 warps x 16)
-constexpr int kBK = 64;           // keys per tile
-constexpr int kLds = kD + 16;     // padded shared row (80 B): conflict-free fragment reads
-constexpr int kThreads = 128;
-constexpr float kMaskScore = -1e9f;  // NEG_INF of the TPU kernel
-
 using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int kD = 64;
+constexpr int kTile = 64;             // keys per tile; query rows per warpgroup
+constexpr int kWG = 2;                // warpgroups per block
+constexpr int kThreads = 128 * kWG;
+constexpr int kStages = 2;            // ring depth of the key tiles
+constexpr int kRowBytes = 128;        // a staged row: 64 int8 in a 128-byte swizzled row
+constexpr int kS8Tile = kTile * kRowBytes;   // 8 KB
+constexpr int kStepKeys = 2 * kTile;  // keys a step: two K tiles (and two V^T tiles)
+constexpr float kMaskScore = -1e9f;   // NEG_INF of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+// Q tiles, the ring's slots of four tiles (two K, two V^T), each key's
+// {position, scale} and mask entry
+constexpr int kSmem = kS8Tile * (kWG + 4 * kStages) + kStages * kStepKeys * 12 + kTileAlign;
 
 struct Int8Args {
-  int pos_per_row, mask_per_row, has_sentinel;
-  int B, H, T;
-  int Tv;     // row length of v8t (T rounded up to 16)
-  int t_pad;  // keys walked: a multiple of span
-  int span;   // keys per P quantization (a multiple of 64)
+  int H, T;
+  int t_pad;     // keys walked: a multiple of span; the row length of v8^T
+  int span;      // keys per P quantization (a multiple of 128)
+  int pos_row;   // elements between batch rows of positions (0: batch-uniform)
+  int mask_row;  // elements between batch rows of the padding mask
 };
 
-__device__ __forceinline__ uint32_t ld_u16(const int8_t* p) {
-  return *reinterpret_cast<const uint16_t*>(p);
+// The int32 <-> fp32 conversions of the scalar passes, by the magic number
+// 1.5 * 2^23 (whose fp32 ulp is 1): two full-rate instructions each in
+// place of I2F / F2I, which issue at 16 a clock per SM, an eighth of the
+// fp32 rate (measured 2-7 % faster at b32 than I2F, F2I and pack_s8x4,
+// PERF.md). fp32 of an int32 with |v| < 2^22 (a Q K^T sum over D = 64 is
+// at most 64 x 127^2), exactly:
+__device__ __forceinline__ float s32_to_f32(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
+}
+// rint(x) of x in [0, 2^22), round half to even as __float2int_rn (the
+// fp32 add rounds so), in the low bytes of the result's bits:
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, 12582912.f));
+}
+// The low bytes of four words in one register, the first in the low byte.
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
+                                                   uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-__global__ void __launch_bounds__(kThreads)
-alibi_attention_int8_kernel(const int8_t* __restrict__ q8,   // (B, T, H, D)
-                            const float* __restrict__ qs,    // (B, T, H)
-                            const int8_t* __restrict__ k8,   // (B, T, H, D)
-                            const float* __restrict__ ks,    // (B, T, H)
-                            const int8_t* __restrict__ v8t,  // (B, H, D, Tv)
-                            const float* __restrict__ vsc,   // (B, H, D): vs / 127
-                            const float* __restrict__ slopes,  // (H,)
-                            const int* __restrict__ pos,     // (1 or B, T)
-                            const uint8_t* __restrict__ mask,  // null or (1 or B, T)
-                            bf16* __restrict__ out,          // (B, T, H, D)
-                            Int8Args a) {
-  const int H = a.H, T = a.T;
-  __shared__ __align__(16) int8_t sQ[kBQ * kLds];
-  __shared__ __align__(16) int8_t sK[kBK * kLds];
-  __shared__ __align__(16) int8_t sV[kD * kLds];  // row = channel, 64 keys
-  __shared__ float sKs[kBK];
-  __shared__ float sPosK[kBK];
-  __shared__ int sMaskK[kBK];  // 1 = padded key or past T
+// Rows row0 .. row0 + 63 of a plane of 64-byte int8 rows (row_stride bytes
+// apart) into the first halves of a 128-byte swizzled tile's rows, 16 bytes
+// a thread; rows at or past n_rows are zero-filled. The caller commits.
+__device__ __forceinline__ void stage_s8_rows(int8_t* tile, const int8_t* src, long long row_stride,
+                                              int row0, int n_rows, int tid) {
+  const int r = tid >> 2, ch = tid & 3, row = row0 + r;
+  const bool in = row < n_rows;
+  cp_async_16(tile + r * kRowBytes + ((ch ^ (r & 7)) << 4),
+              src + (in ? row : 0) * row_stride + ch * 16, in);
+}
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+template <bool HAS_MASK, bool HAS_SENTINEL>
+__global__ void __launch_bounds__(kThreads, 2)
+alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
+                  const float* __restrict__ qs,    // (B, H, T)
+                  const int8_t* __restrict__ k8,   // (B, H, T, D)
+                  const float* __restrict__ ks,    // (B, H, T)
+                  const int8_t* __restrict__ v8t,  // (B, H, D, t_pad), keys permuted
+                  const float* __restrict__ vsc,   // (B, H, D): vs / 127
+                  const float* __restrict__ slopes,  // (H,)
+                  const int* __restrict__ pos,     // (1 or B, T)
+                  const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
+                  bf16* __restrict__ out,          // (B, T, H, D)
+                  float* __restrict__ o_acc,       // (B, H, T, D) fp32 when two spans or more
+                  Int8Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  int8_t* const sQ = reinterpret_cast<int8_t*>(align_tiles(smem_raw));
+  int8_t* const sRing = sQ + kWG * kS8Tile;  // slot s: K0, K1, V0, V1 at 4s tiles in
+  float2* const sKD = reinterpret_cast<float2*>(sRing + kStages * 4 * kS8Tile);  // {pos, ks}
+  float* const sKE = reinterpret_cast<float*>(sKD + kStages * kStepKeys);  // mask entry
+
+  const int T = a.T, H = a.H, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kTile * kWG;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
 
-  const size_t row_stride = static_cast<size_t>(H) * kD;  // bytes between tokens
-  const size_t head0 = static_cast<size_t>(b) * T * H + h;  // token 0 of (b, h)
-  const int8_t* qb = q8 + head0 * kD;
-  const int8_t* kb = k8 + head0 * kD;
-  const float* qsb = qs + head0;
-  const float* ksb = ks + head0;
-  const int8_t* vb = v8t + (static_cast<size_t>(b) * H + h) * kD * a.Tv;
-  const float* vscb = vsc + (static_cast<size_t>(b) * H + h) * kD;
-  const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
-  const uint8_t* maskr =
-      mask == nullptr ? nullptr : mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0);
+  const long long bh = static_cast<long long>(b) * H + h;
+  const int8_t* qb = q8 + bh * T * kD;
+  const int8_t* kb = k8 + bh * T * kD;
+  const float* ksb = ks + bh * T;
+  const int8_t* vb = v8t + bh * kD * a.t_pad;
+  const int* posr = pos + static_cast<long long>(b) * a.pos_row;
+  const uint8_t* mrow = HAS_MASK ? mask + static_cast<long long>(b) * a.mask_row : nullptr;
+  // a span's steps: span / 128 of pass 1 (two K tiles each), then as many
+  // of pass 2 (two K and two V^T tiles each)
+  const int n_pass = a.span / kStepKeys, per_span = 2 * n_pass;
+  const int n_steps = a.t_pad / a.span * per_span;
 
-  for (int c = tid; c < kBQ * kD / 16; c += kThreads) {
-    const int r = c >> 2, col = (c & 3) * 16, row = q0 + r;
-    cp_async_16(&sQ[r * kLds + col], qb + static_cast<size_t>(row < T ? row : 0) * row_stride + col,
-                row < T);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qf[kD / 32][4];
+  // step st's first key; pass 2 when (st / n_pass) is odd
+  auto step_key = [&](int st) {
+    return st / per_span * a.span + st % n_pass * kStepKeys;
+  };
+  auto stage = [&](int st) {
+    const int key0 = step_key(st);
+    int8_t* slot = sRing + (st % kStages) * 4 * kS8Tile;
+    const bool with_v = (st / n_pass) & 1;
 #pragma unroll
-  for (int kk = 0; kk < kD / 32; ++kk) {
-    const int c = kk * 32 + 4 * i4;
-    qf[kk][0] = ld_s8x4(&sQ[r0 * kLds + c]);
-    qf[kk][1] = ld_s8x4(&sQ[(r0 + 8) * kLds + c]);
-    qf[kk][2] = ld_s8x4(&sQ[r0 * kLds + c + 16]);
-    qf[kk][3] = ld_s8x4(&sQ[(r0 + 8) * kLds + c + 16]);
+    for (int half = 0; half < 2; ++half) {
+      stage_s8_rows(slot + half * kS8Tile, kb, kD, key0 + half * kTile, T, tid);
+      if (with_v)  // the 64 channels' v8^T rows for the half's 64 keys
+        stage_s8_rows(slot + (2 + half) * kS8Tile, vb + key0 + half * kTile, a.t_pad, 0, kD,
+                      tid);
+    }
+  };
+  // threads < 128: the data of step st's key tid
+  struct KeyData {
+    float2 kd;
+    float entry;
+  };
+  auto key_data = [&](int st) {
+    const int key = step_key(st) + tid;
+    if (key >= T) return KeyData{make_float2(0.f, 0.f), kMaskScore};
+    return KeyData{make_float2(static_cast<float>(posr[key]), ksb[key]),
+                   HAS_MASK && mrow[key] ? kMaskScore : INFINITY};
+  };
+  auto put_key = [&](int st, const KeyData& k) {
+    sKD[(st % kStages) * kStepKeys + tid] = k.kd;
+    sKE[(st % kStages) * kStepKeys + tid] = k.entry;
+  };
+
+  // prologue: the Q tiles with step 0, then steps 1 .. kStages - 2
+#pragma unroll
+  for (int w = 0; w < kWG; ++w) stage_s8_rows(sQ + w * kS8Tile, qb, kD, q0 + w * kTile, T, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+    if (s < n_steps && tid < kStepKeys) put_key(s, key_data(s));
   }
-  const int rows[2] = {q0 + r0, q0 + r0 + 8};
-  float qsr[2], pq[2];
+
+  // this thread's rows q0 + 64 wg + 16 warp + g + 8r; a sentinel query row
+  // (position < 0) has no bias, as if its slope were 0
+  float qsr[2], pq[2], nsl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qsr[r] = rows[r] < T ? qsb[static_cast<size_t>(rows[r]) * H] : 0.f;
-    pq[r] = rows[r] < T ? static_cast<float>(posr[rows[r]]) : 0.f;
+    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+    qsr[r] = row < T ? qs[bh * T + row] : 0.f;
+    pq[r] = row < T ? static_cast<float>(posr[row]) : 0.f;
+    nsl[r] = HAS_SENTINEL && pq[r] < 0.f ? 0.f : -slopes[h];
   }
-  const float neg_slope = -slopes[h];
-  float vscale[kD / 8][2];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    vscale[dn][0] = vscb[dn * 8 + 2 * i4];
-    vscale[dn][1] = vscb[dn * 8 + 2 * i4 + 1];
-  }
-
-  // Stage the 64 keys from k0 (K, and V when with_v) and their scales,
-  // positions and mask flags.
-  auto load_keys = [&](int k0, bool with_v) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < kBK * kD / 16; c += kThreads) {
-      const int r = c >> 2, col = (c & 3) * 16, key = k0 + r;
-      cp_async_16(&sK[r * kLds + col],
-                  kb + static_cast<size_t>(key < T ? key : 0) * row_stride + col, key < T);
-      if (with_v) {  // r is a channel here, col the tile's key offset
-        const int vkey = k0 + col;
-        cp_async_16(&sV[r * kLds + col],
-                    vb + static_cast<size_t>(r) * a.Tv + (vkey < a.Tv ? vkey : 0), vkey < a.Tv);
-      }
-    }
-    cp_async_commit();
-    if (tid < kBK) {
-      const int key = k0 + tid;
-      const bool live = key < T;
-      sKs[tid] = live ? ksb[static_cast<size_t>(key) * H] : 0.f;
-      sPosK[tid] = live ? static_cast<float>(posr[key]) : 0.f;
-      sMaskK[tid] = !live || (maskr != nullptr && maskr[key] != 0);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  };
-
-  // Scores of this warp's 16 rows x the staged 64 keys (8 n-tiles of 8).
-  auto scores = [&](float (&s)[kBK / 8][4]) {
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      int acc[4] = {0, 0, 0, 0};
-      const int8_t* krow = &sK[(j * 8 + g) * kLds + 4 * i4];
-#pragma unroll
-      for (int kk = 0; kk < kD / 32; ++kk) {
-        const uint32_t bk[2] = {ld_s8x4(krow + kk * 32), ld_s8x4(krow + kk * 32 + 16)};
-        mma_s8_16832(acc, qf[kk], bk);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * i4 + (e & 1);
-        const float pk = sPosK[col];
-        const float pqe = pq[e >> 1];
-        float dist = fabsf(pqe - pk);
-        if (a.has_sentinel && (pqe < 0.f || pk < 0.f)) dist = 0.f;
-        const float x = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[e]), qsr[e >> 1]),
-                                            sKs[col]),
-                                  __fmul_rn(neg_slope, dist));
-        s[j][e] = sMaskK[col] ? kMaskScore : x;
-      }
-    }
-  };
-
   float m[2] = {kMaskScore, kMaskScore};
   float l[2] = {0.f, 0.f};
-  float o[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  const uint64_t desc_q = desc_sw128(sQ) + ((wg * kS8Tile) >> 4);
+  const uint64_t desc_ring = desc_sw128(sRing);
+  constexpr uint64_t kDescS8Tile = kS8Tile >> 4;
 
+  // the start of step st: its tiles have landed and every thread is done
+  // with step st - 1; the copies of step st + kStages - 1 go out; returns
+  // that step's key data (threads < 128), written after this step's
+  // products
+  auto begin = [&](int st) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const int nst = st + kStages - 1;
+    KeyData nk{};
+    if (nst < n_steps) {
+      stage(nst);
+      if (tid < kStepKeys) nk = key_data(nst);
+    }
+    cp_async_commit();
+    return nk;
+  };
+  auto end = [&](int st, const KeyData& nk) {
+    if (st + kStages - 1 < n_steps && tid < kStepKeys) put_key(st + kStages - 1, nk);
+  };
+  // S = Q8 K8^T of the K tile at ring tile rt (issued, committed, waited)
+  int sacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0;
+  auto qk = [&](int rt) {
+    wgmma_fence();
+    wgmma_s8_n64(sacc, desc_q, desc_ring + rt * kDescS8Tile, 0);
+    wgmma_s8_n64(sacc, desc_q + kDescStepK, desc_ring + rt * kDescS8Tile + kDescStepK, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+  };
+  // the scores of S against the 64 keys from key0 of step st's key data
+  // (dequant, bias; the mask entry when a padding mask or T reaches the
+  // tile), each handed to fn(i, r, x)
+  auto scores = [&](int st, int key0, auto fn) {
+    const int kofs = (st % kStages) * kStepKeys + key0;
+    const float4* kd = reinterpret_cast<const float4*>(sKD + kofs);
+    const float2* ke = reinterpret_cast<const float2*>(sKE + kofs);
+    auto walk = [&](auto entry) {
+      constexpr bool kEntry = decltype(entry)::value;
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const float4 kv = kd[4 * j + i4];  // keys 8j + 2 i4 and 8j + 2 i4 + 1
+        const float2 en = ke[4 * j + i4];
+        const float pk[2] = {kv.x, kv.z}, ksc[2] = {kv.y, kv.w}, ent[2] = {en.x, en.y};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * r + e;
+            float dist = fabsf(pq[r] - pk[e]);
+            if (HAS_SENTINEL && pk[e] < 0.f) dist = 0.f;
+            float x = __fadd_rn(__fmul_rn(__fmul_rn(s32_to_f32(sacc[i]), qsr[r]), ksc[e]),
+                                __fmul_rn(nsl[r], dist));
+            if (kEntry && ent[e] != INFINITY) x = ent[e];
+            fn(i, r, x);
+          }
+        }
+      }
+    };
+    if (HAS_MASK || step_key(st) + key0 + kTile > T)
+      walk(std::true_type{});
+    else
+      walk(std::false_type{});
+  };
+
+  int st = 0;
   for (int s0 = 0; s0 < a.t_pad; s0 += a.span) {
     // pass 1: the span's row max
     float mx[2] = {-INFINITY, -INFINITY};
-    for (int k0 = s0; k0 < s0 + a.span; k0 += kBK) {
-      load_keys(k0, false);
-      float s[kBK / 8][4];
-      scores(s);
+    for (int it = 0; it < n_pass; ++it, ++st) {
+      const KeyData nk = begin(st);
+      const auto max_of = [&](int, int r, float x) { mx[r] = fmaxf(mx[r], x); };
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      for (int half = 0; half < 2; ++half) {
+        qk(4 * (st % kStages) + half);
+        scores(st, half * kTile, max_of);
+      }
+      end(st, nk);
     }
     float m_new[2], alpha[2];
 #pragma unroll
@@ -218,96 +344,307 @@ alibi_attention_int8_kernel(const int8_t* __restrict__ q8,   // (B, T, H, D)
       alpha[r] = expf(m[r] - m_new[r]);
     }
 
-    // pass 2: p, its int8 quantization, and P.V
-    int pv[kD / 8][4];
+    // pass 2: p, its int8 quantization, and P V, 64 keys at a time
+    int pv[32];
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0;
+    for (int i = 0; i < 32; ++i) pv[i] = 0;
     float lsum[2] = {0.f, 0.f};
-    for (int k0 = s0; k0 < s0 + a.span; k0 += kBK) {
-      load_keys(k0, true);
-      float s[kBK / 8][4];
-      scores(s);
-      int p8[kBK / 8][4];
+    for (int it = 0; it < n_pass; ++it, ++st) {
+      const KeyData nk = begin(st);
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
+      for (int half = 0; half < 2; ++half) {
+        const int rt = 4 * (st % kStages) + half;
+        qk(rt);
+        scores(st, half * kTile, [&](int i, int r, float x) {
+          const float p = ex2(__fmul_rn(__fsub_rn(x, m_new[r]), kLog2e));
+          lsum[r] += p;
+          sacc[i] = static_cast<int>(rint_bits(__fmul_rn(p, 127.f)));
+        });
+        // A of the k32 step kk: columns 4 i4 .. +3 and 16 + 4 i4 .. +3 of
+        // rows g and g + 8 hold the keys perm(a) (above) of accumulator
+        // columns 32 kk + 8j' + 2 i4 + e
+        uint32_t pa[2][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[j][e] - m_new[e >> 1]);
-          lsum[e >> 1] += p;
-          p8[j][e] = __float2int_rn(p * 127.f);
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int j = 4 * kk + 2 * hf;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              pa[kk][2 * hf + r] = pack_low_bytes(sacc[4 * j + 2 * r], sacc[4 * j + 2 * r + 1],
+                                                  sacc[4 * j + 4 + 2 * r],
+                                                  sacc[4 * j + 5 + 2 * r]);
+          }
         }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk) {
-        const int j = 4 * kk;  // n-tiles j..j+3 hold the k-step's 32 keys
-        const uint32_t pa[4] = {
-            pack_s8x4(p8[j][0], p8[j][1], p8[j + 1][0], p8[j + 1][1]),
-            pack_s8x4(p8[j][2], p8[j][3], p8[j + 1][2], p8[j + 1][3]),
-            pack_s8x4(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0], p8[j + 3][1]),
-            pack_s8x4(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2], p8[j + 3][3])};
-#pragma unroll
-        for (int dn = 0; dn < kD / 8; ++dn) {
-          const int8_t* vrow = &sV[(dn * 8 + g) * kLds + kk * 32 + 2 * i4];
-          const uint32_t bv[2] = {ld_u16(vrow) | (ld_u16(vrow + 8) << 16),
-                                  ld_u16(vrow + 16) | (ld_u16(vrow + 24) << 16)};
-          mma_s8_16832(pv[dn], pa, bv);
-        }
+        const uint64_t desc_v = desc_ring + (rt + 2) * kDescS8Tile;
+        wgmma_fence();
+        fence_regs(pv);
+        wgmma_s8_n64_rs(pv, pa[0], desc_v, 1);
+        wgmma_s8_n64_rs(pv, pa[1], desc_v + kDescStepK, 1);
+        wgmma_commit();
+        if (half == 1) end(st, nk);
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_regs(pa);
       }
     }
+
+    // fold the span, in the TPU kernel's order: l, and acc = alpha acc +
+    // fp32(P V) vs / 127, through o_acc between spans; the last span
+    // writes out = acc / max(l, 1e-30)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), lsum[r]);
       m[r] = m_new[r];
     }
+    const bool first = s0 == 0, last = s0 + a.span >= a.t_pad;
+    float inv[2];
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      inv[r] = fmaxf(lt, 1e-30f);
+    }
+    const float* vs = vsc + bh * kD;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[dn][e] = __fadd_rn(__fmul_rn(o[dn][e], alpha[e >> 1]),
-                             __fmul_rn(__int2float_rn(pv[dn][e]), vscale[dn][e & 1]));
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+      if (row >= T) continue;
+      float* orow = o_acc + (bh * T + row) * kD;
+      bf16* out_row = out + ((static_cast<long long>(b) * T + row) * H + h) * kD;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int col = 8 * j + 2 * i4;
+        float2 prev = make_float2(0.f, 0.f);
+        if (!first) prev = *reinterpret_cast<const float2*>(orow + col);
+        const float y0 = __fadd_rn(__fmul_rn(prev.x, alpha[r]),
+                                   __fmul_rn(__int2float_rn(pv[4 * j + 2 * r]), vs[col]));
+        const float y1 = __fadd_rn(__fmul_rn(prev.y, alpha[r]),
+                                   __fmul_rn(__int2float_rn(pv[4 * j + 2 * r + 1]), vs[col + 1]));
+        if (last)
+          *reinterpret_cast<uint32_t*>(out_row + col) = pack_bf16(y0 / inv[r], y1 / inv[r]);
+        else
+          *reinterpret_cast<float2*>(orow + col) = make_float2(y0, y1);
+      }
+    }
+  }
+}
+
+// --- the quantization pass ---------------------------------------------
+
+constexpr int kQThreads = 256;
+
+struct QuantArgs {
+  long long stride_b, stride_t, stride_h;  // elements of q, k and v
+  int B, H, T, t_pad;
+};
+
+// One (token, head) row of q or k per 8 threads, 8 values (16 bytes) each:
+// row item = ((b T + t) 2 + which) H + h, so a warp reads 4 rows of one
+// token's q or k third.
+__global__ void __launch_bounds__(kQThreads)
+quantize_qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, QuantArgs a,
+                   int8_t* __restrict__ q8, float* __restrict__ qs, int8_t* __restrict__ k8,
+                   float* __restrict__ ks) {
+  const long long n_items = 2ll * a.B * a.T * a.H;
+  const long long gid = static_cast<long long>(blockIdx.x) * kQThreads + threadIdx.x;
+  const int sub = threadIdx.x & 7;
+  const bool valid = (gid >> 3) < n_items;
+  const long long item = valid ? gid >> 3 : 0;
+  const int h = static_cast<int>(item % a.H);
+  const long long rest = item / a.H;
+  const int which = static_cast<int>(rest & 1);
+  const long long bt = rest >> 1;
+  const int t = static_cast<int>(bt % a.T), b = static_cast<int>(bt / a.T);
+  const bf16* src = (which ? k : q) + b * a.stride_b + t * a.stride_t + h * a.stride_h + 8 * sub;
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  float v[8], amax = 0.f;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float2 f = __bfloat1622float2(pairs[p]);
+    v[2 * p] = f.x;
+    v[2 * p + 1] = f.y;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (!which) v[i] = __fmul_rn(v[i], 0.125f);  // D^-0.5, exact
+    amax = fmaxf(amax, fabsf(v[i]));
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = fmaxf(amax * kInv127, 1e-12f);
+  if (!valid) return;
+  const long long row = (static_cast<long long>(b) * a.H + h) * a.T + t;
+  *reinterpret_cast<uint2*>((which ? k8 : q8) + row * kD + 8 * sub) = make_uint2(
+      pack_s8x4(quantize_s8(v[0], s), quantize_s8(v[1], s), quantize_s8(v[2], s),
+                quantize_s8(v[3], s)),
+      pack_s8x4(quantize_s8(v[4], s), quantize_s8(v[5], s), quantize_s8(v[6], s),
+                quantize_s8(v[7], s)));
+  if (sub == 0) (which ? ks : qs)[row] = s;
+}
+
+// The key at byte a of a 32-key group of v8^T (the P V operand's order).
+__device__ __forceinline__ int perm_key(int a) {
+  return 16 * (a >> 4) + 8 * ((a >> 1) & 1) + 2 * ((a >> 2) & 3) + (a & 1);
+}
+
+constexpr int kRawLd = 33;  // 32-bit words per staged v row (64 bf16 + 1): conflict-free
+
+// One block per (head, batch): v's per-channel max over all T, then v8^T
+// tile by tile (64 keys x 64 channels through shared memory).
+__global__ void __launch_bounds__(kQThreads)
+quantize_v_kernel(const bf16* __restrict__ v, QuantArgs a, int8_t* __restrict__ v8t,
+                  float* __restrict__ vsc) {
+  __shared__ float sMax[kQThreads / 8][kD];
+  __shared__ float sVs[kD];
+  __shared__ uint32_t sRaw[kTile * kRawLd];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int sub = tid & 7, kr = tid >> 3;  // channels 8 sub .. 8 sub + 7
+  const bf16* vb = v + b * a.stride_b + h * a.stride_h + 8 * sub;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+
+  float mx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int t = kr; t < a.T; t += kQThreads / 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(vb + t * a.stride_t);
+    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 f = __bfloat1622float2(pairs[p]);
+      mx[2 * p] = fmaxf(mx[2 * p], fabsf(f.x));
+      mx[2 * p + 1] = fmaxf(mx[2 * p + 1], fabsf(f.y));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sMax[kr][8 * sub + i] = mx[i];
+  __syncthreads();
+  if (tid < kD) {
+    float amax = 0.f;
+    for (int r = 0; r < kQThreads / 8; ++r) amax = fmaxf(amax, sMax[r][tid]);
+    const float s = fmaxf(amax * kInv127, 1e-12f);
+    sVs[tid] = s;
+    vsc[bh * kD + tid] = __fmul_rn(s, kInv127);
   }
 
+  int8_t* vt = v8t + bh * kD * a.t_pad;
+  for (int k0 = 0; k0 < a.t_pad; k0 += kTile) {
+    __syncthreads();  // sVs written; every thread is done with the last tile
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
+    for (int i = 0; i < kTile * 8 / kQThreads; ++i) {  // key r's 16 bytes at chunk sub
+      const int c = tid + i * kQThreads, r = c >> 3, key = k0 + r;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (key < a.T)
+        raw = *reinterpret_cast<const uint4*>(v + b * a.stride_b + key * a.stride_t +
+                                              h * a.stride_h + 8 * (c & 7));
+      uint32_t* dst = sRaw + r * kRawLd + 4 * (c & 7);
+      dst[0] = raw.x;
+      dst[1] = raw.y;
+      dst[2] = raw.z;
+      dst[3] = raw.w;
+    }
+    __syncthreads();
+    // four bytes a thread: channel d, bytes 4 quad .. 4 quad + 3 of the tile
+#pragma unroll
+    for (int i = 0; i < kD / (kQThreads / 16); ++i) {
+      const int d = (tid >> 4) + i * (kQThreads / 16), byte0 = 4 * (tid & 15);
+      const float s = sVs[d];
+      int qv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int byte = byte0 + c, key = (byte & ~31) + perm_key(byte & 31);
+        const uint32_t w = sRaw[key * kRawLd + (d >> 1)];
+        const float x = __uint_as_float((d & 1 ? w & 0xffff0000u : w << 16));
+        qv[c] = quantize_s8(x, s);
+      }
+      *reinterpret_cast<uint32_t*>(vt + static_cast<long long>(d) * a.t_pad + k0 + byte0) =
+          pack_s8x4(qv[0], qv[1], qv[2], qv[3]);
+    }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
-    bf16* orow = out + (static_cast<size_t>(b) * T + rows[r]) * row_stride + static_cast<size_t>(h) * kD;
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(&orow[dn * 8 + 2 * i4]) =
-          pack_bf16(o[dn][2 * r] / l[r], o[dn][2 * r + 1] / l[r]);
-  }
+}
+
+template <bool HAS_MASK, bool HAS_SENTINEL>
+int launch(dim3 grid, cudaStream_t s, const int8_t* q8, const float* qs, const int8_t* k8,
+           const float* ks, const int8_t* v8t, const float* vsc, const float* slopes,
+           const int* pos, const uint8_t* mask, bf16* out, float* o_acc, const Int8Args& a) {
+  constexpr auto kernel = alibi_int8_kernel<HAS_MASK, HAS_SENTINEL>;
+  // the shared-memory limit above 48 KB, raised once per process and instance
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kThreads, kSmem, s>>>(q8, qs, k8, ks, v8t, vsc, slopes, pos, mask, out, o_acc,
+                                       a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace a2v
 
-// C entry, bound with ctypes. q8, k8 (B, T, H, D) int8 and qs, ks (B, T, H)
-// fp32; v8t (B, H, D, Tv) int8, zero past T; vsc (B, H, D) fp32 (vs / 127);
-// positions (pos_per_row ? B : 1, T) int32; mask null or (mask_per_row ? B :
-// 1, T) uint8; out (B, T, H, D) bf16. Returns a cudaError_t.
+// C entry of the quantization pass, bound with ctypes. q, k, v: bf16 (B, T,
+// H, D) with element strides (stride_b, stride_t, stride_h, 1), 16-byte
+// aligned, strides multiples of 8; q8, k8 (B, H, T, D) int8, qs, ks (B, H,
+// T) fp32, v8t (B, H, D, t_pad) int8, vsc (B, H, D) fp32. Returns a
+// cudaError_t.
+extern "C" int a2v_quantize_qkv_int8(const void* q, const void* k, const void* v,
+                                     long long stride_b, long long stride_t, long long stride_h,
+                                     void* q8, void* qs, void* k8, void* ks, void* v8t,
+                                     void* vsc, int B, int H, int T, int D, int t_pad,
+                                     void* stream) {
+  using namespace a2v;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || t_pad < T ||
+      t_pad % kTile != 0 || stride_b % 8 != 0 || stride_t % 8 != 0 || stride_h % 8 != 0 ||
+      misaligned(q) || misaligned(k) || misaligned(v))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const QuantArgs a{stride_b, stride_t, stride_h, B, H, T, t_pad};
+  const long long threads = 2ll * B * T * H * 8;
+  quantize_qk_kernel<<<static_cast<int>((threads + kQThreads - 1) / kQThreads), kQThreads, 0,
+                       s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), a,
+                            static_cast<int8_t*>(q8), static_cast<float*>(qs),
+                            static_cast<int8_t*>(k8), static_cast<float*>(ks));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quantize_v_kernel<<<dim3(H, B), kQThreads, 0, s>>>(static_cast<const bf16*>(v), a,
+                                                     static_cast<int8_t*>(v8t),
+                                                     static_cast<float*>(vsc));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry of the kernel, bound with ctypes. q8, k8 (B, H, T, D) int8 and
+// qs, ks (B, H, T) fp32; v8t (B, H, D, t_pad) int8, zero past T, keys
+// permuted as above; vsc (B, H, D) fp32 (vs / 127); positions (pos_per_row
+// ? B : 1, T) int32; mask null or (mask_per_row ? B : 1, T) uint8; out (B,
+// T, H, D) bf16; o_acc (B, H, T, D) fp32 scratch when t_pad > span (two key
+// spans or more), else null. Returns a cudaError_t.
 extern "C" int a2v_alibi_attention_int8(const void* q8, const void* qs, const void* k8,
                                         const void* ks, const void* v8t, const void* vsc,
                                         const void* slopes, const void* pos, int pos_per_row,
-                                        const void* mask, int mask_per_row, void* out, int B,
-                                        int H, int T, int D, int Tv, int t_pad, int span,
-                                        int has_sentinel, void* stream) {
+                                        const void* mask, int mask_per_row, void* out,
+                                        void* o_acc, int B, int H, int T, int D, int t_pad,
+                                        int span, int has_sentinel, void* stream) {
   using namespace a2v;
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || Tv < T ||
-      Tv % 16 != 0 || span <= 0 || span % kBK != 0 || t_pad < T || t_pad % span != 0)
+  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || span <= 0 ||
+      span % kStepKeys != 0 || t_pad < T || t_pad % span != 0 ||
+      (t_pad > span && o_acc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Int8Args a{pos_per_row, mask_per_row, has_sentinel, B, H, T, Tv, t_pad, span};
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  alibi_attention_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const float*>(qs),
-      static_cast<const int8_t*>(k8), static_cast<const float*>(ks),
-      static_cast<const int8_t*>(v8t), static_cast<const float*>(vsc),
-      static_cast<const float*>(slopes), static_cast<const int*>(pos),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), a);
-  return static_cast<int>(cudaGetLastError());
+  const Int8Args a{H, T, t_pad, span, pos_per_row ? T : 0, mask_per_row ? T : 0};
+  const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* q = static_cast<const int8_t*>(q8);
+  const auto* k = static_cast<const int8_t*>(k8);
+  const auto* v = static_cast<const int8_t*>(v8t);
+  const auto* fq = static_cast<const float*>(qs);
+  const auto* fk = static_cast<const float*>(ks);
+  const auto* fv = static_cast<const float*>(vsc);
+  const auto* sl = static_cast<const float*>(slopes);
+  const auto* p = static_cast<const int*>(pos);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  auto* o = static_cast<bf16*>(out);
+  auto* oa = static_cast<float*>(o_acc);
+  if (mk != nullptr)
+    return has_sentinel ? launch<true, true>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a)
+                        : launch<true, false>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
+  return has_sentinel ? launch<false, true>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a)
+                      : launch<false, false>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
 }

@@ -18,42 +18,89 @@
 // statistics.
 //
 // Design: one C entry makes five launches on the caller's stream:
-//   1. ln_rows<QUANT>       x -> r (bf16), r_q (int8), rs, one warp per row;
-//   2. gemm_s8<GELU, fp32>  h = GELU(dequant(r_q W1_q^T) + b1), fp32 (N, M);
-//   3. quantize_segments    h -> h_q (int8), hs (N, M / chunk);
-//   4. gemm_s8<bf16>        t = bf16(sum over chunks of dequant + b2);
-//   5. ln_rows<RESID>       x_out = LN2(bf16(r + t)).
-// A chunk's scale needs the max over `chunk` (1024) columns of h, eight of
-// the GEMM's 128-column tiles, so h goes through device memory in fp32
-// once (N x M x 4 B written, read, then N x M int8 written and read by fc2).
-// The weights come in nn.Linear layout (out, in), the B operand layout of
-// the int8 MMA (int8_gemm.cuh).
+//   1. ln_rows<QUANT>        x -> r (bf16), r_q (int8), rs, one warp per row;
+//   2. fc1, gemm_s8_sm90<kEpiGeluF32>: h = GELU(dequant(r_q W1_q^T) + b1),
+//      fp32 (N, M), and each row's max |h| over every 128 columns, (N, M /
+//      128) fp32;
+//   3. quantize_chunks       h -> h_q (int8), hs (N, M / chunk): the chunk's
+//      scale from its partial maxima, so h is read once;
+//   4. fc2, gemm_s8_sm90<kEpiSegBf16>: t = bf16(sum over chunks of dequant +
+//      b2), the int32 sum restarting at every chunk;
+//   5. ln_rows<RESID>        x_out = LN2(bf16(r + t)).
+// Both GEMMs are int8_gemm_sm90.cuh's wgmma core on 128 x 128 tiles, two
+// blocks an SM (fc2's fp32 chunk sums spill to local memory and are
+// touched only at the folds: measured faster than the unspilled
+// alternatives, int8_gemm_sm90.cuh). A chunk's scale needs the max over
+// `chunk` (1024) columns of h, eight of fc1's 128-column tiles, so h goes
+// through device memory in fp32 once (N x M x 4 B written and read, then N
+// x M int8 written and read by fc2). The weights come in nn.Linear layout
+// (out, in), wgmma's K-major B operand.
 //
 // Bound on the H100 at the serving shape (N = 32 x 2000 rows, C = 1024,
 // M = 4096): fc1 + fc2 are 1.07 TOP of int8 work per layer, 0.54 ms at the
 // 1,979 TOP/s int8 peak, against 0.40 GB of x, x_out, t and the weights
-// (0.12 ms at 3.35 TB/s): bound by operations. This design adds 2.4 GB of
-// h traffic (fp32 out and in, int8 out and in: ~0.7 ms at 3.35 TB/s) and
-// runs mma.sync, a fraction of the int8 peak; keeping h on chip (a CTA
-// owning whole hidden chunks) and wgmma are the levers for a later change.
-#include "int8_gemm.cuh"
+// (0.12 ms at 3.35 TB/s): bound by operations. h's round trip adds 2.6 GB
+// (fp32 out and in, int8 out and in: ~0.8 ms at 3.35 TB/s), which a block
+// owning whole hidden chunks (128 rows x 1024 fp32 columns of h do not fit
+// in shared memory) would avoid.
+#include "int8_gemm_sm90.cuh"
 #include "layernorm.cuh"
+
+namespace a2v {
+namespace {
+
+// The h quantizer: h (rows, len) fp32 cut into chunks of `chunk` columns;
+// chunk j of a row gets the scale s = max(amax * kInv127, 1e-12), where
+// amax is the max of the chunk's chunk / 128 partial maxima (fc1's
+// row_amax, int8_gemm_sm90.cuh), and q = rint(h / s) (ops/int8_mm.
+// quantize_rows of the chunk, bit for bit: the max of the partial maxima
+// is the chunk's max). One warp per (row, chunk) reads the chunk once, 16
+// bytes a lane.
+constexpr int kChunkQuantThreads = 256;
+
+// Needs chunk % 128 == 0, chunk <= 4096 and len % chunk == 0; scale is
+// (rows, len / chunk), amax (rows, len / 128).
+__global__ void __launch_bounds__(kChunkQuantThreads)
+quantize_chunks_kernel(const float* __restrict__ h, const float* __restrict__ amax,
+                       int8_t* __restrict__ q, float* __restrict__ scale, int rows, int len,
+                       int chunk) {
+  const int n_chunks = len / chunk, parts = chunk / kG8Tile;
+  const long long item =
+      static_cast<long long>(blockIdx.x) * (kChunkQuantThreads / 32) + (threadIdx.x >> 5);
+  if (item >= static_cast<long long>(rows) * n_chunks) return;
+  const int lane = threadIdx.x & 31;
+  const long long row = item / n_chunks;
+  const int c = static_cast<int>(item % n_chunks);
+  const float a = lane < parts ? amax[row * (len / kG8Tile) + c * parts + lane] : 0.f;
+  const float s = fmaxf(warp_max(a) * kInv127, 1e-12f);
+  const size_t base = static_cast<size_t>(row) * len + static_cast<size_t>(c) * chunk;
+#pragma unroll 4
+  for (int j = 4 * lane; j < chunk; j += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(h + base + j);
+    *reinterpret_cast<uint32_t*>(q + base + j) = pack_s8x4(
+        quantize_s8(v.x, s), quantize_s8(v.y, s), quantize_s8(v.z, s), quantize_s8(v.w, s));
+  }
+  if (lane == 0) scale[item] = s;
+}
+
+}  // namespace
+}  // namespace a2v
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1_q (M, C) and
 // w2_q (C, M) int8 (nn.Linear layout); w1_s (M), w2_s (C), b1 (M), b2 (C)
 // and the LayerNorm scales/biases (C) fp32; r_q (N, C) int8, r_s (N) fp32,
-// h (N, M) fp32, h_q (N, M) int8 and h_s (N, M / chunk) fp32 scratch.
-// Returns a cudaError_t.
+// h (N, M) fp32, h_max (N, M / 128) fp32, h_q (N, M) int8 and h_s (N, M /
+// chunk) fp32 scratch. Returns a cudaError_t.
 extern "C" int a2v_fused_block_int8(
     const void* x, const void* ln1_scale, const void* ln1_bias, const void* w1_q,
     const void* w1_s, const void* b1, const void* w2_q, const void* w2_s, const void* b2,
     const void* ln2_scale, const void* ln2_bias, void* r, void* r_q, void* r_s, void* h,
-    void* h_q, void* h_s, void* t, void* x_out, int N, int C, int M, int chunk, float eps,
-    void* stream) {
+    void* h_max, void* h_q, void* h_s, void* t, void* x_out, int N, int C, int M, int chunk,
+    float eps, void* stream) {
   using namespace a2v;
   if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
-      M % 128 != 0 || chunk <= 0 || chunk % kS8BK != 0 || M % chunk != 0 ||
-      (N + kS8Tile - 1) / kS8Tile > 65535)
+      M % 128 != 0 || chunk <= 0 || chunk % kG8BK != 0 || chunk > 32 * kG8Tile ||
+      M % chunk != 0 || (N + kG8Tile - 1) / kG8Tile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -61,11 +108,11 @@ extern "C" int a2v_fused_block_int8(
   auto* rq = static_cast<int8_t*>(r_q);
   auto* rs = static_cast<float*>(r_s);
   auto* hf = static_cast<float*>(h);
+  auto* hm = static_cast<float*>(h_max);
   auto* hq = static_cast<int8_t*>(h_q);
   auto* hs = static_cast<float*>(h_s);
   auto* tb = static_cast<bf16*>(t);
   const int ln_blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
-  const int row_tiles = (N + kS8Tile - 1) / kS8Tile;
   const DropSite none{0u, 0u, 1.f};
   cudaError_t err;
 
@@ -73,18 +120,19 @@ extern "C" int a2v_fused_block_int8(
       static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
       static_cast<const float*>(ln1_bias), rb, rq, rs, N, C, eps, none);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm_s8_kernel<true, float><<<dim3(M / kS8Tile, row_tiles), kS8Threads, 0, s>>>(
-      rq, static_cast<const int8_t*>(w1_q), rs, static_cast<const float*>(w1_s),
-      static_cast<const float*>(b1), hf, N, C, M, C);
+  if ((err = static_cast<cudaError_t>(launch_gemm_s8_sm90<kEpiGeluF32>(
+           s, rq, static_cast<const int8_t*>(w1_q), rs, static_cast<const float*>(w1_s),
+           static_cast<const float*>(b1), hf, hm, N, C, M, C))) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long items = static_cast<long long>(N) * (M / chunk);
+  quantize_chunks_kernel<<<static_cast<int>((items + kChunkQuantThreads / 32 - 1) /
+                                            (kChunkQuantThreads / 32)),
+                           kChunkQuantThreads, 0, s>>>(hf, hm, hq, hs, N, M, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  quantize_segments_kernel<float>
-      <<<quantize_blocks(static_cast<long long>(N) * (M / chunk)), kQuantThreads, 0, s>>>(
-          hf, hq, hs, N, M, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gemm_s8_kernel<false, bf16><<<dim3(C / kS8Tile, row_tiles), kS8Threads, 0, s>>>(
-      hq, static_cast<const int8_t*>(w2_q), hs, static_cast<const float*>(w2_s),
-      static_cast<const float*>(b2), tb, N, M, C, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_gemm_s8_sm90<kEpiSegBf16>(
+           s, hq, static_cast<const int8_t*>(w2_q), hs, static_cast<const float*>(w2_s),
+           static_cast<const float*>(b2), tb, nullptr, N, M, C, chunk))) != cudaSuccess)
+    return static_cast<int>(err);
   ln_rows_kernel<true, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
       rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
       static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, none);

@@ -17,8 +17,8 @@
 //
 // Design: two launches on the caller's stream. The first quantizes x, one
 // warp per row, into an int8 (N, K) scratch and its (N,) fp32 scales
-// (int8_gemm.cuh's quantize_segments_kernel, shared with the int8 block and
-// MLP; the TPU kernel quantizes its row tile into VMEM once per row block,
+// (int8_gemm.cuh's quantize_segments_kernel, shared with the int8 MLP; the
+// TPU kernel quantizes its row tile into VMEM once per row block,
 // here the quantized rows go through device memory, N x K bytes, half of
 // x's). The second is the wgmma GEMM of int8_gemm_sm90.cuh with W_q in
 // nn.Linear layout (M, K) as its K-major B operand: the int8 tensor cores
@@ -46,13 +46,7 @@ extern "C" int a2v_int8_dense(const void* x, const void* w_q, const void* w_s,
       static_cast<const __nv_bfloat16*>(x), xq, xs, N, K, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the shared-memory limit above 48 KB, raised once per process
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_s8_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kG8Smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((M + kG8Tile - 1) / kG8Tile, (N + kG8Tile - 1) / kG8Tile);
-  gemm_s8_sm90_kernel<<<grid, kG8Threads, kG8Smem, s>>>(
-      xq, static_cast<const int8_t*>(w_q), xs, static_cast<const float*>(w_s),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), N, K, M);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gemm_s8_sm90<kEpiDense>(s, xq, static_cast<const int8_t*>(w_q), xs,
+                                       static_cast<const float*>(w_s),
+                                       static_cast<const float*>(bias), out, nullptr, N, K, M, K);
 }

@@ -1,6 +1,6 @@
-// The mma.sync int8 GEMM of the int8 block (fused_block_int8.cu) and the
-// int8 MLP (fused_mlp_int8.cu), and the segment quantizer they share with
-// int8_dense.cu (whose GEMM is int8_gemm_sm90.cuh's wgmma kernel).
+// The mma.sync int8 GEMM of the int8 MLP (fused_mlp_int8.cu), and the
+// segment quantizer it shares with int8_dense.cu (whose GEMM, like the int8
+// block's, is int8_gemm_sm90.cuh's wgmma kernel).
 //
 // quantize_segments_kernel: x (rows, len), bf16 or fp32, cut into segments
 // of seg_len columns; each (row, segment) gets its own int8 scale (ops/
@@ -12,7 +12,7 @@
 // with A (N, K) and W (NOUT, K) int8 row-major: nn.Linear's (out, in) layout
 // is the "col" B operand of mma.sync.m16n8k32, so W needs no transpose. The
 // int32 sum restarts at every segment of seg_len columns of K (the int8
-// block's hidden chunks; seg_len = K elsewhere) and is folded into the fp32
+// MLP's hidden chunks; seg_len = K elsewhere) and is folded into the fp32
 // sum as ((fp32(acc) * row scale) * col scale) in that order, each product
 // and sum rounded on its own (no FMA contraction), as the JAX kernels write
 // it. The epilogue adds the fp32 bias (or nothing), applies exact-erf GELU

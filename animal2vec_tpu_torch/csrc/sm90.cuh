@@ -4,8 +4,9 @@
 // tile; the wgmma m64n64k16 bf16 products (fp32 accumulate) with both
 // operands in shared memory (SS) or A in registers (RS), the m64n8k16 SS
 // product of one 8-column group, and the SS m64n128k16 product of the bf16
-// GEMM (bf16_gemm_sm90.cuh); the int8 wgmma m64n128k32 (int32 accumulate,
-// SS); and the fences that order them.
+// GEMM (bf16_gemm_sm90.cuh); the int8 wgmma m64n128k32 and m64n64k32
+// (int32 accumulate; SS, and RS for N = 64); and the fences that order
+// them.
 //
 // One warpgroup (four warps, 128 threads) issues each product for 64 rows;
 // warp w owns rows 16w .. 16w + 15. Register layouts (PTX ISA, "wgmma
@@ -219,6 +220,34 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uin
       ", %64, %65, p;\n}\n"
       : A2V_D64(A2V_RI)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// int8 with N = 64: d (64 x 64 int32, 32 registers, the layout above
+// once per 8 columns, j < 8) = (scale_d 0) or += (scale_d 1) A (64 x 32
+// s8) . B (32 x 64 s8). SS: both K-major descriptors (the segment-fold
+// GEMM's 64-column tiles, int8_gemm_sm90.cuh; the int8 attention's S =
+// Q K^T). RS: A from registers in the mma.sync m16n8k32 A layout of the
+// warp's 16 rows (common.cuh): a[0] = A[g][4i .. 4i + 3], a[1] = A[g +
+// 8][4i ..], a[2] = A[g][16 + 4i ..], a[3] = A[g + 8][16 + 4i ..], four
+// int8 a register, the lowest column in the low byte (the int8 attention's
+// O += P V).
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " A2V_D32_REGS
+      ", %32, %33, p;\n}\n"
+      : A2V_D32(A2V_RI)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_s8_n64_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " A2V_D32_REGS
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : A2V_D32(A2V_RI)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // The bf16 GEMM's product (bf16_gemm_sm90.cuh), SS with both operands

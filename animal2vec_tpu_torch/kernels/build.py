@@ -61,11 +61,15 @@ SIGNATURES = {
     # x, w_q, w_s, bias, x_q, x_s, out, N, K, M, stream
     "a2v_int8_dense": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,
-    # ln2_bias, r, r_q, r_s, h, h_q, h_s, t, x_out, N, C, M, chunk, eps, stream
-    "a2v_fused_block_int8": (_P,) * 19 + (_I,) * 4 + (_F, _P),
+    # ln2_bias, r, r_q, r_s, h, h_max, h_q, h_s, t, x_out, N, C, M, chunk, eps,
+    # stream
+    "a2v_fused_block_int8": (_P,) * 20 + (_I,) * 4 + (_F, _P),
+    # q, k, v, stride_b, stride_t, stride_h, q8, qs, k8, ks, v8t, vsc, B, H, T,
+    # D, t_pad, stream
+    "a2v_quantize_qkv_int8": (_P,) * 3 + (_L,) * 3 + (_P,) * 6 + (_I,) * 5 + (_P,),
     # q8, qs, k8, ks, v8t, vsc, slopes, pos, pos_per_row, mask, mask_per_row,
-    # out, B, H, T, D, Tv, t_pad, span, has_sentinel, stream
-    "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P) + (_I,) * 8 + (_P,),
+    # out, o_acc, B, H, T, D, t_pad, span, has_sentinel, stream
+    "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P, _P) + (_I,) * 7 + (_P,),
     # q, k, v, stride_b, stride_t, bias, bias_uniform, mask, out, lse, B, H, T,
     # D, sm_scale, stream
     "a2v_bias_attention": (_P, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -585,6 +585,76 @@ def alibi_attention_int8_plain(
     return out.to(q.dtype)
 
 
+def v8t_key_order(t_pad: int, device=None) -> torch.Tensor:
+    """The key at each position of a v8^T row: in every 32 keys, position a
+    holds key 16 (a >> 4) + 8 ((a >> 1) & 1) + 2 ((a >> 2) & 3) + (a & 1),
+    the order in which the kernel's P V product reads them (the keys that a
+    thread's S accumulator holds, ``csrc/alibi_attention_int8.cu``)."""
+    a = torch.arange(t_pad, device=device)
+    w = a % 32
+    return a - w + 16 * (w >> 4) + 8 * ((w >> 1) & 1) + 2 * ((w >> 2) & 3) + (w & 1)
+
+
+def quantize_qkv_int8_pass_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int):
+    """Plain version of the kernel's quantization pass: (B, T, H, D) q, k, v
+    -> q8, k8 (B, H, T, D) int8, qs, ks (B, H, T) fp32, v8t (B, H, D, t_pad)
+    int8 (zero past T, keys in ``v8t_key_order``) and vsc (B, H, D) fp32 =
+    vs * fp32(1/127): ``quantize_qkv_int8``'s values in the kernel's
+    layouts."""
+    q8, qs, k8, ks, v8, vs = quantize_qkv_int8(q, k, v)
+    t = q.shape[1]
+    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, t_pad - t))[..., v8t_key_order(t_pad, q.device)]
+    bhtd = lambda x: x.transpose(1, 2).contiguous()
+    return bhtd(q8), bhtd(qs), bhtd(k8), bhtd(ks), v8t.contiguous(), vs * INV_127
+
+
+def quantize_qkv_int8_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int):
+    """The int8 attention's quantization of (B, T, H, D) views q, k, v that
+    share one set of strides (the qkv projection's thirds), into the
+    kernel's layouts (``quantize_qkv_int8_pass_plain``): one C entry of two
+    launches on CUDA (``csrc/alibi_attention_int8.cu``, q, k, v read in
+    place), the plain version on CPU."""
+    if q.device.type == "cpu":
+        return quantize_qkv_int8_pass_plain(q, k, v, t_pad)
+    _check_device(q, "int8 q, k, v quantization")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    if d != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("k and v must be on q's device")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
+    if not all(_aligned(x) for x in (q, k, v)):
+        raise ValueError("the kernel needs 16-byte aligned q, k, v with a contiguous last dim "
+                         "and strides in multiples of 8")
+    if t_pad < t or t_pad % 64:
+        raise ValueError(f"t_pad must be a multiple of 64 and at least T={t}, got {t_pad}")
+    dev = q.device
+    q8 = torch.empty((b, h, t, d), dtype=torch.int8, device=dev)
+    k8 = torch.empty_like(q8)
+    qs = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    ks = torch.empty_like(qs)
+    v8t = torch.empty((b, h, d, t_pad), dtype=torch.int8, device=dev)
+    vsc = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_quantize_qkv_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
+            vsc.data_ptr(), b, h, t, d, t_pad, stream,
+        )
+    check(err, "int8 q, k, v quantization kernel")
+    quantize_qkv_int8_pass.launches += 1
+    return q8, qs, k8, ks, v8t, vsc
+
+
+quantize_qkv_int8_pass.launches = 0
+
+
 def alibi_flash_attention_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -596,49 +666,31 @@ def alibi_flash_attention_int8(
     block_q: int = 1024,
     block_k: int = 2048,
 ) -> torch.Tensor:
-    """int8 ALiBi attention of (B, T, H, D) q, k, v (any strides) ->
-    (B, T, H, D) in q's dtype. On CUDA the wrapper quantizes q, k and v
-    with torch ops (v8 written transposed, (B, H, D, T) with T padded to a
-    multiple of 16, the PV product's B layout) and launches the kernel
-    (``csrc/alibi_attention_int8.cu``); on CPU the plain version runs."""
+    """int8 ALiBi attention of (B, T, H, D) q, k, v -> (B, T, H, D) in q's
+    dtype. On CUDA, q, k and v are views with one set of strides (the qkv
+    projection's thirds), quantized in place by ``quantize_qkv_int8_pass``,
+    and the kernel (``csrc/alibi_attention_int8.cu``) runs on its outputs;
+    on CPU the plain version runs."""
     if q.device.type == "cpu":
         return alibi_attention_int8_plain(q, k, v, slopes, positions, padding_mask,
                                           has_sentinel, block_q, block_k)
     _check_device(q, "int8 alibi attention")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    if d != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
-    if positions.dim() != 2 or positions.shape[1] != t or positions.shape[0] not in (1, b):
-        raise ValueError(f"positions must be (1, T) or (B, T), got {tuple(positions.shape)}")
-    if slopes.shape != (h,):
-        raise ValueError(f"slopes must be ({h},), got {tuple(slopes.shape)}")
-    if padding_mask is not None and padding_mask.shape not in ((b, t), (1, t)):
-        raise ValueError(f"padding_mask must be (B, T) or (1, T), got {tuple(padding_mask.shape)}")
-    others = [slopes, positions, k, v] + ([] if padding_mask is None else [padding_mask])
-    if any(x.device != q.device for x in others):
-        raise ValueError("k, v, slopes, positions and padding_mask must be on q's device")
     span, t_pad = int8_spans(t, block_q, block_k)
-    # the kernel reads q8, k8 (B, T, H, D) and their scales densely, whatever
-    # the strides of q and k
-    q8, qs, k8, ks, v8, vs = (a.contiguous() for a in quantize_qkv_int8(q, k, v))
-    t_v = -(-t // 16) * 16
-    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, t_v - t)).contiguous()
-    vsc = (vs * INV_127).contiguous()
-    sl = slopes.detach().to(torch.float32).contiguous()
-    pos = positions.to(torch.int32).contiguous()
-    mask = None if padding_mask is None else padding_mask.to(torch.bool).contiguous()
+    sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q.device, slopes, positions,
+                                                          padding_mask)
+    q8, qs, k8, ks, v8t, vsc = quantize_qkv_int8_pass(q, k, v, t_pad)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    # the fp32 sums between key spans (none with one span)
+    o_acc = torch.empty_like(q8, dtype=torch.float32) if t_pad > span else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention_int8(
             q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
-            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), int(pos.shape[0] == b and b > 1),
-            None if mask is None else mask.data_ptr(),
-            int(mask is not None and mask.shape[0] == b and b > 1), out.data_ptr(),
-            b, h, t, d, t_v, t_pad, span, int(has_sentinel), stream,
+            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
+            None if o_acc is None else o_acc.data_ptr(), b, h, t, d, t_pad, span,
+            int(has_sentinel), stream,
         )
     check(err, "int8 alibi attention kernel")
     alibi_flash_attention_int8.launches += 1

@@ -58,7 +58,7 @@ import torch.nn.functional as F
 
 from animal2vec_tpu_torch.kernels.build import check, library
 from animal2vec_tpu_torch.ops.dropout import hash_keep, keep_scale, keep_threshold
-from animal2vec_tpu_torch.ops.int8_mm import int_matmul, quantize_rows
+from animal2vec_tpu_torch.ops.int8_mm import INV_127, int_matmul, quantize_rows
 
 
 def _ln(z: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -321,6 +321,9 @@ fused_block_mlp.launches = 0
 # apart. Serving only: there is no backward (the JAX kernel has no vjp).
 
 
+H_MAX_COLS = 128  # columns of one partial max of |h| (the kernel's fc1 tile width)
+
+
 def hidden_chunk(m: int, block_m: int = 1024) -> int:
     """The int8 block's re-quantization chunk for hidden width M."""
     chunk = min(block_m, m)
@@ -373,6 +376,19 @@ def _int8_mlp(x2, w1_q, w1_s, b1, w2_q, w2_s, b2, chunk=None) -> torch.Tensor:
     return acc
 
 
+def quantize_chunks_plain(h: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's h quantizer: the max of |h| over every
+    128 columns, (N, M / 128), as fc1's epilogue writes it, each chunk's
+    scale from the max of its partial maxima, max(amax * fp32(1/127),
+    1e-12), and rint(h / s): (h_q int8 (N, M), hs fp32 (N, M / chunk)), what
+    ``quantize_rows`` gives each chunk."""
+    n, m = h.shape
+    part = h.abs().reshape(n, m // H_MAX_COLS, H_MAX_COLS).amax(-1)
+    s = torch.clamp_min(part.reshape(n, m // chunk, -1).amax(-1) * INV_127, 1e-12)
+    h_q = torch.round(h.reshape(n, m // chunk, chunk) / s[..., None]).to(torch.int8)
+    return h_q.reshape(n, m), s
+
+
 def fused_block_int8(
     x: torch.Tensor,
     ln1_scale: Optional[torch.Tensor],
@@ -418,6 +434,7 @@ def fused_block_int8(
     r_q = torch.empty((n, c), dtype=torch.int8, device=dev)
     r_s = torch.empty((n,), dtype=torch.float32, device=dev)
     h = torch.empty((n, m), dtype=torch.float32, device=dev)
+    h_max = torch.empty((n, m // H_MAX_COLS), dtype=torch.float32, device=dev)
     h_q = torch.empty((n, m), dtype=torch.int8, device=dev)
     h_s = torch.empty((n, m // chunk), dtype=torch.float32, device=dev)
     t = torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -428,8 +445,8 @@ def fused_block_int8(
             x.data_ptr(), l1s.data_ptr(), l1b.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(),
             b1v.data_ptr(), w2_q.data_ptr(), w2s.data_ptr(), b2v.data_ptr(), l2s.data_ptr(),
             l2b.data_ptr(), r.data_ptr(), r_q.data_ptr(), r_s.data_ptr(), h.data_ptr(),
-            h_q.data_ptr(), h_s.data_ptr(), t.data_ptr(), x_out.data_ptr(), n, c, m, chunk,
-            float(eps), stream,
+            h_max.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), t.data_ptr(), x_out.data_ptr(), n,
+            c, m, chunk, float(eps), stream,
         )
     check(err, "int8 fused block kernel")
     fused_block_int8.launches += 1

@@ -22,13 +22,12 @@ import subprocess
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from animal2vec_tpu_torch.kernels.build import (
     BUILD_ROOT, NVCC_FLAGS, SIGNATURES, build, check, find_nvcc,
 )
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
-from animal2vec_tpu_torch.tools.profile_forward import kernel_rows
+from animal2vec_tpu_torch.tools.device_time import device_ms
 
 ENTRY = "a2v_bias_attention"
 ORDER = ("other", "this", "this", "other", "this", "other")
@@ -66,17 +65,6 @@ def launcher(fn, q, k, v, bias, uniform, lse):
                  d ** -0.5, torch.cuda.current_stream().cuda_stream), ENTRY)
 
     return go, out
-
-
-def device_ms(go, iters: int) -> float:
-    go()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            go()
-        torch.cuda.synchronize()
-    return sum(us for us, _, name in kernel_rows(prof)
-               if "bias_attention_kernel" in name) / iters / 1e3
 
 
 def event_ms(go, iters: int) -> float:
@@ -125,11 +113,11 @@ def main(argv=None):
                    else None)
             go, out = launcher(libs[name], q, k, v, bias, uniform, lse)
             times.setdefault(name, []).append(
-                (device_ms(go, args.iters), event_ms(go, args.iters)))
+                (device_ms(go, "bias_attention_kernel", args.iters), event_ms(go, args.iters)))
             outs[name] = (out, lse)
         print(label)
         for name, vals in times.items():
-            print(f"  {name}: device ms {[round(d, 5) for d, _ in vals]}, "
+            print(f"  {name}: device ms {[d if d is None else round(d, 5) for d, _ in vals]}, "
                   f"CUDA-event ms {[round(e, 5) for _, e in vals]}")
         (o0, l0), (o1, l1) = outs["other"], outs["this"]
         diff = f"  out max abs diff {(o0.float() - o1.float()).abs().max().item():.3e}"

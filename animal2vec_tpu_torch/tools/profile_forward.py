@@ -6,7 +6,8 @@ blocks).
 
 Prints the card (nvidia-smi name and power limit), the frontend's time
 (the sinc/conv stack, or the patch embedding) against the whole forward
-(CUDA events), and from one torch.profiler run the wall time, the device's
+(CUDA events), and from one torch.profiler window that kept every kernel
+record (tools/device_time.py) the wall time, the device's
 busy time, and the device time per kernel name (the 30 largest). The idle
 share is 1 - busy / the unprofiled forward's CUDA-event time: the
 profiler's own host work stretches the wall time of a short forward (an
@@ -30,11 +31,12 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity
 
 from animal2vec_tpu_torch.config import MATMUL_IMPLS, FinetuneConfig, ImageConfig
 from animal2vec_tpu_torch.kernels.build import library
 from animal2vec_tpu_torch.models.finetune import build_finetune_model, build_image_model
+from animal2vec_tpu_torch.tools.device_time import MARKER, profile_complete
 from animal2vec_tpu_torch.weights import serving_cast
 
 
@@ -60,11 +62,12 @@ def kernel_rows(prof):
     """(device us, calls, name) of each kernel, largest first. Only device
     rows that are not annotations count: a host row (an aten op, an
     autograd Function) and the device span of a range (an optimizer step)
-    repeat the device time of the kernels inside them."""
+    repeat the device time of the kernels inside them. The window's two
+    markers (tools/device_time.py) do not count either."""
     return sorted(
         ((self_device_us(e), e.count, e.key) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-         and self_device_us(e) > 0),
+         and self_device_us(e) > 0 and MARKER not in e.key),
         reverse=True,
     )
 
@@ -131,11 +134,18 @@ def main(argv=None):
               f"{forward:.2f} ms forward (CUDA events, 5 runs each), {batch / forward * 1e3:.1f} "
               f"per s")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        walls = []
+
+        def timed_forward():
             t0 = time.perf_counter()
             forward_fn()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        prof = profile_complete(timed_forward, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        if prof is None:
+            raise SystemExit("profile_forward: every profiled window lost kernel records")
+        wall = walls[-1]
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

@@ -15,7 +15,8 @@ Prints the card (nvidia-smi name and power limit), ms per step on the host
 clock, the split of one micro-batch by CUDA events (finetuning: loss
 forward, backward, optimizer; pretraining: student forward with the loss,
 of which the EMA teacher's forward, backward, optimizer + EMA update), and
-from one torch.profiler step the wall time, the device's busy time and
+from one torch.profiler step that kept every kernel record
+(tools/device_time.py) the wall time, the device's busy time and
 idle share, and the device time per kernel name (the 30 largest).
 
   python -m animal2vec_tpu_torch.tools.profile_train_step [--batch 4] \
@@ -31,12 +32,13 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity
 
 from animal2vec_tpu_torch.config import FinetuneConfig, FinetuneTrainConfig, PretrainConfig
 from animal2vec_tpu_torch.kernels.build import library
 from animal2vec_tpu_torch.models.finetune import build_finetune_model, build_pretrain_model
 from animal2vec_tpu_torch.ops.dropout import Rngs
+from animal2vec_tpu_torch.tools.device_time import profile_complete
 from animal2vec_tpu_torch.tools.profile_forward import kernel_rows
 from animal2vec_tpu_torch.train.finetune_step import finetune_loss, make_finetune_train_step
 from animal2vec_tpu_torch.train.pretrain import (
@@ -188,11 +190,18 @@ def main(argv=None):
     print(f"split of one micro-batch (CUDA events, mean of {iters}): "
           + ", ".join(f"{name} {ms:.2f} ms" for name, ms in split.items()))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def timed_step():
         t0 = time.perf_counter()
         step_fn(state, batch, rngs)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    prof = profile_complete(timed_step, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if prof is None:
+        raise SystemExit("profile_train_step: every profiled window lost kernel records")
+    wall = walls[-1]
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

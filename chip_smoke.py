@@ -36,12 +36,15 @@ Phases, one line or more each; any failure raises and exits non-zero:
 4. the fused post-LN block kernel against its plain version;
 4b. the fused block with its three dropout sites at N = 4 x 2000: forward
    against the plain version, backward against autograd of the plain one;
-4c. the int8 kernels against their plain versions: the dense projection at
-   N 8000 (K 1024 to 3072 and 1024 outputs, K 768 to 2304 and 768), at N
-   64 000 (the first two) and at N 12 544 (the last two), with and without
-   bias, with the count of elements that differ; the int8 block at
-   N 8000, the int8 attention at b4, T 2000 (uniform; per-row positions,
-   sentinels, mask) and at T 4000 (two key spans);
+4c. the int8 kernels against their plain versions, each with the count of
+   elements that differ: the dense projection at N 8000 (K 1024 to 3072
+   and 1024 outputs, K 768 to 2304 and 768), at N 64 000 (the first two)
+   and at N 12 544 (the last two), with and without bias; the int8 block
+   at N 8000; the int8 attention's quantization pass (equal to
+   quantize_qkv_int8: 0 elements differ) and the attention at b4, T 2000
+   (uniform; per-row positions, sentinels, mask), at T 4000 (two key
+   spans) and at the int8_attn trunk's padded T 2048 with its padding
+   mask;
 4d. the plain fused MLP and its int8 twin at the image serving shape (N =
    64 x 196, C 768, M 3072), and the fused blocks of 4 and 4c at C 768;
 5. the full a2v-large FinetuneModel (8 prenet + 16 trunk blocks, seeded
@@ -63,10 +66,18 @@ Phases, one line or more each; any failure raises and exits non-zero:
    mask) and #6 are also held against their plain versions on the timed
    b32 inputs (N 64 000 for #6); the backward kernels (#3, #4) also
    beside SDPA's backward alone, at dropout 0 and at the a2v-large
-   pretraining student's b60 T125, with achieved TFLOP/s; the int8 dense
+   pretraining student's b60 T125, with achieved TFLOP/s, and the forward
+   (#2 with lse and dropout) there beside SDPA's forward; the fused block
+   at the a2v-large pretraining student's N 7500; the int8 dense
    projection also split by device time into its quantization and GEMM
    launches, the GEMM beside torch._int_mm's device time with TOP/s, also
-   at the ViT-B/16 widths; the dense-bias forward and SDPA also by device
+   at the ViT-B/16 widths; the int8 block (#7) split by launch (LN1, fc1,
+   the h quantization, fc2, LN2, with TOP/s) at b32 and at the ViT-B/16
+   widths, and held against its plain version at N 64 000; the int8
+   attention (#5) split into its quantization pass and kernel at b32 T
+   2000 and at the int8_attn trunk's T 2048 with its padding mask, both
+   held against the plain version (after the pass against
+   quantize_qkv_int8); the dense-bias forward and SDPA also by device
    time;
 8. the training path: the full a2v-large finetune model with the
    finetune_100.yaml recipe, three train steps on a b4 batch of 10-s
@@ -201,13 +212,14 @@ def card_line() -> str:
 
 def ptxas_summary(log: str):
     """One line per compiled kernel from nvcc's -Xptxas -v report: the
-    kernel, its template flags, registers, spills and shared memory."""
+    kernel, its template arguments (bools and ints), registers, spills and
+    shared memory."""
     name, spills = None, ""
     for line in log.splitlines():
         entry = re.search(
             r"Compiling entry function '[^']*?(\d+)([a-z][a-z_0-9]*_kernel)(I[^']*?E)?E", line)
         if entry:
-            flags = re.findall(r"Lb([01])E", entry.group(3) or "")
+            flags = re.findall(r"L[bi](\d+)E", entry.group(3) or "")
             name = entry.group(2) + (f"<{','.join(flags)}>" if flags else "")
         elif "spill" in line:
             spills = line.strip()
@@ -593,17 +605,68 @@ def int8_attention_inputs(gen, b, h, t, dev):
     return (*qkv.unbind(2), slopes)
 
 
+def check_int8_block(label, args):
+    """#7 against its plain version on the same inputs (tap t and x_out),
+    with the count of elements that differ; returns the larger error."""
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
+
+    (xo, t), (xo_p, t_p) = fused_block_int8(*args), fused_block_int8_plain(*args)
+    torch.cuda.synchronize()
+    err = max(check_close(f"int8 block tap t {label}", t, t_p, INT8_BLOCK_TOL),
+              check_close(f"int8 block x_out {label}", xo, xo_p, INT8_BLOCK_TOL))
+    print(f"int8 block {label}: {(t != t_p).sum().item()} of {t.numel()} tap and "
+          f"{(xo != xo_p).sum().item()} x_out elements differ from the plain version")
+    return err
+
+
+def check_int8_attention(label, q, k, v, slopes, pos, mask=None, sentinel=True):
+    """#5 against its plain version on the same inputs, with the count of
+    elements that differ, after its quantization pass against the pass's
+    plain version (quantize_qkv_int8's values, which must be equal: 0
+    elements differ); returns the error."""
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_int8_plain, alibi_flash_attention_int8, int8_spans,
+        quantize_qkv_int8_pass, quantize_qkv_int8_pass_plain,
+    )
+
+    t_pad = int8_spans(q.shape[1])[1]
+    got = quantize_qkv_int8_pass(q, k, v, t_pad)
+    want = quantize_qkv_int8_pass_plain(q, k, v, t_pad)
+    differ = sum((a != w).sum().item() for a, w in zip(got, want))
+    print(f"int8 q, k, v quantization pass {label}: {differ} elements differ from "
+          f"quantize_qkv_int8's")
+    if differ:
+        raise AssertionError(f"{label}: the quantization pass is not quantize_qkv_int8's")
+    del got, want
+    out = alibi_flash_attention_int8(q, k, v, slopes, pos, mask, sentinel)
+    ref = alibi_attention_int8_plain(q, k, v, slopes, pos, mask, sentinel)
+    torch.cuda.synchronize()
+    err = check_close(f"int8 attention {label}", out, ref, INT8_ATTN_TOL)
+    print(f"int8 attention {label}: {(out != ref).sum().item()} of {out.numel()} elements "
+          f"differ from the plain version")
+    return err
+
+
+def padded_trunk_mask(b, t, dev, t_pad=2048):
+    """The int8_attn model's trunk at T 2048: t frames padded to t_pad, the
+    pad frames masked, and row 1 also masking its last 500 frames."""
+    mask = torch.zeros((b, t_pad), dtype=torch.bool, device=dev)
+    mask[:, t:] = True
+    mask[1, t - 500:] = True
+    return mask
+
+
 def phase_int8_kernels(dev):
     """The int8 kernels against their plain versions: the dense projection
     for a2v-large's qkv (3072) and out (1024) shapes at N 8000 and 64 000 and
     ViT-B/16's (768 to 2304 and 768) at N 8000 and 12 544, with and without
-    bias, the int8 block at N 8000, and the int8 attention at b4, T 2000 (uniform positions; per-row
-    positions with sentinels and a padding mask that includes a fully padded
-    row) and at T 4000 (two key spans)."""
-    from animal2vec_tpu_torch.ops.attention import (
-        alibi_attention_int8_plain, alibi_flash_attention_int8,
-    )
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
+    bias, the int8 block at N 8000, and the int8 attention (after its
+    quantization pass, which must equal quantize_qkv_int8) at b4, T 2000
+    (uniform positions; per-row positions with sentinels and a padding mask
+    that includes a fully padded row), at T 4000 (two key spans) and at the
+    int8_attn model's padded T 2048 with its padding mask. Each check prints
+    the count of elements that differ from the plain version. The b32 grids
+    are held in phase 7 on the inputs it times."""
     from animal2vec_tpu_torch.ops.int8_mm import int8_dense, int8_dense_plain, quantize_weight
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -628,21 +691,12 @@ def phase_int8_kernels(dev):
             print(f"{label}: {(got != want).sum().item()} of {got.numel()} elements differ "
                   f"from the plain version")
     del x, got, want
-    args = int8_block_inputs(gen, 8000, dev)
-    xo, t = fused_block_int8(*args)
-    xo_p, t_p = fused_block_int8_plain(*args)
-    torch.cuda.synchronize()
-    errs["block"] = max(check_close("int8 block tap t (8000,1024,4096)", t, t_p, INT8_BLOCK_TOL),
-                        check_close("int8 block x_out (8000,1024,4096)", xo, xo_p,
-                                    INT8_BLOCK_TOL))
-    del xo, t, xo_p, t_p, args
+    errs["block"] = check_int8_block("(8000,1024,4096)", int8_block_inputs(gen, 8000, dev))
 
     b, h = 4, 16
     q, k, v, slopes = int8_attention_inputs(gen, b, h, 2000, dev)
     pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
-    errs["attention"] = check_close(
-        "int8 attention uniform (4, 2000, 16, 64)", alibi_flash_attention_int8(q, k, v, slopes, pos),
-        alibi_attention_int8_plain(q, k, v, slopes, pos), INT8_ATTN_TOL)
+    errs["attention"] = check_int8_attention("uniform (4, 2000, 16, 64)", q, k, v, slopes, pos)
     rng = np.random.default_rng(SEED + 8)
     rows = [np.sort(rng.choice(2500, 1998, replace=False)) for _ in range(b)]
     pos_rows = torch.from_numpy(
@@ -650,18 +704,19 @@ def phase_int8_kernels(dev):
     mask = torch.zeros((b, 2000), dtype=torch.bool, device=dev)
     mask[2, -300:] = True
     mask[3] = True
-    got = alibi_flash_attention_int8(q, k, v, slopes, pos_rows, mask, True)
-    want = alibi_attention_int8_plain(q, k, v, slopes, pos_rows, mask, True)
-    errs["attention"] = max(errs["attention"], check_close(
-        "int8 attention per-row + sentinel + mask", got, want, INT8_ATTN_TOL))
+    errs["attention"] = max(errs["attention"], check_int8_attention(
+        "per-row + sentinel + mask", q, k, v, slopes, pos_rows, mask, True))
     q, k, v, slopes = int8_attention_inputs(gen, b, h, 4000, dev)
     pos = torch.arange(4000, dtype=torch.int32, device=dev)[None]
     mask = torch.zeros((b, 4000), dtype=torch.bool, device=dev)
     mask[1, -300:] = True
-    errs["attention"] = max(errs["attention"], check_close(
-        "int8 attention T 4000 (two key spans), row 1 padded",
-        alibi_flash_attention_int8(q, k, v, slopes, pos, mask),
-        alibi_attention_int8_plain(q, k, v, slopes, pos, mask), INT8_ATTN_TOL))
+    errs["attention"] = max(errs["attention"], check_int8_attention(
+        "T 4000 (two key spans), row 1 padded", q, k, v, slopes, pos, mask))
+    q, k, v, slopes = int8_attention_inputs(gen, b, h, 2048, dev)
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None]
+    errs["attention"] = max(errs["attention"], check_int8_attention(
+        "the int8_attn trunk's T 2048, 48 pad frames masked (row 1: 548)", q, k, v, slopes, pos,
+        padded_trunk_mask(b, 2000, dev), False))
     torch.cuda.synchronize()
     return errs
 
@@ -731,8 +786,8 @@ def phase_mlp(dev):
     plain versions at the ViT-B/16 serving shape (N = 64 x 196 rows, C 768,
     M 3072: three hidden chunks), and the fused blocks #6 and #7 at C 768."""
     from animal2vec_tpu_torch.ops.fused_mlp import (
-        fused_block_int8, fused_block_int8_plain, fused_block_mlp, fused_block_plain, fused_mlp,
-        fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+        fused_block_mlp, fused_block_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
+        fused_mlp_plain,
     )
     from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
 
@@ -752,13 +807,7 @@ def phase_mlp(dev):
     xo_p, t_p = fused_block_plain(*args)
     errs["block"] = max(check_close(f"fused block tap t ({n},{c},{m})", t, t_p, BLOCK_TOL),
                         check_close(f"fused block x_out ({n},{c},{m})", xo, xo_p, BLOCK_TOL))
-    args = int8_block_inputs(gen, n, dev, c, m)
-    xo, t = fused_block_int8(*args)
-    xo_p, t_p = fused_block_int8_plain(*args)
-    torch.cuda.synchronize()
-    errs["int8_block"] = max(
-        check_close(f"int8 block tap t ({n},{c},{m})", t, t_p, INT8_BLOCK_TOL),
-        check_close(f"int8 block x_out ({n},{c},{m})", xo, xo_p, INT8_BLOCK_TOL))
+    errs["int8_block"] = check_int8_block(f"({n},{c},{m})", int8_block_inputs(gen, n, dev, c, m))
     return errs
 
 
@@ -825,7 +874,7 @@ class PlainSpy:
 def _counted():
     from animal2vec_tpu_torch.ops.attention import (
         alibi_flash_attention_int8, alibi_flash_attention_packed, alibi_flash_attention_serve,
-        attention_dkv, attention_dq,
+        attention_dkv, attention_dq, quantize_qkv_int8_pass,
     )
     from animal2vec_tpu_torch.ops.bias_attention import (
         bias_attention_dkv, bias_attention_dq, bias_flash_attention,
@@ -838,7 +887,8 @@ def _counted():
     return {"serve_attention": alibi_flash_attention_serve,
             "attention": alibi_flash_attention_packed, "dq": attention_dq, "dkv": attention_dkv,
             "block": fused_block_mlp, "int8_dense": int8_dense, "int8_block": fused_block_int8,
-            "int8_attention": alibi_flash_attention_int8, "bias_attention": bias_flash_attention,
+            "int8_attention": alibi_flash_attention_int8, "int8_quant": quantize_qkv_int8_pass,
+            "bias_attention": bias_flash_attention,
             "bias_dq": bias_attention_dq, "bias_dkv": bias_attention_dkv,
             "mlp": fused_mlp, "int8_mlp": fused_mlp_int8}
 
@@ -857,7 +907,8 @@ def forward_launches(mode, n_blocks):
     """The launches of one forward of the model in a matmul_impl mode."""
     want = dict.fromkeys(_counted(), 0)
     if mode == "int8_attn":
-        want.update(int8_dense=2 * n_blocks, int8_attention=n_blocks, int8_block=n_blocks)
+        want.update(int8_dense=2 * n_blocks, int8_attention=n_blocks, int8_quant=n_blocks,
+                    int8_block=n_blocks)
     else:
         want.update(serve_attention=n_blocks,
                     **{"block" if mode == "bf16" else "int8_block": n_blocks})
@@ -1218,8 +1269,8 @@ def phase_train_grads(cfg, dev):
 def phase_kernel_times(dev):
     """Each kernel beside its plain version, the library call and its
     bound: the serving shape (b32) and the training shape (b4, dropout).
-    Returns the rows and the b32 serving grids' max_abs_err of #1 and #6,
-    each held against its plain version on the timed inputs."""
+    Returns the rows and the b32 serving grids' max_abs_err of #1, #6, #7
+    and #5, each held against its plain version on the timed inputs."""
     import torch.nn.functional as F
     from animal2vec_tpu_torch.ops.attention import (
         alibi_attention_plain, alibi_flash_attention_btc, alibi_flash_attention_packed,
@@ -1253,12 +1304,13 @@ def phase_kernel_times(dev):
         flops = 4 * 32 * 16 * 2000**2 * 64
         split = {"device_ms": device_ms(serve, "alibi_serve_kernel"),
                  "library_device_ms": device_ms(sdpa, "")}
-        split["tflops"] = flops / (split["device_ms"] * 1e-3) / 1e12
-        split["library_tflops"] = flops / (split["library_device_ms"] * 1e-3) / 1e12
+        split["tflops"] = per_ms(flops, split["device_ms"])
+        split["library_tflops"] = per_ms(flops, split["library_device_ms"])
         rows[key].update(split)
-        print(f"  device time: kernel {split['device_ms']:.4f} ms ({split['tflops']:.1f} "
-              f"TFLOP/s), SDPA {split['library_device_ms']:.4f} ms "
-              f"({split['library_tflops']:.1f} TFLOP/s)")
+        print(f"  device time: kernel {ms_text(split['device_ms'])}"
+              f"{rate_text(split['tflops'], 'TFLOP/s')}, SDPA "
+              f"{ms_text(split['library_device_ms'])}"
+              f"{rate_text(split['library_tflops'], 'TFLOP/s')}")
         del q, k, v, bias
         # the timed grid held against the plain version on the same inputs
         got = serve().reshape(32, 2000, 16, 64).transpose(1, 2)
@@ -1357,9 +1409,13 @@ def phase_kernel_times(dev):
         out_s, lse_s = alibi_flash_attention_packed(qkv_s, slopes_s, pos_s, None, False, 0.1,
                                                     DROP_SEED, return_lse=True)
     delta_s = (dout_s.float() * out_s.float()).sum(-1).reshape(bs * h, ts)
-    bwd_splits(extra, f"b{bs} T {ts} keep-set positions, dropout 0.1", bs, h, ts,
-               (qkv_s, dout_s, lse_s, delta_s, slopes_s, pos_s, None, False, 0.1, DROP_SEED),
+    bwd_s = (qkv_s, dout_s, lse_s, delta_s, slopes_s, pos_s, None, False, 0.1, DROP_SEED)
+    bwd_splits(extra, f"b{bs} T {ts} keep-set positions, dropout 0.1", bs, h, ts, bwd_s,
                "student")
+    student_plain = cuda_ms(lambda: attention_bwd_plain(*bwd_s), iters=3)
+    extra["dq"]["student_plain_ms"] = extra["dkv"]["student_plain_ms"] = student_plain
+    print(f"  plain backward (dq, dk, dv and the partials in one call) at b{bs} T {ts}: "
+          f"{student_plain:.3f} ms")
     # SDPA's backward alone at the student's shape: the per-row ALiBi bias as
     # a (B, H, T, T) bf16 float mask, dropout 0.1 (its forward once, outside
     # the timed loop)
@@ -1367,6 +1423,22 @@ def phase_kernel_times(dev):
     ps = pos_s.float()
     mask_s = (-(ps[:, None, :, None] - ps[:, None, None, :]).abs()
               * slopes_s.float()[None, :, None, None]).to(torch.bfloat16)
+    # the forward (#2 with lse) at the student's shape beside SDPA's forward
+    # with the same bf16 mask and dropout
+    with torch.no_grad():
+        fwd_s = lambda: alibi_flash_attention_packed(qkv_s, slopes_s, pos_s, None, False, 0.1,
+                                                     DROP_SEED, return_lse=True)
+        sdpa_s = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_s,
+                                                        dropout_p=0.1)
+        key = f"attention forward + lse + dropout, b{bs} T {ts} pretrain student"
+        row(key, cuda_ms(fwd_s),
+            cuda_ms(lambda: alibi_attention_plain(qkv_s, slopes_s, pos_s, None, False, 0.1,
+                                                  DROP_SEED, return_lse=True), iters=3),
+            cuda_ms(sdpa_s), attention_bounds(bs, h, ts)["forward"])
+        rows[key].update({"device_ms": device_ms(fwd_s, "alibi_attention_kernel"),
+                          "library_device_ms": device_ms(sdpa_s, "")})
+        print(f"  device time: kernel {ms_text(rows[key]['device_ms'])}, SDPA "
+              f"{ms_text(rows[key]['library_device_ms'])}")
     o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask_s, dropout_p=0.1)
     student_bwd = lambda: torch.autograd.grad(o, (qs, ks, vs), dout_s, retain_graph=True)
     lib_student = {"student_library_bwd_ms": cuda_ms(student_bwd),
@@ -1375,7 +1447,7 @@ def phase_kernel_times(dev):
     extra["dkv"].update(lib_student)
     print(f"  SDPA's backward alone at b{bs} T {ts} (per-row bias as a bf16 mask, dropout "
           f"0.1): {lib_student['student_library_bwd_ms']:.3f} ms "
-          f"(device {lib_student['student_library_bwd_device_ms']:.4f} ms)")
+          f"(device {ms_text(lib_student['student_library_bwd_device_ms'])})")
     del o, qs, ks, vs, mask_s
     rows[f"attention dq + slope partials, b{b} training"].update(extra["dq"])
     rows[f"attention dk/dv, b{b} training"].update(extra["dkv"])
@@ -1391,9 +1463,16 @@ def phase_kernel_times(dev):
         row(f"fused block + dropout, N {n} training",
             cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
             cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(n))
+        # the a2v-large pretraining student's blocks: 60 x 125 kept tokens,
+        # dropout 0.1
+        ns = 60 * 125
+        args = block_inputs(gen, ns, 1024, 4096, dev)
+        row(f"fused block + dropout, N {ns} pretrain student",
+            cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
+            cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(ns))
         del args
         torch.cuda.empty_cache()
-        int8_kernel_times(gen, dev, row, rows)
+        errs.update(int8_kernel_times(gen, dev, row, rows))
         image_kernel_times(gen, dev, row, rows)
     pretrain_kernel_times(gen, dev, row, rows)
     return rows, errs
@@ -1401,25 +1480,34 @@ def phase_kernel_times(dev):
 
 def tflops(kernel, b, h, t, ms, d=64):
     """Achieved TFLOP/s of the dq (3 products of 2*T^2*D per (b, h)) or
-    dk/dv (4) kernel in ``ms``."""
-    return (3 if kernel == "dq" else 4) * 2 * b * h * t * t * d / (ms * 1e-3) / 1e12
+    dk/dv (4) kernel in ``ms`` (None where ``ms`` is)."""
+    return per_ms((3 if kernel == "dq" else 4) * 2 * b * h * t * t * d, ms)
 
 
-def device_ms(fn, kernel, iters=10):
-    """Device time per call of the CUDA kernels whose name holds ``kernel``,
-    by torch.profiler over ``iters`` calls of fn after one: the CUDA-event
-    time of a kernel shorter than its wrapper's host work measures the
-    host."""
-    from torch.profiler import ProfilerActivity, profile
-    from animal2vec_tpu_torch.tools.profile_forward import kernel_rows
+def per_ms(work, ms):
+    """``work`` done in ``ms`` of device time, in 1e12 a second (TFLOP/s or
+    TOP/s); None where the time was not measured."""
+    return None if ms is None else work / (ms * 1e-3) / 1e12
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for us, _, name in kernel_rows(prof) if kernel in name) / iters / 1e3
+
+def ms_text(ms):
+    """A device time for a log line."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def rate_text(rate, unit):
+    """An achieved rate for a log line, in brackets; empty where the time it
+    comes from was not measured."""
+    return "" if rate is None else f" ({rate:.1f} {unit})"
+
+
+def device_ms(fn, kernel):
+    """Device time per call of fn's kernels whose name holds ``kernel``, from
+    a profiled window that kept every kernel record; None (not measured)
+    where none did (tools/device_time.py)."""
+    from animal2vec_tpu_torch.tools.device_time import device_ms as profiled_ms
+
+    return profiled_ms(fn, kernel)
 
 
 def block_gemm_splits(args):
@@ -1440,14 +1528,13 @@ def block_gemm_splits(args):
             ("fc2", "gemm_bf16_sm90_kernel<false", lambda: F.linear(hid, w2l, b2.to(x.dtype)))):
         ms = device_ms(lambda: fused_block_mlp(*args), kernel)
         lib_ms = device_ms(lib, "")
-        if not ms > 0:
-            raise AssertionError(f"no device time of a kernel named {kernel}")
-        split.update({f"{name}_device_ms": ms, f"{name}_tflops": 2 * n * c * m / ms / 1e9,
+        split.update({f"{name}_device_ms": ms, f"{name}_tflops": per_ms(2 * n * c * m, ms),
                       f"{name}_library_device_ms": lib_ms,
-                      f"{name}_library_tflops": 2 * n * c * m / lib_ms / 1e9})
+                      f"{name}_library_tflops": per_ms(2 * n * c * m, lib_ms)})
         print(f"  {name} (N {n}, {c if name == 'fc1' else m} -> {m if name == 'fc1' else c}): "
-              f"GEMM launch {ms:.4f} ms device ({split[f'{name}_tflops']:.1f} TFLOP/s), "
-              f"F.linear {lib_ms:.4f} ms device ({split[f'{name}_library_tflops']:.1f} TFLOP/s)")
+              f"GEMM launch {ms_text(ms)} device"
+              f"{rate_text(split[f'{name}_tflops'], 'TFLOP/s')}, F.linear {ms_text(lib_ms)} "
+              f"device{rate_text(split[f'{name}_library_tflops'], 'TFLOP/s')}")
     return split
 
 
@@ -1465,8 +1552,37 @@ def bwd_splits(extra, label, b, h, t, args, prefix):
         extra[kernel].update({f"{prefix}_ms": ms, f"{prefix}_device_ms": dev_ms,
                               f"{prefix}_bound_ms": bounds[kernel][0],
                               f"{prefix}_tflops": rate})
-        print(f"attention {kernel}, {label}: kernel {ms:.3f} ms (device {dev_ms:.3f} ms), "
-              f"{rate:.1f} TFLOP/s, bound {bounds[kernel][0]:.3f} ms ({bounds[kernel][1]})")
+        print(f"attention {kernel}, {label}: kernel {ms:.3f} ms (device {ms_text(dev_ms)})"
+              f"{rate_text(rate, 'TFLOP/s')}, bound {bounds[kernel][0]:.3f} ms "
+              f"({bounds[kernel][1]})")
+
+
+def int8_block_splits(args, label):
+    """Device time of each of the int8 block's five launches with the
+    GEMMs' TOP/s; ``args`` are fused_block_int8's."""
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8
+
+    (n, c), m = args[0].shape, args[3].shape[0]
+    call = lambda: fused_block_int8(*args)
+    split = {f"{name}_device_ms": device_ms(call, kernel) for name, kernel in (
+        ("ln1", "ln_rows_kernel<false, false, true>"), ("fc1", "gemm_s8_sm90_kernel<1>"),
+        ("quantize", "quantize_chunks_kernel"), ("fc2", "gemm_s8_sm90_kernel<2>"),
+        ("ln2", "ln_rows_kernel<true, false, false>"))}
+    for gemm in ("fc1", "fc2"):
+        split[f"{gemm}_tops"] = per_ms(2 * n * c * m, split[f"{gemm}_device_ms"])
+    print(f"  {label} by launch, device time: LN1 {ms_text(split['ln1_device_ms'])}, fc1 "
+          f"{ms_text(split['fc1_device_ms'])}{rate_text(split['fc1_tops'], 'TOP/s')}, h "
+          f"quantization {ms_text(split['quantize_device_ms'])}, fc2 "
+          f"{ms_text(split['fc2_device_ms'])}{rate_text(split['fc2_tops'], 'TOP/s')}, LN2 "
+          f"{ms_text(split['ln2_device_ms'])}")
+    return split
+
+
+def int8_qkv_pass_bound(b, h, t, t_pad, d=64):
+    """bf16 q, k, v read; q8, k8, v8^T and the scales written: no tensor
+    work."""
+    return bound(0, 2 * 3 * b * t * h * d + 2 * b * t * h * d + b * h * d * t_pad
+                 + 4 * (2 * b * h * t + b * h * d))
 
 
 def int8_kernel_times(gen, dev, row, rows):
@@ -1474,9 +1590,15 @@ def int8_kernel_times(gen, dev, row, rows):
     the wrapper as the model calls it (quantization included) beside its
     plain version; the dense projection also beside torch._int_mm, the int8
     product alone on the same quantized operands, and split by device time
-    into its quantization and GEMM launches."""
+    into its quantization and GEMM launches; the int8 block split by launch,
+    also at the ViT-B/16 widths; the int8 attention split into its
+    quantization pass and kernel, also at the int8_attn trunk's padded T
+    2048 with its padding mask. The timed b32 grids of the block and the
+    attention are held against their plain versions on the same inputs:
+    returns those errors."""
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_attention_int8_plain, alibi_flash_attention_int8, quantize_qkv_int8,
+        alibi_attention_int8_plain, alibi_flash_attention_int8, int8_spans,
+        quantize_qkv_int8_pass, quantize_qkv_int8_pass_plain,
     )
     from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
     from animal2vec_tpu_torch.ops.int8_mm import (
@@ -1499,27 +1621,78 @@ def int8_kernel_times(gen, dev, row, rows):
                  "quantize_device_ms": device_ms(lambda: int8_dense(x, w_q, w_s),
                                                  "quantize_segments"),
                  "library_device_ms": device_ms(lambda: torch._int_mm(x_q, w_q.t()), "")}
-        split["gemm_tops"] = 2 * n * 1024 * m / (split["gemm_device_ms"] * 1e-3) / 1e12
-        split["library_tops"] = 2 * n * 1024 * m / (split["library_device_ms"] * 1e-3) / 1e12
+        split["gemm_tops"] = per_ms(2 * n * 1024 * m, split["gemm_device_ms"])
+        split["library_tops"] = per_ms(2 * n * 1024 * m, split["library_device_ms"])
         rows[key].update(split)
-        print(f"  {what}: GEMM launch {split['gemm_device_ms']:.4f} ms device "
-              f"({split['gemm_tops']:.1f} TOP/s), quantization launch "
-              f"{split['quantize_device_ms']:.4f} ms; torch._int_mm "
-              f"{split['library_device_ms']:.4f} ms device ({split['library_tops']:.1f} TOP/s)")
+        print(f"  {what}: GEMM launch {ms_text(split['gemm_device_ms'])} device"
+              f"{rate_text(split['gemm_tops'], 'TOP/s')}, quantization launch "
+              f"{ms_text(split['quantize_device_ms'])}; torch._int_mm "
+              f"{ms_text(split['library_device_ms'])} device"
+              f"{rate_text(split['library_tops'], 'TOP/s')}")
     print("  (library: torch._int_mm, the int8 product alone on pre-quantized operands)")
     del x, x_q
-    args = int8_block_inputs(gen, n, dev)
-    row("int8 fused block, b32 serving", cuda_ms(lambda: fused_block_int8(*args)),
-        cuda_ms(lambda: fused_block_int8_plain(*args), iters=3), None, int8_block_bound(n))
-    del args
-    torch.cuda.empty_cache()
+    errs = {}
+    for key, (nb, c, m) in (("int8 fused block, b32 serving", (n, 1024, 4096)),
+                            ("int8 fused block, b64 ViT-B serving",
+                             (IMAGE_BATCH * IMAGE_T, 768, 3072))):
+        args = int8_block_inputs(gen, nb, dev, c, m)
+        row(key, cuda_ms(lambda: fused_block_int8(*args)),
+            cuda_ms(lambda: fused_block_int8_plain(*args), iters=3), None,
+            int8_block_bound(nb, c, m))
+        rows[key].update(int8_block_splits(args, key))
+        if nb == n:  # the timed b32 grid against the plain version
+            errs["int8_block"] = check_int8_block(f"b32 serving ({nb},{c},{m})", args)
+        del args
+        torch.cuda.empty_cache()
+
+    # the attention: b32 T 2000 with uniform positions (the timed row), and
+    # the int8_attn trunk as the model calls it, T 2048 with the padding mask
+    # over its pad frames
+    key = "int8 attention, b32 serving"
     q, k, v, slopes = int8_attention_inputs(gen, 32, 16, 2000, dev)
     pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
-    row("int8 attention, b32 serving", cuda_ms(lambda: alibi_flash_attention_int8(q, k, v, slopes, pos)),
+    call = lambda: alibi_flash_attention_int8(q, k, v, slopes, pos)
+    row(key, cuda_ms(call),
         cuda_ms(lambda: alibi_attention_int8_plain(q, k, v, slopes, pos), iters=1, warmup=1),
         None, int8_attention_bound(32, 16, 2000))
-    print(f"  (of which the torch quantization of q, k and v: "
-          f"{cuda_ms(lambda: quantize_qkv_int8(q, k, v)):.3f} ms)")
+    t_pad = int8_spans(2000)[1]
+    qkey = "int8 q, k, v quantization pass, b32 serving"
+    row(qkey, cuda_ms(lambda: quantize_qkv_int8_pass(q, k, v, t_pad)),
+        cuda_ms(lambda: quantize_qkv_int8_pass_plain(q, k, v, t_pad), iters=3), None,
+        int8_qkv_pass_bound(32, 16, 2000, t_pad))
+    rows[qkey]["device_ms"] = device_ms(call, "quantize_")
+    rows[key].update({"kernel_device_ms": device_ms(call, "alibi_int8_kernel"),
+                      "quantize_device_ms": rows[qkey]["device_ms"],
+                      "bound_three_products_ms": bound(6 * 32 * 16 * 2000**2 * 64, 0,
+                                                       PEAK_INT8_OPS)[0]})
+    print(f"  device time: kernel {ms_text(rows[key]['kernel_device_ms'])}, quantization pass "
+          f"{ms_text(rows[key]['quantize_device_ms'])} (two launches); the three products' "
+          f"bound {rows[key]['bound_three_products_ms']:.3f} ms")
+    errs["int8_attention"] = check_int8_attention("b32 serving (32, 2000, 16, 64)", q, k, v,
+                                                  slopes, pos)
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v, slopes = int8_attention_inputs(gen, 32, 16, 2048, dev)
+    pos = torch.arange(2048, dtype=torch.int32, device=dev)[None]
+    mask = padded_trunk_mask(32, 2000, dev)
+    call = lambda: alibi_flash_attention_int8(q, k, v, slopes, pos, mask, False)
+    trunk = {"trunk_ms": cuda_ms(call),
+             "trunk_plain_ms": cuda_ms(lambda: alibi_attention_int8_plain(
+                 q, k, v, slopes, pos, mask, False), iters=1, warmup=1),
+             "trunk_kernel_device_ms": device_ms(call, "alibi_int8_kernel"),
+             "trunk_quantize_device_ms": device_ms(call, "quantize_"),
+             "trunk_bound_ms": int8_attention_bound(32, 16, 2048)[0]}
+    rows[key].update(trunk)
+    print(f"int8 attention, b32 int8_attn trunk (T 2048, padding mask): {trunk['trunk_ms']:.3f} "
+          f"ms, plain {trunk['trunk_plain_ms']:.3f} ms; device time: kernel "
+          f"{ms_text(trunk['trunk_kernel_device_ms'])}, quantization pass "
+          f"{ms_text(trunk['trunk_quantize_device_ms'])}")
+    errs["int8_attention"] = max(errs["int8_attention"], check_int8_attention(
+        "b32 int8_attn trunk (32, 2048, 16, 64) + padding mask", q, k, v, slopes, pos, mask,
+        False))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return errs
 
 
 def attention_device_ms(kernel_fn, library_fn):
@@ -1544,7 +1717,9 @@ def image_kernel_times(gen, dev, row, rows):
         fused_block_mlp, fused_block_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
         fused_mlp_plain,
     )
-    from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_rows, quantize_weight
+    from animal2vec_tpu_torch.ops.int8_mm import (
+        int8_dense, int8_dense_plain, quantize_rows, quantize_weight,
+    )
 
     n, c, m = IMAGE_BATCH * IMAGE_T, 768, 3072
     block_args = block_inputs(gen, n, c, m, dev)
@@ -1569,12 +1744,16 @@ def image_kernel_times(gen, dev, row, rows):
         gemm = device_ms(lambda: int8_dense(x, wd_q, wd_s), "gemm_s8_sm90")
         lib = device_ms(lambda: torch._int_mm(x_q, wd_q.t()), "")
         bnd = int8_dense_bound(n, c, width)
-        dense_row.update({f"image_{what}_gemm_device_ms": gemm,
+        dense_row.update({f"image_{what}_ms": cuda_ms(lambda: int8_dense(x, wd_q, wd_s)),
+                          f"image_{what}_plain_ms": cuda_ms(
+                              lambda: int8_dense_plain(x, wd_q, wd_s), iters=3),
+                          f"image_{what}_gemm_device_ms": gemm,
                           f"image_{what}_library_device_ms": lib,
                           f"image_{what}_bound_ms": bnd[0], f"image_{what}_bound_by": bnd[1]})
-        print(f"  int8 dense {what} projection, b64 ViT-B (N {n}, K {c} -> {width}): GEMM "
-              f"launch {gemm:.4f} ms device, torch._int_mm {lib:.4f} ms device, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        print(f"  int8 dense {what} projection, b64 ViT-B (N {n}, K {c} -> {width}): kernel "
+              f"{dense_row[f'image_{what}_ms']:.3f} ms, plain "
+              f"{dense_row[f'image_{what}_plain_ms']:.3f} ms; GEMM launch {ms_text(gemm)} device, "
+              f"torch._int_mm {ms_text(lib)} device, bound {bnd[0]:.4f} ms ({bnd[1]})")
     h_q = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
     print(f"  (the int8 products alone, torch._int_mm on pre-quantized operands: fc1 "
           f"{cuda_ms(lambda: torch._int_mm(x_q, w1_q.t())):.3f} ms, fc2 "
@@ -1594,8 +1773,9 @@ def image_kernel_times(gen, dev, row, rows):
                                              qs, ks, vs, attn_mask=mask)))
     rows[key]["no_bias_device_ms"] = device_ms(lambda: bias_flash_attention(q, k, v),
                                                "bias_attention_kernel")
-    print(f"  device time: kernel {rows[key]['device_ms']:.4f} ms (no bias "
-          f"{rows[key]['no_bias_device_ms']:.4f}), SDPA {rows[key]['library_device_ms']:.4f} ms")
+    print(f"  device time: kernel {ms_text(rows[key]['device_ms'])} (no bias "
+          f"{ms_text(rows[key]['no_bias_device_ms'])}), SDPA "
+          f"{ms_text(rows[key]['library_device_ms'])}")
     print("  (library: SDPA with the 2-D ALiBi bias as a (1, H, T, T) bf16 float mask)")
 
 
@@ -1891,8 +2071,8 @@ def pretrain_kernel_times(gen, dev, row, rows):
         rows[key].update(attention_device_ms(
             lambda: bias_attention_forward(q, k, v, bias, None, True),
             lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)))
-        print(f"  device time: kernel {rows[key]['device_ms']:.4f} ms, SDPA "
-              f"{rows[key]['library_device_ms']:.4f} ms")
+        print(f"  device time: kernel {ms_text(rows[key]['device_ms'])}, SDPA "
+              f"{ms_text(rows[key]['library_device_ms'])}")
         plain_bwd = cuda_ms(lambda: bias_attention_bwd_plain(*args), iters=3)
     leaves = [a.detach().clone().requires_grad_() for a in (qs, ks, vs, mask)]
     g = dout.transpose(1, 2)
@@ -2012,8 +2192,10 @@ def main() -> int:
                    serving["bf16"]["serve_attention"], attn_err,
                    "attention forward, b32 serving"),
              launches_int8=serving["int8"]["serve_attention"]),
-        entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:113", training[0], 0,
-              fwd_err, f"attention forward + lse + dropout, b{TRAIN_BATCH} training"),
+        dict(entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:113", training[0], 0,
+                   fwd_err, f"attention forward + lse + dropout, b{TRAIN_BATCH} training"),
+             **{f"student_{k}": v for k, v in times[
+                 "attention forward + lse + dropout, b60 T 125 pretrain student"].items()}),
         entry("alibi_attention_dq", "alibi_attention_bwd.cu", f"{pa}:330", training[1], 0,
               dq_err, f"attention dq + slope partials, b{TRAIN_BATCH} training"),
         entry("alibi_attention_dkv", "alibi_attention_bwd.cu", f"{pa}:390", training[2], 0,
@@ -2022,17 +2204,26 @@ def main() -> int:
                    training[3], serving["bf16"]["block"], max(block_err, mlp_errs["block"]),
                    f"fused block + dropout, N {TRAIN_BATCH * 2000} training",
                    "fused block, b32 serving"), launches_image=image["block"],
-             **{f"image_{k}": v for k, v in times["fused block, b64 ViT-B serving"].items()}),
+             **{f"image_{k}": v for k, v in times["fused block, b64 ViT-B serving"].items()},
+             **{f"student_{k}": v for k, v in times[
+                 "fused block + dropout, N 7500 pretrain student"].items()}),
         int8_entry("int8_dense", "int8_dense.cu", "animal2vec_tpu/ops/int8_mm.py:60",
                    "int8_dense", int8_errs["dense"],
                    "int8 dense qkv projection, b32 serving",
                    "int8 dense out projection, b32 serving"),
         dict(int8_entry("fused_block_int8", "fused_block_int8.cu",
                         "animal2vec_tpu/ops/fused_mlp.py:273", "int8_block",
-                        max(int8_errs["block"], mlp_errs["int8_block"]),
-                        "int8 fused block, b32 serving"), launches_image=image["int8_block"]),
+                        max(int8_errs["block"], mlp_errs["int8_block"], b32_errs["int8_block"]),
+                        "int8 fused block, b32 serving"), launches_image=image["int8_block"],
+             **{f"image_{k}": v for k, v in times["int8 fused block, b64 ViT-B serving"].items()}),
         int8_entry("alibi_flash_attention_int8", "alibi_attention_int8.cu", f"{pa}:715",
-                   "int8_attention", int8_errs["attention"], "int8 attention, b32 serving"),
+                   "int8_attention", max(int8_errs["attention"], b32_errs["int8_attention"]),
+                   "int8 attention, b32 serving"),
+        # its quantization pass, bit for bit quantize_qkv_int8 (checked in
+        # phases 4c and 7: a disagreement fails there)
+        int8_entry("quantize_qkv_int8_pass", "alibi_attention_int8.cu",
+                   f"{pa}:816 (alibi_flash_attention_int8's quantization of q, k, v)",
+                   "int8_quant", 0.0, "int8 q, k, v quantization pass, b32 serving"),
         # the image kernels: launches of phase 9's six checked b64 forwards (whose
         # post-LN runs also launch #6 and #7: "launches_image" below)
         entry("fused_mlp", "fused_mlp.cu", "animal2vec_tpu/ops/fused_mlp.py:112", image["mlp"],
@@ -2059,7 +2250,7 @@ def main() -> int:
     # the pretraining paths' launches (phases 10 and 11) of the kernels that
     # earlier paths launch too
     for e, key in zip(kernels, ("serve_attention", "attention", "dq", "dkv", "block", None, None,
-                                None, "mlp")):
+                                None, None, "mlp")):
         if key:
             e["launches_pretrain"] = pretrain[key]
             e["launches"] += pretrain[key]

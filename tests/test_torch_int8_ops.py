@@ -30,9 +30,10 @@ from animal2vec_tpu.ops.pallas_attention import alibi_flash_attention_int8 as ja
 from animal2vec_tpu_torch.ops.alibi import alibi_slopes
 from animal2vec_tpu_torch.ops.attention import (
     alibi_attention_int8_plain, alibi_flash_attention_int8, int8_spans, quantize_qkv_int8,
+    quantize_qkv_int8_pass, quantize_qkv_int8_pass_plain, v8t_key_order,
 )
 from animal2vec_tpu_torch.ops.fused_mlp import (
-    fused_block_int8, fused_block_int8_plain, hidden_chunk,
+    fused_block_int8, fused_block_int8_plain, hidden_chunk, quantize_chunks_plain,
 )
 from animal2vec_tpu_torch.ops.int8_mm import (
     int8_dense, int8_dense_plain, quantize_rows, quantize_weight,
@@ -99,6 +100,54 @@ class TestQuantizers:
         ref = _jax_qkv(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         for a, r in zip(ours, ref):
             np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+    def test_attention_pass_layouts_match_jax_bitwise(self):
+        """The plain version of #5's quantization pass on the (B, T, H, D)
+        thirds of one (B, T, 3, H, D) projection at an unaligned T: with v8^T's
+        key order undone, its q8, k8, v8 and scales equal quantize_qkv_int8's
+        and the JAX wrapper's bit for bit; v8^T is zero past T."""
+        rng = np.random.default_rng(43)
+        b, t, h = 2, 300, 4
+        qkv = _rnd(rng, b, t, 3, h, 64, scale=1.5)
+        qkv[0, 7, 1, 2] = 0.0  # an all-zero k row takes the 1e-12 floor
+        q, k, v = torch.from_numpy(qkv).unbind(2)
+        t_pad = int8_spans(t)[1]
+        assert t_pad == 384 and q.stride(1) == 3 * h * 64
+        q8, qs, k8, ks, v8t, vsc = quantize_qkv_int8_pass(q, k, v, t_pad)
+        order = v8t_key_order(t_pad)
+        assert torch.equal(order.sort().values, torch.arange(t_pad))
+        assert torch.equal(order // 32, torch.arange(t_pad) // 32)  # within each 32 keys
+        v8 = v8t[..., order.argsort()]
+        assert not v8[..., t:].any()
+        ours = (q8.transpose(1, 2), qs.transpose(1, 2), k8.transpose(1, 2), ks.transpose(1, 2),
+                v8[..., :t].permute(0, 3, 1, 2))
+        ref_t = quantize_qkv_int8(q, k, v)
+        ref_j = _jax_qkv(*(jnp.asarray(x.numpy()) for x in (q, k, v)))
+        for a, rt, rj in zip(ours, ref_t, ref_j):
+            np.testing.assert_array_equal(a.numpy(), rt.numpy())
+            np.testing.assert_array_equal(a.numpy(), np.asarray(rj))
+        np.testing.assert_array_equal(vsc.numpy(), (ref_t[5] * (1.0 / 127.0)).numpy())
+        np.testing.assert_array_equal(
+            vsc.numpy(), np.asarray(ref_j[5]) * np.float32(1.0 / 127.0))
+
+    def test_block_chunk_scales_from_partial_maxima(self):
+        """#7's h quantizer: each chunk's scale from the max of its
+        128-column partial maxima (what fc1's epilogue writes) equals
+        _int8_mlp's quantize_rows of the chunk, values and scales bit for
+        bit, for the a2v-large and ViT-B/16 hidden widths."""
+        rng = np.random.default_rng(46)
+        for m in (4096, 3072):
+            h = torch.from_numpy(_rnd(rng, 40, m) * rng.uniform(0.01, 8.0, size=(40, 1)))
+            h = torch.nn.functional.gelu(h.float())
+            h[3, 1024:2048] = 0.0  # an all-zero chunk takes the 1e-12 floor
+            chunk = hidden_chunk(m)
+            h_q, h_s = quantize_chunks_plain(h, chunk)
+            assert h_s.shape == (40, m // chunk)
+            for j in range(0, m, chunk):
+                q_ref, s_ref = quantize_rows(h[:, j:j + chunk])
+                assert torch.equal(h_q[:, j:j + chunk], q_ref)
+                assert torch.equal(h_s[:, j // chunk], s_ref)
 
 
 @pytest.mark.parametrize("n,k,m,bias", [(300, 256, 384, True), (64, 128, 1024, False)])
@@ -339,3 +388,54 @@ def test_int8_attention_kernel_matches_plain_on_card(cuda, t):
     torch.cuda.synchronize()
     assert alibi_flash_attention_int8.launches == before + 1
     _close_on_card(out, alibi_attention_int8_plain(*args), 2e-2, 2e-2)
+
+
+@pytest.mark.gpu
+def test_int8_quantization_pass_is_bit_exact_on_card(cuda):
+    """#5's quantization pass on the thirds of a (B, T, 3, H, D) projection
+    at an unaligned T equals its plain version bit for bit."""
+    rng = np.random.default_rng(51)
+    qkv = torch.from_numpy(_rnd(rng, 2, 300, 3, 16, 64, scale=1.5)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    t_pad = int8_spans(300)[1]
+    before = quantize_qkv_int8_pass.launches
+    got = quantize_qkv_int8_pass(q, k, v, t_pad)
+    torch.cuda.synchronize()
+    assert quantize_qkv_int8_pass.launches == before + 1
+    for a, r in zip(got, quantize_qkv_int8_pass_plain(q, k, v, t_pad)):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert torch.equal(a, r)
+
+
+@pytest.mark.gpu
+def test_int8_block_kernel_matches_plain_at_b32_rows_on_card(cuda):
+    """#7 at the b32 serving grid, N 64 000 (500 row tiles)."""
+    x, w1, w2, vecs = _block_inputs(64_000, 1024, 4096, seed=52)
+    w1_q, w1_s = quantize_weight(torch.from_numpy(w1).to(cuda))
+    w2_q, w2_s = quantize_weight(torch.from_numpy(w2).to(cuda))
+    l1s, l1b, b1, b2, l2s, l2b = (torch.from_numpy(a).to(cuda) for a in vecs)
+    args = (torch.from_numpy(x).to(cuda, torch.bfloat16), l1s, l1b, w1_q, w1_s, b1, w2_q, w2_s,
+            b2, l2s, l2b, 1e-5)
+    xo, tap = fused_block_int8(*args)
+    torch.cuda.synchronize()
+    xo_p, tap_p = fused_block_int8_plain(*args)
+    _close_on_card(tap, tap_p, 3e-2, 2e-2)
+    _close_on_card(xo, xo_p, 3e-2, 2e-2)
+
+
+@pytest.mark.gpu
+def test_int8_attention_kernel_matches_plain_padded_2048_on_card(cuda):
+    """#5 as the int8_attn model calls it: the thirds of one projection at
+    the trunk's padded T 2048, the padding mask covering the 48 pad frames of
+    every row and the last 500 of row 1."""
+    rng = np.random.default_rng(53)
+    qkv = torch.from_numpy(_rnd(rng, 2, 2048, 3, 16, 64)).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    slopes = torch.from_numpy(alibi_slopes(16).astype(np.float32)).to(cuda)
+    pos = torch.arange(2048, dtype=torch.int32, device=cuda)[None]
+    mask = torch.zeros((2, 2048), dtype=torch.bool, device=cuda)
+    mask[:, 2000:] = True
+    mask[1, 1500:] = True
+    out = alibi_flash_attention_int8(q, k, v, slopes, pos, mask)
+    torch.cuda.synchronize()
+    _close_on_card(out, alibi_attention_int8_plain(q, k, v, slopes, pos, mask), 2e-2, 2e-2)

@@ -221,6 +221,9 @@ def test_fuse_predict_copy_matches_original(method):
     ["chip_smoke.py"],
     ["-m", "animal2vec_tpu_torch.tools.profile_forward"],
     ["-m", "animal2vec_tpu_torch.tools.profile_train_step"],
+    ["-m", "animal2vec_tpu_torch.tools.compare_int8_kernels", "--other-root", "."],
+    ["-m", "animal2vec_tpu_torch.tools.compare_bias_attention", "--other-csrc", "."],
+    ["-m", "animal2vec_tpu_torch.tools.profiler_windows", "--seconds", "1"],
 ])
 def test_card_scripts_refuse_without_cuda(argv):
     """Without a CUDA card the on-card scripts exit non-zero and print no
@@ -231,3 +234,30 @@ def test_card_scripts_refuse_without_cuda(argv):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "cuda" in (out.stderr + out.stdout).lower()
+
+
+@pytest.mark.parametrize("names, kept", [
+    (["spin_kernel", "gemm", "ln_rows", "spin_kernel"], ["gemm", "ln_rows"]),
+    (["spin_kernel"] * 2 + ["gemm", "ln_rows"] + ["spin_kernel"] * 3, ["gemm", "ln_rows"]),
+    (["gemm", "ln_rows", "spin_kernel"], None),  # every leading marker lost
+    (["spin_kernel", "gemm", "ln_rows"], None),  # every trailing marker lost
+    (["spin_kernel", "spin_kernel"], []),
+    ([], None),  # a window that recorded nothing
+])
+def test_device_time_counts_only_complete_windows(names, kept):
+    """A profiled window counts only when its first and last device records
+    are spin-kernel markers, however many of each run were lost; host
+    records and the order they are listed in do not matter."""
+    from types import SimpleNamespace
+
+    from animal2vec_tpu_torch.tools.device_time import complete_records
+
+    def record(name, start, device):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start),
+                               device_type=device)
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [record(n, 10 * i, cuda) for i, n in enumerate(names)]
+    events = events[::-1] + [record("cudaLaunchKernel", -5, cpu), record("spin_kernel", 999, cpu)]
+    recs = complete_records(SimpleNamespace(events=lambda: events))
+    assert (recs if recs is None else [e.name for e in recs]) == kept
