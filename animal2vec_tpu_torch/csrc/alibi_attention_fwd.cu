@@ -1,58 +1,85 @@
-// ALiBi flash-attention forward of serving (no lse, no dropout), bf16 in
-// and out, D = 64, on Hopper's wgmma.
+// ALiBi flash-attention forward, bf16 in and out, D = 64, on Hopper's
+// wgmma: serving (no lse, no dropout) and training (the logsumexp residual
+// of the backward and the in-kernel hash dropout), one kernel.
 //
-// Replaces the TPU kernel animal2vec_tpu/ops/pallas_attention.py:
-// _kernel_serve_nk1 (batch-uniform positions, one key block), and the
-// serving launches of _kernel (per-row positions): every forward that
-// returns no logsumexp and drops nothing. alibi_attention.cu keeps the
-// launches with an lse or a dropout threshold (training).
+// Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
+// _kernel_serve_nk1 (batch-uniform positions, one key block) and _kernel
+// (per-row positions, any number of key blocks, the lse and the dropout).
 //
-//   out[b,i,h] = sum_j softmax_j(s_ij) . v_j
+//   out[b,i,h] = sum_j keep_ij / (1 - r) * softmax_j(s_ij) . v_j
 //   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j| (0 when either
 //          position is < 0 and the sentinel rule is on), key j padded -> -1e9
+//   lse[b*H+h, i] = m_i + log(max(l_i, 1e-30))   (when an lse is asked for)
 //
 // As in the TPU kernel padded keys score a finite -1e9, so a query row
 // whose keys are all padded averages V instead of producing NaN, and the
 // denominator is clamped at 1e-30; keys past T have weight exactly 0.
+// keep_ij is the counter hash of (seed + (b*H+h) * 0xC2B2AE3D, i, j) over
+// global query and key indices (common.cuh drop_hash), so the backward
+// kernels regenerate it; as on the TPU the denominator l sums the undropped
+// weights and the dropout scales the weights of P.V only.
 //
 // q, k and v are read in place: (B, T, H, D) views with one set of element
 // strides (batch, head, token), a head's row 128 contiguous bytes. The
-// model hands over the q, k, v thirds of its (B, T, 3, H, D) projection
-// (token stride 3C) and takes out as (B, T, H, D), so neither the packed
-// (3, B, H, T, D) copy of qkv nor the copy of the output back to (B, T, C)
-// is made; the packed layout itself is the same views with token stride D.
+// model's serving call hands over the q, k, v thirds of its (B, T, 3, H, D)
+// projection (token stride 3C) and takes out as (B, T, H, D), so neither
+// the packed (3, B, H, T, D) copy of qkv nor the copy of the output back to
+// (B, T, C) is made; training passes the planes of the packed copy the
+// backward reads, the same views with token stride D.
 //
 // Bound on the H100 at the serving shape (B = 32, H = 16, T = 2000): the
 // two products are 4 B H T^2 D = 0.52 TFLOP (0.53 ms at the 989 TFLOP/s
 // bf16 peak) against 0.52 GB of q, k, v and out (0.16 ms at 3.35 TB/s):
 // bound by operations. Beside them every score (2.05e9) takes one
 // exponential on the special-function unit (16 a clock per SM: 0.53 ms
-// alone) and about eight fp32 instructions (bias, scale, mask, max, sum).
+// alone) and about eight fp32 instructions (bias, scale, mask, max, sum);
+// the dropout adds about ten integer instructions of hash a score. At the
+// finetune shape (B = 4) the products are 0.066 TFLOP (0.066 ms), and
+// training's accurate expf (a range reduction around its ex2) takes
+// several instructions a score where serving's ex2 takes one.
 //
 // Design (sm_90a): a block of kWG warpgroups (128 threads each) owns
 // kWG x 64 query rows of one (batch, head), each warpgroup 64 rows, wgmma's
 // M, and walks the keys in tiles of 64 with an online softmax (running max
-// and sum, fp32) in the log2 domain: log2(e) is folded into the score's
-// scale and the slope, so each weight is one ex2. The warpgroups share a
-// ring of two key tiles in shared memory (128-byte swizzled K and V tiles
-// staged by cp.async, csrc/sm90.cuh, and each key's position and mask
-// entry): the copies of tile t + 1 are in flight while tile t's products
-// and scalar pass run (the mma.sync kernel this replaces waited for each
-// tile before its products).
+// and sum, fp32). The warpgroups share a ring of two key tiles in shared
+// memory (128-byte swizzled K and V tiles staged by cp.async, csrc/sm90.cuh,
+// and each key's position and mask entry): the copies of tile t + 1 are in
+// flight while tile t's products and scalar pass run.
 //   - S = Q K^T is an SS wgmma (m64n64k16, four k-steps over D) from the
 //     warpgroup's swizzled Q tile and the K tile; O += P V an RS wgmma
 //     whose A is the bf16 of S's accumulator after the scalar pass
 //     (frag_from_acc), with V read MN-major: P never leaves registers.
 //   - The bias is computed inline from the positions (|pos_i - pos_j|
-//     times the slope), and a key's mask entry is +inf (live), -1e9
-//     (padded) or -inf (past T): a padded or absent key's score is replaced
-//     by its entry (-1e9 in the log2 domain gives the same weights: 0
-//     beside any live key, equal ones in a row whose keys are all padded).
-//     Without a padding mask only the last tile holds such keys, and the
-//     others skip the test.
+//     times the slope, rounded to fp32 before its sum with the scaled
+//     product), and a key's mask entry is +inf (live), -1e9 (padded) or
+//     -inf (past T): a padded or absent key's score is replaced by its
+//     entry. Without a padding mask only the last tile holds such keys, and
+//     the others skip the test.
+//   - The weights. Serving folds log2(e) into the score's scale and the
+//     slope, so the scores, the running max m and the entries are in log2
+//     units and each weight is one ex2(x - m). Training keeps the scores in
+//     natural units and the arithmetic of the mma.sync kernel it replaces:
+//     p = expf(x - m), lse = m + logf(l), out = O / l. Its outputs (out and
+//     lse) are then bit for bit that kernel's, which matters to the
+//     backward: #3/#4 rebuild P from this lse, and their checks against the
+//     plain version flip at the level of one ulp of the lse (a weight P f
+//     near 1 that rounds to bf16 the other way; PERF.md). One ex2 on a
+//     folded exponent instead ran 0.342 against 0.421 ms at b4 on an H100
+//     but changed a third of the lse values in their last bits. A row whose
+//     keys are all padded weighs each of them expf(0) = 1: out is the mean
+//     of V, lse -1e9 + log T, which rounds to -1e9 in fp32 as the plain
+//     version's.
+//   - The dropout (a template flag: serving instances compile without it)
+//     multiplies p after l has summed it, before frag_from_acc; the seed's
+//     part of the hash is mixed once per block, and the hash's input steps
+//     through the tile as row kHashRow + column kHashCol.
 //   - The running output is rescaled only when a row's max rose in the
 //     tile (a vote per warp): along an ALiBi row the max stops rising once
-//     the tile holding the row's own position has passed.
+//     the tile holding the row's own position has passed. In training a
+//     warp whose weights in the tile are all below expf(-88) < 2^-126 (the
+//     tile's row max bounds them; beside the row's max weight 1 they change
+//     neither l nor O) skips the weights' pass, the exponentials and the
+//     hash: along a steep head's row most keys.
 //   - Every wgmma group is issued unconditionally: a product issued under
 //     a branch (the last tile's k16 steps that hold no live key) made
 //     ptxas fence and serialize each of them, which measured slower.
@@ -79,25 +106,34 @@ constexpr int kThreads = 128 * kWG;
 constexpr int kStages = 2;              // ring depth of the key tiles
 constexpr float kMasked = -1e9f;        // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kDeadGap = -88.f;       // training: expf below it is under 2^-126
 constexpr int kSmem = kTileElems * 2 * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
 
-struct ServeArgs {
+struct FwdArgs {
   long long stride_b, stride_h, stride_t;  // elements, shared by q, k and v
   long long out_b, out_h, out_t;           // elements of out
   int H, T;
   int pos_row;   // elements between batch rows of positions (0: batch-uniform)
   int mask_row;  // elements between batch rows of the padding mask
-  float scale2;  // D^-0.5 * log2(e)
+  float scale;   // D^-0.5, times log2(e) when serving
+  float slope_unit;  // log2(e) when serving, else 1
+  uint32_t seed;     // dropout seed (int32 bits)
+  uint32_t thresh;   // keep when hash >= thresh
+  float keep_scale;  // 1 / (1 - rate)
 };
 
-template <bool HAS_MASK, bool HAS_SENTINEL>
+// TRAIN: scores in natural units (and the lse when lse is not null); DROP
+// (only with TRAIN): the hash dropout.
+template <bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2)
-alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v,
-                   const float* __restrict__ slopes,  // (H,)
-                   const int* __restrict__ pos,       // (1 or B, T)
-                   const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
-                   bf16* __restrict__ out, ServeArgs a) {
+alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v,
+                 const float* __restrict__ slopes,  // (H,)
+                 const int* __restrict__ pos,       // (1 or B, T)
+                 const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
+                 bf16* __restrict__ out,
+                 float* __restrict__ lse,           // null or (B*H, T)
+                 FwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sK = sQ + kWG * kTileElems;  // stage s at s tiles in
@@ -145,14 +181,20 @@ alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // this thread's rows q0 + 64 wg + 16 warp + g + 8r; a sentinel query row
   // (position < 0) has no bias, as if its slope were 0
-  float pq[2], slope2[2];
+  const int row0 = q0 + 64 * wg + 16 * warp + g;
+  float pq[2], slope[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+    const int row = row0 + 8 * r;
     pq[r] = row < T ? static_cast<float>(posr[row]) : 0.f;
-    slope2[r] = HAS_SENTINEL && pq[r] < 0.f ? 0.f : slopes[h] * kLog2e;
+    slope[r] = HAS_SENTINEL && pq[r] < 0.f ? 0.f : slopes[h] * a.slope_unit;
   }
-  float m[2] = {kMasked, kMasked};  // running max, log2 domain
+  // the dropout hash: the seed's share, and row0's term (row0 + 8 adds
+  // 8 kHashRow)
+  const uint32_t seed_mix =
+      DROP ? drop_seed_mix(a.seed + static_cast<uint32_t>(b * a.H + h) * 0xC2B2AE3Du) : 0u;
+  const uint32_t zrow = static_cast<uint32_t>(row0) * kHashRow;
+  float m[2] = {kMasked, kMasked};  // running max, in the scores' units
   float l[2] = {0.f, 0.f};
   float o[32], sc[32];
 #pragma unroll
@@ -179,8 +221,9 @@ alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // x = s D^-0.5 log2(e) - slope log2(e) |pos_i - pos_j|, then the mask
-    // entry (kEntry: a padding mask, or the last tile), then the row max
+    // x = s scale - slope |pos_i - pos_j| (the bias rounded first), then
+    // the mask entry (kEntry: a padding mask, or the last tile), then the
+    // row max
     const float4* keys = reinterpret_cast<const float4*>(sKey + slot * kTile);
     float mx[2] = {-INFINITY, -INFINITY};
     auto scores = [&](auto entry) {
@@ -196,7 +239,7 @@ alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int i = 4 * j + 2 * r + e;
             float dist = fabsf(pq[r] - pk[e]);
             if (HAS_SENTINEL && pk[e] < 0.f) dist = 0.f;
-            float x = fmaf(sc[i], a.scale2, -slope2[r] * dist);
+            float x = fmaf(sc[i], a.scale, -__fmul_rn(slope[r], dist));
             if (kEntry && ent[e] != INFINITY) x = ent[e];
             sc[i] = x;
             mx[r] = fmaxf(mx[r], x);
@@ -215,15 +258,35 @@ alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = ex2(m[r] - m_new);
+      alpha[r] = TRAIN ? expf(m[r] - m_new) : ex2(m[r] - m_new);
       m[r] = m_new;
       l[r] *= alpha[r];
     }
+    // training: the weights, unless every one of the warp's is below
+    // expf(-88) < 2^-126: such weights vanish beside the row's max weight
+    // 1 in l and in O, and the tile's max bounds them all (along an ALiBi
+    // row, keys more than about 88 / slope from the row's max)
+    bool live = !TRAIN;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = ex2(sc[i] - m[(i >> 1) & 1]);
-      l[(i >> 1) & 1] += p;  // the denominator from the fp32 weights
-      sc[i] = p;
+    for (int r = 0; r < 2; ++r) live |= mx[r] - m[r] >= kDeadGap;
+    if (!TRAIN || __any_sync(0xffffffffu, live)) {
+      const uint32_t zt = static_cast<uint32_t>(kt * kTile + 2 * i4) * kHashCol;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = TRAIN ? expf(sc[i] - m[r]) : ex2(sc[i] - m[r]);
+        l[r] += p;  // the denominator from the fp32, undropped weights
+        if (DROP) {
+          // row row0 + 8r, column kt * 64 + 8j + 2 i4 + e of i = 4j + 2r + e
+          const uint32_t z = zrow + zt + static_cast<uint32_t>(8 * r) * kHashRow +
+                             static_cast<uint32_t>(8 * (i >> 2) + (i & 1)) * kHashCol;
+          p = drop_mix_seeded(seed_mix, z) >= a.thresh ? p * a.keep_scale : 0.f;
+        }
+        sc[i] = p;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     }
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
@@ -248,32 +311,51 @@ alibi_serve_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
   }
   bf16* ob = out + b * a.out_b + h * a.out_h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
+    const int row = row0 + 8 * r;
     if (row >= T) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / l[r];
     bf16* orow = ob + row * a.out_t;
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * i4) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          TRAIN ? pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r])
+                : pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (TRAIN && lse != nullptr && i4 == 0)
+      lse[(static_cast<long long>(b) * a.H + h) * T + row] = m[r] + logf(l[r]);
   }
 }
 
-template <bool HAS_MASK, bool HAS_SENTINEL>
+template <bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
 int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
-           const float* slopes, const int* pos, const uint8_t* mask, bf16* out,
-           const ServeArgs& a) {
-  constexpr auto kernel = alibi_serve_kernel<HAS_MASK, HAS_SENTINEL>;
+           const float* slopes, const int* pos, const uint8_t* mask, bf16* out, float* lse,
+           const FwdArgs& a) {
+  constexpr auto kernel = alibi_fwd_kernel<HAS_MASK, HAS_SENTINEL, TRAIN, DROP>;
   // the shared-memory limit above 48 KB, raised once per process and instance
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, mask, out, a);
+  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, mask, out, lse, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TRAIN, bool DROP>
+int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const bf16* q,
+             const bf16* k, const bf16* v, const float* slopes, const int* pos,
+             const uint8_t* mask, bf16* out, float* lse, const FwdArgs& a) {
+  if (has_mask)
+    return has_sentinel
+               ? launch<true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse, a)
+               : launch<true, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse,
+                                                  a);
+  return has_sentinel
+             ? launch<false, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse, a)
+             : launch<false, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse,
+                                                 a);
 }
 
 }  // namespace
@@ -284,14 +366,17 @@ int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* 
 // multiples of 8; out: bf16 (B, T, H, D) with strides (out_b, out_t, out_h,
 // 1), 16-byte aligned, strides multiples of 8; slopes fp32 (H,); positions
 // int32 (pos_per_row ? B : 1, T); mask null or uint8 (mask_per_row ? B : 1,
-// T). Returns a cudaError_t.
-extern "C" int a2v_alibi_attention_serve(const void* q, const void* k, const void* v,
-                                         long long stride_b, long long stride_t,
-                                         long long stride_h, const void* slopes,
-                                         const void* pos, int pos_per_row, const void* mask,
-                                         int mask_per_row, void* out, long long out_b,
-                                         long long out_t, long long out_h, int B, int H, int T,
-                                         int D, int has_sentinel, float sm_scale, void* stream) {
+// T); lse null or fp32 (B*H, T). A launch with an lse or a nonzero dropout
+// threshold runs the training instances (scores in natural units), one
+// with neither the serving ones. Returns a cudaError_t.
+extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void* v,
+                                       long long stride_b, long long stride_t,
+                                       long long stride_h, const void* slopes, const void* pos,
+                                       int pos_per_row, const void* mask, int mask_per_row,
+                                       void* out, long long out_b, long long out_t,
+                                       long long out_h, void* lse, int B, int H, int T, int D,
+                                       int has_sentinel, float sm_scale, int seed,
+                                       unsigned int thresh, float keep_scale, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   const long long strides[] = {stride_b, stride_t, stride_h, out_b, out_t, out_h};
@@ -309,11 +394,16 @@ extern "C" int a2v_alibi_attention_serve(const void* q, const void* k, const voi
   const auto* p = static_cast<const int*>(pos);
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
-  const ServeArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T,
-                    pos_per_row ? T : 0, mask_per_row ? T : 0, sm_scale * kLog2e};
-  if (mk != nullptr)
-    return has_sentinel ? launch<true, true>(grid, s, qp, kp, vp, sl, p, mk, o, a)
-                        : launch<true, false>(grid, s, qp, kp, vp, sl, p, mk, o, a);
-  return has_sentinel ? launch<false, true>(grid, s, qp, kp, vp, sl, p, mk, o, a)
-                      : launch<false, false>(grid, s, qp, kp, vp, sl, p, mk, o, a);
+  auto* ls = static_cast<float*>(lse);
+  const bool train = ls != nullptr || thresh != 0u;
+  const FwdArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T,
+                  pos_per_row ? T : 0, mask_per_row ? T : 0,
+                  train ? sm_scale : sm_scale * kLog2e, train ? 1.f : kLog2e,
+                  static_cast<uint32_t>(seed), thresh, keep_scale};
+  const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0;
+  if (thresh != 0u)
+    return dispatch<true, true>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
+  if (train)
+    return dispatch<true, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
+  return dispatch<false, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
 }

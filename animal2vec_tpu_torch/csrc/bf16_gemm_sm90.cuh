@@ -1,13 +1,14 @@
 // bf16 GEMM for Hopper (sm_90a) with the fused bias / GELU / dropout
 // epilogue: wgmma on 128-byte swizzled shared-memory tiles behind a
-// cp.async ring. fused_block.cu's two products (#6); the plain fused MLP
-// (#8, fused_mlp.cu) still runs bf16_gemm.cuh's mma.sync GEMM.
+// cp.async ring: the bf16 GEMM core of the fused post-LN block's two
+// products (#6, fused_block.cu) and of the plain fused MLP's (#8,
+// fused_mlp.cu, without dropout).
 //
 //   C[N, NOUT] = bf16(drop(act(A[N, K] W[NOUT, K]^T + bias)))
 //
 // A and W are bf16 row-major, both K-major as wgmma reads them from shared
 // memory, so nn.Linear's (out, in) weight needs no transpose. The sums are
-// fp32; the epilogue is bf16_gemm.cuh's: the fp32 bias, the exact-erf GELU
+// fp32; the epilogue applies the fp32 bias, the exact-erf GELU
 // (GELU), the hash dropout drop_factor(seed, global row, global column)
 // (DROP; common.cuh, bit for bit the mask of the plain version and of the
 // backward's recompute) and one rounding to bf16.

@@ -11,39 +11,44 @@
 // here one fp32 accumulator runs over the whole hidden width (the same sum
 // in another order).
 //
-// Design: one C entry makes two launches of bf16_gemm.cuh's GEMM on the
-// caller's stream, as fused_block.cu does without its two LayerNorms:
-//   1. gemm_bias_act<GELU>  h = GELU(x W1^T + b1), bf16 (N, M) scratch;
-//   2. gemm_bias_act        out = h W2^T + b2.
-// Both weights come in nn.Linear layout. h goes through device memory.
+// Design: one C entry makes two launches of bf16_gemm_sm90.cuh's GEMM
+// (wgmma m64n128k16 on 128-byte swizzled tiles behind a 3-stage cp.async
+// ring, 128 x 128 output tiles) on the caller's stream, as fused_block.cu
+// does without its two LayerNorms and its dropout:
+//   1. gemm_bf16_sm90<GELU>  h = GELU(x W1^T + b1), bf16 (N, M) scratch;
+//   2. gemm_bf16_sm90        out = h W2^T + b2.
+// Both weights come in nn.Linear layout, K-major as wgmma reads them. h
+// goes through device memory.
 //
 // Bound on the H100 at the ViT-B/16 serving shape (N = 64 x 196 rows,
 // C = 768, M = 3072): fc1 + fc2 are 118 GFLOP (0.12 ms at the 989 TFLOP/s
 // bf16 peak) against 48 MB of x, out and weights (0.014 ms): bound by
-// operations. h's round trip adds 2 x N x M x 2 B = 154 MB (0.05 ms);
-// mma.sync reaches a fraction of the peak. wgmma and a fused fc1 -> fc2 that
-// keeps h on chip are the levers for a later change.
-#include "bf16_gemm.cuh"
+// operations. h's round trip adds 2 x N x M x 2 B = 154 MB (0.05 ms).
+#include "bf16_gemm_sm90.cuh"
 
 // C entry, bound with ctypes. x (N, C) bf16; w1 (M, C) and w2 (C2, M) bf16
 // (nn.Linear layout); b1 (M) and b2 (C2) fp32; h (N, M) bf16 scratch; out
-// (N, C2) bf16. Returns a cudaError_t.
+// (N, C2) bf16. x, the weights, h and out 16-byte aligned; C and M
+// multiples of 64 (the GEMM's K step), M and C2 multiples of 8. Returns a
+// cudaError_t.
 extern "C" int a2v_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* h, void* out, int N, int C, int M, int C2,
                              void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
-  if (N <= 0 || C <= 0 || C % kBK != 0 || M <= 0 || M % kBK != 0 || C2 <= 0 || C2 % 2 != 0 ||
-      (N + kTile - 1) / kTile > 65535)
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (N <= 0 || C <= 0 || C % kG16BK != 0 || M <= 0 || M % kG16BK != 0 || C2 <= 0 ||
+      C2 % 8 != 0 || (N + kG16BM - 1) / kG16BM > 65535 || misaligned(x) || misaligned(w1) ||
+      misaligned(w2) || misaligned(h) || misaligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const DropSite none{0u, 0u, 1.f};
   auto* hb = static_cast<bf16*>(h);
-  launch_gemm<true>(false, gemm_grid(N, M), s, static_cast<const bf16*>(x),
-                    static_cast<const bf16*>(w1), static_cast<const float*>(b1), hb, N, C, M, none);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_gemm<false>(false, gemm_grid(N, C2), s, hb, static_cast<const bf16*>(w2),
-                     static_cast<const float*>(b2), static_cast<bf16*>(out), N, M, C2, none);
-  return static_cast<int>(cudaGetLastError());
+  const int err = launch_gemm_sm90<true>(false, s, static_cast<const bf16*>(x),
+                                         static_cast<const bf16*>(w1),
+                                         static_cast<const float*>(b1), hb, N, C, M, none);
+  if (err != 0) return err;
+  return launch_gemm_sm90<false>(false, s, hb, static_cast<const bf16*>(w2),
+                                 static_cast<const float*>(b2), static_cast<bf16*>(out), N, M, C2,
+                                 none);
 }

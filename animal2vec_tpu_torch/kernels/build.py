@@ -37,15 +37,11 @@ _F = ctypes.c_float
 _DROP = (_I, _U, _F)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
-    # qkv, slopes, pos, pos_per_row, mask, mask_per_row, out, lse, B, H, T, D,
-    # has_sentinel, sm_scale, seed, thresh, keep_scale, stream
-    "a2v_alibi_attention": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F)
-    + _DROP + (_P,),
     # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, mask,
-    # mask_per_row, out, out_stride_b, out_stride_t, out_stride_h, B, H, T, D,
-    # has_sentinel, sm_scale, stream
-    "a2v_alibi_attention_serve": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _L, _L, _L)
-    + (_I,) * 5 + (_F, _P),
+    # mask_per_row, out, out_stride_b, out_stride_t, out_stride_h, lse, B, H,
+    # T, D, has_sentinel, sm_scale, seed, thresh, keep_scale, stream
+    "a2v_alibi_attention_fwd": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _L, _L, _L, _P)
+    + (_I,) * 5 + (_F,) + _DROP + (_P,),
     # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
     # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
     # keep_scale, stream

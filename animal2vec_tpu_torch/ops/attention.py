@@ -7,18 +7,19 @@ backward kernels).
 D), ``positions`` (1, T) when batch-uniform or (B, T), ``padding_mask``
 (B, T) bool (True = padded key) or None, output (B, H, T, D), and with
 ``return_lse`` the (B*H, T) fp32 logsumexp the backward reads. On a CUDA
-tensor a launch with an lse or a dropout rate runs the training kernel
-(``csrc/alibi_attention.cu``), a serving launch (neither)
-``alibi_flash_attention_serve`` on the packed planes; on a CPU tensor it
-runs ``alibi_attention_plain``, a transcription of the JAX
+tensor it launches the forward kernel (``csrc/alibi_attention_fwd.cu``)
+on the packed planes as (B, T, H, D) views: a launch with an lse or a
+dropout rate runs its training instances (counted by
+``alibi_flash_attention_packed.launches``), a serving launch (neither) goes
+through ``alibi_flash_attention_serve``; on a CPU tensor it runs
+``alibi_attention_plain``, a transcription of the JAX
 ``_reference_attention``; any other device raises.
 
-``alibi_flash_attention_serve`` is the serving kernel's entry
-(``csrc/alibi_attention_serve.cu``, no lse, no dropout): (B, T, H, D)
-views of q, k and v with one set of strides, read in place, into a (B, T,
-H, D) output of any strides. The projection's (B, T, 3, H, D) thirds and
-the packed layout's planes (transposed to (B, T, H, D)) are both such
-views.
+``alibi_flash_attention_serve`` is the serving entry of the same kernel
+(no lse, no dropout): (B, T, H, D) views of q, k and v with one set of
+strides, read in place, into a (B, T, H, D) output of any strides. The
+projection's (B, T, 3, H, D) thirds and the packed layout's planes
+(transposed to (B, T, H, D)) are both such views.
 
 ``alibi_flash_attention_btc`` is the model's entry, for serving and
 training: (B, T, 3C) in, (B, T, C) out, differentiable in ``qkv_btc`` and
@@ -219,10 +220,33 @@ def _check_device(x: torch.Tensor, what: str) -> None:
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """A (..., D) view the serving kernel reads or writes: 16-byte aligned
+    """A (..., D) view the forward kernel reads or writes: 16-byte aligned
     rows of contiguous elements, every stride a multiple of 8."""
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(st % 8 == 0 for st in x.stride()[:-1]))
+
+
+def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop) -> None:
+    """One launch of the forward kernel on checked (B, T, H, D) views q, k,
+    v (one stride set) and out; ``side`` are ``_side_args``' slopes,
+    positions and mask, ``drop`` ``_dropout_args``', ``lse`` None or a
+    contiguous (B*H, T) fp32 output."""
+    if not all(_aligned(x) for x in (q, k, v, out)):
+        raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
+                         "last dim and strides in multiples of 8")
+    b, t, h, d = q.shape
+    sl, pos, pos_per_row, mask, mask_per_row = side
+    seed_i, thresh, scale = drop
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
+            out.stride(0), out.stride(1), out.stride(2), None if lse is None else lse.data_ptr(),
+            b, h, t, d, int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
+        )
+    check(err, "alibi attention forward kernel")
 
 
 def alibi_flash_attention_serve(
@@ -238,7 +262,7 @@ def alibi_flash_attention_serve(
     """ALiBi attention forward without lse or dropout of (B, T, H, D) views
     ``q``, ``k``, ``v`` that share one set of strides, into ``out`` (B, T,
     H, D) of any strides (a new contiguous tensor when None), which it
-    returns. Kernel on CUDA (``csrc/alibi_attention_serve.cu``, q, k, v read
+    returns. Kernel on CUDA (``csrc/alibi_attention_fwd.cu``, q, k, v read
     in place), ``alibi_attention_plain`` on CPU."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
@@ -262,21 +286,8 @@ def alibi_flash_attention_serve(
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
                          f"{v.stride()}")
-    if not all(_aligned(x) for x in (q, k, v, out)):
-        raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
-                         "last dim and strides in multiples of 8")
-    sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q.device, slopes, positions,
-                                                          padding_mask)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention_serve(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-            sl.data_ptr(), pos.data_ptr(), pos_per_row,
-            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
-            out.stride(0), out.stride(1), out.stride(2), b, h, t, d, int(has_sentinel), d**-0.5,
-            stream,
-        )
-    check(err, "alibi attention serving kernel")
+    side = _side_args(b, h, t, q.device, slopes, positions, padding_mask)
+    _launch_forward(q, k, v, out, None, side, has_sentinel, _dropout_args(0.0, None))
     alibi_flash_attention_serve.launches += 1
     return out
 
@@ -301,26 +312,16 @@ def alibi_flash_attention_packed(
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
                                      dropout_rate, seed, return_lse)
     _check_device(qkv, "alibi attention")
-    b, h, t, d, slopes, positions, pos_per_row, padding_mask, mask_per_row = _kernel_args(
-        qkv, slopes, positions, padding_mask
-    )
-    seed_i, thresh, scale = _dropout_args(dropout_rate, seed)
+    b, h, t, d, *side = _kernel_args(qkv, slopes, positions, padding_mask)
+    drop = _dropout_args(dropout_rate, seed)
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
-    if not return_lse and thresh == 0:
-        alibi_flash_attention_serve(*(x.transpose(1, 2) for x in qkv.unbind(0)), slopes,
-                                    positions, padding_mask, has_sentinel,
+    planes = [x.transpose(1, 2) for x in qkv.unbind(0)]  # (B, T, H, D) views
+    if not return_lse and drop[1] == 0:
+        alibi_flash_attention_serve(*planes, slopes, positions, padding_mask, has_sentinel,
                                     out=out.transpose(1, 2))
         return out
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention(
-            qkv.data_ptr(), slopes.data_ptr(), positions.data_ptr(), pos_per_row,
-            None if padding_mask is None else padding_mask.data_ptr(), mask_per_row,
-            out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t, d,
-            int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
-        )
-    check(err, "alibi attention training kernel")
+    _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop)
     alibi_flash_attention_packed.launches += 1
     return (out, lse) if return_lse else out
 

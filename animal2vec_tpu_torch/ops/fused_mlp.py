@@ -499,13 +499,15 @@ def _launch_mlp(x, w1, w2, b1, b2) -> torch.Tensor:
     if any(v.dtype != torch.bfloat16 for v in (x, w1, w2)) or not x.is_contiguous():
         raise ValueError(f"the kernel takes a contiguous bf16 x and bf16 weights, got {x.dtype}, "
                          f"{w1.dtype}, {w2.dtype}")
-    if c % 32 or m % 32 or c2 % 2:
-        raise ValueError(f"the kernel needs C and M in multiples of 32 and C2 even, got C={c}, "
-                         f"M={m}, C2={c2}")
+    if c % 64 or m % 64 or c2 % 8:
+        raise ValueError(f"the kernel needs C and M in multiples of 64 and C2 in multiples of 8, "
+                         f"got C={c}, M={m}, C2={c2}")
     dev = x.device
     if w1.device != dev or w2.device != dev:
         raise ValueError("weights must be on x's device")
     w1c, w2c = w1.detach().contiguous(), w2.detach().contiguous()
+    if any(v.data_ptr() % 16 for v in (x, w1c, w2c)):
+        raise ValueError("the kernel needs x and the weights 16-byte aligned")
     b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c2, 0.0, dev)
     n = x.numel() // c
     h = torch.empty((n, m), dtype=x.dtype, device=dev)

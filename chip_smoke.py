@@ -59,10 +59,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
    mask; torch._int_mm for the int8 product) and the bound the card's peak
    rates set, at the serving shape and at the training shape, and the image
    kernels at the image serving shapes; the serving attention (#1, reading
-   the (B, T, 3C) projection in place) also by device time beside SDPA's,
-   and the fused block's (#6) two GEMM launches by device time beside
-   F.linear at the same shapes, at b32 and at the ViT-B/16 widths, all with
-   achieved TFLOP/s; #1 (uniform in place, and per-row positions with a
+   the (B, T, 3C) projection in place) and the training forward (#2 with
+   lse and dropout, at b4) also by device time beside SDPA's, and the two
+   GEMM launches of the fused block (#6, at b32 and at the ViT-B/16
+   widths) and of the plain fused MLP (#8, at the ViT-B/16 widths) by
+   device time beside F.linear at the same shapes, all with achieved
+   TFLOP/s; #1 (uniform in place, and per-row positions with a
    mask) and #6 are also held against their plain versions on the timed
    b32 inputs (N 64 000 for #6); the backward kernels (#3, #4) also
    beside SDPA's backward alone, at dropout 0 and at the a2v-large
@@ -1302,7 +1304,7 @@ def phase_kernel_times(dev):
             cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos, None, False), iters=3),
             cuda_ms(sdpa), attention_bounds(32, 16, 2000)["serve"])
         flops = 4 * 32 * 16 * 2000**2 * 64
-        split = {"device_ms": device_ms(serve, "alibi_serve_kernel"),
+        split = {"device_ms": device_ms(serve, "alibi_fwd_kernel"),
                  "library_device_ms": device_ms(sdpa, "")}
         split["tflops"] = per_ms(flops, split["device_ms"])
         split["library_tflops"] = per_ms(flops, split["library_device_ms"])
@@ -1363,14 +1365,21 @@ def phase_kernel_times(dev):
         delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
         bwd = (qkv, dout, lse, delta, slopes, pos, mask, False, *drop)
         q, k, v, bias = sdpa_args(qkv, slopes, t)
-        row(f"attention forward + lse + dropout, b{b} training",
-            cuda_ms(lambda: alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
-                                                         return_lse=True)),
+        fwd = lambda: alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                                   return_lse=True)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                      dropout_p=ATTN_DROP)
+        key = f"attention forward + lse + dropout, b{b} training"
+        row(key, cuda_ms(fwd),
             cuda_ms(lambda: alibi_attention_plain(qkv, slopes, pos, mask, False, *drop,
                                                   return_lse=True), iters=3),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                           dropout_p=ATTN_DROP)),
-            bounds["forward"])
+            cuda_ms(sdpa), bounds["forward"])
+        rows[key].update({"device_ms": device_ms(fwd, "alibi_fwd_kernel"),
+                          "library_device_ms": device_ms(sdpa, "")})
+        rows[key]["tflops"] = per_ms(4 * b * h * t * t * 64, rows[key]["device_ms"])
+        print(f"  device time: kernel {ms_text(rows[key]['device_ms'])}"
+              f"{rate_text(rows[key]['tflops'], 'TFLOP/s')}, SDPA "
+              f"{ms_text(rows[key]['library_device_ms'])}")
         plain_bwd = cuda_ms(lambda: attention_bwd_plain(*bwd), iters=3)
     # the library yardsticks of the backward: SDPA forward and backward
     # through autograd with the float bias, at the same shape and dropout,
@@ -1435,7 +1444,7 @@ def phase_kernel_times(dev):
             cuda_ms(lambda: alibi_attention_plain(qkv_s, slopes_s, pos_s, None, False, 0.1,
                                                   DROP_SEED, return_lse=True), iters=3),
             cuda_ms(sdpa_s), attention_bounds(bs, h, ts)["forward"])
-        rows[key].update({"device_ms": device_ms(fwd_s, "alibi_attention_kernel"),
+        rows[key].update({"device_ms": device_ms(fwd_s, "alibi_fwd_kernel"),
                           "library_device_ms": device_ms(sdpa_s, "")})
         print(f"  device time: kernel {ms_text(rows[key]['device_ms'])}, SDPA "
               f"{ms_text(rows[key]['library_device_ms'])}")
@@ -1510,23 +1519,20 @@ def device_ms(fn, kernel):
     return profiled_ms(fn, kernel)
 
 
-def block_gemm_splits(args):
-    """Device time of the fused block's two GEMM launches (fc1 with GELU,
-    fc2) beside F.linear at the same shapes (every kernel of one call), with
-    achieved TFLOP/s; ``args`` are fused_block_mlp's (bf16 x, weights in the
-    JAX layout)."""
+def gemm_splits(call, x, w1l, w2l, b1, b2):
+    """Device time of the two GEMM launches (fc1 with GELU, fc2) of
+    ``call`` (the fused block or the plain fused MLP on bf16 x (N, C) and
+    nn.Linear-layout weights w1l (M, C), w2l (C, M)) beside F.linear at the
+    same shapes (every kernel of one call), with achieved TFLOP/s."""
     import torch.nn.functional as F
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
 
-    x, w1, w2, b1, b2 = args[0], args[3], args[4], args[5], args[6]
-    (n, c), m = x.shape, w1.shape[1]
+    (n, c), m = x.shape, w1l.shape[0]
     hid = torch.randn((n, m), device=x.device).to(torch.bfloat16)
-    w1l, w2l = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear layout
     split = {}
     for name, kernel, lib in (
             ("fc1", "gemm_bf16_sm90_kernel<true", lambda: F.linear(x, w1l, b1.to(x.dtype))),
             ("fc2", "gemm_bf16_sm90_kernel<false", lambda: F.linear(hid, w2l, b2.to(x.dtype)))):
-        ms = device_ms(lambda: fused_block_mlp(*args), kernel)
+        ms = device_ms(call, kernel)
         lib_ms = device_ms(lib, "")
         split.update({f"{name}_device_ms": ms, f"{name}_tflops": per_ms(2 * n * c * m, ms),
                       f"{name}_library_device_ms": lib_ms,
@@ -1536,6 +1542,16 @@ def block_gemm_splits(args):
               f"{rate_text(split[f'{name}_tflops'], 'TFLOP/s')}, F.linear {ms_text(lib_ms)} "
               f"device{rate_text(split[f'{name}_library_tflops'], 'TFLOP/s')}")
     return split
+
+
+def block_gemm_splits(args):
+    """``gemm_splits`` of the fused block; ``args`` are fused_block_mlp's
+    (bf16 x, weights in the JAX layout)."""
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
+
+    x, w1, w2, b1, b2 = args[0], args[3], args[4], args[5], args[6]
+    return gemm_splits(lambda: fused_block_mlp(*args), x, w1.t().contiguous(),
+                       w2.t().contiguous(), b1, b2)
 
 
 def bwd_splits(extra, label, b, h, t, args, prefix):
@@ -1730,6 +1746,8 @@ def image_kernel_times(gen, dev, row, rows):
     w1l, w2l = w1.t().contiguous(), w2.t().contiguous()
     row("fused MLP, b64 ViT-B serving", cuda_ms(lambda: fused_mlp(x, w1l, w2l, b1, b2)),
         cuda_ms(lambda: fused_mlp_plain(x, w1l, w2l, b1, b2), iters=3), None, mlp_bound(n, c, m))
+    rows["fused MLP, b64 ViT-B serving"].update(
+        gemm_splits(lambda: fused_mlp(x, w1l, w2l, b1, b2), x, w1l, w2l, b1, b2))
     w1_q, w1_s = quantize_weight(w1l)
     w2_q, w2_s = quantize_weight(w2l)
     args = (x, w1_q, w1_s, b1, w2_q, w2_s, b2)
@@ -2187,12 +2205,12 @@ def main() -> int:
     kernels = [
         # the serving kernel: the bf16 and int8 serving runs' launches and the
         # pretraining teacher's ("launches_pretrain" below)
-        dict(entry("alibi_flash_attention_serve", "alibi_attention_serve.cu", f"{pa}:891",
+        dict(entry("alibi_flash_attention_serve", "alibi_attention_fwd.cu", f"{pa}:891",
                    serving["bf16"]["serve_attention"] + serving["int8"]["serve_attention"],
                    serving["bf16"]["serve_attention"], attn_err,
                    "attention forward, b32 serving"),
              launches_int8=serving["int8"]["serve_attention"]),
-        dict(entry("alibi_flash_attention", "alibi_attention.cu", f"{pa}:113", training[0], 0,
+        dict(entry("alibi_flash_attention", "alibi_attention_fwd.cu", f"{pa}:113", training[0], 0,
                    fwd_err, f"attention forward + lse + dropout, b{TRAIN_BATCH} training"),
              **{f"student_{k}": v for k, v in times[
                  "attention forward + lse + dropout, b60 T 125 pretrain student"].items()}),

@@ -37,7 +37,7 @@ def _case(name, e=16):
     with head width ``e`` (the kernels are built for 64)."""
     rng = np.random.default_rng(len(name))
     b, h = (3, 2) if name == "dead_row" else (2, 2)
-    t = {"dropout": 128, "dead_row": 128, "short": 40, "keep_set": 125}.get(name, 200)
+    t = {"dropout": 128, "dead_row": 128, "short": 40, "keep_set": 125, "t190": 190}.get(name, 200)
     qkv = rng.normal(size=(b, t, 3 * h * e)).astype(np.float32)
     slopes = (alibi_slopes(h) * 0.8).astype(np.float32)
     pos, mask, sentinel, rate = np.arange(t, dtype=np.int32)[None], None, False, 0.0
@@ -58,7 +58,7 @@ def _case(name, e=16):
         rows = [np.sort(rng.choice(2 * t, t - 3, replace=False)) for _ in range(b)]
         pos = np.stack([np.concatenate([[-1, -1, -1], r]) for r in rows]).astype(np.int32)
         sentinel, rate = True, 0.2
-    elif name == "short":  # T under one 64-row tile
+    elif name in ("short", "no_lse", "t190"):  # T under one 64-row tile; T 200; T 190
         rate = 0.2
     elif name == "keep_set":  # the audio student's kept tokens at their own positions
         pos = np.stack([np.sort(rng.choice(2000, t, replace=False))
@@ -156,14 +156,19 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "name", ["dropout", "dead_row", "sentinel", "short", "unaligned", "keep_set"])
+    "name", ["dropout", "dead_row", "sentinel", "short", "unaligned", "keep_set", "no_lse",
+             "t190"])
 def test_kernels_match_plain_on_card(cuda, name):
     """Forward (out, lse), dq with the slope partials and dk/dv against their
     plain versions on the same bf16 inputs, and the autograd Function's
     gradients against autograd of the plain version, at the edges of the
     kernels' 64-row tiles and their ring of staged tiles: T 128 (two whole
     tiles), T 40 (under one tile), T 200 (four tiles, the last partial:
-    the ring wraps and drains) and T 125 with per-row positions. Tolerances: a bf16
+    the ring wraps and drains), T 125 with per-row positions and T 190
+    (the forward's last block of 128 query rows holds 62 rows, so its
+    second warpgroup holds only rows past T). ``no_lse`` also makes the
+    dropout launches without an lse, through the packed entry and the
+    training entry without a gradient, held as the forward. Tolerances: a bf16
     forward output, a few bf16 ulps (2e-2 + 2e-2 |plain|). The backward
     reference rounds P * f, dS and its outputs to bf16 where the kernels
     do, leaving fp32 summation order: 5e-3 + 1e-2 |plain| (one bf16 ulp is
@@ -186,6 +191,15 @@ def test_kernels_match_plain_on_card(cuda, name):
                                          return_lse=True)
     assert ((out.float() - out_p).abs() <= 2e-2 + 2e-2 * out_p.abs()).all()
     assert ((lse - lse_p).abs() <= 1e-3).all()
+    if name == "no_lse":
+        x = torch.from_numpy(qkv).to(cuda, torch.bfloat16)
+        with torch.no_grad():
+            got = [alibi_flash_attention_packed(packed, sl, p, m, sentinel, rate, seed),
+                   alibi_flash_attention_btc(x, h, sl, p, m, sentinel, rate, seed)
+                   .reshape(b, t, h, -1).transpose(1, 2)]
+        assert alibi_flash_attention_packed.launches == before + 3
+        for o in got:
+            assert ((o.float() - out_p).abs() <= 2e-2 + 2e-2 * out_p.abs()).all()
     dout = torch.from_numpy(g).reshape(b, t, h, -1).permute(0, 2, 1, 3).contiguous()
     dout = dout.to(cuda, torch.bfloat16)
     delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)

@@ -100,17 +100,19 @@ def test_bias_attention_kernel_with_lse_at_student_length_on_card(cuda, bias):
 @pytest.mark.gpu
 def test_fused_mlp_kernels_match_plain_on_card(cuda):
     """#8 and #9 at C 768, M 3072 (three hidden chunks): tolerance 3e-2 +
-    2e-2 |plain| in bf16 storage, as the fused block."""
+    2e-2 |plain| in bf16 storage, as the fused block; one launch a call."""
     x, w1, w2, b1, b2 = _mlp_inputs(1000, 768, 3072, seed=47)
     xc = torch.from_numpy(x).to(cuda, torch.bfloat16)
     w1c, w2c = (torch.from_numpy(w).to(cuda, torch.bfloat16) for w in (w1, w2))
     b1c, b2c = torch.from_numpy(b1).to(cuda), torch.from_numpy(b2).to(cuda)
     w1_q, w1_s = quantize_weight(w1c)
     w2_q, w2_s = quantize_weight(w2c)
+    before = fused_mlp.launches
     for got, want in ((fused_mlp(xc, w1c, w2c, b1c, b2c), fused_mlp_plain(xc, w1c, w2c, b1c, b2c)),
                       (fused_mlp_int8(xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c),
                        fused_mlp_int8_plain(xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c))):
         torch.cuda.synchronize()
+        assert fused_mlp.launches == before + 1
         assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
 
 
