@@ -78,10 +78,18 @@
 // reduced inside each block (quad shuffles for the row sums, then warp
 // shuffles and shared memory) to one fp32 partial per (b, h, query tile),
 // and torch sums the partials.
-// The scalar pass takes ex2 (the dk/dv kernel with log2(e) folded into its
-// constants; the dq kernel rounds the logit as the forward does, see
-// there); dropout and sentinels are template flags, so a run without them
-// pays neither.
+// The scalar pass rebuilds P as the reference (pallas_attention.py:362 and
+// :421) and the plain version do: expf(logit - lse) in natural units, the
+// logit rounded as the forward (#2's training instances) rounds it,
+// fmaf(q.k, scale, -(slope * dist)), then the lse taken off in one fp32
+// subtraction. An ex2 of a log2-scaled argument (log2(e) folded into the
+// scale, the slope and -lse) rounds a few P f near 1 to bf16 the other way
+// than the plain version's exp does; times a |dO| of ~2 plus the output's
+// own rounding that is two output ulps, where chip_smoke.py's dk/dv check
+// allows one, so one-ulp moves of the lse failed that check at both of its
+// shapes (tools/bwd_check_margin.py; PERF.md). expf costs a range
+// reduction beside ex2.approx, a few instructions a score. Dropout and
+// sentinels are template flags, so a run without them pays neither.
 #include <cmath>
 
 #include "sm90.cuh"
@@ -97,7 +105,6 @@ constexpr int kTile = 64;      // rows per block and per loop step
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // ring depth of the streamed pair (see the note above)
 constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTileBytes = kTileElems * 2;
 
 // dynamic shared memory: the block's two tiles, the ring of pairs, the
@@ -236,9 +243,9 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
 
     const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * kDescTile;
     wgmma_fence();
-    gemm_tile_nt(sc, desc_q, desc_k);                          // S = Q K^T
+    gemm_tile_ss<0, 0>(sc, desc_q, desc_k);                          // S = Q K^T
     wgmma_commit();
-    gemm_tile_nt(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
+    gemm_tile_ss<0, 0>(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -257,7 +264,7 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
           float dist = fabsf(pq[r] - kd.x);
           if (kSentinel) dist *= kd.y;
           const float logit = fmaf(sc[i], a.sm_scale, -__fmul_rn(sl[r], dist));
-          const float p = ex2((logit + (nl[r] + kd.z)) * kLog2e);
+          const float p = expf(logit + (nl[r] + kd.z));
           float dpv = dp[i];
           if (kDrop) {
             const uint32_t z = zrow[r] + zt + static_cast<uint32_t>(8 * j + e) * kHashCol;
@@ -330,8 +337,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sV = sK + kTileElems;
   bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
-  // per query of each stage: {position, sentinel factor, -lse log2(e) (-inf
-  // past T), delta}, and the weight 1/T of a padded key in a row whose keys
+  // per query of each stage: {position, sentinel factor, -lse (-inf past
+  // T), delta}, and the weight 1/T of a padded key in a row whose keys
   // are all padded (0 elsewhere)
   float4* const sQry = reinterpret_cast<float4*>(sRing + kStages * 2 * kTileElems);
   float* const sDead = reinterpret_cast<float*>(sQry + kStages * kTile);
@@ -370,8 +377,7 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   // ... and write its side data into the tile's ring slot
   auto store_query = [&](int qt, int p, float l, float dl) {
     const int slot = (qt % kStages) * kTile + tid;
-    sQry[slot] = make_float4(static_cast<float>(p), (kSentinel && p < 0) ? 0.f : 1.f,
-                             -l * kLog2e, dl);
+    sQry[slot] = make_float4(static_cast<float>(p), (kSentinel && p < 0) ? 0.f : 1.f, -l, dl);
     sDead[slot] = l < kDeadLse ? inv_t : 0.f;
   };
 
@@ -392,10 +398,10 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     }
   }
 
-  // this thread's keys k0 + 16 warp + g + 8r (rows of S^T)
+  // this thread's keys k0 + 16 warp + g + 8r (rows of S^T); the slope is
+  // 0 at a sentinel key, as the dq kernel's is at a sentinel query
   const float slope = slopes[h];
-  const float cs = a.sm_scale * kLog2e;
-  float pk[2], sl2[2];
+  float pk[2], sl[2];
   bool kpad[2];  // a padded key: P = 1/T in rows of padded keys, dS = 0
   uint32_t zkey[2];
 #pragma unroll
@@ -404,7 +410,7 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     const bool in = key < T;
     const int p = in ? posr[key] : 0;
     pk[r] = static_cast<float>(p);
-    sl2[r] = (kSentinel && p < 0) ? 0.f : slope * kLog2e;
+    sl[r] = (kSentinel && p < 0) ? 0.f : slope;
     kpad[r] = in && maskr && maskr[key];
     zkey[r] = static_cast<uint32_t>(key) * kHashCol;
   }
@@ -428,9 +434,9 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
 
     const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * kDescTile;
     wgmma_fence();
-    gemm_tile_nt(st, desc_k, desc_q);                          // S^T = K Q^T
+    gemm_tile_ss<0, 0>(st, desc_k, desc_q);                          // S^T = K Q^T
     wgmma_commit();
-    gemm_tile_nt(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
+    gemm_tile_ss<0, 0>(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -451,7 +457,9 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
           const int i = 4 * j + 2 * r + e;
           float dist = fabsf(qd.x - pk[r]);
           if (kSentinel) dist *= qd.y;
-          float p = ex2(fmaf(st[i], cs, fmaf(-sl2[r], dist, qd.z)));
+          // the logit rounded as the dq kernel rounds it, then - lse
+          const float logit = fmaf(st[i], a.sm_scale, -__fmul_rn(sl[r], dist));
+          float p = expf(logit + qd.z);
           float f = 1.f;
           if (kDrop) {
             const uint32_t z = zt + static_cast<uint32_t>(8 * j + e) * kHashRow + zkey[r];

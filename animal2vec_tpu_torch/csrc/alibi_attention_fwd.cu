@@ -216,7 +216,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int slot = kt % kStages;
     wgmma_fence();
-    gemm_tile_nt(sc, desc_q, desc_k + slot * kDescTile);  // S = Q K^T
+    gemm_tile_ss<0, 0>(sc, desc_q, desc_k + slot * kDescTile);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);

@@ -44,7 +44,8 @@
 //     cp.async in 16-byte chunks when the rows are 16-byte aligned (T % 4
 //     == 0: the image grid's 196 and 1024), else 4 bytes at a time (the
 //     student's 59), into an XOR swizzle of 16-byte chunks by row, (chunk
-//     ^ 2 (row % 4)), that makes each thread's float2 reads conflict-free.
+//     ^ 2 (row % 4)), that makes each thread's float2 reads conflict-free
+//     (sm90.cuh's f32_tile_at).
 //     A batch-uniform (1, H, T, T) bias is read with batch stride 0 and
 //     stays in L2; a per-row (B, H, T, T) bias (pretraining's student)
 //     goes the same way.
@@ -99,17 +100,6 @@ struct BiasArgs {
   int bias16;  // the bias rows are 16-byte aligned: staged in 16-byte chunks
 };
 
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-// fp32 element (row r, column c) of a swizzled 64 x 64 bias tile
-__device__ __forceinline__ int bias_at(int r, int c) {
-  return r * kTile + ((((c >> 2) ^ ((r & 3) << 1))) << 2) + (c & 3);
-}
-
 template <bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads, 3)
 bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -153,7 +143,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int c = tid + i * kThreads, r = c >> 4, ch = c & 15;
           const int row = q0 + r, col = k0 + 4 * ch;
           const bool in = row < T && col < T;
-          cp_async_16(dst + bias_at(r, 4 * ch),
+          cp_async_16(dst + f32_tile_at(r, 4 * ch),
                       plane + (in ? static_cast<size_t>(row) * T + col : 0), in);
         }
       } else {
@@ -162,7 +152,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int c = tid + i * kThreads, r = c >> 6, cc = c & 63;
           const int row = q0 + r, col = k0 + cc;
           const bool in = row < T && col < T;
-          cp_async_4(dst + bias_at(r, cc), plane + (in ? static_cast<size_t>(row) * T + col : 0),
+          cp_async_4(dst + f32_tile_at(r, cc), plane + (in ? static_cast<size_t>(row) * T + col : 0),
                      in);
         }
       }
@@ -208,7 +198,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint64_t dk = desc_k + slot * kDescTile;
     wgmma_fence();
     if (n_groups > 4) {
-      gemm_tile_nt(sc, desc_q, dk);  // S = Q K^T, all 64 keys
+      gemm_tile_ss<0, 0>(sc, desc_q, dk);  // S = Q K^T, all 64 keys
     } else {
       // a narrow last tile: S in 8-key column groups (rows 8j.. of the K tile
       // start 1024 bytes apart)
@@ -243,7 +233,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           const int row = warp * 16 + g + 8 * r, col = 8 * j + 2 * i4;
           float2 bv = make_float2(0.f, 0.f);
-          if constexpr (HAS_BIAS) bv = *reinterpret_cast<const float2*>(bt + bias_at(row, col));
+          if constexpr (HAS_BIAS) bv = *reinterpret_cast<const float2*>(bt + f32_tile_at(row, col));
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * r + e;

@@ -1,12 +1,14 @@
 // Backward of the dense-bias flash attention (bias_attention.cu), bf16 in
-// and out, D = 64: two kernels.
+// and out, D = 64: three kernels.
 //
 // Replaces the backward of jax's stock TPU flash-attention kernel
 // (jax.experimental.pallas.ops.tpu.flash_attention, reached through
 // animal2vec_tpu/models/attention.py:flash_attention_tpu):
 //   _flash_attention_bwd_dq  -> bias_attention_dq_kernel: dq and dS, the
 //                               gradient of the bias (the stock kernel's ds);
-//   _flash_attention_bwd_dkv -> bias_attention_dkv_kernel: dk and dv.
+//   _flash_attention_bwd_dkv -> bias_attention_dkv_kernel: dk and dv;
+//   both, when one 64-row tile covers T -> bias_attention_bwd_single_kernel:
+//                               dq, dS, dk and dv in one launch.
 // It differentiates what bias_attention.cu computes, xla_attention's
 // function (the stock kernel differentiates softmax((q.k + bias) / sqrt(D))
 // instead): with s = q.k / sqrt(D) + bias, P = exp(s - lse) (lse from the
@@ -16,42 +18,77 @@
 //   dq    = dS . K / sqrt(D)
 //   dk    = dS^T . Q / sqrt(D)
 //   dv    = P^T . dO
-// A padded key's score is replaced by -1e10, a constant: its dS, and so its
-// bias gradient, is 0. A query row whose keys are all padded (lse about
-// -1e10) weighs every key 1/T in the forward: it passes 1/T to dv and no
-// gradient to q, k or the bias. Keys and queries past T are dropped by
-// bounds; the bias gradient is written for the T x T scores only.
+// P is expf(s - lse), s rounded as the forward rounds it (q.k / sqrt(D),
+// then + bias), as the plain version computes it. A padded key's score is
+// replaced by -1e10, a constant: its dS, and so its bias gradient, is 0. A
+// query row whose keys are all padded (lse about -1e10) weighs every key
+// 1/T in the forward: it passes 1/T to dv and no gradient to q, k or the
+// bias. Keys and queries past T are dropped by bounds; the bias gradient
+// is written for the T x T scores only.
 //
-// Design: the ALiBi backward (alibi_attention_bwd.cu, the tile helpers of
-// flash_bwd_tiles.cuh) with three changes: the bias is read (fp32, per
-// batch row or batch-uniform with batch stride 0) instead of computed from
-// slopes and positions; the dq kernel writes dS where the ALiBi kernel
-// reduces it into slope partials; q, k and v are read in place from the
-// (B, T, H, D) views of the (B, T, 3, H, D) projection with their batch and
-// time strides, as bias_attention.cu reads them, and dq, dk, dv are written
-// into one (B, T, 3, H, D) gradient, the projection's. The dq kernel owns 64
-// query rows and loops over key tiles; the dk/dv kernel owns 64 keys and
-// loops over query tiles in the transposed formulation (S^T = K Q^T, dP^T =
-// V dO^T), so that P^T and dS^T come out in the A layout of the next
-// product. Each thread reads the bias of its own scores from device memory
-// (L2-resident at the image shapes) and writes its dS values as fp32.
+// Bound on the H100 at the ViT-B/16 pretraining student's shape (B = 128,
+// H = 12, T = 59; chip_smoke.py's bias_attention_bwd_bounds): 5 products
+// of 2 T^2 D per (b, h), 0.44 GFLOP in all (under a microsecond at the bf16
+// peak), against the bias in and dS out (21 MB each), q, k, v, dO (46 MB)
+// and dq, dk, dv (35 MB): bound by bytes. As two launches (the dq kernel
+// reads the bias and writes dS, q, k, v, dO and dq: ~101 MB, ~30 us; the
+// dk/dv kernel reads the bias again and writes dk and dv: ~92 MB, ~27 us);
+// as the single launch ~124 MB, ~37 us.
 //
-// Bound on the H100 at the ViT-B/16 student's shape (B = 128, H = 12,
-// T = 59; chip_smoke.py's bias_attention_bwd_bounds): the dq kernel does 3
-// products of 2 T^2 D per (b, h) (0.26 GFLOP, under a microsecond at the
-// bf16 peak) and moves the bias in and dS out (2 x 21 MB) beside q, k, v,
-// dO (46 MB), lse and delta (0.7 MB) and dq (12 MB): about 101 MB, bound by
-// bytes at ~30 us at 3.35 TB/s. At T 59 one 64-key tile is mostly padding;
-// the launch and the tile latency dominate. The dk/dv kernel reads the bias
-// again and writes dk and dv: about 92 MB, ~27 us.
-#include "flash_bwd_tiles.cuh"
+// Design (Hopper, sm_90a), from the ALiBi backward (alibi_attention_bwd.cu):
+// one warpgroup (128 threads) per block owns 64 rows, wgmma's M, and every
+// product is a wgmma m64n64k16 with fp32 accumulation (sm90.cuh) on 64 x 64
+// bf16 tiles in the 128-byte swizzle, 1024-byte aligned, in dynamic shared
+// memory:
+//   dq kernel (64 queries, loops over key tiles):
+//     S = Q K^T, dP = dO V^T (SS); dq += dS K (RS: dS from registers, K
+//     MN-major);
+//   dk/dv kernel (64 keys, loops over query tiles, transposed so that P^T
+//   and dS^T come out in the A layout of the next products):
+//     S^T = K Q^T, dP^T = V dO^T (SS); dv += P^T dO, dk += dS^T Q (RS, B
+//     MN-major);
+//   single kernel (T <= 64: one block per (b, h) holds the whole T x T
+//   plane): S = Q K^T, dP = dO V^T (SS) once; the scalar pass writes the
+//   bf16 of dS and of P into two more swizzled tiles, one query a row; then
+//   dq = dS K (SS, dS K-major, K MN-major), dk = dS^T Q and dv = P^T dO (SS
+//   with A MN-major: the staged tiles read transposed).
+// q, k and v are read in place from the (B, T, H, D) views of the (B, T,
+// 3, H, D) projection with their batch and time strides, as
+// bias_attention.cu reads them, and dq, dk, dv are written into one (B, T,
+// 3, H, D) gradient, the projection's. The streamed tiles of the two loop
+// kernels (K, V and the bias tile for dq; Q, dO, the bias tile and each
+// query's lse and delta for dk/dv) come through a 2-stage cp.async ring:
+// the copies of tile t + 1 are in flight while tile t's products and
+// scalar pass run. The bias and dS go through shared memory so that device
+// memory sees row-contiguous runs (consecutive threads on consecutive
+// addresses, 16 bytes a thread when T % 4 == 0, else 4): the bias tile is
+// staged by cp.async, and the scalar pass writes each dS over its score's
+// bias, from where the block stores dS rows to dbias. The dq and single
+// kernels keep the fp32 tiles in sm90.cuh's f32_tile_at layout (float2 in
+// the accumulator layout, conflict-free); the dk/dv kernel reads its bias
+// tile transposed, from rows padded to 68 floats (conflict-free for the
+// transposed accumulator layout).
+#include <cmath>
+
+#include "sm90.cuh"
 
 namespace a2v {
 namespace {
 
-using namespace flash_bwd;
+using bf16 = __nv_bfloat16;
+using namespace sm90;
 
+constexpr int kD = 64;
+constexpr int kTile = 64;      // rows per block and per loop step
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStages = 2;     // ring depth of the streamed tiles
 constexpr float kDeadLse = -5e9f;  // lse below this: every key of the row padded
+constexpr int kTileBytes = kTileElems * 2;
+constexpr int kF32Tile = kTile * kTile;  // floats of an fp32 tile (f32_tile_at layout)
+constexpr int kLdT = kTile + 4;          // floats per row of the dk/dv kernel's bias tile
+constexpr int kF32TileT = kTile * kLdT;
+
+enum : int { kLive = 0, kPadded = 1, kPast = 2 };  // a key's or a query row's state
 
 struct BiasBwdArgs {
   long long stride_b, stride_t;          // q, k, v (elements)
@@ -59,10 +96,106 @@ struct BiasBwdArgs {
   long long bias_stride_b;               // 0 for a batch-uniform bias
   int H, T;
   float sm_scale;
+  int bias16;   // bias rows 16-byte aligned: staged in 16-byte chunks
+  int dbias16;  // dbias rows 16-byte aligned: stored in 16-byte chunks
 };
 
+// dynamic shared memory of each kernel: bf16 tiles, fp32 tiles (with a
+// bias), side data, and slack to align the base to 1024 bytes
+constexpr int dq_smem(bool has_bias) {
+  return kTileBytes * (2 + 2 * kStages) + (has_bias ? kStages * kF32Tile * 4 : 0) +
+         kStages * kTile * 4 + kTileAlign;
+}
+constexpr int dkv_smem(bool has_bias) {
+  return kTileBytes * (2 + 2 * kStages) + (has_bias ? kStages * kF32TileT * 4 : 0) +
+         kStages * kTile * 16 + kTileAlign;
+}
+constexpr int single_smem(bool has_bias) {
+  return kTileBytes * 6 + (has_bias ? kF32Tile * 4 : 0) + kTile * 4 + kTileAlign;
+}
+
+// Rows row0 .. row0 + 63, columns col0 .. col0 + 63 of a T x T fp32 plane
+// into a 64 x 64 tile, element (r, c) at at(r, c); past T zero-filled. 16
+// bytes a copy when the rows are 16-byte aligned (at keeps 4 columns of a
+// 16-byte chunk together), else 4. The caller commits.
+template <typename At>
+__device__ __forceinline__ void stage_f32(float* dst, const float* plane, int row0, int col0,
+                                          int T, bool vec16, int tid, At at) {
+  if (vec16) {
+#pragma unroll
+    for (int i = 0; i < kTile * 16 / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 4, ch = c & 15;
+      const int row = row0 + r, col = col0 + 4 * ch;
+      const bool in = row < T && col < T;
+      cp_async_16(dst + at(r, 4 * ch), plane + (in ? static_cast<size_t>(row) * T + col : 0), in);
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < kTile * kTile / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 6, cc = c & 63;
+      const int row = row0 + r, col = col0 + cc;
+      const bool in = row < T && col < T;
+      cp_async_4(dst + at(r, cc), plane + (in ? static_cast<size_t>(row) * T + col : 0), in);
+    }
+  }
+}
+
+// The layouts of stage_f32: sm90.cuh's f32_tile_at, and rows padded to kLdT
+// floats (the dk/dv kernel's bias tile, read transposed).
+struct Swizzled {
+  __device__ __forceinline__ int operator()(int r, int c) const { return f32_tile_at(r, c); }
+};
+struct Padded {
+  __device__ __forceinline__ int operator()(int r, int c) const { return r * kLdT + c; }
+};
+
+// The T x T part of a 64 x 64 fp32 tile (f32_tile_at layout) into rows row0
+// .., columns col0 .. of a T x T plane: consecutive threads on consecutive
+// addresses, 16 bytes each when vec16.
+__device__ __forceinline__ void store_f32(float* plane, const float* src, int row0, int col0,
+                                          int T, bool vec16, int tid) {
+  if (vec16) {
+#pragma unroll
+    for (int i = 0; i < kTile * 16 / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 4, ch = c & 15;
+      const int row = row0 + r, col = col0 + 4 * ch;
+      if (row < T && col < T)
+        *reinterpret_cast<float4*>(plane + static_cast<size_t>(row) * T + col) =
+            *reinterpret_cast<const float4*>(src + f32_tile_at(r, 4 * ch));
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < kTile * kTile / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 6, cc = c & 63;
+      const int row = row0 + r, col = col0 + cc;
+      if (row < T && col < T) plane[static_cast<size_t>(row) * T + col] = src[f32_tile_at(r, cc)];
+    }
+  }
+}
+
+// The state of key (or query) row `i` of a batch row: past T, padded, live.
+__device__ __forceinline__ int key_state(const uint8_t* maskr, int key, int T) {
+  return key >= T ? kPast : ((maskr && maskr[key]) ? kPadded : kLive);
+}
+
+// Rows row0, row0 + 8 (< T) of this thread's 64 x 64 accumulator, times
+// scale, as bf16 into rows row_stride elements apart.
+__device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, const float (&acc)[32],
+                                           int row0, int T, float scale, int i4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row0 + 8 * r;
+    if (row >= T) continue;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(&dst[row * row_stride + 8 * j + 2 * i4]) =
+          pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
 // One block per (64-query tile, head, batch): dq rows and the rows of dS.
-__global__ void __launch_bounds__(kThreads)
+template <bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, 2)
 bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const bf16* __restrict__ dout,    // (B, T, H, D) contiguous
@@ -73,11 +206,13 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          bf16* __restrict__ dq,            // out_stride_b, out_stride_t
                          float* __restrict__ dbias,        // null or (B, H, T, T)
                          BiasBwdArgs a) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLds];
-  __shared__ __align__(16) bf16 sDO[kTile * kLds];
-  __shared__ __align__(16) bf16 sK[kTile * kLds];
-  __shared__ __align__(16) bf16 sV[kTile * kLds];
-  __shared__ int sFlagK[kTile];  // 0 = live key, 1 = padded, 2 = past T
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* const sDO = sQ + kTileElems;
+  bf16* const sRing = sDO + kTileElems;  // stage s: K at 2s tiles in, V after it
+  // per stage: the bias tile, overwritten by the tile's dS
+  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kTileElems);
+  int* const sKey = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kStages * kF32Tile : 0));
 
   const int T = a.T, H = a.H;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -90,89 +225,131 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + in_head;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
-  const float* bias_p = bias ? bias + b * a.bias_stride_b + h * plane : nullptr;
+  const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
+  float* dbias_p = HAS_BIAS && dbias ? dbias + bh * plane : nullptr;
+  const int n_tiles = (T + kTile - 1) / kTile;
 
-  stage_rows(sQ, q + in_head, a.stride_t, q0, T, tid);
-  stage_rows(sDO, dout + b * T * do_row + h * kD, do_row, q0, T, tid);
+  // key tile kt's K, V (and bias) into its ring slot; the caller commits
+  auto stage = [&](int kt) {
+    const int slot = kt % kStages, k0 = kt * kTile;
+    bf16* dst = sRing + slot * 2 * kTileElems;
+    stage_tile<kThreads>(dst, kb, a.stride_t, k0, T, tid);
+    stage_tile<kThreads>(dst + kTileElems, vb, a.stride_t, k0, T, tid);
+    if constexpr (HAS_BIAS)
+      stage_f32(sBias + slot * kF32Tile, bias_p, q0, k0, T, a.bias16, tid, Swizzled{});
+  };
+
+  // prologue: Q and dO, then the first key tile, one commit group each
+  stage_tile<kThreads>(sQ, q + in_head, a.stride_t, q0, T, tid);
+  stage_tile<kThreads>(sDO, dout + b * T * do_row + h * kD, do_row, q0, T, tid);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  stage(0);
+  cp_async_commit();
+  if (tid < kTile) sKey[tid] = key_state(maskr, tid, T);
 
+  // this thread's rows q0 + 16 warp + g + 8r
   const int r0 = warp * 16 + g;
-  uint32_t qf[kD / 16][4], dof[kD / 16][4];
-  row_fragments(qf, sQ, r0, i4);
-  row_fragments(dof, sDO, r0, i4);
   float lse_r[2], delta_r[2];
-  int rflag[2];  // 0 = live row, 1 = every key padded, 2 = past T
-  const float* brow[2];
-  float* drow[2];
+  int rstate[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + r0 + 8 * r;
     const bool in = row < T;
     lse_r[r] = in ? lse[bh * T + row] : 0.f;
     delta_r[r] = in ? delta[bh * T + row] : 0.f;
-    rflag[r] = !in ? 2 : (lse_r[r] < kDeadLse ? 1 : 0);
-    brow[r] = (bias_p && in) ? bias_p + static_cast<long long>(row) * T : nullptr;
-    drow[r] = (dbias && in) ? dbias + (bh * T + row) * T : nullptr;
+    rstate[r] = !in ? kPast : (lse_r[r] < kDeadLse ? kPadded : kLive);
   }
 
-  float acc_dq[kD / 8][4];
+  float acc_dq[32], sc[32], dp[32];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
-    acc_dq[dn][0] = acc_dq[dn][1] = acc_dq[dn][2] = acc_dq[dn][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc_dq[i] = 0.f;
+  const uint64_t desc_q = desc_sw128(sQ), desc_ring = desc_sw128(sRing);
 
-  const int n_tiles = (T + kTile - 1) / kTile;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows(sK, kb, a.stride_t, k0, T, tid);
-    stage_rows(sV, vb, a.stride_t, k0, T, tid);
-    cp_async_commit();
-    if (tid < kTile) {
-      const int key = k0 + tid;
-      sFlagK[tid] = key >= T ? 2 : ((maskr && maskr[key]) ? 1 : 0);
+    cp_async_wait<0>();  // this thread's copies of tile kt (and Q, dO) have landed
+    fence_proxy_async();
+    __syncthreads();  // tile kt visible to all; every thread is done with tile kt - 1
+    const int nt = kt + 1;
+    int nkey = kLive;
+    if (nt < n_tiles) {
+      stage(nt);  // into the slot tile kt - 1 used
+      if (tid < kTile) nkey = key_state(maskr, nt * kTile + tid, T);
     }
-    cp_async_wait<0>();
-    __syncthreads();
+    cp_async_commit();
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    rows_product(s, qf, sK, g, i4);    // Q K^T
-    rows_product(dp, dof, sV, g, i4);  // dO V^T
+    const int slot = kt % kStages, k0 = kt * kTile;
+    const uint64_t desc_k = desc_ring + slot * 2 * kDescTile;
+    wgmma_fence();
+    gemm_tile_ss<0, 0>(sc, desc_q, desc_k);                          // S = Q K^T
+    gemm_tile_ss<0, 0>(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) at live keys of live rows, 0 elsewhere; written
+    // over the score's bias when dbias is wanted
+    float* const bt = sBias + slot * kF32Tile;
+    const int* key = sKey + slot * kTile;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
+      const int col = 8 * j + 2 * i4;
+      const int2 ks = *reinterpret_cast<const int2*>(key + col);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * i4 + (e & 1), key = k0 + col;
-        const int kflag = sFlagK[col];
-        float ds = 0.f;  // only live keys of live rows reach dS
-        if (kflag == 0 && rflag[r] == 0) {
-          float x = s[j][e] * a.sm_scale;
-          if (brow[r] != nullptr) x += __ldg(brow[r] + key);
-          ds = expf(x - lse_r[r]) * (dp[j][e] - delta_r[r]);
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        float2 bv = make_float2(0.f, 0.f);
+        if constexpr (HAS_BIAS) bv = *reinterpret_cast<const float2*>(bt + f32_tile_at(row, col));
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * r + e;
+          float x = sc[i] * a.sm_scale;
+          if constexpr (HAS_BIAS) x += e ? bv.y : bv.x;
+          const float p = expf(x - lse_r[r]);
+          const bool live = (e ? ks.y : ks.x) == kLive && rstate[r] == kLive;
+          ds[e] = live ? p * (dp[i] - delta_r[r]) : 0.f;
+          sc[i] = ds[e];
         }
-        if (drow[r] != nullptr && kflag != 2) drow[r][key] = ds;
-        s[j][e] = ds;
+        if (dbias_p)
+          *reinterpret_cast<float2*>(bt + f32_tile_at(row, col)) = make_float2(ds[0], ds[1]);
       }
     }
-    acc_times_tile(acc_dq, s, sK, lane);  // dq += dS K
+    uint32_t fds[4][4];
+    frag_from_acc(fds, sc);
+    wgmma_fence();
+    fence_regs(acc_dq);
+    gemm_frag_tile(acc_dq, fds, desc_k);  // dq += dS K
+    wgmma_commit();
+    if (nt < n_tiles && tid < kTile) sKey[(nt % kStages) * kTile + tid] = nkey;
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(fds);
+    if (dbias_p) {
+      __syncthreads();  // every dS of the tile is in shared memory
+      store_f32(dbias_p, bt, q0, k0, T, a.dbias16, tid);
+    }
   }
 
-  store_rows(dq + b * a.out_stride_b + h * kD, a.out_stride_t, acc_dq, q0 + r0, q0 + r0 + 8, T,
-             a.sm_scale, i4);
+  store_rows(dq + b * a.out_stride_b + h * kD, a.out_stride_t, acc_dq, q0 + r0, T, a.sm_scale, i4);
 }
 
 // One block per (64-key tile, head, batch): dk and dv rows.
-__global__ void __launch_bounds__(kThreads)
+template <bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, 2)
 bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const float* __restrict__ bias, const uint8_t* __restrict__ mask,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, BiasBwdArgs a) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLds];   // K first, then Q tiles
-  __shared__ __align__(16) bf16 sDO[kTile * kLds];  // V first, then dO tiles
-  __shared__ float sLse[kTile], sDelta[kTile];
-  __shared__ int sFlagQ[kTile];  // 0 = live row, 1 = every key padded, 2 = past T
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* const sV = sK + kTileElems;
+  bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
+  // per stage: the bias tile, one query a row of kLdT floats
+  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kTileElems);
+  // per query of each stage: {lse, delta, state (as a float), unused}
+  float4* const sQry = reinterpret_cast<float4*>(sBias + (HAS_BIAS ? kStages * kF32TileT : 0));
 
   const int T = a.T, H = a.H;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -185,86 +362,238 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* dob = dout + b * T * do_row + h * kD;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
-  const float* bias_p = bias ? bias + b * a.bias_stride_b + h * plane : nullptr;
+  const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
   const float inv_t = 1.f / T;
-
-  // this warp's 16 keys as A operands
-  stage_rows(sQ, k + in_head, a.stride_t, k0, T, tid);
-  stage_rows(sDO, v + in_head, a.stride_t, k0, T, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t kf[kD / 16][4], vf[kD / 16][4];
-  row_fragments(kf, sQ, r0, i4);
-  row_fragments(vf, sDO, r0, i4);
-  int kflag[2], key[2];  // 0 = live key, 1 = padded, 2 = past T
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    key[r] = k0 + r0 + 8 * r;
-    kflag[r] = key[r] >= T ? 2 : ((maskr && maskr[key[r]]) ? 1 : 0);
-  }
-
-  float acc_dk[kD / 8][4], acc_dv[kD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    acc_dk[dn][0] = acc_dk[dn][1] = acc_dk[dn][2] = acc_dk[dn][3] = 0.f;
-    acc_dv[dn][0] = acc_dv[dn][1] = acc_dv[dn][2] = acc_dv[dn][3] = 0.f;
-  }
-
   const int n_tiles = (T + kTile - 1) / kTile;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows(sQ, qb, a.stride_t, q0, T, tid);
-    stage_rows(sDO, dob, do_row, q0, T, tid);
-    cp_async_commit();
-    if (tid < kTile) {
-      const int row = q0 + tid;
-      const bool in = row < T;
-      const float l = in ? lse[bh * T + row] : 0.f;
-      sLse[tid] = l;
-      sDelta[tid] = in ? delta[bh * T + row] : 0.f;
-      sFlagQ[tid] = !in ? 2 : (l < kDeadLse ? 1 : 0);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
 
-    float st[kTile / 8][4], dpt[kTile / 8][4];
-    rows_product(st, kf, sQ, g, i4);    // S^T = K Q^T
-    rows_product(dpt, vf, sDO, g, i4);  // dP^T = V dO^T
+  // query tile qt's Q, dO (and bias) into its ring slot; the caller commits
+  auto stage = [&](int qt) {
+    const int slot = qt % kStages, q0 = qt * kTile;
+    bf16* dst = sRing + slot * 2 * kTileElems;
+    stage_tile<kThreads>(dst, qb, a.stride_t, q0, T, tid);
+    stage_tile<kThreads>(dst + kTileElems, dob, do_row, q0, T, tid);
+    if constexpr (HAS_BIAS)
+      stage_f32(sBias + slot * kF32TileT, bias_p, q0, k0, T, a.bias16, tid, Padded{});
+  };
+  // threads < 64 read query qt * 64 + tid's side data
+  auto load_query = [&](int qt) {
+    const int row = qt * kTile + tid;
+    if (row >= T) return make_float4(0.f, 0.f, static_cast<float>(kPast), 0.f);
+    const float l = lse[bh * T + row];
+    return make_float4(l, delta[bh * T + row], static_cast<float>(l < kDeadLse ? kPadded : kLive),
+                       0.f);
+  };
+
+  // prologue: K and V, then the first query tile, one commit group each
+  stage_tile<kThreads>(sK, k + in_head, a.stride_t, k0, T, tid);
+  stage_tile<kThreads>(sV, v + in_head, a.stride_t, k0, T, tid);
+  cp_async_commit();
+  stage(0);
+  cp_async_commit();
+  if (tid < kTile) sQry[tid] = load_query(0);
+
+  // this thread's keys k0 + 16 warp + g + 8r (rows of S^T)
+  const int r0 = warp * 16 + g;
+  int kstate[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kstate[r] = key_state(maskr, k0 + r0 + 8 * r, T);
+
+  float acc_dk[32], acc_dv[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  const uint64_t desc_k = desc_sw128(sK), desc_ring = desc_sw128(sRing);
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    cp_async_wait<0>();  // this thread's copies of tile qt (and K, V) have landed
+    fence_proxy_async();
+    __syncthreads();  // tile qt visible to all; every thread is done with tile qt - 1
+    const int nt = qt + 1;
+    float4 nq = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (nt < n_tiles) {
+      stage(nt);  // into the slot tile qt - 1 used
+      if (tid < kTile) nq = load_query(nt);
+    }
+    cp_async_commit();
+
+    const int slot = qt % kStages;
+    const uint64_t desc_q = desc_ring + slot * 2 * kDescTile;
+    wgmma_fence();
+    gemm_tile_ss<0, 0>(st, desc_k, desc_q);                          // S^T = K Q^T
+    gemm_tile_ss<0, 0>(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P at live (key, query) pairs, 1/T where a padded key meets a row whose
+    // keys are all padded, 0 elsewhere; dS = P (dP - delta) at live keys
+    const float* bt = sBias + slot * kF32TileT;
+    const float4* qry = sQry + slot * kTile;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, col = j * 8 + 2 * i4 + (e & 1);
-        const int qflag = sFlagQ[col];
-        float p = 0.f;  // a padded key weighs 0, or 1/T in a row of padded keys
-        if (kflag[r] == 0 && qflag == 0) {
-          float x = st[j][e] * a.sm_scale;
-          if (bias_p) x += __ldg(bias_p + static_cast<long long>(q0 + col) * T + key[r]);
-          p = expf(x - sLse[col]);
-        } else if (kflag[r] == 1 && qflag == 1) {
-          p = inv_t;
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * i4 + e;
+        const float4 qd = qry[col];
+        const int qs = static_cast<int>(qd.z);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float x = st[i] * a.sm_scale;
+          if constexpr (HAS_BIAS) x += bt[Padded{}(col, r0 + 8 * r)];
+          const float e_x = expf(x - qd.x);
+          const bool live = kstate[r] == kLive && qs == kLive;
+          const float p = live ? e_x : ((kstate[r] == kPadded && qs == kPadded) ? inv_t : 0.f);
+          dpt[i] = live ? p * (dpt[i] - qd.y) : 0.f;
+          st[i] = p;
         }
-        const float ds = kflag[r] == 0 ? p * (dpt[j][e] - sDelta[col]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = ds;
       }
     }
-    acc_times_tile(acc_dv, st, sDO, lane);  // dv += P^T dO
-    acc_times_tile(acc_dk, dpt, sQ, lane);  // dk += dS^T Q
+    uint32_t fp[4][4], fds[4][4];
+    frag_from_acc(fp, st);
+    frag_from_acc(fds, dpt);
+    wgmma_fence();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    gemm_frag_tile(acc_dv, fp, desc_q + kDescTile);  // dv += P^T dO
+    gemm_frag_tile(acc_dk, fds, desc_q);             // dk += dS^T Q
+    wgmma_commit();
+    if (nt < n_tiles && tid < kTile) sQry[(nt % kStages) * kTile + tid] = nq;
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    fence_regs(fp);
+    fence_regs(fds);
   }
 
   const long long out_head = b * a.out_stride_b + h * kD;
-  store_rows(dk + out_head, a.out_stride_t, acc_dk, key[0], key[1], T, a.sm_scale, i4);
-  store_rows(dv + out_head, a.out_stride_t, acc_dv, key[0], key[1], T, 1.f, i4);
+  store_rows(dk + out_head, a.out_stride_t, acc_dk, k0 + r0, T, a.sm_scale, i4);
+  store_rows(dv + out_head, a.out_stride_t, acc_dv, k0 + r0, T, 1.f, i4);
 }
+
+// T <= 64: one block per (head, batch) computes S and dP once and writes dq,
+// dS, dk and dv.
+template <bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, 3)
+bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 const float* __restrict__ bias, const uint8_t* __restrict__ mask,
+                                 bf16* __restrict__ dq, bf16* __restrict__ dk,
+                                 bf16* __restrict__ dv, float* __restrict__ dbias, BiasBwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* const sK = sQ + kTileElems;
+  bf16* const sV = sK + kTileElems;
+  bf16* const sDO = sV + kTileElems;
+  bf16* const sDS = sDO + kTileElems;  // bf16 dS, one query a row
+  bf16* const sP = sDS + kTileElems;   // bf16 P (1/T in rows of padded keys), one query a row
+  float* const sBias = reinterpret_cast<float*>(sP + kTileElems);  // the bias, then dS
+  int* const sKey = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kF32Tile : 0));
+
+  const int T = a.T, H = a.H;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, i4 = lane & 3;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const long long in_head = b * a.stride_b + h * kD;
+  const long long do_row = static_cast<long long>(H) * kD;
+  const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
+  const long long plane = static_cast<long long>(T) * T;
+  float* dbias_p = HAS_BIAS && dbias ? dbias + bh * plane : nullptr;
+  const float inv_t = 1.f / T;
+
+  stage_tile<kThreads>(sQ, q + in_head, a.stride_t, 0, T, tid);
+  stage_tile<kThreads>(sK, k + in_head, a.stride_t, 0, T, tid);
+  stage_tile<kThreads>(sV, v + in_head, a.stride_t, 0, T, tid);
+  stage_tile<kThreads>(sDO, dout + b * T * do_row + h * kD, do_row, 0, T, tid);
+  if constexpr (HAS_BIAS)
+    stage_f32(sBias, bias + b * a.bias_stride_b + h * plane, 0, 0, T, a.bias16, tid,
+              Swizzled{});
+  cp_async_commit();
+  if (tid < kTile) sKey[tid] = key_state(maskr, tid, T);
+
+  // this thread's rows 16 warp + g + 8r (their side data loads under the copies)
+  const int r0 = warp * 16 + g;
+  float lse_r[2], delta_r[2];
+  int rstate[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const bool in = row < T;
+    lse_r[r] = in ? lse[bh * T + row] : 0.f;
+    delta_r[r] = in ? delta[bh * T + row] : 0.f;
+    rstate[r] = !in ? kPast : (lse_r[r] < kDeadLse ? kPadded : kLive);
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float sc[32], dp[32];
+  const uint64_t desc_q = desc_sw128(sQ), desc_k = desc_sw128(sK), desc_v = desc_sw128(sV),
+                 desc_do = desc_sw128(sDO), desc_ds = desc_sw128(sDS), desc_p = desc_sw128(sP);
+  wgmma_fence();
+  gemm_tile_ss<0, 0>(sc, desc_q, desc_k);   // S = Q K^T
+  gemm_tile_ss<0, 0>(dp, desc_do, desc_v);  // dP = dO V^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+
+  // dS and P as the two loop kernels form them, into the staged tiles
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int col = 8 * j + 2 * i4;
+    const int2 ks = *reinterpret_cast<const int2*>(sKey + col);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      float2 bv = make_float2(0.f, 0.f);
+      if constexpr (HAS_BIAS) bv = *reinterpret_cast<const float2*>(sBias + f32_tile_at(row, col));
+      float ds[2], pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        const int kst = e ? ks.y : ks.x;
+        float x = sc[i] * a.sm_scale;
+        if constexpr (HAS_BIAS) x += e ? bv.y : bv.x;
+        const float p = expf(x - lse_r[r]);
+        const bool live = kst == kLive && rstate[r] == kLive;
+        ds[e] = live ? p * (dp[i] - delta_r[r]) : 0.f;
+        pv[e] = live ? p : ((kst == kPadded && rstate[r] == kPadded) ? inv_t : 0.f);
+      }
+      if (dbias_p)
+        *reinterpret_cast<float2*>(sBias + f32_tile_at(row, col)) = make_float2(ds[0], ds[1]);
+      *reinterpret_cast<uint32_t*>(sDS + sw128(row, j) + 2 * i4) = pack_bf16(ds[0], ds[1]);
+      *reinterpret_cast<uint32_t*>(sP + sw128(row, j) + 2 * i4) = pack_bf16(pv[0], pv[1]);
+    }
+  }
+  fence_proxy_async();  // the staged tiles, written by st.shared, to wgmma
+  __syncthreads();
+
+  float acc_dq[32], acc_dk[32], acc_dv[32];
+  wgmma_fence();
+  gemm_tile_ss<0, 1>(acc_dq, desc_ds, desc_k);   // dq = dS K
+  gemm_tile_ss<1, 1>(acc_dk, desc_ds, desc_q);   // dk = dS^T Q
+  gemm_tile_ss<1, 1>(acc_dv, desc_p, desc_do);   // dv = P^T dO
+  wgmma_commit();
+  if (dbias_p) store_f32(dbias_p, sBias, 0, 0, T, a.dbias16, tid);
+  wgmma_wait<0>();
+  fence_regs(acc_dq);
+  fence_regs(acc_dk);
+  fence_regs(acc_dv);
+
+  const long long out_head = b * a.out_stride_b + h * kD;
+  store_rows(dq + out_head, a.out_stride_t, acc_dq, r0, T, a.sm_scale, i4);
+  store_rows(dk + out_head, a.out_stride_t, acc_dk, r0, T, a.sm_scale, i4);
+  store_rows(dv + out_head, a.out_stride_t, acc_dv, r0, T, 1.f, i4);
+}
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 int check_args(int B, int H, int T, int D, long long stride_b, long long stride_t,
                long long out_stride_b, long long out_stride_t, const void* q, const void* k,
                const void* v, const void* dout) {
-  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
       stride_t % 8 != 0 || out_stride_b % 8 != 0 || out_stride_t % 8 != 0 || misaligned(q) ||
       misaligned(k) || misaligned(v) || misaligned(dout))
@@ -273,10 +602,32 @@ int check_args(int B, int H, int T, int D, long long stride_b, long long stride_
 }
 
 BiasBwdArgs make_args(long long stride_b, long long stride_t, long long out_stride_b,
-                      long long out_stride_t, int bias_uniform, int H, int T, float sm_scale) {
+                      long long out_stride_t, const void* bias, int bias_uniform,
+                      const void* dbias, int H, int T, float sm_scale) {
   const long long bias_stride_b = bias_uniform ? 0 : static_cast<long long>(H) * T * T;
-  return BiasBwdArgs{stride_b, stride_t, out_stride_b, out_stride_t, bias_stride_b, H, T,
-                     sm_scale};
+  return BiasBwdArgs{stride_b,      stride_t, out_stride_b, out_stride_t,
+                     bias_stride_b, H,        T,            sm_scale,
+                     T % 4 == 0 && !misaligned(bias), T % 4 == 0 && !misaligned(dbias)};
+}
+
+// Launch the kernel's instance with a bias or the one without, each with
+// its dynamic shared memory (the limit above 48 KB raised once per process
+// for both).
+template <typename Kernel, typename... Args>
+int launch(Kernel with_bias, Kernel without_bias, int smem_bias, int smem_none, bool has_bias,
+           dim3 grid, cudaStream_t s, Args... args) {
+  static const cudaError_t attr = [&] {
+    const cudaError_t err =
+        cudaFuncSetAttribute(with_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bias);
+    return err != cudaSuccess ? err
+                              : cudaFuncSetAttribute(without_bias,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     smem_none);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  (has_bias ? with_bias : without_bias)<<<grid, kThreads, has_bias ? smem_bias : smem_none, s>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -288,8 +639,8 @@ BiasBwdArgs make_args(long long stride_b, long long stride_t, long long out_stri
 // null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null or
 // (B, T) uint8. dq, dk, dv are bf16 (B, T, H, D) with element strides
 // (out_stride_b, out_stride_t, D, 1) (the three planes of one (B, T, 3, H, D)
-// gradient); dbias null or fp32 (B, H, T, T) contiguous. Each returns a
-// cudaError_t.
+// gradient); dbias null or fp32 (B, H, T, T) contiguous (written only with
+// a bias). Each returns a cudaError_t.
 extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          long long stride_b, long long stride_t,
                                          const void* dout, const void* lse, const void* delta,
@@ -301,15 +652,16 @@ extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const voi
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
     return err;
-  const BiasBwdArgs a =
-      make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias_uniform, H, T, sm_scale);
-  bias_attention_dq_kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(bias),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq), static_cast<float*>(dbias), a);
-  return static_cast<int>(cudaGetLastError());
+  return launch(bias_attention_dq_kernel<true>, bias_attention_dq_kernel<false>, dq_smem(true),
+                dq_smem(false), bias != nullptr, dim3((T + kTile - 1) / kTile, H, B),
+                static_cast<cudaStream_t>(stream), static_cast<const bf16*>(q),
+                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<const float*>(bias),
+                static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
+                static_cast<float*>(dbias),
+                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
+                          dbias, H, T, sm_scale));
 }
 
 extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -323,13 +675,39 @@ extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const vo
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
     return err;
-  const BiasBwdArgs a =
-      make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias_uniform, H, T, sm_scale);
-  bias_attention_dkv_kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(bias),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
-  return static_cast<int>(cudaGetLastError());
+  return launch(bias_attention_dkv_kernel<true>, bias_attention_dkv_kernel<false>,
+                dkv_smem(true), dkv_smem(false), bias != nullptr,
+                dim3((T + kTile - 1) / kTile, H, B), static_cast<cudaStream_t>(stream),
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<const float*>(bias), static_cast<const uint8_t*>(mask),
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
+                          nullptr, H, T, sm_scale));
+}
+
+// As the two entries above in one launch, for T <= 64.
+extern "C" int a2v_bias_attention_bwd_single(const void* q, const void* k, const void* v,
+                                             long long stride_b, long long stride_t,
+                                             const void* dout, const void* lse, const void* delta,
+                                             const void* bias, int bias_uniform, const void* mask,
+                                             void* dq, void* dk, void* dv, long long out_stride_b,
+                                             long long out_stride_t, void* dbias, int B, int H,
+                                             int T, int D, float sm_scale, void* stream) {
+  using namespace a2v;
+  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
+                           dout))
+    return err;
+  if (T > kTile) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(bias_attention_bwd_single_kernel<true>, bias_attention_bwd_single_kernel<false>,
+                single_smem(true), single_smem(false), bias != nullptr, dim3(H, B),
+                static_cast<cudaStream_t>(stream), static_cast<const bf16*>(q),
+                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<const float*>(bias),
+                static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dbias),
+                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
+                          dbias, H, T, sm_scale));
 }

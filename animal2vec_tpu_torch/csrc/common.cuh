@@ -1,14 +1,17 @@
-// Shared device helpers for the Hopper kernels: cp.async copies, the
-// bf16 m16n8k16 tensor-core MMA (mma.sync, fp32 accumulate), ldmatrix, the
-// dropout hash, and the int8 quantizer and m16n8k32 int8 MMA.
+// Shared device helpers for the Hopper kernels: cp.async copies, bf16
+// packing, ex2, warp reductions, exact-erf GELU, the dropout hash, and the
+// int8 quantizer.
 //
-// Fragment layouts of mma.sync.m16n8k16 (PTX ISA), lane = 4*g + i:
+// Register layouts of mma.sync.m16n8k16 (PTX ISA), lane = 4*g + i, which
+// the wgmma kernels' accumulators and register A operands share per warp
+// (sm90.cuh):
 //   A (16x16, row-major): reg0 = A[g][2i..2i+1],   reg1 = A[g+8][2i..2i+1],
 //                         reg2 = A[g][2i+8..+9],   reg3 = A[g+8][2i+8..+9]
-//   B (16x8, "col"):      reg0 = B[2i..2i+1][g],   reg1 = B[2i+8..+9][g]
 //   C (16x8, fp32):       c0,c1 = C[g][2i..2i+1],  c2,c3 = C[g+8][2i..2i+1]
-// A pair of bf16 values sits in one 32-bit register, the lower column (or
-// row, for B) in the low half.
+// A pair of bf16 values sits in one 32-bit register, the lower column in
+// the low half. The int8 A layout (m16n8k32) holds four int8 a register,
+// the lowest column in the low byte: a0 = A[g][4i..4i+3], a1 = A[g+8][4i..],
+// a2 = A[g][16+4i..], a3 = A[g+8][16+4i..].
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +33,14 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool p
                : "memory");
 }
 
+// 4-byte global -> shared copy (rows not 16-byte aligned); with pred false
+// the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -37,28 +48,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// d += a (16x16 bf16) * b (16x8 bf16), fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four transposed 8x8 bf16 tiles from shared memory: lane l gives the row
-// address of row (l % 8) of tile (l / 8); r[t] receives tile t, transposed,
-// in the B-fragment layout.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem_row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(smem_row)));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -147,25 +136,6 @@ __device__ __forceinline__ int quantize_s8(float v, float s) {
 __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
-}
-
-// d += a (16x32 int8) * b (32x8 int8), int32 accumulate (exact).
-// mma.sync.m16n8k32 fragments, lane = 4*g + i, four int8 per register with
-// the lowest column (row, for B) in the low byte:
-//   A (row-major): a0 = A[g][4i..4i+3],    a1 = A[g+8][4i..4i+3],
-//                  a2 = A[g][16+4i..+3],   a3 = A[g+8][16+4i..+3]
-//   B ("col"):     b0 = B[4i..4i+3][g],    b1 = B[16+4i..+3][g]
-//   C (int32):     c0,c1 = C[g][2i..2i+1], c2,c3 = C[g+8][2i..2i+1]
-__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_s8x4(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 }  // namespace a2v

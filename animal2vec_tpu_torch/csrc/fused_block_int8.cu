@@ -23,7 +23,7 @@
 //      fp32 (N, M), and each row's max |h| over every 128 columns, (N, M /
 //      128) fp32;
 //   3. quantize_chunks       h -> h_q (int8), hs (N, M / chunk): the chunk's
-//      scale from its partial maxima, so h is read once;
+//      scale from its partial maxima, so h is read once (int8_quant.cuh);
 //   4. fc2, gemm_s8_sm90<kEpiSegBf16>: t = bf16(sum over chunks of dequant +
 //      b2), the int32 sum restarting at every chunk;
 //   5. ln_rows<RESID>        x_out = LN2(bf16(r + t)).
@@ -44,47 +44,8 @@
 // owning whole hidden chunks (128 rows x 1024 fp32 columns of h do not fit
 // in shared memory) would avoid.
 #include "int8_gemm_sm90.cuh"
+#include "int8_quant.cuh"
 #include "layernorm.cuh"
-
-namespace a2v {
-namespace {
-
-// The h quantizer: h (rows, len) fp32 cut into chunks of `chunk` columns;
-// chunk j of a row gets the scale s = max(amax * kInv127, 1e-12), where
-// amax is the max of the chunk's chunk / 128 partial maxima (fc1's
-// row_amax, int8_gemm_sm90.cuh), and q = rint(h / s) (ops/int8_mm.
-// quantize_rows of the chunk, bit for bit: the max of the partial maxima
-// is the chunk's max). One warp per (row, chunk) reads the chunk once, 16
-// bytes a lane.
-constexpr int kChunkQuantThreads = 256;
-
-// Needs chunk % 128 == 0, chunk <= 4096 and len % chunk == 0; scale is
-// (rows, len / chunk), amax (rows, len / 128).
-__global__ void __launch_bounds__(kChunkQuantThreads)
-quantize_chunks_kernel(const float* __restrict__ h, const float* __restrict__ amax,
-                       int8_t* __restrict__ q, float* __restrict__ scale, int rows, int len,
-                       int chunk) {
-  const int n_chunks = len / chunk, parts = chunk / kG8Tile;
-  const long long item =
-      static_cast<long long>(blockIdx.x) * (kChunkQuantThreads / 32) + (threadIdx.x >> 5);
-  if (item >= static_cast<long long>(rows) * n_chunks) return;
-  const int lane = threadIdx.x & 31;
-  const long long row = item / n_chunks;
-  const int c = static_cast<int>(item % n_chunks);
-  const float a = lane < parts ? amax[row * (len / kG8Tile) + c * parts + lane] : 0.f;
-  const float s = fmaxf(warp_max(a) * kInv127, 1e-12f);
-  const size_t base = static_cast<size_t>(row) * len + static_cast<size_t>(c) * chunk;
-#pragma unroll 4
-  for (int j = 4 * lane; j < chunk; j += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(h + base + j);
-    *reinterpret_cast<uint32_t*>(q + base + j) = pack_s8x4(
-        quantize_s8(v.x, s), quantize_s8(v.y, s), quantize_s8(v.z, s), quantize_s8(v.w, s));
-  }
-  if (lane == 0) scale[item] = s;
-}
-
-}  // namespace
-}  // namespace a2v
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1_q (M, C) and
 // w2_q (C, M) int8 (nn.Linear layout); w1_s (M), w2_s (C), b1 (M), b2 (C)
@@ -125,9 +86,8 @@ extern "C" int a2v_fused_block_int8(
            static_cast<const float*>(b1), hf, hm, N, C, M, C))) != cudaSuccess)
     return static_cast<int>(err);
   const long long items = static_cast<long long>(N) * (M / chunk);
-  quantize_chunks_kernel<<<static_cast<int>((items + kChunkQuantThreads / 32 - 1) /
-                                            (kChunkQuantThreads / 32)),
-                           kChunkQuantThreads, 0, s>>>(hf, hm, hq, hs, N, M, chunk);
+  quantize_chunks_kernel<<<quantize_blocks(items), kQuantThreads, 0, s>>>(hf, hm, hq, hs, N, M,
+                                                                          chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if ((err = static_cast<cudaError_t>(launch_gemm_s8_sm90<kEpiSegBf16>(
            s, hq, static_cast<const int8_t*>(w2_q), hs, static_cast<const float*>(w2_s),

@@ -5,7 +5,7 @@
 // Replaces the TPU kernel animal2vec_tpu/ops/int8_mm.py:_kernel (the
 // lane-aligned route of models/modules.quantized_matmul). Numerics follow
 // it: x quantized per row over the whole K (scale max(max|x| * fp32(1/127),
-// 1e-12), IEEE division, round half to even; int8_gemm.cuh), int32 products,
+// 1e-12), IEEE division, round half to even; int8_quant.cuh), int32 products,
 // fp32 dequant in the order (acc * xs) * ws, the fp32 bias, one bf16
 // rounding.
 //
@@ -17,7 +17,7 @@
 //
 // Design: two launches on the caller's stream. The first quantizes x, one
 // warp per row, into an int8 (N, K) scratch and its (N,) fp32 scales
-// (int8_gemm.cuh's quantize_segments_kernel, shared with the int8 MLP; the
+// (int8_quant.cuh's quantize_segments_kernel, shared with the int8 MLP; the
 // TPU kernel quantizes its row tile into VMEM once per row block,
 // here the quantized rows go through device memory, N x K bytes, half of
 // x's). The second is the wgmma GEMM of int8_gemm_sm90.cuh with W_q in
@@ -26,8 +26,8 @@
 // swizzled shared-memory tiles that a 3-stage cp.async ring keeps filled
 // (the mma.sync GEMM it replaces was paced by its 32-bit shared-memory
 // fragment loads).
-#include "int8_gemm.cuh"
 #include "int8_gemm_sm90.cuh"
+#include "int8_quant.cuh"
 
 // C entry, bound with ctypes. x (N, K) bf16; w_q (M, K) int8; w_s (M,)
 // fp32; bias null or (M,) fp32; x_q (N, K) int8 and x_s (N,) fp32 scratch;

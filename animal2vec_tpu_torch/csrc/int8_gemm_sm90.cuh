@@ -1,8 +1,7 @@
 // int8 GEMM for Hopper (sm_90a): wgmma on 128-byte swizzled shared-memory
 // tiles behind a cp.async ring, with three epilogues: int8_dense.cu's
-// projection (#10) and the int8 block's fc1 and fc2 (#7,
-// fused_block_int8.cu); the int8 MLP (#9) still runs int8_gemm.cuh's
-// mma.sync GEMM.
+// projection (#10), and fc1 and fc2 of the int8 block (#7,
+// fused_block_int8.cu) and of the int8 MLP (#9, fused_mlp_int8.cu).
 //
 //   kEpiDense:   C = bf16(fp32(A . W^T) * row_scale[row] * col_scale[col] + bias[col])
 //   kEpiGeluF32: C = GELU(fp32(A . W^T) * row_scale[row] * col_scale[col] + bias[col]),
@@ -15,7 +14,7 @@
 // needs for 8-bit operands, so nn.Linear's (out, in) weight needs no
 // transpose. Each product and sum of the dequant is rounded on its own
 // (no FMA contraction), in the order ((fp32(acc) * row scale) * col scale)
-// + bias, as int8_gemm.cuh and the JAX kernels write it. kEpiSegBf16 is the
+// + bias, as the JAX kernels write it. kEpiSegBf16 is the
 // int8 block's fc2: the int32 sum restarts at every seg_len columns of K
 // (the block's hidden chunk, whose h values share one scale per row) and
 // each segment's dequant is added to an fp32 sum that starts at 0, in the
@@ -60,8 +59,8 @@
 // shared-memory rows (544 bytes: conflict-free 8-byte writes from the
 // accumulator layout) in the ring's space and stores them as 16-byte row
 // chunks; the row's max |h| over the tile comes from the same registers (a
-// shuffle over the four threads of a row), so the int8 block's chunk
-// quantizer (fused_block_int8.cu) reads h once.
+// shuffle over the four threads of a row), so the chunk quantizer
+// (int8_quant.cuh) reads h once.
 #pragma once
 
 #include "sm90.cuh"

@@ -2,7 +2,8 @@
 // rows (64 bf16, D = 64; or 128 int8 along K) in the 128-byte swizzled
 // shared-memory layout, staged by cp.async; the wgmma descriptor of such a
 // tile; the wgmma m64n64k16 bf16 products (fp32 accumulate) with both
-// operands in shared memory (SS) or A in registers (RS), the m64n8k16 SS
+// operands in shared memory (SS, each K- or MN-major) or A in registers
+// (RS); an fp32 tile layout for float2 access; the m64n8k16 SS
 // product of one 8-column group, and the SS m64n128k16 product of the bf16
 // GEMM (bf16_gemm_sm90.cuh); the int8 wgmma m64n128k32 and m64n64k32
 // (int32 accumulate; SS, and RS for N = 64); and the fences that order
@@ -53,6 +54,14 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src, long lon
     const bool in = row < T;
     cp_async_16(tile + sw128(r, ch), src + (in ? row : 0) * row_stride + ch * 8, in);
   }
+}
+
+// fp32 element (row r, column c) of a 64 x 64 fp32 tile (a dense bias, or
+// dS) whose 16-byte chunks are XOR-swizzled by row, (c / 4) ^ 2 (r % 4):
+// float2 reads and writes in the accumulator layout (rows g, columns 2i)
+// and a warp's 32 consecutive floats of one row are conflict-free.
+__device__ __forceinline__ int f32_tile_at(int r, int c) {
+  return r * kTileRows + ((((c >> 2) ^ ((r & 3) << 1))) << 2) + (c & 3);
 }
 
 // The first 1024-byte aligned address at or after raw: the base of the
@@ -133,25 +142,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 #define A2V_RW(x) "+f"(x)
 #define A2V_WO(x) "=f"(x)
 
-// d (64 x 64) = or += A (64 x 16, K-major, descriptor) . B (16 x 64,
-// descriptor; kTransB 0: K-major, 1: MN-major). kAccumulate false
-// overwrites d (scale-d 0), and d is then write-only to the compiler.
-template <bool kAccumulate, int kTransB>
+// d (64 x 64) = or += A (64 x 16, descriptor; kTransA 0: K-major, 1:
+// MN-major) . B (16 x 64, descriptor; kTransB as kTransA). kAccumulate
+// false overwrites d (scale-d 0), and d is then write-only to the compiler.
+template <bool kAccumulate, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   if constexpr (kAccumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " A2V_D32_REGS
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        ", %32, %33, p, 1, 1, %36, %35;\n}\n"
         : A2V_D32(A2V_RW)
-        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransB), "n"(kTransA));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " A2V_D32_REGS
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        ", %32, %33, p, 1, 1, %36, %35;\n}\n"
         : A2V_D32(A2V_WO)
-        : "l"(desc_a), "l"(desc_b), "r"(0), "n"(kTransB));
+        : "l"(desc_a), "l"(desc_b), "r"(0), "n"(kTransB), "n"(kTransA));
   }
 }
 
@@ -273,14 +282,19 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a,
 #undef A2V_RW
 #undef A2V_WO
 
-// d = A . B^T for two swizzled 64 x 64 tiles (descriptors) read K-major
-// (rows of A along M, rows of B along N, D = 64 along K): four k16 steps.
-// Issue only; the caller commits and waits.
-__device__ __forceinline__ void gemm_tile_nt(float (&d)[32], uint64_t da, uint64_t db) {
-  wgmma_ss<false, 0>(d, da, db);
+// d = A . B for two swizzled 64 x 64 tiles (descriptors), each read K-major
+// (0: rows along M or N, a row's 64 elements along K; <0, 0> is A . B^T of
+// two row tiles, e.g. S = Q K^T) or MN-major (1: rows along K, a row's 64
+// elements along M or N): four k16 steps. Issue only; the caller commits
+// and waits.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void gemm_tile_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  constexpr uint64_t step_a = kTransA ? kDescStepMN : kDescStepK;
+  constexpr uint64_t step_b = kTransB ? kDescStepMN : kDescStepK;
+  wgmma_ss<false, kTransB, kTransA>(d, da, db);
 #pragma unroll
   for (int kk = 1; kk < kRowElems / 16; ++kk)
-    wgmma_ss<true, 0>(d, da + kk * kDescStepK, db + kk * kDescStepK);
+    wgmma_ss<true, kTransB, kTransA>(d, da + kk * step_a, db + kk * step_b);
 }
 
 // d += A . B with A (64 x 64) in registers as four k16 fragments and B a

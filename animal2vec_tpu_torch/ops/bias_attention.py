@@ -19,22 +19,24 @@ no input requires grad: serving, the EMA teacher) it makes one launch of
 the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, D = 64).
 Otherwise it is a ``torch.autograd.Function``: its forward launches the
 kernel with the (B*H, T) fp32 logsumexp; its backward computes ``delta =
-rowsum(dO * O)`` in fp32 with one torch op and launches the dq + dbias
-kernel (``bias_attention_dq``) and the dk/dv kernel (``bias_attention_dkv``)
-of ``csrc/bias_attention_bwd.cu``, which write dq, dk and dv into one (B,
-T, 3, H, D) gradient. The gradient is ``xla_attention``'s: dbias is dS =
-P * (dP - delta) in fp32, 0 at padded keys; a batch-uniform (1, H, T, T)
-bias gets the sum over the batch (the transpose of the broadcast). On a CPU
-tensor the plain version runs and autograd through it is the backward; any
-other device raises. The kernels read q, k and v in place with their batch
+rowsum(dO * O)`` in fp32 with one torch op and launches, for T <= 64 (the
+ViT-B/16 pretraining student's 59 kept patches), the single kernel that
+computes dq, dbias, dk and dv (``bias_attention_bwd_single``), else the dq +
+dbias kernel (``bias_attention_dq``) and the dk/dv kernel
+(``bias_attention_dkv``), all of ``csrc/bias_attention_bwd.cu``, which write
+dq, dk and dv into one (B, T, 3, H, D) gradient. The gradient is
+``xla_attention``'s: dbias is dS = P * (dP - delta) in fp32, 0 at padded
+keys; a batch-uniform (1, H, T, T) bias gets the sum over the batch (the
+transpose of the broadcast). On a CPU tensor the plain version runs and
+autograd through it is the backward; any other device raises. The kernels read q, k and v in place with their batch
 and time strides (each row's heads packed, the three with the same
 strides), so the model passes the q, k, v views of its (B, T, 3, H, D)
 projection and makes no packed copy (the ALiBi kernels' ``btc_to_packed``
 copy is the largest copy of the a2v-large forward, ``PERF.md`` section 5). A
 batch-uniform bias, (1, H, T, T) or expanded with batch stride 0, is read
 with batch stride 0 and never expanded in memory. ``bias_attention_bwd_plain``
-is the two backward kernels' plain version on their inputs (the forward's
-lse and delta), with their bf16 roundings.
+is the backward kernels' plain version on their inputs (the forward's lse
+and delta), with their bf16 roundings.
 
 jax's stock TPU kernel computes ``softmax((q.k + bias) * D^-0.5)``: it
 weakens the bias by D^-0.5, where ``xla_attention`` (below 1024 tokens and
@@ -55,6 +57,7 @@ from animal2vec_tpu_torch.kernels.build import check, library
 
 NEG_INF = -1e10  # models/attention.py NEG_INF
 DEAD_LSE = -5e9  # an lse below this marks a query row whose keys are all padded
+SINGLE_T = 64  # the longest T the single backward launch takes (one 64-row tile)
 
 
 def bias_attention_plain(
@@ -280,6 +283,46 @@ def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, 
 bias_attention_dkv.launches = 0
 
 
+def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dq=None,
+                              dk=None, dv=None, want_dbias=True):
+    """dq, dk, dv (B, T, H, D) and, with ``want_dbias`` and a bias, dbias =
+    dS (B, H, T, T) fp32 (else None) of the backward in one launch, for T <=
+    ``SINGLE_T``; ``dq``, ``dk``, ``dv`` may be preallocated planes of a (B,
+    T, 3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain`` on
+    CPU."""
+    if q.device.type == "cpu":
+        dq_p, dk_p, dv_p, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias,
+                                                        padding_mask)
+        return dq_p, dk_p, dv_p, (ds if want_dbias and bias is not None else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"bias attention backward runs on cuda or cpu tensors, got {q.device}")
+    if dq is None or dk is None or dv is None:
+        dq, dk, dv = _grad_planes(q)
+    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
+        q, k, v, dout, lse, delta, bias, padding_mask, dq)
+    if t > SINGLE_T:
+        raise ValueError(f"the single backward launch takes T <= {SINGLE_T}, got {t}")
+    if any(x.stride() != dq.stride() or x.shape != dq.shape for x in (dk, dv)):
+        raise ValueError("dq, dk and dv must be planes of one (B, T, 3, H, D) tensor")
+    dbias = None
+    if want_dbias and bias is not None:
+        dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_bias_attention_bwd_single(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1],
+            _ptr(dbias), b, h, t, d, d**-0.5, stream,
+        )
+    check(err, "bias attention single backward kernel")
+    bias_attention_bwd_single.launches += 1
+    return dq, dk, dv, dbias
+
+
+bias_attention_bwd_single.launches = 0
+
+
 class _BiasAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, padding_mask):
@@ -296,8 +339,12 @@ class _BiasAttention(torch.autograd.Function):
         dq, dk, dv = _grad_planes(q)
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         args = (q, k, v, dout, lse, delta, bias, padding_mask)
-        _, dbias = bias_attention_dq(*args, dq=dq, want_dbias=want_dbias)
-        bias_attention_dkv(*args, dk=dk, dv=dv)
+        if t <= SINGLE_T:
+            dbias = bias_attention_bwd_single(*args, dq=dq, dk=dk, dv=dv,
+                                              want_dbias=want_dbias)[3]
+        else:
+            _, dbias = bias_attention_dq(*args, dq=dq, want_dbias=want_dbias)
+            bias_attention_dkv(*args, dk=dk, dv=dv)
         if dbias is not None and bias.shape[0] == 1 and b > 1:
             dbias = dbias.sum(0, keepdim=True)  # the transpose of the broadcast
         return dq, dk, dv, dbias, None

@@ -610,7 +610,9 @@ def fused_mlp_int8(
     b2: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """The int8 MLP of x (..., C); kernel on CUDA (``csrc/fused_mlp_int8.cu``,
-    bf16 x), plain version on CPU."""
+    bf16 x: four launches, the GEMMs on the int8 wgmma core, which needs C %
+    16, M and the hidden chunk in multiples of 128 and C2 % 2, and raises
+    otherwise), plain version on CPU."""
     if x.device.type == "cpu":
         return fused_mlp_int8_plain(x, w1_q, w1_s, b1, w2_q, w2_s, b2)
     if x.device.type != "cuda":
@@ -624,9 +626,10 @@ def fused_mlp_int8(
             raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "
                              f"{tuple(w.shape)}")
     chunk = hidden_chunk(m)
-    if c % 64 or chunk % 64 or c2 % 8:
-        raise ValueError(f"the kernel needs C and the hidden chunk in multiples of 64 and C2 % 8 "
-                         f"== 0, got C={c}, chunk={chunk}, C2={c2}")
+    if c % 16 or m % H_MAX_COLS or chunk % H_MAX_COLS or c2 % 2:
+        raise ValueError(f"the kernel needs C % 16, M and the hidden chunk in multiples of "
+                         f"{H_MAX_COLS} and C2 % 2 == 0, got C={c}, M={m}, chunk={chunk}, "
+                         f"C2={c2}")
     dev = x.device
     if w1_q.device != dev or w2_q.device != dev:
         raise ValueError("weights must be on x's device")
@@ -636,6 +639,7 @@ def fused_mlp_int8(
     x_q = torch.empty((n, c), dtype=torch.int8, device=dev)
     x_s = torch.empty((n,), dtype=torch.float32, device=dev)
     h = torch.empty((n, m), dtype=torch.float32, device=dev)
+    h_max = torch.empty((n, m // H_MAX_COLS), dtype=torch.float32, device=dev)
     h_q = torch.empty((n, m), dtype=torch.int8, device=dev)
     h_s = torch.empty((n, m // chunk), dtype=torch.float32, device=dev)
     out = torch.empty((*x.shape[:-1], c2), dtype=x.dtype, device=dev)
@@ -644,7 +648,8 @@ def fused_mlp_int8(
         err = library().a2v_fused_mlp_int8(
             x.data_ptr(), w1_q.data_ptr(), w1s.data_ptr(), b1v.data_ptr(), w2_q.data_ptr(),
             w2s.data_ptr(), b2v.data_ptr(), x_q.data_ptr(), x_s.data_ptr(), h.data_ptr(),
-            h_q.data_ptr(), h_s.data_ptr(), out.data_ptr(), n, c, m, c2, chunk, stream,
+            h_max.data_ptr(), h_q.data_ptr(), h_s.data_ptr(), out.data_ptr(), n, c, m, c2, chunk,
+            stream,
         )
     check(err, "int8 fused MLP kernel")
     fused_mlp_int8.launches += 1

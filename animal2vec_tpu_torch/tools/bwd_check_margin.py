@@ -13,6 +13,8 @@ the moved copies exceed 1. With ``--other-root``, the same for another
 checkout (for example an archive of the parent commit) in its own process
 first, then the share of the forward's out and lse values that are bit for
 bit the other tree's. Prints the card's name and power limit.
+``chip_smoke.py`` phases 3b and 3e print the same margin over 8 moves
+(``lse_move_ratios``).
 
     python3 -m animal2vec_tpu_torch.tools.bwd_check_margin [--other-root DIR] [--moves 23]
 """
@@ -61,12 +63,33 @@ def ratio(got, want) -> float:
     return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
+def lse_move_ratios(args, moves: int, seed: int = 7):
+    """The worst ratios to BWD_TOL of the dk/dv kernel's dk and dv against
+    ``attention_bwd_plain`` on ``args`` (``attention_dkv``'s, the forward's
+    lse third), first on that lse, then on ``moves`` copies of it with every
+    value moved one ulp up or down at random (seeded): [(dk, dv), ...]."""
+    from animal2vec_tpu_torch.ops.attention import attention_bwd_plain, attention_dkv
+
+    lse = args[2]
+    gen = torch.Generator(device=lse.device).manual_seed(seed)
+    ratios = []
+    for k in range(moves + 1):
+        moved = lse
+        if k:
+            up = torch.rand(lse.shape, generator=gen, device=lse.device) < 0.5
+            moved = torch.nextafter(lse, torch.where(up, float("inf"), float("-inf")))
+        moved_args = args[:2] + (moved,) + args[3:]
+        dk, dv = attention_dkv(*moved_args)
+        want, _ = attention_bwd_plain(*moved_args)
+        ratios.append((ratio(dk, want[1]), ratio(dv, want[2])))
+        del want
+    return ratios
+
+
 def measure(label: str, moves: int, save: str) -> None:
     """The margins of the package importable from sys.path; its forward's
     out and lse saved to ``save``."""
-    from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_packed, attention_bwd_plain, attention_dkv,
-    )
+    from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_packed
 
     dev = torch.device("cuda", 0)
     saved = {}
@@ -76,18 +99,7 @@ def measure(label: str, moves: int, save: str) -> None:
                                                 return_lse=True)
         saved[what] = (out.cpu(), lse.cpu())
         delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
-        gen = torch.Generator(device=dev).manual_seed(7)
-        ratios = []
-        for k in range(moves + 1):
-            moved = lse
-            if k:
-                up = torch.rand(lse.shape, generator=gen, device=dev) < 0.5
-                moved = torch.nextafter(lse, torch.where(up, float("inf"), float("-inf")))
-            args = (qkv, dout, moved, delta, slopes, pos, mask, False, *drop)
-            dk, dv = attention_dkv(*args)
-            want, _ = attention_bwd_plain(*args)
-            ratios.append((ratio(dk, want[1]), ratio(dv, want[2])))
-            del want
+        ratios = lse_move_ratios((qkv, dout, lse, delta, slopes, pos, mask, False, *drop), moves)
         for name, col in (("dk", 0), ("dv", 1)):
             r = [x[col] for x in ratios]
             print(f"{label} {what} {name}: worst ratio {r[0]:.3f} on the forward's lse; over "

@@ -1,20 +1,23 @@
 """Time the ALiBi attention forward (#2 with lse and dropout, and the serving
-launch #1) and the plain fused MLP (#8) of this checkout against another
-checkout's (for example an archive of the parent commit), each tree in its
-own process, in turns (other, this, this, other).
+launch #1), its backward (#3 dq with the slope partials, #4 dk/dv) and the
+plain fused MLP (#8) of this checkout against another checkout's (for
+example an archive of the parent commit), each tree in its own process, in
+turns (other, this, this, other).
 
 For each tree: #2 at the finetune step's b4, H 16, T 2000 (dropout 0.2, row
 1 padding its last 300 keys) and at the a2v-large pretraining student's b60
-T 125 (per-row keep-set positions, dropout 0.1), #1 at b32 T 2000 on the
-(B, T, 3, H, D) projection's thirds, and #8 at the ViT-B/16 widths (N 12
-544, C 768, M 3072); CUDA events over 10 calls after 2, and the device time
-of every kernel of one call (torch.profiler, tools/device_time.py); and a
-digest of each call's outputs (#2's out and lse), equal in two trees whose
-outputs agree bit for bit. The inputs come from seeded generators, so both trees see the
-same ones. With ``--steps``, then each tree's own
-``tools/profile_train_step`` (the b4 finetune step), ``tools/profile_forward
---modality image --layer-norm-first`` (the b64 ViT-B/16 pre-LN forward) and
-``tools/profile_train_step --pretrain audio`` (the a2v-large pretraining
+T 125 (per-row keep-set positions, dropout 0.1), #3 and #4 at the same b4
+shape on #2's lse, #1 at b32 T 2000 on the (B, T, 3, H, D) projection's
+thirds, and #8 at the ViT-B/16 widths (N 12 544, C 768, M 3072); CUDA
+events over 10 calls after 2, and the device time of every kernel of one
+call (torch.profiler, tools/device_time.py); and a digest of each call's
+outputs (#2's out and lse), equal in two trees whose outputs agree bit for
+bit. The inputs come from seeded generators, so both trees see the same
+ones. With ``--steps``, then each tree's own ``tools/profile_train_step``
+(the b4 finetune step), ``tools/profile_forward --modality image
+--layer-norm-first --matmul-impl int8`` (the b64 ViT-B/16 pre-LN int8
+forward), ``tools/profile_train_step --pretrain image`` (the ViT-B/16
+pretraining step) and ``--pretrain audio`` (the a2v-large pretraining
 step), in the same turns. Prints the card's name and power limit.
 
     python3 -m animal2vec_tpu_torch.tools.compare_attention_mlp --other-root DIR [--steps]
@@ -36,9 +39,11 @@ THIS_ROOT = Path(__file__).resolve().parents[2]
 ORDER = ("other", "this", "this", "other")
 STEPS = (
     ("b4 finetune step", ["animal2vec_tpu_torch.tools.profile_train_step"]),
-    ("b64 ViT-B/16 pre-LN forward",
+    ("b64 ViT-B/16 pre-LN int8 forward",
      ["animal2vec_tpu_torch.tools.profile_forward", "--modality", "image",
-      "--layer-norm-first"]),
+      "--layer-norm-first", "--matmul-impl", "int8"]),
+    ("ViT-B/16 pretrain step",
+     ["animal2vec_tpu_torch.tools.profile_train_step", "--pretrain", "image"]),
     ("a2v-large pretrain step",
      ["animal2vec_tpu_torch.tools.profile_train_step", "--pretrain", "audio"]),
 )
@@ -93,7 +98,7 @@ def measure(label: str) -> None:
     """The measurements of the package importable from sys.path."""
     from animal2vec_tpu_torch.kernels.build import library
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_btc, alibi_flash_attention_packed,
+        alibi_flash_attention_btc, alibi_flash_attention_packed, attention_dkv, attention_dq,
     )
     from animal2vec_tpu_torch.ops.fused_mlp import fused_mlp
 
@@ -107,6 +112,14 @@ def measure(label: str) -> None:
         report(label, "#2 b4 T 2000, lse, dropout 0.2, row 1 padded",
                lambda: alibi_flash_attention_packed(qkv, slopes, pos, mask, False, 0.2, -123457,
                                                     return_lse=True))
+        out, lse = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, 0.2, -123457,
+                                                return_lse=True)
+        dout = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(4),
+                           device=dev).to(torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).reshape(-1, 2000)
+        bwd = (qkv, dout, lse, delta, slopes, pos, mask, False, 0.2, -123457)
+        report(label, "#3 dq + slope partials, b4 T 2000, dropout 0.2", lambda: attention_dq(*bwd))
+        report(label, "#4 dk/dv, b4 T 2000, dropout 0.2", lambda: attention_dkv(*bwd))
         qkv, slopes = attention_inputs(1, 60, 125, dev)
         rng = np.random.default_rng(1)
         pos_s = torch.from_numpy(np.stack([np.sort(rng.choice(2000, 125, replace=False))
@@ -134,8 +147,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other-root", help="the other checkout's root")
     parser.add_argument("--steps", action="store_true",
-                        help="also the finetune step, the pre-LN image forward and the "
-                             "a2v-large pretraining step of each tree, in turns")
+                        help="also the finetune step, the pre-LN int8 image forward and the "
+                             "two pretraining steps of each tree, in turns")
     parser.add_argument("--root", help=argparse.SUPPRESS)  # one tree, in this process
     parser.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = parser.parse_args()

@@ -1,15 +1,20 @@
 """Time the dense-bias attention forward (#11, ``csrc/bias_attention.cu``)
-of this checkout against the same entry built from another checkout's
-``csrc/`` (for example an archive of the parent commit), on the same
-inputs, in turns (other, this, this, other, this, other).
+and its backward (#11b, ``csrc/bias_attention_bwd.cu``) of this checkout
+against the same entries built from another checkout's ``csrc/`` (for
+example an archive of the parent commit), on the same inputs, in turns
+(other, this, this, other, this, other).
 
-Two shapes: the ViT-B/16 pretraining student (b128, H 12, T 59, a per-row
-bias, with the lse the backward reads) and image serving (b64, T 196, the
-2-D ALiBi bias). For each launch: device time (torch.profiler, the kernels
-named ``bias_attention_kernel``) and CUDA events around a bare launch
-through ctypes, so that neither includes the Python wrapper's host work.
-Prints the card, each time, and the largest differences between the two
-builds' outputs and lse.
+The forward at two shapes: the ViT-B/16 pretraining student (b128, H 12, T
+59, a per-row bias, with the lse the backward reads) and image serving
+(b64, T 196, the 2-D ALiBi bias). The backward at the student's shape, on
+this checkout's forward: the dq + dbias and dk/dv launches of both builds,
+and this checkout's single launch for T <= 64, in turns (other, this,
+single, single, this, other). For each launch: device time (torch.profiler,
+the kernels named ``bias_attention_kernel``, ``bias_attention_dq_kernel``,
+``bias_attention_dkv_kernel``, ``bias_attention_bwd_single``) and CUDA
+events around a bare launch through ctypes, so that neither includes the
+Python wrapper's host work. Prints the card, each time, and the largest
+differences between the builds' outputs (out, lse; dq, dk, dv, dbias).
 
     python3 -m animal2vec_tpu_torch.tools.compare_bias_attention --other-csrc DIR
 """
@@ -30,23 +35,26 @@ from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
 from animal2vec_tpu_torch.tools.device_time import device_ms
 
 ENTRY = "a2v_bias_attention"
+DQ, DKV, SINGLE = ("a2v_bias_attention_bwd_dq", "a2v_bias_attention_bwd_dkv",
+                   "a2v_bias_attention_bwd_single")
 ORDER = ("other", "this", "this", "other", "this", "other")
+BWD_ORDER = ("other", "this", "single", "single", "this", "other")
 
 
-def load(path: Path):
-    fn = getattr(ctypes.CDLL(str(path)), ENTRY)
-    fn.argtypes = list(SIGNATURES[ENTRY])
+def load(path: Path, entry: str):
+    fn = getattr(ctypes.CDLL(str(path)), entry)
+    fn.argtypes = list(SIGNATURES[entry])
     fn.restype = ctypes.c_int
     return fn
 
 
-def build_other(csrc: Path) -> Path:
-    """bias_attention.cu of ``csrc`` alone, as a shared library in _build/."""
+def build_other(csrc: Path, source: str) -> Path:
+    """``source`` (a .cu of ``csrc``) alone, as a shared library in _build/."""
     out_dir = BUILD_ROOT / "compare"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "bias_attention_other.so"
+    lib = out_dir / f"{Path(source).stem}_other.so"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(lib),
-           str(csrc / "bias_attention.cu")]
+           str(csrc / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
@@ -65,6 +73,32 @@ def launcher(fn, q, k, v, bias, uniform, lse):
                  d ** -0.5, torch.cuda.current_stream().cuda_stream), ENTRY)
 
     return go, out
+
+
+def bwd_launcher(fns, q, k, v, dout, lse, delta, bias):
+    """Bare launches of the backward on (B, T, H, 64) views and a per-row
+    bias: ``fns`` is (dq entry, dk/dv entry) or (single entry,). Returns
+    (go, (dq, dk, dv, dbias))."""
+    b, t, h, d = q.shape
+    grad = torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grad.unbind(2)
+    dbias = torch.empty((b, h, t, t), device=q.device)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), 0, None)
+    tail = (b, h, t, d, d ** -0.5)
+
+    def go():
+        stream = torch.cuda.current_stream().cuda_stream
+        if len(fns) == 1:
+            check(fns[0](*common, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq.stride(0),
+                         dq.stride(1), dbias.data_ptr(), *tail, stream), SINGLE)
+            return
+        check(fns[0](*common, dq.data_ptr(), dq.stride(0), dq.stride(1), dbias.data_ptr(), *tail,
+                     stream), DQ)
+        check(fns[1](*common, dk.data_ptr(), dv.data_ptr(), dq.stride(0), dq.stride(1), *tail,
+                     stream), DKV)
+
+    return go, (dq, dk, dv, dbias)
 
 
 def event_ms(go, iters: int) -> float:
@@ -92,7 +126,13 @@ def main(argv=None):
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
-    libs = {"this": load(build()), "other": load(build_other(args.other_csrc.resolve()))}
+    other_csrc = args.other_csrc.resolve()
+    libs = {"this": load(build(), ENTRY),
+            "other": load(build_other(other_csrc, "bias_attention.cu"), ENTRY)}
+    other_bwd = build_other(other_csrc, "bias_attention_bwd.cu")
+    bwd_fns = {"this": (load(build(), DQ), load(build(), DKV)),
+               "other": (load(other_bwd, DQ), load(other_bwd, DKV)),
+               "single": (load(build(), SINGLE),)}
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     h = 12
@@ -124,6 +164,33 @@ def main(argv=None):
         if with_lse:
             diff += f", lse max abs diff {(l0 - l1).abs().max().item():.3e}"
         print(diff)
+
+    # the backward at the student's shape, on this build's forward
+    label, q, k, v, bias, _, _ = cases[0]
+    b, t = q.shape[:2]
+    lse = torch.empty((b * h, t), device=dev)
+    go, out = launcher(libs["this"], q, k, v, bias, False, lse)
+    go()
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t).contiguous()
+    kernels = {"other": ("bias_attention_dq_kernel", "bias_attention_dkv_kernel"),
+               "this": ("bias_attention_dq_kernel", "bias_attention_dkv_kernel"),
+               "single": ("bias_attention_bwd_single",)}
+    times, grads = {}, {}
+    for name in BWD_ORDER:
+        go, grads[name] = bwd_launcher(bwd_fns[name], q, k, v, dout, lse, delta, bias)
+        times.setdefault(name, []).append(
+            ([device_ms(go, kernel, args.iters) for kernel in kernels[name]],
+             event_ms(go, args.iters)))
+    print(f"backward, {label}")
+    for name, vals in times.items():
+        dev_ms = [[d if d is None else round(d, 5) for d in ds] for ds, _ in vals]
+        print(f"  {name} ({' + '.join(kernels[name])}): device ms {dev_ms}, CUDA-event ms "
+              f"{[round(e, 5) for _, e in vals]}")
+    for a, c in (("other", "this"), ("this", "single")):
+        print(f"  {a} vs {c}: max abs diff " + ", ".join(
+            f"{what} {(x.float() - y.float()).abs().max().item():.3e}"
+            for what, x, y in zip(("dq", "dk", "dv", "dbias"), grads[a], grads[c])))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
-"""Time int8 serving's block (#7, ``fused_block_int8``) and attention (#5,
-``alibi_flash_attention_int8``, its q/k/v quantization included) of this
-checkout against another checkout's (for example an archive of the parent
-commit), each tree in its own process, in turns (other, this, this, other).
+"""Time int8 serving's block (#7, ``fused_block_int8``), plain MLP (#9,
+``fused_mlp_int8``) and attention (#5, ``alibi_flash_attention_int8``, its
+q/k/v quantization included) of this checkout against another checkout's
+(for example an archive of the parent commit), each tree in its own
+process, in turns (other, this, this, other).
 
 For each tree: #7 at a2v-large's b32 block (N 64 000, C 1024, M 4096) and
-at the ViT-B/16 widths (N 12 544, C 768, M 3072), #5 at b32, H 16, T 2000
-on the (B, T, 3, H, D) projection's thirds; CUDA events over 10 calls
-after 2, and the device time of every kernel of one call (torch.profiler).
+at the ViT-B/16 widths (N 12 544, C 768, M 3072), #9 at the ViT-B/16
+widths with a digest of its output's bits (equal in two trees whose
+outputs agree bit for bit), #5 at b32, H 16, T 2000 on the (B, T, 3, H, D)
+projection's thirds; CUDA events over 10 calls after 2, and the device
+time of every kernel of one call (torch.profiler).
 With ``--tail``, each tree also holds #7 against its plain version at N
 64 000 on three seeded inputs and prints the worst ratio of the error to
 the tolerance 3e-2 + 2e-2 |plain| and the count of differing elements, for
@@ -19,6 +22,7 @@ see the same ones. Prints the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import subprocess
 import sys
@@ -82,7 +86,9 @@ def measure(label: str, tail: bool) -> None:
     from animal2vec_tpu_torch.kernels.build import library
     from animal2vec_tpu_torch.ops.alibi import alibi_slopes
     from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_int8, fused_block_int8_plain
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_block_int8, fused_block_int8_plain, fused_mlp_int8,
+    )
 
     library()
     dev = torch.device("cuda", 0)
@@ -93,6 +99,12 @@ def measure(label: str, tail: bool) -> None:
             print(f"{label} int8 block (N {n}, C {c}, M {m}): {cuda_ms(call):.4f} ms events, "
                   f"{device_text(call)} device", flush=True)
             del args
+        n, c, m = BLOCK_SHAPES[1]
+        x, _, _, w1_q, w1_s, b1, w2_q, w2_s, b2 = block_args(3, n, c, m, dev)[:9]
+        call = lambda: fused_mlp_int8(x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+        digest = hashlib.sha256(call().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        print(f"{label} int8 MLP (N {n}, C {c}, M {m}): {cuda_ms(call):.4f} ms events, "
+              f"{device_text(call)} device; output digest {digest[:16]}", flush=True)
         g = torch.Generator(device=dev).manual_seed(1)
         qkv = torch.randn((32, 2000, 3, 16, 64), generator=g, device=dev).to(torch.bfloat16)
         q, k, v = qkv.unbind(2)

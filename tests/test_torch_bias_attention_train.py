@@ -26,8 +26,8 @@ from animal2vec_tpu.models.attention import flash_attention_tpu, xla_attention
 from animal2vec_tpu_torch.models.attention import multihead_attention
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
 from animal2vec_tpu_torch.ops.bias_attention import (
-    bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
-    bias_flash_attention,
+    bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv, bias_attention_dq,
+    bias_attention_forward, bias_flash_attention,
 )
 
 TOL = 1e-5
@@ -93,6 +93,25 @@ def test_backward_plain_matches_jax_grad_of_xla_attention(bias, masked):
     np.testing.assert_allclose(dbias.numpy(), want[3], rtol=0, atol=TOL, err_msg="dbias")
     if masked:  # padded keys get no bias gradient; a fully masked row none at all
         assert not ds[:, :, :, -7:][0].any() and not ds[-1].any()
+
+
+@pytest.mark.parametrize("bias,masked", CASES)
+def test_single_launch_cpu_entry_is_the_plain_version(bias, masked):
+    """The single backward launch's entry (T <= 64) on CPU tensors returns
+    the plain version's dq, dk, dv and, with a bias, its dbias (else None),
+    bit for bit."""
+    q, k, v, dout, dense, mask = _inputs(2, 49, 2, bias, masked, seed=52)
+    t_ = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    qt, kt, vt, dt, bt, mt = map(t_, (q, k, v, dout, dense, mask))
+    out, lse = bias_attention_forward(qt, kt, vt, bt, mt, with_lse=True)
+    b, t, h, _ = q.shape
+    delta = (dt * out).sum(-1).transpose(1, 2).reshape(b * h, t)
+    args = (qt, kt, vt, dt, lse, delta, bt, mt)
+    want = bias_attention_bwd_plain(*args)
+    got = bias_attention_bwd_single(*args)
+    assert all(torch.equal(a, c) for a, c in zip(got[:3], want[:3]))
+    assert (got[3] is None) if dense is None else torch.equal(got[3], want[3])
+    assert bias_attention_bwd_single(*args, want_dbias=False)[3] is None
 
 
 @pytest.mark.parametrize("bias,masked", CASES)

@@ -1,8 +1,9 @@
 """The image modality's hand-written kernels against their plain versions on
 the card (``gpu`` marker; they skip without CUDA): the dense-bias flash
 attention (#11), its backward kernels (#11b: dq with the bias gradient,
-and dk/dv) and their autograd Function, and the plain fused MLP in bf16
-(#8, also its training Function) and int8 (#9). This
+and dk/dv, and the single launch for T <= 64) and their autograd Function,
+and the plain fused MLP in bf16 (#8, also its training Function) and int8
+(#9, also at three hidden chunks and its refusal of a hidden width off 128). This
 file imports no JAX module, so that it runs on a card's machine without
 flax: ``python3 -m pytest tests/test_torch_image_kernels.py -m gpu``.
 """
@@ -13,11 +14,11 @@ import torch
 
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
 from animal2vec_tpu_torch.ops.bias_attention import (
-    bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
-    bias_attention_plain, bias_flash_attention,
+    bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv, bias_attention_dq,
+    bias_attention_forward, bias_attention_plain, bias_flash_attention,
 )
 from animal2vec_tpu_torch.ops.fused_mlp import (
-    fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+    fused_mlp, fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain, hidden_chunk,
 )
 from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
 
@@ -116,19 +117,56 @@ def test_fused_mlp_kernels_match_plain_on_card(cuda):
         assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [3072, 1536, 384])
+def test_int8_mlp_kernel_at_three_chunks_on_card(cuda, m):
+    """#9 on the int8 wgmma core at hidden chunks of 1024 (M 3072), 512 (M
+    1536) and 384 (M 384, one chunk), C 768: tolerance 3e-2 + 2e-2 |plain|
+    in bf16 storage, one launch a call."""
+    x, w1, w2, b1, b2 = _mlp_inputs(1000, 768, m, seed=53)
+    xc = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    w1_q, w1_s = quantize_weight(torch.from_numpy(w1).to(cuda, torch.bfloat16))
+    w2_q, w2_s = quantize_weight(torch.from_numpy(w2).to(cuda, torch.bfloat16))
+    b1c, b2c = torch.from_numpy(b1).to(cuda), torch.from_numpy(b2).to(cuda)
+    args = (xc, w1_q, w1_s, b1c, w2_q, w2_s, b2c)
+    assert hidden_chunk(m) == {3072: 1024, 1536: 512, 384: 384}[m]
+    before = fused_mlp_int8.launches
+    got = fused_mlp_int8(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp_int8.launches == before + 1
+    want = fused_mlp_int8_plain(*args)
+    assert torch.isfinite(got).all()
+    assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
+
+
+@pytest.mark.gpu
+def test_int8_mlp_kernel_refuses_hidden_width_off_128_on_card(cuda):
+    """The int8 wgmma core's fc1 epilogue writes whole 128-column tiles: the
+    wrapper raises on M % 128 != 0 (M 320) and launches nothing."""
+    x, w1, w2, b1, b2 = _mlp_inputs(64, 768, 320, seed=54)
+    w1_q, w1_s = quantize_weight(torch.from_numpy(w1).to(cuda, torch.bfloat16))
+    w2_q, w2_s = quantize_weight(torch.from_numpy(w2).to(cuda, torch.bfloat16))
+    before = fused_mlp_int8.launches
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fused_mlp_int8(torch.from_numpy(x).to(cuda, torch.bfloat16), w1_q, w1_s,
+                       torch.from_numpy(b1).to(cuda), w2_q, w2_s, torch.from_numpy(b2).to(cuda))
+    assert fused_mlp_int8.launches == before
+
+
 def _rel(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,bias", [(32, 59, "per-row"), (8, 196, "uniform"), (8, 196, None),
-                                      (4, 1024, "uniform")])
+                                      (4, 1024, "uniform"), (8, 100, "per-row")])
 def test_bias_attention_backward_kernels_match_plain_on_card(cuda, b, t, bias):
     """#11 with lse, dq + dbias and dk/dv against their plain versions on
-    the same bf16 inputs, lse and delta (a fully masked key row at T 1024):
-    5e-3 + 1e-2 |plain| (lse 1e-3), and the fp32 dbias 1e-5 + 1e-2 |plain|
-    (far below a typical |dS| of about 8 / T); then the autograd Function
-    against autograd of the plain version in fp32, 1e-2 relative norm."""
+    the same bf16 inputs, lse and delta (a key mask with a fully masked row
+    at T 100 and 1024): 5e-3 + 1e-2 |plain| (lse 1e-3), and the fp32 dbias
+    1e-5 + 1e-2 |plain| (far below a typical |dS| of about 8 / T); then the
+    autograd Function (the single launch at T 59) against autograd of the
+    plain version in fp32, 1e-2 relative norm."""
     h = 12
     gen = torch.Generator(device=cuda).manual_seed(48)
     qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
@@ -139,7 +177,7 @@ def test_bias_attention_backward_kernels_match_plain_on_card(cuda, b, t, bias):
     elif bias == "per-row":
         dense = torch.randn((b, h, t, t), generator=gen, device=cuda)
     mask = None
-    if t == 1024:
+    if t in (100, 1024):
         mask = torch.zeros((b, t), dtype=torch.bool, device=cuda)
         mask[1, -50:] = True
         mask[3] = True
@@ -173,6 +211,54 @@ def test_bias_attention_backward_kernels_match_plain_on_card(cuda, b, t, bias):
     assert all(_rel(g, r) <= 1e-2 for g, r in zip(got, ref))
     if dense is not None:
         assert got[1].shape == dense.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,bias,masked", [(59, "per-row", False), (59, "per-row", True),
+                                           (59, None, True), (49, "uniform", False),
+                                           (25, "per-row", True)])
+def test_bias_attention_single_backward_matches_plain_on_card(cuda, t, bias, masked):
+    """#11b's single launch (T <= 64) against the plain version and against
+    the two-launch route on the same inputs: dq, dk, dv 5e-3 + 1e-2 |plain|,
+    dbias 1e-5 + 1e-2 |plain|, with a key mask whose row 3 masks every key;
+    the autograd Function takes it (one launch, none of dq or dk/dv)."""
+    b, h = 16, 12
+    gen = torch.Generator(device=cuda).manual_seed(55)
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    dense = None
+    if bias == "uniform":
+        dense = torch.from_numpy(alibi_bias_2d(t, h)[None]).to(cuda)
+    elif bias == "per-row":
+        dense = torch.randn((b, h, t, t), generator=gen, device=cuda)
+    mask = None
+    if masked:
+        mask = torch.zeros((b, t), dtype=torch.bool, device=cuda)
+        mask[1, -9:] = True
+        mask[3] = True
+    out, lse = bias_attention_forward(q, k, v, dense, mask, with_lse=True)
+    dout = torch.randn((b, t, h, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+    args = (q, k, v, dout, lse, delta, dense, mask)
+    before = bias_attention_bwd_single.launches
+    got = bias_attention_bwd_single(*args)
+    torch.cuda.synchronize()
+    assert bias_attention_bwd_single.launches == before + 1
+    two = bias_attention_dq(*args) + bias_attention_dkv(*args)
+    want = bias_attention_bwd_plain(*args)
+    for i, atol in enumerate((5e-3, 5e-3, 5e-3) + (() if dense is None else (1e-5,))):
+        ref = want[i].float()
+        for g in (got[i], two[(0, 2, 3, 1)[i]]):
+            assert torch.isfinite(g).all()
+            assert ((g.float() - ref).abs() <= atol + 1e-2 * ref.abs()).all()
+    if dense is None:
+        assert got[3] is None
+    counts = (bias_attention_bwd_single.launches, bias_attention_dq.launches,
+              bias_attention_dkv.launches)
+    leaves = [qkv.clone().requires_grad_()]
+    torch.autograd.grad(bias_flash_attention(*leaves[0].unbind(2), dense, mask), leaves, dout)
+    assert (bias_attention_bwd_single.launches, bias_attention_dq.launches,
+            bias_attention_dkv.launches) == (counts[0] + 1,) + counts[1:]
 
 
 @pytest.mark.gpu
