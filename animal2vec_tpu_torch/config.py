@@ -1,7 +1,11 @@
 """Configuration of the a2v-large finetune preset: the model and inference
 fields (``FinetuneConfig``) and the training recipe (``FinetuneTrainConfig``);
-the image serving model (``ImageConfig``); and data2vec-2 pretraining
-(``PretrainConfig``: the a2v-large recipe, and ``PretrainConfig.vit_b16``).
+the image serving model (``ImageConfig``); data2vec-2 pretraining
+(``PretrainConfig``: the a2v-large recipe, and ``PretrainConfig.vit_b16``);
+and a training run (``RunConfig``: the recipe with its data, batching,
+validation, checkpoint and logging groups, ``RunConfig.finetune_100`` and
+``RunConfig.a2v_large_pretrain``), changed by dotted ``key=value``
+overrides (``apply_overrides``).
 
 The JAX package reads a YAML tree (``animal2vec_tpu/config.py``); the port
 needs only the fields that the finetuned forward path and long-file
@@ -21,8 +25,10 @@ other numerics, and the port refuses them.
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 MATMUL_IMPLS = ("bf16", "int8", "int8_attn")  # model.matmul_impl
 
@@ -214,6 +220,9 @@ class OptimizationConfig:
     warmup_init_lr: float = 0.0
     min_lr: float = 0.0
     schedule: str = "cosine"
+    # the run's other stop conditions (train.loop.RunStopper)
+    stop_time_hours: float = 0.0  # 0: no limit
+    stop_min_lr: float = -1.0  # stop once the schedule's lr after the warmup falls below
 
     def __post_init__(self):
         if self.schedule not in ("cosine", "constant"):
@@ -376,3 +385,218 @@ class PretrainConfig:
         )
         fields.update(overrides)
         return cls(**fields)
+
+
+@dataclass(frozen=True)
+class CommonConfig:
+    """``common.*``: the run's seed (weights from ``seed``, the steps' draws
+    from ``seed`` + 23 or + 17, the loader's shuffle from ``seed``), the
+    compute dtype, the log interval in steps and the tensorboard directory
+    ("" for none)."""
+
+    seed: int = 1
+    compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    log_interval: int = 100
+    tensorboard_logdir: str = ""
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype={self.compute_dtype!r}: 'bfloat16' or 'float32'")
+
+
+@dataclass(frozen=True)
+class TaskConfig:
+    """``task.*`` that the loader reads beside the model's sample rate,
+    normalization, labels and conv stack: the manifest directory (its
+    ``<split>.tsv`` files), whether items carry frame labels and how their
+    files are named (``label_ext``), the clip length (``max_sample_size``,
+    else 10 s) and the items kept."""
+
+    data: str = ""
+    with_labels: bool = False
+    label_ext: str = "h5"
+    do_focal_prediction: bool = True
+    min_label_size: int = 0
+    max_sample_size: Optional[int] = None
+    min_sample_size: int = 1
+    verbose_tensorboard_logging: bool = False
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """``dataset.*``: batching (B = max_tokens // clip length unless
+    ``batch_size``; ``bucket_lengths`` for a fixed set of clip lengths), the
+    splits, and when validation runs."""
+
+    max_tokens: int = 408_000
+    batch_size: Optional[int] = None
+    bucket_lengths: Tuple[int, ...] = ()
+    num_workers: int = 8
+    train_subset: str = "pretrain"
+    valid_subset: str = "valid_0"
+    validate_interval_updates: int = 10_000
+    validate_after_updates: int = 0
+    required_batch_size_multiple: int = 1
+    disable_validation: bool = False
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    """``checkpoint.*``: where, how often and how many; the metric that
+    picks ``best``; ``patience`` validations without a better one stop a
+    finetune run (0: never)."""
+
+    save_dir: str = "checkpoints"
+    save_interval_updates: int = 10_000
+    keep_last: int = 10
+    best_checkpoint_metric: str = ""
+    maximize_best_checkpoint_metric: bool = True
+    patience: int = 0
+
+
+@dataclass(frozen=True)
+class SegmentationConfig:
+    """``criterion.*`` of validation's event scoring beside the model's
+    thresholds: whether it runs and how frames fuse into events."""
+
+    segmentation_metrics: bool = False
+    method: str = "avg"  # "avg" | "max" | "canny"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """A training run: a finetune run (``model`` and ``finetune``) or an
+    audio pretraining run (``pretrain``, whose ``model`` is the encoder),
+    with the groups the loop and the loader read. ``finetune_100`` and
+    ``a2v_large_pretrain`` hold what the JAX ``load_config`` resolves those
+    YAML files to (``tests/test_torch_train_loop.py`` compares them)."""
+
+    model: Optional[FinetuneConfig] = None
+    finetune: Optional[FinetuneTrainConfig] = None
+    pretrain: Optional[PretrainConfig] = None
+    common: CommonConfig = CommonConfig()
+    task: TaskConfig = TaskConfig()
+    dataset: DatasetConfig = DatasetConfig()
+    checkpoint: CheckpointConfig = CheckpointConfig()
+    criterion: SegmentationConfig = SegmentationConfig()
+
+    def __post_init__(self):
+        if (self.finetune is None) == (self.pretrain is None):
+            raise ValueError("a run is a finetune run (model and finetune) or a pretrain run "
+                             "(pretrain)")
+        if self.finetune is not None and self.model is None:
+            raise ValueError("a finetune run needs model")
+        if self.pretrain is not None:
+            if self.model is not None:
+                raise ValueError("a pretrain run's encoder is pretrain.model; model must be None")
+            if self.pretrain.modality != "AUDIO":
+                raise NotImplementedError("the training loop reads audio manifests")
+            if self.task.with_labels:
+                raise NotImplementedError("the pretraining linear probe is not ported")
+
+    @property
+    def encoder(self) -> FinetuneConfig:
+        """The audio encoder's configuration (the conv stack, labels, sample
+        rate and normalization that the loader reads)."""
+        return self.model if self.pretrain is None else self.pretrain.model
+
+    @property
+    def optimization(self) -> OptimizationConfig:
+        return (self.finetune or self.pretrain).optimization
+
+    @classmethod
+    def finetune_100(cls) -> "RunConfig":
+        """``animal2vec_tpu/configs/finetune_100.yaml``."""
+        return cls(
+            model=FinetuneConfig(), finetune=FinetuneTrainConfig(),
+            common=CommonConfig(log_interval=361, tensorboard_logdir="tb"),
+            task=TaskConfig(data="/path/to/manifest_files", with_labels=True,
+                            max_sample_size=320_000, min_sample_size=1000, min_label_size=3032,
+                            verbose_tensorboard_logging=True),
+            dataset=DatasetConfig(max_tokens=426_667, num_workers=20, train_subset="train_0",
+                                  validate_interval_updates=5000, validate_after_updates=10_000),
+            checkpoint=CheckpointConfig(save_interval_updates=3612,
+                                        best_checkpoint_metric="metrics/finetune/f1"),
+            criterion=SegmentationConfig(segmentation_metrics=True),
+        )
+
+    @classmethod
+    def a2v_large_pretrain(cls) -> "RunConfig":
+        """``animal2vec_tpu/configs/a2v_large_pretrain.yaml``."""
+        return cls(
+            pretrain=PretrainConfig(),
+            common=CommonConfig(log_interval=384, tensorboard_logdir="tb"),
+            task=TaskConfig(data="/path/to/manifest_files"),
+            dataset=DatasetConfig(num_workers=32, disable_validation=True),
+            checkpoint=CheckpointConfig(save_interval_updates=40_000),
+            criterion=SegmentationConfig(segmentation_metrics=True),
+        )
+
+
+RECIPES = {"finetune_100": RunConfig.finetune_100, "a2v_large_pretrain": RunConfig.a2v_large_pretrain}
+
+
+def _coerce(current, value, key: str):
+    if current is None or value is None:
+        return value
+    if isinstance(current, bool):
+        if isinstance(value, str):
+            return value.strip().lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, tuple):
+        if isinstance(value, (int, float)):
+            value = (value,)
+        return tuple(tuple(v) if isinstance(v, list) else v for v in value)
+    if isinstance(current, str):
+        return str(value)
+    raise ValueError(f"override {key}: cannot set a {type(current).__name__} from {value!r}")
+
+
+class _Group(dict):
+    """The overrides of one nested group."""
+
+
+def _apply(cfg, changes: _Group, prefix: str):
+    names = {f.name for f in dataclasses.fields(cfg)}
+    kw = {}
+    for name, value in changes.items():
+        key = prefix + name
+        if name not in names:
+            raise ValueError(f"unknown config key {key!r}")
+        current = getattr(cfg, name)
+        if isinstance(value, _Group):
+            if not dataclasses.is_dataclass(current):
+                raise ValueError(f"unknown config key {key!r}: not a group")
+            kw[name] = _apply(current, value, key + ".")
+        else:
+            kw[name] = _coerce(current, value, key)
+    return dataclasses.replace(cfg, **kw)
+
+
+def apply_overrides(cfg, overrides: Sequence[str]):
+    """``cfg`` (a frozen dataclass) with dotted ``key=value`` overrides: the
+    value is a Python literal where it parses as one, else a string, coerced
+    to the field's type; each dataclass on the way is rebuilt once with all
+    its changes, so it checks them together. Raises ValueError on a
+    malformed override or an unknown key."""
+    changes = _Group()
+    for ov in overrides:
+        key, sep, text = ov.partition("=")
+        path = key.strip().split(".")
+        if not sep or not all(path):
+            raise ValueError(f"override must look like key=value, got {ov!r}")
+        try:
+            value = ast.literal_eval(text)
+        except (ValueError, SyntaxError):
+            value = text
+        node = changes
+        for part in path[:-1]:
+            node = node.setdefault(part, _Group())
+            if not isinstance(node, _Group):
+                raise ValueError(f"override {ov!r} descends into a value")
+        node[path[-1]] = value
+    return _apply(cfg, changes, "")

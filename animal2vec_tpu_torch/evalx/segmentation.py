@@ -2,8 +2,10 @@
 -> [onset, offset] events.
 
 The port's own copy of the parts of ``animal2vec_tpu/evalx/segmentation.py``
-that ``fuse_predict`` needs (avg/max-pool and Canny-edge fusing), numpy and
-scipy only; the port imports nothing of the JAX package.
+that ``fuse_predict`` needs (avg/max-pool and Canny-edge fusing) and that
+validation scores events with (``segmented_probs_and_targets``: IoU
+matching with split and merge counts), numpy and scipy only; the port
+imports nothing of the JAX package.
 ``tests/test_torch_modules.py`` holds it equal to the original.
 
 Conventions follow the reference: intervals are (start_idx, end_idx) pairs
@@ -303,3 +305,108 @@ def fuse_predict(
         idx_intervals.append(bii)
         likelihoods.append(bli)
     return time_intervals, idx_intervals, likelihoods
+
+
+# ---------------------------------------------------------------------------
+# Segmented metrics (IoU matching + split/merge accounting)
+# ---------------------------------------------------------------------------
+
+
+def _iou(a: Tuple[int, int], b: Tuple[int, int]) -> float:
+    """IoU over half-open spans [s, e) (nn/utils.py:703-709)."""
+    la = a[1] - a[0]
+    lb = b[1] - b[0]
+    overlap = max(0, min(a[1], b[1]) - max(a[0], b[0]))
+    union = la + lb - overlap
+    return overlap / union if union else 1.0
+
+
+def _sanitize(iv: Tuple[int, int]) -> Tuple[int, int]:
+    """Widen zero-length (x, x) events to (x, x+1) (nn/utils.py:786-802)."""
+    return (iv[0], iv[1] + 1) if iv[0] == iv[1] else tuple(iv)
+
+
+def segmented_probs_and_targets(
+    targets: np.ndarray,
+    seg_target_idx: Sequence[Sequence[Sequence[Tuple[int, int]]]],
+    probs: np.ndarray,
+    method_dict: Dict,
+    sample_rate: int,
+    source_size: int,
+    method: str = "avg",
+):
+    """Event-level scoring (nn/utils.py:711-858).
+
+    For every (batch, class): fuse predictions into events, match against
+    ground-truth events by span overlap, and emit
+      seg_probs/seg_target: one row per matched/unmatched event (mean prob
+        over the event span vs 0/1 truth),
+      seg_iou: IoU per overlapping pair,
+      seg_splits / seg_mergers: counts of 1->N and N->1 matchings above the
+        IoU threshold.
+    Returns five (B*, C) arrays flattened the reference's way (rows = event
+    slots, zero-padded).
+    """
+    targets = np.asarray(targets)
+    probs = np.asarray(probs)
+    b, t, c = targets.shape
+    _, fused_preds, _ = fuse_predict(
+        sample_size=source_size,
+        probs=probs,
+        method_dict=method_dict,
+        sample_rate=sample_rate,
+        method=method,
+    )
+    iou_thr = method_dict["iou_threshold"]
+
+    seg_target = np.zeros((b, t, c), dtype=np.int64)
+    seg_probs = np.zeros((b, t, c), dtype=np.float32)
+    seg_iou = np.zeros((b, round(t / 2), c), dtype=np.float32)
+    seg_splits = np.zeros((b, int(t // 3 * 2), c), dtype=np.int64)
+    seg_mergers = np.zeros((b, int(t // 3 * 2), c), dtype=np.int64)
+
+    for bi in range(b):
+        for ci in range(c):
+            truths = [_sanitize(iv) for iv in seg_target_idx[bi][ci]]
+            preds_iv = [
+                _sanitize((iv[0] - bi * t, iv[1] - bi * t))
+                for iv in fused_preds[bi][ci]
+            ]
+            si = bi_i = soi = smi = -1
+            for gt in truths:
+                overlaps = [p for p in preds_iv if p[0] < gt[1] and gt[0] < p[1]]
+                if overlaps:
+                    valid = 0
+                    for p in overlaps:
+                        bi_i += 1
+                        si += 1
+                        iou = _iou(gt, p)
+                        seg_iou[bi, bi_i, ci] = iou
+                        if iou > iou_thr:
+                            valid += 1  # true positive
+                            seg_target[bi, si, ci] = 1
+                            seg_probs[bi, si, ci] = probs[bi, p[0]: p[1], ci].mean()
+                        else:  # overlap too weak -> false positive slot
+                            seg_target[bi, si, ci] = 0
+                            seg_probs[bi, si, ci] = probs[bi, gt[0]: gt[1], ci].mean()
+                    if valid > 1:
+                        soi += 1
+                        seg_splits[bi, soi, ci] += valid
+                else:  # missed truth -> false negative
+                    si += 1
+                    seg_target[bi, si, ci] = 1
+                    seg_probs[bi, si, ci] = probs[bi, gt[0]: gt[1], ci].mean()
+            for p in preds_iv:
+                overlaps = [g for g in truths if g[0] < p[1] and p[0] < g[1]]
+                if overlaps:
+                    valid = sum(1 for g in overlaps if _iou(p, g) > iou_thr)
+                    if valid > 1:
+                        smi += 1
+                        seg_mergers[bi, smi, ci] += valid
+                else:  # spurious prediction -> false positive
+                    si += 1
+                    seg_target[bi, si, ci] = 0
+                    seg_probs[bi, si, ci] = probs[bi, p[0]: p[1], ci].mean()
+
+    flat = lambda x: x.reshape(-1, x.shape[-1])
+    return flat(seg_probs), flat(seg_target), flat(seg_iou), flat(seg_splits), flat(seg_mergers)

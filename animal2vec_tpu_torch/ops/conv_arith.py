@@ -1,5 +1,6 @@
 """Convolution padding and length arithmetic: a copy of the framework-neutral
-half of ``animal2vec_tpu/ops/conv_arith.py``.
+half of ``animal2vec_tpu/ops/conv_arith.py`` (the conv stack's frame count,
+and the label frame count that ``data.dataset`` and ``ops.frames`` read).
 
 Stride-1 convs pad torch-"same" (left (k-1)//2, right the rest, so k=2 pads
 (0, 1)); strided convs pad ceil(stride/2) zeros on both sides.
@@ -37,4 +38,16 @@ def feature_extractor_out_length(
         if s == 1:
             continue
         length = conv_out_length(length, k, s, strided_pad_1d(s))
+    return length
+
+
+def label_frame_length(length: int, conv_layers: Sequence[Tuple[int, int, int]]) -> int:
+    """Label-target frame count: the arithmetic of
+    ``feature_extractor_out_length`` with kernels clamped at min(10, k), as
+    the reference's label downsampling computes it. For the shipped stacks
+    both agree (only the stride-1 sinc layer has k > 10)."""
+    for _, k, s in conv_layers:
+        if s == 1:
+            continue
+        length = conv_out_length(length, min(10, k), s, strided_pad_1d(s))
     return length

@@ -16,7 +16,23 @@ bit the other tree's. Prints the card's name and power limit.
 ``chip_smoke.py`` phases 3b and 3e print the same margin over 8 moves
 (``lse_move_ratios``).
 
+With ``--elements N``, each moved copy whose dv fails is taken apart per
+element (``explain_dv``): for up to N failing dv elements (b, h, key, d),
+the kernel's and the plain version's dv, and for the query rows that
+dominate the difference, bf16(P·f) as the kernel rounds it (read through
+the kernel itself: dv of a one-hot dO is bf16(P·f) of one query row, exactly)
+and as the plain version rounds it, beside the logit q·k/8 - slope·dist
+recomputed from the same bf16 q and k in fp64, in fp32 by torch's matmul
+(the plain version's), in fp32 summed one product at a time, and in fp32
+per 16-, 8- or 4-wide slice of D (each slice's products summed exactly
+with the running sum, then rounded to fp32: to nearest, or toward zero as
+a tensor core's truncating accumulator would); and over every (query, key)
+pair of the (b, h) that hold a failing element, how many of the kernel's
+bf16(P·f) differ from the plain version's and which of the logits
+reproduces each of them.
+
     python3 -m animal2vec_tpu_torch.tools.bwd_check_margin [--other-root DIR] [--moves 23]
+        [--elements 12]
 """
 
 from __future__ import annotations
@@ -63,11 +79,13 @@ def ratio(got, want) -> float:
     return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def lse_move_ratios(args, moves: int, seed: int = 7):
+def lse_move_ratios(args, moves: int, seed: int = 7, on_dv_fail=None):
     """The worst ratios to BWD_TOL of the dk/dv kernel's dk and dv against
     ``attention_bwd_plain`` on ``args`` (``attention_dkv``'s, the forward's
     lse third), first on that lse, then on ``moves`` copies of it with every
-    value moved one ulp up or down at random (seeded): [(dk, dv), ...]."""
+    value moved one ulp up or down at random (seeded): [(dk, dv), ...].
+    ``on_dv_fail(k, moved_args, dv, plain_dv)`` is called for each copy k
+    whose dv exceeds the tolerance."""
     from animal2vec_tpu_torch.ops.attention import attention_bwd_plain, attention_dkv
 
     lse = args[2]
@@ -82,11 +100,137 @@ def lse_move_ratios(args, moves: int, seed: int = 7):
         dk, dv = attention_dkv(*moved_args)
         want, _ = attention_bwd_plain(*moved_args)
         ratios.append((ratio(dk, want[1]), ratio(dv, want[2])))
+        if on_dv_fail is not None and ratios[-1][1] > 1:
+            on_dv_fail(k, moved_args, dv, want[2])
         del want
     return ratios
 
 
-def measure(label: str, moves: int, save: str) -> None:
+def kernel_pf(args, pairs):
+    """The dk/dv kernel's bf16(P·f) (len(pairs), T queries, T keys) as fp32
+    for the (b, h) in ``pairs``, read through its dv: with dO one-hot at
+    query row r0 + c in column c, dv[b, h, key, c] is that row's bf16(P·f)
+    times 1, summed with zeros."""
+    from animal2vec_tpu_torch.ops.attention import attention_dkv
+
+    qkv, dout = args[:2]
+    b, h, t, d = dout.shape
+    out = torch.empty((len(pairs), t, t), device=dout.device)
+    bi, hi = (torch.tensor(x, device=dout.device) for x in zip(*pairs))
+    for r0 in range(0, t, d):
+        rows = min(d, t - r0)
+        probe = torch.zeros_like(dout)
+        c = torch.arange(rows, device=dout.device)
+        probe[:, :, r0 + c, c] = 1.0
+        _, dv = attention_dkv(qkv, probe, *args[2:])
+        out[:, r0:r0 + rows] = dv[bi, hi, :, :rows].float().transpose(1, 2)
+    return out
+
+
+def _toward_zero(exact: torch.Tensor) -> torch.Tensor:
+    """fp64 values rounded to fp32 toward zero."""
+    r = exact.float()
+    return torch.where(r.double().abs() > exact.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def logit_variants(qkv, slopes, pos, plain_logits, pairs):
+    """{name: (len(pairs), T, T) logits} of the (b, h) in ``pairs`` from
+    the same bf16 q and k: fp64 (float64), and fp32 in these orders: torch's
+    matmul (the plain version's, cut from its batched call), one product at
+    a time, and per slice of D (16, 8 or 4 wide): the running sum plus the
+    slice's products, exact, rounded to nearest or toward zero."""
+    bi, hi = (torch.tensor(x, device=qkv.device) for x in zip(*pairs))
+    q, k = qkv[0, bi, hi].double(), qkv[1, bi, hi].double()  # (n, T, D), exact
+    p = pos[bi if pos.shape[0] > 1 else torch.zeros_like(bi)].float()
+    bias = -(p[:, :, None] - p[:, None, :]).abs() * slopes.float()[hi][:, None, None]
+    s64 = torch.matmul(q, k.transpose(1, 2))
+    q32, k32 = q.float(), k.float()
+    seq = torch.zeros_like(s64, dtype=torch.float32)
+    for c in range(q.shape[-1]):  # each bf16 x bf16 product is exact in fp32
+        seq = seq + q32[:, :, c, None] * k32[:, None, :, c]
+    scale = q.shape[-1] ** -0.5  # a power of 2: the scaling is exact
+    out = {
+        "fp64": s64 * scale + bias.double(),
+        "fp32 torch": plain_logits[bi, hi],
+        "fp32 one by one": seq * scale + bias,
+    }
+    for width in (16, 8, 4):
+        for name, rnd in (("nearest", lambda x: x.float()), ("toward 0", _toward_zero)):
+            acc = torch.zeros_like(seq)
+            for c in range(0, q.shape[-1], width):
+                part = torch.matmul(q[..., c:c + width], k[..., c:c + width].transpose(1, 2))
+                acc = rnd(acc.double() + part)
+            out[f"fp32 per k{width} {name}"] = acc * scale + bias
+    return out
+
+
+def pf_agreement(args, pairs, label: str):
+    """For the (b, h) in ``pairs``: the kernel's bf16(P·f), the plain
+    version's, the one from each logit of ``logit_variants``, and the
+    fp64/fp32 logits; prints how many of the kernel's values differ from the
+    plain version's and which logit reproduces them. Returns (kernel,
+    {logit: bf16(P·f)}, {logit: logits}, lse, f), each (len(pairs), T, T)."""
+    from animal2vec_tpu_torch.ops.attention import _keep_factor, _scores
+
+    qkv, dout, lse, _, slopes, pos, mask, sentinel, rate, seed = args
+    b, h, t, d = dout.shape
+    bi, hi = (torch.tensor(x, device=qkv.device) for x in zip(*pairs))
+    pf_k = kernel_pf(args, pairs)
+    logits, _ = _scores(qkv, slopes, pos, mask, sentinel)
+    lse_p = lse.reshape(b, h, t)[bi, hi][..., None]
+    f = (_keep_factor(b, h, t, rate, seed, qkv.device) if rate > 0.0
+         else torch.ones((b, h, t, t), device=qkv.device))[bi, hi]
+    variants = logit_variants(qkv, slopes, pos, logits, pairs)
+    del logits
+    pf = {name: (torch.exp((lg.float() - lse_p)) * f).to(torch.bfloat16).float()
+          for name, lg in variants.items()}
+    diff = pf_k != pf["fp32 torch"]  # the plain version's bf16(P·f)
+    counts = {name: int((diff & (pf_k == v)).sum()) for name, v in pf.items()}
+    none = int((diff & torch.stack([pf_k != v for v in pf.values()]).all(0)).sum())
+    print(f"    {label}: over {pf_k.numel()} (query, key) pairs, {int(diff.sum())} kernel "
+          f"bf16(P·f) differ from the plain version's; of those, equal to the one from the "
+          f"logit in " + ", ".join(f"{n} {c}" for n, c in counts.items())
+          + f"; equal to none {none}. The kernel's equal to the one from each logit over all "
+          f"pairs: " + ", ".join(f"{n} {int((pf_k == v).sum())}" for n, v in pf.items()),
+          flush=True)
+    return pf_k, pf, variants, lse_p, f
+
+
+def explain_dv(k, args, dv, want, max_elements):
+    """Per-element report of copy k's failing dv elements (``--elements``)."""
+    dout = args[1]
+    atol, rtol = BWD_TOL
+    r = (dv.float() - want.float()).abs() / (atol + rtol * want.float().abs())
+    fails = (r > 1).nonzero().tolist()
+    pairs = sorted({(e[0], e[1]) for e in fails})
+    slot = {pr: n for n, pr in enumerate(pairs)}
+    print(f"  copy {k}: {len(fails)} dv elements over the tolerance in {len(pairs)} (b, h)",
+          flush=True)
+    pf_k, pf, variants, lse_p, f = pf_agreement(args, pairs, "the (b, h) of these elements")
+    pf_p = pf["fp32 torch"]
+    do = dout.float()
+    for e in fails[:max_elements]:
+        bb, hh, j, c = e
+        n = slot[(bb, hh)]
+        contrib = (pf_k[n, :, j] - pf_p[n, :, j]) * do[bb, hh, :, c]
+        rows = contrib.abs().argsort(descending=True)[:3].tolist()
+        print(f"    (b {bb}, h {hh}, key {j}, d {c}): kernel dv {dv[bb, hh, j, c].item():.6g}, "
+              f"plain dv {want[bb, hh, j, c].item():.6g}, ratio {r[bb, hh, j, c].item():.3f}; "
+              f"sum over rows of the bf16(P·f) differences x dO {contrib.sum().item():.6g}",
+              flush=True)
+        for i in rows:
+            if contrib[i] == 0:
+                break
+            lg = ", ".join(f"{name} {variants[name][n, i, j].item():.17g}" for name in variants)
+            pfs = ", ".join(f"{name} {pf[name][n, i, j].item():.9g}" for name in pf)
+            pf32 = torch.exp(variants["fp32 torch"][n, i, j].float() - lse_p[n, i, 0]) * f[n, i, j]
+            print(f"      query {i}: dO {do[bb, hh, i, c].item():.6g}; bf16(P·f) kernel "
+                  f"{pf_k[n, i, j].item():.9g}, from the logit in {pfs}; P·f in fp32 from the "
+                  f"plain logit {pf32.item():.9g}; logit {lg}; lse {lse_p[n, i, 0].item():.9g}",
+                  flush=True)
+
+
+def measure(label: str, moves: int, save: str, elements: int = 0) -> None:
     """The margins of the package importable from sys.path; its forward's
     out and lse saved to ``save``."""
     from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_packed
@@ -99,7 +243,15 @@ def measure(label: str, moves: int, save: str) -> None:
                                                 return_lse=True)
         saved[what] = (out.cpu(), lse.cpu())
         delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
-        ratios = lse_move_ratios((qkv, dout, lse, delta, slopes, pos, mask, False, *drop), moves)
+        report = None
+        if elements and t <= 256:  # every (b, h) on the forward's own lse
+            pf_agreement((qkv, dout, lse, delta, slopes, pos, mask, False, *drop),
+                         [(x, y) for x in range(b) for y in range(h)], f"{what}, every (b, h)")
+        if elements:
+            def report(k, args, dv, want):
+                explain_dv(k, args, dv, want, elements)
+        ratios = lse_move_ratios((qkv, dout, lse, delta, slopes, pos, mask, False, *drop), moves,
+                                 on_dv_fail=report)
         for name, col in (("dk", 0), ("dv", 1)):
             r = [x[col] for x in ratios]
             print(f"{label} {what} {name}: worst ratio {r[0]:.3f} on the forward's lse; over "
@@ -115,6 +267,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other-root", help="another checkout's root, measured first")
     parser.add_argument("--moves", type=int, default=23, help="moved copies of the lse")
+    parser.add_argument("--elements", type=int, default=0,
+                        help="failing dv elements of each failing moved copy to take apart")
     parser.add_argument("--root", help=argparse.SUPPRESS)  # one tree, in this process
     parser.add_argument("--label", default="this", help=argparse.SUPPRESS)
     parser.add_argument("--save", help=argparse.SUPPRESS)
@@ -123,7 +277,7 @@ def main() -> None:
         sys.exit("bwd_check_margin: needs a CUDA card")
     if args.root:
         sys.path.insert(0, args.root)
-        measure(args.label, args.moves, args.save)
+        measure(args.label, args.moves, args.save, args.elements)
         return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -134,7 +288,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for label, root in roots.items():
             subprocess.run([sys.executable, str(Path(__file__).resolve()), "--root", root,
-                            "--label", label, "--moves", str(args.moves), "--save",
+                            "--label", label, "--moves", str(args.moves), "--elements",
+                            str(args.elements), "--save",
                             f"{tmp}/{label}.pt"], check=True, cwd=root)
         if not args.other_root:
             return

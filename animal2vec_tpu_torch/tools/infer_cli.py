@@ -6,11 +6,14 @@ into events with absolute timestamps.
 
 Usage:
   python -m animal2vec_tpu_torch.tools.infer_cli --wav rec.wav \
-      --weights params.npz [--method avg --threshold 0.175 --out events.json] \
-      [field=value ...]
+      (--weights params.npz | --checkpoint <dir>) \
+      [--method avg --threshold 0.175 --out events.json] [field=value ...]
 
 ``params.npz`` holds the JAX FinetuneModel params keyed by their "/"-joined
-paths; ``field=value`` overrides fields of the a2v-large preset
+paths; ``--checkpoint`` reads a finetune checkpoint of this package (a
+manager's directory, a ``step_*`` directory or ``best``, as
+``tools/train_cli.py`` writes them). ``field=value`` overrides fields of the
+a2v-large preset
 (``animal2vec_tpu_torch.config.FinetuneConfig``), e.g. ``matmul_impl=int8``
 or ``matmul_impl=int8_attn`` for the int8 serving numerics.
 """
@@ -18,8 +21,6 @@ or ``matmul_impl=int8_attn`` for the int8 serving numerics.
 from __future__ import annotations
 
 import argparse
-import ast
-import dataclasses
 import json
 from typing import Optional
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from animal2vec_tpu_torch.evalx.segmentation import fuse_predict
-from animal2vec_tpu_torch.config import FinetuneConfig
+from animal2vec_tpu_torch.config import FinetuneConfig, apply_overrides
 from animal2vec_tpu_torch.data.wavio import read_wav
 from animal2vec_tpu_torch.models.finetune import FinetuneModel
 from animal2vec_tpu_torch.ops.audio import chunk_and_normalize
@@ -85,36 +86,36 @@ def infer_long_file(
     return events
 
 
-def load_finetuned(weights: str, cfg: FinetuneConfig, device: torch.device) -> FinetuneModel:
-    """FinetuneModel computing in bf16 from an npz of JAX params, weights
-    stored as ``serving_cast`` leaves them; with ``cfg.matmul_impl`` int8 the
-    load quantizes them (from the bf16 weights, as JAX serving quantizes its
-    cast tree)."""
+def load_finetuned(weights: str, cfg: FinetuneConfig, device: torch.device,
+                   checkpoint: bool = False) -> FinetuneModel:
+    """FinetuneModel computing in bf16 from an npz of JAX params, or with
+    ``checkpoint`` from a finetune checkpoint directory of this package,
+    weights stored as ``serving_cast`` leaves them; with ``cfg.matmul_impl``
+    int8 the load quantizes them (from the bf16 weights, as JAX serving
+    quantizes its cast tree)."""
+    if checkpoint:
+        from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
+
+        sd = load_checkpoint_dir(weights)["model"]
+    else:
+        sd = params_from_jax(load_params_npz(weights))
     model = FinetuneModel(cfg, dtype=torch.bfloat16)
-    sd = serving_cast(params_from_jax(load_params_npz(weights)))
-    model.load_state_dict(sd, strict=True, assign=True)
+    model.load_state_dict(serving_cast(sd), strict=True, assign=True)
     return model.to(device).eval()
 
 
 def parse_overrides(cfg: FinetuneConfig, overrides) -> FinetuneConfig:
-    fields = {f.name for f in dataclasses.fields(cfg)}
-    changes = {}
-    for ov in overrides:
-        key, sep, value = ov.partition("=")
-        if not sep or key not in fields:
-            raise ValueError(f"override must be field=value with a FinetuneConfig field, got {ov!r}")
-        try:
-            changes[key] = ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            changes[key] = value
-    return dataclasses.replace(cfg, **changes)
+    """``cfg`` with ``field=value`` overrides (``config.apply_overrides``)."""
+    return apply_overrides(cfg, overrides)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--wav", required=True)
-    parser.add_argument("--weights", required=True, help="npz of JAX FinetuneModel params")
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--weights", help="npz of JAX FinetuneModel params")
+    source.add_argument("--checkpoint", help="finetune checkpoint directory of this package")
     parser.add_argument("--method", default="avg", choices=["avg", "max", "canny"])
     parser.add_argument("--threshold", type=float, default=None)
     parser.add_argument("--max-batch-size", type=int, default=16)
@@ -125,7 +126,8 @@ def main(argv=None):
 
     cfg = parse_overrides(FinetuneConfig(), args.overrides)
     device = torch.device(args.device)
-    model = load_finetuned(args.weights, cfg, device)
+    model = load_finetuned(args.checkpoint or args.weights, cfg, device,
+                           checkpoint=bool(args.checkpoint))
     events = infer_long_file(
         args.wav, model, cfg, method=args.method, threshold=args.threshold,
         max_batch_size=args.max_batch_size, device=device,
@@ -138,6 +140,7 @@ def main(argv=None):
         print(f"wrote {total} events to {args.out}")
     else:
         print(payload)
+    return events
 
 
 if __name__ == "__main__":

@@ -1,0 +1,93 @@
+"""Model and state factories of a training run: the port of
+``animal2vec_tpu/train/build.py``.
+
+``build_finetune_encoder_cfg`` turns a pretraining configuration and a
+finetune model and recipe into the finetuned model's configuration (the
+pretrained encoder's architecture with the finetune run's head, labels and
+thresholds) and recipe (the pretrained encoder's mask-token noise);
+``load_pretrained_into_finetune`` copies a pretrained student's encoder
+into a finetune model's state dict (the finetune model's ``encoder.*`` are
+the pretraining model's names; its decoders and the EMA teacher stay
+behind); ``init_finetune`` / ``init_pretrain`` build a run's model on its
+device with seeded weights and its train state (Adam with the recipe's
+layer-decay scales, ``train.optim.layer_decay_scales``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from animal2vec_tpu_torch.config import (
+    FinetuneConfig, FinetuneTrainConfig, PretrainConfig, RunConfig,
+)
+from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
+from animal2vec_tpu_torch.models.finetune import (
+    FinetuneModel, build_finetune_model, build_pretrain_model,
+)
+from animal2vec_tpu_torch.train.state import FinetuneState, PretrainState
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the encoder's architecture: what a finetune model takes from its pretraining
+ENCODER_FIELDS = ("conv_layers", "sample_rate", "sinc_norm", "use_pswish", "conv_pos_width",
+                  "conv_pos_groups", "conv_pos_depth", "prenet_depth", "depth", "embed_dim",
+                  "num_heads", "mlp_ratio", "norm_eps", "alibi_scale")
+
+
+def build_finetune_encoder_cfg(pre: PretrainConfig, model: FinetuneConfig,
+                               recipe: FinetuneTrainConfig
+                               ) -> Tuple[FinetuneConfig, FinetuneTrainConfig]:
+    """The finetuned model's configuration and recipe for an encoder
+    pretrained with ``pre``: the encoder architecture of ``pre.model``,
+    the head (top-k taps, labels), thresholds and serving numerics of
+    ``model``; ``recipe`` with the pretrained encoder's mask-token noise.
+    The recipe's dropouts, layerdrop and frontend gradient scale then reach
+    the encoder as ``models.finetune.encoder_rates`` maps them; the
+    decoders are not built and the EMA is not kept."""
+    arch = {name: getattr(pre.model, name) for name in ENCODER_FIELDS}
+    return (dataclasses.replace(model, **arch),
+            dataclasses.replace(recipe, mask_noise_std=pre.mask_noise_std))
+
+
+def load_pretrained_into_finetune(ft_state: Mapping[str, torch.Tensor],
+                                  pre_state: Mapping[str, torch.Tensor]
+                                  ) -> Dict[str, torch.Tensor]:
+    """``ft_state`` (a finetune model's state dict) with every entry of the
+    pretrained student's ``pre_state`` that the finetune encoder has
+    (``encoder.`` + its name) copied in; the rest (the decoders) is dropped.
+    Raises if a shape differs or nothing matched."""
+    out = dict(ft_state)
+    loaded = 0
+    for name, value in pre_state.items():
+        target = "encoder." + name
+        if target in out:
+            if out[target].shape != value.shape:
+                raise ValueError(f"{name}: pretrained shape {tuple(value.shape)} != finetune "
+                                 f"{tuple(out[target].shape)}")
+            out[target] = value.to(out[target].dtype)
+            loaded += 1
+    if not loaded:
+        raise ValueError("no pretrained weights matched the finetune encoder")
+    return out
+
+
+def init_finetune(run: RunConfig, device, pretrained: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Tuple[FinetuneModel, FinetuneState]:
+    """The run's finetune model (weights from ``common.seed``, or the
+    pretrained encoder's where given) on ``device`` and its state."""
+    model = build_finetune_model(run.model, dtype=DTYPES[run.common.compute_dtype],
+                                 seed=run.common.seed, device=device, train=run.finetune)
+    if pretrained is not None:
+        model.load_state_dict(load_pretrained_into_finetune(model.state_dict(), pretrained),
+                              strict=True)
+    return model, FinetuneState.create(model, run.finetune)
+
+
+def init_pretrain(run: RunConfig, device) -> Tuple[Data2VecMulti, PretrainState]:
+    """The run's pretraining model (weights from ``common.seed``) on
+    ``device``, and its state with the EMA teacher."""
+    model = build_pretrain_model(run.pretrain, dtype=DTYPES[run.common.compute_dtype],
+                                 seed=run.common.seed, device=device)
+    return model, PretrainState.create(model, run.pretrain)

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's a2v-large serving paths (bf16 and the int8
 modes), its finetune training path, its ViT-B/16 image serving path
-(post-LN and pre-LN, bf16 and the int8 modes) and its data2vec-2
-pretraining paths (ViT-B/16 images and a2v-large audio) once on one GPU.
+(post-LN and pre-LN, bf16 and the int8 modes), its data2vec-2
+pretraining paths (ViT-B/16 images and a2v-large audio) and its training
+entry point (train_cli: pretraining, finetuning from it, resume; then
+infer_cli serving the finetuned checkpoint) once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -113,7 +115,20 @@ Phases, one line or more each; any failure raises and exits non-zero:
    recipe: three steps of update_freq 5 micro-batches of b5 10-s windows x
    clone 12 (the same checks; no dense-bias kernel), ms per step, clips/s
    and peak memory; then b1 x clone 2 gradients, kernel path against plain
-   path.
+   path;
+12. the training entry point at a2v-large's width and depth on 24
+   synthetic 10-s clips with .npz labels (18 train, 6 valid): train_cli
+   pretrains 2 steps (a2v_large_pretrain.yaml, update_freq 1: b5 x clone
+   12), finetunes 3 steps from that checkpoint (finetune_100.yaml at b4,
+   update_freq 1, gate open) with one validation at step 2 that writes
+   best, and resumes to step 4; infer_cli --checkpoint best serves one 30-s
+   recording. Checked: finite losses; each finetune step launches #2, #3,
+   #4 and #6 once per block layerdrop kept (as phase 8), each pretraining
+   step phase 11's launches, the validation and the serving forward #1
+   and #6 once per block run; no plain version on a CUDA tensor; a fresh
+   state restored from the step-3 checkpoint equal bit for bit to the live
+   one; the resumed run starting at step 3 from the saved loader position;
+   events served. Prints the seconds of each part, steps/s and clips/s.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -125,6 +140,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2193,6 +2209,250 @@ def pretrain_kernel_times(gen, dev, row, rows):
     torch.cuda.empty_cache()
 
 
+ENTRY_CLIPS, ENTRY_SERVE_SECONDS = 24, 30
+# the phase's overrides of the two recipes (printed by the phase): one
+# micro-batch a step, 10-s clips, the synthetic labels' .npz files, no
+# tensorboard directory, two checkpoints kept (and best)
+ENTRY_COMMON = ("task.max_sample_size=80000", "task.label_ext=npz", "common.tensorboard_logdir=",
+                "dataset.num_workers=8", "checkpoint.keep_last=2")
+ENTRY_PRETRAIN = ENTRY_COMMON + ("pretrain.optimization.update_freq=1",)
+ENTRY_FINETUNE = ENTRY_COMMON + (
+    "finetune.optimization.update_freq=1", "dataset.batch_size=4",
+    "finetune.freeze_finetune_updates=0", "task.min_label_size=0",
+    "dataset.validate_interval_updates=2", "dataset.validate_after_updates=0")
+
+
+class EntryWatch:
+    """Wrap the training loop's step makers, validation and train loader
+    while the entry points run: each step's loss, launches, blocks run and
+    host time (ending in the loss's read-back), each validation's launches
+    and blocks run, the loader state a run starts from, and the live state."""
+
+    def __enter__(self):
+        import animal2vec_tpu_torch.train.loop as loop
+        from animal2vec_tpu_torch.models.modules import AltBlock
+
+        self.loop = loop
+        self.steps, self.validations, self.loaders = [], [], []
+        self.state = None
+        self.ran = [0]
+
+        def hook(module, args):
+            if isinstance(module, AltBlock):
+                self.ran[0] += 1
+
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+        self.saved = {n: getattr(loop, n) for n in (
+            "make_finetune_train_step", "make_pretrain_train_step", "validate_finetune",
+            "_train_loader")}
+
+        def watched_maker(make):
+            def maker(cfg):
+                step_fn = make(cfg)
+
+                def step(state, batch, rngs):
+                    self.state, start = state, state.step
+                    self.ran[0] = 0
+                    before = counts()
+                    t0 = time.perf_counter()
+                    metrics = step_fn(state, batch, rngs)
+                    loss = float(metrics["loss"])
+                    dt = time.perf_counter() - t0
+                    after = counts()
+                    self.steps.append(dict(start=start, loss=loss, seconds=dt, ran=self.ran[0],
+                                           launched={k: after[k] - before[k] for k in after}))
+                    return metrics
+                return step
+            return maker
+
+        def validate(*args, **kwargs):
+            self.ran[0] = 0
+            before = counts()
+            out = self.saved["validate_finetune"](*args, **kwargs)
+            after = counts()
+            self.validations.append(dict(ran=self.ran[0], out=out,
+                                         launched={k: after[k] - before[k] for k in after}))
+            return out
+
+        def train_loader(*args, **kwargs):
+            loader = self.saved["_train_loader"](*args, **kwargs)
+            self.loaders.append(loader.state_dict())
+            return loader
+
+        loop.make_finetune_train_step = watched_maker(self.saved["make_finetune_train_step"])
+        loop.make_pretrain_train_step = watched_maker(self.saved["make_pretrain_train_step"])
+        loop.validate_finetune = validate
+        loop._train_loader = train_loader
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.loop, n, f)
+        self.handle.remove()
+        return False
+
+
+def _same_train_state(a, b) -> bool:
+    """Model, Adam moments and count, and step bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+        return False
+    ma = {g["name"]: a.optimizer.state.get(g["params"][0]) for g in a.optimizer.param_groups}
+    mb = {g["name"]: b.optimizer.state.get(g["params"][0]) for g in b.optimizer.param_groups}
+    return (a.step == b.step and a.optimizer.count == b.optimizer.count and ma.keys() == mb.keys()
+            and all((ma[k] is None) == (mb[k] is None) and (ma[k] is None or (
+                torch.equal(ma[k]["mu"], mb[k]["mu"]) and torch.equal(ma[k]["nu"], mb[k]["nu"])))
+                    for k in ma))
+
+
+def phase_entry(card, dev):
+    """12. The training entry point: synthetic data (24 clips of 10 s with
+    .npz labels, generate's 18/6 split), train_cli pretraining 2 steps
+    (a2v_large_pretrain), train_cli finetuning 3 steps from that checkpoint
+    (finetune_100 at b4, gate open) with one validation at step 2 (which
+    writes best), a fresh state restored from the step-3 checkpoint against
+    the live one, a resumed run to step 4, and infer_cli --checkpoint best on
+    one 30-s recording. Returns the launches of the four runs."""
+    from animal2vec_tpu_torch.config import RECIPES, FinetuneConfig, apply_overrides
+    from animal2vec_tpu_torch.data.synthetic import generate
+    from animal2vec_tpu_torch.data.wavio import write_wav
+    from animal2vec_tpu_torch.tools import infer_cli, train_cli
+    from animal2vec_tpu_torch.train.build import init_finetune
+    from animal2vec_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint_dir
+
+    totals = dict.fromkeys(_counted(), 0)
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = generate(os.path.join(tmp, "data"), n_clips=ENTRY_CLIPS, clip_seconds=10.0,
+                        seed=SEED, label_ext="npz")
+        seconds["data"] = time.perf_counter() - t0
+        pre_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
+        free = shutil.disk_usage(tmp).free / 2**30
+        print(f"entry: {ENTRY_CLIPS} synthetic 10-s clips in {seconds['data']:.2f} s "
+              f"({free:.0f} GiB free there); pretrain overrides {' '.join(ENTRY_PRETRAIN)}; "
+              f"finetune overrides {' '.join(ENTRY_FINETUNE)}")
+
+        def drive(part, argv, want_steps):
+            reset_counts()
+            t0 = time.perf_counter()
+            with EntryWatch() as watch, PlainSpy() as spy:
+                out = train_cli.main(argv)
+            torch.cuda.synchronize()
+            seconds[part] = time.perf_counter() - t0
+            got = counts()
+            for k, v in got.items():
+                totals[k] += v
+            steps = watch.steps
+            print(f"entry {part}: {len(steps)} steps in {seconds[part]:.2f} s (steps "
+                  f"{[round(s['seconds'], 3) for s in steps]} s each); losses "
+                  f"{[round(s['loss'], 5) for s in steps]}; launches {launch_line(got)}; "
+                  f"plain-version calls on CUDA tensors {spy.cuda_calls}")
+            if len(steps) != want_steps or spy.cuda_calls:
+                raise AssertionError(f"entry {part}: {len(steps)} steps (want {want_steps}) or "
+                                     f"a plain call")
+            if not all(np.isfinite(s["loss"]) for s in steps):
+                raise AssertionError(f"entry {part}: a non-finite loss")
+            return watch, got, out
+
+        # pretraining
+        pre_run = apply_overrides(RECIPES["a2v_large_pretrain"](), list(ENTRY_PRETRAIN))
+        watch, got, _ = drive("pretrain", [
+            "--recipe", "a2v_large_pretrain", "--data", data, "--save-dir", pre_dir,
+            "--max-steps", "2", "--device", dev.type, *ENTRY_PRETRAIN], 2)
+        want = pretrain_launches(pre_run.pretrain)
+        if any(s["launched"] != want for s in watch.steps) or got != {
+                k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"entry pretrain: launches per step "
+                                 f"{[s['launched'] for s in watch.steps]} != {want}")
+        if load_checkpoint_dir(pre_dir)["step"] != 2:
+            raise AssertionError("entry pretrain: no step-2 checkpoint")
+        del watch
+        torch.cuda.empty_cache()
+
+        # finetuning from the pretraining checkpoint
+        ft_args = ["--recipe", "finetune_100", "--data", data, "--save-dir", ft_dir,
+                   "--device", dev.type, *ENTRY_FINETUNE]
+        watch, got, _ = drive("finetune", ft_args + ["--pretrained", pre_dir, "--max-steps", "3"],
+                              3)
+        names = ("attention", "dq", "dkv", "block")
+        for i, s in enumerate(watch.steps):
+            step_want = {k: (s["ran"] if k in names else 0) for k in _counted()}
+            print(f"entry finetune step {i + 1}: launches attention forward "
+                  f"{s['launched']['attention']}, dq {s['launched']['dq']}, dk/dv "
+                  f"{s['launched']['dkv']}, fused block {s['launched']['block']} (expected "
+                  f"{s['ran']} each, as phase 8: the blocks layerdrop kept)")
+            if s["launched"] != step_want or s["ran"] == 0:
+                raise AssertionError(f"entry finetune step {i + 1}: launches {s['launched']}")
+        (val,) = watch.validations
+        val_want = {k: (val["ran"] if k in ("serve_attention", "block") else 0) for k in _counted()}
+        print(f"entry validation at step 2: launches {launch_line(val['launched'])} ({val['ran']} "
+              f"blocks run); f1 {val['out'].get('metrics/finetune/f1')}, mAP "
+              f"{val['out'].get('valid/mAP')}")
+        if val["launched"] != val_want or val["ran"] == 0:
+            raise AssertionError(f"entry validation: launches {val['launched']} != {val_want}")
+        ft_mgr = CheckpointManager(ft_dir)
+        best = os.path.join(ft_dir, "best")
+        if ft_mgr.all_steps() != [2, 3] or load_checkpoint_dir(best)["step"] != 2:
+            raise AssertionError(f"entry finetune: checkpoints {ft_mgr.all_steps()}, best not 2")
+        live = watch.state
+        ft_run = apply_overrides(RECIPES["finetune_100"](), ENTRY_FINETUNE + (
+            f"task.data={data}", f"checkpoint.save_dir={ft_dir}"))
+        _, fresh = init_finetune(ft_run, dev)
+        saved_loader = ft_mgr.restore(fresh, step=3)["loader"]
+        same = _same_train_state(fresh, live)
+        print(f"entry checkpoint: a fresh state restored from step 3 is the live one bit for bit "
+              f"(model, Adam moments and count, step): {same}; saved loader {saved_loader}")
+        if not same:
+            raise AssertionError("entry: the restored state differs from the live one")
+        del live, fresh, watch
+        shutil.rmtree(pre_dir)
+        torch.cuda.empty_cache()
+
+        # resume to step 4
+        watch, _, _ = drive("resume", ft_args + ["--max-steps", "4"], 1)
+        start = watch.steps[0]["start"]
+        print(f"entry resume: started at step {start} from loader state {watch.loaders[0]}")
+        if start != 3 or watch.loaders[0] != saved_loader or ft_mgr.latest_step() != 4:
+            raise AssertionError("entry resume: not from step 3 and its loader position")
+        del watch
+        torch.cuda.empty_cache()
+
+        # serving the best checkpoint
+        rng = np.random.default_rng(SEED + 20)
+        rec = os.path.join(tmp, "rec.wav")
+        write_wav(rec, (0.05 * rng.normal(size=ENTRY_SERVE_SECONDS * 8000)).astype(np.float32),
+                  8000)
+        reset_counts()
+        t0 = time.perf_counter()
+        with PlainSpy() as spy:
+            events = infer_cli.main(["--wav", rec, "--checkpoint", best, "--device", dev.type,
+                                     "--out", os.path.join(tmp, "events.json"),
+                                     "max_sample_size=80000"])
+        torch.cuda.synchronize()
+        seconds["serve"] = time.perf_counter() - t0
+        got = counts()
+        for k, v in got.items():
+            totals[k] += v
+        n_blocks = FinetuneConfig().n_blocks
+        want = forward_launches("bf16", n_blocks)  # three 10-s windows: one forward
+        n_events = sum(len(v) for v in events.values())
+        print(f"entry serve: infer_cli --checkpoint best on a {ENTRY_SERVE_SECONDS}-s recording in "
+              f"{seconds['serve']:.2f} s: {n_events} events; launches {launch_line(got)}; "
+              f"plain-version calls on CUDA tensors {spy.cuda_calls}")
+        if got != want or spy.cuda_calls or n_events == 0:
+            raise AssertionError(f"entry serve: launches {got} != {want}, a plain call or no event")
+    ft_steps = 3 + 1
+    print(f"entry on {card}: seconds per part "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; pretrain {2 / seconds['pretrain']:.3f} steps/s, "
+          f"{2 * 5 / seconds['pretrain']:.2f} clips/s; finetune and resume "
+          f"{ft_steps / (seconds['finetune'] + seconds['resume']):.3f} steps/s, "
+          f"{ft_steps * 4 / (seconds['finetune'] + seconds['resume']):.2f} clips/s (each part "
+          f"from the CLI call to its return: build, load, steps, validation, checkpoints)")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2263,6 +2523,7 @@ def main() -> int:
                                "a2v_large_pretrain.yaml)", "10-s clips")
     phase_pretrain_grads(a2v, dev, 1, "audio pretrain (a2v-large)")
     pretrain = {k: pre_image[k] + pre_image_ln[k] + pre_audio[k] for k in pre_image}
+    entry_launches = phase_entry(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -2357,13 +2618,14 @@ def main() -> int:
                  ("dq", "bias attention dq + dbias"), ("dkv", "bias attention dk/dv"))
                 for k, v in times[f"{key}, b128 ViT-B pretraining student"].items()}),
     ]
-    # the pretraining paths' launches (phases 10 and 11) of the kernels that
-    # earlier paths launch too
+    # the pretraining paths' launches (phases 10 and 11) and the training
+    # entry point's (phase 12) of the kernels that earlier paths launch too
     for e, key in zip(kernels, ("serve_attention", "attention", "dq", "dkv", "block", None, None,
                                 None, None, "mlp")):
         if key:
             e["launches_pretrain"] = pretrain[key]
-            e["launches"] += pretrain[key]
+            e["launches_entry"] = entry_launches[key]
+            e["launches"] += pretrain[key] + entry_launches[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
