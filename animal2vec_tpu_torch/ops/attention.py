@@ -17,9 +17,14 @@ through ``alibi_flash_attention_serve``; on a CPU tensor it runs
 
 ``alibi_flash_attention_serve`` is the serving entry of the same kernel
 (no lse, no dropout): (B, T, H, D) views of q, k and v with one set of
-strides, read in place, into a (B, T, H, D) output of any strides. The
+strides, read in place, into a new contiguous (B, T, H, D) tensor. The
 projection's (B, T, 3, H, D) thirds and the packed layout's planes
-(transposed to (B, T, H, D)) are both such views.
+(transposed to (B, T, H, D)) are both such views. It is the torch custom op
+``a2v::alibi_attention_serve`` (the kernel for CUDA tensors, the plain
+version for CPU tensors, a fake for tracing), so ``torch.export`` keeps it
+as one node; the int8 serving attention is two such ops,
+``a2v::quantize_qkv_int8`` and ``a2v::alibi_attention_int8``
+(``kernels/ops.py`` lists every serving op).
 
 ``alibi_flash_attention_btc`` is the model's entry, for serving and
 training: (B, T, 3C) in, (B, T, C) out, differentiable in ``qkv_btc`` and
@@ -249,6 +254,52 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop) -> None:
     check(err, "alibi attention forward kernel")
 
 
+def _check_qkv_views(q, k, v) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def _check_card_views(q, k, v) -> None:
+    """The CUDA entries' checks of (B, T, H, D) views q, k, v read in place."""
+    _check_device(q, "alibi attention")
+    if q.shape[-1] != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, "
+                         f"D={q.shape[-1]}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("k and v must be on q's device")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
+
+
+@torch.library.custom_op("a2v::alibi_attention_serve", mutates_args=(), device_types="cuda")
+def _serve_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slopes: torch.Tensor,
+              positions: torch.Tensor, padding_mask: Optional[torch.Tensor],
+              has_sentinel: bool) -> torch.Tensor:
+    """#1 on the card: one launch of the forward kernel without lse or
+    dropout, q, k, v read in place, into a new (B, T, H, D) tensor."""
+    _check_card_views(q, k, v)
+    b, t, h, _ = q.shape
+    side = _side_args(b, h, t, q.device, slopes, positions, padding_mask)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_forward(q, k, v, out, None, side, has_sentinel, _dropout_args(0.0, None))
+    alibi_flash_attention_serve.launches += 1
+    return out
+
+
+@_serve_op.register_kernel("cpu")
+def _serve_plain(q, k, v, slopes, positions, padding_mask, has_sentinel):
+    packed = torch.stack([q, k, v]).transpose(2, 3)  # (3, B, H, T, D)
+    out = alibi_attention_plain(packed, slopes, positions, padding_mask, has_sentinel)
+    return out.transpose(1, 2).contiguous()
+
+
+@_serve_op.register_fake
+def _serve_fake(q, k, v, slopes, positions, padding_mask, has_sentinel):
+    return q.new_empty(q.shape)
+
+
 def alibi_flash_attention_serve(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -257,39 +308,16 @@ def alibi_flash_attention_serve(
     positions: torch.Tensor,
     padding_mask: Optional[torch.Tensor] = None,
     has_sentinel: bool = False,
-    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """ALiBi attention forward without lse or dropout of (B, T, H, D) views
-    ``q``, ``k``, ``v`` that share one set of strides, into ``out`` (B, T,
-    H, D) of any strides (a new contiguous tensor when None), which it
-    returns. Kernel on CUDA (``csrc/alibi_attention_fwd.cu``, q, k, v read
-    in place), ``alibi_attention_plain`` on CPU."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, t, h, d = q.shape
-    if out is None:
-        out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
-        raise ValueError(f"out must be a {q.dtype} {tuple(q.shape)} on q's device, got "
-                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
-    if q.device.type == "cpu":
-        packed = torch.stack([q, k, v]).transpose(2, 3)  # (3, B, H, T, D)
-        out.copy_(alibi_attention_plain(packed, slopes, positions, padding_mask,
-                                        has_sentinel).transpose(1, 2))
-        return out
-    _check_device(q, "alibi attention")
-    if q.dtype != torch.bfloat16 or d != 64:
-        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("k and v must be on q's device")
-    if k.stride() != q.stride() or v.stride() != q.stride():
-        raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
-                         f"{v.stride()}")
-    side = _side_args(b, h, t, q.device, slopes, positions, padding_mask)
-    _launch_forward(q, k, v, out, None, side, has_sentinel, _dropout_args(0.0, None))
-    alibi_flash_attention_serve.launches += 1
-    return out
+    ``q``, ``k``, ``v`` that share one set of strides: a new contiguous (B,
+    T, H, D) tensor. The custom op ``a2v::alibi_attention_serve``: the
+    kernel on CUDA (``csrc/alibi_attention_fwd.cu``, q, k, v read in place),
+    ``alibi_attention_plain`` on CPU."""
+    _check_qkv_views(q, k, v)
+    if q.device.type != "cpu":
+        _check_device(q, "alibi attention")
+    return _serve_op(q, k, v, slopes, positions, padding_mask, bool(has_sentinel))
 
 
 alibi_flash_attention_serve.launches = 0
@@ -307,19 +335,19 @@ def alibi_flash_attention_packed(
 ):
     """ALiBi attention forward; kernel on CUDA, plain version on CPU. With
     ``return_lse`` returns (out, lse); serving calls (no lse, no dropout)
-    go to ``alibi_flash_attention_serve`` on the packed planes."""
+    go to ``alibi_flash_attention_serve`` on the packed planes and return
+    its output as a (B, H, T, D) view."""
     if qkv.device.type == "cpu":
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
                                      dropout_rate, seed, return_lse)
     _check_device(qkv, "alibi attention")
     b, h, t, d, *side = _kernel_args(qkv, slopes, positions, padding_mask)
     drop = _dropout_args(dropout_rate, seed)
-    out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     planes = [x.transpose(1, 2) for x in qkv.unbind(0)]  # (B, T, H, D) views
     if not return_lse and drop[1] == 0:
-        alibi_flash_attention_serve(*planes, slopes, positions, padding_mask, has_sentinel,
-                                    out=out.transpose(1, 2))
-        return out
+        return alibi_flash_attention_serve(*planes, slopes, positions, padding_mask,
+                                           has_sentinel).transpose(1, 2)
+    out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
     _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop)
     alibi_flash_attention_packed.launches += 1
@@ -543,32 +571,54 @@ def alibi_attention_int8_plain(
     block_q: int = 1024,
     block_k: int = 2048,
 ) -> torch.Tensor:
-    """Reference of the int8 kernel (any device): (B, T, H, D) in q's dtype,
-    the int8 products exact in float64, one batch row at a time."""
-    b, t, h, d = q.shape
-    span, t_pad = int8_spans(t, block_q, block_k)
-    q8, qs, k8, ks, v8, vs = quantize_qkv_int8(q, k, v)
+    """Reference of the int8 kernel with its quantization (any device): (B,
+    T, H, D) in q's dtype, the int8 products exact in float64, one batch row
+    at a time."""
+    span, t_pad = int8_spans(q.shape[1], block_q, block_k)
+    quantized = quantize_qkv_int8_pass_plain(q, k, v, t_pad)
+    return attention_int8_quantized_plain(*quantized, slopes, positions, padding_mask,
+                                          has_sentinel, span, q.dtype)
+
+
+def attention_int8_quantized_plain(
+    q8: torch.Tensor,
+    qs: torch.Tensor,
+    k8: torch.Tensor,
+    ks: torch.Tensor,
+    v8t: torch.Tensor,
+    vsc: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor],
+    has_sentinel: bool,
+    span: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Reference of the int8 kernel on the quantization pass's outputs (the
+    layouts of ``quantize_qkv_int8_pass_plain``, any device): (B, T, H, D)
+    in ``out_dtype``, the int8 products exact in float64."""
+    b, h, t, d = q8.shape
+    t_pad = v8t.shape[-1]
     pad = t_pad - t
-    k8, v8 = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (k8, v8))
-    ks = F.pad(ks, (0, 0, 0, pad))
+    k8, ks = F.pad(k8, (0, 0, 0, pad)), F.pad(ks, (0, pad))
+    v8 = v8t[..., torch.argsort(v8t_key_order(t_pad, v8t.device))].transpose(-1, -2)
     pos = F.pad(positions.to(torch.int32).expand(b, t), (0, pad)).float()
-    padded = torch.zeros((b, t_pad), dtype=torch.bool, device=q.device)
+    padded = torch.zeros((b, t_pad), dtype=torch.bool, device=q8.device)
     padded[:, t:] = True
     if padding_mask is not None:
         padded[:, :t] = padding_mask.bool()
     neg_slopes = -slopes.float()[:, None, None]
-    vsc = vs * INV_127
-    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q8.device)
     for bi in range(b):
-        qb = q8[bi].transpose(0, 1).double()  # (H, T, D)
-        qsb = qs[bi].t()[:, :, None]
-        m = torch.full((h, t), NEG_INF, device=q.device)
-        l = torch.zeros((h, t), device=q.device)
-        acc = torch.zeros((h, t, d), device=q.device)
+        qb = q8[bi].double()  # (H, T, D)
+        qsb = qs[bi][:, :, None]
+        m = torch.full((h, t), NEG_INF, device=q8.device)
+        l = torch.zeros((h, t), device=q8.device)
+        acc = torch.zeros((h, t, d), device=q8.device)
         for k0 in range(0, t_pad, span):
             keys = slice(k0, k0 + span)
-            s = torch.matmul(qb, k8[bi, keys].permute(1, 2, 0).double()).float()
-            s = s * qsb * ks[bi, keys].t()[:, None, :]
+            s = torch.matmul(qb, k8[bi][:, keys].transpose(-1, -2).double()).float()
+            s = s * qsb * ks[bi][:, None, keys]
             pq, pk = pos[bi, :t, None], pos[bi, None, keys]
             dist = (pq - pk).abs()
             if has_sentinel:
@@ -579,11 +629,11 @@ def alibi_attention_int8_plain(
             p = torch.exp(s - m_new[..., None])
             l = alpha * l + p.sum(dim=-1)
             p8 = torch.round(p * 127.0).double()
-            pv = torch.matmul(p8, v8[bi, keys].transpose(0, 1).double()).float()
+            pv = torch.matmul(p8, v8[bi][:, keys].double()).float()
             acc = acc * alpha[..., None] + pv * vsc[bi][:, None, :]
             m = m_new
         out[bi] = (acc / torch.clamp_min(l, 1e-30)[..., None]).transpose(0, 1)
-    return out.to(q.dtype)
+    return out.to(out_dtype)
 
 
 def v8t_key_order(t_pad: int, device=None) -> torch.Tensor:
@@ -609,39 +659,21 @@ def quantize_qkv_int8_pass_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return bhtd(q8), bhtd(qs), bhtd(k8), bhtd(ks), v8t.contiguous(), vs * INV_127
 
 
-def quantize_qkv_int8_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int):
-    """The int8 attention's quantization of (B, T, H, D) views q, k, v that
-    share one set of strides (the qkv projection's thirds), into the
-    kernel's layouts (``quantize_qkv_int8_pass_plain``): one C entry of two
-    launches on CUDA (``csrc/alibi_attention_int8.cu``, q, k, v read in
-    place), the plain version on CPU."""
-    if q.device.type == "cpu":
-        return quantize_qkv_int8_pass_plain(q, k, v, t_pad)
-    _check_device(q, "int8 q, k, v quantization")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, t, h, d = q.shape
-    if d != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("k and v must be on q's device")
-    if k.stride() != q.stride() or v.stride() != q.stride():
-        raise ValueError(f"q, k, v must share their strides, got {q.stride()}, {k.stride()}, "
-                         f"{v.stride()}")
+@torch.library.custom_op("a2v::quantize_qkv_int8", mutates_args=(), device_types="cuda")
+def _quantize_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    """#5's quantization pass on the card: one C entry of two launches, q,
+    k, v read in place."""
+    _check_card_views(q, k, v)
     if not all(_aligned(x) for x in (q, k, v)):
         raise ValueError("the kernel needs 16-byte aligned q, k, v with a contiguous last dim "
                          "and strides in multiples of 8")
+    b, t, h, d = q.shape
     if t_pad < t or t_pad % 64:
         raise ValueError(f"t_pad must be a multiple of 64 and at least T={t}, got {t_pad}")
-    dev = q.device
-    q8 = torch.empty((b, h, t, d), dtype=torch.int8, device=dev)
-    k8 = torch.empty_like(q8)
-    qs = torch.empty((b, h, t), dtype=torch.float32, device=dev)
-    ks = torch.empty_like(qs)
-    v8t = torch.empty((b, h, d, t_pad), dtype=torch.int8, device=dev)
-    vsc = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    q8, qs, k8, ks, v8t, vsc = _quantized_layouts(q, t_pad)
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_quantize_qkv_int8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -653,7 +685,80 @@ def quantize_qkv_int8_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_
     return q8, qs, k8, ks, v8t, vsc
 
 
+def _quantized_layouts(q: torch.Tensor, t_pad: int):
+    """Empty q8, qs, k8, ks, v8t, vsc of the pass for (B, T, H, D) ``q``."""
+    b, t, h, d = q.shape
+    q8 = q.new_empty((b, h, t, d), dtype=torch.int8)
+    qs = q.new_empty((b, h, t), dtype=torch.float32)
+    v8t = q.new_empty((b, h, d, t_pad), dtype=torch.int8)
+    return (q8, qs, torch.empty_like(q8), torch.empty_like(qs), v8t,
+            q.new_empty((b, h, d), dtype=torch.float32))
+
+
+@_quantize_op.register_kernel("cpu")
+def _quantize_plain(q, k, v, t_pad):
+    return quantize_qkv_int8_pass_plain(q, k, v, t_pad)
+
+
+_quantize_op.register_fake(lambda q, k, v, t_pad: _quantized_layouts(q, t_pad))
+
+
+def quantize_qkv_int8_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int):
+    """The int8 attention's quantization of (B, T, H, D) views q, k, v that
+    share one set of strides (the qkv projection's thirds), into the
+    kernel's layouts (``quantize_qkv_int8_pass_plain``): the custom op
+    ``a2v::quantize_qkv_int8``, one C entry of two launches on CUDA
+    (``csrc/alibi_attention_int8.cu``, q, k, v read in place), the plain
+    version on CPU."""
+    _check_qkv_views(q, k, v)
+    if q.device.type != "cpu":
+        _check_device(q, "int8 q, k, v quantization")
+    return _quantize_op(q, k, v, int(t_pad))
+
+
 quantize_qkv_int8_pass.launches = 0
+
+
+@torch.library.custom_op("a2v::alibi_attention_int8", mutates_args=(), device_types="cuda")
+def _attention_int8_op(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
+                       v8t: torch.Tensor, vsc: torch.Tensor, slopes: torch.Tensor,
+                       positions: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                       has_sentinel: bool, span: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """#5 on the card: one launch on the quantization pass's outputs."""
+    _check_device(q8, "int8 alibi attention")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the kernel writes bf16, got out_dtype {out_dtype}")
+    b, h, t, d = q8.shape
+    t_pad = v8t.shape[-1]
+    sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q8.device, slopes, positions,
+                                                          padding_mask)
+    out = torch.empty((b, t, h, d), dtype=out_dtype, device=q8.device)
+    # the fp32 sums between key spans (none with one span)
+    o_acc = torch.empty_like(q8, dtype=torch.float32) if t_pad > span else None
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().a2v_alibi_attention_int8(
+            q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
+            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
+            None if o_acc is None else o_acc.data_ptr(), b, h, t, d, t_pad, span,
+            int(has_sentinel), stream,
+        )
+    check(err, "int8 alibi attention kernel")
+    alibi_flash_attention_int8.launches += 1
+    return out
+
+
+@_attention_int8_op.register_kernel("cpu")
+def _attention_int8_plain(*args):
+    return attention_int8_quantized_plain(*args)
+
+
+@_attention_int8_op.register_fake
+def _attention_int8_fake(q8, qs, k8, ks, v8t, vsc, slopes, positions, padding_mask,
+                         has_sentinel, span, out_dtype):
+    b, h, t, d = q8.shape
+    return q8.new_empty((b, t, h, d), dtype=out_dtype)
 
 
 def alibi_flash_attention_int8(
@@ -668,34 +773,19 @@ def alibi_flash_attention_int8(
     block_k: int = 2048,
 ) -> torch.Tensor:
     """int8 ALiBi attention of (B, T, H, D) q, k, v -> (B, T, H, D) in q's
-    dtype. On CUDA, q, k and v are views with one set of strides (the qkv
-    projection's thirds), quantized in place by ``quantize_qkv_int8_pass``,
-    and the kernel (``csrc/alibi_attention_int8.cu``) runs on its outputs;
-    on CPU the plain version runs."""
-    if q.device.type == "cpu":
-        return alibi_attention_int8_plain(q, k, v, slopes, positions, padding_mask,
-                                          has_sentinel, block_q, block_k)
-    _check_device(q, "int8 alibi attention")
-    b, t, h, d = q.shape
-    span, t_pad = int8_spans(t, block_q, block_k)
-    sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q.device, slopes, positions,
-                                                          padding_mask)
-    q8, qs, k8, ks, v8t, vsc = quantize_qkv_int8_pass(q, k, v, t_pad)
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    # the fp32 sums between key spans (none with one span)
-    o_acc = torch.empty_like(q8, dtype=torch.float32) if t_pad > span else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention_int8(
-            q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
-            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), pos_per_row,
-            None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
-            None if o_acc is None else o_acc.data_ptr(), b, h, t, d, t_pad, span,
-            int(has_sentinel), stream,
-        )
-    check(err, "int8 alibi attention kernel")
-    alibi_flash_attention_int8.launches += 1
-    return out
+    dtype: ``quantize_qkv_int8_pass``, then the custom op
+    ``a2v::alibi_attention_int8`` on its outputs. On CUDA, q, k and v are
+    views with one set of strides (the qkv projection's thirds), quantized
+    in place, and the kernel (``csrc/alibi_attention_int8.cu``) runs; on
+    CPU the plain versions run (``alibi_attention_int8_plain``'s two
+    halves)."""
+    _check_qkv_views(q, k, v)
+    if q.device.type != "cpu":
+        _check_device(q, "int8 alibi attention")
+    span, t_pad = int8_spans(q.shape[1], block_q, block_k)
+    quantized = quantize_qkv_int8_pass(q, k, v, t_pad)
+    return _attention_int8_op(*quantized, slopes, positions, padding_mask, bool(has_sentinel),
+                              span, q.dtype)
 
 
 alibi_flash_attention_int8.launches = 0

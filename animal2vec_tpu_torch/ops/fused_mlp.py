@@ -12,7 +12,10 @@ the model passes ``Linear.weight.t()`` views, which the kernel reads without
 a copy. On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/fused_block.cu``, bf16 only); on a CPU tensor it runs
 ``fused_block_plain``, a transcription of the JAX ``_ref_block_bf16``; any
-other device raises.
+other device raises. Serving (no gradient wanted, no dropout) goes through
+the torch custom op ``a2v::fused_block`` (the kernel for CUDA tensors, the
+plain version for CPU tensors, a fake for tracing), as the int8 block goes
+through ``a2v::fused_block_int8``.
 
 Numerics (both versions): fp32 LayerNorm statistics, r cast back to the
 storage dtype before fc1, fp32 accumulation, bias + exact-erf GELU and the
@@ -269,6 +272,28 @@ def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9):
     return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
 
 
+_Opt = Optional[torch.Tensor]
+
+
+@torch.library.custom_op("a2v::fused_block", mutates_args=(), device_types="cuda")
+def _block_op(x: torch.Tensor, ln1_scale: _Opt, ln1_bias: _Opt, w1: torch.Tensor,
+              w2: torch.Tensor, b1: _Opt, b2: _Opt, ln2_scale: _Opt, ln2_bias: _Opt,
+              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#6 without dropout on the card: one launch of the kernel."""
+    return _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                   None, 0.0, 0.0)
+
+
+@_block_op.register_kernel("cpu")
+def _block_plain(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps):
+    return fused_block_plain(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps)
+
+
+@_block_op.register_fake
+def _block_fake(x, *_):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
 def fused_block_mlp(
     x: torch.Tensor,
     ln1_scale: Optional[torch.Tensor],
@@ -284,18 +309,24 @@ def fused_block_mlp(
     act_rate: float = 0.0,
     post_rate: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x_out, t) for x (..., C); kernel on CUDA (differentiable), plain
-    version on CPU."""
+    """(x_out, t) for x (..., C). Serving (no gradient wanted, no dropout):
+    the custom op ``a2v::fused_block``, the kernel on CUDA and the plain
+    version on CPU. Training: on CUDA the autograd Function (or, without a
+    gradient wanted, one launch with dropout), on CPU the plain version
+    under autograd."""
     args = (x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps)
-    if x.device.type == "cpu":
-        return fused_block_plain(*args, seeds, act_rate, post_rate)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused block runs on cuda or cpu tensors, got {x.device}")
     _check_rates(seeds, act_rate, post_rate)
+    wants_grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+    dropout = act_rate > 0.0 or post_rate > 0.0
+    if not wants_grad and not dropout:
+        return _block_op(*args[:-1], float(eps))
+    if x.device.type == "cpu":
+        return fused_block_plain(*args, seeds, act_rate, post_rate)
     seeds = None if seeds is None else tuple(int(s) for s in seeds)
-    if torch.is_grad_enabled() and any(
-        isinstance(a, torch.Tensor) and a.requires_grad for a in args
-    ):
+    if wants_grad:
         return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate))
     return _launch(*args, seeds, float(act_rate), float(post_rate))
 
@@ -389,27 +420,12 @@ def quantize_chunks_plain(h: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, to
     return h_q.reshape(n, m), s
 
 
-def fused_block_int8(
-    x: torch.Tensor,
-    ln1_scale: Optional[torch.Tensor],
-    ln1_bias: Optional[torch.Tensor],
-    w1_q: torch.Tensor,
-    w1_s: torch.Tensor,
-    b1: Optional[torch.Tensor],
-    w2_q: torch.Tensor,
-    w2_s: torch.Tensor,
-    b2: Optional[torch.Tensor],
-    ln2_scale: Optional[torch.Tensor],
-    ln2_bias: Optional[torch.Tensor],
-    eps: float = 1e-5,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x_out, t) of the int8 block for x (..., C); kernel on CUDA
-    (``csrc/fused_block_int8.cu``), plain version on CPU."""
-    args = (x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale, ln2_bias, eps)
-    if x.device.type == "cpu":
-        return fused_block_int8_plain(*args)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8 fused block runs on cuda or cpu tensors, got {x.device}")
+@torch.library.custom_op("a2v::fused_block_int8", mutates_args=(), device_types="cuda")
+def _block_int8_op(x: torch.Tensor, ln1_scale: _Opt, ln1_bias: _Opt, w1_q: torch.Tensor,
+                   w1_s: torch.Tensor, b1: _Opt, w2_q: torch.Tensor, w2_s: torch.Tensor,
+                   b2: _Opt, ln2_scale: _Opt, ln2_bias: _Opt, eps: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#7 on the card: one C entry of five launches."""
     c = x.shape[-1]
     m = w1_q.shape[0]
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -451,6 +467,39 @@ def fused_block_int8(
     check(err, "int8 fused block kernel")
     fused_block_int8.launches += 1
     return x_out, t
+
+
+@_block_int8_op.register_kernel("cpu")
+def _block_int8_plain(*args):
+    return fused_block_int8_plain(*args)
+
+
+@_block_int8_op.register_fake
+def _block_int8_fake(x, *_):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+def fused_block_int8(
+    x: torch.Tensor,
+    ln1_scale: Optional[torch.Tensor],
+    ln1_bias: Optional[torch.Tensor],
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: Optional[torch.Tensor],
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: Optional[torch.Tensor],
+    ln2_scale: Optional[torch.Tensor],
+    ln2_bias: Optional[torch.Tensor],
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x_out, t) of the int8 block for x (..., C): the custom op
+    ``a2v::fused_block_int8``, the kernel on CUDA
+    (``csrc/fused_block_int8.cu``) and the plain version on CPU."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8 fused block runs on cuda or cpu tensors, got {x.device}")
+    return _block_int8_op(x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,
+                          ln2_bias, float(eps))
 
 
 fused_block_int8.launches = 0

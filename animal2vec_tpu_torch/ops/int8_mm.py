@@ -17,10 +17,10 @@ The int32 product is cast to fp32, times xs, times ws, plus the fp32 bias
 after that cast, in the storage dtype (two roundings, as
 ``modules.py:300-301, 319-320, 355``).
 
-On a CUDA tensor ``int8_dense`` launches the hand-written kernel
-(``csrc/int8_dense.cu``, bf16 x); on a CPU tensor it runs
-``int8_dense_plain``, which accumulates the int8 products exactly in
-float64; any other device raises.
+``int8_dense`` is the custom op ``a2v::int8_dense``: on a CUDA tensor it
+launches the hand-written kernel (``csrc/int8_dense.cu``, bf16 x); on a CPU
+tensor it runs ``int8_dense_plain``, which accumulates the int8 products
+exactly in float64; any other device raises.
 """
 
 from __future__ import annotations
@@ -69,18 +69,10 @@ def int8_dense_plain(
     return y.to(x.dtype)
 
 
-def int8_dense(
-    x: torch.Tensor,
-    w_q: torch.Tensor,
-    w_s: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """x (..., K) times the int8 weight w_q (M, K) with scales w_s (M,):
-    (..., M) in x's dtype. Kernel on CUDA, plain version on CPU."""
-    if x.device.type == "cpu":
-        return int8_dense_plain(x, w_q, w_s, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8 dense runs on cuda or cpu tensors, got {x.device}")
+@torch.library.custom_op("a2v::int8_dense", mutates_args=(), device_types="cuda")
+def _dense_op(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """#10 on the card: one C entry (x's quantization, the GEMM)."""
     k = x.shape[-1]
     m = w_q.shape[0]
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -112,6 +104,30 @@ def int8_dense(
     check(err, "int8 dense kernel")
     int8_dense.launches += 1
     return out
+
+
+@_dense_op.register_kernel("cpu")
+def _dense_plain(x, w_q, w_s, bias):
+    return int8_dense_plain(x, w_q, w_s, bias)
+
+
+@_dense_op.register_fake
+def _dense_fake(x, w_q, w_s, bias):
+    return x.new_empty((*x.shape[:-1], w_q.shape[0]))
+
+
+def int8_dense(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_s: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """x (..., K) times the int8 weight w_q (M, K) with scales w_s (M,):
+    (..., M) in x's dtype. The custom op ``a2v::int8_dense``: the kernel on
+    CUDA, the plain version on CPU."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8 dense runs on cuda or cpu tensors, got {x.device}")
+    return _dense_op(x, w_q, w_s, bias)
 
 
 int8_dense.launches = 0

@@ -6,7 +6,7 @@ into events with absolute timestamps.
 
 Usage:
   python -m animal2vec_tpu_torch.tools.infer_cli --wav rec.wav \
-      (--weights params.npz | --checkpoint <dir>) \
+      (--weights params.npz | --checkpoint <dir>) [--data-parallel -1] \
       [--method avg --threshold 0.175 --out events.json] [field=value ...]
 
 ``params.npz`` holds the JAX FinetuneModel params keyed by their "/"-joined
@@ -32,16 +32,31 @@ from animal2vec_tpu_torch.config import FinetuneConfig, apply_overrides
 from animal2vec_tpu_torch.data.wavio import read_wav
 from animal2vec_tpu_torch.models.finetune import FinetuneModel
 from animal2vec_tpu_torch.ops.audio import chunk_and_normalize
+from animal2vec_tpu_torch.parallel.serving import DataParallelServing
 from animal2vec_tpu_torch.weights import load_params_npz, params_from_jax, serving_cast
+
+
+def sigmoid_probabilities(model: FinetuneModel, src: torch.Tensor) -> torch.Tensor:
+    """(B, T_wav) windows on the model's device -> (B, T, n_classes) fp32
+    sigmoid probabilities there."""
+    with torch.inference_mode():
+        return torch.sigmoid(model(src)["encoder_out"].float())
 
 
 def window_probabilities(model: FinetuneModel, batch: np.ndarray,
                          device: torch.device) -> np.ndarray:
     """(B, T_wav) windows -> (B, T, n_classes) fp32 sigmoid probabilities."""
     src = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-    with torch.inference_mode():
-        logits = model(src)["encoder_out"]
-        return torch.sigmoid(logits.float()).cpu().numpy()
+    return sigmoid_probabilities(model, src).cpu().numpy()
+
+
+def serving_devices(device: torch.device, devices=None):
+    """The devices a data-parallel run spreads over: ``devices`` where
+    given, else every CUDA device (``device`` first) for a model on the
+    card, or ``device`` alone."""
+    if devices is not None:
+        return devices
+    return None if device.type == "cuda" else [device]
 
 
 def infer_long_file(
@@ -53,14 +68,24 @@ def infer_long_file(
     max_batch_size: int = 16,
     segment_length: Optional[float] = None,
     device: Optional[torch.device] = None,
+    data_parallel: int = 1,
+    devices=None,
 ) -> dict:
     """Events {label: [{"onset_s", "offset_s", "likelihood"}, ...]} for one
     recording. ``segment_length`` defaults to ``cfg.segment_length``; the
-    model runs on ``device`` (default: where its parameters are)."""
+    model runs on ``device`` (default: where its parameters are).
+    ``data_parallel``: shard each window batch over this many devices (-1 =
+    all of ``serving_devices``; ``parallel/serving.py``); the batch size is
+    floored to a device multiple and the final partial batch zero-padded,
+    its padded rows dropped before event fusing, so the events do not depend
+    on the device count."""
     if device is None:
         device = next(model.parameters()).device
     if segment_length is None:
         segment_length = cfg.segment_length
+    dp = DataParallelServing(model, data_parallel, serving_devices(device, devices))
+    # floor, not ceil: --max-batch-size is a memory cap the user tuned
+    max_batch_size = dp.floor_batch(max_batch_size)
     wav, sr = read_wav(wav_path)
     if wav.ndim > 1:
         wav = wav[:, 0]
@@ -72,7 +97,8 @@ def infer_long_file(
     events = {name: [] for name in cfg.labels}
     first_bs = batches[0].shape[0]
     for bi, batch in enumerate(batches):
-        probs = window_probabilities(model, batch, device)
+        shards, n_valid = dp.pad_and_shard(batch)
+        probs = dp.run(sigmoid_probabilities, shards).numpy()[:n_valid]
         ti, _, li = fuse_predict(
             sample_size, probs, md, sr, method=method, multiplier=bi, bs=first_bs
         )
@@ -87,20 +113,29 @@ def infer_long_file(
 
 
 def load_finetuned(weights: str, cfg: FinetuneConfig, device: torch.device,
-                   checkpoint: bool = False) -> FinetuneModel:
-    """FinetuneModel computing in bf16 from an npz of JAX params, or with
-    ``checkpoint`` from a finetune checkpoint directory of this package,
-    weights stored as ``serving_cast`` leaves them; with ``cfg.matmul_impl``
-    int8 the load quantizes them (from the bf16 weights, as JAX serving
-    quantizes its cast tree)."""
+                   checkpoint: bool = False, dtype: torch.dtype = torch.bfloat16
+                   ) -> FinetuneModel:
+    """FinetuneModel from an npz of JAX params, or with ``checkpoint`` from
+    a finetune checkpoint directory of this package (``convert_cli import``
+    writes one from a fairseq ``.pt``), on ``device`` (raises for a card
+    that is not there). It computes in bf16 with the weights stored as
+    ``serving_cast`` leaves them (``dtype`` float32 keeps the fp32 weights
+    and computes in fp32); with ``cfg.matmul_impl`` int8 the load quantizes
+    them (from the bf16 weights, as JAX serving quantizes its cast tree)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_finetuned: CUDA is not available; pass --device cpu to serve "
+                           "on the CPU")
     if checkpoint:
         from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
 
         sd = load_checkpoint_dir(weights)["model"]
     else:
         sd = params_from_jax(load_params_npz(weights))
-    model = FinetuneModel(cfg, dtype=torch.bfloat16)
-    model.load_state_dict(serving_cast(sd), strict=True, assign=True)
+    model = FinetuneModel(cfg, dtype=dtype)
+    if dtype == torch.bfloat16:
+        sd = serving_cast(sd)
+    model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device).eval()
 
 
@@ -119,6 +154,10 @@ def main(argv=None):
     parser.add_argument("--method", default="avg", choices=["avg", "max", "canny"])
     parser.add_argument("--threshold", type=float, default=None)
     parser.add_argument("--max-batch-size", type=int, default=16)
+    parser.add_argument(
+        "--data-parallel", type=int, default=-1,
+        help="shard each window batch over this many CUDA devices (-1 = all visible, 1 = the "
+        "one of --device); on --device cpu the CPU alone")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--out", default="")
     parser.add_argument("overrides", nargs="*")
@@ -130,7 +169,7 @@ def main(argv=None):
                            checkpoint=bool(args.checkpoint))
     events = infer_long_file(
         args.wav, model, cfg, method=args.method, threshold=args.threshold,
-        max_batch_size=args.max_batch_size, device=device,
+        max_batch_size=args.max_batch_size, device=device, data_parallel=args.data_parallel,
     )
     payload = json.dumps(events, indent=2)
     if args.out:

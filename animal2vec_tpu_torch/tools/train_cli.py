@@ -11,7 +11,8 @@ field of the run (``dataset.batch_size=4``, ``model.depth=8``,
 ``pretrain.model.depth=8``, ``finetune.optimization.update_freq=1``).
 A finetune run starts from a pretraining checkpoint of this package with
 ``--pretrained`` (a manager's directory, a ``step_*`` directory or
-``best``); fairseq ``.pt`` checkpoints need the converter (ROADMAP A.6).
+``best``); a fairseq ``.pt`` goes through ``tools/convert_cli import --kind
+pretrain`` first.
 A run resumes from the latest checkpoint in its save directory. The run
 goes on the card unless ``--device cpu`` asks for the CPU.
 """
@@ -62,8 +63,8 @@ def load_pretrained(path: str):
     """The student's state dict of a pretraining checkpoint of this package."""
     if path.endswith(".pt"):
         raise NotImplementedError(
-            f"{path}: fairseq .pt checkpoints need the converter, which is not ported yet "
-            "(ROADMAP A.6); pass a checkpoint directory of this package")
+            f"{path}: convert a fairseq .pt first (tools/convert_cli import --kind pretrain, "
+            "ROADMAP A.6) and pass the checkpoint directory it writes")
     from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
 
     return load_checkpoint_dir(path)["model"]

@@ -118,7 +118,13 @@ class CheckpointManager:
         ``best_metric``, a better value than the best so far makes it
         ``best``."""
         self.wait()
-        saved = snapshot(state, extra)
+        self.save_snapshot(step, snapshot(state, extra), metrics)
+
+    def save_snapshot(self, step: int, saved: Dict[str, Any],
+                      metrics: Optional[Dict[str, float]] = None):
+        """``save`` of a ready ``snapshot``-layout dict (host tensors), as
+        the converter writes one."""
+        self.wait()
         best = False
         if metrics and self.best_metric and self.best_metric in metrics:
             value = float(metrics[self.best_metric])

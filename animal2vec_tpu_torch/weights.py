@@ -19,6 +19,10 @@ subset gives the teacher dict of ``train.state.PretrainState``):
   per layer, ``blocks.layers.{i}``;
 * ``pos_blocks_{i}`` -> ``pos_blocks.{i}``, a decoder's ``blocks_{i}`` ->
   ``blocks.{i}``.
+
+``params_to_jax`` is its inverse: a port state dict -> the JAX param tree
+(fp32 numpy arrays), which ``train/convert.export_pretrain`` names in the
+fairseq layout.
 """
 
 from __future__ import annotations
@@ -75,6 +79,61 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             name, t = _torch_entry(path, arr)
             sd[name] = t
     return sd
+
+
+_KERNEL_FROM_WEIGHT = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}  # inverses of _torch_entry's
+
+
+def _jax_entry(name: str, t: torch.Tensor):
+    """(JAX path, layer index of a stacked block or None, array) of one port
+    state dict entry."""
+    arr = t.detach().cpu()
+    arr = (arr.float() if arr.is_floating_point() else arr).numpy()
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        if arr.ndim == 1:
+            leaf = "scale"
+        else:
+            arr = np.transpose(arr, _KERNEL_FROM_WEIGHT[arr.ndim])
+            leaf = "kernel"
+            if mods[-2:-1] == ["local_encoder"] and re.fullmatch(r"conv_\d+", mods[-1]):
+                leaf = mods.pop() + "_kernel"
+    path, layer, i = [], None, 0
+    while i < len(mods):
+        m, nxt = mods[i], mods[i + 1] if i + 1 < len(mods) else ""
+        if m == "blocks" and nxt == "layers":
+            path.extend(("blocks", "block"))
+            layer = int(mods[i + 2])
+            i += 3
+        elif m in ("blocks", "pos_blocks") and nxt.isdigit():
+            path.append(f"{m}_{nxt}")
+            i += 2
+        else:
+            path.append(m)
+            i += 1
+    return tuple(path) + (leaf,), layer, np.ascontiguousarray(arr)
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Port state dict -> JAX params (nested dicts of numpy arrays, fp32 for
+    floating tensors): the inverse of ``params_from_jax``."""
+    tree: Dict = {}
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in state_dict.items():
+        path, layer, arr = _jax_entry(name, t)
+        if layer is None:
+            leaves = tree
+            for m in path[:-1]:
+                leaves = leaves.setdefault(m, {})
+            leaves[path[-1]] = arr
+        else:
+            stacks.setdefault(path, {})[layer] = arr
+    for path, layers in stacks.items():
+        node = tree
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.stack([layers[i] for i in range(len(layers))])
+    return tree
 
 
 def load_params_npz(path: str) -> Dict:

@@ -2,9 +2,11 @@
 """Drive the PyTorch port's a2v-large serving paths (bf16 and the int8
 modes), its finetune training path, its ViT-B/16 image serving path
 (post-LN and pre-LN, bf16 and the int8 modes), its data2vec-2
-pretraining paths (ViT-B/16 images and a2v-large audio) and its training
+pretraining paths (ViT-B/16 images and a2v-large audio), its training
 entry point (train_cli: pretraining, finetuning from it, resume; then
-infer_cli serving the finetuned checkpoint) once on one GPU.
+infer_cli serving the finetuned checkpoint) and its serving entry points
+(convert_cli, export_cli, aot_cli bundles served without model code) once
+on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -58,7 +60,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    random weights, bf16 serving cast): kernel path against plain path,
    launch counts per forward, no plain version called on a CUDA tensor;
 6. the serving path: three synthetic recordings (25 s, 65 s, 130 s) served
-   through infer_long_file in 10-s windows; then b32 throughput; then 5
+   through infer_long_file in 10-s windows; then b32 throughput (with a
+   sha256 of the b32 logits' bits, equal between trees whose serving
+   outputs agree bit for bit); then 5
    and 6 again with the same weights served with matmul_impl int8 and
    int8_attn (logits also against the bf16 model's);
 7. each kernel's time beside its plain version's, the PyTorch library
@@ -68,8 +72,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    kernels at the image serving shapes; the serving attention (#1, reading
    the (B, T, 3C) projection in place) and the training forward (#2 with
    lse and dropout, at b4) also by device time beside SDPA's, and the two
-   GEMM launches of the fused block (#6, at b32 and at the ViT-B/16
-   widths) and of the plain fused MLP (#8, at the ViT-B/16 widths) by
+   GEMM launches of the fused block (#6, at b32, at the ViT-B/16 widths
+   and, with dropout, at the training N 8000 and the pretraining student's
+   N 7500) and of the plain fused MLP (#8, at the ViT-B/16 widths) by
    device time beside F.linear at the same shapes, all with achieved
    TFLOP/s; #1 (uniform in place, and per-row positions with a
    mask) and #6 are also held against their plain versions on the timed
@@ -128,7 +133,21 @@ Phases, one line or more each; any failure raises and exits non-zero:
    and #6 once per block run; no plain version on a CUDA tensor; a fresh
    state restored from the step-3 checkpoint equal bit for bit to the live
    one; the resumed run starting at step 3 from the saved loader position;
-   events served. Prints the seconds of each part, steps/s and clips/s.
+   events served. Prints the seconds of each part, steps/s and clips/s;
+13. the serving entry points at a2v-large's width and depth: a fairseq-named
+   .pt made by the port's export_pretrain from a seeded pretraining model
+   (a seeded head, a cfg entry of a class that cannot be imported) through
+   convert_cli import --strict; export_cli over 24 synthetic 10-s clips at
+   batch 12 with --data-parallel -1 and 1 (predictions and embeddings in
+   npz: the card's machine has no h5py), the two outputs equal entry for
+   entry, launches per run and clips/s; aot_cli to a bf16 and an int8_attn
+   bundle at 16 x 10 s, each loaded by ServingBundle in a subprocess that
+   must import no model code (load time, first call with the kernel
+   library's load, launches of one forward counted by the custom ops:
+   #1 and #6 24 each in bf16, #10 48, #5q, #5 and #7 24 each in int8_attn,
+   no plain version on a CUDA tensor), its logits against the eager model's
+   on the same batch (MODEL_TOL max abs in bf16, INT8_MODEL_REL relative
+   norm in int8_attn; 0 expected) and its forward ms beside the eager one.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -137,6 +156,7 @@ The last two lines are a JSON object describing the kernels and
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -891,6 +911,8 @@ class PlainSpy:
         self.saved = []
         plain = {(m, f) for m, f in PLAIN_OF.values()} | {
             ("attention", "alibi_attention_plain"), ("attention", "attention_bwd_plain"),
+            ("attention", "quantize_qkv_int8_pass_plain"),
+            ("attention", "attention_int8_quantized_plain"),
             ("bias_attention", "bias_attention_bwd_plain")}
         for m, f in sorted(plain):
             mod = importlib.import_module(f"animal2vec_tpu_torch.ops.{m}")
@@ -1060,13 +1082,20 @@ def phase_serve(model, cfg, dev, mode="bf16"):
     return launches
 
 
+def logits_digest(logits: torch.Tensor) -> str:
+    """sha256 of a tensor's bits (equal in two trees whose outputs agree bit
+    for bit), the first 16 hex digits."""
+    return hashlib.sha256(logits.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def phase_throughput(model, card, dev, mode="bf16"):
     src = torch.from_numpy(
         np.random.default_rng(SEED + 2).normal(size=(32, WAV_LEN)).astype(np.float32)
     ).to(dev)
     with torch.inference_mode():
-        for _ in range(2):
-            model(src)
+        logits = model(src)["encoder_out"]
+        model(src)
         torch.cuda.synchronize()
         iters = 5
         reset_counts()
@@ -1077,7 +1106,8 @@ def phase_throughput(model, card, dev, mode="bf16"):
         dt = (time.perf_counter() - t0) / iters
         launched = counts()
     print(f"{mode} throughput b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch) on "
-          f"{card}; launches per b32 forward: {launch_line(launched)} over {iters}")
+          f"{card}; launches per b32 forward: {launch_line(launched)} over {iters}; b32 logits "
+          f"sha256 {logits_digest(logits)}")
     want = forward_launches(mode, model.cfg.n_blocks)
     if launched != {k: iters * v for k, v in want.items()}:
         raise AssertionError(f"b32 launches {launched} != {iters} x {want}")
@@ -1510,6 +1540,8 @@ def phase_kernel_times(dev):
         row(f"fused block + dropout, N {n} training",
             cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
             cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(n))
+        rows[f"fused block + dropout, N {n} training"].update(
+            block_gemm_splits(args, drop_b))
         # the a2v-large pretraining student's blocks: 60 x 125 kept tokens,
         # dropout 0.1
         ns = 60 * 125
@@ -1517,6 +1549,8 @@ def phase_kernel_times(dev):
         row(f"fused block + dropout, N {ns} pretrain student",
             cuda_ms(lambda: fused_block_mlp(*args, *drop_b)),
             cuda_ms(lambda: fused_block_plain(*args, *drop_b), iters=3), None, block_bound(ns))
+        rows[f"fused block + dropout, N {ns} pretrain student"].update(
+            block_gemm_splits(args, drop_b))
         del args
         torch.cuda.empty_cache()
         errs.update(int8_kernel_times(gen, dev, row, rows))
@@ -1582,13 +1616,14 @@ def gemm_splits(call, x, w1l, w2l, b1, b2):
     return split
 
 
-def block_gemm_splits(args):
+def block_gemm_splits(args, drop=()):
     """``gemm_splits`` of the fused block; ``args`` are fused_block_mlp's
-    (bf16 x, weights in the JAX layout)."""
+    (bf16 x, weights in the JAX layout), ``drop`` its dropout arguments
+    (seeds, rates) where the block trains."""
     from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
 
     x, w1, w2, b1, b2 = args[0], args[3], args[4], args[5], args[6]
-    return gemm_splits(lambda: fused_block_mlp(*args), x, w1.t().contiguous(),
+    return gemm_splits(lambda: fused_block_mlp(*args, *drop), x, w1.t().contiguous(),
                        w2.t().contiguous(), b1, b2)
 
 
@@ -2453,6 +2488,234 @@ def phase_entry(card, dev):
     return totals
 
 
+# phase 13: the serving entry points
+SERVE_CLIPS, SERVE_EXPORT_BATCH, BUNDLE_BATCH = 24, 12, 16
+SERVE_OVERRIDES = ("max_sample_size=80000",)
+# the serving ops' launches of one a2v-large forward (24 blocks) in each mode
+BUNDLE_LAUNCHES = {
+    "bf16": {"a2v::alibi_attention_serve": 24, "a2v::fused_block": 24},
+    "int8_attn": {"a2v::int8_dense": 48, "a2v::quantize_qkv_int8": 24,
+                  "a2v::alibi_attention_int8": 24, "a2v::fused_block_int8": 24},
+}
+# op name -> the kernels line's launch key
+OP_KEYS = {"a2v::alibi_attention_serve": "serve_attention", "a2v::fused_block": "block",
+           "a2v::int8_dense": "int8_dense", "a2v::quantize_qkv_int8": "int8_quant",
+           "a2v::alibi_attention_int8": "int8_attention", "a2v::fused_block_int8": "int8_block"}
+
+
+def save_unimportable(path, state):
+    """torch.save ``state`` with a ``cfg`` entry of a class that is gone when
+    the file is read, as fairseq pickles its config dataclasses."""
+    import types
+
+    mod = types.ModuleType("fairseq_cfg_stub")
+
+    class FairseqConfig:
+        def __init__(self):
+            self.task = {"sample_rate": 8000}
+
+    FairseqConfig.__module__, FairseqConfig.__qualname__ = mod.__name__, "FairseqConfig"
+    mod.FairseqConfig = FairseqConfig
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({**state, "cfg": FairseqConfig()}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def bundle_worker(bundle_dir: str, src_path: str, out_path: str) -> None:
+    """The bundle's serving process (run by phase 13 in a subprocess): load
+    the bundle with ServingBundle, time the load and the first call (which
+    loads the kernel library), run one counted forward on the batch in
+    ``src_path`` (logits to ``out_path``), time 5 more, and print one JSON
+    line with the times, the ops' launches, the plain-version calls on CUDA
+    tensors and every loaded module of the model code."""
+    from animal2vec_tpu_torch.kernels import ops as kernel_ops
+    from animal2vec_tpu_torch.serve import ServingBundle
+
+    t0 = time.perf_counter()
+    bundle = ServingBundle(bundle_dir)
+    load_s = time.perf_counter() - t0
+    src = torch.from_numpy(np.load(src_path)).cuda()
+    t0 = time.perf_counter()
+    bundle.forward(src)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernel_ops.reset_launches()
+    with PlainSpy() as spy:
+        logits = bundle.forward(src)
+        torch.cuda.synchronize()
+    launched = kernel_ops.launches()
+    np.save(out_path, logits.float().cpu().numpy())
+    ms = cuda_ms(lambda: bundle.forward(src), iters=5, warmup=1)
+    print(json.dumps({
+        "load_s": load_s, "load_split_s": bundle.load_seconds, "first_call_s": first_s,
+        "forward_ms": ms, "launches": launched,
+        "plain_cuda_calls": spy.cuda_calls,
+        "model_modules": sorted(m for m in sys.modules
+                                if m.startswith("animal2vec_tpu_torch.models")),
+    }))
+
+
+def phase_serving_entry(card, dev):
+    """13. The serving entry points at a2v-large's width and depth: a
+    fairseq-named .pt from a seeded pretraining model (the port's
+    export_pretrain, a seeded head, an unimportable cfg) through convert_cli
+    import; export_cli over 24 synthetic 10-s clips at batch 12 with
+    --data-parallel -1 and 1 (predictions and embeddings as npz: the card's
+    machine has no h5py), equal files; aot_cli to a bf16 and an int8_attn
+    bundle at 16 x 10 s, each loaded by ServingBundle in a subprocess that
+    imports no model code, its logits against the eager model's on the same
+    batch. Returns the launches of the phase's runs by kernels-line key."""
+    from animal2vec_tpu_torch.config import FinetuneConfig, PretrainConfig, apply_overrides
+    from animal2vec_tpu_torch.data.synthetic import generate
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.tools import aot_cli, convert_cli, export_cli
+    from animal2vec_tpu_torch.tools.infer_cli import load_finetuned
+    from animal2vec_tpu_torch.train.convert import export_pretrain
+
+    totals = dict.fromkeys(_counted(), 0)
+    seconds = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the fairseq .pt and its conversion
+        t0 = time.perf_counter()
+        pcfg = PretrainConfig()
+        pre = build_pretrain_model(pcfg, seed=SEED + 30, device="cpu")
+        sd = {f"w2v_encoder.w2v_model.{k}": torch.from_numpy(v)
+              for k, v in export_pretrain(pre.state_dict(), pcfg.model).items()}
+        del pre
+        gen = torch.Generator().manual_seed(SEED + 31)
+        c, n_cls = pcfg.model.embed_dim, len(pcfg.model.labels)
+        bound = (6.0 / (c + n_cls)) ** 0.5
+        sd["w2v_encoder.proj.weight"] = (torch.rand((n_cls, c), generator=gen) * 2 - 1) * bound
+        sd["w2v_encoder.proj.bias"] = torch.zeros(n_cls)
+        pt = os.path.join(tmp, "a2v_large_finetuned.pt")
+        save_unimportable(pt, {"model": sd})
+        del sd
+        seconds["make_pt"] = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "converted")
+        t0 = time.perf_counter()
+        if convert_cli.main(["import", "--pt", pt, "--out", ckpt, "--strict"]) != 0:
+            raise AssertionError("serving entry: convert_cli import --strict failed")
+        seconds["convert"] = time.perf_counter() - t0
+        print(f"serving entry: fairseq .pt ({os.path.getsize(pt) / 2**30:.2f} GiB) made in "
+              f"{seconds['make_pt']:.2f} s, converted to {ckpt} in {seconds['convert']:.2f} s")
+
+        # export_cli over a synthetic manifest, on all visible cards and on one
+        data = generate(os.path.join(tmp, "data"), n_clips=SERVE_CLIPS, clip_seconds=10.0,
+                        seed=SEED + 32, label_ext="npz")
+        outs, rates = {}, {}
+        n_blocks = FinetuneConfig().n_blocks
+        for dp in ("-1", "1"):
+            out = os.path.join(tmp, f"export_dp{dp}")
+            reset_counts()
+            t0 = time.perf_counter()
+            with PlainSpy() as spy:
+                line = export_cli.main([
+                    "--manifest-path", data, "--split", "pretrain", "--checkpoint", ckpt,
+                    "--out-path", out, "--batch-size", str(SERVE_EXPORT_BATCH),
+                    "--export-predictions", "--export-embeddings", "--data-parallel", dp,
+                    "--label-ext", "npz", "--output-format", "npz", "--device", dev.type,
+                    *SERVE_OVERRIDES])
+            torch.cuda.synchronize()
+            seconds[f"export_cli dp {dp}"] = time.perf_counter() - t0
+            got = counts()
+            for k, v in got.items():
+                totals[k] += v
+            n_fwd = SERVE_CLIPS // SERVE_EXPORT_BATCH
+            want = {k: n_fwd * v for k, v in forward_launches("bf16", n_blocks).items()}
+            rates[dp] = line["clips_per_sec"]
+            print(f"serving entry: export_cli --data-parallel {dp}: {line['clips_per_sec']} "
+                  f"clips/s over {line['devices']} device(s) ({line['clips_timed']} clips "
+                  f"timed) on {card}; {seconds[f'export_cli dp {dp}']:.2f} s from the call; "
+                  f"launches {launch_line(got)}; plain-version calls on CUDA tensors "
+                  f"{spy.cuda_calls}")
+            if got != want or spy.cuda_calls or \
+                    line["clips_timed"] != SERVE_CLIPS - SERVE_EXPORT_BATCH:
+                raise AssertionError(f"serving entry: export_cli launches {got} != {want}, a "
+                                     f"plain call or {line['clips_timed']} clips timed")
+            outs[dp] = {}
+            for name in sorted(os.listdir(out)):
+                with np.load(os.path.join(out, name)) as z:
+                    outs[dp][name] = {k: z[k] for k in z.files}
+        same = outs["-1"].keys() == outs["1"].keys() and all(
+            a.keys() == outs["1"][name].keys()
+            and all(np.array_equal(a[k], outs["1"][name][k]) for k in a)
+            for name, a in outs["-1"].items())
+        n_groups = {name: len({k.split("/")[0] for k in a}) for name, a in outs["1"].items()}
+        print(f"serving entry: export_cli files {n_groups} (clips per file); --data-parallel -1 "
+              f"and 1 equal in every entry: {same}")
+        if not same or set(n_groups.values()) != {SERVE_CLIPS}:
+            raise AssertionError("serving entry: the -1 and 1 exports differ or miss clips")
+        del outs
+
+        # aot_cli bundles, each loaded in a serving process without model code
+        src = np.random.default_rng(SEED + 33).normal(size=(BUNDLE_BATCH, WAV_LEN)).astype(
+            np.float32)
+        src_path = os.path.join(tmp, "src.npy")
+        np.save(src_path, src)
+        bundles = {}
+        for mode in ("bf16", "int8_attn"):
+            bundle = os.path.join(tmp, f"bundle_{mode}")
+            over = [*SERVE_OVERRIDES, f"matmul_impl={mode}"]
+            t0 = time.perf_counter()
+            aot_cli.main(["--checkpoint", ckpt, "--out", bundle, "--batch", str(BUNDLE_BATCH),
+                          "--seconds", "10", "--device", dev.type, *over])
+            seconds[f"aot_cli {mode}"] = time.perf_counter() - t0
+            out_path = os.path.join(tmp, f"logits_{mode}.npy")
+            t0 = time.perf_counter()
+            worker_code = "import sys, chip_smoke; chip_smoke.bundle_worker(*sys.argv[1:])"
+            res = subprocess.run([sys.executable, "-c", worker_code, bundle, src_path, out_path],
+                                 cwd=tmp, capture_output=True, text=True,
+                                 env=dict(os.environ, PYTHONPATH=root))
+            seconds[f"bundle process {mode}"] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"serving entry: the {mode} bundle process failed:\n"
+                                     f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            worker = json.loads(res.stdout.strip().splitlines()[-1])
+            got_logits = torch.from_numpy(np.load(out_path))
+            model = load_finetuned(ckpt, apply_overrides(FinetuneConfig(), over), dev,
+                                   checkpoint=True)
+            x = torch.from_numpy(src).to(dev)
+            with torch.inference_mode():
+                want_logits = model(x)["encoder_out"].float().cpu()
+                eager_ms = cuda_ms(lambda: model(x), iters=5, warmup=1)
+            del model
+            torch.cuda.empty_cache()
+            gap = (got_logits - want_logits).abs().max().item()
+            rel = rel_norm(got_logits, want_logits)
+            launched = {k: v for k, v in worker["launches"].items() if v}
+            for name, v in worker["launches"].items():
+                totals[OP_KEYS[name]] += v
+            print(f"serving entry: {mode} bundle b{BUNDLE_BATCH} x 10 s: aot_cli "
+                  f"{seconds[f'aot_cli {mode}']:.2f} s; serving process "
+                  f"{seconds[f'bundle process {mode}']:.2f} s (ServingBundle load "
+                  f"{worker['load_s']:.2f} s: programs {worker['load_split_s']['programs']:.2f}, "
+                  f"weights {worker['load_split_s']['params']:.2f}; first call with the kernel "
+                  f"library's load "
+                  f"{worker['first_call_s']:.2f} s); forward {worker['forward_ms']:.1f} ms "
+                  f"against the eager model's {eager_ms:.1f} ms on {card}; launches per bundle "
+                  f"forward {launched}; plain-version calls on CUDA tensors "
+                  f"{worker['plain_cuda_calls']}; model modules loaded {worker['model_modules']}")
+            print(f"serving entry: {mode} bundle logits against the eager model's: max abs "
+                  f"{gap:.3e}, relative norm {rel:.3e} (0 expected; tolerance "
+                  + (f"{MODEL_TOL} max abs)" if mode == "bf16" else f"{INT8_MODEL_REL} "
+                     "relative norm)"))
+            if (launched != BUNDLE_LAUNCHES[mode] or worker["plain_cuda_calls"]
+                    or worker["model_modules"]):
+                raise AssertionError(f"serving entry: {mode} bundle launches {launched}, a plain "
+                                     f"call or model code in the serving process")
+            if not (gap <= MODEL_TOL if mode == "bf16" else rel <= INT8_MODEL_REL):
+                raise AssertionError(f"serving entry: the {mode} bundle's logits stray")
+            bundles[mode] = dict(worker, eager_ms=eager_ms, gap=gap)
+            shutil.rmtree(bundle)
+    print(f"serving entry on {card}: seconds per part "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; export_cli clips/s -1 {rates['-1']}, 1 {rates['1']}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2524,6 +2787,8 @@ def main() -> int:
     phase_pretrain_grads(a2v, dev, 1, "audio pretrain (a2v-large)")
     pretrain = {k: pre_image[k] + pre_image_ln[k] + pre_audio[k] for k in pre_image}
     entry_launches = phase_entry(card, dev)
+    torch.cuda.empty_cache()
+    serving_entry = phase_serving_entry(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -2626,6 +2891,13 @@ def main() -> int:
             e["launches_pretrain"] = pretrain[key]
             e["launches_entry"] = entry_launches[key]
             e["launches"] += pretrain[key] + entry_launches[key]
+    # the serving entry points' (phase 13: export_cli twice, one forward of
+    # each bundle in its serving process)
+    for e, key in zip(kernels, ("serve_attention", None, None, None, "block", "int8_dense",
+                                "int8_block", "int8_attention", "int8_quant")):
+        if key:
+            e["launches_serving_entry"] = serving_entry[key]
+            e["launches"] += serving_entry[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -186,12 +186,17 @@ def test_port_imports_no_jax():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1, out.stdout  # chip_smoke printed nothing on import
     res = json.loads(lines[0])
-    assert len(res["names"]) >= 56
+    assert len(res["names"]) >= 67
     assert {"animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
             "animal2vec_tpu_torch.ops.attention", "animal2vec_tpu_torch.ops.bias_attention",
             "animal2vec_tpu_torch.train.pretrain", "animal2vec_tpu_torch.train.state",
             "animal2vec_tpu_torch.data.dataset", "animal2vec_tpu_torch.train.loop",
-            "animal2vec_tpu_torch.train.checkpoint", "animal2vec_tpu_torch.tools.train_cli"
+            "animal2vec_tpu_torch.train.checkpoint", "animal2vec_tpu_torch.tools.train_cli",
+            "animal2vec_tpu_torch.kernels.ops", "animal2vec_tpu_torch.serve",
+            "animal2vec_tpu_torch.parallel.serving", "animal2vec_tpu_torch.train.convert",
+            "animal2vec_tpu_torch.tools.convert_cli", "animal2vec_tpu_torch.tools.export_cli",
+            "animal2vec_tpu_torch.tools.aot_cli", "animal2vec_tpu_torch.tools.manifest_cli",
+            "animal2vec_tpu_torch.tools.prepare_data_cli", "animal2vec_tpu_torch.data.stratify",
             } <= set(res["names"])
     assert res["loaded"] == [], res["loaded"]
 
@@ -227,6 +232,9 @@ def test_fuse_predict_copy_matches_original(method):
     ["-m", "animal2vec_tpu_torch.tools.compare_bias_attention", "--other-csrc", "."],
     ["-m", "animal2vec_tpu_torch.tools.profiler_windows", "--seconds", "1"],
     ["-m", "animal2vec_tpu_torch.tools.train_cli", "--recipe", "finetune_100"],
+    ["-m", "animal2vec_tpu_torch.tools.export_cli", "--manifest-path", "m", "--checkpoint", "c",
+     "--out-path", "o"],
+    ["-m", "animal2vec_tpu_torch.tools.aot_cli", "--checkpoint", "c", "--out", "o"],
 ])
 def test_card_scripts_refuse_without_cuda(argv):
     """Without a CUDA card the on-card scripts exit non-zero and print no
