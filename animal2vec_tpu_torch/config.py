@@ -3,9 +3,9 @@ fields (``FinetuneConfig``) and the training recipe (``FinetuneTrainConfig``);
 the image serving model (``ImageConfig``); data2vec-2 pretraining
 (``PretrainConfig``: the a2v-large recipe, and ``PretrainConfig.vit_b16``);
 and a training run (``RunConfig``: the recipe with its data, batching,
-validation, checkpoint and logging groups, ``RunConfig.finetune_100`` and
-``RunConfig.a2v_large_pretrain``), changed by dotted ``key=value``
-overrides (``apply_overrides``).
+validation, checkpoint, logging and device-layout groups,
+``RunConfig.finetune_100`` and ``RunConfig.a2v_large_pretrain``), changed
+by dotted ``key=value`` overrides (``apply_overrides``).
 
 The JAX package reads a YAML tree (``animal2vec_tpu/config.py``); the port
 needs only the fields that the finetuned forward path and long-file
@@ -455,6 +455,32 @@ class CheckpointConfig:
 
 
 @dataclass(frozen=True)
+class DistributedConfig:
+    """``distributed.*``: the device layout (JAX ``DistributedConfig``,
+    ``animal2vec_tpu/config.py:126-138``). ``data_parallel`` ranks, one
+    process per card (-1: every visible card); the port runs data
+    parallelism only: ``model_parallel``, ``pipeline_parallel`` > 1 and
+    ``fsdp`` raise (ROADMAP A.10)."""
+
+    data_parallel: int = -1
+    model_parallel: int = 1
+    fsdp: bool = False
+    pipeline_parallel: int = 1
+
+    def __post_init__(self):
+        if self.data_parallel == 0 or self.data_parallel < -1:
+            raise ValueError(f"distributed.data_parallel={self.data_parallel}: -1 (every "
+                             "visible card) or a rank count >= 1")
+        for name, on in (("model_parallel", self.model_parallel > 1),
+                         ("pipeline_parallel", self.pipeline_parallel > 1),
+                         ("fsdp", self.fsdp)):
+            if on:
+                raise NotImplementedError(
+                    f"distributed.{name} is not ported: the port runs data parallelism only "
+                    "(ROADMAP A.10)")
+
+
+@dataclass(frozen=True)
 class SegmentationConfig:
     """``criterion.*`` of validation's event scoring beside the model's
     thresholds: whether it runs and how frames fuse into events."""
@@ -479,6 +505,7 @@ class RunConfig:
     dataset: DatasetConfig = DatasetConfig()
     checkpoint: CheckpointConfig = CheckpointConfig()
     criterion: SegmentationConfig = SegmentationConfig()
+    distributed: DistributedConfig = DistributedConfig()
 
     def __post_init__(self):
         if (self.finetune is None) == (self.pretrain is None):

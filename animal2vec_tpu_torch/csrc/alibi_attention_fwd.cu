@@ -7,8 +7,10 @@
 // (per-row positions, any number of key blocks, the lse and the dropout).
 //
 //   out[b,i,h] = sum_j keep_ij / (1 - r) * softmax_j(s_ij) . v_j
-//   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - pos_j| (0 when either
+//   s_ij = q_i . k_j / sqrt(D) - slope_h * |pos_i - posk_j| (0 when either
 //          position is < 0 and the sentinel rule is on), key j padded -> -1e9
+//   posk = pos, or the keys' own positions (ring attention, whose key
+//          blocks rotate past the queries: pallas_attention.py positions_k)
 //   lse[b*H+h, i] = m_i + log(max(l_i, 1e-30))   (when an lse is asked for)
 //
 // As in the TPU kernel padded keys score a finite -1e9, so a query row
@@ -114,6 +116,7 @@ struct FwdArgs {
   long long out_b, out_h, out_t;           // elements of out
   int H, T;
   int pos_row;   // elements between batch rows of positions (0: batch-uniform)
+  int posk_row;  // elements between batch rows of the key positions
   int mask_row;  // elements between batch rows of the padding mask
   float scale;   // D^-0.5, times log2(e) when serving
   float slope_unit;  // log2(e) when serving, else 1
@@ -129,7 +132,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const float* __restrict__ slopes,  // (H,)
-                 const int* __restrict__ pos,       // (1 or B, T)
+                 const int* __restrict__ pos,       // (1 or B, T) of the queries
+                 const int* __restrict__ pos_k,     // (1 or B, T) of the keys
                  const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
                  bf16* __restrict__ out,
                  float* __restrict__ lse,           // null or (B*H, T)
@@ -150,6 +154,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + head;
   const bf16* vb = v + head;
   const int* posr = pos + static_cast<long long>(b) * a.pos_row;
+  const int* poskr = pos_k + static_cast<long long>(b) * a.posk_row;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<long long>(b) * a.mask_row : nullptr;
   const int n_tiles = (T + kTile - 1) / kTile;
 
@@ -163,7 +168,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto key_entry = [&](int kt) {
     const int key = kt * kTile + tid;
     if (key >= T) return make_float2(0.f, -INFINITY);
-    return make_float2(static_cast<float>(posr[key]),
+    return make_float2(static_cast<float>(poskr[key]),
                        HAS_MASK && mrow[key] ? kMasked : INFINITY);
   };
 
@@ -332,30 +337,30 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
 int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
-           const float* slopes, const int* pos, const uint8_t* mask, bf16* out, float* lse,
-           const FwdArgs& a) {
+           const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask, bf16* out,
+           float* lse, const FwdArgs& a) {
   constexpr auto kernel = alibi_fwd_kernel<HAS_MASK, HAS_SENTINEL, TRAIN, DROP>;
   // the shared-memory limit above 48 KB, raised once per process and instance
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, mask, out, lse, a);
+  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, pos_k, mask, out, lse, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool TRAIN, bool DROP>
 int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const bf16* q,
              const bf16* k, const bf16* v, const float* slopes, const int* pos,
-             const uint8_t* mask, bf16* out, float* lse, const FwdArgs& a) {
+             const int* pos_k, const uint8_t* mask, bf16* out, float* lse, const FwdArgs& a) {
   if (has_mask)
-    return has_sentinel
-               ? launch<true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse, a)
-               : launch<true, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse,
-                                                  a);
-  return has_sentinel
-             ? launch<false, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse, a)
-             : launch<false, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, mask, out, lse,
-                                                 a);
+    return has_sentinel ? launch<true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
+                                                          mask, out, lse, a)
+                        : launch<true, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
+                                                           mask, out, lse, a);
+  return has_sentinel ? launch<false, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
+                                                         mask, out, lse, a)
+                      : launch<false, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
+                                                          mask, out, lse, a);
 }
 
 }  // namespace
@@ -365,14 +370,16 @@ int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const 
 // strides (stride_b, stride_t, stride_h, 1), 16-byte aligned, strides
 // multiples of 8; out: bf16 (B, T, H, D) with strides (out_b, out_t, out_h,
 // 1), 16-byte aligned, strides multiples of 8; slopes fp32 (H,); positions
-// int32 (pos_per_row ? B : 1, T); mask null or uint8 (mask_per_row ? B : 1,
+// int32 (pos_per_row ? B : 1, T); key positions null (the positions) or
+// int32 (posk_per_row ? B : 1, T); mask null or uint8 (mask_per_row ? B : 1,
 // T); lse null or fp32 (B*H, T). A launch with an lse or a nonzero dropout
 // threshold runs the training instances (scores in natural units), one
 // with neither the serving ones. Returns a cudaError_t.
 extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void* v,
                                        long long stride_b, long long stride_t,
                                        long long stride_h, const void* slopes, const void* pos,
-                                       int pos_per_row, const void* mask, int mask_per_row,
+                                       int pos_per_row, const void* pos_k, int posk_per_row,
+                                       const void* mask, int mask_per_row,
                                        void* out, long long out_b, long long out_t,
                                        long long out_h, void* lse, int B, int H, int T, int D,
                                        int has_sentinel, float sm_scale, int seed,
@@ -392,18 +399,21 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
   const auto* vp = static_cast<const bf16*>(v);
   const auto* sl = static_cast<const float*>(slopes);
   const auto* p = static_cast<const int*>(pos);
+  const auto* pk = pos_k != nullptr ? static_cast<const int*>(pos_k) : p;
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
   auto* ls = static_cast<float*>(lse);
   const bool train = ls != nullptr || thresh != 0u;
   const FwdArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T,
-                  pos_per_row ? T : 0, mask_per_row ? T : 0,
+                  pos_per_row ? T : 0,
+                  (pos_k != nullptr ? posk_per_row : pos_per_row) ? T : 0, mask_per_row ? T : 0,
                   train ? sm_scale : sm_scale * kLog2e, train ? 1.f : kLog2e,
                   static_cast<uint32_t>(seed), thresh, keep_scale};
   const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0;
   if (thresh != 0u)
-    return dispatch<true, true>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
+    return dispatch<true, true>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls, a);
   if (train)
-    return dispatch<true, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
-  return dispatch<false, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, mk, o, ls, a);
+    return dispatch<true, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls,
+                                 a);
+  return dispatch<false, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls, a);
 }

@@ -138,8 +138,8 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
         x1 = gelu_erf(x1);
       }
       if (DROP) {
-        x0 *= drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale);
-        x1 *= drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale);
+        x0 *= drop_factor(drop.seed, drop.row0 + row, col, drop.thresh, drop.keep_scale);
+        x1 *= drop_factor(drop.seed, drop.row0 + row, col + 1, drop.thresh, drop.keep_scale);
       }
       *reinterpret_cast<uint32_t*>(so + rl * kLdo + cl) = pack_bf16(x0, x1);
     }

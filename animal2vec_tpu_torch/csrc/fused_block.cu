@@ -41,14 +41,16 @@
 // w2t: (C, M) bf16 (nn.Linear layout); h: (N, M) bf16 scratch; LayerNorm
 // scales/biases and b1 (M), b2 (C) fp32. seeds are the three int32 dropout
 // seeds [after GELU, after fc2, post-mlp]; a threshold of 0 turns a site
-// off (act_thresh covers the first two sites). Returns a cudaError_t.
+// off (act_thresh covers the first two sites); the masks' rows start at
+// row0 (a data-parallel rank's first global row). Returns a cudaError_t.
 extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void* ln1_bias,
                                const void* w1t, const void* b1, const void* w2t, const void* b2,
                                const void* ln2_scale, const void* ln2_bias, void* r, void* h,
                                void* t, void* x_out, int N, int C, int M, float eps,
                                int seed_act, int seed_fc2, int seed_post,
                                unsigned int act_thresh, float act_scale,
-                               unsigned int post_thresh, float post_scale, void* stream) {
+                               unsigned int post_thresh, float post_scale, unsigned int row0,
+                               void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
   if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
@@ -60,9 +62,9 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
   auto* hb = static_cast<bf16*>(h);
   auto* tb = static_cast<bf16*>(t);
   const int ln_blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
-  const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale};
-  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale};
-  const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale};
+  const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale, row0};
+  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale, row0};
+  const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale, row0};
   cudaError_t err;
 
   ln_rows_kernel<false, false, false><<<ln_blocks, kLnThreads, 0, s>>>(

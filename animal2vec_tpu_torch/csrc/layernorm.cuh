@@ -46,10 +46,11 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
               __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(t + base + c)[p]);
           if (DROP) {
             const int col = c + 2 * p;
+            const uint32_t grow = drop.row0 + row;
             tv.x = __bfloat162float(__float2bfloat16_rn(
-                tv.x * drop_factor(drop.seed, row, col, drop.thresh, drop.keep_scale)));
+                tv.x * drop_factor(drop.seed, grow, col, drop.thresh, drop.keep_scale)));
             tv.y = __bfloat162float(__float2bfloat16_rn(
-                tv.y * drop_factor(drop.seed, row, col + 1, drop.thresh, drop.keep_scale)));
+                tv.y * drop_factor(drop.seed, grow, col + 1, drop.thresh, drop.keep_scale)));
           }
           v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
           v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));

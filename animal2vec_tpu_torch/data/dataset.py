@@ -5,10 +5,10 @@ The port of ``animal2vec_tpu/data/dataset.py``'s ``AudioLabelDataset``,
 ``pad_or_crop`` and ``BatchLoader``: the same items, crops, padding,
 normalization, frame targets, length buckets, seeded epoch shuffle,
 leading ``accum`` axis for training, ``n_valid`` of the last eval group,
-checkpointable (epoch, position) and thread prefetch, so one directory
-gives the same batches bit for bit (``tests/test_torch_data.py``). Left
-out: host sharding (one process reads every item) and the optional C++
-batch decoder. Batches leave as torch tensors (``id``, ``source``,
+checkpointable (epoch, position), host sharding and thread prefetch, so
+one directory gives the same batches bit for bit (``tests/test_torch_data.py``,
+``tests/test_torch_distributed.py``). Left out: the optional C++ batch
+decoder. Batches leave as torch tensors (``id``, ``source``,
 ``valid_len``, ``target``, ``padding_mask``, ``n_valid`` as the JAX batch
 has them), in pinned memory with ``pin_memory``.
 
@@ -17,6 +17,13 @@ has them), in pinned memory with ``pin_memory``.
   lengths, each with its batch size scaled to the same budget.
 * Labels are rasterized at the conv feature rate (``ops.frames``).
 * Source and target crops are taken at the same relative position.
+* Host sharding: a data-parallel rank is a JAX host (``host_index`` =
+  rank, ``host_count`` = world size). A rank reads every ``host_count``-th
+  item of the epoch's order from its ``host_index`` and groups them into
+  its own batches of B = max_tokens // T items, so the global batch is
+  world x B ("per replica", as the recipes and the reference's DDP have
+  it). Evaluation keeps ``drop_last=False`` and ``n_valid``: ranks may hold
+  unequal counts of items, and none.
 """
 
 from __future__ import annotations
@@ -167,6 +174,8 @@ class BatchLoader:
         seed: int = 1,
         drop_last: bool = True,
         num_workers: int = 4,
+        host_index: int = 0,
+        host_count: int = 1,
         train: bool = True,
         bucket_lengths: Optional[Sequence[int]] = None,
         batch_multiple: int = 1,
@@ -198,6 +207,8 @@ class BatchLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
+        self.host_index = host_index
+        self.host_count = host_count
         self.train = train
         self.pin_memory = pin_memory
         self.epoch = 0
@@ -232,14 +243,16 @@ class BatchLoader:
     def __len__(self) -> int:
         if self.buckets is not None:
             n = 0
-            counts = np.bincount(self._item_bucket, minlength=len(self.buckets))
+            counts = np.bincount(
+                self._item_bucket[np.arange(len(self.dataset))[self.host_index::self.host_count]],
+                minlength=len(self.buckets))
             for bi, cnt in enumerate(counts):
                 group = self._bucket_bs[bi] * self.accum
                 n += cnt // group
                 if not self.drop_last and cnt % group:
                     n += 1
             return int(n)
-        n_items = len(self.dataset)
+        n_items = len(self.dataset) // self.host_count
         group = self.batch_size * self.accum
         n = n_items // group
         if not self.drop_last and n_items % group:
@@ -252,7 +265,7 @@ class BatchLoader:
             order = np.random.default_rng(self.seed + self.epoch).permutation(n)
         else:
             order = np.arange(n)
-        return order
+        return order[self.host_index::self.host_count]
 
     def _make_item(
         self, idx: int, rng: np.random.Generator, length: Optional[int] = None
@@ -306,8 +319,8 @@ class BatchLoader:
     def _epoch_plan(self) -> List[Tuple[np.ndarray, int, int]]:
         """Deterministic (idxs, clip_len, batch_size) groups for this epoch.
 
-        Without buckets: contiguous groups of the shuffled order at the fixed
-        target length. With buckets: per-bucket grouping at that
+        Without buckets: contiguous groups of the shuffled host order at the
+        fixed target length. With buckets: per-bucket grouping at that
         bucket's length/batch size, group order mixed by the epoch seed so
         the lengths are spread through the epoch rather than sorted."""
         order = self._order()
@@ -336,6 +349,10 @@ class BatchLoader:
             len(ranges)
         )
         return [ranges[int(i)] for i in mix]
+
+    def remaining(self) -> int:
+        """The batch groups of this epoch left from ``position``."""
+        return max(0, len(self._epoch_plan()) - self.position)
 
     def _to_torch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}

@@ -7,22 +7,31 @@ first use (never at import), into ``animal2vec_tpu_torch/_build/<hash>/``
 keyed by a hash of the sources and flags, so a fresh checkout builds once
 and a changed source rebuilds. ``nvcc``'s register/spill report
 (``-Xptxas -v``) is kept beside the library as ``build.log``.
+
+Ranks that start together (data parallelism, one process per card) share
+the build directory: a file lock (``build.lock``, ``fcntl.flock``) lets one
+process compile while the others wait for it, up to ``LOCK_TIMEOUT_S``,
+and then load its library instead of compiling the same sources again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 LIB_NAME = "liba2v_kernels.so"
+LOCK_TIMEOUT_S = 900.0  # a rank waits this long for another rank's build
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,11 +46,12 @@ _F = ctypes.c_float
 _DROP = (_I, _U, _F)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
-    # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, mask,
-    # mask_per_row, out, out_stride_b, out_stride_t, out_stride_h, lse, B, H,
-    # T, D, has_sentinel, sm_scale, seed, thresh, keep_scale, stream
-    "a2v_alibi_attention_fwd": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _L, _L, _L, _P)
-    + (_I,) * 5 + (_F,) + _DROP + (_P,),
+    # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, pos_k,
+    # posk_per_row, mask, mask_per_row, out, out_stride_b, out_stride_t,
+    # out_stride_h, lse, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
+    # keep_scale, stream
+    "a2v_alibi_attention_fwd": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _I, _P, _L, _L,
+                                _L, _P) + (_I,) * 5 + (_F,) + _DROP + (_P,),
     # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
     # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
     # keep_scale, stream
@@ -52,8 +62,8 @@ SIGNATURES = {
     + _DROP + (_P,),
     # x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale, ln2_bias, r, h, t,
     # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
-    # act_scale, post_thresh, post_scale, stream
-    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _P),
+    # act_scale, post_thresh, post_scale, row0, stream
+    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P),
     # x, w_q, w_s, bias, x_q, x_s, out, N, K, M, stream
     "a2v_int8_dense": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,
@@ -116,14 +126,41 @@ def find_nvcc() -> str:
     )
 
 
+@contextlib.contextmanager
+def _build_lock(out_dir: Path, timeout: float = LOCK_TIMEOUT_S):
+    """Hold ``out_dir/build.lock`` exclusively; raise after ``timeout`` s."""
+    with open(out_dir / "build.lock", "a") as f:
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{out_dir}: another process held the kernel build lock "
+                                       f"for {timeout:.0f} s")
+                time.sleep(0.2)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
-    """Compile the kernels if this source hash has no library yet; return
-    the library's path."""
+    """Compile the kernels if this source hash has no library yet (one
+    process at a time, under the build lock); return the library's path."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    with _build_lock(out_dir):
+        if lib.is_file():  # built by the process that held the lock
+            return lib
+        return _compile(out_dir, lib)
+
+
+def _compile(out_dir: Path, lib: Path) -> Path:
     nvcc = find_nvcc()
     tag = f"{os.getpid()}.tmp"
     objs, jobs = [], []

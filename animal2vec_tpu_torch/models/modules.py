@@ -173,7 +173,8 @@ class AltAttention(nn.Module):
             return int8_dense(out, proj_q, proj_s) + self.proj.bias.to(x.dtype)
         seed, rate = None, 0.0
         if self.training and self.attn_drop > 0.0:
-            seed, rate = _need(rngs, "attention dropout").int32_seeds(1)[0], self.attn_drop
+            seed, rate = _need(rngs, "attention dropout").attention_seed(self.num_heads), \
+                self.attn_drop
         out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask, rate,
                                   seed)
         out = _linear(out, self.proj)
@@ -288,6 +289,7 @@ class AltBlock(nn.Module):
             x, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
             fc2.weight.to(x.dtype).t(), fc1.bias, fc2.bias, self.norm2.weight,
             self.norm2.bias, self.eps, seeds, act_rate, post_rate,
+            row0=0 if seeds is None else rngs.row0 * x.shape[1],
         )
 
 

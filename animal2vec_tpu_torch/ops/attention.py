@@ -74,15 +74,17 @@ DEAD_LSE = -5e8  # an lse below this marks a query row whose keys are all padded
 Q_TILE = 64  # query rows per block of the dq kernel: one slope partial each
 
 
-def _scores(qkv, slopes, positions, padding_mask, has_sentinel):
-    """fp32 scores (B, H, T, T) and the ALiBi distances (1 or B, T, T)."""
+def _scores(qkv, slopes, positions, padding_mask, has_sentinel, positions_k=None):
+    """fp32 scores (B, H, T, T) and the ALiBi distances (1 or B, T, T); the
+    keys' positions are ``positions_k`` where given."""
     q, k, _ = qkv.unbind(0)  # (B, H, T, D) each
     d = q.shape[-1]
     logits = torch.matmul(q.float() * d**-0.5, k.float().transpose(-1, -2))
     pos = positions.float()  # (1 or B, T)
-    dist = (pos[:, :, None] - pos[:, None, :]).abs()
+    posk = pos if positions_k is None else positions_k.float()
+    dist = (pos[:, :, None] - posk[:, None, :]).abs()
     if has_sentinel:
-        dist = dist.masked_fill((pos[:, :, None] < 0) | (pos[:, None, :] < 0), 0.0)
+        dist = dist.masked_fill((pos[:, :, None] < 0) | (posk[:, None, :] < 0), 0.0)
     logits = logits + (-dist)[:, None] * slopes.float()[None, :, None, None]
     if padding_mask is not None:
         logits = logits.masked_fill(padding_mask.bool()[:, None, None, :], NEG_INF)
@@ -107,10 +109,13 @@ def alibi_attention_plain(
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     return_lse: bool = False,
+    positions_k: Optional[torch.Tensor] = None,
 ):
     """Materialized-score reference of the forward kernel (any device);
-    differentiable. With ``return_lse`` returns (out, lse (B*H, T) fp32)."""
-    logits, _ = _scores(qkv, slopes, positions, padding_mask, has_sentinel)
+    differentiable. With ``return_lse`` returns (out, lse (B*H, T) fp32);
+    ``positions_k`` (1 or B, T) are the keys' positions (default
+    ``positions``)."""
+    logits, _ = _scores(qkv, slopes, positions, padding_mask, has_sentinel, positions_k)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0:
         b, h, t, _ = probs.shape
@@ -231,11 +236,23 @@ def _aligned(x: torch.Tensor) -> bool:
             and all(st % 8 == 0 for st in x.stride()[:-1]))
 
 
-def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop) -> None:
+def _positions_k(positions_k, b, t, device):
+    """The kernel's key positions: None (the positions) or (int32 (1 or B,
+    T) contiguous, per_row)."""
+    if positions_k is None:
+        return None
+    if positions_k.dim() != 2 or positions_k.shape[1] != t or positions_k.shape[0] not in (1, b):
+        raise ValueError(f"positions_k must be (1, T) or (B, T), got {tuple(positions_k.shape)}")
+    if positions_k.device != device:
+        raise ValueError("positions_k must be on qkv's device")
+    return positions_k.to(torch.int32).contiguous(), int(positions_k.shape[0] == b and b > 1)
+
+
+def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None) -> None:
     """One launch of the forward kernel on checked (B, T, H, D) views q, k,
     v (one stride set) and out; ``side`` are ``_side_args``' slopes,
     positions and mask, ``drop`` ``_dropout_args``', ``lse`` None or a
-    contiguous (B*H, T) fp32 output."""
+    contiguous (B*H, T) fp32 output, ``posk`` ``_positions_k``'s."""
     if not all(_aligned(x) for x in (q, k, v, out)):
         raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
                          "last dim and strides in multiples of 8")
@@ -246,7 +263,8 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-            sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            sl.data_ptr(), pos.data_ptr(), pos_per_row, None if posk is None else
+            posk[0].data_ptr(), 0 if posk is None else posk[1],
             None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
             out.stride(0), out.stride(1), out.stride(2), None if lse is None else lse.data_ptr(),
             b, h, t, d, int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
@@ -332,29 +350,69 @@ def alibi_flash_attention_packed(
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     return_lse: bool = False,
+    positions_k: Optional[torch.Tensor] = None,
 ):
     """ALiBi attention forward; kernel on CUDA, plain version on CPU. With
-    ``return_lse`` returns (out, lse); serving calls (no lse, no dropout)
-    go to ``alibi_flash_attention_serve`` on the packed planes and return
-    its output as a (B, H, T, D) view."""
+    ``return_lse`` returns (out, lse); ``positions_k`` are the keys' own
+    positions (default ``positions``). Serving calls (no lse, no dropout,
+    no key positions) go to ``alibi_flash_attention_serve`` on the packed
+    planes and return its output as a (B, H, T, D) view."""
     if qkv.device.type == "cpu":
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
-                                     dropout_rate, seed, return_lse)
+                                     dropout_rate, seed, return_lse, positions_k)
     _check_device(qkv, "alibi attention")
     b, h, t, d, *side = _kernel_args(qkv, slopes, positions, padding_mask)
     drop = _dropout_args(dropout_rate, seed)
+    posk = _positions_k(positions_k, b, t, qkv.device)
     planes = [x.transpose(1, 2) for x in qkv.unbind(0)]  # (B, T, H, D) views
-    if not return_lse and drop[1] == 0:
+    if not return_lse and drop[1] == 0 and posk is None:
         return alibi_flash_attention_serve(*planes, slopes, positions, padding_mask,
                                            has_sentinel).transpose(1, 2)
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
-    _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop)
+    _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop, posk)
     alibi_flash_attention_packed.launches += 1
     return (out, lse) if return_lse else out
 
 
 alibi_flash_attention_packed.launches = 0
+
+
+def alibi_flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    slopes: torch.Tensor,
+    positions: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    has_sentinel: bool = False,
+    positions_k: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#2's forward with its lse on (B, T, H, D) views ``q``, ``k``, ``v``
+    of one stride set, each from its own tensor (ring attention's shards,
+    ``ops/ring_attention.py``): (out (B, T, H, D), lse (B*H, T) fp32).
+    ``positions`` are the queries', ``positions_k`` the keys' (default
+    ``positions``) and ``padding_mask`` (True = padded) the keys'. One
+    launch of the training kernel on CUDA, counted by ``.launches``; the
+    plain version on CPU."""
+    _check_qkv_views(q, k, v)
+    if q.device.type == "cpu":
+        out, lse = alibi_attention_plain(torch.stack([q, k, v]).transpose(2, 3), slopes,
+                                         positions, padding_mask, has_sentinel,
+                                         return_lse=True, positions_k=positions_k)
+        return out.transpose(1, 2), lse
+    _check_card_views(q, k, v)
+    b, t, h, _ = q.shape
+    side = _side_args(b, h, t, q.device, slopes, positions, padding_mask)
+    posk = _positions_k(positions_k, b, t, q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    _launch_forward(q, k, v, out, lse, side, has_sentinel, _dropout_args(0.0, None), posk)
+    alibi_flash_attention_lse.launches += 1
+    return out, lse
+
+
+alibi_flash_attention_lse.launches = 0
 
 
 def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed):

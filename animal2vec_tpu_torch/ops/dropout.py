@@ -13,17 +13,34 @@ the host, ``keep_threshold``, and passed to the kernels as an unsigned
 integer: a float32 computation of ``rate * 2**32`` on the device rounds
 differently.
 
-``Rngs`` carries the two generators a training step draws from: a CPU
-generator for host-side decisions (layerdrop, the int32 kernel seeds, the
-mixup permutation, the span masks), so that no host decision waits on the
-device, and a generator on the compute device for elementwise masks and
-noise.
+``Rngs`` carries the generators a training step draws from: two CPU
+generators, so that no host decision waits on the device, and one on the
+compute device for elementwise masks and noise. Under data parallelism
+(``parallel/mesh.py``) what JAX draws once for the whole global batch is
+the same on every rank, and what it draws per row is never shared:
+
+* ``host`` (seeded alike on every rank): layerdrop and the int32 kernel
+  seeds, so every rank runs the same layers and the kernels' hash masks
+  come from the same seeds;
+* ``rows`` (a generator of the rank's own, seeded from (seed, rank)): the
+  per-row host draws, the mixup coefficients, partners and gains and the
+  span and channel masks. A rank seeds its own generator rather than
+  drawing for the global batch and slicing its rows, because with length
+  buckets the ranks' batches at one step differ in rows and length;
+* ``device`` (seeded from (seed, rank)): elementwise dropout and noise.
+
+``row0`` is the rank's first row of the global batch. The hash masks of
+the kernels read global rows: ``attention_seed`` folds row0 * H into the
+attention seed (the hash adds (b*H + h) * 0xC2B2AE3D to it), and the fused
+block takes row0 * T as its row offset, so a 2-rank step draws the masks
+that a 1-rank step draws on the concatenated batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 _U32 = 0xFFFFFFFF
@@ -81,22 +98,45 @@ def hash_keep(seed, rows, cols, rate: float) -> torch.Tensor:
     return (_finalize(z) >= keep_threshold(rate)).to(torch.float32)
 
 
+def _rank_seed(seed: int, rank: int, stream: int) -> int:
+    """A generator seed of its own for (seed, rank, stream); rank 0's
+    device stream keeps ``seed + 1``."""
+    if rank == 0 and stream == 1:
+        return seed + 1
+    return int(np.random.SeedSequence([seed, rank, stream]).generate_state(1)[0])
+
+
+def fold_bh_offset(seed: int, bh0: int) -> int:
+    """The int32 attention seed whose hash at (b*H + h) equals ``seed``'s at
+    (bh0 + b*H + h): the hash mixes in seed + bh * 0xC2B2AE3D (mod 2**32)."""
+    s = (int(seed) + int(bh0) * 0xC2B2AE3D) & _U32
+    return s - (1 << 32) if s > INT32_MAX else s
+
+
 @dataclasses.dataclass
 class Rngs:
-    host: torch.Generator    # CPU: layerdrop, kernel seeds, mixup, span masks
-    device: torch.Generator  # on the compute device: dropout masks, mask noise
+    host: torch.Generator    # CPU, alike on every rank: layerdrop, kernel seeds
+    device: torch.Generator  # the rank's compute device: dropout masks, mask noise
+    rows: torch.Generator    # CPU, the rank's own: mixup, span and channel masks
+    row0: int = 0            # the rank's first row of the global batch
 
     @classmethod
-    def from_seed(cls, seed: int, device) -> "Rngs":
+    def from_seed(cls, seed: int, device, rank: int = 0) -> "Rngs":
         device = torch.device(device)
         return cls(torch.Generator().manual_seed(seed),
-                   torch.Generator(device=device).manual_seed(seed + 1))
+                   torch.Generator(device=device).manual_seed(_rank_seed(seed, rank, 1)),
+                   torch.Generator().manual_seed(_rank_seed(seed, rank, 2)))
 
     def int32_seeds(self, n: int) -> list:
         """``n`` int32 hash seeds drawn on the host."""
         draw = torch.randint(INT32_MIN, INT32_MAX + 1, (n,), generator=self.host,
                              dtype=torch.int64)
         return [int(s) for s in draw]
+
+    def attention_seed(self, heads: int) -> int:
+        """One attention hash seed, with the rank's first global (batch *
+        head) index ``row0 * heads`` folded in."""
+        return fold_bh_offset(self.int32_seeds(1)[0], self.row0 * heads)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

@@ -26,7 +26,8 @@ before LN2.
 
 Dropout (``seeds`` = three int32, ``act_rate`` for the first two sites,
 ``post_rate`` for the third): keep masks from ``ops.dropout.hash_keep``
-over (seed, row, column), rows of the flattened (N, C) input. The JAX
+over (seed, row0 + row, column), rows of the flattened (N, C) input, offset
+by ``row0`` (a data-parallel rank's first global row, ``ops.dropout``). The JAX
 finetune trunk runs on sequences padded to the TPU kernel's block length, so
 its rows are b * T_pad + t; the port does not pad and its rows are b * T +
 t. The masks are the same function of (seed, row, column), with the same
@@ -124,11 +125,11 @@ class _Fp32SumMatmul(torch.autograd.Function):
 
 
 def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                seeds, act_rate, post_rate, matmul):
+                seeds, act_rate, post_rate, matmul, row0=0):
     dtype = x.dtype
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
-    rows = torch.arange(x2.shape[0], device=x.device)[:, None]
+    rows = row0 + torch.arange(x2.shape[0], device=x.device)[:, None]
 
     def drop(v, seed, rate):
         cols = torch.arange(v.shape[1], device=v.device)[None, :]
@@ -168,12 +169,13 @@ def fused_block_plain(
     seeds: Optional[Sequence[int]] = None,
     act_rate: float = 0.0,
     post_rate: float = 0.0,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference of the kernel (any device, differentiable); products in
-    fp32 on the storage-dtype operands."""
+    fp32 on the storage-dtype operands; the masks' rows start at ``row0``."""
     _check_rates(seeds, act_rate, post_rate)
     return _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                       seeds, act_rate, post_rate, _fp32_matmul)
+                       seeds, act_rate, post_rate, _fp32_matmul, row0)
 
 
 def _vec(v: Optional[torch.Tensor], size: int, fill: float, dev) -> torch.Tensor:
@@ -191,7 +193,7 @@ def _check_rates(seeds, act_rate, post_rate):
 
 
 def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-            seeds, act_rate, post_rate):
+            seeds, act_rate, post_rate, row0=0):
     """One launch of the kernel: (x_out, t)."""
     c = x.shape[-1]
     m = w1.shape[1]
@@ -232,7 +234,7 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
             r.data_ptr(), h.data_ptr(), t.data_ptr(), x_out.data_ptr(),
             n, c, m, float(eps), s0, s1, s2,
             act_t, keep_scale(act_rate) if act_t else 1.0,
-            post_t, keep_scale(post_rate) if post_t else 1.0, stream,
+            post_t, keep_scale(post_rate) if post_t else 1.0, int(row0) & 0xFFFFFFFF, stream,
         )
     check(err, "fused block kernel")
     fused_block_mlp.launches += 1
@@ -242,31 +244,34 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                seeds, act_rate, post_rate):
+                seeds, act_rate, post_rate, row0):
         ctx.save_for_backward(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias)
         ctx.conf = (eps, seeds, act_rate, post_rate)
+        ctx.row0 = row0
         return _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                       seeds, act_rate, post_rate)
+                       seeds, act_rate, post_rate, row0)
 
     @staticmethod
     def backward(ctx, g_out, g_tap):
         grads = fused_block_recompute(ctx.saved_tensors, ctx.conf, (g_out, g_tap),
-                                      ctx.needs_input_grad[:9])
-        return (*grads, None, None, None, None)
+                                      ctx.needs_input_grad[:9], ctx.row0)
+        return (*grads, None, None, None, None, None)
 
 
-def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9):
+def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9, row0=0):
     """The backward of the kernel's autograd Function (any device): the block
     recomputed from its nine tensor ``inputs`` (x, ln1_scale, ln1_bias, w1,
     w2, b1, b2, ln2_scale, ln2_bias; None where absent) under autograd with
-    the fp32-sum products, for ``conf`` = (eps, seeds, act_rate, post_rate)
-    and the cotangents of (x_out, t). Returns one gradient per input, None
-    where ``needs`` is false or the input is None."""
+    the fp32-sum products, for ``conf`` = (eps, seeds, act_rate, post_rate),
+    the masks' first row ``row0`` and the cotangents of (x_out, t). Returns
+    one gradient per input, None where ``needs`` is false or the input is
+    None."""
     eps, seeds, act_rate, post_rate = conf
     with torch.enable_grad():
         leaves = [None if v is None else v.detach().requires_grad_(n)
                   for v, n in zip(inputs, needs)]
-        outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply)
+        outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply,
+                           row0)
         wrt = [v for v, n in zip(leaves, needs) if n and v is not None]
         grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
     return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
@@ -308,12 +313,13 @@ def fused_block_mlp(
     seeds: Optional[Sequence[int]] = None,
     act_rate: float = 0.0,
     post_rate: float = 0.0,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x_out, t) for x (..., C). Serving (no gradient wanted, no dropout):
     the custom op ``a2v::fused_block``, the kernel on CUDA and the plain
     version on CPU. Training: on CUDA the autograd Function (or, without a
     gradient wanted, one launch with dropout), on CPU the plain version
-    under autograd."""
+    under autograd; the dropout masks' rows start at ``row0``."""
     args = (x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused block runs on cuda or cpu tensors, got {x.device}")
@@ -324,11 +330,11 @@ def fused_block_mlp(
     if not wants_grad and not dropout:
         return _block_op(*args[:-1], float(eps))
     if x.device.type == "cpu":
-        return fused_block_plain(*args, seeds, act_rate, post_rate)
+        return fused_block_plain(*args, seeds, act_rate, post_rate, row0)
     seeds = None if seeds is None else tuple(int(s) for s in seeds)
     if wants_grad:
-        return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate))
-    return _launch(*args, seeds, float(act_rate), float(post_rate))
+        return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate), int(row0))
+    return _launch(*args, seeds, float(act_rate), float(post_rate), int(row0))
 
 
 fused_block_mlp.launches = 0

@@ -1,1 +1,2 @@
-"""Multi-device serving (data-parallel shards)."""
+"""Multi-device paths: data-parallel serving shards and the data-parallel
+training group."""

@@ -3,7 +3,8 @@
 Usage:
   python -m animal2vec_tpu_torch.tools.train_cli --recipe finetune_100 \\
       --data <manifest dir> --save-dir <checkpoint dir> [--max-steps N] \\
-      [--patience N] [--pretrained <checkpoint dir>] [--device cuda] [key=value ...]
+      [--patience N] [--pretrained <checkpoint dir>] [--device cuda]
+      [--dist-backend nccl|gloo] [key=value ...]
 
 ``--recipe`` picks ``config.RunConfig.finetune_100`` or
 ``RunConfig.a2v_large_pretrain``; dotted ``key=value`` overrides change any
@@ -15,14 +16,29 @@ A finetune run starts from a pretraining checkpoint of this package with
 pretrain`` first.
 A run resumes from the latest checkpoint in its save directory. The run
 goes on the card unless ``--device cpu`` asks for the CPU.
+
+Data parallelism (``distributed.data_parallel``, -1 in every recipe: every
+visible card). Under ``torchrun`` (RANK, WORLD_SIZE, MASTER_ADDR and
+MASTER_PORT set) the CLI joins the group it is given, one rank per
+process. Otherwise it starts the ranks itself: ``data_parallel`` worker
+processes of this CLI over a local TCP store (-1: one per visible card; one
+rank on the CPU), or with one rank it runs in this process in a group of
+one. ``--dist-backend`` is NCCL on the card and gloo with ``--device cpu``;
+gloo may also place several ranks on one card
+(``distributed.data_parallel=2 --dist-backend gloo``). Each rank loads
+``dataset.max_tokens`` of items a micro-batch, so the global batch is the
+world size times that (``data/dataset.py``); a checkpoint records the world
+size, and resuming it under another raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import sys
 
 from animal2vec_tpu_torch.config import RECIPES, apply_overrides
+from animal2vec_tpu_torch.parallel import mesh
 
 
 def main(argv=None):
@@ -37,7 +53,10 @@ def main(argv=None):
     parser.add_argument("--pretrained", default="",
                         help="pretraining checkpoint directory to start a finetune run from")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist-backend", default=None, choices=mesh.BACKENDS,
+                        help="process group backend (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
@@ -47,16 +66,30 @@ def main(argv=None):
     if args.save_dir is not None:
         overrides.append(f"checkpoint.save_dir={args.save_dir}")
     run = apply_overrides(RECIPES[args.recipe](), overrides)
+    if run.finetune is None and args.pretrained:
+        raise ValueError("--pretrained starts a finetune run; the recipe is pretraining")
+    backend = args.dist_backend or mesh.default_backend(args.device)
+    world = mesh.resolve_world(run.distributed, args.device, backend)
+    if not mesh.from_env() and world > 1:
+        mesh.launch(["-m", "animal2vec_tpu_torch.tools.train_cli", *argv], world)
+        return None
 
     from animal2vec_tpu_torch.train.loop import run_finetune, run_pretrain
 
-    if run.finetune is None:
-        if args.pretrained:
-            raise ValueError("--pretrained starts a finetune run; the recipe is pretraining")
-        return run_pretrain(run, max_steps=args.max_steps, device=args.device)
-    pretrained = load_pretrained(args.pretrained) if args.pretrained else None
-    return run_finetune(run, pretrained=pretrained, max_steps=args.max_steps,
-                        patience=args.patience, device=args.device)
+    dp = mesh.init_data_parallel(args.device, backend)
+    if not dp.is_main:  # rank 0 logs
+        logging.getLogger("animal2vec_tpu_torch").setLevel(logging.WARNING)
+    try:
+        if run.distributed.data_parallel not in (-1, dp.world):
+            raise ValueError(f"distributed.data_parallel={run.distributed.data_parallel} but the "
+                             f"group has {dp.world} rank(s)")
+        if run.finetune is None:
+            return run_pretrain(run, max_steps=args.max_steps, dp=dp)
+        pretrained = load_pretrained(args.pretrained) if args.pretrained else None
+        return run_finetune(run, pretrained=pretrained, max_steps=args.max_steps,
+                            patience=args.patience, dp=dp)
+    finally:
+        dp.close()
 
 
 def load_pretrained(path: str):

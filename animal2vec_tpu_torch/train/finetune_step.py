@@ -7,12 +7,21 @@ in place) and the channel mask, the freeze gate from the step, the focal
 micro-batches (the batch carries a leading micro-batch axis, as in JAX):
 gradients and metrics are averaged, then the optimizer applies one update.
 
+Data parallelism (``parallel.mesh.DataParallel``): JAX normalizes each
+micro-batch's loss by its frame count over the whole sharded batch, so
+each rank divides its summed loss by the count summed over the ranks (one
+all-reduce of each micro-batch's count before its backward), the
+gradients are summed over the ranks once per optimizer step, after the
+``update_freq`` micro-batches, and the metrics are reduced. The kernels'
+hash masks read global rows (``Rngs.row0``, the rank's first row of the
+global batch).
+
 Random draws come from an explicit ``ops.dropout.Rngs``: the mixup draws
-and the masks on its host generator, the kernels' int32 hash seeds and the
-layerdrop decisions too, the noise fill and elementwise dropout on its
-device generator. ``jax.random`` and torch draw differently from one seed,
-so the tests hold a step to JAX with the random parts off and the random
-parts to their invariants.
+and the masks on its rank's own rows generator, the kernels' int32 hash
+seeds and the layerdrop decisions on its host generator, the noise fill
+and elementwise dropout on its device generator. ``jax.random`` and torch
+draw differently from one seed, so the tests hold a step to JAX with the
+random parts off and the random parts to their invariants.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from animal2vec_tpu_torch.ops.losses import label_smoothed_nll_loss, sigmoid_foc
 from animal2vec_tpu_torch.ops.masking import channel_mask, span_mask
 from animal2vec_tpu_torch.ops.mixup import bc_mixup
 from animal2vec_tpu_torch.ops.stats import confusion_counts
+from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import FinetuneState
 
 Batch = Dict[str, torch.Tensor]
@@ -36,11 +46,15 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def finetune_loss(model: FinetuneModel, batch: Batch, rngs: Optional[Rngs], step: int,
-                  cfg: FinetuneTrainConfig, train: bool = True) -> Tuple[torch.Tensor, Metrics]:
+                  cfg: FinetuneTrainConfig, train: bool = True,
+                  normalize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                  ) -> Tuple[torch.Tensor, Metrics]:
     """Mean loss over the frames and the metrics of one (micro-)batch:
     ``source`` (B, T_wav), ``target`` (B, T, n_classes), optional
     ``padding_mask`` (B, T_wav) and ``n_valid`` (eval batches padded by
-    repeated rows). Puts the model in train or eval mode."""
+    repeated rows). Puts the model in train or eval mode. ``normalize``
+    maps the frame count to the loss's divisor (data parallelism: the count
+    summed over the ranks)."""
     mcfg = model.cfg
     source = batch["source"]
     target = batch["target"].float()
@@ -48,16 +62,16 @@ def finetune_loss(model: FinetuneModel, batch: Batch, rngs: Optional[Rngs], step
     if train and cfg.source_mixup >= 0 and cfg.mixup_prob > 0:
         source, target = bc_mixup(
             source, target, cfg.source_mixup, cfg.mixup_prob, cfg.same_mixup, cfg.gain_mode,
-            mcfg.sample_rate, cfg.mixing_window_length, cfg.target_mixup, rngs.host,
+            mcfg.sample_rate, cfg.mixing_window_length, cfg.target_mixup, rngs.rows,
         )
     b = source.shape[0]
     t_feat = feature_extractor_out_length(source.shape[1], mcfg.conv_layers)
     mask = cmask = None
     if train and cfg.apply_mask and cfg.mask_prob > 0:
-        mask = span_mask(b, t_feat, cfg.mask_prob, cfg.mask_length, rngs.host)
+        mask = span_mask(b, t_feat, cfg.mask_prob, cfg.mask_length, rngs.rows)
     if train and cfg.mask_channel_prob > 0:
         cmask = channel_mask(b, mcfg.embed_dim, cfg.mask_channel_prob, cfg.mask_channel_length,
-                             rngs.host)
+                             rngs.rows)
 
     model.train(train)
     gate = step >= cfg.freeze_finetune_updates
@@ -86,7 +100,7 @@ def finetune_loss(model: FinetuneModel, batch: Batch, rngs: Optional[Rngs], step
                                        reduction="none")
         loss = (loss.reshape(b, t_frames) * fw).sum()
     ntokens = fw.sum()
-    loss_n = loss / ntokens
+    loss_n = loss / (ntokens if normalize is None else normalize(ntokens))
 
     metrics: Metrics = {"loss": loss_n.detach(), "sample_size": ntokens}
     p32 = None
@@ -110,25 +124,31 @@ def finetune_loss(model: FinetuneModel, batch: Batch, rngs: Optional[Rngs], step
 
 
 def make_finetune_train_step(
-    cfg: FinetuneTrainConfig,
+    cfg: FinetuneTrainConfig, dp: Optional[DataParallel] = None,
 ) -> Callable[[FinetuneState, Batch, Rngs], Metrics]:
     """``train_step(state, batch, rngs) -> metrics``: every tensor of
     ``batch`` has a leading axis of ``update_freq`` micro-batches; the
     gradients of the micro-batches' mean losses are averaged and applied
-    once, and ``state.step`` advances by one."""
+    once, and ``state.step`` advances by one. Under ``dp`` the batch is the
+    rank's shard, and the losses, gradients and metrics are the global
+    batch's."""
     accum = max(1, cfg.optimization.update_freq)
+    dp = dp or DataParallel()
+    normalize = None if dp.world == 1 else (lambda n: dp.all_reduce(n.clone()))
 
     def train_step(state: FinetuneState, batch: Batch, rngs: Rngs) -> Metrics:
         state.zero_grad()
         total: Metrics = {}
         for i in range(accum):
             mb = {k: v[i] for k, v in batch.items()}
-            loss, metrics = finetune_loss(state.model, mb, rngs, state.step, cfg, True)
+            rngs.row0 = dp.row_offset(len(mb["source"]))
+            loss, metrics = finetune_loss(state.model, mb, rngs, state.step, cfg, True, normalize)
             (loss / accum).backward()
             for k, v in metrics.items():
                 total[k] = total[k] + v if k in total else v
+        dp.reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
         state.apply_gradients()
-        return {k: v / accum for k, v in total.items()}
+        return dp.reduce_metrics({k: v / accum for k, v in total.items()})
 
     return train_step
 

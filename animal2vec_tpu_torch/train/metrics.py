@@ -14,7 +14,7 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,19 @@ class MetricsAccumulator:
                 continue
             self._sums[k] += float(to_numpy(v))
             self._counts[k] += 1
+
+    def totals(self) -> Tuple[Dict[str, float], Dict[str, int]]:
+        """The summed values and their counts, by key."""
+        return dict(self._sums), dict(self._counts)
+
+    def set_totals(self, parts: Iterable[Tuple[Dict[str, float], Dict[str, int]]]) -> None:
+        """Replace the sums and counts with those of ``parts`` (``totals``
+        of several accumulators, e.g. one per data-parallel rank) added up."""
+        self._sums, self._counts = defaultdict(float), defaultdict(int)
+        for sums, counts in parts:
+            for k, v in sums.items():
+                self._sums[k] += v
+                self._counts[k] += counts[k]
 
     def summary(self, prefix: str = "") -> Dict[str, float]:
         out: Dict[str, float] = {}

@@ -10,6 +10,13 @@ decoder's predictions on the teacher's targets at the masked positions.
 micro-batches (the batch carries a leading micro-batch axis, as in JAX),
 applies one update, then one EMA step of the teacher.
 
+Data parallelism (``parallel.mesh.DataParallel``) as in the finetune step:
+the loss divides by ``sample_size`` summed over the ranks (one all-reduce
+of each micro-batch's count before its backward), the gradients are summed
+over the ranks once per step, and the metrics are reduced (the variance
+statistics as the mean over the ranks). Every rank's student, so every
+rank's EMA teacher, stays identical without a collective of its own.
+
 The teacher (``teacher_targets``) is the student module in eval mode,
 without gradient, over the student's parameters overlaid with the EMA ones
 (``torch.func.functional_call``): it sums the normalized taps of its last k
@@ -17,8 +24,9 @@ trunk layers, and the targets are that sum divided by k, finished. It reads
 the student's own local features, detached.
 
 Random draws come from an explicit ``ops.dropout.Rngs``: the mixup draws
-and the masks on its host generator, the kernels' int32 seeds and layerdrop
-too, elementwise dropout and the mask tokens' noise on its device generator.
+and the masks on its rank's own rows generator, the kernels' int32 seeds
+and layerdrop on its host generator, elementwise dropout and the mask
+tokens' noise on its device generator.
 ``jax.random`` and torch draw differently from one seed, so the mask draw is
 a parameter (``draw_mask``) that tests set to one given mask on both sides.
 """
@@ -38,6 +46,7 @@ from animal2vec_tpu_torch.ops.masking import (
 )
 from animal2vec_tpu_torch.ops.mixup import bc_mixup
 from animal2vec_tpu_torch.ops.stats import compute_var
+from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import PretrainState, ema_decay_at, merge_params
 
 Batch = Dict[str, torch.Tensor]
@@ -58,11 +67,11 @@ def mask_tokens(cfg: PretrainConfig, t: int) -> int:
 
 
 def draw_pretrain_mask(cfg: PretrainConfig, rows: int, t: int, rngs: Rngs) -> torch.Tensor:
-    """The recipe's mask on the host generator: 2-D blocks (images with
+    """The recipe's mask on the rows generator: 2-D blocks (images with
     ``mask_length`` > 1) or spans."""
     if _block_masked(cfg):
-        return block_mask_2d(rows, t, cfg.mask_prob, cfg.mask_length, rngs.host)
-    return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.host)
+        return block_mask_2d(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows)
+    return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows)
 
 
 @torch.no_grad()
@@ -83,17 +92,20 @@ def teacher_targets(model: Data2VecMulti, ema: Dict[str, torch.Tensor],
 
 def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Batch,
                   rngs: Rngs, cfg: PretrainConfig, train: bool = True,
-                  draw_mask: Optional[MaskDraw] = None) -> Tuple[torch.Tensor, Metrics]:
+                  draw_mask: Optional[MaskDraw] = None,
+                  normalize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                  ) -> Tuple[torch.Tensor, Metrics]:
     """The loss (summed regression over the masked tokens / their count) and
     the metrics of one (micro-)batch: ``source`` (B, T_wav) or (B, H, W, C),
     optional ``n_valid`` (eval batches padded by repeated rows). Puts the
-    model in train or eval mode."""
+    model in train or eval mode. ``normalize`` maps the count to the loss's
+    divisor (data parallelism: the count summed over the ranks)."""
     mode = cfg.modality
     source = batch["source"]
     if train and mode == "AUDIO" and cfg.source_mixup >= 0 and cfg.mixup_prob > 0:
         source, _ = bc_mixup(source, None, cfg.source_mixup, cfg.mixup_prob, cfg.same_mixup,
                              cfg.gain_mode, model.cfg.sample_rate, cfg.mixing_window_length,
-                             False, rngs.host)
+                             False, rngs.rows)
     model.train(train)
     local = model.local_features(source)
     b, t, c = local.shape
@@ -123,6 +135,7 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
         n_rows = torch.tensor(float(b), device=dev)
     clone_w = row_w.repeat_interleave(clone) if clone > 1 else row_w
     sample_size = n_rows * clone * m_cnt
+    denom = sample_size if normalize is None else normalize(sample_size)
 
     losses: Dict[str, torch.Tensor] = {}
     metrics: Metrics = {}
@@ -133,39 +146,48 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
         losses[name] = reg.sum()
         metrics[f"pred_var_{i}" if len(xs) > 1 else "pred_var"] = compute_var(x_m.detach())
 
-    loss = sum(losses.values()) / sample_size
+    loss = sum(losses.values()) / denom
     metrics["target_var"] = compute_var(y_m)
     metrics["masked_pct"] = torch.tensor(m_tokens / t, dtype=torch.float32, device=dev)
     metrics["sample_size"] = sample_size
     for k, v in losses.items():
-        metrics[f"loss_{k}"] = v.detach() / sample_size
+        metrics[f"loss_{k}"] = v.detach() / denom
     return loss, metrics
 
 
 def make_pretrain_train_step(
     cfg: PretrainConfig, draw_mask: Optional[MaskDraw] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[[PretrainState, Batch, Rngs], Metrics]:
     """``train_step(state, batch, rngs) -> metrics``: every tensor of
     ``batch`` has a leading axis of ``update_freq`` micro-batches; the
     gradients of the micro-batches' losses are averaged and applied once,
     then the teacher takes its EMA step and ``state.step`` advances by
-    one."""
+    one. Under ``dp`` the batch is the rank's shard, and the losses,
+    gradients and metrics are the global batch's (``rngs.row0``, the rank's
+    first row of the global clone batch, is set before each micro-batch, so
+    ``draw_mask`` may read it)."""
     accum = max(1, cfg.optimization.update_freq)
+    dp = dp or DataParallel()
+    normalize = None if dp.world == 1 else (lambda n: dp.all_reduce(n.clone()))
 
     def train_step(state: PretrainState, batch: Batch, rngs: Rngs) -> Metrics:
         state.zero_grad()
         total: Metrics = {}
         for i in range(accum):
             mb = {k: v[i] for k, v in batch.items()}
-            loss, metrics = pretrain_loss(state.model, state.ema, mb, rngs, cfg, True, draw_mask)
+            rngs.row0 = dp.row_offset(len(mb["source"])) * cfg.clone_batch
+            loss, metrics = pretrain_loss(state.model, state.ema, mb, rngs, cfg, True, draw_mask,
+                                          normalize)
             (loss / accum).backward()
             metrics["loss"] = loss.detach()
             for k, v in metrics.items():
                 total[k] = total[k] + v if k in total else v
+        dp.reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
         state.apply_gradients()
         out = {k: v / accum for k, v in total.items()}
         out["ema_decay"] = torch.tensor(ema_decay_at(cfg, state.step) * 1000.0)
-        return out
+        return dp.reduce_metrics(out)
 
     return train_step
 

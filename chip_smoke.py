@@ -148,6 +148,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
    no plain version on a CUDA tensor), its logits against the eager model's
    on the same batch (MODEL_TOL max abs in bf16, INT8_MODEL_REL relative
    norm in int8_attn; 0 expected) and its forward ms beside the eager one.
+   Phase 12's train_cli runs each run in train_cli's default group: NCCL,
+   one rank on the card (checked there);
+14. data parallelism and ring attention:
+   a. the in-process ring (ops/ring_attention.py) at b2, H 16, D 64, T 8000
+      as 4 shards of 2000, the last 700 keys padded: 16 launches of #2 with
+      its lse and the rotated key positions (counted), held against one #2
+      launch over T 8000 and against the plain version (ATTN_TOL); the ring's
+      ms against the one launch's; #2 with key positions timed at the shard
+      shape beside its plain version, SDPA and its bound;
+   b. two gloo ranks on the one card (tools/dryrun_multigpu.py): one
+      a2v-large finetune step (finetune_100.yaml, every rate 0, mixup off,
+      update_freq 2) at b4 per rank against one rank at b8 (parameter gap,
+      bound 2.1 lr; loss; the ranks' parameter checksums equal; launches);
+      one a2v-large post-LN block with hash dropout at every site on the
+      same rows on both ranks (the masks differ) against the one-rank call
+      on the stacked rows (each rank's output the slice of its global
+      rows); then train_cli starting 2 workers with --dist-backend gloo at
+      a2v-large's width, depth cut to 1 + 2 blocks: pretrain 2 steps,
+      finetune 2 from it with a validation, resume to 3 (one checkpoint per
+      save, every rank's loader state), infer_cli --checkpoint best; the
+      2-rank validation's metrics against a 1-rank validation of the same
+      checkpoint.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -934,8 +956,8 @@ class PlainSpy:
 
 def _counted():
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_int8, alibi_flash_attention_packed, alibi_flash_attention_serve,
-        attention_dkv, attention_dq, quantize_qkv_int8_pass,
+        alibi_flash_attention_int8, alibi_flash_attention_lse, alibi_flash_attention_packed,
+        alibi_flash_attention_serve, attention_dkv, attention_dq, quantize_qkv_int8_pass,
     )
     from animal2vec_tpu_torch.ops.bias_attention import (
         bias_attention_bwd_single, bias_attention_dkv, bias_attention_dq, bias_flash_attention,
@@ -952,7 +974,8 @@ def _counted():
             "bias_attention": bias_flash_attention,
             "bias_dq": bias_attention_dq, "bias_dkv": bias_attention_dkv,
             "bias_single": bias_attention_bwd_single,
-            "mlp": fused_mlp, "int8_mlp": fused_mlp_int8}
+            "mlp": fused_mlp, "int8_mlp": fused_mlp_int8,
+            "ring_attention": alibi_flash_attention_lse}
 
 
 def counts():
@@ -2282,8 +2305,8 @@ class EntryWatch:
             "_train_loader")}
 
         def watched_maker(make):
-            def maker(cfg):
-                step_fn = make(cfg)
+            def maker(cfg, *args, **kwargs):
+                step_fn = make(cfg, *args, **kwargs)
 
                 def step(state, batch, rngs):
                     self.state, start = state, state.step
@@ -2314,6 +2337,17 @@ class EntryWatch:
             self.loaders.append(loader.state_dict())
             return loader
 
+        from animal2vec_tpu_torch.parallel import mesh
+
+        self.mesh, self.groups = mesh, []
+        self.saved_init = mesh.init_data_parallel
+
+        def init(*args, **kwargs):
+            dp = self.saved_init(*args, **kwargs)
+            self.groups.append((dist_backend(), dp.world))
+            return dp
+
+        mesh.init_data_parallel = init
         loop.make_finetune_train_step = watched_maker(self.saved["make_finetune_train_step"])
         loop.make_pretrain_train_step = watched_maker(self.saved["make_pretrain_train_step"])
         loop.validate_finetune = validate
@@ -2323,8 +2357,15 @@ class EntryWatch:
     def __exit__(self, *exc):
         for n, f in self.saved.items():
             setattr(self.loop, n, f)
+        self.mesh.init_data_parallel = self.saved_init
         self.handle.remove()
         return False
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend()
 
 
 def _same_train_state(a, b) -> bool:
@@ -2379,7 +2420,11 @@ def phase_entry(card, dev):
             for k, v in got.items():
                 totals[k] += v
             steps = watch.steps
-            print(f"entry {part}: {len(steps)} steps in {seconds[part]:.2f} s (steps "
+            if watch.groups != [("nccl", 1)]:
+                raise AssertionError(f"entry {part}: train_cli's group {watch.groups}, want NCCL "
+                                     "with one rank")
+            print(f"entry {part}: train_cli's default group {watch.groups[0][0]} x "
+                  f"{watch.groups[0][1]} rank; {len(steps)} steps in {seconds[part]:.2f} s (steps "
                   f"{[round(s['seconds'], 3) for s in steps]} s each); losses "
                   f"{[round(s['loss'], 5) for s in steps]}; launches {launch_line(got)}; "
                   f"plain-version calls on CUDA tensors {spy.cuda_calls}")
@@ -2716,6 +2761,216 @@ def phase_serving_entry(card, dev):
     return totals
 
 
+# phase 14: data parallelism and ring attention
+RING_B, RING_H, RING_T, RING_SHARDS, RING_PAD = 2, 16, 8000, 4, 700
+DP_BATCH = 4  # rows per rank of 14b's a2v-large finetune step (one rank: 8)
+DP_CLIPS = 12
+# 14b's train_cli chain: two gloo workers on the one card, a2v-large's width
+# with the depth cut to 1 prenet + 2 trunk blocks, b2 per rank
+DP_DEPTH = ("model.depth=2", "model.prenet_depth=1", "model.average_top_k_layers=2")
+DP_COMMON = ENTRY_COMMON + ("distributed.data_parallel=2",)
+DP_PRETRAIN = DP_COMMON + ("pretrain.optimization.update_freq=1", "dataset.batch_size=2",
+                           "pretrain.average_top_k_layers=2") + tuple(
+    f"pretrain.{o}" for o in DP_DEPTH)
+DP_FINETUNE = ENTRY_FINETUNE + ("distributed.data_parallel=2", "dataset.batch_size=2") + DP_DEPTH
+# the 2-rank and the 1-rank validation of one checkpoint read the same rows
+# through the same kernels; what may differ is the split of the valid items
+# into batches (the frontend's cuDNN convolutions see other batches)
+DP_VALID_REL = 1e-3
+# loss of the 2-rank step against the 1-rank step on the same global batch:
+# the same rows through the same kernels, fp32 sums over the ranks
+DP_LOSS_REL = 1e-4
+
+
+def phase_ring(dev):
+    """14a. The in-process ring at b2 H16 T 8000 in 4 shards of 2000, the
+    last 700 keys padded: 16 launches of #2 with key positions, against one
+    launch over the whole T and the plain version; #2 with key positions
+    timed at the shard shape. Returns (kernel-line row, launches, err)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.alibi import alibi_slopes
+    from animal2vec_tpu_torch.ops.attention import alibi_attention_plain, alibi_flash_attention_lse
+    from animal2vec_tpu_torch.ops.ring_attention import ring_attention_local
+
+    b, h, t, n = RING_B, RING_H, RING_T, RING_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    slopes = torch.from_numpy(alibi_slopes(h).copy()).to(dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t).contiguous()
+    mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    mask[:, -RING_PAD:] = True
+    reset_counts()
+    with torch.inference_mode(), PlainSpy() as spy:
+        out = ring_attention_local(q, k, v, slopes, pos, mask, n)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"ring b{b} H{h} T {t} in {n} shards (keys {t - RING_PAD}.. padded): launches "
+          f"{launch_line(got)}; plain-version calls on CUDA tensors {spy.cuda_calls}")
+    if got["ring_attention"] != n * n or sum(got.values()) != n * n or spy.cuda_calls:
+        raise AssertionError(f"ring: launches {got} != {n * n} of #2 with key positions")
+    with torch.inference_mode():
+        one, _ = alibi_flash_attention_lse(q, k, v, slopes, pos, mask)
+        plain = torch.cat([alibi_attention_plain(
+            torch.stack([q[i:i + 1], k[i:i + 1], v[i:i + 1]]).transpose(2, 3).float(), slopes,
+            pos[i:i + 1], mask[i:i + 1], True).transpose(1, 2) for i in range(b)])
+    torch.cuda.synchronize()
+    err = check_close("ring (4 x 2000) against the plain version over T 8000", out, plain,
+                      ATTN_TOL)
+    check_close("one #2 launch over T 8000 against the plain version", one, plain, ATTN_TOL)
+    check_close("ring against one #2 launch over T 8000", out, one.float(), ATTN_TOL)
+    del plain
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        ring_ms = cuda_ms(lambda: ring_attention_local(q, k, v, slopes, pos, mask, n))
+        one_ms = cuda_ms(lambda: alibi_flash_attention_lse(q, k, v, slopes, pos, mask))
+        # #2 with key positions at the shard shape: shard 0's queries against
+        # shard 3's keys (the padded ones), as the ring's last step holds them
+        ts = t // n
+        qs, ps = q[:, :ts].contiguous(), pos[:, :ts].contiguous()
+        ks, vs, pks, ms_ = (x[:, -ts:].contiguous() for x in (k, v, pos, mask))
+        shard = lambda: alibi_flash_attention_lse(qs, ks, vs, slopes, ps, ms_, True, pks)
+        shard_ms = cuda_ms(shard)
+        packed = torch.stack([qs, ks, vs]).transpose(2, 3)
+        plain_fn = lambda: alibi_attention_plain(packed, slopes, ps, ms_, True, return_lse=True,
+                                                 positions_k=pks)
+        plain_ms = cuda_ms(plain_fn, iters=3)
+        s_out, s_lse = shard()
+        p_out, p_lse = alibi_attention_plain(packed.float(), slopes, ps, ms_, True,
+                                             return_lse=True, positions_k=pks)
+        shard_err = check_close("#2 with key positions at the shard shape against the plain "
+                                "version", s_out.transpose(1, 2), p_out, ATTN_TOL)
+        check_close("its lse", s_lse, p_lse, LSE_TOL)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, ks, vs))
+        dist = (ps[:, None, :, None].float() - pks[:, None, None, :].float()).abs()
+        bias = (-dist * slopes[None, :, None, None]).masked_fill(
+            ms_[:, None, None, :], -1e9).to(torch.bfloat16)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
+    bnd = attention_bounds(b, h, ts)["forward"]
+    print(f"ring: {n * n} launches {ring_ms:.3f} ms against one #2 launch over T {t} "
+          f"{one_ms:.3f} ms; #2 with key positions at b{b} H{h} T {ts}: kernel {shard_ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, SDPA {sdpa_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+          f"({bnd[1]})")
+    row = {"ms": shard_ms, "plain_ms": plain_ms, "library_ms": sdpa_ms, "bound_ms": bnd[0],
+           "bound_by": bnd[1], "ring_ms": ring_ms, "one_launch_ms": one_ms}
+    return row, got["ring_attention"], max(err, shard_err)
+
+
+def phase_dp_step(card, dev):
+    """14b, the step: two gloo ranks on the one card
+    (tools/dryrun_multigpu.py). Returns its result."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dp.json")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "animal2vec_tpu_torch.tools.dryrun_multigpu",
+                        "--ranks", "2", "--device", "cuda", "--dist-backend", "gloo",
+                        "--width", "a2v-large", "--batch", str(DP_BATCH),
+                        "--parts", "finetune,masks", "--out", out], check=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            res = json.load(f)
+    ft, masks = res["finetune"], res["masks"]
+    n_blocks = 24  # a2v-large: 8 prenet + 16 trunk blocks, update_freq 2
+    want = {"alibi_train": 2 * n_blocks, "alibi_serve": 0, "fused_block": 2 * n_blocks}
+    print(f"dp step on {card}: 2 gloo ranks x b{DP_BATCH} against 1 rank x b{2 * DP_BATCH} "
+          f"(a2v-large finetune step, every rate 0, update_freq 2; {seconds:.1f} s): "
+          f"parameter gap {ft['param_gap']:.3e} (bound {ft['bound']:.1e}: 2.1 lr), loss "
+          f"{ft['loss']:.6f} against {ft['ref_loss']:.6f} (relative {ft['loss_rel_gap']:.2e}, "
+          f"bound {DP_LOSS_REL}), checksums equal {ft['checksums_equal']}; rank 0's launches "
+          f"{ft['launches']}; second step {ft['step_ms']:.1f} ms on 2 ranks (its gradient "
+          f"all-reduce {ft['all_reduce_ms']:.1f} ms) against {ft['one_rank_step_ms']:.1f} ms on "
+          "one rank (host clock, synchronized; the two ranks share the card)")
+    print(f"dp masks: one a2v-large block with hash dropout on the same rows: ranks differ "
+          f"{masks['ranks_differ']}; each rank against its rows of the one-rank call: max abs "
+          f"{masks['slice_gap']:.3e} (tolerance {BLOCK_TOL[0]} + {BLOCK_TOL[1]}*|x|, 0 "
+          "expected)")
+    if not (ft["checksums_equal"] and ft["param_gap"] <= ft["bound"]
+            and ft["loss_rel_gap"] <= DP_LOSS_REL and ft["launches"] == want):
+        raise AssertionError(f"dp step: {ft}")
+    if not masks["ranks_differ"] or masks["slice_gap"] > BLOCK_TOL[0]:
+        raise AssertionError(f"dp masks: {masks}")
+    return {"seconds": seconds, **res}
+
+
+def phase_dp_entry(card, dev):
+    """14b, the entry point: train_cli with two gloo workers on the one
+    card (pretrain, finetune from it with a validation, resume),
+    infer_cli --checkpoint best, and a 1-rank validation of the validated
+    checkpoint against the 2-rank one. Returns the seconds per part."""
+    from animal2vec_tpu_torch.config import RECIPES, apply_overrides
+    from animal2vec_tpu_torch.data.synthetic import generate
+    from animal2vec_tpu_torch.data.wavio import write_wav
+    from animal2vec_tpu_torch.tools import infer_cli, train_cli
+    from animal2vec_tpu_torch.train import loop
+    from animal2vec_tpu_torch.train.build import init_finetune
+    from animal2vec_tpu_torch.train.checkpoint import CheckpointManager
+    from animal2vec_tpu_torch.train.finetune_step import make_finetune_eval_step
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate(os.path.join(tmp, "data"), n_clips=DP_CLIPS, clip_seconds=10.0,
+                        seed=SEED + 1, label_ext="npz")
+        pre_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
+
+        def cli(part, argv):
+            t0 = time.perf_counter()
+            train_cli.main(argv)
+            seconds[part] = time.perf_counter() - t0
+
+        cli("pretrain", ["--recipe", "a2v_large_pretrain", "--data", data, "--save-dir", pre_dir,
+                         "--max-steps", "2", "--device", "cuda", "--dist-backend", "gloo",
+                         *DP_PRETRAIN])
+        ft_args = ["--recipe", "finetune_100", "--data", data, "--save-dir", ft_dir,
+                   "--device", "cuda", "--dist-backend", "gloo"]
+        cli("finetune", ft_args[:6] + ["--pretrained", pre_dir, "--max-steps", "2"]
+            + ft_args[6:] + list(DP_FINETUNE))
+        cli("resume", ft_args[:6] + ["--max-steps", "3"] + ft_args[6:] + list(DP_FINETUNE))
+        pre, ft = CheckpointManager(pre_dir), CheckpointManager(ft_dir)
+        saved = ft.load(2)["extra"]
+        last = ft.load(3)["extra"]
+        print(f"dp entry: train_cli, 2 gloo workers on the one card: pretrain steps "
+              f"{pre.all_steps()}, finetune and resume steps {ft.all_steps()}, best "
+              f"{os.path.basename(os.path.realpath(os.path.join(ft_dir, 'best')))}; world size "
+              f"{last['world_size']}, loader states {last['loaders']}")
+        if pre.all_steps() != [2] or ft.all_steps() != [2, 3] or last["world_size"] != 2 \
+                or len(last["loaders"]) != 2 or "valid" not in saved:
+            raise AssertionError("dp entry: not one checkpoint per save with every rank's state")
+        rng = np.random.default_rng(SEED + 21)
+        rec = os.path.join(tmp, "rec.wav")
+        write_wav(rec, (0.05 * rng.normal(size=ENTRY_SERVE_SECONDS * 8000)).astype(np.float32),
+                  8000)
+        t0 = time.perf_counter()
+        events = infer_cli.main(["--wav", rec, "--checkpoint", os.path.join(ft_dir, "best"),
+                                 "--device", "cuda", "--out", os.path.join(tmp, "events.json"),
+                                 "max_sample_size=80000", "depth=2", "prenet_depth=1",
+                                 "average_top_k_layers=2"])
+        seconds["serve"] = time.perf_counter() - t0
+        n_events = sum(len(v) for v in events.values())
+        # the 2-rank validation at step 2 against one rank's of the same weights
+        run = apply_overrides(RECIPES["finetune_100"](), list(DP_FINETUNE) + [
+            f"task.data={data}", f"checkpoint.save_dir={ft_dir}"])
+        _, state = init_finetune(run, dev)
+        ft.restore(state, step=2)
+        one = loop.validate_finetune(run, state, make_finetune_eval_step(run.finetune),
+                                     loop._NullSink(), 2, dev)
+        two = saved["valid"]
+        keys = sorted(k for k in one if k not in ("ups", "loss") and np.isfinite(one[k]))
+        worst = max(abs(two[k] - one[k]) / max(abs(one[k]), 1e-12) for k in keys)
+        print(f"dp validation at step 2, 2 ranks against 1 rank on the same checkpoint: "
+              f"{len(keys)} metrics, worst relative gap {worst:.2e} (tolerance {DP_VALID_REL}); "
+              f"f1 {two.get('metrics/finetune/f1')} against {one.get('metrics/finetune/f1')}, "
+              f"mAP {two.get('valid/mAP')} against {one.get('valid/mAP')}; loss "
+              f"{two['loss']:.6f} against {one['loss']:.6f} (a mean over differing batches)")
+        print(f"dp serve: infer_cli --checkpoint best (written by 2 ranks): {n_events} events")
+        if worst > DP_VALID_REL or set(two) != set(one) - {"ups"} or n_events == 0:
+            raise AssertionError("dp validation: 2 ranks and 1 rank disagree, or no event")
+    print(f"dp entry on {card}: seconds per part "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + " (each from the CLI call to its return: 2 worker processes, build, load, steps, "
+          "validation, checkpoints)")
+    return seconds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2789,6 +3044,13 @@ def main() -> int:
     entry_launches = phase_entry(card, dev)
     torch.cuda.empty_cache()
     serving_entry = phase_serving_entry(card, dev)
+    torch.cuda.empty_cache()
+    ring_row, ring_launches, ring_err = phase_ring(dev)
+    torch.cuda.empty_cache()
+    dp_step = phase_dp_step(card, dev)
+    phase_dp_entry(card, dev)
+    print("dp: train_cli's default group on the card is NCCL with one rank (phase 12's four "
+          "train_cli runs, checked there)")
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -2891,6 +3153,15 @@ def main() -> int:
             e["launches_pretrain"] = pretrain[key]
             e["launches_entry"] = entry_launches[key]
             e["launches"] += pretrain[key] + entry_launches[key]
+    # #2 with key positions: phase 14a's ring
+    kernels.append({
+        "name": "alibi_flash_attention_lse", "route": "cuda",
+        "source": "animal2vec_tpu_torch/csrc/alibi_attention_fwd.cu",
+        "replaces": f"{pa}:113 (with positions_k, via animal2vec_tpu/ops/ring_attention.py:63-75)",
+        "launches": ring_launches, "max_abs_err": ring_err, **ring_row})
+    # phase 14b's two-rank step (rank 0's launches)
+    kernels[1]["launches_dp_step_rank0"] = dp_step["finetune"]["launches"]["alibi_train"]
+    kernels[4]["launches_dp_step_rank0"] = dp_step["finetune"]["launches"]["fused_block"]
     # the serving entry points' (phase 13: export_cli twice, one forward of
     # each bundle in its serving process)
     for e, key in zip(kernels, ("serve_attention", None, None, None, "block", "int8_dense",

@@ -2,8 +2,11 @@
 ``animal2vec_tpu_torch/csrc/*.cu`` and ``kernels/build.py``'s ``SIGNATURES``
 name the same functions with the same number of arguments, and every
 header is reached by the ``#include`` lines of some ``.cu`` source, so that a
-removed kernel leaves no declared entry and no orphaned header behind."""
+removed kernel leaves no declared entry and no orphaned header behind; the
+arguments that data parallelism and ring attention added (#2's key
+positions, #6's row offset) sit where ``SIGNATURES`` declares them."""
 
+import ctypes
 import re
 
 from animal2vec_tpu_torch.kernels.build import CSRC, SIGNATURES
@@ -32,3 +35,21 @@ def test_every_header_is_included():
                 reached.add(name)
                 todo.append(name)
     assert sorted(reached) == sorted(p.name for p in CSRC.glob("*.cuh"))
+
+
+def _params(entry: str) -> list:
+    for src in CSRC.glob("*.cu"):
+        for name, params in ENTRY.findall(src.read_text()):
+            if name == entry:
+                return [p.split()[-1].lstrip("*") for p in params.split(",")]
+    raise KeyError(entry)
+
+
+def test_key_positions_and_row_offset_arguments():
+    fwd = _params("a2v_alibi_attention_fwd")
+    assert fwd[7:13] == ["pos", "pos_per_row", "pos_k", "posk_per_row", "mask", "mask_per_row"]
+    sig = SIGNATURES["a2v_alibi_attention_fwd"]
+    assert sig[9] is ctypes.c_void_p and sig[10] is ctypes.c_int
+    block = _params("a2v_fused_block")
+    assert block[-2:] == ["row0", "stream"]
+    assert SIGNATURES["a2v_fused_block"][-2] is ctypes.c_uint

@@ -186,7 +186,7 @@ def test_port_imports_no_jax():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1, out.stdout  # chip_smoke printed nothing on import
     res = json.loads(lines[0])
-    assert len(res["names"]) >= 67
+    assert len(res["names"]) >= 70
     assert {"animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
             "animal2vec_tpu_torch.ops.attention", "animal2vec_tpu_torch.ops.bias_attention",
             "animal2vec_tpu_torch.train.pretrain", "animal2vec_tpu_torch.train.state",
@@ -197,6 +197,8 @@ def test_port_imports_no_jax():
             "animal2vec_tpu_torch.tools.convert_cli", "animal2vec_tpu_torch.tools.export_cli",
             "animal2vec_tpu_torch.tools.aot_cli", "animal2vec_tpu_torch.tools.manifest_cli",
             "animal2vec_tpu_torch.tools.prepare_data_cli", "animal2vec_tpu_torch.data.stratify",
+            "animal2vec_tpu_torch.parallel.mesh", "animal2vec_tpu_torch.ops.ring_attention",
+            "animal2vec_tpu_torch.tools.dryrun_multigpu",
             } <= set(res["names"])
     assert res["loaded"] == [], res["loaded"]
 
