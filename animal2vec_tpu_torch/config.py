@@ -16,8 +16,13 @@ Smaller models for tests are ``dataclasses.replace(FinetuneConfig(), ...)``.
 
 Only what the port implements is configurable: post-LN AltBlocks with
 affine LayerNorms, the ``layer_norm`` extractor mode, ``layer_norm`` or
-``instance`` sinc norms, no LayerNorm before the positional convs, and one
-learned ALiBi scale per head shared by all layers. The int8 serving modes
+``instance`` sinc norms, no LayerNorm before the positional convs, and a
+learned ALiBi scale per head (shared by all layers, or one per layer). A
+YAML recipe in the JAX package's schema is read by ``recipes.load_config``
+(``load_config`` here), which maps, ignores or refuses each of its keys.
+Rematerialization (``remat``, ``remat_scope``, ``remat_frontend``,
+``remat_decoder``) recomputes what ``torch.utils.checkpoint`` is given at
+JAX's boundaries (``models/modules.py``). The int8 serving modes
 take the JAX package's lane-aligned route only (its Pallas kernels, every
 width a multiple of 128); at other widths JAX composes int8 in XLA with
 other numerics, and the port refuses them.
@@ -31,11 +36,22 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 MATMUL_IMPLS = ("bf16", "int8", "int8_attn")  # model.matmul_impl
+REMAT_SCOPES = ("mlp", "attn", "block")  # model.remat_scope
 
 MEERKAT_LABELS = (
     "beep", "synch", "sn", "cc", "ld", "oth", "mo", "al", "soc", "agg",
     "eating", "focal",
 )
+
+
+def _check_encoder(cfg) -> None:
+    """The fields ``FinetuneConfig`` and ``ImageConfig`` share: the trunk's
+    widths and numerics, remat and the extra tokens."""
+    _check_trunk(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.matmul_impl)
+    if cfg.remat_scope not in REMAT_SCOPES:
+        raise ValueError(f"remat_scope={cfg.remat_scope!r}: expected one of {REMAT_SCOPES}")
+    if cfg.num_extra_tokens < 0:
+        raise ValueError(f"num_extra_tokens={cfg.num_extra_tokens} must be >= 0")
 
 
 def _check_trunk(embed_dim: int, num_heads: int, mlp_ratio: float, matmul_impl: str) -> None:
@@ -78,8 +94,23 @@ class FinetuneConfig:
     # keeps attention bf16); "int8_attn" adds the qkv and out projections and
     # int8 QK^T and PV inside the attention. Training raises in either.
     matmul_impl: str = "bf16"
-    # learned per-head ALiBi scale, clipped at 0 and folded into the slopes
+    # learned per-head ALiBi scale, clipped at 0 and folded into the slopes;
+    # one scale per block (prenet and trunk) with learned_alibi_scale_per_layer
     alibi_scale: float = 1.0
+    learned_alibi_scale_per_layer: bool = False
+    # extra (CLS) tokens prepended to the sequence at the -1 sentinel
+    # position (zero ALiBi bias); the first is initialized to 0 with
+    # init_extra_token_zero, the others N(0, 1)
+    num_extra_tokens: int = 0
+    init_extra_token_zero: bool = True
+    # training memory (model.remat*): "mlp" recomputes the MLP sub-block
+    # (which the fused blocks' backward already does: no change), "attn" also
+    # the attention sub-block, "block" whole blocks; remat_frontend the conv
+    # frontend, remat_decoder the pretraining decoder
+    remat: bool = True
+    remat_scope: str = "mlp"
+    remat_frontend: bool = False
+    remat_decoder: bool = False
     # head: mean of the last k trunk MLP taps -> linear over the labels
     average_top_k_layers: int = 16
     labels: Tuple[str, ...] = MEERKAT_LABELS
@@ -99,7 +130,7 @@ class FinetuneConfig:
                 f"sinc_norm={self.sinc_norm!r}: the port implements "
                 "'layer_norm' and 'instance'"
             )
-        _check_trunk(self.embed_dim, self.num_heads, self.mlp_ratio, self.matmul_impl)
+        _check_encoder(self)
         if not 0 < self.average_top_k_layers <= self.depth:
             raise ValueError(
                 f"average_top_k_layers={self.average_top_k_layers} must lie "
@@ -149,9 +180,12 @@ class ImageConfig:
     LayerNorm after the trunk. With ``use_alibi_encoder`` every attention
     takes the 2-D ALiBi bias of the patch grid (``alibi_distance``),
     multiplied by a learned scale clipped at 0 (one, or one per head with
-    ``learned_alibi_scale_per_head``). Not ported: extra (CLS) tokens and
-    per-layer ALiBi scales (they raise). Pretraining adds the decoder
-    (``PretrainConfig``)."""
+    ``learned_alibi_scale_per_head``; one per block with
+    ``learned_alibi_scale_per_layer``). Remat as ``FinetuneConfig``'s (the
+    image encoder has no conv frontend). Not ported: extra (CLS) tokens
+    (they raise: JAX's ``ImageEncoder`` declares no ``extra_tokens``
+    parameter, so its image encode fails with them). Pretraining adds the
+    decoder (``PretrainConfig``)."""
 
     input_size: int = 224
     patch_size: int = 16
@@ -173,18 +207,20 @@ class ImageConfig:
     learned_alibi_scale_per_layer: bool = False
     alibi_distance: str = "manhattan"  # or "euclidean"
     num_extra_tokens: int = 0
+    remat: bool = True
+    remat_scope: str = "mlp"
+    remat_decoder: bool = False
 
     def __post_init__(self):
         if self.num_extra_tokens:
-            raise NotImplementedError("extra (CLS) tokens are not ported")
-        if self.learned_alibi_scale_per_layer:
-            raise NotImplementedError("per-layer ALiBi scales are not ported")
+            raise NotImplementedError("extra (CLS) tokens of the image modality are not ported "
+                                      "(ROADMAP A.7: JAX's ImageEncoder has no extra_tokens)")
         if self.alibi_distance not in ("manhattan", "euclidean"):
             raise ValueError(f"alibi_distance={self.alibi_distance!r}: 'manhattan' or 'euclidean'")
         if self.input_size % self.patch_size:
             raise ValueError(f"input_size {self.input_size} is not a multiple of patch_size "
                              f"{self.patch_size}")
-        _check_trunk(self.embed_dim, self.num_heads, self.mlp_ratio, self.matmul_impl)
+        _check_encoder(self)
 
     @property
     def grid_size(self) -> int:
@@ -258,6 +294,8 @@ class FinetuneTrainConfig:
     layerdrop: float = 0.1
     drop_path: float = 0.0
     update_alibi: bool = True
+    # train_cli --pretrained <fairseq .pt>: the file's _ema.* weights as the encoder
+    load_ema: bool = False
     # finetune.mixup.*
     source_mixup: float = 0.5
     mixup_prob: float = 1.0
@@ -276,9 +314,11 @@ class FinetuneTrainConfig:
 
     def __post_init__(self):
         if self.drop_path != 0.0:
-            raise NotImplementedError("drop-path is not ported (the recipe sets it to 0)")
+            raise NotImplementedError("drop-path is not ported (ROADMAP A.8; the recipes set "
+                                      "it to 0)")
         if not self.update_alibi:
-            raise NotImplementedError("a frozen ALiBi scale is not ported (the recipe learns it)")
+            raise NotImplementedError("a frozen ALiBi scale is not ported (ROADMAP A.8; the "
+                                      "recipes learn it)")
 
 
 @dataclass(frozen=True)
@@ -314,17 +354,23 @@ class PretrainConfig:
     Refused: k > depth (``average_top_k_layers``: the JAX streamed teacher
     sums the taps of every layer but divides by k, so its targets come out
     at depth / k of the stacked average; the port averages the last k
-    taps), the int8 ``matmul_impl`` modes (serving-only), and attention
-    dropout with a dense bias or none (the image modality: JAX draws it with
-    ``jax.random``). The fields that take one value in both recipes are not
-    fields: the targets are the instance-normed taps (per layer, over time)
-    averaged and not normalized again; the loss is the squared error times
-    1/sqrt(C) at the masked tokens, with no reconstruction term and no
-    linear probe (``task.with_labels`` false); masked tokens are zeroed
-    before the student; no layerdrop, input or activation dropout, and the
-    frontend's full gradient."""
+    taps) and the int8 ``matmul_impl`` modes for the student (serving-only);
+    the EMA teacher alone may run them (``teacher_matmul_impl``). The
+    regression is the squared error times ``loss_scale`` (None:
+    1/sqrt(C)), or with ``loss_beta`` > 0 the smooth L1 loss, at the
+    masked tokens; with extra tokens and ``cls_loss`` > 0
+    the output at the last extra token also regresses the time-mean target.
+    The fields that take one value in both recipes are not fields: the
+    targets are the instance-normed taps (per layer, over time) averaged and
+    not normalized again; no reconstruction term and no linear probe
+    (``task.with_labels`` false); masked tokens are zeroed before the
+    student; no layerdrop, input or activation dropout, and the frontend's
+    full gradient (``recipes.REFUSED`` names the ROADMAP items)."""
 
-    model: Union[FinetuneConfig, ImageConfig] = FinetuneConfig()
+    # the recipe's encoder; its serving fields (clip length, event
+    # threshold) keep the JAX defaults, as the recipe resolves them
+    model: Union[FinetuneConfig, ImageConfig] = FinetuneConfig(max_sample_size=None,
+                                                               metric_threshold=0.25)
     decoder: DecoderConfig = DecoderConfig(768, 16, 7, 4, 0.1)
     clone_batch: int = 12
     # masking (model.modalities.<modality>.*): spans for audio, 2-D blocks
@@ -349,6 +395,15 @@ class PretrainConfig:
     same_mixup: bool = True
     mixing_window_length: float = 0.05
     gain_mode: str = "A_weighting"
+    # the EMA teacher's numerics (model.teacher_matmul_impl): "" or the
+    # student's "bf16", or the int8 serving modes (the teacher's forward
+    # only; nothing is differentiated through them)
+    teacher_matmul_impl: str = ""
+    # losses (model.*): the CLS term's weight, the regression's smooth-L1
+    # beta (0: squared error) and scale (None: 1/sqrt(C))
+    cls_loss: float = 0.0
+    loss_beta: float = 0.0
+    loss_scale: Optional[float] = None
     optimization: OptimizationConfig = OptimizationConfig(max_update=384_230, update_freq=5)
 
     def __post_init__(self):
@@ -359,8 +414,12 @@ class PretrainConfig:
                 " (the JAX teacher sums the taps of every layer and divides by k)")
         if self.model.matmul_impl != "bf16":
             raise NotImplementedError("the int8 matmul_impl modes are serving-only")
-        if self.modality == "IMAGE" and self.attention_dropout > 0.0:
-            raise NotImplementedError("attention dropout with a dense bias or none is not ported")
+        if self.teacher_matmul_impl not in ("",) + MATMUL_IMPLS:
+            raise ValueError(f"teacher_matmul_impl={self.teacher_matmul_impl!r}: expected '' or "
+                             f"one of {MATMUL_IMPLS}")
+        m = self.model
+        _check_trunk(m.embed_dim, m.num_heads, m.mlp_ratio,
+                     self.teacher_matmul_impl or m.matmul_impl)
         if self.clone_batch < 1:
             raise ValueError(f"clone_batch={self.clone_batch} must be >= 1")
 
@@ -374,13 +433,14 @@ class PretrainConfig:
         bias and one learned scale) with the JAX ``ModelConfig`` /
         ``ImageModalityConfig`` / ``DecoderConfig`` / ``OptimizationConfig``
         defaults, the overrides of JAX's own image pretrain test (ALiBi on,
-        dropouts 0, instance-norm target layers, ``clone_batch`` 2) and k =
-        8, all the trunk's layers."""
+        the block and prenet dropouts 0, instance-norm target layers,
+        ``clone_batch`` 2) but JAX's default ``attention_dropout`` 0.1, and
+        k = 8, all the trunk's layers."""
         fields = dict(
             model=ImageConfig(use_alibi_encoder=True), decoder=DecoderConfig(), clone_batch=2,
             mask_prob=0.7, mask_length=5, average_top_k_layers=8, ema_decay=0.999,
             ema_end_decay=0.9999, ema_anneal_end_step=100_000, ema_encoder_only=True,
-            encoder_dropout=0.0, attention_dropout=0.0, post_mlp_drop=0.0, prenet_dropout=0.0,
+            encoder_dropout=0.0, attention_dropout=0.1, post_mlp_drop=0.0, prenet_dropout=0.0,
             source_mixup=-1.0, optimization=OptimizationConfig(),
         )
         fields.update(overrides)
@@ -392,12 +452,17 @@ class CommonConfig:
     """``common.*``: the run's seed (weights from ``seed``, the steps' draws
     from ``seed`` + 23 or + 17, the loader's shuffle from ``seed``), the
     compute dtype, the log interval in steps and the tensorboard directory
-    ("" for none)."""
+    ("" for none); ``profile`` wraps ``train_cli``'s run in a
+    ``torch.profiler`` trace to ``tensorboard_logdir or "trace"``, and
+    ``suppress_crashes`` logs an exception of the run instead of raising
+    it."""
 
     seed: int = 1
     compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
     log_interval: int = 100
     tensorboard_logdir: str = ""
+    profile: bool = False
+    suppress_crashes: bool = False
 
     def __post_init__(self):
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -533,34 +598,32 @@ class RunConfig:
 
     @classmethod
     def finetune_100(cls) -> "RunConfig":
-        """``animal2vec_tpu/configs/finetune_100.yaml``."""
-        return cls(
-            model=FinetuneConfig(), finetune=FinetuneTrainConfig(),
-            common=CommonConfig(log_interval=361, tensorboard_logdir="tb"),
-            task=TaskConfig(data="/path/to/manifest_files", with_labels=True,
-                            max_sample_size=320_000, min_sample_size=1000, min_label_size=3032,
-                            verbose_tensorboard_logging=True),
-            dataset=DatasetConfig(max_tokens=426_667, num_workers=20, train_subset="train_0",
-                                  validate_interval_updates=5000, validate_after_updates=10_000),
-            checkpoint=CheckpointConfig(save_interval_updates=3612,
-                                        best_checkpoint_metric="metrics/finetune/f1"),
-            criterion=SegmentationConfig(segmentation_metrics=True),
-        )
+        """``configs/finetune_100.yaml`` (``recipes.load_config``)."""
+        return load_config(recipe_path("finetune_100"))
 
     @classmethod
     def a2v_large_pretrain(cls) -> "RunConfig":
-        """``animal2vec_tpu/configs/a2v_large_pretrain.yaml``."""
-        return cls(
-            pretrain=PretrainConfig(),
-            common=CommonConfig(log_interval=384, tensorboard_logdir="tb"),
-            task=TaskConfig(data="/path/to/manifest_files"),
-            dataset=DatasetConfig(num_workers=32, disable_validation=True),
-            checkpoint=CheckpointConfig(save_interval_updates=40_000),
-            criterion=SegmentationConfig(segmentation_metrics=True),
-        )
+        """``configs/a2v_large_pretrain.yaml`` (``recipes.load_config``)."""
+        return load_config(recipe_path("a2v_large_pretrain"))
 
 
+# train_cli --recipe: the short names of two recipe copies
 RECIPES = {"finetune_100": RunConfig.finetune_100, "a2v_large_pretrain": RunConfig.a2v_large_pretrain}
+
+
+def recipe_path(name: str) -> str:
+    """The port's copy of the shipped recipe ``name`` (``recipes.RECIPES``)."""
+    from animal2vec_tpu_torch.recipes import RECIPES as FILES
+
+    return str(FILES[name])
+
+
+def load_config(path: Optional[str] = None, overrides: Sequence[str] = ()) -> "RunConfig":
+    """The run of a YAML recipe in the JAX package's schema with dotted
+    overrides in its key names (``recipes.load_config``)."""
+    from animal2vec_tpu_torch.recipes import load_config as load
+
+    return load(path, overrides)
 
 
 def _coerce(current, value, key: str):

@@ -16,6 +16,13 @@
 // of V over the T keys, as xla_attention's softmax does. With lse the
 // kernel also writes each row's logsumexp m + log l (the running max and
 // the sum of exp(s - m)), which the backward (bias_attention_bwd.cu) reads.
+// Training takes xla_attention's attention dropout as the ALiBi kernels
+// (#2) take theirs: keep_ij is the counter hash of (seed + (b*H+h) *
+// 0xC2B2AE3D, i, j) over global query and key indices (common.cuh), which
+// the backward regenerates; the denominator l sums the undropped weights
+// and the dropout scales the weights of P.V only (xla_attention drops the
+// normalized weights, which is the same function). The hash runs only when
+// the threshold is nonzero (a uniform branch): serving pays nothing.
 //
 // Bound on the H100 at the image serving shape (B = 64, H = 12, T = 196):
 // the two products are 7.6 GFLOP (8 us at the bf16 peak) against 77 MB of
@@ -98,6 +105,9 @@ struct BiasArgs {
   int H, T;
   float sm_scale;
   int bias16;  // the bias rows are 16-byte aligned: staged in 16-byte chunks
+  uint32_t seed;      // dropout seed (int32 bits)
+  uint32_t thresh;    // keep when hash >= thresh; 0 = no dropout
+  float keep_scale;   // 1 / (1 - rate)
 };
 
 template <bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
@@ -129,6 +139,11 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       HAS_BIAS ? bias + (static_cast<size_t>(UNIFORM_BIAS ? 0 : b) * H + h) * T * T : nullptr;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<size_t>(b) * T : nullptr;
   const int n_tiles = (T + kTile - 1) / kTile;
+  // the dropout hash: the seed's share, and this thread's first row's and
+  // column's terms (its second row adds 8 kHashRow)
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(b * H + h) * 0xC2B2AE3Du);
+  const uint32_t zrow = static_cast<uint32_t>(q0 + warp * 16 + g) * kHashRow +
+                        static_cast<uint32_t>(2 * i4) * kHashCol;
 
   // key tile kt's K, V and bias rows into its ring slot; one commit group
   auto stage = [&](int kt) {
@@ -268,8 +283,13 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (j < 2 * n_steps) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = expf(sc[4 * j + e] - m[e >> 1]);
-          l[e >> 1] += p;
+          float p = expf(sc[4 * j + e] - m[e >> 1]);
+          l[e >> 1] += p;  // the denominator from the fp32, undropped weights
+          if (a.thresh != 0u) {
+            const uint32_t z = zrow + static_cast<uint32_t>(8 * (e >> 1)) * kHashRow +
+                               static_cast<uint32_t>(k0 + 8 * j + (e & 1)) * kHashCol;
+            p = drop_mix_seeded(seed_mix, z) >= a.thresh ? p * a.keep_scale : 0.f;
+          }
           sc[4 * j + e] = p;
         }
       }
@@ -346,11 +366,14 @@ int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const b
 // 8; bias null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null
 // or (B, T) uint8; out (B, T, H, D) bf16 contiguous; lse null (serving) or
 // (B*H, T) fp32, the logsumexp of each score row for the backward
-// (bias_attention_bwd.cu). Returns a cudaError_t.
+// (bias_attention_bwd.cu); thresh 0 = no dropout, else the hash dropout of
+// (seed, keep when hash >= thresh, kept weights times keep_scale). Returns a
+// cudaError_t.
 extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
                                   long long stride_b, long long stride_t, const void* bias,
                                   int bias_uniform, const void* mask, void* out, void* lse,
-                                  int B, int H, int T, int D, float sm_scale, void* stream) {
+                                  int B, int H, int T, int D, float sm_scale, int seed,
+                                  unsigned int thresh, float keep_scale, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
@@ -365,7 +388,8 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<bf16*>(out);
   auto* lp = static_cast<float*>(lse);
-  const BiasArgs a{stride_b, stride_t, H, T, sm_scale, T % 4 == 0 && !misaligned(bias)};
+  const BiasArgs a{stride_b,  stride_t, H, T, sm_scale, T % 4 == 0 && !misaligned(bias),
+                   static_cast<uint32_t>(seed), thresh, keep_scale};
   const bool has_mask = mp != nullptr;
   if (bp == nullptr)
     return launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);

@@ -18,6 +18,9 @@
 //   dq    = dS . K / sqrt(D)
 //   dk    = dS^T . Q / sqrt(D)
 //   dv    = P^T . dO
+// With the forward's dropout, f = keep / (1 - r) regenerated from the same
+// hash of (seed + bh * 0xC2B2AE3D, query, key): dP = f (dO . V^T), dv =
+// (P f)^T . dO, and delta = rowsum(dO * O) is unchanged (drop_f).
 // P is expf(s - lse), s rounded as the forward rounds it (q.k / sqrt(D),
 // then + bias), as the plain version computes it. A padded key's score is
 // replaced by -1e10, a constant: its dS, and so its bias gradient, is 0. A
@@ -98,7 +101,19 @@ struct BiasBwdArgs {
   float sm_scale;
   int bias16;   // bias rows 16-byte aligned: staged in 16-byte chunks
   int dbias16;  // dbias rows 16-byte aligned: stored in 16-byte chunks
+  uint32_t seed;     // dropout seed (int32 bits)
+  uint32_t thresh;   // keep when hash >= thresh; 0 = no dropout
+  float keep_scale;  // 1 / (1 - rate)
 };
+
+// The forward's dropout factor of (query, key): keep_scale or 0 (1 without
+// dropout), from the hash of (seed + bh * 0xC2B2AE3D, query, key).
+__device__ __forceinline__ float drop_f(const BiasBwdArgs& a, uint32_t seed_mix, int query,
+                                        int key) {
+  if (a.thresh == 0u) return 1.f;
+  const uint32_t z = static_cast<uint32_t>(query) * kHashRow + static_cast<uint32_t>(key) * kHashCol;
+  return drop_mix_seeded(seed_mix, z) >= a.thresh ? a.keep_scale : 0.f;
+}
 
 // dynamic shared memory of each kernel: bf16 tiles, fp32 tiles (with a
 // bias), side data, and slack to align the base to 1024 bytes
@@ -228,6 +243,7 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
   float* dbias_p = HAS_BIAS && dbias ? dbias + bh * plane : nullptr;
   const int n_tiles = (T + kTile - 1) / kTile;
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
 
   // key tile kt's K, V (and bias) into its ring slot; the caller commits
   auto stage = [&](int kt) {
@@ -308,7 +324,8 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if constexpr (HAS_BIAS) x += e ? bv.y : bv.x;
           const float p = expf(x - lse_r[r]);
           const bool live = (e ? ks.y : ks.x) == kLive && rstate[r] == kLive;
-          ds[e] = live ? p * (dp[i] - delta_r[r]) : 0.f;
+          const float f = drop_f(a, seed_mix, q0 + row, k0 + col + e);
+          ds[e] = live ? p * (dp[i] * f - delta_r[r]) : 0.f;
           sc[i] = ds[e];
         }
         if (dbias_p)
@@ -365,6 +382,7 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
   const float inv_t = 1.f / T;
   const int n_tiles = (T + kTile - 1) / kTile;
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
 
   // query tile qt's Q, dO (and bias) into its ring slot; the caller commits
   auto stage = [&](int qt) {
@@ -444,8 +462,9 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           const float e_x = expf(x - qd.x);
           const bool live = kstate[r] == kLive && qs == kLive;
           const float p = live ? e_x : ((kstate[r] == kPadded && qs == kPadded) ? inv_t : 0.f);
-          dpt[i] = live ? p * (dpt[i] - qd.y) : 0.f;
-          st[i] = p;
+          const float f = drop_f(a, seed_mix, qt * kTile + col, k0 + r0 + 8 * r);
+          dpt[i] = live ? p * (dpt[i] * f - qd.y) : 0.f;
+          st[i] = p * f;
         }
       }
     }
@@ -502,6 +521,7 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   const long long plane = static_cast<long long>(T) * T;
   float* dbias_p = HAS_BIAS && dbias ? dbias + bh * plane : nullptr;
   const float inv_t = 1.f / T;
+  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
 
   stage_tile<kThreads>(sQ, q + in_head, a.stride_t, 0, T, tid);
   stage_tile<kThreads>(sK, k + in_head, a.stride_t, 0, T, tid);
@@ -559,8 +579,9 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
         if constexpr (HAS_BIAS) x += e ? bv.y : bv.x;
         const float p = expf(x - lse_r[r]);
         const bool live = kst == kLive && rstate[r] == kLive;
-        ds[e] = live ? p * (dp[i] - delta_r[r]) : 0.f;
-        pv[e] = live ? p : ((kst == kPadded && rstate[r] == kPadded) ? inv_t : 0.f);
+        const float f = drop_f(a, seed_mix, row, col + e);
+        ds[e] = live ? p * (dp[i] * f - delta_r[r]) : 0.f;
+        pv[e] = f * (live ? p : ((kst == kPadded && rstate[r] == kPadded) ? inv_t : 0.f));
       }
       if (dbias_p)
         *reinterpret_cast<float2*>(sBias + f32_tile_at(row, col)) = make_float2(ds[0], ds[1]);
@@ -603,11 +624,13 @@ int check_args(int B, int H, int T, int D, long long stride_b, long long stride_
 
 BiasBwdArgs make_args(long long stride_b, long long stride_t, long long out_stride_b,
                       long long out_stride_t, const void* bias, int bias_uniform,
-                      const void* dbias, int H, int T, float sm_scale) {
+                      const void* dbias, int H, int T, float sm_scale, int seed,
+                      unsigned int thresh, float keep_scale) {
   const long long bias_stride_b = bias_uniform ? 0 : static_cast<long long>(H) * T * T;
   return BiasBwdArgs{stride_b,      stride_t, out_stride_b, out_stride_t,
                      bias_stride_b, H,        T,            sm_scale,
-                     T % 4 == 0 && !misaligned(bias), T % 4 == 0 && !misaligned(dbias)};
+                     T % 4 == 0 && !misaligned(bias), T % 4 == 0 && !misaligned(dbias),
+                     static_cast<uint32_t>(seed), thresh, keep_scale};
 }
 
 // Launch the kernel's instance with a bias or the one without, each with
@@ -640,13 +663,16 @@ int launch(Kernel with_bias, Kernel without_bias, int smem_bias, int smem_none, 
 // (B, T) uint8. dq, dk, dv are bf16 (B, T, H, D) with element strides
 // (out_stride_b, out_stride_t, D, 1) (the three planes of one (B, T, 3, H, D)
 // gradient); dbias null or fp32 (B, H, T, T) contiguous (written only with
-// a bias). Each returns a cudaError_t.
+// a bias); thresh 0 = no dropout, else the forward's hash dropout (seed,
+// thresh, keep_scale as a2v_bias_attention takes them). Each returns a
+// cudaError_t.
 extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          long long stride_b, long long stride_t,
                                          const void* dout, const void* lse, const void* delta,
                                          const void* bias, int bias_uniform, const void* mask,
                                          void* dq, long long out_stride_b, long long out_stride_t,
                                          void* dbias, int B, int H, int T, int D, float sm_scale,
+                                         int seed, unsigned int thresh, float keep_scale,
                                          void* stream) {
   using namespace a2v;
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
@@ -661,7 +687,7 @@ extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const voi
                 static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
                 static_cast<float*>(dbias),
                 make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          dbias, H, T, sm_scale));
+                          dbias, H, T, sm_scale, seed, thresh, keep_scale));
 }
 
 extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -670,7 +696,8 @@ extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const vo
                                           const void* bias, int bias_uniform, const void* mask,
                                           void* dk, void* dv, long long out_stride_b,
                                           long long out_stride_t, int B, int H, int T, int D,
-                                          float sm_scale, void* stream) {
+                                          float sm_scale, int seed, unsigned int thresh,
+                                          float keep_scale, void* stream) {
   using namespace a2v;
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
@@ -684,7 +711,7 @@ extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const vo
                 static_cast<const float*>(bias), static_cast<const uint8_t*>(mask),
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                 make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          nullptr, H, T, sm_scale));
+                          nullptr, H, T, sm_scale, seed, thresh, keep_scale));
 }
 
 // As the two entries above in one launch, for T <= 64.
@@ -694,7 +721,9 @@ extern "C" int a2v_bias_attention_bwd_single(const void* q, const void* k, const
                                              const void* bias, int bias_uniform, const void* mask,
                                              void* dq, void* dk, void* dv, long long out_stride_b,
                                              long long out_stride_t, void* dbias, int B, int H,
-                                             int T, int D, float sm_scale, void* stream) {
+                                             int T, int D, float sm_scale, int seed,
+                                             unsigned int thresh, float keep_scale,
+                                             void* stream) {
   using namespace a2v;
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
@@ -709,5 +738,5 @@ extern "C" int a2v_bias_attention_bwd_single(const void* q, const void* k, const
                 static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dbias),
                 make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          dbias, H, T, sm_scale));
+                          dbias, H, T, sm_scale, seed, thresh, keep_scale));
 }

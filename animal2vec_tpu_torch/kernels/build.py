@@ -77,21 +77,24 @@ SIGNATURES = {
     # out, o_acc, B, H, T, D, t_pad, span, has_sentinel, stream
     "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P, _P) + (_I,) * 7 + (_P,),
     # q, k, v, stride_b, stride_t, bias, bias_uniform, mask, out, lse, B, H, T,
-    # D, sm_scale, stream
-    "a2v_bias_attention": (_P, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # D, sm_scale, seed, thresh, keep_scale, stream
+    "a2v_bias_attention": (_P, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F) + _DROP
+    + (_P,),
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
-    # dq, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale, stream
+    # dq, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale, seed, thresh,
+    # keep_scale, stream
     "a2v_bias_attention_bwd_dq": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P)
-    + (_I,) * 4 + (_F, _P),
+    + (_I,) * 4 + (_F,) + _DROP + (_P,),
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
-    # dk, dv, out_stride_b, out_stride_t, B, H, T, D, sm_scale, stream
+    # dk, dv, out_stride_b, out_stride_t, B, H, T, D, sm_scale, seed, thresh,
+    # keep_scale, stream
     "a2v_bias_attention_bwd_dkv": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L)
-    + (_I,) * 4 + (_F, _P),
+    + (_I,) * 4 + (_F,) + _DROP + (_P,),
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
     # dq, dk, dv, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale,
-    # stream
+    # seed, thresh, keep_scale, stream
     "a2v_bias_attention_bwd_single": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                      _L, _L, _P) + (_I,) * 4 + (_F, _P),
+                                      _L, _L, _P) + (_I,) * 4 + (_F,) + _DROP + (_P,),
     # x, w1, b1, w2, b2, h, out, N, C, M, C2, stream
     "a2v_fused_mlp": (_P,) * 7 + (_I,) * 4 + (_P,),
     # x, w1_q, w1_s, b1, w2_q, w2_s, b2, x_q, x_s, h, h_max, h_q, h_s, out, N,

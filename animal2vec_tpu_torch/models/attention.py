@@ -49,12 +49,11 @@ def multihead_attention(
     ``AlibiSpec`` takes ``alibi_flash_attention_btc`` (serving and training,
     with its hash dropout); a dense bias or None takes ``bias_flash_attention``
     on the q, k, v views of ``qkv`` (serving and training, differentiable in
-    the bias too; no dropout: a rate > 0 raises)."""
+    the bias too, with the same hash dropout)."""
     if isinstance(bias, AlibiSpec):
         return alibi_flash_attention_btc(qkv, heads, bias.slopes, bias.positions, padding_mask,
                                          bias.has_sentinel, dropout_rate, seed)
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout with a dense bias is not ported")
     b, t, c3 = qkv.shape
     q, k, v = qkv.reshape(b, t, 3, heads, c3 // (3 * heads)).unbind(2)
-    return bias_flash_attention(q, k, v, bias, padding_mask).reshape(b, t, c3 // 3)
+    return bias_flash_attention(q, k, v, bias, padding_mask, dropout_rate,
+                                seed).reshape(b, t, c3 // 3)

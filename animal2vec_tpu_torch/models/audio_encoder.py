@@ -1,14 +1,16 @@
 """Audio modality encoder: the port of ``animal2vec_tpu/models/audio_encoder.py``
 (conv frontend, feature projection, grouped-conv relative positions, prenet,
-the learned per-head ALiBi scale and the pretraining ``Decoder1d``)."""
+the learned per-head ALiBi scale, one or one per block, the extra (CLS)
+tokens and the pretraining ``Decoder1d``)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
-from typing import Optional
+from torch.utils.checkpoint import checkpoint
 
 from animal2vec_tpu_torch.config import DecoderConfig, FinetuneConfig
 from animal2vec_tpu_torch.models.attention import AlibiSpec
@@ -45,13 +47,17 @@ class AudioEncoder(nn.Module):
     ``stop_gradient`` does and keeps no activations for a backward. The
     prenet takes ``prenet_dropout``, ``layerdrop``, the block rates and the
     config's ``matmul_impl``, as the trunk does (one ``BlockConfig``,
-    ``data2vec2.py:52-68``). ``decoder`` adds the pretraining ``Decoder1d``."""
+    ``data2vec2.py:52-68``). ``decoder`` adds the pretraining ``Decoder1d``.
+    With ``remat_frontend`` a training forward recomputes the conv frontend
+    in the backward (``torch.utils.checkpoint``; the frontend draws
+    nothing)."""
 
     def __init__(self, cfg: FinetuneConfig, local_grad_mult: float = 1.0,
                  prenet_dropout: float = 0.0, layerdrop: float = 0.0,
                  decoder: Optional[DecoderConfig] = None, **rates: float):
         super().__init__()
         self.local_grad_mult = local_grad_mult
+        self.remat_frontend = cfg.remat_frontend
         self.conv_layers = [tuple(c) for c in cfg.conv_layers]
         feature_dim = self.conv_layers[-1][0]
         self.local_encoder = ConvFeatureExtractor(
@@ -68,10 +74,15 @@ class AudioEncoder(nn.Module):
             cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps,
             prenet_dropout, layerdrop, cfg.matmul_impl, **rates,
         )
-        # one learned scale per head shared by all layers: (1, 1, H, 1, 1)
+        # one learned scale per head shared by all layers, or one per block
+        # (prenet, then trunk): (1 or n_blocks, 1, H, 1, 1)
+        n_scales = cfg.n_blocks if cfg.learned_alibi_scale_per_layer else 1
         self.alibi_scale = nn.Parameter(
-            torch.full((1, 1, cfg.num_heads, 1, 1), float(cfg.alibi_scale))
+            torch.full((n_scales, 1, cfg.num_heads, 1, 1), float(cfg.alibi_scale))
         )
+        self.init_extra_token_zero = cfg.init_extra_token_zero
+        if cfg.num_extra_tokens:
+            self.extra_tokens = nn.Parameter(torch.zeros(1, cfg.num_extra_tokens, cfg.embed_dim))
         self.register_buffer(
             "base_slopes", torch.from_numpy(alibi_slopes(cfg.num_heads).copy()),
             persistent=False,
@@ -87,6 +98,9 @@ class AudioEncoder(nn.Module):
         if mult == 0.0:
             with torch.no_grad():
                 x = self.local_encoder(source, dtype)
+        elif self.remat_frontend and self.training and torch.is_grad_enabled():
+            x = checkpoint(self.local_encoder, source, dtype, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = self.local_encoder(source, dtype)
             if mult != 1.0:
@@ -100,15 +114,37 @@ class AudioEncoder(nn.Module):
             x = blk(x)
         return x
 
-    def prenet(self, x, padding_mask, bias: AlibiSpec, rngs=None) -> torch.Tensor:
-        return self.context_encoder(x, padding_mask, bias, rngs)
+    def prenet(self, x, padding_mask, bias: AlibiSpec, rngs=None, scales=None) -> torch.Tensor:
+        return self.context_encoder(x, padding_mask, bias, rngs, scales)
 
-    def alibi_spec(self, positions: torch.Tensor) -> AlibiSpec:
-        """Structured ALiBi with the learned scale, clipped at 0, folded into
-        the slopes; ``positions`` (1, T) batch-uniform, or (B, K) int32 per
-        row (a pretraining student's keep-set ids, ``data2vec2.py:280-281``)."""
+    def init_extra_tokens(self, generator: torch.Generator) -> None:
+        """The extra tokens' seeded init (``audio_encoder.py:154-163``): N(0,
+        1), the first token 0 with ``init_extra_token_zero``."""
+        if hasattr(self, "extra_tokens"):
+            tok = self.extra_tokens
+            tok.normal_(0.0, 1.0, generator=generator)
+            if self.init_extra_token_zero:
+                tok[:, 0] = 0.0
+
+    def alibi_spec(self, positions: torch.Tensor, has_sentinel: bool = False) -> AlibiSpec:
+        """Structured ALiBi (``alibi_spec``): one learned scale, clipped at
+        0, folded into the slopes; with one scale per block the slopes stay
+        unscaled (``layer_scales``). ``positions`` (1, T) batch-uniform, or
+        (B, K) int32 per row (a pretraining student's keep-set ids,
+        ``data2vec2.py:280-281``), the extra tokens' at the -1 sentinel
+        (``has_sentinel``)."""
         scale = torch.clamp(self.alibi_scale.float(), min=0.0)
-        return AlibiSpec(self.base_slopes * scale[0].reshape(-1), positions)
+        slopes = self.base_slopes if scale.shape[0] > 1 else \
+            self.base_slopes * scale[0].reshape(-1)
+        return AlibiSpec(slopes, positions, has_sentinel)
+
+    def layer_scales(self) -> Optional[torch.Tensor]:
+        """The (n_blocks, H) per-block scales clipped at 0 (prenet, then
+        trunk) for ``BlockStack``, or None with one scale."""
+        if self.alibi_scale.shape[0] == 1:
+            return None
+        return torch.clamp(self.alibi_scale.float(), min=0.0).reshape(
+            self.alibi_scale.shape[0], -1)
 
     def convert_padding_mask(self, padding_mask: torch.Tensor, t_feat: int) -> torch.Tensor:
         """(B, T_wav) bool pad mask -> (B, T_feat) through the strided layers'

@@ -32,19 +32,26 @@ every row of the padded sequence. There the port pads as JAX does (zero
 rows at position 0, masked as keys, run through prenet and trunk, cut off
 after it), so that its scales are JAX's.
 
-Not ported: the shared decoder, the transformer decoder, extra (CLS)
-tokens, the reconstruction head and the linear probe of pretraining with
-labels; neither recipe uses them, and ``PretrainConfig`` and
-``ImageConfig`` have no field for them or refuse them.
+Extra (CLS) tokens of the audio encoder (``num_extra_tokens``,
+``data2vec2.py:274-315``) are prepended after the positions, at the -1
+sentinel position (zero ALiBi bias) and unmasked as keys; they stay in
+``x`` and in every tap, as in JAX, and ``decode_d2v`` drops them.
+With per-block ALiBi scales (``learned_alibi_scale_per_layer``) the
+prenet takes the first ``prenet_depth`` and the trunk the rest.
+
+Not ported: the shared decoder, the transformer decoder, the
+reconstruction head and the linear probe of pretraining with labels; no
+recipe uses them, and ``recipes.REFUSED`` refuses them (ROADMAP A.7).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from animal2vec_tpu_torch.config import FinetuneConfig, ImageConfig, PretrainConfig
 from animal2vec_tpu_torch.models.audio_encoder import AudioEncoder
@@ -54,6 +61,7 @@ from animal2vec_tpu_torch.models.modules import (
 )
 from animal2vec_tpu_torch.ops.attention import int8_spans
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
+from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
 from animal2vec_tpu_torch.ops.masking import (
     MaskInfo, apply_mask, gather_keep, scatter_with_mask_tokens,
 )
@@ -68,7 +76,9 @@ class Data2VecMulti(nn.Module):
     after the prenet, ``local_grad_mult`` for the audio frontend and
     ``mask_noise_std`` for the noise fills. ``pretrain`` adds the modality's
     decoder (``audio_encoder.decoder`` or ``image_encoder.decoder``) and
-    the teacher's ``average_top_k_layers``."""
+    the teacher's ``average_top_k_layers``. ``cfg.remat`` with
+    ``cfg.remat_scope`` reaches every block (``modules.AltBlock``), and
+    ``cfg.remat_decoder`` recomputes the decoder in the backward."""
 
     def __init__(self, cfg: Union[FinetuneConfig, ImageConfig],
                  dtype: torch.dtype = torch.float32,
@@ -82,6 +92,7 @@ class Data2VecMulti(nn.Module):
         self.pad_trunk = cfg.matmul_impl == "int8_attn" and self.mode == "AUDIO"
         self.dropout_input, self.mask_noise_std = dropout_input, mask_noise_std
         decoder = None if pretrain is None else pretrain.decoder
+        rates = dict(rates, remat_scope=cfg.remat_scope if cfg.remat else None)
         block_kw = dict(rates)
         if self.mode == "IMAGE":
             block_kw.update(layer_norm_first=cfg.layer_norm_first,
@@ -117,6 +128,24 @@ class Data2VecMulti(nn.Module):
         for mod in self.modules():
             if isinstance(mod, AltBlock):
                 mod.quantize_weights()
+
+    def quantized_buffers(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The int8 modes' buffers of every block quantized from ``params``
+        (the module's parameter names), as ``quantize_weights`` computes
+        them from loaded weights: what ``functional_call`` takes beside
+        ``params`` to run this module in its int8 mode over other weights
+        (the int8 EMA teacher)."""
+        out = {}
+        for name, mod in self.named_modules():
+            if isinstance(mod, AltBlock) and mod.int8:
+                for fc, q in (("fc1", "w1"), ("fc2", "w2")):
+                    out[f"{name}.{q}_q"], out[f"{name}.{q}_s"] = quantize_weight(
+                        params[f"{name}.mlp.{fc}.weight"])
+                if mod.attn.int8:
+                    for lin in ("qkv", "proj"):
+                        out[f"{name}.attn.{lin}_q"], out[f"{name}.attn.{lin}_s"] = \
+                            quantize_weight(params[f"{name}.attn.{lin}.weight"])
+        return out
 
     def local_features(self, source: torch.Tensor) -> torch.Tensor:
         """(B, T_wav) waveforms or (B, H, W, C) images -> (B, T, C) local
@@ -157,28 +186,39 @@ class Data2VecMulti(nn.Module):
                 padding_mask = torch.gather(padding_mask, 1, mask_info.ids_keep)
         elif x_pos is not None:
             x = x + x_pos
-        t = x.shape[1]
-        run_mask, pad = padding_mask, 0
+        n_extra = self.cfg.num_extra_tokens
         if image:
             bias = enc.scaled_alibi(mask_info if keep_set else None)
+        elif keep_set:
+            positions = mask_info.ids_keep.to(torch.int32)
         else:
-            if keep_set:
-                positions = mask_info.ids_keep.to(torch.int32)
-            else:
-                # (1, T): batch-uniform contiguous positions (the kernel's uniform case)
-                positions = torch.arange(t, dtype=torch.int32, device=x.device)[None]
-                pad = int8_spans(t)[1] - t if self.pad_trunk else 0
+            # (1, T): batch-uniform positions (the kernel's uniform case)
+            positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+        if n_extra:  # the extra tokens at the zero-bias sentinel position
+            tok = enc.extra_tokens.to(x.dtype).expand(x.shape[0], n_extra, x.shape[-1])
+            x = torch.cat([tok, x], dim=1)
+            if padding_mask is not None:
+                padding_mask = F.pad(padding_mask.bool(), (n_extra, 0))
+            positions = F.pad(positions, (n_extra, 0), value=-1)
+        t = x.shape[1]
+        run_mask, pad = padding_mask, 0
+        if not image:
+            if not keep_set and self.pad_trunk:
+                pad = int8_spans(t)[1] - t
             if pad:
                 x = F.pad(x, (0, 0, 0, pad))
                 positions = F.pad(positions, (0, pad))
                 if run_mask is None:
                     run_mask = torch.zeros((x.shape[0], t), dtype=torch.bool, device=x.device)
                 run_mask = F.pad(run_mask.bool(), (0, pad), value=True)
-            bias = enc.alibi_spec(positions)
-        x = enc.prenet(x, run_mask, bias, rngs)
+            bias = enc.alibi_spec(positions, n_extra > 0)
+        scales = enc.layer_scales()
+        prenet_depth = self.cfg.prenet_depth
+        x = enc.prenet(x, run_mask, bias, rngs, None if scales is None else scales[:prenet_depth])
         if self.training and self.dropout_input > 0.0:
             x = dropout(x, self.dropout_input, rngs.device)
-        x, taps, keeps = self.blocks(x, run_mask, bias, rngs)
+        x, taps, keeps = self.blocks(x, run_mask, bias, rngs,
+                                     None if scales is None else scales[prenet_depth:])
         if self.norm is not None:
             x = self.norm(x)
         if pad:
@@ -191,17 +231,23 @@ class Data2VecMulti(nn.Module):
     def decode_d2v(self, x: torch.Tensor, mask_info: Optional[MaskInfo] = None,
                    rngs: Optional[Rngs] = None) -> List[torch.Tensor]:
         """The modality decoder on the student output (``data2vec2.py:376-412``):
-        input dropout in training, the kept tokens scattered back among noise
-        mask tokens, the decoder; returns one full-length (B, T, C)
-        prediction per decoder."""
+        input dropout in training, the kept tokens (without the extra
+        tokens) scattered back among noise mask tokens, the decoder; returns
+        one full-length (B, T, C) prediction per decoder."""
         y = x
         rate = self.pretrain.decoder.input_dropout
         if self.training and rate > 0.0:
             y = dropout(y, rate, rngs.device)
+        n_extra = self.cfg.num_extra_tokens
         if mask_info is not None:
             y = scatter_with_mask_tokens(y, mask_info, self.mask_noise_std,
-                                         None if rngs is None else rngs.device)
-        return [self.modality_encoder.decoder(y)]
+                                         None if rngs is None else rngs.device, n_extra)
+        elif n_extra:
+            y = y[:, n_extra:]
+        decoder = self.modality_encoder.decoder
+        if self.cfg.remat_decoder and self.training and torch.is_grad_enabled():
+            return [checkpoint(decoder, y, use_reentrant=False, preserve_rng_state=False)]
+        return [decoder(y)]
 
     def extract_features(self, source: torch.Tensor, mode: str = "AUDIO",
                          padding_mask: Optional[torch.Tensor] = None,

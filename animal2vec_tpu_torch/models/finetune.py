@@ -62,6 +62,11 @@ class FinetuneModel(nn.Module):
     def __init__(self, cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
                  train: Optional[FinetuneTrainConfig] = None):
         super().__init__()
+        if cfg.num_extra_tokens:
+            # JAX's FinetuneModel keeps them in its taps: T + E logits frames
+            # against T label frames (models/finetune.py:57)
+            raise NotImplementedError("extra tokens in a finetune model are not ported "
+                                      "(ROADMAP A.7)")
         self.cfg = cfg
         self.final_dropout = 0.0 if train is None else train.final_dropout
         self.zero_mask = True if train is None else train.zero_mask
@@ -106,7 +111,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in the JAX package's scheme: xavier-uniform dense
     kernels and patch embeddings, he-normal convs, zero biases; norms,
     PSwish, the sinc filterbank (mel-spaced) and the ALiBi scales keep their
-    constructor values."""
+    constructor values; extra tokens N(0, 1), the first 0 where the config
+    says so."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, PatchEmbed):
@@ -119,7 +125,9 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 mod.bias.zero_()
-            elif isinstance(mod, (nn.Conv1d, PosConvBlock, Conv1dBlockNorm, Conv2dBlockNorm)):
+            elif hasattr(mod, "init_extra_tokens"):
+                mod.init_extra_tokens(generator)
+            if isinstance(mod, (nn.Conv1d, PosConvBlock, Conv1dBlockNorm, Conv2dBlockNorm)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
                 if mod.bias is not None:

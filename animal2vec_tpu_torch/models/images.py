@@ -107,7 +107,9 @@ class ImageEncoder(nn.Module):
                                      decoder.decoder_residual)
         if cfg.use_alibi_encoder:
             n_heads = cfg.num_heads if cfg.learned_alibi_scale_per_head else 1
-            self.alibi_scale = nn.Parameter(torch.full((1, 1, n_heads, 1, 1), cfg.alibi_scale))
+            n_scales = cfg.n_blocks if cfg.learned_alibi_scale_per_layer else 1
+            self.alibi_scale = nn.Parameter(torch.full((n_scales, 1, n_heads, 1, 1),
+                                                       cfg.alibi_scale))
             self.register_buffer("alibi_bias", torch.from_numpy(alibi_bias_2d(
                 cfg.num_patches, cfg.num_heads, cfg.alibi_distance)), persistent=False)
 
@@ -127,14 +129,23 @@ class ImageEncoder(nn.Module):
         """The fp32 attention bias of every block, or None (``scaled_alibi``,
         ``images.py:158-165``): (1, H, P, P), or with ``mask_info`` each
         row's (B, H, K, K) keep-set bias (``masked_alibi``,
-        ``data2vec2.py:295-298``)."""
+        ``data2vec2.py:295-298``), times the learned scale clipped at 0; with
+        one scale per block unscaled (``layer_scales``)."""
         if not self.cfg.use_alibi_encoder:
             return None
-        scale = self.alibi_scale.float().clamp_min(0.0)[0].reshape(-1, 1, 1)
-        if mask_info is None:
-            return (self.alibi_bias * scale)[None]
-        return masked_alibi(self.alibi_bias[None], mask_info) * scale
+        bias = self.alibi_bias[None] if mask_info is None else masked_alibi(
+            self.alibi_bias[None], mask_info)
+        if self.alibi_scale.shape[0] > 1:
+            return bias
+        return bias * self.alibi_scale.float().clamp_min(0.0)[0].reshape(-1, 1, 1)
+
+    def layer_scales(self) -> Optional[torch.Tensor]:
+        """The (n_blocks, H or 1) per-block scales clipped at 0, or None
+        with one scale (or no ALiBi)."""
+        if not self.cfg.use_alibi_encoder or self.alibi_scale.shape[0] == 1:
+            return None
+        return self.alibi_scale.float().clamp_min(0.0).reshape(self.alibi_scale.shape[0], -1)
 
     def prenet(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
-               bias: Optional[torch.Tensor], rngs=None) -> torch.Tensor:
-        return self.context_encoder(x, padding_mask, bias, rngs)
+               bias: Optional[torch.Tensor], rngs=None, scales=None) -> torch.Tensor:
+        return self.context_encoder(x, padding_mask, bias, rngs, scales)

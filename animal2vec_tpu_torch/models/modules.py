@@ -32,11 +32,24 @@ Training arms run when the module is in ``train()`` mode. Their random
 draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
 the int32 hash seeds of the kernels on its host generator, elementwise
 dropout masks on its device generator. A dense-bias attention (the image
-modality) trains through the dense-bias kernels' autograd Function, a
+modality) trains through the dense-bias kernels' autograd Function, with
+the kernels' hash dropout (JAX draws that mask with ``jax.random``), a
 pre-LN block's MLP through the fused MLP's. Drop-path is not ported (the
-recipes set it to 0), nor is attention dropout with a dense bias (JAX draws
-it with ``jax.random``) or activation dropout in a pre-LN block (JAX leaves
-its fused MLP there): those raise.
+recipes set it to 0), nor is activation dropout in a pre-LN block (JAX
+leaves its fused MLP there): those raise.
+
+Rematerialization (``remat_scope``, JAX's ``BlockStack``/``AltBlock``
+remat, ``modules.py:514-518, 711-728``): "attn" runs each attention
+sub-block (qkv, the attention kernel, the out projection and its dropout)
+under ``torch.utils.checkpoint``, "block" each whole block, so that their
+backward recomputes the forward from the sub-block's input instead of
+keeping its activations. "mlp" changes nothing: the fused blocks' autograd
+Functions (``ops/fused_mlp.py``) keep only their inputs and recompute h in
+their backward already. A checkpointed region draws nothing: a block draws
+its randomness first (``AltBlock.draws``: the host's hash seeds and the
+device generator's keep masks, in the order the region would draw them)
+and hands the draws in, so that the recompute replays the forward's masks
+and the results equal those without remat bit for bit.
 
 The decoders of data2vec-2 pretraining (``Decoder1d`` for audio,
 ``Decoder2d`` for images) are grouped convs, each followed by a LayerNorm
@@ -46,17 +59,19 @@ compose them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from animal2vec_tpu_torch.config import MATMUL_IMPLS
 from animal2vec_tpu_torch.models.attention import AlibiSpec, Bias, multihead_attention
 from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
-from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
+from animal2vec_tpu_torch.ops.dropout import Rngs, apply_dropout, dropout, dropout_mask
 from animal2vec_tpu_torch.ops.fused_mlp import (
     fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
 )
@@ -132,8 +147,8 @@ class AltAttention(nn.Module):
     """Multi-head self-attention (``AltAttention``, ``modules.py:374-446``)
     through ``multihead_attention`` on the (B, T, 3C) projection; in training with
     ``proj_drop`` after the out projection and, for structured ALiBi, the
-    in-kernel hash dropout at ``attn_drop`` (one int32 seed per call; a
-    dense bias with ``attn_drop`` > 0 raises). With
+    in-kernel hash dropout at ``attn_drop`` (one int32 seed per call, for
+    the dense-bias kernels too). With
     ``int8`` (serving) the projections run int8 with their biases added after,
     in the storage dtype, and an ``AlibiSpec`` attention takes int8 products
     (``modules.py:409-421``); a dense bias keeps the bf16 attention."""
@@ -154,9 +169,21 @@ class AltAttention(nn.Module):
             self.qkv_q, self.qkv_s = quantize_weight(self.qkv.weight)
             self.proj_q, self.proj_s = quantize_weight(self.proj.weight)
 
+    def draws(self, x: torch.Tensor, rngs: Optional[Rngs]):
+        """A training call's draws, as the call makes them: the attention's
+        hash seed (host) and the out projection's keep mask (device)."""
+        seed = keep = None
+        if self.training and not self.int8:
+            if self.attn_drop > 0.0:
+                seed = _need(rngs, "attention dropout").attention_seed(self.num_heads)
+            if self.proj_drop > 0.0:
+                keep = dropout_mask(x.shape, self.proj_drop, _need(rngs, "dropout").device,
+                                    x.device)
+        return seed, keep
+
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
-        rngs: Optional[Rngs] = None,
+        rngs: Optional[Rngs] = None, draws=None,
     ) -> torch.Tensor:
         alibi = isinstance(bias, AlibiSpec)
         if self.int8:
@@ -171,15 +198,12 @@ class AltAttention(nn.Module):
             else:
                 out = multihead_attention(qkv, self.num_heads, bias, padding_mask)
             return int8_dense(out, proj_q, proj_s) + self.proj.bias.to(x.dtype)
-        seed, rate = None, 0.0
-        if self.training and self.attn_drop > 0.0:
-            seed, rate = _need(rngs, "attention dropout").attention_seed(self.num_heads), \
-                self.attn_drop
-        out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask, rate,
-                                  seed)
+        seed, keep = self.draws(x, rngs) if draws is None else draws
+        out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask,
+                                  0.0 if seed is None else self.attn_drop, seed)
         out = _linear(out, self.proj)
-        if self.training and self.proj_drop > 0.0:
-            out = dropout(out, self.proj_drop, _need(rngs, "dropout").device)
+        if keep is not None:
+            out = apply_dropout(out, keep, self.proj_drop)
         return out
 
 
@@ -218,14 +242,20 @@ class AltBlock(nn.Module):
     Pre-LN (``layer_norm_first``): ``x + attn(norm1(x))``, then the MLP of
     ``norm2`` of that (in int8 through the int8 fused MLP), in training with
     ``post_mlp_drop`` on its residual branch; ``activation_dropout`` raises
-    there."""
+    there.
+
+    ``remat_scope`` "attn" or "block" runs the attention sub-block or the
+    whole block under ``torch.utils.checkpoint`` in training (None or
+    "mlp": as without remat); the block's draws come first (``draws``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  eps: float = 1e-5, encoder_dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
                  post_mlp_drop: float = 0.0, matmul_impl: str = "bf16",
-                 layer_norm_first: bool = False, ffn_targets: bool = True):
+                 layer_norm_first: bool = False, ffn_targets: bool = True,
+                 remat_scope: Optional[str] = None):
         super().__init__()
+        self.remat_scope = remat_scope
         if matmul_impl not in MATMUL_IMPLS:
             raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
         self.layer_norm_first, self.ffn_targets = layer_norm_first, ffn_targets
@@ -248,32 +278,68 @@ class AltBlock(nn.Module):
             self.w1_q, self.w1_s = quantize_weight(self.mlp.fc1.weight)
             self.w2_q, self.w2_s = quantize_weight(self.mlp.fc2.weight)
 
+    def _remat(self, scope: str) -> bool:
+        return self.remat_scope == scope and self.training and torch.is_grad_enabled()
+
+    def draws(self, x: torch.Tensor, rngs: Optional[Rngs]):
+        """The block's training draws, as an unrematerialized forward makes
+        them: the attention's (``AltAttention.draws``), then the post-LN
+        fused block's three int32 hash seeds with its first global row, or
+        the pre-LN block's keep mask of its residual branch."""
+        if self.layer_norm_first and self.training and self.act_rate > 0.0:
+            raise NotImplementedError("activation dropout in a pre-LN block is not ported")
+        attn = self.attn.draws(x, rngs)
+        train = self.training and not self.int8
+        if self.layer_norm_first:
+            post = None
+            if train and self.post_rate > 0.0:
+                post = dropout_mask(x.shape, self.post_rate, _need(rngs, "dropout").device,
+                                    x.device)
+            return attn, post
+        seeds = None
+        if train and (self.act_rate > 0.0 or self.post_rate > 0.0):
+            seeds = (_need(rngs, "block dropout").int32_seeds(3), rngs.row0 * x.shape[1])
+        return attn, seeds
+
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
         rngs: Optional[Rngs] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        draws = self.draws(x, rngs)
+        if self._remat("block"):
+            return checkpoint(self._body, x, padding_mask, bias, draws, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._body(x, padding_mask, bias, draws)
+
+    def _body(self, x, padding_mask, bias, draws):
         if self.layer_norm_first:
-            x, t = self._pre_ln(x, padding_mask, bias, rngs)
+            x, t = self._pre_ln(x, padding_mask, bias, draws)
         else:
-            x, t = self._post_ln(x, padding_mask, bias, rngs)
+            x, t = self._post_ln(x, padding_mask, bias, draws)
         return x, (t if self.ffn_targets else x)
 
-    def _pre_ln(self, x, padding_mask, bias, rngs):
-        if self.training and self.act_rate > 0.0:
-            raise NotImplementedError("activation dropout in a pre-LN block is not ported")
-        x = x + self.attn(self.norm1(x), padding_mask, bias, rngs)
+    def _attention(self, x, padding_mask, bias, draws):
+        if self._remat("attn"):
+            return checkpoint(self.attn, x, padding_mask, bias, None, draws, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self.attn(x, padding_mask, bias, None, draws)
+
+    def _pre_ln(self, x, padding_mask, bias, draws):
+        attn_draws, post = draws
+        x = x + self._attention(self.norm1(x), padding_mask, bias, attn_draws)
         int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s") if self.int8 else None
         # The reference's pre-LN branch (modules.py:551-554, after fairseq's
         # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + post_drop(t)``: the
         # residual x is not added back, and with dropout off the block gives
         # 2 * mlp(norm2(x)). The port computes what the reference computes.
         t = self.mlp(self.norm2(x), int8_weights)
-        if self.training and self.post_rate > 0.0:
-            return t + dropout(t, self.post_rate, _need(rngs, "dropout").device), t
+        if post is not None:
+            return t + apply_dropout(t, post, self.post_rate), t
         return t + t, t
 
-    def _post_ln(self, x, padding_mask, bias, rngs):
-        x = x + self.attn(x, padding_mask, bias, rngs)
+    def _post_ln(self, x, padding_mask, bias, draws):
+        attn_draws, block_seeds = draws
+        x = x + self._attention(x, padding_mask, bias, attn_draws)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.int8:
             w1_q, w1_s, w2_q, w2_s = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s")
@@ -281,21 +347,33 @@ class AltBlock(nn.Module):
                 x, self.norm1.weight, self.norm1.bias, w1_q, w1_s, fc1.bias, w2_q, w2_s,
                 fc2.bias, self.norm2.weight, self.norm2.bias, self.eps,
             )
-        seeds, act_rate, post_rate = None, 0.0, 0.0
-        if self.training and (self.act_rate > 0.0 or self.post_rate > 0.0):
-            seeds = _need(rngs, "block dropout").int32_seeds(3)
-            act_rate, post_rate = self.act_rate, self.post_rate
+        seeds, row0, act_rate, post_rate = None, 0, 0.0, 0.0
+        if block_seeds is not None:
+            (seeds, row0), act_rate, post_rate = block_seeds, self.act_rate, self.post_rate
         return fused_block_mlp(
             x, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
             fc2.weight.to(x.dtype).t(), fc1.bias, fc2.bias, self.norm2.weight,
-            self.norm2.bias, self.eps, seeds, act_rate, post_rate,
-            row0=0 if seeds is None else rngs.row0 * x.shape[1],
+            self.norm2.bias, self.eps, seeds, act_rate, post_rate, row0=row0,
         )
+
+
+def scale_bias(bias: Bias, scale: torch.Tensor) -> Bias:
+    """A block's bias under its learned per-layer ALiBi scale (``scale``: one
+    value per head, or one value): the slopes of an ``AlibiSpec`` times the
+    scale, a dense (B, H, T, T) bias times it per head (``modules.py:
+    757-760``)."""
+    if bias is None:
+        return None
+    if isinstance(bias, AlibiSpec):
+        return dataclasses.replace(bias, slopes=bias.slopes * scale)
+    return bias * scale.reshape(1, -1, 1, 1)
 
 
 class BlockStack(nn.Module):
     """``depth`` AltBlocks run in a loop (``BlockStack``), each given the same
-    bias; returns (x, taps, keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
+    bias, or with ``scales`` ((depth, H) or (depth, 1), the learned
+    per-layer ALiBi scales) layer i the bias under scale i; returns (x,
+    taps, keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
     each layer is kept with probability 1 - layerdrop, drawn on the host: a
     dropped layer is skipped, its tap is its input x and its keep is 0
     (``modules.py:768-775``). ``keeps`` is None when no layer can drop."""
@@ -312,7 +390,7 @@ class BlockStack(nn.Module):
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
-        rngs: Optional[Rngs] = None,
+        rngs: Optional[Rngs] = None, scales: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[List[float]]]:
         drop = self.training and self.layerdrop > 0.0
         if drop:
@@ -323,7 +401,8 @@ class BlockStack(nn.Module):
                 taps.append(x)
                 keeps.append(0.0)
                 continue
-            x, tap = block(x, padding_mask, bias, rngs)
+            x, tap = block(x, padding_mask, bias if scales is None else
+                           scale_bias(bias, scales[i]), rngs)
             taps.append(tap)
             keeps.append(1.0)
         return x, taps, keeps if drop else None
@@ -363,13 +442,13 @@ class PrenetEncoder(nn.Module):
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
-        rngs: Optional[Rngs] = None,
+        rngs: Optional[Rngs] = None, scales: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if not self.layer_norm_first:
             x = self.norm(x)
         if self.training and self.prenet_dropout > 0.0:
             x = dropout(x, self.prenet_dropout, _need(rngs, "prenet dropout").device)
-        x, _, _ = self.blocks(x, padding_mask, bias, rngs)
+        x, _, _ = self.blocks(x, padding_mask, bias, rngs, scales)
         if self.layer_norm_first:
             x = self.norm(x)
         return x

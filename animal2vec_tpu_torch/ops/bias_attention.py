@@ -27,7 +27,13 @@ dbias kernel (``bias_attention_dq``) and the dk/dv kernel
 dq, dk and dv into one (B, T, 3, H, D) gradient. The gradient is
 ``xla_attention``'s: dbias is dS = P * (dP - delta) in fp32, 0 at padded
 keys; a batch-uniform (1, H, T, T) bias gets the sum over the batch (the
-transpose of the broadcast). On a CPU tensor the plain version runs and
+transpose of the broadcast). Attention dropout (``dropout_rate`` and an
+int32 ``seed``) is a hash site in the forward and in every backward
+kernel: the keep mask of (seed + (b*H + h) * 0xC2B2AE3D, query, key) that
+the ALiBi kernels use (``attention_keep``), regenerated in-register, never
+materialized; the plain twin takes it as a (B, H, T, T) tensor (on a CPU
+tensor the wrapper builds it from the seed), so that the tests can hand it
+JAX's own bernoulli mask. On a CPU tensor the plain version runs and
 autograd through it is the backward; any other device raises. The kernels read q, k and v in place with their batch
 and time strides (each row's heads packed, the three with the same
 strides), so the model passes the q, k, v views of its (B, T, 3, H, D)
@@ -54,10 +60,20 @@ from typing import Optional, Tuple
 import torch
 
 from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
 
 NEG_INF = -1e10  # models/attention.py NEG_INF
 DEAD_LSE = -5e9  # an lse below this marks a query row whose keys are all padded
 SINGLE_T = 64  # the longest T the single backward launch takes (one 64-row tile)
+
+
+def attention_keep(b: int, h: int, t: int, rate: float, seed: int, device=None) -> torch.Tensor:
+    """The kernels' (B, H, T, T) fp32 0/1 keep mask of ``rate`` and ``seed``:
+    the hash of (seed + (b*H + h) * 0xC2B2AE3D, query, key) that the ALiBi
+    kernels use too (``ops.dropout.dropout_keep``)."""
+    bh = torch.arange(b * h, dtype=torch.int64).reshape(b, h, 1, 1)
+    idx = torch.arange(t, dtype=torch.int64)
+    return dropout_keep(seed, bh, idx[:, None], idx[None, :], rate).to(device)
 
 
 def bias_attention_plain(
@@ -67,16 +83,24 @@ def bias_attention_plain(
     bias: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
     return_lse: bool = False,
+    keep: Optional[torch.Tensor] = None,
+    rate: float = 0.0,
 ):
     """Materialized-score reference (any device, differentiable):
-    ``xla_attention``. With ``return_lse`` returns (out, lse (B*H, T) fp32)."""
+    ``xla_attention``. With ``return_lse`` returns (out, lse (B*H, T) fp32).
+    ``keep`` (B, H, T, T) 0/1 drops the normalized weights at ``rate`` and
+    scales the kept ones by 1 / (1 - rate), before their cast, as
+    ``xla_attention`` drops them under its bernoulli mask."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", (q * d**-0.5).float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
     if padding_mask is not None:
         logits = logits.masked_fill(padding_mask.bool()[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if keep is not None:
+        probs = probs * keep.float() * keep_scale(rate)
+    probs = probs.to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
     if not return_lse:
         return out
@@ -92,12 +116,16 @@ def bias_attention_bwd_plain(
     delta: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None,
+    rate: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference of the two backward kernels on their inputs (the forward's
     lse and delta = rowsum(dO * O), both (B*H, T) fp32), written out on
     materialized fp32 scores with the kernels' roundings (dS and P cast to
-    q's dtype before their products). Returns dq, dk, dv (B, T, H, D) in q's
-    dtype and dbias = dS, fp32 (B, H, T, T)."""
+    q's dtype before their products). With the forward's ``keep`` mask and
+    ``rate`` (f = keep / (1 - rate)): dP is f times dO V^T, and dv takes P
+    f. Returns dq, dk, dv (B, T, H, D) in q's dtype and dbias = dS, fp32
+    (B, H, T, T)."""
     b, t, h, d = q.shape
     scale = d**-0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -112,6 +140,9 @@ def bias_attention_bwd_plain(
     # a row whose keys are all padded weighs each of them 1/T in the forward
     p_v = torch.where(dead & padded, 1.0 / t, p)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    if keep is not None:
+        f = keep.float() * keep_scale(rate)
+        p_v, dp = p_v * f, dp * f
     ds = p * (dp - delta.reshape(b, h, t, 1))
     ds_r = ds.to(q.dtype).float()
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds_r, k.float())
@@ -168,13 +199,33 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False):
+def _drop_args(rate: float, seed: Optional[int]):
+    """(seed, thresh, keep_scale) of the kernels' dropout; thresh 0 is none."""
+    if rate <= 0.0:
+        return 0, 0, 1.0
+    if seed is None:
+        raise ValueError("attention dropout needs an int32 seed")
+    return int(seed), keep_threshold(rate), keep_scale(rate)
+
+
+def _plain_keep(q, rate: float, seed: Optional[int]):
+    """The plain version's keep mask of the kernels' hash (None at rate 0)."""
+    if rate <= 0.0:
+        return None
+    b, t, h, _ = q.shape
+    return attention_keep(b, h, t, rate, _drop_args(rate, seed)[0], q.device)
+
+
+def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False,
+                           rate=0.0, seed=None):
     """The forward kernel's function: out (B, T, H, D) and, with
-    ``with_lse``, the (B*H, T) fp32 logsumexp. On CUDA one launch of the
-    kernel, on CPU the plain version; not differentiable (the model's entry
-    is ``bias_flash_attention``)."""
+    ``with_lse``, the (B*H, T) fp32 logsumexp; with ``rate`` > 0 the hash
+    dropout of ``seed`` on the weights. On CUDA one launch of the kernel, on
+    CPU the plain version under ``attention_keep``'s mask; not
+    differentiable (the model's entry is ``bias_flash_attention``)."""
     if q.device.type == "cpu":
-        return bias_attention_plain(q, k, v, bias, padding_mask, return_lse=with_lse)
+        return bias_attention_plain(q, k, v, bias, padding_mask, with_lse,
+                                    _plain_keep(q, rate, seed), rate)
     if q.device.type != "cuda":
         raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
     b, t, h, d, strides = _check_qkv(q, k, v)
@@ -188,7 +239,7 @@ def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False
         err = library().a2v_bias_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], _ptr(bias),
             int(uniform), _ptr(padding_mask), out.data_ptr(), _ptr(lse), b, h, t, d, d**-0.5,
-            stream,
+            *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention kernel")
     bias_flash_attention.launches += 1
@@ -219,13 +270,15 @@ def _grad_planes(q):
 
 
 def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dq=None,
-                      want_dbias=True):
+                      want_dbias=True, rate=0.0, seed=None):
     """dq (B, T, H, D) and, with ``want_dbias`` and a bias, dbias = dS (B,
-    H, T, T) fp32 (else None) of the backward. ``dq`` may be a preallocated
-    plane of a (B, T, 3, H, D) gradient. Kernel on CUDA,
-    ``bias_attention_bwd_plain`` on CPU."""
+    H, T, T) fp32 (else None) of the backward (of the forward's dropout at
+    ``rate`` and ``seed``). ``dq`` may be a preallocated plane of a (B, T,
+    3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain`` on
+    CPU."""
     if q.device.type == "cpu":
-        dq_p, _, _, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask)
+        dq_p, _, _, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask,
+                                                  _plain_keep(q, rate, seed), rate)
         return dq_p, (ds if want_dbias and bias is not None else None)
     if q.device.type != "cuda":
         raise ValueError(f"bias attention dq runs on cuda or cpu tensors, got {q.device}")
@@ -241,7 +294,7 @@ def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, d
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dq.data_ptr(), out_strides[0], out_strides[1], _ptr(dbias), b, h, t, d, d**-0.5,
-            stream,
+            *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention dq kernel")
     bias_attention_dq.launches += 1
@@ -252,12 +305,14 @@ bias_attention_dq.launches = 0
 
 
 def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dk=None,
-                       dv=None):
-    """dk and dv (B, T, H, D) of the backward; ``dk`` and ``dv`` may be
-    preallocated planes of a (B, T, 3, H, D) gradient. Kernel on CUDA,
-    ``bias_attention_bwd_plain`` on CPU."""
+                       dv=None, rate=0.0, seed=None):
+    """dk and dv (B, T, H, D) of the backward (of the forward's dropout at
+    ``rate`` and ``seed``); ``dk`` and ``dv`` may be preallocated planes of
+    a (B, T, 3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain``
+    on CPU."""
     if q.device.type == "cpu":
-        _, dk_p, dv_p, _ = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask)
+        _, dk_p, dv_p, _ = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask,
+                                                    _plain_keep(q, rate, seed), rate)
         return dk_p, dv_p
     if q.device.type != "cuda":
         raise ValueError(f"bias attention dk/dv runs on cuda or cpu tensors, got {q.device}")
@@ -273,7 +328,7 @@ def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, 
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1], b, h, t, d, d**-0.5,
-            stream,
+            *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention dk/dv kernel")
     bias_attention_dkv.launches += 1
@@ -284,15 +339,16 @@ bias_attention_dkv.launches = 0
 
 
 def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dq=None,
-                              dk=None, dv=None, want_dbias=True):
+                              dk=None, dv=None, want_dbias=True, rate=0.0, seed=None):
     """dq, dk, dv (B, T, H, D) and, with ``want_dbias`` and a bias, dbias =
     dS (B, H, T, T) fp32 (else None) of the backward in one launch, for T <=
     ``SINGLE_T``; ``dq``, ``dk``, ``dv`` may be preallocated planes of a (B,
-    T, 3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain`` on
-    CPU."""
+    T, 3, H, D) gradient; ``rate`` and ``seed`` the forward's dropout.
+    Kernel on CUDA, ``bias_attention_bwd_plain`` on CPU."""
     if q.device.type == "cpu":
         dq_p, dk_p, dv_p, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias,
-                                                        padding_mask)
+                                                        padding_mask, _plain_keep(q, rate, seed),
+                                                        rate)
         return dq_p, dk_p, dv_p, (ds if want_dbias and bias is not None else None)
     if q.device.type != "cuda":
         raise ValueError(f"bias attention backward runs on cuda or cpu tensors, got {q.device}")
@@ -313,7 +369,7 @@ def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1],
-            _ptr(dbias), b, h, t, d, d**-0.5, stream,
+            _ptr(dbias), b, h, t, d, d**-0.5, *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention single backward kernel")
     bias_attention_bwd_single.launches += 1
@@ -325,9 +381,10 @@ bias_attention_bwd_single.launches = 0
 
 class _BiasAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, padding_mask):
-        out, lse = bias_attention_forward(q, k, v, bias, padding_mask, True)
+    def forward(ctx, q, k, v, bias, padding_mask, rate, seed):
+        out, lse = bias_attention_forward(q, k, v, bias, padding_mask, True, rate, seed)
         ctx.save_for_backward(q, k, v, bias, padding_mask, out, lse)
+        ctx.drop = dict(rate=rate, seed=seed)
         return out
 
     @staticmethod
@@ -341,13 +398,13 @@ class _BiasAttention(torch.autograd.Function):
         args = (q, k, v, dout, lse, delta, bias, padding_mask)
         if t <= SINGLE_T:
             dbias = bias_attention_bwd_single(*args, dq=dq, dk=dk, dv=dv,
-                                              want_dbias=want_dbias)[3]
+                                              want_dbias=want_dbias, **ctx.drop)[3]
         else:
-            _, dbias = bias_attention_dq(*args, dq=dq, want_dbias=want_dbias)
-            bias_attention_dkv(*args, dk=dk, dv=dv)
+            _, dbias = bias_attention_dq(*args, dq=dq, want_dbias=want_dbias, **ctx.drop)
+            bias_attention_dkv(*args, dk=dk, dv=dv, **ctx.drop)
         if dbias is not None and bias.shape[0] == 1 and b > 1:
             dbias = dbias.sum(0, keepdim=True)  # the transpose of the broadcast
-        return dq, dk, dv, dbias, None
+        return dq, dk, dv, dbias, None, None, None
 
 
 def bias_flash_attention(
@@ -356,19 +413,24 @@ def bias_flash_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense-bias attention of (B, T, H, D) q, k, v -> (B, T, H, D),
-    differentiable in q, k, v and the bias: on CUDA one forward launch when
-    no gradient is wanted, else the autograd Function (forward with lse, the
-    backward kernels); autograd through the plain version on CPU."""
+    differentiable in q, k, v and the bias, with the hash dropout of the
+    int32 ``seed`` at ``dropout_rate`` on the weights: on CUDA one forward
+    launch when no gradient is wanted, else the autograd Function (forward
+    with lse, the backward kernels); autograd through the plain version
+    under ``attention_keep``'s mask on CPU."""
     if q.device.type == "cpu":
-        return bias_attention_plain(q, k, v, bias, padding_mask)
+        return bias_attention_plain(q, k, v, bias, padding_mask, False,
+                                    _plain_keep(q, dropout_rate, seed), dropout_rate)
     if q.device.type != "cuda":
         raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
     inputs = (q, k, v) + (() if bias is None else (bias,))
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        return _BiasAttention.apply(q, k, v, bias, padding_mask)
-    return bias_attention_forward(q, k, v, bias, padding_mask, False)
+        return _BiasAttention.apply(q, k, v, bias, padding_mask, dropout_rate, seed)
+    return bias_attention_forward(q, k, v, bias, padding_mask, False, dropout_rate, seed)
 
 
 bias_flash_attention.launches = 0

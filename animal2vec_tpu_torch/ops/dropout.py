@@ -139,10 +139,21 @@ class Rngs:
         return fold_bh_offset(self.int32_seeds(1)[0], self.row0 * heads)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The bool keep mask that ``dropout`` draws from ``generator``: drawn
+    ahead of a rematerialized region, it is the same draw in the forward
+    and in the recompute."""
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` under a ``dropout_mask``."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout with a mask drawn from ``generator`` (``F.dropout``
     takes no generator). ``rate`` 0 returns ``x``."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_dropout(x, dropout_mask(x.shape, rate, generator, x.device), rate)

@@ -6,6 +6,7 @@ pretraining), computed in fp32."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,9 +55,17 @@ def label_smoothed_nll_loss(
     return _reduce((1.0 - epsilon) * nll + epsilon * smooth, reduction)
 
 
-def d2v_regression_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def d2v_regression_loss(x: torch.Tensor, y: torch.Tensor, loss_beta: float = 0.0,
+                        loss_scale: Optional[float] = None) -> torch.Tensor:
     """Per-element regression loss of student predictions ``x`` against
-    teacher targets ``y``, (N, D) fp32 out: the squared error times
-    1/sqrt(D) (the recipes' ``loss_beta`` 0 and ``loss_scale`` None)."""
+    teacher targets ``y``, (N, D) fp32 out: the squared error, or with
+    ``loss_beta`` > 0 the smooth L1 loss (quadratic below ``loss_beta``),
+    times ``loss_scale`` (None: 1/sqrt(D))."""
     d = x.shape[-1]
-    return (x.reshape(-1, d).float() - y.reshape(-1, d).float()) ** 2 * (1.0 / math.sqrt(d))
+    diff = x.reshape(-1, d).float() - y.reshape(-1, d).float()
+    if loss_beta == 0:
+        loss = diff**2
+    else:
+        a = diff.abs()
+        loss = torch.where(a < loss_beta, 0.5 * a**2 / loss_beta, a - 0.5 * loss_beta)
+    return loss * (loss_scale if loss_scale is not None else 1.0 / math.sqrt(d))

@@ -170,10 +170,13 @@ def scatter_with_mask_tokens(
     mask_info: MaskInfo,
     noise_std: float,
     generator: Optional[torch.Generator] = None,
+    num_extra: int = 0,
 ) -> torch.Tensor:
     """The decoder's input: (B, K, C) kept tokens back at their positions of
     a (B, T, C) sequence whose masked positions hold ``noise_std * N(0, 1)``
-    mask tokens (zeros when ``noise_std`` is 0)."""
+    mask tokens (zeros when ``noise_std`` is 0); the first ``num_extra``
+    tokens (extra tokens) are dropped first."""
+    x_keep = x_keep[:, num_extra:]
     b, k, d = x_keep.shape
     shape = (b, mask_info.ids_restore.shape[1] - k, d)
     if noise_std:

@@ -1,19 +1,29 @@
 """Training CLI: the port of ``animal2vec_tpu/tools/train_cli.py``.
 
 Usage:
-  python -m animal2vec_tpu_torch.tools.train_cli --recipe finetune_100 \\
-      --data <manifest dir> --save-dir <checkpoint dir> [--max-steps N] \\
-      [--patience N] [--pretrained <checkpoint dir>] [--device cuda]
-      [--dist-backend nccl|gloo] [key=value ...]
+  python -m animal2vec_tpu_torch.tools.train_cli --config <recipe.yaml> \\
+      [--data <manifest dir>] [--save-dir <checkpoint dir>] [--max-steps N] \\
+      [--patience N] [--pretrained <checkpoint dir or fairseq .pt>] \\
+      [--device cuda] [--dist-backend nccl|gloo] [key=value ...]
+  python -m animal2vec_tpu_torch.tools.train_cli --recipe finetune_100 ...
 
-``--recipe`` picks ``config.RunConfig.finetune_100`` or
-``RunConfig.a2v_large_pretrain``; dotted ``key=value`` overrides change any
-field of the run (``dataset.batch_size=4``, ``model.depth=8``,
+``--config`` reads a YAML recipe in the JAX package's schema
+(``config.load_config``; the six shipped recipes are in
+``animal2vec_tpu_torch/configs/``), with dotted overrides in its key names
+(``model.depth=8``, ``model.remat_scope=attn``,
+``model.teacher_matmul_impl=int8``, ``optimization.update_freq=1``); a
+``finetune`` section makes a finetune run. ``--recipe`` names one of two
+copies (``finetune_100``, ``a2v_large_pretrain``, as
+``config.RunConfig``'s presets) and takes overrides in the port's own field
+names (``dataset.batch_size=4``, ``model.depth=8``,
 ``pretrain.model.depth=8``, ``finetune.optimization.update_freq=1``).
-A finetune run starts from a pretraining checkpoint of this package with
-``--pretrained`` (a manager's directory, a ``step_*`` directory or
-``best``); a fairseq ``.pt`` goes through ``tools/convert_cli import --kind
-pretrain`` first.
+``common.profile`` traces the run with ``torch.profiler`` into
+``common.tensorboard_logdir`` (or ``trace``); ``common.suppress_crashes``
+logs an exception of the run and returns None.
+A finetune run starts from ``--pretrained``: a pretraining checkpoint of
+this package (a manager's directory, a ``step_*`` directory or ``best``)
+or a fairseq ``.pt``, converted on load (with ``finetune.load_ema`` its
+EMA weights).
 A run resumes from the latest checkpoint in its save directory. The run
 goes on the card unless ``--device cpu`` asks for the CPU.
 
@@ -37,21 +47,24 @@ import argparse
 import logging
 import sys
 
-from animal2vec_tpu_torch.config import RECIPES, apply_overrides
+from animal2vec_tpu_torch.config import RECIPES, apply_overrides, load_config
 from animal2vec_tpu_torch.parallel import mesh
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--recipe", required=True, choices=sorted(RECIPES))
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--config", help="YAML recipe (the JAX package's schema)")
+    source.add_argument("--recipe", choices=sorted(RECIPES))
     parser.add_argument("--data", default=None, help="manifest directory (task.data)")
     parser.add_argument("--save-dir", default=None, help="checkpoint directory")
     parser.add_argument("--max-steps", type=int, default=None, help="stop after this step")
     parser.add_argument("--patience", type=int, default=None,
                         help="override checkpoint.patience (early-stop validations)")
     parser.add_argument("--pretrained", default="",
-                        help="pretraining checkpoint directory to start a finetune run from")
+                        help="pretraining checkpoint directory or fairseq .pt to start a "
+                             "finetune run from")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dist-backend", default=None, choices=mesh.BACKENDS,
                         help="process group backend (default: nccl on cuda, gloo on cpu)")
@@ -65,7 +78,10 @@ def main(argv=None):
         overrides.append(f"task.data={args.data}")
     if args.save_dir is not None:
         overrides.append(f"checkpoint.save_dir={args.save_dir}")
-    run = apply_overrides(RECIPES[args.recipe](), overrides)
+    if args.config:
+        run = load_config(args.config, overrides)
+    else:
+        run = apply_overrides(RECIPES[args.recipe](), overrides)
     if run.finetune is None and args.pretrained:
         raise ValueError("--pretrained starts a finetune run; the recipe is pretraining")
     backend = args.dist_backend or mesh.default_backend(args.device)
@@ -79,25 +95,61 @@ def main(argv=None):
     dp = mesh.init_data_parallel(args.device, backend)
     if not dp.is_main:  # rank 0 logs
         logging.getLogger("animal2vec_tpu_torch").setLevel(logging.WARNING)
-    try:
+
+    def _run():
         if run.distributed.data_parallel not in (-1, dp.world):
             raise ValueError(f"distributed.data_parallel={run.distributed.data_parallel} but the "
                              f"group has {dp.world} rank(s)")
         if run.finetune is None:
             return run_pretrain(run, max_steps=args.max_steps, dp=dp)
-        pretrained = load_pretrained(args.pretrained) if args.pretrained else None
+        pretrained = load_pretrained(args.pretrained, run) if args.pretrained else None
         return run_finetune(run, pretrained=pretrained, max_steps=args.max_steps,
                             patience=args.patience, dp=dp)
+
+    def _profiled():
+        if not run.common.profile:
+            return _run()
+        import torch
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if torch.device(args.device).type == "cuda" else [])
+        with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+                run.common.tensorboard_logdir or "trace", worker_name=f"rank{dp.rank}")):
+            return _run()
+
+    try:
+        if run.common.suppress_crashes:
+            try:
+                return _profiled()
+            except Exception:  # noqa: BLE001 - the recipe's opt-in
+                logging.getLogger("animal2vec_tpu_torch").exception("run crashed (suppressed)")
+                return None
+        return _profiled()
     finally:
         dp.close()
 
 
-def load_pretrained(path: str):
-    """The student's state dict of a pretraining checkpoint of this package."""
+def load_pretrained(path: str, run=None):
+    """The pretrained student's state dict that a finetune run starts from
+    (``_load_pretrained``, ``animal2vec_tpu/tools/train_cli.py:76-95``): a
+    fairseq ``.pt`` through ``train/convert.py`` (the tolerant unpickler,
+    ``convert_pretrain`` onto ``run.model``'s architecture and
+    ``params_from_jax``; with ``finetune.load_ema`` the ``_ema.*`` weights
+    where the file has them), else a checkpoint directory of this package."""
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: convert a fairseq .pt first (tools/convert_cli import --kind pretrain, "
-            "ROADMAP A.6) and pass the checkpoint directory it writes")
+        from animal2vec_tpu_torch.train.convert import (
+            load_torch_checkpoint, pretrain_state_dicts, state_dict_to_numpy,
+        )
+
+        state = load_torch_checkpoint(path)
+        sd = state_dict_to_numpy(state.get("model", state))
+        if run.finetune.load_ema and any(k.startswith("_ema.") for k in sd):
+            # the EMA weights as the encoder (nn/wav2vec2.py:187-192)
+            for k in list(sd):
+                if k.startswith("_ema."):
+                    sd[k[len("_ema."):]] = sd[k]
+        return pretrain_state_dicts(sd, run.model)[0]
     from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
 
     return load_checkpoint_dir(path)["model"]

@@ -21,7 +21,18 @@ The teacher (``teacher_targets``) is the student module in eval mode,
 without gradient, over the student's parameters overlaid with the EMA ones
 (``torch.func.functional_call``): it sums the normalized taps of its last k
 trunk layers, and the targets are that sum divided by k, finished. It reads
-the student's own local features, detached.
+the student's own local features, detached. With ``teacher_matmul_impl``
+int8 or int8_attn (JAX's ``train/pretrain.py:150-170``) it is a module of the same
+architecture in that serving mode (``int8_teacher``, built on the meta
+device: it holds no weights of its own), run over the same merged
+parameters and the int8 weights quantized from them at every call, as
+JAX quantizes inside the teacher's forward: so the targets follow the EMA
+weights after every step and equal those of a model loaded from the merged
+weights. Nothing is differentiated through the int8 kernels. With extra
+tokens the teacher's taps keep them, as JAX's do (its targets are
+normalized over T + E rows and gathered at the masked ids); with
+``cls_loss`` the output at the last extra token regresses the time-mean
+target, times ``cls_loss`` and the sample size (JAX's ``pretrain.py:233-241``).
 
 Random draws come from an explicit ``ops.dropout.Rngs``: the mixup draws
 and the masks on its rank's own rows generator, the kernels' int32 seeds
@@ -33,6 +44,8 @@ a parameter (``draw_mask``) that tests set to one given mask on both sides.
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -74,20 +87,51 @@ def draw_pretrain_mask(cfg: PretrainConfig, rows: int, t: int, rngs: Rngs) -> to
     return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows)
 
 
+_INT8_TEACHERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def int8_teacher(model: Data2VecMulti, impl: str) -> Data2VecMulti:
+    """The student's architecture in the serving mode ``impl`` ("int8" or
+    "int8_attn"), on the meta device and in eval mode: a module without
+    weights of its own that ``teacher_targets`` runs over the student's
+    tensors (one per student and mode)."""
+    per_model = _INT8_TEACHERS.setdefault(model, {})
+    if impl not in per_model:
+        with torch.device("meta"):
+            per_model[impl] = Data2VecMulti(dataclasses.replace(model.cfg, matmul_impl=impl),
+                                            model.dtype, pretrain=model.pretrain).eval()
+    return per_model[impl]
+
+
 @torch.no_grad()
-def teacher_targets(model: Data2VecMulti, ema: Dict[str, torch.Tensor],
-                    local: torch.Tensor) -> torch.Tensor:
-    """The EMA teacher's (B, T, C) fp32 targets of the unmasked local
-    features."""
+def teacher_encode(model: Data2VecMulti, ema: Dict[str, torch.Tensor], local: torch.Tensor,
+                   impl: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The EMA teacher's trunk output x and the fp32 sum of its last k
+    normalized taps on the unmasked local features; ``impl`` an int8
+    serving mode other than the model's own runs the teacher through the
+    int8 kernels on weights quantized from the merged ones."""
+    params = merge_params(model, ema)
+    if impl and impl != model.cfg.matmul_impl:
+        net = int8_teacher(model, impl)
+        tensors = {**dict(model.named_buffers()), **params, **net.quantized_buffers(params)}
+        x, t_sum, _, _ = torch.func.functional_call(
+            net, tensors, (local.detach(),), {"method": "encode", "reduce_targets": True})
+        return x, t_sum
     was_training = model.training
     model.eval()
     try:
-        _, t_sum, _, _ = torch.func.functional_call(
-            model, merge_params(model, ema), (local.detach(),),
-            {"method": "encode", "reduce_targets": True})
+        x, t_sum, _, _ = torch.func.functional_call(
+            model, params, (local.detach(),), {"method": "encode", "reduce_targets": True})
     finally:
         model.train(was_training)
-    return t_sum / model.pretrain.average_top_k_layers
+    return x, t_sum
+
+
+def teacher_targets(model: Data2VecMulti, ema: Dict[str, torch.Tensor],
+                    local: torch.Tensor, impl: str = "") -> torch.Tensor:
+    """The EMA teacher's (B, T, C) fp32 targets of the unmasked local
+    features (``teacher_encode``'s tap sum divided by k)."""
+    return teacher_encode(model, ema, local, impl)[1] / model.pretrain.average_top_k_layers
 
 
 def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Batch,
@@ -117,7 +161,7 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
 
     x, _, _, _ = model.encode(local_c, rngs=rngs, mask_info=info, remove_masked=True)
     xs = model.decode_d2v(x, info, rngs)
-    y = teacher_targets(model, ema, local)  # (B, T, C) fp32
+    y = teacher_targets(model, ema, local, cfg.teacher_matmul_impl)  # (B, T [+ E], C) fp32
 
     # the clone rows [i*clone, (i+1)*clone) read sample i's targets: fold the
     # clone axis into the gather index instead of repeating y
@@ -139,12 +183,22 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
 
     losses: Dict[str, torch.Tensor] = {}
     metrics: Metrics = {}
+    beta, scale = cfg.loss_beta, cfg.loss_scale
     for i, xd in enumerate(xs):
         x_m = take_rows(xd, ids_masked)
         name = f"{mode}_regression_{i}" if len(xs) > 1 else f"{mode}_regression"
-        reg = d2v_regression_loss(x_m, y_m).reshape(b * clone, -1) * clone_w[:, None]
-        losses[name] = reg.sum()
+        reg = d2v_regression_loss(x_m, y_m, beta, scale).reshape(b * clone, -1)
+        losses[name] = (reg * clone_w[:, None]).sum()
         metrics[f"pred_var_{i}" if len(xs) > 1 else "pred_var"] = compute_var(x_m.detach())
+    n_extra = model.cfg.num_extra_tokens
+    if cfg.cls_loss > 0 and n_extra > 0:
+        # each sample's time-mean target, broadcast to its clone rows
+        cls_target = y.mean(dim=1)
+        if clone > 1:
+            cls_target = cls_target.repeat_interleave(clone, dim=0)
+        cls_reg = d2v_regression_loss(x[:, n_extra - 1], cls_target, beta, scale)
+        losses["cls"] = (cls_reg.reshape(b * clone, -1) * clone_w[:, None]).sum() \
+            * cfg.cls_loss * denom  # the sample size over the ranks: the term sums
 
     loss = sum(losses.values()) / denom
     metrics["target_var"] = compute_var(y_m)

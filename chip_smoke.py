@@ -4,8 +4,10 @@ modes), its finetune training path, its ViT-B/16 image serving path
 (post-LN and pre-LN, bf16 and the int8 modes), its data2vec-2
 pretraining paths (ViT-B/16 images and a2v-large audio), its training
 entry point (train_cli: pretraining, finetuning from it, resume; then
-infer_cli serving the finetuned checkpoint) and its serving entry points
-(convert_cli, export_cli, aot_cli bundles served without model code) once
+infer_cli serving the finetuned checkpoint), its serving entry points
+(convert_cli, export_cli, aot_cli bundles served without model code), data
+parallelism and the recipes' training configuration (train_cli --config,
+remat, the int8 teacher, dense-bias attention dropout, extra tokens) once
 on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
@@ -169,7 +171,34 @@ Phases, one line or more each; any failure raises and exits non-zero:
       finetune 2 from it with a validation, resume to 3 (one checkpoint per
       save, every rank's loader state), infer_cli --checkpoint best; the
       2-rank validation's metrics against a 1-rank validation of the same
-      checkpoint.
+      checkpoint;
+15. the recipes' training configuration:
+   a. one a2v-large pretrain step at the v5e recipe's micro-batch (b8 x
+      clone 12) from the same weights, draws and data under remat off,
+      "mlp", "attn", "block" and remat_frontend + remat_decoder: loss and
+      gradients against remat off (MODEL_GRAD_TOL per tensor; the tensors
+      equal bit for bit counted), the recompute's extra launches, the
+      median of three more steps' ms and their peak memory; then the b4
+      finetune_100 step under "block" against the recipe's ("mlp"), equal;
+   b. the EMA teacher with teacher_matmul_impl int8 and int8_attn on b2:
+      its trunk output against the same teacher through the plain versions
+      (INT8_MODEL_REL) and against the bf16 teacher (INT8_VS_BF16_REL), its
+      launches a serving forward's (#7; #10, #5q, #5 and #7); after a step
+      its targets equal bit for bit a model in that mode loaded from the
+      merged weights;
+   c. #11 and #11b with attention dropout 0.1 at b64 T 196 (the 2-D ALiBi
+      bias) and b128 T 59 (per-row keep-set bias): every launch's keep mask
+      read back through its outputs and equal to attention_keep's, out, lse,
+      dq, dk, dv and dbias against the plain twin under that mask, the
+      autograd Function against autograd of the plain twin, forward +
+      backward ms beside the plain twin and SDPA with dropout_p 0.1 and the
+      bound (phase 10's ViT-B/16 steps run at attention_dropout 0.1);
+   d. one a2v-large pretrain step at b8 x clone 12 with an extra token,
+      cls_loss 1 and per-layer ALiBi scales: finite losses, a cls term, the
+      token's and every block's scale gradients non-zero;
+   e. train_cli --config on a2v_large_pretrain_v5e.yaml at full width for
+      2 steps and on the other five recipe copies at depth 1 + 2 for 1 step
+      (JAX key names), on the 24 synthetic clips; each run's seconds.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -2042,6 +2071,191 @@ def phase_bias_attention_train(dev):
     return errs
 
 
+BIAS_DROP, BIAS_DROP_SEED = 0.1, 20261017  # phase 15c: JAX's image attention_dropout
+
+
+def _onehot_chunk(b, t, h, c, dev):
+    """(B, T, H, 64) bf16: row 64 c + d is the unit vector e_d (other rows 0)."""
+    x = torch.zeros((b, t, h, 64), dtype=torch.bfloat16, device=dev)
+    rows = torch.arange(64 * c, min(64 * c + 64, t), device=dev)
+    x[:, rows, :, rows - 64 * c] = 1.0
+    return x
+
+
+def kernel_keep_masks(b, h, t, bias, rate, seed, dev):
+    """The (B, H, T, T) keep masks that #11's forward and #11b's dq, dk/dv and
+    single launches apply, read back through their outputs: with q = k = 0
+    (uniform weights 1/T) and the layout's bias set to 0, out = P f V with
+    V the unit vectors of one chunk of 64 keys gives f at those keys; dv =
+    (P f)^T dO with dO the unit vectors of 64 queries gives f at those
+    queries; dq = dS K / sqrt(D) with dP = 1 everywhere (V = dO = e_0) and K
+    the unit vectors of 64 keys gives dS = (f - delta) / T, which is >= 0
+    where kept and -delta / T < 0 where dropped."""
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        SINGLE_T, bias_attention_bwd_single, bias_attention_dkv, bias_attention_dq,
+        bias_attention_forward,
+    )
+
+    zero = torch.zeros((b, t, h, 64), dtype=torch.bfloat16, device=dev)
+    bias0 = None if bias is None else torch.zeros_like(bias)
+    e0 = zero.clone()
+    e0[..., 0] = 1.0
+    drop = dict(rate=rate, seed=seed)
+    masks = {what: torch.zeros((b, h, t, t), dtype=torch.bool, device=dev)
+             for what in ("forward", "dq", "dkv") + (("single dq", "single dv")
+                                                       if t <= SINGLE_T else ())}
+    _, lse = bias_attention_forward(zero, zero, zero, bias0, None, True, **drop)
+    out_e0 = bias_attention_forward(zero, zero, e0, bias0, None, False, **drop)
+    delta = out_e0.float()[..., 0].transpose(1, 2).reshape(b * h, t)
+    for c in range(-(-t // 64)):
+        n = min(64, t - 64 * c)
+        unit = _onehot_chunk(b, t, h, c, dev)
+        out = bias_attention_forward(zero, zero, unit, bias0, None, False, **drop)
+        masks["forward"][..., 64 * c:64 * c + n] = out[..., :n].transpose(1, 2) > 0
+        zdelta = torch.zeros((b * h, t), dtype=torch.float32, device=dev)
+        _, dv = bias_attention_dkv(zero, zero, zero, unit, lse, zdelta, bias0, None, **drop)
+        # dv[b, j, h, d] = f(query 64 c + d, key j) / T
+        masks["dkv"][:, :, 64 * c:64 * c + n, :] = dv[..., :n].permute(0, 2, 3, 1) > 0
+        dq, _ = bias_attention_dq(zero, unit, e0, e0, lse, delta, bias0, None,
+                                  want_dbias=False, **drop)
+        ds = dq[..., :n].float().transpose(1, 2) * (8.0 * t)  # dS * T: (f - delta)
+        masks["dq"][..., 64 * c:64 * c + n] = ds > -0.5 * delta.reshape(b, h, t, 1)
+        if t <= SINGLE_T:
+            got = bias_attention_bwd_single(zero, zero, zero, unit, lse, zdelta, bias0, None,
+                                            want_dbias=False, **drop)
+            masks["single dv"][..., :n, :] = got[2][..., :n].permute(0, 2, 3, 1) > 0
+            got = bias_attention_bwd_single(zero, unit, e0, e0, lse, delta, bias0, None,
+                                            want_dbias=False, **drop)
+            ds = got[0][..., :n].float().transpose(1, 2) * (8.0 * t)
+            masks["single dq"][..., :n] = ds > -0.5 * delta.reshape(b, h, t, 1)
+    torch.cuda.synchronize()
+    return masks
+
+
+def phase_bias_dropout(dev):
+    """15c. The hash-dropout site of #11 and #11b at JAX's image
+    attention_dropout 0.1, at the ViT-B/16 teacher's b64 H12 T196 with the
+    batch-uniform 2-D ALiBi bias and at the pretraining student's b128 T59
+    with its per-row keep-set bias: each launch's keep mask read back through
+    its outputs (``kernel_keep_masks``) equal bit for bit to
+    ``attention_keep``'s (the plain twin's); out, lse, dq, dk, dv and dbias
+    (and the single launch's at T 59) against the plain twin under that
+    mask; the autograd Function against autograd of the plain twin; times
+    beside the plain twin, SDPA with the bias as a float mask and dropout_p
+    0.1, and the bound. Returns (errors, rows)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        SINGLE_T, attention_keep, bias_attention_bwd_plain, bias_attention_bwd_single,
+        bias_attention_dkv, bias_attention_dq, bias_attention_forward, bias_attention_plain,
+        bias_flash_attention,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rng = np.random.default_rng(SEED + 40)
+    h, rate = IMAGE_HEADS, BIAS_DROP
+    cases = (("ViT-B/16 teacher, 2-D ALiBi batch-uniform", IMAGE_BATCH, IMAGE_T,
+              image_bias(h, IMAGE_T, dev)),
+             ("ViT-B/16 student, per-row keep-set bias", 2 * IMAGE_BATCH, STUDENT_T,
+              keep_set_bias(rng, 2 * IMAGE_BATCH, h, STUDENT_T, dev)))
+    errs = {"forward": 0.0, "dq": 0.0, "dkv": 0.0, "single": 0.0}
+    rows = {}
+    for label, b, t, bias in cases:
+        name = f"15c bias attention dropout {rate} b{b} T {t} {label}"
+        seed = BIAS_DROP_SEED + t
+        keep = attention_keep(b, h, t, rate, seed, dev).bool()
+        got = kernel_keep_masks(b, h, t, bias, rate, seed, dev)
+        for what, m in got.items():
+            bad = int((m != keep).sum())
+            print(f"{name}: {what} keep mask against attention_keep: {bad} of {keep.numel()} "
+                  f"differ; keep rate {m.float().mean().item():.5f}")
+            if bad:
+                raise AssertionError(f"{name}: the {what} kernel's dropout mask differs")
+        del got
+        drop = dict(rate=rate, seed=seed)
+        q, k, v = bias_attention_inputs(gen, b, h, t, dev)
+        out, lse = bias_attention_forward(q, k, v, bias, None, True, **drop)
+        out_p, lse_p = bias_attention_plain(q.float(), k.float(), v.float(), bias, None, True,
+                                            keep, rate)
+        torch.cuda.synchronize()
+        errs["forward"] = max(errs["forward"], check_close(f"{name} out", out, out_p, ATTN_TOL))
+        check_close(f"{name} lse", lse, lse_p, LSE_TOL)
+        dout = torch.randn((b, t, h, 64), generator=gen, device=dev).to(torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+        args = (q, k, v, dout, lse, delta, bias, None)
+        dq, dbias = bias_attention_dq(*args, **drop)
+        dk, dv = bias_attention_dkv(*args, **drop)
+        want = bias_attention_bwd_plain(*args, keep, rate)
+        torch.cuda.synchronize()
+        errs["dq"] = max(errs["dq"], check_close(f"{name} dq", dq, want[0], BWD_TOL),
+                         check_close(f"{name} dbias", dbias, want[3], DBIAS_TOL))
+        errs["dkv"] = max(errs["dkv"], check_close(f"{name} dk", dk, want[1], BWD_TOL),
+                          check_close(f"{name} dv", dv, want[2], BWD_TOL))
+        check_heads(name, ("dq", "dk", "dv"), [x.transpose(1, 2) for x in (dq, dk, dv)],
+                    [x.transpose(1, 2) for x in want[:3]], REL_HEAD, ulps=2)
+        if t <= SINGLE_T:
+            got1 = bias_attention_bwd_single(*args, **drop)
+            torch.cuda.synchronize()
+            for i, what in enumerate(("dq", "dk", "dv")):
+                errs["single"] = max(errs["single"], check_close(
+                    f"{name} single launch {what}", got1[i], want[i], BWD_TOL))
+            errs["single"] = max(errs["single"], check_close(
+                f"{name} single launch dbias", got1[3], want[3], DBIAS_TOL))
+            del got1
+        # the autograd Function against autograd of the plain twin
+        qkv = torch.stack((q, k, v), dim=2)
+        leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+        leaves_p = [qkv.float().requires_grad_(), bias.clone().requires_grad_()]
+        g_k = torch.autograd.grad(bias_flash_attention(*leaves[0].unbind(2), leaves[1], None,
+                                                       rate, seed), leaves, dout)
+        g_p = torch.autograd.grad(bias_attention_plain(*leaves_p[0].unbind(2), leaves_p[1], None,
+                                                       False, keep, rate), leaves_p, dout.float())
+        check_rel(f"{name} d qkv vs autograd of plain", g_k[0], g_p[0], REL_QKV)
+        check_rel(f"{name} d bias vs autograd of plain", g_k[1], g_p[1], REL_QKV)
+        del qkv, leaves, leaves_p, g_k, g_p, want
+        # times: the kernels' forward + backward through the autograd Function
+        # beside the plain twin's and SDPA's with dropout_p (its own mask)
+        bounds = bias_attention_bwd_bounds(b, h, t, bias_rows=1 if bias.shape[0] == 1 else b)
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        leaves_p = [x.detach().float().clone().requires_grad_() for x in (q, k, v, bias)]
+        qs, ks, vs = (x.detach().transpose(1, 2).clone().requires_grad_() for x in (q, k, v))
+        mask = bias.to(torch.bfloat16).expand(b, h, t, t).clone().requires_grad_()
+
+        def kernel_fb():
+            torch.autograd.grad(bias_flash_attention(*leaves[:3], leaves[3], None, rate, seed),
+                                leaves, dout)
+
+        def plain_fb():
+            torch.autograd.grad(bias_attention_plain(*leaves_p[:3], leaves_p[3], None, False,
+                                                     keep, rate), leaves_p, dout.float())
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, dropout_p=rate)
+            torch.autograd.grad(o, (qs, ks, vs, mask), dout.transpose(1, 2))
+
+        fwd_b, dq_b, dkv_b, single_b = (bounds[x] for x in ("forward", "dq", "dkv", "single"))
+        bwd_b = single_b if t <= SINGLE_T else (dq_b[0] + dkv_b[0], "bytes"
+                                                if dq_b[1] == dkv_b[1] == "bytes" else "operations")
+        key = f"bias attention forward + backward, dropout {rate}, b{b} T {t}"
+        rows[key] = {"ms": cuda_ms(kernel_fb), "plain_ms": cuda_ms(plain_fb, iters=3),
+                     "library_ms": cuda_ms(sdpa_fb), "bound_ms": fwd_b[0] + bwd_b[0],
+                     "bound_by": fwd_b[1] if fwd_b[1] == bwd_b[1] else "bytes"}
+        with torch.no_grad():
+            fwd_only = {"ms": cuda_ms(lambda: bias_attention_forward(q, k, v, bias, None, True,
+                                                                     **drop)),
+                        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                            qs, ks, vs, attn_mask=mask, dropout_p=rate)),
+                        "bound_ms": fwd_b[0]}
+        rows[key]["forward"] = fwd_only
+        r = rows[key]
+        print(f"{name}: forward + backward kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"SDPA dropout_p {rate} {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms; "
+              f"forward alone kernel {fwd_only['ms']:.3f} ms, SDPA {fwd_only['library_ms']:.3f} "
+              f"ms, bound {fwd_only['bound_ms']:.3f} ms")
+        del q, k, v, dout, leaves, leaves_p, qs, ks, vs, mask, keep, out, out_p
+        torch.cuda.empty_cache()
+    return errs, rows
+
+
 def pretrain_launches(cfg, pre_ln=False):
     """The launches of one pretraining step (``update_freq`` micro-batches):
     the student's blocks with their backward, the teacher's forward only."""
@@ -2971,6 +3185,358 @@ def phase_dp_entry(card, dev):
     return seconds
 
 
+# phase 15: the v5e recipe's micro-batch (max_tokens 640 000 / 80 000 samples)
+V5E_BATCH = 8
+REMAT_TIMED = 3  # 15a's timed steps after the checked one (a step's host time spreads)
+REMAT_VARIANTS = (
+    ("remat off", dict(remat=False)),
+    ("remat mlp", dict(remat=True, remat_scope="mlp")),
+    ("remat attn", dict(remat=True, remat_scope="attn")),
+    ("remat block", dict(remat=True, remat_scope="block")),
+    ("remat_frontend + remat_decoder", dict(remat=False, remat_frontend=True,
+                                            remat_decoder=True)),
+)
+# 15b: the int8 teachers are held by their trunk output x, kernel path
+# against plain path (INT8_MODEL_REL) and against the bf16 teacher
+# (INT8_VS_BF16_REL), as the int8 serving models' logits are in phase 5.
+# Their targets' relative norms are printed, not held: each layer's tap is
+# normalized per channel over time, and at seeded random weights channels
+# that barely vary over time amplify any rounding (measured on an H100: the
+# int8 teacher's targets 0.33 from the bf16 teacher's and 0.40 from its own
+# plain path; on the CPU JAX's int8_attn teacher moves its targets by 6e-2
+# for a one-ulp change of its input, tests/test_torch_pretrain_step.py)
+
+
+def _set_remat(model, cfg_model):
+    """Point a built pretraining model's blocks, frontend and decoder at
+    ``cfg_model``'s remat fields (the other fields unchanged)."""
+    from animal2vec_tpu_torch.models.modules import AltBlock
+
+    scope = cfg_model.remat_scope if cfg_model.remat else None
+    for mod in model.modules():
+        if isinstance(mod, AltBlock):
+            mod.remat_scope = scope
+    model.audio_encoder.remat_frontend = cfg_model.remat_frontend
+    model.cfg = cfg_model
+
+
+def _pretrain_v5e(**kw):
+    """The a2v-large pretraining recipe at one micro-batch a step
+    (``update_freq`` 1), with ``kw`` changes."""
+    from animal2vec_tpu_torch.config import PretrainConfig
+
+    base = PretrainConfig()
+    return dataclasses.replace(base, optimization=dataclasses.replace(base.optimization,
+                                                                      update_freq=1), **kw)
+
+
+def phase_remat(card, dev):
+    """15a. One a2v-large pretrain step at the v5e recipe's micro-batch (b8 x
+    clone 12, update_freq 1), from the same weights, draws and data, under
+    remat off, "mlp", "attn", "block" and with remat_frontend and
+    remat_decoder: the loss and every gradient against remat off (relative
+    norm per tensor within MODEL_GRAD_TOL, the phase's step tolerance; the
+    number of tensors equal bit for bit printed), the launches (the
+    recompute launches #2 once more per block under "attn" and "block", #6
+    once more under "block"), then three more steps' host ms (their
+    median) and their peak memory. Then one b4 finetune_100 step with the recipe's remat and with
+    "block", whose loss and gradients must equal. Returns the rows."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step
+    from animal2vec_tpu_torch.train.state import PretrainState
+
+    cfg = _pretrain_v5e()
+    torch.cuda.empty_cache()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    data = pretrain_batch(cfg, dev, V5E_BATCH, SEED + 41)
+    n = cfg.model.n_blocks
+    rows, ref, base = {}, None, None
+    for label, kw in REMAT_VARIANTS:
+        mcfg = dataclasses.replace(cfg.model, **kw)
+        _set_remat(model, mcfg)
+        model.load_state_dict(init)
+        pcfg = dataclasses.replace(cfg, model=mcfg)
+        state = PretrainState.create(model, pcfg)
+        state.step = pcfg.optimization.warmup_updates
+        step_fn = make_pretrain_train_step(pcfg)
+        torch.cuda.empty_cache()
+        reset_counts()
+        metrics = step_fn(state, data, Rngs.from_seed(SEED, dev))
+        torch.cuda.synchronize()
+        got = counts()
+        loss = float(metrics["loss"])
+        grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+        if not np.isfinite(loss) or not all(torch.isfinite(g).all() for g in grads.values()):
+            raise AssertionError(f"15a {label}: non-finite loss or gradient")
+        extra = {"attention": n if kw.get("remat_scope") in ("attn", "block") else 0,
+                 "block": n if kw.get("remat_scope") == "block" else 0}
+        if ref is None:
+            ref, base = (loss, grads), got
+            line = "the reference"
+        else:
+            want = {k: v + extra.get(k, 0) for k, v in base.items()}
+            if got != want:
+                raise AssertionError(f"15a {label}: launches {got} != {want}")
+            rels = {k: rel_norm(g, ref[1][k]) for k, g in grads.items() if ref[1][k].norm() > 0}
+            worst = max(rels.values())
+            same = sum(torch.equal(g, ref[1][k]) for k, g in grads.items())
+            line = (f"against remat off: loss {loss - ref[0]:+.3e}, gradients max abs "
+                    f"{max((g - ref[1][k]).abs().max().item() for k, g in grads.items()):.3e}, "
+                    f"relative norm per tensor max {worst:.3e} (tolerance {MODEL_GRAD_TOL}), "
+                    f"{same} of {len(grads)} tensors bit for bit")
+            if not worst <= MODEL_GRAD_TOL:
+                raise AssertionError(f"15a {label}: gradients disagree with remat off")
+        del grads
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(REMAT_TIMED):
+            t0 = time.perf_counter()
+            step_fn(state, data, Rngs.from_seed(SEED + 1 + i, dev))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows[label] = {"ms": ms, "peak_gib": peak, "loss": loss}
+        print(f"15a a2v-large pretrain b{V5E_BATCH} x clone {cfg.clone_batch}, {label}: loss "
+              f"{loss:.6f}, {line}; launches {launch_line(got)}; steps 2-{REMAT_TIMED + 1} "
+              f"{[round(t, 1) for t in times]} ms (median {ms:.1f}), peak memory {peak:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated) on {card}")
+        del state, step_fn
+    del model, init, ref, data
+    torch.cuda.empty_cache()
+    rows["finetune"] = phase_remat_finetune(card, dev)
+    return rows
+
+
+def phase_remat_finetune(card, dev):
+    """15a's finetune step: finetune_100's model and recipe (remat on, scope
+    "mlp") at b4, update_freq 1, gate open, against the same step under
+    "block": equal loss and gradients (every finetune draw is made before a
+    region), and each step's ms."""
+    from animal2vec_tpu_torch.config import RunConfig
+    from animal2vec_tpu_torch.models.finetune import build_finetune_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.finetune_step import make_finetune_train_step
+    from animal2vec_tpu_torch.train.state import FinetuneState
+
+    run = RunConfig.finetune_100()
+    tcfg = dataclasses.replace(run.finetune, optimization=dataclasses.replace(
+        run.finetune.optimization, update_freq=1))
+    batch = train_batch(run.model, dev)
+    out = {}
+    for scope in ("mlp", "block"):
+        cfg = dataclasses.replace(run.model, remat_scope=scope)
+        model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev,
+                                     train=tcfg)
+        state = FinetuneState.create(model, tcfg)
+        state.step = tcfg.freeze_finetune_updates
+        step_fn = make_finetune_train_step(tcfg)
+        metrics = step_fn(state, batch, Rngs.from_seed(SEED, dev))
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        t0 = time.perf_counter()
+        step_fn(state, batch, Rngs.from_seed(SEED + 1, dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[scope] = (float(metrics["loss"]), grads, ms)
+        print(f"15a finetune_100 b{TRAIN_BATCH} step, remat scope {scope}: loss "
+              f"{out[scope][0]:.6f}, second step {ms:.1f} ms on {card}")
+        del model, state, step_fn
+        torch.cuda.empty_cache()
+    (l0, g0, ms0), (l1, g1, ms1) = out["mlp"], out["block"]
+    same = sum(torch.equal(g1[k], g0[k]) for k in g0)
+    rels = max(rel_norm(g1[k], g0[k]) for k in g0 if g0[k].norm() > 0)
+    print(f"15a finetune block against mlp: loss {l1 - l0:+.3e}, {same} of {len(g0)} gradient "
+          f"tensors bit for bit, relative norm max {rels:.3e} (tolerance {MODEL_GRAD_TOL})")
+    if not (np.isfinite(l0) and rels <= MODEL_GRAD_TOL and g0.keys() == g1.keys()):
+        raise AssertionError("15a finetune: remat block disagrees with the recipe's step")
+    return {"mlp_ms": ms0, "block_ms": ms1}
+
+
+def phase_teacher(card, dev):
+    """15b. The EMA teacher in the int8 serving modes (model.
+    teacher_matmul_impl): on b2 of 10-s local features of the a2v-large
+    recipe's model, the int8 and int8_attn teachers' targets against the
+    same teacher through the plain versions and against the bf16 teacher's
+    (the trunk output x held, the targets' relative norms printed), with
+    their launches counted; then one pretrain step with each int8 teacher (b2 x clone 12),
+    after which the teacher's targets must equal bit for bit those of a
+    model in that mode freshly loaded from the merged student + EMA weights
+    (no stale int8 weights), and must have moved. Returns the launches."""
+    from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import (
+        make_pretrain_train_step, teacher_encode, teacher_targets,
+    )
+    from animal2vec_tpu_torch.train.state import PretrainState, merge_params
+
+    cfg = _pretrain_v5e()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    state = PretrainState.create(model, cfg)
+    state.step = cfg.optimization.warmup_updates
+    data = pretrain_batch(cfg, dev, 2, SEED + 42)
+    with torch.no_grad():
+        local = model.local_features(data["source"][0])
+    x_bf16, t_bf16 = teacher_encode(model, state.ema, local)
+    launches = {}
+    for impl in MODES:
+        reset_counts()
+        with PlainSpy() as spy:
+            x, t_sum = teacher_encode(model, state.ema, local, impl)
+        torch.cuda.synchronize()
+        got = counts()
+        launches[impl] = got
+        with PlainOps():
+            x_plain, t_plain = teacher_encode(model, state.ema, local, impl)
+        check_rel(f"15b {impl} teacher output x, kernel path against plain path", x, x_plain,
+                  INT8_MODEL_REL)
+        check_rel(f"15b {impl} teacher output x against the bf16 teacher's", x, x_bf16,
+                  INT8_VS_BF16_REL)
+        if not torch.isfinite(t_sum).all():
+            raise AssertionError(f"15b {impl}: non-finite targets")
+        want = forward_launches(impl, cfg.model.n_blocks)
+        print(f"15b {impl} teacher: launches {launch_line(got)} (a serving forward's: "
+              f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}; "
+              f"targets' relative norm against the plain path {rel_norm(t_sum, t_plain):.3e}, "
+              f"against the bf16 teacher {rel_norm(t_sum, t_bf16):.3e} (printed)")
+        if got != want or spy.cuda_calls:
+            raise AssertionError(f"15b {impl}: the teacher did not run the int8 kernels")
+    for impl in MODES:
+        pcfg = dataclasses.replace(cfg, teacher_matmul_impl=impl)
+        before = teacher_targets(model, state.ema, local, impl)
+        make_pretrain_train_step(pcfg)(state, data, Rngs.from_seed(SEED, dev))
+        after = teacher_targets(model, state.ema, local, impl)
+        fresh = Data2VecMulti(dataclasses.replace(model.cfg, matmul_impl=impl),
+                              torch.bfloat16, pretrain=pcfg).to(dev).eval()
+        fresh.load_state_dict(merge_params(model, state.ema), strict=True)  # quantizes
+        with torch.no_grad():
+            _, t_sum, _, _ = fresh.encode(local, reduce_targets=True)
+        torch.cuda.synchronize()
+        equal = torch.equal(after, t_sum / pcfg.average_top_k_layers)
+        moved = rel_norm(after, before)
+        print(f"15b {impl} teacher after a step (to step {state.step}): targets equal to a "
+              f"model loaded from the merged weights bit for bit: {equal}; moved by relative "
+              f"norm {moved:.3e}")
+        if not equal or moved == 0.0:
+            raise AssertionError(f"15b {impl}: the teacher's int8 weights are stale")
+        del fresh
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tokens(card, dev):
+    """15d. One a2v-large pretrain step at b8 x clone 12 with an extra (CLS)
+    token, cls_loss 1 and per-layer ALiBi scales: finite losses, a cls term,
+    non-zero gradients of the extra token and of every block's scales; ms
+    of a second step."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step
+    from animal2vec_tpu_torch.train.state import PretrainState
+
+    base = _pretrain_v5e()
+    cfg = dataclasses.replace(base, cls_loss=1.0, model=dataclasses.replace(
+        base.model, num_extra_tokens=1, learned_alibi_scale_per_layer=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    state = PretrainState.create(model, cfg)
+    state.step = cfg.optimization.warmup_updates
+    step_fn = make_pretrain_train_step(cfg)
+    data = pretrain_batch(cfg, dev, V5E_BATCH, SEED + 41)
+    metrics = step_fn(state, data, Rngs.from_seed(SEED, dev))
+    torch.cuda.synchronize()
+    losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss")}
+    tok = model.audio_encoder.extra_tokens.grad
+    scales = model.audio_encoder.alibi_scale.grad
+    print(f"15d extra token + cls_loss 1 + per-layer scales: losses {losses}; extra token "
+          f"gradient norm {tok.float().norm().item():.3e}; ALiBi scales {tuple(scales.shape)}, "
+          f"blocks with a non-zero scale gradient "
+          f"{int((scales.flatten(1).abs().sum(1) > 0).sum())} of {scales.shape[0]}")
+    if not all(np.isfinite(v) for v in losses.values()) or "loss_cls" not in losses:
+        raise AssertionError("15d: a non-finite loss or no cls term")
+    if not tok.abs().sum() > 0 or not (scales.flatten(1).abs().sum(1) > 0).all():
+        raise AssertionError("15d: no gradient for the extra token or a block's scales")
+    t0 = time.perf_counter()
+    step_fn(state, data, Rngs.from_seed(SEED + 1, dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"15d second step {ms:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return {"ms": ms}
+
+
+# 15e: train_cli --config, JAX key names; the five other copies at depth 1 + 2
+CONFIG_COMMON = ("task.max_sample_size=80000", "task.label_ext=npz", "common.tensorboard_logdir=",
+                 "dataset.num_workers=8", "checkpoint.keep_last=1", "optimization.update_freq=1")
+CONFIG_CUT = ("model.depth=2", "model.modalities.audio.prenet_depth=1",
+              "model.average_top_k_layers=2")
+CONFIG_FINETUNE = ("dataset.train_subset=train_0", "dataset.batch_size=4",
+                   "finetune.freeze_finetune_updates=0", "finetune.average_top_k_layers=2",
+                   "task.min_label_size=0", "dataset.bucket_lengths=")
+
+
+def phase_config_cli(card, dev):
+    """15e. train_cli --config on the port's recipe copies, on 24 synthetic
+    10-s clips with .npz labels: a2v_large_pretrain_v5e.yaml at full width
+    for 2 steps (b8 x clone 12, remat scope attn, update_freq 1), then each
+    of the other five for 1 step at depth 1 + 2 (finetune at b4 from
+    scratch, the meerkat labels in nips4bplus's place). Checked: finite
+    losses, the steps taken, no plain version on a CUDA tensor. Prints each
+    run's seconds. Returns the launches."""
+    from animal2vec_tpu_torch.data.synthetic import generate
+    from animal2vec_tpu_torch.recipes import RECIPES
+    from animal2vec_tpu_torch.tools import train_cli
+
+    totals = dict.fromkeys(_counted(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate(os.path.join(tmp, "data"), n_clips=ENTRY_CLIPS, clip_seconds=10.0,
+                        seed=SEED, label_ext="npz")
+        order = ["a2v_large_pretrain_v5e"] + [r for r in RECIPES if r != "a2v_large_pretrain_v5e"]
+        for name in order:
+            steps = 2 if name == "a2v_large_pretrain_v5e" else 1
+            extra = list(CONFIG_COMMON)
+            if name != "a2v_large_pretrain_v5e":
+                extra += CONFIG_CUT
+            if "finetune" in name:
+                extra += CONFIG_FINETUNE
+            if name == "nips4bplus_finetune":
+                extra.append("task.unique_labels=\"['beep', 'synch', 'sn', 'cc', 'ld', 'oth', "
+                             "'mo', 'al', 'soc', 'agg', 'eating', 'focal']\"")
+            reset_counts()
+            t0 = time.perf_counter()
+            with EntryWatch() as watch, PlainSpy() as spy:
+                out = train_cli.main(["--config", str(RECIPES[name]), "--data", data,
+                                      "--save-dir", os.path.join(tmp, name), "--max-steps",
+                                      str(steps), "--device", dev.type, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = counts()
+            for k, v in got.items():
+                totals[k] += v
+            losses = [round(s["loss"], 5) for s in watch.steps]
+            print(f"15e train_cli --config {name}.yaml ({'full width' if steps == 2 else 'depth 1 + 2'}"
+                  f"; {' '.join(extra)}): {len(watch.steps)} steps in {seconds:.2f} s (steps "
+                  f"{[round(s['seconds'], 3) for s in watch.steps]} s), losses {losses}; "
+                  f"launches {launch_line(got)}; plain-version calls on CUDA tensors "
+                  f"{spy.cuda_calls} on {card}")
+            if len(watch.steps) != steps or spy.cuda_calls or out is None:
+                raise AssertionError(f"15e {name}: {len(watch.steps)} steps or a plain call")
+            if not all(np.isfinite(s["loss"]) for s in watch.steps):
+                raise AssertionError(f"15e {name}: a non-finite loss")
+            del watch
+            torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3051,6 +3617,15 @@ def main() -> int:
     phase_dp_entry(card, dev)
     print("dp: train_cli's default group on the card is NCCL with one rank (phase 12's four "
           "train_cli runs, checked there)")
+    torch.cuda.empty_cache()
+    remat_rows = phase_remat(card, dev)
+    teacher_launches = phase_teacher(card, dev)
+    drop_errs, drop_rows = phase_bias_dropout(dev)
+    print(f"15c the ViT-B/16 pretrain steps of phase 10 ran with attention_dropout "
+          f"{vit.attention_dropout} (the dense-bias kernels' hash dropout)")
+    tokens = phase_tokens(card, dev)
+    config_launches = phase_config_cli(card, dev)
+    print(json.dumps({"phase15": {"remat": remat_rows, "tokens": tokens}}))
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -3169,6 +3744,31 @@ def main() -> int:
         if key:
             e["launches_serving_entry"] = serving_entry[key]
             e["launches"] += serving_entry[key]
+    # phase 15: the int8 teachers' launches (15b), train_cli --config (15e),
+    # the dense-bias kernels with dropout (15c)
+    by_name = {e["name"]: e for e in kernels}
+    for name, key in (("int8_dense", "int8_dense"), ("fused_block_int8", "int8_block"),
+                      ("alibi_flash_attention_int8", "int8_attention"),
+                      ("quantize_qkv_int8_pass", "int8_quant"),
+                      ("alibi_flash_attention_serve", "serve_attention")):
+        n = sum(teacher_launches[m][key] for m in MODES)
+        by_name[name]["launches_teacher"] = n
+        by_name[name]["launches"] += n
+    for e, key in zip(kernels, ("serve_attention", "attention", "dq", "dkv", "block", None, None,
+                                None, None, "mlp")):
+        if key:
+            e["launches_config_cli"] = config_launches[key]
+            e["launches"] += config_launches[key]
+    for name, t in (("bias_flash_attention", IMAGE_T), ("bias_attention_bwd_single", STUDENT_T)):
+        b = IMAGE_BATCH if t == IMAGE_T else 2 * IMAGE_BATCH
+        row = drop_rows[f"bias attention forward + backward, dropout {BIAS_DROP}, b{b} T {t}"]
+        by_name[name].update({f"dropout_{k}": v for k, v in row.items() if k != "forward"})
+        by_name[name].update({f"dropout_forward_{k}": v for k, v in row["forward"].items()})
+    by_name["bias_flash_attention"]["max_abs_err"] = max(
+        by_name["bias_flash_attention"]["max_abs_err"], drop_errs["forward"])
+    by_name["bias_attention_bwd_single"]["max_abs_err"] = max(
+        by_name["bias_attention_bwd_single"]["max_abs_err"], drop_errs["single"],
+        drop_errs["dq"], drop_errs["dkv"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

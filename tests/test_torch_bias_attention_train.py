@@ -26,9 +26,10 @@ from animal2vec_tpu.models.attention import flash_attention_tpu, xla_attention
 from animal2vec_tpu_torch.models.attention import multihead_attention
 from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
 from animal2vec_tpu_torch.ops.bias_attention import (
-    bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv, bias_attention_dq,
-    bias_attention_forward, bias_flash_attention,
+    attention_keep, bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv,
+    bias_attention_dq, bias_attention_forward, bias_attention_plain, bias_flash_attention,
 )
+from animal2vec_tpu_torch.ops.dropout import dropout_keep
 
 TOL = 1e-5
 
@@ -166,6 +167,91 @@ def test_stock_tpu_kernel_backward_given_scaled_bias(bias):
 
 
 def test_dense_bias_attention_dropout_still_raises():
-    qkv = torch.zeros((1, 4, 3 * 64))
-    with pytest.raises(NotImplementedError):
-        multihead_attention(qkv, 1, None, None, 0.1, 3)
+    """Attention dropout with a dense bias no longer raises: the model's
+    entry at rate 0.1 is the plain twin under the kernels' hash mask
+    (``attention_keep``), forward and backward, and the mask keeps 1 - rate
+    of the weights."""
+    b, t, h, rate, seed = 2, 40, 2, 0.1, 77
+    q, k, v, dout, dense, _ = _inputs(b, t, h, "per-row", False, seed=53)
+    qkv = torch.from_numpy(np.stack((q, k, v), axis=2).reshape(b, t, 3 * h * 64))
+    qkv.requires_grad_()
+    bt = torch.from_numpy(dense).requires_grad_()
+    out = multihead_attention(qkv, h, bt, None, rate, seed)
+    got = torch.autograd.grad(out, (qkv, bt), torch.from_numpy(dout).reshape(b, t, h * 64))
+    keep = attention_keep(b, h, t, rate, seed)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, dense)]
+    want_out = bias_attention_plain(*leaves[:3], leaves[3], None, False, keep, rate)
+    want = torch.autograd.grad(want_out, leaves, torch.from_numpy(dout))
+    assert torch.equal(out.reshape(b, t, h, 64), want_out.detach())
+    assert torch.equal(got[0].reshape(b, t, 3, h, 64), torch.stack(want[:3], dim=2))
+    assert torch.equal(got[1], want[3])
+    assert abs(keep.mean().item() - (1 - rate)) < 0.01
+
+
+def _jax_mask(b, h, t, rate, seed):
+    """JAX's own dropout mask: the bernoulli draw ``xla_attention`` makes
+    with the rng it is given."""
+    rng = jax.random.PRNGKey(seed)
+    return rng, np.asarray(jax.random.bernoulli(rng, 1.0 - rate, (b, h, t, t)))
+
+
+@pytest.mark.parametrize("bias,masked", [("per-row", False), ("uniform", True), (None, False)])
+def test_dropout_twin_matches_xla_attention_under_jax_mask(bias, masked):
+    """The plain twin given JAX's own bernoulli mask against
+    ``xla_attention`` with that rng at rate 0.1: the forward and the
+    gradients (dq, dk, dv, dbias through ``jax.vjp``); the backward plain
+    version of the kernels (on the forward's lse and delta) gives the same
+    gradients. Tolerance 1e-5 max-abs in fp32."""
+    b, t, h, rate = 2, 36, 2, 0.1
+    q, k, v, dout, dense, mask = _inputs(b, t, h, bias, masked, seed=54)
+    rng, keep_np = _jax_mask(b, h, t, rate, 5)
+    m = None if mask is None else jnp.asarray(mask)
+
+    def f(q, k, v, bias=None):
+        if bias is not None:
+            bias = jnp.broadcast_to(bias, (b, h, t, t))
+        return xla_attention(q, k, v, bias, m, rate, rng)
+
+    args = [jnp.asarray(a) for a in (q, k, v)] + ([] if dense is None else [jnp.asarray(dense)])
+    out_j, vjp = jax.vjp(f, *args)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    keep = torch.from_numpy(keep_np.copy())
+    t_ = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    bt = None if dense is None else torch.from_numpy(dense).requires_grad_()
+    out = bias_attention_plain(*leaves, bt, t_(mask), False, keep, rate)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), rtol=0, atol=TOL)
+    grads = torch.autograd.grad(out, leaves + ([] if bt is None else [bt]), t_(dout))
+    for name, got, ref in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL, err_msg=name)
+    # the backward kernels' plain version on the forward's lse and delta
+    with torch.no_grad():
+        qt, kt, vt, dt = map(t_, (q, k, v, dout))
+        out2, lse = bias_attention_plain(qt, kt, vt, t_(dense), t_(mask), True, keep, rate)
+        delta = (dt * out2).sum(-1).transpose(1, 2).reshape(b * h, t)
+        dq, dk, dv, ds = bias_attention_bwd_plain(qt, kt, vt, dt, lse, delta, t_(dense),
+                                                  t_(mask), keep, rate)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL, err_msg=name)
+    if dense is not None:
+        dbias = ds.sum(0, keepdim=True) if bias == "uniform" else ds
+        np.testing.assert_allclose(dbias.numpy(), want[3], rtol=0, atol=TOL, err_msg="dbias")
+
+
+def test_attention_keep_is_the_alibi_kernels_hash():
+    """The dense-bias kernels' mask is the hash #2 uses (``dropout_keep`` at
+    (seed + (b*H + h) * 0xC2B2AE3D, query, key)); the CPU entries draw it
+    from the seed, the keep rate is 1 - rate, and rate 0 is no dropout."""
+    b, h, t, rate, seed = 3, 4, 50, 0.1, -1234567
+    keep = attention_keep(b, h, t, rate, seed)
+    bh = torch.arange(b * h).reshape(b, h, 1, 1)
+    idx = torch.arange(t)
+    assert torch.equal(keep, dropout_keep(seed, bh, idx[:, None], idx[None, :], rate))
+    assert abs(keep.mean().item() - 0.9) < 0.01
+    q, k, v, dout, dense, _ = _inputs(b, t, h, "per-row", False, seed=55)
+    qt, kt, vt, bt = map(torch.from_numpy, (q, k, v, dense))
+    got = bias_attention_forward(qt, kt, vt, bt, None, True, rate, seed)
+    want = bias_attention_plain(qt, kt, vt, bt, None, True, keep, rate)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(bias_attention_forward(qt, kt, vt, bt, None, False, 0.0, None),
+                       bias_attention_plain(qt, kt, vt, bt))

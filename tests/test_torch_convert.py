@@ -12,6 +12,7 @@ JAX's in names and arrays exactly, and the pretraining import (with the
 ``params_from_jax`` exactly.
 """
 
+import dataclasses
 import os
 import sys
 import types
@@ -238,3 +239,29 @@ def test_half_precision_tensors_survive_the_load(tmp_path):
     np.testing.assert_array_equal(sd["a.weight"], bf.float().numpy())
     np.testing.assert_array_equal(sd["b.bias"], hf.float().numpy())
     np.testing.assert_array_equal(sd["_ema.a.weight"], (bf * 2).float().numpy())
+
+
+def test_per_layer_scales_and_extra_tokens_round_trip():
+    """A model with two extra tokens and one ALiBi scale per block: the
+    port's ``export_pretrain`` equals JAX's on the same params (the scales
+    as (n_blocks, 1, H, 1, 1), the tokens (1, 2, C)), and the import gives
+    the state dict back bit for bit."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.train.convert import pretrain_state_dicts
+
+    cfg = dataclasses.replace(TINY_PRETRAIN, model=dataclasses.replace(
+        TINY_PRETRAIN.model, num_extra_tokens=2, learned_alibi_scale_per_layer=True))
+    sd = build_pretrain_model(cfg, seed=5, device="cpu").state_dict()
+    sd["audio_encoder.alibi_scale"] = torch.rand(sd["audio_encoder.alibi_scale"].shape)
+    assert sd["audio_encoder.alibi_scale"].shape == (cfg.model.n_blocks, 1, 4, 1, 1)
+    ours = export_pretrain(sd, cfg.model)
+    jcfg = tiny_model_cfg()
+    jcfg.modalities.audio.num_extra_tokens = 2
+    jcfg.modalities.audio.learned_alibi_scale_per_layer = True
+    ref = jax_export_pretrain(params_to_jax(sd), jcfg)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+    assert ours["modality_encoders.AUDIO.extra_tokens"].shape == (1, 2, 32)
+    back, _ = pretrain_state_dicts(ours, cfg.model, cfg.decoder.decoder_layers)
+    assert back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)

@@ -62,6 +62,7 @@ def test_config_defaults_match_jax():
         "learned_alibi_scale_per_head": img.learned_alibi_scale_per_head,
         "learned_alibi_scale_per_layer": img.learned_alibi_scale_per_layer,
         "alibi_distance": img.alibi_distance, "num_extra_tokens": img.num_extra_tokens,
+        "remat": m.remat, "remat_scope": m.remat_scope, "remat_decoder": m.remat_decoder,
     }
     ours = ImageConfig()
     assert set(expected) == {f.name for f in dataclasses.fields(ours)}
@@ -73,7 +74,7 @@ def test_config_defaults_match_jax():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(num_extra_tokens=1), NotImplementedError),
-    (dict(learned_alibi_scale_per_layer=True), NotImplementedError),
+    (dict(remat_scope="layer"), ValueError),
     (dict(alibi_distance="chebyshev"), ValueError),
     (dict(input_size=100), ValueError),
     (dict(matmul_impl="int8", embed_dim=96, num_heads=2), ValueError),

@@ -111,6 +111,11 @@ def test_config_preset_matches_finetune_100_yaml():
         "lowP": crit.lowP,
         "iou_threshold": crit.iou_threshold,
         "matmul_impl": m.matmul_impl,
+        "learned_alibi_scale_per_layer": audio_cfg.learned_alibi_scale_per_layer,
+        "num_extra_tokens": audio_cfg.num_extra_tokens,
+        "init_extra_token_zero": audio_cfg.init_extra_token_zero,
+        "remat": m.remat, "remat_scope": m.remat_scope, "remat_frontend": m.remat_frontend,
+        "remat_decoder": m.remat_decoder,
     }
     ours = FinetuneConfig()
     assert set(expected) == {f.name for f in dataclasses.fields(ours)}
@@ -186,8 +191,8 @@ def test_port_imports_no_jax():
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1, out.stdout  # chip_smoke printed nothing on import
     res = json.loads(lines[0])
-    assert len(res["names"]) >= 70
-    assert {"animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
+    assert len(res["names"]) >= 71
+    assert {"animal2vec_tpu_torch.recipes", "animal2vec_tpu_torch.ops.int8_mm", "animal2vec_tpu_torch.ops.fused_mlp",
             "animal2vec_tpu_torch.ops.attention", "animal2vec_tpu_torch.ops.bias_attention",
             "animal2vec_tpu_torch.train.pretrain", "animal2vec_tpu_torch.train.state",
             "animal2vec_tpu_torch.data.dataset", "animal2vec_tpu_torch.train.loop",

@@ -75,6 +75,8 @@ def test_pretrain_config_matches_the_a2v_recipe():
         post_mlp_drop=m.post_mlp_drop, prenet_dropout=audio.prenet_dropout,
         source_mixup=mix.source_mixup, mixup_prob=mix.mixup_prob, same_mixup=mix.same_mixup,
         mixing_window_length=mix.mixing_window_length, gain_mode=mix.gain_mode,
+        teacher_matmul_impl=m.teacher_matmul_impl, cls_loss=m.cls_loss, loss_beta=m.loss_beta,
+        loss_scale=m.loss_scale,
     )
     ours = PretrainConfig()
     assert set(expected) | {"model", "decoder", "optimization"} == {
@@ -144,8 +146,8 @@ def test_vit_b16_matches_the_jax_image_defaults():
     # the overrides: JAX's own image pretrain test, and k = the trunk's depth
     m.instance_norm_target_layer = True
     assert _recipe_constants(m, img) and img.mask_prob_adjust == 0.0
-    assert (ours.clone_batch, ours.encoder_dropout, ours.attention_dropout,
-            ours.post_mlp_drop) == (2, 0.0, 0.0, 0.0)
+    assert (ours.clone_batch, ours.encoder_dropout, ours.post_mlp_drop) == (2, 0.0, 0.0)
+    assert ours.attention_dropout == m.attention_dropout == 0.1  # JAX's default
     assert ours.average_top_k_layers == m.depth == 8 and m.average_top_k_layers == 16
     assert ours.ema_anneal_end_step == opt.max_update
     assert mask_tokens(ours, 196) == 137
@@ -159,10 +161,14 @@ def test_vit_b16_matches_the_jax_image_defaults():
     (lambda: PretrainConfig(recon_loss=1.0), TypeError),
 ])
 def test_pretrain_config_refuses(make, err):
+    """Each refusal; attention dropout with the image modality's dense bias
+    no longer raises, an int8 teacher needs the int8 kernels' widths."""
     with pytest.raises(err):
         make()
-    with pytest.raises(NotImplementedError):
-        PretrainConfig.vit_b16(attention_dropout=0.1)
+    assert PretrainConfig.vit_b16(attention_dropout=0.1).attention_dropout == 0.1
+    with pytest.raises(ValueError, match="multiples of 128"):
+        PretrainConfig.vit_b16(model=ImageConfig(embed_dim=96, num_heads=2),
+                               teacher_matmul_impl="int8")
 
 
 @pytest.mark.parametrize("prob", [0.7, 0.5])

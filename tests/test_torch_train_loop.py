@@ -117,8 +117,78 @@ def test_overrides_and_refusals():
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: the refusal is not reachable here")
         loop.run_finetune(RunConfig.finetune_100())
-    with pytest.raises(NotImplementedError, match="A.6"):
-        train_cli.load_pretrained("model.pt")
+    # --pretrained <fairseq .pt> warm-starts (formerly refused): see
+    # test_pretrained_fairseq_pt_equals_the_convert_cli_route
+
+
+@pytest.fixture(scope="module")
+def fairseq_pt(tmp_path_factory):
+    """A fairseq-named pretraining ``.pt`` built with JAX's
+    ``export_pretrain`` from jittered tiny params and saved with an
+    unimportable ``cfg`` class, its ``_ema.*`` trunk at half the student's;
+    returns (path, state dict, EMA dict)."""
+    import jax.numpy as jnp
+
+    from animal2vec_tpu.models.data2vec2 import Data2VecMulti as JaxData2VecMulti
+    from animal2vec_tpu.train.convert import export_pretrain as jax_export_pretrain
+
+    from tests.test_models import tiny_model_cfg
+    from tests.test_torch_convert import _save_with_unimportable_cfg
+    from tests.test_torch_model import _jittered
+
+    jcfg = tiny_model_cfg()
+    params = JaxData2VecMulti(cfg=jcfg).init(
+        {"params": jax.random.PRNGKey(0), "mask_noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, WAV)))["params"]
+    sd = jax_export_pretrain(_jittered(params, seed=34), jcfg)
+    teacher = {k: v * 0.5 for k, v in sd.items() if k.startswith("blocks.")}
+    pt = str(tmp_path_factory.mktemp("fairseq") / "model.pt")
+    _save_with_unimportable_cfg(pt, {**{k: torch.tensor(v) for k, v in sd.items()},
+                                     **{f"_ema.{k}": torch.tensor(v) for k, v in teacher.items()}})
+    return pt, sd, teacher
+
+
+@pytest.mark.parametrize("load_ema", [False, True])
+def test_pretrained_fairseq_pt_equals_the_convert_cli_route(fairseq_pt, tmp_path, load_ema):
+    """``train_cli --pretrained <fairseq .pt>`` (``load_pretrained``, JAX's
+    ``_load_pretrained``): the student state dict that a ``.pt`` gives
+    equals the checkpoint directory that ``convert_cli import --kind
+    pretrain`` writes, read by the directory route, on every tensor; both
+    warm-start the same finetune model. With ``finetune.load_ema`` the
+    file's ``_ema.*`` weights take the student's place where present."""
+    from animal2vec_tpu_torch.tools import convert_cli
+
+    from tests.test_torch_convert import TINY_PRETRAIN, _overrides, _save_with_unimportable_cfg
+
+    pt, sd, teacher = fairseq_pt
+    model = TINY_PRETRAIN.model
+    run = dataclasses.replace(
+        RunConfig.finetune_100(), model=dataclasses.replace(model, labels=NAMES),
+        finetune=dataclasses.replace(FinetuneTrainConfig(), load_ema=load_ema))
+    got = train_cli.load_pretrained(pt, run)
+    ema_pt = pt
+    if load_ema:  # the directory route of the EMA weights: a .pt holding them as the student
+        ema_pt = str(tmp_path / "ema.pt")
+        _save_with_unimportable_cfg(ema_pt, {k: torch.tensor(teacher.get(k, v))
+                                             for k, v in sd.items()})
+    out = str(tmp_path / "converted")
+    over = [f"model.{o}" for o in _overrides(model)] + [
+        "decoder.decoder_dim=12", "decoder.decoder_groups=4", "decoder.decoder_kernel=3",
+        "decoder.decoder_layers=2", "average_top_k_layers=2"]
+    assert convert_cli.main(["import", "--pt", ema_pt, "--out", out, "--kind", "pretrain",
+                             *over]) == 0
+    want = train_cli.load_pretrained(out, run)
+    assert got and set(got) <= set(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    plain = train_cli.load_pretrained(pt, dataclasses.replace(
+        run, finetune=dataclasses.replace(run.finetune, load_ema=False)))
+    name = "blocks.layers.0.mlp.fc1.weight"  # a teacher tensor: halved in _ema
+    assert torch.equal(got[name], plain[name] * 0.5 if load_ema else plain[name])
+    _, a = init_finetune(run, "cpu", pretrained=got)
+    _, b = init_finetune(run, "cpu", pretrained=want)
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
 def test_stoppers_match_jax():
