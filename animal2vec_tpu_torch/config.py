@@ -14,10 +14,19 @@ the values that ``load_config("animal2vec_tpu/configs/finetune_100.yaml")``
 resolves to (``tests/test_torch_modules.py`` compares them field by field).
 Smaller models for tests are ``dataclasses.replace(FinetuneConfig(), ...)``.
 
-Only what the port implements is configurable: post-LN AltBlocks with
-affine LayerNorms, the ``layer_norm`` extractor mode, ``layer_norm`` or
-``instance`` sinc norms, no LayerNorm before the positional convs, and a
-learned ALiBi scale per head (shared by all layers, or one per layer). A
+The encoder's architecture options are the JAX package's: the frontend's
+first layer (the parametric sinc, its learnable-kernel mode with
+``apply_window_to_root``, or with ``sinc_input`` False a plain conv), its
+norm (``sinc_norm`` "layer_norm", "instance" or "pcen") and the
+``extractor_mode`` ("layer_norm", or "default": one GroupNorm per channel
+on layer 0 only); a LayerNorm before the positional convs
+(``conv_pos_pre_ln``); post-LN or pre-LN blocks (``layer_norm_first``)
+with or without affine norms (``norm_affine``); ALiBi (``use_alibi_encoder``)
+with a learned scale per head or one shared by the heads
+(``learned_alibi_scale_per_head``), for all layers or one per layer; and
+drop-path rates, ``linspace(start, end, depth)`` over the trunk's blocks
+and over the prenet's (``prenet_*_drop_path_rate``). The defaults are the
+recipes' values, which the port assumed before it took these options. A
 YAML recipe in the JAX package's schema is read by ``recipes.load_config``
 (``load_config`` here), which maps, ignores or refuses each of its keys.
 Rematerialization (``remat``, ``remat_scope``, ``remat_frontend``,
@@ -75,8 +84,19 @@ class FinetuneConfig:
         (512, 3, 1), (512, 2, 1), (512, 2, 1),
     )
     sample_rate: int = 8_000
-    sinc_norm: str = "layer_norm"  # "layer_norm" | "instance"
+    sinc_norm: str = "layer_norm"  # "layer_norm" | "instance" | "pcen"
     use_pswish: bool = True
+    # layer 0: the sinc filterbank (its learnable-kernel mode with
+    # apply_window_to_root), or a plain he-normal conv with GELU when
+    # sinc_input is False (with apply_window_to_root the parametric sinc, a
+    # quirk of the JAX package kept as it is)
+    sinc_input: bool = True
+    apply_window_to_root: bool = False
+    # "layer_norm": a norm after every conv; "default": a GroupNorm with one
+    # group per channel after layer 0 only
+    extractor_mode: str = "layer_norm"
+    # an affine fp32 LayerNorm before the positional convs
+    conv_pos_pre_ln: bool = False
     # grouped-conv relative positions (model.modalities.audio.conv_pos_*)
     conv_pos_width: int = 95
     conv_pos_groups: int = 16
@@ -88,14 +108,29 @@ class FinetuneConfig:
     num_heads: int = 16
     mlp_ratio: float = 4.0
     norm_eps: float = 1e-5
+    # pre-LN blocks (the prenet's LayerNorm after its blocks, a final
+    # LayerNorm after the trunk), and LayerNorms with or without affine
+    layer_norm_first: bool = False
+    norm_affine: bool = True
+    # drop-path, linspace(start, end, depth) over the trunk's blocks (a
+    # finetune run takes finetune.drop_path at both ends) and over the
+    # prenet's; the identity in evaluation
+    start_drop_path_rate: float = 0.0
+    end_drop_path_rate: float = 0.0
+    prenet_start_drop_path_rate: float = 0.0
+    prenet_end_drop_path_rate: float = 0.0
     # serving-only int8 (model.matmul_impl): "int8" quantizes the MLP only,
     # each post-LN block's fc1/fc2 through the fused int8 block (the JAX
     # config's comment says qkv/out too, but its AltBlock, modules.py:506-541,
     # keeps attention bf16); "int8_attn" adds the qkv and out projections and
     # int8 QK^T and PV inside the attention. Training raises in either.
     matmul_impl: str = "bf16"
-    # learned per-head ALiBi scale, clipped at 0 and folded into the slopes;
-    # one scale per block (prenet and trunk) with learned_alibi_scale_per_layer
+    # ALiBi with a learned scale, clipped at 0 and folded into the slopes:
+    # one per head, or one shared by the heads; one scale per block (prenet
+    # and trunk) with learned_alibi_scale_per_layer. Without ALiBi the
+    # attention takes no bias.
+    use_alibi_encoder: bool = True
+    learned_alibi_scale_per_head: bool = True
     alibi_scale: float = 1.0
     learned_alibi_scale_per_layer: bool = False
     # extra (CLS) tokens prepended to the sequence at the -1 sentinel
@@ -125,11 +160,14 @@ class FinetuneConfig:
     iou_threshold: float = 0.0
 
     def __post_init__(self):
-        if self.sinc_norm not in ("layer_norm", "instance"):
-            raise ValueError(
-                f"sinc_norm={self.sinc_norm!r}: the port implements "
-                "'layer_norm' and 'instance'"
-            )
+        if self.sinc_norm not in ("layer_norm", "instance", "pcen"):
+            raise ValueError(f"sinc_norm={self.sinc_norm!r}: 'layer_norm', 'instance' or 'pcen'")
+        if self.extractor_mode not in ("default", "layer_norm"):
+            raise ValueError(f"extractor_mode={self.extractor_mode!r}: 'default' or 'layer_norm'")
+        if self.matmul_impl != "bf16" and (self.layer_norm_first or not self.use_alibi_encoder):
+            raise NotImplementedError(
+                "the int8 serving modes of a pre-LN or ALiBi-free audio encoder are not "
+                "ported (ROADMAP A.12)")
         _check_encoder(self)
         if not 0 < self.average_top_k_layers <= self.depth:
             raise ValueError(
@@ -313,12 +351,12 @@ class FinetuneTrainConfig:
         weight_decay=0.0, warmup_updates=2_000, warmup_init_lr=1e-10, min_lr=5e-6)
 
     def __post_init__(self):
-        if self.drop_path != 0.0:
-            raise NotImplementedError("drop-path is not ported (ROADMAP A.8; the recipes set "
-                                      "it to 0)")
         if not self.update_alibi:
-            raise NotImplementedError("a frozen ALiBi scale is not ported (ROADMAP A.8; the "
-                                      "recipes learn it)")
+            raise NotImplementedError(
+                "finetune.update_alibi=False is refused: the JAX package copies it into "
+                "audio.learned_alibi_scale, which it reads nowhere, so its ALiBi scale stays "
+                "learned; the port refuses the key rather than train a scale that the user "
+                "asked to freeze (ROADMAP C)")
 
 
 @dataclass(frozen=True)
@@ -364,8 +402,13 @@ class PretrainConfig:
     targets are the instance-normed taps (per layer, over time) averaged and
     not normalized again; no reconstruction term and no linear probe
     (``task.with_labels`` false); masked tokens are zeroed before the
-    student; no layerdrop, input or activation dropout, and the frontend's
-    full gradient (``recipes.REFUSED`` names the ROADMAP items)."""
+    student; and the frontend's full gradient (``recipes.REFUSED`` names
+    the ROADMAP items). The student's dropouts are the recipe's:
+    ``encoder_dropout``, ``attention_dropout``, ``activation_dropout`` and
+    ``post_mlp_drop`` in every block, ``prenet_dropout`` before the prenet,
+    ``dropout_input`` after it, ``layerdrop`` over the trunk's blocks and
+    ``prenet_layerdrop`` over the prenet's, and the model's drop-path
+    rates; the teacher runs without them."""
 
     # the recipe's encoder; its serving fields (clip length, event
     # threshold) keep the JAX defaults, as the recipe resolves them
@@ -389,6 +432,10 @@ class PretrainConfig:
     attention_dropout: float = 0.1
     post_mlp_drop: float = 0.1
     prenet_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    dropout_input: float = 0.0
+    layerdrop: float = 0.0
+    prenet_layerdrop: float = 0.0
     # model.mixup.* (audio only; source_mixup < 0 turns it off)
     source_mixup: float = 0.5
     mixup_prob: float = 1.0

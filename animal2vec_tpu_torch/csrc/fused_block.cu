@@ -2,7 +2,7 @@
 // hash dropout:
 //
 //   r = LN1(x);  h = drop_a(GELU(fc1 r + b1));  t = drop_b(fc2 h + b2)
-//   x_out = LN2(bf16(r + drop_c(t)))            -> (x_out, t)
+//   x_out = LN2(bf16(r + dp(drop_c(t))))        -> (x_out, t)
 //
 // Replaces the TPU kernel animal2vec_tpu/ops/fused_mlp.py:_kernel_bf16_block.
 // Numerics follow it: LayerNorm statistics in fp32 over C, r cast back to
@@ -15,6 +15,12 @@
 // keep = drop_hash(seed, global row, global column) >= threshold
 // (common.cuh), scaled by 1 / (1 - rate). Rows are rows of the flattened
 // (N, C) input; columns are hidden (fc1) or output (fc2, residual) columns.
+// dp is drop-path on the branch: with a branch_scale the dropped-out t
+// (bf16) times its sample's fp32 factor (0 or 1 / (1 - rate),
+// branch_scale[row / rows_per_scale]), rounded to bf16 again. JAX sends a
+// drop-path block to its composed XLA block; this computes the same function
+// in the LN2 pass. Without a branch_scale, the launches are those of the
+// block without drop-path.
 //
 // Design: one C entry makes four launches on the caller's stream:
 //   1. ln_rows           x -> r (bf16), one warp per row;
@@ -42,7 +48,9 @@
 // scales/biases and b1 (M), b2 (C) fp32. seeds are the three int32 dropout
 // seeds [after GELU, after fc2, post-mlp]; a threshold of 0 turns a site
 // off (act_thresh covers the first two sites); the masks' rows start at
-// row0 (a data-parallel rank's first global row). Returns a cudaError_t.
+// row0 (a data-parallel rank's first global row). branch_scale: null, or the
+// fp32 drop-path factor of each block of rows_per_scale rows (a sample).
+// Returns a cudaError_t.
 extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void* ln1_bias,
                                const void* w1t, const void* b1, const void* w2t, const void* b2,
                                const void* ln2_scale, const void* ln2_bias, void* r, void* h,
@@ -50,11 +58,11 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
                                int seed_act, int seed_fc2, int seed_post,
                                unsigned int act_thresh, float act_scale,
                                unsigned int post_thresh, float post_scale, unsigned int row0,
-                               void* stream) {
+                               const void* branch_scale, int rows_per_scale, void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
   if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
-      M % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535)
+      M % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535 || rows_per_scale <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -79,7 +87,18 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
            act_thresh != 0u, s, hb, static_cast<const bf16*>(w2t), static_cast<const float*>(b2),
            tb, N, M, C, site_fc2))) != cudaSuccess)
     return static_cast<int>(err);
-  if (post_thresh != 0u)
+  const auto* bscale = static_cast<const float*>(branch_scale);
+  if (bscale != nullptr && post_thresh != 0u)
+    ln_rows_kernel<true, true, false, true><<<ln_blocks, kLnThreads, 0, s>>>(
+        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
+        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post, bscale,
+        rows_per_scale);
+  else if (bscale != nullptr)
+    ln_rows_kernel<true, false, false, true><<<ln_blocks, kLnThreads, 0, s>>>(
+        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
+        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post, bscale,
+        rows_per_scale);
+  else if (post_thresh != 0u)
     ln_rows_kernel<true, true, false><<<ln_blocks, kLnThreads, 0, s>>>(
         rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
         static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post);

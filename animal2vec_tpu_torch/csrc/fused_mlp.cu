@@ -1,6 +1,7 @@
-// Plain two-layer MLP of a pre-LN block, bf16 storage:
+// Plain two-layer MLP of a pre-LN block, bf16 storage, with the training
+// activation dropout at two hash sites:
 //
-//   h = bf16(GELU(x W1^T + b1));  out = bf16(h W2^T + b2)
+//   h = bf16(drop_a(GELU(x W1^T + b1)));  out = bf16(drop_b(h W2^T + b2))
 //
 // Replaces the TPU kernel animal2vec_tpu/ops/fused_mlp.py:_kernel_bf16 (the
 // fused_mlp of models/modules.Mlp, which pre-LN AltBlocks run). Numerics
@@ -9,7 +10,13 @@
 // apart), h rounded to bf16 before fc2, one rounding of fc2's sum + b2. The
 // TPU kernel sums fc2 over 1024-wide hidden chunks into an fp32 scratch;
 // here one fp32 accumulator runs over the whole hidden width (the same sum
-// in another order).
+// in another order). The TPU kernel has no dropout (JAX's training pre-LN
+// block composes its MLP in XLA); here drop_a (seed 0) and drop_b (seed 1)
+// are the fused post-LN block's first two sites: keep = drop_hash(seed,
+// row0 + row, column) >= threshold (common.cuh), applied to the fp32 value
+// before its rounding and scaled by 1 / (1 - rate), bit for bit the masks of
+// ops/dropout.hash_keep. A threshold of 0 launches the instances without
+// dropout, as before the sites were added.
 //
 // Design: one C entry makes two launches of bf16_gemm_sm90.cuh's GEMM
 // (wgmma m64n128k16 on 128-byte swizzled tiles behind a 3-stage cp.async
@@ -29,11 +36,14 @@
 // C entry, bound with ctypes. x (N, C) bf16; w1 (M, C) and w2 (C2, M) bf16
 // (nn.Linear layout); b1 (M) and b2 (C2) fp32; h (N, M) bf16 scratch; out
 // (N, C2) bf16. x, the weights, h and out 16-byte aligned; C and M
-// multiples of 64 (the GEMM's K step), M and C2 multiples of 8. Returns a
-// cudaError_t.
+// multiples of 64 (the GEMM's K step), M and C2 multiples of 8. seed_act and
+// seed_fc2 are the two int32 dropout seeds [after GELU, after fc2], thresh
+// their keep threshold (0: no dropout) and keep_scale 1 / (1 - rate); the
+// masks' rows start at row0. Returns a cudaError_t.
 extern "C" int a2v_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* h, void* out, int N, int C, int M, int C2,
-                             void* stream) {
+                             int seed_act, int seed_fc2, unsigned int thresh, float keep_scale,
+                             unsigned int row0, void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
@@ -42,13 +52,15 @@ extern "C" int a2v_fused_mlp(const void* x, const void* w1, const void* b1, cons
       misaligned(w2) || misaligned(h) || misaligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const DropSite none{0u, 0u, 1.f};
+  const bool drop = thresh != 0u;
+  const DropSite site_act{static_cast<uint32_t>(seed_act), thresh, keep_scale, row0};
+  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), thresh, keep_scale, row0};
   auto* hb = static_cast<bf16*>(h);
-  const int err = launch_gemm_sm90<true>(false, s, static_cast<const bf16*>(x),
+  const int err = launch_gemm_sm90<true>(drop, s, static_cast<const bf16*>(x),
                                          static_cast<const bf16*>(w1),
-                                         static_cast<const float*>(b1), hb, N, C, M, none);
+                                         static_cast<const float*>(b1), hb, N, C, M, site_act);
   if (err != 0) return err;
-  return launch_gemm_sm90<false>(false, s, hb, static_cast<const bf16*>(w2),
+  return launch_gemm_sm90<false>(drop, s, hb, static_cast<const bf16*>(w2),
                                  static_cast<const float*>(b2), static_cast<bf16*>(out), N, M, C2,
-                                 none);
+                                 site_fc2);
 }

@@ -2,8 +2,10 @@
 // fused_block_int8.cu): one warp per row of C <= 1024 bf16 values, held in
 // registers; fp32 statistics; bf16 out.
 //
-//   y = LN(z) * scale + bias,  z = x, or bf16(x + drop(t)) when RESID (the
-//   storage-dtype residual add of LN2; drop(t) rounds to bf16 first).
+//   y = LN(z) * scale + bias,  z = x, or bf16(x + dp(drop(t))) when RESID
+//   (the storage-dtype residual add of LN2; drop(t) rounds to bf16 first;
+//   with BSCALE, dp multiplies it by the fp32 drop-path factor of its row's
+//   sample, branch_scale[row / rows_per_scale], and rounds again).
 //
 // With QUANT the row is also quantized to int8 from its bf16-rounded output
 // (the int8 block quantizes the cast-back r): s = max(max|y| * fp32(1/127),
@@ -19,16 +21,19 @@ namespace {
 constexpr int kLnThreads = 256;     // 8 rows per block, one warp per row
 constexpr int kLnMaxPerLane = 32;   // C <= 1024
 
-// Needs C % 128 == 0, C <= 1024. q and q_scale are read only with QUANT.
-template <bool RESID, bool DROP, bool QUANT>
+// Needs C % 128 == 0, C <= 1024. q and q_scale are read only with QUANT,
+// branch_scale only with BSCALE.
+template <bool RESID, bool DROP, bool QUANT, bool BSCALE = false>
 __global__ void __launch_bounds__(kLnThreads)
 ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ t,
                const float* __restrict__ scale, const float* __restrict__ bias,
                __nv_bfloat16* __restrict__ y, int8_t* __restrict__ q,
-               float* __restrict__ q_scale, int N, int C, float eps, DropSite drop) {
+               float* __restrict__ q_scale, int N, int C, float eps, DropSite drop,
+               const float* __restrict__ branch_scale = nullptr, int rows_per_scale = 1) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kLnThreads / 32) + warp;
   if (row >= N) return;
+  const float bscale = BSCALE ? branch_scale[row / rows_per_scale] : 1.f;
   const int n_chunks = C / 128;  // 4 values per lane per chunk
   const size_t base = static_cast<size_t>(row) * C;
   float z[kLnMaxPerLane];
@@ -51,6 +56,10 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
                 tv.x * drop_factor(drop.seed, grow, col, drop.thresh, drop.keep_scale)));
             tv.y = __bfloat162float(__float2bfloat16_rn(
                 tv.y * drop_factor(drop.seed, grow, col + 1, drop.thresh, drop.keep_scale)));
+          }
+          if (BSCALE) {
+            tv.x = __bfloat162float(__float2bfloat16_rn(tv.x * bscale));
+            tv.y = __bfloat162float(__float2bfloat16_rn(tv.y * bscale));
           }
           v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
           v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));

@@ -62,8 +62,10 @@ SIGNATURES = {
     + _DROP + (_P,),
     # x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale, ln2_bias, r, h, t,
     # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
-    # act_scale, post_thresh, post_scale, row0, stream
-    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P),
+    # act_scale, post_thresh, post_scale, row0, branch_scale, rows_per_scale,
+    # stream
+    "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P, _I,
+                                      _P),
     # x, w_q, w_s, bias, x_q, x_s, out, N, K, M, stream
     "a2v_int8_dense": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,
@@ -95,8 +97,9 @@ SIGNATURES = {
     # seed, thresh, keep_scale, stream
     "a2v_bias_attention_bwd_single": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                                       _L, _L, _P) + (_I,) * 4 + (_F,) + _DROP + (_P,),
-    # x, w1, b1, w2, b2, h, out, N, C, M, C2, stream
-    "a2v_fused_mlp": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, w1, b1, w2, b2, h, out, N, C, M, C2, seed_act, seed_fc2, thresh,
+    # keep_scale, row0, stream
+    "a2v_fused_mlp": (_P,) * 7 + (_I,) * 6 + (_U, _F, _U, _P),
     # x, w1_q, w1_s, b1, w2_q, w2_s, b2, x_q, x_s, h, h_max, h_q, h_s, out, N,
     # C, M, C2, chunk, stream
     "a2v_fused_mlp_int8": (_P,) * 14 + (_I,) * 5 + (_P,),

@@ -1,7 +1,8 @@
 """Audio modality encoder: the port of ``animal2vec_tpu/models/audio_encoder.py``
-(conv frontend, feature projection, grouped-conv relative positions, prenet,
-the learned per-head ALiBi scale, one or one per block, the extra (CLS)
-tokens and the pretraining ``Decoder1d``)."""
+(conv frontend, feature projection, grouped-conv relative positions with an
+optional LayerNorm before them, prenet, the learned ALiBi scale (per head or
+shared by the heads, for all blocks or one per block) or no ALiBi, the
+extra (CLS) tokens and the pretraining ``Decoder1d``)."""
 
 from __future__ import annotations
 
@@ -54,32 +55,41 @@ class AudioEncoder(nn.Module):
 
     def __init__(self, cfg: FinetuneConfig, local_grad_mult: float = 1.0,
                  prenet_dropout: float = 0.0, layerdrop: float = 0.0,
-                 decoder: Optional[DecoderConfig] = None, **rates: float):
+                 decoder: Optional[DecoderConfig] = None, **rates):
         super().__init__()
         self.local_grad_mult = local_grad_mult
         self.remat_frontend = cfg.remat_frontend
         self.conv_layers = [tuple(c) for c in cfg.conv_layers]
         feature_dim = self.conv_layers[-1][0]
         self.local_encoder = ConvFeatureExtractor(
-            self.conv_layers, cfg.sample_rate, cfg.sinc_norm, cfg.use_pswish
+            self.conv_layers, cfg.sample_rate, cfg.sinc_norm, cfg.use_pswish, cfg.sinc_input,
+            cfg.apply_window_to_root, cfg.extractor_mode,
         )
         self.project_norm = Fp32LayerNorm(feature_dim)
         self.project_linear = nn.Linear(feature_dim, cfg.embed_dim)
         k = max(3, cfg.conv_pos_width // cfg.conv_pos_depth)
+        if cfg.conv_pos_pre_ln:
+            self.pos_pre_ln = Fp32LayerNorm(cfg.embed_dim)
         self.pos_blocks = nn.ModuleList(
             PosConvBlock(cfg.embed_dim, k, cfg.conv_pos_groups)
             for _ in range(cfg.conv_pos_depth)
         )
         self.context_encoder = PrenetEncoder(
             cfg.prenet_depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps,
-            prenet_dropout, layerdrop, cfg.matmul_impl, **rates,
+            prenet_dropout, layerdrop, cfg.matmul_impl, layer_norm_first=cfg.layer_norm_first,
+            norm_affine=cfg.norm_affine,
+            drop_path=(cfg.prenet_start_drop_path_rate, cfg.prenet_end_drop_path_rate),
+            **rates,
         )
-        # one learned scale per head shared by all layers, or one per block
-        # (prenet, then trunk): (1 or n_blocks, 1, H, 1, 1)
-        n_scales = cfg.n_blocks if cfg.learned_alibi_scale_per_layer else 1
-        self.alibi_scale = nn.Parameter(
-            torch.full((n_scales, 1, cfg.num_heads, 1, 1), float(cfg.alibi_scale))
-        )
+        # a learned scale per head, or one shared by the heads, for all
+        # layers or one per block (prenet, then trunk): (1 or n_blocks, 1, H
+        # or 1, 1, 1); none without ALiBi
+        self.alibi_scale = None
+        if cfg.use_alibi_encoder:
+            n_scales = cfg.n_blocks if cfg.learned_alibi_scale_per_layer else 1
+            n_heads = cfg.num_heads if cfg.learned_alibi_scale_per_head else 1
+            self.alibi_scale = nn.Parameter(
+                torch.full((n_scales, 1, n_heads, 1, 1), float(cfg.alibi_scale)))
         self.init_extra_token_zero = cfg.init_extra_token_zero
         if cfg.num_extra_tokens:
             self.extra_tokens = nn.Parameter(torch.zeros(1, cfg.num_extra_tokens, cfg.embed_dim))
@@ -110,6 +120,8 @@ class AudioEncoder(nn.Module):
         return F.linear(x, w.weight.to(x.dtype), w.bias.to(x.dtype))
 
     def relative_positions(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "pos_pre_ln"):
+            x = self.pos_pre_ln(x)
         for blk in self.pos_blocks:
             x = blk(x)
         return x
@@ -126,22 +138,26 @@ class AudioEncoder(nn.Module):
             if self.init_extra_token_zero:
                 tok[:, 0] = 0.0
 
-    def alibi_spec(self, positions: torch.Tensor, has_sentinel: bool = False) -> AlibiSpec:
+    def alibi_spec(self, positions: torch.Tensor,
+                   has_sentinel: bool = False) -> Optional[AlibiSpec]:
         """Structured ALiBi (``alibi_spec``): one learned scale, clipped at
-        0, folded into the slopes; with one scale per block the slopes stay
-        unscaled (``layer_scales``). ``positions`` (1, T) batch-uniform, or
-        (B, K) int32 per row (a pretraining student's keep-set ids,
-        ``data2vec2.py:280-281``), the extra tokens' at the -1 sentinel
-        (``has_sentinel``)."""
+        0, folded into the slopes (per head, or one value for every head);
+        with one scale per block the slopes stay unscaled (``layer_scales``).
+        ``positions`` (1, T) batch-uniform, or (B, K) int32 per row (a
+        pretraining student's keep-set ids, ``data2vec2.py:280-281``), the
+        extra tokens' at the -1 sentinel (``has_sentinel``). None without
+        ALiBi: the attention takes no bias."""
+        if self.alibi_scale is None:
+            return None
         scale = torch.clamp(self.alibi_scale.float(), min=0.0)
         slopes = self.base_slopes if scale.shape[0] > 1 else \
             self.base_slopes * scale[0].reshape(-1)
         return AlibiSpec(slopes, positions, has_sentinel)
 
     def layer_scales(self) -> Optional[torch.Tensor]:
-        """The (n_blocks, H) per-block scales clipped at 0 (prenet, then
-        trunk) for ``BlockStack``, or None with one scale."""
-        if self.alibi_scale.shape[0] == 1:
+        """The (n_blocks, H or 1) per-block scales clipped at 0 (prenet,
+        then trunk) for ``BlockStack``, or None with one scale or none."""
+        if self.alibi_scale is None or self.alibi_scale.shape[0] == 1:
             return None
         return torch.clamp(self.alibi_scale.float(), min=0.0).reshape(
             self.alibi_scale.shape[0], -1)

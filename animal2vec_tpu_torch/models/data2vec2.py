@@ -6,6 +6,11 @@ encoder of a ``FinetuneConfig``, or the image encoder of an ``ImageConfig``.
 With a ``PretrainConfig`` the model gets its modality's decoder and the
 teacher's targets (``train/pretrain.py``).
 
+The audio arm runs post-LN or pre-LN blocks (``layer_norm_first``: the
+prenet's LayerNorm after its blocks, and a final LayerNorm after the trunk,
+``data2vec2.py:117-120, 368-369``), with the structured ALiBi bias or, with
+``use_alibi_encoder`` False, none.
+
 The image arm: patches, the fixed 2-D sin-cos positions, the 2-D ALiBi bias
 when ``use_alibi_encoder`` (one dense fp32 (1, H, P, P) bias for every
 block, or per row at a student's keep-set), the prenet, the trunk, and with
@@ -72,9 +77,11 @@ class Data2VecMulti(nn.Module):
     ``FinetuneConfig``, "IMAGE" for an ``ImageConfig``). ``rates`` are the
     training dropouts (all 0 for inference): ``encoder_dropout``,
     ``attention_dropout``, ``activation_dropout`` and ``post_mlp_drop`` for
-    every block, ``layerdrop`` and ``prenet_dropout``, ``dropout_input``
-    after the prenet, ``local_grad_mult`` for the audio frontend and
-    ``mask_noise_std`` for the noise fills. ``pretrain`` adds the modality's
+    every block, ``layerdrop`` (the prenet's too unless ``prenet_layerdrop``
+    is given) and ``prenet_dropout``, ``dropout_input`` after the prenet,
+    ``local_grad_mult`` for the audio frontend and ``mask_noise_std`` for
+    the noise fills; the drop-path rates and the audio blocks' pre-LN and
+    norm-affine options come with ``cfg``. ``pretrain`` adds the modality's
     decoder (``audio_encoder.decoder`` or ``image_encoder.decoder``) and
     the teacher's ``average_top_k_layers``. ``cfg.remat`` with
     ``cfg.remat_scope`` reaches every block (``modules.AltBlock``), and
@@ -85,7 +92,7 @@ class Data2VecMulti(nn.Module):
                  local_grad_mult: float = 1.0, layerdrop: float = 0.0,
                  prenet_dropout: float = 0.0, dropout_input: float = 0.0,
                  mask_noise_std: float = 0.01, pretrain: Optional[PretrainConfig] = None,
-                 **rates: float):
+                 prenet_layerdrop: Optional[float] = None, **rates: float):
         super().__init__()
         self.cfg, self.dtype, self.pretrain = cfg, dtype, pretrain
         self.mode = "IMAGE" if isinstance(cfg, ImageConfig) else "AUDIO"
@@ -97,12 +104,18 @@ class Data2VecMulti(nn.Module):
         if self.mode == "IMAGE":
             block_kw.update(layer_norm_first=cfg.layer_norm_first,
                             ffn_targets=not cfg.end_of_block_targets)
-            self.image_encoder = ImageEncoder(cfg, prenet_dropout, layerdrop, decoder, **rates)
+            self.image_encoder = ImageEncoder(
+                cfg, prenet_dropout, layerdrop if prenet_layerdrop is None else prenet_layerdrop,
+                decoder, **rates)
             self.norm = Fp32LayerNorm(cfg.embed_dim, cfg.norm_eps) if cfg.layer_norm_first else None
         else:
-            self.audio_encoder = AudioEncoder(cfg, local_grad_mult, prenet_dropout, layerdrop,
-                                              decoder, **rates)
-            self.norm = None
+            block_kw.update(layer_norm_first=cfg.layer_norm_first, norm_affine=cfg.norm_affine,
+                            drop_path=(cfg.start_drop_path_rate, cfg.end_drop_path_rate))
+            self.audio_encoder = AudioEncoder(
+                cfg, local_grad_mult, prenet_dropout,
+                layerdrop if prenet_layerdrop is None else prenet_layerdrop, decoder, **rates)
+            self.norm = Fp32LayerNorm(cfg.embed_dim, cfg.norm_eps, cfg.norm_affine) \
+                if cfg.layer_norm_first else None
         self.blocks = BlockStack(
             cfg.depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps, layerdrop,
             cfg.matmul_impl, **block_kw,

@@ -14,9 +14,9 @@ weights after every ``load_state_dict`` and are not part of the state dict,
 so one set of weights serves all three modes.
 
 With ``train`` (a ``FinetuneTrainConfig``) the encoder gets the recipe's
-dropouts, layerdrop and frontend gradient scale as
-``train/build.build_finetune_encoder_cfg`` maps them; without it every rate
-is 0 (inference). The freeze gate (``finetune.py:69-76``): with
+dropouts, layerdrop, trunk drop-path (``drop_path`` at both ends) and
+frontend gradient scale as ``train/build.build_finetune_encoder_cfg`` maps
+them; without it every rate is 0 (inference). The freeze gate (``finetune.py:69-76``): with
 ``finetune_encoder`` False the encoder runs under ``torch.no_grad()``, so
 only the head gets gradients and no encoder backward runs; JAX returns
 zero gradients there, which the optimizer reproduces by filling zeros
@@ -25,6 +25,7 @@ zero gradients there, which the optimizer reproduces by filling zeros
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -70,6 +71,9 @@ class FinetuneModel(nn.Module):
         self.cfg = cfg
         self.final_dropout = 0.0 if train is None else train.final_dropout
         self.zero_mask = True if train is None else train.zero_mask
+        if train is not None:  # the trunk's drop-path is the recipe's at both ends
+            cfg = dataclasses.replace(cfg, start_drop_path_rate=train.drop_path,
+                                      end_drop_path_rate=train.drop_path)
         # the encoder quantizes the int8 modes' weights after every load
         self.encoder = Data2VecMulti(cfg, dtype, **encoder_rates(train))
         self.proj = nn.Linear(cfg.embed_dim, len(cfg.labels))
@@ -163,7 +167,9 @@ def pretrain_rates(cfg: PretrainConfig) -> dict:
     return dict(
         prenet_dropout=cfg.prenet_dropout, mask_noise_std=cfg.mask_noise_std,
         encoder_dropout=cfg.encoder_dropout, attention_dropout=cfg.attention_dropout,
-        post_mlp_drop=cfg.post_mlp_drop,
+        activation_dropout=cfg.activation_dropout, post_mlp_drop=cfg.post_mlp_drop,
+        dropout_input=cfg.dropout_input, layerdrop=cfg.layerdrop,
+        prenet_layerdrop=cfg.prenet_layerdrop,
     )
 
 

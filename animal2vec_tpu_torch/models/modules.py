@@ -34,9 +34,17 @@ the int32 hash seeds of the kernels on its host generator, elementwise
 dropout masks on its device generator. A dense-bias attention (the image
 modality) trains through the dense-bias kernels' autograd Function, with
 the kernels' hash dropout (JAX draws that mask with ``jax.random``), a
-pre-LN block's MLP through the fused MLP's. Drop-path is not ported (the
-recipes set it to 0), nor is activation dropout in a pre-LN block (JAX
-leaves its fused MLP there): those raise.
+pre-LN block's MLP through the fused MLP's, with its activation dropout as
+the kernel's two hash-dropout sites (after GELU and after fc2; JAX leaves
+its fused MLP for the composed one there). Drop-path (``drop_path``, the
+block's rate; ``BlockStack`` gives its blocks ``linspace(start, end,
+depth)``) keeps or drops each sample's residual branch: a per-sample keep
+drawn on the device generator for each of the two branches, a kept sample
+scaled by 1 / (1 - rate) in fp32 and rounded once, a dropped one 0; the
+identity in evaluation. The post-LN block's MLP branch takes that scale
+inside the fused block's LN2 pass (JAX sends a drop-path block to its
+composed XLA block, ``modules.py:581-586``; the port keeps its kernel and
+computes the same function).
 
 Rematerialization (``remat_scope``, JAX's ``BlockStack``/``AltBlock``
 remat, ``modules.py:514-518, 711-728``): "attn" runs each attention
@@ -62,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -71,7 +80,9 @@ from animal2vec_tpu_torch.config import MATMUL_IMPLS
 from animal2vec_tpu_torch.models.attention import AlibiSpec, Bias, multihead_attention
 from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
-from animal2vec_tpu_torch.ops.dropout import Rngs, apply_dropout, dropout, dropout_mask
+from animal2vec_tpu_torch.ops.dropout import (
+    Rngs, apply_dropout, dropout, dropout_mask, keep_scale,
+)
 from animal2vec_tpu_torch.ops.fused_mlp import (
     fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
 )
@@ -143,6 +154,20 @@ def _int8_buffers(module: nn.Module, *names: str) -> None:
         module.register_buffer(n, None, persistent=False)
 
 
+def drop_path_scale(batch: int, rate: float, rngs: Optional[Rngs], device) -> torch.Tensor:
+    """One residual branch's drop-path draw: the fp32 (B,) factor of each
+    sample, 1 / (1 - rate) where it is kept (with probability 1 - rate, on
+    the device generator) and 0 where it is dropped."""
+    keep = dropout_mask((batch,), rate, _need(rngs, "drop-path").device, device)
+    return keep.float() * keep_scale(rate)
+
+
+def apply_drop_path(y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``y`` (B, ...) times its sample's ``drop_path_scale`` in fp32,
+    rounded once to ``y``'s dtype."""
+    return (y.float() * scale.reshape(-1, *(1,) * (y.dim() - 1))).to(y.dtype)
+
+
 class AltAttention(nn.Module):
     """Multi-head self-attention (``AltAttention``, ``modules.py:374-446``)
     through ``multihead_attention`` on the (B, T, 3C) projection; in training with
@@ -210,8 +235,10 @@ class AltAttention(nn.Module):
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (``Mlp``, ``modules.py:210-272``). A post-LN
     block consumes the parameters fused with its LayerNorms; a pre-LN block
-    calls the module: the fused MLP (in training its autograd Function), or
-    with ``int8_weights`` (w1_q, w1_s, w2_q, w2_s, serving) its int8 twin."""
+    calls the module: the fused MLP (in training its autograd Function, with
+    the activation dropout at ``rate`` from two int32 ``seeds`` over rows
+    from ``row0``), or with ``int8_weights`` (w1_q, w1_s, w2_q, w2_s,
+    serving) its int8 twin."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -219,12 +246,15 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor,
-                int8_weights: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                int8_weights: Optional[Sequence[torch.Tensor]] = None,
+                seeds: Optional[Sequence[int]] = None, rate: float = 0.0,
+                row0: int = 0) -> torch.Tensor:
         fc1, fc2 = self.fc1, self.fc2
         if int8_weights is not None:
             w1_q, w1_s, w2_q, w2_s = int8_weights
             return fused_mlp_int8(x, w1_q, w1_s, fc1.bias, w2_q, w2_s, fc2.bias)
-        return fused_mlp(x, fc1.weight.to(x.dtype), fc2.weight.to(x.dtype), fc1.bias, fc2.bias)
+        return fused_mlp(x, fc1.weight.to(x.dtype), fc2.weight.to(x.dtype), fc1.bias, fc2.bias,
+                         seeds, rate, row0)
 
 
 class AltBlock(nn.Module):
@@ -241,8 +271,12 @@ class AltBlock(nn.Module):
 
     Pre-LN (``layer_norm_first``): ``x + attn(norm1(x))``, then the MLP of
     ``norm2`` of that (in int8 through the int8 fused MLP), in training with
-    ``post_mlp_drop`` on its residual branch; ``activation_dropout`` raises
-    there.
+    ``activation_dropout`` at the fused MLP's two hash sites from two int32
+    seeds and ``post_mlp_drop`` on its residual branch.
+
+    ``norm_affine`` False gives both LayerNorms no parameters. In training
+    with ``drop_path`` > 0 each residual branch (the attention's, the MLP's)
+    is kept or dropped per sample (``drop_path_scale``).
 
     ``remat_scope`` "attn" or "block" runs the attention sub-block or the
     whole block under ``torch.utils.checkpoint`` in training (None or
@@ -253,9 +287,11 @@ class AltBlock(nn.Module):
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
                  post_mlp_drop: float = 0.0, matmul_impl: str = "bf16",
                  layer_norm_first: bool = False, ffn_targets: bool = True,
-                 remat_scope: Optional[str] = None):
+                 remat_scope: Optional[str] = None, norm_affine: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
         self.remat_scope = remat_scope
+        self.drop_path = drop_path
         if matmul_impl not in MATMUL_IMPLS:
             raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
         self.layer_norm_first, self.ffn_targets = layer_norm_first, ffn_targets
@@ -264,9 +300,9 @@ class AltBlock(nn.Module):
         self.int8 = matmul_impl != "bf16"
         self.attn = AltAttention(dim, num_heads, attention_dropout, encoder_dropout,
                                  int8=matmul_impl == "int8_attn")
-        self.norm1 = Fp32LayerNorm(dim, eps)
+        self.norm1 = Fp32LayerNorm(dim, eps, norm_affine)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
-        self.norm2 = Fp32LayerNorm(dim, eps)
+        self.norm2 = Fp32LayerNorm(dim, eps, norm_affine)
         _int8_buffers(self, "w1_q", "w1_s", "w2_q", "w2_s")
 
     @torch.no_grad()
@@ -283,23 +319,31 @@ class AltBlock(nn.Module):
 
     def draws(self, x: torch.Tensor, rngs: Optional[Rngs]):
         """The block's training draws, as an unrematerialized forward makes
-        them: the attention's (``AltAttention.draws``), then the post-LN
+        them: the attention's (``AltAttention.draws``); then the post-LN
         fused block's three int32 hash seeds with its first global row, or
-        the pre-LN block's keep mask of its residual branch."""
-        if self.layer_norm_first and self.training and self.act_rate > 0.0:
-            raise NotImplementedError("activation dropout in a pre-LN block is not ported")
+        the pre-LN block's keep mask of its residual branch and its fused
+        MLP's two hash seeds with their first global row; then the two
+        branches' drop-path scales."""
         attn = self.attn.draws(x, rngs)
         train = self.training and not self.int8
+        row0 = None if rngs is None else rngs.row0 * x.shape[1]
         if self.layer_norm_first:
-            post = None
+            post = seeds = None
             if train and self.post_rate > 0.0:
                 post = dropout_mask(x.shape, self.post_rate, _need(rngs, "dropout").device,
                                     x.device)
-            return attn, post
-        seeds = None
-        if train and (self.act_rate > 0.0 or self.post_rate > 0.0):
-            seeds = (_need(rngs, "block dropout").int32_seeds(3), rngs.row0 * x.shape[1])
-        return attn, seeds
+            if train and self.act_rate > 0.0:
+                seeds = (_need(rngs, "activation dropout").int32_seeds(2), row0)
+            block = (post, seeds)
+        else:
+            block = None
+            if train and (self.act_rate > 0.0 or self.post_rate > 0.0):
+                block = (_need(rngs, "block dropout").int32_seeds(3), row0)
+        dp = None
+        if train and self.drop_path > 0.0:
+            dp = tuple(drop_path_scale(x.shape[0], self.drop_path, rngs, x.device)
+                       for _ in range(2))
+        return attn, block, dp
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
@@ -325,21 +369,26 @@ class AltBlock(nn.Module):
         return self.attn(x, padding_mask, bias, None, draws)
 
     def _pre_ln(self, x, padding_mask, bias, draws):
-        attn_draws, post = draws
-        x = x + self._attention(self.norm1(x), padding_mask, bias, attn_draws)
+        attn_draws, (post, mlp_seeds), dp = draws
+        a = self._attention(self.norm1(x), padding_mask, bias, attn_draws)
+        x = x + (a if dp is None else apply_drop_path(a, dp[0]))
         int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s") if self.int8 else None
         # The reference's pre-LN branch (modules.py:551-554, after fairseq's
-        # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + post_drop(t)``: the
-        # residual x is not added back, and with dropout off the block gives
-        # 2 * mlp(norm2(x)). The port computes what the reference computes.
-        t = self.mlp(self.norm2(x), int8_weights)
-        if post is not None:
-            return t + apply_dropout(t, post, self.post_rate), t
-        return t + t, t
+        # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + dp(post_drop(t))``:
+        # the residual x is not added back, and with dropout off the block
+        # gives 2 * mlp(norm2(x)). The port computes what the reference
+        # computes.
+        seeds, row0 = (None, 0) if mlp_seeds is None else mlp_seeds
+        t = self.mlp(self.norm2(x), int8_weights, seeds, self.act_rate if seeds else 0.0, row0)
+        td = t if post is None else apply_dropout(t, post, self.post_rate)
+        if dp is not None:
+            td = apply_drop_path(td, dp[1])
+        return t + td, t
 
     def _post_ln(self, x, padding_mask, bias, draws):
-        attn_draws, block_seeds = draws
-        x = x + self._attention(x, padding_mask, bias, attn_draws)
+        attn_draws, block_seeds, dp = draws
+        a = self._attention(x, padding_mask, bias, attn_draws)
+        x = x + (a if dp is None else apply_drop_path(a, dp[0]))
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.int8:
             w1_q, w1_s, w2_q, w2_s = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s")
@@ -354,6 +403,7 @@ class AltBlock(nn.Module):
             x, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
             fc2.weight.to(x.dtype).t(), fc1.bias, fc2.bias, self.norm2.weight,
             self.norm2.bias, self.eps, seeds, act_rate, post_rate, row0=row0,
+            branch_scale=None if dp is None else dp[1],
         )
 
 
@@ -376,16 +426,20 @@ class BlockStack(nn.Module):
     taps, keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
     each layer is kept with probability 1 - layerdrop, drawn on the host: a
     dropped layer is skipped, its tap is its input x and its keep is 0
-    (``modules.py:768-775``). ``keeps`` is None when no layer can drop."""
+    (``modules.py:768-775``). ``keeps`` is None when no layer can drop.
+    ``drop_path`` = (start, end): layer i's drop-path rate is
+    ``linspace(start, end, depth)[i]`` (``modules.py:698-701``)."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, layerdrop: float = 0.0, matmul_impl: str = "bf16",
-                 **block_kw):
+                 drop_path: Tuple[float, float] = (0.0, 0.0), **block_kw):
         super().__init__()
         self.layerdrop = layerdrop
+        rates = np.linspace(drop_path[0], drop_path[1], depth, dtype=np.float32)
         self.layers = nn.ModuleList(
-            AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl, **block_kw)
-            for _ in range(depth)
+            AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl,
+                     drop_path=float(rates[i]), **block_kw)
+            for i in range(depth)
         )
 
     def forward(
@@ -432,13 +486,15 @@ class PrenetEncoder(nn.Module):
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
-                 matmul_impl: str = "bf16", layer_norm_first: bool = False, **block_kw):
+                 matmul_impl: str = "bf16", layer_norm_first: bool = False,
+                 norm_affine: bool = True, **block_kw):
         super().__init__()
         self.prenet_dropout = prenet_dropout
         self.layer_norm_first = layer_norm_first
-        self.norm = Fp32LayerNorm(dim, eps)
+        self.norm = Fp32LayerNorm(dim, eps, norm_affine)
         self.blocks = BlockStack(depth, dim, num_heads, mlp_ratio, eps, layerdrop,
-                                 matmul_impl, layer_norm_first=layer_norm_first, **block_kw)
+                                 matmul_impl, layer_norm_first=layer_norm_first,
+                                 norm_affine=norm_affine, **block_kw)
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,

@@ -4,10 +4,13 @@ training hash dropout; its int8 serving twin below), and the plain fused
 MLP of pre-LN blocks, ``fused_mlp`` (bf16 and int8, at the end).
 
     r = LN1(x);  h = drop_a(GELU(fc1 r));  t = drop_b(fc2 h)
-    x_out = LN2(r + drop_c(t))  ->  (x_out, t)
+    x_out = LN2(r + dp(drop_c(t)))  ->  (x_out, t)
 
 ``t`` is the layer tap (the ffn target), taken before the post-mlp dropout
-``drop_c``. Weights come in the JAX layout, ``w1`` (C, M) and ``w2`` (M, C);
+``drop_c``. ``dp`` is drop-path on the branch: with ``branch_scale`` (an
+fp32 (B,) factor per sample of x (B, T, C), 0 or 1 / (1 - rate)) the
+branch times its sample's factor in fp32, rounded once to the storage
+dtype; None leaves the kernel's launches as they were. Weights come in the JAX layout, ``w1`` (C, M) and ``w2`` (M, C);
 the model passes ``Linear.weight.t()`` views, which the kernel reads without
 a copy. On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/fused_block.cu``, bf16 only); on a CPU tensor it runs
@@ -124,16 +127,31 @@ class _Fp32SumMatmul(torch.autograd.Function):
         return ga, gb
 
 
+def _hash_drop(v: torch.Tensor, seed, rate: float, rows: torch.Tensor) -> torch.Tensor:
+    """fp32 (N, K) ``v`` under the hash keep mask of (seed, rows, columns),
+    kept values scaled by 1 / (1 - rate)."""
+    cols = torch.arange(v.shape[1], device=v.device)[None, :]
+    return v * (hash_keep(seed, rows, cols, rate) / (1.0 - rate))
+
+
+def _row_scale(branch_scale: torch.Tensor, n: int) -> torch.Tensor:
+    """The (N, 1) fp32 factor of each row of a flattened (B, T, C) from the
+    (B,) per-sample ``branch_scale``."""
+    b = branch_scale.shape[0]
+    if b == 0 or n % b:
+        raise ValueError(f"branch_scale must have one value per sample: {b} for {n} rows")
+    return branch_scale.float().repeat_interleave(n // b)[:, None]
+
+
 def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                seeds, act_rate, post_rate, matmul, row0=0):
+                seeds, act_rate, post_rate, matmul, row0=0, branch_scale=None):
     dtype = x.dtype
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
     rows = row0 + torch.arange(x2.shape[0], device=x.device)[:, None]
 
     def drop(v, seed, rate):
-        cols = torch.arange(v.shape[1], device=v.device)[None, :]
-        return v * (hash_keep(seed, rows, cols, rate) / (1.0 - rate))
+        return _hash_drop(v, seed, rate, rows)
 
     r = _ln(x2, ln1_scale, ln1_bias, eps).to(dtype)
     h = matmul(r, w1.to(dtype))
@@ -151,6 +169,8 @@ def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps
     td = t
     if post_rate > 0.0:
         td = drop(t.float(), seeds[2], post_rate).to(dtype)
+    if branch_scale is not None:
+        td = (td.float() * _row_scale(branch_scale, td.shape[0])).to(dtype)
     x_out = _ln(r + td, ln2_scale, ln2_bias, eps).to(dtype)
     return x_out.reshape(x.shape), t.reshape(x.shape)
 
@@ -170,12 +190,14 @@ def fused_block_plain(
     act_rate: float = 0.0,
     post_rate: float = 0.0,
     row0: int = 0,
+    branch_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference of the kernel (any device, differentiable); products in
-    fp32 on the storage-dtype operands; the masks' rows start at ``row0``."""
+    fp32 on the storage-dtype operands; the masks' rows start at ``row0``;
+    ``branch_scale`` the per-sample drop-path factor of the MLP branch."""
     _check_rates(seeds, act_rate, post_rate)
     return _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                       seeds, act_rate, post_rate, _fp32_matmul, row0)
+                       seeds, act_rate, post_rate, _fp32_matmul, row0, branch_scale)
 
 
 def _vec(v: Optional[torch.Tensor], size: int, fill: float, dev) -> torch.Tensor:
@@ -193,7 +215,7 @@ def _check_rates(seeds, act_rate, post_rate):
 
 
 def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-            seeds, act_rate, post_rate, row0=0):
+            seeds, act_rate, post_rate, row0=0, branch_scale=None):
     """One launch of the kernel: (x_out, t)."""
     c = x.shape[-1]
     m = w1.shape[1]
@@ -222,6 +244,14 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
     act_t = keep_threshold(act_rate) if act_rate > 0.0 else 0
     post_t = keep_threshold(post_rate) if post_rate > 0.0 else 0
     n = x.numel() // c
+    scale_ptr, rows_per_scale = None, 1
+    if branch_scale is not None:
+        b = branch_scale.shape[0]
+        if branch_scale.dim() != 1 or b == 0 or n % b or branch_scale.device != dev:
+            raise ValueError(f"branch_scale must be a (B,) vector on {dev}, one value per "
+                             f"sample of the {n} rows, got {tuple(branch_scale.shape)}")
+        branch_scale = branch_scale.detach().to(torch.float32).contiguous()
+        scale_ptr, rows_per_scale = branch_scale.data_ptr(), n // b
     r = torch.empty((n, c), dtype=x.dtype, device=dev)
     h = torch.empty((n, m), dtype=x.dtype, device=dev)
     t = torch.empty(x.shape, dtype=x.dtype, device=dev)
@@ -234,7 +264,8 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
             r.data_ptr(), h.data_ptr(), t.data_ptr(), x_out.data_ptr(),
             n, c, m, float(eps), s0, s1, s2,
             act_t, keep_scale(act_rate) if act_t else 1.0,
-            post_t, keep_scale(post_rate) if post_t else 1.0, int(row0) & 0xFFFFFFFF, stream,
+            post_t, keep_scale(post_rate) if post_t else 1.0, int(row0) & 0xFFFFFFFF,
+            scale_ptr, rows_per_scale, stream,
         )
     check(err, "fused block kernel")
     fused_block_mlp.launches += 1
@@ -244,34 +275,37 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                seeds, act_rate, post_rate, row0):
-        ctx.save_for_backward(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias)
+                seeds, act_rate, post_rate, row0, branch_scale):
+        ctx.save_for_backward(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias,
+                              branch_scale)
         ctx.conf = (eps, seeds, act_rate, post_rate)
         ctx.row0 = row0
         return _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                       seeds, act_rate, post_rate, row0)
+                       seeds, act_rate, post_rate, row0, branch_scale)
 
     @staticmethod
     def backward(ctx, g_out, g_tap):
-        grads = fused_block_recompute(ctx.saved_tensors, ctx.conf, (g_out, g_tap),
-                                      ctx.needs_input_grad[:9], ctx.row0)
-        return (*grads, None, None, None, None, None)
+        *inputs, branch_scale = ctx.saved_tensors
+        grads = fused_block_recompute(inputs, ctx.conf, (g_out, g_tap),
+                                      ctx.needs_input_grad[:9], ctx.row0, branch_scale)
+        return (*grads, None, None, None, None, None, None)
 
 
-def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9, row0=0):
+def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9, row0=0,
+                          branch_scale=None):
     """The backward of the kernel's autograd Function (any device): the block
     recomputed from its nine tensor ``inputs`` (x, ln1_scale, ln1_bias, w1,
     w2, b1, b2, ln2_scale, ln2_bias; None where absent) under autograd with
     the fp32-sum products, for ``conf`` = (eps, seeds, act_rate, post_rate),
-    the masks' first row ``row0`` and the cotangents of (x_out, t). Returns
-    one gradient per input, None where ``needs`` is false or the input is
-    None."""
+    the masks' first row ``row0``, the drop-path ``branch_scale`` and the
+    cotangents of (x_out, t). Returns one gradient per input, None where
+    ``needs`` is false or the input is None."""
     eps, seeds, act_rate, post_rate = conf
     with torch.enable_grad():
         leaves = [None if v is None else v.detach().requires_grad_(n)
                   for v, n in zip(inputs, needs)]
         outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply,
-                           row0)
+                           row0, branch_scale)
         wrt = [v for v, n in zip(leaves, needs) if n and v is not None]
         grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
     return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
@@ -314,27 +348,30 @@ def fused_block_mlp(
     act_rate: float = 0.0,
     post_rate: float = 0.0,
     row0: int = 0,
+    branch_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x_out, t) for x (..., C). Serving (no gradient wanted, no dropout):
-    the custom op ``a2v::fused_block``, the kernel on CUDA and the plain
-    version on CPU. Training: on CUDA the autograd Function (or, without a
-    gradient wanted, one launch with dropout), on CPU the plain version
-    under autograd; the dropout masks' rows start at ``row0``."""
+    """(x_out, t) for x (..., C). Serving (no gradient wanted, no dropout,
+    no drop-path): the custom op ``a2v::fused_block``, the kernel on CUDA
+    and the plain version on CPU. Training: on CUDA the autograd Function
+    (or, without a gradient wanted, one launch with dropout), on CPU the
+    plain version under autograd; the dropout masks' rows start at
+    ``row0``; ``branch_scale`` (B,) scales each sample's MLP branch."""
     args = (x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused block runs on cuda or cpu tensors, got {x.device}")
     _check_rates(seeds, act_rate, post_rate)
     wants_grad = torch.is_grad_enabled() and any(
         isinstance(a, torch.Tensor) and a.requires_grad for a in args)
-    dropout = act_rate > 0.0 or post_rate > 0.0
+    dropout = act_rate > 0.0 or post_rate > 0.0 or branch_scale is not None
     if not wants_grad and not dropout:
         return _block_op(*args[:-1], float(eps))
     if x.device.type == "cpu":
-        return fused_block_plain(*args, seeds, act_rate, post_rate, row0)
+        return fused_block_plain(*args, seeds, act_rate, post_rate, row0, branch_scale)
     seeds = None if seeds is None else tuple(int(s) for s in seeds)
     if wants_grad:
-        return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate), int(row0))
-    return _launch(*args, seeds, float(act_rate), float(post_rate), int(row0))
+        return _FusedBlock.apply(*args, seeds, float(act_rate), float(post_rate), int(row0),
+                                 branch_scale)
+    return _launch(*args, seeds, float(act_rate), float(post_rate), int(row0), branch_scale)
 
 
 fused_block_mlp.launches = 0
@@ -515,14 +552,45 @@ fused_block_int8.launches = 0
 # (``fused_mlp.py:601``), bf16 (``_kernel_bf16``, :112) and int8
 # (``_kernel_int8``, :66), which ``models/modules.Mlp`` runs:
 #
-#   bf16:  out = dtype(dtype(GELU(x W1^T + b1)) W2^T + b2)      (fp32 sums)
+#   bf16:  out = dtype(drop_b(dtype(drop_a(GELU(x W1^T + b1))) W2^T + b2))
 #   int8:  out = dtype(int8 MLP of x, quantized per row)         (_int8_mlp)
 #
 # Weights in nn.Linear layout: w1 (M, C), w2 (C2, M) (int8: w1_q, w2_q from
 # ``ops.int8_mm.quantize_weight`` with their scales). The output has x's
 # dtype and x's leading dims. int8 is serving only (the JAX int8 kernel has
 # no vjp); the bf16 one is reached in training by pre-LN blocks, whose
-# backward recomputes through the plain math (``_fused_bf16_bwd``).
+# backward recomputes through the plain math (``_fused_bf16_bwd``). In
+# training the bf16 MLP takes the activation dropout at two hash sites,
+# drop_a after GELU and drop_b after fc2 + b2 (both on the fp32 values,
+# before the rounding), from ``seeds`` = two int32 at ``rate``: keep masks
+# ``ops.dropout.hash_keep`` over (seed, row0 + row, column), the rows of the
+# flattened (N, C) input, as the post-LN block's first two sites. JAX's
+# pre-LN block leaves its fused MLP for the composed one there and draws
+# the mask with ``jax.random``; the port keeps its kernel.
+
+
+def _mlp_math(x, w1, w2, b1, b2, seeds, rate, row0, matmul) -> torch.Tensor:
+    dtype = x.dtype
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c)
+    rows = row0 + torch.arange(x2.shape[0], device=x.device)[:, None]
+    h = matmul(x2, w1.to(dtype).t())
+    if b1 is not None:
+        h = h + b1.float()
+    h = F.gelu(h)
+    if rate > 0.0:
+        h = _hash_drop(h, seeds[0], rate, rows)
+    y = matmul(h.to(dtype), w2.to(dtype).t())
+    if b2 is not None:
+        y = y + b2.float()
+    if rate > 0.0:
+        y = _hash_drop(y, seeds[1], rate, rows)
+    return y.to(dtype).reshape(*x.shape[:-1], y.shape[-1])
+
+
+def _check_mlp_rate(seeds, rate):
+    if rate > 0.0 and (seeds is None or len(seeds) != 2):
+        raise ValueError("a nonzero activation dropout rate needs two int32 seeds")
 
 
 def fused_mlp_plain(
@@ -531,20 +599,19 @@ def fused_mlp_plain(
     w2: torch.Tensor,
     b1: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    seeds: Optional[Sequence[int]] = None,
+    rate: float = 0.0,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Reference of the bf16 kernel (any device): products in fp32 on the
-    storage-dtype operands, h rounded to x's dtype before fc2."""
-    dtype = x.dtype
-    h = _fp32_matmul(x, w1.to(dtype).t())
-    if b1 is not None:
-        h = h + b1.float()
-    y = _fp32_matmul(F.gelu(h).to(dtype), w2.to(dtype).t())
-    if b2 is not None:
-        y = y + b2.float()
-    return y.to(dtype)
+    """Reference of the bf16 kernel (any device, differentiable): products
+    in fp32 on the storage-dtype operands, h rounded to x's dtype before
+    fc2; with ``rate`` the two hash-dropout sites from ``seeds``, rows from
+    ``row0``."""
+    _check_mlp_rate(seeds, rate)
+    return _mlp_math(x, w1, w2, b1, b2, seeds, rate, row0, _fp32_matmul)
 
 
-def _launch_mlp(x, w1, w2, b1, b2) -> torch.Tensor:
+def _launch_mlp(x, w1, w2, b1, b2, seeds=None, rate=0.0, row0=0) -> torch.Tensor:
     """One launch of the bf16 kernel (checked inputs)."""
     c = x.shape[-1]
     m, c2 = w1.shape[0], w2.shape[0]
@@ -564,6 +631,8 @@ def _launch_mlp(x, w1, w2, b1, b2) -> torch.Tensor:
     if any(v.data_ptr() % 16 for v in (x, w1c, w2c)):
         raise ValueError("the kernel needs x and the weights 16-byte aligned")
     b1v, b2v = _vec(b1, m, 0.0, dev), _vec(b2, c2, 0.0, dev)
+    s0, s1 = (int(v) for v in seeds) if rate > 0.0 else (0, 0)
+    thresh = keep_threshold(rate) if rate > 0.0 else 0
     n = x.numel() // c
     h = torch.empty((n, m), dtype=x.dtype, device=dev)
     out = torch.empty((*x.shape[:-1], c2), dtype=x.dtype, device=dev)
@@ -571,46 +640,38 @@ def _launch_mlp(x, w1, w2, b1, b2) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_fused_mlp(
             x.data_ptr(), w1c.data_ptr(), b1v.data_ptr(), w2c.data_ptr(), b2v.data_ptr(),
-            h.data_ptr(), out.data_ptr(), n, c, m, c2, stream,
+            h.data_ptr(), out.data_ptr(), n, c, m, c2, s0, s1, thresh,
+            keep_scale(rate) if thresh else 1.0, int(row0) & 0xFFFFFFFF, stream,
         )
     check(err, "fused MLP kernel")
     fused_mlp.launches += 1
     return out
 
 
-def _mlp_recompute(x, w1, w2, b1, b2) -> torch.Tensor:
-    """``fused_mlp_plain``'s math on (N, C) with the two products as
-    ``_Fp32SumMatmul`` (bf16 GEMMs with fp32 sums and JAX's transpose rule):
-    the backward's recompute, as JAX's ``_fused_bf16_bwd`` differentiates
-    ``_ref_mlp_bf16``."""
-    dtype = x.dtype
-    h = _Fp32SumMatmul.apply(x, w1.to(dtype).t())
-    if b1 is not None:
-        h = h + b1.float()
-    y = _Fp32SumMatmul.apply(F.gelu(h).to(dtype), w2.to(dtype).t())
-    if b2 is not None:
-        y = y + b2.float()
-    return y.to(dtype)
-
-
 class _FusedMlp(torch.autograd.Function):
+    """The kernel's forward; the backward recomputes ``_mlp_math`` with the
+    two products as ``_Fp32SumMatmul`` (bf16 GEMMs with fp32 sums and JAX's
+    transpose rule), as JAX's ``_fused_bf16_bwd`` differentiates
+    ``_ref_mlp_bf16``, regenerating the dropout masks from their seeds."""
+
     @staticmethod
-    def forward(ctx, x, w1, w2, b1, b2):
+    def forward(ctx, x, w1, w2, b1, b2, seeds, rate, row0):
         ctx.save_for_backward(x, w1, w2, b1, b2)
-        return _launch_mlp(x, w1, w2, b1, b2)
+        ctx.conf = (seeds, rate, row0)
+        return _launch_mlp(x, w1, w2, b1, b2, seeds, rate, row0)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
         leaves = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(saved, ctx.needs_input_grad)]
-        c = saved[0].shape[-1]
+                  for t, need in zip(saved, needs)]
         with torch.enable_grad():
-            out = _mlp_recompute(leaves[0].reshape(-1, c), *leaves[1:])
-        wanted = [t for t, need in zip(leaves, ctx.needs_input_grad) if need and t is not None]
+            out = _mlp_math(*leaves, *ctx.conf, _Fp32SumMatmul.apply)
+        wanted = [t for t, need in zip(leaves, needs) if need and t is not None]
         got = iter(torch.autograd.grad(out, wanted, g.reshape(out.shape)))
         return tuple(next(got) if need and t is not None else None
-                     for t, need in zip(leaves, ctx.needs_input_grad))
+                     for t, need in zip(leaves, needs)) + (None, None, None)
 
 
 def fused_mlp(
@@ -619,20 +680,26 @@ def fused_mlp(
     w2: torch.Tensor,
     b1: Optional[torch.Tensor] = None,
     b2: Optional[torch.Tensor] = None,
+    seeds: Optional[Sequence[int]] = None,
+    rate: float = 0.0,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """fc2(GELU(fc1 x)) for x (..., C), differentiable in every input. On
-    CUDA one launch of the kernel (``csrc/fused_mlp.cu``, bf16) when no
-    gradient is wanted, else the autograd Function: the kernel forward, and
-    a backward that recomputes through ``_mlp_recompute`` in torch GEMMs.
-    On CPU the plain version, with autograd through it."""
+    """drop_b(fc2(drop_a(GELU(fc1 x)))) for x (..., C), differentiable in
+    every input; the dropout at ``rate`` from two int32 ``seeds``, rows from
+    ``row0``. On CUDA one launch of the kernel (``csrc/fused_mlp.cu``, bf16)
+    when no gradient is wanted, else the autograd Function: the kernel
+    forward, and a backward that recomputes in torch GEMMs. On CPU the plain
+    version, with autograd through it."""
+    _check_mlp_rate(seeds, rate)
     if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, w2, b1, b2)
+        return fused_mlp_plain(x, w1, w2, b1, b2, seeds, rate, row0)
     if x.device.type != "cuda":
         raise ValueError(f"fused MLP runs on cuda or cpu tensors, got {x.device}")
+    seeds = None if rate == 0.0 else tuple(int(v) for v in seeds)
     inputs = [t for t in (x, w1, w2, b1, b2) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _FusedMlp.apply(x, w1, w2, b1, b2)
-    return _launch_mlp(x, w1, w2, b1, b2)
+        return _FusedMlp.apply(x, w1, w2, b1, b2, seeds, float(rate), int(row0))
+    return _launch_mlp(x, w1, w2, b1, b2, seeds, float(rate), int(row0))
 
 
 fused_mlp.launches = 0

@@ -20,9 +20,8 @@ Every leaf key of the schema is in exactly one class
    layout selection, or a fairseq field that the JAX package does not read
    either); a value other than the default logs once and is ignored;
 3. ``REFUSED``: not ported; a value other than the ones the port
-   implements (the default, or those listed; ``sinc_norm`` "layer_norm" and
-   "instance" are read into the run) raises ``NotImplementedError`` naming
-   the ROADMAP item that will port it. Some refusals hold only for one kind of run (a finetune run takes
+   implements (the default, or those listed) raises
+   ``NotImplementedError`` naming the ROADMAP item that will port it. Some refusals hold only for one kind of run (a finetune run takes
    its dropouts and masks from ``finetune``, as
    ``train/build.build_finetune_encoder_cfg`` does).
 
@@ -185,7 +184,9 @@ MAPPED = frozenset(
                                    "patience")]
     + [f"model.{k}" for k in (
         "loss_beta", "loss_scale", "depth", "num_heads", "norm_eps", "encoder_dropout",
-        "post_mlp_drop", "attention_dropout", "embed_dim", "mlp_ratio", "average_top_k_layers",
+        "post_mlp_drop", "attention_dropout", "activation_dropout", "dropout_input",
+        "layerdrop", "start_drop_path_rate", "end_drop_path_rate", "norm_affine",
+        "layer_norm_first", "embed_dim", "mlp_ratio", "average_top_k_layers",
         "clone_batch", "ema_decay", "ema_end_decay", "ema_anneal_end_step", "ema_encoder_only",
         "cls_loss", "matmul_impl", "teacher_matmul_impl", "remat", "remat_scope",
         "remat_frontend", "remat_decoder", "with_labels", "use_focal_loss", "sample_rate",
@@ -196,7 +197,9 @@ MAPPED = frozenset(
         "mask_noise_std", "mask_prob", "mask_length", "alibi_scale",
         "learned_alibi_scale_per_layer", "conv_pos_width", "conv_pos_groups", "conv_pos_depth",
         "use_pswish", "conv_feature_layers", "sample_rate", "num_alibi_heads",
-        "model_depth")]
+        "model_depth", "prenet_layerdrop", "start_drop_path_rate", "end_drop_path_rate",
+        "use_alibi_encoder", "learned_alibi_scale_per_head", "extractor_mode",
+        "conv_pos_pre_ln", "sinc_input", "apply_window_to_root", "sinc_norm")]
     + [_A + "decoder." + k for k in _DEC]
     + [f"finetune.{k}" for k in (
         "load_ema", "freeze_finetune_updates", "feature_grad_mult", "apply_mask", "mask_prob",
@@ -229,8 +232,9 @@ IGNORED: Dict[str, str] = {
     _A + "ema_local_encoder": _UNREAD,
     _A + "learned_alibi": _UNREAD,
     _A + "alibi_max_pos": _UNREAD,
-    _A + "learned_alibi_scale": "written by the JAX finetune builder, read nowhere (the "
-                                "per-head scale is learned; finetune.update_alibi freezes it)",
+    _A + "learned_alibi_scale": "written by the JAX finetune builder from "
+                                "finetune.update_alibi, read nowhere: the scale stays learned "
+                                "(the port refuses update_alibi=False, ROADMAP C)",
     _A + "mask_channel_prob": "pretraining draws no channel mask (in JAX too); finetuning "
                               "reads finetune.mask_channel_prob",
     _A + "mask_channel_length": "as mask_channel_prob",
@@ -247,7 +251,7 @@ IGNORED.update({_I + "decoder." + k: _NO_IMAGE for k in _DECODER})
 IGNORED[_I + "decoder"] = _NO_IMAGE
 _DERIVED = {_I + "num_alibi_heads", _I + "model_depth"}  # set by resolve
 
-A7, A8, A10 = "A.7", "A.8", "A.10"
+A7, A10 = "A.7", "A.10"
 # 3. not ported: key -> (ROADMAP item, the values the port implements or None
 # for the default only, the runs it holds for)
 REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
@@ -257,13 +261,6 @@ REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
     "model.pipeline_stages": (A10, None, "all"),
     "model.pipeline_microbatches": (A10, None, "all"),
     "criterion.loss_weights": (A7, None, "pretrain"),
-    "model.start_drop_path_rate": (A8, None, "all"),
-    "model.end_drop_path_rate": (A8, None, "all"),
-    "model.norm_affine": (A8, None, "all"),
-    "model.layer_norm_first": (A8, None, "all"),
-    "model.activation_dropout": (A7, None, "pretrain"),
-    "model.dropout_input": (A7, None, "pretrain"),
-    "model.layerdrop": (A7, None, "pretrain"),
     "model.end_of_block_targets": (A7, None, "pretrain"),
     "model.layer_norm_target_layer": (A7, None, "pretrain"),
     "model.batch_norm_target_layer": (A7, None, "pretrain"),
@@ -279,21 +276,11 @@ REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
     "model.final_dropout": (A7, None, "pretrain"),
     "model.metric_threshold": (A7, None, "pretrain"),
     "model.mixup.target_mixup": (A7, None, "pretrain"),
-    _A + "prenet_layerdrop": (A7, None, "pretrain"),
-    _A + "start_drop_path_rate": (A8, None, "all"),
-    _A + "end_drop_path_rate": (A8, None, "all"),
     _A + "inverse_mask": (A7, None, "pretrain"),
     _A + "keep_masked_pct": (A7, None, "pretrain"),
     _A + "mask_dropout": (A7, None, "pretrain"),
     _A + "encoder_zero_mask": (A7, None, "pretrain"),
     _A + "local_grad_mult": (A7, None, "pretrain"),
-    _A + "use_alibi_encoder": (A8, (True,), "all"),
-    _A + "learned_alibi_scale_per_head": (A8, (True,), "all"),
-    _A + "extractor_mode": (A8, None, "all"),
-    _A + "conv_pos_pre_ln": (A8, None, "all"),
-    _A + "sinc_input": (A8, None, "all"),
-    _A + "apply_window_to_root": (A8, None, "all"),
-    _A + "sinc_norm": (A8, ("layer_norm", "instance"), "all"),
     _A + "decoder": (A7, "present", "pretrain"),
     _A + "decoder.projection_layers": (A7, None, "pretrain"),
     _A + "decoder.projection_ratio": (A7, None, "pretrain"),
@@ -510,17 +497,31 @@ def encoder_config(tree: dict) -> FinetuneConfig:
     """The audio encoder of the run: the model's architecture, remat and
     numerics, the task's conv stack, labels and clip length, the criterion's
     thresholds; the head averages ``finetune.average_top_k_layers`` taps in
-    a finetune run, ``model.average_top_k_layers`` in a pretrain run."""
+    a finetune run, ``model.average_top_k_layers`` in a pretrain run. The
+    trunk's drop-path rates are ``finetune.drop_path`` at both ends in a
+    finetune run (``build_finetune_encoder_cfg``), the model's in a pretrain
+    run; the prenet's are the audio modality's in both."""
     m, task, crit, ft = tree["model"], tree["task"], tree["criterion"], tree["finetune"]
     audio = m["modalities"]["audio"]
+    trunk_dp = (ft["drop_path"],) * 2 if ft is not None else (
+        m["start_drop_path_rate"], m["end_drop_path_rate"])
     return FinetuneConfig(
         conv_layers=tuple(tuple(c) for c in parse_pylist(audio["conv_feature_layers"])),
         sample_rate=audio["sample_rate"], sinc_norm=audio["sinc_norm"],
-        use_pswish=audio["use_pswish"], conv_pos_width=audio["conv_pos_width"],
+        use_pswish=audio["use_pswish"], sinc_input=audio["sinc_input"],
+        apply_window_to_root=audio["apply_window_to_root"],
+        extractor_mode=audio["extractor_mode"], conv_pos_pre_ln=audio["conv_pos_pre_ln"],
+        conv_pos_width=audio["conv_pos_width"],
         conv_pos_groups=audio["conv_pos_groups"], conv_pos_depth=audio["conv_pos_depth"],
         prenet_depth=audio["prenet_depth"], depth=m["depth"], embed_dim=m["embed_dim"],
         num_heads=m["num_heads"], mlp_ratio=m["mlp_ratio"], norm_eps=m["norm_eps"],
-        matmul_impl=m["matmul_impl"], alibi_scale=audio["alibi_scale"],
+        layer_norm_first=m["layer_norm_first"], norm_affine=m["norm_affine"],
+        start_drop_path_rate=trunk_dp[0], end_drop_path_rate=trunk_dp[1],
+        prenet_start_drop_path_rate=audio["start_drop_path_rate"],
+        prenet_end_drop_path_rate=audio["end_drop_path_rate"],
+        matmul_impl=m["matmul_impl"], use_alibi_encoder=audio["use_alibi_encoder"],
+        learned_alibi_scale_per_head=audio["learned_alibi_scale_per_head"],
+        alibi_scale=audio["alibi_scale"],
         learned_alibi_scale_per_layer=audio["learned_alibi_scale_per_layer"],
         num_extra_tokens=audio["num_extra_tokens"],
         init_extra_token_zero=audio["init_extra_token_zero"],
@@ -570,7 +571,9 @@ def pretrain_config(tree: dict) -> PretrainConfig:
         ema_end_decay=m["ema_end_decay"], ema_anneal_end_step=m["ema_anneal_end_step"],
         ema_encoder_only=m["ema_encoder_only"], encoder_dropout=m["encoder_dropout"],
         attention_dropout=m["attention_dropout"], post_mlp_drop=m["post_mlp_drop"],
-        prenet_dropout=audio["prenet_dropout"], source_mixup=mix["source_mixup"],
+        prenet_dropout=audio["prenet_dropout"], activation_dropout=m["activation_dropout"],
+        dropout_input=m["dropout_input"], layerdrop=m["layerdrop"],
+        prenet_layerdrop=audio["prenet_layerdrop"], source_mixup=mix["source_mixup"],
         mixup_prob=mix["mixup_prob"], same_mixup=mix["same_mixup"],
         mixing_window_length=mix["mixing_window_length"], gain_mode=mix["gain_mode"],
         teacher_matmul_impl=m["teacher_matmul_impl"], cls_loss=m["cls_loss"],

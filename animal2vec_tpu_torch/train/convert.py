@@ -196,18 +196,23 @@ _BLOCK_LEAVES = {
 
 def _map_block_stack(sd: Dict[str, np.ndarray], prefix: str, depth: int,
                      dst: Tuple[str, ...], out: Dict):
-    """fairseq AltBlock list -> stacked params."""
+    """fairseq AltBlock list -> stacked params. A leaf absent from the
+    state dict is skipped: the whole stack (a teacher subset without it), or
+    the LayerNorms' of blocks without affine. JAX's converter stops at the
+    first absent leaf, so it drops every block of a model without affine
+    norms; the port does not copy that."""
     for dst_leaf, src_leaf in _BLOCK_LEAVES.items():
         stack = []
         for i in range(depth):
             key = f"{prefix}.{i}.{src_leaf}"
             if key not in sd:
-                return  # stack absent (e.g. teacher subset without it)
+                break
             w = sd[key]
             if dst_leaf[-1] == "kernel":
                 w = w.T
             stack.append(w)
-        out[dst + ("block",) + dst_leaf] = np.stack(stack, axis=0)
+        if len(stack) == depth:
+            out[dst + ("block",) + dst_leaf] = np.stack(stack, axis=0)
 
 
 def _map_decoder1d(sd, prefix: str, dst: Tuple[str, ...], layers: int, out):
@@ -238,16 +243,18 @@ def map_audio_encoder(
     prefix: str = "modality_encoders.AUDIO",
     dst_root: Tuple[str, ...] = ("audio_encoder",),
 ) -> Dict[Tuple[str, ...], np.ndarray]:
-    """The audio modality encoder's entries (the sinc frontend, which the
-    port always has, as layer 0), and its decoder's with
-    ``decoder_layers``."""
+    """The audio modality encoder's entries, and its decoder's with
+    ``decoder_layers``. Layer 0 is read as the sinc filterbank (its
+    parametric or learnable-kernel parameters) with ``cfg.sinc_input``, as a
+    plain conv otherwise: what JAX's converter maps, and no more (it maps no
+    PCEN parameters and no LayerNorm before the positional convs)."""
     out: Dict[Tuple[str, ...], np.ndarray] = {}
 
     # --- local encoder (ConvFeatureExtractionModel, nn/utils.py:1043-1163)
     le = dst_root + ("local_encoder",)
     for i, (dim, k, stride) in enumerate(cfg.conv_layers):
         base = f"{prefix}.local_encoder.conv_layers.{i}"
-        if i == 0:
+        if i == 0 and cfg.sinc_input:
             if f"{base}.0.kernel" in sd:  # learnable-filter mode
                 out[le + ("conv_0", "kernel")] = sd[f"{base}.0.kernel"].reshape(dim, k)
             elif f"{base}.0.low_hz_" in sd:
@@ -404,7 +411,10 @@ def export_pretrain(state_dict, cfg: FinetuneConfig) -> Dict[str, np.ndarray]:
                 elif leaf.startswith("conv_") and leaf.endswith("_bias"):
                     i = int(leaf.split("_")[1])
                     sd[f"{pre}.local_encoder.conv_layers.{i}.0.bias"] = w
-                elif leaf.startswith("norm_"):
+                elif leaf.startswith("norm_") and p[3] in ("scale", "bias"):
+                    # a norm's affine; PCEN's parameters have no fairseq name
+                    # that the import reads (JAX's export writes each of them
+                    # over the norm's bias)
                     i = int(leaf.split("_")[1])
                     nm = "weight" if p[3] == "scale" else "bias"
                     sd[f"{pre}.local_encoder.conv_layers.{i}.2.1.{nm}"] = w

@@ -14,7 +14,9 @@ subset gives the teacher dict of ``train.state.PretrainState``):
   frontend's ``conv_{i}_kernel`` -> ``conv_{i}.weight``;
 * 2-D conv HWIO ``kernel`` (kh, kw, C_in/g, C_out), the patch embedding's
   and the image decoder's, -> OIHW ``weight`` (C_out, C_in/g, kh, kw);
-* LayerNorm ``scale`` -> ``weight``;
+* LayerNorm (and GroupNorm) ``scale`` -> ``weight``; the learnable-kernel
+  sinc's (C, K) ``conv_0/kernel`` keeps its name and layout (``kernel``),
+  and PCEN's ``alpha``, ``delta``, ``root`` and ``ema/weights`` theirs;
 * the scan-stacked ``blocks/block`` params (leading depth axis) -> one module
   per layer, ``blocks.layers.{i}``;
 * ``pos_blocks_{i}`` -> ``pos_blocks.{i}``, a decoder's ``blocks_{i}`` ->
@@ -58,7 +60,9 @@ def _torch_entry(path: tuple, arr: np.ndarray):
     if hit:
         names.append(hit.group(1))
         leaf = "kernel"
-    if leaf == "kernel":
+    # the learnable sinc taps (C, K) are a parameter named kernel
+    sinc_taps = not hit and names[-2:] == ["local_encoder", "conv_0"]
+    if leaf == "kernel" and not sinc_taps:
         arr = np.transpose(arr, {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[arr.ndim])
         leaf = "weight"
     elif leaf == "scale":

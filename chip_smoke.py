@@ -198,7 +198,24 @@ Phases, one line or more each; any failure raises and exits non-zero:
       token's and every block's scale gradients non-zero;
    e. train_cli --config on a2v_large_pretrain_v5e.yaml at full width for
       2 steps and on the other five recipe copies at depth 1 + 2 for 1 step
-      (JAX key names), on the 24 synthetic clips; each run's seconds.
+      (JAX key names), on the 24 synthetic clips; each run's seconds;
+16. the encoder's architecture and regularizer options at a2v-large width
+   (phase_options): the changed kernels alone against their plain twins,
+   #8 with its two hash-dropout sites at N 8000, C 1024, M 4096 (each
+   site's keep mask read back and equal to hash_keep bit for bit), #6 with
+   a drop-path branch scale at N 8000 (two samples at 0), #11 and #11b with
+   no bias at b4 T 2000 (the dq and dk/dv routes against
+   bias_attention_bwd_plain), then their times beside the library calls and
+   bounds; variant P (PCEN after the windowed learnable sinc, the LayerNorm
+   before the positional convs, pre-LN blocks without affine, one ALiBi
+   scale for the heads) and variant N (no ALiBi, a plain first conv, the
+   "default" extractor mode, post-LN): b2 serving logits kernel vs plain
+   path, b32 serving clips/s, three b4 finetune_100 steps with drop-path
+   0.1 (P: activation dropout 0.1 in #8) with their launches per block that
+   ran and median ms, b2 gradients kernel vs plain path with drop-path and
+   activation dropout on; one variant P pretrain step at b8 x clone 12 with
+   the A.7 dropouts (ms, peak memory); the PCEN scan's ms and memory at b32
+   serving and b4 training.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -1706,9 +1723,9 @@ def int8_block_splits(args, label):
     (n, c), m = args[0].shape, args[3].shape[0]
     call = lambda: fused_block_int8(*args)
     split = {f"{name}_device_ms": device_ms(call, kernel) for name, kernel in (
-        ("ln1", "ln_rows_kernel<false, false, true>"), ("fc1", "gemm_s8_sm90_kernel<1>"),
+        ("ln1", "ln_rows_kernel<false, false, true, false>"), ("fc1", "gemm_s8_sm90_kernel<1>"),
         ("quantize", "quantize_chunks_kernel"), ("fc2", "gemm_s8_sm90_kernel<2>"),
-        ("ln2", "ln_rows_kernel<true, false, false>"))}
+        ("ln2", "ln_rows_kernel<true, false, false, false>"))}
     for gemm in ("fc1", "fc2"):
         split[f"{gemm}_tops"] = per_ms(2 * n * c * m, split[f"{gemm}_device_ms"])
     print(f"  {label} by launch, device time: LN1 {ms_text(split['ln1_device_ms'])}, fc1 "
@@ -3537,6 +3554,512 @@ def phase_config_cli(card, dev):
     return totals
 
 
+# phase 16: the encoder's architecture and regularizer options at a2v-large
+# width (finetune_100.yaml's: C 1024, H 16, 8 prenet + 16 trunk blocks).
+# Variant P: PCEN after the windowed learnable-kernel sinc, the LayerNorm
+# before the positional convs, pre-LN blocks without affine norms, one ALiBi
+# scale shared by the heads; trained with drop-path 0.1 and activation
+# dropout 0.1. Variant N: no ALiBi, a plain first conv, the "default"
+# extractor mode, post-LN; trained with drop-path 0.1.
+OPTION_VARIANTS = {
+    "P": dict(sinc_norm="pcen", apply_window_to_root=True, conv_pos_pre_ln=True,
+              layer_norm_first=True, norm_affine=False, learned_alibi_scale_per_head=False),
+    "N": dict(use_alibi_encoder=False, sinc_input=False, extractor_mode="default"),
+}
+OPTION_DROP_PATH, OPTION_ACT_DROP = 0.1, 0.1
+# the launches one block makes, by variant: a serving forward's and a
+# training step's (the backward kernels; the fused MLPs' backward is torch)
+OPTION_SERVE_KEYS = {"P": ("serve_attention", "mlp"), "N": ("bias_attention", "block")}
+OPTION_TRAIN_KEYS = {"P": ("attention", "dq", "dkv", "mlp"),
+                     "N": ("bias_attention", "bias_dq", "bias_dkv", "block")}
+
+
+def phase_option_kernels(dev):
+    """16k. The changed kernels alone against their plain twins: #8 with its
+    two hash-dropout sites at N 8000, C 1024, M 4096 (each site's keep mask,
+    read back through the kernel's h and output, against ops/dropout.hash_keep
+    where the undropped value is not 0: the differing elements printed, 0
+    allowed; values at BLOCK_TOL; the autograd Function's gradients against
+    autograd of the plain twin); #6 with a drop-path branch scale at N 8000
+    (b4 x 2000, two samples at 0) with and without its dropout sites (values,
+    gradients); #11 and #11b with no bias at b4 T 2000 (forward, the dq and
+    dk/dv routes against bias_attention_bwd_plain, the autograd Function).
+    Returns the max abs errors."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.kernels.build import check, library
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
+        bias_attention_plain, bias_flash_attention,
+    )
+    from animal2vec_tpu_torch.ops.dropout import hash_keep, keep_scale, keep_threshold
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_block_mlp, fused_block_plain, fused_mlp, fused_mlp_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    errs = {}
+    n, c, m = TRAIN_BATCH * 2000, 1024, 4096
+    args = block_inputs(gen, n, c, m, dev)
+    x, w1l, w2l, b1, b2 = args[0], args[3].t().contiguous(), args[4].t().contiguous(), \
+        args[5], args[6]
+    seeds, rate, row0 = (20261018, -77123), OPTION_ACT_DROP, 3 * n
+    name = f"fused MLP + dropout {rate} (N {n}, C {c}, M {m}, row0 {row0})"
+    # the kernel's h and output through its C entry, for the masks
+    h = torch.empty((n, m), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n, c), dtype=torch.bfloat16, device=dev)
+    err = library().a2v_fused_mlp(
+        x.data_ptr(), w1l.data_ptr(), b1.data_ptr(), w2l.data_ptr(), b2.data_ptr(),
+        h.data_ptr(), out.data_ptr(), n, c, m, c, seeds[0], seeds[1], keep_threshold(rate),
+        keep_scale(rate), row0, torch.cuda.current_stream().cuda_stream)
+    check(err, "fused MLP kernel")
+    rows = row0 + torch.arange(n, device=dev)[:, None]
+    h_pre = F.gelu(x.float() @ w1l.float().t() + b1)
+    h_ref = h_pre * (hash_keep(seeds[0], rows, torch.arange(m, device=dev)[None], rate) /
+                     (1.0 - rate))
+    y_pre = h_ref.to(torch.bfloat16).float() @ w2l.float().t() + b2
+    keep_b = hash_keep(seeds[1], rows, torch.arange(c, device=dev)[None], rate)
+    torch.cuda.synchronize()
+    for site, got, pre, keep in (("after GELU", h, h_pre, (h_ref != 0).float()),
+                                 ("after fc2", out, y_pre, keep_b)):
+        live = pre.to(torch.bfloat16) != 0
+        differ = int(((got != 0).float() != keep)[live].sum())
+        print(f"{name} site {site}: keep mask read back, {differ} of {int(live.sum())} "
+              f"elements differ from hash_keep (kept share {float(keep[live].mean()):.4f})")
+        if differ:
+            raise AssertionError(f"{name}: the kernel's mask at {site} is not hash_keep's")
+    del h, h_pre, h_ref, y_pre, keep_b
+    drop = (seeds, rate, row0)
+    errs["mlp"] = check_close(name, fused_mlp(x, w1l, w2l, b1, b2, *drop),
+                              fused_mlp_plain(x, w1l, w2l, b1, b2, *drop), BLOCK_TOL)
+    g = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+    vals = (x, w1l, w2l, b1, b2)
+    leaves = [a.clone().requires_grad_() for a in vals]
+    got = torch.autograd.grad(fused_mlp(*leaves, *drop), leaves, g)
+    leaves_p = [a.float().requires_grad_() for a in vals]
+    ref = torch.autograd.grad(fused_mlp_plain(*leaves_p, *drop), leaves_p, g.float())
+    for label, a, b in zip(("x", "w1", "w2", "b1", "b2"), got, ref):
+        check_rel(f"{name} grad {label} vs autograd of plain", a, b, REL_BLOCK)
+    del leaves, leaves_p, got, ref
+    # #6 with a drop-path branch scale: samples 0 and 3 dropped
+    scale = torch.tensor([0.0, keep_scale(0.1), keep_scale(0.1), 0.0], device=dev)
+    xb = x.reshape(TRAIN_BATCH, 2000, c)
+    bargs = (xb,) + args[1:]
+    errs["block"] = 0.0
+    for label, dk in (("drop-path", (None, 0.0, 0.0)),
+                      ("drop-path + dropout 0.1", ((11, -22, 2**31 - 5), 0.1, 0.1))):
+        bname = f"fused block with a {label} branch scale (b4 x 2000, samples 0 and 3 at 0)"
+        kw = dict(row0=0, branch_scale=scale)
+        xo, t = fused_block_mlp(*bargs, *dk, **kw)
+        xo_p, t_p = fused_block_plain(*bargs, *dk, **kw)
+        torch.cuda.synchronize()
+        errs["block"] = max(errs["block"], check_close(f"{bname} tap t", t, t_p, BLOCK_TOL),
+                            check_close(f"{bname} x_out", xo, xo_p, BLOCK_TOL))
+        cot = tuple(torch.randn(xo.shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+        leaves = [a.clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+                  for a in bargs]
+        g1 = torch.autograd.grad(fused_block_mlp(*leaves, *dk, **kw), leaves[:9], cot)
+        leaves_p = [a.clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+                    for a in bargs]
+        g2 = torch.autograd.grad(fused_block_plain(*leaves_p, *dk, **kw), leaves_p[:9], cot)
+        check_rel(f"{bname} grad x vs autograd of plain", g1[0], g2[0], REL_BLOCK)
+        check_rel(f"{bname} grad w1 vs autograd of plain", g1[3], g2[3], REL_BLOCK)
+        del leaves, leaves_p, g1, g2
+    del args, bargs
+    # #11 and #11b with no bias at b4 T 2000 (an ALiBi-free finetune step)
+    b, t, hh = TRAIN_BATCH, 2000, 16
+    bname = f"bias attention, no bias, b{b} T {t}"
+    q, k, v = bias_attention_inputs(gen, b, hh, t, dev)
+    out, lse = bias_attention_forward(q, k, v, None, None, with_lse=True)
+    out_p = bias_attention_plain(q.float(), k.float(), v.float(), None, None)
+    torch.cuda.synchronize()
+    errs["bias_attention"] = check_close(f"{bname} out", out, out_p, ATTN_TOL)
+    dout = torch.randn((b, t, hh, 64), generator=gen, device=dev).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * hh, t)
+    bwd = (q, k, v, dout, lse, delta, None, None)
+    dq, _ = bias_attention_dq(*bwd)
+    dk_, dv = bias_attention_dkv(*bwd)
+    want = bias_attention_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    errs["bias_dq"] = check_close(f"{bname} dq", dq, want[0], BWD_TOL)
+    errs["bias_dkv"] = max(check_close(f"{bname} dk", dk_, want[1], BWD_TOL),
+                           check_close(f"{bname} dv", dv, want[2], BWD_TOL))
+    check_heads(bname, ("dq", "dk", "dv"), [a.transpose(1, 2) for a in (dq, dk_, dv)],
+                [a.transpose(1, 2) for a in want[:3]], REL_HEAD, ulps=2)
+    qkv = torch.stack((q, k, v), dim=2)
+    leaves, leaves_p = [qkv.clone().requires_grad_()], [qkv.float().requires_grad_()]
+    got = torch.autograd.grad(bias_flash_attention(*leaves[0].unbind(2)), leaves, dout)
+    ref = torch.autograd.grad(bias_attention_plain(*leaves_p[0].unbind(2)), leaves_p,
+                              dout.float())
+    check_rel(f"{bname} d qkv vs autograd of plain", got[0], ref[0], REL_QKV)
+    del q, k, v, qkv, leaves, leaves_p, got, ref, want, dq, dk_, dv
+    torch.cuda.empty_cache()
+    return errs
+
+
+def option_kernel_times(dev):
+    """16t. #8 with and without dropout at N 8000, C 1024, M 4096 beside
+    F.linear x 2; #6 with the drop-path scale at N 8000; #11 with no bias
+    at b32 T 2000 beside #1 at the same shape and SDPA without a mask (also
+    by device time); #11b's dq and dk/dv routes at b4 T 2000 beside SDPA's
+    backward alone. Returns the rows."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_btc
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_bwd_plain, bias_attention_dkv, bias_attention_dq, bias_attention_forward,
+        bias_attention_plain,
+    )
+    from animal2vec_tpu_torch.ops.dropout import keep_scale
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        fused_block_mlp, fused_block_plain, fused_mlp, fused_mlp_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rows = {}
+
+    def row(key, ms, plain_ms, library_ms, bnd, **extra):
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        print(f"{key}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]})"
+              + "".join(f", {k} {ms_text(v)}" for k, v in extra.items()))
+
+    n, c, m = TRAIN_BATCH * 2000, 1024, 4096
+    args = block_inputs(gen, n, c, m, dev)
+    x, w1l, w2l, b1, b2 = args[0], args[3].t().contiguous(), args[4].t().contiguous(), \
+        args[5], args[6]
+    lib = lambda: F.linear(F.gelu(F.linear(x, w1l, b1.to(x.dtype))), w2l, b2.to(x.dtype))  # noqa
+    for label, drop in (("", ()), (f" + dropout {OPTION_ACT_DROP}",
+                                   ((5, 6), OPTION_ACT_DROP, 0))):
+        call = lambda: fused_mlp(x, w1l, w2l, b1, b2, *drop)  # noqa: E731
+        row(f"fused MLP{label}, N {n} a2v-large widths", cuda_ms(call),
+            cuda_ms(lambda: fused_mlp_plain(x, w1l, w2l, b1, b2, *drop), iters=3), cuda_ms(lib),
+            mlp_bound(n, c, m), device_ms=device_ms(call, "gemm_bf16_sm90_kernel"),
+            library_device_ms=device_ms(lib, ""))
+    xb = x.reshape(TRAIN_BATCH, 2000, c)
+    scale = torch.tensor([0.0, keep_scale(0.1), keep_scale(0.1), 0.0], device=dev)
+    call = lambda: fused_block_mlp(xb, *args[1:], branch_scale=scale)  # noqa: E731
+    row(f"fused block + drop-path scale, N {n}", cuda_ms(call),
+        cuda_ms(lambda: fused_block_plain(xb, *args[1:], branch_scale=scale), iters=3), None,
+        block_bound(n))
+    del args, x, xb
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        b, hh, t = 32, 16, 2000
+        q, k, v = bias_attention_inputs(gen, b, hh, t, dev)
+        qkv_btc = torch.stack((q, k, v), dim=2).reshape(b, t, 3 * hh * 64)
+        from animal2vec_tpu_torch.ops.alibi import alibi_slopes
+
+        slopes = torch.from_numpy(alibi_slopes(hh).copy()).to(dev)
+        pos = torch.arange(t, dtype=torch.int32, device=dev)[None]
+        qs, ks, vs = (a.transpose(1, 2) for a in (q, k, v))
+        call = lambda: bias_attention_forward(q, k, v)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs)  # noqa: E731
+        alibi = lambda: alibi_flash_attention_btc(qkv_btc, hh, slopes, pos)  # noqa: E731
+        flops = 4 * b * hh * t * t * 64
+        dev_ms = device_ms(call, "bias_attention_kernel")
+        row(f"bias attention, no bias, b{b} T {t}", cuda_ms(call),
+            cuda_ms(lambda: bias_attention_plain(q[:4], k[:4], v[:4]), iters=3) * b / 4,
+            cuda_ms(sdpa), bias_attention_bound(b, hh, t, bias_planes=0),
+            device_ms=dev_ms, library_device_ms=device_ms(sdpa, ""),
+            alibi_serve_ms=cuda_ms(alibi))
+        rows[f"bias attention, no bias, b{b} T {t}"]["tflops"] = per_ms(flops, dev_ms)
+        del q, k, v, qs, ks, vs, qkv_btc
+    torch.cuda.empty_cache()
+    b = TRAIN_BATCH
+    q, k, v = bias_attention_inputs(gen, b, hh, t, dev)
+    out, lse = bias_attention_forward(q, k, v, None, None, with_lse=True)
+    dout = torch.randn((b, t, hh, 64), generator=gen, device=dev).to(torch.bfloat16)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * hh, t)
+    bwd = (q, k, v, dout, lse, delta, None, None)
+    plain = cuda_ms(lambda: bias_attention_bwd_plain(*bwd), iters=3)
+    qs, ks, vs = (a.transpose(1, 2).detach().clone().requires_grad_() for a in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs)
+    g = dout.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), g, retain_graph=True))
+    bounds = attention_bounds(b, hh, t)
+    for what, fn, kernel in (("dq", bias_attention_dq, "bias_attention_dq"),
+                             ("dkv", bias_attention_dkv, "bias_attention_dkv")):
+        call = lambda: fn(*bwd)  # noqa: E731
+        dev_ms = device_ms(call, kernel)
+        row(f"bias attention {what}, no bias, b{b} T {t}", cuda_ms(call), plain, lib_bwd,
+            bounds[what], device_ms=dev_ms)
+        rows[f"bias attention {what}, no bias, b{b} T {t}"]["tflops"] = tflops(
+            what, b, hh, t, dev_ms)
+    print(f"  (plain: bias_attention_bwd_plain computes dq, dk, dv in one call; library: "
+          f"SDPA's backward alone without a mask, {lib_bwd:.3f} ms)")
+    del q, k, v, qs, ks, vs, o, out, lse, dout, bwd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def option_cfg(variant):
+    from animal2vec_tpu_torch.config import FinetuneConfig
+
+    return dataclasses.replace(FinetuneConfig(), **OPTION_VARIANTS[variant])
+
+
+def phase_option_model(variant, card, dev):
+    """16a. One variant at a2v-large width: the bf16 serving model (seeded
+    weights, serving cast) at b2 kernel path against plain path (MODEL_TOL)
+    with one serving launch set per block and no plain version on a CUDA
+    tensor; the b32 forward's clips/s and launches; then three b4 finetune
+    steps of the finetune_100 recipe with drop-path 0.1 (and activation
+    dropout 0.1) from the first step after the freeze gate: finite loss and
+    gradients, one training launch set per block that layerdrop kept, the
+    median ms; then at b1 with the rates of the phase's comparison (drop-path
+    and activation dropout on, the others 0) the kernel path's gradients
+    against the plain path's (MODEL_GRAD_TOL per tensor). Returns the
+    launches of the serving and training runs."""
+    from animal2vec_tpu_torch.config import FinetuneTrainConfig
+    from animal2vec_tpu_torch.models.finetune import build_finetune_model
+    from animal2vec_tpu_torch.models.modules import AltBlock
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.finetune_step import finetune_loss, make_finetune_train_step
+    from animal2vec_tpu_torch.train.state import FinetuneState
+
+    cfg = option_cfg(variant)
+    label = f"16 variant {variant}"
+    total = dict.fromkeys(_counted(), 0)
+    model = build_model(cfg, dev)
+    src = torch.from_numpy(np.random.default_rng(SEED + 60).normal(
+        size=(2, WAV_LEN)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        reset_counts()
+        with PlainSpy() as spy:
+            got = model(src)["encoder_out"]
+        launched = counts()
+        with PlainOps():
+            want = model(src)["encoder_out"]
+    want_launches = dict.fromkeys(_counted(), 0)
+    want_launches.update({k: cfg.n_blocks for k in OPTION_SERVE_KEYS[variant]})
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"{label} serving b2: logits {tuple(got.shape)}, kernel vs plain path max abs "
+          f"{err:.3e} (tolerance {MODEL_TOL}); launches {launch_line(launched)}; plain versions "
+          f"called on CUDA tensors: {spy.cuda_calls}")
+    if not torch.isfinite(got).all() or not err <= MODEL_TOL:
+        raise AssertionError(f"{label}: serving logits disagree with the plain path")
+    if launched != want_launches or spy.cuda_calls:
+        raise AssertionError(f"{label}: serving launches {launched} != {want_launches}")
+    total = {k: total[k] + launched[k] for k in total}
+    b32 = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
+        size=(32, WAV_LEN)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(b32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        iters = 3
+        for _ in range(iters):
+            model(b32)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} serving b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch), peak "
+          f"memory {peak:.2f} GiB on {card}; launches {launch_line(launched)} over {iters}")
+    if launched != {k: iters * v for k, v in want_launches.items()}:
+        raise AssertionError(f"{label}: b32 launches {launched}")
+    total = {k: total[k] + launched[k] for k in total}
+    serve_ms = dt * 1e3
+    del model, b32, got, want
+    torch.cuda.empty_cache()
+
+    base = FinetuneTrainConfig()
+    tcfg = dataclasses.replace(base, drop_path=OPTION_DROP_PATH,
+                               activation_dropout=OPTION_ACT_DROP,
+                               optimization=dataclasses.replace(base.optimization,
+                                                                update_freq=1))
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
+    state = FinetuneState.create(model, tcfg)
+    state.step = tcfg.freeze_finetune_updates
+    step_fn = make_finetune_train_step(tcfg)
+    batch = train_batch(cfg, dev)
+    rngs = Rngs.from_seed(SEED, dev)
+    ran = [0]
+    for mod in model.modules():
+        if isinstance(mod, AltBlock):
+            mod.register_forward_pre_hook(lambda module, a: ran.__setitem__(0, ran[0] + 1))
+    keys = OPTION_TRAIN_KEYS[variant]
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        ran[0] = 0
+        reset_counts()
+        t0 = time.perf_counter()
+        with PlainSpy() as spy:
+            metrics = step_fn(state, batch, rngs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        loss = float(metrics["loss"])
+        want_step = dict.fromkeys(_counted(), 0)
+        want_step.update({k: ran[0] for k in keys})
+        print(f"{label} train step {i + 1}: loss {loss:.5f}, {times[-1]:.1f} ms; launches "
+              f"{launch_line(launched)} (expected {ran[0]} each of {', '.join(keys)}: "
+              f"{cfg.n_blocks} blocks less {cfg.n_blocks - ran[0]} dropped by layerdrop)")
+        if not np.isfinite(loss) or launched != want_step or ran[0] == 0 or spy.cuda_calls:
+            raise AssertionError(f"{label}: train step {launched} != {want_step}, loss {loss}")
+        for n, p in model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{label}: missing or non-finite gradient {n}")
+        total = {k: total[k] + launched[k] for k in total}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_ms = float(np.median(times))
+    print(f"{label} train step b{TRAIN_BATCH} (finetune_100, drop_path {OPTION_DROP_PATH}, "
+          f"activation_dropout {OPTION_ACT_DROP}): median {train_ms:.1f} ms of "
+          f"{[round(t, 1) for t in times]}, peak memory {peak:.2f} GiB on {card}")
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+
+    gcfg = dataclasses.replace(
+        tcfg, freeze_finetune_updates=0, apply_mask=False, mask_channel_prob=0.0, dropout=0.0,
+        attention_dropout=0.0, layerdrop=0.0, source_mixup=-1.0)
+    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=gcfg)
+    mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=2, seed=SEED + 61).items()}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = finetune_loss(model, mb, Rngs.from_seed(SEED + 62, dev), 0, gcfg, train=True)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                                      for n, p in model.named_parameters()
+                                      if p.grad is not None}
+
+    loss_k, g_k = grads()
+    with PlainOps():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    rels = {n: rel_norm(g_k[n], g_p[n]) for n in g_p if g_p[n].norm() > 0}
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"{label} gradients b2 (drop-path {OPTION_DROP_PATH}, activation dropout "
+          f"{OPTION_ACT_DROP}, the same draws), kernel vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; relative norm per tensor max {worst[0][1]:.3e}, median "
+          f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors (tolerance "
+          f"{MODEL_GRAD_TOL}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
+    if set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
+        raise AssertionError(f"{label}: the two paths give gradients to different parameters")
+    if not max(rels.values()) <= MODEL_GRAD_TOL:
+        raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+    return total, {"serve_b32_ms": serve_ms, "train_b4_ms": train_ms}
+
+
+def phase_option_pretrain(card, dev):
+    """16b. One a2v-large pretrain step of variant P at the v5e micro-batch
+    (b8 x clone 12, update_freq 1) with the A.7 dropouts (activation 0.1,
+    input 0.1, layerdrop 0.05, prenet layerdrop 0.05) and drop-path 0.1:
+    finite loss and gradients, the launches, the ms of a second step and the
+    peak memory. Returns the launches."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step
+    from animal2vec_tpu_torch.train.state import PretrainState
+
+    base = _pretrain_v5e()
+    mcfg = dataclasses.replace(base.model, **OPTION_VARIANTS["P"],
+                               start_drop_path_rate=OPTION_DROP_PATH,
+                               end_drop_path_rate=OPTION_DROP_PATH)
+    cfg = dataclasses.replace(base, model=mcfg, activation_dropout=0.1, dropout_input=0.1,
+                              layerdrop=0.05, prenet_layerdrop=0.05)
+    torch.cuda.empty_cache()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    state = PretrainState.create(model, cfg)
+    state.step = cfg.optimization.warmup_updates
+    step_fn = make_pretrain_train_step(cfg)
+    data = pretrain_batch(cfg, dev, V5E_BATCH, SEED + 63)
+    total = dict.fromkeys(_counted(), 0)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        with PlainSpy() as spy:
+            metrics = step_fn(state, data, Rngs.from_seed(SEED + i, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launched = counts()
+        loss = float(metrics["loss"])
+        print(f"16b a2v-large pretrain step {i + 1}, variant P, b{V5E_BATCH} x clone "
+              f"{cfg.clone_batch} (activation 0.1, input 0.1, layerdrop 0.05, prenet layerdrop "
+              f"0.05, drop-path {OPTION_DROP_PATH}): loss {loss:.6f}, {times[-1]:.1f} ms; "
+              f"launches {launch_line(launched)}")
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is not None and not torch.isfinite(p.grad).all()]
+        if not np.isfinite(loss) or bad or spy.cuda_calls or not launched["mlp"]:
+            raise AssertionError(f"16b: loss {loss}, non-finite gradients {bad[:3]}, plain calls "
+                                 f"{spy.cuda_calls}, launches {launched}")
+        total = {k: total[k] + launched[k] for k in total}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"16b variant P pretrain step: {times[-1]:.1f} ms (second step), peak memory "
+          f"{peak:.2f} GiB (torch.cuda.max_memory_allocated) on {card}")
+    del state, model, step_fn, data
+    torch.cuda.empty_cache()
+    return total, {"pretrain_ms": times[-1], "pretrain_peak_gib": peak}
+
+
+def phase_pcen(card, dev):
+    """16c. The PCEN scan (the smoother and PCEN at a2v-large's layer 0: 127
+    channels, T 80 000 a 10-s clip) at b32 serving (forward, no gradient)
+    and b4 training (forward + backward): ms and the peak memory above the
+    input's. Not a kernel: torch ops."""
+    from animal2vec_tpu_torch.models.frontend import PCEN
+
+    pcen = PCEN(127).to(dev)
+    rows = {}
+    for label, b, train in (("b32 serving", 32, False), ("b4 training", 4, True)):
+        x = torch.rand((b, WAV_LEN, 127), generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev).to(torch.bfloat16)
+        g = torch.ones_like(x)
+
+        def call():
+            if train:
+                xx = x.detach().requires_grad_()
+                torch.autograd.grad(pcen(xx), [xx] + list(pcen.parameters()), g)
+            else:
+                with torch.no_grad():
+                    pcen(x)
+
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = cuda_ms(call, iters=3, warmup=0)
+        rows[label] = {"ms": ms, "peak_gib": peak}
+        print(f"16c PCEN (smoother scan + norm) {label}, (B, T, C) = ({b}, {WAV_LEN}, 127): "
+              f"{ms:.2f} ms{' forward + backward' if train else ''}, peak memory {peak:.2f} GiB "
+              f"above its input on {card}")
+        del x, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_options(card, dev):
+    """16. The encoder's options: the changed kernels alone, their times,
+    variants P and N at a2v-large width (serving, finetuning, gradients),
+    the variant P pretrain step and the PCEN scan. Returns (launches by
+    kernel key, the max abs errors, the time rows, the end-to-end rows)."""
+    errs = phase_option_kernels(dev)
+    rows = option_kernel_times(dev)
+    launches = dict.fromkeys(_counted(), 0)
+    e2e = {}
+    for variant in OPTION_VARIANTS:
+        got, e2e[variant] = phase_option_model(variant, card, dev)
+        launches = {k: launches[k] + got[k] for k in launches}
+    got, e2e["pretrain"] = phase_option_pretrain(card, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    e2e["pcen"] = phase_pcen(card, dev)
+    print(f"16 launches over the phase's main-path runs: {launch_line(launches)}")
+    print(json.dumps({"phase16": e2e}))
+    return launches, errs, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3626,6 +4149,8 @@ def main() -> int:
     tokens = phase_tokens(card, dev)
     config_launches = phase_config_cli(card, dev)
     print(json.dumps({"phase15": {"remat": remat_rows, "tokens": tokens}}))
+    torch.cuda.empty_cache()
+    option_launches, option_errs, option_rows = phase_options(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -3769,6 +4294,35 @@ def main() -> int:
     by_name["bias_attention_bwd_single"]["max_abs_err"] = max(
         by_name["bias_attention_bwd_single"]["max_abs_err"], drop_errs["single"],
         drop_errs["dq"], drop_errs["dkv"])
+    # phase 16: the encoder options' main-path runs (variants P and N serving
+    # and finetuning, the variant P pretrain step) and the changed kernels'
+    # rows; #11b's dq and dk/dv routes get their first main-path launches
+    # (the ALiBi-free finetune step at T 2000)
+    for name, key in (("alibi_flash_attention_serve", "serve_attention"),
+                      ("alibi_flash_attention", "attention"), ("alibi_attention_dq", "dq"),
+                      ("alibi_attention_dkv", "dkv"), ("fused_block", "block"),
+                      ("fused_mlp", "mlp"), ("bias_flash_attention", "bias_attention")):
+        by_name[name]["launches_options"] = option_launches[key]
+        by_name[name]["launches"] += option_launches[key]
+    n16 = TRAIN_BATCH * 2000
+    for name, key, prefix in (
+            ("fused_mlp", f"fused MLP, N {n16} a2v-large widths", "a2v"),
+            ("fused_mlp", f"fused MLP + dropout {OPTION_ACT_DROP}, N {n16} a2v-large widths",
+             "a2v_dropout"),
+            ("fused_block", f"fused block + drop-path scale, N {n16}", "drop_path"),
+            ("bias_flash_attention", "bias attention, no bias, b32 T 2000", "no_bias_b32")):
+        by_name[name].update({f"{prefix}_{k}": v for k, v in option_rows[key].items()})
+    for name, key in (("fused_mlp", "mlp"), ("fused_block", "block"),
+                      ("bias_flash_attention", "bias_attention")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], option_errs[key])
+    for what, line in (("dq", 1287), ("dkv", 941)):
+        kernels.append(dict(
+            {"name": f"bias_attention_{what}", "route": "cuda",
+             "source": "animal2vec_tpu_torch/csrc/bias_attention_bwd.cu",
+             "replaces": f"{fa}:{line} (_flash_attention_bwd_{what})",
+             "launches": option_launches[f"bias_{what}"],
+             "max_abs_err": max(option_errs[f"bias_{what}"], bias_train[what])},
+            **option_rows[f"bias attention {what}, no bias, b{TRAIN_BATCH} T 2000"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

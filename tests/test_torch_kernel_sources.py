@@ -51,5 +51,9 @@ def test_key_positions_and_row_offset_arguments():
     sig = SIGNATURES["a2v_alibi_attention_fwd"]
     assert sig[9] is ctypes.c_void_p and sig[10] is ctypes.c_int
     block = _params("a2v_fused_block")
-    assert block[-2:] == ["row0", "stream"]
-    assert SIGNATURES["a2v_fused_block"][-2] is ctypes.c_uint
+    assert block[-4:] == ["row0", "branch_scale", "rows_per_scale", "stream"]
+    assert SIGNATURES["a2v_fused_block"][-4] is ctypes.c_uint
+    assert SIGNATURES["a2v_fused_block"][-3:-1] == (ctypes.c_void_p, ctypes.c_int)
+    mlp = _params("a2v_fused_mlp")
+    assert mlp[-6:] == ["seed_act", "seed_fc2", "thresh", "keep_scale", "row0", "stream"]
+    assert SIGNATURES["a2v_fused_mlp"][-2] is ctypes.c_uint

@@ -116,6 +116,18 @@ def test_config_preset_matches_finetune_100_yaml():
         "init_extra_token_zero": audio_cfg.init_extra_token_zero,
         "remat": m.remat, "remat_scope": m.remat_scope, "remat_frontend": m.remat_frontend,
         "remat_decoder": m.remat_decoder,
+        "sinc_input": audio_cfg.sinc_input,
+        "apply_window_to_root": audio_cfg.apply_window_to_root,
+        "extractor_mode": audio_cfg.extractor_mode,
+        "conv_pos_pre_ln": audio_cfg.conv_pos_pre_ln,
+        "layer_norm_first": m.layer_norm_first, "norm_affine": m.norm_affine,
+        "use_alibi_encoder": audio_cfg.use_alibi_encoder,
+        "learned_alibi_scale_per_head": audio_cfg.learned_alibi_scale_per_head,
+        # a finetune run's trunk takes finetune.drop_path (build_finetune_encoder_cfg)
+        "start_drop_path_rate": jcfg.finetune.drop_path,
+        "end_drop_path_rate": jcfg.finetune.drop_path,
+        "prenet_start_drop_path_rate": audio_cfg.start_drop_path_rate,
+        "prenet_end_drop_path_rate": audio_cfg.end_drop_path_rate,
     }
     ours = FinetuneConfig()
     assert set(expected) == {f.name for f in dataclasses.fields(ours)}

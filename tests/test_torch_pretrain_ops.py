@@ -73,6 +73,8 @@ def test_pretrain_config_matches_the_a2v_recipe():
         ema_anneal_end_step=m.ema_anneal_end_step, ema_encoder_only=m.ema_encoder_only,
         encoder_dropout=m.encoder_dropout, attention_dropout=m.attention_dropout,
         post_mlp_drop=m.post_mlp_drop, prenet_dropout=audio.prenet_dropout,
+        activation_dropout=m.activation_dropout, dropout_input=m.dropout_input,
+        layerdrop=m.layerdrop, prenet_layerdrop=audio.prenet_layerdrop,
         source_mixup=mix.source_mixup, mixup_prob=mix.mixup_prob, same_mixup=mix.same_mixup,
         mixing_window_length=mix.mixing_window_length, gain_mode=mix.gain_mode,
         teacher_matmul_impl=m.teacher_matmul_impl, cls_loss=m.cls_loss, loss_beta=m.loss_beta,

@@ -106,7 +106,15 @@ def test_load_config_matches_jax(name):
         num_extra_tokens=audio.num_extra_tokens,
         init_extra_token_zero=audio.init_extra_token_zero, remat=m.remat,
         remat_scope=m.remat_scope, remat_frontend=m.remat_frontend,
-        remat_decoder=m.remat_decoder,
+        remat_decoder=m.remat_decoder, sinc_input=audio.sinc_input,
+        apply_window_to_root=audio.apply_window_to_root, extractor_mode=audio.extractor_mode,
+        conv_pos_pre_ln=audio.conv_pos_pre_ln, layer_norm_first=m.layer_norm_first,
+        norm_affine=m.norm_affine, use_alibi_encoder=audio.use_alibi_encoder,
+        learned_alibi_scale_per_head=audio.learned_alibi_scale_per_head,
+        start_drop_path_rate=ft.drop_path if ft else m.start_drop_path_rate,
+        end_drop_path_rate=ft.drop_path if ft else m.end_drop_path_rate,
+        prenet_start_drop_path_rate=audio.start_drop_path_rate,
+        prenet_end_drop_path_rate=audio.end_drop_path_rate,
         average_top_k_layers=(ft or m).average_top_k_layers, labels=tuple(task.labels()),
         normalize=task.normalize, max_sample_size=task.max_sample_size,
         metric_threshold=crit.metric_threshold, sigma_s=crit.sigma_s,
@@ -149,7 +157,9 @@ def test_load_config_matches_jax(name):
             ema_end_decay=m.ema_end_decay, ema_anneal_end_step=m.ema_anneal_end_step,
             ema_encoder_only=m.ema_encoder_only, encoder_dropout=m.encoder_dropout,
             attention_dropout=m.attention_dropout, post_mlp_drop=m.post_mlp_drop,
-            prenet_dropout=audio.prenet_dropout, source_mixup=mix.source_mixup,
+            prenet_dropout=audio.prenet_dropout, activation_dropout=m.activation_dropout,
+            dropout_input=m.dropout_input, layerdrop=m.layerdrop,
+            prenet_layerdrop=audio.prenet_layerdrop, source_mixup=mix.source_mixup,
             mixup_prob=mix.mixup_prob, same_mixup=mix.same_mixup,
             mixing_window_length=mix.mixing_window_length, gain_mode=mix.gain_mode,
             teacher_matmul_impl=m.teacher_matmul_impl, cls_loss=m.cls_loss,
@@ -219,6 +229,57 @@ def test_refused_key_raises_naming_its_roadmap_item(key):
         recipes.check_classes(tree)
 
 
+A = "model.modalities.audio."
+# the keys that the encoder-options slice moved from REFUSED to MAPPED: key ->
+# (recipe, value, the run's field it reaches)
+MOVED = {
+    "model.start_drop_path_rate": ("a2v_large_pretrain", 0.05,
+                                   lambda r: r.pretrain.model.start_drop_path_rate),
+    "model.end_drop_path_rate": ("a2v_large_pretrain", 0.2,
+                                 lambda r: r.pretrain.model.end_drop_path_rate),
+    "model.norm_affine": ("finetune_100", False, lambda r: r.model.norm_affine),
+    "model.layer_norm_first": ("finetune_100", True, lambda r: r.model.layer_norm_first),
+    "model.activation_dropout": ("a2v_large_pretrain", 0.1,
+                                 lambda r: r.pretrain.activation_dropout),
+    "model.dropout_input": ("a2v_large_pretrain", 0.1, lambda r: r.pretrain.dropout_input),
+    "model.layerdrop": ("a2v_large_pretrain", 0.05, lambda r: r.pretrain.layerdrop),
+    A + "prenet_layerdrop": ("a2v_large_pretrain", 0.05, lambda r: r.pretrain.prenet_layerdrop),
+    A + "start_drop_path_rate": ("finetune_100", 0.05,
+                                 lambda r: r.model.prenet_start_drop_path_rate),
+    A + "end_drop_path_rate": ("finetune_100", 0.1, lambda r: r.model.prenet_end_drop_path_rate),
+    A + "use_alibi_encoder": ("finetune_100", False, lambda r: r.model.use_alibi_encoder),
+    A + "learned_alibi_scale_per_head": ("finetune_100", False,
+                                         lambda r: r.model.learned_alibi_scale_per_head),
+    A + "extractor_mode": ("finetune_100", "default", lambda r: r.model.extractor_mode),
+    A + "conv_pos_pre_ln": ("finetune_100", True, lambda r: r.model.conv_pos_pre_ln),
+    A + "sinc_input": ("finetune_100", False, lambda r: r.model.sinc_input),
+    A + "apply_window_to_root": ("finetune_100", True, lambda r: r.model.apply_window_to_root),
+    A + "sinc_norm": ("finetune_100", "pcen", lambda r: r.model.sinc_norm),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MOVED))
+def test_moved_key_maps(key):
+    """Each key that was refused until the encoder's options were ported
+    (ROADMAP A.8 and the pretraining dropouts of A.7) is mapped now: a
+    value other than the recipe's reaches its field of the run; the trunk's
+    drop-path of a finetune run is ``finetune.drop_path`` at both ends."""
+    assert key in recipes.MAPPED and key not in recipes.REFUSED
+    name, value, field = MOVED[key]
+    run = load_config(str(recipes.RECIPES[name]), [f"{key}={value}"])
+    assert field(run) == value
+    if key == "model.start_drop_path_rate":
+        ft = load_config(str(recipes.RECIPES["finetune_100"]),
+                         [f"{key}={value}", "finetune.drop_path=0.3"])
+        assert (ft.model.start_drop_path_rate, ft.model.end_drop_path_rate) == (0.3, 0.3)
+    if key == A + "extractor_mode":
+        with pytest.raises(ValueError, match="extractor_mode"):
+            load_config(str(recipes.RECIPES[name]), [f"{key}=other"])
+    if key == A + "sinc_norm":
+        with pytest.raises(ValueError, match="sinc_norm"):
+            load_config(str(recipes.RECIPES[name]), [f"{key}=other"])
+
+
 def test_ignored_keys_load_and_unknown_keys_raise(caplog):
     path = str(recipes.RECIPES["finetune_100"])
     base = load_config(path)
@@ -247,7 +308,6 @@ def test_ignored_keys_load_and_unknown_keys_raise(caplog):
     assert pre.task.label_ext == "npz"
 
 
-A = "model.modalities.audio."
 TINY_CLI = [
     "model.depth=2", "model.embed_dim=32", "model.num_heads=4", "model.average_top_k_layers=2",
     A + "prenet_depth=1", A + "conv_pos_depth=2", A + "conv_pos_width=10",
@@ -293,6 +353,71 @@ def test_train_cli_config_tiny_cpu(name, corpus, tmp_path):
     assert load_checkpoint_dir(str(tmp_path / "run"))["step"] == 1
     if name == "finetune_100":
         assert any(f.endswith(".json") for f in os.listdir(tmp_path / "trace"))
+
+
+# every moved key set in a copy of a recipe: the finetune copy takes variant
+# P's options (PCEN, the windowed learnable sinc, the LayerNorm before the
+# positional convs, pre-LN blocks without affine, one ALiBi scale for the
+# heads, drop-path), the pretrain copy variant N's (no ALiBi, a plain first
+# conv, the "default" extractor mode, drop-path) with the A.7 dropouts
+OPTION_COPIES = {
+    "finetune_100": {
+        "model": dict(layer_norm_first=True, norm_affine=False, start_drop_path_rate=0.1,
+                      end_drop_path_rate=0.1),
+        "model.modalities.audio": dict(
+            sinc_norm="pcen", apply_window_to_root=True, conv_pos_pre_ln=True,
+            learned_alibi_scale_per_head=False, start_drop_path_rate=0.05,
+            end_drop_path_rate=0.1),
+        "finetune": dict(drop_path=0.1, activation_dropout=0.1)},
+    "a2v_large_pretrain": {
+        "model": dict(activation_dropout=0.1, dropout_input=0.1, layerdrop=0.2,
+                      start_drop_path_rate=0.0, end_drop_path_rate=0.1),
+        "model.modalities.audio": dict(
+            use_alibi_encoder=False, sinc_input=False, extractor_mode="default",
+            prenet_layerdrop=0.2, start_drop_path_rate=0.1, end_drop_path_rate=0.1)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_COPIES))
+def test_train_cli_config_with_every_option(name, corpus, tmp_path):
+    """A copy of the recipe that sets the moved keys runs one step of
+    ``train_cli --config`` at tiny widths on the CPU (finetune: the
+    variant P encoder; pretrain: variant N with the A.7 dropouts)."""
+    import yaml
+
+    with open(recipes.RECIPES[name]) as f:
+        tree = yaml.safe_load(f)
+    for group, values in OPTION_COPIES[name].items():
+        node = tree
+        for part in group.split("."):
+            node = node.setdefault(part, {})
+        node.update(values)
+    path = tmp_path / f"{name}_options.yaml"
+    path.write_text(yaml.safe_dump(tree))
+    set_keys = {f"{g}.{k}" for g, v in OPTION_COPIES[name].items() for k in v}
+    assert set_keys - {"finetune.drop_path", "finetune.activation_dropout"} <= set(MOVED)
+    extra = []
+    if name.startswith("finetune"):
+        extra = ["dataset.train_subset=train_0", "finetune.average_top_k_layers=2",
+                 "finetune.freeze_finetune_updates=0", "finetune.mask_channel_length=4",
+                 f"task.unique_labels=\"{list(LABELS)}\""]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = train_cli.main(["--config", str(path), "--data", corpus,
+                              "--save-dir", str(tmp_path / "run"), "--max-steps", "1",
+                              "--device", "cpu", *TINY_CLI, *extra])
+    finally:
+        torch.set_num_threads(n)
+    assert np.isfinite(out["train/loss"])
+    run = load_config(str(path), TINY_CLI + extra)
+    enc = run.encoder
+    if name.startswith("finetune"):
+        assert (enc.sinc_norm, enc.layer_norm_first, enc.norm_affine,
+                enc.start_drop_path_rate) == ("pcen", True, False, 0.1)
+    else:
+        assert (enc.use_alibi_encoder, enc.extractor_mode, run.pretrain.layerdrop,
+                run.pretrain.prenet_layerdrop) == (False, "default", 0.2, 0.2)
 
 
 def test_train_cli_suppresses_crashes(tmp_path, caplog):

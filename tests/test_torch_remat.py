@@ -70,11 +70,25 @@ def _pretrain_grads(modality, remat, layer_norm_first=False):
                            if p.grad is not None}
 
 
-def _finetune_grads(remat):
+# the encoder options with their regularizers: variant P (pre-LN blocks
+# without affine, PCEN, the windowed learnable sinc, one ALiBi scale for the
+# heads, the fused MLP's activation dropout) and N (no ALiBi, a plain first
+# conv, the "default" extractor mode), both with drop-path on every block
+OPTIONS = {
+    "P": dict(sinc_norm="pcen", apply_window_to_root=True, conv_pos_pre_ln=True,
+              learned_alibi_scale_per_head=False, layer_norm_first=True, norm_affine=False,
+              prenet_start_drop_path_rate=0.2, prenet_end_drop_path_rate=0.3),
+    "N": dict(use_alibi_encoder=False, sinc_input=False, extractor_mode="default"),
+}
+
+
+def _finetune_grads(remat, options=None):
     cfg = dataclasses.replace(FinetuneConfig(conv_layers=TINY_LAYERS, average_top_k_layers=3,
-                                             labels=("a", "b", "c", "d"), **TINY), **remat)
+                                             labels=("a", "b", "c", "d"), **TINY), **remat,
+                              **OPTIONS.get(options, {}))
     train = dataclasses.replace(FinetuneTrainConfig(), freeze_finetune_updates=0,
-                                feature_grad_mult=1.0, mask_channel_length=4, layerdrop=0.2)
+                                feature_grad_mult=1.0, mask_channel_length=4, layerdrop=0.2,
+                                drop_path=0.3 if options else 0.0)
     model = build_finetune_model(cfg, seed=3, device="cpu", train=train)
     rng = np.random.default_rng(6)
     batch = {"source": torch.from_numpy(rng.normal(size=(2, 800)).astype(np.float32)),
@@ -99,7 +113,8 @@ def references():
     pre-LN) and the finetune gradients."""
     return {"AUDIO": _pretrain_grads("AUDIO", OFF), "IMAGE": _pretrain_grads("IMAGE", OFF),
             "IMAGE pre-LN": _pretrain_grads("IMAGE", OFF, layer_norm_first=True),
-            "finetune": _finetune_grads(OFF)}
+            "finetune": _finetune_grads(OFF),
+            **{f"finetune {v}": _finetune_grads(OFF, v) for v in OPTIONS}}
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -120,6 +135,16 @@ def test_image_pretrain_remat_is_bit_exact(variant, pre_ln, references):
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_finetune_remat_is_bit_exact(variant, references):
     _assert_same(_finetune_grads(VARIANTS[variant]), references["finetune"])
+
+
+@pytest.mark.parametrize("variant", ["attn", "block"])
+@pytest.mark.parametrize("options", sorted(OPTIONS))
+def test_encoder_options_remat_is_bit_exact(variant, options, references):
+    """Drop-path's per-sample draws and the pre-LN fused MLP's two hash
+    seeds are drawn before the checkpointed region too: bit for bit."""
+    loss, grads = _finetune_grads(VARIANTS[variant], options)
+    _assert_same((loss, grads), references[f"finetune {options}"])
+    assert not torch.equal(loss, references["finetune"][0])
 
 
 def test_a_draw_inside_the_region_would_differ(references, monkeypatch):

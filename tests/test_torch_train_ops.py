@@ -354,5 +354,7 @@ def test_train_preset_matches_finetune_100_yaml():
         assert getattr(ours.optimization, f.name) == (tuple(want) if f.name == "adam_betas"
                                                       else want), f.name
     assert ft.sample_rate == jcfg.task.sample_rate
-    with pytest.raises(NotImplementedError):
-        FinetuneTrainConfig(drop_path=0.1)
+    # drop-path is ported; update_alibi=False is refused (JAX reads it nowhere)
+    assert FinetuneTrainConfig(drop_path=0.1).drop_path == 0.1
+    with pytest.raises(NotImplementedError, match="reads nowhere"):
+        FinetuneTrainConfig(update_alibi=False)
