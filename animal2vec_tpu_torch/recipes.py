@@ -227,6 +227,7 @@ IGNORED: Dict[str, str] = {
                        "port runs its own kernels",
     _A + "mask_prob_min": _UNREAD,
     _A + "mask_prob_adjust": "the audio span mask does not read it (in JAX too)",
+    _A + "inverse_mask": "the audio span mask does not read it (in JAX too)",
     _A + "add_masks": _UNREAD,
     _A + "remove_masks": _UNREAD,
     _A + "ema_local_encoder": _UNREAD,
@@ -276,7 +277,6 @@ REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
     "model.final_dropout": (A7, None, "pretrain"),
     "model.metric_threshold": (A7, None, "pretrain"),
     "model.mixup.target_mixup": (A7, None, "pretrain"),
-    _A + "inverse_mask": (A7, None, "pretrain"),
     _A + "keep_masked_pct": (A7, None, "pretrain"),
     _A + "mask_dropout": (A7, None, "pretrain"),
     _A + "encoder_zero_mask": (A7, None, "pretrain"),
