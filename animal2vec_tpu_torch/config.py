@@ -112,6 +112,9 @@ class FinetuneConfig:
     # LayerNorm after the trunk), and LayerNorms with or without affine
     layer_norm_first: bool = False
     norm_affine: bool = True
+    # a layer's tap: the MLP output, or with end_of_block_targets the
+    # block's output (model.end_of_block_targets; finetuning reads it too)
+    end_of_block_targets: bool = False
     # drop-path, linspace(start, end, depth) over the trunk's blocks (a
     # finetune run takes finetune.drop_path at both ends) and over the
     # prenet's; the identity in evaluation
@@ -314,6 +317,8 @@ class FinetuneTrainConfig:
 
     # finetune.*: freeze gate, frontend gradient, masking as regularization
     freeze_finetune_updates: int = 10_000
+    # the pretraining linear probe's weights as the head (train/build.py)
+    load_pretrain_weights: bool = False
     feature_grad_mult: float = 0.0
     apply_mask: bool = True
     mask_prob: float = 0.825
@@ -372,57 +377,98 @@ class DecoderConfig:
     decoder_layers: int = 5
     input_dropout: float = 0.1
     decoder_residual: bool = True
+    # the projection head: projection_layers - 1 Linear + exact GELU layers
+    # (the first widening by projection_ratio), then the output Linear
+    projection_layers: int = 1
+    projection_ratio: float = 2.0
 
     def __post_init__(self):
         if self.decoder_dim % self.decoder_groups:
             raise ValueError(f"decoder_dim {self.decoder_dim} is not a multiple of "
                              f"decoder_groups {self.decoder_groups}")
+        if self.projection_layers < 1:
+            raise ValueError(f"projection_layers={self.projection_layers} must be >= 1")
 
 
 @dataclass(frozen=True)
 class PretrainConfig:
     """data2vec-2 pretraining (student / EMA-teacher masked regression): the
     encoder ``model`` (a ``FinetuneConfig`` for audio, an ``ImageConfig``
-    for images), its modality's decoder, and the fields that the JAX
-    ``pretrain_loss``, ``PretrainState`` and ``build_optimizer`` read. The
-    defaults are what ``load_config("animal2vec_tpu/configs/a2v_large_pretrain.yaml")``
+    for images), its modality's decoder and an optional shared decoder, and
+    the fields that the JAX ``pretrain_loss``, ``PretrainState`` and
+    ``build_optimizer`` read. The defaults are what
+    ``load_config("animal2vec_tpu/configs/a2v_large_pretrain.yaml")``
     resolves to (``tests/test_torch_pretrain_ops.py`` compares them field by
     field); ``vit_b16`` is the image cell.
+
+    Targets: the teacher's last k taps (a layer's tap is its MLP output, or
+    its block output with the encoder config's ``end_of_block_targets``),
+    each normalized in fp32 by the per-layer flags (batch, instance over
+    time, layer over channels, in that order), averaged, then normalized by
+    ``layer_norm_targets`` and ``instance_norm_targets``
+    (``data2vec2.py:494-523``). The regression (weight ``d2v_loss``) is the
+    squared error times ``loss_scale`` (None: 1/sqrt(C)), or with
+    ``loss_beta`` > 0 the smooth L1 loss, at the masked tokens, one term per
+    decoder: the shared one first, then the modality's (``decoder`` may be
+    None when ``shared_decoder`` is given). With extra tokens and
+    ``cls_loss`` > 0 the output at the last extra token also regresses the
+    time-mean target; with ``recon_loss`` > 0 (images) the modality
+    decoder's output through ``recon_proj`` regresses the normalized pixel
+    patches. ``with_labels`` adds the linear probe on the detached top-k tap
+    average (the focal loss; JAX's label-smoothed NLL branch fails on
+    either label layout the loader gives, so it is refused, ROADMAP C),
+    with ``final_dropout``, the metrics at ``metric_threshold`` and, with
+    ``target_mixup``, the mixed labels. ``loss_weights`` ((name, weight)
+    pairs, ``criterion.loss_weights``) scales the terms by name before the
+    division by the sample size.
+
+    Masking: spans for audio (``mask_dropout`` lowers their count), 2-D
+    blocks for images (``mask_prob_adjust`` more block seeds,
+    ``inverse_mask`` the complement, both read for images only, as in JAX);
+    ``keep_masked_pct`` of the masked tokens stay in the student's keep-set
+    (with their unmasked values) and leave the targets; with
+    ``encoder_zero_mask`` False the masked steps that the audio positional
+    convs see are noise-filled; ``local_grad_mult`` scales the frontend's
+    gradient (0 stops it).
 
     Refused: k > depth (``average_top_k_layers``: the JAX streamed teacher
     sums the taps of every layer but divides by k, so its targets come out
     at depth / k of the stacked average; the port averages the last k
     taps) and the int8 ``matmul_impl`` modes for the student (serving-only);
     the EMA teacher alone may run them (``teacher_matmul_impl``). The
-    regression is the squared error times ``loss_scale`` (None:
-    1/sqrt(C)), or with ``loss_beta`` > 0 the smooth L1 loss, at the
-    masked tokens; with extra tokens and ``cls_loss`` > 0
-    the output at the last extra token also regresses the time-mean target.
-    The fields that take one value in both recipes are not fields: the
-    targets are the instance-normed taps (per layer, over time) averaged and
-    not normalized again; no reconstruction term and no linear probe
-    (``task.with_labels`` false); masked tokens are zeroed before the
-    student; and the frontend's full gradient (``recipes.REFUSED`` names
-    the ROADMAP items). The student's dropouts are the recipe's:
+    student's dropouts are the recipe's:
     ``encoder_dropout``, ``attention_dropout``, ``activation_dropout`` and
     ``post_mlp_drop`` in every block, ``prenet_dropout`` before the prenet,
     ``dropout_input`` after it, ``layerdrop`` over the trunk's blocks and
     ``prenet_layerdrop`` over the prenet's, and the model's drop-path
-    rates; the teacher runs without them."""
+    rates; the teacher runs without them. ``min_target_var`` and
+    ``min_pred_var`` are the training loop's collapse floors."""
 
     # the recipe's encoder; its serving fields (clip length, event
     # threshold) keep the JAX defaults, as the recipe resolves them
     model: Union[FinetuneConfig, ImageConfig] = FinetuneConfig(max_sample_size=None,
                                                                metric_threshold=0.25)
-    decoder: DecoderConfig = DecoderConfig(768, 16, 7, 4, 0.1)
+    decoder: Optional[DecoderConfig] = DecoderConfig(768, 16, 7, 4, 0.1)
+    shared_decoder: Optional[DecoderConfig] = None
     clone_batch: int = 12
     # masking (model.modalities.<modality>.*): spans for audio, 2-D blocks
     # for images; mask_noise_std is the decoder's mask tokens' noise
     mask_prob: float = 1.5
     mask_length: int = 2
     mask_noise_std: float = 0.01
+    mask_dropout: float = 0.0
+    keep_masked_pct: float = 0.0
+    encoder_zero_mask: bool = True
+    local_grad_mult: float = 1.0
+    mask_prob_adjust: float = 0.0  # images only
+    inverse_mask: bool = False  # images only
     # teacher targets
     average_top_k_layers: int = 16
+    instance_norm_target_layer: bool = True
+    layer_norm_target_layer: bool = False
+    batch_norm_target_layer: bool = False
+    instance_norm_targets: bool = False
+    layer_norm_targets: bool = False
     ema_decay: float = 0.9997
     ema_end_decay: float = 1.0
     ema_anneal_end_step: int = 300_000
@@ -442,15 +488,28 @@ class PretrainConfig:
     same_mixup: bool = True
     mixing_window_length: float = 0.05
     gain_mode: str = "A_weighting"
+    target_mixup: bool = False
     # the EMA teacher's numerics (model.teacher_matmul_impl): "" or the
     # student's "bf16", or the int8 serving modes (the teacher's forward
     # only; nothing is differentiated through them)
     teacher_matmul_impl: str = ""
-    # losses (model.*): the CLS term's weight, the regression's smooth-L1
-    # beta (0: squared error) and scale (None: 1/sqrt(C))
+    # losses (model.*): the regression's weight, the CLS term's and the
+    # image reconstruction's, the regression's smooth-L1 beta (0: squared
+    # error) and scale (None: 1/sqrt(C)); criterion.loss_weights by name
+    d2v_loss: float = 1.0
     cls_loss: float = 0.0
+    recon_loss: float = 0.0
     loss_beta: float = 0.0
     loss_scale: Optional[float] = None
+    loss_weights: Tuple[Tuple[str, float], ...] = ()
+    # the linear probe (task.with_labels; criterion.use_focal_loss)
+    with_labels: bool = False
+    use_focal_loss: bool = True
+    final_dropout: float = 0.0
+    metric_threshold: float = 0.25
+    # the training loop's collapse floors
+    min_target_var: float = 0.1
+    min_pred_var: float = 0.01
     optimization: OptimizationConfig = OptimizationConfig(max_update=384_230, update_freq=5)
 
     def __post_init__(self):
@@ -469,6 +528,23 @@ class PretrainConfig:
                      self.teacher_matmul_impl or m.matmul_impl)
         if self.clone_batch < 1:
             raise ValueError(f"clone_batch={self.clone_batch} must be >= 1")
+        if self.decoder is None and self.shared_decoder is None:
+            raise ValueError("pretraining needs a decoder: the modality's, the shared one or both")
+        for name in ("keep_masked_pct", "mask_dropout"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise ValueError(f"{name}={getattr(self, name)} must lie in [0, 1)")
+        if self.with_labels and not self.use_focal_loss:
+            raise NotImplementedError(
+                "the pretraining probe's label-smoothed NLL loss is refused: JAX's branch "
+                "(train/pretrain.py:286-293) fails on the (B, T, n) multi-hot labels and on "
+                "the (B, T) class labels alike (ROADMAP C)")
+        if self.with_labels and self.modality != "AUDIO":
+            raise NotImplementedError("the linear probe needs the audio encoder's label set")
+
+    def loss_weight(self, name: str) -> float:
+        """``criterion.loss_weights``' weight of the loss term ``name`` (1.0
+        where it names none)."""
+        return dict(self.loss_weights).get(name, 1.0)
 
     @property
     def modality(self) -> str:
@@ -630,8 +706,9 @@ class RunConfig:
                 raise ValueError("a pretrain run's encoder is pretrain.model; model must be None")
             if self.pretrain.modality != "AUDIO":
                 raise NotImplementedError("the training loop reads audio manifests")
-            if self.task.with_labels:
-                raise NotImplementedError("the pretraining linear probe is not ported")
+            if self.task.with_labels != self.pretrain.with_labels:
+                raise ValueError("task.with_labels (the loader's labels) and "
+                                 "pretrain.with_labels (the linear probe) must agree")
 
     @property
     def encoder(self) -> FinetuneConfig:
@@ -697,6 +774,10 @@ class _Group(dict):
     """The overrides of one nested group."""
 
 
+# the optional groups (None until given) and the class an override builds
+_OPTIONAL_GROUPS = {"decoder": DecoderConfig, "shared_decoder": DecoderConfig}
+
+
 def _apply(cfg, changes: _Group, prefix: str):
     names = {f.name for f in dataclasses.fields(cfg)}
     kw = {}
@@ -705,6 +786,8 @@ def _apply(cfg, changes: _Group, prefix: str):
         if name not in names:
             raise ValueError(f"unknown config key {key!r}")
         current = getattr(cfg, name)
+        if isinstance(value, _Group) and current is None and name in _OPTIONAL_GROUPS:
+            current = _OPTIONAL_GROUPS[name]()  # an absent decoder: from its defaults
         if isinstance(value, _Group):
             if not dataclasses.is_dataclass(current):
                 raise ValueError(f"unknown config key {key!r}: not a group")

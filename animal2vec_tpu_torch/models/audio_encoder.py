@@ -100,7 +100,8 @@ class AudioEncoder(nn.Module):
         if decoder is not None:
             self.decoder = Decoder1d(cfg.embed_dim, cfg.embed_dim, decoder.decoder_dim,
                                      decoder.decoder_kernel, decoder.decoder_groups,
-                                     decoder.decoder_layers, decoder.decoder_residual)
+                                     decoder.decoder_layers, decoder.decoder_residual,
+                                     decoder.projection_layers, decoder.projection_ratio)
 
     def local_features(self, source: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """(B, T_wav) -> (B, T_feat, embed): conv stack + fp32 LN + linear."""

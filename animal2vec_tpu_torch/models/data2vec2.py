@@ -44,9 +44,17 @@ sentinel position (zero ALiBi bias) and unmasked as keys; they stay in
 With per-block ALiBi scales (``learned_alibi_scale_per_layer``) the
 prenet takes the first ``prenet_depth`` and the trunk the rest.
 
-Not ported: the shared decoder, the transformer decoder, the
-reconstruction head and the linear probe of pretraining with labels; no
-recipe uses them, and ``recipes.REFUSED`` refuses them (ROADMAP A.7).
+Pretraining (a ``PretrainConfig``): the modality's decoder and the shared
+``Decoder1d`` (``shared_decoder``), each with its projection head;
+``decode_d2v`` runs the shared one first (``data2vec2.py:376-412``). With
+``with_labels`` the linear probe ``linear_eval_projection`` on the detached
+top-k tap average, through the decoders without gradient when masking
+removed tokens (``linear_eval``, ``data2vec2.py:414-441``); with
+``recon_loss`` the reconstruction head ``recon_proj`` and its normalized
+pixel-patch targets (``patchify_targets``). The teacher's per-layer and
+final target norms are ``normalize_target_layer`` and ``finish_targets``.
+Not ported: the transformer decoder (JAX builds it but ``decode_d2v``
+never gives it the keys and values it needs, ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -58,11 +66,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from animal2vec_tpu_torch.config import FinetuneConfig, ImageConfig, PretrainConfig
+from animal2vec_tpu_torch.config import (
+    DecoderConfig, FinetuneConfig, ImageConfig, PretrainConfig,
+)
 from animal2vec_tpu_torch.models.audio_encoder import AudioEncoder
-from animal2vec_tpu_torch.models.images import ImageEncoder
+from animal2vec_tpu_torch.models.images import ImageEncoder, patchify
 from animal2vec_tpu_torch.models.modules import (
-    AltBlock, BlockStack, Fp32LayerNorm, fp32_instance_norm,
+    AltBlock, BlockStack, Decoder1d, Fp32LayerNorm, fp32_instance_norm, top_k_tap_average,
 )
 from animal2vec_tpu_torch.ops.attention import int8_spans
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
@@ -79,13 +89,16 @@ class Data2VecMulti(nn.Module):
     ``attention_dropout``, ``activation_dropout`` and ``post_mlp_drop`` for
     every block, ``layerdrop`` (the prenet's too unless ``prenet_layerdrop``
     is given) and ``prenet_dropout``, ``dropout_input`` after the prenet,
-    ``local_grad_mult`` for the audio frontend and ``mask_noise_std`` for
-    the noise fills; the drop-path rates and the audio blocks' pre-LN and
+    ``local_grad_mult`` for the frontend (for images only 0 acts: it stops
+    the gradient, as in JAX) and ``mask_noise_std`` for the noise fills;
+    the drop-path rates and the audio blocks' pre-LN and
     norm-affine options come with ``cfg``. ``pretrain`` adds the modality's
-    decoder (``audio_encoder.decoder`` or ``image_encoder.decoder``) and
-    the teacher's ``average_top_k_layers``. ``cfg.remat`` with
-    ``cfg.remat_scope`` reaches every block (``modules.AltBlock``), and
-    ``cfg.remat_decoder`` recomputes the decoder in the backward."""
+    decoder (``audio_encoder.decoder`` or ``image_encoder.decoder``), the
+    shared decoder, the probe and the reconstruction head where it asks for
+    them, and the teacher's ``average_top_k_layers`` and target norms.
+    ``cfg.remat`` with ``cfg.remat_scope`` reaches every block
+    (``modules.AltBlock``), and ``cfg.remat_decoder`` recomputes the
+    decoders in the backward."""
 
     def __init__(self, cfg: Union[FinetuneConfig, ImageConfig],
                  dtype: torch.dtype = torch.float32,
@@ -100,13 +113,12 @@ class Data2VecMulti(nn.Module):
         self.dropout_input, self.mask_noise_std = dropout_input, mask_noise_std
         decoder = None if pretrain is None else pretrain.decoder
         rates = dict(rates, remat_scope=cfg.remat_scope if cfg.remat else None)
-        block_kw = dict(rates)
+        block_kw = dict(rates, ffn_targets=not cfg.end_of_block_targets)
         if self.mode == "IMAGE":
-            block_kw.update(layer_norm_first=cfg.layer_norm_first,
-                            ffn_targets=not cfg.end_of_block_targets)
+            block_kw.update(layer_norm_first=cfg.layer_norm_first)
             self.image_encoder = ImageEncoder(
                 cfg, prenet_dropout, layerdrop if prenet_layerdrop is None else prenet_layerdrop,
-                decoder, **rates)
+                decoder, local_grad_mult, **rates)
             self.norm = Fp32LayerNorm(cfg.embed_dim, cfg.norm_eps) if cfg.layer_norm_first else None
         else:
             block_kw.update(layer_norm_first=cfg.layer_norm_first, norm_affine=cfg.norm_affine,
@@ -120,6 +132,19 @@ class Data2VecMulti(nn.Module):
             cfg.depth, cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.norm_eps, layerdrop,
             cfg.matmul_impl, **block_kw,
         )
+        shared = None if pretrain is None else pretrain.shared_decoder
+        if shared is not None:
+            self.shared_decoder = Decoder1d(
+                cfg.embed_dim, cfg.embed_dim, shared.decoder_dim, shared.decoder_kernel,
+                shared.decoder_groups, shared.decoder_layers, shared.decoder_residual,
+                shared.projection_layers, shared.projection_ratio)
+        if pretrain is not None and pretrain.with_labels:
+            self.linear_eval_projection = nn.Linear(cfg.embed_dim, len(cfg.labels))
+        if pretrain is not None and pretrain.recon_loss > 0:
+            # to the patch's pixels for images, the model width otherwise (as
+            # JAX builds it; only the image loss reads it)
+            out = cfg.patch_size ** 2 * cfg.in_chans if self.mode == "IMAGE" else cfg.embed_dim
+            self.recon_proj = nn.Linear(cfg.embed_dim, out)
         # the int8 modes' buffers follow every load of the weights
         self.register_load_state_dict_post_hook(lambda module, _: module.quantize_weights())
 
@@ -175,8 +200,8 @@ class Data2VecMulti(nn.Module):
         or ``mask_info`` mask in place; with ``mask_info`` and
         ``remove_masked`` only the kept tokens run. ``reduce_targets`` (the
         EMA teacher) returns in place of the taps the fp32 sum of the last k
-        taps, each instance-normed (``make_targets``): divide it by k for the
-        targets."""
+        taps, each normalized by ``normalize_target_layer`` over the real
+        rows: divide it by k and ``finish_targets`` for the targets."""
         enc = self.modality_encoder
         image = self.mode == "IMAGE"
         x = enc.fixed_positions(local) if image else local
@@ -238,29 +263,78 @@ class Data2VecMulti(nn.Module):
             x, taps = x[:, :t], [tap[:, :t] for tap in taps]
         if reduce_targets:
             k = self.pretrain.average_top_k_layers
-            taps = sum(fp32_instance_norm(tap.float()) for tap in taps[-k:])
+            taps = sum(normalize_target_layer(tap.float(), self.pretrain) for tap in taps[-k:])
         return x, taps, padding_mask, keeps
+
+    def decoders(self) -> List[Tuple[nn.Module, DecoderConfig]]:
+        """(decoder, its config) of the shared decoder, then of the
+        modality's, where the model has them."""
+        out = []
+        if hasattr(self, "shared_decoder"):
+            out.append((self.shared_decoder, self.pretrain.shared_decoder))
+        if hasattr(self.modality_encoder, "decoder"):
+            out.append((self.modality_encoder.decoder, self.pretrain.decoder))
+        return out
 
     def decode_d2v(self, x: torch.Tensor, mask_info: Optional[MaskInfo] = None,
                    rngs: Optional[Rngs] = None) -> List[torch.Tensor]:
-        """The modality decoder on the student output (``data2vec2.py:376-412``):
-        input dropout in training, the kept tokens (without the extra
-        tokens) scattered back among noise mask tokens, the decoder; returns
-        one full-length (B, T, C) prediction per decoder."""
-        y = x
-        rate = self.pretrain.decoder.input_dropout
-        if self.training and rate > 0.0:
-            y = dropout(y, rate, rngs.device)
+        """The shared decoder, then the modality's, on the student output
+        (``data2vec2.py:376-412``): for each, input dropout in training, the
+        kept tokens (without the extra tokens) scattered back among noise
+        mask tokens, the decoder; returns one full-length (B, T, C)
+        prediction per decoder."""
         n_extra = self.cfg.num_extra_tokens
-        if mask_info is not None:
-            y = scatter_with_mask_tokens(y, mask_info, self.mask_noise_std,
-                                         None if rngs is None else rngs.device, n_extra)
-        elif n_extra:
-            y = y[:, n_extra:]
-        decoder = self.modality_encoder.decoder
-        if self.cfg.remat_decoder and self.training and torch.is_grad_enabled():
-            return [checkpoint(decoder, y, use_reentrant=False, preserve_rng_state=False)]
-        return [decoder(y)]
+        outs = []
+        for decoder, dcfg in self.decoders():
+            y = x
+            if self.training and dcfg.input_dropout > 0.0:
+                y = dropout(y, dcfg.input_dropout, rngs.device)
+            if mask_info is not None:
+                y = scatter_with_mask_tokens(y, mask_info, self.mask_noise_std,
+                                             None if rngs is None else rngs.device, n_extra)
+            elif n_extra:
+                y = y[:, n_extra:]
+            if self.cfg.remat_decoder and self.training and torch.is_grad_enabled():
+                outs.append(checkpoint(decoder, y, use_reentrant=False,
+                                       preserve_rng_state=False))
+            else:
+                outs.append(decoder(y))
+        return outs
+
+    def linear_eval(self, taps: Sequence[torch.Tensor], mask_info: Optional[MaskInfo] = None,
+                    keeps: Optional[Sequence[float]] = None,
+                    rngs: Optional[Rngs] = None) -> torch.Tensor:
+        """The linear probe's frame logits (``data2vec2.py:414-441``): the
+        detached mean of the last k kept taps, the final LayerNorm of a
+        pre-LN trunk, with ``mask_info`` the decoders without gradient (the
+        last one's output: the keep-set back at full length), final dropout
+        in training, ``linear_eval_projection``."""
+        x = top_k_tap_average(taps, self.pretrain.average_top_k_layers, keeps)
+        x = x.detach().to(taps[-1].dtype)
+        if self.norm is not None:
+            x = self.norm(x)
+        if mask_info is not None and self.decoders():
+            with torch.no_grad():
+                x = self.decode_d2v(x, mask_info, rngs)[-1]
+        rate = self.pretrain.final_dropout
+        if self.training and rate > 0.0:
+            x = dropout(x, rate, rngs.device)
+        w = self.linear_eval_projection
+        return F.linear(x, w.weight.to(x.dtype), w.bias.to(x.dtype))
+
+    def recon_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The reconstruction projection (``data2vec2.py:480-482``)."""
+        w = self.recon_proj
+        return F.linear(x, w.weight.to(x.dtype), w.bias.to(x.dtype))
+
+    def patchify_targets(self, imgs: torch.Tensor) -> torch.Tensor:
+        """The reconstruction's targets: (B, H, W, C) images -> (B, P, p^2 C)
+        pixel patches, each normalized over its values (``data2vec2.py:
+        484-491``)."""
+        target = patchify(imgs, self.cfg.patch_size)
+        mean = target.mean(dim=-1, keepdim=True)
+        var = (target - mean).square().mean(dim=-1, keepdim=True)
+        return (target - mean) / torch.sqrt(var + 1e-6)
 
     def extract_features(self, source: torch.Tensor, mode: str = "AUDIO",
                          padding_mask: Optional[torch.Tensor] = None,
@@ -288,12 +362,44 @@ class Data2VecMulti(nn.Module):
         return {"x": x, "layer_results": taps, "padding_mask": pad, "layer_keeps": keeps}
 
 
-def make_targets(taps: Sequence[torch.Tensor], k: int) -> torch.Tensor:
-    """Teacher targets from a list of per-layer taps (``data2vec2.py:494-540``
-    with the recipes' flags): the mean of the last k taps, each normalized
-    over time in fp32 (``instance_norm_target_layer``; no other per-layer
-    norm, and ``finish_targets`` is the identity)."""
-    return torch.stack([fp32_instance_norm(tap.float()) for tap in taps[-k:]]).mean(dim=0)
+def _norm_over(x: torch.Tensor, dims) -> torch.Tensor:
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+def normalize_target_layer(tap: torch.Tensor, cfg: PretrainConfig) -> torch.Tensor:
+    """One fp32 (B, T, C) tap under the per-layer target norms
+    (``data2vec2.py:494-511``): batch norm (over B and T), instance norm
+    (over T), layer norm (over C), each without affine, eps 1e-5, in that
+    order."""
+    if cfg.batch_norm_target_layer:
+        tap = _norm_over(tap, (0, 1))
+    if cfg.instance_norm_target_layer:
+        tap = fp32_instance_norm(tap)
+    if cfg.layer_norm_target_layer:
+        tap = _norm_over(tap, -1)
+    return tap
+
+
+def finish_targets(y: torch.Tensor, cfg: PretrainConfig) -> torch.Tensor:
+    """The norms after the average (``data2vec2.py:514-523``): layer norm
+    over C, then instance norm over T; the identity with neither flag."""
+    if cfg.layer_norm_targets:
+        y = _norm_over(y, -1)
+    if cfg.instance_norm_targets:
+        y = fp32_instance_norm(y)
+    return y
+
+
+def make_targets(taps: Sequence[torch.Tensor], k: int,
+                 cfg: PretrainConfig = PretrainConfig()) -> torch.Tensor:
+    """Teacher targets from a list of per-layer taps (``data2vec2.py:
+    526-540``): the mean of the last k taps, each normalized in fp32
+    (``normalize_target_layer``), then ``finish_targets``; by default with
+    the recipes' flags (instance-normed taps, nothing after)."""
+    tl = torch.stack([normalize_target_layer(tap.float(), cfg) for tap in taps[-k:]])
+    return finish_targets(tl.mean(dim=0), cfg)
 
 
 _FRONTEND = ("local_encoder", "project_norm", "project_linear", "decoder", "patch_embed",
@@ -303,11 +409,13 @@ _FRONTEND = ("local_encoder", "project_norm", "project_linear", "decoder", "patc
 def ema_param_label(name: Union[str, Tuple[str, ...]], ema_encoder_only: bool) -> bool:
     """True if the parameter ``name`` (the port's dotted name, or a path)
     belongs to the EMA teacher (``data2vec2.py:543-559``): the trunk blocks
-    only with ``ema_encoder_only``, else everything but the frontend and the
-    decoder (the model has no shared decoder, ``recon_proj`` or probe)."""
+    only with ``ema_encoder_only``, else everything but the frontend, the
+    decoders, ``recon_proj`` and the probe."""
     path = tuple(name.split(".")) if isinstance(name, str) else tuple(name)
     if ema_encoder_only:
         return path[0] == "blocks"
+    if path[0] in ("shared_decoder", "recon_proj", "linear_eval_projection"):
+        return False
     if path[0] in ("audio_encoder", "image_encoder"):
         return path[1] not in _FRONTEND
     return True

@@ -65,9 +65,11 @@ class FinetuneModel(nn.Module):
         super().__init__()
         if cfg.num_extra_tokens:
             # JAX's FinetuneModel keeps them in its taps: T + E logits frames
-            # against T label frames (models/finetune.py:57)
-            raise NotImplementedError("extra tokens in a finetune model are not ported "
-                                      "(ROADMAP A.7)")
+            # against T label frames, on which its finetune step fails
+            # (models/finetune.py:57)
+            raise NotImplementedError("extra tokens in a finetune model are refused: JAX's "
+                                      "finetune step fails on their T + E logits frames "
+                                      "(ROADMAP C)")
         self.cfg = cfg
         self.final_dropout = 0.0 if train is None else train.final_dropout
         self.zero_mask = True if train is None else train.zero_mask
@@ -162,14 +164,14 @@ def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32
 
 def pretrain_rates(cfg: PretrainConfig) -> dict:
     """The model's keyword rates of a pretraining recipe (the JAX
-    ``ModelConfig`` and modality fields that ``Data2VecMulti`` reads; the
-    others keep the model's defaults, which both recipes take)."""
+    ``ModelConfig`` and modality fields that ``Data2VecMulti`` reads: the
+    dropouts, the mask tokens' noise and the frontend's gradient scale)."""
     return dict(
         prenet_dropout=cfg.prenet_dropout, mask_noise_std=cfg.mask_noise_std,
         encoder_dropout=cfg.encoder_dropout, attention_dropout=cfg.attention_dropout,
         activation_dropout=cfg.activation_dropout, post_mlp_drop=cfg.post_mlp_drop,
         dropout_input=cfg.dropout_input, layerdrop=cfg.layerdrop,
-        prenet_layerdrop=cfg.prenet_layerdrop,
+        prenet_layerdrop=cfg.prenet_layerdrop, local_grad_mult=cfg.local_grad_mult,
     )
 
 

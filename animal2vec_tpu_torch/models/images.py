@@ -83,12 +83,14 @@ class ImageEncoder(nn.Module):
     """The image branch's parameters and sub-computations (``ImageEncoder``,
     ``images.py:94-193``); the orchestration is ``models/data2vec2.py``'s.
     The prenet takes ``prenet_dropout``, ``layerdrop`` and the block rates;
-    ``decoder`` adds the pretraining ``Decoder2d``."""
+    ``decoder`` adds the pretraining ``Decoder2d`` (JAX's has no projection
+    head: ``projection_layers`` is read by ``Decoder1d`` only)."""
 
     def __init__(self, cfg: ImageConfig, prenet_dropout: float = 0.0, layerdrop: float = 0.0,
-                 decoder: Optional[DecoderConfig] = None, **rates: float):
+                 decoder: Optional[DecoderConfig] = None, local_grad_mult: float = 1.0,
+                 **rates: float):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.local_grad_mult = cfg, local_grad_mult
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, cfg.patch_embed_dim)
         if cfg.patch_embed_dim != cfg.embed_dim:
             self.patch_proj = nn.Linear(cfg.patch_embed_dim, cfg.embed_dim)
@@ -114,10 +116,13 @@ class ImageEncoder(nn.Module):
                 cfg.num_patches, cfg.num_heads, cfg.alibi_distance)), persistent=False)
 
     def local_features(self, imgs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """(B, H, W, C) -> (B, P, embed_dim) in ``dtype``."""
-        x = self.patch_embed(imgs, dtype)
-        if self.cfg.patch_embed_dim != self.cfg.embed_dim:
-            x = F.linear(x, self.patch_proj.weight.to(dtype), self.patch_proj.bias.to(dtype))
+        """(B, H, W, C) -> (B, P, embed_dim) in ``dtype``; with
+        ``local_grad_mult`` 0 without gradient (any other value leaves the
+        gradient as it is, as in JAX, ``images.py:167-174``)."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.local_grad_mult != 0.0):
+            x = self.patch_embed(imgs, dtype)
+            if self.cfg.patch_embed_dim != self.cfg.embed_dim:
+                x = F.linear(x, self.patch_proj.weight.to(dtype), self.patch_proj.bias.to(dtype))
         return x
 
     def fixed_positions(self, x: torch.Tensor) -> torch.Tensor:

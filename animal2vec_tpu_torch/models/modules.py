@@ -574,22 +574,40 @@ def _decode(blocks: nn.ModuleList, x: torch.Tensor, residual_on: bool) -> torch.
 
 
 class Decoder1d(nn.Module):
-    """The audio decoder (``Decoder1d``, ``modules.py:1068-1102``): conv blocks
-    with residuals where the widths agree, then ``proj`` to ``out_dim``; (B,
-    T, C) in and out."""
+    """The audio and the shared decoder (``Decoder1d``, ``modules.py:
+    1068-1109``): conv blocks with residuals where the widths agree, then
+    the projection head: ``projection_layers`` - 1 Linear + exact GELU
+    layers ``proj_{i}`` (the first widening by ``projection_ratio``) and the
+    output Linear to ``out_dim`` (``proj`` alone, else the last
+    ``proj_{i}``); (B, T, C) in and out."""
 
     def __init__(self, in_dim: int, out_dim: int, decoder_dim: int, kernel: int, groups: int,
-                 layers: int, residual: bool = True):
+                 layers: int, residual: bool = True, projection_layers: int = 1,
+                 projection_ratio: float = 2.0):
         super().__init__()
         self.residual = residual
         self.blocks = nn.ModuleList(
             Conv1dBlockNorm(in_dim if i == 0 else decoder_dim, decoder_dim, kernel, groups)
             for i in range(layers)
         )
-        self.proj = nn.Linear(decoder_dim, out_dim)
+        if projection_layers == 1:
+            self.proj = nn.Linear(decoder_dim, out_dim)
+            self.head = ["proj"]
+            return
+        self.head, curr = [], decoder_dim
+        for i in range(projection_layers - 1):
+            nxt = int(curr * projection_ratio) if i == 0 else curr
+            setattr(self, f"proj_{i}", nn.Linear(curr, nxt))
+            self.head.append(f"proj_{i}")
+            curr = nxt
+        setattr(self, f"proj_{projection_layers - 1}", nn.Linear(curr, out_dim))
+        self.head.append(f"proj_{projection_layers - 1}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(_decode(self.blocks, x, self.residual), self.proj)
+        x = _decode(self.blocks, x, self.residual)
+        for name in self.head[:-1]:
+            x = F.gelu(_linear(x, getattr(self, name)))
+        return _linear(x, getattr(self, self.head[-1]))
 
 
 class Decoder2d(nn.Module):

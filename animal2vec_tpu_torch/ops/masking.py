@@ -110,17 +110,20 @@ def block_mask_2d(
     mask_prob: float,
     mask_length: int,
     generator: torch.Generator,
+    mask_prob_adjust: float = 0.0,
+    inverse_mask: bool = False,
 ) -> torch.Tensor:
     """(B, P) int32 2-D block mask of a square patch grid with a static count:
-    block seeds drawn on the grid, dilated to L x L blocks down and to the
-    right, then exactified to int(P * mask_prob) tokens, clipped to [1, P -
-    1] (the JAX sampler with the image recipe's ``mask_prob_adjust`` 0 and
-    no ``inverse_mask``)."""
+    int((mask_prob + mask_prob_adjust) * P / L^2) block seeds drawn on the
+    grid, dilated to L x L blocks down and to the right, then exactified to
+    int(P * mask_prob) tokens, or with ``inverse_mask`` the complement
+    exactified to P less that, clipped to [1, P - 1] (JAX's
+    ``block_mask_2d``)."""
     n = int(np.sqrt(num_patches))
     if n * n != num_patches:
         raise ValueError(f"num_patches={num_patches} is not a square grid")
     target = int(num_patches * mask_prob)
-    n_seeds = max(1, int(mask_prob * num_patches / (mask_length**2)))
+    n_seeds = max(1, int((mask_prob + mask_prob_adjust) * num_patches / (mask_length**2)))
     dev = generator.device
     noise = torch.rand((batch, num_patches), generator=generator, device=dev)
     seeds = torch.argsort(noise, dim=1)[:, :n_seeds]
@@ -130,15 +133,18 @@ def block_mask_2d(
     for di in range(mask_length):
         for dj in range(mask_length):
             out[:, di:, dj:] = torch.maximum(out[:, di:, dj:], grid[:, :n - di, :n - dj])
-    return exactify_mask(out.reshape(batch, num_patches), max(1, min(target, num_patches - 1)),
-                         generator)
+    mask = out.reshape(batch, num_patches)
+    if inverse_mask:
+        mask, target = 1 - mask, num_patches - target
+    return exactify_mask(mask, max(1, min(target, num_patches - 1)), generator)
 
 
 class MaskInfo(NamedTuple):
     """A static-count mask and its bookkeeping: ``mask`` (B, T) int32, 1 =
     masked; ``ids_shuffle`` (B, T), the stable argsort of the mask (kept
     positions first, in order); ``ids_restore`` (B, T), its inverse;
-    ``ids_keep`` (B, K), the kept positions."""
+    ``ids_keep`` (B, K), the kept positions (``ids_shuffle[:, :K]``, with
+    ``keep_masked_pct`` the first masked ones too)."""
 
     mask: torch.Tensor
     ids_shuffle: torch.Tensor
@@ -146,13 +152,19 @@ class MaskInfo(NamedTuple):
     ids_keep: torch.Tensor
 
 
-def make_mask_info_static(mask: torch.Tensor, m_tokens: int) -> MaskInfo:
-    """The ``MaskInfo`` of a (B, T) mask with ``m_tokens`` masked per row."""
+def make_mask_info_static(mask: torch.Tensor, m_tokens: int,
+                          keep_masked_pct: float = 0.0) -> MaskInfo:
+    """The ``MaskInfo`` of a (B, T) mask with ``m_tokens`` masked per row;
+    ``keep_masked_pct`` keeps round(m_tokens * pct) of the masked tokens
+    (the first in position order) in the keep-set."""
     t = mask.shape[1]
     mask = mask.to(torch.int32)
     ids_shuffle = torch.argsort(mask, dim=1, stable=True)
     ids_restore = torch.argsort(ids_shuffle, dim=1)
-    return MaskInfo(mask, ids_shuffle, ids_restore, ids_shuffle[:, :t - m_tokens])
+    len_keep = t - m_tokens
+    if keep_masked_pct > 0:
+        len_keep += round((t - len_keep) * keep_masked_pct)
+    return MaskInfo(mask, ids_shuffle, ids_restore, ids_shuffle[:, :len_keep])
 
 
 def take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

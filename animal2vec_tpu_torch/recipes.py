@@ -158,7 +158,7 @@ OPTIONAL = {"finetune": FINETUNE_DEFAULTS, "model.shared_decoder": _DECODER,
 _A = "model.modalities.audio."
 _I = "model.modalities.image."
 _DEC = ("decoder_dim", "decoder_groups", "decoder_kernel", "decoder_layers", "input_dropout",
-        "decoder_residual")
+        "decoder_residual", "projection_layers", "projection_ratio")
 _MIX = tuple(_MIXUP)
 
 # 1. the keys read into the run
@@ -177,7 +177,8 @@ MAPPED = frozenset(
     + ["distributed.data_parallel"]
     + [f"criterion.{k}" for k in ("use_focal_loss", "label_smoothing", "report_accuracy",
                                   "segmentation_metrics", "metric_threshold", "iou_threshold",
-                                  "sigma_s", "maxfilt_s", "max_duration_s", "lowP", "method")]
+                                  "sigma_s", "maxfilt_s", "max_duration_s", "lowP", "method",
+                                  "loss_weights")]
     + [f"optimization.{k}" for k in DEFAULTS["optimization"]]
     + [f"checkpoint.{k}" for k in ("save_dir", "save_interval_updates", "keep_last",
                                    "best_checkpoint_metric", "maximize_best_checkpoint_metric",
@@ -190,8 +191,11 @@ MAPPED = frozenset(
         "clone_batch", "ema_decay", "ema_end_decay", "ema_anneal_end_step", "ema_encoder_only",
         "cls_loss", "matmul_impl", "teacher_matmul_impl", "remat", "remat_scope",
         "remat_frontend", "remat_decoder", "with_labels", "use_focal_loss", "sample_rate",
-        "unique_labels", "conv_feature_layers")]
-    + [f"model.mixup.{k}" for k in _MIX if k != "target_mixup"]
+        "unique_labels", "conv_feature_layers", "end_of_block_targets",
+        "layer_norm_target_layer", "batch_norm_target_layer", "instance_norm_target_layer",
+        "instance_norm_targets", "layer_norm_targets", "shared_decoder", "min_target_var",
+        "min_pred_var", "recon_loss", "d2v_loss", "final_dropout", "metric_threshold")]
+    + [f"model.mixup.{k}" for k in _MIX]
     + [_A + k for k in (
         "prenet_depth", "prenet_dropout", "num_extra_tokens", "init_extra_token_zero",
         "mask_noise_std", "mask_prob", "mask_length", "alibi_scale",
@@ -199,14 +203,16 @@ MAPPED = frozenset(
         "use_pswish", "conv_feature_layers", "sample_rate", "num_alibi_heads",
         "model_depth", "prenet_layerdrop", "start_drop_path_rate", "end_drop_path_rate",
         "use_alibi_encoder", "learned_alibi_scale_per_head", "extractor_mode",
-        "conv_pos_pre_ln", "sinc_input", "apply_window_to_root", "sinc_norm")]
+        "conv_pos_pre_ln", "sinc_input", "apply_window_to_root", "sinc_norm",
+        "keep_masked_pct", "mask_dropout", "encoder_zero_mask", "local_grad_mult", "decoder")]
     + [_A + "decoder." + k for k in _DEC]
     + [f"finetune.{k}" for k in (
         "load_ema", "freeze_finetune_updates", "feature_grad_mult", "apply_mask", "mask_prob",
         "mask_length", "mask_channel_prob", "mask_channel_length", "layer_decay",
         "average_top_k_layers", "dropout", "dropout_input", "activation_dropout",
         "attention_dropout", "final_dropout", "layerdrop", "drop_path", "zero_mask",
-        "update_alibi", "sample_rate", "unique_labels", "use_focal_loss")]
+        "update_alibi", "sample_rate", "unique_labels", "use_focal_loss",
+        "load_pretrain_weights")]
     + [f"finetune.mixup.{k}" for k in _MIX]
 )
 
@@ -261,30 +267,9 @@ REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
     "distributed.pipeline_parallel": (A10, None, "all"),
     "model.pipeline_stages": (A10, None, "all"),
     "model.pipeline_microbatches": (A10, None, "all"),
-    "criterion.loss_weights": (A7, None, "pretrain"),
-    "model.end_of_block_targets": (A7, None, "pretrain"),
-    "model.layer_norm_target_layer": (A7, None, "pretrain"),
-    "model.batch_norm_target_layer": (A7, None, "pretrain"),
-    "model.instance_norm_target_layer": (A7, (True,), "pretrain"),
-    "model.instance_norm_targets": (A7, None, "pretrain"),
-    "model.layer_norm_targets": (A7, None, "pretrain"),
-    "model.shared_decoder": (A7, None, "pretrain"),
-    "model.min_target_var": (A7, None, "pretrain"),
-    "model.min_pred_var": (A7, None, "pretrain"),
+    # JAX's loop, train_cli and loader read audio only and never name the
+    # image mode (ROADMAP A.7, not queued)
     "model.supported_modality": (A7, None, "all"),
-    "model.recon_loss": (A7, None, "pretrain"),
-    "model.d2v_loss": (A7, None, "pretrain"),
-    "model.final_dropout": (A7, None, "pretrain"),
-    "model.metric_threshold": (A7, None, "pretrain"),
-    "model.mixup.target_mixup": (A7, None, "pretrain"),
-    _A + "keep_masked_pct": (A7, None, "pretrain"),
-    _A + "mask_dropout": (A7, None, "pretrain"),
-    _A + "encoder_zero_mask": (A7, None, "pretrain"),
-    _A + "local_grad_mult": (A7, None, "pretrain"),
-    _A + "decoder": (A7, "present", "pretrain"),
-    _A + "decoder.projection_layers": (A7, None, "pretrain"),
-    _A + "decoder.projection_ratio": (A7, None, "pretrain"),
-    "finetune.load_pretrain_weights": (A7, None, "finetune"),
 }
 
 
@@ -445,8 +430,9 @@ def check_classes(tree: dict) -> None:
     for key, value in leaves(tree):
         if key == "finetune":  # a pretrain run's absent group
             continue
-        if key.startswith("model.shared_decoder."):  # a shared decoder given
-            key, value = "model.shared_decoder", tree["model"]["shared_decoder"]
+        if key.startswith("model.shared_decoder."):
+            # a shared decoder given: each leaf has the audio decoder leaf's class
+            key = _A + "decoder." + key.rsplit(".", 1)[1]
         if key in IGNORED:
             if value != _default_of(key) and key not in _warned | _DERIVED:
                 _warned.add(key)
@@ -516,6 +502,7 @@ def encoder_config(tree: dict) -> FinetuneConfig:
         prenet_depth=audio["prenet_depth"], depth=m["depth"], embed_dim=m["embed_dim"],
         num_heads=m["num_heads"], mlp_ratio=m["mlp_ratio"], norm_eps=m["norm_eps"],
         layer_norm_first=m["layer_norm_first"], norm_affine=m["norm_affine"],
+        end_of_block_targets=m["end_of_block_targets"],
         start_drop_path_rate=trunk_dp[0], end_drop_path_rate=trunk_dp[1],
         prenet_start_drop_path_rate=audio["start_drop_path_rate"],
         prenet_end_drop_path_rate=audio["end_drop_path_rate"],
@@ -549,6 +536,7 @@ def finetune_config(tree: dict) -> FinetuneTrainConfig:
         activation_dropout=ft["activation_dropout"], attention_dropout=ft["attention_dropout"],
         final_dropout=ft["final_dropout"], layerdrop=ft["layerdrop"], drop_path=ft["drop_path"],
         update_alibi=ft["update_alibi"], load_ema=ft["load_ema"],
+        load_pretrain_weights=ft["load_pretrain_weights"],
         source_mixup=mix["source_mixup"], mixup_prob=mix["mixup_prob"],
         same_mixup=mix["same_mixup"], mixing_window_length=mix["mixing_window_length"],
         gain_mode=mix["gain_mode"], target_mixup=mix["target_mixup"],
@@ -557,17 +545,26 @@ def finetune_config(tree: dict) -> FinetuneTrainConfig:
         optimization=_optimization(tree["optimization"]))
 
 
+def _decoder(d: Optional[dict]) -> Optional[DecoderConfig]:
+    return None if d is None else DecoderConfig(**{k: d[k] for k in _DEC})
+
+
 def pretrain_config(tree: dict) -> PretrainConfig:
-    m = tree["model"]
+    m, crit = tree["model"], tree["criterion"]
     audio, mix = m["modalities"]["audio"], m["mixup"]
-    d = audio["decoder"]
     return PretrainConfig(
-        model=encoder_config(tree),
-        decoder=DecoderConfig(d["decoder_dim"], d["decoder_groups"], d["decoder_kernel"],
-                              d["decoder_layers"], d["input_dropout"], d["decoder_residual"]),
+        model=encoder_config(tree), decoder=_decoder(audio["decoder"]),
+        shared_decoder=_decoder(m["shared_decoder"]),
         clone_batch=m["clone_batch"], mask_prob=audio["mask_prob"],
         mask_length=audio["mask_length"], mask_noise_std=audio["mask_noise_std"],
-        average_top_k_layers=m["average_top_k_layers"], ema_decay=m["ema_decay"],
+        mask_dropout=audio["mask_dropout"], keep_masked_pct=audio["keep_masked_pct"],
+        encoder_zero_mask=audio["encoder_zero_mask"], local_grad_mult=audio["local_grad_mult"],
+        average_top_k_layers=m["average_top_k_layers"],
+        instance_norm_target_layer=m["instance_norm_target_layer"],
+        layer_norm_target_layer=m["layer_norm_target_layer"],
+        batch_norm_target_layer=m["batch_norm_target_layer"],
+        instance_norm_targets=m["instance_norm_targets"],
+        layer_norm_targets=m["layer_norm_targets"], ema_decay=m["ema_decay"],
         ema_end_decay=m["ema_end_decay"], ema_anneal_end_step=m["ema_anneal_end_step"],
         ema_encoder_only=m["ema_encoder_only"], encoder_dropout=m["encoder_dropout"],
         attention_dropout=m["attention_dropout"], post_mlp_drop=m["post_mlp_drop"],
@@ -576,8 +573,13 @@ def pretrain_config(tree: dict) -> PretrainConfig:
         prenet_layerdrop=audio["prenet_layerdrop"], source_mixup=mix["source_mixup"],
         mixup_prob=mix["mixup_prob"], same_mixup=mix["same_mixup"],
         mixing_window_length=mix["mixing_window_length"], gain_mode=mix["gain_mode"],
-        teacher_matmul_impl=m["teacher_matmul_impl"], cls_loss=m["cls_loss"],
+        target_mixup=mix["target_mixup"], teacher_matmul_impl=m["teacher_matmul_impl"],
+        d2v_loss=m["d2v_loss"], cls_loss=m["cls_loss"], recon_loss=m["recon_loss"],
         loss_beta=m["loss_beta"], loss_scale=m["loss_scale"],
+        loss_weights=tuple(sorted((crit["loss_weights"] or {}).items())),
+        with_labels=m["with_labels"], use_focal_loss=m["use_focal_loss"],
+        final_dropout=m["final_dropout"], metric_threshold=m["metric_threshold"],
+        min_target_var=m["min_target_var"], min_pred_var=m["min_pred_var"],
         optimization=_optimization(tree["optimization"]))
 
 

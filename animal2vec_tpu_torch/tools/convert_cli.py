@@ -57,7 +57,9 @@ def do_import(args) -> int:
         ref = build_finetune_model(cfg, device="cpu").state_dict()
     else:
         pcfg = apply_overrides(PretrainConfig(), args.overrides)
-        converted, ema = pretrain_state_dicts(sd, pcfg.model, pcfg.decoder.decoder_layers)
+        converted, ema = pretrain_state_dicts(
+            sd, pcfg.model, *(None if d is None else d.decoder_layers
+                              for d in (pcfg.decoder, pcfg.shared_decoder)))
         ref = build_pretrain_model(pcfg, device="cpu").state_dict()
     missing, unexpected, mismatched = verify_tree_shapes(converted, ref)
     for name, items in (("missing", missing), ("unexpected", unexpected),

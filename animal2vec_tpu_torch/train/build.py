@@ -33,7 +33,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the encoder's architecture: what a finetune model takes from its pretraining
 ENCODER_FIELDS = ("conv_layers", "sample_rate", "sinc_norm", "use_pswish", "conv_pos_width",
                   "conv_pos_groups", "conv_pos_depth", "prenet_depth", "depth", "embed_dim",
-                  "num_heads", "mlp_ratio", "norm_eps", "alibi_scale")
+                  "num_heads", "mlp_ratio", "norm_eps", "alibi_scale", "end_of_block_targets")
 
 
 def build_finetune_encoder_cfg(pre: PretrainConfig, model: FinetuneConfig,
@@ -52,11 +52,15 @@ def build_finetune_encoder_cfg(pre: PretrainConfig, model: FinetuneConfig,
 
 
 def load_pretrained_into_finetune(ft_state: Mapping[str, torch.Tensor],
-                                  pre_state: Mapping[str, torch.Tensor]
+                                  pre_state: Mapping[str, torch.Tensor],
+                                  load_pretrain_weights: bool = False
                                   ) -> Dict[str, torch.Tensor]:
     """``ft_state`` (a finetune model's state dict) with every entry of the
     pretrained student's ``pre_state`` that the finetune encoder has
-    (``encoder.`` + its name) copied in; the rest (the decoders) is dropped.
+    (``encoder.`` + its name) copied in; the rest (the decoders, the
+    reconstruction head) is dropped. With ``load_pretrain_weights`` the
+    pretraining probe's ``linear_eval_projection`` becomes the head
+    ``proj`` where the pretrained model has one (``build.py:151-155``).
     Raises if a shape differs or nothing matched."""
     out = dict(ft_state)
     loaded = 0
@@ -68,6 +72,11 @@ def load_pretrained_into_finetune(ft_state: Mapping[str, torch.Tensor],
                                  f"{tuple(out[target].shape)}")
             out[target] = value.to(out[target].dtype)
             loaded += 1
+    if load_pretrain_weights:
+        for leaf in ("weight", "bias"):
+            probe = pre_state.get(f"linear_eval_projection.{leaf}")
+            if probe is not None and f"proj.{leaf}" in out:
+                out[f"proj.{leaf}"] = probe.to(out[f"proj.{leaf}"].dtype)
     if not loaded:
         raise ValueError("no pretrained weights matched the finetune encoder")
     return out
@@ -80,8 +89,8 @@ def init_finetune(run: RunConfig, device, pretrained: Optional[Mapping[str, torc
     model = build_finetune_model(run.model, dtype=DTYPES[run.common.compute_dtype],
                                  seed=run.common.seed, device=device, train=run.finetune)
     if pretrained is not None:
-        model.load_state_dict(load_pretrained_into_finetune(model.state_dict(), pretrained),
-                              strict=True)
+        model.load_state_dict(load_pretrained_into_finetune(
+            model.state_dict(), pretrained, run.finetune.load_pretrain_weights), strict=True)
     return model, FinetuneState.create(model, run.finetune)
 
 

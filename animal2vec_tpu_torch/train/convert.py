@@ -24,9 +24,11 @@ are stacked along a leading depth axis, as the JAX BlockStack scans them.
 
 The architecture comes from a ``config.FinetuneConfig`` (the encoder:
 conv stack, prenet and trunk depths, positional convs) and, for a
-pretraining checkpoint, the audio decoder's layer count; the port has no
-shared decoder. Export (``export_pretrain``) takes a port state dict back
-through ``weights.params_to_jax`` and writes the fairseq names.
+pretraining checkpoint, the audio decoder's and the shared decoder's layer
+counts (each decoder's projection head, ``proj`` or ``proj.{2i}`` between
+GELUs, is read whatever its depth). Export (``export_pretrain``) takes a
+port state dict back through ``weights.params_to_jax`` and writes the
+fairseq names, the shared decoder, the probe and ``recon_proj`` included.
 """
 
 from __future__ import annotations
@@ -315,14 +317,19 @@ def _map_model(sd, cfg, decoder_layers) -> Dict[Tuple[str, ...], np.ndarray]:
 
 
 def convert_pretrain(sd: Dict[str, np.ndarray], cfg: FinetuneConfig,
-                     decoder_layers: Optional[int] = None) -> Tuple[Dict, Optional[Dict]]:
+                     decoder_layers: Optional[int] = None,
+                     shared_decoder_layers: Optional[int] = None
+                     ) -> Tuple[Dict, Optional[Dict]]:
     """fairseq data2vec_multi state dict -> (params, ema_params or None), JAX
-    trees of numpy arrays."""
+    trees of numpy arrays; ``shared_decoder_layers`` reads the shared
+    decoder (JAX's ``convert.py:288-294``)."""
     out = _map_model(sd, cfg, decoder_layers)
     if "linear_eval_projection.weight" in sd:
         _linear(sd, "linear_eval_projection", ("linear_eval_projection",), out)
     if "recon_proj.weight" in sd:
         _linear(sd, "recon_proj", ("recon_proj",), out)
+    if shared_decoder_layers is not None:
+        _map_decoder1d(sd, "shared_decoder", ("shared_decoder",), shared_decoder_layers, out)
     params = unflatten_tree(out)
 
     ema_sd = {k[len("_ema."):]: v for k, v in sd.items() if k.startswith("_ema.")}
@@ -374,10 +381,11 @@ def finetune_state_dict(sd: Dict[str, np.ndarray], cfg: FinetuneConfig):
 
 
 def pretrain_state_dicts(sd: Dict[str, np.ndarray], cfg: FinetuneConfig,
-                         decoder_layers: Optional[int] = None):
+                         decoder_layers: Optional[int] = None,
+                         shared_decoder_layers: Optional[int] = None):
     """A fairseq pretraining state dict (numpy) -> (the port's pretraining
     model state dict, the EMA teacher's dict or None)."""
-    params, ema = convert_pretrain(sd, cfg, decoder_layers)
+    params, ema = convert_pretrain(sd, cfg, decoder_layers, shared_decoder_layers)
     return params_from_jax(params), None if ema is None else params_from_jax(ema)
 
 
@@ -449,6 +457,11 @@ def export_pretrain(state_dict, cfg: FinetuneConfig) -> Dict[str, np.ndarray]:
             _export_stack(sd, "blocks", p[2:], w)
         elif p[0] == "norm":
             sd["norm.weight" if p[1] == "scale" else "norm.bias"] = w
+        elif p[0] in ("linear_eval_projection", "recon_proj"):
+            sd[f"{p[0]}.weight" if p[1] == "kernel" else f"{p[0]}.bias"] = (
+                w.T if p[1] == "kernel" else w)
+        elif p[0] == "shared_decoder":
+            _export_decoder(sd, "shared_decoder", p[1:], w)
     return sd
 
 

@@ -64,9 +64,8 @@ from animal2vec_tpu_torch.train.pretrain import make_pretrain_eval_step, make_pr
 
 logger = logging.getLogger("animal2vec_tpu_torch")
 
-# the variance kill switch's floors (the JAX ModelConfig's; no recipe sets
-# them), checked from the step after COLLAPSE_AFTER
-MIN_TARGET_VAR, MIN_PRED_VAR = 0.1, 0.01
+# the variance kill switch (the floors are PretrainConfig.min_target_var and
+# min_pred_var) is checked from the step after COLLAPSE_AFTER
 COLLAPSE_AFTER = 5000
 
 
@@ -126,15 +125,16 @@ def _to_device(batch: Mapping[str, torch.Tensor], device: torch.device) -> Dict[
             if k not in ("id", "valid_len")}
 
 
-def _check_collapse(step: int, metrics: Dict[str, float]):
+def _check_collapse(step: int, metrics: Dict[str, float], min_target_var: float = 0.1,
+                    min_pred_var: float = 0.01):
     if step <= COLLAPSE_AFTER:
         return
     tv = metrics.get("target_var")
-    if tv is not None and tv < MIN_TARGET_VAR:
-        raise CollapseError(step, f"target var {tv:.4f} < {MIN_TARGET_VAR}")
+    if tv is not None and tv < min_target_var:
+        raise CollapseError(step, f"target var {tv:.4f} < {min_target_var}")
     for k, v in metrics.items():
-        if k.startswith("pred_var") and v < MIN_PRED_VAR:
-            raise CollapseError(step, f"{k} {v:.4f} < {MIN_PRED_VAR}")
+        if k.startswith("pred_var") and v < min_pred_var:
+            raise CollapseError(step, f"{k} {v:.4f} < {min_pred_var}")
 
 
 class RunStopper:
@@ -296,7 +296,8 @@ def _train(run: RunConfig, state, step_fn, rngs, validate, sink, ckpt, device, m
                 sink.log(last, step)
                 _info(dp, "step %d %s", step, _fmt(last))
                 if collapse:
-                    _check_collapse(step, {k.split("/", 1)[1]: v for k, v in last.items()})
+                    _check_collapse(step, {k.split("/", 1)[1]: v for k, v in last.items()},
+                                    run.pretrain.min_target_var, run.pretrain.min_pred_var)
                 acc.reset()
             if _do_validate(run, step):
                 val, val_step = validate(step), step
@@ -449,7 +450,9 @@ def validate_pretrain(run: RunConfig, state, eval_fn, sink, step: int, device,
                       dp: Optional[DataParallel] = None) -> Dict[str, float]:
     """Pretrain validation: the masked-prediction loss and the variance
     statistics on the valid split (each batch's masks drawn from seed 0 and
-    the rank), over every rank's batches."""
+    the rank), and with the linear probe its confusion counts (and the
+    precision, recall and F1 derived from them), over every rank's
+    batches."""
     dp = dp or DataParallel(device=device)
     loader = _build_loader(run, run.dataset.valid_subset, False, 1, dp)
     acc = MetricsAccumulator()

@@ -1,11 +1,21 @@
 """data2vec-2 pretraining steps: the port of ``animal2vec_tpu/train/pretrain.py``.
 
-``pretrain_loss``: BC mixup (audio, training), the local features, the
-clone batch (each row repeated ``clone_batch`` times, each clone with its
-own mask), the static-count mask (2-D blocks for images, spans for audio)
-and its ``MaskInfo``, the keep-set student, the decoder, the EMA teacher on
-the unmasked, un-cloned local features, and the masked regression of the
-decoder's predictions on the teacher's targets at the masked positions.
+``pretrain_loss``: BC mixup (audio, training; with ``target_mixup`` and
+labels the labels mix too), the local features, the clone batch (each row
+repeated ``clone_batch`` times, each clone with its own mask), the
+static-count mask (2-D blocks for images, spans for audio) and its
+``MaskInfo`` (``keep_masked_pct`` of the masked tokens kept), the keep-set
+student (noise-filled masked steps under its positional convs with
+``encoder_zero_mask`` False), the decoders (shared, then the modality's),
+the EMA teacher on the unmasked, un-cloned local features, and the masked
+regression of each decoder's predictions on the teacher's targets at the
+masked positions, times ``d2v_loss``. Beside it: the image reconstruction
+term (``recon_loss``: the first decoder's output through ``recon_proj``
+against the normalized pixel patches at the masked positions), and with
+``with_labels`` the linear probe's focal loss at the masked positions with
+its confusion counts (``pretrain/*``) at ``metric_threshold``. Each term is
+scaled by its ``loss_weights`` entry before the division by the sample
+size.
 ``make_pretrain_train_step`` accumulates gradients over ``update_freq``
 micro-batches (the batch carries a leading micro-batch axis, as in JAX),
 applies one update, then one EMA step of the teacher.
@@ -53,12 +63,13 @@ import torch
 from animal2vec_tpu_torch.config import PretrainConfig
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
 from animal2vec_tpu_torch.ops.dropout import Rngs
-from animal2vec_tpu_torch.ops.losses import d2v_regression_loss
+from animal2vec_tpu_torch.models.data2vec2 import finish_targets
+from animal2vec_tpu_torch.ops.losses import d2v_regression_loss, sigmoid_focal_loss
 from animal2vec_tpu_torch.ops.masking import (
     block_mask_2d, expected_span_mask_tokens, make_mask_info_static, span_mask, take_rows,
 )
 from animal2vec_tpu_torch.ops.mixup import bc_mixup
-from animal2vec_tpu_torch.ops.stats import compute_var
+from animal2vec_tpu_torch.ops.stats import compute_var, confusion_counts
 from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import PretrainState, ema_decay_at, merge_params
 
@@ -73,18 +84,21 @@ def _block_masked(cfg: PretrainConfig) -> bool:
 
 
 def mask_tokens(cfg: PretrainConfig, t: int) -> int:
-    """The static number of masked tokens per row of a T-step sequence."""
+    """The static number of masked tokens per row of a T-step sequence
+    (before ``keep_masked_pct`` keeps some of them)."""
     if _block_masked(cfg):
-        return max(1, min(int(t * cfg.mask_prob), t - 1))
-    return expected_span_mask_tokens(t, cfg.mask_prob, cfg.mask_length)
+        m = int(t * cfg.mask_prob)
+        return max(1, min(t - m if cfg.inverse_mask else m, t - 1))
+    return expected_span_mask_tokens(t, cfg.mask_prob, cfg.mask_length, cfg.mask_dropout)
 
 
 def draw_pretrain_mask(cfg: PretrainConfig, rows: int, t: int, rngs: Rngs) -> torch.Tensor:
     """The recipe's mask on the rows generator: 2-D blocks (images with
     ``mask_length`` > 1) or spans."""
     if _block_masked(cfg):
-        return block_mask_2d(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows)
-    return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows)
+        return block_mask_2d(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows,
+                             cfg.mask_prob_adjust, cfg.inverse_mask)
+    return span_mask(rows, t, cfg.mask_prob, cfg.mask_length, rngs.rows, cfg.mask_dropout)
 
 
 _INT8_TEACHERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -130,8 +144,10 @@ def teacher_encode(model: Data2VecMulti, ema: Dict[str, torch.Tensor], local: to
 def teacher_targets(model: Data2VecMulti, ema: Dict[str, torch.Tensor],
                     local: torch.Tensor, impl: str = "") -> torch.Tensor:
     """The EMA teacher's (B, T, C) fp32 targets of the unmasked local
-    features (``teacher_encode``'s tap sum divided by k)."""
-    return teacher_encode(model, ema, local, impl)[1] / model.pretrain.average_top_k_layers
+    features (``teacher_encode``'s tap sum divided by k, finished)."""
+    cfg = model.pretrain
+    return finish_targets(teacher_encode(model, ema, local, impl)[1] / cfg.average_top_k_layers,
+                          cfg)
 
 
 def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Batch,
@@ -139,17 +155,19 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
                   draw_mask: Optional[MaskDraw] = None,
                   normalize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                   ) -> Tuple[torch.Tensor, Metrics]:
-    """The loss (summed regression over the masked tokens / their count) and
-    the metrics of one (micro-)batch: ``source`` (B, T_wav) or (B, H, W, C),
+    """The loss (the weighted terms summed over the masked tokens / their
+    count) and the metrics of one (micro-)batch: ``source`` (B, T_wav) or
+    (B, H, W, C), ``target`` (B, T, n) frame labels with ``with_labels``,
     optional ``n_valid`` (eval batches padded by repeated rows). Puts the
     model in train or eval mode. ``normalize`` maps the count to the loss's
     divisor (data parallelism: the count summed over the ranks)."""
     mode = cfg.modality
-    source = batch["source"]
+    source, target = batch["source"], batch.get("target")
     if train and mode == "AUDIO" and cfg.source_mixup >= 0 and cfg.mixup_prob > 0:
-        source, _ = bc_mixup(source, None, cfg.source_mixup, cfg.mixup_prob, cfg.same_mixup,
-                             cfg.gain_mode, model.cfg.sample_rate, cfg.mixing_window_length,
-                             False, rngs.rows)
+        source, target = bc_mixup(source, target, cfg.source_mixup, cfg.mixup_prob,
+                                  cfg.same_mixup, cfg.gain_mode, model.cfg.sample_rate,
+                                  cfg.mixing_window_length, cfg.target_mixup and cfg.with_labels,
+                                  rngs.rows)
     model.train(train)
     local = model.local_features(source)
     b, t, c = local.shape
@@ -157,9 +175,11 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
     local_c = local.repeat_interleave(clone, dim=0) if clone > 1 else local
     draw = draw_mask or (lambda rows, steps, r: draw_pretrain_mask(cfg, rows, steps, r))
     m_tokens = mask_tokens(cfg, t)
-    info = make_mask_info_static(draw(b * clone, t, rngs).to(local.device), m_tokens)
+    info = make_mask_info_static(draw(b * clone, t, rngs).to(local.device), m_tokens,
+                                 cfg.keep_masked_pct)
 
-    x, _, _, _ = model.encode(local_c, rngs=rngs, mask_info=info, remove_masked=True)
+    x, taps, _, keeps = model.encode(local_c, zero_mask=cfg.encoder_zero_mask, rngs=rngs,
+                                     mask_info=info, remove_masked=True)
     xs = model.decode_d2v(x, info, rngs)
     y = teacher_targets(model, ema, local, cfg.teacher_matmul_impl)  # (B, T [+ E], C) fp32
 
@@ -167,7 +187,8 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
     # clone axis into the gather index instead of repeating y
     ids_masked = info.ids_shuffle[:, info.ids_keep.shape[1]:]  # (B*clone, M)
     m_cnt = ids_masked.shape[1]
-    y_m = take_rows(y, ids_masked.reshape(b, clone * m_cnt)).reshape(b * clone, m_cnt, c)
+    ids_folded = ids_masked.reshape(b, clone * m_cnt)
+    y_m = take_rows(y, ids_folded).reshape(b * clone, m_cnt, c)
 
     n_valid = batch.get("n_valid")
     dev = local.device
@@ -184,11 +205,11 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
     losses: Dict[str, torch.Tensor] = {}
     metrics: Metrics = {}
     beta, scale = cfg.loss_beta, cfg.loss_scale
-    for i, xd in enumerate(xs):
+    for i, xd in enumerate(xs if cfg.d2v_loss > 0 else ()):
         x_m = take_rows(xd, ids_masked)
         name = f"{mode}_regression_{i}" if len(xs) > 1 else f"{mode}_regression"
         reg = d2v_regression_loss(x_m, y_m, beta, scale).reshape(b * clone, -1)
-        losses[name] = (reg * clone_w[:, None]).sum()
+        losses[name] = (reg * clone_w[:, None]).sum() * cfg.d2v_loss
         metrics[f"pred_var_{i}" if len(xs) > 1 else "pred_var"] = compute_var(x_m.detach())
     n_extra = model.cfg.num_extra_tokens
     if cfg.cls_loss > 0 and n_extra > 0:
@@ -199,14 +220,44 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
         cls_reg = d2v_regression_loss(x[:, n_extra - 1], cls_target, beta, scale)
         losses["cls"] = (cls_reg.reshape(b * clone, -1) * clone_w[:, None]).sum() \
             * cfg.cls_loss * denom  # the sample size over the ranks: the term sums
+    if cfg.recon_loss > 0 and mode == "IMAGE":
+        recon_t = take_rows(model.patchify_targets(batch["source"]), ids_folded)
+        recon = model.recon_head(take_rows(xs[0], ids_masked))
+        losses["recon"] = d2v_regression_loss(
+            recon, recon_t.reshape(b * clone, m_cnt, -1), beta, scale).sum() * cfg.recon_loss
+    if cfg.with_labels and target is not None:
+        metrics.update(_probe(model, cfg, taps, keeps, info, rngs, target, ids_masked,
+                              clone_w, losses))
 
-    loss = sum(losses.values()) / denom
+    loss = sum(v * cfg.loss_weight(k) for k, v in losses.items()) / denom
     metrics["target_var"] = compute_var(y_m)
     metrics["masked_pct"] = torch.tensor(m_tokens / t, dtype=torch.float32, device=dev)
     metrics["sample_size"] = sample_size
     for k, v in losses.items():
         metrics[f"loss_{k}"] = v.detach() / denom
     return loss, metrics
+
+
+def _probe(model: Data2VecMulti, cfg: PretrainConfig, taps, keeps, info, rngs: Rngs,
+           target: torch.Tensor, ids_masked: torch.Tensor, clone_w: torch.Tensor,
+           losses: Dict[str, torch.Tensor]) -> Metrics:
+    """The linear probe (``train/pretrain.py:260-306``): its full-length
+    logits and the (clone-repeated) labels at the masked positions, the
+    focal loss weighted by row into ``losses``; returns its confusion
+    counts at ``metric_threshold``."""
+    logits = take_rows(model.linear_eval(taps, info, keeps, rngs), ids_masked)
+    clone = cfg.clone_batch
+    tgt = take_rows(target.repeat_interleave(clone, dim=0) if clone > 1 else target,
+                    ids_masked)
+    rows = logits.shape[0]
+    loss = sigmoid_focal_loss(logits, tgt, reduction="none")
+    losses["linear_eval_loss"] = (loss.reshape(rows, -1) * clone_w[:, None]).sum()
+    preds = (torch.sigmoid(logits.detach().float()) >= cfg.metric_threshold).to(torch.int32)
+    w3 = clone_w.reshape(rows, 1, 1)
+    tp, fp, tn, fn = confusion_counts(preds, tgt, weights=w3)
+    return {"pretrain/n_correct": ((preds == tgt.to(torch.int32)) * w3).sum(),
+            "pretrain/total": clone_w.sum() * (preds.numel() // rows),
+            "pretrain/tp": tp, "pretrain/fp": fp, "pretrain/tn": tn, "pretrain/fn": fn}
 
 
 def make_pretrain_train_step(

@@ -7,8 +7,9 @@ entry point (train_cli: pretraining, finetuning from it, resume; then
 infer_cli serving the finetuned checkpoint), its serving entry points
 (convert_cli, export_cli, aot_cli bundles served without model code), data
 parallelism and the recipes' training configuration (train_cli --config,
-remat, the int8 teacher, dense-bias attention dropout, extra tokens) once
-on one GPU.
+remat, the int8 teacher, dense-bias attention dropout, extra tokens),
+and the rest of data2vec-2 pretraining (the probe, the shared decoder, the
+target norms, the masking options, image reconstruction) once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -215,7 +216,19 @@ Phases, one line or more each; any failure raises and exits non-zero:
    ran and median ms, b2 gradients kernel vs plain path with drop-path and
    activation dropout on; one variant P pretrain step at b8 x clone 12 with
    the A.7 dropouts (ms, peak memory); the PCEN scan's ms and memory at b32
-   serving and b4 training.
+   serving and b4 training;
+17. the rest of data2vec-2 pretraining (phase_a7): one a2v-large pretrain
+   step at b8 x clone 12, remat "attn", with every audio option (the focal
+   probe on frame labels with target mixup, a shared decoder 768/7/16/4
+   with a 2-layer projection head, layer-normed target layers and targets
+   at the blocks' ends, keep_masked_pct 0.1, mask_dropout 0.1,
+   noise-filled student masks, local_grad_mult 0.5, a loss weight) beside
+   the recipe's default step (losses, terms, launches, ms, peak memory); b1
+   x clone 2 gradients kernel vs plain path with those options; one
+   ViT-B/16 step with the reconstruction loss and the inverse mask (and
+   its b2 gradients); train_cli --config pretraining with the probe and a
+   shared decoder at depth 1 + 2, then finetuning from it with
+   finetune.load_pretrain_weights (the head equal to the probe at step 0).
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -4060,6 +4073,341 @@ def phase_options(card, dev):
     return launches, errs, rows
 
 
+# phase 17: the rest of data2vec-2 pretraining (ROADMAP A.7) at a2v-large
+# width: every audio option at the v5e recipe's micro-batch (b8 x clone 12,
+# remat "attn"), the kernel-vs-plain gradients with every rate at 0, the
+# ViT-B/16 reconstruction step, and train_cli --config pretraining with the
+# probe, then finetuning from it.
+A7_STEPS = 3  # timed steps after the checked one, as 15a
+A7_LOSS_WEIGHTS = (("linear_eval_loss", 0.5),)
+
+
+def a7_cfg(options=True, shared=True):
+    """The a2v-large pretraining recipe at the v5e micro-batch with remat
+    "attn", and with ``options`` every audio option of A.7 on: the focal
+    probe with target mixup, a shared decoder 768/7/16/4 with a 2-layer
+    projection head (unless not ``shared``), layer-normed target layers and
+    targets at the blocks' ends, keep_masked_pct 0.1, mask_dropout 0.1,
+    noise-filled student masks, local_grad_mult 0.5, a weight on the
+    probe's loss."""
+    from animal2vec_tpu_torch.config import DecoderConfig
+
+    base = _pretrain_v5e()
+    model = dataclasses.replace(base.model, remat=True, remat_scope="attn",
+                                end_of_block_targets=options)
+    if not options:
+        return dataclasses.replace(base, model=model)
+    return dataclasses.replace(
+        base, model=model, with_labels=True, target_mixup=True,
+        shared_decoder=DecoderConfig(768, 16, 7, 4, 0.1, projection_layers=2) if shared else None,
+        layer_norm_target_layer=True, layer_norm_targets=True, keep_masked_pct=0.1,
+        mask_dropout=0.1, encoder_zero_mask=False, local_grad_mult=0.5,
+        loss_weights=A7_LOSS_WEIGHTS)
+
+
+def a7_batch(cfg, dev, batch, seed, accum=1):
+    """``pretrain_batch`` with (B, T, n) 0/1 frame labels for the probe."""
+    from animal2vec_tpu_torch.ops.conv_arith import label_frame_length
+
+    data = pretrain_batch(cfg, dev, batch, seed, accum)
+    if cfg.with_labels:
+        t = label_frame_length(WAV_LEN, cfg.model.conv_layers)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        data["target"] = (torch.rand((accum, batch, t, len(cfg.model.labels)), generator=gen,
+                                     device=dev) < 0.2).float()
+    return data
+
+
+def phase_a7_step(card, dev):
+    """17a. One a2v-large pretrain step with every audio option on, the
+    same without the shared decoder (its cost is the difference) and the
+    recipe's default step, each at b8 x clone 12 with remat "attn" from the
+    same seed: finite losses, every loss term (the regressions, the probe),
+    the launches per block (the student's #2 twice under remat, #3, #4, #6;
+    the teacher's #1 and #6), no plain version on a CUDA tensor, the kept
+    token count, then the median of three more steps' ms and their peak
+    memory. Returns (launches of the checked steps, rows)."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.conv_arith import label_frame_length
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step, mask_tokens
+    from animal2vec_tpu_torch.train.state import PretrainState
+
+    total = dict.fromkeys(_counted(), 0)
+    rows = {}
+    for label, options, shared in (("every option", True, True),
+                                   ("every option but the shared decoder", True, False),
+                                   ("recipe default", False, False)):
+        cfg = a7_cfg(options, shared)
+        torch.cuda.empty_cache()
+        model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+        state = PretrainState.create(model, cfg)
+        state.step = cfg.optimization.warmup_updates
+        step_fn = make_pretrain_train_step(cfg)
+        data = a7_batch(cfg, dev, V5E_BATCH, SEED + 71)
+        n = cfg.model.n_blocks
+        want = dict(pretrain_launches(cfg), attention=2 * n)  # remat "attn" recomputes #2
+        reset_counts()
+        with PlainSpy() as spy:
+            metrics = step_fn(state, data, Rngs.from_seed(SEED, dev))
+        torch.cuda.synchronize()
+        got = counts()
+        losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss")}
+        t = label_frame_length(WAV_LEN, cfg.model.conv_layers)  # 2000 frames of 10 s
+        m = mask_tokens(cfg, t)
+        kept = t - m + round(m * cfg.keep_masked_pct)
+        terms = ["loss_AUDIO_regression_0", "loss_AUDIO_regression_1"] if shared else [
+            "loss_AUDIO_regression"]
+        terms += ["loss_linear_eval_loss"] if options else []
+        print(f"17a a2v-large pretrain b{V5E_BATCH} x clone {cfg.clone_batch}, remat attn, "
+              f"{label}: losses {losses}; student tokens {kept} of {t} ({m} masked, "
+              f"{t - kept} regressed); launches {launch_line(got)} (expected "
+              f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+        bad = [k for k, p in model.named_parameters()
+               if p.grad is not None and not torch.isfinite(p.grad).all()]
+        if not all(np.isfinite(v) for v in losses.values()) or bad:
+            raise AssertionError(f"17a {label}: a non-finite loss or gradient {bad[:3]}")
+        if sorted(k for k in losses if k != "loss") != sorted(terms):
+            raise AssertionError(f"17a {label}: loss terms {sorted(losses)} != {terms}")
+        if got != want or spy.cuda_calls:
+            raise AssertionError(f"17a {label}: launches {got} != {want}, or a plain call")
+        if shared:
+            probe = metrics["pretrain/total"]
+            print(f"17a probe: {int(probe)} (row, frame, class) predictions at threshold "
+                  f"{cfg.metric_threshold}, tp {float(metrics['pretrain/tp']):.0f}, fp "
+                  f"{float(metrics['pretrain/fp']):.0f}; shared decoder and probe gradients "
+                  f"{model.shared_decoder.proj_1.weight.grad.float().norm().item():.3e}, "
+                  f"{model.linear_eval_projection.weight.grad.float().norm().item():.3e}")
+            if not (model.linear_eval_projection.weight.grad.abs().sum() > 0
+                    and model.shared_decoder.blocks[0].weight.grad.abs().sum() > 0):
+                raise AssertionError("17a: no gradient for the probe or the shared decoder")
+        total = {k: total[k] + got[k] for k in total}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(A7_STEPS):
+            t0 = time.perf_counter()
+            step_fn(state, data, Rngs.from_seed(SEED + 1 + i, dev))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows[label] = {"ms": ms, "peak_gib": peak, "student_tokens": kept}
+        print(f"17a {label}: steps 2-{A7_STEPS + 1} {[round(x, 1) for x in times]} ms (median "
+              f"{ms:.1f}), peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated) on {card}")
+        del state, model, step_fn, data
+    torch.cuda.empty_cache()
+    with_shared, without = rows["every option"], rows["every option but the shared decoder"]
+    print(f"17a the shared decoder's cost: "
+          f"{with_shared['ms'] - without['ms']:+.1f} ms, "
+          f"{with_shared['peak_gib'] - without['peak_gib']:+.2f} GiB peak on {card}")
+    return total, rows
+
+
+def a7_grads(cfg, dev, batch, label, must):
+    """At ``batch`` x clone 2 with every rate at 0 (no mixup, dropout or
+    decoder input dropout; the noise fills drawn alike on both paths from
+    one seed), the biases moved off 0 and one mask drawn once: the loss's
+    gradients through the kernels against those through the plain versions,
+    one relative norm per parameter tensor; the tensors named in ``must``
+    (the new parameters) among them. Returns the worst relative norm."""
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import draw_pretrain_mask, pretrain_loss
+    from animal2vec_tpu_torch.train.state import ema_subset
+
+    no_drop = {d: dataclasses.replace(getattr(cfg, d), input_dropout=0.0)
+               for d in ("decoder", "shared_decoder") if getattr(cfg, d) is not None}
+    cfg = dataclasses.replace(
+        cfg, clone_batch=2, encoder_dropout=0.0, attention_dropout=0.0, post_mlp_drop=0.0,
+        prenet_dropout=0.0, activation_dropout=0.0, final_dropout=0.0, source_mixup=-1.0,
+        **no_drop)
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 18)
+    with torch.no_grad():  # as phase_pretrain_grads: biases off 0
+        for n, p in model.named_parameters():
+            if n.endswith(".bias"):
+                p.add_((0.05 * torch.randn(p.shape, generator=gen)).to(p.device))
+    ema = ema_subset(model, cfg.ema_encoder_only)
+    mb = {k: v[0] for k, v in a7_batch(cfg, dev, batch, SEED + 15).items()}
+    masks = {}
+
+    def draw(rows, t, rngs):
+        if (rows, t) not in masks:
+            masks[rows, t] = draw_pretrain_mask(cfg, rows, t, Rngs.from_seed(SEED + 16, "cpu"))
+        return masks[rows, t]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = pretrain_loss(model, ema, mb, Rngs.from_seed(SEED, dev), cfg, True, draw)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                                      for n, p in model.named_parameters() if p.grad is not None}
+
+    loss_k, g_k = grads()
+    with PlainOps():
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    rels = {n: rel_norm(g_k[n], g_p[n]) for n in g_p if g_p[n].norm() > 0}
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"{label} gradients b{batch} x clone 2, kernel vs plain path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; relative norm per tensor: max {worst[0][1]:.3e}, median "
+          f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors (tolerance "
+          f"{MODEL_GRAD_TOL}); {', '.join(f'{n} {rels[n]:.2e}' for n in must)}; worst "
+          f"{[(n, f'{r:.2e}') for n, r in worst]}")
+    if set(rels) != {n for n in g_k if g_k[n].norm() > 0} or not set(must) <= set(rels):
+        raise AssertionError(f"{label}: the paths give gradients to different parameters")
+    if not max(rels.values()) <= MODEL_GRAD_TOL:
+        raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+    return worst[0][1]
+
+
+def phase_a7_image(card, dev):
+    """17c. One ViT-B/16 pretrain step (``vit_b16``) with the reconstruction
+    loss 1, the inverse block mask and mask_prob_adjust 0.05 at b64 x clone
+    2: finite losses with the recon term, #11's launches (student and
+    teacher), the student's backward route for its kept patches (#11b's
+    single launch up to 64, dq and dk/dv beyond), #6's; then b2 gradients
+    kernel vs plain path (recon_proj among them). Returns (launches, rows)."""
+    from animal2vec_tpu_torch.config import PretrainConfig
+    from animal2vec_tpu_torch.models.finetune import build_pretrain_model
+    from animal2vec_tpu_torch.ops.dropout import Rngs
+    from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step, mask_tokens
+    from animal2vec_tpu_torch.train.state import PretrainState
+
+    cfg = PretrainConfig.vit_b16(recon_loss=1.0, inverse_mask=True, mask_prob_adjust=0.05)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    state = PretrainState.create(model, cfg)
+    state.step = cfg.optimization.warmup_updates
+    step_fn = make_pretrain_train_step(cfg)
+    data = pretrain_batch(cfg, dev, IMAGE_BATCH, SEED + 73)
+    n = cfg.model.n_blocks
+    kept = IMAGE_T - mask_tokens(cfg, IMAGE_T)
+    want = dict.fromkeys(_counted(), 0)
+    want.update(bias_attention=2 * n, block=2 * n,
+                **({"bias_single": n} if kept <= 64 else {"bias_dq": n, "bias_dkv": n}))
+    reset_counts()
+    with PlainSpy() as spy:
+        metrics = step_fn(state, data, Rngs.from_seed(SEED, dev))
+    torch.cuda.synchronize()
+    got = counts()
+    losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss")}
+    t0 = time.perf_counter()
+    step_fn(state, data, Rngs.from_seed(SEED + 1, dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"17c ViT-B/16 pretrain b{IMAGE_BATCH} x clone 2, recon 1, inverse mask, "
+          f"mask_prob_adjust 0.05: {kept} of {IMAGE_T} patches kept; losses {losses}; launches "
+          f"{launch_line(got)} (expected {launch_line(want)}); plain-version calls on CUDA "
+          f"tensors {spy.cuda_calls}; second step {ms:.1f} ms, peak memory {peak:.2f} GiB on "
+          f"{card}")
+    if not all(np.isfinite(v) for v in losses.values()) or "loss_recon" not in losses:
+        raise AssertionError("17c: a non-finite loss or no recon term")
+    if got != want or spy.cuda_calls:
+        raise AssertionError(f"17c: launches {got} != {want}, or a plain call")
+    del state, model, step_fn, data
+    torch.cuda.empty_cache()
+    worst = a7_grads(cfg, dev, 2, "17c ViT-B/16 recon", ["recon_proj.weight"])
+    return got, {"ms": ms, "peak_gib": peak, "kept": kept, "grad_rel_max": worst}
+
+
+# 17d: train_cli --config on a copy of a2v_large_pretrain.yaml, depth 1 + 2
+A7_CLI = ("task.with_labels=true", "model.shared_decoder.decoder_dim=768",
+          "model.shared_decoder.decoder_kernel=7", "model.shared_decoder.decoder_layers=4",
+          "model.shared_decoder.projection_layers=2", "model.layer_norm_targets=true")
+
+
+def phase_a7_cli(card, dev):
+    """17d. train_cli --config on a copy of a2v_large_pretrain.yaml at
+    a2v-large width, depth 1 + 2, on 24 synthetic 10-s clips with .npz
+    labels: 2 pretraining steps with the probe (task.with_labels), a shared
+    decoder and layer-normed targets; then finetune_100.yaml 1 step from
+    that checkpoint with finetune.load_pretrain_weights: its head at step 0
+    equals the probe bit for bit. Returns the launches."""
+    from animal2vec_tpu_torch.config import load_config
+    from animal2vec_tpu_torch.data.synthetic import generate
+    from animal2vec_tpu_torch.recipes import RECIPES
+    from animal2vec_tpu_torch.tools import train_cli
+    from animal2vec_tpu_torch.train.build import init_finetune
+    from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
+
+    totals = dict.fromkeys(_counted(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate(os.path.join(tmp, "data"), n_clips=ENTRY_CLIPS, clip_seconds=10.0,
+                        seed=SEED, label_ext="npz")
+        recipe = os.path.join(tmp, "a2v_large_pretrain.yaml")
+        shutil.copy(RECIPES["a2v_large_pretrain"], recipe)
+        ft_args = [*CONFIG_COMMON, *CONFIG_CUT, *CONFIG_FINETUNE,
+                   "finetune.load_pretrain_weights=true"]
+        runs = (("pretrain", recipe, 2, [*CONFIG_COMMON, *CONFIG_CUT, *A7_CLI], []),
+                ("finetune", str(RECIPES["finetune_100"]), 1, ft_args,
+                 ["--pretrained", os.path.join(tmp, "pretrain")]))
+        for name, path, steps, extra, more in runs:
+            if name == "finetune":
+                pre = load_checkpoint_dir(os.path.join(tmp, "pretrain"))["model"]
+                run = load_config(path, extra + [f"task.data={data}"])
+                model, _ = init_finetune(run, dev, pre)
+                same = all(torch.equal(getattr(model.proj, leaf).detach().cpu(),
+                                       pre[f"linear_eval_projection.{leaf}"].cpu())
+                           for leaf in ("weight", "bias"))
+                print(f"17d finetune head at step 0 (load_pretrain_weights): equal to the "
+                      f"pretraining probe bit for bit: {same}")
+                if not same:
+                    raise AssertionError("17d: the finetune head is not the probe")
+                del model
+                torch.cuda.empty_cache()
+            reset_counts()
+            t0 = time.perf_counter()
+            with EntryWatch() as watch, PlainSpy() as spy:
+                out = train_cli.main(["--config", path, "--data", data, "--save-dir",
+                                      os.path.join(tmp, name), "--max-steps", str(steps),
+                                      "--device", dev.type, *more, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = counts()
+            totals = {k: totals[k] + got[k] for k in totals}
+            losses = [round(s["loss"], 5) for s in watch.steps]
+            print(f"17d train_cli --config {os.path.basename(path)} ({name}, depth 1 + 2; "
+                  f"{' '.join(extra)}): {len(watch.steps)} steps in {seconds:.2f} s, losses "
+                  f"{losses}; logged {({k: round(v, 4) for k, v in (out or {}).items() if 'linear_eval' in k or 'pretrain/' in k})}; "
+                  f"launches {launch_line(got)}; plain-version calls on CUDA tensors "
+                  f"{spy.cuda_calls} on {card}")
+            if len(watch.steps) != steps or spy.cuda_calls or out is None:
+                raise AssertionError(f"17d {name}: {len(watch.steps)} steps or a plain call")
+            if not all(np.isfinite(s["loss"]) for s in watch.steps):
+                raise AssertionError(f"17d {name}: a non-finite loss")
+            if name == "pretrain" and not out.get("train/loss_linear_eval_loss", 0) > 0:
+                raise AssertionError("17d: the pretraining run has no probe loss")
+            del watch
+            torch.cuda.empty_cache()
+    return totals
+
+
+def phase_a7(card, dev):
+    """17. The rest of data2vec-2 pretraining: 17a-17d. Returns (launches
+    by kernel key over the phase's main-path runs, the rows)."""
+    t0 = time.perf_counter()
+    launches, rows = phase_a7_step(card, dev)
+    rows["grad_rel_max"] = a7_grads(
+        a7_cfg(), dev, 1, "17b a2v-large every option",
+        ["linear_eval_projection.weight", "shared_decoder.proj_0.weight",
+         "shared_decoder.proj_1.weight", "shared_decoder.blocks.0.weight"])
+    got, rows["image"] = phase_a7_image(card, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    got = phase_a7_cli(card, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    rows["seconds"] = time.perf_counter() - t0
+    print(f"17 launches over the phase's main-path runs: {launch_line(launches)}; phase "
+          f"{rows['seconds']:.1f} s")
+    print(json.dumps({"phase17": rows}))
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4151,6 +4499,8 @@ def main() -> int:
     print(json.dumps({"phase15": {"remat": remat_rows, "tokens": tokens}}))
     torch.cuda.empty_cache()
     option_launches, option_errs, option_rows = phase_options(card, dev)
+    torch.cuda.empty_cache()
+    a7_launches, _ = phase_a7(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -4315,12 +4665,22 @@ def main() -> int:
     for name, key in (("fused_mlp", "mlp"), ("fused_block", "block"),
                       ("bias_flash_attention", "bias_attention")):
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], option_errs[key])
+    # phase 17: the rest of pretraining's main-path runs (the option step and
+    # the recipe's default step, the ViT-B/16 recon step, train_cli --config)
+    for name, key in (("alibi_flash_attention_serve", "serve_attention"),
+                      ("alibi_flash_attention", "attention"), ("alibi_attention_dq", "dq"),
+                      ("alibi_attention_dkv", "dkv"), ("fused_block", "block"),
+                      ("bias_flash_attention", "bias_attention"),
+                      ("bias_attention_bwd_single", "bias_single")):
+        by_name[name]["launches_a7"] = a7_launches[key]
+        by_name[name]["launches"] += a7_launches[key]
     for what, line in (("dq", 1287), ("dkv", 941)):
         kernels.append(dict(
             {"name": f"bias_attention_{what}", "route": "cuda",
              "source": "animal2vec_tpu_torch/csrc/bias_attention_bwd.cu",
              "replaces": f"{fa}:{line} (_flash_attention_bwd_{what})",
-             "launches": option_launches[f"bias_{what}"],
+             "launches": option_launches[f"bias_{what}"] + a7_launches[f"bias_{what}"],
+             "launches_a7": a7_launches[f"bias_{what}"],
              "max_abs_err": max(option_errs[f"bias_{what}"], bias_train[what])},
             **option_rows[f"bias attention {what}, no bias, b{TRAIN_BATCH} T 2000"]))
     print(json.dumps({"kernels": kernels}))

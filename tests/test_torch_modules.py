@@ -121,6 +121,7 @@ def test_config_preset_matches_finetune_100_yaml():
         "extractor_mode": audio_cfg.extractor_mode,
         "conv_pos_pre_ln": audio_cfg.conv_pos_pre_ln,
         "layer_norm_first": m.layer_norm_first, "norm_affine": m.norm_affine,
+        "end_of_block_targets": m.end_of_block_targets,
         "use_alibi_encoder": audio_cfg.use_alibi_encoder,
         "learned_alibi_scale_per_head": audio_cfg.learned_alibi_scale_per_head,
         # a finetune run's trunk takes finetune.drop_path (build_finetune_encoder_cfg)

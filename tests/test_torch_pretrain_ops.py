@@ -78,7 +78,19 @@ def test_pretrain_config_matches_the_a2v_recipe():
         source_mixup=mix.source_mixup, mixup_prob=mix.mixup_prob, same_mixup=mix.same_mixup,
         mixing_window_length=mix.mixing_window_length, gain_mode=mix.gain_mode,
         teacher_matmul_impl=m.teacher_matmul_impl, cls_loss=m.cls_loss, loss_beta=m.loss_beta,
-        loss_scale=m.loss_scale,
+        loss_scale=m.loss_scale, shared_decoder=m.shared_decoder,
+        mask_dropout=audio.mask_dropout, keep_masked_pct=audio.keep_masked_pct,
+        encoder_zero_mask=audio.encoder_zero_mask, local_grad_mult=audio.local_grad_mult,
+        mask_prob_adjust=0.0, inverse_mask=False,  # the audio span mask reads neither
+        instance_norm_target_layer=m.instance_norm_target_layer,
+        layer_norm_target_layer=m.layer_norm_target_layer,
+        batch_norm_target_layer=m.batch_norm_target_layer,
+        instance_norm_targets=m.instance_norm_targets, layer_norm_targets=m.layer_norm_targets,
+        target_mixup=mix.target_mixup, d2v_loss=m.d2v_loss, recon_loss=m.recon_loss,
+        loss_weights=tuple(sorted((cfg.criterion.loss_weights or {}).items())),
+        with_labels=m.with_labels, use_focal_loss=m.use_focal_loss,
+        final_dropout=m.final_dropout, metric_threshold=m.metric_threshold,
+        min_target_var=m.min_target_var, min_pred_var=m.min_pred_var,
     )
     ours = PretrainConfig()
     assert set(expected) | {"model", "decoder", "optimization"} == {
@@ -160,7 +172,7 @@ def test_vit_b16_matches_the_jax_image_defaults():
     (lambda: PretrainConfig(model=FinetuneConfig(matmul_impl="int8")), NotImplementedError),
     (lambda: PretrainConfig(clone_batch=0), ValueError),
     (lambda: PretrainConfig(optimization=OptimizationConfig(schedule="linear")), ValueError),
-    (lambda: PretrainConfig(recon_loss=1.0), TypeError),
+    (lambda: PretrainConfig(end_of_block_targets=True), TypeError),  # the encoder's field
 ])
 def test_pretrain_config_refuses(make, err):
     """Each refusal; attention dropout with the image modality's dense bias

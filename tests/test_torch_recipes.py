@@ -109,7 +109,8 @@ def test_load_config_matches_jax(name):
         remat_decoder=m.remat_decoder, sinc_input=audio.sinc_input,
         apply_window_to_root=audio.apply_window_to_root, extractor_mode=audio.extractor_mode,
         conv_pos_pre_ln=audio.conv_pos_pre_ln, layer_norm_first=m.layer_norm_first,
-        norm_affine=m.norm_affine, use_alibi_encoder=audio.use_alibi_encoder,
+        norm_affine=m.norm_affine, end_of_block_targets=m.end_of_block_targets,
+        use_alibi_encoder=audio.use_alibi_encoder,
         learned_alibi_scale_per_head=audio.learned_alibi_scale_per_head,
         start_drop_path_rate=ft.drop_path if ft else m.start_drop_path_rate,
         end_drop_path_rate=ft.drop_path if ft else m.end_drop_path_rate,
@@ -140,7 +141,7 @@ def test_load_config_matches_jax(name):
             activation_dropout=ft.activation_dropout, attention_dropout=ft.attention_dropout,
             final_dropout=ft.final_dropout, layerdrop=ft.layerdrop, drop_path=ft.drop_path,
             update_alibi=ft.update_alibi, load_ema=ft.load_ema,
-            source_mixup=mix.source_mixup, mixup_prob=mix.mixup_prob,
+            load_pretrain_weights=ft.load_pretrain_weights, source_mixup=mix.source_mixup, mixup_prob=mix.mixup_prob,
             same_mixup=mix.same_mixup, mixing_window_length=mix.mixing_window_length,
             gain_mode=mix.gain_mode, target_mixup=mix.target_mixup,
             use_focal_loss=crit.use_focal_loss, label_smoothing=crit.label_smoothing,
@@ -164,7 +165,20 @@ def test_load_config_matches_jax(name):
             mixing_window_length=mix.mixing_window_length, gain_mode=mix.gain_mode,
             teacher_matmul_impl=m.teacher_matmul_impl, cls_loss=m.cls_loss,
             loss_beta=m.loss_beta, loss_scale=m.loss_scale,
-            optimization=opt)
+            optimization=opt, shared_decoder=m.shared_decoder,
+            mask_dropout=audio.mask_dropout, keep_masked_pct=audio.keep_masked_pct,
+            encoder_zero_mask=audio.encoder_zero_mask, local_grad_mult=audio.local_grad_mult,
+            mask_prob_adjust=0.0, inverse_mask=False,  # the audio span mask reads neither
+            instance_norm_target_layer=m.instance_norm_target_layer,
+            layer_norm_target_layer=m.layer_norm_target_layer,
+            batch_norm_target_layer=m.batch_norm_target_layer,
+            instance_norm_targets=m.instance_norm_targets,
+            layer_norm_targets=m.layer_norm_targets, target_mixup=mix.target_mixup,
+            d2v_loss=m.d2v_loss, recon_loss=m.recon_loss,
+            loss_weights=tuple(sorted((crit.loss_weights or {}).items())),
+            with_labels=m.with_labels, use_focal_loss=m.use_focal_loss,
+            final_dropout=m.final_dropout, metric_threshold=m.metric_threshold,
+            min_target_var=m.min_target_var, min_pred_var=m.min_pred_var)
         assert {f.name for f in dataclasses.fields(p)} == set(want_pre) | {"decoder"}
         for key, value in want_pre.items():
             assert getattr(p, key) == value, key
@@ -278,6 +292,70 @@ def test_moved_key_maps(key):
     if key == A + "sinc_norm":
         with pytest.raises(ValueError, match="sinc_norm"):
             load_config(str(recipes.RECIPES[name]), [f"{key}=other"])
+
+
+P = "a2v_large_pretrain"
+# the keys of the rest of pretraining (ROADMAP A.7) moved from REFUSED to
+# MAPPED: key -> (recipe, value, the run's field it reaches, what it reads)
+MOVED_A7 = {
+    "criterion.loss_weights": (P, {"linear_eval_loss": 0.5},
+                               lambda r: r.pretrain.loss_weights,
+                               (("linear_eval_loss", 0.5),)),
+    "model.end_of_block_targets": (P, True, lambda r: r.pretrain.model.end_of_block_targets,
+                                   True),
+    "model.layer_norm_target_layer": (P, True, lambda r: r.pretrain.layer_norm_target_layer,
+                                      True),
+    "model.batch_norm_target_layer": (P, True, lambda r: r.pretrain.batch_norm_target_layer,
+                                      True),
+    "model.instance_norm_target_layer": (
+        P, False, lambda r: r.pretrain.instance_norm_target_layer, False),
+    "model.instance_norm_targets": (P, True, lambda r: r.pretrain.instance_norm_targets, True),
+    "model.layer_norm_targets": (P, True, lambda r: r.pretrain.layer_norm_targets, True),
+    "model.shared_decoder": (P, {"decoder_dim": 32, "decoder_groups": 4, "projection_layers": 2},
+                             lambda r: (r.pretrain.shared_decoder.decoder_dim,
+                                        r.pretrain.shared_decoder.projection_layers), (32, 2)),
+    "model.min_target_var": (P, 0.2, lambda r: r.pretrain.min_target_var, 0.2),
+    "model.min_pred_var": (P, 0.02, lambda r: r.pretrain.min_pred_var, 0.02),
+    "model.recon_loss": (P, 1.0, lambda r: r.pretrain.recon_loss, 1.0),
+    "model.d2v_loss": (P, 0.5, lambda r: r.pretrain.d2v_loss, 0.5),
+    "model.final_dropout": (P, 0.1, lambda r: r.pretrain.final_dropout, 0.1),
+    "model.metric_threshold": (P, 0.4, lambda r: r.pretrain.metric_threshold, 0.4),
+    "model.mixup.target_mixup": (P, True, lambda r: r.pretrain.target_mixup, True),
+    A + "keep_masked_pct": (P, 0.1, lambda r: r.pretrain.keep_masked_pct, 0.1),
+    A + "mask_dropout": (P, 0.1, lambda r: r.pretrain.mask_dropout, 0.1),
+    A + "encoder_zero_mask": (P, False, lambda r: r.pretrain.encoder_zero_mask, False),
+    A + "local_grad_mult": (P, 0.5, lambda r: r.pretrain.local_grad_mult, 0.5),
+    A + "decoder": (P, None, lambda r: r.pretrain.decoder, None),
+    A + "decoder.projection_layers": (P, 3, lambda r: r.pretrain.decoder.projection_layers, 3),
+    A + "decoder.projection_ratio": (P, 1.5, lambda r: r.pretrain.decoder.projection_ratio, 1.5),
+    "finetune.load_pretrain_weights": ("finetune_100", True,
+                                       lambda r: r.finetune.load_pretrain_weights, True),
+    A + "inverse_mask": (P, True, lambda r: r.pretrain.inverse_mask, False),  # ignored
+}
+
+
+@pytest.mark.parametrize("key", sorted(MOVED_A7))
+def test_pretraining_key_maps(key):
+    """Each key of the rest of pretraining is mapped now (the audio
+    ``inverse_mask`` ignored, as JAX's span mask reads it nowhere): a value
+    other than the recipe's, on a copy of the recipe, reaches its field of
+    the run; a shared decoder comes from the schema's decoder defaults with
+    the keys given; the modality decoder may be absent beside a shared one
+    only."""
+    name, value, field, want = MOVED_A7[key]
+    assert key not in recipes.REFUSED
+    assert key in (recipes.IGNORED if key.endswith("inverse_mask") else recipes.MAPPED)
+    extra = ["model.shared_decoder.decoder_dim=768"] if key == A + "decoder" else []
+    if key in ("model.shared_decoder", "criterion.loss_weights"):
+        overrides = [f"{key}.{k}={v}" for k, v in value.items()] \
+            if key == "model.shared_decoder" else [f"{key}={value!r}"]
+    else:
+        overrides = [f"{key}={value}"]
+    run = load_config(str(recipes.RECIPES[name]), overrides + extra)
+    assert field(run) == want
+    if key == A + "decoder":
+        with pytest.raises(ValueError, match="needs a decoder"):
+            load_config(str(recipes.RECIPES[name]), overrides)
 
 
 def test_ignored_keys_load_and_unknown_keys_raise(caplog):
@@ -427,3 +505,46 @@ def test_train_cli_suppresses_crashes(tmp_path, caplog):
                           str(tmp_path / "missing"), "--save-dir", str(tmp_path / "run"),
                           "--device", "cpu", "common.suppress_crashes=true", *TINY_CLI])
     assert out is None and "run crashed (suppressed)" in caplog.text
+
+
+def test_train_cli_pretrains_with_the_probe_then_hands_it_over(corpus, tmp_path):
+    """``train_cli --config`` on the pretraining copy with the keys of the
+    rest of pretraining (labels and the focal probe, a shared decoder with a
+    projection head, the layer-normed targets, masking options, loss
+    weights), two steps; then a finetune run from its checkpoint with
+    ``finetune.load_pretrain_weights``: at step 0 its head is the probe bit
+    for bit, and it trains a step."""
+    from animal2vec_tpu_torch.train.build import init_finetune
+    from animal2vec_tpu_torch.train.checkpoint import load_checkpoint_dir
+
+    labels = [f"task.unique_labels=\"{list(LABELS)}\""]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = train_cli.main([
+            "--config", str(recipes.RECIPES["a2v_large_pretrain"]), "--data", corpus,
+            "--save-dir", str(tmp_path / "pre"), "--max-steps", "2", "--device", "cpu",
+            *TINY_CLI, *labels, "task.with_labels=true", "dataset.train_subset=train_0",
+            "model.shared_decoder.decoder_dim=16", "model.shared_decoder.decoder_groups=4",
+            "model.shared_decoder.decoder_kernel=3", "model.shared_decoder.decoder_layers=1",
+            "model.shared_decoder.projection_layers=2", "model.layer_norm_targets=true",
+            A + "keep_masked_pct=0.1", A + "mask_dropout=0.1",
+            "criterion.loss_weights={'linear_eval_loss': 0.5}"])
+        assert np.isfinite(out["train/loss"]) and out["train/loss_linear_eval_loss"] > 0
+        assert out["train/pretrain/total"] > 0
+        pre = load_checkpoint_dir(str(tmp_path / "pre"))["model"]
+        ft_args = [*TINY_CLI, *labels, "dataset.train_subset=train_0",
+                   "finetune.average_top_k_layers=2", "finetune.freeze_finetune_updates=0",
+                   "finetune.mask_channel_length=4", "finetune.load_pretrain_weights=true"]
+        run = load_config(str(recipes.RECIPES["finetune_100"]),
+                          ft_args + [f"task.data={corpus}"])
+        model, _ = init_finetune(run, "cpu", pre)
+        assert torch.equal(model.proj.weight, pre["linear_eval_projection.weight"])
+        assert torch.equal(model.proj.bias, pre["linear_eval_projection.bias"])
+        out = train_cli.main(["--config", str(recipes.RECIPES["finetune_100"]), "--data", corpus,
+                              "--save-dir", str(tmp_path / "ft"), "--max-steps", "1",
+                              "--pretrained", str(tmp_path / "pre"), "--device", "cpu",
+                              *ft_args])
+        assert np.isfinite(out["train/loss"])
+    finally:
+        torch.set_num_threads(n)

@@ -339,6 +339,7 @@ def test_train_preset_matches_finetune_100_yaml():
         "activation_dropout": ft.activation_dropout, "attention_dropout": ft.attention_dropout,
         "final_dropout": ft.final_dropout, "layerdrop": ft.layerdrop, "drop_path": ft.drop_path,
         "update_alibi": ft.update_alibi, "load_ema": ft.load_ema,
+        "load_pretrain_weights": ft.load_pretrain_weights,
         "source_mixup": mix.source_mixup, "mixup_prob": mix.mixup_prob,
         "same_mixup": mix.same_mixup, "mixing_window_length": mix.mixing_window_length,
         "gain_mode": mix.gain_mode, "target_mixup": mix.target_mixup,

@@ -134,8 +134,8 @@ def collapse(dp, inp):
     records the step at which it raised ``CollapseError``."""
     from animal2vec_tpu_torch.train import loop
 
-    loop.COLLAPSE_AFTER, loop.MIN_TARGET_VAR = 0, 1e9
-    run = RunConfig(pretrain=inp["pt_cfg"],
+    loop.COLLAPSE_AFTER = 0
+    run = RunConfig(pretrain=dataclasses.replace(inp["pt_cfg"], min_target_var=1e9),
                     common=CommonConfig(compute_dtype="float32", log_interval=1),
                     task=TaskConfig(data=inp["val_data"], max_sample_size=WAV),
                     dataset=DatasetConfig(batch_size=2, num_workers=1, train_subset="train_0",
