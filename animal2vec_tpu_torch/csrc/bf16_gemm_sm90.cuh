@@ -2,7 +2,10 @@
 // epilogue: wgmma on 128-byte swizzled shared-memory tiles behind a
 // cp.async ring: the bf16 GEMM core of the fused post-LN block's two
 // products (#6, fused_block.cu) and of the plain fused MLP's (#8,
-// fused_mlp.cu, without dropout).
+// fused_mlp.cu, without dropout). The GEMM probe (#12b, probe_gemm.cu)
+// runs the same core without bias, GELU or dropout (BIAS false) at a row
+// tile BM of 64, 128 or 256 rows (BM / 64 warpgroups); #6 and #8 run the
+// 128-row instances with a bias.
 //
 //   C[N, NOUT] = bf16(drop(act(A[N, K] W[NOUT, K]^T + bias)))
 //
@@ -13,7 +16,8 @@
 // (DROP; common.cuh, bit for bit the mask of the plain version and of the
 // backward's recompute) and one rounding to bf16.
 //
-// Design: one block of two warpgroups per 128 x 128 output tile; each
+// Design: one block of two warpgroups per 128 x 128 output tile (BM / 64
+// warpgroups per BM x 128 tile in the probe's instances); each
 // warpgroup owns 64 rows and issues wgmma m64n128k16 with A (its 64 rows)
 // and W (the tile's 128 columns) read from shared memory (SS). A K step is
 // 64 bf16 = one 128-byte swizzled row, four k16 steps. The (A, W) tiles of
@@ -51,42 +55,50 @@
 namespace a2v {
 namespace {
 
-constexpr int kG16BM = 128;       // output tile rows: two warpgroups of 64
+constexpr int kG16BM = 128;       // output tile rows of #6 and #8: two warpgroups of 64
 constexpr int kG16BN = 128;       // output tile columns (wgmma's N)
 constexpr int kG16BK = 64;        // K step: one 128-byte swizzled row of bf16
 constexpr int kG16Stages = 3;     // ring depth: two steps in flight
-constexpr int kG16Threads = 256;
-constexpr int kG16StageElems = (kG16BM + kG16BN) * kG16BK;  // A, then W
-constexpr int kG16Smem = kG16Stages * kG16StageElems * 2 + sm90::kTileAlign;
 
-// Needs K % 64 == 0, NOUT % 8 == 0 and a 16-byte aligned C.
-template <bool GELU, bool DROP>
-__global__ void __launch_bounds__(kG16Threads, 2)
+// Threads and dynamic shared memory of a BM-row tile: BM / 64 warpgroups;
+// the ring of kG16Stages (A, then W) steps.
+__host__ __device__ constexpr int g16_threads(int bm) { return 2 * bm; }
+__host__ __device__ constexpr int g16_stage_elems(int bm) { return (bm + kG16BN) * kG16BK; }
+__host__ __device__ constexpr int g16_smem(int bm) {
+  return kG16Stages * g16_stage_elems(bm) * 2 + sm90::kTileAlign;
+}
+
+// Needs K % 64 == 0, NOUT % 8 == 0 and a 16-byte aligned C; BIAS false
+// reads no bias (null).
+template <bool GELU, bool DROP, int BM = kG16BM, bool BIAS = true>
+__global__ void __launch_bounds__(g16_threads(BM), BM >= 256 ? 1 : 2)
 gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int N, int K,
                       int NOUT, DropSite drop) {
   using namespace sm90;
+  constexpr int kThreads = g16_threads(BM);
+  constexpr int kStageElems = g16_stage_elems(BM);
   extern __shared__ uint8_t smem_raw[];
   bf16* const ring = reinterpret_cast<bf16*>(align_tiles(smem_raw));
 
   const int n0 = blockIdx.x * kG16BN;  // output columns
-  const int m0 = blockIdx.y * kG16BM;  // rows
+  const int m0 = blockIdx.y * BM;      // rows
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const int n_steps = K / kG16BK;
 
-  // step kt's A rows (two 64-row tiles) and W rows (kG16BN / 64 tiles) into
+  // step kt's A rows (BM / 64 tiles) and W rows (kG16BN / 64 tiles) into
   // its ring slot; the caller commits
   auto stage = [&](int kt) {
-    bf16* dst = ring + (kt % kG16Stages) * kG16StageElems;
+    bf16* dst = ring + (kt % kG16Stages) * kStageElems;
     const int k0 = kt * kG16BK;
 #pragma unroll
-    for (int t = 0; t < kG16BM / kTileRows; ++t)
-      stage_tile<kG16Threads>(dst + t * kTileElems, A + k0, K, m0 + t * kTileRows, N, tid);
+    for (int t = 0; t < BM / kTileRows; ++t)
+      stage_tile<kThreads>(dst + t * kTileElems, A + k0, K, m0 + t * kTileRows, N, tid);
 #pragma unroll
     for (int t = 0; t < kG16BN / kTileRows; ++t)
-      stage_tile<kG16Threads>(dst + (kG16BM / kTileRows + t) * kTileElems, W + k0, K,
-                              n0 + t * kTileRows, NOUT, tid);
+      stage_tile<kThreads>(dst + (BM / kTileRows + t) * kTileElems, W + k0, K,
+                           n0 + t * kTileRows, NOUT, tid);
   };
 #pragma unroll
   for (int s = 0; s < kG16Stages - 1; ++s) {
@@ -106,9 +118,9 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
     if (kt + kG16Stages - 1 < n_steps) stage(kt + kG16Stages - 1);  // into step kt - 1's slot
     cp_async_commit();
 
-    const uint64_t slot = desc_ring + (((kt % kG16Stages) * kG16StageElems * 2) >> 4);
-    const uint64_t da = slot + wg * kDescTile;                  // this warpgroup's 64 rows
-    const uint64_t db = slot + (kG16BM / kTileRows) * kDescTile;  // the kG16BN W rows
+    const uint64_t slot = desc_ring + (((kt % kG16Stages) * kStageElems * 2) >> 4);
+    const uint64_t da = slot + wg * kDescTile;               // this warpgroup's 64 rows
+    const uint64_t db = slot + (BM / kTileRows) * kDescTile;  // the kG16BN W rows
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kG16BK / 16; ++kk)
@@ -127,12 +139,13 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
 #pragma unroll
   for (int j = 0; j < kG16BN / 8; ++j) {
     const int cl = 8 * j + 2 * i4, col = n0 + cl;
-    const float b0 = col < NOUT ? bias[col] : 0.f, b1 = col < NOUT ? bias[col + 1] : 0.f;
+    const float b0 = BIAS && col < NOUT ? bias[col] : 0.f;
+    const float b1 = BIAS && col < NOUT ? bias[col + 1] : 0.f;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rl = 16 * warp + g + 8 * r, row = m0 + 64 * wg + rl;
-      float x0 = acc[4 * j + 2 * r] + b0;
-      float x1 = acc[4 * j + 2 * r + 1] + b1;
+      float x0 = BIAS ? acc[4 * j + 2 * r] + b0 : acc[4 * j + 2 * r];
+      float x1 = BIAS ? acc[4 * j + 2 * r + 1] + b1 : acc[4 * j + 2 * r + 1];
       if (GELU) {
         x0 = gelu_erf(x0);
         x1 = gelu_erf(x1);
@@ -164,19 +177,34 @@ int launch_gemm_sm90(bool drop, cudaStream_t s, const __nv_bfloat16* A, const __
                      const DropSite& site) {
   constexpr auto with_drop = gemm_bf16_sm90_kernel<GELU, true>;
   constexpr auto without_drop = gemm_bf16_sm90_kernel<GELU, false>;
+  constexpr int kSmem = g16_smem(kG16BM);
   // the shared-memory limit above 48 KB, raised once per process for both
   static const cudaError_t attr = [] {
     const cudaError_t err =
-        cudaFuncSetAttribute(with_drop, cudaFuncAttributeMaxDynamicSharedMemorySize, kG16Smem);
+        cudaFuncSetAttribute(with_drop, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     return err != cudaSuccess ? err
                               : cudaFuncSetAttribute(without_drop,
                                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     kG16Smem);
+                                                     kSmem);
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((NOUT + kG16BN - 1) / kG16BN, (N + kG16BM - 1) / kG16BM);
-  (drop ? with_drop : without_drop)<<<grid, kG16Threads, kG16Smem, s>>>(A, W, bias, C, N, K,
-                                                                         NOUT, site);
+  (drop ? with_drop : without_drop)<<<grid, g16_threads(kG16BM), kSmem, s>>>(A, W, bias, C, N,
+                                                                              K, NOUT, site);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the bias-free instance with a BM-row tile on stream s: C =
+// bf16(A W^T) over N rows. Returns a cudaError_t.
+template <int BM>
+int launch_gemm_sm90_nobias(cudaStream_t s, const __nv_bfloat16* A, const __nv_bfloat16* W,
+                            __nv_bfloat16* C, int N, int K, int NOUT) {
+  constexpr auto kernel = gemm_bf16_sm90_kernel<false, false, BM, false>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g16_smem(BM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((NOUT + kG16BN - 1) / kG16BN, (N + BM - 1) / BM);
+  kernel<<<grid, g16_threads(BM), g16_smem(BM), s>>>(A, W, nullptr, C, N, K, NOUT, DropSite{});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -103,6 +103,13 @@ SIGNATURES = {
     # x, w1_q, w1_s, b1, w2_q, w2_s, b2, x_q, x_s, h, h_max, h_q, h_s, out, N,
     # C, M, C2, chunk, stream
     "a2v_fused_mlp_int8": (_P,) * 14 + (_I,) * 5 + (_P,),
+    # the probes (animal2vec_tpu_torch/probes/)
+    # qkv, scaled_pos, out, B, H, T, D, variant, block_k, sm_scale, stream
+    "a2v_probe_attention": (_P,) * 3 + (_I,) * 6 + (_F, _P),
+    # x, wt, c, M, K, N, block_m, stream
+    "a2v_probe_gemm": (_P,) * 3 + (_I,) * 4 + (_P,),
+    # a, bt, out, M, K, N, iters, route, block_n, resident, stream
+    "a2v_probe_mma": (_P,) * 3 + (_I,) * 7 + (_P,),
 }
 
 

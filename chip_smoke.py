@@ -228,7 +228,17 @@ Phases, one line or more each; any failure raises and exits non-zero:
    ViT-B/16 step with the reconstruction loss and the inverse mask (and
    its b2 gradients); train_cli --config pretraining with the probe and a
    shared decoder at depth 1 + 2, then finetuning from it with
-   finetune.load_pretrain_weights (the head equal to the probe at step 0).
+   finetune.load_pretrain_weights (the head equal to the probe at step 0);
+18. the bench/ tuning probes (animal2vec_tpu_torch/probes, phase_probes):
+   each kernel against its plain twin, #12a (csrc/probe_attention.cu) in
+   its four variants at both key tiles at b32 H16 T2048 with 48 padded
+   positions and at a ragged b2 H3 T333 with 13, every row; #12b
+   (csrc/probe_gemm.cu) at each shape and row tile; #12c
+   (csrc/probe_mma.cu) at each shape by wgmma and by mma.sync; then the
+   sweeps (probes.kernels, probes.pallas_mm, probes.attn_probe and
+   probes.kernels2: ms, device ms, TFLOP/s, share of the bound, beside #1,
+   #11, SDPA, cuBLAS and #6's and #8's GEMM launches), with the three
+   wrappers' launches counted and no plain twin called on a CUDA tensor.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -715,6 +725,11 @@ PLAIN_OF = {
 }
 
 
+# the probes' plain twins (phase 18), by their modules under the package
+PROBE_PLAIN = (("probes.kernels", "attn_v2_plain"), ("probes.pallas_mm", "row_gemm_plain"),
+               ("probes.attn_probe", "mma_probe_plain"))
+
+
 def _swap(module, names):
     saved = {n: getattr(module, n) for n in names}
     for n, f in names.items():
@@ -995,8 +1010,8 @@ class PlainSpy:
             ("attention", "quantize_qkv_int8_pass_plain"),
             ("attention", "attention_int8_quantized_plain"),
             ("bias_attention", "bias_attention_bwd_plain")}
-        for m, f in sorted(plain):
-            mod = importlib.import_module(f"animal2vec_tpu_torch.ops.{m}")
+        for m, f in sorted({(f"ops.{m}", f) for m, f in plain} | set(PROBE_PLAIN)):
+            mod = importlib.import_module(f"animal2vec_tpu_torch.{m}")
             self.saved.append((mod, _swap(mod, {f: self._spy(getattr(mod, f))})))
         return self
 
@@ -4408,6 +4423,91 @@ def phase_a7(card, dev):
     return launches, rows
 
 
+# phase 18: the bench/ tuning probes (#12a-c) and bench/kernels2.py's side
+# by side runs; #12a is held at the sweep's shape and at a ragged one
+PROBE_ATTN_SHAPES = ((32, 16, 2048, 64, 2000), (2, 3, 333, 64, 320))
+
+
+def _probe_wrappers():
+    from animal2vec_tpu_torch.probes import attn_probe, kernels, pallas_mm
+
+    return {"probe_attention": kernels.attn_v2, "probe_gemm": pallas_mm.row_gemm,
+            "probe_mma": attn_probe.mma_probe}
+
+
+def phase_probes(card, dev):
+    """18. The probes: each kernel against its plain twin, then the sweeps,
+    their launches counted. Returns (launches by kernel key, the check
+    results, the sweep rows)."""
+    from animal2vec_tpu_torch.probes import attn_probe, kernels, kernels2, pallas_mm
+
+    t0 = time.perf_counter()
+    print(f"18 the bench/ probes on {card}")
+    checks = {"probe_attention": kernels.check(dev, PROBE_ATTN_SHAPES),
+              "probe_gemm": pallas_mm.check(dev), "probe_mma": attn_probe.check(dev)}
+    torch.cuda.empty_cache()
+    wrappers = _probe_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with PlainSpy() as spy:
+        rows = {"probe_attention": kernels.sweep(dev), "probe_gemm": pallas_mm.sweep(dev),
+                "probe_mma": attn_probe.sweep(dev), "kernels2": kernels2.sweep(dev)}
+        torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rows["seconds"] = time.perf_counter() - t0
+    print(f"18 launches over the sweeps: {launch_line(launches)}; plain twins on a CUDA tensor "
+          f"{spy.cuda_calls}; phase {rows['seconds']:.1f} s")
+    if spy.cuda_calls:
+        raise AssertionError("18: a plain twin ran on a CUDA tensor")
+    if not all(launches.values()):
+        raise AssertionError(f"18: a probe kernel was never launched: {launches}")
+    print(json.dumps({"phase18": rows, "phase18_checks": checks}))
+    return launches, checks, rows
+
+
+def probe_entries(launches, checks, rows):
+    """The kernels line's entries of #12a-c: the times of one
+    representative row each (#12a full at the 64-key tile, #12b #6's fc1 at
+    the core's 128-row tile, #12c QK^T at D 64 by wgmma) and every sweep
+    row under "sweep"."""
+    attn = rows["probe_attention"]
+    full = attn["attn_v2 full, key tile 64"]
+    soft = [checks["probe_attention"][v][bk]["max_abs_err"] for v in ("mm_only", "exp_bf16",
+                                                                       "full") for bk in (64, 128)]
+    gemm = rows["probe_gemm"]["#6 fc1 b32, block_m 128"]
+    mma = rows["probe_mma"]["QKt D64, wgmma"]
+
+    def times(row, plain_ms, library_ms):
+        return {"ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": plain_ms,
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": library_ms}
+
+    return [
+        {"name": "attn_v2", "route": "cuda",
+         "source": "animal2vec_tpu_torch/csrc/probe_attention.cu",
+         "replaces": "bench/kernels.py:27 (_kernel_v2; attn_v2 :96, pallas_call :103)",
+         "launches": launches["probe_attention"], "max_abs_err": max(soft),
+         "max_abs_err_no_softmax": max(checks["probe_attention"]["no_softmax"][bk]["max_abs_err"]
+                                       for bk in (64, 128)),
+         **times(full, checks["probe_attention"]["full"][64]["plain_ms"],
+                 attn["SDPA, the bias as a float mask"]["ms"]),
+         "sweep": attn},
+        {"name": "row_gemm", "route": "cuda", "source": "animal2vec_tpu_torch/csrc/probe_gemm.cu",
+         "headers": ["animal2vec_tpu_torch/csrc/bf16_gemm_sm90.cuh"],
+         "replaces": "bench/pallas_mm.py:18 (pallas_mm; pallas_call :28)",
+         "launches": launches["probe_gemm"],
+         "max_abs_err": max(c["max_abs_err"] for c in checks["probe_gemm"].values()),
+         **times(gemm, checks["probe_gemm"]["#6 fc1 b32"]["plain_ms"], gemm["library_ms"]),
+         "sweep": rows["probe_gemm"]},
+        {"name": "mma_probe", "route": "cuda", "source": "animal2vec_tpu_torch/csrc/probe_mma.cu",
+         "replaces": "bench/attn_probe.py:25 (probe; kernel :29, pallas_call :49)",
+         "launches": launches["probe_mma"],
+         "max_abs_err": max(c["max_abs_err"] for c in checks["probe_mma"].values()),
+         **times(mma, checks["probe_mma"]["QKt D64"]["plain_ms"], mma["library_ms"]),
+         "sweep": rows["probe_mma"]},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4501,6 +4601,8 @@ def main() -> int:
     option_launches, option_errs, option_rows = phase_options(card, dev)
     torch.cuda.empty_cache()
     a7_launches, _ = phase_a7(card, dev)
+    torch.cuda.empty_cache()
+    probe_launches, probe_checks, probe_rows = phase_probes(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -4683,6 +4785,8 @@ def main() -> int:
              "launches_a7": a7_launches[f"bias_{what}"],
              "max_abs_err": max(option_errs[f"bias_{what}"], bias_train[what])},
             **option_rows[f"bias attention {what}, no bias, b{TRAIN_BATCH} T 2000"]))
+    # phase 18: the probes
+    kernels += probe_entries(probe_launches, probe_checks, probe_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
