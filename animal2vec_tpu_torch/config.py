@@ -149,6 +149,11 @@ class FinetuneConfig:
     remat_scope: str = "mlp"
     remat_frontend: bool = False
     remat_decoder: bool = False
+    # > 1 splits the trunk by depth over the mesh's "stage" axis as a GPipe
+    # of pipeline_microbatches microbatches (0: 2 x stages at most)
+    # (model.pipeline_*; distributed.pipeline_parallel sets the stages)
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 0
     # head: mean of the last k trunk MLP taps -> linear over the labels
     average_top_k_layers: int = 16
     labels: Tuple[str, ...] = MEERKAT_LABELS
@@ -645,10 +650,11 @@ class CheckpointConfig:
 @dataclass(frozen=True)
 class DistributedConfig:
     """``distributed.*``: the device layout (JAX ``DistributedConfig``,
-    ``animal2vec_tpu/config.py:126-138``). ``data_parallel`` ranks, one
-    process per card (-1: every visible card); the port runs data
-    parallelism only: ``model_parallel``, ``pipeline_parallel`` > 1 and
-    ``fsdp`` raise (ROADMAP A.10)."""
+    ``animal2vec_tpu/config.py:126-138``), a ("data", "stage", "model")
+    mesh of one process per card (``parallel/mesh.py``): ``data_parallel``
+    ranks (-1: every visible card left after the other axes),
+    ``pipeline_parallel`` trunk stages, ``model_parallel`` tensor-parallel
+    ranks, and ``fsdp`` sharding the blocks' dense kernels over "data"."""
 
     data_parallel: int = -1
     model_parallel: int = 1
@@ -659,13 +665,13 @@ class DistributedConfig:
         if self.data_parallel == 0 or self.data_parallel < -1:
             raise ValueError(f"distributed.data_parallel={self.data_parallel}: -1 (every "
                              "visible card) or a rank count >= 1")
-        for name, on in (("model_parallel", self.model_parallel > 1),
-                         ("pipeline_parallel", self.pipeline_parallel > 1),
-                         ("fsdp", self.fsdp)):
-            if on:
-                raise NotImplementedError(
-                    f"distributed.{name} is not ported: the port runs data parallelism only "
-                    "(ROADMAP A.10)")
+        for name in ("model_parallel", "pipeline_parallel"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"distributed.{name}={getattr(self, name)}: a rank count >= 1")
+
+    @property
+    def sharded(self) -> bool:
+        return self.model_parallel > 1 or self.pipeline_parallel > 1 or self.fsdp
 
 
 @dataclass(frozen=True)
@@ -709,6 +715,30 @@ class RunConfig:
             if self.task.with_labels != self.pretrain.with_labels:
                 raise ValueError("task.with_labels (the loader's labels) and "
                                  "pretrain.with_labels (the linear probe) must agree")
+        self._check_layout()
+
+    def _check_layout(self) -> None:
+        """JAX's config-time check of the pipeline (``config.py:624-631``), and
+        the layouts the port leaves out (ROADMAP A.10)."""
+        enc, dist = self.encoder, self.distributed
+        pp = dist.pipeline_parallel
+        if pp > 1 and enc.depth % pp != 0:
+            # fail at config time: at apply time the pipelined path would only
+            # decline (JAX: with a warning, the plain scan on 1/pp of the slice)
+            raise ValueError(f"model.depth={enc.depth} is not divisible by "
+                             f"distributed.pipeline_parallel={pp}")
+        if enc.pipeline_stages > 1 and enc.pipeline_stages != pp:
+            raise ValueError(
+                f"model.pipeline_stages={enc.pipeline_stages} but "
+                f"distributed.pipeline_parallel={pp}: JAX warns and runs the plain scan there "
+                "(models/modules.py:797-824), the port raises")
+        teacher = "" if self.pretrain is None else self.pretrain.teacher_matmul_impl
+        if dist.sharded and (enc.matmul_impl != "bf16" or teacher not in ("", "bf16")):
+            raise NotImplementedError("the int8 matmul_impl modes under a sharded layout are "
+                                      "not ported (ROADMAP A.10)")
+        if dist.model_parallel > 1 and (enc.layer_norm_first or not enc.use_alibi_encoder):
+            raise NotImplementedError("tensor parallelism of pre-LN blocks or without ALiBi is "
+                                      "not ported (ROADMAP A.10)")
 
     @property
     def encoder(self) -> FinetuneConfig:

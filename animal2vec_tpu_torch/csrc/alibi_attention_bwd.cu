@@ -7,7 +7,9 @@
 //
 // With s = q.k / sqrt(D) + bias, P = exp(s - lse) (lse from the forward),
 // f = keep / (1 - r) the forward's dropout factor (regenerated from the hash
-// of (seed + (b*H+h) * 0xC2B2AE3D, query, key)), dP = dO . V^T and
+// of (seed + (b*H+h) * 0xC2B2AE3D, query, key), with b * hash_heads + h0 +
+// h in place of b*H+h for a tensor-parallel rank's heads, as the forward
+// hashes them), dP = dO . V^T and
 // delta = rowsum(dO * O) (computed outside, one torch op):
 //   dS     = P * (dP * f - delta)
 //   dq     = scale * dS . K
@@ -121,6 +123,7 @@ struct BwdArgs {
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep when hash >= thresh; 0 = no dropout
   float keep_scale;  // 1 / (1 - rate)
+  int h0, hash_heads;  // the dropout hash's head index b * hash_heads + h0 + h
 };
 
 // One block per (64-query tile, head, batch): dq rows and the block's
@@ -158,7 +161,8 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   const bf16* v = k + plane;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
-  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
+  const uint32_t seed_mix = drop_seed_mix(
+      a.seed + (static_cast<uint32_t>(b) * a.hash_heads + a.h0 + h) * 0xC2B2AE3Du);
   const int n_tiles = (T + kTile - 1) / kTile;
   const uint64_t desc_q = desc_sw128(sQ), desc_ring = desc_sw128(sRing);
 
@@ -356,7 +360,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   const bf16* dor = dout + bh * head;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
-  const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
+  const uint32_t seed_mix = drop_seed_mix(
+      a.seed + (static_cast<uint32_t>(b) * a.hash_heads + a.h0 + h) * 0xC2B2AE3Du);
   const float inv_t = 1.f / T;
   const int n_tiles = (T + kTile - 1) / kTile;
   const uint64_t desc_k = desc_sw128(sK), desc_ring = desc_sw128(sRing);
@@ -510,8 +515,9 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   }
 }
 
-int check_args(int B, int H, int T, int D) {
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535)
+int check_args(int B, int H, int T, int D, int h0, int hash_heads) {
+  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || h0 < 0 ||
+      hash_heads < h0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -529,11 +535,12 @@ extern "C" int a2v_alibi_attention_bwd_dq(const void* qkv, const void* dout, con
                                           int pos_per_row, const void* mask, int mask_per_row,
                                           void* dq, void* dslope_part, int B, int H, int T,
                                           int D, int has_sentinel, float sm_scale, int seed,
-                                          unsigned int thresh, float keep_scale, void* stream) {
+                                          unsigned int thresh, float keep_scale, int h0,
+                                          int hash_heads, void* stream) {
   using namespace a2v;
-  if (int err = check_args(B, H, T, D)) return err;
+  if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
-                  static_cast<uint32_t>(seed), thresh, keep_scale};
+                  static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
   using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
                           const int*, const uint8_t*, bf16*, float*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
@@ -559,11 +566,12 @@ extern "C" int a2v_alibi_attention_bwd_dkv(const void* qkv, const void* dout, co
                                            int pos_per_row, const void* mask, int mask_per_row,
                                            void* dk, void* dv, int B, int H, int T, int D,
                                            int has_sentinel, float sm_scale, int seed,
-                                           unsigned int thresh, float keep_scale, void* stream) {
+                                           unsigned int thresh, float keep_scale, int h0,
+                                           int hash_heads, void* stream) {
   using namespace a2v;
-  if (int err = check_args(B, H, T, D)) return err;
+  if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
-                  static_cast<uint32_t>(seed), thresh, keep_scale};
+                  static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
   using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
                           const int*, const uint8_t*, bf16*, bf16*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;

@@ -18,7 +18,10 @@
 // denominator is clamped at 1e-30; keys past T have weight exactly 0.
 // keep_ij is the counter hash of (seed + (b*H+h) * 0xC2B2AE3D, i, j) over
 // global query and key indices (common.cuh drop_hash), so the backward
-// kernels regenerate it; as on the TPU the denominator l sums the undropped
+// kernels regenerate it; under tensor parallelism a rank holds H of the
+// model's hash_heads heads from h0, and its (b, h) hashes as (b *
+// hash_heads + h0 + h), the index of that head in the unsharded launch
+// (JAX's bh_id, pallas_attention.py:82); as on the TPU the denominator l sums the undropped
 // weights and the dropout scales the weights of P.V only.
 //
 // q, k and v are read in place: (B, T, H, D) views with one set of element
@@ -123,6 +126,8 @@ struct FwdArgs {
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep when hash >= thresh
   float keep_scale;  // 1 / (1 - rate)
+  int h0;            // the hash's first head: a tensor-parallel rank's
+  int hash_heads;    // of the unsharded head count (0 and H unsharded)
 };
 
 // TRAIN: scores in natural units (and the lse when lse is not null); DROP
@@ -197,7 +202,9 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the dropout hash: the seed's share, and row0's term (row0 + 8 adds
   // 8 kHashRow)
   const uint32_t seed_mix =
-      DROP ? drop_seed_mix(a.seed + static_cast<uint32_t>(b * a.H + h) * 0xC2B2AE3Du) : 0u;
+      DROP ? drop_seed_mix(a.seed + (static_cast<uint32_t>(b) * a.hash_heads + a.h0 + h) *
+                                        0xC2B2AE3Du)
+           : 0u;
   const uint32_t zrow = static_cast<uint32_t>(row0) * kHashRow;
   float m[2] = {kMasked, kMasked};  // running max, in the scores' units
   float l[2] = {0.f, 0.f};
@@ -383,14 +390,15 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
                                        void* out, long long out_b, long long out_t,
                                        long long out_h, void* lse, int B, int H, int T, int D,
                                        int has_sentinel, float sm_scale, int seed,
-                                       unsigned int thresh, float keep_scale, void* stream) {
+                                       unsigned int thresh, float keep_scale, int h0,
+                                       int hash_heads, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   const long long strides[] = {stride_b, stride_t, stride_h, out_b, out_t, out_h};
   for (const long long st : strides)
     if (st % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || misaligned(q) ||
-      misaligned(k) || misaligned(v) || misaligned(out))
+      misaligned(k) || misaligned(v) || misaligned(out) || h0 < 0 || hash_heads < h0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -408,7 +416,7 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
                   pos_per_row ? T : 0,
                   (pos_k != nullptr ? posk_per_row : pos_per_row) ? T : 0, mask_per_row ? T : 0,
                   train ? sm_scale : sm_scale * kLog2e, train ? 1.f : kLog2e,
-                  static_cast<uint32_t>(seed), thresh, keep_scale};
+                  static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
   const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0;
   if (thresh != 0u)
     return dispatch<true, true>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls, a);

@@ -50,6 +50,8 @@
 // warpgroups).
 #pragma once
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace a2v {
@@ -69,11 +71,14 @@ __host__ __device__ constexpr int g16_smem(int bm) {
 }
 
 // Needs K % 64 == 0, NOUT % 8 == 0 and a 16-byte aligned C; BIAS false
-// reads no bias (null).
-template <bool GELU, bool DROP, int BM = kG16BM, bool BIAS = true>
+// reads no bias (null). OutT float stores the fp32 sums themselves (the
+// tensor-parallel fc2 partial; no bias, GELU or dropout) as 8-byte pairs
+// straight from the accumulator layout.
+template <bool GELU, bool DROP, int BM = kG16BM, bool BIAS = true,
+          typename OutT = __nv_bfloat16>
 __global__ void __launch_bounds__(g16_threads(BM), BM >= 256 ? 1 : 2)
 gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
-                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int N, int K,
+                      const float* __restrict__ bias, OutT* __restrict__ C, int N, int K,
                       int NOUT, DropSite drop) {
   using namespace sm90;
   constexpr int kThreads = g16_threads(BM);
@@ -130,6 +135,21 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
     fence_regs(acc);
   }
 
+  if constexpr (std::is_same<OutT, float>::value) {
+    // fp32 out: each thread stores its (row, column pair) sums as float2
+#pragma unroll
+    for (int j = 0; j < kG16BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * i4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 64 * wg + 16 * warp + g + 8 * r;
+        if (row < N && col < NOUT)
+          *reinterpret_cast<float2*>(&C[static_cast<size_t>(row) * NOUT + col]) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+    return;  // the bf16 epilogue below is unreachable here
+  }
   // epilogue through shared memory: each warpgroup writes its 64 x 128
   // bf16 outputs into its own padded rows (272 bytes: conflict-free), then
   // stores them as 16-byte row chunks
@@ -151,8 +171,9 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
         x1 = gelu_erf(x1);
       }
       if (DROP) {
-        x0 *= drop_factor(drop.seed, drop.row0 + row, col, drop.thresh, drop.keep_scale);
-        x1 *= drop_factor(drop.seed, drop.row0 + row, col + 1, drop.thresh, drop.keep_scale);
+        const uint32_t gcol = drop.col0 + col;
+        x0 *= drop_factor(drop.seed, drop.row0 + row, gcol, drop.thresh, drop.keep_scale);
+        x1 *= drop_factor(drop.seed, drop.row0 + row, gcol + 1, drop.thresh, drop.keep_scale);
       }
       *reinterpret_cast<uint32_t*>(so + rl * kLdo + cl) = pack_bf16(x0, x1);
     }
@@ -205,6 +226,20 @@ int launch_gemm_sm90_nobias(cudaStream_t s, const __nv_bfloat16* A, const __nv_b
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((NOUT + kG16BN - 1) / kG16BN, (N + BM - 1) / BM);
   kernel<<<grid, g16_threads(BM), g16_smem(BM), s>>>(A, W, nullptr, C, N, K, NOUT, DropSite{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the fp32-output instance on stream s: C = A W^T in fp32
+// over N rows (no bias). Returns a cudaError_t.
+inline int launch_gemm_sm90_f32(cudaStream_t s, const __nv_bfloat16* A, const __nv_bfloat16* W,
+                                float* C, int N, int K, int NOUT) {
+  constexpr auto kernel = gemm_bf16_sm90_kernel<false, false, kG16BM, false, float>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g16_smem(kG16BM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((NOUT + kG16BN - 1) / kG16BN, (N + kG16BM - 1) / kG16BM);
+  kernel<<<grid, g16_threads(kG16BM), g16_smem(kG16BM), s>>>(A, W, nullptr, C, N, K, NOUT,
+                                                              DropSite{});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -109,13 +109,16 @@ __device__ __forceinline__ uint32_t drop_hash(uint32_t seed_word, uint32_t row, 
   return drop_mix_seeded(drop_seed_mix(seed_word), row * kHashRow + col * kHashCol);
 }
 
-// Dropout of one site: keep when drop_hash(seed, row0 + row, col) >= thresh
-// (row0: a data-parallel rank's first global row, 0 otherwise).
+// Dropout of one site: keep when drop_hash(seed, row0 + row, col0 + col) >=
+// thresh (row0: a data-parallel rank's first global row; col0: a
+// tensor-parallel rank's first hidden column of a GEMM epilogue's output;
+// 0 otherwise).
 struct DropSite {
   uint32_t seed;
   uint32_t thresh;
   float keep_scale;  // 1 / (1 - rate)
   uint32_t row0 = 0;
+  uint32_t col0 = 0;
 };
 
 // Dropout factor of one element: keep_scale (1 / (1 - rate)) or 0.

@@ -40,8 +40,40 @@
 // traffic (x, r three times, t twice, x_out). Keeping h on chip needs the
 // fc1 -> fc2 fusion of a later change. The dropout hash adds ~12 integer
 // instructions per element of h, t and the residual branch.
+#include <algorithm>
+
 #include "bf16_gemm_sm90.cuh"
 #include "layernorm.cuh"
+
+namespace {
+
+// LN2 of the block: x_out = LN2(bf16(r + dp(drop_c(t)))) on stream s, the
+// ln_rows instance of the dropout site and the drop-path factor (null:
+// none). Returns a cudaError_t.
+int launch_ln2(cudaStream_t s, const __nv_bfloat16* r, const __nv_bfloat16* t,
+               const float* scale, const float* bias, __nv_bfloat16* x_out, int N, int C,
+               float eps, const a2v::DropSite& site_post, const float* bscale,
+               int rows_per_scale) {
+  using namespace a2v;
+  const int blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
+  if (bscale != nullptr && site_post.thresh != 0u)
+    ln_rows_kernel<true, true, false, true><<<blocks, kLnThreads, 0, s>>>(
+        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post, bscale,
+        rows_per_scale);
+  else if (bscale != nullptr)
+    ln_rows_kernel<true, false, false, true><<<blocks, kLnThreads, 0, s>>>(
+        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post, bscale,
+        rows_per_scale);
+  else if (site_post.thresh != 0u)
+    ln_rows_kernel<true, true, false><<<blocks, kLnThreads, 0, s>>>(
+        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post);
+  else
+    ln_rows_kernel<true, false, false><<<blocks, kLnThreads, 0, s>>>(
+        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1t: (M, C) and
 // w2t: (C, M) bf16 (nn.Linear layout); h: (N, M) bf16 scratch; LayerNorm
@@ -87,24 +119,126 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
            act_thresh != 0u, s, hb, static_cast<const bf16*>(w2t), static_cast<const float*>(b2),
            tb, N, M, C, site_fc2))) != cudaSuccess)
     return static_cast<int>(err);
-  const auto* bscale = static_cast<const float*>(branch_scale);
-  if (bscale != nullptr && post_thresh != 0u)
-    ln_rows_kernel<true, true, false, true><<<ln_blocks, kLnThreads, 0, s>>>(
-        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post, bscale,
-        rows_per_scale);
-  else if (bscale != nullptr)
-    ln_rows_kernel<true, false, false, true><<<ln_blocks, kLnThreads, 0, s>>>(
-        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post, bscale,
-        rows_per_scale);
-  else if (post_thresh != 0u)
-    ln_rows_kernel<true, true, false><<<ln_blocks, kLnThreads, 0, s>>>(
-        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post);
-  else
-    ln_rows_kernel<true, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
-        rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
-        static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, site_post);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ln2(s, rb, tb, static_cast<const float*>(ln2_scale),
+                    static_cast<const float*>(ln2_bias), static_cast<bf16*>(x_out), N, C, eps,
+                    site_post, static_cast<const float*>(branch_scale), rows_per_scale);
+}
+
+// The tensor-parallel split of the block (one rank of a "model" group of
+// mp ranks holds Ms = M / mp hidden columns, from col0): JAX's layout
+// shards fc1 by columns and fc2 by rows, and fc2's all-reduce has to come
+// before the residual and LN2, which a2v_fused_block runs after fc2 in
+// its own launches. So the block is three entries around the all-reduce
+// (done by the caller, over fp32 (N, C) partial sums):
+//
+//   a2v_block_fc1           r = LN1(x);  h = drop_a(GELU(r W1s + b1s))
+//                           (drop_a's hash at hidden column col0 + j, so a
+//                           rank's mask is its columns of the unsharded one)
+//   a2v_block_fc2_partial   P = h W2s^T in fp32, no bias
+//   a2v_block_ln2           t = bf16(drop_b(S + b2)) for the reduced S;
+//                           x_out = LN2(bf16(r + dp(drop_c(t))))
+//
+// With mp = 1 (col0 0, Ms = M) the three compute a2v_fused_block's
+// function, except that fc2's sum is rounded to fp32 before the bias where
+// the fused epilogue adds the bias to the accumulator: the same value.
+// Launches: fc1 is a2v_fused_block's first two (ln_rows, the GELU GEMM);
+// the partial the GEMM core's fp32-output instance (float2 stores straight
+// from the accumulator, bf16_gemm_sm90.cuh); ln2 a bias + dropout pass over
+// (N, C) and a2v_fused_block's LN2 launch.
+//
+// Bound on the H100 at a2v-large's finetune step split over two ranks (N =
+// 8000, C = 1024, Ms = 2048): fc1 and the partial are each 2 N C Ms =
+// 33.6 GFLOP (0.034 ms at 989 TFLOP/s) against 69.7 MB (fc1: x, W1s, r, h;
+// the partial: h, W2s, P; 0.021 ms at 3.35 TB/s): bound by operations;
+// ln2 reads 32.8 MB of S and 16.4 MB of r and writes 32.8 MB of t and
+// x_out (0.024 ms): bound by bytes.
+
+// (N, C): t = bf16(drop_b(S + b2)), two columns a thread.
+__global__ void bias_drop_round_kernel(const float* __restrict__ S, const float* __restrict__ b2,
+                                       __nv_bfloat16* __restrict__ t, int N, int C,
+                                       a2v::DropSite drop, bool dropout) {
+  const size_t pairs = static_cast<size_t>(N) * C / 2;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < pairs;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t e = 2 * i;
+    const int row = static_cast<int>(e / C), col = static_cast<int>(e % C);
+    const float2 v = reinterpret_cast<const float2*>(S)[i];
+    float x0 = v.x + b2[col], x1 = v.y + b2[col + 1];
+    if (dropout) {
+      x0 *= a2v::drop_factor(drop.seed, drop.row0 + row, col, drop.thresh, drop.keep_scale);
+      x1 *= a2v::drop_factor(drop.seed, drop.row0 + row, col + 1, drop.thresh, drop.keep_scale);
+    }
+    reinterpret_cast<uint32_t*>(t)[i] = a2v::pack_bf16(x0, x1);
+  }
+}
+
+// C entry. x, r: (N, C) bf16; w1t: (Ms, C) bf16 (the rank's rows of fc1's
+// nn.Linear weight); b1: (Ms) and the LayerNorm's scale and bias (C) fp32;
+// h: (N, Ms) bf16. drop_a's seed and threshold as a2v_fused_block's
+// seed_act / act_thresh, its rows from row0 and its columns from col0.
+// Returns a cudaError_t.
+extern "C" int a2v_block_fc1(const void* x, const void* ln1_scale, const void* ln1_bias,
+                             const void* w1t, const void* b1, void* r, void* h, int N, int C,
+                             int Ms, float eps, int seed_act, unsigned int act_thresh,
+                             float act_scale, unsigned int row0, unsigned int col0,
+                             void* stream) {
+  using namespace a2v;
+  using bf16 = __nv_bfloat16;
+  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || Ms <= 0 ||
+      Ms % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* rb = static_cast<bf16*>(r);
+  const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale, row0, col0};
+  ln_rows_kernel<false, false, false><<<(N + kLnThreads / 32 - 1) / (kLnThreads / 32),
+                                        kLnThreads, 0, s>>>(
+      static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
+      static_cast<const float*>(ln1_bias), rb, nullptr, nullptr, N, C, eps, DropSite{});
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  return launch_gemm_sm90<true>(act_thresh != 0u, s, rb, static_cast<const bf16*>(w1t),
+                                static_cast<const float*>(b1), static_cast<bf16*>(h), N, C, Ms,
+                                site_act);
+}
+
+// C entry. h: (N, Ms) bf16; w2t: (C, Ms) bf16 (the rank's columns of fc2's
+// nn.Linear weight); partial: (N, C) fp32 = h w2t^T. Returns a cudaError_t.
+extern "C" int a2v_block_fc2_partial(const void* h, const void* w2t, void* partial, int N, int Ms,
+                                     int C, void* stream) {
+  using namespace a2v;
+  if (N <= 0 || Ms <= 0 || Ms % 64 != 0 || C <= 0 || C % 8 != 0 ||
+      (N + kG16BM - 1) / kG16BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gemm_sm90_f32(static_cast<cudaStream_t>(stream),
+                              static_cast<const __nv_bfloat16*>(h),
+                              static_cast<const __nv_bfloat16*>(w2t), static_cast<float*>(partial),
+                              N, Ms, C);
+}
+
+// C entry. S: (N, C) fp32, the partial sums reduced over the ranks; b2 and
+// the LayerNorm's scale and bias (C) fp32; r: (N, C) bf16 (a2v_block_fc1's);
+// t, x_out: (N, C) bf16. Seeds, thresholds, row0 and the drop-path
+// branch_scale as a2v_fused_block's. Returns a cudaError_t.
+extern "C" int a2v_block_ln2(const void* S, const void* b2, const void* r, const void* ln2_scale,
+                             const void* ln2_bias, void* t, void* x_out, int N, int C, float eps,
+                             int seed_fc2, unsigned int act_thresh, float act_scale,
+                             int seed_post, unsigned int post_thresh, float post_scale,
+                             unsigned int row0, const void* branch_scale, int rows_per_scale,
+                             void* stream) {
+  using namespace a2v;
+  using bf16 = __nv_bfloat16;
+  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || rows_per_scale <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* tb = static_cast<bf16*>(t);
+  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale, row0};
+  const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale, row0};
+  const size_t pairs = static_cast<size_t>(N) * C / 2;
+  const int blocks = static_cast<int>(std::min<size_t>((pairs + 255) / 256, 132 * 16));
+  bias_drop_round_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(S),
+                                                static_cast<const float*>(b2), tb, N, C,
+                                                site_fc2, act_thresh != 0u);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  return launch_ln2(s, static_cast<const bf16*>(r), tb, static_cast<const float*>(ln2_scale),
+                    static_cast<const float*>(ln2_bias), static_cast<bf16*>(x_out), N, C, eps,
+                    site_post, static_cast<const float*>(branch_scale), rows_per_scale);
 }

@@ -44,28 +44,39 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # dropout arguments of the attention entries: seed, threshold, keep scale
 _DROP = (_I, _U, _F)
+# the ALiBi entries' dropout-hash head offset: h0, hash_heads
+_HEADS = (_I, _I)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
     # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, pos_k,
     # posk_per_row, mask, mask_per_row, out, out_stride_b, out_stride_t,
     # out_stride_h, lse, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
-    # keep_scale, stream
+    # keep_scale, h0, hash_heads, stream
     "a2v_alibi_attention_fwd": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _I, _P, _L, _L,
-                                _L, _P) + (_I,) * 5 + (_F,) + _DROP + (_P,),
+                                _L, _P) + (_I,) * 5 + (_F,) + _DROP + _HEADS + (_P,),
     # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
     # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
-    # keep_scale, stream
+    # keep_scale, h0, hash_heads, stream
     "a2v_alibi_attention_bwd_dq": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
-    + _DROP + (_P,),
+    + _DROP + _HEADS + (_P,),
     # as bwd_dq with dk, dv in place of dq, dslope_part
     "a2v_alibi_attention_bwd_dkv": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
-    + _DROP + (_P,),
+    + _DROP + _HEADS + (_P,),
     # x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale, ln2_bias, r, h, t,
     # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
     # act_scale, post_thresh, post_scale, row0, branch_scale, rows_per_scale,
     # stream
     "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P, _I,
                                       _P),
+    # the tensor-parallel split of #6: x, ln1_scale, ln1_bias, w1t, b1, r, h,
+    # N, C, Ms, eps, seed_act, act_thresh, act_scale, row0, col0, stream
+    "a2v_block_fc1": (_P,) * 7 + (_I, _I, _I, _F, _I, _U, _F, _U, _U, _P),
+    # h, w2t, partial, N, Ms, C, stream
+    "a2v_block_fc2_partial": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # S, b2, r, ln2_scale, ln2_bias, t, x_out, N, C, eps, seed_fc2,
+    # act_thresh, act_scale, seed_post, post_thresh, post_scale, row0,
+    # branch_scale, rows_per_scale, stream
+    "a2v_block_ln2": (_P,) * 7 + (_I, _I, _F, _I, _U, _F, _I, _U, _F, _U, _P, _I, _P),
     # x, w_q, w_s, bias, x_q, x_s, out, N, K, M, stream
     "a2v_int8_dense": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, ln1_scale, ln1_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, ln2_scale,

@@ -44,15 +44,18 @@ def multihead_attention(
     padding_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    h0: int = 0,
+    hash_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention of the (B, T, 3C) qkv projection -> (B, T, C). An
     ``AlibiSpec`` takes ``alibi_flash_attention_btc`` (serving and training,
-    with its hash dropout); a dense bias or None takes ``bias_flash_attention``
-    on the q, k, v views of ``qkv`` (serving and training, differentiable in
-    the bias too, with the same hash dropout)."""
+    with its hash dropout; a tensor-parallel rank's ``heads`` are heads
+    ``h0`` .. of ``hash_heads`` there); a dense bias or None takes
+    ``bias_flash_attention`` on the q, k, v views of ``qkv`` (serving and
+    training, differentiable in the bias too, with the same hash dropout)."""
     if isinstance(bias, AlibiSpec):
         return alibi_flash_attention_btc(qkv, heads, bias.slopes, bias.positions, padding_mask,
-                                         bias.has_sentinel, dropout_rate, seed)
+                                         bias.has_sentinel, dropout_rate, seed, h0, hash_heads)
     b, t, c3 = qkv.shape
     q, k, v = qkv.reshape(b, t, 3, heads, c3 // (3 * heads)).unbind(2)
     return bias_flash_attention(q, k, v, bias, padding_mask, dropout_rate,

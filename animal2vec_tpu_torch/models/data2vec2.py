@@ -72,7 +72,7 @@ from animal2vec_tpu_torch.config import (
 from animal2vec_tpu_torch.models.audio_encoder import AudioEncoder
 from animal2vec_tpu_torch.models.images import ImageEncoder, patchify
 from animal2vec_tpu_torch.models.modules import (
-    AltBlock, BlockStack, Decoder1d, Fp32LayerNorm, fp32_instance_norm, top_k_tap_average,
+    AltBlock, BlockStack, Decoder1d, Fp32LayerNorm, fp32_instance_norm,
 )
 from animal2vec_tpu_torch.ops.attention import int8_spans
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
@@ -80,6 +80,7 @@ from animal2vec_tpu_torch.ops.int8_mm import quantize_weight
 from animal2vec_tpu_torch.ops.masking import (
     MaskInfo, apply_mask, gather_keep, scatter_with_mask_tokens,
 )
+from animal2vec_tpu_torch.parallel.pipeline import Stream
 
 
 class Data2VecMulti(nn.Module):
@@ -194,14 +195,18 @@ class Data2VecMulti(nn.Module):
                mask: Optional[torch.Tensor] = None,
                channel_mask: Optional[torch.Tensor] = None, zero_mask: bool = True,
                rngs: Optional[Rngs] = None, mask_info: Optional[MaskInfo] = None,
-               remove_masked: bool = False, reduce_targets: bool = False):
+               remove_masked: bool = False, reduce_targets: bool = False,
+               top_k: Optional[int] = None):
         """Masking, positions, prenet and trunk on (B, T, C) local features;
-        returns (x, per-layer taps, padding_mask, layer keeps). ``mask`` (B, T)
-        or ``mask_info`` mask in place; with ``mask_info`` and
-        ``remove_masked`` only the kept tokens run. ``reduce_targets`` (the
-        EMA teacher) returns in place of the taps the fp32 sum of the last k
+        returns (x, per-layer taps, padding_mask, layer keeps, streamed).
+        ``mask`` (B, T) or ``mask_info`` mask in place; with ``mask_info``
+        and ``remove_masked`` only the kept tokens run. ``streamed`` is, with
+        ``reduce_targets`` (the EMA teacher), the fp32 sum of the last k
         taps, each normalized by ``normalize_target_layer`` over the real
-        rows: divide it by k and ``finish_targets`` for the targets."""
+        rows (divide it by k and ``finish_targets`` for the targets); with
+        ``top_k``, the fp32 mean of the last ``top_k`` kept taps; else None.
+        A trunk pipelined over stages returns no taps (None) and the same
+        ``streamed``."""
         enc = self.modality_encoder
         image = self.mode == "IMAGE"
         x = enc.fixed_positions(local) if image else local
@@ -255,16 +260,19 @@ class Data2VecMulti(nn.Module):
         x = enc.prenet(x, run_mask, bias, rngs, None if scales is None else scales[:prenet_depth])
         if self.training and self.dropout_input > 0.0:
             x = dropout(x, self.dropout_input, rngs.device)
-        x, taps, keeps = self.blocks(x, run_mask, bias, rngs,
-                                     None if scales is None else scales[prenet_depth:])
+        stream = None
+        if reduce_targets:
+            stream = Stream(self.pretrain.average_top_k_layers,
+                            lambda tap: normalize_target_layer(tap[:, :t].float(), self.pretrain))
+        elif top_k:
+            stream = Stream(top_k, lambda tap: tap[:, :t], mean=True)
+        x, taps, keeps, streamed = self.blocks(
+            x, run_mask, bias, rngs, None if scales is None else scales[prenet_depth:], stream)
         if self.norm is not None:
             x = self.norm(x)
         if pad:
             x, taps = x[:, :t], [tap[:, :t] for tap in taps]
-        if reduce_targets:
-            k = self.pretrain.average_top_k_layers
-            taps = sum(normalize_target_layer(tap.float(), self.pretrain) for tap in taps[-k:])
-        return x, taps, padding_mask, keeps
+        return x, taps, padding_mask, keeps, streamed
 
     def decoders(self) -> List[Tuple[nn.Module, DecoderConfig]]:
         """(decoder, its config) of the shared decoder, then of the
@@ -301,16 +309,15 @@ class Data2VecMulti(nn.Module):
                 outs.append(decoder(y))
         return outs
 
-    def linear_eval(self, taps: Sequence[torch.Tensor], mask_info: Optional[MaskInfo] = None,
-                    keeps: Optional[Sequence[float]] = None,
+    def linear_eval(self, mean: torch.Tensor, mask_info: Optional[MaskInfo] = None,
                     rngs: Optional[Rngs] = None) -> torch.Tensor:
-        """The linear probe's frame logits (``data2vec2.py:414-441``): the
-        detached mean of the last k kept taps, the final LayerNorm of a
-        pre-LN trunk, with ``mask_info`` the decoders without gradient (the
-        last one's output: the keep-set back at full length), final dropout
-        in training, ``linear_eval_projection``."""
-        x = top_k_tap_average(taps, self.pretrain.average_top_k_layers, keeps)
-        x = x.detach().to(taps[-1].dtype)
+        """The linear probe's frame logits (``data2vec2.py:414-441``) from
+        ``mean``, the fp32 mean of the last k kept taps (``encode``'s
+        ``top_k``): detached, the final LayerNorm of a pre-LN trunk, with
+        ``mask_info`` the decoders without gradient (the last one's output:
+        the keep-set back at full length), final dropout in training,
+        ``linear_eval_projection``."""
+        x = mean.detach().to(self.dtype)
         if self.norm is not None:
             x = self.norm(x)
         if mask_info is not None and self.decoders():
@@ -340,10 +347,12 @@ class Data2VecMulti(nn.Module):
                          padding_mask: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None,
                          channel_mask: Optional[torch.Tensor] = None,
-                         zero_mask: bool = True, rngs: Optional[Rngs] = None) -> dict:
+                         zero_mask: bool = True, rngs: Optional[Rngs] = None,
+                         top_k: Optional[int] = None) -> dict:
         """The model's modality ``mode`` ("AUDIO" or "IMAGE", as the JAX
-        method takes it) -> {"x", "layer_results" (list of taps),
-        "padding_mask", "layer_keeps"}.
+        method takes it) -> {"x", "layer_results" (list of taps; None from a
+        pipelined trunk), "padding_mask", "layer_keeps", "top_k_mean" (with
+        ``top_k``, the fp32 mean of the last ``top_k`` kept taps)}.
 
         AUDIO: a (B, T_wav) waveform; ``mask`` (B, T_feat) and
         ``channel_mask`` (B, C) are 0/1, 1 = masked. IMAGE (serving): (B, H,
@@ -357,9 +366,10 @@ class Data2VecMulti(nn.Module):
         local = self.local_features(source)
         if padding_mask is not None:
             padding_mask = self.audio_encoder.convert_padding_mask(padding_mask, local.shape[1])
-        x, taps, pad, keeps = self.encode(local, padding_mask, mask, channel_mask, zero_mask,
-                                          rngs)
-        return {"x": x, "layer_results": taps, "padding_mask": pad, "layer_keeps": keeps}
+        x, taps, pad, keeps, mean = self.encode(local, padding_mask, mask, channel_mask,
+                                                zero_mask, rngs, top_k=top_k)
+        return {"x": x, "layer_results": taps, "padding_mask": pad, "layer_keeps": keeps,
+                "top_k_mean": mean}
 
 
 def _norm_over(x: torch.Tensor, dims) -> torch.Tensor:

@@ -39,9 +39,7 @@ from animal2vec_tpu_torch.config import (
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
 from animal2vec_tpu_torch.models.images import PatchEmbed
-from animal2vec_tpu_torch.models.modules import (
-    Conv1dBlockNorm, Conv2dBlockNorm, top_k_tap_average,
-)
+from animal2vec_tpu_torch.models.modules import Conv1dBlockNorm, Conv2dBlockNorm
 from animal2vec_tpu_torch.ops.dropout import Rngs, dropout
 
 
@@ -94,22 +92,21 @@ class FinetuneModel(nn.Module):
                 finetune_encoder: bool = True,
                 rngs: Optional[Rngs] = None) -> dict:
         """(B, T_wav) -> {"encoder_out": (B, T, n_classes) logits in the
-        compute dtype, "padding_mask", "layer_results": per-layer taps}.
-        ``mask``/``channel_mask`` apply masking as regularization;
-        ``finetune_encoder`` is the freeze gate."""
+        compute dtype, "padding_mask", "layer_results": per-layer taps (None
+        from a pipelined trunk)}. ``mask``/``channel_mask`` apply masking as
+        regularization; ``finetune_encoder`` is the freeze gate."""
+        k = self.cfg.average_top_k_layers
         with torch.set_grad_enabled(torch.is_grad_enabled() and finetune_encoder):
             res = self.encoder.extract_features(source, "AUDIO", padding_mask, mask,
-                                                channel_mask, self.zero_mask, rngs)
-            taps = res["layer_results"]
-            x = top_k_tap_average(taps, self.cfg.average_top_k_layers,
-                                  res["layer_keeps"]).to(taps[-1].dtype)
+                                                channel_mask, self.zero_mask, rngs, top_k=k)
+            x = res["top_k_mean"].to(res["x"].dtype)
         if self.training and self.final_dropout > 0.0:
             x = dropout(x, self.final_dropout, rngs.device)
         logits = F.linear(x, self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype))
         return {
             "encoder_out": logits,
             "padding_mask": res["padding_mask"],
-            "layer_results": taps,
+            "layer_results": res["layer_results"],
         }
 
 

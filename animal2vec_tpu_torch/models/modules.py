@@ -81,10 +81,11 @@ from animal2vec_tpu_torch.models.attention import AlibiSpec, Bias, multihead_att
 from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
 from animal2vec_tpu_torch.ops.dropout import (
-    Rngs, apply_dropout, dropout, dropout_mask, keep_scale,
+    Rngs, apply_dropout, dropout, dropout_mask, fold_bh_offset, keep_scale,
 )
 from animal2vec_tpu_torch.ops.fused_mlp import (
-    fused_block_int8, fused_block_mlp, fused_mlp, fused_mlp_int8,
+    block_fc1, block_fc2_partial, block_ln2, fp32_sum_matmul, fused_block_int8,
+    fused_block_mlp, fused_mlp, fused_mlp_int8,
 )
 from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_weight
 
@@ -176,7 +177,11 @@ class AltAttention(nn.Module):
     the dense-bias kernels too). With
     ``int8`` (serving) the projections run int8 with their biases added after,
     in the storage dtype, and an ``AlibiSpec`` attention takes int8 products
-    (``modules.py:409-421``); a dense bias keeps the bf16 attention."""
+    (``modules.py:409-421``); a dense bias keeps the bf16 attention. Under
+    tensor parallelism (``tp``, ``parallel.tensor.shard_block``) qkv holds
+    the rank's heads, the attention runs them with their slopes and their
+    unsharded index in the dropout hash, and proj's fp32 partial sum is
+    all-reduced over "model" before the bias and the cast."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, int8: bool = False):
@@ -186,6 +191,7 @@ class AltAttention(nn.Module):
         self.int8 = int8
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None  # parallel.tensor.TensorParallel of a sharded block
         _int8_buffers(self, "qkv_q", "qkv_s", "proj_q", "proj_s")
 
     @torch.no_grad()
@@ -224,12 +230,26 @@ class AltAttention(nn.Module):
                 out = multihead_attention(qkv, self.num_heads, bias, padding_mask)
             return int8_dense(out, proj_q, proj_s) + self.proj.bias.to(x.dtype)
         seed, keep = self.draws(x, rngs) if draws is None else draws
-        out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask,
-                                  0.0 if seed is None else self.attn_drop, seed)
-        out = _linear(out, self.proj)
+        rate = 0.0 if seed is None else self.attn_drop
+        if self.tp is not None:
+            out = self._sharded(x, padding_mask, bias, rate, seed)
+        else:
+            out = multihead_attention(_linear(x, self.qkv), self.num_heads, bias, padding_mask,
+                                      rate, seed)
+            out = _linear(out, self.proj)
         if keep is not None:
             out = apply_dropout(out, keep, self.proj_drop)
         return out
+
+    def _sharded(self, x, padding_mask, bias, rate, seed):
+        tp = self.tp
+        local = dataclasses.replace(bias, slopes=bias.slopes[tp.h0:tp.h0 + tp.heads])
+        out = multihead_attention(_linear(tp.to_model(x), self.qkv), tp.heads, local,
+                                  padding_mask, rate, seed, tp.h0, tp.hash_heads)
+        part = fp32_sum_matmul(out.reshape(-1, out.shape[-1]),
+                               self.proj.weight.to(x.dtype).t())
+        out = tp.reduce(part) + self.proj.bias.float()
+        return out.to(x.dtype).reshape(x.shape)
 
 
 class Mlp(nn.Module):
@@ -280,7 +300,12 @@ class AltBlock(nn.Module):
 
     ``remat_scope`` "attn" or "block" runs the attention sub-block or the
     whole block under ``torch.utils.checkpoint`` in training (None or
-    "mlp": as without remat); the block's draws come first (``draws``)."""
+    "mlp": as without remat); the block's draws come first (``draws``).
+
+    Under tensor parallelism (``tp``, post-LN bf16 blocks only) the MLP
+    sub-block runs as the split of #6: ``block_fc1`` on the rank's hidden
+    columns, ``block_fc2_partial``, the all-reduce of the fp32 partial sums
+    over "model", ``block_ln2``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  eps: float = 1e-5, encoder_dropout: float = 0.0,
@@ -303,6 +328,7 @@ class AltBlock(nn.Module):
         self.norm1 = Fp32LayerNorm(dim, eps, norm_affine)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.norm2 = Fp32LayerNorm(dim, eps, norm_affine)
+        self.tp = None  # parallel.tensor.TensorParallel of a sharded block
         _int8_buffers(self, "w1_q", "w1_s", "w2_q", "w2_s")
 
     @torch.no_grad()
@@ -317,13 +343,15 @@ class AltBlock(nn.Module):
     def _remat(self, scope: str) -> bool:
         return self.remat_scope == scope and self.training and torch.is_grad_enabled()
 
-    def draws(self, x: torch.Tensor, rngs: Optional[Rngs]):
+    def draws(self, x: torch.Tensor, rngs: Optional[Rngs], drop_path: Optional[float] = None):
         """The block's training draws, as an unrematerialized forward makes
         them: the attention's (``AltAttention.draws``); then the post-LN
         fused block's three int32 hash seeds with its first global row, or
         the pre-LN block's keep mask of its residual branch and its fused
         MLP's two hash seeds with their first global row; then the two
-        branches' drop-path scales."""
+        branches' drop-path scales (at ``drop_path``, default the block's
+        rate). Only ``x``'s shape and device are read."""
+        drop_path = self.drop_path if drop_path is None else drop_path
         attn = self.attn.draws(x, rngs)
         train = self.training and not self.int8
         row0 = None if rngs is None else rngs.row0 * x.shape[1]
@@ -340,16 +368,19 @@ class AltBlock(nn.Module):
             if train and (self.act_rate > 0.0 or self.post_rate > 0.0):
                 block = (_need(rngs, "block dropout").int32_seeds(3), row0)
         dp = None
-        if train and self.drop_path > 0.0:
-            dp = tuple(drop_path_scale(x.shape[0], self.drop_path, rngs, x.device)
+        if train and drop_path > 0.0:
+            dp = tuple(drop_path_scale(x.shape[0], drop_path, rngs, x.device)
                        for _ in range(2))
         return attn, block, dp
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
-        rngs: Optional[Rngs] = None,
+        rngs: Optional[Rngs] = None, draws=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        draws = self.draws(x, rngs)
+        """(x, tap); ``draws`` (``draws``'s, e.g. a microbatch's slice,
+        ``slice_draws``) in place of drawing from ``rngs``."""
+        if draws is None:
+            draws = self.draws(x, rngs)
         if self._remat("block"):
             return checkpoint(self._body, x, padding_mask, bias, draws, use_reentrant=False,
                               preserve_rng_state=False)
@@ -399,12 +430,45 @@ class AltBlock(nn.Module):
         seeds, row0, act_rate, post_rate = None, 0, 0.0, 0.0
         if block_seeds is not None:
             (seeds, row0), act_rate, post_rate = block_seeds, self.act_rate, self.post_rate
+        if self.tp is not None:
+            return self._split_mlp(x, seeds, row0, act_rate, post_rate,
+                                   None if dp is None else dp[1])
         return fused_block_mlp(
             x, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
             fc2.weight.to(x.dtype).t(), fc1.bias, fc2.bias, self.norm2.weight,
             self.norm2.bias, self.eps, seeds, act_rate, post_rate, row0=row0,
             branch_scale=None if dp is None else dp[1],
         )
+
+    def slice_draws(self, draws, lo: int, hi: int, t: int):
+        """``draws`` of a batch of ``t``-step rows cut to its rows ``lo`` ..
+        ``hi`` (a pipeline's microbatch): the keep masks and drop-path
+        scales sliced, the attention seed folded by ``lo`` rows of heads and
+        the fused sites' first row moved by ``lo`` rows, so that the
+        microbatch draws the batch's masks at its rows."""
+        (seed, keep), block, dp = draws
+        attn = (None if seed is None else fold_bh_offset(seed, lo * self.attn.num_heads),
+                None if keep is None else keep[lo:hi])
+        if self.layer_norm_first:  # (residual keep mask, (two seeds, row0))
+            post, mlp = block
+            block = (None if post is None else post[lo:hi],
+                     None if mlp is None else (mlp[0], mlp[1] + lo * t))
+        elif block is not None:  # (three seeds, row0)
+            block = (block[0], block[1] + lo * t)
+        return attn, block, None if dp is None else tuple(d[lo:hi] for d in dp)
+
+    def _split_mlp(self, x, seeds, row0, act_rate, post_rate, branch_scale):
+        """The post-LN MLP sub-block as the tensor-parallel split of #6."""
+        tp, fc1, fc2 = self.tp, self.mlp.fc1, self.mlp.fc2
+        x2 = x.reshape(-1, x.shape[-1])
+        r, h = block_fc1(x2, self.norm1.weight, self.norm1.bias, fc1.weight.to(x.dtype).t(),
+                         fc1.bias, self.eps, None if seeds is None else seeds[0], act_rate,
+                         row0, tp.col0, tp.to_model)
+        s = tp.reduce(block_fc2_partial(h, fc2.weight.to(x.dtype).t()))
+        x_out, t = block_ln2(s, fc2.bias, r, self.norm2.weight, self.norm2.bias, self.eps,
+                             None if seeds is None else seeds[1:], act_rate, post_rate, row0,
+                             branch_scale)
+        return x_out.reshape(x.shape), t.reshape(x.shape)
 
 
 def scale_bias(bias: Bias, scale: torch.Tensor) -> Bias:
@@ -423,29 +487,44 @@ class BlockStack(nn.Module):
     """``depth`` AltBlocks run in a loop (``BlockStack``), each given the same
     bias, or with ``scales`` ((depth, H) or (depth, 1), the learned
     per-layer ALiBi scales) layer i the bias under scale i; returns (x,
-    taps, keeps) with one (B, T, C) tap per layer. In training with ``layerdrop``
-    each layer is kept with probability 1 - layerdrop, drawn on the host: a
-    dropped layer is skipped, its tap is its input x and its keep is 0
-    (``modules.py:768-775``). ``keeps`` is None when no layer can drop.
-    ``drop_path`` = (start, end): layer i's drop-path rate is
-    ``linspace(start, end, depth)[i]`` (``modules.py:698-701``)."""
+    taps, keeps, streamed) with one (B, T, C) tap per layer. In training
+    with ``layerdrop`` each layer is kept with probability 1 - layerdrop,
+    drawn on the host: a dropped layer is skipped, its tap is its input x
+    and its keep is 0 (``modules.py:768-775``). ``keeps`` is None when no
+    layer can drop. ``drop_path`` = (start, end): layer i's drop-path rate
+    is ``linspace(start, end, depth)[i]`` (``modules.py:698-701``).
+    ``streamed`` is the fp32 sum or mean of the taps that a
+    ``parallel.pipeline.Stream`` asks for (None without one).
+
+    A trunk split over the mesh's "stage" axis (``pipeline``, set by
+    ``parallel.pipeline.split_trunk``) holds its stage's layers only (as a
+    ``ModuleDict`` under their stack indices, so the parameter names stay)
+    and runs the GPipe schedule (``parallel.pipeline.GPipe.run``): its
+    taps stay on their stages (None), and ``streamed`` is the same value
+    the plain loop gives."""
 
     def __init__(self, depth: int, dim: int, num_heads: int, mlp_ratio: float,
                  eps: float, layerdrop: float = 0.0, matmul_impl: str = "bf16",
                  drop_path: Tuple[float, float] = (0.0, 0.0), **block_kw):
         super().__init__()
         self.layerdrop = layerdrop
-        rates = np.linspace(drop_path[0], drop_path[1], depth, dtype=np.float32)
+        self.depth = depth
+        self.rates = [float(r) for r in np.linspace(drop_path[0], drop_path[1], depth,
+                                                    dtype=np.float32)]
         self.layers = nn.ModuleList(
             AltBlock(dim, num_heads, mlp_ratio, eps, matmul_impl=matmul_impl,
-                     drop_path=float(rates[i]), **block_kw)
+                     drop_path=self.rates[i], **block_kw)
             for i in range(depth)
         )
+        self.pipeline = None  # parallel.pipeline.GPipe of a trunk split over stages
 
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor], bias: Bias,
-        rngs: Optional[Rngs] = None, scales: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[List[float]]]:
+        rngs: Optional[Rngs] = None, scales: Optional[torch.Tensor] = None, stream=None,
+    ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]], Optional[List[float]],
+               Optional[torch.Tensor]]:
+        if self.pipeline is not None:
+            return self.pipeline.run(self, x, padding_mask, bias, rngs, scales, stream)
         drop = self.training and self.layerdrop > 0.0
         if drop:
             draws = torch.rand((len(self.layers),), generator=_need(rngs, "layerdrop").host)
@@ -459,7 +538,8 @@ class BlockStack(nn.Module):
                            scale_bias(bias, scales[i]), rngs)
             taps.append(tap)
             keeps.append(1.0)
-        return x, taps, keeps if drop else None
+        keeps = keeps if drop else None
+        return x, taps, keeps, None if stream is None else stream.of(taps, keeps)
 
 
 def top_k_tap_average(taps: Sequence[torch.Tensor], k: int,
@@ -504,7 +584,7 @@ class PrenetEncoder(nn.Module):
             x = self.norm(x)
         if self.training and self.prenet_dropout > 0.0:
             x = dropout(x, self.prenet_dropout, _need(rngs, "prenet dropout").device)
-        x, _, _ = self.blocks(x, padding_mask, bias, rngs, scales)
+        x = self.blocks(x, padding_mask, bias, rngs, scales)[0]
         if self.layer_norm_first:
             x = self.norm(x)
         return x

@@ -91,9 +91,22 @@ def _scores(qkv, slopes, positions, padding_mask, has_sentinel, positions_k=None
     return logits, dist
 
 
-def _keep_factor(b, h, t, rate, seed, device):
-    """(B, H, T, T) fp32 dropout factor keep / (1 - rate)."""
-    bh = (torch.arange(b, device=device)[:, None] * h
+def hash_heads_of(h: int, h0: int = 0, hash_heads: Optional[int] = None) -> Tuple[int, int]:
+    """(h0, hash_heads) of a launch over ``h`` heads: a tensor-parallel
+    rank's first head and the unsharded head count (0 and ``h`` unsharded);
+    the dropout hash indexes head ``h`` of batch row ``b`` as
+    ``b * hash_heads + h0 + h``."""
+    hash_heads = h if hash_heads is None else int(hash_heads)
+    if h0 < 0 or hash_heads < h0 + h:
+        raise ValueError(f"heads {h0}..{h0 + h} do not lie in the {hash_heads} heads hashed")
+    return int(h0), hash_heads
+
+
+def _keep_factor(b, h, t, rate, seed, device, h0=0, hash_heads=None):
+    """(B, H, T, T) fp32 dropout factor keep / (1 - rate); the heads are
+    ``h0`` .. ``h0 + h`` of ``hash_heads`` (``hash_heads_of``)."""
+    h0, hh = hash_heads_of(h, h0, hash_heads)
+    bh = (torch.arange(b, device=device)[:, None] * hh + h0
           + torch.arange(h, device=device)[None, :])[:, :, None, None]
     rows = torch.arange(t, device=device)[None, None, :, None]
     cols = torch.arange(t, device=device)[None, None, None, :]
@@ -110,16 +123,19 @@ def alibi_attention_plain(
     seed: Optional[int] = None,
     return_lse: bool = False,
     positions_k: Optional[torch.Tensor] = None,
+    h0: int = 0,
+    hash_heads: Optional[int] = None,
 ):
     """Materialized-score reference of the forward kernel (any device);
     differentiable. With ``return_lse`` returns (out, lse (B*H, T) fp32);
     ``positions_k`` (1 or B, T) are the keys' positions (default
-    ``positions``)."""
+    ``positions``); the dropout hashes the heads as heads ``h0`` .. of
+    ``hash_heads`` (``hash_heads_of``)."""
     logits, _ = _scores(qkv, slopes, positions, padding_mask, has_sentinel, positions_k)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0:
         b, h, t, _ = probs.shape
-        probs = probs * _keep_factor(b, h, t, dropout_rate, seed, probs.device)
+        probs = probs * _keep_factor(b, h, t, dropout_rate, seed, probs.device, h0, hash_heads)
     out = torch.matmul(probs.to(qkv.dtype), qkv[2])
     if not return_lse:
         return out
@@ -137,6 +153,8 @@ def attention_bwd_plain(
     has_sentinel: bool = False,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    h0: int = 0,
+    hash_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference of the two backward kernels on their inputs (the forward's
     lse, delta = rowsum(dO * O), both (B*H, T) fp32), written out on
@@ -150,8 +168,8 @@ def attention_bwd_plain(
     lse = lse.reshape(b, h, t, 1)
     # a row whose keys are all padded (lse rounds to -1e9) weighs them 1/T
     p = torch.where(lse < DEAD_LSE, 1.0 / t, torch.exp(logits - lse))
-    f = (_keep_factor(b, h, t, dropout_rate, seed, p.device) if dropout_rate > 0.0
-         else torch.ones((), device=p.device))
+    f = (_keep_factor(b, h, t, dropout_rate, seed, p.device, h0, hash_heads)
+         if dropout_rate > 0.0 else torch.ones((), device=p.device))
     q, k, v = (x.float() for x in qkv.unbind(0))
     do = dout.float()
     dpf = torch.matmul(do, v.transpose(-1, -2)) * f
@@ -248,11 +266,13 @@ def _positions_k(positions_k, b, t, device):
     return positions_k.to(torch.int32).contiguous(), int(positions_k.shape[0] == b and b > 1)
 
 
-def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None) -> None:
+def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None,
+                    heads: Tuple[int, int] = (0, 0)) -> None:
     """One launch of the forward kernel on checked (B, T, H, D) views q, k,
     v (one stride set) and out; ``side`` are ``_side_args``' slopes,
     positions and mask, ``drop`` ``_dropout_args``', ``lse`` None or a
-    contiguous (B*H, T) fp32 output, ``posk`` ``_positions_k``'s."""
+    contiguous (B*H, T) fp32 output, ``posk`` ``_positions_k``'s,
+    ``heads`` (h0, hash_heads) of the dropout hash (hash_heads 0: H)."""
     if not all(_aligned(x) for x in (q, k, v, out)):
         raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
                          "last dim and strides in multiples of 8")
@@ -267,7 +287,8 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None) -> N
             posk[0].data_ptr(), 0 if posk is None else posk[1],
             None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
             out.stride(0), out.stride(1), out.stride(2), None if lse is None else lse.data_ptr(),
-            b, h, t, d, int(has_sentinel), d**-0.5, seed_i, thresh, scale, stream,
+            b, h, t, d, int(has_sentinel), d**-0.5, seed_i, thresh, scale, heads[0],
+            heads[1] or h, stream,
         )
     check(err, "alibi attention forward kernel")
 
@@ -351,17 +372,22 @@ def alibi_flash_attention_packed(
     seed: Optional[int] = None,
     return_lse: bool = False,
     positions_k: Optional[torch.Tensor] = None,
+    h0: int = 0,
+    hash_heads: Optional[int] = None,
 ):
     """ALiBi attention forward; kernel on CUDA, plain version on CPU. With
     ``return_lse`` returns (out, lse); ``positions_k`` are the keys' own
-    positions (default ``positions``). Serving calls (no lse, no dropout,
-    no key positions) go to ``alibi_flash_attention_serve`` on the packed
-    planes and return its output as a (B, H, T, D) view."""
+    positions (default ``positions``); ``h0`` and ``hash_heads`` place the
+    heads in the dropout hash (``hash_heads_of``). Serving calls (no lse, no
+    dropout, no key positions) go to ``alibi_flash_attention_serve`` on the
+    packed planes and return its output as a (B, H, T, D) view."""
     if qkv.device.type == "cpu":
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
-                                     dropout_rate, seed, return_lse, positions_k)
+                                     dropout_rate, seed, return_lse, positions_k, h0,
+                                     hash_heads)
     _check_device(qkv, "alibi attention")
     b, h, t, d, *side = _kernel_args(qkv, slopes, positions, padding_mask)
+    heads = hash_heads_of(h, h0, hash_heads)
     drop = _dropout_args(dropout_rate, seed)
     posk = _positions_k(positions_k, b, t, qkv.device)
     planes = [x.transpose(1, 2) for x in qkv.unbind(0)]  # (B, T, H, D) views
@@ -370,7 +396,7 @@ def alibi_flash_attention_packed(
                                            has_sentinel).transpose(1, 2)
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device) if return_lse else None
-    _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop, posk)
+    _launch_forward(*planes, out.transpose(1, 2), lse, side, has_sentinel, drop, posk, heads)
     alibi_flash_attention_packed.launches += 1
     return (out, lse) if return_lse else out
 
@@ -415,9 +441,11 @@ def alibi_flash_attention_lse(
 alibi_flash_attention_lse.launches = 0
 
 
-def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed):
+def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed,
+                h0, hash_heads):
     args = _kernel_args(qkv, slopes, positions, padding_mask)
     b, h, t, d = args[:4]
+    heads = hash_heads_of(h, h0, hash_heads)
     for name, x, shape, dtype in (("dout", dout, (b, h, t, d), torch.bfloat16),
                                   ("lse", lse, (b * h, t), torch.float32),
                                   ("delta", delta, (b * h, t), torch.float32)):
@@ -425,22 +453,25 @@ def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_
                 or x.device != qkv.device:
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} on qkv's device, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    return args, _dropout_args(dropout_rate, seed)
+    return args, _dropout_args(dropout_rate, seed) + heads
 
 
 def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
-                 has_sentinel=False, dropout_rate=0.0, seed=None, dq=None):
+                 has_sentinel=False, dropout_rate=0.0, seed=None, dq=None, h0=0,
+                 hash_heads=None):
     """dq (B, H, T, D) and the slope partials (B, H, ceil(T / 64)) of the
     flash backward. ``dq`` may be a preallocated contiguous output (a plane
-    of the (3, B, H, T, D) gradient). Kernel on CUDA, ``attention_bwd_plain``
-    on CPU."""
+    of the (3, B, H, T, D) gradient); ``h0`` and ``hash_heads`` as the
+    forward's. Kernel on CUDA, ``attention_bwd_plain`` on CPU."""
     if qkv.device.type == "cpu":
         dqkv, parts = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions,
-                                          padding_mask, has_sentinel, dropout_rate, seed)
+                                          padding_mask, has_sentinel, dropout_rate, seed, h0,
+                                          hash_heads)
         return dqkv[0], parts
     _check_device(qkv, "alibi attention dq")
-    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale) = \
-        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed)
+    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale, h0, hh) = \
+        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed,
+                    h0, hash_heads)
     if dq is None:
         dq = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     parts = torch.empty((b, h, -(-t // Q_TILE)), dtype=torch.float32, device=qkv.device)
@@ -450,7 +481,7 @@ def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
             qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
             pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
             mask_per_row, dq.data_ptr(), parts.data_ptr(), b, h, t, d, int(has_sentinel),
-            d**-0.5, seed_i, thresh, scale, stream,
+            d**-0.5, seed_i, thresh, scale, h0, hh, stream,
         )
     check(err, "alibi attention dq kernel")
     attention_dq.launches += 1
@@ -461,16 +492,19 @@ attention_dq.launches = 0
 
 
 def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
-                  has_sentinel=False, dropout_rate=0.0, seed=None, dk=None, dv=None):
+                  has_sentinel=False, dropout_rate=0.0, seed=None, dk=None, dv=None, h0=0,
+                  hash_heads=None):
     """dk and dv (B, H, T, D) of the flash backward; optional preallocated
-    contiguous outputs. Kernel on CUDA, ``attention_bwd_plain`` on CPU."""
+    contiguous outputs; ``h0`` and ``hash_heads`` as the forward's. Kernel
+    on CUDA, ``attention_bwd_plain`` on CPU."""
     if qkv.device.type == "cpu":
         dqkv, _ = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions, padding_mask,
-                                      has_sentinel, dropout_rate, seed)
+                                      has_sentinel, dropout_rate, seed, h0, hash_heads)
         return dqkv[1], dqkv[2]
     _check_device(qkv, "alibi attention dk/dv")
-    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale) = \
-        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed)
+    (b, h, t, d, sl, pos, pos_per_row, mask, mask_per_row), (seed_i, thresh, scale, h0, hh) = \
+        _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed,
+                    h0, hash_heads)
     if dk is None:
         dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     if dv is None:
@@ -481,7 +515,7 @@ def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
             qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
             pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
             mask_per_row, dk.data_ptr(), dv.data_ptr(), b, h, t, d, int(has_sentinel),
-            d**-0.5, seed_i, thresh, scale, stream,
+            d**-0.5, seed_i, thresh, scale, h0, hh, stream,
         )
     check(err, "alibi attention dk/dv kernel")
     attention_dkv.launches += 1
@@ -505,39 +539,41 @@ def _bhtd_to_btc(x: torch.Tensor) -> torch.Tensor:
 class _AttentionBTC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv_btc, slopes, heads, positions, padding_mask, has_sentinel,
-                dropout_rate, seed):
+                dropout_rate, seed, h0, hash_heads):
         packed = btc_to_packed(qkv_btc, heads)
         out, lse = alibi_flash_attention_packed(
             packed, slopes, positions, padding_mask, has_sentinel, dropout_rate, seed,
-            return_lse=True,
+            return_lse=True, h0=h0, hash_heads=hash_heads,
         )
         ctx.save_for_backward(packed, slopes, positions, padding_mask, out, lse)
-        ctx.conf = (has_sentinel, dropout_rate, seed)
+        ctx.conf = (has_sentinel, dropout_rate, seed, h0, hash_heads)
         return _bhtd_to_btc(out)
 
     @staticmethod
     def backward(ctx, g):
         packed, slopes, positions, padding_mask, out, lse = ctx.saved_tensors
-        has_sentinel, rate, seed = ctx.conf
+        has_sentinel, rate, seed, h0, hash_heads = ctx.conf
         _, b, h, t, e = packed.shape
         dout = g.reshape(b, t, h, e).permute(0, 2, 1, 3).to(packed.dtype).contiguous()
         delta = (dout.float() * out.float()).sum(-1).reshape(b * h, t)
         dqkv = torch.empty_like(packed)
         args = (packed, dout, lse, delta, slopes, positions, padding_mask, has_sentinel, rate,
                 seed)
-        _, parts = attention_dq(*args, dq=dqkv[0])
-        attention_dkv(*args, dk=dqkv[1], dv=dqkv[2])
+        _, parts = attention_dq(*args, dq=dqkv[0], h0=h0, hash_heads=hash_heads)
+        attention_dkv(*args, dk=dqkv[1], dv=dqkv[2], h0=h0, hash_heads=hash_heads)
         dqkv_btc = dqkv.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * e)
         dslopes = parts.sum(dim=(0, 2)).to(slopes.dtype)
-        return dqkv_btc, dslopes, None, None, None, None, None, None
+        return dqkv_btc, dslopes, None, None, None, None, None, None, None, None
 
 
 def alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask=None,
-                              has_sentinel=False, dropout_rate=0.0, seed=None):
+                              has_sentinel=False, dropout_rate=0.0, seed=None, h0=0,
+                              hash_heads=None):
     """The training entry's plain version (any device; autograd is its
     backward)."""
     out = alibi_attention_plain(btc_to_packed(qkv_btc, heads), slopes, positions,
-                                padding_mask, has_sentinel, dropout_rate, seed)
+                                padding_mask, has_sentinel, dropout_rate, seed, h0=h0,
+                                hash_heads=hash_heads)
     return _bhtd_to_btc(out)
 
 
@@ -550,6 +586,8 @@ def alibi_flash_attention_btc(
     has_sentinel: bool = False,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    h0: int = 0,
+    hash_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """The model's attention entry: (B, T, 3C) qkv -> (B, T, C),
     differentiable in ``qkv_btc`` and ``slopes``. Without a gradient wanted
@@ -557,7 +595,9 @@ def alibi_flash_attention_btc(
     k, v thirds of ``qkv_btc``, its (B, T, H, D) output viewed as (B, T,
     C); on CUDA the autograd Function (forward with lse, then the backward
     kernels) when a gradient is wanted, else one training-kernel launch
-    without lse (dropout); autograd through the plain version on CPU."""
+    without lse (dropout); autograd through the plain version on CPU. A
+    tensor-parallel rank's ``heads`` are heads ``h0`` .. of ``hash_heads``
+    in the dropout hash (``hash_heads_of``)."""
     rate = float(dropout_rate)
     wants_grad = torch.is_grad_enabled() and (qkv_btc.requires_grad or slopes.requires_grad)
     if not wants_grad and rate == 0.0:
@@ -567,13 +607,14 @@ def alibi_flash_attention_btc(
         return out.view(b, t, c3 // 3)
     if qkv_btc.device.type == "cpu":
         return alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask,
-                                         has_sentinel, dropout_rate, seed)
+                                         has_sentinel, dropout_rate, seed, h0, hash_heads)
     _check_device(qkv_btc, "alibi attention")
     if wants_grad:
         return _AttentionBTC.apply(qkv_btc, slopes, heads, positions, padding_mask,
-                                   has_sentinel, rate, seed)
+                                   has_sentinel, rate, seed, h0, hash_heads)
     out = alibi_flash_attention_packed(btc_to_packed(qkv_btc, heads), slopes, positions,
-                                       padding_mask, has_sentinel, rate, seed)
+                                       padding_mask, has_sentinel, rate, seed, h0=h0,
+                                       hash_heads=hash_heads)
     return _bhtd_to_btc(out)
 
 

@@ -127,10 +127,17 @@ class _Fp32SumMatmul(torch.autograd.Function):
         return ga, gb
 
 
-def _hash_drop(v: torch.Tensor, seed, rate: float, rows: torch.Tensor) -> torch.Tensor:
-    """fp32 (N, K) ``v`` under the hash keep mask of (seed, rows, columns),
-    kept values scaled by 1 / (1 - rate)."""
-    cols = torch.arange(v.shape[1], device=v.device)[None, :]
+def fp32_sum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two 2-D storage-dtype matrices summed in fp32, with JAX's
+    transpose rule as its backward (``_Fp32SumMatmul``)."""
+    return _Fp32SumMatmul.apply(a, b)
+
+
+def _hash_drop(v: torch.Tensor, seed, rate: float, rows: torch.Tensor,
+               col0: int = 0) -> torch.Tensor:
+    """fp32 (N, K) ``v`` under the hash keep mask of (seed, rows, columns
+    from ``col0``), kept values scaled by 1 / (1 - rate)."""
+    cols = col0 + torch.arange(v.shape[1], device=v.device)[None, :]
     return v * (hash_keep(seed, rows, cols, rate) / (1.0 - rate))
 
 
@@ -143,35 +150,56 @@ def _row_scale(branch_scale: torch.Tensor, n: int) -> torch.Tensor:
     return branch_scale.float().repeat_interleave(n // b)[:, None]
 
 
-def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
-                seeds, act_rate, post_rate, matmul, row0=0, branch_scale=None):
-    dtype = x.dtype
-    c = x.shape[-1]
-    x2 = x.reshape(-1, c)
-    rows = row0 + torch.arange(x2.shape[0], device=x.device)[:, None]
+def _rows(n: int, row0: int, device) -> torch.Tensor:
+    return row0 + torch.arange(n, device=device)[:, None]
 
-    def drop(v, seed, rate):
-        return _hash_drop(v, seed, rate, rows)
 
+def _fc1_math(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, matmul, row0=0, col0=0,
+              to_model=None):
+    """(r, h) of the block's first half on the flattened (N, C) ``x2``: r =
+    dtype(LN1(x2)), h = dtype(drop_a(GELU(r w1 + b1))) for ``w1`` (C, Ms),
+    drop_a's columns from ``col0``; ``to_model`` (a tensor-parallel rank's
+    identity with an all-reduced gradient) takes r on its way into fc1."""
+    dtype = x2.dtype
     r = _ln(x2, ln1_scale, ln1_bias, eps).to(dtype)
-    h = matmul(r, w1.to(dtype))
+    h = matmul(r if to_model is None else to_model(r), w1.to(dtype))
     if b1 is not None:
         h = h + b1.float()
     h = F.gelu(h)
-    if act_rate > 0.0:
-        h = drop(h, seeds[0], act_rate)
-    t = matmul(h.to(dtype), w2.to(dtype))
+    if rate > 0.0:
+        h = _hash_drop(h, seed, rate, _rows(x2.shape[0], row0, x2.device), col0)
+    return r, h.to(dtype)
+
+
+def _ln2_math(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0=0,
+              branch_scale=None):
+    """(x_out, t) of the block's second half from fc2's fp32 (N, C) sum
+    ``s`` and ``_fc1_math``'s r: t = dtype(drop_b(s + b2)), x_out =
+    dtype(LN2(r + dp(drop_c(t)))); ``seeds`` = (drop_b's, drop_c's)."""
+    dtype = r.dtype
+    rows = _rows(r.shape[0], row0, r.device)
+    t = s.float()
     if b2 is not None:
         t = t + b2.float()
     if act_rate > 0.0:
-        t = drop(t, seeds[1], act_rate)
+        t = _hash_drop(t, seeds[0], act_rate, rows)
     t = t.to(dtype)
     td = t
     if post_rate > 0.0:
-        td = drop(t.float(), seeds[2], post_rate).to(dtype)
+        td = _hash_drop(t.float(), seeds[1], post_rate, rows).to(dtype)
     if branch_scale is not None:
         td = (td.float() * _row_scale(branch_scale, td.shape[0])).to(dtype)
-    x_out = _ln(r + td, ln2_scale, ln2_bias, eps).to(dtype)
+    return _ln(r + td, ln2_scale, ln2_bias, eps).to(dtype), t
+
+
+def _block_math(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
+                seeds, act_rate, post_rate, matmul, row0=0, branch_scale=None):
+    c = x.shape[-1]
+    r, h = _fc1_math(x.reshape(-1, c), ln1_scale, ln1_bias, w1, b1, eps,
+                     seeds[0] if act_rate > 0.0 else None, act_rate, matmul, row0)
+    x_out, t = _ln2_math(matmul(h, w2.to(x.dtype)), b2, r, ln2_scale, ln2_bias, eps,
+                         None if seeds is None else seeds[1:], act_rate, post_rate, row0,
+                         branch_scale)
     return x_out.reshape(x.shape), t.reshape(x.shape)
 
 
@@ -291,6 +319,19 @@ class _FusedBlock(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
+def _recompute(math, inputs, needs, cotangents):
+    """The gradients of ``math(*inputs)``'s outputs under ``cotangents``, the
+    inputs detached and recomputed under autograd: one per input, None where
+    ``needs`` is false or the input is None."""
+    with torch.enable_grad():
+        leaves = [None if v is None else v.detach().requires_grad_(n)
+                  for v, n in zip(inputs, needs)]
+        outs = math(*leaves)
+        wrt = [v for v, n in zip(leaves, needs) if n and v is not None]
+        grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
+    return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
+
+
 def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9, row0=0,
                           branch_scale=None):
     """The backward of the kernel's autograd Function (any device): the block
@@ -301,14 +342,9 @@ def fused_block_recompute(inputs, conf, cotangents, needs=(True,) * 9, row0=0,
     cotangents of (x_out, t). Returns one gradient per input, None where
     ``needs`` is false or the input is None."""
     eps, seeds, act_rate, post_rate = conf
-    with torch.enable_grad():
-        leaves = [None if v is None else v.detach().requires_grad_(n)
-                  for v, n in zip(inputs, needs)]
-        outs = _block_math(*leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply,
-                           row0, branch_scale)
-        wrt = [v for v, n in zip(leaves, needs) if n and v is not None]
-        grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True))
-    return [next(grads) if n and v is not None else None for v, n in zip(leaves, needs)]
+    return _recompute(lambda *leaves: _block_math(
+        *leaves, eps, seeds, act_rate, post_rate, _Fp32SumMatmul.apply, row0, branch_scale),
+        inputs, needs, cotangents)
 
 
 _Opt = Optional[torch.Tensor]
@@ -375,6 +411,226 @@ def fused_block_mlp(
 
 
 fused_block_mlp.launches = 0
+
+
+# The tensor-parallel split of #6 (``csrc/fused_block.cu``, three entries):
+# a rank of a "model" group holds Ms = M / mp hidden columns of fc1 (from
+# ``col0``) and the same rows of fc2, JAX's column- and row-parallel
+# layout (``parallel/mesh.py:85-86``); fc2's partial sums are reduced over
+# the group before the bias, the residual and LN2:
+#
+#   block_fc1          (r, h) = (LN1(x), drop_a(GELU(r W1s + b1s)))
+#   block_fc2_partial  P = h W2s in fp32
+#   (all-reduce of P over the group: S)
+#   block_ln2          (x_out, t) = (LN2(r + dp(drop_c(t))), drop_b(S + b2))
+#
+# drop_a hashes hidden column col0 + j, so the ranks' masks are the column
+# slices of the unsharded block's; drop_b and drop_c see whole rows. With
+# one rank the three compute ``fused_block_plain``'s function. Training:
+# each is an autograd Function whose backward recomputes through the plain
+# math (``_fc1_math``, the fp32-sum product, ``_ln2_math``), with
+# ``to_model`` (the Megatron f: identity forward, all-reduced gradient)
+# where r enters fc1. The kernels take bf16 only; CPU tensors run the plain
+# versions.
+
+
+def _launch_fc1(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, row0, col0):
+    n, c = x2.shape
+    ms = w1.shape[1]
+    if w1.shape[0] != c or x2.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16:
+        raise ValueError(f"block_fc1 takes bf16 x (N, C) and w1 (C, Ms), got {x2.dtype} "
+                         f"{tuple(x2.shape)}, {w1.dtype} {tuple(w1.shape)}")
+    if not x2.is_contiguous():
+        raise ValueError("block_fc1 takes a contiguous x")
+    if c % 128 or c > 1024 or ms % 128:
+        raise ValueError(f"block_fc1 needs C % 128 == 0, C <= 1024 and Ms % 128 == 0, got "
+                         f"C={c}, Ms={ms}")
+    dev = x2.device
+    w1t = w1.detach().t().contiguous()  # (Ms, C): a no-op for Linear.weight.t() views
+    l1s, l1b, b1v = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev), _vec(b1, ms, 0.0,
+                                                                                     dev)
+    thresh = keep_threshold(rate) if rate > 0.0 else 0
+    r = torch.empty((n, c), dtype=x2.dtype, device=dev)
+    h = torch.empty((n, ms), dtype=x2.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = library().a2v_block_fc1(
+            x2.data_ptr(), l1s.data_ptr(), l1b.data_ptr(), w1t.data_ptr(), b1v.data_ptr(),
+            r.data_ptr(), h.data_ptr(), n, c, ms, float(eps), int(seed or 0), thresh,
+            keep_scale(rate) if thresh else 1.0, int(row0) & 0xFFFFFFFF,
+            int(col0) & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    check(err, "block fc1 kernel")
+    block_fc1.launches += 1
+    return r, h
+
+
+class _BlockFc1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, row0, col0, to_model):
+        ctx.save_for_backward(x2, ln1_scale, ln1_bias, w1, b1)
+        ctx.conf = (eps, seed, rate, row0, col0, to_model)
+        return _launch_fc1(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, row0, col0)
+
+    @staticmethod
+    def backward(ctx, g_r, g_h):
+        eps, seed, rate, row0, col0, to_model = ctx.conf
+        grads = _recompute(lambda *leaves: _fc1_math(
+            *leaves, eps, seed, rate, _Fp32SumMatmul.apply, row0, col0, to_model),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], (g_r, g_h))
+        return (*grads, None, None, None, None, None, None)
+
+
+def block_fc1(x2, ln1_scale, ln1_bias, w1, b1, eps=1e-5, seed=None, rate=0.0, row0=0, col0=0,
+              to_model=None):
+    """(r (N, C), h (N, Ms)) of the split block's first half on the
+    flattened (N, C) ``x2``, ``w1`` the rank's (C, Ms) columns of fc1 (JAX
+    layout: ``fc1.weight.t()``), drop_a at ``rate`` from one int32 ``seed``
+    over rows from ``row0`` and hidden columns from ``col0``; ``to_model``
+    takes r into fc1 under autograd. Kernel on CUDA (``a2v_block_fc1``),
+    the plain version on CPU."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("a nonzero dropout rate needs an int32 seed")
+    if x2.device.type == "cpu":
+        return _fc1_math(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, _fp32_matmul, row0,
+                         col0, to_model)
+    if x2.device.type != "cuda":
+        raise ValueError(f"block_fc1 runs on cuda or cpu tensors, got {x2.device}")
+    args = (x2, ln1_scale, ln1_bias, w1, b1)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return _BlockFc1.apply(*args, float(eps), seed, float(rate), int(row0), int(col0),
+                               to_model)
+    return _launch_fc1(*args, eps, seed, rate, row0, col0)
+
+
+block_fc1.launches = 0
+
+
+def _launch_fc2_partial(h, w2):
+    n, ms = h.shape
+    c = w2.shape[1]
+    if w2.shape[0] != ms or h.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
+        raise ValueError(f"block_fc2_partial takes bf16 h (N, Ms) and w2 (Ms, C), got {h.dtype} "
+                         f"{tuple(h.shape)}, {w2.dtype} {tuple(w2.shape)}")
+    if ms % 64 or c % 8:
+        raise ValueError(f"block_fc2_partial needs Ms % 64 == 0 and C % 8 == 0, got Ms={ms}, "
+                         f"C={c}")
+    if not h.is_contiguous():
+        raise ValueError("block_fc2_partial takes a contiguous h")
+    w2t = w2.detach().t().contiguous()  # (C, Ms): a no-op for Linear.weight.t() views
+    out = torch.empty((n, c), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        err = library().a2v_block_fc2_partial(h.data_ptr(), w2t.data_ptr(), out.data_ptr(), n, ms,
+                                              c, torch.cuda.current_stream().cuda_stream)
+    check(err, "block fc2 partial kernel")
+    block_fc2_partial.launches += 1
+    return out
+
+
+class _Fc2Partial(_Fp32SumMatmul):
+    """The fp32 sum h @ w2 through the fp32-output GEMM kernel; the backward
+    is ``_Fp32SumMatmul``'s (JAX's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, h, w2):
+        ctx.save_for_backward(h, w2)
+        return _launch_fc2_partial(h, w2)
+
+
+def block_fc2_partial(h: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The rank's fp32 (N, C) partial of fc2, ``h`` (N, Ms) times ``w2`` the
+    rank's (Ms, C) rows of fc2 (JAX layout: ``fc2.weight.t()``), without the
+    bias. Kernel on CUDA (``a2v_block_fc2_partial``), the plain fp32-sum
+    product on CPU."""
+    if h.device.type == "cpu":
+        return _fp32_matmul(h, w2.to(h.dtype))
+    if h.device.type != "cuda":
+        raise ValueError(f"block_fc2_partial runs on cuda or cpu tensors, got {h.device}")
+    if torch.is_grad_enabled() and (h.requires_grad or w2.requires_grad):
+        return _Fc2Partial.apply(h, w2)
+    return _launch_fc2_partial(h, w2)
+
+
+block_fc2_partial.launches = 0
+
+
+def _launch_ln2(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0,
+                branch_scale):
+    n, c = r.shape
+    if s.shape != (n, c) or s.dtype != torch.float32 or r.dtype != torch.bfloat16:
+        raise ValueError(f"block_ln2 takes an fp32 (N, C) sum and a bf16 r, got {s.dtype} "
+                         f"{tuple(s.shape)}, {r.dtype} {tuple(r.shape)}")
+    if c % 128 or c > 1024:
+        raise ValueError(f"block_ln2 needs C % 128 == 0 and C <= 1024, got C={c}")
+    dev = r.device
+    s, r = s.contiguous(), r.contiguous()
+    b2v, l2s, l2b = _vec(b2, c, 0.0, dev), _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0,
+                                                                               dev)
+    s_fc2, s_post = (int(v) for v in seeds) if seeds is not None else (0, 0)
+    act_t = keep_threshold(act_rate) if act_rate > 0.0 else 0
+    post_t = keep_threshold(post_rate) if post_rate > 0.0 else 0
+    scale_ptr, rows_per_scale = None, 1
+    if branch_scale is not None:
+        b = branch_scale.shape[0]
+        if branch_scale.dim() != 1 or b == 0 or n % b or branch_scale.device != dev:
+            raise ValueError(f"branch_scale must be a (B,) vector on {dev}, one value per "
+                             f"sample of the {n} rows, got {tuple(branch_scale.shape)}")
+        branch_scale = branch_scale.detach().to(torch.float32).contiguous()
+        scale_ptr, rows_per_scale = branch_scale.data_ptr(), n // b
+    t = torch.empty((n, c), dtype=r.dtype, device=dev)
+    x_out = torch.empty((n, c), dtype=r.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = library().a2v_block_ln2(
+            s.data_ptr(), b2v.data_ptr(), r.data_ptr(), l2s.data_ptr(), l2b.data_ptr(),
+            t.data_ptr(), x_out.data_ptr(), n, c, float(eps), s_fc2, act_t,
+            keep_scale(act_rate) if act_t else 1.0, s_post, post_t,
+            keep_scale(post_rate) if post_t else 1.0, int(row0) & 0xFFFFFFFF, scale_ptr,
+            rows_per_scale, torch.cuda.current_stream().cuda_stream)
+    check(err, "block ln2 kernel")
+    block_ln2.launches += 1
+    return x_out, t
+
+
+class _BlockLn2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0,
+                branch_scale):
+        ctx.save_for_backward(s, b2, r, ln2_scale, ln2_bias, branch_scale)
+        ctx.conf = (eps, seeds, act_rate, post_rate, row0)
+        return _launch_ln2(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0,
+                           branch_scale)
+
+    @staticmethod
+    def backward(ctx, g_out, g_t):
+        *inputs, branch_scale = ctx.saved_tensors
+        eps, seeds, act_rate, post_rate, row0 = ctx.conf
+        grads = _recompute(lambda *leaves: _ln2_math(
+            *leaves, eps, seeds, act_rate, post_rate, row0, branch_scale),
+            inputs, ctx.needs_input_grad[:5], (g_out, g_t))
+        return (*grads, None, None, None, None, None, None)
+
+
+def block_ln2(s, b2, r, ln2_scale, ln2_bias, eps=1e-5, seeds=None, act_rate=0.0,
+              post_rate=0.0, row0=0, branch_scale=None):
+    """(x_out, t), each (N, C), of the split block's second half from the
+    reduced fp32 fc2 sum ``s`` and ``block_fc1``'s r: drop_b at
+    ``act_rate`` and drop_c at ``post_rate`` from ``seeds`` (two int32)
+    over rows from ``row0``, ``branch_scale`` the per-sample drop-path
+    factor. Kernel on CUDA (``a2v_block_ln2``), the plain version on CPU."""
+    if (act_rate > 0.0 or post_rate > 0.0) and (seeds is None or len(seeds) != 2):
+        raise ValueError("a nonzero dropout rate needs two int32 seeds")
+    if r.device.type == "cpu":
+        return _ln2_math(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0,
+                         branch_scale)
+    if r.device.type != "cuda":
+        raise ValueError(f"block_ln2 runs on cuda or cpu tensors, got {r.device}")
+    seeds = None if seeds is None else tuple(int(v) for v in seeds)
+    args = (s, b2, r, ln2_scale, ln2_bias)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return _BlockLn2.apply(*args, float(eps), seeds, float(act_rate), float(post_rate),
+                               int(row0), branch_scale)
+    return _launch_ln2(*args, eps, seeds, act_rate, post_rate, row0, branch_scale)
+
+
+block_ln2.launches = 0
 
 
 # int8 serving block: the port of the int8 arm of the JAX ``fused_block_mlp``

@@ -174,7 +174,8 @@ MAPPED = frozenset(
                                 "train_subset", "valid_subset", "validate_interval_updates",
                                 "validate_after_updates", "required_batch_size_multiple",
                                 "disable_validation")]
-    + ["distributed.data_parallel"]
+    + [f"distributed.{k}" for k in ("data_parallel", "model_parallel", "fsdp",
+                                     "pipeline_parallel")]
     + [f"criterion.{k}" for k in ("use_focal_loss", "label_smoothing", "report_accuracy",
                                   "segmentation_metrics", "metric_threshold", "iou_threshold",
                                   "sigma_s", "maxfilt_s", "max_duration_s", "lowP", "method",
@@ -194,7 +195,8 @@ MAPPED = frozenset(
         "unique_labels", "conv_feature_layers", "end_of_block_targets",
         "layer_norm_target_layer", "batch_norm_target_layer", "instance_norm_target_layer",
         "instance_norm_targets", "layer_norm_targets", "shared_decoder", "min_target_var",
-        "min_pred_var", "recon_loss", "d2v_loss", "final_dropout", "metric_threshold")]
+        "min_pred_var", "recon_loss", "d2v_loss", "final_dropout", "metric_threshold",
+        "pipeline_stages", "pipeline_microbatches")]
     + [f"model.mixup.{k}" for k in _MIX]
     + [_A + k for k in (
         "prenet_depth", "prenet_dropout", "num_extra_tokens", "init_extra_token_zero",
@@ -258,15 +260,10 @@ IGNORED.update({_I + "decoder." + k: _NO_IMAGE for k in _DECODER})
 IGNORED[_I + "decoder"] = _NO_IMAGE
 _DERIVED = {_I + "num_alibi_heads", _I + "model_depth"}  # set by resolve
 
-A7, A10 = "A.7", "A.10"
+A7 = "A.7"
 # 3. not ported: key -> (ROADMAP item, the values the port implements or None
 # for the default only, the runs it holds for)
 REFUSED: Dict[str, Tuple[str, Optional[tuple], str]] = {
-    "distributed.model_parallel": (A10, None, "all"),
-    "distributed.fsdp": (A10, None, "all"),
-    "distributed.pipeline_parallel": (A10, None, "all"),
-    "model.pipeline_stages": (A10, None, "all"),
-    "model.pipeline_microbatches": (A10, None, "all"),
     # JAX's loop, train_cli and loader read audio only and never name the
     # image mode (ROADMAP A.7, not queued)
     "model.supported_modality": (A7, None, "all"),
@@ -513,7 +510,8 @@ def encoder_config(tree: dict) -> FinetuneConfig:
         num_extra_tokens=audio["num_extra_tokens"],
         init_extra_token_zero=audio["init_extra_token_zero"],
         remat=m["remat"], remat_scope=m["remat_scope"], remat_frontend=m["remat_frontend"],
-        remat_decoder=m["remat_decoder"],
+        remat_decoder=m["remat_decoder"], pipeline_stages=m["pipeline_stages"],
+        pipeline_microbatches=m["pipeline_microbatches"],
         average_top_k_layers=(ft or m)["average_top_k_layers"],
         labels=tuple(ast.literal_eval(task["unique_labels"])), normalize=task["normalize"],
         max_sample_size=task["max_sample_size"], metric_threshold=crit["metric_threshold"],
@@ -616,7 +614,7 @@ def run_config(tree: dict) -> RunConfig:
             patience=ck["patience"]),
         criterion=SegmentationConfig(segmentation_metrics=crit["segmentation_metrics"],
                                      method=crit["method"]),
-        distributed=DistributedConfig(data_parallel=tree["distributed"]["data_parallel"]),
+        distributed=DistributedConfig(**tree["distributed"]),
     )
     if tree["finetune"] is None:
         return RunConfig(pretrain=pretrain_config(tree), **groups)

@@ -1,13 +1,18 @@
-"""Data-parallel dry run: the port of ``__graft_entry__.dryrun_multichip``
-for the "data" axis (no tensor, pipeline or FSDP sharding: ROADMAP A.10).
+"""Multi-rank dry run: the port of ``__graft_entry__.dryrun_multichip`` over
+the mesh's "data", "stage" and "model" axes.
 
 Usage:
   python -m animal2vec_tpu_torch.tools.dryrun_multigpu [--ranks 2] \\
       [--device cuda|cpu] [--dist-backend nccl|gloo] [--width small|a2v-large] \\
-      [--batch B] [--parts finetune,pretrain,infer,masks] [--out result.json]
+      [--depth N] [--layout SPEC ...] [--batch B] \\
+      [--parts finetune,pretrain,infer,masks,tp_masks] [--out result.json]
 
-Starts ``--ranks`` processes in one group (``parallel.mesh.launch``), each
-holding B rows of a seeded global batch of ranks x B rows, and runs:
+Starts ``--ranks`` processes in one group (``parallel.mesh.launch``) and, for
+each ``--layout`` in turn (data parallelism without one), lays out
+``distributed`` data = ranks / (S x M) x stage S x model M, with FSDP where
+the spec says (a "+"-joined ``model=M``, ``stage=S``, ``fsdp``; or ``dp``;
+``parallel/layout.py``), each data rank holding B rows of a seeded global
+batch of data x B rows, and runs:
 
 * ``finetune``: one finetune step (``finetune_100.yaml`` with every rate 0,
   mixup and masks off, update_freq 2) through the data-parallel step;
@@ -17,19 +22,33 @@ holding B rows of a seeded global batch of ranks x B rows, and runs:
 * ``masks``: one post-LN block in training with attention, activation and
   post-MLP hash dropout on the same rows on every rank (the ranks' masks
   must differ) against rank 0's one-rank call on every rank's rows stacked
-  (each rank's output must be the slice of its global rows).
+  (each rank's output must be the slice of its global rows);
+* ``tp_masks`` (a "model" axis): each rank's attention with dropout on its
+  heads (``h0``) and the split block's fc1 with drop_a on its hidden
+  columns (``col0``) against the whole call on the same inputs: the rank's
+  outputs must be the whole call's heads and columns bit for bit (so its
+  masks are their slices).
 
 The finetune part takes a second step on the same batch, timed (host
 clock around the step, synchronized), with the gradient all-reduce timed
 on its own. Rank 0 then runs each part as one rank on the whole global
 batch (the finetune step also twice, the second timed) and prints the
-gaps after the first step: parameters (max abs over every tensor; a one-step Adam
-update moves a parameter by at most lr, so a flipped gradient sign moves it
-by 2 lr: the bound is 2.1 lr), the loss (relative), the EMA teacher and the
-probabilities; every rank's parameter checksum must agree. ``--width
-small`` is C 128, 2 heads, 2 + 2 blocks on 800-sample clips (the kernels'
-widths); ``a2v-large`` the recipe's full model on 10-s clips. With
-``--device cpu`` the ranks are gloo processes on the CPU.
+gaps of the first step: the gradients the optimizer took (each leaf's
+relative norm gap, the worst leaf's and the whole gradient's, a sharded
+layout's gathered whole by ``layout.full_state``; and the global norm by
+``layout.grad_sq_norm`` that clipping reads; under FSDP against the same
+layout without it, whose data split they share), parameters after it (max
+abs over every tensor; a one-step Adam update moves a parameter by at
+most lr whatever the gradient's size, so a flipped gradient sign moves it
+by 2 lr: the bound is 2.1 lr, and the gradients carry the check of the
+sharded backward), the loss (relative), the EMA teacher and the
+probabilities; every rank's checksum of the parameters it holds whole must
+agree. Each step part also times a second step (host clock, synchronized)
+and reports each rank's peak device memory. ``--width small`` is C 128, 2
+heads, 2 + 2 blocks on 800-sample clips (the kernels' widths);
+``a2v-large`` the recipe's full model on 10-s clips; ``--depth`` cuts the
+trunk to N blocks and the prenet to 2 (the widths stay). With ``--device
+cpu`` the ranks are gloo processes on the CPU.
 """
 
 from __future__ import annotations
@@ -44,10 +63,17 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from animal2vec_tpu_torch.config import (
-    DecoderConfig, FinetuneConfig, FinetuneTrainConfig, OptimizationConfig, PretrainConfig,
+    DecoderConfig, DistributedConfig, FinetuneConfig, FinetuneTrainConfig, OptimizationConfig,
+    PretrainConfig,
 )
 from animal2vec_tpu_torch.parallel import mesh
+from animal2vec_tpu_torch.parallel.layout import (
+    apply_layout, full_state, grad_sq_norm, in_trunk,
+)
+from animal2vec_tpu_torch.parallel.tensor import tp_rule
 
 SMALL = dict(embed_dim=128, num_heads=2, depth=2, prenet_depth=2, conv_pos_depth=2,
              conv_pos_width=10, conv_pos_groups=2, average_top_k_layers=2,
@@ -55,12 +81,22 @@ SMALL = dict(embed_dim=128, num_heads=2, depth=2, prenet_depth=2, conv_pos_depth
 LR = 1e-4
 OPT = OptimizationConfig(lr=LR, warmup_updates=0, update_freq=2)
 PARAM_BOUND = 2.1 * LR  # two opposite one-step Adam updates, with weight decay
-PARTS = ("finetune", "pretrain", "infer", "masks")
+# a leaf's relative gradient gap against one rank: bf16 rounding in another
+# order stays near 1e-2, a missing or doubled collective moves a leaf by 0.5
+# or more (half of a sum lost, or twice counted)
+GRAD_BOUND = 0.1
+PARTS = ("finetune", "pretrain", "infer", "masks", "tp_masks")
+DEPTH: Dict[str, int] = {}  # the --depth cut, set by main
 
 
 def _model_cfg(width: str) -> FinetuneConfig:
-    return FinetuneConfig() if width == "a2v-large" else dataclasses.replace(
+    cfg = FinetuneConfig() if width == "a2v-large" else dataclasses.replace(
         FinetuneConfig(), **SMALL)
+    if DEPTH:
+        depth = DEPTH["depth"]
+        cfg = dataclasses.replace(cfg, depth=depth, prenet_depth=min(cfg.prenet_depth, 2),
+                                  average_top_k_layers=min(cfg.average_top_k_layers, depth))
+    return cfg
 
 
 def _wav_len(width: str) -> int:
@@ -96,23 +132,91 @@ def _rows(x: torch.Tensor, dp: mesh.DataParallel, axis: int = 0) -> torch.Tensor
     return x.narrow(axis, dp.rank * b, b).contiguous()
 
 
-def _checksum(params) -> float:
-    return float(sum(p.detach().double().sum() for p in params))
+def _checksum(dp: mesh.DataParallel, named) -> float:
+    """The sum of the parameters this rank holds whole (not a shard of
+    "model", FSDP or another stage)."""
+    from torch.distributed.tensor import DTensor
+
+    return float(sum(p.detach().double().sum() for n, p in named
+                     if not (isinstance(p, DTensor) or (dp.model.size > 1 and tp_rule(n))
+                             or (dp.stage.size > 1 and in_trunk(n)))))
+
+
+def _world_gather(dp: mesh.DataParallel, obj) -> list:
+    if dp.global_world == 1:
+        return [obj]
+    out = [None] * dp.global_world
+    dist.all_gather_object(out, obj, group=dp.world_host_group)
+    return out
+
+
+def _whole(dp: mesh.DataParallel, tensors: Dict[str, torch.Tensor]):
+    """``tensors`` as whole host tensors on the main rank (None elsewhere)."""
+    return full_state(dp, tensors) if dp.sharded else (
+        {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()} if dp.is_main
+        else None)
 
 
 def _gap(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> float:
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
+def _grads(group: mesh.DataParallel, state):
+    """The gradients the optimizer took in the step just run, whole on the
+    main rank (None elsewhere), and their global norm by the layout's
+    ``grad_sq_norm`` (every rank takes part in both)."""
+    from torch.distributed.tensor import DTensor
+
+    named = [(g["name"], g["params"][0]) for g in state.optimizer.param_groups]
+    local = [p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad for _, p in named]
+    norm = float(grad_sq_norm(group, named, local).sqrt())
+    return _whole(group, {n: p.grad for n, p in named}), norm
+
+
+def _grad_gaps(grads, norm, ref_grads, ref_norm) -> dict:
+    """Each leaf's relative norm gap against the reference's gradients: the
+    worst leaf's with its name, the whole gradient's, the global norm's."""
+    worst, leaf, num, den = 0.0, "", 0.0, 0.0
+    for name, want in ref_grads.items():
+        d = float((grads[name].double() - want.double()).norm())
+        w = float(want.double().norm())
+        num, den = num + d * d, den + w * w
+        rel = d / w if w else (0.0 if d == 0.0 else float("inf"))
+        if rel > worst:
+            worst, leaf = rel, name
+    return {"grad_gap": worst, "grad_gap_leaf": leaf, "grad_gap_whole": (num / den) ** 0.5,
+            "grad_norm": norm, "ref_grad_norm": ref_norm,
+            "grad_norm_gap": abs(norm - ref_norm) / ref_norm, "grad_bound": GRAD_BOUND}
+
+
+def _grad_reference(dp: mesh.DataParallel, run, rows):
+    """The gradients (and norm) the layout's are held against, from ``run``
+    on ``rows``: under FSDP the same layout without it, the same rows a data
+    rank (data parallelism, which phase 14b holds against one rank), so the
+    gap isolates FSDP2's gathers and reduce-scatters from the batch split's
+    bf16 rounding; else None (the one-rank run on the global batch)."""
+    return run(rows, dataclasses.replace(dp, fsdp=False))[0][-1] if dp.fsdp else None
+
+
+def _peak_mb(dp: mesh.DataParallel) -> float:
+    if dp.device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(dp.device) / 2**20
+
+
 def _launches() -> Dict[str, int]:
     from animal2vec_tpu_torch.ops.attention import (
-        alibi_flash_attention_packed, alibi_flash_attention_serve,
+        alibi_flash_attention_packed, alibi_flash_attention_serve, attention_dkv, attention_dq,
     )
-    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        block_fc1, block_fc2_partial, block_ln2, fused_block_mlp,
+    )
 
     return {"alibi_train": alibi_flash_attention_packed.launches,
             "alibi_serve": alibi_flash_attention_serve.launches,
-            "fused_block": fused_block_mlp.launches}
+            "alibi_dq": attention_dq.launches, "alibi_dkv": attention_dkv.launches,
+            "fused_block": fused_block_mlp.launches, "block_fc1": block_fc1.launches,
+            "block_fc2_partial": block_fc2_partial.launches, "block_ln2": block_ln2.launches}
 
 
 def _counted(fn):
@@ -141,6 +245,14 @@ def _timed_reduce(dp: mesh.DataParallel, seconds: List[float]) -> None:
     dp.reduce_gradients = timed
 
 
+def _timed(dp: mesh.DataParallel, fn) -> float:
+    _sync(dp)
+    t0 = time.perf_counter()
+    fn()
+    _sync(dp)
+    return time.perf_counter() - t0
+
+
 def finetune_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.ops.dropout import Rngs
@@ -158,36 +270,40 @@ def finetune_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
                                        .astype(np.float32))}
 
     def run(rows, group):
-        """The first step's state dict, metrics and launches; the second
-        step's seconds."""
-        model = build_finetune_model(cfg, _dtype(dp), seed=0, device=dp.device, train=tcfg)
-        state = FinetuneState.create(model, tcfg)
+        """The first step's whole state dict (main rank), metrics, launches
+        and peak memory; the second step's seconds."""
+        model = apply_layout(build_finetune_model(cfg, _dtype(dp), seed=0, device=dp.device,
+                                                  train=tcfg), group)
+        state = FinetuneState.create(model, tcfg, group)
         step = make_finetune_train_step(tcfg, group)
         b = {k: v.to(dp.device) for k, v in rows.items()}
         rngs = Rngs.from_seed(5, dp.device, group.rank)
+        if dp.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dp.device)
         metrics, launches = _counted(lambda: step(state, b, rngs))
-        first = ({k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-                 float(metrics["loss"]), _checksum(state.model.parameters()))
-        _sync(dp)
-        t0 = time.perf_counter()
-        step(state, b, rngs)
-        _sync(dp)
-        return first, launches, time.perf_counter() - t0
+        first = (_whole(group, state.model.state_dict(keep_vars=True)), float(metrics["loss"]),
+                 _checksum(group, state.model.named_parameters()), _peak_mb(dp),
+                 _grads(group, state))
+        return first, launches, _timed(dp, lambda: step(state, b, rngs))
 
     reduce_s: List[float] = []
     _timed_reduce(dp, reduce_s)
-    (params, loss, checksum), launches, step_s = run(
-        {k: _rows(v, dp, 1) for k, v in full.items()}, dp)
-    sums = dp.all_gather_object(checksum)
+    mine = {k: _rows(v, dp, 1) for k, v in full.items()}
+    (params, loss, checksum, peak, grads), launches, step_s = run(mine, dp)
+    twin = _grad_reference(dp, run, mine)
+    sums = _world_gather(dp, checksum)
     out = {"launches": launches, "checksums_equal": len(set(sums)) == 1,
-           "step_ms": 1e3 * step_s, "all_reduce_ms": 1e3 * reduce_s[-1] if reduce_s else 0.0}
+           "step_ms": 1e3 * step_s, "all_reduce_ms": 1e3 * reduce_s[-1] if reduce_s else 0.0,
+           "peak_mb": _world_gather(dp, peak)}
     if dp.is_main:
         if dp.device.type == "cuda":
             torch.cuda.empty_cache()
-        (ref_params, ref_loss, _), _, ref_s = run(full, mesh.DataParallel(device=dp.device))
+        (ref_params, ref_loss, _, ref_peak, ref_grads), _, ref_s = run(
+            full, mesh.DataParallel(device=dp.device))
+        out.update(_grad_gaps(*grads, *(twin or ref_grads)))
         out.update(param_gap=_gap(params, ref_params), bound=PARAM_BOUND, loss=loss,
                    ref_loss=ref_loss, loss_rel_gap=abs(loss - ref_loss) / abs(ref_loss),
-                   one_rank_step_ms=1e3 * ref_s)
+                   one_rank_step_ms=1e3 * ref_s, one_rank_peak_mb=ref_peak)
     dp.barrier()
     return out
 
@@ -215,33 +331,36 @@ def pretrain_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
         return mask[rngs.row0: rngs.row0 + r]
 
     def run(b_rows, group):
-        model = build_pretrain_model(cfg, _dtype(dp), seed=0, device=dp.device)
-        state = PretrainState.create(model, cfg)
+        model = apply_layout(build_pretrain_model(cfg, _dtype(dp), seed=0, device=dp.device),
+                             group)
+        state = PretrainState.create(model, cfg, group)
         step = make_pretrain_train_step(cfg, draw, group)
         b = {k: v.to(dp.device) for k, v in b_rows.items()}
-        metrics, launches = _counted(lambda: step(state, b, Rngs.from_seed(5, dp.device,
-                                                                           group.rank)))
-        return state, metrics, launches
+        rngs = Rngs.from_seed(5, dp.device, group.rank)
+        if dp.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dp.device)
+        metrics, launches = _counted(lambda: step(state, b, rngs))
+        first = (_whole(group, state.model.state_dict(keep_vars=True)), _whole(group, state.ema),
+                 float(metrics["loss"]), launches, _peak_mb(dp),
+                 _checksum(group, state.model.named_parameters()), _grads(group, state))
+        return first, _timed(dp, lambda: step(state, b, rngs))
 
-    state, metrics, launches = run({k: _rows(v, dp, 1) for k, v in full.items()}, dp)
-    sums = dp.all_gather_object((_checksum(state.model.parameters()),
-                                 _checksum(state.ema.values())))
-    params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-    ema = {k: v.cpu() for k, v in state.ema.items()}
-    loss = float(metrics["loss"])
-    del state
-    out = {"launches": launches, "checksums_equal": len(set(sums)) == 1}
+    mine = {k: _rows(v, dp, 1) for k, v in full.items()}
+    (params, ema, loss, launches, peak, checksum, grads), step_s = run(mine, dp)
+    twin = _grad_reference(dp, run, mine)
+    sums = _world_gather(dp, checksum)
+    out = {"launches": launches, "checksums_equal": len(set(sums)) == 1,
+           "step_ms": 1e3 * step_s, "peak_mb": _world_gather(dp, peak)}
     if dp.is_main:
         if dp.device.type == "cuda":
             torch.cuda.empty_cache()
-        ref, ref_metrics, _ = run(full, mesh.DataParallel(device=dp.device))
-        out.update(param_gap=_gap(params, {k: v.detach().cpu()
-                                           for k, v in ref.model.state_dict().items()}),
-                   ema_gap=_gap(ema, {k: v.cpu() for k, v in ref.ema.items()}),
-                   bound=PARAM_BOUND, loss=loss, ref_loss=float(ref_metrics["loss"]),
-                   loss_rel_gap=abs(loss - float(ref_metrics["loss"])) / abs(float(
-                       ref_metrics["loss"])))
-        del ref
+        (ref_params, ref_ema, ref_loss, _, ref_peak, _, ref_grads), ref_s = run(
+            full, mesh.DataParallel(device=dp.device))
+        out.update(_grad_gaps(*grads, *(twin or ref_grads)))
+        out.update(param_gap=_gap(params, ref_params), ema_gap=_gap(ema, ref_ema),
+                   bound=PARAM_BOUND, loss=loss, ref_loss=ref_loss,
+                   loss_rel_gap=abs(loss - ref_loss) / abs(ref_loss),
+                   one_rank_step_ms=1e3 * ref_s, one_rank_peak_mb=ref_peak)
     dp.barrier()
     return out
 
@@ -250,7 +369,7 @@ def infer_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
 
     cfg = _model_cfg(width)
-    model = build_finetune_model(cfg, _dtype(dp), seed=3, device=dp.device)
+    model = apply_layout(build_finetune_model(cfg, _dtype(dp), seed=3, device=dp.device), dp)
     src = torch.from_numpy(np.random.default_rng(9).normal(
         size=(batch * dp.world, _wav_len(width))).astype(np.float32))
     with torch.no_grad():
@@ -259,7 +378,8 @@ def infer_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
         gathered = dp.allgather_uneven(probs.numpy(), np.float32)
         out = {"launches": launches}
         if dp.is_main:
-            ref = torch.sigmoid(model(src.to(dp.device))["encoder_out"].float()).cpu().numpy()
+            whole = build_finetune_model(cfg, _dtype(dp), seed=3, device=dp.device)
+            ref = torch.sigmoid(whole(src.to(dp.device))["encoder_out"].float()).cpu().numpy()
             out.update(prob_gap=float(np.abs(gathered - ref).max()), shape=list(gathered.shape))
     return out
 
@@ -298,6 +418,44 @@ def masks_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
     return out
 
 
+def tp_masks_part(dp: mesh.DataParallel, width: str, batch: int) -> dict:
+    """A "model" rank's attention with dropout on its heads and the split
+    block's fc1 with drop_a on its hidden columns, against the whole calls
+    on the same inputs: bit for bit the whole calls' heads and columns."""
+    from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_btc
+    from animal2vec_tpu_torch.ops.fused_mlp import block_fc1
+
+    cfg = _model_cfg(width)
+    c, h, m = cfg.embed_dim, cfg.num_heads, int(cfg.embed_dim * cfg.mlp_ratio)
+    t = 2000 if width == "a2v-large" else 200
+    mp, r = dp.model.size, dp.model.rank
+    hl, ms = h // mp, m // mp
+    g = torch.Generator().manual_seed(14)
+    dt = _dtype(dp)
+    qkv = torch.randn(batch, t, 3, h, c // h, generator=g).to(dp.device, dt)
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)], device=dp.device)
+    pos = torch.arange(t, dtype=torch.int32, device=dp.device)[None]
+    x = torch.randn(batch * t, c, generator=g).to(dp.device, dt)
+    w1 = (0.02 * torch.randn(c, m, generator=g)).to(dp.device, dt)
+    b1 = 0.02 * torch.randn(m, generator=g).to(dp.device)
+    with torch.no_grad():
+        whole = alibi_flash_attention_btc(qkv.reshape(batch, t, -1), h, slopes, pos, None,
+                                          False, 0.2, 1234).reshape(batch, t, h, -1)
+        mine = alibi_flash_attention_btc(
+            qkv[:, :, :, r * hl:(r + 1) * hl].reshape(batch, t, -1), hl,
+            slopes[r * hl:(r + 1) * hl], pos, None, False, 0.2, 1234, r * hl,
+            h).reshape(batch, t, hl, -1)
+        _, h_whole = block_fc1(x, None, None, w1, b1, 1e-5, 77, 0.1, 0)
+        _, h_mine = block_fc1(x, None, None, w1[:, r * ms:(r + 1) * ms].contiguous(),
+                              b1[r * ms:(r + 1) * ms], 1e-5, 77, 0.1, 0, r * ms)
+    want_a, want_h = whole[:, :, r * hl:(r + 1) * hl], h_whole[:, r * ms:(r + 1) * ms]
+    return {"attention_equal": bool(torch.equal(mine, want_a)),
+            "fc1_equal": bool(torch.equal(h_mine, want_h)),
+            "fc1_masks_equal": bool(torch.equal(h_mine == 0, want_h == 0)),
+            "ranks_equal": _world_gather(dp, (bool(torch.equal(mine, want_a)),
+                                              bool(torch.equal(h_mine, want_h))))}
+
+
 def _spec(heads: int, pos: torch.Tensor, device):
     from animal2vec_tpu_torch.models.attention import AlibiSpec
 
@@ -308,8 +466,26 @@ def _spec(heads: int, pos: torch.Tensor, device):
 
 def run_parts(dp: mesh.DataParallel, width: str, batch: int, parts: List[str]) -> dict:
     table = {"finetune": finetune_part, "pretrain": pretrain_part, "infer": infer_part,
-             "masks": masks_part}
+             "masks": masks_part, "tp_masks": tp_masks_part}
     return {p: table[p](dp, width, batch) for p in parts}
+
+
+def _layout(spec: str, ranks: int) -> DistributedConfig:
+    """A ``--layout`` spec: "+"-joined ``model=M``, ``stage=S``, ``fsdp``
+    (data takes the ranks left), or "dp" (data parallelism alone)."""
+    kw = {"model_parallel": 1, "pipeline_parallel": 1, "fsdp": False}
+    for item in spec.split("+"):
+        key, _, value = item.partition("=")
+        if key == "model":
+            kw["model_parallel"] = int(value)
+        elif key == "stage":
+            kw["pipeline_parallel"] = int(value)
+        elif key == "fsdp":
+            kw["fsdp"] = True
+        elif key != "dp":
+            raise ValueError(f"--layout {spec!r}: '+'-joined model=M, stage=S, fsdp or dp")
+    inner = kw["model_parallel"] * kw["pipeline_parallel"]
+    return DistributedConfig(data_parallel=max(1, ranks // inner), **kw)
 
 
 def main(argv=None):
@@ -319,7 +495,12 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dist-backend", default=None, choices=mesh.BACKENDS)
     parser.add_argument("--width", default="small", choices=("small", "a2v-large"))
-    parser.add_argument("--batch", type=int, default=2, help="rows per rank")
+    parser.add_argument("--depth", type=int, default=0,
+                        help="cut the trunk to this many blocks (and the prenet to 2)")
+    parser.add_argument("--layout", action="append", default=[], metavar="SPEC",
+                        help="run the parts under each such layout in turn, in one launch "
+                             "('+'-joined model=M, stage=S, fsdp; or dp; default dp)")
+    parser.add_argument("--batch", type=int, default=2, help="rows per data rank")
     parser.add_argument("--parts", default=",".join(PARTS))
     parser.add_argument("--out", default="", help="write rank 0's result JSON here")
     argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
@@ -331,11 +512,24 @@ def main(argv=None):
     if not mesh.from_env():
         mesh.launch(["-m", "animal2vec_tpu_torch.tools.dryrun_multigpu", *argv], args.ranks)
         return None
-    dp = mesh.init_data_parallel(args.device, backend)
+    layouts = {spec: _layout(spec, args.ranks) for spec in args.layout} or {
+        "": _layout("dp", args.ranks)}
+    if args.depth:
+        DEPTH["depth"] = args.depth
+    base = mesh.init_data_parallel(args.device, backend)
     try:
-        result = run_parts(dp, args.width, args.batch, parts)
-        if dp.is_main:
-            line = json.dumps({"ranks": dp.world, "backend": backend, "width": args.width,
+        results = {}
+        for spec, layout in layouts.items():
+            dp = mesh.layout(base, layout)
+            # tp_masks needs a "model" axis
+            results[spec] = dict(run_parts(dp, args.width, args.batch,
+                                           [p for p in parts if p != "tp_masks"
+                                            or layout.model_parallel > 1]),
+                                 layout=dataclasses.asdict(layout))
+        result = results[""] if "" in results else results
+        if base.is_main:
+            line = json.dumps({"ranks": base.global_world, "backend": backend,
+                               "width": args.width, "depth": _model_cfg(args.width).depth,
                                "batch_per_rank": args.batch, **result})
             print(f"dryrun_multigpu {line}", flush=True)
             if args.out:
@@ -343,7 +537,7 @@ def main(argv=None):
                     f.write(line)
         return result
     finally:
-        dp.close()
+        base.close()
 
 
 if __name__ == "__main__":

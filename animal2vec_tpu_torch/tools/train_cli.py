@@ -39,6 +39,17 @@ gloo may also place several ranks on one card
 ``dataset.max_tokens`` of items a micro-batch, so the global batch is the
 world size times that (``data/dataset.py``); a checkpoint records the world
 size, and resuming it under another raises.
+
+The other axes of JAX's mesh (``distributed.model_parallel``,
+``pipeline_parallel``, ``fsdp``): the CLI starts data x stage x model
+ranks (``parallel/mesh.py``) and lays the model over them
+(``parallel/layout.py``): Megatron tensor parallelism of the blocks over
+"model", the trunk as a GPipe over "stage" (``model.pipeline_microbatches``
+microbatches), FSDP2 of the blocks' dense kernels over "data". Checkpoints
+hold whole tensors, so a run saved under one layout resumes under another
+with the same data-parallel world (``distributed.model_parallel=2`` then
+one rank, for example). On the CPU: ``--device cpu
+distributed.model_parallel=2``; on one card: add ``--dist-backend gloo``.
 """
 
 from __future__ import annotations
@@ -92,7 +103,7 @@ def main(argv=None):
 
     from animal2vec_tpu_torch.train.loop import run_finetune, run_pretrain
 
-    dp = mesh.init_data_parallel(args.device, backend)
+    dp = mesh.init_data_parallel(args.device, backend, run.distributed)
     if not dp.is_main:  # rank 0 logs
         logging.getLogger("animal2vec_tpu_torch").setLevel(logging.WARNING)
 
@@ -115,7 +126,7 @@ def main(argv=None):
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if torch.device(args.device).type == "cuda" else [])
         with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
-                run.common.tensorboard_logdir or "trace", worker_name=f"rank{dp.rank}")):
+                run.common.tensorboard_logdir or "trace", worker_name=f"rank{dp.global_rank}")):
             return _run()
 
     try:

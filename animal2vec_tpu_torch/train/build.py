@@ -10,7 +10,11 @@ into a finetune model's state dict (the finetune model's ``encoder.*`` are
 the pretraining model's names; its decoders and the EMA teacher stay
 behind); ``init_finetune`` / ``init_pretrain`` build a run's model on its
 device with seeded weights and its train state (Adam with the recipe's
-layer-decay scales, ``train.optim.layer_decay_scales``).
+layer-decay scales, ``train.optim.layer_decay_scales``), laid over a
+``DataParallel``'s mesh where one is given (``parallel.layout.apply_layout``
+after the weights are loaded; ``with_pipeline`` copies
+``distributed.pipeline_parallel`` into the encoder's ``pipeline_stages``,
+JAX's ``_with_pipeline``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
 from animal2vec_tpu_torch.models.finetune import (
     FinetuneModel, build_finetune_model, build_pretrain_model,
 )
+from animal2vec_tpu_torch.parallel.layout import apply_layout
+from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import FinetuneState, PretrainState
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -34,6 +40,28 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ENCODER_FIELDS = ("conv_layers", "sample_rate", "sinc_norm", "use_pswish", "conv_pos_width",
                   "conv_pos_groups", "conv_pos_depth", "prenet_depth", "depth", "embed_dim",
                   "num_heads", "mlp_ratio", "norm_eps", "alibi_scale", "end_of_block_targets")
+
+
+def with_pipeline(model: FinetuneConfig, run: RunConfig) -> FinetuneConfig:
+    """``model`` with ``distributed.pipeline_parallel`` as its
+    ``pipeline_stages`` (``_with_pipeline``, ``train/build.py:40-47``), so
+    that one key sets both the mesh axis and the trunk's schedule."""
+    pp = run.distributed.pipeline_parallel
+    if pp > 1 and model.pipeline_stages == 1:
+        return dataclasses.replace(model, pipeline_stages=pp)
+    return model
+
+
+def _laid_out(model, run: RunConfig, cfg: FinetuneConfig, dp: Optional[DataParallel]):
+    """``model`` in ``dp``'s layout; the trunk's stages are the config's
+    (``with_pipeline``), which must be the mesh's "stage" axis."""
+    stages = 1 if dp is None else dp.stage.size
+    if cfg.pipeline_stages != stages:
+        raise ValueError(
+            f"model.pipeline_stages={cfg.pipeline_stages} but the mesh has {stages} stage(s): "
+            "JAX warns and runs the plain scan there (models/modules.py:797-824), the port "
+            "raises; set distributed.pipeline_parallel")
+    return model if dp is None else apply_layout(model, dp, cfg.pipeline_microbatches)
 
 
 def build_finetune_encoder_cfg(pre: PretrainConfig, model: FinetuneConfig,
@@ -82,21 +110,28 @@ def load_pretrained_into_finetune(ft_state: Mapping[str, torch.Tensor],
     return out
 
 
-def init_finetune(run: RunConfig, device, pretrained: Optional[Mapping[str, torch.Tensor]] = None
-                  ) -> Tuple[FinetuneModel, FinetuneState]:
+def init_finetune(run: RunConfig, device, pretrained: Optional[Mapping[str, torch.Tensor]] = None,
+                  dp: Optional[DataParallel] = None) -> Tuple[FinetuneModel, FinetuneState]:
     """The run's finetune model (weights from ``common.seed``, or the
-    pretrained encoder's where given) on ``device`` and its state."""
-    model = build_finetune_model(run.model, dtype=DTYPES[run.common.compute_dtype],
+    pretrained encoder's where given) on ``device`` in ``dp``'s layout, and
+    its state."""
+    cfg = with_pipeline(run.model, run)
+    model = build_finetune_model(cfg, dtype=DTYPES[run.common.compute_dtype],
                                  seed=run.common.seed, device=device, train=run.finetune)
     if pretrained is not None:
         model.load_state_dict(load_pretrained_into_finetune(
             model.state_dict(), pretrained, run.finetune.load_pretrain_weights), strict=True)
-    return model, FinetuneState.create(model, run.finetune)
+    model = _laid_out(model, run, cfg, dp)
+    return model, FinetuneState.create(model, run.finetune, dp)
 
 
-def init_pretrain(run: RunConfig, device) -> Tuple[Data2VecMulti, PretrainState]:
+def init_pretrain(run: RunConfig, device, dp: Optional[DataParallel] = None
+                  ) -> Tuple[Data2VecMulti, PretrainState]:
     """The run's pretraining model (weights from ``common.seed``) on
-    ``device``, and its state with the EMA teacher."""
-    model = build_pretrain_model(run.pretrain, dtype=DTYPES[run.common.compute_dtype],
+    ``device`` in ``dp``'s layout, and its state with the EMA teacher."""
+    cfg = with_pipeline(run.pretrain.model, run)
+    pcfg = dataclasses.replace(run.pretrain, model=cfg)
+    model = build_pretrain_model(pcfg, dtype=DTYPES[run.common.compute_dtype],
                                  seed=run.common.seed, device=device)
-    return model, PretrainState.create(model, run.pretrain)
+    model = _laid_out(model, run, cfg, dp)
+    return model, PretrainState.create(model, pcfg, dp)

@@ -11,6 +11,13 @@ it when the metric improved (``meta.json`` keeps ``best_value``), and
 deletes all but the last ``keep_last`` steps, never ``best``'s. ``wait``
 joins that thread. ``restore`` loads a state in place, onto its model's
 device.
+
+A state in a sharded layout (``parallel/layout.py``) is saved whole: every
+rank gives its shards and the main rank gets the whole tensors under the
+unsharded names (``snapshot`` with a ``dp``, collective); loading slices
+each rank's part out of the whole tensors (``load_into`` with a ``dp``). A
+checkpoint so does not depend on the layout it was written under, as JAX's
+restore reshards into the run's own (``train/loop.py:186-199``).
 """
 
 from __future__ import annotations
@@ -30,46 +37,81 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def snapshot(state, extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+def snapshot(state, extra: Optional[Dict[str, Any]] = None, dp=None) -> Optional[Dict[str, Any]]:
     """Host copies of a ``FinetuneState`` or ``PretrainState``: step, model,
-    optimizer moments and count, EMA (or None) and ``extra``."""
+    optimizer moments and count, EMA (or None) and ``extra``. Under a
+    sharded ``dp`` every rank takes part and the main rank gets the whole
+    tensors (None elsewhere)."""
     opt = state.optimizer
     mu, nu = {}, {}
     for group in opt.param_groups:
         st = opt.state.get(group["params"][0])
         if st:
-            mu[group["name"]], nu[group["name"]] = _host(st["mu"]), _host(st["nu"])
+            mu[group["name"]], nu[group["name"]] = st["mu"], st["nu"]
     ema = getattr(state, "ema", None)
+    model = state.model.state_dict(keep_vars=True)
+    if dp is not None and dp.sharded:
+        from animal2vec_tpu_torch.parallel.layout import full_state
+
+        host = lambda t: full_state(dp, t)  # noqa: E731
+    else:
+        host = lambda t: {k: _host(v) for k, v in t.items()}  # noqa: E731
+    model, mu, nu = host(model), host(mu), host(nu)
+    ema = None if ema is None else host(ema)
+    if model is None:  # not the main rank
+        return None
     return {
         "step": int(state.step),
-        "model": {k: _host(v) for k, v in state.model.state_dict().items()},
+        "model": model,
         "optimizer": {"count": int(opt.count), "mu": mu, "nu": nu},
-        "ema": None if ema is None else {k: _host(v) for k, v in ema.items()},
+        "ema": ema,
         "extra": extra or {},
     }
 
 
-def load_into(state, saved: Dict[str, Any]) -> Dict[str, Any]:
-    """Put a ``snapshot`` back into ``state`` (on its model's device); returns
-    ``extra``."""
+def load_into(state, saved: Dict[str, Any], dp=None) -> Dict[str, Any]:
+    """Put a ``snapshot`` back into ``state`` (on its model's device), under a
+    sharded ``dp`` each rank's part of it; returns ``extra``."""
     dev = next(state.model.parameters()).device
-    state.model.load_state_dict(saved["model"], strict=True)
     opt = state.optimizer
     moments = saved["optimizer"]
     names = {g["name"]: g["params"][0] for g in opt.param_groups}
+    if dp is not None and dp.sharded:
+        from animal2vec_tpu_torch.parallel.layout import in_trunk, load_full_state
+
+        def held(tensors, local):  # other stages hold the rest of the trunk
+            return {k: v for k, v in tensors.items()
+                    if k in local or not (dp.stage.size > 1 and in_trunk(k))}
+
+        load_full_state(dp, state.model.state_dict(keep_vars=True), saved["model"])
+        moments = dict(moments, mu=held(moments["mu"], names), nu=held(moments["nu"], names))
+        ema_saved = None if saved["ema"] is None else held(saved["ema"], state.ema)
+    else:
+        state.model.load_state_dict(saved["model"], strict=True)
+        ema_saved = saved["ema"]
     if set(moments["mu"]) - set(names):
         raise KeyError(f"checkpoint moments of unknown parameters: "
                        f"{sorted(set(moments['mu']) - set(names))[:4]}")
     opt.state.clear()
     for name, p in names.items():
         if name in moments["mu"]:
-            opt.state[p] = {"mu": moments["mu"][name].to(dev), "nu": moments["nu"][name].to(dev)}
+            if dp is not None and dp.sharded:
+                st = {k: torch.zeros_like(p, dtype=torch.float32) for k in ("mu", "nu")}
+                load_full_state(dp, {name: st["mu"]}, {name: moments["mu"][name]})
+                load_full_state(dp, {name: st["nu"]}, {name: moments["nu"][name]})
+                opt.state[p] = st
+            else:
+                opt.state[p] = {"mu": moments["mu"][name].to(dev),
+                                "nu": moments["nu"][name].to(dev)}
     opt.count = int(moments["count"])
-    if saved["ema"] is not None:
-        if set(saved["ema"]) != set(state.ema):
+    if ema_saved is not None:
+        if set(ema_saved) != set(state.ema):
             raise KeyError("checkpoint EMA parameters differ from the state's")
-        for k, v in saved["ema"].items():
-            state.ema[k].copy_(v)
+        if dp is not None and dp.sharded:
+            load_full_state(dp, state.ema, ema_saved)
+        else:
+            for k, v in ema_saved.items():
+                state.ema[k].copy_(v)
     state.step = int(saved["step"])
     return saved["extra"]
 
@@ -113,12 +155,15 @@ class CheckpointManager:
 
     # -- save / restore -------------------------------------------------
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None,
-             metrics: Optional[Dict[str, float]] = None):
+             metrics: Optional[Dict[str, float]] = None, dp=None):
         """Checkpoint ``state`` as step ``step``; with ``metrics`` holding
         ``best_metric``, a better value than the best so far makes it
-        ``best``."""
+        ``best``. Under a sharded ``dp`` every rank calls it (the snapshot
+        is collective) and the main rank writes."""
         self.wait()
-        self.save_snapshot(step, snapshot(state, extra), metrics)
+        saved = snapshot(state, extra, dp)
+        if saved is not None:
+            self.save_snapshot(step, saved, metrics)
 
     def save_snapshot(self, step: int, saved: Dict[str, Any],
                       metrics: Optional[Dict[str, float]] = None):
@@ -188,10 +233,10 @@ class CheckpointManager:
         return torch.load(os.path.join(self._step_dir(step), STATE_FILE), map_location="cpu",
                           weights_only=True)
 
-    def restore(self, state, step: Optional[int] = None) -> Dict[str, Any]:
-        """Load ``step`` (default: the latest) into ``state``; returns its
-        ``extra``."""
-        return load_into(state, self.load(step))
+    def restore(self, state, step: Optional[int] = None, dp=None) -> Dict[str, Any]:
+        """Load ``step`` (default: the latest) into ``state`` (under a sharded
+        ``dp`` the rank's part); returns its ``extra``."""
+        return load_into(state, self.load(step), dp)
 
 
 def load_checkpoint_dir(path: str) -> Dict[str, Any]:

@@ -14,7 +14,10 @@ all-reduce of each micro-batch's count before its backward), the
 gradients are summed over the ranks once per optimizer step, after the
 ``update_freq`` micro-batches, and the metrics are reduced. The kernels'
 hash masks read global rows (``Rngs.row0``, the rank's first row of the
-global batch).
+global batch). Under a sharded layout (``parallel/layout.py``) the counts,
+the replicated parameters' gradients and the metrics reduce over "data"
+only; the ALiBi scale's gradient, which each "model" rank sees through its
+heads only, is summed over "model" first.
 
 Random draws come from an explicit ``ops.dropout.Rngs``: the mixup draws
 and the masks on its rank's own rows generator, the kernels' int32 hash
@@ -38,6 +41,7 @@ from animal2vec_tpu_torch.ops.losses import label_smoothed_nll_loss, sigmoid_foc
 from animal2vec_tpu_torch.ops.masking import channel_mask, span_mask
 from animal2vec_tpu_torch.ops.mixup import bc_mixup
 from animal2vec_tpu_torch.ops.stats import confusion_counts
+from animal2vec_tpu_torch.parallel.layout import reduce_model_partials
 from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import FinetuneState
 
@@ -146,6 +150,7 @@ def make_finetune_train_step(
             (loss / accum).backward()
             for k, v in metrics.items():
                 total[k] = total[k] + v if k in total else v
+        reduce_model_partials(dp, state.model.named_parameters())
         dp.reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
         state.apply_gradients()
         return dp.reduce_metrics({k: v / accum for k, v in total.items()})

@@ -10,12 +10,17 @@ variance kill switch, checked on the host at each log).
 
 A run is one process on one device (``device``: the card unless the
 caller asks for the CPU), or, given a ``parallel.mesh.DataParallel``
-``dp``, one rank of a data-parallel group (JAX's mesh over its "data"
-axis): each rank loads its shard of every split (host sharding), the steps
+``dp``, one rank of a group laid out as JAX's mesh ("data", and with
+``distributed.model_parallel``, ``pipeline_parallel`` or ``fsdp`` the
+"stage" and "model" axes and FSDP, ``parallel/layout.py``; the model and
+its state are built whole and then put into the layout): each data rank
+loads its shard of every split (host sharding; the ranks of one data
+coordinate load the same rows), the steps
 reduce the losses' counts, the gradients and the metrics, rank 0 writes
 each checkpoint with every rank's loader state while the others wait at a
 barrier, a resume restores each rank's own loader state (and raises under
-another world size), validation gathers the uneven per-rank predictions
+another data-parallel world size; a checkpoint holds whole tensors, so the
+other axes may change between runs), validation gathers the uneven per-rank predictions
 to every rank before the segmentation metrics, and only rank 0 logs. Every
 stop (patience, collapse, the run's limits) is decided on reduced numbers
 or agreed, so all ranks stop at the same step and none waits in a
@@ -236,7 +241,7 @@ def _restore(ckpt: CheckpointManager, state, dp: DataParallel) -> Dict:
     ``state``; {} without one."""
     if ckpt.latest_step() is None:
         return {}
-    extra = ckpt.restore(state)
+    extra = ckpt.restore(state, dp=dp)
     saved = int(extra.get("world_size", 1))
     if saved != dp.world:
         raise ValueError(
@@ -249,14 +254,17 @@ def _restore(ckpt: CheckpointManager, state, dp: DataParallel) -> Dict:
 
 def _save(ckpt: CheckpointManager, dp: DataParallel, step: int, state, loader: BatchLoader,
           metrics: Optional[Dict[str, float]] = None) -> None:
-    """Rank 0 checkpoints ``state`` with every rank's loader state (and the
-    validation's ``metrics`` but its rate, which pick ``best``); every rank
+    """Rank 0 checkpoints ``state`` with every data rank's loader state (and
+    the validation's ``metrics`` but its rate, which pick ``best``), the
+    whole tensors of a sharded layout gathered from every rank; every rank
     waits at a barrier."""
     loaders = dp.all_gather_object(loader.state_dict())
-    if dp.is_main:
-        extra = {"loader": loaders[0], "loaders": loaders, "world_size": dp.world}
-        if metrics is not None:
-            extra["valid"] = {k: v for k, v in metrics.items() if k != "ups"}
+    extra = {"loader": loaders[0], "loaders": loaders, "world_size": dp.world}
+    if metrics is not None:
+        extra["valid"] = {k: v for k, v in metrics.items() if k != "ups"}
+    if dp.sharded:
+        ckpt.save(step, state, extra=extra, metrics=metrics, dp=dp)
+    elif dp.is_main:
         ckpt.save(step, state, extra=extra, metrics=metrics)
     dp.barrier()
 
@@ -337,7 +345,7 @@ def run_finetune(run: RunConfig, pretrained: Optional[Mapping[str, torch.Tensor]
     of ``dp`` (on its device) where given. Returns the last logged (or, on
     an early stop, validation) metrics."""
     device, dp = _group(device, dp, "run_finetune")
-    _, state = init_finetune(run, device, pretrained)
+    _, state = init_finetune(run, device, pretrained, dp)
     ckpt = CheckpointManager(run.checkpoint.save_dir, keep_last=run.checkpoint.keep_last,
                              best_metric=run.checkpoint.best_checkpoint_metric
                              or "metrics/finetune/f1", maximize=True)
@@ -431,7 +439,7 @@ def run_pretrain(run: RunConfig, max_steps: Optional[int] = None,
     teacher, as one rank of ``dp`` (on its device) where given. Returns the
     last logged metrics."""
     device, dp = _group(device, dp, "run_pretrain")
-    _, state = init_pretrain(run, device)
+    _, state = init_pretrain(run, device, dp)
     ckpt = CheckpointManager(run.checkpoint.save_dir, keep_last=run.checkpoint.keep_last,
                              best_metric=run.checkpoint.best_checkpoint_metric,
                              maximize=run.checkpoint.maximize_best_checkpoint_metric)

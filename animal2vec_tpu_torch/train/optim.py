@@ -19,18 +19,27 @@
   parameters.
 
 The moments are fp32 on the parameter's device; the update runs in fp32.
+Under a sharded layout (``parallel/layout.py``) every parameter, gradient
+and moment is the rank's own shard (an FSDP2 parameter's local tensor), and
+``grad_sq_norm`` takes the clipping norm over every shard, stage and
+replica (``layout.grad_sq_norm``), as JAX's ``clip_by_global_norm`` takes it
+over the whole sharded tree.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from animal2vec_tpu_torch.config import OptimizationConfig
 
 Schedule = Callable[[int], float]
+# (the (name, parameter) pairs, their fp32 local gradients) -> the squared
+# global norm
+SqNorm = Callable[[List[Tuple[str, torch.Tensor]], List[torch.Tensor]], torch.Tensor]
 
 PRENET_PREFIX = "encoder.audio_encoder.context_encoder.blocks.layers."
 TRUNK_PREFIX = "encoder.blocks.layers."
@@ -111,6 +120,7 @@ class OptaxAdam(torch.optim.Optimizer):
         super().__init__(groups, {"betas": betas, "eps": eps})
         self.clip_norm = clip_norm
         self.count = 0  # the global Adam step count of optax
+        self.grad_sq_norm: Optional[SqNorm] = None  # a sharded layout's global norm
 
     @torch.no_grad()
     def step(self, lr: float):
@@ -118,10 +128,14 @@ class OptaxAdam(torch.optim.Optimizer):
         for p in params:  # optax updates every leaf: absent grads are zeros
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad.float() for p in params]
-        if self.clip_norm > 0:
+        grads = [_local(p.grad).float() for p in params]
+        if self.clip_norm > 0 and self.grad_sq_norm is not None:
+            norm = self.grad_sq_norm([(g["name"], g["params"][0]) for g in self.param_groups],
+                                     grads).sqrt()
+        elif self.clip_norm > 0:
             norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g) for g in grads]))
+        if self.clip_norm > 0:
             factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                  self.clip_norm / norm)
             grads = [g * factor.to(g.device) for g in grads]
@@ -134,13 +148,19 @@ class OptaxAdam(torch.optim.Optimizer):
             if not state:
                 state["mu"] = torch.zeros_like(p, dtype=torch.float32)
                 state["nu"] = torch.zeros_like(p, dtype=torch.float32)
-            mu, nu = state["mu"], state["nu"]
+            mu, nu, p = _local(state["mu"]), _local(state["nu"]), _local(p)
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             update = (mu / c1) / ((nu / c2).sqrt() + eps)
             if group["weight_decay"]:
                 update.add_(p.float(), alpha=group["weight_decay"])
             p.add_((update * (-lr * group["scale"])).to(p.dtype))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """An FSDP2 parameter's (or gradient's, or moment's) local shard; any
+    other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def build_optimizer(cfg: OptimizationConfig, model: torch.nn.Module, prenet_depth: int = 0,

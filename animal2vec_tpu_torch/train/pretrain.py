@@ -25,7 +25,12 @@ the loss divides by ``sample_size`` summed over the ranks (one all-reduce
 of each micro-batch's count before its backward), the gradients are summed
 over the ranks once per step, and the metrics are reduced (the variance
 statistics as the mean over the ranks). Every rank's student, so every
-rank's EMA teacher, stays identical without a collective of its own.
+rank's EMA teacher, stays identical without a collective of its own. Under
+a sharded layout (``parallel/layout.py``) the losses and metrics reduce
+over "data" only, the ALiBi scale's gradient also over "model", and the
+teacher runs the student's layout: its tensor-parallel shards, its
+pipeline stages (streaming the target sum through them) and FSDP2's
+gathers of the sharded EMA copies.
 
 The teacher (``teacher_targets``) is the student module in eval mode,
 without gradient, over the student's parameters overlaid with the EMA ones
@@ -54,6 +59,7 @@ a parameter (``draw_mask``) that tests set to one given mask on both sides.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Callable, Dict, Optional, Tuple
@@ -70,6 +76,7 @@ from animal2vec_tpu_torch.ops.masking import (
 )
 from animal2vec_tpu_torch.ops.mixup import bc_mixup
 from animal2vec_tpu_torch.ops.stats import compute_var, confusion_counts
+from animal2vec_tpu_torch.parallel.layout import reduce_model_partials
 from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.train.state import PretrainState, ema_decay_at, merge_params
 
@@ -117,24 +124,64 @@ def int8_teacher(model: Data2VecMulti, impl: str) -> Data2VecMulti:
     return per_model[impl]
 
 
+@contextlib.contextmanager
+def _ema_in_shards(model: Data2VecMulti, ema: Dict[str, torch.Tensor]):
+    """FSDP2's sharded parameters holding their EMA copies (the copies live
+    in the same shards), so that the blocks' own gathers give the teacher
+    whole EMA parameters; the student's values come back after, and every
+    block is resharded on the way in and out (its gathered tensors are the
+    student's in the student's graph)."""
+    from torch.distributed.tensor import DTensor
+
+    from animal2vec_tpu_torch.parallel.layout import reshard
+
+    params = dict(model.named_parameters())
+    sharded = [n for n in ema if isinstance(params[n], DTensor)]
+    student = {n: params[n].to_local().detach().clone() for n in sharded}
+    reshard(model)
+    for n in sharded:
+        params[n].to_local().copy_(ema[n].to_local())
+    try:
+        yield {n: v for n, v in ema.items() if n not in student}
+    finally:
+        reshard(model)
+        for n in sharded:
+            params[n].to_local().copy_(student[n])
+
+
 @torch.no_grad()
 def teacher_encode(model: Data2VecMulti, ema: Dict[str, torch.Tensor], local: torch.Tensor,
                    impl: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
     """The EMA teacher's trunk output x and the fp32 sum of its last k
     normalized taps on the unmasked local features; ``impl`` an int8
     serving mode other than the model's own runs the teacher through the
-    int8 kernels on weights quantized from the merged ones."""
+    int8 kernels on weights quantized from the merged ones. Under FSDP the
+    sharded EMA copies run through the blocks' gathers (``_ema_in_shards``)
+    and the rest of the overlay through ``functional_call``."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(p, DTensor) for p in model.parameters()):
+        was_training = model.training
+        model.eval()
+        try:
+            with _ema_in_shards(model, ema) as rest:
+                x, _, _, _, t_sum = torch.func.functional_call(
+                    model, rest, (local.detach(),), {"method": "encode", "reduce_targets": True},
+                    strict=False)
+        finally:
+            model.train(was_training)
+        return x, t_sum
     params = merge_params(model, ema)
     if impl and impl != model.cfg.matmul_impl:
         net = int8_teacher(model, impl)
         tensors = {**dict(model.named_buffers()), **params, **net.quantized_buffers(params)}
-        x, t_sum, _, _ = torch.func.functional_call(
+        x, _, _, _, t_sum = torch.func.functional_call(
             net, tensors, (local.detach(),), {"method": "encode", "reduce_targets": True})
         return x, t_sum
     was_training = model.training
     model.eval()
     try:
-        x, t_sum, _, _ = torch.func.functional_call(
+        x, _, _, _, t_sum = torch.func.functional_call(
             model, params, (local.detach(),), {"method": "encode", "reduce_targets": True})
     finally:
         model.train(was_training)
@@ -178,8 +225,9 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
     info = make_mask_info_static(draw(b * clone, t, rngs).to(local.device), m_tokens,
                                  cfg.keep_masked_pct)
 
-    x, taps, _, keeps = model.encode(local_c, zero_mask=cfg.encoder_zero_mask, rngs=rngs,
-                                     mask_info=info, remove_masked=True)
+    x, _, _, _, mean = model.encode(local_c, zero_mask=cfg.encoder_zero_mask, rngs=rngs,
+                                     mask_info=info, remove_masked=True,
+                                     top_k=cfg.average_top_k_layers if cfg.with_labels else None)
     xs = model.decode_d2v(x, info, rngs)
     y = teacher_targets(model, ema, local, cfg.teacher_matmul_impl)  # (B, T [+ E], C) fp32
 
@@ -226,8 +274,8 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
         losses["recon"] = d2v_regression_loss(
             recon, recon_t.reshape(b * clone, m_cnt, -1), beta, scale).sum() * cfg.recon_loss
     if cfg.with_labels and target is not None:
-        metrics.update(_probe(model, cfg, taps, keeps, info, rngs, target, ids_masked,
-                              clone_w, losses))
+        metrics.update(_probe(model, cfg, mean, info, rngs, target, ids_masked, clone_w,
+                              losses))
 
     loss = sum(v * cfg.loss_weight(k) for k, v in losses.items()) / denom
     metrics["target_var"] = compute_var(y_m)
@@ -238,14 +286,14 @@ def pretrain_loss(model: Data2VecMulti, ema: Dict[str, torch.Tensor], batch: Bat
     return loss, metrics
 
 
-def _probe(model: Data2VecMulti, cfg: PretrainConfig, taps, keeps, info, rngs: Rngs,
+def _probe(model: Data2VecMulti, cfg: PretrainConfig, mean, info, rngs: Rngs,
            target: torch.Tensor, ids_masked: torch.Tensor, clone_w: torch.Tensor,
            losses: Dict[str, torch.Tensor]) -> Metrics:
     """The linear probe (``train/pretrain.py:260-306``): its full-length
     logits and the (clone-repeated) labels at the masked positions, the
     focal loss weighted by row into ``losses``; returns its confusion
     counts at ``metric_threshold``."""
-    logits = take_rows(model.linear_eval(taps, info, keeps, rngs), ids_masked)
+    logits = take_rows(model.linear_eval(mean, info, rngs), ids_masked)
     clone = cfg.clone_batch
     tgt = take_rows(target.repeat_interleave(clone, dim=0) if clone > 1 else target,
                     ids_masked)
@@ -288,6 +336,7 @@ def make_pretrain_train_step(
             metrics["loss"] = loss.detach()
             for k, v in metrics.items():
                 total[k] = total[k] + v if k in total else v
+        reduce_model_partials(dp, state.model.named_parameters())
         dp.reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
         state.apply_gradients()
         out = {k: v / accum for k, v in total.items()}

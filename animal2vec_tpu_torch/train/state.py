@@ -9,12 +9,19 @@ the student module run by ``torch.func.functional_call`` over its own
 parameters overlaid with these (``merge_params``): the parameters outside
 the subset (the frontend, and with ``ema_encoder_only`` everything but the
 trunk) come from the live student, as in JAX.
+
+Under a sharded layout (``parallel/layout.py``) the model holds the rank's
+shards, and so do the EMA copies: an FSDP2 parameter's copy is a DTensor of
+the same placement, so the EMA step runs on local shards without a
+collective (``ema_step``), and the teacher sees whole parameters through
+FSDP2's own gathers (``train/pretrain.teacher_encode``). ``create`` with a
+``dp`` gives the optimizer the layout's global clipping norm.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,7 +30,16 @@ from animal2vec_tpu_torch.config import FinetuneTrainConfig, PretrainConfig
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti, ema_param_label
 from animal2vec_tpu_torch.models.finetune import FinetuneModel
 from animal2vec_tpu_torch.ops.stats import get_annealed_rate
-from animal2vec_tpu_torch.train.optim import OptaxAdam, Schedule, build_optimizer
+from animal2vec_tpu_torch.parallel.mesh import DataParallel
+from animal2vec_tpu_torch.train.optim import OptaxAdam, Schedule, _local, build_optimizer
+
+
+def _sharded_norm(opt: OptaxAdam, dp: Optional[DataParallel]) -> OptaxAdam:
+    if dp is not None and dp.sharded:
+        from animal2vec_tpu_torch.parallel.layout import grad_sq_norm
+
+        opt.grad_sq_norm = lambda named, grads: grad_sq_norm(dp, named, grads)
+    return opt
 
 
 @dataclasses.dataclass
@@ -34,10 +50,11 @@ class FinetuneState:
     schedule: Schedule
 
     @classmethod
-    def create(cls, model: FinetuneModel, cfg: FinetuneTrainConfig) -> "FinetuneState":
+    def create(cls, model: FinetuneModel, cfg: FinetuneTrainConfig,
+               dp: Optional[DataParallel] = None) -> "FinetuneState":
         opt, schedule = build_optimizer(cfg.optimization, model, model.cfg.prenet_depth,
                                         model.cfg.depth, cfg.layer_decay)
-        return cls(step=0, model=model, optimizer=opt, schedule=schedule)
+        return cls(step=0, model=model, optimizer=_sharded_norm(opt, dp), schedule=schedule)
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -74,11 +91,12 @@ def ema_decay_at(cfg: PretrainConfig, step: int) -> float:
 @torch.no_grad()
 def ema_step(ema: Dict[str, torch.Tensor], model: torch.nn.Module, decay: float) -> None:
     """t += (1 - d) (s - t) for every teacher parameter t and its student
-    parameter s, in place, in fp32."""
+    parameter s, in place, in fp32 (on the local shards of a sharded
+    layout)."""
     params = dict(model.named_parameters())
     names = list(ema)
-    torch._foreach_lerp_([ema[n] for n in names], [params[n].detach().float() for n in names],
-                         1.0 - decay)
+    torch._foreach_lerp_([_local(ema[n]) for n in names],
+                         [_local(params[n].detach()).float() for n in names], 1.0 - decay)
 
 
 @dataclasses.dataclass
@@ -91,9 +109,10 @@ class PretrainState:
     cfg: PretrainConfig
 
     @classmethod
-    def create(cls, model: Data2VecMulti, cfg: PretrainConfig) -> "PretrainState":
+    def create(cls, model: Data2VecMulti, cfg: PretrainConfig,
+               dp: Optional[DataParallel] = None) -> "PretrainState":
         opt, schedule = build_optimizer(cfg.optimization, model)
-        return cls(step=0, model=model, optimizer=opt, schedule=schedule,
+        return cls(step=0, model=model, optimizer=_sharded_norm(opt, dp), schedule=schedule,
                    ema=ema_subset(model, cfg.ema_encoder_only), cfg=cfg)
 
     def zero_grad(self) -> None:

@@ -162,8 +162,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
       shape beside its plain version, SDPA and its bound;
    b. two gloo ranks on the one card (tools/dryrun_multigpu.py): one
       a2v-large finetune step (finetune_100.yaml, every rate 0, mixup off,
-      update_freq 2) at b4 per rank against one rank at b8 (parameter gap,
-      bound 2.1 lr; loss; the ranks' parameter checksums equal; launches);
+      update_freq 2) at b4 per rank against one rank at b8 (each gradient
+      leaf's relative gap, bound 0.1; parameter gap, bound 2.1 lr; loss;
+      the ranks' parameter checksums equal; launches);
       one a2v-large post-LN block with hash dropout at every site on the
       same rows on both ranks (the masks differ) against the one-rank call
       on the stacked rows (each rank's output the slice of its global
@@ -238,7 +239,22 @@ Phases, one line or more each; any failure raises and exits non-zero:
    sweeps (probes.kernels, probes.pallas_mm, probes.attn_probe and
    probes.kernels2: ms, device ms, TFLOP/s, share of the bound, beside #1,
    #11, SDPA, cuBLAS and #6's and #8's GEMM launches), with the three
-   wrappers' launches counted and no plain twin called on a CUDA tensor.
+   wrappers' launches counted and no plain twin called on a CUDA tensor;
+19. the sharded layouts (ROADMAP A.10, phase_a10): the tensor-parallel split
+   of #6 (a2v_block_fc1, the fc2 partial, a2v_block_ln2) at N 8000, C 1024
+   and a rank's 2048 hidden columns (col0 0 and 2048, with and without
+   dropout) and #2-#4 on heads 8..15 of 16 (h0 8) at b4 T 2000 against
+   their plain versions and, bit for bit, the whole calls' slices; their
+   times beside the bound and F.linear / SDPA; then through
+   tools/dryrun_multigpu.py at a2v-large's widths (prenet 2 + trunk 2, b4
+   a data rank), each against one rank on the same global batch (2.1 lr on
+   the parameters; each gradient leaf's relative gap within 0.1, FSDP2's
+   against data parallelism on the same split):
+   tensor parallelism and the GPipe trunk as 2 gloo ranks on the card in
+   one launch with FSDP2 (the pipeline's boundary through host tensors;
+   each rank's masks against the whole calls; gloo on the card takes CUDA
+   tensors in FSDP2's all_gather_into_tensor and reduce_scatter_tensor);
+   ms per step and peak memory per rank beside one rank.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -3133,6 +3149,9 @@ def phase_dp_step(card, dev):
     want = {"alibi_train": 2 * n_blocks, "alibi_serve": 0, "fused_block": 2 * n_blocks}
     print(f"dp step on {card}: 2 gloo ranks x b{DP_BATCH} against 1 rank x b{2 * DP_BATCH} "
           f"(a2v-large finetune step, every rate 0, update_freq 2; {seconds:.1f} s): "
+          f"gradients' relative gap {ft['grad_gap']:.3e} at worst ({ft['grad_gap_leaf']}), "
+          f"{ft['grad_gap_whole']:.3e} over all, global norm relative {ft['grad_norm_gap']:.2e} "
+          f"(bound {ft['grad_bound']}); "
           f"parameter gap {ft['param_gap']:.3e} (bound {ft['bound']:.1e}: 2.1 lr), loss "
           f"{ft['loss']:.6f} against {ft['ref_loss']:.6f} (relative {ft['loss_rel_gap']:.2e}, "
           f"bound {DP_LOSS_REL}), checksums equal {ft['checksums_equal']}; rank 0's launches "
@@ -3143,8 +3162,12 @@ def phase_dp_step(card, dev):
           f"{masks['ranks_differ']}; each rank against its rows of the one-rank call: max abs "
           f"{masks['slice_gap']:.3e} (tolerance {BLOCK_TOL[0]} + {BLOCK_TOL[1]}*|x|, 0 "
           "expected)")
+    # the split #6's entries run under tensor parallelism only (phase 19)
+    got = {k: ft["launches"][k] for k in want}
+    split = [ft["launches"][k] for k in ("block_fc1", "block_fc2_partial", "block_ln2")]
     if not (ft["checksums_equal"] and ft["param_gap"] <= ft["bound"]
-            and ft["loss_rel_gap"] <= DP_LOSS_REL and ft["launches"] == want):
+            and ft["grad_gap"] <= ft["grad_bound"] and ft["grad_norm_gap"] <= ft["grad_bound"]
+            and ft["loss_rel_gap"] <= DP_LOSS_REL and got == want and not any(split)):
         raise AssertionError(f"dp step: {ft}")
     if not masks["ranks_differ"] or masks["slice_gap"] > BLOCK_TOL[0]:
         raise AssertionError(f"dp masks: {masks}")
@@ -3460,7 +3483,7 @@ def phase_teacher(card, dev):
                               torch.bfloat16, pretrain=pcfg).to(dev).eval()
         fresh.load_state_dict(merge_params(model, state.ema), strict=True)  # quantizes
         with torch.no_grad():
-            _, t_sum, _, _ = fresh.encode(local, reduce_targets=True)
+            _, _, _, _, t_sum = fresh.encode(local, reduce_targets=True)
         torch.cuda.synchronize()
         equal = torch.equal(after, t_sum / pcfg.average_top_k_layers)
         moved = rel_norm(after, before)
@@ -4465,6 +4488,299 @@ def phase_probes(card, dev):
     return launches, checks, rows
 
 
+# phase 19: the sharded layouts (ROADMAP A.10). Their steps run at
+# a2v-large's widths with the trunk cut to A10_DEPTH blocks (prenet 2) at
+# A10_BATCH rows a data rank; the split #6 at the b4 step's N with a 2-rank
+# "model" group's A10_MS hidden columns; #2-#4 on 8 of the 16 heads.
+A10_DEPTH, A10_BATCH, A10_MS, A10_DROP = 2, 4, 2048, 0.1
+PARTIAL_TOL = (1e-3, 1e-4)  # the fc2 partial: fp32 sums of exact bf16 products, another order
+
+
+def a10_block_rows(dev, row):
+    """19k, the split #6 at N 8000, C 1024, Ms 2048 (col0 0 and 2048, with and
+    without dropout) against the plain math and the whole calls: fc1's h on
+    a rank's columns is the whole call's columns bit for bit (its drop_a
+    mask their slice), the two partials summed through ln2 equal the fused
+    block. Returns (max abs error of each entry, the mask checks)."""
+    import torch.nn.functional as F
+
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        _fc1_math, _fp32_matmul, _ln2_math, block_fc1, block_fc2_partial, block_ln2,
+        fused_block_mlp,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n, c, m, ms = TRAIN_BATCH * 2000, 1024, 4096, A10_MS
+    x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps = block_inputs(gen, n, c, m, dev)
+    errs = {"fc1": 0.0, "partial": 0.0, "ln2": 0.0}
+    masks = {}
+    for rate in (0.0, A10_DROP):
+        seeds = (11, -22, 2**31 - 5) if rate else None
+        s1 = seeds[0] if rate else None
+        _, h_whole = block_fc1(x, l1s, l1b, w1, b1, eps, s1, rate)
+        parts, r = [], None
+        for col0 in (0, ms):
+            cols = slice(col0, col0 + ms)
+            w1s, b1s, w2s = w1[:, cols].contiguous(), b1[cols].contiguous(), w2[cols].contiguous()
+            r, h = block_fc1(x, l1s, l1b, w1s, b1s, eps, s1, rate, 0, col0)
+            r_p, h_p = _fc1_math(x, l1s, l1b, w1s, b1s, eps, s1, rate, _fp32_matmul, 0, col0)
+            torch.cuda.synchronize()
+            label = f"split #6 fc1 (N {n}, Ms {ms}, col0 {col0}, dropout {rate})"
+            errs["fc1"] = max(errs["fc1"], check_close(f"{label} h", h, h_p, BLOCK_TOL),
+                              check_close(f"{label} r", r, r_p, BLOCK_TOL))
+            key = f"col0 {col0}, dropout {rate}"
+            masks[key] = {"h_equal_whole_slice": bool(torch.equal(h, h_whole[:, cols])),
+                          "drop_a_equal_plain": bool(torch.equal(h == 0, h_p == 0))}
+            print(f"{label}: h equals the whole call's columns bit for bit "
+                  f"{masks[key]['h_equal_whole_slice']}; its zeros are the plain version's "
+                  f"{masks[key]['drop_a_equal_plain']}")
+            part = block_fc2_partial(h, w2s)
+            part_p = _fp32_matmul(h, w2s)
+            torch.cuda.synchronize()
+            errs["partial"] = max(errs["partial"], check_close(
+                f"split #6 fc2 partial (N {n}, Ms {ms}, col0 {col0})", part, part_p,
+                PARTIAL_TOL))
+            parts.append(part)
+        s_sum = parts[0] + parts[1]
+        ln2 = (b2, r, l2s, l2b, eps, None if seeds is None else seeds[1:], rate, rate)
+        xo, t = block_ln2(s_sum, *ln2)
+        xo_p, t_p = _ln2_math(s_sum, *ln2)
+        xo_w, t_w = fused_block_mlp(x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps, seeds, rate,
+                                    rate)
+        torch.cuda.synchronize()
+        label = f"split #6 ln2 (N {n}, dropout {rate})"
+        errs["ln2"] = max(errs["ln2"], check_close(f"{label} x_out", xo, xo_p, BLOCK_TOL),
+                          check_close(f"{label} t", t, t_p, BLOCK_TOL))
+        check_close(f"{label} x_out against the fused block", xo, xo_w, BLOCK_TOL)
+        check_close(f"{label} t against the fused block", t, t_w, BLOCK_TOL)
+    if not all(all(v.values()) for v in masks.values()):
+        raise AssertionError(f"19k: a split fc1's mask is not the whole call's slice: {masks}")
+    # times at the training shape with dropout, as a tensor-parallel step runs them
+    w1s, b1s, w2s = w1[:, :ms].contiguous(), b1[:ms].contiguous(), w2[:ms].contiguous()
+    seeds = (11, -22, 2**31 - 5)
+    r, h = block_fc1(x, l1s, l1b, w1s, b1s, eps, seeds[0], A10_DROP)
+    s_sum = block_fc2_partial(h, w2s)
+    w1l, w2l = w1s.t().contiguous(), w2s.t().contiguous()
+    b1b = b1s.to(torch.bfloat16)
+    row(f"split #6 fc1 + dropout, N {n}, Ms {ms}",
+        cuda_ms(lambda: block_fc1(x, l1s, l1b, w1s, b1s, eps, seeds[0], A10_DROP)),
+        cuda_ms(lambda: _fc1_math(x, l1s, l1b, w1s, b1s, eps, seeds[0], A10_DROP, _fp32_matmul),
+                iters=3),
+        cuda_ms(lambda: F.linear(r, w1l, b1b)),
+        bound(2 * n * c * ms, 2 * n * c * 2 + 2 * c * ms + 4 * (ms + 2 * c) + 2 * n * ms))
+    row(f"split #6 fc2 partial, N {n}, Ms {ms}",
+        cuda_ms(lambda: block_fc2_partial(h, w2s)),
+        cuda_ms(lambda: _fp32_matmul(h, w2s), iters=3),
+        cuda_ms(lambda: F.linear(h, w2l)),
+        bound(2 * n * ms * c, 2 * n * ms + 2 * ms * c + 4 * n * c))
+    ln2 = (b2, r, l2s, l2b, eps, seeds[1:], A10_DROP, A10_DROP)
+    row(f"split #6 ln2 + dropout, N {n}",
+        cuda_ms(lambda: block_ln2(s_sum, *ln2)),
+        cuda_ms(lambda: _ln2_math(s_sum, *ln2), iters=3), None,
+        bound(12 * n * c, 4 * n * c + 2 * n * c + 4 * 3 * c + 2 * 2 * n * c))
+    return errs, masks
+
+
+def a10_attention_rows(dev, row):
+    """19k, #2-#4 on heads 8..15 of 16 (``h0`` 8) at b4 T 2000 with dropout
+    0.2: against their plain versions with the same head offset, and bit for
+    bit the whole launch's heads (so their dropout masks are its slices).
+    Returns (max abs error of the forward, dq and dk/dv, the equalities)."""
+    import torch.nn.functional as F
+
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
+        attention_dkv, attention_dq,
+    )
+
+    qkv, slopes, pos, mask, dout = train_attention_inputs(dev)
+    b, h, t = qkv.shape[1:4]
+    hs = slice(8, 16)
+    drop = (ATTN_DROP, DROP_SEED)
+    out_w, lse_w = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                                return_lse=True)
+    delta_w = (dout.float() * out_w.float()).sum(-1).reshape(b * h, t)
+    bwd_w = (qkv, dout, lse_w, delta_w, slopes, pos, mask, False, *drop)
+    dq_w, parts_w = attention_dq(*bwd_w)
+    dk_w, dv_w = attention_dkv(*bwd_w)
+    sub, sl, do = qkv[:, :, hs].contiguous(), slopes[hs].contiguous(), dout[:, hs].contiguous()
+    heads = dict(h0=8, hash_heads=h)
+    out, lse = alibi_flash_attention_packed(sub, sl, pos, mask, False, *drop, return_lse=True,
+                                            **heads)
+    out_p = alibi_attention_plain(sub.float(), sl, pos, mask, False, *drop, **heads)
+    delta = (do.float() * out.float()).sum(-1).reshape(b * 8, t)
+    bwd = (sub, do, lse, delta, sl, pos, mask, False, *drop)
+    dq, parts = attention_dq(*bwd, **heads)
+    dk, dv = attention_dkv(*bwd, **heads)
+    want, parts_p = attention_bwd_plain(*bwd, **heads)
+    torch.cuda.synchronize()
+    name = f"head-offset attention (heads 8..15 of {h}, b{b}, T {t}, dropout {ATTN_DROP})"
+    errs = {"forward": check_close(f"{name} out", out, out_p, ATTN_TOL),
+            "dq": check_close(f"{name} dq", dq, want[0], BWD_TOL),
+            "dkv": max(check_close(f"{name} dk", dk, want[1], BWD_TOL),
+                       check_close(f"{name} dv", dv, want[2], BWD_TOL))}
+    check_close(f"{name} slope partials", parts, parts_p, SLOPE_PART_TOL)
+    lse_rows = lse_w.reshape(b, h, t)[:, hs].reshape(b * 8, t)
+    equal = {"forward": bool(torch.equal(out, out_w[:, hs]) and torch.equal(lse, lse_rows)),
+             "dq": bool(torch.equal(dq, dq_w[:, hs]) and torch.equal(parts, parts_w[:, hs])),
+             "dkv": bool(torch.equal(dk, dk_w[:, hs]) and torch.equal(dv, dv_w[:, hs]))}
+    print(f"{name}: bit for bit the whole launch's heads 8..15 (its masks' slices): {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"19k: a head-offset launch differs from the whole one: {equal}")
+    bounds = attention_bounds(b, 8, t)
+    q, k, v, bias = sdpa_args(sub, sl, t)
+    row(f"head-offset attention forward + lse + dropout, b{b} H 8 of {h}",
+        cuda_ms(lambda: alibi_flash_attention_packed(sub, sl, pos, mask, False, *drop,
+                                                     return_lse=True, **heads)),
+        cuda_ms(lambda: alibi_attention_plain(sub, sl, pos, mask, False, *drop,
+                                              return_lse=True, **heads), iters=3),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                       dropout_p=ATTN_DROP)),
+        bounds["forward"])
+    qg, kg, vg, biasg = sdpa_args(sub, sl, t, requires_grad=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=biasg, dropout_p=ATTN_DROP)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    lib = cuda_ms(sdpa_fwd_bwd)
+    plain = cuda_ms(lambda: attention_bwd_plain(*bwd, **heads), iters=3)
+    row(f"head-offset attention dq + slope partials, b{b} H 8 of {h}",
+        cuda_ms(lambda: attention_dq(*bwd, **heads)), plain, lib, bounds["dq"])
+    row(f"head-offset attention dk/dv, b{b} H 8 of {h}",
+        cuda_ms(lambda: attention_dkv(*bwd, **heads)), plain, lib, bounds["dkv"])
+    return errs, equal
+
+
+def _dryrun(out, *args):
+    """tools/dryrun_multigpu.py as 2 gloo ranks on the card at a2v-large's
+    widths, the trunk cut to A10_DEPTH blocks; returns its result and
+    seconds."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "animal2vec_tpu_torch.tools.dryrun_multigpu",
+                    "--ranks", "2", "--device", "cuda", "--dist-backend", "gloo",
+                    "--width", "a2v-large", "--depth", str(A10_DEPTH), "--batch",
+                    str(A10_BATCH), *args, "--out", out], check=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        return json.load(f), seconds
+
+
+def _check_steps(label, res, card):
+    """Print and check a layout's finetune and pretrain steps against one rank
+    (phase 14b's 2.1 lr bound on the parameters, each gradient leaf's and the
+    global norm's relative gap within the dry run's GRAD_BOUND, FSDP2's
+    against data parallelism on the same split, DP_LOSS_REL, equal
+    checksums)."""
+    for part in ("finetune", "pretrain"):
+        r = res[part]
+        extra = f", EMA gap {r['ema_gap']:.3e}" if "ema_gap" in r else ""
+        print(f"19 {label} {part} step on {card}: gradients' relative gap {r['grad_gap']:.3e} "
+              f"at worst ({r['grad_gap_leaf']}), {r['grad_gap_whole']:.3e} over all, global "
+              f"norm {r['grad_norm']:.6e} against {r['ref_grad_norm']:.6e} (relative "
+              f"{r['grad_norm_gap']:.2e}; bound {r['grad_bound']}); parameter gap "
+              f"{r['param_gap']:.3e} (bound {r['bound']:.1e}: 2.1 lr){extra}, loss "
+              f"{r['loss']:.6f} against {r['ref_loss']:.6f} (relative {r['loss_rel_gap']:.2e}, "
+              f"bound {DP_LOSS_REL}), checksums equal {r['checksums_equal']}; rank 0's "
+              f"launches {launch_line(r['launches'])}; second step {r['step_ms']:.1f} ms "
+              f"against {r['one_rank_step_ms']:.1f} ms on one rank (host clock, synchronized); "
+              f"peak memory per rank {', '.join(f'{v:.0f}' for v in r['peak_mb'])} MiB against "
+              f"{r['one_rank_peak_mb']:.0f} MiB on one rank")
+        if not (r["checksums_equal"] and r["param_gap"] <= r["bound"]
+                and r.get("ema_gap", 0.0) <= r["bound"] and r["loss_rel_gap"] <= DP_LOSS_REL
+                and r["grad_gap"] <= r["grad_bound"] and r["grad_norm_gap"] <= r["grad_bound"]):
+            raise AssertionError(f"19 {label} {part}: {r}")
+
+
+def phase_a10(card, dev):
+    """19. The sharded layouts (ROADMAP A.10): the split #6 and head-offset
+    #2-#4 against their plain versions (19k), then on the card, each against
+    one rank on the same global batch through tools/dryrun_multigpu.py at
+    a2v-large's widths (trunk A10_DEPTH, prenet 2, b4 a data rank): tensor
+    parallelism as 2 gloo ranks (model 2; the masks of each rank against the
+    whole calls), the GPipe trunk as 2 gloo ranks (stage 2, the boundary
+    through host tensors) and FSDP2 over 2 gloo ranks, in one launch.
+    Returns (the tensor-parallel step's rank-0 launches, errors, rows)."""
+    t0 = time.perf_counter()
+    print(f"19 the sharded layouts (ROADMAP A.10) on {card}")
+    rows = {}
+
+    def row(key, ms, plain_ms, library_ms, bnd):
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"  {key}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+
+    block_errs, block_masks = a10_block_rows(dev, row)
+    attn_errs, attn_equal = a10_attention_rows(dev, row)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        layouts = ["model=2", "stage=2", "fsdp"]
+        runs, runs_s = _dryrun(os.path.join(tmp, "layouts.json"),
+                               *[a for spec in layouts for a in ("--layout", spec)],
+                               "--parts", "finetune,pretrain,tp_masks")
+        tp, pp, fsdp = runs["model=2"], runs["stage=2"], runs["fsdp"]
+        print(f"19 {', '.join(layouts)}: one launch of 2 gloo ranks, {runs_s:.1f} s")
+        _check_steps("tensor parallelism (2 gloo ranks, model 2)", tp, card)
+        masks = tp["tp_masks"]
+        print(f"19 tensor-parallel masks: each rank's attention on its heads and fc1 on its "
+              f"columns equal the whole calls' {masks['ranks_equal']} (attention, fc1), fc1's "
+              f"drop_a zeros {masks['fc1_masks_equal']}")
+        if not all(all(v) for v in masks["ranks_equal"]):
+            raise AssertionError(f"19 tensor-parallel masks: {masks}")
+        for part in ("finetune", "pretrain"):
+            got = tp[part]["launches"]
+            if not all(got[k] for k in ("alibi_train", "alibi_dq", "alibi_dkv", "block_fc1",
+                                         "block_fc2_partial", "block_ln2")) or got["fused_block"]:
+                raise AssertionError(f"19 tensor parallelism {part}: launches {got}")
+        _check_steps("pipeline (2 gloo ranks, stage 2, host transport)", pp, card)
+        _check_steps("FSDP2 (2 gloo ranks)", fsdp, card)
+        results = {"tp": tp, "pp": pp, "fsdp": fsdp, "seconds": {"layouts": runs_s}}
+    results["phase_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase19": {"rows": rows, "block_masks": block_masks,
+                                  "attention_equal": attn_equal, **results}}))
+    print(f"19 phase {results['phase_seconds']:.1f} s")
+    launches = {"tp_finetune": tp["finetune"]["launches"],
+                "tp_pretrain": tp["pretrain"]["launches"]}
+    return launches, {**block_errs, **attn_errs}, rows
+
+
+def a10_entries(launches, errs, rows):
+    """The kernels line's entries of the split #6 and the head-offset
+    launches: launches of rank 0's tensor-parallel finetune and pretrain
+    steps (phase 19), errors and times of 19k."""
+    pa = "animal2vec_tpu/ops/pallas_attention.py"
+    fb = "animal2vec_tpu/ops/fused_mlp.py:175 (_kernel_bf16_block, split at fc2)"
+    n = TRAIN_BATCH * 2000
+
+    def entry(name, source, replaces, key, err, row_key):
+        return {"name": name, "route": "cuda", "source": f"animal2vec_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": sum(launches[p][key] for p in ("tp_finetune", "tp_pretrain")),
+                "launches_tp_finetune_rank0": launches["tp_finetune"][key],
+                "launches_tp_pretrain_rank0": launches["tp_pretrain"][key],
+                "max_abs_err": err, **rows[row_key]}
+
+    return [
+        entry("block_fc1", "fused_block.cu", fb, "block_fc1", errs["fc1"],
+              f"split #6 fc1 + dropout, N {n}, Ms {A10_MS}"),
+        entry("block_fc2_partial", "fused_block.cu", fb, "block_fc2_partial", errs["partial"],
+              f"split #6 fc2 partial, N {n}, Ms {A10_MS}"),
+        entry("block_ln2", "fused_block.cu", fb, "block_ln2", errs["ln2"],
+              f"split #6 ln2 + dropout, N {n}"),
+        entry("alibi_flash_attention_head_offset", "alibi_attention_fwd.cu",
+              f"{pa}:113 (bh_id = b * H + h0 + h, :82)", "alibi_train", errs["forward"],
+              f"head-offset attention forward + lse + dropout, b{TRAIN_BATCH} H 8 of 16"),
+        entry("alibi_attention_dq_head_offset", "alibi_attention_bwd.cu", f"{pa}:330",
+              "alibi_dq", errs["dq"],
+              f"head-offset attention dq + slope partials, b{TRAIN_BATCH} H 8 of 16"),
+        entry("alibi_attention_dkv_head_offset", "alibi_attention_bwd.cu", f"{pa}:390",
+              "alibi_dkv", errs["dkv"],
+              f"head-offset attention dk/dv, b{TRAIN_BATCH} H 8 of 16"),
+    ]
+
+
 def probe_entries(launches, checks, rows):
     """The kernels line's entries of #12a-c: the times of one
     representative row each (#12a full at the 64-key tile, #12b #6's fc1 at
@@ -4603,6 +4919,8 @@ def main() -> int:
     a7_launches, _ = phase_a7(card, dev)
     torch.cuda.empty_cache()
     probe_launches, probe_checks, probe_rows = phase_probes(card, dev)
+    torch.cuda.empty_cache()
+    a10_launches, a10_errs, a10_rows = phase_a10(card, dev)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -4787,6 +5105,8 @@ def main() -> int:
             **option_rows[f"bias attention {what}, no bias, b{TRAIN_BATCH} T 2000"]))
     # phase 18: the probes
     kernels += probe_entries(probe_launches, probe_checks, probe_rows)
+    # phase 19: the tensor-parallel split of #6 and the head-offset launches
+    kernels += a10_entries(a10_launches, a10_errs, a10_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

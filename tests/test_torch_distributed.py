@@ -2,7 +2,7 @@
 package's "data" axis, on the CPU with gloo ranks.
 
 * ``DistributedConfig`` against the JAX dataclass and the recipes; the
-  unported layouts raise.
+  layouts the port leaves out raise.
 * The host-sharded ``BatchLoader`` yields JAX's batches for host counts 2
   and 3, train and eval, with length buckets and an uneven last eval group.
 * One launch of 2 ranks (``tests/torch_dist_workers.py``) runs: a finetune
@@ -92,10 +92,15 @@ def test_distributed_config_matches_jax_and_refuses():
     assert run.distributed.data_parallel == 2
     assert mesh.resolve_world(run.distributed, "cpu", "gloo") == 2
     assert mesh.resolve_world(DistributedConfig(), "cpu", "gloo") == 1
-    for bad in ("distributed.model_parallel=2", "distributed.pipeline_parallel=2",
-                "distributed.fsdp=True"):
+    # the sharded layouts are taken (tests/test_torch_parallel.py); the
+    # layouts the port leaves out still raise naming ROADMAP A.10
+    sharded = apply_overrides(run, ["distributed.model_parallel=2",
+                                    "distributed.pipeline_parallel=2", "distributed.fsdp=True"])
+    assert mesh.resolve_world(sharded.distributed, "cpu", "gloo") == 8
+    for bad in (["distributed.model_parallel=2", "model.layer_norm_first=True"],
+                ["distributed.fsdp=True", "model.matmul_impl=int8"]):
         with pytest.raises(NotImplementedError, match="A.10"):
-            apply_overrides(run, [bad])
+            apply_overrides(run, bad)
     with pytest.raises(ValueError):
         apply_overrides(run, ["distributed.data_parallel=0"])
     with pytest.raises(ValueError, match="gloo"):

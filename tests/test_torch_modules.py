@@ -116,6 +116,7 @@ def test_config_preset_matches_finetune_100_yaml():
         "init_extra_token_zero": audio_cfg.init_extra_token_zero,
         "remat": m.remat, "remat_scope": m.remat_scope, "remat_frontend": m.remat_frontend,
         "remat_decoder": m.remat_decoder,
+        "pipeline_stages": m.pipeline_stages, "pipeline_microbatches": m.pipeline_microbatches,
         "sinc_input": audio_cfg.sinc_input,
         "apply_window_to_root": audio_cfg.apply_window_to_root,
         "extractor_mode": audio_cfg.extractor_mode,

@@ -380,6 +380,6 @@ def test_int8_teacher_follows_the_ema_step(mode):
     fresh = Data2VecMulti(dataclasses.replace(model.cfg, matmul_impl=mode), pretrain=pcfg).eval()
     fresh.load_state_dict(merge_params(model, state.ema), strict=True)
     with torch.no_grad():
-        _, t_sum, _, _ = fresh.encode(local, reduce_targets=True)
+        _, _, _, _, t_sum = fresh.encode(local, reduce_targets=True)
     assert torch.equal(after, t_sum / pcfg.average_top_k_layers)
     assert not torch.equal(before, after)

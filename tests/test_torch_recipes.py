@@ -106,7 +106,8 @@ def test_load_config_matches_jax(name):
         num_extra_tokens=audio.num_extra_tokens,
         init_extra_token_zero=audio.init_extra_token_zero, remat=m.remat,
         remat_scope=m.remat_scope, remat_frontend=m.remat_frontend,
-        remat_decoder=m.remat_decoder, sinc_input=audio.sinc_input,
+        remat_decoder=m.remat_decoder, pipeline_stages=m.pipeline_stages,
+        pipeline_microbatches=m.pipeline_microbatches, sinc_input=audio.sinc_input,
         apply_window_to_root=audio.apply_window_to_root, extractor_mode=audio.extractor_mode,
         conv_pos_pre_ln=audio.conv_pos_pre_ln, layer_norm_first=m.layer_norm_first,
         norm_affine=m.norm_affine, end_of_block_targets=m.end_of_block_targets,

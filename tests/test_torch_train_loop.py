@@ -424,8 +424,8 @@ def _jax_run(corpus, save_dir, monkeypatch):
 
 def _from_params(params):
     """An ``init_finetune`` that loads ``params`` (a port state dict)."""
-    def init(run, device, pretrained=None):
-        model, state = init_finetune(run, device, pretrained)
+    def init(run, device, pretrained=None, dp=None):
+        model, state = init_finetune(run, device, pretrained, dp)
         model.load_state_dict(params, strict=True)
         return model, state
     return init

@@ -164,8 +164,8 @@ def test_layerdrop_skips_blocks_and_counts():
     x = torch.randn(2, 20, 32)
     blocks = model.encoder.blocks
     spec = model.encoder.audio_encoder.alibi_spec(torch.arange(20, dtype=torch.int32)[None])
-    y, taps, keeps = blocks(x, None, spec, Rngs.from_seed(0, "cpu"))
+    y, taps, keeps, _ = blocks(x, None, spec, Rngs.from_seed(0, "cpu"))
     assert keeps == [0.0, 0.0, 0.0] and torch.equal(y, x) and all(t is x for t in taps)
     model.eval()
-    _, _, keeps = blocks(x, None, spec)
+    _, _, keeps, _ = blocks(x, None, spec)
     assert keeps is None
