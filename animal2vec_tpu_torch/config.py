@@ -123,10 +123,12 @@ class FinetuneConfig:
     prenet_start_drop_path_rate: float = 0.0
     prenet_end_drop_path_rate: float = 0.0
     # serving-only int8 (model.matmul_impl): "int8" quantizes the MLP only,
-    # each post-LN block's fc1/fc2 through the fused int8 block (the JAX
-    # config's comment says qkv/out too, but its AltBlock, modules.py:506-541,
-    # keeps attention bf16); "int8_attn" adds the qkv and out projections and
-    # int8 QK^T and PV inside the attention. Training raises in either.
+    # each post-LN block's fc1/fc2 through the fused int8 block, a pre-LN
+    # block's through the int8 fused MLP (the JAX config's comment says
+    # qkv/out too, but its AltBlock, modules.py:506-541, keeps attention
+    # bf16); "int8_attn" adds the qkv and out projections and, with ALiBi,
+    # int8 QK^T and PV inside the attention (without ALiBi the bf16
+    # attention takes the int8 projections). Training raises in either.
     matmul_impl: str = "bf16"
     # ALiBi with a learned scale, clipped at 0 and folded into the slopes:
     # one per head, or one shared by the heads; one scale per block (prenet
@@ -172,10 +174,6 @@ class FinetuneConfig:
             raise ValueError(f"sinc_norm={self.sinc_norm!r}: 'layer_norm', 'instance' or 'pcen'")
         if self.extractor_mode not in ("default", "layer_norm"):
             raise ValueError(f"extractor_mode={self.extractor_mode!r}: 'default' or 'layer_norm'")
-        if self.matmul_impl != "bf16" and (self.layer_norm_first or not self.use_alibi_encoder):
-            raise NotImplementedError(
-                "the int8 serving modes of a pre-LN or ALiBi-free audio encoder are not "
-                "ported (ROADMAP A.12)")
         _check_encoder(self)
         if not 0 < self.average_top_k_layers <= self.depth:
             raise ValueError(

@@ -7,10 +7,18 @@ normalization, frame targets, length buckets, seeded epoch shuffle,
 leading ``accum`` axis for training, ``n_valid`` of the last eval group,
 checkpointable (epoch, position), host sharding and thread prefetch, so
 one directory gives the same batches bit for bit (``tests/test_torch_data.py``,
-``tests/test_torch_distributed.py``). Left out: the optional C++ batch
-decoder. Batches leave as torch tensors (``id``, ``source``,
-``valid_len``, ``target``, ``padding_mask``, ``n_valid`` as the JAX batch
-has them), in pinned memory with ``pin_memory``.
+``tests/test_torch_distributed.py``). Batches leave as torch tensors
+(``id``, ``source``, ``valid_len``, ``target``, ``padding_mask``,
+``n_valid`` as the JAX batch has them), in pinned memory with
+``pin_memory``.
+
+* ``use_native`` (the default, as in JAX) decodes each group with the C++
+  batch loader (``runtime.native.decode_batch``): its own seeded crop
+  offsets and its normalization (a float64 mean and variance); without it
+  each item is decoded in Python and cropped from
+  ``np.random.default_rng(group seed)``. The two paths crop training clips
+  at different offsets, so the port takes JAX's choice at each call site.
+  The library is built at construction; a failed build raises.
 
 * Every batch is (B, T) with B = max_tokens // T (the reference's token
   budget at one shape); ``bucket_lengths`` gives a small fixed set of clip
@@ -42,6 +50,7 @@ from animal2vec_tpu_torch.data.wavio import read_wav
 from animal2vec_tpu_torch.ops.audio import layer_norm_1d
 from animal2vec_tpu_torch.ops.conv_arith import label_frame_length
 from animal2vec_tpu_torch.ops.frames import frame_targets
+from animal2vec_tpu_torch.runtime import native
 
 
 class AudioLabelDataset:
@@ -177,6 +186,7 @@ class BatchLoader:
         host_index: int = 0,
         host_count: int = 1,
         train: bool = True,
+        use_native: bool = True,
         bucket_lengths: Optional[Sequence[int]] = None,
         batch_multiple: int = 1,
         pin_memory: bool = False,
@@ -211,6 +221,9 @@ class BatchLoader:
         self.host_count = host_count
         self.train = train
         self.pin_memory = pin_memory
+        self.use_native = use_native
+        if use_native:
+            native.ensure_built()  # raises where the library cannot be built
         self.epoch = 0
         # groups already consumed within the current epoch — advances as
         # batches are yielded so a checkpointed (epoch, position) resumes
@@ -292,6 +305,27 @@ class BatchLoader:
         padded[: len(tgt) - t_start] = tgt[t_start:]
         return padded
 
+    def _make_group_native(
+        self, idxs, seed: int, length: Optional[int] = None
+    ) -> List[Dict[str, np.ndarray]]:
+        """A group decoded by the C++ loader, with the frame targets cropped
+        at the offsets it chose."""
+        length = length or self.target_len
+        ds = self.dataset
+        paths = [os.path.join(ds.root, ds.names[int(i)]) for i in idxs]
+        out, valid, starts = native.decode_batch(
+            paths, length, normalize=ds.normalize, train=self.train, seed=seed,
+            expected_sr=ds.sample_rate)
+        items = []
+        for j, i in enumerate(idxs):
+            item = {"id": np.int64(i), "source": out[j], "valid_len": np.int64(valid[j])}
+            if ds.return_labels:
+                wav_len = int(ds.sizes[int(i)])
+                item["target"] = self._crop_target(
+                    ds.targets_for(int(i), wav_len), wav_len, int(starts[j]), length)
+            items.append(item)
+        return items
+
     def _collate(
         self, items: List[Dict[str, np.ndarray]], length: Optional[int] = None
     ) -> Dict[str, np.ndarray]:
@@ -361,8 +395,11 @@ class BatchLoader:
         return out
 
     def _make_batch(self, idxs, seed: int, blen: int, bs: int) -> Dict[str, torch.Tensor]:
-        w_rng = np.random.default_rng(seed)
-        items = [self._make_item(i, w_rng, blen) for i in idxs]
+        if self.use_native:
+            items = self._make_group_native(idxs, seed, blen)
+        else:
+            w_rng = np.random.default_rng(seed)
+            items = [self._make_item(i, w_rng, blen) for i in idxs]
         # pad the final short group by repeating items
         while len(items) < bs * self.accum:
             items.append(items[len(items) % max(1, len(idxs))])

@@ -151,7 +151,7 @@ def find_nvcc() -> str:
 
 
 @contextlib.contextmanager
-def _build_lock(out_dir: Path, timeout: float = LOCK_TIMEOUT_S):
+def build_lock(out_dir: Path, timeout: float = LOCK_TIMEOUT_S):
     """Hold ``out_dir/build.lock`` exclusively; raise after ``timeout`` s."""
     with open(out_dir / "build.lock", "a") as f:
         deadline = time.monotonic() + timeout
@@ -178,7 +178,7 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    with _build_lock(out_dir):
+    with build_lock(out_dir):
         if lib.is_file():  # built by the process that held the lock
             return lib
         return _compile(out_dir, lib)

@@ -28,14 +28,17 @@ attention bias at the kept positions (ALiBi ``positions`` = the keep-set ids
 for audio, ``masked_alibi`` for images). Otherwise positions are
 batch-uniform (1, T).
 
-The JAX trunk pads the sequence to the TPU kernel's block length
-(``data2vec2.py:318-344``). In bf16 and ``int8`` the pad rows change no real
-row (they are masked keys, and every other op is per row), so the port does
-not pad and the attention kernels mask the ragged tail by bounds. In
-``int8_attn`` they do: the per-channel v scales of the int8 attention span
-every row of the padded sequence. There the port pads as JAX does (zero
-rows at position 0, masked as keys, run through prenet and trunk, cut off
-after it), so that its scales are JAX's.
+The JAX trunk pads the sequence to the TPU kernel's block length where
+the bias is an ``AlibiSpec`` (``data2vec2.py:318-344``). In bf16 and
+``int8`` the pad rows change no real row (they are masked keys, and every
+other op is per row), so the port does not pad and the attention kernels
+mask the ragged tail by bounds. In ``int8_attn`` with ALiBi they do: the
+per-channel v scales of the int8 attention span every row of the padded
+sequence. There the port pads as JAX does (zero rows at position 0, masked
+as keys, run through prenet and trunk, cut off after it), so that its
+scales are JAX's. An ALiBi-free ``int8_attn`` trunk runs unpadded, as in
+JAX: its int8 projections quantize per row, and the bf16 attention masks
+nothing it would not.
 
 Extra (CLS) tokens of the audio encoder (``num_extra_tokens``,
 ``data2vec2.py:274-315``) are prepended after the positions, at the -1
@@ -110,7 +113,8 @@ class Data2VecMulti(nn.Module):
         super().__init__()
         self.cfg, self.dtype, self.pretrain = cfg, dtype, pretrain
         self.mode = "IMAGE" if isinstance(cfg, ImageConfig) else "AUDIO"
-        self.pad_trunk = cfg.matmul_impl == "int8_attn" and self.mode == "AUDIO"
+        self.pad_trunk = (cfg.matmul_impl == "int8_attn" and self.mode == "AUDIO"
+                          and cfg.use_alibi_encoder)
         self.dropout_input, self.mask_noise_std = dropout_input, mask_noise_std
         decoder = None if pretrain is None else pretrain.decoder
         rates = dict(rates, remat_scope=cfg.remat_scope if cfg.remat else None)

@@ -95,7 +95,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    2000 and at the int8_attn trunk's T 2048 with its padding mask, both
    held against the plain version (after the pass against
    quantize_qkv_int8); the int8 fused MLP (#9) split by launch (x
-   quantization, fc1, h quantization, fc2, with TOP/s); the dense-bias
+   quantization, fc1, h quantization, fc2, with TOP/s), also at a2v-large's
+   widths (N 64 000, C 1024, M 4096: a pre-LN encoder's MLP in int8) beside
+   torch._int_mm x 2 and held against its plain version; the dense-bias
    forward and SDPA also by device time; the dense-bias backward at the
    ViT-B/16 student's shape (dq + dbias, dk/dv and the single launch, each
    by device time) beside SDPA's backward alone;
@@ -125,7 +127,12 @@ Phases, one line or more each; any failure raises and exits non-zero:
    and peak memory; then b1 x clone 2 gradients, kernel path against plain
    path;
 12. the training entry point at a2v-large's width and depth on 24
-   synthetic 10-s clips with .npz labels (18 train, 6 valid): train_cli
+   synthetic 10-s clips with .npz labels (18 train, 6 valid); first (12b)
+   the batch loader over them at an 8-s crop and b5: ms per batch through
+   the C++ decoder and the Python one, in training and evaluation, the
+   native eval batches against the Python path's (source within 2e-4, the
+   rest equal); then train_cli, whose loaders decode through the C++
+   loader (its calls counted in every run):
    pretrains 2 steps (a2v_large_pretrain.yaml, update_freq 1: b5 x clone
    12), finetunes 3 steps from that checkpoint (finetune_100.yaml at b4,
    update_freq 1, gate open) with one validation at step 2 that writes
@@ -215,7 +222,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
    path, b32 serving clips/s, three b4 finetune_100 steps with drop-path
    0.1 (P: activation dropout 0.1 in #8) with their launches per block that
    ran and median ms, b2 gradients kernel vs plain path with drop-path and
-   activation dropout on; one variant P pretrain step at b8 x clone 12 with
+   activation dropout on; both variants served in int8 and int8_attn (16i:
+   b2 kernel vs plain path and against bf16, launches per block, b32
+   clips/s; variant P's pre-LN blocks take #9 at a2v-large's widths, N
+   takes #7 and #11 without bias, int8_attn adds #10 and, with ALiBi, #5
+   on a trunk padded to 2048); one variant P pretrain step at b8 x clone 12 with
    the A.7 dropouts (ms, peak memory); the PCEN scan's ms and memory at b32
    serving and b4 training;
 17. the rest of data2vec-2 pretraining (phase_a7): one a2v-large pretrain
@@ -351,6 +362,13 @@ EMA_TOL = 1e-6
 # of order 1) fails; each int8 mode also against the bf16 model on the same
 # weights (INT8_VS_BF16_REL)
 IMAGE_REL, IMAGE_INT8_REL = 3e-2, 0.1
+# the same for the 24 pre-LN blocks of the encoder's variant P served in
+# int8 (phase 16i): its kernel and plain paths lie about as far apart as
+# the int8 noise itself (measured on an H100: 4.87e-2 int8 and 5.20e-2
+# int8_attn, against 5.64e-2 and 6.78e-2 from the bf16 model; #9 at these
+# widths equals its plain version in every element), so they are held at
+# IMAGE_INT8_REL, and against the bf16 model at INT8_VS_BF16_REL
+PRE_LN_INT8_REL = IMAGE_INT8_REL
 IMAGE_MODES = ("bf16",) + MODES
 # the H100 SXM data sheet's dense peaks (at 700 W)
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -1667,9 +1685,46 @@ def phase_kernel_times(dev):
         del args
         torch.cuda.empty_cache()
         errs.update(int8_kernel_times(gen, dev, row, rows))
+        errs["int8_mlp"] = int8_mlp_a2v_times(gen, dev, row, rows)
         image_kernel_times(gen, dev, row, rows)
     pretrain_kernel_times(gen, dev, row, rows)
     return rows, errs
+
+
+def int8_mlp_a2v_times(gen, dev, row, rows):
+    """#9 at a2v-large's widths (N 64 000 = b32 x T 2000, C 1024, M 4096: the
+    MLP of a pre-LN audio encoder served in int8): the wrapper beside its
+    plain version and torch._int_mm x 2 (fc1 and fc2's int8 products alone
+    on pre-quantized operands), both also by device time, split by launch;
+    held against the plain version on the timed inputs. Returns the max abs
+    error."""
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
+    from animal2vec_tpu_torch.ops.int8_mm import quantize_rows, quantize_weight
+
+    n, c, m = 32 * 2000, 1024, 4096
+    key = "int8 fused MLP, b32 a2v-large widths"
+    x, _, _, w1, w2, b1, b2 = block_inputs(gen, n, c, m, dev)[:7]
+    w1_q, w1_s = quantize_weight(w1.t().contiguous())  # nn.Linear layout
+    w2_q, w2_s = quantize_weight(w2.t().contiguous())
+    args = (x, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    x_q, _ = quantize_rows(x)
+    h_q = torch.randint(-127, 128, (n, m), generator=gen, device=dev, dtype=torch.int8)
+    lib = lambda: (torch._int_mm(x_q, w1_q.t()), torch._int_mm(h_q, w2_q.t()))  # noqa: E731
+    call = lambda: fused_mlp_int8(*args)  # noqa: E731
+    row(key, cuda_ms(call), cuda_ms(lambda: fused_mlp_int8_plain(*args), iters=1, warmup=1),
+        cuda_ms(lib), int8_mlp_bound(n, c, m))
+    rows[key].update(int8_mlp_splits(args, key))
+    rows[key].update(device_ms=device_ms(call, ""), library_device_ms=device_ms(lib, ""))
+    print(f"  device time: the four launches {ms_text(rows[key]['device_ms'])}, torch._int_mm x 2 "
+          f"{ms_text(rows[key]['library_device_ms'])} (library: the two int8 products alone)")
+    got, want = call(), fused_mlp_int8_plain(*args)
+    err = check_close(f"int8 fused MLP, b32 a2v-large widths ({n},{c},{m})", got, want,
+                      INT8_BLOCK_TOL)
+    print(f"  {(got != want).sum().item()} of {got.numel()} elements differ from the plain "
+          f"version")
+    del x, x_q, h_q, args, got, want
+    torch.cuda.empty_cache()
+    return err
 
 
 def tflops(kernel, b, h, t, ms, d=64):
@@ -2656,6 +2711,87 @@ def _same_train_state(a, b) -> bool:
                     for k in ma))
 
 
+class NativeWatch:
+    """Count the C++ batch loader's decode calls (``runtime.native.
+    decode_batch``, which the loader looks up on its module) and the items
+    they decoded."""
+
+    def __enter__(self):
+        from animal2vec_tpu_torch.runtime import native
+
+        self.native, self.real = native, native.decode_batch
+        self.calls = self.items = 0
+
+        def counted(paths, *args, **kwargs):
+            self.calls += 1
+            self.items += len(paths)
+            return self.real(paths, *args, **kwargs)
+
+        native.decode_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.native.decode_batch = self.real
+        return False
+
+
+# 12b: the loader at a crop shorter than the corpus's 10-s clips, at the
+# a2v_large_pretrain.yaml recipe's batch (max_tokens 408 000 over its 10-s
+# windows: 5 clips)
+LOADER_CROP, LOADER_BATCH = 64_000, 5
+NORMALIZE_TOL = 2e-4  # the native normalization's float64 statistics against the Python path's
+
+
+def phase_loader(data, card):
+    """12b. The batch loader over the phase's corpus (24 synthetic 10-s clips
+    with labels) at an 8-s crop and b5: the ms per batch of an epoch through
+    the C++ decoder (the default) and through the Python one, in training
+    (seeded random crops) and in evaluation (center crops); the native eval
+    batches against the Python path's: normalized source within
+    NORMALIZE_TOL, ids, valid lengths, padding masks and targets equal.
+    Returns the ms per batch."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+    from animal2vec_tpu_torch.data.dataset import AudioLabelDataset, BatchLoader
+    from animal2vec_tpu_torch.data.synthetic import DEFAULT_LABELS
+
+    ds = AudioLabelDataset(os.path.join(data, "pretrain.tsv"), return_labels=True,
+                           unique_labels=DEFAULT_LABELS,
+                           conv_layers=FinetuneConfig().conv_layers, label_ext="npz")
+    if not (ds.sizes > LOADER_CROP).all():
+        raise AssertionError(f"12b: the corpus's clips are not all longer than {LOADER_CROP}")
+    rows, batches = {}, {}
+    for train in (True, False):
+        for native in (True, False):
+            loader = BatchLoader(ds, target_len=LOADER_CROP, batch_size=LOADER_BATCH,
+                                 shuffle=train, seed=SEED, drop_last=train, num_workers=8,
+                                 train=train, use_native=native)
+            list(loader)  # warm: the files in the page cache, the threads started once
+            with NativeWatch() as watch:
+                t0 = time.perf_counter()
+                got = list(loader)
+                dt = time.perf_counter() - t0
+            key = f"{'train' if train else 'eval'} {'native' if native else 'python'}"
+            rows[key] = dt * 1e3 / len(got)
+            batches[key] = got
+            print(f"12b loader, {key}: {rows[key]:.2f} ms per b{LOADER_BATCH} batch of "
+                  f"{LOADER_CROP}-sample crops ({len(got)} batches, {watch.calls} native decode "
+                  f"calls) on the host of {card} (warm page cache)")
+            if native != (watch.calls == len(got)):
+                raise AssertionError(f"12b {key}: {watch.calls} native decode calls")
+    for a, b in zip(batches["eval native"], batches["eval python"], strict=True):
+        if a.keys() != b.keys():
+            raise AssertionError(f"12b: eval batch keys {sorted(a)} != {sorted(b)}")
+        err = (a["source"] - b["source"]).abs().max().item()
+        same = all(torch.equal(a[k], b[k]) for k in a if k != "source")
+        if not err <= NORMALIZE_TOL or not same:
+            raise AssertionError(f"12b: native eval batch against the Python path: source "
+                                 f"{err:.3e} (tolerance {NORMALIZE_TOL}), the rest equal {same}")
+    print(f"12b native eval batches against the Python path: source within {NORMALIZE_TOL}, "
+          f"ids, targets and masks equal ({len(batches['eval native'])} batches); train crops "
+          f"differ by design (the C++ loader's own seeded offsets, as JAX's default loader)")
+    return rows
+
+
 def phase_entry(card, dev):
     """12. The training entry point: synthetic data (24 clips of 10 s with
     .npz labels, generate's 18/6 split), train_cli pretraining 2 steps
@@ -2678,6 +2814,7 @@ def phase_entry(card, dev):
         data = generate(os.path.join(tmp, "data"), n_clips=ENTRY_CLIPS, clip_seconds=10.0,
                         seed=SEED, label_ext="npz")
         seconds["data"] = time.perf_counter() - t0
+        loader_ms = phase_loader(data, card)
         pre_dir, ft_dir = os.path.join(tmp, "pretrain"), os.path.join(tmp, "finetune")
         free = shutil.disk_usage(tmp).free / 2**30
         print(f"entry: {ENTRY_CLIPS} synthetic 10-s clips in {seconds['data']:.2f} s "
@@ -2687,7 +2824,7 @@ def phase_entry(card, dev):
         def drive(part, argv, want_steps):
             reset_counts()
             t0 = time.perf_counter()
-            with EntryWatch() as watch, PlainSpy() as spy:
+            with EntryWatch() as watch, PlainSpy() as spy, NativeWatch() as native:
                 out = train_cli.main(argv)
             torch.cuda.synchronize()
             seconds[part] = time.perf_counter() - t0
@@ -2702,10 +2839,11 @@ def phase_entry(card, dev):
                   f"{watch.groups[0][1]} rank; {len(steps)} steps in {seconds[part]:.2f} s (steps "
                   f"{[round(s['seconds'], 3) for s in steps]} s each); losses "
                   f"{[round(s['loss'], 5) for s in steps]}; launches {launch_line(got)}; "
-                  f"plain-version calls on CUDA tensors {spy.cuda_calls}")
-            if len(steps) != want_steps or spy.cuda_calls:
-                raise AssertionError(f"entry {part}: {len(steps)} steps (want {want_steps}) or "
-                                     f"a plain call")
+                  f"plain-version calls on CUDA tensors {spy.cuda_calls}; batches through the "
+                  f"C++ loader {native.calls} ({native.items} clips)")
+            if len(steps) != want_steps or spy.cuda_calls or not native.calls:
+                raise AssertionError(f"entry {part}: {len(steps)} steps (want {want_steps}), "
+                                     f"a plain call or no native decode")
             if not all(np.isfinite(s["loss"]) for s in steps):
                 raise AssertionError(f"entry {part}: a non-finite loss")
             return watch, got, out
@@ -3999,6 +4137,91 @@ def phase_option_model(variant, card, dev):
     return total, {"serve_b32_ms": serve_ms, "train_b4_ms": train_ms}
 
 
+# the launches of one int8 block by variant and mode (ROADMAP A.12): pre-LN
+# blocks take the int8 MLP (#9), post-LN ones the int8 block (#7); int8_attn
+# adds the two int8 projections (#10) and, with ALiBi, the int8 attention
+# with its quantization pass (#5, #5q); else the bf16 attention stays (#1
+# with ALiBi, #11 without)
+OPTION_INT8_KEYS = {
+    ("P", "int8"): {"serve_attention": 1, "int8_mlp": 1},
+    ("P", "int8_attn"): {"int8_dense": 2, "int8_quant": 1, "int8_attention": 1, "int8_mlp": 1},
+    ("N", "int8"): {"bias_attention": 1, "int8_block": 1},
+    ("N", "int8_attn"): {"int8_dense": 2, "bias_attention": 1, "int8_block": 1},
+}
+
+
+def phase_option_int8(variant, card, dev):
+    """16i. One variant at a2v-large width served in int8 and int8_attn
+    (seeded weights, serving cast, quantized at load): for each mode the b2
+    kernel path against the plain path (INT8_MODEL_REL relative norm,
+    PRE_LN_INT8_REL for pre-LN blocks) and against the bf16 model's logits
+    (INT8_VS_BF16_REL), its launches per block (OPTION_INT8_KEYS) with no
+    plain version on a CUDA tensor; then the b32 forward's clips/s and
+    launches. Returns the launches and the b32 rows."""
+    cfg = option_cfg(variant)
+    tol = PRE_LN_INT8_REL if cfg.layer_norm_first else INT8_MODEL_REL
+    model = build_model(cfg, dev)
+    src = torch.from_numpy(np.random.default_rng(SEED + 64).normal(
+        size=(2, WAV_LEN)).astype(np.float32)).to(dev)
+    b32 = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
+        size=(32, WAV_LEN)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        bf16_logits = model(src)["encoder_out"]
+    total = dict.fromkeys(_counted(), 0)
+    rows = {}
+    for mode in MODES:
+        label = f"16i variant {variant} {mode}"
+        served = int8_model(model, cfg, mode, dev)
+        want = dict.fromkeys(_counted(), 0)
+        want.update({k: n * cfg.n_blocks for k, n in OPTION_INT8_KEYS[variant, mode].items()})
+        with torch.inference_mode():
+            reset_counts()
+            with PlainSpy() as spy:
+                got = served(src)["encoder_out"]
+            launched = counts()
+            with PlainOps():
+                plain = served(src)["encoder_out"]
+        rel, rel_bf16 = rel_norm(got, plain), rel_norm(got, bf16_logits)
+        print(f"{label} serving b2: logits {tuple(got.shape)}, kernel vs plain path relative norm "
+              f"{rel:.3e} (tolerance {tol}), max abs "
+              f"{(got.float() - plain.float()).abs().max().item():.3e}; against the bf16 model "
+              f"{rel_bf16:.3e} (bound {INT8_VS_BF16_REL}); launches {launch_line(launched)}; "
+              f"plain versions called on CUDA tensors: {spy.cuda_calls}")
+        if not torch.isfinite(got).all() or not rel <= tol:
+            raise AssertionError(f"{label}: serving logits disagree with the plain path")
+        if not rel_bf16 <= INT8_VS_BF16_REL:
+            raise AssertionError(f"{label}: logits stray from the bf16 model's")
+        if launched != want or spy.cuda_calls:
+            raise AssertionError(f"{label}: serving launches {launched} != {want}")
+        total = {k: total[k] + launched[k] for k in total}
+        with torch.inference_mode():
+            served(b32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            iters = 3
+            for _ in range(iters):
+                served(b32)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{label} serving b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch), "
+              f"peak memory {peak:.2f} GiB on {card}; launches {launch_line(launched)} over "
+              f"{iters}")
+        if launched != {k: iters * v for k, v in want.items()}:
+            raise AssertionError(f"{label}: b32 launches {launched}")
+        total = {k: total[k] + launched[k] for k in total}
+        rows[mode] = {"serve_b32_ms": dt * 1e3, "clips_per_s": 32 / dt, "rel_plain": rel,
+                      "rel_bf16": rel_bf16, "peak_gib": peak}
+        del served, got, plain
+        torch.cuda.empty_cache()
+    del model, b32
+    torch.cuda.empty_cache()
+    return total, rows
+
+
 def phase_option_pretrain(card, dev):
     """16b. One a2v-large pretrain step of variant P at the v5e micro-batch
     (b8 x clone 12, update_freq 1) with the A.7 dropouts (activation 0.1,
@@ -4094,8 +4317,9 @@ def phase_pcen(card, dev):
 def phase_options(card, dev):
     """16. The encoder's options: the changed kernels alone, their times,
     variants P and N at a2v-large width (serving, finetuning, gradients),
-    the variant P pretrain step and the PCEN scan. Returns (launches by
-    kernel key, the max abs errors, the time rows, the end-to-end rows)."""
+    both served in int8 and int8_attn, the variant P pretrain step and the
+    PCEN scan. Returns (launches by kernel key, the int8 serving runs'
+    launches, the max abs errors, the time rows)."""
     errs = phase_option_kernels(dev)
     rows = option_kernel_times(dev)
     launches = dict.fromkeys(_counted(), 0)
@@ -4103,12 +4327,17 @@ def phase_options(card, dev):
     for variant in OPTION_VARIANTS:
         got, e2e[variant] = phase_option_model(variant, card, dev)
         launches = {k: launches[k] + got[k] for k in launches}
+    int8_launches = dict.fromkeys(_counted(), 0)
+    for variant in OPTION_VARIANTS:
+        got, e2e[f"{variant}_int8"] = phase_option_int8(variant, card, dev)
+        int8_launches = {k: int8_launches[k] + got[k] for k in int8_launches}
+    print(f"16i launches over the int8 serving runs: {launch_line(int8_launches)}")
     got, e2e["pretrain"] = phase_option_pretrain(card, dev)
     launches = {k: launches[k] + got[k] for k in launches}
     e2e["pcen"] = phase_pcen(card, dev)
     print(f"16 launches over the phase's main-path runs: {launch_line(launches)}")
     print(json.dumps({"phase16": e2e}))
-    return launches, errs, rows
+    return launches, int8_launches, errs, rows
 
 
 # phase 17: the rest of data2vec-2 pretraining (ROADMAP A.7) at a2v-large
@@ -4914,7 +5143,7 @@ def main() -> int:
     config_launches = phase_config_cli(card, dev)
     print(json.dumps({"phase15": {"remat": remat_rows, "tokens": tokens}}))
     torch.cuda.empty_cache()
-    option_launches, option_errs, option_rows = phase_options(card, dev)
+    option_launches, option_int8_launches, option_errs, option_rows = phase_options(card, dev)
     torch.cuda.empty_cache()
     a7_launches, _ = phase_a7(card, dev)
     torch.cuda.empty_cache()
@@ -5085,6 +5314,19 @@ def main() -> int:
     for name, key in (("fused_mlp", "mlp"), ("fused_block", "block"),
                       ("bias_flash_attention", "bias_attention")):
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], option_errs[key])
+    # phase 16i: variants P and N served in int8 and int8_attn (ROADMAP A.12)
+    for name, key in (("alibi_flash_attention_serve", "serve_attention"),
+                      ("alibi_flash_attention_int8", "int8_attention"),
+                      ("quantize_qkv_int8_pass", "int8_quant"),
+                      ("fused_block_int8", "int8_block"), ("fused_mlp_int8", "int8_mlp"),
+                      ("int8_dense", "int8_dense"), ("bias_flash_attention", "bias_attention")):
+        by_name[name]["launches_options_int8"] = option_int8_launches[key]
+        by_name[name]["launches"] += option_int8_launches[key]
+    # phase 7: #9 at a2v-large's widths
+    by_name["fused_mlp_int8"].update(
+        {f"a2v_{k}": v for k, v in times["int8 fused MLP, b32 a2v-large widths"].items()})
+    by_name["fused_mlp_int8"]["max_abs_err"] = max(by_name["fused_mlp_int8"]["max_abs_err"],
+                                                   b32_errs["int8_mlp"])
     # phase 17: the rest of pretraining's main-path runs (the option step and
     # the recipe's default step, the ViT-B/16 recon step, train_cli --config)
     for name, key in (("alibi_flash_attention_serve", "serve_attention"),

@@ -1,7 +1,8 @@
 """The port's host data pipeline against the JAX package's: the copied
 label arithmetic, manifests, label files and synthetic generator, and the
-``BatchLoader`` batch for batch, bit for bit (the JAX loader without its
-native decoder, on one host)."""
+``BatchLoader`` batch for batch, bit for bit: the Python decoders of both
+(``use_native=False``) on one host, and each package's default, the C++
+batch loader, with its crops, on two hosts."""
 
 import os
 
@@ -151,7 +152,7 @@ def test_loader_matches_jax(corpus, case):
     which, split, train, kw, epochs = LOADERS[case]
     root = corpus[0] if which == "fixed" else corpus[1]
     ds, jds = _datasets(root, split, train)
-    loader = BatchLoader(ds, train=train, num_workers=2, **kw)
+    loader = BatchLoader(ds, train=train, num_workers=2, use_native=False, **kw)
     jloader = JaxLoader(jds, train=train, num_workers=2, use_native=False, **kw)
     assert len(loader) == len(jloader) > 0
     n = 0
@@ -164,6 +165,39 @@ def test_loader_matches_jax(corpus, case):
     assert n == epochs * len(loader)
     if not train:
         assert "n_valid" in ours
+
+
+@pytest.fixture(scope="module")
+def long_clips(tmp_path_factory):
+    """0.3-1.5-s clips, most longer than the 0.8-s crop below."""
+    root = tmp_path_factory.mktemp("long")
+    return generate(str(root), n_clips=16, clip_seconds=(0.3, 1.5), seed=8, label_ext="npz")
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_default_loader_matches_jax_native(long_clips, train):
+    """The default loaders (the C++ decoder in both packages) batch for
+    batch on two hosts with labels and buckets: the same seeded crop
+    offsets (JAX's use_native=True default, dataset.py:175, 308-340), hence
+    the same sources and cropped targets."""
+    ds, jds = _datasets(long_clips, "pretrain", train)
+    target_len = 6400
+    assert (ds.sizes > target_len).sum() >= 8
+    kw = dict(target_len=target_len, max_tokens=12800, accum=2 if train else 1, seed=3,
+              shuffle=train, drop_last=train, bucket_lengths=[3200, target_len])
+    n = 0
+    for host in range(2):
+        shard = dict(kw, host_index=host, host_count=2)
+        loader = BatchLoader(ds, train=train, num_workers=2, **shard)
+        jloader = JaxLoader(jds, train=train, num_workers=2, **shard)
+        assert jloader._native and len(loader) == len(jloader) > 0
+        for epoch in range(2 if train else 1):
+            loader.set_epoch(epoch)
+            jloader.set_epoch(epoch)
+            for ours, theirs in zip(loader, jloader, strict=True):
+                _assert_same_batch(ours, theirs)
+                n += 1
+    assert n >= 4
 
 
 def test_loader_resumes_mid_epoch(corpus):

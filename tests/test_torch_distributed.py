@@ -127,7 +127,7 @@ def test_sharded_loader_matches_jax(corpus, case, hosts):
     ds, jds = _datasets(corpus[0] if which == "fixed" else corpus[1], split, train)
     for host in range(hosts):
         shard = dict(kw, host_index=host, host_count=hosts)
-        loader = BatchLoader(ds, train=train, num_workers=1, **shard)
+        loader = BatchLoader(ds, train=train, num_workers=1, use_native=False, **shard)
         jloader = JaxLoader(jds, train=train, num_workers=1, use_native=False, **shard)
         assert len(loader) == len(jloader)
         n = 0

@@ -7,6 +7,9 @@ interpret mode, ``A2V_PALLAS_SERVE=1``, ``A2V_FLASH_INTERPRET=1``) as the
 port's ops do. The sequence lengths (200 frames, and 2000 in 10-s windows)
 are ones the JAX trunk pads to its attention block (256 and 2048), so that
 in ``int8_attn`` the pad rows enter the per-channel v scales on both sides.
+Besides the default encoder, pre-LN ones (their MLPs through the int8
+fused MLP) and an ALiBi-free one (the int8 projections around the bf16
+attention, whose trunk neither side pads) are served (``ENCODERS``).
 
 Tolerances. The int8 roundings are the same on both sides, but a value
 within ~1e-7 of an int8 rounding boundary (A&S erf against erf in GELU,
@@ -21,6 +24,7 @@ test.
 """
 
 import dataclasses
+import functools
 import json
 
 import jax
@@ -31,6 +35,7 @@ import torch
 
 import flax.traverse_util as tu
 
+from animal2vec_tpu.config import resolve
 from animal2vec_tpu.models.attention import AlibiSpec as JaxAlibiSpec
 from animal2vec_tpu.models.modules import AltBlock as JaxAltBlock, BlockConfig
 from animal2vec_tpu.ops.audio import chunk_and_normalize as jax_chunk
@@ -55,6 +60,25 @@ PROB_TOL, PROB_MEDIAN = 2e-2, 5e-3  # measured 1.4e-2 and 2.0e-3 (int8_attn)
 EVENT_FRAMES = 2e-2
 STEP = 2e-2  # one flipped value moves a block's row by at most this share of its range
 SEGMENT = 10.0  # 2000 frames through the stride-40 stack, padded to 2048 by JAX
+# the encoders served in int8: (audio modality changes, model changes), JAX
+# names = the port's fields. Pre-LN blocks (the int8 fused MLP, the residual
+# the reference drops), with affine norms, or without them and with one
+# ALiBi scale shared by the heads; post-LN without ALiBi (the int8
+# projections around the bf16 attention, no trunk padding).
+ENCODERS = {
+    "default": ({}, {}),
+    "pre-LN": ({}, dict(layer_norm_first=True)),
+    "pre-LN-no-affine": (dict(learned_alibi_scale_per_head=False),
+                         dict(layer_norm_first=True, norm_affine=False)),
+    "no-ALiBi": (dict(use_alibi_encoder=False), {}),
+}
+# (mode, encoder) cases: the default encoder's keep the mode as their id;
+# each pre-LN encoder in one mode (int8_attn without affine norms and with
+# the shared ALiBi scale), the ALiBi-free one in both
+CASES = [pytest.param(m, "default", id=m) for m in MODES] + [
+    pytest.param(m, e, id=f"{m}-{e}") for m, e in (
+        ("int8", "pre-LN"), ("int8_attn", "pre-LN-no-affine"), ("int8", "no-ALiBi"),
+        ("int8_attn", "no-ALiBi"))]
 
 
 @pytest.fixture(autouse=True)
@@ -63,15 +87,35 @@ def pallas_route(monkeypatch):
     monkeypatch.setenv("A2V_FLASH_INTERPRET", "1")
 
 
-def _models(conv_layers, wav_len, mode):
+def _jax_cfg(conv_layers, mode, encoder):
     jcfg = _finetune_cfg(conv_layers=" + ".join(f"[{l}]" for l in conv_layers), avg_k=2,
                          **DIMS)
     jcfg.model.matmul_impl = mode
-    jmodel = jax_build_finetune_model(jcfg)
+    audio, blocks = ENCODERS[encoder]
+    for key, value in audio.items():
+        setattr(jcfg.model.modalities.audio, key, value)
+    for key, value in blocks.items():
+        setattr(jcfg.model, key, value)
+    return resolve(jcfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(conv_layers, wav_len, encoder):
+    """The JAX model's jittered init, which the modes share (their param
+    trees and init draws are the same)."""
+    jmodel = jax_build_finetune_model(_jax_cfg(conv_layers, "bf16", encoder))
     params = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(0)},
                                   jnp.zeros((1, wav_len)))["params"]
-    params = _jittered(params, seed=11)
-    cfg = dataclasses.replace(_port_cfg(jcfg, conv_layers, **DIMS), matmul_impl=mode)
+    return _jittered(params, seed=11)
+
+
+def _models(conv_layers, wav_len, mode, encoder="default"):
+    jcfg = _jax_cfg(conv_layers, mode, encoder)
+    jmodel = jax_build_finetune_model(jcfg)
+    params = _jax_params(tuple(conv_layers), wav_len, encoder)
+    audio, blocks = ENCODERS[encoder]
+    cfg = dataclasses.replace(_port_cfg(jcfg, conv_layers, **DIMS), matmul_impl=mode, **audio,
+                              **blocks)
     model = FinetuneModel(cfg)
     model.load_state_dict(params_from_jax(params), strict=True)
     return jcfg, jmodel, params, model.eval()
@@ -87,8 +131,22 @@ def _jax_block_params(params, port_name):
     return jax.tree_util.tree_map(lambda a: a[int(i)], node)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_logits_match_jax(mode):
+def _own_rows_off(run, p, x, pad, spec, ref_tap, draws=6):
+    """The largest share of rows beyond 1e-5 by which the JAX block's tap
+    moves under one-ulp changes of its input x: all up, all down, and
+    seeded mixes of the two."""
+    rng = np.random.default_rng(0)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    worst = 0.0
+    for k in range(draws):
+        to = (up, down)[k] if k < 2 else np.where(rng.random(x.shape) < 0.5, up, down)
+        moved = run(p, jnp.asarray(np.nextafter(x, to)), pad, spec)[1]
+        worst = max(worst, _rows_off(moved, ref_tap)[0])
+    return worst
+
+
+@pytest.mark.parametrize("mode,encoder", CASES)
+def test_logits_match_jax(mode, encoder):
     """Each of the three blocks on the inputs the port gave it, against the
     JAX AltBlock on the same inputs (the op tolerances: rows beyond 1e-5 at
     most 5 %, the largest error one quantization step); then the logits end
@@ -96,8 +154,13 @@ def test_logits_match_jax(mode):
     response to a one-ulp change of its input: int8 amplifies every rounding
     difference, one flipped value moving its row by a step that attention
     spreads to every row, so the JAX model against itself moves its logits
-    by 6e-3 (int8) and 1.8e-2 (int8_attn) relative norm."""
-    jcfg, jmodel, params, model = _models(TINY_LAYERS, 800, mode)
+    by 6e-3 (int8) and 1.8e-2 (int8_attn) relative norm; and their
+    probabilities within PROB_TOL (median PROB_MEDIAN) of JAX's. Each
+    encoder of ENCODERS: the trunk runs padded to 256 rows only in int8_attn
+    with ALiBi, as JAX pads it."""
+    jcfg, jmodel, params, model = _models(TINY_LAYERS, 800, mode, encoder)
+    blocks = ENCODERS[encoder][1]
+    alibi = ENCODERS[encoder][0].get("use_alibi_encoder", True)
     src = np.random.default_rng(12).normal(size=(2, 800)).astype(np.float32)
     seen = []
     hooks = [mod.register_forward_hook(lambda m, args, out, name=name: seen.append(
@@ -109,17 +172,34 @@ def test_logits_match_jax(mode):
         h.remove()
     assert [s[0] for s in seen] == ["encoder.audio_encoder.context_encoder.blocks.layers.0",
                                     "encoder.blocks.layers.0", "encoder.blocks.layers.1"]
-    blk = JaxAltBlock(cfg=BlockConfig(dim=128, num_heads=2, norm_eps=1e-5, matmul_impl=mode))
-    # int8_attn runs the trunk padded to 256 rows as JAX does, int8 does not
-    assert {x.shape[1] for _, x, *_ in seen} == {256 if mode == "int8_attn" else 200}
+    blk = JaxAltBlock(cfg=BlockConfig(dim=128, num_heads=2, norm_eps=1e-5, matmul_impl=mode,
+                                      **blocks))
+    # int8_attn with ALiBi runs the trunk padded to 256 rows as JAX does
+    # (for its AlibiSpec); int8, and int8_attn without ALiBi, do not
+    assert {x.shape[1] for _, x, *_ in seen} == {256 if mode == "int8_attn" and alibi else 200}
+    run = jax.jit(lambda p, v, m, spec: blk.apply({"params": p}, v, m, spec))
     for name, x, pad, bias, (xo, tap) in seen:
-        spec = JaxAlibiSpec(jnp.asarray(bias.slopes.numpy()), jnp.asarray(bias.positions.numpy()))
+        assert (bias is None) == (not alibi)
+        spec = None if bias is None else JaxAlibiSpec(jnp.asarray(bias.slopes.numpy()),
+                                                      jnp.asarray(bias.positions.numpy()))
         pad = None if pad is None else jnp.asarray(pad.numpy())
-        xo_j, tap_j = jax.jit(lambda p, v, m: blk.apply({"params": p}, v, m, spec))(
-            _jax_block_params(params, name), jnp.asarray(x.numpy()), pad)
-        for ours, ref in ((tap, tap_j), (xo, xo_j)):
+        p = _jax_block_params(params, name)
+        refs, outs = run(p, jnp.asarray(x.numpy()), pad, spec), (xo, tap)
+        rows_off = ROWS_OFF
+        if blocks.get("layer_norm_first"):
+            # a pre-LN block gives x = t + t (the residual dropped, dropout
+            # off), on both sides; and int8_attn spreads one value that
+            # lands an int8 step apart over the rows of its key: the JAX
+            # block itself moves up to 8.6 % of its tap's rows beyond 1e-5
+            # under one-ulp changes of its input (the port 8.2 % against it).
+            # So only t is held, its share of rows off at most 1.5x the
+            # largest of that response (six draws) where it exceeds ROWS_OFF
+            assert torch.equal(xo, tap + tap) and np.array_equal(refs[0], refs[1] + refs[1])
+            refs, outs = refs[1:], (tap,)
+            rows_off = max(ROWS_OFF, 1.5 * _own_rows_off(run, p, x.numpy(), pad, spec, refs[0]))
+        for ours, ref in zip(outs, refs):
             share, worst = _rows_off(ours.numpy(), ref)
-            assert share <= ROWS_OFF and worst <= STEP * np.abs(ref).max(), (name, share, worst)
+            assert share <= rows_off and worst <= STEP * np.abs(ref).max(), (name, share, worst)
 
     apply = jax.jit(lambda p, x: jmodel.apply({"params": p}, x)["encoder_out"])
     ref = np.asarray(apply(params, jnp.asarray(src)))
@@ -127,6 +207,8 @@ def test_logits_match_jax(mode):
     assert logits.shape == ref.shape == (2, 200, 4)
     rel = lambda a: np.linalg.norm(a - ref) / np.linalg.norm(ref)
     assert rel(logits) <= 3 * rel(ref_ulp), (rel(logits), rel(ref_ulp))
+    err = np.abs(1 / (1 + np.exp(-logits)) - 1 / (1 + np.exp(-ref)))
+    assert err.max() <= PROB_TOL and np.median(err) <= PROB_MEDIAN, (err.max(), np.median(err))
     # the int8 numerics are in force: the bf16 model's logits lie further off
     bf16 = FinetuneModel(dataclasses.replace(model.cfg, matmul_impl="bf16")).eval()
     bf16.load_state_dict(model.state_dict(), strict=True)
@@ -143,8 +225,10 @@ def _event_frames(events, labels, n=6200, step=0.005):
     return occ
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_infer_long_file_matches_jax(tmp_path, mode):
+@pytest.mark.parametrize("mode,encoder", [
+    pytest.param(m, "default", id=m) for m in MODES] + [
+    pytest.param("int8_attn", "pre-LN-no-affine", id="int8_attn-pre-LN-no-affine")])
+def test_infer_long_file_matches_jax(tmp_path, mode, encoder):
     """Window probabilities within PROB_TOL of JAX's (median within
     PROB_MEDIAN), and the events of ``infer_long_file`` on the same frames:
     for the avg and canny methods the (class, 5-ms frame) cells that lie
@@ -154,7 +238,7 @@ def test_infer_long_file_matches_jax(tmp_path, mode):
     step, changes 1.0 % of the cells (canny, int8_attn) and adds or drops
     events where a probability sits at the threshold; the port against JAX
     changed 1.1 % at most."""
-    jcfg, jmodel, params, model = _models(SERVING_LAYERS, 8000, mode)
+    jcfg, jmodel, params, model = _models(SERVING_LAYERS, 8000, mode, encoder)
     wav_path = tmp_path / "rec.wav"
     _synthetic_wav(wav_path, 25)
     wav, _ = read_wav(str(wav_path))
@@ -164,7 +248,15 @@ def test_infer_long_file_matches_jax(tmp_path, mode):
     probs = infer_cli.window_probabilities(model, batch, torch.device("cpu"))
     assert probs.shape == probs_j.shape == (3, 2000, 4)
     err = np.abs(probs - probs_j)
-    assert err.max() <= PROB_TOL and np.median(err) <= PROB_MEDIAN, (err.max(), np.median(err))
+    prob_tol = PROB_TOL
+    if ENCODERS[encoder][1].get("layer_norm_first"):
+        # the pre-LN blocks pass int8 flips on undamped: the JAX model moves
+        # its own probabilities by up to 2.2e-2 under a one-ulp change of its
+        # input (the port lies 2.05e-2 from it), so the bound is the larger
+        # of PROB_TOL and that response
+        moved = np.asarray(apply(params, jnp.asarray(np.nextafter(batch, np.float32(np.inf)))))
+        prob_tol = max(PROB_TOL, float(np.abs(moved - probs_j).max()))
+    assert err.max() <= prob_tol and np.median(err) <= PROB_MEDIAN, (err.max(), np.median(err))
     for method in ("avg", "canny"):
         ours = infer_cli.infer_long_file(str(wav_path), model, model.cfg, method=method,
                                          segment_length=SEGMENT)
@@ -176,6 +268,34 @@ def test_infer_long_file_matches_jax(tmp_path, mode):
         labels = model.cfg.labels
         off = (_event_frames(ours, labels) != _event_frames(ref, labels)).mean()
         assert off <= EVENT_FRAMES, (method, off)
+
+
+def test_int8_attn_block_without_alibi_takes_the_padding_mask():
+    """One int8_attn block of an ALiBi-free encoder on a batch whose second
+    row has 56 padded frames, against the JAX block on the same weights and
+    mask, at the op tolerances: the mask reaches the bf16 dense-bias
+    attention behind the int8 projections (#10 -> #11)."""
+    b, t, c, h = 2, 200, 128, 2
+    rng = np.random.default_rng(30)
+    x = rng.normal(size=(b, t, c)).astype(np.float32)
+    pad = np.zeros((b, t), bool)
+    pad[1, -56:] = True
+    blk = JaxAltBlock(cfg=BlockConfig(dim=c, num_heads=h, norm_eps=1e-5, matmul_impl="int8_attn"))
+    params = blk.init({"params": jax.random.PRNGKey(1)}, jnp.asarray(x), jnp.asarray(pad), None)
+    params = _jittered(params, seed=31)
+    refs = blk.apply(params, jnp.asarray(x), jnp.asarray(pad), None)
+    ours = AltBlock(c, h, eps=1e-5, matmul_impl="int8_attn")
+    ours.load_state_dict(params_from_jax(params["params"]), strict=True)
+    ours.quantize_weights()
+    with torch.no_grad():
+        outs = ours.eval()(torch.from_numpy(x), torch.from_numpy(pad), None)
+    for got, ref in zip(outs, refs):
+        share, worst = _rows_off(got.numpy(), ref)
+        assert share <= ROWS_OFF and worst <= STEP * np.abs(ref).max(), (share, worst)
+    # the mask is in force: without it the real rows of the padded sample move
+    with torch.no_grad():
+        free = ours(torch.from_numpy(x), None, None)[1].numpy()
+    assert np.abs(free[1, :t - 56] - outs[1][1, :t - 56].numpy()).max() > 1e-3
 
 
 def test_state_dict_is_the_bf16_one():

@@ -217,7 +217,7 @@ def test_port_imports_no_jax():
             "animal2vec_tpu_torch.tools.aot_cli", "animal2vec_tpu_torch.tools.manifest_cli",
             "animal2vec_tpu_torch.tools.prepare_data_cli", "animal2vec_tpu_torch.data.stratify",
             "animal2vec_tpu_torch.parallel.mesh", "animal2vec_tpu_torch.ops.ring_attention",
-            "animal2vec_tpu_torch.tools.dryrun_multigpu",
+            "animal2vec_tpu_torch.tools.dryrun_multigpu", "animal2vec_tpu_torch.runtime.native",
             } <= set(res["names"])
     assert res["loaded"] == [], res["loaded"]
 

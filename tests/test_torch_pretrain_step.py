@@ -302,21 +302,36 @@ def test_eval_step_and_recipe_draws():
 INT8_DIMS = dict(embed_dim=128, num_heads=2)  # the int8 kernels' lane-aligned widths
 
 
-@pytest.mark.parametrize("mode", ["int8", "int8_attn"])
-def test_int8_teacher_targets_match_jax(mode, monkeypatch):
+# (mode, audio modality changes, block changes) of the int8 teachers: the
+# default encoder in both modes, and in int8_attn a pre-LN one without affine
+# norms and with one ALiBi scale for the heads (its trunk padded for the
+# int8 attention, as JAX pads it) and an ALiBi-free one (not padded)
+INT8_TEACHERS = [
+    pytest.param("int8", {}, {}, id="int8"),
+    pytest.param("int8_attn", {}, {}, id="int8_attn"),
+    pytest.param("int8_attn", dict(learned_alibi_scale_per_head=False),
+                 dict(layer_norm_first=True, norm_affine=False), id="int8_attn-pre-LN-no-affine"),
+    pytest.param("int8_attn", dict(use_alibi_encoder=False), {}, id="int8_attn-no-ALiBi"),
+]
+
+
+@pytest.mark.parametrize("mode,audio,blocks", INT8_TEACHERS)
+def test_int8_teacher_targets_match_jax(mode, audio, blocks, monkeypatch):
     """The EMA teacher with ``teacher_matmul_impl`` int8 / int8_attn (a tiny
     lane-aligned model, the JAX side on its Pallas route in interpret mode)
     against JAX's int8 teacher (``train/pretrain.py:150-170``) on the same
     local features: the relative norm error at most 3x the JAX teacher's
     own response to a one-ulp change of its input (the tolerance of
     ``tests/test_torch_int8_model.py``), every block through the int8
-    block (and in int8_attn the int8 attention), and in int8 the bf16
-    teacher further off."""
+    block, or a pre-LN block's MLP through the int8 MLP (and in int8_attn
+    the int8 projections and, with ALiBi, the int8 attention on a trunk
+    padded to 256 rows), and in int8 the bf16 teacher further off."""
     monkeypatch.setenv("A2V_PALLAS_SERVE", "1")
     monkeypatch.setenv("A2V_FLASH_INTERPRET", "1")
     _, jmodel, jcfg, params, jstate, model, pcfg = _both(
-        "AUDIO", dict(model_kw=dict(INT8_DIMS, teacher_matmul_impl=mode)),
-        dict(model_kw=INT8_DIMS, teacher_matmul_impl=mode))
+        "AUDIO", dict(model_kw=dict(INT8_DIMS, teacher_matmul_impl=mode, **blocks),
+                      modality_kw=audio),
+        dict(model_kw=dict(INT8_DIMS, **audio, **blocks), teacher_matmul_impl=mode))
     src = _source("AUDIO", np.random.default_rng(13))
     local = np.asarray(jmodel.apply({"params": params}, jnp.asarray(src), "AUDIO", True,
                                     method=JaxData2VecMulti.local_features))
@@ -336,19 +351,26 @@ def test_int8_teacher_targets_match_jax(mode, monkeypatch):
     state = PretrainState.create(model, pcfg)
     from animal2vec_tpu_torch.models import modules
 
-    calls = {"fused_block_int8": 0, "alibi_flash_attention_int8": 0}
+    calls = dict.fromkeys(("fused_block_int8", "fused_mlp_int8", "alibi_flash_attention_int8",
+                           "int8_dense"), 0)
+    rows = set()
     for name in calls:
         real = getattr(modules, name)
 
         def counted(*args, _real=real, _name=name, **kw):
             calls[_name] += 1
+            rows.add(args[0].shape[1])
             return _real(*args, **kw)
 
         monkeypatch.setattr(modules, name, counted)
     got = teacher_targets(model, state.ema, torch.from_numpy(local), mode).numpy()
     n_blocks = pcfg.model.n_blocks
-    assert calls == {"fused_block_int8": n_blocks,
-                     "alibi_flash_attention_int8": n_blocks if mode == "int8_attn" else 0}
+    alibi = audio.get("use_alibi_encoder", True)
+    attn = mode == "int8_attn"
+    mlp = "fused_mlp_int8" if blocks.get("layer_norm_first") else "fused_block_int8"
+    assert calls == dict(dict.fromkeys(calls, 0), **{mlp: n_blocks}, int8_dense=2 * n_blocks * attn,
+                         alibi_flash_attention_int8=n_blocks * (attn and alibi))
+    assert rows == {256 if attn and alibi else 200}
     bf16 = teacher_targets(model, state.ema, torch.from_numpy(local)).numpy()
     rel = lambda a: np.linalg.norm(a - want) / np.linalg.norm(want)  # noqa: E731
     assert got.shape == want.shape == (2, 200, 128)
