@@ -31,10 +31,10 @@ YAML recipe in the JAX package's schema is read by ``recipes.load_config``
 (``load_config`` here), which maps, ignores or refuses each of its keys.
 Rematerialization (``remat``, ``remat_scope``, ``remat_frontend``,
 ``remat_decoder``) recomputes what ``torch.utils.checkpoint`` is given at
-JAX's boundaries (``models/modules.py``). The int8 serving modes
-take the JAX package's lane-aligned route only (its Pallas kernels, every
-width a multiple of 128); at other widths JAX composes int8 in XLA with
-other numerics, and the port refuses them.
+JAX's boundaries (``models/modules.py``). Every trunk width runs, in every
+``matmul_impl``: the blocks take the kernels where JAX takes its Pallas
+kernels (every width a multiple of 128) and JAX's XLA route elsewhere
+(``models.modules.kernel_widths``).
 """
 
 from __future__ import annotations
@@ -68,12 +68,6 @@ def _check_trunk(embed_dim: int, num_heads: int, mlp_ratio: float, matmul_impl: 
         raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
     if matmul_impl not in MATMUL_IMPLS:
         raise ValueError(f"matmul_impl={matmul_impl!r}: expected one of {MATMUL_IMPLS}")
-    hidden = int(embed_dim * mlp_ratio)
-    if matmul_impl != "bf16" and (embed_dim % 128 or hidden % 128):
-        raise ValueError(
-            f"matmul_impl={matmul_impl!r} needs embed_dim and the MLP width in multiples of "
-            f"128 (the int8 kernels' route), got {embed_dim} and {hidden}"
-        )
 
 
 @dataclass(frozen=True)
@@ -737,6 +731,13 @@ class RunConfig:
         if dist.model_parallel > 1 and (enc.layer_norm_first or not enc.use_alibi_encoder):
             raise NotImplementedError("tensor parallelism of pre-LN blocks or without ALiBi is "
                                       "not ported (ROADMAP A.10)")
+        mp = dist.model_parallel
+        if mp > 1 and (enc.embed_dim % 128 or int(enc.embed_dim * enc.mlp_ratio) % (128 * mp)):
+            # the split of #6 keeps its kernels' widths: C and each rank's M
+            raise NotImplementedError(
+                f"tensor parallelism needs embed_dim and the MLP width / model_parallel in "
+                f"multiples of 128 (the split fused block's kernels), got {enc.embed_dim} and "
+                f"{int(enc.embed_dim * enc.mlp_ratio)} / {mp}: not ported (ROADMAP A.10)")
 
     @property
     def encoder(self) -> FinetuneConfig:

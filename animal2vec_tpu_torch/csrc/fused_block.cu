@@ -23,7 +23,8 @@
 // block without drop-path.
 //
 // Design: one C entry makes four launches on the caller's stream:
-//   1. ln_rows           x -> r (bf16), one warp per row;
+//   1. ln_rows           x -> r (bf16), one warp per row (layernorm.cuh: the
+//                        row in registers for C <= 1024, re-read past it);
 //   2. gemm_bf16_sm90    h = drop_a(GELU(r W1 + b1)), bf16 (N, M) scratch;
 //   3. gemm_bf16_sm90    t = drop_b(h W2 + b2) (the layer tap);
 //   4. ln_rows           x_out = LN2(bf16(r + drop_c(t))).
@@ -55,22 +56,19 @@ int launch_ln2(cudaStream_t s, const __nv_bfloat16* r, const __nv_bfloat16* t,
                float eps, const a2v::DropSite& site_post, const float* bscale,
                int rows_per_scale) {
   using namespace a2v;
-  const int blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
   if (bscale != nullptr && site_post.thresh != 0u)
-    ln_rows_kernel<true, true, false, true><<<blocks, kLnThreads, 0, s>>>(
-        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post, bscale,
-        rows_per_scale);
-  else if (bscale != nullptr)
-    ln_rows_kernel<true, false, false, true><<<blocks, kLnThreads, 0, s>>>(
-        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post, bscale,
-        rows_per_scale);
-  else if (site_post.thresh != 0u)
-    ln_rows_kernel<true, true, false><<<blocks, kLnThreads, 0, s>>>(
-        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post);
-  else
-    ln_rows_kernel<true, false, false><<<blocks, kLnThreads, 0, s>>>(
-        r, t, scale, bias, x_out, nullptr, nullptr, N, C, eps, site_post);
-  return static_cast<int>(cudaGetLastError());
+    return launch_ln_rows<true, true, false, true>(s, r, t, scale, bias, x_out, nullptr,
+                                                   nullptr, N, C, eps, site_post, bscale,
+                                                   rows_per_scale);
+  if (bscale != nullptr)
+    return launch_ln_rows<true, false, false, true>(s, r, t, scale, bias, x_out, nullptr,
+                                                    nullptr, N, C, eps, site_post, bscale,
+                                                    rows_per_scale);
+  if (site_post.thresh != 0u)
+    return launch_ln_rows<true, true, false>(s, r, t, scale, bias, x_out, nullptr, nullptr, N,
+                                             C, eps, site_post);
+  return launch_ln_rows<true, false, false>(s, r, t, scale, bias, x_out, nullptr, nullptr, N, C,
+                                            eps, site_post);
 }
 
 }  // namespace
@@ -93,24 +91,24 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
                                const void* branch_scale, int rows_per_scale, void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
-  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
-      M % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535 || rows_per_scale <= 0)
+  if (N <= 0 || C <= 0 || C % 128 != 0 || M <= 0 || M % 128 != 0 ||
+      (N + kG16BM - 1) / kG16BM > 65535 || rows_per_scale <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   auto* rb = static_cast<bf16*>(r);
   auto* hb = static_cast<bf16*>(h);
   auto* tb = static_cast<bf16*>(t);
-  const int ln_blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
   const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale, row0};
   const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale, row0};
   const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale, row0};
   cudaError_t err;
 
-  ln_rows_kernel<false, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
-      xb, nullptr, static_cast<const float*>(ln1_scale), static_cast<const float*>(ln1_bias),
-      rb, nullptr, nullptr, N, C, eps, site_post);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_ln_rows<false, false, false>(
+           s, xb, nullptr, static_cast<const float*>(ln1_scale),
+           static_cast<const float*>(ln1_bias), rb, nullptr, nullptr, N, C, eps,
+           site_post))) != cudaSuccess)
+    return static_cast<int>(err);
   if ((err = static_cast<cudaError_t>(launch_gemm_sm90<true>(
            act_thresh != 0u, s, rb, static_cast<const bf16*>(w1t), static_cast<const float*>(b1),
            hb, N, C, M, site_act))) != cudaSuccess)
@@ -184,17 +182,16 @@ extern "C" int a2v_block_fc1(const void* x, const void* ln1_scale, const void* l
                              void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
-  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || Ms <= 0 ||
-      Ms % 128 != 0 || (N + kG16BM - 1) / kG16BM > 65535)
+  if (N <= 0 || C <= 0 || C % 128 != 0 || Ms <= 0 || Ms % 128 != 0 ||
+      (N + kG16BM - 1) / kG16BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* rb = static_cast<bf16*>(r);
   const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale, row0, col0};
-  ln_rows_kernel<false, false, false><<<(N + kLnThreads / 32 - 1) / (kLnThreads / 32),
-                                        kLnThreads, 0, s>>>(
-      static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
-      static_cast<const float*>(ln1_bias), rb, nullptr, nullptr, N, C, eps, DropSite{});
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  if (int err = launch_ln_rows<false, false, false>(
+          s, static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
+          static_cast<const float*>(ln1_bias), rb, nullptr, nullptr, N, C, eps, DropSite{}))
+    return err;
   return launch_gemm_sm90<true>(act_thresh != 0u, s, rb, static_cast<const bf16*>(w1t),
                                 static_cast<const float*>(b1), static_cast<bf16*>(h), N, C, Ms,
                                 site_act);
@@ -226,7 +223,7 @@ extern "C" int a2v_block_ln2(const void* S, const void* b2, const void* r, const
                              void* stream) {
   using namespace a2v;
   using bf16 = __nv_bfloat16;
-  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || rows_per_scale <= 0)
+  if (N <= 0 || C <= 0 || C % 128 != 0 || rows_per_scale <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   auto* tb = static_cast<bf16*>(t);

@@ -18,7 +18,8 @@
 // statistics.
 //
 // Design: one C entry makes five launches on the caller's stream:
-//   1. ln_rows<QUANT>        x -> r (bf16), r_q (int8), rs, one warp per row;
+//   1. ln_rows<QUANT>        x -> r (bf16), r_q (int8), rs, one warp per row
+//      (layernorm.cuh: the row in registers for C <= 1024, re-read past it);
 //   2. fc1, gemm_s8_sm90<kEpiGeluF32>: h = GELU(dequant(r_q W1_q^T) + b1),
 //      fp32 (N, M), and each row's max |h| over every 128 columns, (N, M /
 //      128) fp32;
@@ -59,8 +60,7 @@ extern "C" int a2v_fused_block_int8(
     void* h_max, void* h_q, void* h_s, void* t, void* x_out, int N, int C, int M, int chunk,
     float eps, void* stream) {
   using namespace a2v;
-  if (N <= 0 || C <= 0 || C % 128 != 0 || C > 128 * (kLnMaxPerLane / 4) || M <= 0 ||
-      M % 128 != 0 || chunk <= 0 || chunk % kG8BK != 0 || chunk > 32 * kG8Tile ||
+  if (N <= 0 || C <= 0 || C % 128 != 0 || M <= 0 || M % 128 != 0 || chunk <= 0 || chunk % kG8BK != 0 || chunk > 32 * kG8Tile ||
       M % chunk != 0 || (N + kG8Tile - 1) / kG8Tile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
@@ -73,14 +73,13 @@ extern "C" int a2v_fused_block_int8(
   auto* hq = static_cast<int8_t*>(h_q);
   auto* hs = static_cast<float*>(h_s);
   auto* tb = static_cast<bf16*>(t);
-  const int ln_blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
   const DropSite none{0u, 0u, 1.f};
   cudaError_t err;
 
-  ln_rows_kernel<false, false, true><<<ln_blocks, kLnThreads, 0, s>>>(
-      static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
-      static_cast<const float*>(ln1_bias), rb, rq, rs, N, C, eps, none);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_ln_rows<false, false, true>(
+           s, static_cast<const bf16*>(x), nullptr, static_cast<const float*>(ln1_scale),
+           static_cast<const float*>(ln1_bias), rb, rq, rs, N, C, eps, none))) != cudaSuccess)
+    return static_cast<int>(err);
   if ((err = static_cast<cudaError_t>(launch_gemm_s8_sm90<kEpiGeluF32>(
            s, rq, static_cast<const int8_t*>(w1_q), rs, static_cast<const float*>(w1_s),
            static_cast<const float*>(b1), hf, hm, N, C, M, C))) != cudaSuccess)
@@ -93,8 +92,7 @@ extern "C" int a2v_fused_block_int8(
            s, hq, static_cast<const int8_t*>(w2_q), hs, static_cast<const float*>(w2_s),
            static_cast<const float*>(b2), tb, nullptr, N, M, C, chunk))) != cudaSuccess)
     return static_cast<int>(err);
-  ln_rows_kernel<true, false, false><<<ln_blocks, kLnThreads, 0, s>>>(
-      rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
+  return launch_ln_rows<true, false, false>(
+      s, rb, tb, static_cast<const float*>(ln2_scale), static_cast<const float*>(ln2_bias),
       static_cast<bf16*>(x_out), nullptr, nullptr, N, C, eps, none);
-  return static_cast<int>(cudaGetLastError());
 }

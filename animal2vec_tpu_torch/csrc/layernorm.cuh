@@ -1,6 +1,6 @@
 // Row LayerNorm of the fused post-LN blocks (fused_block.cu,
-// fused_block_int8.cu): one warp per row of C <= 1024 bf16 values, held in
-// registers; fp32 statistics; bf16 out.
+// fused_block_int8.cu): one warp per row of bf16 values; fp32 statistics;
+// bf16 out.
 //
 //   y = LN(z) * scale + bias,  z = x, or bf16(x + dp(drop(t))) when RESID
 //   (the storage-dtype residual add of LN2; drop(t) rounds to bf16 first;
@@ -11,6 +11,19 @@
 // (the int8 block quantizes the cast-back r): s = max(max|y| * fp32(1/127),
 // 1e-12), q = rint(y / s) with an IEEE division, round half to even, as
 // ops/int8_mm.quantize_rows.
+//
+// Two instances of the same arithmetic, chosen by C in launch_ln_rows:
+//   ln_rows_kernel       C <= 1024: the row in registers, 32 floats a lane,
+//                        read once;
+//   ln_rows_wide_kernel  C > 1024, any multiple of 128: nothing of the row
+//                        is held; each pass (the sum, the squared
+//                        deviations, the normalize) reads the row again from
+//                        global memory (L2 at 8 rows of a few KB a block),
+//                        recomputing z (RESID, DROP's hash factor, BSCALE)
+//                        identically, and QUANT reads its own bf16 output
+//                        back for the quantization. A lane visits its
+//                        4-column groups in the same order in both, so the
+//                        fp32 sums are formed in the same order.
 #pragma once
 
 #include "common.cuh"
@@ -19,7 +32,49 @@ namespace a2v {
 namespace {
 
 constexpr int kLnThreads = 256;     // 8 rows per block, one warp per row
-constexpr int kLnMaxPerLane = 32;   // C <= 1024
+constexpr int kLnMaxPerLane = 32;   // the register instance: C <= 1024
+constexpr int kLnRegCols = 32 * kLnMaxPerLane;
+
+// z at columns c .. c + 3 of the row at `base` (row `row`): x, or with RESID
+// bf16(x + dp(drop(t))).
+template <bool RESID, bool DROP, bool BSCALE>
+__device__ __forceinline__ void ln_load4(const __nv_bfloat16* __restrict__ x,
+                                         const __nv_bfloat16* __restrict__ t, size_t base, int c,
+                                         int row, const DropSite& drop, float bscale,
+                                         float z[4]) {
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(x + base + c);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    float2 v = __bfloat1622float2(xp[p]);
+    if (RESID) {
+      float2 tv = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(t + base + c)[p]);
+      if (DROP) {
+        const int col = c + 2 * p;
+        const uint32_t grow = drop.row0 + row;
+        tv.x = __bfloat162float(__float2bfloat16_rn(
+            tv.x * drop_factor(drop.seed, grow, col, drop.thresh, drop.keep_scale)));
+        tv.y = __bfloat162float(__float2bfloat16_rn(
+            tv.y * drop_factor(drop.seed, grow, col + 1, drop.thresh, drop.keep_scale)));
+      }
+      if (BSCALE) {
+        tv.x = __bfloat162float(__float2bfloat16_rn(tv.x * bscale));
+        tv.y = __bfloat162float(__float2bfloat16_rn(tv.y * bscale));
+      }
+      v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
+      v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));
+    }
+    z[2 * p] = v.x;
+    z[2 * p + 1] = v.y;
+  }
+}
+
+// The normalized, scaled bf16 pair of (z0, z1) at columns c, c + 1.
+__device__ __forceinline__ uint32_t ln_pair(float z0, float z1, float mean, float rstd,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ bias, int c) {
+  return pack_bf16((z0 - mean) * rstd * scale[c] + bias[c],
+                   (z1 - mean) * rstd * scale[c + 1] + bias[c + 1]);
+}
 
 // Needs C % 128 == 0, C <= 1024. q and q_scale are read only with QUANT,
 // branch_scale only with BSCALE.
@@ -41,33 +96,10 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 #pragma unroll
   for (int j = 0; j < kLnMaxPerLane / 4; ++j) {
     if (j < n_chunks) {
-      const int c = j * 128 + lane * 4;
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(x + base + c);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        float2 v = __bfloat1622float2(xp[p]);
-        if (RESID) {
-          float2 tv =
-              __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(t + base + c)[p]);
-          if (DROP) {
-            const int col = c + 2 * p;
-            const uint32_t grow = drop.row0 + row;
-            tv.x = __bfloat162float(__float2bfloat16_rn(
-                tv.x * drop_factor(drop.seed, grow, col, drop.thresh, drop.keep_scale)));
-            tv.y = __bfloat162float(__float2bfloat16_rn(
-                tv.y * drop_factor(drop.seed, grow, col + 1, drop.thresh, drop.keep_scale)));
-          }
-          if (BSCALE) {
-            tv.x = __bfloat162float(__float2bfloat16_rn(tv.x * bscale));
-            tv.y = __bfloat162float(__float2bfloat16_rn(tv.y * bscale));
-          }
-          v.x = __bfloat162float(__float2bfloat16_rn(v.x + tv.x));
-          v.y = __bfloat162float(__float2bfloat16_rn(v.y + tv.y));
-        }
-        z[j * 4 + 2 * p] = v.x;
-        z[j * 4 + 2 * p + 1] = v.y;
-        sum += v.x + v.y;
-      }
+      ln_load4<RESID, DROP, BSCALE>(x, t, base, j * 128 + lane * 4, row, drop, bscale,
+                                    z + j * 4);
+      sum += z[j * 4] + z[j * 4 + 1];
+      sum += z[j * 4 + 2] + z[j * 4 + 3];
     }
   }
   const float mean = warp_sum(sum) / C;
@@ -92,9 +124,7 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const int e = 2 * p;
-        const float y0 = (z[j * 4 + e] - mean) * rstd * scale[c + e] + bias[c + e];
-        const float y1 = (z[j * 4 + e + 1] - mean) * rstd * scale[c + e + 1] + bias[c + e + 1];
-        packed[p] = pack_bf16(y0, y1);
+        packed[p] = ln_pair(z[j * 4 + e], z[j * 4 + e + 1], mean, rstd, scale, bias, c + e);
         if (QUANT) {  // keep the bf16-rounded values for the quantization
           const float2 r = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&packed[p]));
           z[j * 4 + e] = r.x;
@@ -118,6 +148,87 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
     }
     if (lane == 0) q_scale[row] = s;
   }
+}
+
+// Needs C % 128 == 0 (any C); the arguments of ln_rows_kernel. Three passes
+// over the row from global memory, and with QUANT a fourth over y.
+template <bool RESID, bool DROP, bool QUANT, bool BSCALE = false>
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_wide_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ t,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    __nv_bfloat16* y, int8_t* __restrict__ q, float* __restrict__ q_scale,
+                    int N, int C, float eps, DropSite drop,
+                    const float* __restrict__ branch_scale = nullptr, int rows_per_scale = 1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kLnThreads / 32) + warp;
+  if (row >= N) return;
+  const float bscale = BSCALE ? branch_scale[row / rows_per_scale] : 1.f;
+  const int n_chunks = C / 128;
+  const size_t base = static_cast<size_t>(row) * C;
+  float z[4];
+  float sum = 0.f;
+  for (int j = 0; j < n_chunks; ++j) {
+    ln_load4<RESID, DROP, BSCALE>(x, t, base, j * 128 + lane * 4, row, drop, bscale, z);
+    sum += z[0] + z[1];
+    sum += z[2] + z[3];
+  }
+  const float mean = warp_sum(sum) / C;
+  float sq = 0.f;
+  for (int j = 0; j < n_chunks; ++j) {
+    ln_load4<RESID, DROP, BSCALE>(x, t, base, j * 128 + lane * 4, row, drop, bscale, z);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = z[e] - mean;
+      sq += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / C + eps);
+  float amax = 0.f;
+  for (int j = 0; j < n_chunks; ++j) {
+    const int c = j * 128 + lane * 4;
+    ln_load4<RESID, DROP, BSCALE>(x, t, base, c, row, drop, bscale, z);
+    uint32_t packed[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      packed[p] = ln_pair(z[2 * p], z[2 * p + 1], mean, rstd, scale, bias, c + 2 * p);
+      if (QUANT) {
+        const float2 r = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&packed[p]));
+        amax = fmaxf(amax, fmaxf(fabsf(r.x), fabsf(r.y)));
+      }
+    }
+    *reinterpret_cast<uint2*>(y + base + c) = make_uint2(packed[0], packed[1]);
+  }
+  if (QUANT) {
+    const float s = fmaxf(warp_max(amax) * kInv127, 1e-12f);
+    for (int j = 0; j < n_chunks; ++j) {
+      const int c = j * 128 + lane * 4;
+      // this lane's own stores of the pass above
+      const uint2 packed = *reinterpret_cast<const uint2*>(y + base + c);
+      const float2 r0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed.x));
+      const float2 r1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&packed.y));
+      *reinterpret_cast<uint32_t*>(q + base + c) =
+          pack_s8x4(quantize_s8(r0.x, s), quantize_s8(r0.y, s), quantize_s8(r1.x, s),
+                    quantize_s8(r1.y, s));
+    }
+    if (lane == 0) q_scale[row] = s;
+  }
+}
+
+// One launch of the row LayerNorm on stream s, the register instance for
+// C <= 1024 and the wide one above. Returns a cudaError_t.
+template <bool RESID, bool DROP, bool QUANT, bool BSCALE = false>
+int launch_ln_rows(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* t,
+                   const float* scale, const float* bias, __nv_bfloat16* y, int8_t* q,
+                   float* q_scale, int N, int C, float eps, DropSite drop,
+                   const float* branch_scale = nullptr, int rows_per_scale = 1) {
+  const int blocks = (N + kLnThreads / 32 - 1) / (kLnThreads / 32);
+  if (C <= kLnRegCols)
+    ln_rows_kernel<RESID, DROP, QUANT, BSCALE><<<blocks, kLnThreads, 0, s>>>(
+        x, t, scale, bias, y, q, q_scale, N, C, eps, drop, branch_scale, rows_per_scale);
+  else
+    ln_rows_wide_kernel<RESID, DROP, QUANT, BSCALE><<<blocks, kLnThreads, 0, s>>>(
+        x, t, scale, bias, y, q, q_scale, N, C, eps, drop, branch_scale, rows_per_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -175,16 +175,17 @@ class Data2VecMulti(nn.Module):
     def quantized_buffers(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The int8 modes' buffers of every block quantized from ``params``
         (the module's parameter names), as ``quantize_weights`` computes
-        them from loaded weights: what ``functional_call`` takes beside
-        ``params`` to run this module in its int8 mode over other weights
-        (the int8 EMA teacher)."""
+        them from loaded weights (none for layers on the composed route):
+        what ``functional_call`` takes beside ``params`` to run this module
+        in its int8 mode over other weights (the int8 EMA teacher)."""
         out = {}
         for name, mod in self.named_modules():
-            if isinstance(mod, AltBlock) and mod.int8:
-                for fc, q in (("fc1", "w1"), ("fc2", "w2")):
-                    out[f"{name}.{q}_q"], out[f"{name}.{q}_s"] = quantize_weight(
-                        params[f"{name}.mlp.{fc}.weight"])
-                if mod.attn.int8:
+            if isinstance(mod, AltBlock):
+                if mod.int8_kernel:
+                    for fc, q in (("fc1", "w1"), ("fc2", "w2")):
+                        out[f"{name}.{q}_q"], out[f"{name}.{q}_s"] = quantize_weight(
+                            params[f"{name}.mlp.{fc}.weight"])
+                if mod.attn.int8_kernel:
                     for lin in ("qkv", "proj"):
                         out[f"{name}.attn.{lin}_q"], out[f"{name}.attn.{lin}_s"] = \
                             quantize_weight(params[f"{name}.attn.{lin}.weight"])

@@ -28,6 +28,24 @@ every mode; a module quantizes when its weights are loaded (the encoder,
 modes are serving-only: ``train()`` forwards raise, as the JAX int8
 kernels have no vjp.
 
+Widths. JAX takes its Pallas MLP, block and int8 dense kernels only where
+every width is a multiple of 128 (``pallas_serving_ok``, ``modules.py:
+49-62``) and composes the same function in XLA otherwise. The port's copy
+of that test is ``kernel_widths``, and three call sites read it: the
+post-LN MLP sub-block (``AltBlock._post_ln``: #6 / #7 iff
+``kernel_widths(C, M)``, ``modules.py:598-600``), a pre-LN block's MLP
+(``Mlp.forward``: #8 / #9 iff ``kernel_widths(C, M, C)``, ``:235-237``)
+and the int8 projections (``AltAttention``: #10 iff ``kernel_widths(K,
+N)``, ``quantized_matmul``, ``:83``). Off those widths they compute JAX's
+XLA route with stock ops: ``Fp32LayerNorm`` norm1, the composed MLP (each
+Dense a product in the compute dtype plus its bias cast to it, exact-erf
+GELU, the two activation dropouts), ``r + dp(post_drop(t))``, norm2; in the
+int8 modes each Dense is ``quantized_matmul`` (``modules.py:88-99``),
+which quantizes its weight at every call (no int8 buffers are kept for
+a layer off the kernels' widths). Training runs through autograd of those
+ops, each dropout under the kernels' hash keep mask from the block's int32
+seeds (``_hash_dropout``), so both routes draw the same masks.
+
 Training arms run when the module is in ``train()`` mode. Their random
 draws come from an explicit ``ops.dropout.Rngs``: layerdrop decisions and
 the int32 hash seeds of the kernels on its host generator, elementwise
@@ -81,13 +99,84 @@ from animal2vec_tpu_torch.models.attention import AlibiSpec, Bias, multihead_att
 from animal2vec_tpu_torch.ops.attention import alibi_flash_attention_int8
 from animal2vec_tpu_torch.ops.conv_arith import same_pad_1d, strided_pad_1d
 from animal2vec_tpu_torch.ops.dropout import (
-    Rngs, apply_dropout, dropout, dropout_mask, fold_bh_offset, keep_scale,
+    Rngs, apply_dropout, dropout, dropout_mask, fold_bh_offset, hash_keep, keep_scale,
 )
 from animal2vec_tpu_torch.ops.fused_mlp import (
-    block_fc1, block_fc2_partial, block_ln2, fp32_sum_matmul, fused_block_int8,
+    _ln, block_fc1, block_fc2_partial, block_ln2, fp32_sum_matmul, fused_block_int8,
     fused_block_mlp, fused_mlp, fused_mlp_int8,
 )
-from animal2vec_tpu_torch.ops.int8_mm import int8_dense, quantize_weight
+from animal2vec_tpu_torch.ops.int8_mm import INV_127, int8_dense, quantize_weight
+
+
+def kernel_widths(*dims: int) -> bool:
+    """True iff every dim is a multiple of 128: the width test of JAX's
+    ``pallas_serving_ok`` (``modules.py:49-62``), which picks a Pallas
+    kernel over the XLA route. It reads shapes only."""
+    return all(d % 128 == 0 for d in dims)
+
+
+def _xla_quantize(v: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 values and fp32 scales of fp32 ``v`` over ``dim``, as
+    ``quantized_matmul``'s XLA branch takes them: s = max|v| * fp32(1/127)
+    (XLA's rewrite of ``/ 127.0`` under ``jit``), q = round(v / max(s,
+    1e-12)) half to even; the scale itself is not floored."""
+    s = v.abs().amax(dim=dim, keepdim=True) * INV_127
+    return torch.round(v / torch.clamp_min(s, 1e-12)).to(torch.int8), s
+
+
+def int32_product(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of int8 a (R, K) times int8 b_t (N, K)^T:
+    ``torch._int_mm`` (int32 accumulation) where its shape rules hold (R >
+    16, K and N multiples of 8), else a float64 product, exact while K *
+    127^2 < 2^53."""
+    r, k = a.shape
+    if r > 16 and k % 8 == 0 and b_t.shape[0] % 8 == 0:
+        return torch._int_mm(a, b_t.t())
+    return torch.matmul(a.double(), b_t.double().t()).to(torch.int32)
+
+
+def quantized_matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x (..., K) times an nn.Linear ``weight`` (N, K) in int8: JAX's
+    ``quantized_matmul`` off the kernel's widths (``modules.py:88-99``).
+    The weight quantized per output channel and x per row over the whole K
+    (``_xla_quantize``), the int8 product summed exactly in int32
+    (``int32_product``), then ``fp32(y) * x_scale * w_scale`` cast to x's
+    dtype. Stock ops only; the weight is quantized at every call, as the
+    XLA route does."""
+    k = x.shape[-1]
+    w_q, w_s = _xla_quantize(weight.detach().float(), 1)
+    x_q, x_s = _xla_quantize(x.float(), -1)
+    y = int32_product(x_q.reshape(-1, k), w_q).float().reshape(*x.shape[:-1], -1)
+    return (y * x_s * w_s.reshape(-1)).to(x.dtype)
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, int8: bool) -> torch.Tensor:
+    """JAX's ``nn.Dense`` / ``Int8Dense`` in x's dtype: the product (int8:
+    ``quantized_matmul``) rounded to x's dtype, then the bias cast to it."""
+    if int8:
+        y = quantized_matmul(x, layer.weight)
+    else:
+        y = torch.matmul(x, layer.weight.to(x.dtype).t())
+    return y + layer.bias.to(x.dtype)
+
+
+def _layer_norm(norm: "Fp32LayerNorm", x: torch.Tensor) -> torch.Tensor:
+    """``norm`` applied as JAX's ``Fp32LayerNorm`` writes it (``modules.py:
+    101-119``): the fp32 mean and mean squared deviation, ``(x - mean) *
+    rsqrt(var + eps)``, then the affine (``ops.fused_mlp._ln``), cast back
+    to x's dtype."""
+    return _ln(x, norm.weight, norm.bias, norm.eps).to(x.dtype)
+
+
+def _hash_dropout(v: torch.Tensor, seed: int, rate: float, row0: int) -> torch.Tensor:
+    """Inverted dropout of ``v`` (..., K) under the fused kernels' keep mask
+    ``hash_keep(seed, row0 + row, column)`` over its flattened rows, in v's
+    dtype: the composed route's dropout sites take the masks that the
+    kernel route draws from the same seeds."""
+    k = v.shape[-1]
+    rows = row0 + torch.arange(v.numel() // k, device=v.device)[:, None]
+    keep = hash_keep(seed, rows, torch.arange(k, device=v.device)[None, :], rate)
+    return apply_dropout(v, keep.bool().reshape(v.shape), rate)
 
 
 class Fp32LayerNorm(nn.Module):
@@ -137,12 +226,17 @@ def _need(rngs: Optional[Rngs], what: str) -> Rngs:
     return rngs
 
 
-def _quantized(module: nn.Module, *names: str) -> List[torch.Tensor]:
-    """The int8 buffers of a serving module; raises in training or before
-    ``quantize_weights``."""
+def _serving(module: nn.Module) -> None:
+    """Raises when an int8 mode's ``module`` is in training."""
     if module.training:
         raise RuntimeError("the int8 matmul_impl modes are serving-only: call eval() "
                            "(their kernels have no backward)")
+
+
+def _quantized(module: nn.Module, *names: str) -> List[torch.Tensor]:
+    """The int8 buffers of a serving module; raises in training or before
+    ``quantize_weights``."""
+    _serving(module)
     bufs = [getattr(module, n) for n in names]
     if any(b is None for b in bufs):
         raise RuntimeError("int8 weights are not quantized: call quantize_weights() "
@@ -194,9 +288,16 @@ class AltAttention(nn.Module):
         self.tp = None  # parallel.tensor.TensorParallel of a sharded block
         _int8_buffers(self, "qkv_q", "qkv_s", "proj_q", "proj_s")
 
+    @property
+    def int8_kernel(self) -> bool:
+        """Whether the int8 projections take #10 (``_int8_linear``) and so
+        keep quantized weights: qkv (C, 3C) and proj (C, C) both do iff C
+        is a multiple of 128."""
+        return self.int8 and kernel_widths(self.qkv.in_features)
+
     @torch.no_grad()
     def quantize_weights(self) -> None:
-        if self.int8:
+        if self.int8_kernel:
             self.qkv_q, self.qkv_s = quantize_weight(self.qkv.weight)
             self.proj_q, self.proj_s = quantize_weight(self.proj.weight)
 
@@ -218,17 +319,16 @@ class AltAttention(nn.Module):
     ) -> torch.Tensor:
         alibi = isinstance(bias, AlibiSpec)
         if self.int8:
-            qkv_q, qkv_s, proj_q, proj_s = _quantized(self, "qkv_q", "qkv_s", "proj_q",
-                                                      "proj_s")
+            _serving(self)
             b, t, c = x.shape
-            qkv = int8_dense(x, qkv_q, qkv_s) + self.qkv.bias.to(x.dtype)
+            qkv = self._int8_linear(x, "qkv")
             if alibi:
                 q, k, v = qkv.view(b, t, 3, self.num_heads, c // self.num_heads).unbind(2)
                 out = alibi_flash_attention_int8(q, k, v, bias.slopes, bias.positions,
                                                  padding_mask, bias.has_sentinel).reshape(b, t, c)
             else:
                 out = multihead_attention(qkv, self.num_heads, bias, padding_mask)
-            return int8_dense(out, proj_q, proj_s) + self.proj.bias.to(x.dtype)
+            return self._int8_linear(out, "proj")
         seed, keep = self.draws(x, rngs) if draws is None else draws
         rate = 0.0 if seed is None else self.attn_drop
         if self.tp is not None:
@@ -240,6 +340,17 @@ class AltAttention(nn.Module):
         if keep is not None:
             out = apply_dropout(out, keep, self.proj_drop)
         return out
+
+    def _int8_linear(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The int8 projection ``name`` ("qkv" or "proj") plus its bias in
+        x's dtype: #10 iff ``kernel_widths(K, N)`` (``quantized_matmul``,
+        ``modules.py:83``), else the composed int8 product."""
+        layer = getattr(self, name)
+        if kernel_widths(x.shape[-1], layer.out_features):
+            y = int8_dense(x, *_quantized(self, f"{name}_q", f"{name}_s"))
+        else:
+            y = quantized_matmul(x, layer.weight)
+        return y + layer.bias.to(x.dtype)
 
     def _sharded(self, x, padding_mask, bias, rate, seed):
         tp = self.tp
@@ -254,27 +365,53 @@ class AltAttention(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (``Mlp``, ``modules.py:210-272``). A post-LN
-    block consumes the parameters fused with its LayerNorms; a pre-LN block
-    calls the module: the fused MLP (in training its autograd Function, with
-    the activation dropout at ``rate`` from two int32 ``seeds`` over rows
-    from ``row0``), or with ``int8_weights`` (w1_q, w1_s, w2_q, w2_s,
-    serving) its int8 twin."""
+    block consumes the parameters fused with its LayerNorms where its
+    widths take the kernel; otherwise, and in a pre-LN block, it calls the
+    module. At ``kernel_widths(C, M, C)``: the fused MLP (in training its
+    autograd Function, with the activation dropout at ``rate`` from two
+    int32 ``seeds`` over rows from ``row0``), or with ``int8_weights``
+    (w1_q, w1_s, w2_q, w2_s, serving; ``int8``) its int8 twin. At other
+    widths: JAX's XLA route, ``composed``, its two dropout sites under the
+    same seeds' hash masks (with ``int8`` its products quantize the weights
+    themselves)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+
+    def kernel_route(self, c: int) -> bool:
+        """Whether an input of width ``c`` takes the fused MLP and block
+        kernels: ``kernel_widths(C, M, C)``, which is the post-LN block's
+        ``kernel_widths(C, M)`` too."""
+        return kernel_widths(c, self.fc1.out_features, self.fc2.out_features)
 
     def forward(self, x: torch.Tensor,
                 int8_weights: Optional[Sequence[torch.Tensor]] = None,
                 seeds: Optional[Sequence[int]] = None, rate: float = 0.0,
                 row0: int = 0) -> torch.Tensor:
         fc1, fc2 = self.fc1, self.fc2
-        if int8_weights is not None:
+        if not self.kernel_route(x.shape[-1]):
+            return self.composed(x, seeds, rate, row0)
+        if self.int8:
             w1_q, w1_s, w2_q, w2_s = int8_weights
             return fused_mlp_int8(x, w1_q, w1_s, fc1.bias, w2_q, w2_s, fc2.bias)
         return fused_mlp(x, fc1.weight.to(x.dtype), fc2.weight.to(x.dtype), fc1.bias, fc2.bias,
                          seeds, rate, row0)
+
+    def composed(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
+                 rate: float = 0.0, row0: int = 0) -> torch.Tensor:
+        """JAX's XLA ``Mlp`` (``modules.py:255-270``): Dense, exact GELU,
+        dropout, Dense, dropout, in x's dtype; the dropouts at ``rate``
+        from ``seeds[0]`` and ``seeds[1]``, rows from ``row0``."""
+        h = F.gelu(_dense(x, self.fc1, self.int8))
+        if rate > 0.0:
+            h = _hash_dropout(h, seeds[0], rate, row0)
+        y = _dense(h, self.fc2, self.int8)
+        if rate > 0.0:
+            y = _hash_dropout(y, seeds[1], rate, row0)
+        return y
 
 
 class AltBlock(nn.Module):
@@ -287,7 +424,9 @@ class AltBlock(nn.Module):
     three sites (after GELU and after fc2 at ``activation_dropout``, on the
     residual branch at ``post_mlp_drop``) from three int32 seeds.
     ``matmul_impl`` "int8" or "int8_attn" runs the MLP sub-block through the
-    int8 fused block (serving).
+    int8 fused block (serving). Where ``kernel_widths(C, M)`` fails, the
+    sub-block is JAX's XLA route instead (``_composed_post_ln``), its
+    dropouts at the same three sites under the same seeds' hash masks.
 
     Pre-LN (``layer_norm_first``): ``x + attn(norm1(x))``, then the MLP of
     ``norm2`` of that (in int8 through the int8 fused MLP), in training with
@@ -326,17 +465,23 @@ class AltBlock(nn.Module):
         self.attn = AltAttention(dim, num_heads, attention_dropout, encoder_dropout,
                                  int8=matmul_impl == "int8_attn")
         self.norm1 = Fp32LayerNorm(dim, eps, norm_affine)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), self.int8)
         self.norm2 = Fp32LayerNorm(dim, eps, norm_affine)
         self.tp = None  # parallel.tensor.TensorParallel of a sharded block
         _int8_buffers(self, "w1_q", "w1_s", "w2_q", "w2_s")
 
+    @property
+    def int8_kernel(self) -> bool:
+        """Whether the MLP sub-block takes #7 / #9 and so keeps quantized
+        weights (``Mlp.kernel_route``)."""
+        return self.int8 and self.mlp.kernel_route(self.mlp.fc1.in_features)
+
     @torch.no_grad()
     def quantize_weights(self) -> None:
-        """Quantize the int8 modes' weights from the stored ones (a no-op in
-        bf16)."""
+        """Quantize the int8 kernels' weights from the stored ones (a no-op
+        in bf16 and for layers on the composed route)."""
         self.attn.quantize_weights()
-        if self.int8:
+        if self.int8_kernel:
             self.w1_q, self.w1_s = quantize_weight(self.mlp.fc1.weight)
             self.w2_q, self.w2_s = quantize_weight(self.mlp.fc2.weight)
 
@@ -348,9 +493,10 @@ class AltBlock(nn.Module):
         them: the attention's (``AltAttention.draws``); then the post-LN
         fused block's three int32 hash seeds with its first global row, or
         the pre-LN block's keep mask of its residual branch and its fused
-        MLP's two hash seeds with their first global row; then the two
-        branches' drop-path scales (at ``drop_path``, default the block's
-        rate). Only ``x``'s shape and device are read."""
+        MLP's two hash seeds with their first global row (the same on
+        either route); then the two branches' drop-path scales (at
+        ``drop_path``, default the block's rate). Only ``x``'s shape and
+        device are read."""
         drop_path = self.drop_path if drop_path is None else drop_path
         attn = self.attn.draws(x, rngs)
         train = self.training and not self.int8
@@ -403,7 +549,11 @@ class AltBlock(nn.Module):
         attn_draws, (post, mlp_seeds), dp = draws
         a = self._attention(self.norm1(x), padding_mask, bias, attn_draws)
         x = x + (a if dp is None else apply_drop_path(a, dp[0]))
-        int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s") if self.int8 else None
+        int8_weights = None
+        if self.int8_kernel:
+            int8_weights = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s")
+        elif self.int8:
+            _serving(self)
         # The reference's pre-LN branch (modules.py:551-554, after fairseq's
         # AltBlock) reads ``r = t = mlp(norm2(x)); x = r + dp(post_drop(t))``:
         # the residual x is not added back, and with dropout off the block
@@ -421,6 +571,8 @@ class AltBlock(nn.Module):
         a = self._attention(x, padding_mask, bias, attn_draws)
         x = x + (a if dp is None else apply_drop_path(a, dp[0]))
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if not self.mlp.kernel_route(x.shape[-1]):
+            return self._composed_post_ln(x, block_seeds, dp)
         if self.int8:
             w1_q, w1_s, w2_q, w2_s = _quantized(self, "w1_q", "w1_s", "w2_q", "w2_s")
             return fused_block_int8(
@@ -439,6 +591,24 @@ class AltBlock(nn.Module):
             self.norm2.bias, self.eps, seeds, act_rate, post_rate, row0=row0,
             branch_scale=None if dp is None else dp[1],
         )
+
+    def _composed_post_ln(self, x, block_seeds, dp):
+        """JAX's XLA route of the post-LN MLP sub-block (``modules.py:
+        632-637``): r = norm1(x), t = mlp(r), x_out = norm2(r +
+        dp(post_drop(t))); the tap is t. The norms take JAX's formula
+        (``_layer_norm``), as the fused block's plain version does; the
+        three dropout sites take the fused block's seeds and masks."""
+        if self.int8:
+            _serving(self)
+        seeds, row0 = (None, 0) if block_seeds is None else block_seeds
+        r = _layer_norm(self.norm1, x)
+        t = self.mlp.composed(r, seeds, self.act_rate if seeds else 0.0, row0)
+        td = t
+        if seeds and self.post_rate > 0.0:
+            td = _hash_dropout(t, seeds[2], self.post_rate, row0)
+        if dp is not None:
+            td = apply_drop_path(td, dp[1])
+        return _layer_norm(self.norm2, r + td), t
 
     def slice_draws(self, draws, lo: int, hi: int, t: int):
         """``draws`` of a batch of ``t``-step rows cut to its rows ``lo`` ..
@@ -546,7 +716,8 @@ def top_k_tap_average(taps: Sequence[torch.Tensor], k: int,
                       keeps: Optional[Sequence[float]] = None) -> torch.Tensor:
     """fp32 mean of the last ``k`` kept layer taps (``top_k_tap_average``,
     ``modules.py:915-933``): layer i counts when it is kept and at most k - 1
-    kept layers follow it; ``keeps`` None keeps every layer."""
+    kept layers follow it; ``keeps`` None keeps every layer. The taps are
+    summed in layer order, as a pipelined trunk's stream sums them."""
     if keeps is None:
         return torch.stack(list(taps[-k:])).float().mean(dim=0)
     chosen, later = [], 0.0
@@ -556,7 +727,7 @@ def top_k_tap_average(taps: Sequence[torch.Tensor], k: int,
             chosen.append(tap)
     if not chosen:  # every layer dropped: the JAX weights are all 0
         return torch.zeros_like(taps[-1], dtype=torch.float32)
-    return torch.stack(chosen).float().sum(dim=0) / len(chosen)
+    return torch.stack(chosen[::-1]).float().sum(dim=0) / len(chosen)
 
 
 class PrenetEncoder(nn.Module):

@@ -258,8 +258,8 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
         )
     if not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous x")
-    if c % 128 or c > 1024 or m % 128:
-        raise ValueError(f"the kernel needs C % 128 == 0, C <= 1024 and M % 128 == 0, got C={c}, M={m}")
+    if c % 128 or m % 128:
+        raise ValueError(f"the kernel needs C % 128 == 0 and M % 128 == 0, got C={c}, M={m}")
     dev = x.device
     l1s, l1b = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev)
     l2s, l2b = _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0, dev)
@@ -442,9 +442,8 @@ def _launch_fc1(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, row0, col0):
                          f"{tuple(x2.shape)}, {w1.dtype} {tuple(w1.shape)}")
     if not x2.is_contiguous():
         raise ValueError("block_fc1 takes a contiguous x")
-    if c % 128 or c > 1024 or ms % 128:
-        raise ValueError(f"block_fc1 needs C % 128 == 0, C <= 1024 and Ms % 128 == 0, got "
-                         f"C={c}, Ms={ms}")
+    if c % 128 or ms % 128:
+        raise ValueError(f"block_fc1 needs C % 128 == 0 and Ms % 128 == 0, got C={c}, Ms={ms}")
     dev = x2.device
     w1t = w1.detach().t().contiguous()  # (Ms, C): a no-op for Linear.weight.t() views
     l1s, l1b, b1v = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev), _vec(b1, ms, 0.0,
@@ -558,8 +557,8 @@ def _launch_ln2(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, 
     if s.shape != (n, c) or s.dtype != torch.float32 or r.dtype != torch.bfloat16:
         raise ValueError(f"block_ln2 takes an fp32 (N, C) sum and a bf16 r, got {s.dtype} "
                          f"{tuple(s.shape)}, {r.dtype} {tuple(r.shape)}")
-    if c % 128 or c > 1024:
-        raise ValueError(f"block_ln2 needs C % 128 == 0 and C <= 1024, got C={c}")
+    if c % 128:
+        raise ValueError(f"block_ln2 needs C % 128 == 0, got C={c}")
     dev = r.device
     s, r = s.contiguous(), r.contiguous()
     b2v, l2s, l2b = _vec(b2, c, 0.0, dev), _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0,
@@ -733,9 +732,8 @@ def _block_int8_op(x: torch.Tensor, ln1_scale: _Opt, ln1_bias: _Opt, w1_q: torch
         if w.dtype != torch.int8 or w.shape != shape or not w.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "
                              f"{tuple(w.shape)}")
-    if c % 128 or c > 1024 or m % 128:
-        raise ValueError(f"the kernel needs C % 128 == 0, C <= 1024 and M % 128 == 0, "
-                         f"got C={c}, M={m}")
+    if c % 128 or m % 128:
+        raise ValueError(f"the kernel needs C % 128 == 0 and M % 128 == 0, got C={c}, M={m}")
     dev = x.device
     l1s, l1b = _vec(ln1_scale, c, 1.0, dev), _vec(ln1_bias, c, 0.0, dev)
     l2s, l2b = _vec(ln2_scale, c, 1.0, dev), _vec(ln2_bias, c, 0.0, dev)

@@ -42,7 +42,7 @@ import torch.distributed as dist
 import torch.nn as nn
 from torch.distributed.tensor import DTensor
 
-from animal2vec_tpu_torch.models.modules import AltBlock
+from animal2vec_tpu_torch.models.modules import AltBlock, kernel_widths
 from animal2vec_tpu_torch.parallel.mesh import DataParallel
 from animal2vec_tpu_torch.parallel.tensor import (
     COLUMN_PARALLEL, ROW_PARALLEL, shard_block, shard_param, tp_rule, unshard_param,
@@ -94,7 +94,9 @@ def apply_layout(model: nn.Module, dp: DataParallel, microbatches: int = 0) -> n
     whole weights) into ``dp``'s layout, in place; returns it. Raises on a
     layout the port leaves out: tensor parallelism of pre-LN blocks, of the
     image modality or without ALiBi (the dense-bias kernels are not split
-    by head), and the int8 modes under any sharding (ROADMAP A.10)."""
+    by head), where C or a rank's M is off a multiple of 128 (the split of
+    #6 keeps its kernels' widths), and the int8 modes under any sharding
+    (ROADMAP A.10)."""
     if not dp.sharded:
         return model
     enc = _encoder(model)
@@ -108,6 +110,12 @@ def apply_layout(model: nn.Module, dp: DataParallel, microbatches: int = 0) -> n
                 or (cfg is not None and not cfg.use_alibi_encoder):
             raise NotImplementedError("tensor parallelism of the image modality, of pre-LN "
                                       "blocks or without ALiBi is not ported (ROADMAP A.10)")
+        size = dp.model.size
+        if not all(kernel_widths(b.mlp.fc1.in_features, b.mlp.fc1.out_features / size)
+                   for b in blocks):
+            raise NotImplementedError("tensor parallelism of blocks whose C or M / "
+                                      "model_parallel is not a multiple of 128 is not ported "
+                                      "(ROADMAP A.10)")
         for block in blocks:
             shard_block(block, dp.model)
     if dp.stage.size > 1:

@@ -265,7 +265,19 @@ Phases, one line or more each; any failure raises and exits non-zero:
    one launch with FSDP2 (the pipeline's boundary through host tensors;
    each rank's masks against the whole calls; gloo on the card takes CUDA
    tensors in FSDP2's all_gather_into_tensor and reduce_scatter_tensor);
-   ms per step and peak memory per rank beside one rank.
+   ms per step and peak memory per rank beside one rank;
+20. every trunk width the JAX package runs (ROADMAP A.11, phase_widths):
+   20k #6, its split #6s (with dropout) and #7 at N 64 000, C 1280, M 5120
+   (the LayerNorm's wide instance past C 1024, its registers and spills
+   from ptxas), #6 at N 8000 with dropout, #1 at H 20 and #10 at K 1280,
+   each against its plain version, timed beside its bound and F.linear x 2
+   / SDPA / torch._int_mm; W (a2v's finetune_100 model at the Whisper
+   large-v3 encoder's widths, C 1280, H 20, 24 blocks) and T (DeiT-Ti's, C
+   192, H 3, every width off 128: JAX's composed MLP and int8 routes, no
+   launch of #6-#10) served in bf16, int8 and int8_attn (b2 kernel vs plain
+   path, launches asserted, one timed b32 forward); T's pre-LN image model
+   at b64 in bf16 and int8 (#11 only); W's and T's b4 finetune_100 steps
+   and W's b4 gradients against the plain path.
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -1336,13 +1348,14 @@ def train_batch(cfg, dev, batch=TRAIN_BATCH, seed=SEED + 6):
     }
 
 
-def phase_train(cfg, card, dev):
+def phase_train(cfg, card, dev, fused_block=True):
     """The training path: finetune_100.yaml's recipe (mixup, span and
     channel masks with the noise fill, dropout 0.1 / attention 0.2,
     layerdrop 0.1, focal loss, Adam with warmup and cosine) at update_freq 1.
     The state starts at step 10 000, the first update after the freeze gate
     opens, so that every backward kernel runs and the learning rate is the
-    schedule's, not the warmup's 1e-10."""
+    schedule's, not the warmup's 1e-10. ``fused_block`` False: the blocks'
+    widths take JAX's composed MLP route, and #6 must not launch."""
     from animal2vec_tpu_torch.config import FinetuneTrainConfig
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.models.modules import AltBlock
@@ -1383,13 +1396,14 @@ def phase_train(cfg, card, dev):
         torch.cuda.synchronize()
         launched = counts()
         got = tuple(launched[k] for k in ("attention", "dq", "dkv", "block"))
+        want = (ran[0],) * 3 + (ran[0] if fused_block else 0,)
         loss = float(metrics["loss"])
         print(f"train step {i + 1}: loss {loss:.5f}; launches attention forward {got[0]}, "
-              f"dq {got[1]}, dk/dv {got[2]}, fused block {got[3]} (expected {ran[0]} each: "
+              f"dq {got[1]}, dk/dv {got[2]}, fused block {got[3]} (expected {want}: "
               f"{n_blocks} blocks less {n_blocks - ran[0]} dropped by layerdrop)")
         if not np.isfinite(loss):
             raise AssertionError("non-finite training loss")
-        if got != (ran[0],) * 4 or ran[0] == 0 or sum(launched.values()) != 4 * ran[0]:
+        if got != want or ran[0] == 0 or sum(launched.values()) != sum(want):
             raise AssertionError(f"train step launch counts {launched} != {ran[0]} each")
         for n, p in model.named_parameters():
             if p.grad is None or not torch.isfinite(p.grad).all():
@@ -1427,10 +1441,11 @@ def phase_train(cfg, card, dev):
     return tuple(totals)
 
 
-def phase_train_grads(cfg, dev):
-    """At b1 with every rate at 0 (no mixup, masks, dropout or layerdrop),
-    the full model's gradients through the kernels against those through
-    the plain versions, one relative norm per parameter tensor."""
+def phase_train_grads(cfg, dev, batch=1):
+    """At b1 (or ``batch``) with every rate at 0 (no mixup, masks, dropout
+    or layerdrop), the full model's gradients through the kernels against
+    those through the plain versions, one relative norm per parameter
+    tensor."""
     from animal2vec_tpu_torch.config import FinetuneTrainConfig
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.train.finetune_step import finetune_loss
@@ -1440,7 +1455,7 @@ def phase_train_grads(cfg, dev):
         mask_channel_prob=0.0, dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
         layerdrop=0.0, source_mixup=-1.0)
     model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
-    mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=1, seed=SEED + 7).items()}
+    mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=batch, seed=SEED + 7).items()}
 
     def grads():
         model.zero_grad(set_to_none=True)
@@ -1455,7 +1470,7 @@ def phase_train_grads(cfg, dev):
     torch.cuda.synchronize()
     rels = {n: rel_norm(g_k[n], g_p[n]) for n in g_p if g_p[n].norm() > 0}
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
-    print(f"model gradients b1, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
+    print(f"model gradients b{batch}, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
           f"relative norm per tensor: max {worst[0][1]:.3e}, median "
           f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors "
           f"(tolerance {MODEL_GRAD_TOL}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
@@ -5053,6 +5068,345 @@ def probe_entries(launches, checks, rows):
     ]
 
 
+# phase 20: every trunk width the JAX package runs (ROADMAP A.11). W: a2v's
+# finetune_100 model at the Whisper large-v3 encoder's widths (openai/whisper
+# model.py ModelDimensions, large-v3: n_audio_state 1280, n_audio_head 20; MLP
+# 4 x 1280), 8 prenet + 16 trunk post-LN ALiBi blocks, where every width is a
+# multiple of 128 and the kernels run past C 1024 (the LayerNorm's wide
+# instance). T: DeiT-Ti's widths (facebookresearch/deit models.py
+# deit_tiny_patch16_224: C 192, 3 heads of 64, MLP 768), every one off 128:
+# the MLP sub-blocks and the int8 products take JAX's composed route there,
+# the attention its kernels (#1-#5 on the audio model, #11 on the image one).
+WIDTH_DIMS = {"W": dict(embed_dim=1280, num_heads=20), "T": dict(embed_dim=192, num_heads=3)}
+WIDE_C, WIDE_M = 1280, 5120
+
+
+def width_launches(name, mode, n_blocks):
+    """The launches of one forward of model ``name`` in a mode: W's as
+    a2v-large's; T's attention kernels only (#1, or #5 with its
+    quantization pass in int8_attn), its MLPs and int8 products composed."""
+    if name == "W":
+        return forward_launches(mode, n_blocks)
+    want = dict.fromkeys(_counted(), 0)
+    if mode == "int8_attn":
+        want.update(int8_attention=n_blocks, int8_quant=n_blocks)
+    else:
+        want.update(serve_attention=n_blocks)
+    return want
+
+
+def width_kernel_rows(dev, row):
+    """20k. #6, its split #6s and #7 at N 64 000 (b32 x T 2000), C 1280, M
+    5120, #6 also at N 8000 with its three dropout sites, each held against
+    its plain version; #1 at H 20 and #10 at K 1280 (W's b32 shapes). Times
+    by CUDA events and device time beside the bound and the library call:
+    F.linear x 2 for #6 and #7 (the two GEMMs alone with their biases), SDPA
+    for #1, torch._int_mm for #10. Returns the errors."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_btc,
+    )
+    from animal2vec_tpu_torch.ops.fused_mlp import (
+        block_fc1, block_fc2_partial, block_ln2, fused_block_int8, fused_block_int8_plain,
+        fused_block_mlp, fused_block_plain,
+    )
+    from animal2vec_tpu_torch.ops.int8_mm import (
+        int8_dense, int8_dense_plain, quantize_rows, quantize_weight,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    n, c, m = 32 * 2000, WIDE_C, WIDE_M
+    errs = {}
+
+    def linear2(args, rows_n):
+        x, w1, w2, b1, b2 = args[0], args[3], args[4], args[5], args[6]
+        w1l, w2l = w1.t().contiguous(), w2.t().contiguous()
+        hid = torch.randn((rows_n, m), generator=gen, device=dev).to(torch.bfloat16)
+        return lambda: (F.linear(x, w1l, b1.to(x.dtype)), F.linear(hid, w2l, b2.to(x.dtype)))
+
+    def times(key, call, plain, lib, bnd, plain_iters=2):
+        row(key, cuda_ms(call), cuda_ms(plain, iters=plain_iters, warmup=1), cuda_ms(lib), bnd)
+        split = {"device_ms": device_ms(call, ""), "library_device_ms": device_ms(lib, "")}
+        rows[key].update(split)
+        print(f"    device time: kernel {ms_text(split['device_ms'])}, library "
+              f"{ms_text(split['library_device_ms'])}")
+
+    rows = row.rows
+    with torch.inference_mode():
+        args = block_inputs(gen, n, c, m, dev)
+        key = f"fused block C {c}, b32 serving"
+        times(key, lambda: fused_block_mlp(*args), lambda: fused_block_plain(*args),
+              linear2(args, n), block_bound(n, c, m))
+        (xo, t), (xo_p, t_p) = fused_block_mlp(*args), fused_block_plain(*args)
+        torch.cuda.synchronize()
+        errs["block"] = max(check_close(f"20k {key} tap t", t, t_p, BLOCK_TOL),
+                            check_close(f"20k {key} x_out", xo, xo_p, BLOCK_TOL))
+        del xo, t, xo_p, t_p
+        # the split (one rank: Ms = M), drop_a, drop_b and drop_c at 0.1
+        drop = (11, -22, 2**31 - 5)
+        x, l1s, l1b, w1, w2, b1, b2, l2s, l2b, eps = args
+
+        def split():
+            r, h = block_fc1(x, l1s, l1b, w1, b1, eps, drop[0], 0.1)
+            return block_ln2(block_fc2_partial(h, w2), b2, r, l2s, l2b, eps, drop[1:], 0.1, 0.1)
+
+        key = f"split #6 (fc1, fc2 partial, ln2) C {c}, N {n}, dropout 0.1"
+        row(key, cuda_ms(split), cuda_ms(lambda: fused_block_plain(*args, drop, 0.1, 0.1),
+                                         iters=1, warmup=0), None, block_bound(n, c, m))
+        (xo, t), (xo_p, t_p) = split(), fused_block_plain(*args, drop, 0.1, 0.1)
+        torch.cuda.synchronize()
+        errs["split"] = max(check_close(f"20k {key} tap t", t, t_p, BLOCK_TOL),
+                            check_close(f"20k {key} x_out", xo, xo_p, BLOCK_TOL))
+        del xo, t, xo_p, t_p, args
+        torch.cuda.empty_cache()
+        n8 = TRAIN_BATCH * 2000
+        args = block_inputs(gen, n8, c, m, dev)
+        key = f"fused block + dropout C {c}, N {n8} training"
+        times(key, lambda: fused_block_mlp(*args, drop, 0.1, 0.1),
+              lambda: fused_block_plain(*args, drop, 0.1, 0.1), linear2(args, n8),
+              block_bound(n8, c, m), plain_iters=3)
+        (xo, t), (xo_p, t_p) = (fused_block_mlp(*args, drop, 0.1, 0.1),
+                                fused_block_plain(*args, drop, 0.1, 0.1))
+        torch.cuda.synchronize()
+        errs["block"] = max(errs["block"],
+                            check_close(f"20k {key} tap t", t, t_p, BLOCK_TOL),
+                            check_close(f"20k {key} x_out", xo, xo_p, BLOCK_TOL))
+        del xo, t, xo_p, t_p
+        args8 = int8_block_inputs(gen, n, dev, c, m)
+        key = f"int8 fused block C {c}, b32 serving"
+        times(key, lambda: fused_block_int8(*args8), lambda: fused_block_int8_plain(*args8),
+              linear2(block_inputs(gen, n, c, m, dev), n), int8_block_bound(n, c, m))
+        errs["int8_block"] = check_int8_block(f"20k {key}", args8)
+        del args8
+        torch.cuda.empty_cache()
+        # #1 at W's 20 heads, the (B, T, 3C) projection read in place
+        qkv, slopes = attention_inputs(gen, 32, 20, 2000, dev)
+        pos = torch.arange(2000, dtype=torch.int32, device=dev)[None]
+        qkv_btc = qkv.permute(1, 3, 0, 2, 4).reshape(32, 2000, 3 * c)
+        q, k, v, bias = sdpa_args(qkv, slopes, 2000)
+        key = "attention forward H 20, b32 serving"
+        times(key, lambda: alibi_flash_attention_btc(qkv_btc, 20, slopes, pos),
+              lambda: alibi_attention_plain(qkv, slopes, pos, None, False),
+              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+              attention_bounds(32, 20, 2000)["serve"], plain_iters=1)
+        del q, k, v, bias
+        got = alibi_flash_attention_btc(qkv_btc[:4], 20, slopes, pos)
+        want = alibi_attention_plain(qkv[:, :4].float(), slopes, pos, None, False)
+        torch.cuda.synchronize()
+        errs["attention"] = check_close("20k attention H 20, b4 of the b32 grid",
+                                        got.reshape(4, 2000, 20, 64).transpose(1, 2), want,
+                                        ATTN_TOL)
+        del qkv, qkv_btc, got, want
+        torch.cuda.empty_cache()
+        # #10 at K 1280: W's qkv (-> 3840) and out (-> 1280) projections
+        xd = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, _ = quantize_rows(xd)
+        errs["dense"] = 0.0
+        for mo, what in ((3 * c, "qkv"), (c, "out")):
+            w = torch.randn((mo, c), generator=gen, device=dev) * (2.0 / (c + mo)) ** 0.5
+            w_q, w_s = quantize_weight(w.to(torch.bfloat16))
+            key = f"int8 dense {what} projection K {c}, b32 serving"
+            times(key, lambda: int8_dense(xd, w_q, w_s), lambda: int8_dense_plain(xd, w_q, w_s),
+                  lambda: torch._int_mm(x_q, w_q.t()), int8_dense_bound(n, c, mo))
+            got, want = int8_dense(xd, w_q, w_s), int8_dense_plain(xd, w_q, w_s)
+            torch.cuda.synchronize()
+            off = int((got != want).sum())
+            print(f"20k #10 {what} K {c} -> {mo}: {off} of {got.numel()} elements differ from "
+                  f"the plain version")
+            errs["dense"] = max(errs["dense"], check_close(f"20k #10 {what} K {c}", got, want,
+                                                           INT8_DENSE_TOL))
+        del xd, x_q, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def width_serving(name, card, dev):
+    """20a/20b. Model ``name`` (24 blocks, seeded weights, serving cast) in
+    bf16, int8 and int8_attn: the b2 forward through the kernels (launches
+    asserted, no plain version on a CUDA tensor) against the plain path
+    (MODEL_TOL max abs in bf16, INT8_MODEL_REL relative in the int8 modes,
+    and INT8_VS_BF16_REL from the bf16 model); then one timed b32 forward
+    after a warm-up, clips/s and its launches asserted. Returns (launches,
+    rows)."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+
+    cfg = dataclasses.replace(FinetuneConfig(), **WIDTH_DIMS[name])
+    model = build_model(cfg, dev)
+    src = torch.from_numpy(np.random.default_rng(SEED + 71).normal(
+        size=(2, WAV_LEN)).astype(np.float32)).to(dev)
+    b32 = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
+        size=(32, WAV_LEN)).astype(np.float32)).to(dev)
+    total, rows, bf16_logits = dict.fromkeys(_counted(), 0), {}, None
+    for mode in ("bf16",) + MODES:
+        label = f"20 {name} (C {cfg.embed_dim}, H {cfg.num_heads}) {mode}"
+        served = model if mode == "bf16" else int8_model(model, cfg, mode, dev)
+        want = width_launches(name, mode, cfg.n_blocks)
+        with torch.inference_mode():
+            reset_counts()
+            with PlainSpy() as spy:
+                got = served(src)["encoder_out"]
+            launched = counts()
+            with PlainOps():
+                plain = served(src)["encoder_out"]
+            torch.cuda.synchronize()
+        err, rel = (got.float() - plain.float()).abs().max().item(), rel_norm(got, plain)
+        line = (f"{label} b2: logits {tuple(got.shape)}, kernel vs plain path max abs {err:.3e}, "
+                f"relative norm {rel:.3e}")
+        if mode == "bf16":
+            bf16_logits = got
+            print(f"{line} (tolerance {MODEL_TOL} max abs)")
+            ok = err <= MODEL_TOL
+        else:
+            rel_bf16 = rel_norm(got, bf16_logits)
+            print(f"{line} (tolerance {INT8_MODEL_REL}); against the bf16 model {rel_bf16:.3e} "
+                  f"(bound {INT8_VS_BF16_REL})")
+            ok = rel <= INT8_MODEL_REL and rel_bf16 <= INT8_VS_BF16_REL
+        print(f"{label} launches per b2 forward: {launch_line(launched)} (expected "
+              f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+        if tuple(got.shape) != (2, WAV_LEN // 40, len(cfg.labels)) or \
+                not torch.isfinite(got).all() or not ok:
+            raise AssertionError(f"{label}: logits disagree with the plain path")
+        if launched != want or spy.cuda_calls:
+            raise AssertionError(f"{label}: launches {launched} != {want}, or a plain call")
+        total = {k: total[k] + launched[k] for k in total}
+        with torch.inference_mode():
+            served(b32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            served(b32)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{label} b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch), peak "
+              f"memory {peak:.2f} GiB on {card}; launches {launch_line(launched)}")
+        if launched != want:
+            raise AssertionError(f"{label}: b32 launches {launched} != {want}")
+        total = {k: total[k] + launched[k] for k in total}
+        rows[mode] = {"b32_ms": dt * 1e3, "clips_per_s": 32 / dt, "max_abs_plain": err,
+                      "rel_plain": rel, "peak_gib": peak}
+        if served is not model:
+            del served
+        del got, plain
+        torch.cuda.empty_cache()
+    del model, b32, bf16_logits
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def width_image(card, dev):
+    """20c. T's image model: the ViT-B/16 image defaults (4 prenet + 8
+    trunk blocks, 196 patches, the 2-D ALiBi bias) at DeiT-Ti's widths,
+    pre-LN as vit_b16 is, b64 in bf16 and int8: the forward through the
+    kernels (#11 once a block, nothing else) against the plain path
+    (IMAGE_REL, IMAGE_INT8_REL and INT8_VS_BF16_REL), then one timed
+    forward after a warm-up. Returns (launches, rows)."""
+    from animal2vec_tpu_torch.config import ImageConfig
+    from animal2vec_tpu_torch.models.finetune import build_image_model
+    from animal2vec_tpu_torch.weights import serving_cast
+
+    cfg = dataclasses.replace(ImageConfig(), use_alibi_encoder=True, layer_norm_first=True,
+                              patch_embed_dim=192, **WIDTH_DIMS["T"])
+    base = build_image_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    base.load_state_dict(serving_cast(base.state_dict()), strict=True, assign=True)
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 72).normal(
+        size=(IMAGE_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    total, rows, x_bf16 = dict.fromkeys(_counted(), 0), {}, None
+    want = dict.fromkeys(_counted(), 0)
+    want["bias_attention"] = cfg.n_blocks
+    for mode in ("bf16", "int8"):
+        label = f"20c T image (C 192, H 3, pre-LN) {mode}"
+        model = base if mode == "bf16" else int8_model(base, cfg, mode, dev)
+        with torch.inference_mode():
+            reset_counts()
+            with PlainSpy() as spy:
+                x = model.extract_features(imgs, "IMAGE")["x"]
+            launched = counts()
+            with PlainOps():
+                x_p = model.extract_features(imgs, "IMAGE")["x"]
+            model.extract_features(imgs, "IMAGE")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            model.extract_features(imgs, "IMAGE")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            timed = counts()
+        print(f"{label} launches per forward: {launch_line(launched)} (expected "
+              f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+        if launched != want or timed != want or spy.cuda_calls:
+            raise AssertionError(f"{label}: launches {launched} / {timed} != {want}")
+        if tuple(x.shape) != (IMAGE_BATCH, IMAGE_T, 192):
+            raise AssertionError(f"{label}: features of shape {tuple(x.shape)}")
+        rel = check_rel(f"{label} features x, kernel vs plain path", x, x_p,
+                        IMAGE_REL if mode == "bf16" else IMAGE_INT8_REL)
+        if mode == "bf16":
+            x_bf16 = x
+        else:
+            check_rel(f"{label} features x against the bf16 model's", x, x_bf16,
+                      INT8_VS_BF16_REL)
+        print(f"{label} b{IMAGE_BATCH}: {IMAGE_BATCH / dt:.1f} images/s ({dt * 1e3:.2f} ms per "
+              f"forward) on {card}")
+        total = {k: total[k] + 2 * launched[k] for k in total}
+        rows[mode] = {"b64_ms": dt * 1e3, "images_per_s": IMAGE_BATCH / dt, "rel_plain": rel}
+        del model, x_p
+    del base, x_bf16
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def phase_widths(card, dev, lib_path):
+    """20. Every trunk width the JAX package runs (ROADMAP A.11): 20k the
+    kernels at W's widths; 20a W served in the three modes; 20b T served in
+    the three modes (no launch of #6-#10: its MLPs and int8 products are
+    JAX's composed route); 20c T's image model; 20d W's and T's b4
+    finetune_100 steps (launches, ms per step, peak memory) and W's b4
+    gradients against the plain path. ``lib_path``: the built kernels'
+    library, beside whose build.log the wide LayerNorm's registers and
+    spills are read. Returns (launches by kernel key, errors, rows)."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+
+    t0 = time.perf_counter()
+    print(f"20 every trunk width (ROADMAP A.11) on {card}")
+    rows = {}
+
+    def row(key, ms, plain_ms, library_ms, bnd):
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"  20k {key}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+
+    row.rows = rows
+    for line in ptxas_summary((lib_path.parent / "build.log").read_text()):
+        if "ln_rows_wide" in line:
+            print("  20k ptxas:", line)
+    errs = width_kernel_rows(dev, row)
+    launches = dict.fromkeys(_counted(), 0)
+    serving = {}
+    for name in ("W", "T"):
+        got, serving[name] = width_serving(name, card, dev)
+        launches = {k: launches[k] + got[k] for k in launches}
+    got, image_rows = width_image(card, dev)
+    launches = {k: launches[k] + got[k] for k in launches}
+    for name in ("W", "T"):
+        cfg = dataclasses.replace(FinetuneConfig(), **WIDTH_DIMS[name])
+        print(f"20d {name} (C {cfg.embed_dim}, H {cfg.num_heads}) b{TRAIN_BATCH} finetune_100 "
+              f"steps")
+        got = phase_train(cfg, card, dev, fused_block=name == "W")
+        for k, v in zip(("attention", "dq", "dkv", "block"), got):
+            launches[k] += v
+        if name == "W":
+            phase_train_grads(cfg, dev, batch=TRAIN_BATCH)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"phase20": {"rows": rows, "serving": serving, "image": image_rows,
+                                  "launches": launches, "seconds": seconds}}))
+    print(f"20 phase {seconds:.1f} s")
+    return launches, errs, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5150,6 +5504,8 @@ def main() -> int:
     probe_launches, probe_checks, probe_rows = phase_probes(card, dev)
     torch.cuda.empty_cache()
     a10_launches, a10_errs, a10_rows = phase_a10(card, dev)
+    torch.cuda.empty_cache()
+    widths_launched, width_errs, width_rows = phase_widths(card, dev, lib_path)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -5349,6 +5705,34 @@ def main() -> int:
     kernels += probe_entries(probe_launches, probe_checks, probe_rows)
     # phase 19: the tensor-parallel split of #6 and the head-offset launches
     kernels += a10_entries(a10_launches, a10_errs, a10_rows)
+    # phase 20: W and T served and stepped, and the kernels at W's widths
+    for name, key in (("alibi_flash_attention_serve", "serve_attention"),
+                      ("alibi_flash_attention", "attention"), ("alibi_attention_dq", "dq"),
+                      ("alibi_attention_dkv", "dkv"), ("fused_block", "block"),
+                      ("int8_dense", "int8_dense"), ("fused_block_int8", "int8_block"),
+                      ("alibi_flash_attention_int8", "int8_attention"),
+                      ("quantize_qkv_int8_pass", "int8_quant"),
+                      ("bias_flash_attention", "bias_attention")):
+        by_name[name]["launches_widths"] = widths_launched[key]
+        by_name[name]["launches"] += widths_launched[key]
+    for name, prefix, key in (
+            ("fused_block", "wide", f"fused block C {WIDE_C}, b32 serving"),
+            ("fused_block", "wide_training", f"fused block + dropout C {WIDE_C}, "
+                                             f"N {TRAIN_BATCH * 2000} training"),
+            ("fused_block_int8", "wide", f"int8 fused block C {WIDE_C}, b32 serving"),
+            ("alibi_flash_attention_serve", "h20", "attention forward H 20, b32 serving"),
+            ("int8_dense", "k1280_qkv", f"int8 dense qkv projection K {WIDE_C}, b32 serving"),
+            ("int8_dense", "k1280_out", f"int8 dense out projection K {WIDE_C}, b32 serving")):
+        by_name[name].update({f"{prefix}_{k}": v for k, v in width_rows[key].items()})
+    for name, key in (("fused_block", "block"), ("fused_block_int8", "int8_block"),
+                      ("alibi_flash_attention_serve", "attention"), ("int8_dense", "dense")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], width_errs[key])
+    split = width_rows[f"split #6 (fc1, fc2 partial, ln2) C {WIDE_C}, N {32 * 2000}, "
+                       "dropout 0.1"]
+    for e in kernels:
+        if e["name"] in ("block_fc1", "block_fc2_partial", "block_ln2"):
+            e["max_abs_err"] = max(e["max_abs_err"], width_errs["split"])
+            e.update({f"wide_chain_{k}": v for k, v in split.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,8 @@ WAV = 800
 # (TINY_CONV, embed 32, 4 heads, depth 3, prenet 2) and its audio decoder
 TINY_CONV = ((9, 7, 1), (16, 4, 2), (16, 3, 2))
 TINY_PRETRAIN = PretrainConfig(
-    model=FinetuneConfig(conv_layers=TINY_CONV, **TINY, average_top_k_layers=2),
+    model=FinetuneConfig(conv_layers=TINY_CONV, **dict(TINY, embed_dim=32),
+                         average_top_k_layers=2),
     decoder=DecoderConfig(12, 4, 3, 2, 0.0), average_top_k_layers=2, clone_batch=1)
 
 

@@ -2,7 +2,7 @@
 (``data/stratify.py``, ``tools/manifest_cli.py``, ``tools/prepare_data_cli.py``)
 against the JAX package's own functions.
 
-export_cli runs a tiny fp32 finetune model (embed 32, depth 3, the a2v
+export_cli runs a tiny fp32 finetune model (embed 128, depth 3, the a2v
 stride-40 conv stack) over a synthetic split of 1-s clips, 8 clips at batch 3
 so the last batch repeats rows (``n_valid``). Its HDF5 holds against JAX:
 the likelihoods against the JAX model's sigmoid on the JAX loader's batches

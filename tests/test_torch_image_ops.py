@@ -77,7 +77,7 @@ def test_config_defaults_match_jax():
     (dict(remat_scope="layer"), ValueError),
     (dict(alibi_distance="chebyshev"), ValueError),
     (dict(input_size=100), ValueError),
-    (dict(matmul_impl="int8", embed_dim=96, num_heads=2), ValueError),
+    (dict(matmul_impl="int4"), ValueError),
 ])
 def test_config_refuses(kw, err):
     with pytest.raises(err):

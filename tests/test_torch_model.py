@@ -1,9 +1,11 @@
 """The whole inference slice of the port against the JAX package.
 
 The JAX ``FinetuneModel`` runs in fp32 on the tiny config of
-``tests/test_parity.py`` (embed 32, 4 heads, depth 3, prenet 2); its params
-cross over through ``params_from_jax`` and the port must give the same
-logits within 1e-4 max-abs, and ``infer_long_file`` the same window
+``tests/test_parity.py`` at embed 128 (4 heads, depth 3, prenet 2: the
+fused kernels' widths, so the port's blocks take the kernels' plain
+versions, as at a2v-large's widths on the card); its params cross over
+through ``params_from_jax`` and the port must give the same logits within
+1e-4 max-abs, and ``infer_long_file`` the same window
 probabilities (1e-4) and the same events on a synthetic 25-s recording.
 """
 
@@ -31,7 +33,7 @@ from animal2vec_tpu_torch.weights import params_from_jax
 from tests.test_parity import _finetune_cfg
 
 TOL = 1e-4
-TINY = dict(embed_dim=32, num_heads=4, depth=3, prenet_depth=2,
+TINY = dict(embed_dim=128, num_heads=4, depth=3, prenet_depth=2,
             conv_pos_depth=2, conv_pos_width=10, conv_pos_groups=2)
 TINY_LAYERS = ((9, 7, 1), (16, 4, 2), (16, 3, 2))
 # long-file inference cuts 10-s windows: a stride-40 stack (as a2v-large's)

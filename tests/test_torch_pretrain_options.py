@@ -1,7 +1,7 @@
 """The port's pretraining options against the JAX package's ``pretrain_loss``.
 
 The tiny audio and image models of ``tests/test_torch_pretrain_step.py``
-(2 prenet + 3 trunk blocks at width 32, or 1 + 2 over 32 x 32 images in
+(2 prenet + 3 trunk blocks at width 128, or 1 + 2 over 32 x 32 images in
 8 x 8 patches), from the same jittered params, one mask injected on both
 sides (the JAX samplers monkeypatched), each option group switched on on
 both sides: the linear probe, the shared decoder and the decoders'
@@ -69,8 +69,8 @@ from animal2vec_tpu_torch.train.pretrain import mask_tokens, pretrain_loss
 from animal2vec_tpu_torch.train.state import PretrainState
 from animal2vec_tpu_torch.weights import params_from_jax, params_to_jax
 
-from tests.test_torch_model import _jittered
-from tests.test_torch_pretrain_step import DEC, LOSS_TOL, _jax_cfg, _mask, _port_cfg, _source
+from tests.test_torch_model import TINY, _jittered
+from tests.test_torch_pretrain_step import DEC, IMAGE, LOSS_TOL, _jax_cfg, _mask, _port_cfg, _source
 
 GRAD_TOL = 1e-5
 LABELS = ("a", "b", "c")
@@ -176,7 +176,7 @@ def _fixed_draws(monkeypatch, extra, rows, t, mask, src):
                         lambda x, info, noise_std, gen=None, num_extra=0:
                         real_port_scatter(x, info, 0.0, None, num_extra))
     if extra.get("noise"):
-        c = 32
+        c = TINY["embed_dim"]
         noise = np.random.default_rng(21).normal(size=(rows, t, c)).astype(np.float32)
 
         def jax_fill(x, info, rng=None, zero_mask=True, noise_std=0.01):
@@ -389,7 +389,7 @@ def test_new_parameters_round_trip_jax_and_fairseq():
     # recon_proj: an image model's, both ways
     (_, _, _, iparams, _, imodel, _), _ = _build("image recon, inverse mask, local grad mult 0")
     isd = imodel.state_dict()
-    assert isd["recon_proj.weight"].shape == (8 * 8 * 3, 32)
+    assert isd["recon_proj.weight"].shape == (8 * 8 * 3, IMAGE["embed_dim"])
     again = params_from_jax(params_to_jax(isd))
     assert all(torch.equal(again[k], isd[k]) for k in isd)
     np.testing.assert_array_equal(params_to_jax(isd)["recon_proj"]["kernel"],
@@ -430,7 +430,7 @@ def test_finetune_extra_tokens_stay_refused_as_jax_fails():
     from animal2vec_tpu.train.optim import build_optimizer as jax_build_optimizer
     from animal2vec_tpu.train.state import FinetuneState as JaxFinetuneState
     from tests.test_parity import _finetune_cfg
-    from tests.test_torch_model import TINY, TINY_LAYERS
+    from tests.test_torch_model import TINY_LAYERS
     from tests.test_torch_train_step import OPT, _batch
 
     jcfg = _finetune_cfg(conv_layers=" + ".join(f"[{x}]" for x in TINY_LAYERS), avg_k=3, **TINY)

@@ -1,9 +1,9 @@
 """The port's data2vec-2 pretraining step against the JAX package's.
 
-A tiny audio model (the embed-32 config of ``tests/test_torch_model.py``: 2
+A tiny audio model (the embed-128 config of ``tests/test_torch_model.py``: 2
 prenet + 3 trunk blocks, a 2-layer ``Decoder1d`` of 16 in 4 groups,
 ``ema_encoder_only`` False as in the a2v recipe) and a tiny image model
-(32 x 32 images in 8 x 8 patches, embed 32, 1 prenet + 2 trunk blocks, the
+(32 x 32 images in 8 x 8 patches, embed 128, 1 prenet + 2 trunk blocks, the
 2-D ALiBi bias with its learned scale, a 2-layer ``Decoder2d``,
 ``ema_encoder_only`` True as the ``ModelConfig`` default), both from the
 same jittered params, with ``clone_batch`` 2 and ``update_freq`` 2, global
@@ -67,7 +67,7 @@ OPT = dict(lr=1e-4, max_update=100, warmup_updates=0, warmup_init_lr=0.0, min_lr
 EMA = dict(ema_decay=0.99, ema_end_decay=0.999, ema_anneal_end_step=100)
 DEC = dict(decoder_dim=16, decoder_groups=4, decoder_kernel=3, decoder_layers=2,
            input_dropout=0.0)
-IMAGE = dict(input_size=32, patch_size=8, patch_embed_dim=32, embed_dim=32, num_heads=4,
+IMAGE = dict(input_size=32, patch_size=8, patch_embed_dim=32, embed_dim=128, num_heads=4,
              prenet_depth=1, depth=2, use_alibi_encoder=True)
 
 
@@ -75,7 +75,7 @@ def _jax_cfg(modality, model_kw=None, modality_kw=None):
     """The tiny JAX config; ``model_kw`` and ``modality_kw`` change fields of
     its ``ModelConfig`` and of its modality's config."""
     cfg = Config()
-    model = dict(embed_dim=32, num_heads=4, clone_batch=2, instance_norm_target_layer=True,
+    model = dict(embed_dim=128, num_heads=4, clone_batch=2, instance_norm_target_layer=True,
                  encoder_dropout=0.0, attention_dropout=0.0, post_mlp_drop=0.0, remat=False,
                  supported_modality=modality, mixup=MixupConfig(source_mixup=-1.0), **EMA)
     if modality == "AUDIO":

@@ -4,7 +4,7 @@ against JAX's on one synthetic directory, resume, and the CLI chain
 (pretrain -> finetune from it -> serve the best checkpoint).
 
 The loop-level case runs the tiny config of ``tests/test_torch_train_step.py``
-(embed 32, 4 heads, 2 + 3 blocks) with every rate at 0, mixup and masks off,
+(embed 128, 4 heads, 2 + 3 blocks) with every rate at 0, mixup and masks off,
 on 800-sample clips: 3 steps of update_freq 2 x b2 with validation at step
 2, both sides from JAX's initial weights. Every final parameter agrees
 within 3 x that test's PARAM_TOL, the logged losses within 1e-5, the
@@ -352,7 +352,7 @@ def test_pretrained_handoff_matches_jax():
     pre = dataclasses.replace(pre, mask_noise_std=0.03)
     model, recipe = build_finetune_encoder_cfg(pre, FinetuneConfig(average_top_k_layers=3),
                                                FinetuneTrainConfig())
-    assert model.embed_dim == 32 and model.depth == 3 and model.conv_layers == TINY_LAYERS
+    assert model.embed_dim == 128 and model.depth == 3 and model.conv_layers == TINY_LAYERS
     assert model.labels == FinetuneConfig().labels and recipe.mask_noise_std == 0.03
     jpre_cfg.model.modalities.audio.mask_noise_std = 0.03
     jenc = jax_build_encoder_cfg(jpre_cfg.model, jcfg.finetune)

@@ -2,7 +2,7 @@
 training arms of its modules.
 
 One ``make_finetune_train_step`` on the tiny config of
-``tests/test_torch_model.py`` (embed 32, 4 heads, 2 prenet + 3 trunk
+``tests/test_torch_model.py`` (embed 128, 4 heads, 2 prenet + 3 trunk
 blocks) from the same jittered params, with every dropout rate and
 layerdrop at 0, mixup and masks off (``jax.random`` and torch draw
 differently from one seed; the random parts are held to JAX at op level),
@@ -161,7 +161,7 @@ def test_layerdrop_skips_blocks_and_counts():
     model = build_finetune_model(cfg, device="cpu",
                                  train=dataclasses.replace(FinetuneTrainConfig(), layerdrop=1.0))
     model.train()
-    x = torch.randn(2, 20, 32)
+    x = torch.randn(2, 20, TINY["embed_dim"])
     blocks = model.encoder.blocks
     spec = model.encoder.audio_encoder.alibi_spec(torch.arange(20, dtype=torch.int32)[None])
     y, taps, keeps, _ = blocks(x, None, spec, Rngs.from_seed(0, "cpu"))

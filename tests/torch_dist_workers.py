@@ -27,7 +27,7 @@ from animal2vec_tpu_torch.parallel import mesh
 
 WAV = 800
 NAMES = ("a", "b", "c", "focal")
-TINY = dict(embed_dim=32, num_heads=4, depth=3, prenet_depth=2, conv_pos_depth=2,
+TINY = dict(embed_dim=128, num_heads=4, depth=3, prenet_depth=2, conv_pos_depth=2,
             conv_pos_width=10, conv_pos_groups=2)
 TINY_LAYERS = ((9, 7, 1), (16, 4, 2), (16, 3, 2))
 
@@ -95,11 +95,13 @@ def pretrain_step(dp, inp):
 def masks(dp, inp):
     """One post-LN block in training with hash dropout at every site on the
     same 2 rows on each rank; rank 0 also runs it as one rank on the rows
-    stacked once per rank."""
+    stacked once per rank. Its widths (C 128, M 512) are the kernels',
+    where the block takes the fused block's hash dropout (off them it takes
+    JAX's composed route, whose masks come from the rank's generator)."""
     torch.manual_seed(3)
-    block = AltBlock(32, 4, attention_dropout=0.3, activation_dropout=0.2,
+    block = AltBlock(128, 4, attention_dropout=0.3, activation_dropout=0.2,
                      post_mlp_drop=0.2).train()
-    x = torch.randn(2, 40, 32, generator=torch.Generator().manual_seed(4))
+    x = torch.randn(2, 40, 128, generator=torch.Generator().manual_seed(4))
     spec = build_finetune_model(dataclasses.replace(FinetuneConfig(), conv_layers=TINY_LAYERS,
                                                     average_top_k_layers=3, **TINY),
                                 device="cpu").encoder.audio_encoder.alibi_spec(

@@ -93,15 +93,17 @@ def pretrain(dp, inp):
 def block_dropout(dp, inp):
     """One post-LN block in training with hash dropout at every site and
     drop-path on both branches, sharded over "model", beside the whole
-    block on rank 0, on the same rows and the same draws."""
+    block on rank 0, on the same rows and the same draws. Its widths (C
+    128, M 512) are the kernels', where the whole block takes the fused
+    block's hash dropout too (off them it takes JAX's composed route)."""
     from animal2vec_tpu_torch.models.attention import AlibiSpec
     from animal2vec_tpu_torch.models.modules import AltBlock
 
     torch.manual_seed(3)
-    block = AltBlock(32, 4, attention_dropout=0.3, activation_dropout=0.2, post_mlp_drop=0.2,
+    block = AltBlock(128, 4, attention_dropout=0.3, activation_dropout=0.2, post_mlp_drop=0.2,
                      encoder_dropout=0.1, drop_path=0.25).train()
     whole = {k: v.clone() for k, v in block.state_dict().items()}
-    x = torch.randn(2, 40, 32, generator=torch.Generator().manual_seed(4), requires_grad=True)
+    x = torch.randn(2, 40, 128, generator=torch.Generator().manual_seed(4), requires_grad=True)
     spec = AlibiSpec(torch.tensor([0.5, 0.25, 0.125, 0.0625], requires_grad=True),
                      torch.arange(40, dtype=torch.int32)[None])
 
