@@ -1,4 +1,5 @@
-// ALiBi flash-attention backward, bf16 in and out, D = 64: two kernels.
+// ALiBi flash-attention backward, bf16 in and out, head dims D <= 128 (a
+// multiple of 8): two kernels.
 //
 // Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
 //   _bwd_dq_kernel  -> alibi_attention_dq_kernel: dq and the per-(b, h,
@@ -76,6 +77,15 @@
 // scalar pass. S and dP read A (Q, dO; K, V) from shared memory: a build
 // holding it in registers (RS) ran a few percent faster at the training
 // shape but spilled dq at 3 blocks an SM.
+// Head dims: as in the forward (alibi_attention_fwd.cu) a head's row is NC
+// = 1 (D 64) or 2 (any other D up to 128) tiles of 64 columns, zero past D;
+// S and dP sum NC tile products. The dq kernel keeps NC dq accumulators
+// (two blocks an SM at NC = 2). The dk/dv kernel, already at 188-215
+// registers with one dk and one dv accumulator, does not double them: at
+// NC = 2 each block writes the 64 columns (cc) of dk and dv that its index
+// names and recomputes S^T and dP^T over the whole head, twice the scalar
+// pass for the same register budget. D = 64 runs the NC = 1 instances,
+// unchanged.
 // Both kernels are deterministic and use no atomics: the slope gradient is
 // reduced inside each block (quad shuffles for the row sums, then warp
 // shuffles and shared memory) to one fp32 partial per (b, h, query tile),
@@ -102,23 +112,22 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kD = 64;
 constexpr int kTile = 64;      // rows per block and per loop step
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // ring depth of the streamed pair (see the note above)
 constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
 constexpr int kTileBytes = kTileElems * 2;
 
-// dynamic shared memory: the block's two tiles, the ring of pairs, the
+// dynamic shared memory: the block's two heads, the ring of pairs, the
 // ring's side data, and slack to align the base to 1024 bytes
-constexpr int kDqSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + kStages * kTile * 16 +
-                        kTileAlign;
-constexpr int kDkvSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + kStages * kTile * 20 +
-                         kTileAlign;
+template <int NC>
+constexpr int kDqSmem = NC * (2 + kStages * 2) * kTileBytes + kStages * kTile * 16 + kTileAlign;
+template <int NC>
+constexpr int kDkvSmem = NC * (2 + kStages * 2) * kTileBytes + kStages * kTile * 20 + kTileAlign;
 
 struct BwdArgs {
   int pos_per_row, mask_per_row, has_sentinel;
-  int B, H, T;
+  int B, H, T, D;
   float sm_scale;
   uint32_t seed;     // dropout seed (int32 bits)
   uint32_t thresh;   // keep when hash >= thresh; 0 = no dropout
@@ -128,8 +137,8 @@ struct BwdArgs {
 
 // One block per (64-query tile, head, batch): dq rows and the block's
 // slope-gradient partial.
-template <bool kDrop, bool kSentinel>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int NC, bool kDrop, bool kSentinel>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
 alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
                           const bf16* __restrict__ dout,    // (B, H, T, D)
                           const float* __restrict__ lse,    // (B*H, T)
@@ -142,19 +151,21 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
                           BwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ float sRed[kThreads / 32];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sDO = sQ + kTileElems;
-  bf16* const sRing = sDO + kTileElems;  // stage s: K at 2s tiles in, V after it
+  bf16* const sDO = sQ + kHead;
+  bf16* const sRing = sDO + kHead;  // stage s: K at 2s heads in, V after it
   // per key of each stage: {position, sentinel factor (0 or 1), bias (0 or
   // -inf: padded or past T), unused}
-  float4* const sKey = reinterpret_cast<float4*>(sRing + kStages * 2 * kTileElems);
+  float4* const sKey = reinterpret_cast<float4*>(sRing + kStages * 2 * kHead);
 
   const int T = a.T, H = a.H;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t head = static_cast<size_t>(T) * kD;
+  const int D = a.D;
+  const size_t head = static_cast<size_t>(T) * D;
   const size_t plane = static_cast<size_t>(a.B) * H * head;
   const bf16* q = qkv + bh * head;
   const bf16* k = q + plane;
@@ -164,12 +175,13 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   const uint32_t seed_mix = drop_seed_mix(
       a.seed + (static_cast<uint32_t>(b) * a.hash_heads + a.h0 + h) * 0xC2B2AE3Du);
   const int n_tiles = (T + kTile - 1) / kTile;
-  const uint64_t desc_q = desc_sw128(sQ), desc_ring = desc_sw128(sRing);
+  const uint64_t desc_q = desc_sw128(sQ), desc_do = desc_sw128(sDO);
+  const uint64_t desc_ring = desc_sw128(sRing);
 
   auto stage_pair = [&](int kt) {
-    bf16* dst = sRing + (kt % kStages) * 2 * kTileElems;
-    stage_tile<kThreads>(dst, k, kD, kt * kTile, T, tid);
-    stage_tile<kThreads>(dst + kTileElems, v, kD, kt * kTile, T, tid);
+    bf16* dst = sRing + (kt % kStages) * 2 * kHead;
+    stage_head<kThreads, NC>(dst, k, D, kt * kTile, T, D, tid);
+    stage_head<kThreads, NC>(dst + kHead, v, D, kt * kTile, T, D, tid);
   };
   // threads < 64 read key kt*64 + tid's position and mask flag ...
   auto load_key = [&](int kt, int& p, int& m) {
@@ -185,8 +197,8 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   };
 
   // prologue: Q, dO and the first kStages - 1 pairs, one commit group each
-  stage_tile<kThreads>(sQ, q, kD, q0, T, tid);
-  stage_tile<kThreads>(sDO, dout + bh * head, kD, q0, T, tid);
+  stage_head<kThreads, NC>(sQ, q, D, q0, T, D, tid);
+  stage_head<kThreads, NC>(sDO, dout + bh * head, D, q0, T, D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage_pair(s);
@@ -225,9 +237,12 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     zrow[r] = static_cast<uint32_t>(row) * kHashRow;
   }
 
-  float acc_dq[32], sc[32], dp[32];
+  float acc_dq[NC][32], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_dq[i] = 0.f;
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_dq[n][i] = 0.f;
+  }
   // per-row sums over this thread's keys for the slope gradient:
   // sum P f dP dist, sum P dist and sum P f dP (the in-kernel delta), with
   // dist short of the row's sentinel factor
@@ -245,11 +260,11 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     }
     cp_async_commit();
 
-    const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * kDescTile;
+    const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * NC * kDescTile;
     wgmma_fence();
-    gemm_tile_ss<0, 0>(sc, desc_q, desc_k);                          // S = Q K^T
+    gemm_head_ss<NC>(sc, desc_q, desc_k);                        // S = Q K^T
     wgmma_commit();
-    gemm_tile_ss<0, 0>(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
+    gemm_head_ss<NC>(dp, desc_do, desc_k + NC * kDescTile);      // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -285,12 +300,16 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     uint32_t fds[4][4];
     frag_from_acc(fds, sc);
     wgmma_fence();
-    fence_regs(acc_dq);
-    gemm_frag_tile(acc_dq, fds, desc_k);  // dq += dS K
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      fence_regs(acc_dq[n]);
+      gemm_frag_tile(acc_dq[n], fds, desc_k + n * kDescTile);  // dq += dS K
+    }
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) store_key(nt, np, nm);
     wgmma_wait<0>();
-    fence_regs(acc_dq);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(acc_dq[n]);
     fence_regs(fds);
   }
 
@@ -301,9 +320,16 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row < T) {
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(&dqr[static_cast<size_t>(row) * kD + 8 * j + 2 * i4]) =
-            pack_bf16(acc_dq[4 * j + 2 * r] * a.sm_scale, acc_dq[4 * j + 2 * r + 1] * a.sm_scale);
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * n + 8 * j;
+          if (NC == 1 || col < D)
+            *reinterpret_cast<uint32_t*>(&dqr[static_cast<size_t>(row) * D + col + 2 * i4]) =
+                pack_bf16(acc_dq[n][4 * j + 2 * r] * a.sm_scale,
+                          acc_dq[n][4 * j + 2 * r + 1] * a.sm_scale);
+        }
+      }
     }
   }
 
@@ -327,8 +353,9 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     dslope_part[bh * gridDim.x + blockIdx.x] = sRed[0] + sRed[1] + sRed[2] + sRed[3];
 }
 
-// One block per (64-key tile, head, batch): dk and dv rows.
-template <bool kDrop, bool kSentinel>
+// One block per (64-key tile and 64-column chunk, head, batch): dk and dv
+// rows, their columns 64 cc .. 64 cc + 63.
+template <int NC, bool kDrop, bool kSentinel>
 __global__ void __launch_bounds__(kThreads, 2)
 alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
@@ -338,21 +365,23 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
                            bf16* __restrict__ dv,  // (B, H, T, D)
                            BwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sV = sK + kTileElems;
-  bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
+  bf16* const sV = sK + kHead;
+  bf16* const sRing = sV + kHead;  // stage s: Q at 2s heads in, dO after it
   // per query of each stage: {position, sentinel factor, -lse (-inf past
   // T), delta}, and the weight 1/T of a padded key in a row whose keys
   // are all padded (0 elsewhere)
-  float4* const sQry = reinterpret_cast<float4*>(sRing + kStages * 2 * kTileElems);
+  float4* const sQry = reinterpret_cast<float4*>(sRing + kStages * 2 * kHead);
   float* const sDead = reinterpret_cast<float*>(sQry + kStages * kTile);
 
   const int T = a.T, H = a.H;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x / NC * kTile, cc = blockIdx.x % NC, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t head = static_cast<size_t>(T) * kD;
+  const int D = a.D;
+  const size_t head = static_cast<size_t>(T) * D;
   const size_t plane = static_cast<size_t>(a.B) * H * head;
   const bf16* q = qkv + bh * head;
   const bf16* k = q + plane;
@@ -364,12 +393,13 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
       a.seed + (static_cast<uint32_t>(b) * a.hash_heads + a.h0 + h) * 0xC2B2AE3Du);
   const float inv_t = 1.f / T;
   const int n_tiles = (T + kTile - 1) / kTile;
-  const uint64_t desc_k = desc_sw128(sK), desc_ring = desc_sw128(sRing);
+  const uint64_t desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
+  const uint64_t desc_ring = desc_sw128(sRing);
 
   auto stage_pair = [&](int qt) {
-    bf16* dst = sRing + (qt % kStages) * 2 * kTileElems;
-    stage_tile<kThreads>(dst, q, kD, qt * kTile, T, tid);
-    stage_tile<kThreads>(dst + kTileElems, dor, kD, qt * kTile, T, tid);
+    bf16* dst = sRing + (qt % kStages) * 2 * kHead;
+    stage_head<kThreads, NC>(dst, q, D, qt * kTile, T, D, tid);
+    stage_head<kThreads, NC>(dst + kHead, dor, D, qt * kTile, T, D, tid);
   };
   // threads < 64 read query qt*64 + tid's position, lse and delta ...
   auto load_query = [&](int qt, int& p, float& l, float& dl) {
@@ -387,8 +417,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   };
 
   // prologue: K, V and the first kStages - 1 pairs, one commit group each
-  stage_tile<kThreads>(sK, k, kD, k0, T, tid);
-  stage_tile<kThreads>(sV, v, kD, k0, T, tid);
+  stage_head<kThreads, NC>(sK, k, D, k0, T, D, tid);
+  stage_head<kThreads, NC>(sV, v, D, k0, T, D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage_pair(s);
@@ -437,11 +467,12 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     }
     cp_async_commit();
 
-    const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * kDescTile;
+    const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * NC * kDescTile;
+    const uint64_t desc_do = desc_q + NC * kDescTile;
     wgmma_fence();
-    gemm_tile_ss<0, 0>(st, desc_k, desc_q);                          // S^T = K Q^T
+    gemm_head_ss<NC>(st, desc_k, desc_q);    // S^T = K Q^T
     wgmma_commit();
-    gemm_tile_ss<0, 0>(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
+    gemm_head_ss<NC>(dpt, desc_v, desc_do);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -486,8 +517,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     wgmma_fence();
     fence_regs(acc_dv);
     fence_regs(acc_dk);
-    gemm_frag_tile(acc_dv, fpf, desc_q + kDescTile);  // dv += (P f)^T dO
-    gemm_frag_tile(acc_dk, fds, desc_q);               // dk += dS^T Q
+    gemm_frag_tile(acc_dv, fpf, desc_do + cc * kDescTile);  // dv += (P f)^T dO
+    gemm_frag_tile(acc_dk, fds, desc_q + cc * kDescTile);   // dk += dS^T Q
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) store_query(nt, np, nl, nd);
     wgmma_wait<0>();
@@ -504,8 +535,10 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     const int key = k0 + warp * 16 + g + 8 * r;
     if (key < T) {
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const size_t at = static_cast<size_t>(key) * kD + 8 * j + 2 * i4;
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cc + 8 * j;
+        if (NC == 2 && col >= D) continue;
+        const size_t at = static_cast<size_t>(key) * D + col + 2 * i4;
         *reinterpret_cast<uint32_t*>(&dkr[at]) =
             pack_bf16(acc_dk[4 * j + 2 * r] * a.sm_scale, acc_dk[4 * j + 2 * r + 1] * a.sm_scale);
         *reinterpret_cast<uint32_t*>(&dvr[at]) =
@@ -516,8 +549,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
 }
 
 int check_args(int B, int H, int T, int D, int h0, int hash_heads) {
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || h0 < 0 ||
-      hash_heads < h0 + H)
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      h0 < 0 || hash_heads < h0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -525,8 +558,9 @@ int check_args(int B, int H, int T, int D, int h0, int hash_heads) {
 }  // namespace
 }  // namespace a2v
 
-// C entries, bound with ctypes. qkv (3, B, H, T, D) and dout (B, H, T, D)
-// bf16; lse and delta (B*H, T) fp32; positions (pos_per_row ? B : 1, T)
+// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
+// pads other head dims with zero columns). qkv (3, B, H, T, D) and dout
+// (B, H, T, D) bf16; lse and delta (B*H, T) fp32; positions (pos_per_row ? B : 1, T)
 // int32; mask null or (mask_per_row ? B : 1, T) uint8. dq, dk, dv are
 // (B, H, T, D) bf16 (planes of one (3, B, H, T, D) gradient); dslope_part is
 // (B, H, ceil(T / 64)) fp32. Each returns a cudaError_t.
@@ -539,19 +573,28 @@ extern "C" int a2v_alibi_attention_bwd_dq(const void* qkv, const void* dout, con
                                           int hash_heads, void* stream) {
   using namespace a2v;
   if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
-  const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
+  const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, D, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
   using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
                           const int*, const uint8_t*, bf16*, float*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
-  const Kernel kernel =
-      drop ? (sentinel ? alibi_attention_dq_kernel<true, true> : alibi_attention_dq_kernel<true, false>)
-           : (sentinel ? alibi_attention_dq_kernel<false, true>
-                       : alibi_attention_dq_kernel<false, false>);
+  const bool wide = D != 64;
+  const Kernel narrow_kernel =
+      drop ? (sentinel ? alibi_attention_dq_kernel<1, true, true>
+                       : alibi_attention_dq_kernel<1, true, false>)
+           : (sentinel ? alibi_attention_dq_kernel<1, false, true>
+                       : alibi_attention_dq_kernel<1, false, false>);
+  const Kernel wide_kernel =
+      drop ? (sentinel ? alibi_attention_dq_kernel<2, true, true>
+                       : alibi_attention_dq_kernel<2, true, false>)
+           : (sentinel ? alibi_attention_dq_kernel<2, false, true>
+                       : alibi_attention_dq_kernel<2, false, false>);
+  const Kernel kernel = wide ? wide_kernel : narrow_kernel;
+  const int smem = wide ? kDqSmem<2> : kDqSmem<1>;
   if (cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem))
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return static_cast<int>(err);
-  kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, kDqSmem,
+  kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -570,20 +613,29 @@ extern "C" int a2v_alibi_attention_bwd_dkv(const void* qkv, const void* dout, co
                                            int hash_heads, void* stream) {
   using namespace a2v;
   if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
-  const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, sm_scale,
+  const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, D, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
   using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
                           const int*, const uint8_t*, bf16*, bf16*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
-  const Kernel kernel =
-      drop ? (sentinel ? alibi_attention_dkv_kernel<true, true>
-                       : alibi_attention_dkv_kernel<true, false>)
-           : (sentinel ? alibi_attention_dkv_kernel<false, true>
-                       : alibi_attention_dkv_kernel<false, false>);
+  const int nc = D == 64 ? 1 : 2;
+  const Kernel narrow_kernel =
+      drop ? (sentinel ? alibi_attention_dkv_kernel<1, true, true>
+                       : alibi_attention_dkv_kernel<1, true, false>)
+           : (sentinel ? alibi_attention_dkv_kernel<1, false, true>
+                       : alibi_attention_dkv_kernel<1, false, false>);
+  const Kernel wide_kernel =
+      drop ? (sentinel ? alibi_attention_dkv_kernel<2, true, true>
+                       : alibi_attention_dkv_kernel<2, true, false>)
+           : (sentinel ? alibi_attention_dkv_kernel<2, false, true>
+                       : alibi_attention_dkv_kernel<2, false, false>);
+  const Kernel kernel = nc == 2 ? wide_kernel : narrow_kernel;
+  const int smem = nc == 2 ? kDkvSmem<2> : kDkvSmem<1>;
   if (cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem))
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return static_cast<int>(err);
-  kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, kDkvSmem,
+  // one block per key tile and 64-column chunk of dk and dv
+  kernel<<<dim3((T + kTile - 1) / kTile * nc, H, B), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

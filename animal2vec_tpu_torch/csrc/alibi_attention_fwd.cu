@@ -1,6 +1,7 @@
-// ALiBi flash-attention forward, bf16 in and out, D = 64, on Hopper's
-// wgmma: serving (no lse, no dropout) and training (the logsumexp residual
-// of the backward and the in-kernel hash dropout), one kernel.
+// ALiBi flash-attention forward, bf16 in and out, head dims D <= 128 (a
+// multiple of 8), on Hopper's wgmma: serving (no lse, no dropout) and
+// training (the logsumexp residual of the backward and the in-kernel hash
+// dropout), one kernel.
 //
 // Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
 // _kernel_serve_nk1 (batch-uniform positions, one key block) and _kernel
@@ -25,7 +26,7 @@
 // weights and the dropout scales the weights of P.V only.
 //
 // q, k and v are read in place: (B, T, H, D) views with one set of element
-// strides (batch, head, token), a head's row 128 contiguous bytes. The
+// strides (batch, head, token), a head's row 2D contiguous bytes. The
 // model's serving call hands over the q, k, v thirds of its (B, T, 3, H, D)
 // projection (token stride 3C) and takes out as (B, T, H, D), so neither
 // the packed (3, B, H, T, D) copy of qkv nor the copy of the output back to
@@ -88,6 +89,15 @@
 //   - Every wgmma group is issued unconditionally: a product issued under
 //     a branch (the last tile's k16 steps that hold no live key) made
 //     ptxas fence and serialize each of them, which measured slower.
+// Head dims: a head's row is NC = 1 (D 64) or 2 (any other D up to 128)
+// swizzled tiles of 64 columns (sm90.cuh stage_head), columns past D
+// zero-filled in shared memory, so S sums NC tile products and O is NC
+// accumulators of 64 columns, each its own P V product; only columns < D
+// are written, and the scale is the caller's, D^-0.5 of the true D. A D 80
+// head runs the two-tile instance: 80/128 of its products are work (32/128
+// at D 32). The NC = 2 instances hold 32 more accumulator registers a
+// thread and run one block an SM. D = 64 runs the NC = 1 instances, whose
+// code is the code before the head dims came.
 // Two warpgroups a block, two blocks an SM (<= 128 registers). Measured
 // slower on an H100 (PERF.md): three warpgroups, one, a third ring stage,
 // tiles of 128 keys (S by m64n128k16; 186-213 registers at one block an
@@ -104,7 +114,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kD = 64;
 constexpr int kTile = 64;               // keys per tile; query rows per warpgroup
 constexpr int kWG = 2;                  // warpgroups per block
 constexpr int kThreads = 128 * kWG;
@@ -112,12 +121,14 @@ constexpr int kStages = 2;              // ring depth of the key tiles
 constexpr float kMasked = -1e9f;        // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kDeadGap = -88.f;       // training: expf below it is under 2^-126
-constexpr int kSmem = kTileElems * 2 * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
+// Q's tiles, the ring's K and V tiles, each key's {pos, entry}, slack
+template <int NC>
+constexpr int kSmem = kTileElems * 2 * NC * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
 
 struct FwdArgs {
   long long stride_b, stride_h, stride_t;  // elements, shared by q, k and v
   long long out_b, out_h, out_t;           // elements of out
-  int H, T;
+  int H, T, D;
   int pos_row;   // elements between batch rows of positions (0: batch-uniform)
   int posk_row;  // elements between batch rows of the key positions
   int mask_row;  // elements between batch rows of the padding mask
@@ -132,8 +143,8 @@ struct FwdArgs {
 
 // TRAIN: scores in natural units (and the lse when lse is not null); DROP
 // (only with TRAIN): the hash dropout.
-template <bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
 alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const float* __restrict__ slopes,  // (H,)
@@ -145,9 +156,10 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  FwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sK = sQ + kWG * kTileElems;  // stage s at s tiles in
-  bf16* const sV = sK + kStages * kTileElems;
-  float2* const sKey = reinterpret_cast<float2*>(sV + kStages * kTileElems);  // {pos, entry}
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  bf16* const sK = sQ + kWG * kHead;       // stage s at s heads in
+  bf16* const sV = sK + kStages * kHead;
+  float2* const sKey = reinterpret_cast<float2*>(sV + kStages * kHead);  // {pos, entry}
 
   const int T = a.T, h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kTile * kWG;
@@ -166,8 +178,8 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt's K and V into its ring slot; one commit group
   auto stage = [&](int kt) {
     const int slot = kt % kStages;
-    stage_tile<kThreads>(sK + slot * kTileElems, kb, a.stride_t, kt * kTile, T, tid);
-    stage_tile<kThreads>(sV + slot * kTileElems, vb, a.stride_t, kt * kTile, T, tid);
+    stage_head<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, kt * kTile, T, a.D, tid);
+    stage_head<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, kt * kTile, T, a.D, tid);
   };
   // threads < 64: key kt * 64 + tid's position and mask entry
   auto key_entry = [&](int kt) {
@@ -181,7 +193,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // commit group each
 #pragma unroll
   for (int w = 0; w < kWG; ++w)
-    stage_tile<kThreads>(sQ + w * kTileElems, qb, a.stride_t, q0 + w * kTile, T, tid);
+    stage_head<kThreads, NC>(sQ + w * kHead, qb, a.stride_t, q0 + w * kTile, T, a.D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage(s);
@@ -208,10 +220,13 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t zrow = static_cast<uint32_t>(row0) * kHashRow;
   float m[2] = {kMasked, kMasked};  // running max, in the scores' units
   float l[2] = {0.f, 0.f};
-  float o[32], sc[32];
+  float o[NC][32], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  const uint64_t desc_q = desc_sw128(sQ) + wg * kDescTile;
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+  }
+  const uint64_t desc_q = desc_sw128(sQ) + wg * NC * kDescTile;
   const uint64_t desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -228,7 +243,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int slot = kt % kStages;
     wgmma_fence();
-    gemm_tile_ss<0, 0>(sc, desc_q, desc_k + slot * kDescTile);  // S = Q K^T
+    gemm_head_ss<NC>(sc, desc_q, desc_k + slot * NC * kDescTile);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -302,20 +317,27 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+      }
     }
 
     // O += P V (keys past T have P = 0 and zero-filled V rows)
     uint32_t pf[4][4];
     frag_from_acc(pf, sc);
     wgmma_fence();
-    fence_regs(o);
-    gemm_frag_tile(o, pf, desc_v + slot * kDescTile);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      fence_regs(o[n]);
+      gemm_frag_tile(o[n], pf, desc_v + (slot * NC + n) * kDescTile);
+    }
     wgmma_commit();
     // ... and write the next tile's keys into their slot
     if (nt < n_tiles && tid < kTile) sKey[(nt % kStages) * kTile + tid] = nkey;
     wgmma_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(o[n]);
     fence_regs(pf);
   }
 
@@ -333,47 +355,70 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.f / l[r];
     bf16* orow = ob + row * a.out_t;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * i4) =
-          TRAIN ? pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r])
-                : pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j;  // columns past D are not written
+        if (NC == 1 || col < a.D)
+          *reinterpret_cast<uint32_t*>(orow + col + 2 * i4) =
+              TRAIN ? pack_bf16(o[n][4 * j + 2 * r] / l[r], o[n][4 * j + 2 * r + 1] / l[r])
+                    : pack_bf16(o[n][4 * j + 2 * r] * inv, o[n][4 * j + 2 * r + 1] * inv);
+      }
+    }
     if (TRAIN && lse != nullptr && i4 == 0)
       lse[(static_cast<long long>(b) * a.H + h) * T + row] = m[r] + logf(l[r]);
   }
 }
 
-template <bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
 int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
            const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask, bf16* out,
            float* lse, const FwdArgs& a) {
-  constexpr auto kernel = alibi_fwd_kernel<HAS_MASK, HAS_SENTINEL, TRAIN, DROP>;
+  constexpr auto kernel = alibi_fwd_kernel<NC, HAS_MASK, HAS_SENTINEL, TRAIN, DROP>;
   // the shared-memory limit above 48 KB, raised once per process and instance
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<NC>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kThreads, kSmem, s>>>(q, k, v, slopes, pos, pos_k, mask, out, lse, a);
+  kernel<<<grid, kThreads, kSmem<NC>, s>>>(q, k, v, slopes, pos, pos_k, mask, out, lse, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TRAIN, bool DROP>
+template <int NC, bool TRAIN, bool DROP>
 int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const bf16* q,
              const bf16* k, const bf16* v, const float* slopes, const int* pos,
              const int* pos_k, const uint8_t* mask, bf16* out, float* lse, const FwdArgs& a) {
   if (has_mask)
-    return has_sentinel ? launch<true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
-                                                          mask, out, lse, a)
-                        : launch<true, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
-                                                           mask, out, lse, a);
-  return has_sentinel ? launch<false, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
-                                                         mask, out, lse, a)
-                      : launch<false, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos, pos_k,
-                                                          mask, out, lse, a);
+    return has_sentinel ? launch<NC, true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos,
+                                                              pos_k, mask, out, lse, a)
+                        : launch<NC, true, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos,
+                                                               pos_k, mask, out, lse, a);
+  return has_sentinel ? launch<NC, false, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos,
+                                                             pos_k, mask, out, lse, a)
+                      : launch<NC, false, false, TRAIN, DROP>(grid, s, q, k, v, slopes, pos,
+                                                              pos_k, mask, out, lse, a);
+}
+
+// The serving or training instances of the head's tile count.
+template <int NC>
+int dispatch_mode(bool train, bool drop, bool has_mask, bool has_sentinel, dim3 grid,
+                  cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                  const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask,
+                  bf16* out, float* lse, const FwdArgs& a) {
+  if (drop)
+    return dispatch<NC, true, true>(has_mask, has_sentinel, grid, s, q, k, v, slopes, pos, pos_k,
+                                    mask, out, lse, a);
+  if (train)
+    return dispatch<NC, true, false>(has_mask, has_sentinel, grid, s, q, k, v, slopes, pos,
+                                     pos_k, mask, out, lse, a);
+  return dispatch<NC, false, false>(has_mask, has_sentinel, grid, s, q, k, v, slopes, pos, pos_k,
+                                    mask, out, lse, a);
 }
 
 }  // namespace
 }  // namespace a2v
 
-// C entry, bound with ctypes. q, k, v: bf16 (B, T, H, D) with element
+// C entry, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper pads
+// other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
 // strides (stride_b, stride_t, stride_h, 1), 16-byte aligned, strides
 // multiples of 8; out: bf16 (B, T, H, D) with strides (out_b, out_t, out_h,
 // 1), 16-byte aligned, strides multiples of 8; slopes fp32 (H,); positions
@@ -397,8 +442,9 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
   const long long strides[] = {stride_b, stride_t, stride_h, out_b, out_t, out_h};
   for (const long long st : strides)
     if (st % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || misaligned(q) ||
-      misaligned(k) || misaligned(v) || misaligned(out) || h0 < 0 || hash_heads < h0 + H)
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out) || h0 < 0 ||
+      hash_heads < h0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -412,16 +458,15 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
   auto* o = static_cast<bf16*>(out);
   auto* ls = static_cast<float*>(lse);
   const bool train = ls != nullptr || thresh != 0u;
-  const FwdArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T,
+  const FwdArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T, D,
                   pos_per_row ? T : 0,
                   (pos_k != nullptr ? posk_per_row : pos_per_row) ? T : 0, mask_per_row ? T : 0,
                   train ? sm_scale : sm_scale * kLog2e, train ? 1.f : kLog2e,
                   static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
-  const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0;
-  if (thresh != 0u)
-    return dispatch<true, true>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls, a);
-  if (train)
-    return dispatch<true, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls,
-                                 a);
-  return dispatch<false, false>(has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o, ls, a);
+  const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0, drop = thresh != 0u;
+  if (D == 64)
+    return dispatch_mode<1>(train, drop, has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk,
+                            o, ls, a);
+  return dispatch_mode<2>(train, drop, has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o,
+                          ls, a);
 }

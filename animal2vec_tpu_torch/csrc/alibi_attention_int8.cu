@@ -1,10 +1,11 @@
-// int8 ALiBi flash-attention forward of serving, D = 64, bf16 out, on
+// int8 ALiBi flash-attention forward of serving, head dims D <= 128 (a
+// multiple of 8), bf16 out, on
 // Hopper's int8 wgmma; and the one CUDA pass that quantizes its q, k, v.
 //
 // Replaces the TPU kernel animal2vec_tpu/ops/pallas_attention.py:_kernel_q8
 // and its wrapper's quantization (alibi_flash_attention_int8, :816-831,
 // XLA ops there). q and k are quantized per row over D (D^-0.5 folded into
-// q before its max), v per channel over T. Over each span of `span` keys
+// q before its max, the caller's fp32 of it), v per channel over T. Over each span of `span` keys
 // (the TPU kernel's key block, 2048 at most):
 //
 //   s  = fp32(q8 . k8) * qs * ks - slope * |pos_i - pos_j|  (0 at sentinels)
@@ -27,28 +28,32 @@
 // D contiguous), and writes, bit for bit ops/attention.quantize_qkv_int8's
 // values (max|x| * fp32(1/127) floored at 1e-12, an IEEE division, round
 // half to even):
-//   1. quantize_qk: q8, k8 (B, H, T, D) int8 and qs, ks (B, H, T) fp32, one
-//      (token, head) row per 8 threads;
+//   1. quantize_qk: q8, k8 (B, H, T, Dp) int8 and qs, ks (B, H, T) fp32, one
+//      (token, head) row per Dp / 8 threads;
 //   2. quantize_v: per (b, h) block, v's per-channel max over all T, then
-//      v8^T (B, H, D, t_pad) int8, zero past T, with the keys of every 32
+//      v8^T (B, H, Dp, t_pad) int8, zero past T, with the keys of every 32
 //      in the order the P V product reads them (below), and vsc = vs *
 //      fp32(1/127) (B, H, D).
+// Dp is the head padded to the kernel's tiles, 64 NC (NC = 1 for D 64, 2
+// for any other D up to 128); q8, k8 and v8^T are zero past D (a zero channel's scale
+// is the 1e-12 floor), so the padded columns add nothing to Q K^T and give
+// zero P V columns, which are not written.
 //
 // The kernel (sm_90a): a block of two warpgroups owns 128 query rows of one
 // (batch, head), each warpgroup 64 rows, wgmma's M. The warpgroups share a
 // 2-stage cp.async ring whose slots hold 128 keys: two K8 tiles (64 keys x
-// 64 B), in pass 2 also the 64 channels' v8^T for them (two tiles), and
+// Dp B), in pass 2 also the Dp channels' v8^T for them (2 NC tiles), and
 // each key's position, scale and mask entry (+inf live, -1e9 padded or
 // past T). The walk is one stream of steps, span by span, the span's keys
 // in pass 1 and then again in pass 2, so the copies of the next step are
 // in flight across the boundary between passes and spans; a step works
 // through its two 64-key halves one after the other (one S accumulator),
 // so a barrier serves 128 keys.
-//   - S = Q8 K8^T: SS wgmma m64n64k32 s8 x s8 -> s32, two k32 steps over D.
-//     A staged row is 64 int8 = 64 bytes, held in the first half of a
-//     128-byte swizzled row (sm90.cuh's sw128 layout and descriptor; the
-//     k32 steps start 0 and 32 bytes in), so the int8 tiles take the bf16
-//     kernels' proven descriptor at twice the bytes.
+//   - S = Q8 K8^T: SS wgmma m64n64k32 s8 x s8 -> s32, 2 NC k32 steps over
+//     Dp. A staged row is Dp int8, held in the first half (NC = 1) or the
+//     whole of a 128-byte swizzled row (sm90.cuh's sw128 layout and
+//     descriptor; the k32 steps start 0, 32, 64, 96 bytes in), so the int8
+//     tiles take the bf16 kernels' proven descriptor at twice the bytes.
 //   - The dequant ((fp32(s) * qs) * ks), the bias, the mask entry and the
 //     max in fp32, each product and sum rounded on its own, in the TPU
 //     kernel's order, so the scores and the span's max are the plain
@@ -63,8 +68,9 @@
 //     log2(e) into the scale and the slope, one instruction less, rounds
 //     the scores themselves: an error relative to |s| (the bias reaches
 //     hundreds) that flipped ten times as many P values.
-//   - O_int32 += P8 V8: RS wgmma m64n64k32 with P8 packed from the S
-//     accumulator's registers as the A operand. The accumulator gives a
+//   - O_int32 += P8 V8: RS wgmma m64n64k32, one for each 64 channels of
+//     V, with P8 packed from the S accumulator's registers as the A
+//     operand. The accumulator gives a
 //     thread the keys 8j + 2i + {0, 1} of its rows; the A fragment wants
 //     the k32 step's columns 4i .. 4i + 3 and 16 + 4i .. 16 + 4i + 3. So
 //     A's column a of a 32-key step carries the key
@@ -80,7 +86,9 @@
 //     last span writes the output, and with two spans or more the fp32
 //     sums wait in a global scratch between spans (the registers hold S,
 //     the int32 O and P's fragments).
-// Two blocks an SM (128 registers, 2 x 84 KB of shared memory). ptxas
+// NC = 1: two blocks an SM (128 registers, 2 x 84 KB of shared memory);
+// NC = 2 (32 more int32 accumulators a thread, 116 KB): one. D = 64 runs
+// the NC = 1 instances, unchanged. ptxas
 // spills a few values (8-60 bytes stored a thread, up to 376 loaded in the
 // masked instances); the loops over a step's two halves rolled up spill
 // less and measured 2-7 % slower (PERF.md), as did the previous design
@@ -106,22 +114,25 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kD = 64;
 constexpr int kTile = 64;             // keys per tile; query rows per warpgroup
 constexpr int kWG = 2;                // warpgroups per block
 constexpr int kThreads = 128 * kWG;
 constexpr int kStages = 2;            // ring depth of the key tiles
-constexpr int kRowBytes = 128;        // a staged row: 64 int8 in a 128-byte swizzled row
+constexpr int kRowBytes = 128;        // a staged row: Dp int8 in a 128-byte swizzled row
 constexpr int kS8Tile = kTile * kRowBytes;   // 8 KB
 constexpr int kStepKeys = 2 * kTile;  // keys a step: two K tiles (and two V^T tiles)
 constexpr float kMaskScore = -1e9f;   // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
-// Q tiles, the ring's slots of four tiles (two K, two V^T), each key's
+// Q tiles, the ring's slots of 2 + 2 NC tiles (two K, 2 NC V^T), each key's
 // {position, scale} and mask entry
-constexpr int kSmem = kS8Tile * (kWG + 4 * kStages) + kStages * kStepKeys * 12 + kTileAlign;
+template <int NC>
+constexpr int kSlotTiles = 2 + 2 * NC;
+template <int NC>
+constexpr int kSmem =
+    kS8Tile * (kWG + kSlotTiles<NC> * kStages) + kStages * kStepKeys * 12 + kTileAlign;
 
 struct Int8Args {
-  int H, T;
+  int H, T, D;
   int t_pad;     // keys walked: a multiple of span; the row length of v8^T
   int span;      // keys per P quantization (a multiple of 128)
   int pos_row;   // elements between batch rows of positions (0: batch-uniform)
@@ -132,8 +143,8 @@ struct Int8Args {
 // 1.5 * 2^23 (whose fp32 ulp is 1): two full-rate instructions each in
 // place of I2F / F2I, which issue at 16 a clock per SM, an eighth of the
 // fp32 rate (measured 2-7 % faster at b32 than I2F, F2I and pack_s8x4,
-// PERF.md). fp32 of an int32 with |v| < 2^22 (a Q K^T sum over D = 64 is
-// at most 64 x 127^2), exactly:
+// PERF.md). fp32 of an int32 with |v| < 2^22 (a Q K^T sum over D <= 128
+// is at most 128 x 127^2), exactly:
 __device__ __forceinline__ float s32_to_f32(int v) {
   return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
 }
@@ -148,35 +159,42 @@ __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint3
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-// Rows row0 .. row0 + 63 of a plane of 64-byte int8 rows (row_stride bytes
-// apart) into the first halves of a 128-byte swizzled tile's rows, 16 bytes
-// a thread; rows at or past n_rows are zero-filled. The caller commits.
+// Rows row0 .. row0 + 63 of a plane of int8 rows (row_stride bytes apart),
+// their first 16 kChunks bytes, into a 128-byte swizzled tile's rows, 16
+// bytes a copy; rows at or past n_rows are zero-filled. The caller commits.
+template <int kChunks>
 __device__ __forceinline__ void stage_s8_rows(int8_t* tile, const int8_t* src, long long row_stride,
                                               int row0, int n_rows, int tid) {
-  const int r = tid >> 2, ch = tid & 3, row = row0 + r;
-  const bool in = row < n_rows;
-  cp_async_16(tile + r * kRowBytes + ((ch ^ (r & 7)) << 4),
-              src + (in ? row : 0) * row_stride + ch * 16, in);
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads, r = c / kChunks, ch = c % kChunks, row = row0 + r;
+    const bool in = row < n_rows;
+    cp_async_16(tile + r * kRowBytes + ((ch ^ (r & 7)) << 4),
+                in ? src + row * row_stride + ch * 16 : src, in);
+  }
 }
 
-template <bool HAS_MASK, bool HAS_SENTINEL>
-__global__ void __launch_bounds__(kThreads, 2)
-alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
+alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, Dp)
                   const float* __restrict__ qs,    // (B, H, T)
-                  const int8_t* __restrict__ k8,   // (B, H, T, D)
+                  const int8_t* __restrict__ k8,   // (B, H, T, Dp)
                   const float* __restrict__ ks,    // (B, H, T)
-                  const int8_t* __restrict__ v8t,  // (B, H, D, t_pad), keys permuted
+                  const int8_t* __restrict__ v8t,  // (B, H, Dp, t_pad), keys permuted
                   const float* __restrict__ vsc,   // (B, H, D): vs / 127
                   const float* __restrict__ slopes,  // (H,)
                   const int* __restrict__ pos,     // (1 or B, T)
                   const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
                   bf16* __restrict__ out,          // (B, T, H, D)
-                  float* __restrict__ o_acc,       // (B, H, T, D) fp32 when two spans or more
+                  float* __restrict__ o_acc,       // (B, H, T, Dp) fp32 when two spans or more
                   Int8Args a) {
+  constexpr int kDp = 64 * NC, kSlot = kSlotTiles<NC>;
   extern __shared__ uint8_t smem_raw[];
   int8_t* const sQ = reinterpret_cast<int8_t*>(align_tiles(smem_raw));
-  int8_t* const sRing = sQ + kWG * kS8Tile;  // slot s: K0, K1, V0, V1 at 4s tiles in
-  float2* const sKD = reinterpret_cast<float2*>(sRing + kStages * 4 * kS8Tile);  // {pos, ks}
+  // slot s at kSlot s tiles in: K of keys 0-63 and 64-127, then V^T of each
+  // 64 keys in NC tiles of 64 channels
+  int8_t* const sRing = sQ + kWG * kS8Tile;
+  float2* const sKD = reinterpret_cast<float2*>(sRing + kStages * kSlot * kS8Tile);  // {pos, ks}
   float* const sKE = reinterpret_cast<float*>(sKD + kStages * kStepKeys);  // mask entry
 
   const int T = a.T, H = a.H, h = blockIdx.y, b = blockIdx.z;
@@ -185,10 +203,10 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
   const int g = lane >> 2, i4 = lane & 3;
 
   const long long bh = static_cast<long long>(b) * H + h;
-  const int8_t* qb = q8 + bh * T * kD;
-  const int8_t* kb = k8 + bh * T * kD;
+  const int8_t* qb = q8 + bh * T * kDp;
+  const int8_t* kb = k8 + bh * T * kDp;
   const float* ksb = ks + bh * T;
-  const int8_t* vb = v8t + bh * kD * a.t_pad;
+  const int8_t* vb = v8t + bh * kDp * a.t_pad;
   const int* posr = pos + static_cast<long long>(b) * a.pos_row;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<long long>(b) * a.mask_row : nullptr;
   // a span's steps: span / 128 of pass 1 (two K tiles each), then as many
@@ -202,14 +220,18 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
   };
   auto stage = [&](int st) {
     const int key0 = step_key(st);
-    int8_t* slot = sRing + (st % kStages) * 4 * kS8Tile;
+    int8_t* slot = sRing + (st % kStages) * kSlot * kS8Tile;
     const bool with_v = (st / n_pass) & 1;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      stage_s8_rows(slot + half * kS8Tile, kb, kD, key0 + half * kTile, T, tid);
-      if (with_v)  // the 64 channels' v8^T rows for the half's 64 keys
-        stage_s8_rows(slot + (2 + half) * kS8Tile, vb + key0 + half * kTile, a.t_pad, 0, kD,
-                      tid);
+      stage_s8_rows<kDp / 16>(slot + half * kS8Tile, kb, kDp, key0 + half * kTile, T, tid);
+      if (with_v) {  // the Dp channels' v8^T rows for the half's 64 keys
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+          stage_s8_rows<4>(slot + (2 + half * NC + n) * kS8Tile,
+                           vb + static_cast<long long>(64 * n) * a.t_pad + key0 + half * kTile,
+                           a.t_pad, 0, 64, tid);
+      }
     }
   };
   // threads < 128: the data of step st's key tid
@@ -230,7 +252,8 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
 
   // prologue: the Q tiles with step 0, then steps 1 .. kStages - 2
 #pragma unroll
-  for (int w = 0; w < kWG; ++w) stage_s8_rows(sQ + w * kS8Tile, qb, kD, q0 + w * kTile, T, tid);
+  for (int w = 0; w < kWG; ++w)
+    stage_s8_rows<kDp / 16>(sQ + w * kS8Tile, qb, kDp, q0 + w * kTile, T, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_steps) stage(s);
@@ -280,8 +303,10 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
   for (int i = 0; i < 32; ++i) sacc[i] = 0;
   auto qk = [&](int rt) {
     wgmma_fence();
-    wgmma_s8_n64(sacc, desc_q, desc_ring + rt * kDescS8Tile, 0);
-    wgmma_s8_n64(sacc, desc_q + kDescStepK, desc_ring + rt * kDescS8Tile + kDescStepK, 1);
+#pragma unroll
+    for (int kk = 0; kk < 2 * NC; ++kk)
+      wgmma_s8_n64(sacc, desc_q + kk * kDescStepK, desc_ring + rt * kDescS8Tile + kk * kDescStepK,
+                   kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
@@ -330,7 +355,7 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
       const auto max_of = [&](int, int r, float x) { mx[r] = fmaxf(mx[r], x); };
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        qk(4 * (st % kStages) + half);
+        qk(kSlot * (st % kStages) + half);
         scores(st, half * kTile, max_of);
       }
       end(st, nk);
@@ -345,15 +370,18 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
     }
 
     // pass 2: p, its int8 quantization, and P V, 64 keys at a time
-    int pv[32];
+    int pv[NC][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) pv[i] = 0;
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pv[n][i] = 0;
+    }
     float lsum[2] = {0.f, 0.f};
     for (int it = 0; it < n_pass; ++it, ++st) {
       const KeyData nk = begin(st);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int rt = 4 * (st % kStages) + half;
+        const int rt = kSlot * (st % kStages) + half;
         qk(rt);
         scores(st, half * kTile, [&](int i, int r, float x) {
           const float p = ex2(__fmul_rn(__fsub_rn(x, m_new[r]), kLog2e));
@@ -376,15 +404,19 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
                                                   sacc[4 * j + 5 + 2 * r]);
           }
         }
-        const uint64_t desc_v = desc_ring + (rt + 2) * kDescS8Tile;
+        const uint64_t desc_v = desc_ring + (rt - half + 2 + half * NC) * kDescS8Tile;
         wgmma_fence();
-        fence_regs(pv);
-        wgmma_s8_n64_rs(pv, pa[0], desc_v, 1);
-        wgmma_s8_n64_rs(pv, pa[1], desc_v + kDescStepK, 1);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          fence_regs(pv[n]);
+          wgmma_s8_n64_rs(pv[n], pa[0], desc_v + n * kDescS8Tile, 1);
+          wgmma_s8_n64_rs(pv[n], pa[1], desc_v + n * kDescS8Tile + kDescStepK, 1);
+        }
         wgmma_commit();
         if (half == 1) end(st, nk);
         wgmma_wait<0>();
-        fence_regs(pv);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) fence_regs(pv[n]);
         fence_regs(pa);
       }
     }
@@ -405,26 +437,31 @@ alibi_int8_kernel(const int8_t* __restrict__ q8,   // (B, H, T, D)
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       inv[r] = fmaxf(lt, 1e-30f);
     }
-    const float* vs = vsc + bh * kD;
+    const float* vs = vsc + bh * a.D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + 64 * wg + 16 * warp + g + 8 * r;
       if (row >= T) continue;
-      float* orow = o_acc + (bh * T + row) * kD;
-      bf16* out_row = out + ((static_cast<long long>(b) * T + row) * H + h) * kD;
+      float* orow = o_acc + (bh * T + row) * kDp;
+      bf16* out_row = out + ((static_cast<long long>(b) * T + row) * H + h) * a.D;
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const int col = 8 * j + 2 * i4;
-        float2 prev = make_float2(0.f, 0.f);
-        if (!first) prev = *reinterpret_cast<const float2*>(orow + col);
-        const float y0 = __fadd_rn(__fmul_rn(prev.x, alpha[r]),
-                                   __fmul_rn(__int2float_rn(pv[4 * j + 2 * r]), vs[col]));
-        const float y1 = __fadd_rn(__fmul_rn(prev.y, alpha[r]),
-                                   __fmul_rn(__int2float_rn(pv[4 * j + 2 * r + 1]), vs[col + 1]));
-        if (last)
-          *reinterpret_cast<uint32_t*>(out_row + col) = pack_bf16(y0 / inv[r], y1 / inv[r]);
-        else
-          *reinterpret_cast<float2*>(orow + col) = make_float2(y0, y1);
+      for (int n = 0; n < NC; ++n) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (NC == 2 && 64 * n + 8 * j >= a.D) continue;  // columns past D are not written
+          const int col = 64 * n + 8 * j + 2 * i4;
+          float2 prev = make_float2(0.f, 0.f);
+          if (!first) prev = *reinterpret_cast<const float2*>(orow + col);
+          const float y0 = __fadd_rn(__fmul_rn(prev.x, alpha[r]),
+                                     __fmul_rn(__int2float_rn(pv[n][4 * j + 2 * r]), vs[col]));
+          const float y1 =
+              __fadd_rn(__fmul_rn(prev.y, alpha[r]),
+                        __fmul_rn(__int2float_rn(pv[n][4 * j + 2 * r + 1]), vs[col + 1]));
+          if (last)
+            *reinterpret_cast<uint32_t*>(out_row + col) = pack_bf16(y0 / inv[r], y1 / inv[r]);
+          else
+            *reinterpret_cast<float2*>(orow + col) = make_float2(y0, y1);
+        }
       }
     }
   }
@@ -436,28 +473,32 @@ constexpr int kQThreads = 256;
 
 struct QuantArgs {
   long long stride_b, stride_t, stride_h;  // elements of q, k and v
-  int B, H, T, t_pad;
+  int B, H, T, t_pad, D;
+  float q_scale;  // fp32 of D^-0.5, folded into q
 };
 
-// One (token, head) row of q or k per 8 threads, 8 values (16 bytes) each:
-// row item = ((b T + t) 2 + which) H + h, so a warp reads 4 rows of one
-// token's q or k third.
+// One (token, head) row of q or k per Dp / 8 threads, 8 values (16 bytes)
+// each, zero past D: row item = ((b T + t) 2 + which) H + h, so a warp
+// reads 256 / Dp rows of one token's q or k third.
+template <int NC>
 __global__ void __launch_bounds__(kQThreads)
 quantize_qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, QuantArgs a,
                    int8_t* __restrict__ q8, float* __restrict__ qs, int8_t* __restrict__ k8,
                    float* __restrict__ ks) {
+  constexpr int kSub = 8 * NC, kDp = 64 * NC;  // threads a row; its padded length
   const long long n_items = 2ll * a.B * a.T * a.H;
   const long long gid = static_cast<long long>(blockIdx.x) * kQThreads + threadIdx.x;
-  const int sub = threadIdx.x & 7;
-  const bool valid = (gid >> 3) < n_items;
-  const long long item = valid ? gid >> 3 : 0;
+  const int sub = threadIdx.x % kSub;
+  const bool valid = gid / kSub < n_items;
+  const long long item = valid ? gid / kSub : 0;
   const int h = static_cast<int>(item % a.H);
   const long long rest = item / a.H;
   const int which = static_cast<int>(rest & 1);
   const long long bt = rest >> 1;
   const int t = static_cast<int>(bt % a.T), b = static_cast<int>(bt / a.T);
   const bf16* src = (which ? k : q) + b * a.stride_b + t * a.stride_t + h * a.stride_h + 8 * sub;
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint4 raw =
+      NC == 1 || 8 * sub < a.D ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
   const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
   float v[8], amax = 0.f;
 #pragma unroll
@@ -468,16 +509,16 @@ quantize_qk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, Quant
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    if (!which) v[i] = __fmul_rn(v[i], 0.125f);  // D^-0.5, exact
+    if (!which) v[i] = __fmul_rn(v[i], a.q_scale);  // D^-0.5 (0.125 at D 64, exact)
     amax = fmaxf(amax, fabsf(v[i]));
   }
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
+  for (int off = 1; off < kSub; off <<= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float s = fmaxf(amax * kInv127, 1e-12f);
   if (!valid) return;
   const long long row = (static_cast<long long>(b) * a.H + h) * a.T + t;
-  *reinterpret_cast<uint2*>((which ? k8 : q8) + row * kD + 8 * sub) = make_uint2(
+  *reinterpret_cast<uint2*>((which ? k8 : q8) + row * kDp + 8 * sub) = make_uint2(
       pack_s8x4(quantize_s8(v[0], s), quantize_s8(v[1], s), quantize_s8(v[2], s),
                 quantize_s8(v[3], s)),
       pack_s8x4(quantize_s8(v[4], s), quantize_s8(v[5], s), quantize_s8(v[6], s),
@@ -490,23 +531,24 @@ __device__ __forceinline__ int perm_key(int a) {
   return 16 * (a >> 4) + 8 * ((a >> 1) & 1) + 2 * ((a >> 2) & 3) + (a & 1);
 }
 
-constexpr int kRawLd = 33;  // 32-bit words per staged v row (64 bf16 + 1): conflict-free
-
 // One block per (head, batch): v's per-channel max over all T, then v8^T
-// tile by tile (64 keys x 64 channels through shared memory).
+// tile by tile (64 keys x Dp channels through shared memory), zero past D.
+template <int NC>
 __global__ void __launch_bounds__(kQThreads)
 quantize_v_kernel(const bf16* __restrict__ v, QuantArgs a, int8_t* __restrict__ v8t,
                   float* __restrict__ vsc) {
-  __shared__ float sMax[kQThreads / 8][kD];
-  __shared__ float sVs[kD];
+  constexpr int kSub = 8 * NC, kRows = kQThreads / kSub, kDp = 64 * NC;
+  constexpr int kRawLd = 32 * NC + 1;  // words per staged v row (Dp bf16 + 1): conflict-free
+  __shared__ float sMax[kRows][kDp];
+  __shared__ float sVs[kDp];
   __shared__ uint32_t sRaw[kTile * kRawLd];
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int sub = tid & 7, kr = tid >> 3;  // channels 8 sub .. 8 sub + 7
+  const int sub = tid % kSub, kr = tid / kSub;  // channels 8 sub .. 8 sub + 7
   const bf16* vb = v + b * a.stride_b + h * a.stride_h + 8 * sub;
   const long long bh = static_cast<long long>(b) * a.H + h;
 
   float mx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int t = kr; t < a.T; t += kQThreads / 8) {
+  for (int t = kr; (NC == 1 || 8 * sub < a.D) && t < a.T; t += kRows) {
     const uint4 raw = *reinterpret_cast<const uint4*>(vb + t * a.stride_t);
     const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -519,25 +561,25 @@ quantize_v_kernel(const bf16* __restrict__ v, QuantArgs a, int8_t* __restrict__ 
 #pragma unroll
   for (int i = 0; i < 8; ++i) sMax[kr][8 * sub + i] = mx[i];
   __syncthreads();
-  if (tid < kD) {
+  if (tid < kDp) {
     float amax = 0.f;
-    for (int r = 0; r < kQThreads / 8; ++r) amax = fmaxf(amax, sMax[r][tid]);
+    for (int r = 0; r < kRows; ++r) amax = fmaxf(amax, sMax[r][tid]);
     const float s = fmaxf(amax * kInv127, 1e-12f);
     sVs[tid] = s;
-    vsc[bh * kD + tid] = __fmul_rn(s, kInv127);
+    if (tid < a.D) vsc[bh * a.D + tid] = __fmul_rn(s, kInv127);
   }
 
-  int8_t* vt = v8t + bh * kD * a.t_pad;
+  int8_t* vt = v8t + bh * kDp * a.t_pad;
   for (int k0 = 0; k0 < a.t_pad; k0 += kTile) {
     __syncthreads();  // sVs written; every thread is done with the last tile
 #pragma unroll
-    for (int i = 0; i < kTile * 8 / kQThreads; ++i) {  // key r's 16 bytes at chunk sub
-      const int c = tid + i * kQThreads, r = c >> 3, key = k0 + r;
+    for (int i = 0; i < kTile * kSub / kQThreads; ++i) {  // key r's 16 bytes at chunk ch
+      const int c = tid + i * kQThreads, r = c / kSub, ch = c % kSub, key = k0 + r;
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (key < a.T)
+      if (key < a.T && (NC == 1 || 8 * ch < a.D))
         raw = *reinterpret_cast<const uint4*>(v + b * a.stride_b + key * a.stride_t +
-                                              h * a.stride_h + 8 * (c & 7));
-      uint32_t* dst = sRaw + r * kRawLd + 4 * (c & 7);
+                                              h * a.stride_h + 8 * ch);
+      uint32_t* dst = sRaw + r * kRawLd + 4 * ch;
       dst[0] = raw.x;
       dst[1] = raw.y;
       dst[2] = raw.z;
@@ -546,7 +588,7 @@ quantize_v_kernel(const bf16* __restrict__ v, QuantArgs a, int8_t* __restrict__ 
     __syncthreads();
     // four bytes a thread: channel d, bytes 4 quad .. 4 quad + 3 of the tile
 #pragma unroll
-    for (int i = 0; i < kD / (kQThreads / 16); ++i) {
+    for (int i = 0; i < kDp / (kQThreads / 16); ++i) {
       const int d = (tid >> 4) + i * (kQThreads / 16), byte0 = 4 * (tid & 15);
       const float s = sVs[d];
       int qv[4];
@@ -563,60 +605,91 @@ quantize_v_kernel(const bf16* __restrict__ v, QuantArgs a, int8_t* __restrict__ 
   }
 }
 
-template <bool HAS_MASK, bool HAS_SENTINEL>
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL>
 int launch(dim3 grid, cudaStream_t s, const int8_t* q8, const float* qs, const int8_t* k8,
            const float* ks, const int8_t* v8t, const float* vsc, const float* slopes,
            const int* pos, const uint8_t* mask, bf16* out, float* o_acc, const Int8Args& a) {
-  constexpr auto kernel = alibi_int8_kernel<HAS_MASK, HAS_SENTINEL>;
+  constexpr auto kernel = alibi_int8_kernel<NC, HAS_MASK, HAS_SENTINEL>;
   // the shared-memory limit above 48 KB, raised once per process and instance
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<NC>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kThreads, kSmem, s>>>(q8, qs, k8, ks, v8t, vsc, slopes, pos, mask, out, o_acc,
-                                       a);
+  kernel<<<grid, kThreads, kSmem<NC>, s>>>(q8, qs, k8, ks, v8t, vsc, slopes, pos, mask, out,
+                                           o_acc, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NC>
+int launch_flags(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const int8_t* q8,
+                 const float* qs, const int8_t* k8, const float* ks, const int8_t* v8t,
+                 const float* vsc, const float* slopes, const int* pos, const uint8_t* mask,
+                 bf16* out, float* o_acc, const Int8Args& a) {
+  if (has_mask)
+    return has_sentinel ? launch<NC, true, true>(grid, s, q8, qs, k8, ks, v8t, vsc, slopes, pos,
+                                                 mask, out, o_acc, a)
+                        : launch<NC, true, false>(grid, s, q8, qs, k8, ks, v8t, vsc, slopes, pos,
+                                                  mask, out, o_acc, a);
+  return has_sentinel ? launch<NC, false, true>(grid, s, q8, qs, k8, ks, v8t, vsc, slopes, pos,
+                                                mask, out, o_acc, a)
+                      : launch<NC, false, false>(grid, s, q8, qs, k8, ks, v8t, vsc, slopes, pos,
+                                                 mask, out, o_acc, a);
+}
+
+template <int NC>
+int launch_quantize(const bf16* q, const bf16* k, const bf16* v, const QuantArgs& a, int8_t* q8,
+                    float* qs, int8_t* k8, float* ks, int8_t* v8t, float* vsc, cudaStream_t s) {
+  const long long threads = 2ll * a.B * a.T * a.H * 8 * NC;
+  quantize_qk_kernel<NC><<<static_cast<int>((threads + kQThreads - 1) / kQThreads), kQThreads,
+                           0, s>>>(q, k, a, q8, qs, k8, ks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quantize_v_kernel<NC><<<dim3(a.H, a.B), kQThreads, 0, s>>>(v, a, v8t, vsc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace a2v
 
-// C entry of the quantization pass, bound with ctypes. q, k, v: bf16 (B, T,
-// H, D) with element strides (stride_b, stride_t, stride_h, 1), 16-byte
-// aligned, strides multiples of 8; q8, k8 (B, H, T, D) int8, qs, ks (B, H,
-// T) fp32, v8t (B, H, D, t_pad) int8, vsc (B, H, D) fp32. Returns a
-// cudaError_t.
+// C entry of the quantization pass, bound with ctypes. D: a multiple of 8
+// up to 128 (the wrapper pads other head dims with zero columns); Dp = 64
+// for D 64, else 128. q, k, v: bf16 (B, T, H, D) with element strides
+// (stride_b, stride_t, stride_h, 1), 16-byte aligned, strides multiples of
+// 8; q8, k8 (B, H, T, Dp) int8, qs, ks (B, H, T) fp32, v8t (B, H, Dp,
+// t_pad) int8, vsc (B, H, D) fp32; q_scale the fp32 of D^-0.5 of the true
+// head dim. Returns a cudaError_t.
 extern "C" int a2v_quantize_qkv_int8(const void* q, const void* k, const void* v,
                                      long long stride_b, long long stride_t, long long stride_h,
                                      void* q8, void* qs, void* k8, void* ks, void* v8t,
                                      void* vsc, int B, int H, int T, int D, int t_pad,
-                                     void* stream) {
+                                     float q_scale, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || t_pad < T ||
-      t_pad % kTile != 0 || stride_b % 8 != 0 || stride_t % 8 != 0 || stride_h % 8 != 0 ||
-      misaligned(q) || misaligned(k) || misaligned(v))
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      t_pad < T || t_pad % kTile != 0 || stride_b % 8 != 0 || stride_t % 8 != 0 ||
+      stride_h % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const QuantArgs a{stride_b, stride_t, stride_h, B, H, T, t_pad};
-  const long long threads = 2ll * B * T * H * 8;
-  quantize_qk_kernel<<<static_cast<int>((threads + kQThreads - 1) / kQThreads), kQThreads, 0,
-                       s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), a,
-                            static_cast<int8_t*>(q8), static_cast<float*>(qs),
-                            static_cast<int8_t*>(k8), static_cast<float*>(ks));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_v_kernel<<<dim3(H, B), kQThreads, 0, s>>>(static_cast<const bf16*>(v), a,
-                                                     static_cast<int8_t*>(v8t),
-                                                     static_cast<float*>(vsc));
-  return static_cast<int>(cudaGetLastError());
+  const QuantArgs a{stride_b, stride_t, stride_h, B, H, T, t_pad, D, q_scale};
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  auto* q8p = static_cast<int8_t*>(q8);
+  auto* k8p = static_cast<int8_t*>(k8);
+  auto* v8p = static_cast<int8_t*>(v8t);
+  auto* qsp = static_cast<float*>(qs);
+  auto* ksp = static_cast<float*>(ks);
+  auto* vsp = static_cast<float*>(vsc);
+  if (D == 64) return launch_quantize<1>(qp, kp, vp, a, q8p, qsp, k8p, ksp, v8p, vsp, s);
+  return launch_quantize<2>(qp, kp, vp, a, q8p, qsp, k8p, ksp, v8p, vsp, s);
 }
 
-// C entry of the kernel, bound with ctypes. q8, k8 (B, H, T, D) int8 and
-// qs, ks (B, H, T) fp32; v8t (B, H, D, t_pad) int8, zero past T, keys
-// permuted as above; vsc (B, H, D) fp32 (vs / 127); positions (pos_per_row
-// ? B : 1, T) int32; mask null or (mask_per_row ? B : 1, T) uint8; out (B,
-// T, H, D) bf16; o_acc (B, H, T, D) fp32 scratch when t_pad > span (two key
-// spans or more), else null. Returns a cudaError_t.
+// C entry of the kernel, bound with ctypes. D: a multiple of 8 up to 128;
+// Dp = 64 for D 64, else 128. q8, k8 (B, H, T, Dp) int8 and qs, ks (B,
+// H, T) fp32; v8t (B, H, Dp, t_pad) int8, zero past T, keys permuted as
+// above; vsc (B, H, D) fp32 (vs / 127); positions (pos_per_row ? B : 1, T)
+// int32; mask null or (mask_per_row ? B : 1, T) uint8; out (B, T, H, D)
+// bf16; o_acc (B, H, T, Dp) fp32 scratch when t_pad > span (two key spans
+// or more), else null. Returns a cudaError_t.
 extern "C" int a2v_alibi_attention_int8(const void* q8, const void* qs, const void* k8,
                                         const void* ks, const void* v8t, const void* vsc,
                                         const void* slopes, const void* pos, int pos_per_row,
@@ -624,11 +697,11 @@ extern "C" int a2v_alibi_attention_int8(const void* q8, const void* qs, const vo
                                         void* o_acc, int B, int H, int T, int D, int t_pad,
                                         int span, int has_sentinel, void* stream) {
   using namespace a2v;
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || span <= 0 ||
-      span % kStepKeys != 0 || t_pad < T || t_pad % span != 0 ||
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      span <= 0 || span % kStepKeys != 0 || t_pad < T || t_pad % span != 0 ||
       (t_pad > span && o_acc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Int8Args a{H, T, t_pad, span, pos_per_row ? T : 0, mask_per_row ? T : 0};
+  const Int8Args a{H, T, D, t_pad, span, pos_per_row ? T : 0, mask_per_row ? T : 0};
   const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* q = static_cast<const int8_t*>(q8);
@@ -642,9 +715,8 @@ extern "C" int a2v_alibi_attention_int8(const void* q8, const void* qs, const vo
   const auto* mk = static_cast<const uint8_t*>(mask);
   auto* o = static_cast<bf16*>(out);
   auto* oa = static_cast<float*>(o_acc);
-  if (mk != nullptr)
-    return has_sentinel ? launch<true, true>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a)
-                        : launch<true, false>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
-  return has_sentinel ? launch<false, true>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a)
-                      : launch<false, false>(grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
+  const bool has_mask = mk != nullptr, sentinel = has_sentinel != 0;
+  if (D == 64)
+    return launch_flags<1>(has_mask, sentinel, grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
+  return launch_flags<2>(has_mask, sentinel, grid, s, q, fq, k, fk, v, fv, sl, p, mk, o, oa, a);
 }

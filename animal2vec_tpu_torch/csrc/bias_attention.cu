@@ -1,4 +1,5 @@
-// Flash-attention forward with a dense additive bias, bf16 in and out, D = 64.
+// Flash-attention forward with a dense additive bias, bf16 in and out, head
+// dims D <= 128 (a multiple of 8).
 //
 // Replaces jax's stock TPU flash-attention kernel
 // (jax.experimental.pallas.ops.tpu.flash_attention, reached through
@@ -35,7 +36,7 @@
 // of 64 with an online softmax (running max and sum, fp32). q, k and
 // v are read in place from (B, T, H, D) views with any batch and time
 // strides (the model hands over the q, k, v thirds of its (B, T, 3, H, D)
-// projection): a head's row is 128 contiguous bytes, so every tile arrives
+// projection): a head's row is 2D contiguous bytes, so every tile arrives
 // as 16-byte cp.async chunks into the 128-byte swizzle of csrc/sm90.cuh, and
 // no packed copy of qkv is made.
 //   - S = Q K^T is an SS wgmma (m64n64k16, four k-steps over D) from the
@@ -66,6 +67,11 @@
 //     rounds the score and its exponential as the backward
 //     (bias_attention_bwd.cu) does when it rebuilds P from the lse; the
 //     bounds checks run on the last tile only.
+// Head dims: a head's row is NC = 1 (D 64) or 2 (any other D up to 128)
+// swizzled tiles of 64 columns, zero past D (sm90.cuh stage_head); S sums
+// NC tile products, O is NC accumulators, only columns < D are written.
+// The NC = 2 instances run one or two blocks an SM. D = 64 runs the NC = 1
+// instances, unchanged.
 // Shared memory: Q 8 KB, two stages of K and V (32 KB), of bias (32 KB, only
 // with a bias) and flags, 1 KB of alignment slack: 73.5 KB with a bias, so
 // that three blocks share an SM and one block's scalar pass overlaps
@@ -84,7 +90,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kD = 64;
 constexpr int kTile = 64;          // query rows per block; keys per tile
 constexpr int kThreads = 128;      // one warpgroup
 constexpr int kStages = 2;         // ring depth of the key tiles
@@ -94,15 +99,15 @@ constexpr int kBiasTileBytes = kTile * kTile * 4;
 
 // dynamic shared memory: Q, the ring's K tiles, its V tiles, its bias
 // tiles (with a bias), its flags, and slack to align the base to 1024 bytes
-constexpr int smem_bytes(bool has_bias) {
-  return kTileBytes * (1 + 2 * kStages) + (has_bias ? kStages * kBiasTileBytes : 0) +
+constexpr int smem_bytes(int nc, bool has_bias) {
+  return kTileBytes * nc * (1 + 2 * kStages) + (has_bias ? kStages * kBiasTileBytes : 0) +
          kStages * kTile * 4 + kTileAlign;
 }
 
 struct BiasArgs {
   long long stride_b;  // elements between batch rows of q, k and v
   long long stride_t;  // elements between time rows
-  int H, T;
+  int H, T, D;
   float sm_scale;
   int bias16;  // the bias rows are 16-byte aligned: staged in 16-byte chunks
   uint32_t seed;      // dropout seed (int32 bits)
@@ -110,8 +115,8 @@ struct BiasArgs {
   float keep_scale;   // 1 / (1 - rate)
 };
 
-template <bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
 bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ bias,    // (1 or B, H, T, T)
@@ -120,18 +125,19 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float* __restrict__ lse,           // null or (B*H, T)
                       BiasArgs a) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sK = sQ + kTileElems;          // stage s at s tiles in
-  bf16* const sV = sK + kStages * kTileElems;
-  float* const sBias = reinterpret_cast<float*>(sV + kStages * kTileElems);
+  bf16* const sK = sQ + kHead;          // stage s at s heads in
+  bf16* const sV = sK + kStages * kHead;
+  float* const sBias = reinterpret_cast<float*>(sV + kStages * kHead);
   int* const sPad = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kStages * kTile * kTile : 0));
 
-  const int H = a.H, T = a.T;
+  const int H = a.H, T = a.T, D = a.D;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
 
-  const long long head = static_cast<long long>(b) * a.stride_b + static_cast<long long>(h) * kD;
+  const long long head = static_cast<long long>(b) * a.stride_b + static_cast<long long>(h) * D;
   const bf16* qb = q + head;
   const bf16* kb = k + head;
   const bf16* vb = v + head;
@@ -148,8 +154,8 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt's K, V and bias rows into its ring slot; one commit group
   auto stage = [&](int kt) {
     const int slot = kt % kStages, k0 = kt * kTile;
-    stage_tile<kThreads>(sK + slot * kTileElems, kb, a.stride_t, k0, T, tid);
-    stage_tile<kThreads>(sV + slot * kTileElems, vb, a.stride_t, k0, T, tid);
+    stage_head<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, k0, T, D, tid);
+    stage_head<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, k0, T, D, tid);
     if constexpr (HAS_BIAS) {
       float* dst = sBias + slot * kTile * kTile;
       if (a.bias16) {
@@ -180,7 +186,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // prologue: Q, then the first key tile, one commit group each
-  stage_tile<kThreads>(sQ, qb, a.stride_t, q0, T, tid);
+  stage_head<kThreads, NC>(sQ, qb, a.stride_t, q0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -189,9 +195,12 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's rows q0 + 16 warp + g + 8r
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};
-  float o[32], sc[32];
+  float o[NC][32], sc[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+  }
   const uint64_t desc_q = desc_sw128(sQ), desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -210,22 +219,24 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int width = min(kTile, T - k0);  // keys of this tile below T
     const int n_groups = (width + 7) >> 3;  // 8-key column groups S holds
     const int n_steps = (width + 15) >> 4;  // k16 steps of P V
-    const uint64_t dk = desc_k + slot * kDescTile;
+    const uint64_t dk = desc_k + slot * NC * kDescTile;
     wgmma_fence();
     if (n_groups > 4) {
-      gemm_tile_ss<0, 0>(sc, desc_q, dk);  // S = Q K^T, all 64 keys
+      gemm_head_ss<NC>(sc, desc_q, dk);  // S = Q K^T, all 64 keys
     } else {
       // a narrow last tile: S in 8-key column groups (rows 8j.. of the K tile
-      // start 1024 bytes apart)
+      // start 1024 bytes apart), the k16 step s in tile s / 4 of the head
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (j < n_groups) {
           const uint64_t dkj = dk + j * (1024 >> 4);
           wgmma_ss_n8<false>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3], desc_q, dkj);
 #pragma unroll
-          for (int kk = 1; kk < kD / 16; ++kk)
+          for (int kk = 1; kk < NC * 4; ++kk) {
+            const uint64_t step = (kk >> 2) * kDescTile + (kk & 3) * kDescStepK;
             wgmma_ss_n8<true>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3],
-                              desc_q + kk * kDescStepK, dkj + kk * kDescStepK);
+                              desc_q + step, dkj + step);
+          }
         }
       }
     }
@@ -295,22 +306,29 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+    }
 
     // O += P V over the k16 steps that hold live keys
     uint32_t pf[4][4];
     frag_from_acc(pf, sc);
-    const uint64_t dv = desc_v + slot * kDescTile;
+    const uint64_t dv = desc_v + slot * NC * kDescTile;
     wgmma_fence();
-    fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      if (kk < n_steps) wgmma_rs<1>(o, pf[kk], dv + kk * kDescStepMN);
+    for (int n = 0; n < NC; ++n) {
+      fence_regs(o[n]);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        if (kk < n_steps) wgmma_rs<1>(o[n], pf[kk], dv + n * kDescTile + kk * kDescStepMN);
+    }
     wgmma_commit();
     // ... and write it into the next tile's slot
     if (HAS_MASK && nt < n_tiles && tid < kTile) sPad[(nt % kStages) * kTile + tid] = npad;
     wgmma_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(o[n]);
     fence_regs(pf);
   }
 
@@ -320,8 +338,8 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const size_t row_stride = static_cast<size_t>(H) * kD;
-  bf16* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * kD;
+  const size_t row_stride = static_cast<size_t>(H) * D;
+  bf16* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -330,19 +348,25 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(static_cast<size_t>(b) * H + h) * T + row] = m[r] + logf(l[r]);
     const float inv = 1.f / l[r];
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row) * row_stride + 8 * j + 2 * i4]) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    for (int n = 0; n < NC; ++n) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * n + 8 * j;  // columns past D are not written
+        if (NC == 1 || col < D)
+          *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row) * row_stride + col + 2 * i4]) =
+              pack_bf16(o[n][4 * j + 2 * r] * inv, o[n][4 * j + 2 * r + 1] * inv);
+      }
+    }
   }
 }
 
-template <bool HAS_BIAS, bool UNIFORM_BIAS>
+template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS>
 int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
                 const bf16* v, const float* bias, const uint8_t* mask, bf16* out, float* lse,
                 const BiasArgs& a) {
-  constexpr auto with_mask = bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, true>;
-  constexpr auto without_mask = bias_attention_kernel<HAS_BIAS, UNIFORM_BIAS, false>;
-  constexpr int smem = smem_bytes(HAS_BIAS);
+  constexpr auto with_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, true>;
+  constexpr auto without_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, false>;
+  constexpr int smem = smem_bytes(NC, HAS_BIAS);
   // the shared-memory limit above 48 KB, raised once per process for both
   static const cudaError_t attr = [] {
     const cudaError_t err =
@@ -358,10 +382,22 @@ int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const b
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NC>
+int launch_bias(bool has_mask, bool uniform, dim3 grid, cudaStream_t s, const bf16* q,
+                const bf16* k, const bf16* v, const float* bias, const uint8_t* mask, bf16* out,
+                float* lse, const BiasArgs& a) {
+  if (bias == nullptr)
+    return launch_mask<NC, false, false>(has_mask, grid, s, q, k, v, bias, mask, out, lse, a);
+  if (uniform)
+    return launch_mask<NC, true, true>(has_mask, grid, s, q, k, v, bias, mask, out, lse, a);
+  return launch_mask<NC, true, false>(has_mask, grid, s, q, k, v, bias, mask, out, lse, a);
+}
+
 }  // namespace
 }  // namespace a2v
 
-// C entry, bound with ctypes. q, k, v: bf16 (B, T, H, D) with element
+// C entry, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper pads
+// other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
 // strides (stride_b, stride_t, D, 1), 16-byte aligned, strides multiples of
 // 8; bias null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null
 // or (B, T) uint8; out (B, T, H, D) bf16 contiguous; lse null (serving) or
@@ -376,8 +412,8 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
                                   unsigned int thresh, float keep_scale, void* stream) {
   using namespace a2v;
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
-      stride_t % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v))
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      stride_b % 8 != 0 || stride_t % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kTile - 1) / kTile, H, B);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -388,12 +424,10 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   const auto* mp = static_cast<const uint8_t*>(mask);
   auto* op = static_cast<bf16*>(out);
   auto* lp = static_cast<float*>(lse);
-  const BiasArgs a{stride_b,  stride_t, H, T, sm_scale, T % 4 == 0 && !misaligned(bias),
+  const BiasArgs a{stride_b, stride_t, H, T, D, sm_scale, T % 4 == 0 && !misaligned(bias),
                    static_cast<uint32_t>(seed), thresh, keep_scale};
-  const bool has_mask = mp != nullptr;
-  if (bp == nullptr)
-    return launch_mask<false, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
-  if (bias_uniform)
-    return launch_mask<true, true>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
-  return launch_mask<true, false>(has_mask, grid, s, qp, kp, vp, bp, mp, op, lp, a);
+  const bool has_mask = mp != nullptr, uniform = bias_uniform != 0;
+  if (D == 64)
+    return launch_bias<1>(has_mask, uniform, grid, s, qp, kp, vp, bp, mp, op, lp, a);
+  return launch_bias<2>(has_mask, uniform, grid, s, qp, kp, vp, bp, mp, op, lp, a);
 }

@@ -1,5 +1,5 @@
 // Backward of the dense-bias flash attention (bias_attention.cu), bf16 in
-// and out, D = 64: three kernels.
+// and out, head dims D <= 128 (a multiple of 8): three kernels.
 //
 // Replaces the backward of jax's stock TPU flash-attention kernel
 // (jax.experimental.pallas.ops.tpu.flash_attention, reached through
@@ -71,6 +71,13 @@
 // the accumulator layout, conflict-free); the dk/dv kernel reads its bias
 // tile transposed, from rows padded to 68 floats (conflict-free for the
 // transposed accumulator layout).
+// Head dims: as in the forward a head's row is NC = 1 (D 64) or 2 (any
+// other D up to 128) tiles of 64 columns, zero past D, and S and dP sum NC tile
+// products. The dq kernel keeps NC dq accumulators. The dk/dv and single
+// kernels, whose registers already hold two (three) accumulators, run one
+// block per 64-column chunk cc of their outputs at NC = 2, each
+// recomputing S and dP over the whole head; the single kernel's cc = 0
+// block writes dbias. D = 64 runs the NC = 1 instances, unchanged.
 #include <cmath>
 
 #include "sm90.cuh"
@@ -81,7 +88,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
-constexpr int kD = 64;
 constexpr int kTile = 64;      // rows per block and per loop step
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // ring depth of the streamed tiles
@@ -97,7 +103,7 @@ struct BiasBwdArgs {
   long long stride_b, stride_t;          // q, k, v (elements)
   long long out_stride_b, out_stride_t;  // dq, dk, dv
   long long bias_stride_b;               // 0 for a batch-uniform bias
-  int H, T;
+  int H, T, D;
   float sm_scale;
   int bias16;   // bias rows 16-byte aligned: staged in 16-byte chunks
   int dbias16;  // dbias rows 16-byte aligned: stored in 16-byte chunks
@@ -117,16 +123,16 @@ __device__ __forceinline__ float drop_f(const BiasBwdArgs& a, uint32_t seed_mix,
 
 // dynamic shared memory of each kernel: bf16 tiles, fp32 tiles (with a
 // bias), side data, and slack to align the base to 1024 bytes
-constexpr int dq_smem(bool has_bias) {
-  return kTileBytes * (2 + 2 * kStages) + (has_bias ? kStages * kF32Tile * 4 : 0) +
+constexpr int dq_smem(int nc, bool has_bias) {
+  return kTileBytes * nc * (2 + 2 * kStages) + (has_bias ? kStages * kF32Tile * 4 : 0) +
          kStages * kTile * 4 + kTileAlign;
 }
-constexpr int dkv_smem(bool has_bias) {
-  return kTileBytes * (2 + 2 * kStages) + (has_bias ? kStages * kF32TileT * 4 : 0) +
+constexpr int dkv_smem(int nc, bool has_bias) {
+  return kTileBytes * nc * (2 + 2 * kStages) + (has_bias ? kStages * kF32TileT * 4 : 0) +
          kStages * kTile * 16 + kTileAlign;
 }
-constexpr int single_smem(bool has_bias) {
-  return kTileBytes * 6 + (has_bias ? kF32Tile * 4 : 0) + kTile * 4 + kTileAlign;
+constexpr int single_smem(int nc, bool has_bias) {
+  return kTileBytes * (4 * nc + 2) + (has_bias ? kF32Tile * 4 : 0) + kTile * 4 + kTileAlign;
 }
 
 // Rows row0 .. row0 + 63, columns col0 .. col0 + 63 of a T x T fp32 plane
@@ -194,23 +200,26 @@ __device__ __forceinline__ int key_state(const uint8_t* maskr, int key, int T) {
 }
 
 // Rows row0, row0 + 8 (< T) of this thread's 64 x 64 accumulator, times
-// scale, as bf16 into rows row_stride elements apart.
+// scale, as bf16 into columns col0 .. col0 + 63 (those below D) of rows
+// row_stride elements apart.
 __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, const float (&acc)[32],
-                                           int row0, int T, float scale, int i4) {
+                                           int row0, int T, float scale, int i4, int col0,
+                                           int D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long row = row0 + 8 * r;
     if (row >= T) continue;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(&dst[row * row_stride + 8 * j + 2 * i4]) =
-          pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    for (int j = 0; j < 8; ++j)
+      if (col0 + 8 * j < D)
+        *reinterpret_cast<uint32_t*>(&dst[row * row_stride + col0 + 8 * j + 2 * i4]) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
 // One block per (64-query tile, head, batch): dq rows and the rows of dS.
-template <bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int NC, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
 bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const bf16* __restrict__ dout,    // (B, T, H, D) contiguous
@@ -222,20 +231,21 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ dbias,        // null or (B, H, T, T)
                          BiasBwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sDO = sQ + kTileElems;
-  bf16* const sRing = sDO + kTileElems;  // stage s: K at 2s tiles in, V after it
+  bf16* const sDO = sQ + kHead;
+  bf16* const sRing = sDO + kHead;  // stage s: K at 2s heads in, V after it
   // per stage: the bias tile, overwritten by the tile's dS
-  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kTileElems);
+  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kHead);
   int* const sKey = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kStages * kF32Tile : 0));
 
-  const int T = a.T, H = a.H;
+  const int T = a.T, H = a.H, D = a.D;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const long long bh = static_cast<long long>(b) * H + h;
-  const long long in_head = b * a.stride_b + h * kD;
-  const long long do_row = static_cast<long long>(H) * kD;
+  const long long in_head = b * a.stride_b + h * D;
+  const long long do_row = static_cast<long long>(H) * D;
   const bf16* kb = k + in_head;
   const bf16* vb = v + in_head;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
@@ -248,16 +258,16 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt's K, V (and bias) into its ring slot; the caller commits
   auto stage = [&](int kt) {
     const int slot = kt % kStages, k0 = kt * kTile;
-    bf16* dst = sRing + slot * 2 * kTileElems;
-    stage_tile<kThreads>(dst, kb, a.stride_t, k0, T, tid);
-    stage_tile<kThreads>(dst + kTileElems, vb, a.stride_t, k0, T, tid);
+    bf16* dst = sRing + slot * 2 * kHead;
+    stage_head<kThreads, NC>(dst, kb, a.stride_t, k0, T, D, tid);
+    stage_head<kThreads, NC>(dst + kHead, vb, a.stride_t, k0, T, D, tid);
     if constexpr (HAS_BIAS)
       stage_f32(sBias + slot * kF32Tile, bias_p, q0, k0, T, a.bias16, tid, Swizzled{});
   };
 
   // prologue: Q and dO, then the first key tile, one commit group each
-  stage_tile<kThreads>(sQ, q + in_head, a.stride_t, q0, T, tid);
-  stage_tile<kThreads>(sDO, dout + b * T * do_row + h * kD, do_row, q0, T, tid);
+  stage_head<kThreads, NC>(sQ, q + in_head, a.stride_t, q0, T, D, tid);
+  stage_head<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, q0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -276,10 +286,14 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rstate[r] = !in ? kPast : (lse_r[r] < kDeadLse ? kPadded : kLive);
   }
 
-  float acc_dq[32], sc[32], dp[32];
+  float acc_dq[NC][32], sc[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc_dq[i] = 0.f;
-  const uint64_t desc_q = desc_sw128(sQ), desc_ring = desc_sw128(sRing);
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_dq[n][i] = 0.f;
+  }
+  const uint64_t desc_q = desc_sw128(sQ), desc_do = desc_sw128(sDO);
+  const uint64_t desc_ring = desc_sw128(sRing);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<0>();  // this thread's copies of tile kt (and Q, dO) have landed
@@ -294,10 +308,10 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     const int slot = kt % kStages, k0 = kt * kTile;
-    const uint64_t desc_k = desc_ring + slot * 2 * kDescTile;
+    const uint64_t desc_k = desc_ring + slot * 2 * NC * kDescTile;
     wgmma_fence();
-    gemm_tile_ss<0, 0>(sc, desc_q, desc_k);                          // S = Q K^T
-    gemm_tile_ss<0, 0>(dp, desc_q + kDescTile, desc_k + kDescTile);  // dP = dO V^T
+    gemm_head_ss<NC>(sc, desc_q, desc_k);                    // S = Q K^T
+    gemm_head_ss<NC>(dp, desc_do, desc_k + NC * kDescTile);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -335,12 +349,16 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t fds[4][4];
     frag_from_acc(fds, sc);
     wgmma_fence();
-    fence_regs(acc_dq);
-    gemm_frag_tile(acc_dq, fds, desc_k);  // dq += dS K
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      fence_regs(acc_dq[n]);
+      gemm_frag_tile(acc_dq[n], fds, desc_k + n * kDescTile);  // dq += dS K
+    }
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) sKey[(nt % kStages) * kTile + tid] = nkey;
     wgmma_wait<0>();
-    fence_regs(acc_dq);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(acc_dq[n]);
     fence_regs(fds);
     if (dbias_p) {
       __syncthreads();  // every dS of the tile is in shared memory
@@ -348,35 +366,40 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  store_rows(dq + b * a.out_stride_b + h * kD, a.out_stride_t, acc_dq, q0 + r0, T, a.sm_scale, i4);
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+    store_rows(dq + b * a.out_stride_b + h * D, a.out_stride_t, acc_dq[n], q0 + r0, T, a.sm_scale,
+               i4, 64 * n, NC == 1 ? kRowElems : D);
 }
 
-// One block per (64-key tile, head, batch): dk and dv rows.
-template <bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads, 2)
+// One block per (64-key tile and 64-column chunk, head, batch): dk and dv
+// rows, their columns 64 cc .. 64 cc + 63.
+template <int NC, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
 bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const float* __restrict__ bias, const uint8_t* __restrict__ mask,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, BiasBwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sV = sK + kTileElems;
-  bf16* const sRing = sV + kTileElems;  // stage s: Q at 2s tiles in, dO after it
+  bf16* const sV = sK + kHead;
+  bf16* const sRing = sV + kHead;  // stage s: Q at 2s heads in, dO after it
   // per stage: the bias tile, one query a row of kLdT floats
-  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kTileElems);
+  float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kHead);
   // per query of each stage: {lse, delta, state (as a float), unused}
   float4* const sQry = reinterpret_cast<float4*>(sBias + (HAS_BIAS ? kStages * kF32TileT : 0));
 
-  const int T = a.T, H = a.H;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int T = a.T, H = a.H, D = a.D;
+  const int k0 = blockIdx.x / NC * kTile, cc = blockIdx.x % NC, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const long long bh = static_cast<long long>(b) * H + h;
-  const long long in_head = b * a.stride_b + h * kD;
-  const long long do_row = static_cast<long long>(H) * kD;
+  const long long in_head = b * a.stride_b + h * D;
+  const long long do_row = static_cast<long long>(H) * D;
   const bf16* qb = q + in_head;
-  const bf16* dob = dout + b * T * do_row + h * kD;
+  const bf16* dob = dout + b * T * do_row + h * D;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
   const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
@@ -387,9 +410,9 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   // query tile qt's Q, dO (and bias) into its ring slot; the caller commits
   auto stage = [&](int qt) {
     const int slot = qt % kStages, q0 = qt * kTile;
-    bf16* dst = sRing + slot * 2 * kTileElems;
-    stage_tile<kThreads>(dst, qb, a.stride_t, q0, T, tid);
-    stage_tile<kThreads>(dst + kTileElems, dob, do_row, q0, T, tid);
+    bf16* dst = sRing + slot * 2 * kHead;
+    stage_head<kThreads, NC>(dst, qb, a.stride_t, q0, T, D, tid);
+    stage_head<kThreads, NC>(dst + kHead, dob, do_row, q0, T, D, tid);
     if constexpr (HAS_BIAS)
       stage_f32(sBias + slot * kF32TileT, bias_p, q0, k0, T, a.bias16, tid, Padded{});
   };
@@ -403,8 +426,8 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   };
 
   // prologue: K and V, then the first query tile, one commit group each
-  stage_tile<kThreads>(sK, k + in_head, a.stride_t, k0, T, tid);
-  stage_tile<kThreads>(sV, v + in_head, a.stride_t, k0, T, tid);
+  stage_head<kThreads, NC>(sK, k + in_head, a.stride_t, k0, T, D, tid);
+  stage_head<kThreads, NC>(sV, v + in_head, a.stride_t, k0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -419,7 +442,8 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float acc_dk[32], acc_dv[32], st[32], dpt[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
-  const uint64_t desc_k = desc_sw128(sK), desc_ring = desc_sw128(sRing);
+  const uint64_t desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
+  const uint64_t desc_ring = desc_sw128(sRing);
 
   for (int qt = 0; qt < n_tiles; ++qt) {
     cp_async_wait<0>();  // this thread's copies of tile qt (and K, V) have landed
@@ -434,10 +458,11 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_commit();
 
     const int slot = qt % kStages;
-    const uint64_t desc_q = desc_ring + slot * 2 * kDescTile;
+    const uint64_t desc_q = desc_ring + slot * 2 * NC * kDescTile;
+    const uint64_t desc_do = desc_q + NC * kDescTile;
     wgmma_fence();
-    gemm_tile_ss<0, 0>(st, desc_k, desc_q);                          // S^T = K Q^T
-    gemm_tile_ss<0, 0>(dpt, desc_k + kDescTile, desc_q + kDescTile);  // dP^T = V dO^T
+    gemm_head_ss<NC>(st, desc_k, desc_q);    // S^T = K Q^T
+    gemm_head_ss<NC>(dpt, desc_v, desc_do);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -474,8 +499,8 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
     fence_regs(acc_dv);
     fence_regs(acc_dk);
-    gemm_frag_tile(acc_dv, fp, desc_q + kDescTile);  // dv += P^T dO
-    gemm_frag_tile(acc_dk, fds, desc_q);             // dk += dS^T Q
+    gemm_frag_tile(acc_dv, fp, desc_do + cc * kDescTile);  // dv += P^T dO
+    gemm_frag_tile(acc_dk, fds, desc_q + cc * kDescTile);  // dk += dS^T Q
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) sQry[(nt % kStages) * kTile + tid] = nq;
     wgmma_wait<0>();
@@ -485,15 +510,17 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     fence_regs(fds);
   }
 
-  const long long out_head = b * a.out_stride_b + h * kD;
-  store_rows(dk + out_head, a.out_stride_t, acc_dk, k0 + r0, T, a.sm_scale, i4);
-  store_rows(dv + out_head, a.out_stride_t, acc_dv, k0 + r0, T, 1.f, i4);
+  const long long out_head = b * a.out_stride_b + h * D;
+  const int cols = NC == 1 ? kRowElems : D;  // D 64: every column, known at compile time
+  store_rows(dk + out_head, a.out_stride_t, acc_dk, k0 + r0, T, a.sm_scale, i4, 64 * cc, cols);
+  store_rows(dv + out_head, a.out_stride_t, acc_dv, k0 + r0, T, 1.f, i4, 64 * cc, cols);
 }
 
-// T <= 64: one block per (head, batch) computes S and dP once and writes dq,
-// dS, dk and dv.
-template <bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads, 3)
+// T <= 64: one block per (head, batch, 64-column chunk cc) computes S and
+// dP once and writes dq, dk and dv's columns 64 cc .. 64 cc + 63, and, the
+// cc = 0 block, dS.
+template <int NC, bool HAS_BIAS>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
 bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                  const float* __restrict__ lse, const float* __restrict__ delta,
@@ -501,32 +528,33 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
                                  bf16* __restrict__ dq, bf16* __restrict__ dk,
                                  bf16* __restrict__ dv, float* __restrict__ dbias, BiasBwdArgs a) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* const sK = sQ + kTileElems;
-  bf16* const sV = sK + kTileElems;
-  bf16* const sDO = sV + kTileElems;
-  bf16* const sDS = sDO + kTileElems;  // bf16 dS, one query a row
+  bf16* const sK = sQ + kHead;
+  bf16* const sV = sK + kHead;
+  bf16* const sDO = sV + kHead;
+  bf16* const sDS = sDO + kHead;  // bf16 dS, one query a row
   bf16* const sP = sDS + kTileElems;   // bf16 P (1/T in rows of padded keys), one query a row
   float* const sBias = reinterpret_cast<float*>(sP + kTileElems);  // the bias, then dS
   int* const sKey = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kF32Tile : 0));
 
-  const int T = a.T, H = a.H;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int T = a.T, H = a.H, D = a.D;
+  const int h = blockIdx.x, b = blockIdx.y, cc = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, i4 = lane & 3;
   const long long bh = static_cast<long long>(b) * H + h;
-  const long long in_head = b * a.stride_b + h * kD;
-  const long long do_row = static_cast<long long>(H) * kD;
+  const long long in_head = b * a.stride_b + h * D;
+  const long long do_row = static_cast<long long>(H) * D;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
-  float* dbias_p = HAS_BIAS && dbias ? dbias + bh * plane : nullptr;
+  float* dbias_p = HAS_BIAS && dbias && cc == 0 ? dbias + bh * plane : nullptr;
   const float inv_t = 1.f / T;
   const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
 
-  stage_tile<kThreads>(sQ, q + in_head, a.stride_t, 0, T, tid);
-  stage_tile<kThreads>(sK, k + in_head, a.stride_t, 0, T, tid);
-  stage_tile<kThreads>(sV, v + in_head, a.stride_t, 0, T, tid);
-  stage_tile<kThreads>(sDO, dout + b * T * do_row + h * kD, do_row, 0, T, tid);
+  stage_head<kThreads, NC>(sQ, q + in_head, a.stride_t, 0, T, D, tid);
+  stage_head<kThreads, NC>(sK, k + in_head, a.stride_t, 0, T, D, tid);
+  stage_head<kThreads, NC>(sV, v + in_head, a.stride_t, 0, T, D, tid);
+  stage_head<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, 0, T, D, tid);
   if constexpr (HAS_BIAS)
     stage_f32(sBias, bias + b * a.bias_stride_b + h * plane, 0, 0, T, a.bias16, tid,
               Swizzled{});
@@ -553,8 +581,8 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   const uint64_t desc_q = desc_sw128(sQ), desc_k = desc_sw128(sK), desc_v = desc_sw128(sV),
                  desc_do = desc_sw128(sDO), desc_ds = desc_sw128(sDS), desc_p = desc_sw128(sP);
   wgmma_fence();
-  gemm_tile_ss<0, 0>(sc, desc_q, desc_k);   // S = Q K^T
-  gemm_tile_ss<0, 0>(dp, desc_do, desc_v);  // dP = dO V^T
+  gemm_head_ss<NC>(sc, desc_q, desc_k);   // S = Q K^T
+  gemm_head_ss<NC>(dp, desc_do, desc_v);  // dP = dO V^T
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -594,9 +622,10 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
 
   float acc_dq[32], acc_dk[32], acc_dv[32];
   wgmma_fence();
-  gemm_tile_ss<0, 1>(acc_dq, desc_ds, desc_k);   // dq = dS K
-  gemm_tile_ss<1, 1>(acc_dk, desc_ds, desc_q);   // dk = dS^T Q
-  gemm_tile_ss<1, 1>(acc_dv, desc_p, desc_do);   // dv = P^T dO
+  const uint64_t chunk = cc * kDescTile;  // the tile of columns 64 cc ..
+  gemm_tile_ss<0, 1>(acc_dq, desc_ds, desc_k + chunk);   // dq = dS K
+  gemm_tile_ss<1, 1>(acc_dk, desc_ds, desc_q + chunk);   // dk = dS^T Q
+  gemm_tile_ss<1, 1>(acc_dv, desc_p, desc_do + chunk);   // dv = P^T dO
   wgmma_commit();
   if (dbias_p) store_f32(dbias_p, sBias, 0, 0, T, a.dbias16, tid);
   wgmma_wait<0>();
@@ -604,10 +633,11 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   fence_regs(acc_dk);
   fence_regs(acc_dv);
 
-  const long long out_head = b * a.out_stride_b + h * kD;
-  store_rows(dq + out_head, a.out_stride_t, acc_dq, r0, T, a.sm_scale, i4);
-  store_rows(dk + out_head, a.out_stride_t, acc_dk, r0, T, a.sm_scale, i4);
-  store_rows(dv + out_head, a.out_stride_t, acc_dv, r0, T, 1.f, i4);
+  const long long out_head = b * a.out_stride_b + h * D;
+  const int cols = NC == 1 ? kRowElems : D;  // D 64: every column, known at compile time
+  store_rows(dq + out_head, a.out_stride_t, acc_dq, r0, T, a.sm_scale, i4, 64 * cc, cols);
+  store_rows(dk + out_head, a.out_stride_t, acc_dk, r0, T, a.sm_scale, i4, 64 * cc, cols);
+  store_rows(dv + out_head, a.out_stride_t, acc_dv, r0, T, 1.f, i4, 64 * cc, cols);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -615,48 +645,64 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 int check_args(int B, int H, int T, int D, long long stride_b, long long stride_t,
                long long out_stride_b, long long out_stride_t, const void* q, const void* k,
                const void* v, const void* dout) {
-  if (D != kD || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 || stride_b % 8 != 0 ||
-      stride_t % 8 != 0 || out_stride_b % 8 != 0 || out_stride_t % 8 != 0 || misaligned(q) ||
-      misaligned(k) || misaligned(v) || misaligned(dout))
+  if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
+      stride_b % 8 != 0 || stride_t % 8 != 0 || out_stride_b % 8 != 0 || out_stride_t % 8 != 0 ||
+      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
 BiasBwdArgs make_args(long long stride_b, long long stride_t, long long out_stride_b,
                       long long out_stride_t, const void* bias, int bias_uniform,
-                      const void* dbias, int H, int T, float sm_scale, int seed,
+                      const void* dbias, int H, int T, int D, float sm_scale, int seed,
                       unsigned int thresh, float keep_scale) {
   const long long bias_stride_b = bias_uniform ? 0 : static_cast<long long>(H) * T * T;
   return BiasBwdArgs{stride_b,      stride_t, out_stride_b, out_stride_t,
-                     bias_stride_b, H,        T,            sm_scale,
+                     bias_stride_b, H,        T,            D,            sm_scale,
                      T % 4 == 0 && !misaligned(bias), T % 4 == 0 && !misaligned(dbias),
                      static_cast<uint32_t>(seed), thresh, keep_scale};
 }
 
-// Launch the kernel's instance with a bias or the one without, each with
-// its dynamic shared memory (the limit above 48 KB raised once per process
-// for both).
-template <typename Kernel, typename... Args>
-int launch(Kernel with_bias, Kernel without_bias, int smem_bias, int smem_none, bool has_bias,
-           dim3 grid, cudaStream_t s, Args... args) {
-  static const cudaError_t attr = [&] {
-    const cudaError_t err =
-        cudaFuncSetAttribute(with_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bias);
-    return err != cudaSuccess ? err
-                              : cudaFuncSetAttribute(without_bias,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     smem_none);
-  }();
+// Launch kKernel with its dynamic shared memory, the limit above 48 KB
+// raised once per process and instance.
+template <auto kKernel, int kSmem, typename... Args>
+int launch_one(dim3 grid, cudaStream_t s, Args... args) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  (has_bias ? with_bias : without_bias)<<<grid, kThreads, has_bias ? smem_bias : smem_none, s>>>(
-      args...);
+  kKernel<<<grid, kThreads, kSmem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of each kernel for a head of NC tiles, with a bias or without.
+template <int NC, typename... Args>
+int launch_dq(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
+  return has_bias ? launch_one<bias_attention_dq_kernel<NC, true>, dq_smem(NC, true)>(grid, s,
+                                                                                      args...)
+                  : launch_one<bias_attention_dq_kernel<NC, false>, dq_smem(NC, false)>(
+                        grid, s, args...);
+}
+template <int NC, typename... Args>
+int launch_dkv(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
+  return has_bias ? launch_one<bias_attention_dkv_kernel<NC, true>, dkv_smem(NC, true)>(
+                        grid, s, args...)
+                  : launch_one<bias_attention_dkv_kernel<NC, false>, dkv_smem(NC, false)>(
+                        grid, s, args...);
+}
+template <int NC, typename... Args>
+int launch_single(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
+  return has_bias
+             ? launch_one<bias_attention_bwd_single_kernel<NC, true>, single_smem(NC, true)>(
+                   grid, s, args...)
+             : launch_one<bias_attention_bwd_single_kernel<NC, false>, single_smem(NC, false)>(
+                   grid, s, args...);
 }
 
 }  // namespace
 }  // namespace a2v
 
-// C entries, bound with ctypes. q, k, v: bf16 (B, T, H, D) with element
+// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
+// pads other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
 // strides (stride_b, stride_t, D, 1), 16-byte aligned, strides multiples of
 // 8; dout bf16 (B, T, H, D) contiguous; lse and delta (B*H, T) fp32; bias
 // null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null or
@@ -678,16 +724,24 @@ extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const voi
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
     return err;
-  return launch(bias_attention_dq_kernel<true>, bias_attention_dq_kernel<false>, dq_smem(true),
-                dq_smem(false), bias != nullptr, dim3((T + kTile - 1) / kTile, H, B),
-                static_cast<cudaStream_t>(stream), static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<const float*>(bias),
-                static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
-                static_cast<float*>(dbias),
-                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          dbias, H, T, sm_scale, seed, thresh, keep_scale));
+  const dim3 grid((T + kTile - 1) / kTile, H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* dop = static_cast<const bf16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dqp = static_cast<bf16*>(dq);
+  auto* dbp = static_cast<float*>(dbias);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (D == 64)
+    return launch_dq<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
+  return launch_dq<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
 }
 
 extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -702,16 +756,26 @@ extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const vo
   if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
                            dout))
     return err;
-  return launch(bias_attention_dkv_kernel<true>, bias_attention_dkv_kernel<false>,
-                dkv_smem(true), dkv_smem(false), bias != nullptr,
-                dim3((T + kTile - 1) / kTile, H, B), static_cast<cudaStream_t>(stream),
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<const float*>(bias), static_cast<const uint8_t*>(mask),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          nullptr, H, T, sm_scale, seed, thresh, keep_scale));
+  const int nc = D == 64 ? 1 : 2;
+  // one block per key tile and 64-column chunk of dk and dv
+  const dim3 grid((T + kTile - 1) / kTile * nc, H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* dop = static_cast<const bf16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dkp = static_cast<bf16*>(dk);
+  auto* dvp = static_cast<bf16*>(dv);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, nullptr, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (nc == 1)
+    return launch_dkv<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
+  return launch_dkv<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
 }
 
 // As the two entries above in one launch, for T <= 64.
@@ -729,14 +793,27 @@ extern "C" int a2v_bias_attention_bwd_single(const void* q, const void* k, const
                            dout))
     return err;
   if (T > kTile) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(bias_attention_bwd_single_kernel<true>, bias_attention_bwd_single_kernel<false>,
-                single_smem(true), single_smem(false), bias != nullptr, dim3(H, B),
-                static_cast<cudaStream_t>(stream), static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<const float*>(bias),
-                static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dbias),
-                make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias, bias_uniform,
-                          dbias, H, T, sm_scale, seed, thresh, keep_scale));
+  const int nc = D == 64 ? 1 : 2;
+  const dim3 grid(H, B, nc);  // one block per head, batch row and 64-column chunk
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* dop = static_cast<const bf16*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dqp = static_cast<bf16*>(dq);
+  auto* dkp = static_cast<bf16*>(dk);
+  auto* dvp = static_cast<bf16*>(dv);
+  auto* dbp = static_cast<float*>(dbias);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (nc == 1)
+    return launch_single<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp,
+                            dvp, dbp, a);
+  return launch_single<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp, dvp,
+                          dbp, a);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels: tiles of 128-byte
-// rows (64 bf16, D = 64; or 128 int8 along K) in the 128-byte swizzled
+// rows (64 bf16: a head of D 64, or one of the two halves of a head of any
+// other D up to 128; or 128 int8 along K) in the 128-byte swizzled
 // shared-memory layout, staged by cp.async; the wgmma descriptor of such a
 // tile; the wgmma m64n64k16 bf16 products (fp32 accumulate) with both
 // operands in shared memory (SS, each K- or MN-major) or A in registers
@@ -53,6 +54,52 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const bf16* src, long lon
     if (kChunks % kThreads != 0 && c >= kChunks) break;
     const bool in = row < T;
     cp_async_16(tile + sw128(r, ch), src + (in ? row : 0) * row_stride + ch * 8, in);
+  }
+}
+
+// As stage_tile for rows of which only the first ``cols`` elements (a
+// multiple of 8 below 64; none at or below 0) are read: the chunks past
+// them are zero-filled.
+template <int kThreads>
+__device__ __forceinline__ void stage_tile_cols(bf16* tile, const bf16* src,
+                                                long long row_stride, int row0, int T, int cols,
+                                                int tid) {
+  constexpr int kChunks = kTileRows * 8;
+#pragma unroll
+  for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
+    const int c = tid + i * kThreads, r = c >> 3, ch = c & 7, row = row0 + r;
+    if (kChunks % kThreads != 0 && c >= kChunks) break;
+    const bool in = row < T && ch * 8 < cols;
+    cp_async_16(tile + sw128(r, ch), in ? src + row * row_stride + ch * 8 : src, in);
+  }
+}
+
+// The attention kernels' head dims: a multiple of 8 up to 128 (their
+// wrappers pad other head dims with zero columns).
+__host__ __device__ constexpr bool head_dim_ok(int D) {
+  return D > 0 && D <= 2 * kRowElems && D % 8 == 0;
+}
+
+// A head's rows of D elements as NC consecutive swizzled tiles, tile n
+// holding columns 64n .. 64n + 63. NC = 1: D is 64 (the D 64 instances, as
+// before the head dims came). NC = 2: any other D (a multiple of 8 up to
+// 128), zero past D (zero columns add nothing to a product over D).
+template <int kThreads, int NC>
+__device__ __forceinline__ void stage_head(bf16* tiles, const bf16* src, long long row_stride,
+                                           int row0, int T, int D, int tid) {
+  if constexpr (NC == 1) {
+    stage_tile<kThreads>(tiles, src, row_stride, row0, T, tid);
+  } else {
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int cols = D - n * kRowElems;
+      if (cols >= kRowElems)
+        stage_tile<kThreads>(tiles + n * kTileElems, src + n * kRowElems, row_stride, row0, T,
+                             tid);
+      else
+        stage_tile_cols<kThreads>(tiles + n * kTileElems, src + n * kRowElems, row_stride,
+                                  row0, T, cols, tid);
+    }
   }
 }
 
@@ -282,19 +329,28 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a,
 #undef A2V_RW
 #undef A2V_WO
 
-// d = A . B for two swizzled 64 x 64 tiles (descriptors), each read K-major
-// (0: rows along M or N, a row's 64 elements along K; <0, 0> is A . B^T of
-// two row tiles, e.g. S = Q K^T) or MN-major (1: rows along K, a row's 64
-// elements along M or N): four k16 steps. Issue only; the caller commits
-// and waits.
-template <int kTransA, int kTransB>
+// d = (or, kAcc, +=) A . B for two swizzled 64 x 64 tiles (descriptors),
+// each read K-major (0: rows along M or N, a row's 64 elements along K;
+// <0, 0> is A . B^T of two row tiles, e.g. S = Q K^T) or MN-major (1: rows
+// along K, a row's 64 elements along M or N): four k16 steps. Issue only;
+// the caller commits and waits.
+template <int kTransA, int kTransB, bool kAcc = false>
 __device__ __forceinline__ void gemm_tile_ss(float (&d)[32], uint64_t da, uint64_t db) {
   constexpr uint64_t step_a = kTransA ? kDescStepMN : kDescStepK;
   constexpr uint64_t step_b = kTransB ? kDescStepMN : kDescStepK;
-  wgmma_ss<false, kTransB, kTransA>(d, da, db);
+  wgmma_ss<kAcc, kTransB, kTransA>(d, da, db);
 #pragma unroll
   for (int kk = 1; kk < kRowElems / 16; ++kk)
     wgmma_ss<true, kTransB, kTransA>(d, da + kk * step_a, db + kk * step_b);
+}
+
+// d = A . B^T of two heads of NC tiles each (stage_head), K-major: the sum
+// over D of NC tile products (S = Q K^T, dP = dO V^T). Issue only.
+template <int NC>
+__device__ __forceinline__ void gemm_head_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  gemm_tile_ss<0, 0>(d, da, db);
+#pragma unroll
+  for (int n = 1; n < NC; ++n) gemm_tile_ss<0, 0, true>(d, da + n * kDescTile, db + n * kDescTile);
 }
 
 // d += A . B with A (64 x 64) in registers as four k16 fragments and B a

@@ -84,8 +84,8 @@ SIGNATURES = {
     # stream
     "a2v_fused_block_int8": (_P,) * 20 + (_I,) * 4 + (_F, _P),
     # q, k, v, stride_b, stride_t, stride_h, q8, qs, k8, ks, v8t, vsc, B, H, T,
-    # D, t_pad, stream
-    "a2v_quantize_qkv_int8": (_P,) * 3 + (_L,) * 3 + (_P,) * 6 + (_I,) * 5 + (_P,),
+    # D, t_pad, q_scale, stream
+    "a2v_quantize_qkv_int8": (_P,) * 3 + (_L,) * 3 + (_P,) * 6 + (_I,) * 5 + (_F, _P),
     # q8, qs, k8, ks, v8t, vsc, slopes, pos, pos_per_row, mask, mask_per_row,
     # out, o_acc, B, H, T, D, t_pad, span, has_sentinel, stream
     "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P, _P) + (_I,) * 7 + (_P,),

@@ -44,6 +44,15 @@ one slope partial per (b, h, 64-query tile), summed here) and the dk/dv
 kernel (``attention_dkv``) of ``csrc/alibi_attention_bwd.cu``. On CPU
 tensors autograd through ``alibi_attention_plain`` is the backward.
 
+Head dims: the kernels take any head dim D from 1 to ``MAX_HEAD_DIM`` (128):
+D 64 as one 64-column tile, every other D as two, zero past D. They read a
+head's row in 16-byte chunks, so a D that is not a multiple of 8 is
+zero-padded to one (``kernel_head_dim``) in a copy made here, with the
+scale D^-0.5 of the true D and only the true D columns of each output kept;
+zero columns add nothing to q.k and give zero output columns. D > 128
+raises on a CUDA tensor (ROADMAP A.11 queues it); the plain versions take
+any D.
+
 Semantics (all versions): scores ``q.k / sqrt(D) - slope_h * |pos_i -
 pos_j|`` in fp32, zero bias where either position is < 0 when
 ``has_sentinel``, padded keys replaced by a finite -1e9 (a row whose keys are
@@ -72,6 +81,31 @@ from animal2vec_tpu_torch.ops.int8_mm import INV_127, quantize_rows
 NEG_INF = -1e9
 DEAD_LSE = -5e8  # an lse below this marks a query row whose keys are all padded
 Q_TILE = 64  # query rows per block of the dq kernel: one slope partial each
+MAX_HEAD_DIM = 128  # the attention kernels' widest head
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim an attention kernel launch takes for heads of ``d``:
+    ``d`` rounded up to a multiple of 8 (the wrappers zero-pad to it).
+    Raises past ``MAX_HEAD_DIM``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head dims 1 to {MAX_HEAD_DIM}, got {d} "
+                         "(wider heads are ROADMAP A.11's)")
+    return -(-d // 8) * 8
+
+
+def pad_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` (..., D) zero-padded to (..., d): a new contiguous tensor, or
+    ``x`` itself when D is ``d``."""
+    return x if x.shape[-1] == d else F.pad(x, (0, d - x.shape[-1]))
+
+
+def int8_row_len(d: int) -> int:
+    """Bytes of a q8 / k8 row (and v8^T rows) of the int8 attention's
+    layouts for heads of ``d``, zero past ``d``: the kernel's one tile of
+    64 where ``kernel_head_dim(d)`` is 64, else its two tiles of 64 (128;
+    past 128, on the CPU only, the next multiple of 64)."""
+    return 64 if -(-d // 8) * 8 == 64 else max(128, -(-d // 64) * 64)
 
 
 def _scores(qkv, slopes, positions, padding_mask, has_sentinel, positions_k=None):
@@ -203,8 +237,7 @@ def _kernel_args(qkv, slopes, positions, padding_mask):
     _, b, h, t, d = qkv.shape
     if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
         raise ValueError(f"the kernels take contiguous bf16 qkv, got {qkv.dtype}")
-    if d != 64:
-        raise ValueError(f"the kernels are built for head dim 64, got {d}")
+    kernel_head_dim(d)
     return (b, h, t, d) + _side_args(b, h, t, qkv.device, slopes, positions, padding_mask)
 
 
@@ -247,6 +280,12 @@ def _check_device(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {x.device}")
 
 
+def _on_cpu(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the plain version: it lies on the CPU. Any other
+    device launches the kernel (``_check_device`` raises off CUDA)."""
+    return x.device.type == "cpu"
+
+
 def _aligned(x: torch.Tensor) -> bool:
     """A (..., D) view the forward kernel reads or writes: 16-byte aligned
     rows of contiguous elements, every stride a multiple of 8."""
@@ -272,11 +311,17 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None,
     v (one stride set) and out; ``side`` are ``_side_args``' slopes,
     positions and mask, ``drop`` ``_dropout_args``', ``lse`` None or a
     contiguous (B*H, T) fp32 output, ``posk`` ``_positions_k``'s,
-    ``heads`` (h0, hash_heads) of the dropout hash (hash_heads 0: H)."""
+    ``heads`` (h0, hash_heads) of the dropout hash (hash_heads 0: H). A
+    head dim off a multiple of 8 runs on zero-padded copies."""
+    b, t, h, d = q.shape
+    dk = kernel_head_dim(d)
+    target = out
+    if dk != d:
+        q, k, v = (pad_head(x, dk) for x in (q, k, v))
+        out = out.new_empty(q.shape)
     if not all(_aligned(x) for x in (q, k, v, out)):
         raise ValueError("the kernel needs 16-byte aligned q, k, v and out with a contiguous "
                          "last dim and strides in multiples of 8")
-    b, t, h, d = q.shape
     sl, pos, pos_per_row, mask, mask_per_row = side
     seed_i, thresh, scale = drop
     with torch.cuda.device(q.device):
@@ -287,10 +332,12 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None,
             posk[0].data_ptr(), 0 if posk is None else posk[1],
             None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
             out.stride(0), out.stride(1), out.stride(2), None if lse is None else lse.data_ptr(),
-            b, h, t, d, int(has_sentinel), d**-0.5, seed_i, thresh, scale, heads[0],
+            b, h, t, dk, int(has_sentinel), d**-0.5, seed_i, thresh, scale, heads[0],
             heads[1] or h, stream,
         )
     check(err, "alibi attention forward kernel")
+    if out is not target:
+        target.copy_(out[..., :d])
 
 
 def _check_qkv_views(q, k, v) -> None:
@@ -302,9 +349,9 @@ def _check_qkv_views(q, k, v) -> None:
 def _check_card_views(q, k, v) -> None:
     """The CUDA entries' checks of (B, T, H, D) views q, k, v read in place."""
     _check_device(q, "alibi attention")
-    if q.shape[-1] != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, "
-                         f"D={q.shape[-1]}")
+    kernel_head_dim(q.shape[-1])
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError(f"the kernel takes bf16 q, k, v, got {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("k and v must be on q's device")
     if k.stride() != q.stride() or v.stride() != q.stride():
@@ -381,7 +428,7 @@ def alibi_flash_attention_packed(
     heads in the dropout hash (``hash_heads_of``). Serving calls (no lse, no
     dropout, no key positions) go to ``alibi_flash_attention_serve`` on the
     packed planes and return its output as a (B, H, T, D) view."""
-    if qkv.device.type == "cpu":
+    if _on_cpu(qkv):
         return alibi_attention_plain(qkv, slopes, positions, padding_mask, has_sentinel,
                                      dropout_rate, seed, return_lse, positions_k, h0,
                                      hash_heads)
@@ -422,7 +469,7 @@ def alibi_flash_attention_lse(
     launch of the training kernel on CUDA, counted by ``.launches``; the
     plain version on CPU."""
     _check_qkv_views(q, k, v)
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         out, lse = alibi_attention_plain(torch.stack([q, k, v]).transpose(2, 3), slopes,
                                          positions, padding_mask, has_sentinel,
                                          return_lse=True, positions_k=positions_k)
@@ -443,6 +490,9 @@ alibi_flash_attention_lse.launches = 0
 
 def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_rate, seed,
                 h0, hash_heads):
+    """Checked arguments of the backward kernels: (b, h, t, d, slopes,
+    positions, pos_per_row, mask, mask_per_row), (seed, thresh, keep
+    scale, h0, hash_heads)."""
     args = _kernel_args(qkv, slopes, positions, padding_mask)
     b, h, t, d = args[:4]
     heads = hash_heads_of(h, h0, hash_heads)
@@ -463,7 +513,7 @@ def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
     flash backward. ``dq`` may be a preallocated contiguous output (a plane
     of the (3, B, H, T, D) gradient); ``h0`` and ``hash_heads`` as the
     forward's. Kernel on CUDA, ``attention_bwd_plain`` on CPU."""
-    if qkv.device.type == "cpu":
+    if _on_cpu(qkv):
         dqkv, parts = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions,
                                           padding_mask, has_sentinel, dropout_rate, seed, h0,
                                           hash_heads)
@@ -474,16 +524,21 @@ def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
                     h0, hash_heads)
     if dq is None:
         dq = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    dk = kernel_head_dim(d)  # a head dim off a multiple of 8 on zero-padded copies
+    qkv_k, dout_k = pad_head(qkv, dk), pad_head(dout, dk)
+    dq_k = dq if dk == d else dq.new_empty((b, h, t, dk))
     parts = torch.empty((b, h, -(-t // Q_TILE)), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention_bwd_dq(
-            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
-            pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
-            mask_per_row, dq.data_ptr(), parts.data_ptr(), b, h, t, d, int(has_sentinel),
+            qkv_k.data_ptr(), dout_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            sl.data_ptr(), pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
+            mask_per_row, dq_k.data_ptr(), parts.data_ptr(), b, h, t, dk, int(has_sentinel),
             d**-0.5, seed_i, thresh, scale, h0, hh, stream,
         )
     check(err, "alibi attention dq kernel")
+    if dq_k is not dq:
+        dq.copy_(dq_k[..., :d])
     attention_dq.launches += 1
     return dq, parts
 
@@ -497,7 +552,7 @@ def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
     """dk and dv (B, H, T, D) of the flash backward; optional preallocated
     contiguous outputs; ``h0`` and ``hash_heads`` as the forward's. Kernel
     on CUDA, ``attention_bwd_plain`` on CPU."""
-    if qkv.device.type == "cpu":
+    if _on_cpu(qkv):
         dqkv, _ = attention_bwd_plain(qkv, dout, lse, delta, slopes, positions, padding_mask,
                                       has_sentinel, dropout_rate, seed, h0, hash_heads)
         return dqkv[1], dqkv[2]
@@ -509,15 +564,22 @@ def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
         dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     if dv is None:
         dv = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    d_k = kernel_head_dim(d)  # a head dim off a multiple of 8 on zero-padded copies
+    qkv_k, dout_k = pad_head(qkv, d_k), pad_head(dout, d_k)
+    dk_k, dv_k = (dk, dv) if d_k == d else (dk.new_empty((b, h, t, d_k)),
+                                           dv.new_empty((b, h, t, d_k)))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention_bwd_dkv(
-            qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), sl.data_ptr(),
-            pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
-            mask_per_row, dk.data_ptr(), dv.data_ptr(), b, h, t, d, int(has_sentinel),
+            qkv_k.data_ptr(), dout_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            sl.data_ptr(), pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
+            mask_per_row, dk_k.data_ptr(), dv_k.data_ptr(), b, h, t, d_k, int(has_sentinel),
             d**-0.5, seed_i, thresh, scale, h0, hh, stream,
         )
     check(err, "alibi attention dk/dv kernel")
+    if dk_k is not dk:
+        dk.copy_(dk_k[..., :d])
+        dv.copy_(dv_k[..., :d])
     attention_dkv.launches += 1
     return dk, dv
 
@@ -605,7 +667,7 @@ def alibi_flash_attention_btc(
         q, k, v = qkv_btc.reshape(b, t, 3, heads, c3 // (3 * heads)).unbind(2)
         out = alibi_flash_attention_serve(q, k, v, slopes, positions, padding_mask, has_sentinel)
         return out.view(b, t, c3 // 3)
-    if qkv_btc.device.type == "cpu":
+    if _on_cpu(qkv_btc):
         return alibi_attention_btc_plain(qkv_btc, heads, slopes, positions, padding_mask,
                                          has_sentinel, dropout_rate, seed, h0, hash_heads)
     _check_device(qkv_btc, "alibi attention")
@@ -628,7 +690,8 @@ def alibi_flash_attention_btc(
 #   l = exp(m - m') * l + sum p               (unquantized fp32 p)
 #   acc = exp(m - m') * acc + fp32(round(127 p) . v8) * (vs * fp32(1/127))
 #
-# and out = acc / max(l, 1e-30). P is quantized against the running max
+# and out = acc / max(l, 1e-30), over the head's D columns (the layouts pad
+# q8, k8 and v8^T with zeros to ``int8_row_len(D)``). P is quantized against the running max
 # after each whole span, so the result depends on the span: the JAX key
 # block (``int8_spans``, 2048 keys at most). Like the JAX wrapper, keys past
 # T up to the padded length count as padded keys with zero v (their weight
@@ -695,8 +758,11 @@ def attention_int8_quantized_plain(
 ) -> torch.Tensor:
     """Reference of the int8 kernel on the quantization pass's outputs (the
     layouts of ``quantize_qkv_int8_pass_plain``, any device): (B, T, H, D)
-    in ``out_dtype``, the int8 products exact in float64."""
-    b, h, t, d = q8.shape
+    in ``out_dtype``, D the channels of ``vsc``, the int8 products exact in
+    float64."""
+    b, h, t, _ = q8.shape
+    d = vsc.shape[-1]
+    q8, k8, v8t = q8[..., :d], k8[..., :d], v8t[:, :, :d]  # the padding is zero
     t_pad = v8t.shape[-1]
     pad = t_pad - t
     k8, ks = F.pad(k8, (0, 0, 0, pad)), F.pad(ks, (0, pad))
@@ -747,15 +813,18 @@ def v8t_key_order(t_pad: int, device=None) -> torch.Tensor:
 
 def quantize_qkv_int8_pass_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int):
     """Plain version of the kernel's quantization pass: (B, T, H, D) q, k, v
-    -> q8, k8 (B, H, T, D) int8, qs, ks (B, H, T) fp32, v8t (B, H, D, t_pad)
+    -> q8, k8 (B, H, T, R) int8, qs, ks (B, H, T) fp32, v8t (B, H, R, t_pad)
     int8 (zero past T, keys in ``v8t_key_order``) and vsc (B, H, D) fp32 =
     vs * fp32(1/127): ``quantize_qkv_int8``'s values in the kernel's
-    layouts."""
+    layouts, whose rows of R = ``int8_row_len(D)`` are zero past D."""
     q8, qs, k8, ks, v8, vs = quantize_qkv_int8(q, k, v)
-    t = q.shape[1]
-    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, t_pad - t))[..., v8t_key_order(t_pad, q.device)]
+    t, d = q.shape[1], q.shape[-1]
+    rows = int8_row_len(d)
+    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, t_pad - t, 0, rows - d))
+    v8t = v8t[..., v8t_key_order(t_pad, q.device)]
     bhtd = lambda x: x.transpose(1, 2).contiguous()
-    return bhtd(q8), bhtd(qs), bhtd(k8), bhtd(ks), v8t.contiguous(), vs * INV_127
+    return (bhtd(pad_head(q8, rows)), bhtd(qs), bhtd(pad_head(k8, rows)), bhtd(ks),
+            v8t.contiguous(), vs * INV_127)
 
 
 @torch.library.custom_op("a2v::quantize_qkv_int8", mutates_args=(), device_types="cuda")
@@ -763,23 +832,29 @@ def _quantize_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor, torch.Tensor]:
     """#5's quantization pass on the card: one C entry of two launches, q,
-    k, v read in place."""
+    k, v read in place (a head dim off a multiple of 8 from zero-padded
+    copies)."""
     _check_card_views(q, k, v)
-    if not all(_aligned(x) for x in (q, k, v)):
+    b, t, h, d = q.shape
+    dk = kernel_head_dim(d)
+    q_k, k_k, v_k = (pad_head(x, dk) for x in (q, k, v))
+    if not all(_aligned(x) for x in (q_k, k_k, v_k)):
         raise ValueError("the kernel needs 16-byte aligned q, k, v with a contiguous last dim "
                          "and strides in multiples of 8")
-    b, t, h, d = q.shape
     if t_pad < t or t_pad % 64:
         raise ValueError(f"t_pad must be a multiple of 64 and at least T={t}, got {t_pad}")
     q8, qs, k8, ks, v8t, vsc = _quantized_layouts(q, t_pad)
+    vsc_k = vsc if dk == d else vsc.new_empty((b, h, dk))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_quantize_qkv_int8(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-            q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
-            vsc.data_ptr(), b, h, t, d, t_pad, stream,
+            q_k.data_ptr(), k_k.data_ptr(), v_k.data_ptr(), q_k.stride(0), q_k.stride(1),
+            q_k.stride(2), q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+            v8t.data_ptr(), vsc_k.data_ptr(), b, h, t, dk, t_pad, d**-0.5, stream,
         )
     check(err, "int8 q, k, v quantization kernel")
+    if vsc_k is not vsc:
+        vsc.copy_(vsc_k[..., :d])
     quantize_qkv_int8_pass.launches += 1
     return q8, qs, k8, ks, v8t, vsc
 
@@ -787,9 +862,10 @@ def _quantize_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int
 def _quantized_layouts(q: torch.Tensor, t_pad: int):
     """Empty q8, qs, k8, ks, v8t, vsc of the pass for (B, T, H, D) ``q``."""
     b, t, h, d = q.shape
-    q8 = q.new_empty((b, h, t, d), dtype=torch.int8)
+    rows = int8_row_len(d)
+    q8 = q.new_empty((b, h, t, rows), dtype=torch.int8)
     qs = q.new_empty((b, h, t), dtype=torch.float32)
-    v8t = q.new_empty((b, h, d, t_pad), dtype=torch.int8)
+    v8t = q.new_empty((b, h, rows, t_pad), dtype=torch.int8)
     return (q8, qs, torch.empty_like(q8), torch.empty_like(qs), v8t,
             q.new_empty((b, h, d), dtype=torch.float32))
 
@@ -823,29 +899,37 @@ def _attention_int8_op(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor, ks:
                        v8t: torch.Tensor, vsc: torch.Tensor, slopes: torch.Tensor,
                        positions: torch.Tensor, padding_mask: Optional[torch.Tensor],
                        has_sentinel: bool, span: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """#5 on the card: one launch on the quantization pass's outputs."""
+    """#5 on the card: one launch on the quantization pass's outputs, heads
+    of the D channels of ``vsc`` (off a multiple of 8: the zero-padded head,
+    its first D columns kept)."""
     _check_device(q8, "int8 alibi attention")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the kernel writes bf16, got out_dtype {out_dtype}")
-    b, h, t, d = q8.shape
+    b, h, t, rows = q8.shape
+    d = vsc.shape[-1]
+    dk = kernel_head_dim(d)
+    if rows != int8_row_len(d) or v8t.shape[2] != rows:
+        raise ValueError(f"q8 and v8t must hold rows of {int8_row_len(d)} for D={d}, got "
+                         f"{tuple(q8.shape)}, {tuple(v8t.shape)}")
     t_pad = v8t.shape[-1]
     sl, pos, pos_per_row, mask, mask_per_row = _side_args(b, h, t, q8.device, slopes, positions,
                                                           padding_mask)
-    out = torch.empty((b, t, h, d), dtype=out_dtype, device=q8.device)
+    vsc_k = pad_head(vsc, dk)  # zero scales of the zero channels
+    out = torch.empty((b, t, h, dk), dtype=out_dtype, device=q8.device)
     # the fp32 sums between key spans (none with one span)
     o_acc = torch.empty_like(q8, dtype=torch.float32) if t_pad > span else None
     with torch.cuda.device(q8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_alibi_attention_int8(
             q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8t.data_ptr(),
-            vsc.data_ptr(), sl.data_ptr(), pos.data_ptr(), pos_per_row,
+            vsc_k.data_ptr(), sl.data_ptr(), pos.data_ptr(), pos_per_row,
             None if mask is None else mask.data_ptr(), mask_per_row, out.data_ptr(),
-            None if o_acc is None else o_acc.data_ptr(), b, h, t, d, t_pad, span,
+            None if o_acc is None else o_acc.data_ptr(), b, h, t, dk, t_pad, span,
             int(has_sentinel), stream,
         )
     check(err, "int8 alibi attention kernel")
     alibi_flash_attention_int8.launches += 1
-    return out
+    return out if dk == d else out[..., :d].contiguous()
 
 
 @_attention_int8_op.register_kernel("cpu")
@@ -856,8 +940,8 @@ def _attention_int8_plain(*args):
 @_attention_int8_op.register_fake
 def _attention_int8_fake(q8, qs, k8, ks, v8t, vsc, slopes, positions, padding_mask,
                          has_sentinel, span, out_dtype):
-    b, h, t, d = q8.shape
-    return q8.new_empty((b, t, h, d), dtype=out_dtype)
+    b, h, t, _ = q8.shape
+    return q8.new_empty((b, t, h, vsc.shape[-1]), dtype=out_dtype)
 
 
 def alibi_flash_attention_int8(

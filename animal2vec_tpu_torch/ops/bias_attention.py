@@ -16,7 +16,9 @@ returns the mean of V over the T keys, as ``xla_attention``'s softmax does.
 ``bias_flash_attention`` is the model's entry, differentiable in q, k, v
 and the bias. On a CUDA tensor with no gradient wanted (grad mode off, or
 no input requires grad: serving, the EMA teacher) it makes one launch of
-the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, D = 64).
+the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, head dims 1
+to 128; one off a multiple of 8 on zero-padded copies, as the ALiBi
+kernels take it: ``ops/attention.kernel_head_dim``).
 Otherwise it is a ``torch.autograd.Function``: its forward launches the
 kernel with the (B*H, T) fp32 logsumexp; its backward computes ``delta =
 rowsum(dO * O)`` in fp32 with one torch op and launches, for T <= 64 (the
@@ -60,6 +62,9 @@ from typing import Optional, Tuple
 import torch
 
 from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.ops.attention import (
+    _check_device, _on_cpu, kernel_head_dim, pad_head,
+)
 from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
 
 NEG_INF = -1e10  # models/attention.py NEG_INF
@@ -151,14 +156,23 @@ def bias_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds
 
 
-def _check_qkv(q, k, v):
-    """Check the kernels' q, k, v; return (b, t, h, d, strides)."""
+def _kernel_views(q, k, v, *more):
+    """(q, k, v and ``more`` (B, T, H, D) tensors as the kernels take them,
+    the true D): zero-padded copies along D to ``kernel_head_dim(D)`` when
+    D is off a multiple of 8, else the tensors themselves."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, T, H, D) of one shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    return tuple(pad_head(x, dk) for x in (q, k, v) + more), d
+
+
+def _check_qkv(q, k, v):
+    """Check the kernels' q, k, v; return (b, t, h, d, strides)."""
     b, t, h, d = q.shape
-    if d != 64 or any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v with head dim 64, got {q.dtype}, D={d}")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError(f"the kernel takes bf16 q, k, v, got {q.dtype}")
     strides = q.stride()
     if k.stride() != strides or v.stride() != strides or strides[2:] != (d, 1):
         raise ValueError(f"q, k, v must share strides (stride_b, stride_t, {d}, 1), got "
@@ -223,11 +237,11 @@ def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False
     dropout of ``seed`` on the weights. On CUDA one launch of the kernel, on
     CPU the plain version under ``attention_keep``'s mask; not
     differentiable (the model's entry is ``bias_flash_attention``)."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return bias_attention_plain(q, k, v, bias, padding_mask, with_lse,
                                     _plain_keep(q, rate, seed), rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
+    _check_device(q, "bias attention")
+    (q, k, v), d_true = _kernel_views(q, k, v)
     b, t, h, d, strides = _check_qkv(q, k, v)
     dev = q.device
     bias, uniform = _bias_arg(bias, b, h, t, dev)
@@ -238,11 +252,13 @@ def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_bias_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], _ptr(bias),
-            int(uniform), _ptr(padding_mask), out.data_ptr(), _ptr(lse), b, h, t, d, d**-0.5,
-            *_drop_args(rate, seed), stream,
+            int(uniform), _ptr(padding_mask), out.data_ptr(), _ptr(lse), b, h, t, d,
+            d_true**-0.5, *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention kernel")
     bias_flash_attention.launches += 1
+    if d != d_true:
+        out = out[..., :d_true].contiguous()
     return (out, lse) if with_lse else out
 
 
@@ -269,6 +285,24 @@ def _grad_planes(q):
     return torch.empty((b, t, 3, h, d), dtype=q.dtype, device=q.device).unbind(2)
 
 
+def _kernel_grads(grads, d_true, d):
+    """The kernel's dq, dk, dv planes for the caller's ``grads`` (planes of a
+    (B, T, 3, H, D) gradient): the caller's own at D = ``d``, else planes
+    of a padded gradient, whose first ``d_true`` columns ``_copy_back``
+    copies into the caller's."""
+    if d == d_true:
+        return grads
+    b, t, h, _ = grads[0].shape
+    return torch.empty((b, t, 3, h, d), dtype=grads[0].dtype,
+                       device=grads[0].device).unbind(2)[:len(grads)]
+
+
+def _copy_back(grads, kernel_grads, d_true):
+    for g, gk in zip(grads, kernel_grads):
+        if g is not gk:
+            g.copy_(gk[..., :d_true])
+
+
 def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, dq=None,
                       want_dbias=True, rate=0.0, seed=None):
     """dq (B, T, H, D) and, with ``want_dbias`` and a bias, dbias = dS (B,
@@ -276,15 +310,16 @@ def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, d
     ``rate`` and ``seed``). ``dq`` may be a preallocated plane of a (B, T,
     3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain`` on
     CPU."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         dq_p, _, _, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask,
                                                   _plain_keep(q, rate, seed), rate)
         return dq_p, (ds if want_dbias and bias is not None else None)
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention dq runs on cuda or cpu tensors, got {q.device}")
+    _check_device(q, "bias attention dq")
     dq = _grad_planes(q)[0] if dq is None else dq
+    (q, k, v, dout), d_true = _kernel_views(q, k, v, dout)
+    (dq_k,) = _kernel_grads((dq,), d_true, q.shape[-1])
     b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
-        q, k, v, dout, lse, delta, bias, padding_mask, dq)
+        q, k, v, dout, lse, delta, bias, padding_mask, dq_k)
     dbias = None
     if want_dbias and bias is not None:
         dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
@@ -293,10 +328,11 @@ def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, d
         err = library().a2v_bias_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
-            dq.data_ptr(), out_strides[0], out_strides[1], _ptr(dbias), b, h, t, d, d**-0.5,
-            *_drop_args(rate, seed), stream,
+            dq_k.data_ptr(), out_strides[0], out_strides[1], _ptr(dbias), b, h, t, d,
+            d_true**-0.5, *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention dq kernel")
+    _copy_back((dq,), (dq_k,), d_true)
     bias_attention_dq.launches += 1
     return dq, dbias
 
@@ -310,27 +346,29 @@ def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, 
     ``rate`` and ``seed``); ``dk`` and ``dv`` may be preallocated planes of
     a (B, T, 3, H, D) gradient. Kernel on CUDA, ``bias_attention_bwd_plain``
     on CPU."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         _, dk_p, dv_p, _ = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias, padding_mask,
                                                     _plain_keep(q, rate, seed), rate)
         return dk_p, dv_p
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention dk/dv runs on cuda or cpu tensors, got {q.device}")
+    _check_device(q, "bias attention dk/dv")
     if dk is None or dv is None:
         _, dk, dv = _grad_planes(q)
-    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
-        q, k, v, dout, lse, delta, bias, padding_mask, dk)
     if dv.stride() != dk.stride() or dv.shape != dk.shape:
         raise ValueError("dk and dv must be planes of one (B, T, 3, H, D) tensor")
+    (q, k, v, dout), d_true = _kernel_views(q, k, v, dout)
+    dk_k, dv_k = _kernel_grads((dk, dv), d_true, q.shape[-1])
+    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
+        q, k, v, dout, lse, delta, bias, padding_mask, dk_k)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().a2v_bias_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
-            dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1], b, h, t, d, d**-0.5,
-            *_drop_args(rate, seed), stream,
+            dk_k.data_ptr(), dv_k.data_ptr(), out_strides[0], out_strides[1], b, h, t, d,
+            d_true**-0.5, *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention dk/dv kernel")
+    _copy_back((dk, dv), (dk_k, dv_k), d_true)
     bias_attention_dkv.launches += 1
     return dk, dv
 
@@ -345,21 +383,23 @@ def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask
     ``SINGLE_T``; ``dq``, ``dk``, ``dv`` may be preallocated planes of a (B,
     T, 3, H, D) gradient; ``rate`` and ``seed`` the forward's dropout.
     Kernel on CUDA, ``bias_attention_bwd_plain`` on CPU."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         dq_p, dk_p, dv_p, ds = bias_attention_bwd_plain(q, k, v, dout, lse, delta, bias,
                                                         padding_mask, _plain_keep(q, rate, seed),
                                                         rate)
         return dq_p, dk_p, dv_p, (ds if want_dbias and bias is not None else None)
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention backward runs on cuda or cpu tensors, got {q.device}")
+    _check_device(q, "bias attention backward")
     if dq is None or dk is None or dv is None:
         dq, dk, dv = _grad_planes(q)
-    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
-        q, k, v, dout, lse, delta, bias, padding_mask, dq)
-    if t > SINGLE_T:
-        raise ValueError(f"the single backward launch takes T <= {SINGLE_T}, got {t}")
     if any(x.stride() != dq.stride() or x.shape != dq.shape for x in (dk, dv)):
         raise ValueError("dq, dk and dv must be planes of one (B, T, 3, H, D) tensor")
+    (q, k, v, dout), d_true = _kernel_views(q, k, v, dout)
+    grads = (dq, dk, dv)
+    dq_k, dk_k, dv_k = _kernel_grads(grads, d_true, q.shape[-1])
+    b, t, h, d, strides, bias_c, uniform, mask, out_strides = _bwd_args(
+        q, k, v, dout, lse, delta, bias, padding_mask, dq_k)
+    if t > SINGLE_T:
+        raise ValueError(f"the single backward launch takes T <= {SINGLE_T}, got {t}")
     dbias = None
     if want_dbias and bias is not None:
         dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
@@ -368,10 +408,11 @@ def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask
         err = library().a2v_bias_attention_bwd_single(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), out_strides[0], out_strides[1],
-            _ptr(dbias), b, h, t, d, d**-0.5, *_drop_args(rate, seed), stream,
+            dq_k.data_ptr(), dk_k.data_ptr(), dv_k.data_ptr(), out_strides[0], out_strides[1],
+            _ptr(dbias), b, h, t, d, d_true**-0.5, *_drop_args(rate, seed), stream,
         )
     check(err, "bias attention single backward kernel")
+    _copy_back(grads, (dq_k, dk_k, dv_k), d_true)
     bias_attention_bwd_single.launches += 1
     return dq, dk, dv, dbias
 
@@ -422,11 +463,10 @@ def bias_flash_attention(
     launch when no gradient is wanted, else the autograd Function (forward
     with lse, the backward kernels); autograd through the plain version
     under ``attention_keep``'s mask on CPU."""
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return bias_attention_plain(q, k, v, bias, padding_mask, False,
                                     _plain_keep(q, dropout_rate, seed), dropout_rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"bias attention runs on cuda or cpu tensors, got {q.device}")
+    _check_device(q, "bias attention")
     inputs = (q, k, v) + (() if bias is None else (bias,))
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         return _BiasAttention.apply(q, k, v, bias, padding_mask, dropout_rate, seed)

@@ -35,6 +35,7 @@ from animal2vec_tpu_torch.ops.alibi import alibi_bias_2d
 from animal2vec_tpu_torch.tools.device_time import device_ms
 
 ENTRY = "a2v_bias_attention"
+NO_DROPOUT = (0, 0, 1.0)  # the entries' seed, keep threshold and keep scale: no dropout
 DQ, DKV, SINGLE = ("a2v_bias_attention_bwd_dq", "a2v_bias_attention_bwd_dkv",
                    "a2v_bias_attention_bwd_single")
 ORDER = ("other", "this", "this", "other", "this", "other")
@@ -70,7 +71,7 @@ def launcher(fn, q, k, v, bias, uniform, lse):
         check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
                  None if bias is None else bias.data_ptr(), int(uniform), None,
                  out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t, d,
-                 d ** -0.5, torch.cuda.current_stream().cuda_stream), ENTRY)
+                 d ** -0.5, *NO_DROPOUT, torch.cuda.current_stream().cuda_stream), ENTRY)
 
     return go, out
 
@@ -85,7 +86,7 @@ def bwd_launcher(fns, q, k, v, dout, lse, delta, bias):
     dbias = torch.empty((b, h, t, t), device=q.device)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), 0, None)
-    tail = (b, h, t, d, d ** -0.5)
+    tail = (b, h, t, d, d ** -0.5, *NO_DROPOUT)
 
     def go():
         stream = torch.cuda.current_stream().cuda_stream
