@@ -578,7 +578,7 @@ class CommonConfig:
     it."""
 
     seed: int = 1
-    compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    compute_dtype: str = "float32"  # "bfloat16" | "float32" (JAX's default: float32)
     log_interval: int = 100
     tensorboard_logdir: str = ""
     profile: bool = False
@@ -739,6 +739,13 @@ class RunConfig:
                 f"multiples of 128 (the split fused block's kernels), got {enc.embed_dim} and "
                 f"{int(enc.embed_dim * enc.mlp_ratio)} / {mp}: not ported (ROADMAP A.10)")
 
+    def check_card_dtype(self, device_type: str) -> None:
+        """``check_card_dtype`` of this run's encoder, compute dtype, teacher
+        and tensor parallelism on a device of ``device_type``."""
+        teacher = "" if self.pretrain is None else self.pretrain.teacher_matmul_impl
+        check_card_dtype(self.encoder, self.common.compute_dtype, device_type, teacher,
+                         self.distributed.model_parallel)
+
     @property
     def encoder(self) -> FinetuneConfig:
         """The audio encoder's configuration (the conv stack, labels, sample
@@ -758,6 +765,38 @@ class RunConfig:
     def a2v_large_pretrain(cls) -> "RunConfig":
         """``configs/a2v_large_pretrain.yaml`` (``recipes.load_config``)."""
         return load_config(recipe_path("a2v_large_pretrain"))
+
+
+def check_card_dtype(encoder, compute_dtype: str, device_type: str,
+                     teacher_matmul_impl: str = "", model_parallel: int = 1) -> None:
+    """Refuse, at build, an fp32 model on a CUDA device whose path runs a
+    kernel that has no fp32 instance yet (ROADMAP A.13). The fp32 instances
+    are #1-#4 (the ALiBi attention) and #6 (the fused post-LN block): the
+    post-LN ALiBi audio trunk in bf16 matmuls, training and serving. Still
+    bf16 only on the card: a pre-LN trunk (#8), the image modality and
+    ALiBi-free encoders (#11, #11b), the int8 modes of the encoder or the
+    teacher (#5, #7, #9, #10) and tensor parallelism (#6's split). A pure
+    function of the configuration (``encoder`` a ``FinetuneConfig`` or
+    ``ImageConfig``), the compute dtype's name and the device type; the CPU
+    runs every configuration in fp32 on the plain versions."""
+    if compute_dtype != "float32" or device_type != "cuda":
+        return
+    left_out = []
+    if isinstance(encoder, ImageConfig):
+        left_out.append("the image modality (#11, #11b)")
+    elif not encoder.use_alibi_encoder:
+        left_out.append("an encoder without ALiBi (#11, #11b)")
+    if encoder.layer_norm_first:
+        left_out.append("a pre-LN trunk (#8)")
+    if encoder.matmul_impl != "bf16" or teacher_matmul_impl not in ("", "bf16"):
+        left_out.append("the int8 modes (#5, #7, #9, #10)")
+    if model_parallel > 1:
+        left_out.append("tensor parallelism (#6's split)")
+    if left_out:
+        raise NotImplementedError(
+            "fp32 compute on the card runs the post-LN ALiBi audio trunk only: no fp32 kernel "
+            "instance for " + ", ".join(left_out) + " yet (ROADMAP A.13); compute in bfloat16, "
+            "or run on the CPU")
 
 
 # train_cli --recipe: the short names of two recipe copies

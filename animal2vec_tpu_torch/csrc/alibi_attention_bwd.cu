@@ -1,5 +1,5 @@
-// ALiBi flash-attention backward, bf16 in and out, head dims D <= 128 (a
-// multiple of 8): two kernels.
+// ALiBi flash-attention backward, bf16 or fp32 in and out, head dims D <=
+// 128 (a multiple of 8): two kernels.
 //
 // Replaces the TPU kernels animal2vec_tpu/ops/pallas_attention.py:
 //   _bwd_dq_kernel  -> alibi_attention_dq_kernel: dq and the per-(b, h,
@@ -86,6 +86,14 @@
 // names and recomputes S^T and dP^T over the whole head, twice the scalar
 // pass for the same register budget. D = 64 runs the NC = 1 instances,
 // unchanged.
+// fp32 (the E = float instances, the _f32 entries): every staged head is a
+// hi and a lo bf16 tile (sm90.cuh stage_head_split), and each of the five
+// products is three bf16 products into one fp32 accumulator (hi.hi + hi.lo
+// + lo.hi; dS and P f split in registers for the RS products), as in the
+// forward; shared memory doubles (up to 200 KB at NC = 2) and dq, dk, dv
+// are written in fp32. The dq kernel at NC = 2 holds its two accumulators
+// and the split dS fragments at the 255-register limit (ptxas spills 12-36
+// bytes there).
 // Both kernels are deterministic and use no atomics: the slope gradient is
 // reduced inside each block (quad shuffles for the row sums, then warp
 // shuffles and shared memory) to one fp32 partial per (b, h, query tile),
@@ -103,6 +111,7 @@
 // reduction beside ex2.approx, a few instructions a score. Dropout and
 // sentinels are template flags, so a run without them pays neither.
 #include <cmath>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -118,12 +127,23 @@ constexpr int kStages = 2;     // ring depth of the streamed pair (see the note 
 constexpr float kDeadLse = -5e8f;  // lse below this: every key of the row padded
 constexpr int kTileBytes = kTileElems * 2;
 
-// dynamic shared memory: the block's two heads, the ring of pairs, the
-// ring's side data, and slack to align the base to 1024 bytes
-template <int NC>
-constexpr int kDqSmem = NC * (2 + kStages * 2) * kTileBytes + kStages * kTile * 16 + kTileAlign;
-template <int NC>
-constexpr int kDkvSmem = NC * (2 + kStages * 2) * kTileBytes + kStages * kTile * 20 + kTileAlign;
+// dynamic shared memory: the block's two heads, the ring of pairs (each
+// head twice, hi and lo, in the fp32 instances: P = 2), the ring's side
+// data, and slack to align the base to 1024 bytes
+template <int NC, int P>
+constexpr int kDqSmem =
+    NC * P * (2 + kStages * 2) * kTileBytes + kStages * kTile * 16 + kTileAlign;
+template <int NC, int P>
+constexpr int kDkvSmem =
+    NC * P * (2 + kStages * 2) * kTileBytes + kStages * kTile * 20 + kTileAlign;
+
+// Two adjacent outputs of element type E: one packed bf16 pair or a float2.
+__device__ __forceinline__ void store_pair(bf16* at, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(at) = pack_bf16(x0, x1);
+}
+__device__ __forceinline__ void store_pair(float* at, float x0, float x1) {
+  *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
+}
 
 struct BwdArgs {
   int pos_per_row, mask_per_row, has_sentinel;
@@ -137,21 +157,24 @@ struct BwdArgs {
 
 // One block per (64-query tile, head, batch): dq rows and the block's
 // slope-gradient partial.
-template <int NC, bool kDrop, bool kSentinel>
-__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
-alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
-                          const bf16* __restrict__ dout,    // (B, H, T, D)
+template <int NC, bool kDrop, bool kSentinel, typename E>
+__global__ void __launch_bounds__(kThreads, NC == 1 && std::is_same<E, bf16>::value ? 3 : 2)
+alibi_attention_dq_kernel(const E* __restrict__ qkv,        // (3, B, H, T, D)
+                          const E* __restrict__ dout,       // (B, H, T, D)
                           const float* __restrict__ lse,    // (B*H, T)
                           const float* __restrict__ delta,  // (B*H, T)
                           const float* __restrict__ slopes, // (H,)
                           const int* __restrict__ pos,      // (1 or B, T)
                           const uint8_t* __restrict__ mask, // null or (1 or B, T)
-                          bf16* __restrict__ dq,            // (B, H, T, D)
+                          E* __restrict__ dq,               // (B, H, T, D)
                           float* __restrict__ dslope_part,  // (B, H, n_qtiles)
                           BwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;  // a staged head: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
   __shared__ float sRed[kThreads / 32];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sDO = sQ + kHead;
   bf16* const sRing = sDO + kHead;  // stage s: K at 2s heads in, V after it
@@ -167,9 +190,9 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   const int D = a.D;
   const size_t head = static_cast<size_t>(T) * D;
   const size_t plane = static_cast<size_t>(a.B) * H * head;
-  const bf16* q = qkv + bh * head;
-  const bf16* k = q + plane;
-  const bf16* v = k + plane;
+  const E* q = qkv + bh * head;
+  const E* k = q + plane;
+  const E* v = k + plane;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
   const uint32_t seed_mix = drop_seed_mix(
@@ -180,8 +203,8 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
 
   auto stage_pair = [&](int kt) {
     bf16* dst = sRing + (kt % kStages) * 2 * kHead;
-    stage_head<kThreads, NC>(dst, k, D, kt * kTile, T, D, tid);
-    stage_head<kThreads, NC>(dst + kHead, v, D, kt * kTile, T, D, tid);
+    stage_head_of<kThreads, NC>(dst, k, D, kt * kTile, T, D, tid);
+    stage_head_of<kThreads, NC>(dst + kHead, v, D, kt * kTile, T, D, tid);
   };
   // threads < 64 read key kt*64 + tid's position and mask flag ...
   auto load_key = [&](int kt, int& p, int& m) {
@@ -197,8 +220,8 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   };
 
   // prologue: Q, dO and the first kStages - 1 pairs, one commit group each
-  stage_head<kThreads, NC>(sQ, q, D, q0, T, D, tid);
-  stage_head<kThreads, NC>(sDO, dout + bh * head, D, q0, T, D, tid);
+  stage_head_of<kThreads, NC>(sQ, q, D, q0, T, D, tid);
+  stage_head_of<kThreads, NC>(sDO, dout + bh * head, D, q0, T, D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage_pair(s);
@@ -245,8 +268,10 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
   }
   // per-row sums over this thread's keys for the slope gradient:
   // sum P f dP dist, sum P dist and sum P f dP (the in-kernel delta), with
-  // dist short of the row's sentinel factor
+  // dist short of the row's sentinel factor; fp32: also sum P, by which the
+  // row's sums are normalized (below)
   float a_pd[2] = {0.f, 0.f}, b_pd[2] = {0.f, 0.f}, d_pd[2] = {0.f, 0.f};
+  float s_pd[2] = {0.f, 0.f};
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<kStages - 2>();  // this thread's copies of tile kt have landed
@@ -260,11 +285,11 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
     }
     cp_async_commit();
 
-    const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * NC * kDescTile;
+    const uint64_t desc_k = desc_ring + (kt % kStages) * 2 * NC * kPlanes * kDescTile;
     wgmma_fence();
-    gemm_head_ss<NC>(sc, desc_q, desc_k);                        // S = Q K^T
+    gemm_head_ss_of<NC, kF32>(sc, desc_q, desc_k);                          // S = Q K^T
     wgmma_commit();
-    gemm_head_ss<NC>(dp, desc_do, desc_k + NC * kDescTile);      // dP = dO V^T
+    gemm_head_ss_of<NC, kF32>(dp, desc_do, desc_k + NC * kPlanes * kDescTile);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -293,17 +318,26 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
           a_pd[r] = fmaf(pdp, dist, a_pd[r]);
           b_pd[r] = fmaf(p, dist, b_pd[r]);
           d_pd[r] += pdp;
+          if constexpr (kF32) s_pd[r] += p;
           sc[i] = fmaf(-p, dl[r], pdp);  // dS
         }
       }
     }
-    uint32_t fds[4][4];
-    frag_from_acc(fds, sc);
+    // dq += dS K; fp32: dS_hi K_hi + dS_hi K_lo + dS_lo K_hi
+    uint32_t fds[4][4], fdl[4][4];
+    if constexpr (kF32)
+      frag_split_from_acc(fds, fdl, sc);
+    else
+      frag_from_acc(fds, sc);
     wgmma_fence();
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       fence_regs(acc_dq[n]);
-      gemm_frag_tile(acc_dq[n], fds, desc_k + n * kDescTile);  // dq += dS K
+      gemm_frag_tile(acc_dq[n], fds, desc_k + n * kDescTile);
+      if constexpr (kF32) {
+        gemm_frag_tile(acc_dq[n], fds, desc_k + kLo + n * kDescTile);
+        gemm_frag_tile(acc_dq[n], fdl, desc_k + n * kDescTile);
+      }
     }
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) store_key(nt, np, nm);
@@ -311,10 +345,11 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
 #pragma unroll
     for (int n = 0; n < NC; ++n) fence_regs(acc_dq[n]);
     fence_regs(fds);
+    if constexpr (kF32) fence_regs(fdl);
   }
 
-  // dq rows, scaled, as bf16
-  bf16* dqr = dq + bh * head;
+  // dq rows, scaled, in E
+  E* dqr = dq + bh * head;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -325,16 +360,25 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
         for (int j = 0; j < 8; ++j) {
           const int col = 64 * n + 8 * j;
           if (NC == 1 || col < D)
-            *reinterpret_cast<uint32_t*>(&dqr[static_cast<size_t>(row) * D + col + 2 * i4]) =
-                pack_bf16(acc_dq[n][4 * j + 2 * r] * a.sm_scale,
-                          acc_dq[n][4 * j + 2 * r + 1] * a.sm_scale);
+            store_pair(&dqr[static_cast<size_t>(row) * D + col + 2 * i4],
+                       acc_dq[n][4 * j + 2 * r] * a.sm_scale,
+                       acc_dq[n][4 * j + 2 * r + 1] * a.sm_scale);
         }
       }
     }
   }
 
   // row totals over the quad of lanes that share a row, then
-  // -sum_j dS dist = -(sum P f dP dist - D * sum P dist) per row
+  // -sum_j dS dist = -(sum P f dP dist - D * sum P dist) per row. fp32:
+  // with P divided by its row sum S, -(a - d b / S) / S. Each fp32 P
+  // carries its row's rounding of lse and of logits far from 0 (an ALiBi
+  // row whose near keys are padded scores its keys near -slope * 300), a
+  // relative error common to the row that the cancelling difference
+  // multiplies by D sum P dist (~2400 there): against a float64 reference
+  // the un-normalized partials of the plain version in fp32 lay 1.6x the
+  // bf16 gate away at b4 T 2000 (the CPU emulation of this arithmetic),
+  // the normalized split ones 0.43x. The bf16 instances keep the
+  // un-normalized sum, bit for bit as before.
   float dsl = 0.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -343,8 +387,16 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
       a_pd[r] += __shfl_xor_sync(0xffffffffu, a_pd[r], off);
       b_pd[r] += __shfl_xor_sync(0xffffffffu, b_pd[r], off);
       d_pd[r] += __shfl_xor_sync(0xffffffffu, d_pd[r], off);
+      if constexpr (kF32) s_pd[r] += __shfl_xor_sync(0xffffffffu, s_pd[r], off);
     }
-    if (i4 == 0) dsl -= rmul[r] * (a_pd[r] - d_pd[r] * b_pd[r]);
+    if (i4 == 0) {
+      if constexpr (kF32) {
+        const float inv = s_pd[r] > 0.f ? 1.f / s_pd[r] : 0.f;  // 0: no live key
+        dsl -= rmul[r] * (a_pd[r] - d_pd[r] * b_pd[r] * inv) * inv;
+      } else {
+        dsl -= rmul[r] * (a_pd[r] - d_pd[r] * b_pd[r]);
+      }
+    }
   }
   dsl = warp_sum(dsl);
   if (lane == 0) sRed[warp] = dsl;
@@ -355,17 +407,20 @@ alibi_attention_dq_kernel(const bf16* __restrict__ qkv,     // (3, B, H, T, D)
 
 // One block per (64-key tile and 64-column chunk, head, batch): dk and dv
 // rows, their columns 64 cc .. 64 cc + 63.
-template <int NC, bool kDrop, bool kSentinel>
+template <int NC, bool kDrop, bool kSentinel, typename E>
 __global__ void __launch_bounds__(kThreads, 2)
-alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+alibi_attention_dkv_kernel(const E* __restrict__ qkv, const E* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            const float* __restrict__ slopes, const int* __restrict__ pos,
                            const uint8_t* __restrict__ mask,
-                           bf16* __restrict__ dk,  // (B, H, T, D)
-                           bf16* __restrict__ dv,  // (B, H, T, D)
+                           E* __restrict__ dk,  // (B, H, T, D)
+                           E* __restrict__ dv,  // (B, H, T, D)
                            BwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;  // a staged head: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sV = sK + kHead;
   bf16* const sRing = sV + kHead;  // stage s: Q at 2s heads in, dO after it
@@ -383,10 +438,10 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   const int D = a.D;
   const size_t head = static_cast<size_t>(T) * D;
   const size_t plane = static_cast<size_t>(a.B) * H * head;
-  const bf16* q = qkv + bh * head;
-  const bf16* k = q + plane;
-  const bf16* v = k + plane;
-  const bf16* dor = dout + bh * head;
+  const E* q = qkv + bh * head;
+  const E* k = q + plane;
+  const E* v = k + plane;
+  const E* dor = dout + bh * head;
   const int* posr = pos + (a.pos_per_row ? static_cast<size_t>(b) * T : 0);
   const uint8_t* maskr = mask ? mask + (a.mask_per_row ? static_cast<size_t>(b) * T : 0) : nullptr;
   const uint32_t seed_mix = drop_seed_mix(
@@ -398,8 +453,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
 
   auto stage_pair = [&](int qt) {
     bf16* dst = sRing + (qt % kStages) * 2 * kHead;
-    stage_head<kThreads, NC>(dst, q, D, qt * kTile, T, D, tid);
-    stage_head<kThreads, NC>(dst + kHead, dor, D, qt * kTile, T, D, tid);
+    stage_head_of<kThreads, NC>(dst, q, D, qt * kTile, T, D, tid);
+    stage_head_of<kThreads, NC>(dst + kHead, dor, D, qt * kTile, T, D, tid);
   };
   // threads < 64 read query qt*64 + tid's position, lse and delta ...
   auto load_query = [&](int qt, int& p, float& l, float& dl) {
@@ -417,8 +472,8 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   };
 
   // prologue: K, V and the first kStages - 1 pairs, one commit group each
-  stage_head<kThreads, NC>(sK, k, D, k0, T, D, tid);
-  stage_head<kThreads, NC>(sV, v, D, k0, T, D, tid);
+  stage_head_of<kThreads, NC>(sK, k, D, k0, T, D, tid);
+  stage_head_of<kThreads, NC>(sV, v, D, k0, T, D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage_pair(s);
@@ -467,12 +522,12 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     }
     cp_async_commit();
 
-    const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * NC * kDescTile;
-    const uint64_t desc_do = desc_q + NC * kDescTile;
+    const uint64_t desc_q = desc_ring + (qt % kStages) * 2 * NC * kPlanes * kDescTile;
+    const uint64_t desc_do = desc_q + NC * kPlanes * kDescTile;
     wgmma_fence();
-    gemm_head_ss<NC>(st, desc_k, desc_q);    // S^T = K Q^T
+    gemm_head_ss_of<NC, kF32>(st, desc_k, desc_q);    // S^T = K Q^T
     wgmma_commit();
-    gemm_head_ss<NC>(dpt, desc_v, desc_do);  // dP^T = V dO^T
+    gemm_head_ss_of<NC, kF32>(dpt, desc_v, desc_do);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -511,14 +566,27 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
         }
       }
     }
-    uint32_t fpf[4][4], fds[4][4];
-    frag_from_acc(fpf, st);
-    frag_from_acc(fds, dpt);
+    // dv += (P f)^T dO, dk += dS^T Q; fp32: each as the three products of
+    // the A operand's hi and lo fragments with B's hi and lo tiles
+    uint32_t fpf[4][4], fds[4][4], fpl[4][4], fdl[4][4];
+    if constexpr (kF32) {
+      frag_split_from_acc(fpf, fpl, st);
+      frag_split_from_acc(fds, fdl, dpt);
+    } else {
+      frag_from_acc(fpf, st);
+      frag_from_acc(fds, dpt);
+    }
     wgmma_fence();
     fence_regs(acc_dv);
     fence_regs(acc_dk);
-    gemm_frag_tile(acc_dv, fpf, desc_do + cc * kDescTile);  // dv += (P f)^T dO
-    gemm_frag_tile(acc_dk, fds, desc_q + cc * kDescTile);   // dk += dS^T Q
+    gemm_frag_tile(acc_dv, fpf, desc_do + cc * kDescTile);
+    gemm_frag_tile(acc_dk, fds, desc_q + cc * kDescTile);
+    if constexpr (kF32) {
+      gemm_frag_tile(acc_dv, fpf, desc_do + kLo + cc * kDescTile);
+      gemm_frag_tile(acc_dv, fpl, desc_do + cc * kDescTile);
+      gemm_frag_tile(acc_dk, fds, desc_q + kLo + cc * kDescTile);
+      gemm_frag_tile(acc_dk, fdl, desc_q + cc * kDescTile);
+    }
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) store_query(nt, np, nl, nd);
     wgmma_wait<0>();
@@ -526,10 +594,14 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     fence_regs(acc_dk);
     fence_regs(fpf);
     fence_regs(fds);
+    if constexpr (kF32) {
+      fence_regs(fpl);
+      fence_regs(fdl);
+    }
   }
 
-  bf16* dkr = dk + bh * head;
-  bf16* dvr = dv + bh * head;
+  E* dkr = dk + bh * head;
+  E* dvr = dv + bh * head;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + warp * 16 + g + 8 * r;
@@ -539,10 +611,9 @@ alibi_attention_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
         const int col = 64 * cc + 8 * j;
         if (NC == 2 && col >= D) continue;
         const size_t at = static_cast<size_t>(key) * D + col + 2 * i4;
-        *reinterpret_cast<uint32_t*>(&dkr[at]) =
-            pack_bf16(acc_dk[4 * j + 2 * r] * a.sm_scale, acc_dk[4 * j + 2 * r + 1] * a.sm_scale);
-        *reinterpret_cast<uint32_t*>(&dvr[at]) =
-            pack_bf16(acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+        store_pair(&dkr[at], acc_dk[4 * j + 2 * r] * a.sm_scale,
+                   acc_dk[4 * j + 2 * r + 1] * a.sm_scale);
+        store_pair(&dvr[at], acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -555,91 +626,134 @@ int check_args(int B, int H, int T, int D, int h0, int hash_heads) {
   return 0;
 }
 
-}  // namespace
-}  // namespace a2v
-
-// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
-// pads other head dims with zero columns). qkv (3, B, H, T, D) and dout
-// (B, H, T, D) bf16; lse and delta (B*H, T) fp32; positions (pos_per_row ? B : 1, T)
-// int32; mask null or (mask_per_row ? B : 1, T) uint8. dq, dk, dv are
-// (B, H, T, D) bf16 (planes of one (3, B, H, T, D) gradient); dslope_part is
-// (B, H, ceil(T / 64)) fp32. Each returns a cudaError_t.
-extern "C" int a2v_alibi_attention_bwd_dq(const void* qkv, const void* dout, const void* lse,
-                                          const void* delta, const void* slopes, const void* pos,
-                                          int pos_per_row, const void* mask, int mask_per_row,
-                                          void* dq, void* dslope_part, int B, int H, int T,
-                                          int D, int has_sentinel, float sm_scale, int seed,
-                                          unsigned int thresh, float keep_scale, int h0,
-                                          int hash_heads, void* stream) {
-  using namespace a2v;
+// The dq entries' body for qkv, dout and dq of element type E. Returns a
+// cudaError_t.
+template <typename E>
+int dq_entry(const void* qkv, const void* dout, const void* lse, const void* delta,
+             const void* slopes, const void* pos, int pos_per_row, const void* mask,
+             int mask_per_row, void* dq, void* dslope_part, int B, int H, int T, int D,
+             int has_sentinel, float sm_scale, int seed, unsigned int thresh, float keep_scale,
+             int h0, int hash_heads, void* stream) {
   if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
+  constexpr int P = std::is_same<E, float>::value ? 2 : 1;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, D, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
-  using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
-                          const int*, const uint8_t*, bf16*, float*, BwdArgs);
+  using Kernel = void (*)(const E*, const E*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, E*, float*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
   const bool wide = D != 64;
   const Kernel narrow_kernel =
-      drop ? (sentinel ? alibi_attention_dq_kernel<1, true, true>
-                       : alibi_attention_dq_kernel<1, true, false>)
-           : (sentinel ? alibi_attention_dq_kernel<1, false, true>
-                       : alibi_attention_dq_kernel<1, false, false>);
+      drop ? (sentinel ? alibi_attention_dq_kernel<1, true, true, E>
+                       : alibi_attention_dq_kernel<1, true, false, E>)
+           : (sentinel ? alibi_attention_dq_kernel<1, false, true, E>
+                       : alibi_attention_dq_kernel<1, false, false, E>);
   const Kernel wide_kernel =
-      drop ? (sentinel ? alibi_attention_dq_kernel<2, true, true>
-                       : alibi_attention_dq_kernel<2, true, false>)
-           : (sentinel ? alibi_attention_dq_kernel<2, false, true>
-                       : alibi_attention_dq_kernel<2, false, false>);
+      drop ? (sentinel ? alibi_attention_dq_kernel<2, true, true, E>
+                       : alibi_attention_dq_kernel<2, true, false, E>)
+           : (sentinel ? alibi_attention_dq_kernel<2, false, true, E>
+                       : alibi_attention_dq_kernel<2, false, false, E>);
   const Kernel kernel = wide ? wide_kernel : narrow_kernel;
-  const int smem = wide ? kDqSmem<2> : kDqSmem<1>;
+  const int smem = wide ? kDqSmem<2, P> : kDqSmem<1, P>;
   if (cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return static_cast<int>(err);
   kernel<<<dim3((T + kTile - 1) / kTile, H, B), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+      static_cast<const E*>(qkv), static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), static_cast<const int*>(pos),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
+      static_cast<const uint8_t*>(mask), static_cast<E*>(dq),
       static_cast<float*>(dslope_part), a);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int a2v_alibi_attention_bwd_dkv(const void* qkv, const void* dout, const void* lse,
-                                           const void* delta, const void* slopes, const void* pos,
-                                           int pos_per_row, const void* mask, int mask_per_row,
-                                           void* dk, void* dv, int B, int H, int T, int D,
-                                           int has_sentinel, float sm_scale, int seed,
-                                           unsigned int thresh, float keep_scale, int h0,
-                                           int hash_heads, void* stream) {
-  using namespace a2v;
+// The dk/dv entries' body for qkv, dout, dk and dv of element type E.
+// Returns a cudaError_t.
+template <typename E>
+int dkv_entry(const void* qkv, const void* dout, const void* lse, const void* delta,
+              const void* slopes, const void* pos, int pos_per_row, const void* mask,
+              int mask_per_row, void* dk, void* dv, int B, int H, int T, int D,
+              int has_sentinel, float sm_scale, int seed, unsigned int thresh, float keep_scale,
+              int h0, int hash_heads, void* stream) {
   if (int err = check_args(B, H, T, D, h0, hash_heads)) return err;
+  constexpr int P = std::is_same<E, float>::value ? 2 : 1;
   const BwdArgs a{pos_per_row, mask_per_row, has_sentinel, B, H, T, D, sm_scale,
                   static_cast<uint32_t>(seed), thresh, keep_scale, h0, hash_heads};
-  using Kernel = void (*)(const bf16*, const bf16*, const float*, const float*, const float*,
-                          const int*, const uint8_t*, bf16*, bf16*, BwdArgs);
+  using Kernel = void (*)(const E*, const E*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, E*, E*, BwdArgs);
   const bool drop = thresh != 0u, sentinel = has_sentinel != 0;
   const int nc = D == 64 ? 1 : 2;
   const Kernel narrow_kernel =
-      drop ? (sentinel ? alibi_attention_dkv_kernel<1, true, true>
-                       : alibi_attention_dkv_kernel<1, true, false>)
-           : (sentinel ? alibi_attention_dkv_kernel<1, false, true>
-                       : alibi_attention_dkv_kernel<1, false, false>);
+      drop ? (sentinel ? alibi_attention_dkv_kernel<1, true, true, E>
+                       : alibi_attention_dkv_kernel<1, true, false, E>)
+           : (sentinel ? alibi_attention_dkv_kernel<1, false, true, E>
+                       : alibi_attention_dkv_kernel<1, false, false, E>);
   const Kernel wide_kernel =
-      drop ? (sentinel ? alibi_attention_dkv_kernel<2, true, true>
-                       : alibi_attention_dkv_kernel<2, true, false>)
-           : (sentinel ? alibi_attention_dkv_kernel<2, false, true>
-                       : alibi_attention_dkv_kernel<2, false, false>);
+      drop ? (sentinel ? alibi_attention_dkv_kernel<2, true, true, E>
+                       : alibi_attention_dkv_kernel<2, true, false, E>)
+           : (sentinel ? alibi_attention_dkv_kernel<2, false, true, E>
+                       : alibi_attention_dkv_kernel<2, false, false, E>);
   const Kernel kernel = nc == 2 ? wide_kernel : narrow_kernel;
-  const int smem = nc == 2 ? kDkvSmem<2> : kDkvSmem<1>;
+  const int smem = nc == 2 ? kDkvSmem<2, P> : kDkvSmem<1, P>;
   if (cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return static_cast<int>(err);
   // one block per key tile and 64-column chunk of dk and dv
   kernel<<<dim3((T + kTile - 1) / kTile * nc, H, B), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+      static_cast<const E*>(qkv), static_cast<const E*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), static_cast<const int*>(pos),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(dk), static_cast<bf16*>(dv), a);
+      static_cast<const uint8_t*>(mask), static_cast<E*>(dk), static_cast<E*>(dv), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace a2v
+
+// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
+// pads other head dims with zero columns). qkv (3, B, H, T, D) and dout
+// (B, H, T, D) bf16 (the _f32 entries: fp32); lse and delta (B*H, T) fp32;
+// positions (pos_per_row ? B : 1, T) int32; mask null or (mask_per_row ? B
+// : 1, T) uint8. dq, dk, dv are (B, H, T, D) in qkv's type (planes of one
+// (3, B, H, T, D) gradient); dslope_part is (B, H, ceil(T / 64)) fp32. Each
+// returns a cudaError_t.
+extern "C" int a2v_alibi_attention_bwd_dq(
+    const void* qkv, const void* dout, const void* lse, const void* delta, const void* slopes,
+    const void* pos, int pos_per_row, const void* mask, int mask_per_row, void* dq,
+    void* dslope_part, int B, int H, int T, int D, int has_sentinel, float sm_scale, int seed,
+    unsigned int thresh, float keep_scale, int h0, int hash_heads, void* stream) {
+  return a2v::dq_entry<__nv_bfloat16>(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
+                          mask_per_row, dq, dslope_part, B, H, T, D, has_sentinel, sm_scale, seed,
+                          thresh, keep_scale, h0, hash_heads, stream);
+}
+
+extern "C" int a2v_alibi_attention_bwd_dq_f32(
+    const void* qkv, const void* dout, const void* lse, const void* delta, const void* slopes,
+    const void* pos, int pos_per_row, const void* mask, int mask_per_row, void* dq,
+    void* dslope_part, int B, int H, int T, int D, int has_sentinel, float sm_scale, int seed,
+    unsigned int thresh, float keep_scale, int h0, int hash_heads, void* stream) {
+  return a2v::dq_entry<float>(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
+                          mask_per_row, dq, dslope_part, B, H, T, D, has_sentinel, sm_scale, seed,
+                          thresh, keep_scale, h0, hash_heads, stream);
+}
+
+extern "C" int a2v_alibi_attention_bwd_dkv(
+    const void* qkv, const void* dout, const void* lse, const void* delta, const void* slopes,
+    const void* pos, int pos_per_row, const void* mask, int mask_per_row, void* dk,
+    void* dv, int B, int H, int T, int D, int has_sentinel, float sm_scale, int seed,
+    unsigned int thresh, float keep_scale, int h0, int hash_heads, void* stream) {
+  return a2v::dkv_entry<__nv_bfloat16>(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
+                          mask_per_row, dk, dv, B, H, T, D, has_sentinel, sm_scale, seed,
+                          thresh, keep_scale, h0, hash_heads, stream);
+}
+
+extern "C" int a2v_alibi_attention_bwd_dkv_f32(
+    const void* qkv, const void* dout, const void* lse, const void* delta, const void* slopes,
+    const void* pos, int pos_per_row, const void* mask, int mask_per_row, void* dk,
+    void* dv, int B, int H, int T, int D, int has_sentinel, float sm_scale, int seed,
+    unsigned int thresh, float keep_scale, int h0, int hash_heads, void* stream) {
+  return a2v::dkv_entry<float>(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
+                          mask_per_row, dk, dv, B, H, T, D, has_sentinel, sm_scale, seed,
+                          thresh, keep_scale, h0, hash_heads, stream);
 }

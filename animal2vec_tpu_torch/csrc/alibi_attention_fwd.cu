@@ -1,5 +1,5 @@
-// ALiBi flash-attention forward, bf16 in and out, head dims D <= 128 (a
-// multiple of 8), on Hopper's wgmma: serving (no lse, no dropout) and
+// ALiBi flash-attention forward, bf16 or fp32 in and out, head dims D <= 128
+// (a multiple of 8), on Hopper's wgmma: serving (no lse, no dropout) and
 // training (the logsumexp residual of the backward and the in-kernel hash
 // dropout), one kernel.
 //
@@ -98,6 +98,19 @@
 // at D 32). The NC = 2 instances hold 32 more accumulator registers a
 // thread and run one block an SM. D = 64 runs the NC = 1 instances, whose
 // code is the code before the head dims came.
+// fp32 (the E = float instances, JAX's default compute dtype; entry
+// a2v_alibi_attention_fwd_f32): q, k and v are staged as two bf16 tiles
+// each, hi = bf16(x) and lo = bf16(x - hi), by plain 16-byte loads split in
+// registers (sm90.cuh stage_head_split; synchronous, so the ring's copies no
+// longer overlap the products), and each fp32 product is three bf16 ones
+// into the same fp32 accumulator, S = Qhi Khi^T + Qhi Klo^T + Qlo Khi^T
+// and O += Phi Vhi + Phi Vlo + Plo Vhi with P split in registers
+// (frag_split_from_acc): about 2^-16 of each term's size against exact
+// fp32 products, and three times the tensor-core work. Single-pass TF32
+// would keep 10 bits of each operand, and P V would need K-major V tiles.
+// Shared memory doubles (198 KB at NC = 2) and the fp32 instances run one
+// block an SM; the scalar pass, the dropout hash and the lse are the bf16
+// instances'; out is written in fp32.
 // Two warpgroups a block, two blocks an SM (<= 128 registers). Measured
 // slower on an H100 (PERF.md): three warpgroups, one, a third ring stage,
 // tiles of 128 keys (S by m64n128k16; 186-213 registers at one block an
@@ -121,9 +134,11 @@ constexpr int kStages = 2;              // ring depth of the key tiles
 constexpr float kMasked = -1e9f;        // NEG_INF of the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kDeadGap = -88.f;       // training: expf below it is under 2^-126
-// Q's tiles, the ring's K and V tiles, each key's {pos, entry}, slack
-template <int NC>
-constexpr int kSmem = kTileElems * 2 * NC * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
+// Q's tiles, the ring's K and V tiles (each twice, hi and lo, in the fp32
+// instances: kPlanes 2), each key's {pos, entry}, slack
+template <int NC, int kPlanes>
+constexpr int kSmem =
+    kTileElems * 2 * NC * kPlanes * (kWG + 2 * kStages) + kStages * kTile * 8 + kTileAlign;
 
 struct FwdArgs {
   long long stride_b, stride_h, stride_t;  // elements, shared by q, k and v
@@ -142,21 +157,24 @@ struct FwdArgs {
 };
 
 // TRAIN: scores in natural units (and the lse when lse is not null); DROP
-// (only with TRAIN): the hash dropout.
-template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
-__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
-alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v,
+// (only with TRAIN): the hash dropout. E: the element type of q, k, v and
+// out, bf16 or fp32 (each operand split in shared memory, each product
+// three bf16 products: sm90.cuh split_pair).
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP, typename E>
+__global__ void __launch_bounds__(kThreads, NC == 1 && std::is_same<E, bf16>::value ? 2 : 1)
+alibi_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
                  const float* __restrict__ slopes,  // (H,)
                  const int* __restrict__ pos,       // (1 or B, T) of the queries
                  const int* __restrict__ pos_k,     // (1 or B, T) of the keys
                  const uint8_t* __restrict__ mask,  // (1 or B, T), 1 = padded key
-                 bf16* __restrict__ out,
+                 E* __restrict__ out,
                  float* __restrict__ lse,           // null or (B*H, T)
                  FwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;   // a staged head: hi (and lo) tiles
   extern __shared__ uint8_t smem_raw[];
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sK = sQ + kWG * kHead;       // stage s at s heads in
   bf16* const sV = sK + kStages * kHead;
   float2* const sKey = reinterpret_cast<float2*>(sV + kStages * kHead);  // {pos, entry}
@@ -167,9 +185,9 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, i4 = lane & 3;
 
   const long long head = b * a.stride_b + h * a.stride_h;
-  const bf16* qb = q + head;
-  const bf16* kb = k + head;
-  const bf16* vb = v + head;
+  const E* qb = q + head;
+  const E* kb = k + head;
+  const E* vb = v + head;
   const int* posr = pos + static_cast<long long>(b) * a.pos_row;
   const int* poskr = pos_k + static_cast<long long>(b) * a.posk_row;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<long long>(b) * a.mask_row : nullptr;
@@ -178,8 +196,8 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt's K and V into its ring slot; one commit group
   auto stage = [&](int kt) {
     const int slot = kt % kStages;
-    stage_head<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, kt * kTile, T, a.D, tid);
-    stage_head<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, kt * kTile, T, a.D, tid);
+    stage_head_of<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, kt * kTile, T, a.D, tid);
+    stage_head_of<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, kt * kTile, T, a.D, tid);
   };
   // threads < 64: key kt * 64 + tid's position and mask entry
   auto key_entry = [&](int kt) {
@@ -193,7 +211,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // commit group each
 #pragma unroll
   for (int w = 0; w < kWG; ++w)
-    stage_head<kThreads, NC>(sQ + w * kHead, qb, a.stride_t, q0 + w * kTile, T, a.D, tid);
+    stage_head_of<kThreads, NC>(sQ + w * kHead, qb, a.stride_t, q0 + w * kTile, T, a.D, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_tiles) stage(s);
@@ -226,7 +244,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
   }
-  const uint64_t desc_q = desc_sw128(sQ) + wg * NC * kDescTile;
+  const uint64_t desc_q = desc_sw128(sQ) + wg * NC * kPlanes * kDescTile;
   const uint64_t desc_k = desc_sw128(sK), desc_v = desc_sw128(sV);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -243,7 +261,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int slot = kt % kStages;
     wgmma_fence();
-    gemm_head_ss<NC>(sc, desc_q, desc_k + slot * NC * kDescTile);  // S = Q K^T
+    gemm_head_ss_of<NC, kF32>(sc, desc_q, desc_k + slot * NC * kPlanes * kDescTile);  // S = Q K^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -323,14 +341,23 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // O += P V (keys past T have P = 0 and zero-filled V rows)
-    uint32_t pf[4][4];
-    frag_from_acc(pf, sc);
+    // O += P V (keys past T have P = 0 and zero-filled V rows); fp32: P's
+    // hi and lo fragments, P_hi V_hi + P_hi V_lo + P_lo V_hi
+    uint32_t pf[4][4], pl[4][4];
+    if constexpr (kF32)
+      frag_split_from_acc(pf, pl, sc);
+    else
+      frag_from_acc(pf, sc);
     wgmma_fence();
+    const uint64_t dv = desc_v + slot * NC * kPlanes * kDescTile;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       fence_regs(o[n]);
-      gemm_frag_tile(o[n], pf, desc_v + (slot * NC + n) * kDescTile);
+      gemm_frag_tile(o[n], pf, dv + n * kDescTile);
+      if constexpr (kF32) {
+        gemm_frag_tile(o[n], pf, dv + (NC + n) * kDescTile);
+        gemm_frag_tile(o[n], pl, dv + n * kDescTile);
+      }
     }
     wgmma_commit();
     // ... and write the next tile's keys into their slot
@@ -339,6 +366,7 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NC; ++n) fence_regs(o[n]);
     fence_regs(pf);
+    if constexpr (kF32) fence_regs(pl);
   }
 
 #pragma unroll
@@ -347,22 +375,27 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
-  bf16* ob = out + b * a.out_b + h * a.out_h;
+  E* ob = out + b * a.out_b + h * a.out_h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= T) continue;
     const float inv = 1.f / l[r];
-    bf16* orow = ob + row * a.out_t;
+    E* orow = ob + row * a.out_t;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * n + 8 * j;  // columns past D are not written
-        if (NC == 1 || col < a.D)
-          *reinterpret_cast<uint32_t*>(orow + col + 2 * i4) =
-              TRAIN ? pack_bf16(o[n][4 * j + 2 * r] / l[r], o[n][4 * j + 2 * r + 1] / l[r])
-                    : pack_bf16(o[n][4 * j + 2 * r] * inv, o[n][4 * j + 2 * r + 1] * inv);
+        if (NC == 1 || col < a.D) {
+          const float o0 = TRAIN ? o[n][4 * j + 2 * r] / l[r] : o[n][4 * j + 2 * r] * inv;
+          const float o1 =
+              TRAIN ? o[n][4 * j + 2 * r + 1] / l[r] : o[n][4 * j + 2 * r + 1] * inv;
+          if constexpr (kF32)
+            *reinterpret_cast<float2*>(orow + col + 2 * i4) = make_float2(o0, o1);
+          else
+            *reinterpret_cast<uint32_t*>(orow + col + 2 * i4) = pack_bf16(o0, o1);
+        }
       }
     }
     if (TRAIN && lse != nullptr && i4 == 0)
@@ -370,23 +403,24 @@ alibi_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP>
-int launch(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
-           const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask, bf16* out,
+template <int NC, bool HAS_MASK, bool HAS_SENTINEL, bool TRAIN, bool DROP, typename E>
+int launch(dim3 grid, cudaStream_t s, const E* q, const E* k, const E* v,
+           const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask, E* out,
            float* lse, const FwdArgs& a) {
-  constexpr auto kernel = alibi_fwd_kernel<NC, HAS_MASK, HAS_SENTINEL, TRAIN, DROP>;
+  constexpr auto kernel = alibi_fwd_kernel<NC, HAS_MASK, HAS_SENTINEL, TRAIN, DROP, E>;
+  constexpr int smem = kSmem<NC, std::is_same<E, float>::value ? 2 : 1>;
   // the shared-memory limit above 48 KB, raised once per process and instance
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<NC>);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, kThreads, kSmem<NC>, s>>>(q, k, v, slopes, pos, pos_k, mask, out, lse, a);
+  kernel<<<grid, kThreads, smem, s>>>(q, k, v, slopes, pos, pos_k, mask, out, lse, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC, bool TRAIN, bool DROP>
-int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const bf16* q,
-             const bf16* k, const bf16* v, const float* slopes, const int* pos,
-             const int* pos_k, const uint8_t* mask, bf16* out, float* lse, const FwdArgs& a) {
+template <int NC, bool TRAIN, bool DROP, typename E>
+int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const E* q,
+             const E* k, const E* v, const float* slopes, const int* pos,
+             const int* pos_k, const uint8_t* mask, E* out, float* lse, const FwdArgs& a) {
   if (has_mask)
     return has_sentinel ? launch<NC, true, true, TRAIN, DROP>(grid, s, q, k, v, slopes, pos,
                                                               pos_k, mask, out, lse, a)
@@ -399,11 +433,11 @@ int dispatch(bool has_mask, bool has_sentinel, dim3 grid, cudaStream_t s, const 
 }
 
 // The serving or training instances of the head's tile count.
-template <int NC>
+template <int NC, typename E>
 int dispatch_mode(bool train, bool drop, bool has_mask, bool has_sentinel, dim3 grid,
-                  cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                  cudaStream_t s, const E* q, const E* k, const E* v,
                   const float* slopes, const int* pos, const int* pos_k, const uint8_t* mask,
-                  bf16* out, float* lse, const FwdArgs& a) {
+                  E* out, float* lse, const FwdArgs& a) {
   if (drop)
     return dispatch<NC, true, true>(has_mask, has_sentinel, grid, s, q, k, v, slopes, pos, pos_k,
                                     mask, out, lse, a);
@@ -414,30 +448,15 @@ int dispatch_mode(bool train, bool drop, bool has_mask, bool has_sentinel, dim3 
                                     mask, out, lse, a);
 }
 
-}  // namespace
-}  // namespace a2v
-
-// C entry, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper pads
-// other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
-// strides (stride_b, stride_t, stride_h, 1), 16-byte aligned, strides
-// multiples of 8; out: bf16 (B, T, H, D) with strides (out_b, out_t, out_h,
-// 1), 16-byte aligned, strides multiples of 8; slopes fp32 (H,); positions
-// int32 (pos_per_row ? B : 1, T); key positions null (the positions) or
-// int32 (posk_per_row ? B : 1, T); mask null or uint8 (mask_per_row ? B : 1,
-// T); lse null or fp32 (B*H, T). A launch with an lse or a nonzero dropout
-// threshold runs the training instances (scores in natural units), one
-// with neither the serving ones. Returns a cudaError_t.
-extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void* v,
-                                       long long stride_b, long long stride_t,
-                                       long long stride_h, const void* slopes, const void* pos,
-                                       int pos_per_row, const void* pos_k, int posk_per_row,
-                                       const void* mask, int mask_per_row,
-                                       void* out, long long out_b, long long out_t,
-                                       long long out_h, void* lse, int B, int H, int T, int D,
-                                       int has_sentinel, float sm_scale, int seed,
-                                       unsigned int thresh, float keep_scale, int h0,
-                                       int hash_heads, void* stream) {
-  using namespace a2v;
+// The C entries' body for q, k, v and out of element type E. Returns a
+// cudaError_t.
+template <typename E>
+int fwd_entry(const void* q, const void* k, const void* v, long long stride_b,
+              long long stride_t, long long stride_h, const void* slopes, const void* pos,
+              int pos_per_row, const void* pos_k, int posk_per_row, const void* mask,
+              int mask_per_row, void* out, long long out_b, long long out_t, long long out_h,
+              void* lse, int B, int H, int T, int D, int has_sentinel, float sm_scale, int seed,
+              unsigned int thresh, float keep_scale, int h0, int hash_heads, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   const long long strides[] = {stride_b, stride_t, stride_h, out_b, out_t, out_h};
   for (const long long st : strides)
@@ -448,14 +467,14 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kTile * kWG - 1) / (kTile * kWG), H, B);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
+  const auto* qp = static_cast<const E*>(q);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
   const auto* sl = static_cast<const float*>(slopes);
   const auto* p = static_cast<const int*>(pos);
   const auto* pk = pos_k != nullptr ? static_cast<const int*>(pos_k) : p;
   const auto* mk = static_cast<const uint8_t*>(mask);
-  auto* o = static_cast<bf16*>(out);
+  auto* o = static_cast<E*>(out);
   auto* ls = static_cast<float*>(lse);
   const bool train = ls != nullptr || thresh != 0u;
   const FwdArgs a{stride_b, stride_h, stride_t, out_b, out_h, out_t, H, T, D,
@@ -469,4 +488,45 @@ extern "C" int a2v_alibi_attention_fwd(const void* q, const void* k, const void*
                             o, ls, a);
   return dispatch_mode<2>(train, drop, has_mask, sentinel, grid, s, qp, kp, vp, sl, p, pk, mk, o,
                           ls, a);
+}
+
+}  // namespace
+}  // namespace a2v
+
+// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
+// pads other head dims with zero columns). q, k, v: (B, T, H, D) with
+// element strides (stride_b, stride_t, stride_h, 1), 16-byte aligned,
+// strides multiples of 8; out: (B, T, H, D) with strides (out_b, out_t,
+// out_h, 1), 16-byte aligned, strides multiples of 8 (bf16 in
+// a2v_alibi_attention_fwd, fp32 in a2v_alibi_attention_fwd_f32); slopes
+// fp32 (H,); positions int32 (pos_per_row ? B : 1, T); key positions null
+// (the positions) or int32 (posk_per_row ? B : 1, T); mask null or uint8
+// (mask_per_row ? B : 1, T); lse null or fp32 (B*H, T). A launch with an
+// lse or a nonzero dropout threshold runs the training instances (scores
+// in natural units), one with neither the serving ones. Returns a
+// cudaError_t.
+extern "C" int a2v_alibi_attention_fwd(
+    const void* q, const void* k, const void* v, long long stride_b, long long stride_t,
+    long long stride_h, const void* slopes, const void* pos, int pos_per_row, const void* pos_k,
+    int posk_per_row, const void* mask, int mask_per_row, void* out, long long out_b,
+    long long out_t, long long out_h, void* lse, int B, int H, int T, int D, int has_sentinel,
+    float sm_scale, int seed, unsigned int thresh, float keep_scale, int h0, int hash_heads,
+    void* stream) {
+  return a2v::fwd_entry<__nv_bfloat16>(q, k, v, stride_b, stride_t, stride_h, slopes, pos,
+                                       pos_per_row, pos_k, posk_per_row, mask, mask_per_row, out,
+                                       out_b, out_t, out_h, lse, B, H, T, D, has_sentinel,
+                                       sm_scale, seed, thresh, keep_scale, h0, hash_heads, stream);
+}
+
+extern "C" int a2v_alibi_attention_fwd_f32(
+    const void* q, const void* k, const void* v, long long stride_b, long long stride_t,
+    long long stride_h, const void* slopes, const void* pos, int pos_per_row, const void* pos_k,
+    int posk_per_row, const void* mask, int mask_per_row, void* out, long long out_b,
+    long long out_t, long long out_h, void* lse, int B, int H, int T, int D, int has_sentinel,
+    float sm_scale, int seed, unsigned int thresh, float keep_scale, int h0, int hash_heads,
+    void* stream) {
+  return a2v::fwd_entry<float>(q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row,
+                             pos_k, posk_per_row, mask, mask_per_row, out, out_b, out_t, out_h,
+                             lse, B, H, T, D, has_sentinel, sm_scale, seed, thresh, keep_scale,
+                             h0, hash_heads, stream);
 }

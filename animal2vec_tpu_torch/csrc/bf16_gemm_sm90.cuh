@@ -71,11 +71,16 @@ __host__ __device__ constexpr int g16_smem(int bm) {
 }
 
 // Needs K % 64 == 0, NOUT % 8 == 0 and a 16-byte aligned C; BIAS false
-// reads no bias (null). OutT float stores the fp32 sums themselves (the
-// tensor-parallel fc2 partial; no bias, GELU or dropout) as 8-byte pairs
-// straight from the accumulator layout.
+// reads no bias (null). OutT float stores the fp32 results (the
+// tensor-parallel fc2 partial, without bias, GELU or dropout; the fp32
+// block's fc2 with them) as 8-byte pairs straight from the accumulator
+// layout. SPLIT (bf16 OutT): C is (N, 3 NOUT), each row the bf16 hi parts
+// of the NOUT results, their lo parts, and the hi parts again
+// (sm90.cuh split_pair): the A operand [h_hi | h_lo | h_hi] of the next
+// product of the fp32 block, which takes its fp32 product as three bf16
+// ones along one K three times as long.
 template <bool GELU, bool DROP, int BM = kG16BM, bool BIAS = true,
-          typename OutT = __nv_bfloat16>
+          typename OutT = __nv_bfloat16, bool SPLIT = false>
 __global__ void __launch_bounds__(g16_threads(BM), BM >= 256 ? 1 : 2)
 gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
                       const float* __restrict__ bias, OutT* __restrict__ C, int N, int K,
@@ -135,8 +140,32 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
     fence_regs(acc);
   }
 
+  // the epilogue's values in place: bias, GELU, dropout in fp32
+#pragma unroll
+  for (int j = 0; j < kG16BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * i4;
+    const float b0 = BIAS && col < NOUT ? bias[col] : 0.f;
+    const float b1 = BIAS && col < NOUT ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 64 * wg + 16 * warp + g + 8 * r;
+      float x0 = BIAS ? acc[4 * j + 2 * r] + b0 : acc[4 * j + 2 * r];
+      float x1 = BIAS ? acc[4 * j + 2 * r + 1] + b1 : acc[4 * j + 2 * r + 1];
+      if (GELU) {
+        x0 = gelu_erf(x0);
+        x1 = gelu_erf(x1);
+      }
+      if (DROP) {
+        const uint32_t gcol = drop.col0 + col;
+        x0 *= drop_factor(drop.seed, drop.row0 + row, gcol, drop.thresh, drop.keep_scale);
+        x1 *= drop_factor(drop.seed, drop.row0 + row, gcol + 1, drop.thresh, drop.keep_scale);
+      }
+      acc[4 * j + 2 * r] = x0;
+      acc[4 * j + 2 * r + 1] = x1;
+    }
+  }
   if constexpr (std::is_same<OutT, float>::value) {
-    // fp32 out: each thread stores its (row, column pair) sums as float2
+    // fp32 out: each thread stores its (row, column pair) results as float2
 #pragma unroll
     for (int j = 0; j < kG16BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * i4;
@@ -152,52 +181,62 @@ gemm_bf16_sm90_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* 
   }
   // epilogue through shared memory: each warpgroup writes its 64 x 128
   // bf16 outputs into its own padded rows (272 bytes: conflict-free), then
-  // stores them as 16-byte row chunks
+  // stores them as 16-byte row chunks; SPLIT in two passes, the hi parts
+  // (into the row's first and third thirds), then the lo parts
   __syncthreads();  // every warpgroup's products have read the ring
   constexpr int kLdo = kG16BN + 8;  // elements per staged row
   bf16* const so = ring + wg * 64 * kLdo;
-#pragma unroll
-  for (int j = 0; j < kG16BN / 8; ++j) {
-    const int cl = 8 * j + 2 * i4, col = n0 + cl;
-    const float b0 = BIAS && col < NOUT ? bias[col] : 0.f;
-    const float b1 = BIAS && col < NOUT ? bias[col + 1] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rl = 16 * warp + g + 8 * r, row = m0 + 64 * wg + rl;
-      float x0 = BIAS ? acc[4 * j + 2 * r] + b0 : acc[4 * j + 2 * r];
-      float x1 = BIAS ? acc[4 * j + 2 * r + 1] + b1 : acc[4 * j + 2 * r + 1];
-      if (GELU) {
-        x0 = gelu_erf(x0);
-        x1 = gelu_erf(x1);
-      }
-      if (DROP) {
-        const uint32_t gcol = drop.col0 + col;
-        x0 *= drop_factor(drop.seed, drop.row0 + row, gcol, drop.thresh, drop.keep_scale);
-        x1 *= drop_factor(drop.seed, drop.row0 + row, gcol + 1, drop.thresh, drop.keep_scale);
-      }
-      *reinterpret_cast<uint32_t*>(so + rl * kLdo + cl) = pack_bf16(x0, x1);
-    }
-  }
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup's rows
   const int wt = tid & 127;
+  const size_t ldc = SPLIT ? 3 * static_cast<size_t>(NOUT) : NOUT;
 #pragma unroll
-  for (int i = 0; i < 64 * kG16BN / 8 / 128; ++i) {
-    const int c = wt + i * 128, rl = c / (kG16BN / 8), ch = c % (kG16BN / 8);
-    const int row = m0 + 64 * wg + rl, col = n0 + 8 * ch;
-    if (row < N && col < NOUT)
-      *reinterpret_cast<uint4*>(&C[static_cast<size_t>(row) * NOUT + col]) =
-          *reinterpret_cast<const uint4*>(so + rl * kLdo + 8 * ch);
+  for (int pass = 0; pass < (SPLIT ? 2 : 1); ++pass) {
+    if (pass) asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // hi stored
+#pragma unroll
+    for (int j = 0; j < kG16BN / 8; ++j) {
+      const int cl = 8 * j + 2 * i4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rl = 16 * warp + g + 8 * r;
+        const float x0 = acc[4 * j + 2 * r], x1 = acc[4 * j + 2 * r + 1];
+        uint32_t hi, lo;
+        if (SPLIT)
+          split_pair(x0, x1, hi, lo);
+        else
+          hi = pack_bf16(x0, x1);
+        *reinterpret_cast<uint32_t*>(so + rl * kLdo + cl) = pass ? lo : hi;
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup's rows
+#pragma unroll
+    for (int i = 0; i < 64 * kG16BN / 8 / 128; ++i) {
+      const int c = wt + i * 128, rl = c / (kG16BN / 8), ch = c % (kG16BN / 8);
+      const int row = m0 + 64 * wg + rl, col = n0 + 8 * ch;
+      if (row < N && col < NOUT) {
+        const uint4 chunk = *reinterpret_cast<const uint4*>(so + rl * kLdo + 8 * ch);
+        // (OutT is bf16 here; the cast keeps the fp32 instances compiling)
+        bf16* const crow = reinterpret_cast<bf16*>(C) + static_cast<size_t>(row) * ldc + col;
+        if (!SPLIT) {
+          *reinterpret_cast<uint4*>(crow) = chunk;
+        } else if (pass == 0) {
+          *reinterpret_cast<uint4*>(crow) = chunk;
+          *reinterpret_cast<uint4*>(crow + 2 * NOUT) = chunk;
+        } else {
+          *reinterpret_cast<uint4*>(crow + NOUT) = chunk;
+        }
+      }
+    }
   }
 }
 
 // One GEMM launch on stream s: C = bf16(drop(act(A W^T + bias))) over N
-// rows, the dropout template when `drop`. Returns a cudaError_t.
-template <bool GELU>
+// rows, the dropout template when `drop`; OutT float: C in fp32; SPLIT: C
+// as its (N, 3 NOUT) hi, lo, hi planes. Returns a cudaError_t.
+template <bool GELU, typename OutT = __nv_bfloat16, bool SPLIT = false>
 int launch_gemm_sm90(bool drop, cudaStream_t s, const __nv_bfloat16* A, const __nv_bfloat16* W,
-                     const float* bias, __nv_bfloat16* C, int N, int K, int NOUT,
+                     const float* bias, OutT* C, int N, int K, int NOUT,
                      const DropSite& site) {
-  constexpr auto with_drop = gemm_bf16_sm90_kernel<GELU, true>;
-  constexpr auto without_drop = gemm_bf16_sm90_kernel<GELU, false>;
+  constexpr auto with_drop = gemm_bf16_sm90_kernel<GELU, true, kG16BM, true, OutT, SPLIT>;
+  constexpr auto without_drop = gemm_bf16_sm90_kernel<GELU, false, kG16BM, true, OutT, SPLIT>;
   constexpr int kSmem = g16_smem(kG16BM);
   // the shared-memory limit above 48 KB, raised once per process for both
   static const cudaError_t attr = [] {

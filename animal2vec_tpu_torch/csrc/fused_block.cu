@@ -1,5 +1,6 @@
-// Post-LN MLP sub-block of an AltBlock, bf16 storage, with the training
-// hash dropout:
+// Post-LN MLP sub-block of an AltBlock, bf16 storage (a2v_fused_block; the
+// fp32 storage of JAX's default compute dtype: a2v_fused_block_f32 below),
+// with the training hash dropout:
 //
 //   r = LN1(x);  h = drop_a(GELU(fc1 r + b1));  t = drop_b(fc2 h + b2)
 //   x_out = LN2(bf16(r + dp(drop_c(t))))        -> (x_out, t)
@@ -48,27 +49,53 @@
 
 namespace {
 
-// LN2 of the block: x_out = LN2(bf16(r + dp(drop_c(t)))) on stream s, the
+// LN2 of the block: x_out = LN2(E(r + dp(drop_c(t)))) on stream s, the
 // ln_rows instance of the dropout site and the drop-path factor (null:
-// none). Returns a cudaError_t.
-int launch_ln2(cudaStream_t s, const __nv_bfloat16* r, const __nv_bfloat16* t,
-               const float* scale, const float* bias, __nv_bfloat16* x_out, int N, int C,
-               float eps, const a2v::DropSite& site_post, const float* bscale,
-               int rows_per_scale) {
+// none), E the storage type (bf16, or fp32 in the fp32 block). Returns a
+// cudaError_t.
+template <typename E>
+int launch_ln2(cudaStream_t s, const E* r, const E* t, const float* scale, const float* bias,
+               E* x_out, int N, int C, float eps, const a2v::DropSite& site_post,
+               const float* bscale, int rows_per_scale) {
   using namespace a2v;
   if (bscale != nullptr && site_post.thresh != 0u)
-    return launch_ln_rows<true, true, false, true>(s, r, t, scale, bias, x_out, nullptr,
-                                                   nullptr, N, C, eps, site_post, bscale,
-                                                   rows_per_scale);
+    return launch_ln_rows<true, true, false, true, E>(s, r, t, scale, bias, x_out, nullptr,
+                                                      nullptr, N, C, eps, site_post, bscale,
+                                                      rows_per_scale);
   if (bscale != nullptr)
-    return launch_ln_rows<true, false, false, true>(s, r, t, scale, bias, x_out, nullptr,
-                                                    nullptr, N, C, eps, site_post, bscale,
-                                                    rows_per_scale);
+    return launch_ln_rows<true, false, false, true, E>(s, r, t, scale, bias, x_out, nullptr,
+                                                       nullptr, N, C, eps, site_post, bscale,
+                                                       rows_per_scale);
   if (site_post.thresh != 0u)
-    return launch_ln_rows<true, true, false>(s, r, t, scale, bias, x_out, nullptr, nullptr, N,
-                                             C, eps, site_post);
-  return launch_ln_rows<true, false, false>(s, r, t, scale, bias, x_out, nullptr, nullptr, N, C,
-                                            eps, site_post);
+    return launch_ln_rows<true, true, false, false, E>(s, r, t, scale, bias, x_out, nullptr,
+                                                       nullptr, N, C, eps, site_post);
+  return launch_ln_rows<true, false, false, false, E>(s, r, t, scale, bias, x_out, nullptr,
+                                                      nullptr, N, C, eps, site_post);
+}
+
+// The fp32 block's weight split, both matrices in one launch: w1t (M, C)
+// into w1s (M, 3C) and w2t (C, M) into w2s (C, 3M), each row [w_hi | w_hi |
+// w_lo] (sm90.cuh split_pair), the B operand against [a_hi | a_lo | a_hi]:
+// a_hi w_hi + a_lo w_hi + a_hi w_lo. Four elements a thread and step.
+__global__ void split_weights_kernel(const float* __restrict__ w1t, __nv_bfloat16* w1s,
+                                     const float* __restrict__ w2t, __nv_bfloat16* w2s, int C,
+                                     int M) {
+  const size_t quads = static_cast<size_t>(M) * C / 4;  // each matrix's
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < 2 * quads;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const bool second = i >= quads;
+    const size_t e = 4 * (second ? i - quads : i);
+    const int k = second ? M : C;  // the row length
+    const size_t row = e / k, col = e % k;
+    const float4 w = *reinterpret_cast<const float4*>((second ? w2t : w1t) + e);
+    uint2 hi, lo;
+    a2v::sm90::split_pair(w.x, w.y, hi.x, lo.x);
+    a2v::sm90::split_pair(w.z, w.w, hi.y, lo.y);
+    __nv_bfloat16* out = (second ? w2s : w1s) + 3 * row * k + col;
+    *reinterpret_cast<uint2*>(out) = hi;
+    *reinterpret_cast<uint2*>(out + k) = hi;
+    *reinterpret_cast<uint2*>(out + 2 * k) = lo;
+  }
 }
 
 }  // namespace
@@ -117,9 +144,79 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
            act_thresh != 0u, s, hb, static_cast<const bf16*>(w2t), static_cast<const float*>(b2),
            tb, N, M, C, site_fc2))) != cudaSuccess)
     return static_cast<int>(err);
-  return launch_ln2(s, rb, tb, static_cast<const float*>(ln2_scale),
+  return launch_ln2<bf16>(s, rb, tb, static_cast<const float*>(ln2_scale),
                     static_cast<const float*>(ln2_bias), static_cast<bf16*>(x_out), N, C, eps,
                     site_post, static_cast<const float*>(branch_scale), rows_per_scale);
+}
+
+// C entry of the fp32 block, bound with ctypes: a2v_fused_block's function
+// on fp32 x, weights, r, t and x_out, every product an fp32 product taken
+// as three bf16 ones (sm90.cuh split_pair). The arguments of
+// a2v_fused_block, with fp32 x, w1t (M, C), w2t (C, M), r, t and x_out
+// (N, C), and bf16 scratch: rs (N, 3C), the LN1 output's [hi | lo | hi];
+// w1s (M, 3C) and w2s (C, 3M), the weights' [hi | hi | lo]; hs (N, 3M),
+// h's [hi | lo | hi]. Five launches on the caller's stream:
+//   1. split_weights_kernel  w1s, w2s;
+//   2. ln_rows<fp32>         r = LN1(x) and rs;
+//   3. gemm_bf16_sm90        hs = split(drop_a(GELU(rs w1s^T + b1))), K = 3C;
+//   4. gemm_bf16_sm90        t = drop_b(hs w2s^T + b2) in fp32, K = 3M;
+//   5. ln_rows<fp32>         x_out = LN2(r + dp(drop_c(t))), all fp32.
+// The numerics are the plain version's in fp32 (JAX's block in its fp32
+// storage dtype: r and h kept in fp32, the residual added in fp32), but
+// each product's sum carries the split's ~2^-16 relative error of each
+// term. Bound on the H100 at the b32 serving shape (N 64 000, C 1024, M
+// 4096): the block's 1.07 TFLOP over the TF32 dense peak (494.7 TFLOP/s)
+// is 2.2 ms; the split design issues three times the bf16 products, 3.2
+// TFLOP, 3.3 ms at the 989 TFLOP/s bf16 peak, and moves hs (1.57 GB
+// written, read) besides x, r, rs, t and x_out. Returns a cudaError_t.
+extern "C" int a2v_fused_block_f32(const void* x, const void* ln1_scale, const void* ln1_bias,
+                                   const void* w1t, const void* b1, const void* w2t,
+                                   const void* b2, const void* ln2_scale, const void* ln2_bias,
+                                   void* r, void* rs, void* w1s, void* w2s, void* hs, void* t,
+                                   void* x_out, int N, int C, int M, float eps, int seed_act,
+                                   int seed_fc2, int seed_post, unsigned int act_thresh,
+                                   float act_scale, unsigned int post_thresh, float post_scale,
+                                   unsigned int row0, const void* branch_scale,
+                                   int rows_per_scale, void* stream) {
+  using namespace a2v;
+  using bf16 = __nv_bfloat16;
+  if (N <= 0 || C <= 0 || C % 128 != 0 || M <= 0 || M % 128 != 0 ||
+      (N + kG16BM - 1) / kG16BM > 65535 || rows_per_scale <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* rf = static_cast<float*>(r);
+  auto* rsb = static_cast<bf16*>(rs);
+  auto* w1b = static_cast<bf16*>(w1s);
+  auto* w2b = static_cast<bf16*>(w2s);
+  auto* hsb = static_cast<bf16*>(hs);
+  auto* tf = static_cast<float*>(t);
+  const DropSite site_act{static_cast<uint32_t>(seed_act), act_thresh, act_scale, row0};
+  const DropSite site_fc2{static_cast<uint32_t>(seed_fc2), act_thresh, act_scale, row0};
+  const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale, row0};
+  cudaError_t err;
+
+  const size_t quads = 2 * static_cast<size_t>(M) * C / 4;
+  split_weights_kernel<<<static_cast<int>(std::min<size_t>((quads + 255) / 256, 132 * 16)), 256,
+                         0, s>>>(static_cast<const float*>(w1t), w1b,
+                                 static_cast<const float*>(w2t), w2b, C, M);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_ln_rows<false, false, false, false, float>(
+           s, static_cast<const float*>(x), nullptr, static_cast<const float*>(ln1_scale),
+           static_cast<const float*>(ln1_bias), rf, nullptr, nullptr, N, C, eps, site_post,
+           nullptr, 1, rsb))) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_gemm_sm90<true, bf16, true>(
+           act_thresh != 0u, s, rsb, w1b, static_cast<const float*>(b1), hsb, N, 3 * C, M,
+           site_act))) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = static_cast<cudaError_t>(launch_gemm_sm90<false, float>(
+           act_thresh != 0u, s, hsb, w2b, static_cast<const float*>(b2), tf, N, 3 * M, C,
+           site_fc2))) != cudaSuccess)
+    return static_cast<int>(err);
+  return launch_ln2<float>(s, rf, tf, static_cast<const float*>(ln2_scale),
+                           static_cast<const float*>(ln2_bias), static_cast<float*>(x_out), N, C,
+                           eps, site_post, static_cast<const float*>(branch_scale),
+                           rows_per_scale);
 }
 
 // The tensor-parallel split of the block (one rank of a "model" group of
@@ -235,7 +332,7 @@ extern "C" int a2v_block_ln2(const void* S, const void* b2, const void* r, const
                                                 static_cast<const float*>(b2), tb, N, C,
                                                 site_fc2, act_thresh != 0u);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  return launch_ln2(s, static_cast<const bf16*>(r), tb, static_cast<const float*>(ln2_scale),
+  return launch_ln2<bf16>(s, static_cast<const bf16*>(r), tb, static_cast<const float*>(ln2_scale),
                     static_cast<const float*>(ln2_bias), static_cast<bf16*>(x_out), N, C, eps,
                     site_post, static_cast<const float*>(branch_scale), rows_per_scale);
 }

@@ -8,7 +8,10 @@
 // product of one 8-column group, and the SS m64n128k16 product of the bf16
 // GEMM (bf16_gemm_sm90.cuh); the int8 wgmma m64n128k32 and m64n64k32
 // (int32 accumulate; SS, and RS for N = 64); and the fences that order
-// them.
+// them. The fp32 instances of the kernels stage each fp32 operand as two
+// bf16 tiles, its hi and lo parts (split_pair, stage_head_split), and take
+// each fp32 product as three bf16 products into one accumulator
+// (gemm_head_ss_of, frag_split_from_acc).
 //
 // One warpgroup (four warps, 128 threads) issues each product for 64 rows;
 // warp w owns rows 16w .. 16w + 15. Register layouts (PTX ISA, "wgmma
@@ -20,6 +23,8 @@
 //     of an accumulator is the A operand of step kk of the next product:
 //     frag_from_acc below.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -74,6 +79,52 @@ __device__ __forceinline__ void stage_tile_cols(bf16* tile, const bf16* src,
   }
 }
 
+// fp32 operands as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi): x
+// = hi + lo to about 2^-16 relative (2^-17 for round-to-nearest hi). An
+// fp32 product a.b is taken as three bf16 products into one fp32
+// accumulator, a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, each term's error about
+// 2^-16 of |a||b| (the dropped a_lo.b_lo is 2^-17 squared).
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// As stage_tile_cols for fp32 rows: rows row0 .. row0 + 63 of a plane of
+// fp32 rows (row_stride elements apart, 16-byte aligned) split into a hi
+// and a lo swizzled tile (split_pair). Columns at or past ``cols`` (a
+// multiple of 8, up to 64) and rows at or past T are zero. Plain 16-byte
+// loads into registers, then 8-byte shared stores: synchronous, so the
+// tiles are complete once the caller's fence_proxy_async and barrier
+// follow (no cp.async group).
+template <int kThreads>
+__device__ __forceinline__ void stage_tile_split(bf16* hi, bf16* lo, const float* src,
+                                                 long long row_stride, int row0, int T,
+                                                 int cols, int tid) {
+  constexpr int kQuads = kTileRows * 16;  // 16-byte fp32 quads of a 64 x 64 tile
+  constexpr int kIters = (kQuads + kThreads - 1) / kThreads;
+  float4 x[kIters];
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int c = tid + i * kThreads, r = c >> 4, f = c & 15, row = row0 + r;
+    x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if ((kQuads % kThreads == 0 || c < kQuads) && row < T && f * 4 < cols)
+      x[i] = *reinterpret_cast<const float4*>(src + row * row_stride + f * 4);
+  }
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) {
+    const int c = tid + i * kThreads, r = c >> 4, f = c & 15;
+    if (kQuads % kThreads != 0 && c >= kQuads) break;
+    uint2 h, l;
+    split_pair(x[i].x, x[i].y, h.x, l.x);
+    split_pair(x[i].z, x[i].w, h.y, l.y);
+    const int at = sw128(r, f >> 1) + ((f & 1) << 2);
+    *reinterpret_cast<uint2*>(hi + at) = h;
+    *reinterpret_cast<uint2*>(lo + at) = l;
+  }
+}
+
 // The attention kernels' head dims: a multiple of 8 up to 128 (their
 // wrappers pad other head dims with zero columns).
 __host__ __device__ constexpr bool head_dim_ok(int D) {
@@ -101,6 +152,31 @@ __device__ __forceinline__ void stage_head(bf16* tiles, const bf16* src, long lo
                                   row0, T, cols, tid);
     }
   }
+}
+
+// A head's rows of fp32 elements as stage_head's NC tiles, twice: the hi
+// parts at ``tiles``, the lo parts NC tiles after them (stage_tile_split).
+template <int kThreads, int NC>
+__device__ __forceinline__ void stage_head_split(bf16* tiles, const float* src,
+                                                 long long row_stride, int row0, int T, int D,
+                                                 int tid) {
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+    stage_tile_split<kThreads>(tiles + n * kTileElems, tiles + (NC + n) * kTileElems,
+                               src + n * kRowElems, row_stride, row0, T,
+                               NC == 1 ? kRowElems : D - n * kRowElems, tid);
+}
+
+// A head's rows of element type E into shared memory: bf16 by cp.async
+// into NC tiles (stage_head; the caller commits the group), fp32 split
+// into 2 NC tiles, hi then lo (stage_head_split).
+template <int kThreads, int NC, typename E>
+__device__ __forceinline__ void stage_head_of(bf16* tiles, const E* src, long long row_stride,
+                                              int row0, int T, int D, int tid) {
+  if constexpr (std::is_same<E, float>::value)
+    stage_head_split<kThreads, NC>(tiles, src, row_stride, row0, T, D, tid);
+  else
+    stage_head<kThreads, NC>(tiles, src, row_stride, row0, T, D, tid);
 }
 
 // fp32 element (row r, column c) of a 64 x 64 fp32 tile (a dense bias, or
@@ -344,13 +420,26 @@ __device__ __forceinline__ void gemm_tile_ss(float (&d)[32], uint64_t da, uint64
     wgmma_ss<true, kTransB, kTransA>(d, da + kk * step_a, db + kk * step_b);
 }
 
-// d = A . B^T of two heads of NC tiles each (stage_head), K-major: the sum
-// over D of NC tile products (S = Q K^T, dP = dO V^T). Issue only.
-template <int NC>
+// d = (or, kAcc, +=) A . B^T of two heads of NC tiles each (stage_head),
+// K-major: the sum over D of NC tile products (S = Q K^T, dP = dO V^T).
+// Issue only.
+template <int NC, bool kAcc = false>
 __device__ __forceinline__ void gemm_head_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  gemm_tile_ss<0, 0>(d, da, db);
+  gemm_tile_ss<0, 0, kAcc>(d, da, db);
 #pragma unroll
   for (int n = 1; n < NC; ++n) gemm_tile_ss<0, 0, true>(d, da + n * kDescTile, db + n * kDescTile);
+}
+
+// gemm_head_ss of two heads staged by stage_head_of: bf16 (kSplit false)
+// one product; fp32 (kSplit, each head hi then lo, NC tiles apart) the
+// three products hi.hi + hi.lo + lo.hi into d. Issue only.
+template <int NC, bool kSplit>
+__device__ __forceinline__ void gemm_head_ss_of(float (&d)[32], uint64_t da, uint64_t db) {
+  gemm_head_ss<NC>(d, da, db);
+  if constexpr (kSplit) {
+    gemm_head_ss<NC, true>(d, da, db + NC * kDescTile);
+    gemm_head_ss<NC, true>(d, da + NC * kDescTile, db);
+  }
 }
 
 // d += A . B with A (64 x 64) in registers as four k16 fragments and B a
@@ -368,6 +457,18 @@ __device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4][4], const float (
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+  }
+}
+
+// The hi and lo bf16 A fragments of a 64 x 64 fp32 accumulator
+// (split_pair), for the fp32 instances' three-product RS steps.
+__device__ __forceinline__ void frag_split_from_acc(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                                    const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_pair(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
   }
 }
 

@@ -46,28 +46,38 @@ _F = ctypes.c_float
 _DROP = (_I, _U, _F)
 # the ALiBi entries' dropout-hash head offset: h0, hash_heads
 _HEADS = (_I, _I)
+# the ALiBi forward's and backward's arguments (below)
+_FWD = (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _I, _P, _L, _L, _L, _P) + (_I,) * 5 \
+    + (_F,) + _DROP + _HEADS + (_P,)
+_BWD = (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,) + _DROP + _HEADS + (_P,)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
     # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, pos_k,
     # posk_per_row, mask, mask_per_row, out, out_stride_b, out_stride_t,
     # out_stride_h, lse, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
     # keep_scale, h0, hash_heads, stream
-    "a2v_alibi_attention_fwd": (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _I, _P, _L, _L,
-                                _L, _P) + (_I,) * 5 + (_F,) + _DROP + _HEADS + (_P,),
+    "a2v_alibi_attention_fwd": _FWD,
     # qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row, dq,
     # dslope_part, B, H, T, D, has_sentinel, sm_scale, seed, thresh,
     # keep_scale, h0, hash_heads, stream
-    "a2v_alibi_attention_bwd_dq": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
-    + _DROP + _HEADS + (_P,),
+    "a2v_alibi_attention_bwd_dq": _BWD,
     # as bwd_dq with dk, dv in place of dq, dslope_part
-    "a2v_alibi_attention_bwd_dkv": (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,)
-    + _DROP + _HEADS + (_P,),
+    "a2v_alibi_attention_bwd_dkv": _BWD,
+    # the fp32 instances of the three (fp32 q, k, v, out; qkv, dout, dq, dk,
+    # dv): the same arguments
+    "a2v_alibi_attention_fwd_f32": _FWD,
+    "a2v_alibi_attention_bwd_dq_f32": _BWD,
+    "a2v_alibi_attention_bwd_dkv_f32": _BWD,
     # x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale, ln2_bias, r, h, t,
     # x_out, N, C, M, eps, seed_act, seed_fc2, seed_post, act_thresh,
     # act_scale, post_thresh, post_scale, row0, branch_scale, rows_per_scale,
     # stream
     "a2v_fused_block": (_P,) * 13 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P, _I,
                                       _P),
+    # the fp32 block: x, ln1_scale, ln1_bias, w1t, b1, w2t, b2, ln2_scale,
+    # ln2_bias, r, rs, w1s, w2s, hs, t, x_out, then as a2v_fused_block from N
+    "a2v_fused_block_f32": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _F, _U, _P,
+                                          _I, _P),
     # the tensor-parallel split of #6: x, ln1_scale, ln1_bias, w1t, b1, r, h,
     # N, C, Ms, eps, seed_act, act_thresh, act_scale, row0, col0, stream
     "a2v_block_fc1": (_P,) * 7 + (_I, _I, _I, _F, _I, _U, _F, _U, _U, _P),
@@ -224,6 +234,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def require_bf16(what: str, *dtypes) -> None:
+    """Raise unless every dtype is bf16: for a kernel whose fp32 instance is
+    still to be written (ROADMAP A.13). The ALiBi kernels (#1-#4) and the
+    fused post-LN block (#6) take fp32 as well."""
+    for dtype in dtypes:
+        if str(dtype) != "torch.bfloat16":
+            raise ValueError(f"{what} takes bf16 on the card, got {dtype}: its fp32 instance is "
+                             "not ported yet (ROADMAP A.13)")
 
 
 def check(err: int, what: str) -> None:

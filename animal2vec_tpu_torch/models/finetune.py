@@ -34,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from animal2vec_tpu_torch.config import (
-    FinetuneConfig, FinetuneTrainConfig, ImageConfig, PretrainConfig,
+    FinetuneConfig, FinetuneTrainConfig, ImageConfig, PretrainConfig, check_card_dtype,
 )
 from animal2vec_tpu_torch.models.audio_encoder import PosConvBlock
 from animal2vec_tpu_torch.models.data2vec2 import Data2VecMulti
@@ -144,6 +144,10 @@ def _on(device, what: str) -> torch.device:
     return device
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32,
                          seed: int = 0, device="cuda",
                          train: Optional[FinetuneTrainConfig] = None) -> FinetuneModel:
@@ -153,6 +157,7 @@ def build_finetune_model(cfg: FinetuneConfig, dtype: torch.dtype = torch.float32
     device. ``train`` gives the training recipe's rates; ``cfg.matmul_impl``
     int8 modes get their quantized weights."""
     device = _on(device, "build_finetune_model")
+    check_card_dtype(cfg, _dtype_name(dtype), device.type)
     model = FinetuneModel(cfg, dtype, train)
     init_params(model, torch.Generator().manual_seed(seed))
     model.quantize_weights()
@@ -180,6 +185,7 @@ def build_pretrain_model(cfg: PretrainConfig, dtype: torch.dtype = torch.float32
     ``device`` (the card unless the caller asks for the CPU), in train
     mode."""
     device = _on(device, "build_pretrain_model")
+    check_card_dtype(cfg.model, _dtype_name(dtype), device.type, cfg.teacher_matmul_impl)
     model = Data2VecMulti(cfg.model, dtype, pretrain=cfg, **pretrain_rates(cfg))
     init_params(model, torch.Generator().manual_seed(seed))
     return model.to(device).train()
@@ -193,6 +199,7 @@ def build_image_model(cfg: ImageConfig, dtype: torch.dtype = torch.float32, seed
     on ``device`` (the card unless the caller asks for the CPU), in eval
     mode, with ``cfg.matmul_impl``'s int8 weights quantized."""
     device = _on(device, "build_image_model")
+    check_card_dtype(cfg, _dtype_name(dtype), device.type)
     model = Data2VecMulti(cfg, dtype)
     init_params(model, torch.Generator().manual_seed(seed))
     model.quantize_weights()

@@ -44,6 +44,12 @@ one slope partial per (b, h, 64-query tile), summed here) and the dk/dv
 kernel (``attention_dkv``) of ``csrc/alibi_attention_bwd.cu``. On CPU
 tensors autograd through ``alibi_attention_plain`` is the backward.
 
+Dtypes: the kernels take bf16, or fp32 (JAX's default compute dtype) through
+their ``_f32`` C entries, whose every fp32 product is three bf16 products
+of the operands' hi and lo parts (``csrc/sm90.cuh``); out, dq, dk and dv
+come in the inputs' dtype. #5 and its quantization pass take bf16 only and
+raise on fp32, naming ROADMAP A.13.
+
 Head dims: the kernels take any head dim D from 1 to ``MAX_HEAD_DIM`` (128):
 D 64 as one 64-column tile, every other D as two, zero past D. They read a
 head's row in 16-byte chunks, so a D that is not a multiple of 8 is
@@ -74,11 +80,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.kernels.build import check, library, require_bf16
 from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
 from animal2vec_tpu_torch.ops.int8_mm import INV_127, quantize_rows
 
 NEG_INF = -1e9
+# the storage dtypes of #1-#4's instances (each product of an fp32 launch is
+# three bf16 products of the operands' split parts, csrc/sm90.cuh)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 DEAD_LSE = -5e8  # an lse below this marks a query row whose keys are all padded
 Q_TILE = 64  # query rows per block of the dq kernel: one slope partial each
 MAX_HEAD_DIM = 128  # the attention kernels' widest head
@@ -235,8 +244,8 @@ def _kernel_args(qkv, slopes, positions, padding_mask):
     if qkv.dim() != 5 or qkv.shape[0] != 3:
         raise ValueError(f"qkv must be (3, B, H, T, D), got {tuple(qkv.shape)}")
     _, b, h, t, d = qkv.shape
-    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError(f"the kernels take contiguous bf16 qkv, got {qkv.dtype}")
+    if qkv.dtype not in KERNEL_DTYPES or not qkv.is_contiguous():
+        raise ValueError(f"the kernels take contiguous bf16 or fp32 qkv, got {qkv.dtype}")
     kernel_head_dim(d)
     return (b, h, t, d) + _side_args(b, h, t, qkv.device, slopes, positions, padding_mask)
 
@@ -273,6 +282,12 @@ def _dropout_args(dropout_rate: float, seed):
     if seed is None:
         raise ValueError("a nonzero dropout_rate needs an int32 seed")
     return int(seed), keep_threshold(dropout_rate), keep_scale(dropout_rate)
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry ``name`` for operands of ``dtype``: the bf16 instances,
+    or for fp32 the fp32 ones (``name`` + "_f32")."""
+    return getattr(library(), name + ("_f32" if dtype == torch.float32 else ""))
 
 
 def _check_device(x: torch.Tensor, what: str) -> None:
@@ -326,7 +341,7 @@ def _launch_forward(q, k, v, out, lse, side, has_sentinel, drop, posk=None,
     seed_i, thresh, scale = drop
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention_fwd(
+        err = _entry("a2v_alibi_attention_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             sl.data_ptr(), pos.data_ptr(), pos_per_row, None if posk is None else
             posk[0].data_ptr(), 0 if posk is None else posk[1],
@@ -347,11 +362,13 @@ def _check_qkv_views(q, k, v) -> None:
 
 
 def _check_card_views(q, k, v) -> None:
-    """The CUDA entries' checks of (B, T, H, D) views q, k, v read in place."""
+    """The CUDA entries' checks of (B, T, H, D) views q, k, v read in place
+    (bf16 or fp32)."""
     _check_device(q, "alibi attention")
     kernel_head_dim(q.shape[-1])
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the kernel takes bf16 or fp32 q, k, v of one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("k and v must be on q's device")
     if k.stride() != q.stride() or v.stride() != q.stride():
@@ -496,7 +513,7 @@ def _bwd_common(qkv, dout, lse, delta, slopes, positions, padding_mask, dropout_
     args = _kernel_args(qkv, slopes, positions, padding_mask)
     b, h, t, d = args[:4]
     heads = hash_heads_of(h, h0, hash_heads)
-    for name, x, shape, dtype in (("dout", dout, (b, h, t, d), torch.bfloat16),
+    for name, x, shape, dtype in (("dout", dout, (b, h, t, d), qkv.dtype),
                                   ("lse", lse, (b * h, t), torch.float32),
                                   ("delta", delta, (b * h, t), torch.float32)):
         if x.shape != shape or x.dtype != dtype or not x.is_contiguous() \
@@ -530,7 +547,7 @@ def attention_dq(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
     parts = torch.empty((b, h, -(-t // Q_TILE)), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention_bwd_dq(
+        err = _entry("a2v_alibi_attention_bwd_dq", qkv.dtype)(
             qkv_k.data_ptr(), dout_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             sl.data_ptr(), pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
             mask_per_row, dq_k.data_ptr(), parts.data_ptr(), b, h, t, dk, int(has_sentinel),
@@ -570,7 +587,7 @@ def attention_dkv(qkv, dout, lse, delta, slopes, positions, padding_mask=None,
                                            dv.new_empty((b, h, t, d_k)))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_alibi_attention_bwd_dkv(
+        err = _entry("a2v_alibi_attention_bwd_dkv", qkv.dtype)(
             qkv_k.data_ptr(), dout_k.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             sl.data_ptr(), pos.data_ptr(), pos_per_row, None if mask is None else mask.data_ptr(),
             mask_per_row, dk_k.data_ptr(), dv_k.data_ptr(), b, h, t, d_k, int(has_sentinel),
@@ -834,6 +851,7 @@ def _quantize_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_pad: int
     """#5's quantization pass on the card: one C entry of two launches, q,
     k, v read in place (a head dim off a multiple of 8 from zero-padded
     copies)."""
+    require_bf16("the int8 q, k, v quantization pass (#5)", q.dtype)
     _check_card_views(q, k, v)
     b, t, h, d = q.shape
     dk = kernel_head_dim(d)
@@ -903,8 +921,7 @@ def _attention_int8_op(q8: torch.Tensor, qs: torch.Tensor, k8: torch.Tensor, ks:
     of the D channels of ``vsc`` (off a multiple of 8: the zero-padded head,
     its first D columns kept)."""
     _check_device(q8, "int8 alibi attention")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"the kernel writes bf16, got out_dtype {out_dtype}")
+    require_bf16("the int8 alibi attention (#5)", out_dtype)
     b, h, t, rows = q8.shape
     d = vsc.shape[-1]
     dk = kernel_head_dim(d)

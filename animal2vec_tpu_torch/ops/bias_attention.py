@@ -61,7 +61,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.kernels.build import check, library, require_bf16
 from animal2vec_tpu_torch.ops.attention import (
     _check_device, _on_cpu, kernel_head_dim, pad_head,
 )
@@ -171,8 +171,7 @@ def _kernel_views(q, k, v, *more):
 def _check_qkv(q, k, v):
     """Check the kernels' q, k, v; return (b, t, h, d, strides)."""
     b, t, h, d = q.shape
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise ValueError(f"the kernel takes bf16 q, k, v, got {q.dtype}")
+    require_bf16("the dense-bias attention (#11, #11b)", q.dtype, k.dtype, v.dtype)
     strides = q.stride()
     if k.stride() != strides or v.stride() != strides or strides[2:] != (d, 1):
         raise ValueError(f"q, k, v must share strides (stride_b, stride_t, {d}, 1), got "

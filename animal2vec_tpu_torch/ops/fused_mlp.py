@@ -13,7 +13,8 @@ branch times its sample's factor in fp32, rounded once to the storage
 dtype; None leaves the kernel's launches as they were. Weights come in the JAX layout, ``w1`` (C, M) and ``w2`` (M, C);
 the model passes ``Linear.weight.t()`` views, which the kernel reads without
 a copy. On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/fused_block.cu``, bf16 only); on a CPU tensor it runs
+(``csrc/fused_block.cu``: bf16, or fp32 with each product taken as three
+bf16 products of the operands' split parts); on a CPU tensor it runs
 ``fused_block_plain``, a transcription of the JAX ``_ref_block_bf16``; any
 other device raises. Serving (no gradient wanted, no dropout) goes through
 the torch custom op ``a2v::fused_block`` (the kernel for CUDA tensors, the
@@ -63,7 +64,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.kernels.build import check, library, require_bf16
 from animal2vec_tpu_torch.ops.dropout import hash_keep, keep_scale, keep_threshold
 from animal2vec_tpu_torch.ops.int8_mm import INV_127, int_matmul, quantize_rows
 
@@ -252,10 +253,10 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
             f"w1 must be (C, M) and w2 (M, C) for C={c}: got {tuple(w1.shape)}, "
             f"{tuple(w2.shape)}"
         )
-    if x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
-        raise ValueError(
-            f"the kernel takes bf16 x and weights, got {x.dtype}, {w1.dtype}, {w2.dtype}"
-        )
+    if x.dtype not in (torch.bfloat16, torch.float32) or w1.dtype != x.dtype \
+            or w2.dtype != x.dtype:
+        raise ValueError(f"the kernel takes bf16 or fp32 x and weights of x's dtype, got "
+                         f"{x.dtype}, {w1.dtype}, {w2.dtype}")
     if not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous x")
     if c % 128 or m % 128:
@@ -281,15 +282,23 @@ def _launch(x, ln1_scale, ln1_bias, w1, w2, b1, b2, ln2_scale, ln2_bias, eps,
         branch_scale = branch_scale.detach().to(torch.float32).contiguous()
         scale_ptr, rows_per_scale = branch_scale.data_ptr(), n // b
     r = torch.empty((n, c), dtype=x.dtype, device=dev)
-    h = torch.empty((n, m), dtype=x.dtype, device=dev)
     t = torch.empty(x.shape, dtype=x.dtype, device=dev)
     x_out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    if x.dtype == torch.float32:
+        # bf16 scratch of the fp32 instance: r's and h's [hi | lo | hi] and
+        # the weights' [hi | hi | lo] rows (csrc/fused_block.cu)
+        scratch = [torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                   for shape in ((n, 3 * c), (m, 3 * c), (c, 3 * m), (n, 3 * m))]
+        fn = library().a2v_fused_block_f32
+    else:
+        scratch = [torch.empty((n, m), dtype=x.dtype, device=dev)]  # h
+        fn = library().a2v_fused_block
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_fused_block(
+        err = fn(
             x.data_ptr(), l1s.data_ptr(), l1b.data_ptr(), w1t.data_ptr(), b1v.data_ptr(),
             w2t.data_ptr(), b2v.data_ptr(), l2s.data_ptr(), l2b.data_ptr(),
-            r.data_ptr(), h.data_ptr(), t.data_ptr(), x_out.data_ptr(),
+            r.data_ptr(), *(v.data_ptr() for v in scratch), t.data_ptr(), x_out.data_ptr(),
             n, c, m, float(eps), s0, s1, s2,
             act_t, keep_scale(act_rate) if act_t else 1.0,
             post_t, keep_scale(post_rate) if post_t else 1.0, int(row0) & 0xFFFFFFFF,
@@ -437,9 +446,10 @@ fused_block_mlp.launches = 0
 def _launch_fc1(x2, ln1_scale, ln1_bias, w1, b1, eps, seed, rate, row0, col0):
     n, c = x2.shape
     ms = w1.shape[1]
-    if w1.shape[0] != c or x2.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16:
-        raise ValueError(f"block_fc1 takes bf16 x (N, C) and w1 (C, Ms), got {x2.dtype} "
-                         f"{tuple(x2.shape)}, {w1.dtype} {tuple(w1.shape)}")
+    require_bf16("block_fc1 (the tensor-parallel split of #6)", x2.dtype, w1.dtype)
+    if w1.shape[0] != c:
+        raise ValueError(f"block_fc1 takes x (N, C) and w1 (C, Ms), got {tuple(x2.shape)}, "
+                         f"{tuple(w1.shape)}")
     if not x2.is_contiguous():
         raise ValueError("block_fc1 takes a contiguous x")
     if c % 128 or ms % 128:
@@ -506,9 +516,10 @@ block_fc1.launches = 0
 def _launch_fc2_partial(h, w2):
     n, ms = h.shape
     c = w2.shape[1]
-    if w2.shape[0] != ms or h.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
-        raise ValueError(f"block_fc2_partial takes bf16 h (N, Ms) and w2 (Ms, C), got {h.dtype} "
-                         f"{tuple(h.shape)}, {w2.dtype} {tuple(w2.shape)}")
+    require_bf16("block_fc2_partial (the tensor-parallel split of #6)", h.dtype, w2.dtype)
+    if w2.shape[0] != ms:
+        raise ValueError(f"block_fc2_partial takes h (N, Ms) and w2 (Ms, C), got "
+                         f"{tuple(h.shape)}, {tuple(w2.shape)}")
     if ms % 64 or c % 8:
         raise ValueError(f"block_fc2_partial needs Ms % 64 == 0 and C % 8 == 0, got Ms={ms}, "
                          f"C={c}")
@@ -554,9 +565,9 @@ block_fc2_partial.launches = 0
 def _launch_ln2(s, b2, r, ln2_scale, ln2_bias, eps, seeds, act_rate, post_rate, row0,
                 branch_scale):
     n, c = r.shape
-    if s.shape != (n, c) or s.dtype != torch.float32 or r.dtype != torch.bfloat16:
-        raise ValueError(f"block_ln2 takes an fp32 (N, C) sum and a bf16 r, got {s.dtype} "
-                         f"{tuple(s.shape)}, {r.dtype} {tuple(r.shape)}")
+    require_bf16("block_ln2 (the tensor-parallel split of #6)", r.dtype)
+    if s.shape != (n, c) or s.dtype != torch.float32:
+        raise ValueError(f"block_ln2 takes an fp32 (N, C) sum, got {s.dtype} {tuple(s.shape)}")
     if c % 128:
         raise ValueError(f"block_ln2 needs C % 128 == 0, got C={c}")
     dev = r.device
@@ -726,8 +737,9 @@ def _block_int8_op(x: torch.Tensor, ln1_scale: _Opt, ln1_bias: _Opt, w1_q: torch
     """#7 on the card: one C entry of five launches."""
     c = x.shape[-1]
     m = w1_q.shape[0]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"the kernel takes a contiguous bf16 x, got {x.dtype}")
+    require_bf16("the int8 fused block (#7)", x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("the kernel takes a contiguous x")
     for name, w, shape in (("w1_q", w1_q, (m, c)), ("w2_q", w2_q, (c, m))):
         if w.dtype != torch.int8 or w.shape != shape or not w.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "
@@ -872,9 +884,9 @@ def _launch_mlp(x, w1, w2, b1, b2, seeds=None, rate=0.0, row0=0) -> torch.Tensor
     if w1.shape != (m, c) or w2.shape != (c2, m):
         raise ValueError(f"w1 must be (M, C) and w2 (C2, M) for C={c}: got {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)}")
-    if any(v.dtype != torch.bfloat16 for v in (x, w1, w2)) or not x.is_contiguous():
-        raise ValueError(f"the kernel takes a contiguous bf16 x and bf16 weights, got {x.dtype}, "
-                         f"{w1.dtype}, {w2.dtype}")
+    require_bf16("the fused MLP of pre-LN blocks (#8)", x.dtype, w1.dtype, w2.dtype)
+    if not x.is_contiguous():
+        raise ValueError("the kernel takes a contiguous x")
     if c % 64 or m % 64 or c2 % 8:
         raise ValueError(f"the kernel needs C and M in multiples of 64 and C2 in multiples of 8, "
                          f"got C={c}, M={m}, C2={c2}")
@@ -995,8 +1007,9 @@ def fused_mlp_int8(
         raise ValueError(f"int8 fused MLP runs on cuda or cpu tensors, got {x.device}")
     c = x.shape[-1]
     m, c2 = w1_q.shape[0], w2_q.shape[0]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"the kernel takes a contiguous bf16 x, got {x.dtype}")
+    require_bf16("the int8 fused MLP (#9)", x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("the kernel takes a contiguous x")
     for name, w, shape in (("w1_q", w1_q, (m, c)), ("w2_q", w2_q, (c2, m))):
         if w.dtype != torch.int8 or w.shape != shape or not w.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int8 {shape}, got {w.dtype} "

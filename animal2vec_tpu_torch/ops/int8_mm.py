@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from animal2vec_tpu_torch.kernels.build import check, library
+from animal2vec_tpu_torch.kernels.build import check, library, require_bf16
 
 INV_127 = 1.0 / 127.0  # rounds to fp32(1/127) in an fp32 product, as XLA's constant
 
@@ -75,8 +75,9 @@ def _dense_op(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     """#10 on the card: one C entry (x's quantization, the GEMM)."""
     k = x.shape[-1]
     m = w_q.shape[0]
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"the kernel takes a contiguous bf16 x, got {x.dtype}")
+    require_bf16("the int8 dense projection (#10)", x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("the kernel takes a contiguous x")
     if w_q.dtype != torch.int8 or w_q.shape != (m, k) or not w_q.is_contiguous():
         raise ValueError(f"w_q must be a contiguous int8 ({m}, {k}), got {w_q.dtype} "
                          f"{tuple(w_q.shape)}")

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from animal2vec_tpu_torch.evalx.segmentation import fuse_predict
-from animal2vec_tpu_torch.config import FinetuneConfig, apply_overrides
+from animal2vec_tpu_torch.config import FinetuneConfig, apply_overrides, check_card_dtype
 from animal2vec_tpu_torch.data.wavio import read_wav
 from animal2vec_tpu_torch.models.finetune import FinetuneModel
 from animal2vec_tpu_torch.ops.audio import chunk_and_normalize
@@ -132,6 +132,7 @@ def load_finetuned(weights: str, cfg: FinetuneConfig, device: torch.device,
         sd = load_checkpoint_dir(weights)["model"]
     else:
         sd = params_from_jax(load_params_npz(weights))
+    check_card_dtype(cfg, str(dtype).removeprefix("torch."), device.type)
     model = FinetuneModel(cfg, dtype=dtype)
     if dtype == torch.bfloat16:
         sd = serving_cast(sd)

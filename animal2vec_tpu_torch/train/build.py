@@ -115,6 +115,7 @@ def init_finetune(run: RunConfig, device, pretrained: Optional[Mapping[str, torc
     """The run's finetune model (weights from ``common.seed``, or the
     pretrained encoder's where given) on ``device`` in ``dp``'s layout, and
     its state."""
+    run.check_card_dtype(torch.device(device).type)
     cfg = with_pipeline(run.model, run)
     model = build_finetune_model(cfg, dtype=DTYPES[run.common.compute_dtype],
                                  seed=run.common.seed, device=device, train=run.finetune)
@@ -129,6 +130,7 @@ def init_pretrain(run: RunConfig, device, dp: Optional[DataParallel] = None
                   ) -> Tuple[Data2VecMulti, PretrainState]:
     """The run's pretraining model (weights from ``common.seed``) on
     ``device`` in ``dp``'s layout, and its state with the EMA teacher."""
+    run.check_card_dtype(torch.device(device).type)
     cfg = with_pipeline(run.pretrain.model, run)
     pcfg = dataclasses.replace(run.pretrain, model=cfg)
     model = build_pretrain_model(pcfg, dtype=DTYPES[run.common.compute_dtype],

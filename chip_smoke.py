@@ -288,7 +288,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
    against the plain path; XLS-R 2B's (C 1920, D 120, 12 blocks) served
    in bf16; a2v-large at 8 heads (D 128) served, its b4 gradients;
    ViT-H/14's widths (C 1280, H 16, D 80, patch 14) served at b64 pre-LN
-   and pretrained post-LN (one b64 x clone 2 step, b2 gradients).
+   and pretrained post-LN (one b64 x clone 2 step, b2 gradients);
+22. JAX's default compute dtype, fp32, on the card (ROADMAP A.13's first
+   slice, phase_fp32): 22k the fp32 instances (each fp32 product three bf16
+   products of the operands' hi and lo parts) of #1 at b32 T 2000 in place,
+   #2-#4 at b4 T 2000 with dropout 0.2 and at the pretraining student's
+   b60 T 125 keep-set positions, at D 64 and 128, and #6 at N 64 000 and N
+   8000 with dropout 0.1, against their plain versions in fp32 at a tenth
+   of each bf16 gate, each timed (CUDA events, device time) beside the
+   bf16 instance on the same values, the plain version, the library call in
+   fp32 with TF32 off (SDPA with the ALiBi bias as a float mask; F.linear
+   x 2), the fp32 bound (TF32 peak) and the split design's floor, with the
+   instances' registers, spills and shared memory; 22s (ROADMAP C.1) #3's
+   slope partials of the bf16 and fp32 instances and the plain path's
+   slope gradient in bf16 against float64 at 17b's shape; 22b train_cli
+   --config finetune_100.yaml common.compute_dtype=float32 for 3 steps at
+   full width (losses, ms, peak memory, launches) and the b1 fp32 gradients
+   against the plain path (5e-3 per tensor); 22a the fp32 a2v-large model
+   (build_finetune_model's default dtype) at b2 against the plain path
+   (2e-3 max abs) and the bf16 model (printed), b32 clips/s, and
+   export_cli --dtype float32 from 22b's checkpoint; 22c train_cli
+   --config a2v_large_pretrain.yaml common.compute_dtype=float32 for 2
+   steps (ms, peak memory, student and teacher launches).
 
 The last two lines are a JSON object describing the kernels and
 {"ok": true, "device": {...}}. Needs CUDA; exits 1 without it.
@@ -415,6 +436,8 @@ def ptxas_summary(log: str):
             r"Compiling entry function '[^']*?(\d+)([a-z][a-z_0-9]*_kernel)(I[^']*?E)?E", line)
         if entry:
             flags = re.findall(r"L[bi](\d+)E", entry.group(3) or "")
+            if re.search(r"(^I|E)f[EL]", entry.group(3) or ""):
+                flags.append("f32")  # a float type argument: an fp32 instance or output
             name = entry.group(2) + (f"<{','.join(flags)}>" if flags else "")
         elif "spill" in line:
             spills = line.strip()
@@ -1492,11 +1515,11 @@ def phase_train(cfg, card, dev, fused_block=True, stats=None):
     return tuple(totals)
 
 
-def phase_train_grads(cfg, dev, batch=1):
+def phase_train_grads(cfg, dev, batch=1, dtype=torch.bfloat16, tol=MODEL_GRAD_TOL):
     """At b1 (or ``batch``) with every rate at 0 (no mixup, masks, dropout
     or layerdrop), the full model's gradients through the kernels against
     those through the plain versions, one relative norm per parameter
-    tensor."""
+    tensor, in the compute ``dtype`` (within ``tol``)."""
     from animal2vec_tpu_torch.config import FinetuneTrainConfig
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.train.finetune_step import finetune_loss
@@ -1505,7 +1528,7 @@ def phase_train_grads(cfg, dev, batch=1):
         FinetuneTrainConfig(), freeze_finetune_updates=0, apply_mask=False,
         mask_channel_prob=0.0, dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
         layerdrop=0.0, source_mixup=-1.0)
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
+    model = build_finetune_model(cfg, dtype=dtype, seed=SEED, device=dev, train=tcfg)
     mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=batch, seed=SEED + 7).items()}
 
     def grads():
@@ -1524,13 +1547,14 @@ def phase_train_grads(cfg, dev, batch=1):
     print(f"model gradients b{batch}, kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f}; "
           f"relative norm per tensor: max {worst[0][1]:.3e}, median "
           f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors "
-          f"(tolerance {MODEL_GRAD_TOL}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
+          f"(tolerance {tol}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
     if set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
         raise AssertionError("the two paths give gradients to different parameters")
-    if not max(rels.values()) <= MODEL_GRAD_TOL:
+    if not max(rels.values()) <= tol:
         raise AssertionError("full-model kernel-path gradients disagree with the plain path")
     del model, g_k, g_p
     torch.cuda.empty_cache()
+    return max(rels.values())
 
 
 def phase_kernel_times(dev):
@@ -1888,9 +1912,9 @@ def int8_block_splits(args, label):
     (n, c), m = args[0].shape, args[3].shape[0]
     call = lambda: fused_block_int8(*args)
     split = {f"{name}_device_ms": device_ms(call, kernel) for name, kernel in (
-        ("ln1", "ln_rows_kernel<false, false, true, false>"), ("fc1", "gemm_s8_sm90_kernel<1>"),
+        ("ln1", "ln_rows_kernel<false, false, true, false, "), ("fc1", "gemm_s8_sm90_kernel<1>"),
         ("quantize", "quantize_chunks_kernel"), ("fc2", "gemm_s8_sm90_kernel<2>"),
-        ("ln2", "ln_rows_kernel<true, false, false, false>"))}
+        ("ln2", "ln_rows_kernel<true, false, false, false, "))}
     for gemm in ("fc1", "fc2"):
         split[f"{gemm}_tops"] = per_ms(2 * n * c * m, split[f"{gemm}_device_ms"])
     print(f"  {label} by launch, device time: LN1 {ms_text(split['ln1_device_ms'])}, fc1 "
@@ -5871,6 +5895,597 @@ def phase_head_dims(card, dev, lib_path):
     return launches, errs, rows
 
 
+# phase 22: JAX's default compute dtype, fp32, on the card (ROADMAP A.13's
+# first slice). #1-#4 and #6 have fp32 instances whose every fp32 product is
+# three bf16 products of the operands' split parts, a_hi b_hi + a_hi b_lo +
+# a_lo b_hi into one fp32 accumulator (csrc/sm90.cuh split_pair). Their
+# gates are a tenth of each bf16 gate above; tests/test_torch_fp32_kernels.py
+# holds that arithmetic against JAX's kernels in fp32 on the CPU within them.
+FP32_ATTN_TOL = (1e-3, 1e-3)
+FP32_LSE_TOL = (1e-4, 1e-6)
+FP32_BWD_TOL = (5e-4, 1e-3)
+# the slope partials, held against float64 (slope_partials_fp64): with fp32
+# inputs each P carries its row's rounding of lse and of logits far from 0,
+# which the partial's cancelling difference multiplies by D sum P dist; the
+# plain version's partials in fp32 lie 16.4x a tenth of SLOPE_PART_TOL from
+# float64 at b4 T 2000 with row 1's tail padded, those of the fp32 dq
+# kernel's arithmetic (P normalized by its row sum) 3.7-4.3x in its CPU
+# emulation (tests/test_torch_fp32_kernels.py); 4x that is wider than the
+# bf16 gate, so the gate is the bf16 gate
+FP32_SLOPE_PART_TOL = SLOPE_PART_TOL
+FP32_BLOCK_TOL = (3e-3, 2e-3)
+FP32_MODEL_TOL = 2e-3  # max abs logits, kernel vs plain path: a tenth of MODEL_TOL
+FP32_GRAD_TOL = 5e-3  # per parameter tensor, kernel vs plain path: a tenth of MODEL_GRAD_TOL
+PEAK_TF32_FLOPS = 494.7e12  # the H100 SXM data sheet's dense TF32 peak (at 700 W)
+FP32_KEYS = ("serve_attention", "attention", "dq", "dkv", "block")
+FP32_HEAD_DIMS = (64, 128)  # one tile and two (stage_head)
+# 22b and 22c: train_cli on the recipes with JAX's default dtype, at full
+# width and depth, on 24 synthetic 10-s clips; update_freq 1 (the recipes'
+# accumulation cut for the script's time; the micro-batch is the recipe's)
+FP32_COMMON = CONFIG_COMMON + ("common.compute_dtype=float32",)
+FP32_FINETUNE = ("dataset.train_subset=train_0", "dataset.batch_size=4",
+                 "finetune.freeze_finetune_updates=0", "task.min_label_size=0",
+                 "dataset.bucket_lengths=")
+FP32_STEPS = {"finetune_100": 3, "a2v_large_pretrain": 2}
+
+
+def fp32_bound(flops, nbytes):
+    """(bound ms, what bounds it, the split design's floor ms): fp32
+    operations over the TF32 dense peak against fp32 bytes over the memory
+    rate; the floor is the three bf16 products of each fp32 one over the
+    bf16 peak."""
+    ms, by = bound(flops, nbytes, PEAK_TF32_FLOPS)
+    return ms, by, 3 * flops / PEAK_BF16_FLOPS * 1e3
+
+
+def fp32_attention_bounds(b, h, t, d):
+    """attention_bounds' work in fp32 bytes (q, k, v, dO, out, dq, dk, dv
+    four bytes an element)."""
+    bhtd, bht = b * h * t * d, b * h * t
+    flops = 2 * bhtd * t
+    return {
+        "serve_attention": fp32_bound(2 * flops, 4 * 4 * bhtd),
+        "attention": fp32_bound(2 * flops, 4 * 4 * bhtd + 4 * bht),
+        "dq": fp32_bound(3 * flops, 4 * 5 * bhtd + 2 * 4 * bht + 4 * b * h * -(-t // 64)),
+        "dkv": fp32_bound(4 * flops, 4 * 6 * bhtd + 2 * 4 * bht),
+    }
+
+
+def fp32_block_bound(n, c=1024, m=4096):
+    """fc1 and fc2 (2*N*C*M each); fp32 x read, x_out and t written, fp32
+    weights and vectors read once."""
+    return fp32_bound(4 * n * c * m, 4 * n * c * 3 + 4 * 2 * c * m + 4 * (5 * c + m))
+
+
+def fp32_smem_line():
+    """The dynamic shared memory of each instance, bf16 against fp32 (whose
+    staged heads and rings hold a hi and a lo tile each), from the sources'
+    formulas: alibi_attention_fwd.cu kSmem, alibi_attention_bwd.cu kDqSmem
+    and kDkvSmem, bf16_gemm_sm90.cuh g16_smem (a 64 x 64 bf16 tile is 8192
+    bytes)."""
+    tile, parts = 8192, []
+    for nc in (1, 2):
+        for name, side in (("alibi_fwd", 2 * 64 * 8), ("dq", 2 * 64 * 16), ("dk/dv", 2 * 64 * 20)):
+            heads = 6  # the forward: 2 Q heads + 2 x 2 ring; the backward: 2 + 2 x 2
+            b16, f32 = (tile * nc * p * heads + side + 1024 for p in (1, 2))
+            parts.append(f"{name} NC {nc} {b16} / {f32} B")
+    parts.append(f"#6 GEMM {3 * 256 * 64 * 2 + 1024} B (both)")
+    return "22k dynamic shared memory, bf16 / fp32: " + ", ".join(parts)
+
+
+def fp32_attention_inputs(gen, b, h, t, d, dev):
+    """fp32 (3, B, H, T, D) qkv and the ALiBi slopes."""
+    from animal2vec_tpu_torch.ops.alibi import alibi_slopes
+
+    qkv = torch.randn((3, b, h, t, d), generator=gen, device=dev)
+    return qkv, torch.from_numpy(alibi_slopes(h).copy()).to(dev)
+
+
+def check_fp32_attention_train(name, qkv, slopes, pos, mask, dout, drop):
+    """#2 with lse, #3 and #4 on fp32 inputs against their plain versions in
+    fp32 at the fp32 gates, the slope partials against float64 (the plain
+    version's own distance from float64 and the kernel's from it printed);
+    returns the forward, dq and dk/dv errors."""
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
+        attention_dkv, attention_dq,
+    )
+
+    b, h, t, _ = qkv.shape[1:]
+    out, lse = alibi_flash_attention_packed(qkv, slopes, pos, mask, False, *drop,
+                                            return_lse=True)
+    out_p, lse_p = alibi_attention_plain(qkv, slopes, pos, mask, False, *drop, return_lse=True)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32:
+        raise AssertionError(f"{name}: out is {out.dtype}")
+    err_fwd = check_close(f"{name} out", out, out_p, FP32_ATTN_TOL)
+    check_close(f"{name} lse", lse, lse_p, FP32_LSE_TOL)
+    del out_p, lse_p
+    delta = (dout * out).sum(-1).reshape(b * h, t)
+    args = (qkv, dout, lse, delta, slopes, pos, mask, False, *drop)
+    dq, parts = attention_dq(*args)
+    dk, dv = attention_dkv(*args)
+    want, parts_p = attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err_dq = check_close(f"{name} dq", dq, want[0], FP32_BWD_TOL)
+    err_dkv = max(check_close(f"{name} dk", dk, want[1], FP32_BWD_TOL),
+                  check_close(f"{name} dv", dv, want[2], FP32_BWD_TOL))
+    del want
+    ref = slope_partials_fp64(qkv, dout, slopes, pos, mask, *drop)
+    ratio = lambda x: ((x.double() - ref).abs()  # noqa: E731
+                       / (1e-3 + 1e-4 * ref.abs())).max().item()
+    print(f"{name} slope partials, worst ratio to a tenth of SLOPE_PART_TOL against float64: "
+          f"plain version in fp32 {ratio(parts_p):.3f}, kernel {ratio(parts):.3f}; kernel "
+          f"against the plain version {(parts - parts_p).abs().max().item():.3e} max abs")
+    check_close(f"{name} slope partials against float64", parts, ref, FP32_SLOPE_PART_TOL)
+    return err_fwd, err_dq, err_dkv
+
+
+def fp32_train_rows(row, d, qkv, slopes, pos, mask, dout, drop, shape):
+    """22k's training rows: #2 with lse and dropout, #3 and #4 in fp32, each
+    beside the bf16 instance on the same values, the plain versions, SDPA in
+    fp32 with the float ALiBi mask (TF32 off: forward with the dropout; its
+    forward and backward for #3 and #4) and the fp32 bounds."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_packed, attention_bwd_plain,
+        attention_dkv, attention_dq,
+    )
+
+    b, h, t = qkv.shape[1:4]
+    bounds = fp32_attention_bounds(b, h, t, d)
+    inputs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, g = qkv.to(dt), dout.to(dt)
+        out, lse = alibi_flash_attention_packed(x, slopes, pos, mask, False, *drop,
+                                                return_lse=True)
+        delta = (g.float() * out.float()).sum(-1).reshape(b * h, t)
+        inputs[dt] = (x, g, lse, delta, slopes, pos, mask, False, *drop)
+    q, k, v, bias = sdpa_args(qkv, slopes, t, requires_grad=True)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, dropout_p=drop[0])
+        torch.autograd.grad(o, (q, k, v), dout)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                 dropout_p=drop[0]))
+    lib_bwd = cuda_ms(sdpa_fwd_bwd)
+    plain_bwd = cuda_ms(lambda: attention_bwd_plain(*inputs[torch.float32]), iters=1, warmup=1)
+    fwd = lambda a: lambda: alibi_flash_attention_packed(  # noqa: E731
+        a[0], slopes, pos, mask, False, *drop, return_lse=True)
+    for key, fn, plain, library, kernel, mult in (
+            ("attention", fwd, cuda_ms(lambda: alibi_attention_plain(
+                qkv, slopes, pos, mask, False, *drop, return_lse=True), iters=1, warmup=1),
+             lib_fwd, "alibi_fwd_kernel", 2),
+            ("dq", lambda a: lambda: attention_dq(*a), plain_bwd, lib_bwd,
+             "alibi_attention_dq_kernel", 3),
+            ("dkv", lambda a: lambda: attention_dkv(*a), plain_bwd, lib_bwd,
+             "alibi_attention_dkv_kernel", 4)):
+        run32 = fn(inputs[torch.float32])
+        dev_ms = device_ms(run32, kernel)
+        row(key, d, shape, cuda_ms(run32), dev_ms, cuda_ms(fn(inputs[torch.bfloat16])), plain,
+            library, bounds[key], per_ms(mult * 2 * b * h * t * t * d, dev_ms))
+    del q, k, v, bias, inputs
+
+
+def fp32_kernel_rows(dev, row):
+    """22k. Each fp32 instance against its plain version in fp32 at the main
+    paths' shapes and the fp32 gates, then timed (``row``): #2 with lse and
+    dropout 0.2, #3 and #4 at b4 H 16 T 2000 with row 1's last 300 keys
+    padded, and #1 at b32 T 2000 on the thirds of one (B, T, 3C)
+    projection, at D 64 and 128 (one tile, two); #2-#4 at the a2v-large
+    pretraining student's b60 T 125 keep-set positions, dropout 0.1; #6 at
+    N 64 000 (b32 serving) and N 8000 with its three dropout sites at 0.1.
+    Returns the largest error of each kernel key."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_plain, alibi_flash_attention_serve,
+    )
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain
+
+    errs = dict.fromkeys(FP32_KEYS, 0.0)
+
+    def err(key, e):
+        errs[key] = max(errs[key], e)
+
+    h = 16
+    for d in FP32_HEAD_DIMS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2200 + d)
+        b, t = TRAIN_BATCH, 2000
+        qkv, slopes = fp32_attention_inputs(gen, b, h, t, d, dev)
+        pos = torch.arange(t, dtype=torch.int32, device=dev)[None]
+        mask = torch.zeros((b, t), dtype=torch.bool, device=dev)
+        mask[1, -300:] = True
+        dout = torch.randn((b, h, t, d), generator=gen, device=dev)
+        shape = f"b{b} H {h} T {t} training, dropout {ATTN_DROP}"
+        for key, e in zip(("attention", "dq", "dkv"), check_fp32_attention_train(
+                f"22k D {d} fp32 attention training (b{b}, T {t}, dropout {ATTN_DROP}, row 1 "
+                "padded)", qkv, slopes, pos, mask, dout, (ATTN_DROP, DROP_SEED))):
+            err(key, e)
+        fp32_train_rows(row, d, qkv, slopes, pos, mask, dout, (ATTN_DROP, DROP_SEED), shape)
+        del qkv, dout
+        torch.cuda.empty_cache()
+        b = 32
+        proj = torch.randn((b, t, 3, h, d), generator=gen, device=dev)
+        q, k, v = proj.unbind(2)
+        with torch.inference_mode():
+            got = alibi_flash_attention_serve(q, k, v, slopes, pos).transpose(1, 2)
+            packed = torch.stack((q, k, v)).transpose(2, 3)
+            want = alibi_attention_plain(packed, slopes, pos)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32:
+                raise AssertionError(f"22k #1 fp32: out is {got.dtype}")
+            err("serve_attention", check_close(f"22k D {d} fp32 attention b32 serving, q, k, v "
+                                               "read in place", got, want, FP32_ATTN_TOL))
+            del got, want
+            torch.cuda.empty_cache()
+            serve = lambda x: lambda: alibi_flash_attention_serve(  # noqa: E731
+                *x.unbind(2), slopes, pos)
+            qs, ks, vs, bias = sdpa_args(packed, slopes, t)
+            library = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias))
+            dev_ms = device_ms(serve(proj), "alibi_fwd_kernel")
+            row("serve_attention", d, f"b{b} H {h} T {t} serving, in place", cuda_ms(serve(proj)),
+                dev_ms, cuda_ms(serve(proj.to(torch.bfloat16))),
+                cuda_ms(lambda: alibi_attention_plain(packed, slopes, pos), iters=1, warmup=1),
+                library, fp32_attention_bounds(b, h, t, d)["serve_attention"],
+                per_ms(4 * b * h * t * t * d, dev_ms))
+        del proj, q, k, v, packed, qs, ks, vs, bias
+        torch.cuda.empty_cache()
+    # the a2v-large pretraining student's shape (D 64)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2213)
+    b, t = 60, 125
+    qkv, slopes = fp32_attention_inputs(gen, b, h, t, 64, dev)
+    rng = np.random.default_rng(SEED + 2213)
+    pos = torch.from_numpy(np.stack([np.sort(rng.choice(2000, t, replace=False))
+                                     for _ in range(b)]).astype(np.int32)).to(dev)
+    dout = torch.randn((b, h, t, 64), generator=gen, device=dev)
+    drop = (0.1, DROP_SEED + 1)
+    for key, e in zip(("attention", "dq", "dkv"), check_fp32_attention_train(
+            f"22k fp32 attention pretraining student (b{b}, T {t}, keep-set positions, "
+            "dropout 0.1)", qkv, slopes, pos, None, dout, drop)):
+        err(key, e)
+    fp32_train_rows(row, 64, qkv, slopes, pos, None, dout, drop,
+                    f"b{b} H {h} T {t} pretrain student, dropout 0.1")
+    del qkv, dout
+    # #6, serving and training shapes; the weights as the model hands them
+    # over (Linear.weight.t() views)
+    for n, drop in ((32 * 2000, ()), (TRAIN_BATCH * 2000, ((11, -22, 2**31 - 5), 0.1, 0.1))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2206 + n)
+        c, m = 1024, 4096
+        args = list(block_inputs(gen, n, c, m, dev))
+        args[0] = torch.randn((n, c), generator=gen, device=dev)
+        args[3] = (torch.randn((m, c), generator=gen, device=dev) * (2 / (c + m)) ** 0.5).t()
+        args[4] = (torch.randn((c, m), generator=gen, device=dev) * (2 / (c + m)) ** 0.5).t()
+        label = f"22k fp32 fused block N {n}" + (", dropout 0.1" if drop else "")
+        with torch.no_grad():
+            xo, tap = fused_block_mlp(*args, *drop)
+            xo_p, tap_p = fused_block_plain(*args, *drop)
+            torch.cuda.synchronize()
+            if xo.dtype != torch.float32 or tap.dtype != torch.float32:
+                raise AssertionError(f"{label}: outputs {xo.dtype}, {tap.dtype}")
+            err("block", max(check_close(f"{label} tap t", tap, tap_p, FP32_BLOCK_TOL),
+                             check_close(f"{label} x_out", xo, xo_p, FP32_BLOCK_TOL)))
+            del xo, tap, xo_p, tap_p
+            run = lambda a: lambda: fused_block_mlp(*a, *drop)  # noqa: E731
+            bf16_args = [a.to(torch.bfloat16) if i in (0, 3, 4) else a
+                         for i, a in enumerate(args)]
+            w1, w2, b1, b2 = args[3], args[4], args[5], args[6]
+            lib = cuda_ms(lambda: F.linear(F.gelu(F.linear(args[0], w1.t(), b1)), w2.t(), b2))
+            dev_ms = device_ms(run(args), "")
+            gemm_ms = device_ms(run(args), "gemm_bf16_sm90")
+            row("block", None, f"N {n}, C {c}, M {m}" + (", dropout 0.1" if drop else ""),
+                cuda_ms(run(args)), dev_ms, cuda_ms(run(bf16_args)),
+                cuda_ms(lambda: fused_block_plain(*args, *drop), iters=1, warmup=1), lib,
+                fp32_block_bound(n, c, m), per_ms(4 * n * c * m, dev_ms), gemm_ms=gemm_ms)
+        print(f"  22k fp32 fused block N {n}: bf16 scratch of the split planes "
+              f"{2 * 3 * (n * c + n * m + 2 * m * c) / 1e9:.3f} GB a launch (h's three planes "
+              f"{2 * 3 * n * m / 1e9:.3f} GB)")
+        del args, bf16_args
+        torch.cuda.empty_cache()
+    return errs
+
+
+def slope_partials_fp64(qkv, dout, slopes, pos, mask, rate, seed):
+    """The dq kernel's slope partials (B, H, ceil(T / 64)) in float64 from
+    the values of qkv and dout: P from the float64 softmax, dP and the
+    row's delta sum P f dP in float64 (attention_bwd_plain's rule)."""
+    from animal2vec_tpu_torch.ops.attention import NEG_INF, Q_TILE, _keep_factor
+
+    q, k, v = (x.double() for x in qkv.unbind(0))
+    b, h, t, d = q.shape
+    p64 = pos.double()
+    dist = (p64[:, :, None] - p64[:, None, :]).abs()[:, None]
+    logits = q @ k.transpose(-1, -2) * d**-0.5 - dist * slopes.double()[None, :, None, None]
+    if mask is not None:
+        logits = logits.masked_fill(mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(logits, -1)
+    if mask is not None:
+        p = p.masked_fill(mask[:, None, None, :], 0.0)
+    f = _keep_factor(b, h, t, rate, seed, q.device).double() if rate else 1.0
+    pdp = p * (dout.double() @ v.transpose(-1, -2)) * f
+    per_row = -((pdp * dist).sum(-1) - pdp.sum(-1) * (p * dist).sum(-1))
+    n_qt = -(-t // Q_TILE)
+    per_row = torch.nn.functional.pad(per_row, (0, n_qt * Q_TILE - t))
+    return per_row.reshape(b, h, n_qt, Q_TILE).sum(-1)
+
+
+def fp32_slope_check(dev):
+    """22s (ROADMAP C.1): at 17b's shape (the a2v-large pretraining student
+    of b1 x clone 2: b2, H 16, T 125 keep-set positions, dropout 0.1), #3's
+    slope partials from the bf16 instance and from the fp32 instance, and
+    the slope gradient of the plain path in bf16 (autograd through
+    alibi_attention_btc_plain on the bf16 values), each against the float64
+    reference on the same values, over three seeded inputs. Returns the
+    errors (relative norm of the per-head gradient; largest partial error
+    over the largest partial)."""
+    from animal2vec_tpu_torch.ops.attention import (
+        alibi_attention_btc_plain, alibi_flash_attention_packed, attention_dq,
+    )
+
+    b, h, t, d = 2, 16, 125, 64
+    drop = (0.1, DROP_SEED + 2)
+    out = {"bf16 kernel": [], "fp32 kernel": [], "bf16 plain path": []}
+    part_err = {"bf16 kernel": [], "fp32 kernel": []}
+    for i in range(3):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2219 + i)
+        qkv, slopes = fp32_attention_inputs(gen, b, h, t, d, dev)
+        qkv = qkv.to(torch.bfloat16)  # the values all three take
+        rng = np.random.default_rng(SEED + 2219 + i)
+        pos = torch.from_numpy(np.stack([np.sort(rng.choice(2000, t, replace=False))
+                                         for _ in range(b)]).astype(np.int32)).to(dev)
+        dout = torch.randn((b, h, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        ref = slope_partials_fp64(qkv, dout, slopes, pos, None, *drop)
+        ref_g = ref.sum(dim=(0, 2))
+        for label, dt in (("bf16 kernel", torch.bfloat16), ("fp32 kernel", torch.float32)):
+            x, g = qkv.to(dt), dout.to(dt)
+            o, lse = alibi_flash_attention_packed(x, slopes, pos, None, False, *drop,
+                                                  return_lse=True)
+            delta = (g.float() * o.float()).sum(-1).reshape(b * h, t)
+            _, parts = attention_dq(x, g, lse, delta, slopes, pos, None, False, *drop)
+            out[label].append(rel_norm(parts.double().sum(dim=(0, 2)), ref_g))
+            part_err[label].append(((parts.double() - ref).abs().max()
+                                    / ref.abs().max()).item())
+        qkv_btc = qkv.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h * d)
+        s = slopes.clone().requires_grad_()
+        o = alibi_attention_btc_plain(qkv_btc, h, s, pos, None, False, *drop)
+        (gs,) = torch.autograd.grad(o, (s,), dout.permute(0, 2, 1, 3).reshape(b, t, h * d))
+        out["bf16 plain path"].append(rel_norm(gs.double(), ref_g))
+    torch.cuda.synchronize()
+    for label, rels in out.items():
+        print(f"22s slope gradient at b{b} H {h} T {t} (17b's student shape, keep-set "
+              f"positions, dropout 0.1) against float64, {label}: relative norm per head "
+              + ", ".join(f"{r:.3e}" for r in rels)
+              + ("" if label not in part_err else "; largest partial error / largest partial "
+                 + ", ".join(f"{r:.3e}" for r in part_err[label])))
+    worst = {k: max(v) for k, v in out.items()}
+    print(f"22s worst relative norms: bf16 kernel {worst['bf16 kernel']:.3e}, bf16 plain path "
+          f"{worst['bf16 plain path']:.3e} (kernel / plain path "
+          f"{worst['bf16 kernel'] / worst['bf16 plain path']:.3e}), fp32 kernel "
+          f"{worst['fp32 kernel']:.3e}")
+    return {"rel": out, "partials": part_err}
+
+
+def fp32_model_check(card, dev, bf16_logits):
+    """22a. The a2v-large FinetuneModel (finetune_100's widths, 8 + 16
+    blocks) at its fp32 default of build_finetune_model: a b2 forward
+    through the kernels (#1 and #6 once a block, no plain version on a CUDA
+    tensor) against the plain path at FP32_MODEL_TOL, against the bf16
+    model's logits (printed), then b32 clips/s. Returns (launches, rows)."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+    from animal2vec_tpu_torch.models.finetune import build_finetune_model
+
+    cfg = FinetuneConfig()
+    model = build_finetune_model(cfg, seed=SEED, device=dev)
+    if next(model.parameters()).dtype != torch.float32 or model.encoder.dtype != torch.float32:
+        raise AssertionError("22a: build_finetune_model's default is not fp32")
+    src = torch.from_numpy(
+        np.random.default_rng(SEED).normal(size=(2, WAV_LEN)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        reset_counts()
+        with PlainSpy() as spy:
+            logits = model(src)["encoder_out"]
+        got = counts()
+        with PlainOps():
+            logits_p = model(src)["encoder_out"]
+        torch.cuda.synchronize()
+    want = forward_launches("bf16", cfg.n_blocks)
+    print(f"22a fp32 model launches per forward: {launch_line(got)} (expected "
+          f"{launch_line(want)}); plain-version calls on CUDA tensors {spy.cuda_calls}")
+    if got != want or spy.cuda_calls:
+        raise AssertionError("22a: the fp32 model did not launch #1 and #6 once per block")
+    if logits.dtype != torch.float32 or tuple(logits.shape) != tuple(bf16_logits.shape) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"22a: bad logits {logits.dtype} {tuple(logits.shape)}")
+    err = (logits - logits_p).abs().max().item()
+    print(f"22a fp32 model logits kernel vs plain path: max_abs_err {err:.3e} (tolerance "
+          f"{FP32_MODEL_TOL}), relative norm {rel_norm(logits, logits_p):.3e}; against the bf16 "
+          f"model's (not gated): max abs {(logits - bf16_logits.float()).abs().max().item():.3e}, "
+          f"relative norm {rel_norm(logits, bf16_logits):.3e}")
+    if not err <= FP32_MODEL_TOL:
+        raise AssertionError("22a: the fp32 kernel path disagrees with the plain path")
+    src = torch.from_numpy(
+        np.random.default_rng(SEED + 2).normal(size=(32, WAV_LEN)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(src)
+        torch.cuda.synchronize()
+        iters = 3
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(src)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        timed = counts()
+    print(f"22a fp32 throughput b32: {32 / dt:.2f} 10-s clips/s ({dt * 1e3:.1f} ms per batch) on "
+          f"{card}; launches over {iters} b32 forwards: {launch_line(timed)}")
+    if timed != {k: iters * v for k, v in want.items()}:
+        raise AssertionError("22a: the timed forwards' launches")
+    del model
+    torch.cuda.empty_cache()
+    return ({k: got[k] + timed[k] for k in got},
+            {"b32_ms": dt * 1e3, "clips_per_s": 32 / dt, "logits_max_abs_err": err})
+
+
+def fp32_train_cli(name, data, save_dir, card):
+    """train_cli --config <name>.yaml common.compute_dtype=float32 at full
+    width for FP32_STEPS[name] steps: each step's loss, ms and launches
+    (attention forward, dq and dk/dv once for each student block that ran;
+    pretraining: the teacher's serving attention once a block; #6 once for
+    every block), peak memory, no plain version on a CUDA tensor. Returns
+    (launches, stats)."""
+    from animal2vec_tpu_torch.recipes import RECIPES
+    from animal2vec_tpu_torch.tools import train_cli
+
+    steps = FP32_STEPS[name]
+    extra = list(FP32_COMMON) + (list(FP32_FINETUNE) if "finetune" in name else [])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with EntryWatch() as watch, PlainSpy() as spy:
+        out = train_cli.main(["--config", str(RECIPES[name]), "--data", data, "--save-dir",
+                              save_dir, "--max-steps", str(steps), "--device", "cuda", *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = counts()
+    label = f"22{'b' if 'finetune' in name else 'c'} train_cli --config {name}.yaml"
+    for i, s in enumerate(watch.steps):
+        n = s["launched"]
+        student = n["attention"]
+        print(f"{label} step {i + 1}: loss {s['loss']:.5f}, {s['seconds'] * 1e3:.1f} ms; "
+              f"launches: student attention {student}, dq {n['dq']}, dk/dv {n['dkv']}, "
+              f"teacher attention {n['serve_attention']}, fused block {n['block']} "
+              f"({s['ran']} blocks ran)")
+        if not np.isfinite(s["loss"]) or not student or n["dq"] != student \
+                or n["dkv"] != student or n["block"] != s["ran"] \
+                or student + n["serve_attention"] != s["ran"] \
+                or ("finetune" in name) == bool(n["serve_attention"]):
+            raise AssertionError(f"{label} step {i + 1}: loss or launches {n}")
+        if sum(n.values()) != student * 3 + n["serve_attention"] + n["block"]:
+            raise AssertionError(f"{label} step {i + 1}: another kernel launched: {n}")
+    ms = [round(s["seconds"] * 1e3, 1) for s in watch.steps]
+    print(f"{label} ({' '.join(extra)}): {len(watch.steps)} steps in {seconds:.2f} s, ms per "
+          f"step {ms}, peak memory {peak:.2f} GiB; launches {launch_line(got)}; plain-version "
+          f"calls on CUDA tensors {spy.cuda_calls} on {card}")
+    if len(watch.steps) != steps or spy.cuda_calls or out is None:
+        raise AssertionError(f"{label}: {len(watch.steps)} steps or a plain call")
+    return got, {"step_ms": ms, "peak_gib": peak, "losses": [s["loss"] for s in watch.steps]}
+
+
+def fp32_export(data, ckpt, card, dev):
+    """22a, the serving entry: export_cli --dtype float32 over the 24
+    synthetic clips at batch 12 from 22b's checkpoint (predictions and
+    embeddings as npz): #1 and #6 once a block a forward, finite outputs.
+    Returns the launches."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+    from animal2vec_tpu_torch.tools import export_cli
+
+    out = os.path.join(os.path.dirname(ckpt), "export_fp32")
+    reset_counts()
+    with PlainSpy() as spy:
+        line = export_cli.main([
+            "--manifest-path", data, "--split", "pretrain", "--checkpoint", ckpt, "--out-path",
+            out, "--batch-size", str(SERVE_EXPORT_BATCH), "--export-predictions",
+            "--export-embeddings", "--data-parallel", "1", "--label-ext", "npz",
+            "--output-format", "npz", "--dtype", "float32", "--device", dev.type,
+            *SERVE_OVERRIDES])
+    torch.cuda.synchronize()
+    got = counts()
+    want = {k: SERVE_CLIPS // SERVE_EXPORT_BATCH * v
+            for k, v in forward_launches("bf16", FinetuneConfig().n_blocks).items()}
+    finite = all(np.isfinite(z[k]).all() for name in os.listdir(out)
+                 for z in [np.load(os.path.join(out, name))] for k in z.files
+                 if z[k].dtype.kind == "f")
+    print(f"22a export_cli --dtype float32: {line['clips_per_sec']} clips/s ({line['clips_timed']}"
+          f" clips timed) on {card}; launches {launch_line(got)}; outputs finite {finite}; "
+          f"plain-version calls on CUDA tensors {spy.cuda_calls}")
+    if got != want or spy.cuda_calls or not finite:
+        raise AssertionError(f"22a export_cli: launches {got} != {want}, a plain call or a "
+                             "non-finite output")
+    return got
+
+
+def phase_fp32(card, dev, lib_path, bf16_logits):
+    """22. JAX's default compute dtype on the card (ROADMAP A.13, first
+    slice): 22k the fp32 instances of #1-#4 and #6 against their plain
+    versions in fp32, timed beside the bf16 instances; 22s the slope
+    partials against float64 (ROADMAP C.1); 22b train_cli --config
+    finetune_100.yaml common.compute_dtype=float32 (3 steps) and the b1
+    gradients against the plain path; 22a the fp32 model served (b2 against
+    the plain path, b32 timed) and export_cli --dtype float32 from 22b's
+    checkpoint; 22c train_cli --config a2v_large_pretrain.yaml
+    common.compute_dtype=float32 (2 steps). Returns (launches by kernel key
+    of the main paths, errors, rows)."""
+    from animal2vec_tpu_torch.config import FinetuneConfig
+    from animal2vec_tpu_torch.data.synthetic import generate
+
+    t0 = time.perf_counter()
+    print(f"22 JAX's default compute dtype, fp32, on the card (ROADMAP A.13) on {card}")
+    rows = {}
+
+    def row(key, d, shape, ms, dev_ms, bf16_ms, plain_ms, library_ms, bnd, rate, gemm_ms=None):
+        rows[f"{key}{'' if d is None else f' D {d}'}, {shape}"] = {
+            "ms": ms, "device_ms": dev_ms, "bf16_ms": bf16_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "split_floor_ms": bnd[2], "rate": rate, "gemm_device_ms": gemm_ms, "shape": shape}
+        print(f"  22k fp32 {key}{'' if d is None else f' D {d}'}, {shape}: kernel {ms:.4f} ms "
+              f"(device {ms_text(dev_ms)}){rate_text(rate, 'TFLOP/s')}"
+              + ("" if gemm_ms is None else f", the two GEMM launches {ms_text(gemm_ms)}")
+              + f"; bf16 instance {bf16_ms:.4f} ms; plain {plain_ms:.3f} ms; library (fp32, TF32 "
+              f"off) {library_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; TF32 peak), split "
+              f"floor {bnd[2]:.4f} ms")
+
+    ptxas = [line for line in ptxas_summary((lib_path.parent / "build.log").read_text())
+             if "f32>" in line and ("alibi" in line or "gemm_bf16" in line or "ln_rows" in line
+                                    or "split_weights" in line)]
+    for line in ptxas:
+        print("  22k ptxas:", line)
+    print("  " + fp32_smem_line())
+    errs = fp32_kernel_rows(dev, row)
+    parts = {"22k": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    slope = fp32_slope_check(dev)
+    parts["22s"] = time.perf_counter() - t1
+    launches = dict.fromkeys(_counted(), 0)
+    models = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate(os.path.join(tmp, "data"), n_clips=ENTRY_CLIPS, clip_seconds=10.0,
+                        seed=SEED, label_ext="npz")
+        t1 = time.perf_counter()
+        save = os.path.join(tmp, "finetune_100")
+        got, models["finetune"] = fp32_train_cli("finetune_100", data, save, card)
+        launches = {k: launches[k] + got[k] for k in launches}
+        torch.cuda.empty_cache()
+        print("22b fp32 gradients, kernel vs plain path")
+        models["finetune"]["grad_rel_max"] = phase_train_grads(
+            FinetuneConfig(), dev, dtype=torch.float32, tol=FP32_GRAD_TOL)
+        parts["22b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        got, models["serving"] = fp32_model_check(card, dev, bf16_logits)
+        launches = {k: launches[k] + got[k] for k in launches}
+        ckpt = sorted(p for p in os.listdir(save) if p.startswith("step_"))[-1]
+        got = fp32_export(data, os.path.join(save, ckpt), card, dev)
+        launches = {k: launches[k] + got[k] for k in launches}
+        parts["22a"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        got, models["pretrain"] = fp32_train_cli("a2v_large_pretrain", data,
+                                                 os.path.join(tmp, "pretrain"), card)
+        launches = {k: launches[k] + got[k] for k in launches}
+        parts["22c"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    for key in FP32_KEYS:
+        if not launches[key]:
+            raise AssertionError(f"22: the fp32 main paths launched no {key}")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"phase22": {"rows": rows, "models": models, "launches": launches,
+                                  "errors": errs, "slope": slope, "ptxas": ptxas,
+                                  "seconds": seconds, "parts": parts}}))
+    print(f"22 phase {seconds:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return launches, errs, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5972,6 +6587,8 @@ def main() -> int:
     widths_launched, width_errs, width_rows = phase_widths(card, dev, lib_path)
     torch.cuda.empty_cache()
     head_launched, head_errs, head_rows = phase_head_dims(card, dev, lib_path)
+    torch.cuda.empty_cache()
+    fp32_launched, fp32_errs, fp32_rows = phase_fp32(card, dev, lib_path, bf16_logits)
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -6220,6 +6837,28 @@ def main() -> int:
             e["max_abs_err"] = max(e["max_abs_err"], head_errs[key])
             e["head_dims"] = {f"D {d}": head_rows[f"{key} D {d}"] for d in HEAD_DIMS_TIMED
                               if f"{key} D {d}" in head_rows}
+    # phase 22: the fp32 instances of #1-#4 and #6 (ROADMAP A.13): their
+    # launches on the fp32 main paths (22a-22c), their errors and 22k's rows
+    # at the main paths' shapes (fp32_*; the bf16 instance's ms on the same
+    # values beside them), every 22k row under fp32_rows
+    for name, key, shape in (
+            ("alibi_flash_attention_serve", "serve_attention",
+             "D 64, b32 H 16 T 2000 serving, in place"),
+            ("alibi_flash_attention", "attention", f"D 64, b{TRAIN_BATCH} H 16 T 2000 training, "
+                                                   f"dropout {ATTN_DROP}"),
+            ("alibi_attention_dq", "dq", f"D 64, b{TRAIN_BATCH} H 16 T 2000 training, "
+                                         f"dropout {ATTN_DROP}"),
+            ("alibi_attention_dkv", "dkv", f"D 64, b{TRAIN_BATCH} H 16 T 2000 training, "
+                                           f"dropout {ATTN_DROP}"),
+            ("fused_block", "block", ", N 64000, C 1024, M 4096")):
+        e = by_name[name]
+        e["fp32_launches"] = fp32_launched[key]
+        e["launches"] += fp32_launched[key]
+        e["fp32_max_abs_err"] = fp32_errs[key]
+        e.update({f"fp32_{k}": v for k, v in fp32_rows[f"{key} {shape}".replace(" ,", ",")].items()
+                  if k != "shape"})
+        e["fp32_rows"] = {k: v for k, v in fp32_rows.items()
+                          if k.startswith(f"{key} ") or k.startswith(f"{key},")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,8 +86,9 @@ class FakeCard:
     head dim as the C entry does (a multiple of 8 up to 128), reads its
     inputs where the wrapper points, runs the plain version with the scale
     passed (q scaled by scale * sqrt(D) before the plain version's D^-0.5)
-    and writes its outputs; no dropout. ``head_dims`` records the D of
-    every call."""
+    and writes its outputs; no dropout. The ``_f32`` entries of #1-#4 read
+    and write fp32 where the others read and write bf16 (``dt``).
+    ``head_dims`` records the D of every call."""
 
     def __init__(self):
         self.head_dims = []
@@ -98,49 +99,59 @@ class FakeCard:
 
     def a2v_alibi_attention_fwd(self, q, k, v, sb, st, sh, slopes, pos, pos_per_row, pos_k,
                                 posk_per_row, mask, mask_per_row, out, ob, ot, oh, lse, b, h, t,
-                                d, sentinel, scale, seed, thresh, keep, h0, hash_heads, stream):
+                                d, sentinel, scale, seed, thresh, keep, h0, hash_heads, stream,
+                                dt=BF16):
         self._d(d)
         assert thresh == 0 and pos_k is None
-        qv, kv, vv = (_view(p, BF16, (b, t, h, d), (sb, st, sh, 1)).float() for p in (q, k, v))
+        qv, kv, vv = (_view(p, dt, (b, t, h, d), (sb, st, sh, 1)).float() for p in (q, k, v))
         sl, p, m = _side(slopes, pos, pos_per_row, mask, mask_per_row, b, h, t)
         packed = torch.stack([qv * (scale * d**0.5), kv, vv]).transpose(2, 3)
         o, ls = alibi_attention_plain(packed, sl, p, m, bool(sentinel), return_lse=True)
-        _view(out, BF16, (b, t, h, d), (ob, ot, oh, 1)).copy_(o.transpose(1, 2))
+        _view(out, dt, (b, t, h, d), (ob, ot, oh, 1)).copy_(o.transpose(1, 2))
         if lse is not None:
             _dense(lse, torch.float32, b * h, t).copy_(ls)
         return 0
 
     def _alibi_bwd(self, qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row,
-                   b, h, t, d, sentinel, scale):
+                   b, h, t, d, sentinel, scale, dt):
         self._d(d)
-        packed = _dense(qkv, BF16, 3, b, h, t, d).float()
+        packed = _dense(qkv, dt, 3, b, h, t, d).float()
         c = scale * d**0.5
         packed = torch.stack([packed[0] * c, packed[1], packed[2]])
         sl, p, m = _side(slopes, pos, pos_per_row, mask, mask_per_row, b, h, t)
         dqkv, parts = attention_bwd_plain(
-            packed, _dense(dout, BF16, b, h, t, d).float(), _dense(lse, torch.float32, b * h, t),
+            packed, _dense(dout, dt, b, h, t, d).float(), _dense(lse, torch.float32, b * h, t),
             _dense(delta, torch.float32, b * h, t), sl, p, m, bool(sentinel))
         return dqkv[0] * c, dqkv[1], dqkv[2], parts
 
     def a2v_alibi_attention_bwd_dq(self, qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
                                    mask_per_row, dq, parts, b, h, t, d, sentinel, scale, seed,
-                                   thresh, keep, h0, hash_heads, stream):
+                                   thresh, keep, h0, hash_heads, stream, dt=BF16):
         assert thresh == 0
         g = self._alibi_bwd(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row,
-                            b, h, t, d, sentinel, scale)
-        _dense(dq, BF16, b, h, t, d).copy_(g[0])
+                            b, h, t, d, sentinel, scale, dt)
+        _dense(dq, dt, b, h, t, d).copy_(g[0])
         _dense(parts, torch.float32, b, h, -(-t // 64)).copy_(g[3])
         return 0
 
     def a2v_alibi_attention_bwd_dkv(self, qkv, dout, lse, delta, slopes, pos, pos_per_row, mask,
                                     mask_per_row, dk, dv, b, h, t, d, sentinel, scale, seed,
-                                    thresh, keep, h0, hash_heads, stream):
+                                    thresh, keep, h0, hash_heads, stream, dt=BF16):
         assert thresh == 0
         g = self._alibi_bwd(qkv, dout, lse, delta, slopes, pos, pos_per_row, mask, mask_per_row,
-                            b, h, t, d, sentinel, scale)
-        _dense(dk, BF16, b, h, t, d).copy_(g[1])
-        _dense(dv, BF16, b, h, t, d).copy_(g[2])
+                            b, h, t, d, sentinel, scale, dt)
+        _dense(dk, dt, b, h, t, d).copy_(g[1])
+        _dense(dv, dt, b, h, t, d).copy_(g[2])
         return 0
+
+    def a2v_alibi_attention_fwd_f32(self, *args):
+        return self.a2v_alibi_attention_fwd(*args, dt=torch.float32)
+
+    def a2v_alibi_attention_bwd_dq_f32(self, *args):
+        return self.a2v_alibi_attention_bwd_dq(*args, dt=torch.float32)
+
+    def a2v_alibi_attention_bwd_dkv_f32(self, *args):
+        return self.a2v_alibi_attention_bwd_dkv(*args, dt=torch.float32)
 
     def a2v_quantize_qkv_int8(self, q, k, v, sb, st, sh, q8, qs, k8, ks, v8t, vsc, b, h, t, d,
                               t_pad, q_scale, stream):
