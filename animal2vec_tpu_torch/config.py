@@ -771,30 +771,25 @@ def check_card_dtype(encoder, compute_dtype: str, device_type: str,
                      teacher_matmul_impl: str = "", model_parallel: int = 1) -> None:
     """Refuse, at build, an fp32 model on a CUDA device whose path runs a
     kernel that has no fp32 instance yet (ROADMAP A.13). The fp32 instances
-    are #1-#4 (the ALiBi attention) and #6 (the fused post-LN block): the
-    post-LN ALiBi audio trunk in bf16 matmuls, training and serving. Still
-    bf16 only on the card: a pre-LN trunk (#8), the image modality and
-    ALiBi-free encoders (#11, #11b), the int8 modes of the encoder or the
-    teacher (#5, #7, #9, #10) and tensor parallelism (#6's split). A pure
+    are #1-#4 (the ALiBi attention), #6 (the fused post-LN block), #8 (the
+    fused pre-LN MLP) and #11 / #11b (the dense-bias attention and its
+    backward): audio encoders with or without ALiBi and the image modality,
+    post-LN or pre-LN, in bf16 matmuls, training and serving. Still bf16
+    only on the card: the int8 modes of the encoder or the teacher (#5 and
+    its pass, #7, #9, #10) and tensor parallelism (#6's split, #6s). A pure
     function of the configuration (``encoder`` a ``FinetuneConfig`` or
     ``ImageConfig``), the compute dtype's name and the device type; the CPU
     runs every configuration in fp32 on the plain versions."""
     if compute_dtype != "float32" or device_type != "cuda":
         return
     left_out = []
-    if isinstance(encoder, ImageConfig):
-        left_out.append("the image modality (#11, #11b)")
-    elif not encoder.use_alibi_encoder:
-        left_out.append("an encoder without ALiBi (#11, #11b)")
-    if encoder.layer_norm_first:
-        left_out.append("a pre-LN trunk (#8)")
     if encoder.matmul_impl != "bf16" or teacher_matmul_impl not in ("", "bf16"):
         left_out.append("the int8 modes (#5, #7, #9, #10)")
     if model_parallel > 1:
         left_out.append("tensor parallelism (#6's split)")
     if left_out:
         raise NotImplementedError(
-            "fp32 compute on the card runs the post-LN ALiBi audio trunk only: no fp32 kernel "
+            "fp32 compute on the card runs the bf16-matmul encoders only: no fp32 kernel "
             "instance for " + ", ".join(left_out) + " yet (ROADMAP A.13); compute in bfloat16, "
             "or run on the CPU")
 

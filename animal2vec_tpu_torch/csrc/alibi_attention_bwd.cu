@@ -137,14 +137,6 @@ template <int NC, int P>
 constexpr int kDkvSmem =
     NC * P * (2 + kStages * 2) * kTileBytes + kStages * kTile * 20 + kTileAlign;
 
-// Two adjacent outputs of element type E: one packed bf16 pair or a float2.
-__device__ __forceinline__ void store_pair(bf16* at, float x0, float x1) {
-  *reinterpret_cast<uint32_t*>(at) = pack_bf16(x0, x1);
-}
-__device__ __forceinline__ void store_pair(float* at, float x0, float x1) {
-  *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
-}
-
 struct BwdArgs {
   int pos_per_row, mask_per_row, has_sentinel;
   int B, H, T, D;

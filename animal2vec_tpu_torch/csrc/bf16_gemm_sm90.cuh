@@ -282,5 +282,54 @@ inline int launch_gemm_sm90_f32(cudaStream_t s, const __nv_bfloat16* A, const __
   return static_cast<int>(cudaGetLastError());
 }
 
+// One matrix of a split launch (the fp32 instances' bf16 operand planes):
+// src (rows, k) fp32, k a multiple of 4 and rows 16-byte aligned, into dst
+// (rows, 3k) bf16, each row [hi | hi | lo] (a W operand) or, with
+// a_operand, [hi | lo | hi] (an A operand): the product of the two along
+// K = 3k is a_hi w_hi + a_lo w_hi + a_hi w_lo (sm90.cuh split_pair).
+// quads = rows * k / 4; 0 leaves the slot unused.
+struct SplitPlanes {
+  const float* src;
+  __nv_bfloat16* dst;
+  size_t quads;
+  int k;
+  bool a_operand;
+};
+
+// Up to three matrices split in one launch, four elements a thread and step.
+__global__ void split_planes_kernel(SplitPlanes m0, SplitPlanes m1, SplitPlanes m2) {
+  const size_t total = m0.quads + m1.quads + m2.quads;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    // the matrix of quad i, field by field (a reference to a by-value
+    // parameter would put the three on the stack)
+    const bool first = i < m0.quads, second = !first && i < m0.quads + m1.quads;
+    const float* src = first ? m0.src : (second ? m1.src : m2.src);
+    __nv_bfloat16* dst = first ? m0.dst : (second ? m1.dst : m2.dst);
+    const size_t k = first ? m0.k : (second ? m1.k : m2.k);
+    const bool a_operand = first ? m0.a_operand : (second ? m1.a_operand : m2.a_operand);
+    const size_t e = 4 * (i - (first ? 0 : (second ? m0.quads : m0.quads + m1.quads)));
+    const size_t row = e / k, col = e % k;
+    const float4 w = *reinterpret_cast<const float4*>(src + e);
+    uint2 hi, lo;
+    sm90::split_pair(w.x, w.y, hi.x, lo.x);
+    sm90::split_pair(w.z, w.w, hi.y, lo.y);
+    __nv_bfloat16* out = dst + 3 * row * k + col;
+    *reinterpret_cast<uint2*>(out) = hi;
+    *reinterpret_cast<uint2*>(out + k) = a_operand ? lo : hi;
+    *reinterpret_cast<uint2*>(out + 2 * k) = a_operand ? hi : lo;
+  }
+}
+
+// One split launch of up to three matrices on stream s. Returns a
+// cudaError_t.
+inline int launch_split_planes(cudaStream_t s, const SplitPlanes& m0, const SplitPlanes& m1,
+                               const SplitPlanes& m2 = SplitPlanes{}) {
+  const size_t quads = m0.quads + m1.quads + m2.quads;
+  const size_t blocks = (quads + 255) / 256 < 132 * 16 ? (quads + 255) / 256 : 132 * 16;
+  split_planes_kernel<<<static_cast<int>(blocks), 256, 0, s>>>(m0, m1, m2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace a2v

@@ -1,5 +1,5 @@
-// Flash-attention forward with a dense additive bias, bf16 in and out, head
-// dims D <= 128 (a multiple of 8).
+// Flash-attention forward with a dense additive bias, bf16 or fp32 in and
+// out, head dims D <= 128 (a multiple of 8).
 //
 // Replaces jax's stock TPU flash-attention kernel
 // (jax.experimental.pallas.ops.tpu.flash_attention, reached through
@@ -72,6 +72,19 @@
 // NC tile products, O is NC accumulators, only columns < D are written.
 // The NC = 2 instances run one or two blocks an SM. D = 64 runs the NC = 1
 // instances, unchanged.
+// fp32 (the E = float instances, JAX's default compute dtype; entry
+// a2v_bias_attention_f32), as the ALiBi forward's (alibi_attention_fwd.cu):
+// q, k and v are staged as two bf16 tiles each, hi = bf16(x) and lo =
+// bf16(x - hi), by plain 16-byte loads split in registers (sm90.cuh
+// stage_head_split; synchronous, so only the bias rows' copies overlap the
+// products), and each fp32 product is three bf16 ones into one fp32
+// accumulator: S = Qhi Khi^T + Qhi Klo^T + Qlo Khi^T (the narrowed last
+// tile's 8-key column groups the same three, group by group) and O +=
+// Phi Vhi + Phi Vlo + Plo Vhi with P split in registers
+// (frag_split_from_acc). The bias stays fp32 as staged; the scalar pass,
+// the dropout hash and the lse are the bf16 instances'; out is fp32.
+// Shared memory: 113.5 KB at NC 1 with a bias (one block an SM), 81.5 KB
+// without (two), 193.5 KB at NC 2 with a bias (one).
 // Shared memory: Q 8 KB, two stages of K and V (32 KB), of bias (32 KB, only
 // with a bias) and flags, 1 KB of alignment slack: 73.5 KB with a bias, so
 // that three blocks share an SM and one block's scalar pass overlaps
@@ -97,11 +110,12 @@ constexpr float kMasked = -1e10f;  // NEG_INF of models/attention.py
 constexpr int kTileBytes = kTileElems * 2;
 constexpr int kBiasTileBytes = kTile * kTile * 4;
 
-// dynamic shared memory: Q, the ring's K tiles, its V tiles, its bias
-// tiles (with a bias), its flags, and slack to align the base to 1024 bytes
-constexpr int smem_bytes(int nc, bool has_bias) {
-  return kTileBytes * nc * (1 + 2 * kStages) + (has_bias ? kStages * kBiasTileBytes : 0) +
-         kStages * kTile * 4 + kTileAlign;
+// dynamic shared memory: Q, the ring's K tiles, its V tiles (each twice,
+// hi and lo, in the fp32 instances: planes 2), its bias tiles (with a
+// bias), its flags, and slack to align the base to 1024 bytes
+constexpr int smem_bytes(int nc, bool has_bias, int planes) {
+  return kTileBytes * nc * planes * (1 + 2 * kStages) +
+         (has_bias ? kStages * kBiasTileBytes : 0) + kStages * kTile * 4 + kTileAlign;
 }
 
 struct BiasArgs {
@@ -115,17 +129,22 @@ struct BiasArgs {
   float keep_scale;   // 1 / (1 - rate)
 };
 
-template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK>
-__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
-bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
+// E: the element type of q, k, v and out, bf16 or fp32 (each operand
+// split in shared memory, each product three bf16 products: sm90.cuh
+// split_pair).
+template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS, bool HAS_MASK, typename E>
+__global__ void __launch_bounds__(kThreads, NC == 1 && std::is_same<E, bf16>::value ? 3 : 2)
+bias_attention_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
                       const float* __restrict__ bias,    // (1 or B, H, T, T)
                       const uint8_t* __restrict__ mask,  // (B, T), 1 = padded key
-                      bf16* __restrict__ out,            // (B, T, H, D)
+                      E* __restrict__ out,               // (B, T, H, D)
                       float* __restrict__ lse,           // null or (B*H, T)
                       BiasArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;     // a staged head: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sK = sQ + kHead;          // stage s at s heads in
   bf16* const sV = sK + kStages * kHead;
@@ -138,9 +157,9 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, i4 = lane & 3;
 
   const long long head = static_cast<long long>(b) * a.stride_b + static_cast<long long>(h) * D;
-  const bf16* qb = q + head;
-  const bf16* kb = k + head;
-  const bf16* vb = v + head;
+  const E* qb = q + head;
+  const E* kb = k + head;
+  const E* vb = v + head;
   const float* plane =
       HAS_BIAS ? bias + (static_cast<size_t>(UNIFORM_BIAS ? 0 : b) * H + h) * T * T : nullptr;
   const uint8_t* mrow = HAS_MASK ? mask + static_cast<size_t>(b) * T : nullptr;
@@ -154,8 +173,8 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // key tile kt's K, V and bias rows into its ring slot; one commit group
   auto stage = [&](int kt) {
     const int slot = kt % kStages, k0 = kt * kTile;
-    stage_head<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, k0, T, D, tid);
-    stage_head<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, k0, T, D, tid);
+    stage_head_of<kThreads, NC>(sK + slot * kHead, kb, a.stride_t, k0, T, D, tid);
+    stage_head_of<kThreads, NC>(sV + slot * kHead, vb, a.stride_t, k0, T, D, tid);
     if constexpr (HAS_BIAS) {
       float* dst = sBias + slot * kTile * kTile;
       if (a.bias16) {
@@ -186,7 +205,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // prologue: Q, then the first key tile, one commit group each
-  stage_head<kThreads, NC>(sQ, qb, a.stride_t, q0, T, D, tid);
+  stage_head_of<kThreads, NC>(sQ, qb, a.stride_t, q0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -219,23 +238,31 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int width = min(kTile, T - k0);  // keys of this tile below T
     const int n_groups = (width + 7) >> 3;  // 8-key column groups S holds
     const int n_steps = (width + 15) >> 4;  // k16 steps of P V
-    const uint64_t dk = desc_k + slot * NC * kDescTile;
+    const uint64_t dk = desc_k + slot * NC * kPlanes * kDescTile;
     wgmma_fence();
     if (n_groups > 4) {
-      gemm_head_ss<NC>(sc, desc_q, dk);  // S = Q K^T, all 64 keys
+      gemm_head_ss_of<NC, kF32>(sc, desc_q, dk);  // S = Q K^T, all 64 keys
     } else {
       // a narrow last tile: S in 8-key column groups (rows 8j.. of the K tile
-      // start 1024 bytes apart), the k16 step s in tile s / 4 of the head
+      // start 1024 bytes apart), the k16 step s in tile s / 4 of the head;
+      // fp32: each group's three products, Qhi Khi^T + Qhi Klo^T + Qlo Khi^T
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (j < n_groups) {
           const uint64_t dkj = dk + j * (1024 >> 4);
-          wgmma_ss_n8<false>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3], desc_q, dkj);
 #pragma unroll
-          for (int kk = 1; kk < NC * 4; ++kk) {
-            const uint64_t step = (kk >> 2) * kDescTile + (kk & 3) * kDescStepK;
-            wgmma_ss_n8<true>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3],
-                              desc_q + step, dkj + step);
+          for (int p = 0; p < (kF32 ? 3 : 1); ++p) {
+            const uint64_t dqp = desc_q + (p == 2 ? kLo : 0), dkp = dkj + (p == 1 ? kLo : 0);
+#pragma unroll
+            for (int kk = 0; kk < NC * 4; ++kk) {
+              const uint64_t step = (kk >> 2) * kDescTile + (kk & 3) * kDescStepK;
+              if (p == 0 && kk == 0)
+                wgmma_ss_n8<false>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3], dqp,
+                                   dkp);
+              else
+                wgmma_ss_n8<true>(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3],
+                                  dqp + step, dkp + step);
+            }
           }
         }
       }
@@ -311,17 +338,29 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
     }
 
-    // O += P V over the k16 steps that hold live keys
-    uint32_t pf[4][4];
-    frag_from_acc(pf, sc);
-    const uint64_t dv = desc_v + slot * NC * kDescTile;
+    // O += P V over the k16 steps that hold live keys; fp32: P's hi and lo
+    // fragments, P_hi V_hi + P_hi V_lo + P_lo V_hi
+    uint32_t pf[4][4], pl[4][4];
+    if constexpr (kF32)
+      frag_split_from_acc(pf, pl, sc);
+    else
+      frag_from_acc(pf, sc);
+    const uint64_t dv = desc_v + slot * NC * kPlanes * kDescTile;
     wgmma_fence();
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       fence_regs(o[n]);
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk)
-        if (kk < n_steps) wgmma_rs<1>(o[n], pf[kk], dv + n * kDescTile + kk * kDescStepMN);
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        if (kk < n_steps) {
+          const uint64_t dvk = dv + n * kDescTile + kk * kDescStepMN;
+          wgmma_rs<1>(o[n], pf[kk], dvk);
+          if constexpr (kF32) {
+            wgmma_rs<1>(o[n], pf[kk], dvk + kLo);
+            wgmma_rs<1>(o[n], pl[kk], dvk);
+          }
+        }
+      }
     }
     wgmma_commit();
     // ... and write it into the next tile's slot
@@ -330,6 +369,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NC; ++n) fence_regs(o[n]);
     fence_regs(pf);
+    if constexpr (kF32) fence_regs(pl);
   }
 
   // the row max contributes exp(0) = 1, so l >= 1
@@ -339,7 +379,7 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const size_t row_stride = static_cast<size_t>(H) * D;
-  bf16* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * D;
+  E* ob = out + static_cast<size_t>(b) * T * row_stride + static_cast<size_t>(h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -353,20 +393,19 @@ bias_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * n + 8 * j;  // columns past D are not written
         if (NC == 1 || col < D)
-          *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row) * row_stride + col + 2 * i4]) =
-              pack_bf16(o[n][4 * j + 2 * r] * inv, o[n][4 * j + 2 * r + 1] * inv);
+          store_pair(&ob[static_cast<size_t>(row) * row_stride + col + 2 * i4],
+                     o[n][4 * j + 2 * r] * inv, o[n][4 * j + 2 * r + 1] * inv);
       }
     }
   }
 }
 
-template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS>
-int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
-                const bf16* v, const float* bias, const uint8_t* mask, bf16* out, float* lse,
-                const BiasArgs& a) {
-  constexpr auto with_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, true>;
-  constexpr auto without_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, false>;
-  constexpr int smem = smem_bytes(NC, HAS_BIAS);
+template <int NC, bool HAS_BIAS, bool UNIFORM_BIAS, typename E>
+int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const E* q, const E* k, const E* v,
+                const float* bias, const uint8_t* mask, E* out, float* lse, const BiasArgs& a) {
+  constexpr auto with_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, true, E>;
+  constexpr auto without_mask = bias_attention_kernel<NC, HAS_BIAS, UNIFORM_BIAS, false, E>;
+  constexpr int smem = smem_bytes(NC, HAS_BIAS, std::is_same<E, float>::value ? 2 : 1);
   // the shared-memory limit above 48 KB, raised once per process for both
   static const cudaError_t attr = [] {
     const cudaError_t err =
@@ -382,10 +421,10 @@ int launch_mask(bool has_mask, dim3 grid, cudaStream_t s, const bf16* q, const b
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC>
-int launch_bias(bool has_mask, bool uniform, dim3 grid, cudaStream_t s, const bf16* q,
-                const bf16* k, const bf16* v, const float* bias, const uint8_t* mask, bf16* out,
-                float* lse, const BiasArgs& a) {
+template <int NC, typename E>
+int launch_bias(bool has_mask, bool uniform, dim3 grid, cudaStream_t s, const E* q, const E* k,
+                const E* v, const float* bias, const uint8_t* mask, E* out, float* lse,
+                const BiasArgs& a) {
   if (bias == nullptr)
     return launch_mask<NC, false, false>(has_mask, grid, s, q, k, v, bias, mask, out, lse, a);
   if (uniform)
@@ -393,36 +432,25 @@ int launch_bias(bool has_mask, bool uniform, dim3 grid, cudaStream_t s, const bf
   return launch_mask<NC, true, false>(has_mask, grid, s, q, k, v, bias, mask, out, lse, a);
 }
 
-}  // namespace
-}  // namespace a2v
-
-// C entry, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper pads
-// other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
-// strides (stride_b, stride_t, D, 1), 16-byte aligned, strides multiples of
-// 8; bias null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null
-// or (B, T) uint8; out (B, T, H, D) bf16 contiguous; lse null (serving) or
-// (B*H, T) fp32, the logsumexp of each score row for the backward
-// (bias_attention_bwd.cu); thresh 0 = no dropout, else the hash dropout of
-// (seed, keep when hash >= thresh, kept weights times keep_scale). Returns a
+// The C entries' body for q, k, v and out of element type E. Returns a
 // cudaError_t.
-extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
-                                  long long stride_b, long long stride_t, const void* bias,
-                                  int bias_uniform, const void* mask, void* out, void* lse,
-                                  int B, int H, int T, int D, float sm_scale, int seed,
-                                  unsigned int thresh, float keep_scale, void* stream) {
-  using namespace a2v;
+template <typename E>
+int bias_entry(const void* q, const void* k, const void* v, long long stride_b,
+               long long stride_t, const void* bias, int bias_uniform, const void* mask,
+               void* out, void* lse, int B, int H, int T, int D, float sm_scale, int seed,
+               unsigned int thresh, float keep_scale, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   if (!head_dim_ok(D) || B <= 0 || H <= 0 || T <= 0 || B > 65535 || H > 65535 ||
       stride_b % 8 != 0 || stride_t % 8 != 0 || misaligned(q) || misaligned(k) || misaligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kTile - 1) / kTile, H, B);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
+  const auto* qp = static_cast<const E*>(q);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
   const auto* bp = static_cast<const float*>(bias);
   const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* op = static_cast<bf16*>(out);
+  auto* op = static_cast<E*>(out);
   auto* lp = static_cast<float*>(lse);
   const BiasArgs a{stride_b, stride_t, H, T, D, sm_scale, T % 4 == 0 && !misaligned(bias),
                    static_cast<uint32_t>(seed), thresh, keep_scale};
@@ -430,4 +458,36 @@ extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_bias<1>(has_mask, uniform, grid, s, qp, kp, vp, bp, mp, op, lp, a);
   return launch_bias<2>(has_mask, uniform, grid, s, qp, kp, vp, bp, mp, op, lp, a);
+}
+
+}  // namespace
+}  // namespace a2v
+
+// C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
+// pads other head dims with zero columns). q, k, v: (B, T, H, D) with
+// element strides (stride_b, stride_t, D, 1), 16-byte aligned, strides
+// multiples of 8 (bf16 in a2v_bias_attention, fp32 in a2v_bias_attention_f32);
+// bias null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null
+// or (B, T) uint8; out (B, T, H, D) contiguous in q's type; lse null
+// (serving) or (B*H, T) fp32, the logsumexp of each score row for the
+// backward (bias_attention_bwd.cu); thresh 0 = no dropout, else the hash
+// dropout of (seed, keep when hash >= thresh, kept weights times
+// keep_scale). Returns a cudaError_t.
+extern "C" int a2v_bias_attention(const void* q, const void* k, const void* v,
+                                  long long stride_b, long long stride_t, const void* bias,
+                                  int bias_uniform, const void* mask, void* out, void* lse,
+                                  int B, int H, int T, int D, float sm_scale, int seed,
+                                  unsigned int thresh, float keep_scale, void* stream) {
+  return a2v::bias_entry<__nv_bfloat16>(q, k, v, stride_b, stride_t, bias, bias_uniform, mask,
+                                        out, lse, B, H, T, D, sm_scale, seed, thresh, keep_scale,
+                                        stream);
+}
+
+extern "C" int a2v_bias_attention_f32(const void* q, const void* k, const void* v,
+                                      long long stride_b, long long stride_t, const void* bias,
+                                      int bias_uniform, const void* mask, void* out, void* lse,
+                                      int B, int H, int T, int D, float sm_scale, int seed,
+                                      unsigned int thresh, float keep_scale, void* stream) {
+  return a2v::bias_entry<float>(q, k, v, stride_b, stride_t, bias, bias_uniform, mask, out, lse,
+                                B, H, T, D, sm_scale, seed, thresh, keep_scale, stream);
 }

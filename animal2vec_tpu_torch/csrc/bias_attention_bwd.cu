@@ -1,5 +1,5 @@
-// Backward of the dense-bias flash attention (bias_attention.cu), bf16 in
-// and out, head dims D <= 128 (a multiple of 8): three kernels.
+// Backward of the dense-bias flash attention (bias_attention.cu), bf16 or
+// fp32 in and out, head dims D <= 128 (a multiple of 8): three kernels.
 //
 // Replaces the backward of jax's stock TPU flash-attention kernel
 // (jax.experimental.pallas.ops.tpu.flash_attention, reached through
@@ -69,8 +69,8 @@
 // bias, from where the block stores dS rows to dbias. The dq and single
 // kernels keep the fp32 tiles in sm90.cuh's f32_tile_at layout (float2 in
 // the accumulator layout, conflict-free); the dk/dv kernel reads its bias
-// tile transposed, from rows padded to 68 floats (conflict-free for the
-// transposed accumulator layout).
+// tile transposed, from rows whose 8-float groups are XOR-swizzled by the
+// row (SwizzledT: conflict-free for the transposed accumulator layout).
 // Head dims: as in the forward a head's row is NC = 1 (D 64) or 2 (any
 // other D up to 128) tiles of 64 columns, zero past D, and S and dP sum NC tile
 // products. The dq kernel keeps NC dq accumulators. The dk/dv and single
@@ -78,7 +78,22 @@
 // block per 64-column chunk cc of their outputs at NC = 2, each
 // recomputing S and dP over the whole head; the single kernel's cc = 0
 // block writes dbias. D = 64 runs the NC = 1 instances, unchanged.
+// fp32 (the E = float instances, the _f32 entries), as the ALiBi backward's
+// (alibi_attention_bwd.cu): every staged head is a hi and a lo bf16 tile
+// (sm90.cuh stage_head_split, plain loads split in registers), and each of
+// the five products is three bf16 products into one fp32 accumulator
+// (hi.hi + hi.lo + lo.hi): S and dP (SS) from the staged tiles; the RS
+// products of the loop kernels from dS's and P f's hi and lo fragments
+// (frag_split_from_acc); the single kernel's SS products from the hi and lo
+// tiles of dS and P f that its scalar pass writes (four tiles where bf16
+// takes two). dS (= dbias) stays fp32, as does delta (one torch op); dq,
+// dk and dv are written in fp32. Shared memory with a bias, bf16 / fp32
+// bytes: dq NC 1 83 456 / 132 608, NC 2 132 608 / 230 912; dk/dv NC 1
+// 84 992 / 134 144, NC 2 134 144 / 232 448; single NC 1 66 816 / 115 968,
+// NC 2 99 584 / 181 504: every fp32 instance fits the 227 KB a block may
+// take (dk/dv at NC 2 exactly), the single launch at NC 2 too.
 #include <cmath>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -93,9 +108,7 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;     // ring depth of the streamed tiles
 constexpr float kDeadLse = -5e9f;  // lse below this: every key of the row padded
 constexpr int kTileBytes = kTileElems * 2;
-constexpr int kF32Tile = kTile * kTile;  // floats of an fp32 tile (f32_tile_at layout)
-constexpr int kLdT = kTile + 4;          // floats per row of the dk/dv kernel's bias tile
-constexpr int kF32TileT = kTile * kLdT;
+constexpr int kF32Tile = kTile * kTile;  // floats of an fp32 tile
 
 enum : int { kLive = 0, kPadded = 1, kPast = 2 };  // a key's or a query row's state
 
@@ -121,19 +134,24 @@ __device__ __forceinline__ float drop_f(const BiasBwdArgs& a, uint32_t seed_mix,
   return drop_mix_seeded(seed_mix, z) >= a.thresh ? a.keep_scale : 0.f;
 }
 
-// dynamic shared memory of each kernel: bf16 tiles, fp32 tiles (with a
-// bias), side data, and slack to align the base to 1024 bytes
-constexpr int dq_smem(int nc, bool has_bias) {
-  return kTileBytes * nc * (2 + 2 * kStages) + (has_bias ? kStages * kF32Tile * 4 : 0) +
-         kStages * kTile * 4 + kTileAlign;
+// dynamic shared memory of each kernel: bf16 tiles (each twice, hi and
+// lo, in the fp32 instances: planes 2), fp32 tiles (with a bias), side
+// data, and slack to align the base to 1024 bytes
+constexpr int dq_smem(int nc, bool has_bias, int planes) {
+  return kTileBytes * nc * planes * (2 + 2 * kStages) +
+         (has_bias ? kStages * kF32Tile * 4 : 0) + kStages * kTile * 4 + kTileAlign;
 }
-constexpr int dkv_smem(int nc, bool has_bias) {
-  return kTileBytes * nc * (2 + 2 * kStages) + (has_bias ? kStages * kF32TileT * 4 : 0) +
-         kStages * kTile * 16 + kTileAlign;
+constexpr int dkv_smem(int nc, bool has_bias, int planes) {
+  return kTileBytes * nc * planes * (2 + 2 * kStages) +
+         (has_bias ? kStages * kF32Tile * 4 : 0) + kStages * kTile * 16 + kTileAlign;
 }
-constexpr int single_smem(int nc, bool has_bias) {
-  return kTileBytes * (4 * nc + 2) + (has_bias ? kF32Tile * 4 : 0) + kTile * 4 + kTileAlign;
+constexpr int single_smem(int nc, bool has_bias, int planes) {
+  return kTileBytes * (4 * nc + 2) * planes + (has_bias ? kF32Tile * 4 : 0) + kTile * 4 +
+         kTileAlign;
 }
+static_assert(dq_smem(2, true, 2) <= 227 * 1024 && dkv_smem(2, true, 2) <= 227 * 1024 &&
+                  single_smem(2, true, 2) <= 227 * 1024,
+              "an fp32 instance exceeds the shared memory a block may take");
 
 // Rows row0 .. row0 + 63, columns col0 .. col0 + 63 of a T x T fp32 plane
 // into a 64 x 64 tile, element (r, c) at at(r, c); past T zero-filled. 16
@@ -161,13 +179,17 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* plane, int ro
   }
 }
 
-// The layouts of stage_f32: sm90.cuh's f32_tile_at, and rows padded to kLdT
-// floats (the dk/dv kernel's bias tile, read transposed).
+// The layouts of stage_f32: sm90.cuh's f32_tile_at, and rows of 64 floats
+// whose 8-float groups are XORed with bits 1-2 of the row (the dk/dv
+// kernel's bias tile, read transposed: a warp's reads at (query 8j + 2i +
+// e, key 16w + g + 8r) fall in 32 banks; a 16-byte chunk stays whole).
 struct Swizzled {
   __device__ __forceinline__ int operator()(int r, int c) const { return f32_tile_at(r, c); }
 };
-struct Padded {
-  __device__ __forceinline__ int operator()(int r, int c) const { return r * kLdT + c; }
+struct SwizzledT {
+  __device__ __forceinline__ int operator()(int r, int c) const {
+    return r * kTile + (c ^ (((r >> 1) & 3) << 3));
+  }
 };
 
 // The T x T part of a 64 x 64 fp32 tile (f32_tile_at layout) into rows row0
@@ -200,9 +222,10 @@ __device__ __forceinline__ int key_state(const uint8_t* maskr, int key, int T) {
 }
 
 // Rows row0, row0 + 8 (< T) of this thread's 64 x 64 accumulator, times
-// scale, as bf16 into columns col0 .. col0 + 63 (those below D) of rows
-// row_stride elements apart.
-__device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, const float (&acc)[32],
+// scale, in E (bf16 or fp32) into columns col0 .. col0 + 63 (those below D)
+// of rows row_stride elements apart.
+template <typename E>
+__device__ __forceinline__ void store_rows(E* dst, long long row_stride, const float (&acc)[32],
                                            int row0, int T, float scale, int i4, int col0,
                                            int D) {
 #pragma unroll
@@ -212,26 +235,58 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, cons
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (col0 + 8 * j < D)
-        *reinterpret_cast<uint32_t*>(&dst[row * row_stride + col0 + 8 * j + 2 * i4]) =
-            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+        store_pair(&dst[row * row_stride + col0 + 8 * j + 2 * i4], acc[4 * j + 2 * r] * scale,
+                   acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// The A fragments of a 64 x 64 fp32 accumulator: bf16 (hi only), or fp32's
+// hi and lo parts.
+template <bool kF32>
+__device__ __forceinline__ void frags_of(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                         const float (&d)[32]) {
+  if constexpr (kF32)
+    frag_split_from_acc(hi, lo, d);
+  else
+    frag_from_acc(hi, d);
+}
+
+// acc += A . B with A (64 x 64) in registers (frags_of) and B a swizzled
+// tile whose rows run along K (descriptor db): bf16 one product; fp32 the
+// three a_hi B_hi + a_hi B_lo + a_lo B_hi, B's lo tile at db + lo. Issue
+// only.
+template <bool kF32>
+__device__ __forceinline__ void gemm_frag_of(float (&acc)[32], const uint32_t (&a_hi)[4][4],
+                                             const uint32_t (&a_lo)[4][4], uint64_t db,
+                                             uint64_t lo) {
+  gemm_frag_tile(acc, a_hi, db);
+  if constexpr (kF32) {
+    gemm_frag_tile(acc, a_hi, db + lo);
+    gemm_frag_tile(acc, a_lo, db);
   }
 }
 
 // One block per (64-query tile, head, batch): dq rows and the rows of dS.
-template <int NC, bool HAS_BIAS>
+// E: the element type of q, k, v, dout and the gradients, bf16 or fp32
+// (each operand split in shared memory or registers, each product three
+// bf16 products: sm90.cuh split_pair).
+template <int NC, bool HAS_BIAS, typename E>
 __global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
-bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,    // (B, T, H, D) contiguous
+bias_attention_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v,
+                         const E* __restrict__ dout,       // (B, T, H, D) contiguous
                          const float* __restrict__ lse,    // (B*H, T)
                          const float* __restrict__ delta,  // (B*H, T)
                          const float* __restrict__ bias,   // null or (1 or B, H, T, T)
                          const uint8_t* __restrict__ mask, // null or (B, T)
-                         bf16* __restrict__ dq,            // out_stride_b, out_stride_t
+                         E* __restrict__ dq,               // out_stride_b, out_stride_t
                          float* __restrict__ dbias,        // null or (B, H, T, T)
                          BiasBwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;     // a staged head: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sDO = sQ + kHead;
   bf16* const sRing = sDO + kHead;  // stage s: K at 2s heads in, V after it
@@ -246,8 +301,8 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long bh = static_cast<long long>(b) * H + h;
   const long long in_head = b * a.stride_b + h * D;
   const long long do_row = static_cast<long long>(H) * D;
-  const bf16* kb = k + in_head;
-  const bf16* vb = v + in_head;
+  const E* kb = k + in_head;
+  const E* vb = v + in_head;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
   const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
@@ -259,15 +314,15 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto stage = [&](int kt) {
     const int slot = kt % kStages, k0 = kt * kTile;
     bf16* dst = sRing + slot * 2 * kHead;
-    stage_head<kThreads, NC>(dst, kb, a.stride_t, k0, T, D, tid);
-    stage_head<kThreads, NC>(dst + kHead, vb, a.stride_t, k0, T, D, tid);
+    stage_head_of<kThreads, NC>(dst, kb, a.stride_t, k0, T, D, tid);
+    stage_head_of<kThreads, NC>(dst + kHead, vb, a.stride_t, k0, T, D, tid);
     if constexpr (HAS_BIAS)
       stage_f32(sBias + slot * kF32Tile, bias_p, q0, k0, T, a.bias16, tid, Swizzled{});
   };
 
   // prologue: Q and dO, then the first key tile, one commit group each
-  stage_head<kThreads, NC>(sQ, q + in_head, a.stride_t, q0, T, D, tid);
-  stage_head<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, q0, T, D, tid);
+  stage_head_of<kThreads, NC>(sQ, q + in_head, a.stride_t, q0, T, D, tid);
+  stage_head_of<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, q0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -308,10 +363,10 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
 
     const int slot = kt % kStages, k0 = kt * kTile;
-    const uint64_t desc_k = desc_ring + slot * 2 * NC * kDescTile;
+    const uint64_t desc_k = desc_ring + slot * 2 * NC * kPlanes * kDescTile;
     wgmma_fence();
-    gemm_head_ss<NC>(sc, desc_q, desc_k);                    // S = Q K^T
-    gemm_head_ss<NC>(dp, desc_do, desc_k + NC * kDescTile);  // dP = dO V^T
+    gemm_head_ss_of<NC, kF32>(sc, desc_q, desc_k);                              // S = Q K^T
+    gemm_head_ss_of<NC, kF32>(dp, desc_do, desc_k + NC * kPlanes * kDescTile);  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -346,13 +401,14 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<float2*>(bt + f32_tile_at(row, col)) = make_float2(ds[0], ds[1]);
       }
     }
-    uint32_t fds[4][4];
-    frag_from_acc(fds, sc);
+    // dq += dS K; fp32: dS_hi K_hi + dS_hi K_lo + dS_lo K_hi
+    uint32_t fds[4][4], fdl[4][4];
+    frags_of<kF32>(fds, fdl, sc);
     wgmma_fence();
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       fence_regs(acc_dq[n]);
-      gemm_frag_tile(acc_dq[n], fds, desc_k + n * kDescTile);  // dq += dS K
+      gemm_frag_of<kF32>(acc_dq[n], fds, fdl, desc_k + n * kDescTile, kLo);
     }
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) sKey[(nt % kStages) * kTile + tid] = nkey;
@@ -360,6 +416,7 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NC; ++n) fence_regs(acc_dq[n]);
     fence_regs(fds);
+    if constexpr (kF32) fence_regs(fdl);
     if (dbias_p) {
       __syncthreads();  // every dS of the tile is in shared memory
       store_f32(dbias_p, bt, q0, k0, T, a.dbias16, tid);
@@ -374,22 +431,25 @@ bias_attention_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // One block per (64-key tile and 64-column chunk, head, batch): dk and dv
 // rows, their columns 64 cc .. 64 cc + 63.
-template <int NC, bool HAS_BIAS>
+template <int NC, bool HAS_BIAS, typename E>
 __global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
-bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+bias_attention_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                          const E* __restrict__ v, const E* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const float* __restrict__ bias, const uint8_t* __restrict__ mask,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, BiasBwdArgs a) {
+                          E* __restrict__ dk, E* __restrict__ dv, BiasBwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;     // a staged head: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sV = sK + kHead;
   bf16* const sRing = sV + kHead;  // stage s: Q at 2s heads in, dO after it
-  // per stage: the bias tile, one query a row of kLdT floats
+  // per stage: the bias tile, one query a row (SwizzledT)
   float* const sBias = reinterpret_cast<float*>(sRing + kStages * 2 * kHead);
   // per query of each stage: {lse, delta, state (as a float), unused}
-  float4* const sQry = reinterpret_cast<float4*>(sBias + (HAS_BIAS ? kStages * kF32TileT : 0));
+  float4* const sQry = reinterpret_cast<float4*>(sBias + (HAS_BIAS ? kStages * kF32Tile : 0));
 
   const int T = a.T, H = a.H, D = a.D;
   const int k0 = blockIdx.x / NC * kTile, cc = blockIdx.x % NC, h = blockIdx.y, b = blockIdx.z;
@@ -398,8 +458,8 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const long long bh = static_cast<long long>(b) * H + h;
   const long long in_head = b * a.stride_b + h * D;
   const long long do_row = static_cast<long long>(H) * D;
-  const bf16* qb = q + in_head;
-  const bf16* dob = dout + b * T * do_row + h * D;
+  const E* qb = q + in_head;
+  const E* dob = dout + b * T * do_row + h * D;
   const uint8_t* maskr = mask ? mask + static_cast<long long>(b) * T : nullptr;
   const long long plane = static_cast<long long>(T) * T;
   const float* bias_p = HAS_BIAS ? bias + b * a.bias_stride_b + h * plane : nullptr;
@@ -411,10 +471,10 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   auto stage = [&](int qt) {
     const int slot = qt % kStages, q0 = qt * kTile;
     bf16* dst = sRing + slot * 2 * kHead;
-    stage_head<kThreads, NC>(dst, qb, a.stride_t, q0, T, D, tid);
-    stage_head<kThreads, NC>(dst + kHead, dob, do_row, q0, T, D, tid);
+    stage_head_of<kThreads, NC>(dst, qb, a.stride_t, q0, T, D, tid);
+    stage_head_of<kThreads, NC>(dst + kHead, dob, do_row, q0, T, D, tid);
     if constexpr (HAS_BIAS)
-      stage_f32(sBias + slot * kF32TileT, bias_p, q0, k0, T, a.bias16, tid, Padded{});
+      stage_f32(sBias + slot * kF32Tile, bias_p, q0, k0, T, a.bias16, tid, SwizzledT{});
   };
   // threads < 64 read query qt * 64 + tid's side data
   auto load_query = [&](int qt) {
@@ -426,8 +486,8 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   };
 
   // prologue: K and V, then the first query tile, one commit group each
-  stage_head<kThreads, NC>(sK, k + in_head, a.stride_t, k0, T, D, tid);
-  stage_head<kThreads, NC>(sV, v + in_head, a.stride_t, k0, T, D, tid);
+  stage_head_of<kThreads, NC>(sK, k + in_head, a.stride_t, k0, T, D, tid);
+  stage_head_of<kThreads, NC>(sV, v + in_head, a.stride_t, k0, T, D, tid);
   cp_async_commit();
   stage(0);
   cp_async_commit();
@@ -458,11 +518,11 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     cp_async_commit();
 
     const int slot = qt % kStages;
-    const uint64_t desc_q = desc_ring + slot * 2 * NC * kDescTile;
-    const uint64_t desc_do = desc_q + NC * kDescTile;
+    const uint64_t desc_q = desc_ring + slot * 2 * NC * kPlanes * kDescTile;
+    const uint64_t desc_do = desc_q + NC * kPlanes * kDescTile;
     wgmma_fence();
-    gemm_head_ss<NC>(st, desc_k, desc_q);    // S^T = K Q^T
-    gemm_head_ss<NC>(dpt, desc_v, desc_do);  // dP^T = V dO^T
+    gemm_head_ss_of<NC, kF32>(st, desc_k, desc_q);    // S^T = K Q^T
+    gemm_head_ss_of<NC, kF32>(dpt, desc_v, desc_do);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(st);
@@ -470,7 +530,7 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // P at live (key, query) pairs, 1/T where a padded key meets a row whose
     // keys are all padded, 0 elsewhere; dS = P (dP - delta) at live keys
-    const float* bt = sBias + slot * kF32TileT;
+    const float* bt = sBias + slot * kF32Tile;
     const float4* qry = sQry + slot * kTile;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
@@ -483,7 +543,7 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int r = 0; r < 2; ++r) {
           const int i = 4 * j + 2 * r + e;
           float x = st[i] * a.sm_scale;
-          if constexpr (HAS_BIAS) x += bt[Padded{}(col, r0 + 8 * r)];
+          if constexpr (HAS_BIAS) x += bt[SwizzledT{}(col, r0 + 8 * r)];
           const float e_x = expf(x - qd.x);
           const bool live = kstate[r] == kLive && qs == kLive;
           const float p = live ? e_x : ((kstate[r] == kPadded && qs == kPadded) ? inv_t : 0.f);
@@ -493,14 +553,16 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         }
       }
     }
-    uint32_t fp[4][4], fds[4][4];
-    frag_from_acc(fp, st);
-    frag_from_acc(fds, dpt);
+    // dv += P^T dO, dk += dS^T Q; fp32: each as the three products of the
+    // A operand's hi and lo fragments with B's hi and lo tiles
+    uint32_t fp[4][4], fds[4][4], fpl[4][4], fdl[4][4];
+    frags_of<kF32>(fp, fpl, st);
+    frags_of<kF32>(fds, fdl, dpt);
     wgmma_fence();
     fence_regs(acc_dv);
     fence_regs(acc_dk);
-    gemm_frag_tile(acc_dv, fp, desc_do + cc * kDescTile);  // dv += P^T dO
-    gemm_frag_tile(acc_dk, fds, desc_q + cc * kDescTile);  // dk += dS^T Q
+    gemm_frag_of<kF32>(acc_dv, fp, fpl, desc_do + cc * kDescTile, kLo);
+    gemm_frag_of<kF32>(acc_dk, fds, fdl, desc_q + cc * kDescTile, kLo);
     wgmma_commit();
     if (nt < n_tiles && tid < kTile) sQry[(nt % kStages) * kTile + tid] = nq;
     wgmma_wait<0>();
@@ -508,6 +570,10 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     fence_regs(acc_dk);
     fence_regs(fp);
     fence_regs(fds);
+    if constexpr (kF32) {
+      fence_regs(fpl);
+      fence_regs(fdl);
+    }
   }
 
   const long long out_head = b * a.out_stride_b + h * D;
@@ -519,23 +585,26 @@ bias_attention_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // T <= 64: one block per (head, batch, 64-column chunk cc) computes S and
 // dP once and writes dq, dk and dv's columns 64 cc .. 64 cc + 63, and, the
 // cc = 0 block, dS.
-template <int NC, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads, NC == 1 ? 3 : 2)
-bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int NC, bool HAS_BIAS, typename E>
+__global__ void __launch_bounds__(kThreads, NC == 1 && std::is_same<E, bf16>::value ? 3 : 2)
+bias_attention_bwd_single_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                                 const E* __restrict__ v, const E* __restrict__ dout,
                                  const float* __restrict__ lse, const float* __restrict__ delta,
                                  const float* __restrict__ bias, const uint8_t* __restrict__ mask,
-                                 bf16* __restrict__ dq, bf16* __restrict__ dk,
-                                 bf16* __restrict__ dv, float* __restrict__ dbias, BiasBwdArgs a) {
+                                 E* __restrict__ dq, E* __restrict__ dk, E* __restrict__ dv,
+                                 float* __restrict__ dbias, BiasBwdArgs a) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kPlanes = kF32 ? 2 : 1;     // a staged head, dS, P f: hi (and lo) tiles
+  constexpr uint64_t kLo = NC * kDescTile;  // a staged head's lo tiles
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kHead = NC * kTileElems;  // a head's 64 rows
+  constexpr int kHead = NC * kTileElems * kPlanes;  // a head's 64 rows, staged
   bf16* const sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
   bf16* const sK = sQ + kHead;
   bf16* const sV = sK + kHead;
   bf16* const sDO = sV + kHead;
-  bf16* const sDS = sDO + kHead;  // bf16 dS, one query a row
-  bf16* const sP = sDS + kTileElems;   // bf16 P (1/T in rows of padded keys), one query a row
-  float* const sBias = reinterpret_cast<float*>(sP + kTileElems);  // the bias, then dS
+  bf16* const sDS = sDO + kHead;  // dS (hi, then lo), one query a row
+  bf16* const sP = sDS + kPlanes * kTileElems;  // P f (1/T in rows of padded keys), likewise
+  float* const sBias = reinterpret_cast<float*>(sP + kPlanes * kTileElems);  // the bias, then dS
   int* const sKey = reinterpret_cast<int*>(sBias + (HAS_BIAS ? kF32Tile : 0));
 
   const int T = a.T, H = a.H, D = a.D;
@@ -551,10 +620,10 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   const float inv_t = 1.f / T;
   const uint32_t seed_mix = drop_seed_mix(a.seed + static_cast<uint32_t>(bh) * 0xC2B2AE3Du);
 
-  stage_head<kThreads, NC>(sQ, q + in_head, a.stride_t, 0, T, D, tid);
-  stage_head<kThreads, NC>(sK, k + in_head, a.stride_t, 0, T, D, tid);
-  stage_head<kThreads, NC>(sV, v + in_head, a.stride_t, 0, T, D, tid);
-  stage_head<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, 0, T, D, tid);
+  stage_head_of<kThreads, NC>(sQ, q + in_head, a.stride_t, 0, T, D, tid);
+  stage_head_of<kThreads, NC>(sK, k + in_head, a.stride_t, 0, T, D, tid);
+  stage_head_of<kThreads, NC>(sV, v + in_head, a.stride_t, 0, T, D, tid);
+  stage_head_of<kThreads, NC>(sDO, dout + b * T * do_row + h * D, do_row, 0, T, D, tid);
   if constexpr (HAS_BIAS)
     stage_f32(sBias, bias + b * a.bias_stride_b + h * plane, 0, 0, T, a.bias16, tid,
               Swizzled{});
@@ -581,8 +650,8 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   const uint64_t desc_q = desc_sw128(sQ), desc_k = desc_sw128(sK), desc_v = desc_sw128(sV),
                  desc_do = desc_sw128(sDO), desc_ds = desc_sw128(sDS), desc_p = desc_sw128(sP);
   wgmma_fence();
-  gemm_head_ss<NC>(sc, desc_q, desc_k);   // S = Q K^T
-  gemm_head_ss<NC>(dp, desc_do, desc_v);  // dP = dO V^T
+  gemm_head_ss_of<NC, kF32>(sc, desc_q, desc_k);   // S = Q K^T
+  gemm_head_ss_of<NC, kF32>(dp, desc_do, desc_v);  // dP = dO V^T
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -613,8 +682,19 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
       }
       if (dbias_p)
         *reinterpret_cast<float2*>(sBias + f32_tile_at(row, col)) = make_float2(ds[0], ds[1]);
-      *reinterpret_cast<uint32_t*>(sDS + sw128(row, j) + 2 * i4) = pack_bf16(ds[0], ds[1]);
-      *reinterpret_cast<uint32_t*>(sP + sw128(row, j) + 2 * i4) = pack_bf16(pv[0], pv[1]);
+      const int at = sw128(row, j) + 2 * i4;
+      if constexpr (kF32) {  // the hi and lo tiles
+        uint32_t hi, lo;
+        split_pair(ds[0], ds[1], hi, lo);
+        *reinterpret_cast<uint32_t*>(sDS + at) = hi;
+        *reinterpret_cast<uint32_t*>(sDS + kTileElems + at) = lo;
+        split_pair(pv[0], pv[1], hi, lo);
+        *reinterpret_cast<uint32_t*>(sP + at) = hi;
+        *reinterpret_cast<uint32_t*>(sP + kTileElems + at) = lo;
+      } else {
+        *reinterpret_cast<uint32_t*>(sDS + at) = pack_bf16(ds[0], ds[1]);
+        *reinterpret_cast<uint32_t*>(sP + at) = pack_bf16(pv[0], pv[1]);
+      }
     }
   }
   fence_proxy_async();  // the staged tiles, written by st.shared, to wgmma
@@ -626,6 +706,14 @@ bias_attention_bwd_single_kernel(const bf16* __restrict__ q, const bf16* __restr
   gemm_tile_ss<0, 1>(acc_dq, desc_ds, desc_k + chunk);   // dq = dS K
   gemm_tile_ss<1, 1>(acc_dk, desc_ds, desc_q + chunk);   // dk = dS^T Q
   gemm_tile_ss<1, 1>(acc_dv, desc_p, desc_do + chunk);   // dv = P^T dO
+  if constexpr (kF32) {  // + A_hi B_lo + A_lo B_hi (A's lo tile one tile after its hi)
+    gemm_tile_ss<0, 1, true>(acc_dq, desc_ds, desc_k + kLo + chunk);
+    gemm_tile_ss<0, 1, true>(acc_dq, desc_ds + kDescTile, desc_k + chunk);
+    gemm_tile_ss<1, 1, true>(acc_dk, desc_ds, desc_q + kLo + chunk);
+    gemm_tile_ss<1, 1, true>(acc_dk, desc_ds + kDescTile, desc_q + chunk);
+    gemm_tile_ss<1, 1, true>(acc_dv, desc_p, desc_do + kLo + chunk);
+    gemm_tile_ss<1, 1, true>(acc_dv, desc_p + kDescTile, desc_do + chunk);
+  }
   wgmma_commit();
   if (dbias_p) store_f32(dbias_p, sBias, 0, 0, T, a.dbias16, tid);
   wgmma_wait<0>();
@@ -674,44 +762,145 @@ int launch_one(dim3 grid, cudaStream_t s, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of each kernel for a head of NC tiles, with a bias or without.
-template <int NC, typename... Args>
+// The instance of each kernel for a head of NC tiles and element type E,
+// with a bias or without.
+template <int NC, typename E, typename... Args>
 int launch_dq(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
-  return has_bias ? launch_one<bias_attention_dq_kernel<NC, true>, dq_smem(NC, true)>(grid, s,
-                                                                                      args...)
-                  : launch_one<bias_attention_dq_kernel<NC, false>, dq_smem(NC, false)>(
-                        grid, s, args...);
-}
-template <int NC, typename... Args>
-int launch_dkv(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
-  return has_bias ? launch_one<bias_attention_dkv_kernel<NC, true>, dkv_smem(NC, true)>(
+  constexpr int P = std::is_same<E, float>::value ? 2 : 1;
+  return has_bias ? launch_one<bias_attention_dq_kernel<NC, true, E>, dq_smem(NC, true, P)>(
                         grid, s, args...)
-                  : launch_one<bias_attention_dkv_kernel<NC, false>, dkv_smem(NC, false)>(
+                  : launch_one<bias_attention_dq_kernel<NC, false, E>, dq_smem(NC, false, P)>(
                         grid, s, args...);
 }
-template <int NC, typename... Args>
+template <int NC, typename E, typename... Args>
+int launch_dkv(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
+  constexpr int P = std::is_same<E, float>::value ? 2 : 1;
+  return has_bias ? launch_one<bias_attention_dkv_kernel<NC, true, E>, dkv_smem(NC, true, P)>(
+                        grid, s, args...)
+                  : launch_one<bias_attention_dkv_kernel<NC, false, E>, dkv_smem(NC, false, P)>(
+                        grid, s, args...);
+}
+template <int NC, typename E, typename... Args>
 int launch_single(bool has_bias, dim3 grid, cudaStream_t s, Args... args) {
-  return has_bias
-             ? launch_one<bias_attention_bwd_single_kernel<NC, true>, single_smem(NC, true)>(
-                   grid, s, args...)
-             : launch_one<bias_attention_bwd_single_kernel<NC, false>, single_smem(NC, false)>(
-                   grid, s, args...);
+  constexpr int P = std::is_same<E, float>::value ? 2 : 1;
+  return has_bias ? launch_one<bias_attention_bwd_single_kernel<NC, true, E>,
+                               single_smem(NC, true, P)>(grid, s, args...)
+                  : launch_one<bias_attention_bwd_single_kernel<NC, false, E>,
+                               single_smem(NC, false, P)>(grid, s, args...);
+}
+
+// The entries' bodies for q, k, v, dout and the gradients of element type
+// E. Each returns a cudaError_t.
+template <typename E>
+int dq_entry(const void* q, const void* k, const void* v, long long stride_b, long long stride_t,
+             const void* dout, const void* lse, const void* delta, const void* bias,
+             int bias_uniform, const void* mask, void* dq, long long out_stride_b,
+             long long out_stride_t, void* dbias, int B, int H, int T, int D, float sm_scale,
+             int seed, unsigned int thresh, float keep_scale, void* stream) {
+  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
+                           dout))
+    return err;
+  const dim3 grid((T + kTile - 1) / kTile, H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const E*>(q);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
+  const auto* dop = static_cast<const E*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dqp = static_cast<E*>(dq);
+  auto* dbp = static_cast<float*>(dbias);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (D == 64)
+    return launch_dq<1, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
+  return launch_dq<2, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
+}
+
+template <typename E>
+int dkv_entry(const void* q, const void* k, const void* v, long long stride_b,
+              long long stride_t, const void* dout, const void* lse, const void* delta,
+              const void* bias, int bias_uniform, const void* mask, void* dk, void* dv,
+              long long out_stride_b, long long out_stride_t, int B, int H, int T, int D,
+              float sm_scale, int seed, unsigned int thresh, float keep_scale, void* stream) {
+  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
+                           dout))
+    return err;
+  const int nc = D == 64 ? 1 : 2;
+  // one block per key tile and 64-column chunk of dk and dv
+  const dim3 grid((T + kTile - 1) / kTile * nc, H, B);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const E*>(q);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
+  const auto* dop = static_cast<const E*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dkp = static_cast<E*>(dk);
+  auto* dvp = static_cast<E*>(dv);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, nullptr, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (nc == 1)
+    return launch_dkv<1, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
+  return launch_dkv<2, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
+}
+
+template <typename E>
+int single_entry(const void* q, const void* k, const void* v, long long stride_b,
+                 long long stride_t, const void* dout, const void* lse, const void* delta,
+                 const void* bias, int bias_uniform, const void* mask, void* dq, void* dk,
+                 void* dv, long long out_stride_b, long long out_stride_t, void* dbias, int B,
+                 int H, int T, int D, float sm_scale, int seed, unsigned int thresh,
+                 float keep_scale, void* stream) {
+  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
+                           dout))
+    return err;
+  if (T > kTile) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = D == 64 ? 1 : 2;
+  const dim3 grid(H, B, nc);  // one block per head, batch row and 64-column chunk
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const E*>(q);
+  const auto* kp = static_cast<const E*>(k);
+  const auto* vp = static_cast<const E*>(v);
+  const auto* dop = static_cast<const E*>(dout);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* dl = static_cast<const float*>(delta);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* mp = static_cast<const uint8_t*>(mask);
+  auto* dqp = static_cast<E*>(dq);
+  auto* dkp = static_cast<E*>(dk);
+  auto* dvp = static_cast<E*>(dv);
+  auto* dbp = static_cast<float*>(dbias);
+  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
+                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
+                                  keep_scale);
+  if (nc == 1)
+    return launch_single<1, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp,
+                               dvp, dbp, a);
+  return launch_single<2, E>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp,
+                             dvp, dbp, a);
 }
 
 }  // namespace
 }  // namespace a2v
 
 // C entries, bound with ctypes. D: a multiple of 8 up to 128 (the wrapper
-// pads other head dims with zero columns). q, k, v: bf16 (B, T, H, D) with element
-// strides (stride_b, stride_t, D, 1), 16-byte aligned, strides multiples of
-// 8; dout bf16 (B, T, H, D) contiguous; lse and delta (B*H, T) fp32; bias
-// null or fp32 (bias_uniform ? 1 : B, H, T, T) contiguous; mask null or
-// (B, T) uint8. dq, dk, dv are bf16 (B, T, H, D) with element strides
-// (out_stride_b, out_stride_t, D, 1) (the three planes of one (B, T, 3, H, D)
-// gradient); dbias null or fp32 (B, H, T, T) contiguous (written only with
-// a bias); thresh 0 = no dropout, else the forward's hash dropout (seed,
-// thresh, keep_scale as a2v_bias_attention takes them). Each returns a
-// cudaError_t.
+// pads other head dims with zero columns). q, k, v: (B, T, H, D) with
+// element strides (stride_b, stride_t, D, 1), 16-byte aligned, strides
+// multiples of 8; dout (B, T, H, D) contiguous; all bf16 (the _f32 entries:
+// fp32); lse and delta (B*H, T) fp32; bias null or fp32 (bias_uniform ? 1 :
+// B, H, T, T) contiguous; mask null or (B, T) uint8. dq, dk, dv are (B, T,
+// H, D) in q's type with element strides (out_stride_b, out_stride_t, D, 1)
+// (the three planes of one (B, T, 3, H, D) gradient); dbias null or fp32
+// (B, H, T, T) contiguous (written only with a bias); thresh 0 = no
+// dropout, else the forward's hash dropout (seed, thresh, keep_scale as
+// a2v_bias_attention takes them). Each returns a cudaError_t.
 extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          long long stride_b, long long stride_t,
                                          const void* dout, const void* lse, const void* delta,
@@ -720,28 +909,23 @@ extern "C" int a2v_bias_attention_bwd_dq(const void* q, const void* k, const voi
                                          void* dbias, int B, int H, int T, int D, float sm_scale,
                                          int seed, unsigned int thresh, float keep_scale,
                                          void* stream) {
-  using namespace a2v;
-  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
-                           dout))
-    return err;
-  const dim3 grid((T + kTile - 1) / kTile, H, B);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dl = static_cast<const float*>(delta);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* dqp = static_cast<bf16*>(dq);
-  auto* dbp = static_cast<float*>(dbias);
-  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
-                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
-                                  keep_scale);
-  if (D == 64)
-    return launch_dq<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
-  return launch_dq<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dbp, a);
+  return a2v::dq_entry<__nv_bfloat16>(q, k, v, stride_b, stride_t, dout, lse, delta, bias,
+                                      bias_uniform, mask, dq, out_stride_b, out_stride_t, dbias,
+                                      B, H, T, D, sm_scale, seed, thresh, keep_scale, stream);
+}
+
+extern "C" int a2v_bias_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                             long long stride_b, long long stride_t,
+                                             const void* dout, const void* lse,
+                                             const void* delta, const void* bias,
+                                             int bias_uniform, const void* mask, void* dq,
+                                             long long out_stride_b, long long out_stride_t,
+                                             void* dbias, int B, int H, int T, int D,
+                                             float sm_scale, int seed, unsigned int thresh,
+                                             float keep_scale, void* stream) {
+  return a2v::dq_entry<float>(q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform,
+                              mask, dq, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale,
+                              seed, thresh, keep_scale, stream);
 }
 
 extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -752,30 +936,23 @@ extern "C" int a2v_bias_attention_bwd_dkv(const void* q, const void* k, const vo
                                           long long out_stride_t, int B, int H, int T, int D,
                                           float sm_scale, int seed, unsigned int thresh,
                                           float keep_scale, void* stream) {
-  using namespace a2v;
-  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
-                           dout))
-    return err;
-  const int nc = D == 64 ? 1 : 2;
-  // one block per key tile and 64-column chunk of dk and dv
-  const dim3 grid((T + kTile - 1) / kTile * nc, H, B);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dl = static_cast<const float*>(delta);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* dkp = static_cast<bf16*>(dk);
-  auto* dvp = static_cast<bf16*>(dv);
-  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
-                                  bias_uniform, nullptr, H, T, D, sm_scale, seed, thresh,
-                                  keep_scale);
-  if (nc == 1)
-    return launch_dkv<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
-  return launch_dkv<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dkp, dvp, a);
+  return a2v::dkv_entry<__nv_bfloat16>(q, k, v, stride_b, stride_t, dout, lse, delta, bias,
+                                       bias_uniform, mask, dk, dv, out_stride_b, out_stride_t, B,
+                                       H, T, D, sm_scale, seed, thresh, keep_scale, stream);
+}
+
+extern "C" int a2v_bias_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                              long long stride_b, long long stride_t,
+                                              const void* dout, const void* lse,
+                                              const void* delta, const void* bias,
+                                              int bias_uniform, const void* mask, void* dk,
+                                              void* dv, long long out_stride_b,
+                                              long long out_stride_t, int B, int H, int T, int D,
+                                              float sm_scale, int seed, unsigned int thresh,
+                                              float keep_scale, void* stream) {
+  return a2v::dkv_entry<float>(q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform,
+                               mask, dk, dv, out_stride_b, out_stride_t, B, H, T, D, sm_scale,
+                               seed, thresh, keep_scale, stream);
 }
 
 // As the two entries above in one launch, for T <= 64.
@@ -788,32 +965,19 @@ extern "C" int a2v_bias_attention_bwd_single(const void* q, const void* k, const
                                              int T, int D, float sm_scale, int seed,
                                              unsigned int thresh, float keep_scale,
                                              void* stream) {
-  using namespace a2v;
-  if (int err = check_args(B, H, T, D, stride_b, stride_t, out_stride_b, out_stride_t, q, k, v,
-                           dout))
-    return err;
-  if (T > kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = D == 64 ? 1 : 2;
-  const dim3 grid(H, B, nc);  // one block per head, batch row and 64-column chunk
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dop = static_cast<const bf16*>(dout);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* dl = static_cast<const float*>(delta);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* dqp = static_cast<bf16*>(dq);
-  auto* dkp = static_cast<bf16*>(dk);
-  auto* dvp = static_cast<bf16*>(dv);
-  auto* dbp = static_cast<float*>(dbias);
-  const BiasBwdArgs a = make_args(stride_b, stride_t, out_stride_b, out_stride_t, bias,
-                                  bias_uniform, dbias, H, T, D, sm_scale, seed, thresh,
-                                  keep_scale);
-  if (nc == 1)
-    return launch_single<1>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp,
-                            dvp, dbp, a);
-  return launch_single<2>(bp != nullptr, grid, s, qp, kp, vp, dop, lp, dl, bp, mp, dqp, dkp, dvp,
-                          dbp, a);
+  return a2v::single_entry<__nv_bfloat16>(q, k, v, stride_b, stride_t, dout, lse, delta, bias,
+                                          bias_uniform, mask, dq, dk, dv, out_stride_b,
+                                          out_stride_t, dbias, B, H, T, D, sm_scale, seed,
+                                          thresh, keep_scale, stream);
+}
+
+extern "C" int a2v_bias_attention_bwd_single_f32(
+    const void* q, const void* k, const void* v, long long stride_b, long long stride_t,
+    const void* dout, const void* lse, const void* delta, const void* bias, int bias_uniform,
+    const void* mask, void* dq, void* dk, void* dv, long long out_stride_b,
+    long long out_stride_t, void* dbias, int B, int H, int T, int D, float sm_scale, int seed,
+    unsigned int thresh, float keep_scale, void* stream) {
+  return a2v::single_entry<float>(q, k, v, stride_b, stride_t, dout, lse, delta, bias,
+                                  bias_uniform, mask, dq, dk, dv, out_stride_b, out_stride_t,
+                                  dbias, B, H, T, D, sm_scale, seed, thresh, keep_scale, stream);
 }

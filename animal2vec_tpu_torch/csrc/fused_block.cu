@@ -73,31 +73,6 @@ int launch_ln2(cudaStream_t s, const E* r, const E* t, const float* scale, const
                                                       nullptr, N, C, eps, site_post);
 }
 
-// The fp32 block's weight split, both matrices in one launch: w1t (M, C)
-// into w1s (M, 3C) and w2t (C, M) into w2s (C, 3M), each row [w_hi | w_hi |
-// w_lo] (sm90.cuh split_pair), the B operand against [a_hi | a_lo | a_hi]:
-// a_hi w_hi + a_lo w_hi + a_hi w_lo. Four elements a thread and step.
-__global__ void split_weights_kernel(const float* __restrict__ w1t, __nv_bfloat16* w1s,
-                                     const float* __restrict__ w2t, __nv_bfloat16* w2s, int C,
-                                     int M) {
-  const size_t quads = static_cast<size_t>(M) * C / 4;  // each matrix's
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < 2 * quads;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const bool second = i >= quads;
-    const size_t e = 4 * (second ? i - quads : i);
-    const int k = second ? M : C;  // the row length
-    const size_t row = e / k, col = e % k;
-    const float4 w = *reinterpret_cast<const float4*>((second ? w2t : w1t) + e);
-    uint2 hi, lo;
-    a2v::sm90::split_pair(w.x, w.y, hi.x, lo.x);
-    a2v::sm90::split_pair(w.z, w.w, hi.y, lo.y);
-    __nv_bfloat16* out = (second ? w2s : w1s) + 3 * row * k + col;
-    *reinterpret_cast<uint2*>(out) = hi;
-    *reinterpret_cast<uint2*>(out + k) = hi;
-    *reinterpret_cast<uint2*>(out + 2 * k) = lo;
-  }
-}
-
 }  // namespace
 
 // C entry, bound with ctypes. x, r, t, x_out: (N, C) bf16; w1t: (M, C) and
@@ -156,7 +131,7 @@ extern "C" int a2v_fused_block(const void* x, const void* ln1_scale, const void*
 // (N, C), and bf16 scratch: rs (N, 3C), the LN1 output's [hi | lo | hi];
 // w1s (M, 3C) and w2s (C, 3M), the weights' [hi | hi | lo]; hs (N, 3M),
 // h's [hi | lo | hi]. Five launches on the caller's stream:
-//   1. split_weights_kernel  w1s, w2s;
+//   1. split_planes_kernel   w1s, w2s (bf16_gemm_sm90.cuh);
 //   2. ln_rows<fp32>         r = LN1(x) and rs;
 //   3. gemm_bf16_sm90        hs = split(drop_a(GELU(rs w1s^T + b1))), K = 3C;
 //   4. gemm_bf16_sm90        t = drop_b(hs w2s^T + b2) in fp32, K = 3M;
@@ -195,11 +170,11 @@ extern "C" int a2v_fused_block_f32(const void* x, const void* ln1_scale, const v
   const DropSite site_post{static_cast<uint32_t>(seed_post), post_thresh, post_scale, row0};
   cudaError_t err;
 
-  const size_t quads = 2 * static_cast<size_t>(M) * C / 4;
-  split_weights_kernel<<<static_cast<int>(std::min<size_t>((quads + 255) / 256, 132 * 16)), 256,
-                         0, s>>>(static_cast<const float*>(w1t), w1b,
-                                 static_cast<const float*>(w2t), w2b, C, M);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const size_t quads = static_cast<size_t>(M) * C / 4;
+  if ((err = static_cast<cudaError_t>(launch_split_planes(
+           s, SplitPlanes{static_cast<const float*>(w1t), w1b, quads, C, false},
+           SplitPlanes{static_cast<const float*>(w2t), w2b, quads, M, false}))) != cudaSuccess)
+    return static_cast<int>(err);
   if ((err = static_cast<cudaError_t>(launch_ln_rows<false, false, false, false, float>(
            s, static_cast<const float*>(x), nullptr, static_cast<const float*>(ln1_scale),
            static_cast<const float*>(ln1_bias), rf, nullptr, nullptr, N, C, eps, site_post,

@@ -179,6 +179,15 @@ __device__ __forceinline__ void stage_head_of(bf16* tiles, const E* src, long lo
     stage_head<kThreads, NC>(tiles, src, row_stride, row0, T, D, tid);
 }
 
+// Two adjacent outputs of a kernel's element type: one packed bf16 pair or
+// a float2.
+__device__ __forceinline__ void store_pair(bf16* at, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(at) = pack_bf16(x0, x1);
+}
+__device__ __forceinline__ void store_pair(float* at, float x0, float x1) {
+  *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
+}
+
 // fp32 element (row r, column c) of a 64 x 64 fp32 tile (a dense bias, or
 // dS) whose 16-byte chunks are XOR-swizzled by row, (c / 4) ^ 2 (r % 4):
 // float2 reads and writes in the accumulator layout (rows g, columns 2i)

@@ -50,6 +50,14 @@ _HEADS = (_I, _I)
 _FWD = (_P, _P, _P, _L, _L, _L, _P, _P, _I, _P, _I, _P, _I, _P, _L, _L, _L, _P) + (_I,) * 5 \
     + (_F,) + _DROP + _HEADS + (_P,)
 _BWD = (_P,) * 6 + (_I, _P, _I, _P, _P) + (_I,) * 5 + (_F,) + _DROP + _HEADS + (_P,)
+# the dense-bias forward's and its three backward entries' arguments (below)
+_BIAS_FWD = (_P, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F) + _DROP + (_P,)
+_BIAS_DQ = (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P) + (_I,) * 4 + (_F,) \
+    + _DROP + (_P,)
+_BIAS_DKV = (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L) + (_I,) * 4 + (_F,) \
+    + _DROP + (_P,)
+_BIAS_SINGLE = (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _L, _P) \
+    + (_I,) * 4 + (_F,) + _DROP + (_P,)
 # C signatures of the entries in csrc/*.cu; every entry returns a cudaError_t
 SIGNATURES = {
     # q, k, v, stride_b, stride_t, stride_h, slopes, pos, pos_per_row, pos_k,
@@ -101,26 +109,31 @@ SIGNATURES = {
     "a2v_alibi_attention_int8": (_P,) * 8 + (_I, _P, _I, _P, _P) + (_I,) * 7 + (_P,),
     # q, k, v, stride_b, stride_t, bias, bias_uniform, mask, out, lse, B, H, T,
     # D, sm_scale, seed, thresh, keep_scale, stream
-    "a2v_bias_attention": (_P, _P, _P, _L, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F) + _DROP
-    + (_P,),
+    "a2v_bias_attention": _BIAS_FWD,
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
     # dq, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale, seed, thresh,
     # keep_scale, stream
-    "a2v_bias_attention_bwd_dq": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P)
-    + (_I,) * 4 + (_F,) + _DROP + (_P,),
+    "a2v_bias_attention_bwd_dq": _BIAS_DQ,
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
     # dk, dv, out_stride_b, out_stride_t, B, H, T, D, sm_scale, seed, thresh,
     # keep_scale, stream
-    "a2v_bias_attention_bwd_dkv": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _L)
-    + (_I,) * 4 + (_F,) + _DROP + (_P,),
+    "a2v_bias_attention_bwd_dkv": _BIAS_DKV,
     # q, k, v, stride_b, stride_t, dout, lse, delta, bias, bias_uniform, mask,
     # dq, dk, dv, out_stride_b, out_stride_t, dbias, B, H, T, D, sm_scale,
     # seed, thresh, keep_scale, stream
-    "a2v_bias_attention_bwd_single": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                      _L, _L, _P) + (_I,) * 4 + (_F,) + _DROP + (_P,),
+    "a2v_bias_attention_bwd_single": _BIAS_SINGLE,
+    # the fp32 instances of the four (fp32 q, k, v, out; dout, dq, dk, dv):
+    # the same arguments
+    "a2v_bias_attention_f32": _BIAS_FWD,
+    "a2v_bias_attention_bwd_dq_f32": _BIAS_DQ,
+    "a2v_bias_attention_bwd_dkv_f32": _BIAS_DKV,
+    "a2v_bias_attention_bwd_single_f32": _BIAS_SINGLE,
     # x, w1, b1, w2, b2, h, out, N, C, M, C2, seed_act, seed_fc2, thresh,
     # keep_scale, row0, stream
     "a2v_fused_mlp": (_P,) * 7 + (_I,) * 6 + (_U, _F, _U, _P),
+    # the fp32 MLP: x, w1, b1, w2, b2, xs, w1s, w2s, hs, out, then as
+    # a2v_fused_mlp from N
+    "a2v_fused_mlp_f32": (_P,) * 10 + (_I,) * 6 + (_U, _F, _U, _P),
     # x, w1_q, w1_s, b1, w2_q, w2_s, b2, x_q, x_s, h, h_max, h_q, h_s, out, N,
     # C, M, C2, chunk, stream
     "a2v_fused_mlp_int8": (_P,) * 14 + (_I,) * 5 + (_P,),
@@ -238,8 +251,11 @@ def library() -> ctypes.CDLL:
 
 def require_bf16(what: str, *dtypes) -> None:
     """Raise unless every dtype is bf16: for a kernel whose fp32 instance is
-    still to be written (ROADMAP A.13). The ALiBi kernels (#1-#4) and the
-    fused post-LN block (#6) take fp32 as well."""
+    still to be written (ROADMAP A.13). The ALiBi kernels (#1-#4), the fused
+    post-LN block (#6), the fused pre-LN MLP (#8) and the dense-bias
+    attention with its backward (#11, #11b) take fp32 as well; the int8
+    kernels (#5 and its pass, #7, #9, #10) and #6's tensor-parallel split
+    (#6s) call this."""
     for dtype in dtypes:
         if str(dtype) != "torch.bfloat16":
             raise ValueError(f"{what} takes bf16 on the card, got {dtype}: its fp32 instance is "

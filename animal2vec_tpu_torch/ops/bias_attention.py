@@ -16,9 +16,12 @@ returns the mean of V over the T keys, as ``xla_attention``'s softmax does.
 ``bias_flash_attention`` is the model's entry, differentiable in q, k, v
 and the bias. On a CUDA tensor with no gradient wanted (grad mode off, or
 no input requires grad: serving, the EMA teacher) it makes one launch of
-the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, head dims 1
-to 128; one off a multiple of 8 on zero-padded copies, as the ALiBi
-kernels take it: ``ops/attention.kernel_head_dim``).
+the hand-written flash kernel (``csrc/bias_attention.cu``, bf16, or fp32
+with each product taken as three bf16 products of the operands' split
+parts; head dims 1 to 128, one off a multiple of 8 on zero-padded copies,
+as the ALiBi kernels take it: ``ops/attention.kernel_head_dim``). Every
+launch takes the C entry of the operands' dtype (``ops.attention._entry``:
+the ``_f32`` entries for fp32).
 Otherwise it is a ``torch.autograd.Function``: its forward launches the
 kernel with the (B*H, T) fp32 logsumexp; its backward computes ``delta =
 rowsum(dO * O)`` in fp32 with one torch op and launches, for T <= 64 (the
@@ -61,9 +64,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from animal2vec_tpu_torch.kernels.build import check, library, require_bf16
+from animal2vec_tpu_torch.kernels.build import check
 from animal2vec_tpu_torch.ops.attention import (
-    _check_device, _on_cpu, kernel_head_dim, pad_head,
+    _check_device, _entry, _on_cpu, kernel_head_dim, pad_head,
 )
 from animal2vec_tpu_torch.ops.dropout import dropout_keep, keep_scale, keep_threshold
 
@@ -171,7 +174,10 @@ def _kernel_views(q, k, v, *more):
 def _check_qkv(q, k, v):
     """Check the kernels' q, k, v; return (b, t, h, d, strides)."""
     b, t, h, d = q.shape
-    require_bf16("the dense-bias attention (#11, #11b)", q.dtype, k.dtype, v.dtype)
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"the kernels take bf16 or fp32 q, k, v of one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     strides = q.stride()
     if k.stride() != strides or v.stride() != strides or strides[2:] != (d, 1):
         raise ValueError(f"q, k, v must share strides (stride_b, stride_t, {d}, 1), got "
@@ -249,7 +255,7 @@ def bias_attention_forward(q, k, v, bias=None, padding_mask=None, with_lse=False
     lse = torch.empty((b * h, t), dtype=torch.float32, device=dev) if with_lse else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_bias_attention(
+        err = _entry("a2v_bias_attention", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], _ptr(bias),
             int(uniform), _ptr(padding_mask), out.data_ptr(), _ptr(lse), b, h, t, d,
             d_true**-0.5, *_drop_args(rate, seed), stream,
@@ -266,7 +272,7 @@ def _bwd_args(q, k, v, dout, lse, delta, bias, padding_mask, out):
     bias, uniform, mask, the (B, T, 3, H, D) gradient's strides)."""
     b, t, h, d, strides = _check_qkv(q, k, v)
     dev = q.device
-    for name, x, shape, dtype in (("dout", dout, (b, t, h, d), torch.bfloat16),
+    for name, x, shape, dtype in (("dout", dout, (b, t, h, d), q.dtype),
                                   ("lse", lse, (b * h, t), torch.float32),
                                   ("delta", delta, (b * h, t), torch.float32)):
         if x.shape != shape or x.dtype != dtype or not x.is_contiguous() or x.device != dev:
@@ -324,7 +330,7 @@ def bias_attention_dq(q, k, v, dout, lse, delta, bias=None, padding_mask=None, d
         dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_bias_attention_bwd_dq(
+        err = _entry("a2v_bias_attention_bwd_dq", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dq_k.data_ptr(), out_strides[0], out_strides[1], _ptr(dbias), b, h, t, d,
@@ -360,7 +366,7 @@ def bias_attention_dkv(q, k, v, dout, lse, delta, bias=None, padding_mask=None, 
         q, k, v, dout, lse, delta, bias, padding_mask, dk_k)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_bias_attention_bwd_dkv(
+        err = _entry("a2v_bias_attention_bwd_dkv", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dk_k.data_ptr(), dv_k.data_ptr(), out_strides[0], out_strides[1], b, h, t, d,
@@ -404,7 +410,7 @@ def bias_attention_bwd_single(q, k, v, dout, lse, delta, bias=None, padding_mask
         dbias = torch.empty((b, h, t, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_bias_attention_bwd_single(
+        err = _entry("a2v_bias_attention_bwd_single", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides[0], strides[1], dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(bias_c), int(uniform), _ptr(mask),
             dq_k.data_ptr(), dk_k.data_ptr(), dv_k.data_ptr(), out_strides[0], out_strides[1],
@@ -432,7 +438,9 @@ class _BiasAttention(torch.autograd.Function):
         q, k, v, bias, padding_mask, out, lse = ctx.saved_tensors
         b, t, h, _ = q.shape
         dout = g.to(q.dtype).contiguous()
+        # contiguous at every batch size (at B 1 the reshape is a strided view)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+        delta = delta.contiguous()
         dq, dk, dv = _grad_planes(q)
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         args = (q, k, v, dout, lse, delta, bias, padding_mask)

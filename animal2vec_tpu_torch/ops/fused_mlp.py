@@ -1,7 +1,7 @@
 """Fused post-LN MLP sub-block: the port of
 ``animal2vec_tpu/ops/fused_mlp.fused_block_mlp`` (bf16 path, with the
 training hash dropout; its int8 serving twin below), and the plain fused
-MLP of pre-LN blocks, ``fused_mlp`` (bf16 and int8, at the end).
+MLP of pre-LN blocks, ``fused_mlp`` (bf16, fp32 and int8, at the end).
 
     r = LN1(x);  h = drop_a(GELU(fc1 r));  t = drop_b(fc2 h)
     x_out = LN2(r + dp(drop_c(t)))  ->  (x_out, t)
@@ -878,13 +878,17 @@ def fused_mlp_plain(
 
 
 def _launch_mlp(x, w1, w2, b1, b2, seeds=None, rate=0.0, row0=0) -> torch.Tensor:
-    """One launch of the bf16 kernel (checked inputs)."""
+    """One launch of the kernel (checked inputs): bf16, or fp32 with each
+    product taken as three bf16 products of the operands' split parts."""
     c = x.shape[-1]
     m, c2 = w1.shape[0], w2.shape[0]
     if w1.shape != (m, c) or w2.shape != (c2, m):
         raise ValueError(f"w1 must be (M, C) and w2 (C2, M) for C={c}: got {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)}")
-    require_bf16("the fused MLP of pre-LN blocks (#8)", x.dtype, w1.dtype, w2.dtype)
+    if x.dtype not in (torch.bfloat16, torch.float32) or w1.dtype != x.dtype \
+            or w2.dtype != x.dtype:
+        raise ValueError(f"the kernel takes bf16 or fp32 x and weights of x's dtype, got "
+                         f"{x.dtype}, {w1.dtype}, {w2.dtype}")
     if not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous x")
     if c % 64 or m % 64 or c2 % 8:
@@ -900,13 +904,21 @@ def _launch_mlp(x, w1, w2, b1, b2, seeds=None, rate=0.0, row0=0) -> torch.Tensor
     s0, s1 = (int(v) for v in seeds) if rate > 0.0 else (0, 0)
     thresh = keep_threshold(rate) if rate > 0.0 else 0
     n = x.numel() // c
-    h = torch.empty((n, m), dtype=x.dtype, device=dev)
+    if x.dtype == torch.float32:
+        # bf16 scratch of the fp32 instance: x's and h's [hi | lo | hi] and
+        # the weights' [hi | hi | lo] rows (csrc/fused_mlp.cu)
+        scratch = [torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                   for shape in ((n, 3 * c), (m, 3 * c), (c2, 3 * m), (n, 3 * m))]
+        fn = library().a2v_fused_mlp_f32
+    else:
+        scratch = [torch.empty((n, m), dtype=x.dtype, device=dev)]  # h
+        fn = library().a2v_fused_mlp
     out = torch.empty((*x.shape[:-1], c2), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().a2v_fused_mlp(
+        err = fn(
             x.data_ptr(), w1c.data_ptr(), b1v.data_ptr(), w2c.data_ptr(), b2v.data_ptr(),
-            h.data_ptr(), out.data_ptr(), n, c, m, c2, s0, s1, thresh,
+            *(v.data_ptr() for v in scratch), out.data_ptr(), n, c, m, c2, s0, s1, thresh,
             keep_scale(rate) if thresh else 1.0, int(row0) & 0xFFFFFFFF, stream,
         )
     check(err, "fused MLP kernel")
@@ -952,10 +964,12 @@ def fused_mlp(
 ) -> torch.Tensor:
     """drop_b(fc2(drop_a(GELU(fc1 x)))) for x (..., C), differentiable in
     every input; the dropout at ``rate`` from two int32 ``seeds``, rows from
-    ``row0``. On CUDA one launch of the kernel (``csrc/fused_mlp.cu``, bf16)
+    ``row0``. On CUDA one launch of the kernel (``csrc/fused_mlp.cu``, bf16,
+    or fp32 with each product as three bf16 products of the split parts)
     when no gradient is wanted, else the autograd Function: the kernel
-    forward, and a backward that recomputes in torch GEMMs. On CPU the plain
-    version, with autograd through it."""
+    forward, and a backward that recomputes in torch GEMMs (fp32 operands:
+    fp32 products of the fp32 cotangent, ``_Fp32SumMatmul``). On CPU the
+    plain version, with autograd through it."""
     _check_mlp_rate(seeds, rate)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, w2, b1, b2, seeds, rate, row0)

@@ -3,9 +3,11 @@ checkout and in another (for example an archive of the parent commit), each
 tree in its own process, in turns (other, this, this, other): a digest of
 the b32 logits' bits in bf16, ``int8`` and ``int8_attn`` (equal in two trees
 whose serving outputs agree bit for bit) and the b32 clips/s of each mode
-(CUDA-synchronized host clock over 5 forwards after 2, as phase 7). The
-weights come from seed 0 on the host and the batch from numpy seed 2, so
-both trees see the same ones. Prints the card's name and power limit.
+(CUDA-synchronized host clock over 5 forwards after 2, as phase 7); then
+the same of the bf16 ViT-B/16 image model's b64 features (phase 9's model,
+post-LN and pre-LN) and its images/s. The weights come from seed 0 on the
+host and the batches from numpy seeds 2 and 11, so both trees see the same
+ones. Prints the card's name and power limit.
 
     python3 -m animal2vec_tpu_torch.tools.compare_serving --other-root DIR
 """
@@ -27,6 +29,46 @@ THIS_ROOT = Path(__file__).resolve().parents[2]
 ORDER = ("other", "this", "this", "other")
 MODES = ("bf16", "int8", "int8_attn")
 BATCH, WAV_LEN = 32, 80_000
+IMAGE_BATCH = 64
+
+
+def digest(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def timed(fn) -> float:
+    """Seconds per call of fn: CUDA-synchronized host clock over 5 calls
+    after 2."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 5
+
+
+def measure_image(label: str, dev) -> None:
+    """The bf16 ViT-B/16 image model's b64 features, post-LN and pre-LN."""
+    from animal2vec_tpu_torch.config import ImageConfig
+    from animal2vec_tpu_torch.models.finetune import build_image_model
+    from animal2vec_tpu_torch.weights import serving_cast
+
+    imgs = torch.from_numpy(np.random.default_rng(11).normal(size=(IMAGE_BATCH, 224, 224, 3))
+                            .astype(np.float32)).to(dev)
+    for pre_ln in (False, True):
+        cfg = dataclasses.replace(ImageConfig(), use_alibi_encoder=True, layer_norm_first=pre_ln)
+        model = build_image_model(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+        model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
+        with torch.inference_mode():
+            x = model.extract_features(imgs, "IMAGE")["x"]
+            dt = timed(lambda: model.extract_features(imgs, "IMAGE"))
+        print(f"{label} ViT-B/16 {'pre-LN' if pre_ln else 'post-LN'} bf16 b{IMAGE_BATCH}: "
+              f"features sha256 {digest(x)}, {IMAGE_BATCH / dt:.1f} images/s "
+              f"({dt * 1e3:.2f} ms per forward)", flush=True)
+        del model
+        torch.cuda.empty_cache()
 
 
 def measure(label: str) -> None:
@@ -52,20 +94,15 @@ def measure(label: str) -> None:
             model = model.to(dev).eval()
         with torch.inference_mode():
             logits = model(src)["encoder_out"]
-            model(src)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                model(src)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / 5
-        digest = hashlib.sha256(logits.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-                                ).hexdigest()[:16]
-        print(f"{label} {mode} b{BATCH}: logits sha256 {digest}, {BATCH / dt:.2f} 10-s clips/s "
-              f"({dt * 1e3:.1f} ms per batch)", flush=True)
+            dt = timed(lambda: model(src))
+        print(f"{label} {mode} b{BATCH}: logits sha256 {digest(logits)}, {BATCH / dt:.2f} 10-s "
+              f"clips/s ({dt * 1e3:.1f} ms per batch)", flush=True)
         if model is not base:
             del model
             torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    measure_image(label, dev)
 
 
 def main() -> None:

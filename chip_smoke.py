@@ -1194,12 +1194,15 @@ def launch_line(got):
     return ", ".join(f"{k} {v}" for k, v in got.items() if v)
 
 
-def build_model(cfg, dev):
+def build_model(cfg, dev, dtype=torch.bfloat16):
+    """The seeded serving model of ``cfg``: bf16 with the serving cast of its
+    weights, or fp32 as built (JAX's default dtype, phase 23)."""
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.weights import serving_cast
 
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
-    model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
+    model = build_finetune_model(cfg, dtype=dtype, seed=SEED, device=dev)
+    if dtype == torch.bfloat16:
+        model.load_state_dict(serving_cast(model.state_dict()), strict=True, assign=True)
     return model
 
 
@@ -1341,15 +1344,17 @@ def image_forward_launches(mode, layer_norm_first, n_blocks):
     return want
 
 
-def phase_image(card, dev):
+def phase_image(card, dev, dtype=torch.bfloat16):
     """9. The image modality's serving path: the ViT-B/16 image model (the
     repo's image defaults, 4 prenet + 8 trunk blocks of 768, the 2-D ALiBi
     bias on) on b64 of 224 x 224 images, with post-LN and pre-LN blocks, each
     in bf16, int8 and int8_attn on the same seeded weights: one forward
     through the kernels (launch counts, no plain version on a CUDA tensor)
     against the plain path, the int8 modes also against the bf16 model's
-    features; then images/s (host clock over 5 forwards after 2). Returns
-    the launches of the checked forwards."""
+    features; then images/s (host clock over 5 forwards after 2). With
+    ``dtype`` fp32 (phase 23c) the fp32 model alone, bf16 matmuls (the
+    fp32 instances), against the plain path at FP32_IMAGE_REL. Returns the
+    launches of the checked forwards."""
     from animal2vec_tpu_torch.config import ImageConfig
     from animal2vec_tpu_torch.models.finetune import build_image_model
     from animal2vec_tpu_torch.weights import serving_cast
@@ -1357,15 +1362,17 @@ def phase_image(card, dev):
     imgs = torch.from_numpy(np.random.default_rng(SEED + 11).normal(
         size=(IMAGE_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
     launches = dict.fromkeys(_counted(), 0)
+    fp32 = dtype == torch.float32
     for pre_ln in (False, True):
         cfg = dataclasses.replace(ImageConfig(), use_alibi_encoder=True, layer_norm_first=pre_ln)
-        base = build_image_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
-        base.load_state_dict(serving_cast(base.state_dict()), strict=True, assign=True)
+        base = build_image_model(cfg, dtype=dtype, seed=SEED, device=dev)
+        if not fp32:
+            base.load_state_dict(serving_cast(base.state_dict()), strict=True, assign=True)
         layout = "pre-LN" if pre_ln else "post-LN"
         x_bf16 = None
-        for mode in IMAGE_MODES:
+        for mode in ("bf16",) if fp32 else IMAGE_MODES:
             model = base if mode == "bf16" else int8_model(base, cfg, mode, dev)
-            name = f"image {layout} {mode}"
+            name = f"23c fp32 image {layout}" if fp32 else f"image {layout} {mode}"
             with torch.inference_mode():
                 reset_counts()
                 with PlainSpy() as spy:
@@ -1390,7 +1397,9 @@ def phase_image(card, dev):
             launches = {k: launches[k] + v for k, v in got.items()}
             if tuple(x.shape) != (IMAGE_BATCH, IMAGE_T, cfg.embed_dim):
                 raise AssertionError(f"{name}: features of shape {tuple(x.shape)}")
-            tol = IMAGE_REL if mode == "bf16" else IMAGE_INT8_REL
+            tol = FP32_IMAGE_REL if fp32 else IMAGE_REL if mode == "bf16" else IMAGE_INT8_REL
+            if fp32 and x.dtype != torch.float32:
+                raise AssertionError(f"{name}: features in {x.dtype}")
             check_rel(f"{name} features x, kernel vs plain path", x, x_p, tol)
             if mode == "bf16":
                 x_bf16 = x
@@ -2494,10 +2503,12 @@ def pretrain_batch(cfg, dev, batch, seed, accum=None):
     return {"source": torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)}
 
 
-def phase_pretrain(cfg, card, dev, batch, label, unit, pre_ln=False, steps=3):
+def phase_pretrain(cfg, card, dev, batch, label, unit, pre_ln=False, steps=3,
+                   dtype=torch.bfloat16):
     """Pretraining steps of the full-width model ``cfg`` at ``batch`` x
-    ``clone_batch``, from the last warmup step: ``steps`` checked steps (finite loss and gradients, the
-    launch counts, no plain version on a CUDA tensor, the teacher subset of
+    ``clone_batch`` in the compute ``dtype``, from the last warmup step:
+    ``steps`` checked steps (finite loss and gradients, the launch counts,
+    no plain version on a CUDA tensor, the teacher subset of
     ``ema_param_label`` and its EMA step of exactly (1 - d)(s - t)), then 3
     timed ones. Returns the launches of the checked steps."""
     from animal2vec_tpu_torch.models.data2vec2 import ema_param_label
@@ -2508,7 +2519,7 @@ def phase_pretrain(cfg, card, dev, batch, label, unit, pre_ln=False, steps=3):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    model = build_pretrain_model(cfg, dtype=dtype, seed=SEED, device=dev)
     state = PretrainState.create(model, cfg)
     # start at the end of the warmup: its first learning rate is 0, which
     # would leave student and teacher where they are
@@ -2568,12 +2579,13 @@ def phase_pretrain(cfg, card, dev, batch, label, unit, pre_ln=False, steps=3):
     return totals
 
 
-def phase_pretrain_grads(cfg, dev, batch, label):
+def phase_pretrain_grads(cfg, dev, batch, label, dtype=torch.bfloat16, tol=MODEL_GRAD_TOL):
     """At ``batch`` x clone 2 with every rate at 0 (no mixup, dropout, noise
     fills or decoder input dropout), the biases moved off 0, and one mask
     drawn once, the loss's gradients through the kernels against those
-    through the plain versions, one relative norm per parameter tensor (the
-    learned ALiBi scale included)."""
+    through the plain versions in the compute ``dtype``, one relative norm
+    per parameter tensor (the learned ALiBi scale included), within
+    ``tol``."""
     from animal2vec_tpu_torch.models.finetune import build_pretrain_model
     from animal2vec_tpu_torch.ops.dropout import Rngs
     from animal2vec_tpu_torch.train.pretrain import draw_pretrain_mask, pretrain_loss
@@ -2583,7 +2595,7 @@ def phase_pretrain_grads(cfg, dev, batch, label):
         cfg, clone_batch=2, encoder_dropout=0.0, attention_dropout=0.0,
         post_mlp_drop=0.0, prenet_dropout=0.0, mask_noise_std=0.0,
         source_mixup=-1.0, decoder=dataclasses.replace(cfg.decoder, input_dropout=0.0))
-    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    model = build_pretrain_model(cfg, dtype=dtype, seed=SEED, device=dev)
     # At init the decoder's biases are 0 and, with the noise fill off, so
     # are its mask tokens: at a masked frame whose receptive field holds no
     # kept token the decoder's LayerNorm normalizes a zero vector, and its
@@ -2621,14 +2633,15 @@ def phase_pretrain_grads(cfg, dev, batch, label):
     print(f"{label} gradients b{batch} x clone 2, kernel vs plain path: loss {loss_k:.6f} vs "
           f"{loss_p:.6f}; relative norm per tensor: max {worst[0][1]:.3e}, median "
           f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors (tolerance "
-          f"{MODEL_GRAD_TOL}); ALiBi scale {[f'{rels[n]:.2e}' for n in scale]}; worst "
+          f"{tol}); ALiBi scale {[f'{rels[n]:.2e}' for n in scale]}; worst "
           f"{[(n, f'{r:.2e}') for n, r in worst]}")
     if not scale or set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
         raise AssertionError(f"{label}: the paths give gradients to different parameters")
-    if not max(rels.values()) <= MODEL_GRAD_TOL:
+    if not max(rels.values()) <= tol:
         raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
     del model, g_k, g_p
     torch.cuda.empty_cache()
+    return max(rels.values())
 
 
 def pretrain_kernel_times(gen, dev, row, rows):
@@ -4086,7 +4099,12 @@ def option_cfg(variant):
     return dataclasses.replace(FinetuneConfig(), **OPTION_VARIANTS[variant])
 
 
-def phase_option_model(variant, card, dev):
+# the b2 serving logits of each variant's bf16 model (phase 16a), which
+# phase 23a's fp32 models are held beside (printed, not gated)
+OPTION_BF16_LOGITS = {}
+
+
+def phase_option_model(variant, card, dev, dtype=torch.bfloat16):
     """16a. One variant at a2v-large width: the bf16 serving model (seeded
     weights, serving cast) at b2 kernel path against plain path (MODEL_TOL)
     with one serving launch set per block and no plain version on a CUDA
@@ -4094,10 +4112,13 @@ def phase_option_model(variant, card, dev):
     steps of the finetune_100 recipe with drop-path 0.1 (and activation
     dropout 0.1) from the first step after the freeze gate: finite loss and
     gradients, one training launch set per block that layerdrop kept, the
-    median ms; then at b1 with the rates of the phase's comparison (drop-path
-    and activation dropout on, the others 0) the kernel path's gradients
-    against the plain path's (MODEL_GRAD_TOL per tensor). Returns the
-    launches of the serving and training runs."""
+    median ms and peak memory; then at b2 with the rates of the phase's
+    comparison (drop-path and activation dropout on, the others 0) the
+    kernel path's gradients against the plain path's (MODEL_GRAD_TOL per
+    tensor). With ``dtype`` fp32 (23a): every model in fp32 (the kernels'
+    fp32 instances), the logits within FP32_MODEL_TOL and also against the
+    bf16 model's (printed), the gradients within FP32_GRAD_TOL. Returns the
+    launches of the serving and training runs and the run's figures."""
     from animal2vec_tpu_torch.config import FinetuneTrainConfig
     from animal2vec_tpu_torch.models.finetune import build_finetune_model
     from animal2vec_tpu_torch.models.modules import AltBlock
@@ -4106,11 +4127,17 @@ def phase_option_model(variant, card, dev):
     from animal2vec_tpu_torch.train.state import FinetuneState
 
     cfg = option_cfg(variant)
-    label = f"16 variant {variant}"
+    fp32 = dtype == torch.float32
+    label = f"23a fp32 variant {variant}" if fp32 else f"16 variant {variant}"
+    model_tol, grad_tol = (FP32_MODEL_TOL, FP32_GRAD_TOL) if fp32 else (MODEL_TOL, MODEL_GRAD_TOL)
     total = dict.fromkeys(_counted(), 0)
-    model = build_model(cfg, dev)
     src = torch.from_numpy(np.random.default_rng(SEED + 60).normal(
         size=(2, WAV_LEN)).astype(np.float32)).to(dev)
+    if fp32 and variant not in OPTION_BF16_LOGITS:  # phase 23 run alone
+        with torch.inference_mode():
+            OPTION_BF16_LOGITS[variant] = build_model(cfg, dev)(src)["encoder_out"]
+        torch.cuda.empty_cache()
+    model = build_model(cfg, dev, dtype)
     with torch.inference_mode():
         reset_counts()
         with PlainSpy() as spy:
@@ -4121,11 +4148,18 @@ def phase_option_model(variant, card, dev):
     want_launches = dict.fromkeys(_counted(), 0)
     want_launches.update({k: cfg.n_blocks for k in OPTION_SERVE_KEYS[variant]})
     err = (got.float() - want.float()).abs().max().item()
-    print(f"{label} serving b2: logits {tuple(got.shape)}, kernel vs plain path max abs "
-          f"{err:.3e} (tolerance {MODEL_TOL}); launches {launch_line(launched)}; plain versions "
-          f"called on CUDA tensors: {spy.cuda_calls}")
-    if not torch.isfinite(got).all() or not err <= MODEL_TOL:
+    print(f"{label} serving b2: logits {tuple(got.shape)} {got.dtype}, kernel vs plain path max "
+          f"abs {err:.3e} (tolerance {model_tol}); launches {launch_line(launched)}; plain "
+          f"versions called on CUDA tensors: {spy.cuda_calls}")
+    if not torch.isfinite(got).all() or not err <= model_tol or got.dtype != dtype:
         raise AssertionError(f"{label}: serving logits disagree with the plain path")
+    if fp32:
+        ref = OPTION_BF16_LOGITS[variant]
+        print(f"{label} serving b2 logits against the bf16 model's (not gated): max abs "
+              f"{(got - ref.float()).abs().max().item():.3e}, relative norm "
+              f"{rel_norm(got, ref):.3e}")
+    else:
+        OPTION_BF16_LOGITS[variant] = got
     if launched != want_launches or spy.cuda_calls:
         raise AssertionError(f"{label}: serving launches {launched} != {want_launches}")
     total = {k: total[k] + launched[k] for k in total}
@@ -4158,7 +4192,7 @@ def phase_option_model(variant, card, dev):
                                activation_dropout=OPTION_ACT_DROP,
                                optimization=dataclasses.replace(base.optimization,
                                                                 update_freq=1))
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=tcfg)
+    model = build_finetune_model(cfg, dtype=dtype, seed=SEED, device=dev, train=tcfg)
     state = FinetuneState.create(model, tcfg)
     state.step = tcfg.freeze_finetune_updates
     step_fn = make_finetune_train_step(tcfg)
@@ -4192,18 +4226,18 @@ def phase_option_model(variant, card, dev):
             if p.grad is None or not torch.isfinite(p.grad).all():
                 raise AssertionError(f"{label}: missing or non-finite gradient {n}")
         total = {k: total[k] + launched[k] for k in total}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
     train_ms = float(np.median(times))
     print(f"{label} train step b{TRAIN_BATCH} (finetune_100, drop_path {OPTION_DROP_PATH}, "
           f"activation_dropout {OPTION_ACT_DROP}): median {train_ms:.1f} ms of "
-          f"{[round(t, 1) for t in times]}, peak memory {peak:.2f} GiB on {card}")
+          f"{[round(t, 1) for t in times]}, peak memory {train_peak:.2f} GiB on {card}")
     del state, model, step_fn
     torch.cuda.empty_cache()
 
     gcfg = dataclasses.replace(
         tcfg, freeze_finetune_updates=0, apply_mask=False, mask_channel_prob=0.0, dropout=0.0,
         attention_dropout=0.0, layerdrop=0.0, source_mixup=-1.0)
-    model = build_finetune_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev, train=gcfg)
+    model = build_finetune_model(cfg, dtype=dtype, seed=SEED, device=dev, train=gcfg)
     mb = {k: v[0] for k, v in train_batch(cfg, dev, batch=2, seed=SEED + 61).items()}
 
     def grads():
@@ -4224,14 +4258,16 @@ def phase_option_model(variant, card, dev):
           f"{OPTION_ACT_DROP}, the same draws), kernel vs plain path: loss {loss_k:.6f} vs "
           f"{loss_p:.6f}; relative norm per tensor max {worst[0][1]:.3e}, median "
           f"{float(np.median(list(rels.values()))):.3e} over {len(rels)} tensors (tolerance "
-          f"{MODEL_GRAD_TOL}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
+          f"{grad_tol}); worst {[(n, f'{r:.2e}') for n, r in worst]}")
     if set(rels) != set(n for n in g_k if g_k[n].norm() > 0):
         raise AssertionError(f"{label}: the two paths give gradients to different parameters")
-    if not max(rels.values()) <= MODEL_GRAD_TOL:
+    if not max(rels.values()) <= grad_tol:
         raise AssertionError(f"{label}: kernel-path gradients disagree with the plain path")
     del model, g_k, g_p
     torch.cuda.empty_cache()
-    return total, {"serve_b32_ms": serve_ms, "train_b4_ms": train_ms}
+    return total, {"serve_b32_ms": serve_ms, "train_b4_ms": train_ms, "serve_peak_gib": peak,
+                   "train_peak_gib": train_peak, "logits_max_abs_err": err,
+                   "grad_rel_max": max(rels.values())}
 
 
 # the launches of one int8 block by variant and mode (ROADMAP A.12): pre-LN
@@ -4319,12 +4355,13 @@ def phase_option_int8(variant, card, dev):
     return total, rows
 
 
-def phase_option_pretrain(card, dev):
+def phase_option_pretrain(card, dev, dtype=torch.bfloat16):
     """16b. One a2v-large pretrain step of variant P at the v5e micro-batch
     (b8 x clone 12, update_freq 1) with the A.7 dropouts (activation 0.1,
     input 0.1, layerdrop 0.05, prenet layerdrop 0.05) and drop-path 0.1:
     finite loss and gradients, the launches, the ms of a second step and the
-    peak memory. Returns the launches."""
+    peak memory; in the compute ``dtype`` (fp32: 23a). Returns the
+    launches."""
     from animal2vec_tpu_torch.models.finetune import build_pretrain_model
     from animal2vec_tpu_torch.ops.dropout import Rngs
     from animal2vec_tpu_torch.train.pretrain import make_pretrain_train_step
@@ -4337,11 +4374,12 @@ def phase_option_pretrain(card, dev):
     cfg = dataclasses.replace(base, model=mcfg, activation_dropout=0.1, dropout_input=0.1,
                               layerdrop=0.05, prenet_layerdrop=0.05)
     torch.cuda.empty_cache()
-    model = build_pretrain_model(cfg, dtype=torch.bfloat16, seed=SEED, device=dev)
+    model = build_pretrain_model(cfg, dtype=dtype, seed=SEED, device=dev)
     state = PretrainState.create(model, cfg)
     state.step = cfg.optimization.warmup_updates
     step_fn = make_pretrain_train_step(cfg)
     data = pretrain_batch(cfg, dev, V5E_BATCH, SEED + 63)
+    tag = "23a fp32" if dtype == torch.float32 else "16b"
     total = dict.fromkeys(_counted(), 0)
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -4354,18 +4392,18 @@ def phase_option_pretrain(card, dev):
         times.append((time.perf_counter() - t0) * 1e3)
         launched = counts()
         loss = float(metrics["loss"])
-        print(f"16b a2v-large pretrain step {i + 1}, variant P, b{V5E_BATCH} x clone "
+        print(f"{tag} a2v-large pretrain step {i + 1}, variant P, b{V5E_BATCH} x clone "
               f"{cfg.clone_batch} (activation 0.1, input 0.1, layerdrop 0.05, prenet layerdrop "
               f"0.05, drop-path {OPTION_DROP_PATH}): loss {loss:.6f}, {times[-1]:.1f} ms; "
               f"launches {launch_line(launched)}")
         bad = [n for n, p in model.named_parameters()
                if p.grad is not None and not torch.isfinite(p.grad).all()]
         if not np.isfinite(loss) or bad or spy.cuda_calls or not launched["mlp"]:
-            raise AssertionError(f"16b: loss {loss}, non-finite gradients {bad[:3]}, plain calls "
-                                 f"{spy.cuda_calls}, launches {launched}")
+            raise AssertionError(f"{tag}: loss {loss}, non-finite gradients {bad[:3]}, plain "
+                                 f"calls {spy.cuda_calls}, launches {launched}")
         total = {k: total[k] + launched[k] for k in total}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"16b variant P pretrain step: {times[-1]:.1f} ms (second step), peak memory "
+    print(f"{tag} variant P pretrain step: {times[-1]:.1f} ms (second step), peak memory "
           f"{peak:.2f} GiB (torch.cuda.max_memory_allocated) on {card}")
     del state, model, step_fn, data
     torch.cuda.empty_cache()
@@ -5957,6 +5995,27 @@ def fp32_block_bound(n, c=1024, m=4096):
     return fp32_bound(4 * n * c * m, 4 * n * c * 3 + 4 * 2 * c * m + 4 * (5 * c + m))
 
 
+def fp32_row_printer(tag):
+    """(rows, row): ``row(key, d, shape, ms, dev_ms, bf16_ms, plain_ms,
+    library_ms, bound, rate, gemm_ms=None)`` prints one fp32 instance's
+    times (``bound`` = fp32_bound's triple) and keeps them in ``rows``."""
+    rows = {}
+
+    def row(key, d, shape, ms, dev_ms, bf16_ms, plain_ms, library_ms, bnd, rate, gemm_ms=None):
+        rows[f"{key}{'' if d is None else f' D {d}'}, {shape}"] = {
+            "ms": ms, "device_ms": dev_ms, "bf16_ms": bf16_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "split_floor_ms": bnd[2], "rate": rate, "gemm_device_ms": gemm_ms, "shape": shape}
+        print(f"  {tag} fp32 {key}{'' if d is None else f' D {d}'}, {shape}: kernel {ms:.4f} ms "
+              f"(device {ms_text(dev_ms)}){rate_text(rate, 'TFLOP/s')}"
+              + ("" if gemm_ms is None else f", the two GEMM launches {ms_text(gemm_ms)}")
+              + f"; bf16 instance {bf16_ms:.4f} ms; plain {plain_ms:.3f} ms; library (fp32, TF32 "
+              f"off) {library_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; TF32 peak), split "
+              f"floor {bnd[2]:.4f} ms")
+
+    return rows, row
+
+
 def fp32_smem_line():
     """The dynamic shared memory of each instance, bf16 against fp32 (whose
     staged heads and rings hold a hi and a lo tile each), from the sources'
@@ -6422,20 +6481,7 @@ def phase_fp32(card, dev, lib_path, bf16_logits):
 
     t0 = time.perf_counter()
     print(f"22 JAX's default compute dtype, fp32, on the card (ROADMAP A.13) on {card}")
-    rows = {}
-
-    def row(key, d, shape, ms, dev_ms, bf16_ms, plain_ms, library_ms, bnd, rate, gemm_ms=None):
-        rows[f"{key}{'' if d is None else f' D {d}'}, {shape}"] = {
-            "ms": ms, "device_ms": dev_ms, "bf16_ms": bf16_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "split_floor_ms": bnd[2], "rate": rate, "gemm_device_ms": gemm_ms, "shape": shape}
-        print(f"  22k fp32 {key}{'' if d is None else f' D {d}'}, {shape}: kernel {ms:.4f} ms "
-              f"(device {ms_text(dev_ms)}){rate_text(rate, 'TFLOP/s')}"
-              + ("" if gemm_ms is None else f", the two GEMM launches {ms_text(gemm_ms)}")
-              + f"; bf16 instance {bf16_ms:.4f} ms; plain {plain_ms:.3f} ms; library (fp32, TF32 "
-              f"off) {library_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; TF32 peak), split "
-              f"floor {bnd[2]:.4f} ms")
-
+    rows, row = fp32_row_printer("22k")
     ptxas = [line for line in ptxas_summary((lib_path.parent / "build.log").read_text())
              if "f32>" in line and ("alibi" in line or "gemm_bf16" in line or "ln_rows" in line
                                     or "split_weights" in line)]
@@ -6486,6 +6532,369 @@ def phase_fp32(card, dev, lib_path, bf16_logits):
     return launches, errs, rows
 
 
+# phase 23: the fp32 instances of #8, #11 and #11b (ROADMAP A.13, second
+# slice) and the families they open in JAX's default dtype: variants N and
+# P (ALiBi-free post-LN, PCEN pre-LN) and the ViT-B/16 image model. Gates
+# as phase 22's, a tenth of each bf16 gate (tests/test_torch_fp32_dense_bias
+# holds the arithmetic against JAX on the CPU within them), save dbias's:
+# dS = P (dP - delta) cancels where dP is near delta, and there the split
+# products' 2^-17 of dP, times P, outgrows a tenth of DBIAS_TOL (10.7x in
+# the CPU emulation at the card's b128 T 59 shape) and at a few elements
+# DBIAS_TOL itself (1 of 5 346 816 at 1.069x there; 1 of 167 088 at 2.127x
+# in the test's draw), so 4x the emulation lies past the bf16 gate, the
+# rule's cap: dbias is held at DBIAS_TOL for all but FP32_DBIAS_FLIP_SHARE
+# of the elements, none beyond FP32_DBIAS_FLIP_FACTOR (4x 2.127, rounded
+# up) of it, with every (b, h) plane's relative norm within a tenth of
+# REL_HEAD (the emulation: 1.4e-5).
+FP32_DBIAS_TOL = DBIAS_TOL
+FP32_DBIAS_FLIP_SHARE, FP32_DBIAS_FLIP_FACTOR = 1e-5, 9.0
+FP32_REL_HEAD = REL_HEAD / 10
+FP32_IMAGE_REL = IMAGE_REL / 10
+FP32_DENSE_KEYS = ("mlp", "bias_attention", "bias_dq", "bias_dkv", "bias_single")
+FP32_DENSE_HEAD_DIMS = (64, 128)  # one tile and two (stage_head)
+
+
+def fp32_mlp_bound(n, c, m, c2):
+    """fc1 and fc2 (2*N*C*M + 2*N*M*C2); fp32 x read and out written, fp32
+    weights and biases read once."""
+    return fp32_bound(2 * n * m * (c + c2), 4 * n * (c + c2) + 4 * m * (c + c2) + 4 * (m + c2))
+
+
+def fp32_bias_bounds(b, h, t, d, bias_rows=0, dbias=False):
+    """bias_attention_bwd_bounds' work in fp32 bytes: q, k, v, dO, out, dq,
+    dk, dv four bytes an element; the fp32 bias planes (``bias_rows`` of
+    them) read once, dbias (B planes) written once."""
+    bhtd, bht, plane = b * h * t * d, b * h * t, 4 * h * t * t
+    flops = 2 * bhtd * t
+    inputs = 4 * 4 * bhtd + 2 * 4 * bht + bias_rows * plane
+    dbias_out = b * plane if dbias else 0
+    return {
+        "bias_attention": fp32_bound(2 * flops, 4 * 4 * bhtd + 4 * bht + bias_rows * plane),
+        "bias_dq": fp32_bound(3 * flops, inputs + 4 * bhtd + dbias_out),
+        "bias_dkv": fp32_bound(4 * flops, inputs + 2 * 4 * bhtd),
+        "bias_single": fp32_bound(5 * flops, inputs + 3 * 4 * bhtd + dbias_out),
+    }
+
+
+def check_fp32_dbias(name, got, want):
+    """dbias in fp32 against its plain version: FP32_DBIAS_TOL for all but
+    FP32_DBIAS_FLIP_SHARE of the elements, none beyond
+    FP32_DBIAS_FLIP_FACTOR of it, every (b, h) plane within FP32_REL_HEAD
+    relative norm (planes of norm below 1e-3 count as 1e-3). Returns the
+    max abs error."""
+    atol, rtol = FP32_DBIAS_TOL
+    err = (got - want).abs()
+    ratio = err / (atol + rtol * want.abs())
+    over, worst = (ratio > 1).sum().item(), ratio.max().item()
+    rel = ((got - want).flatten(2).norm(dim=-1)
+           / want.flatten(2).norm(dim=-1).clamp_min(1e-3)).max().item()
+    print(f"{name}: max_abs_err {err.max().item():.3e} (tolerance {atol} + {rtol}*|plain| for all "
+          f"but {FP32_DBIAS_FLIP_SHARE:g} of the elements, within {FP32_DBIAS_FLIP_FACTOR} of it), "
+          f"worst ratio {worst:.3f}, {over} of {ratio.numel()} over; per (b, h) relative norm "
+          f"max {rel:.3e} (tolerance {FP32_REL_HEAD})")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if worst > FP32_DBIAS_FLIP_FACTOR or over > FP32_DBIAS_FLIP_SHARE * ratio.numel() \
+            or rel > FP32_REL_HEAD:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err.max().item()
+
+
+def fp32_dense_smem_line():
+    """The dynamic shared memory of #11's and #11b's instances with a bias,
+    bf16 against fp32 (whose staged heads hold a hi and a lo tile each, and
+    the single launch's dS and P f too), from the sources' formulas:
+    bias_attention.cu smem_bytes, bias_attention_bwd.cu dq_smem, dkv_smem
+    and single_smem (a 64 x 64 bf16 tile is 8192 bytes, an fp32 one 16
+    384); #8's GEMM takes #6's."""
+    tile, f32_tile, parts = 8192, 16384, []
+    for nc in (1, 2):
+        for name, tiles, side in (("#11", lambda p: nc * p * 5, 2 * f32_tile + 2 * 64 * 4),
+                                  ("#11b dq", lambda p: nc * p * 6, 2 * f32_tile + 2 * 64 * 4),
+                                  ("#11b dk/dv", lambda p: nc * p * 6, 2 * f32_tile + 2 * 64 * 16),
+                                  ("#11b single", lambda p: (4 * nc + 2) * p, f32_tile + 64 * 4)):
+            b16, f32 = (tile * tiles(p) + side + 1024 for p in (1, 2))
+            parts.append(f"{name} NC {nc} {b16} / {f32} B")
+    return "23k dynamic shared memory with a bias, bf16 / fp32: " + ", ".join(parts)
+
+
+def fp32_dense_inputs(gen, b, h, t, d, dev):
+    """fp32 (B, T, H, D) q, k, v views of one (B, T, 3, H, D) projection."""
+    return torch.randn((b, t, 3, h, d), generator=gen, device=dev).unbind(2)
+
+
+def fp32_mlp_rows(dev, row, err):
+    """23k's #8: the fp32 instance at variant P's b32 serving shape (N 64
+    000, C 1024, M 4096), its b4 step's (N 8000) with both dropout sites at
+    0.1, and the ViT-B/16 pre-LN b64 shape (N 12 544, C 768, M 3072), the
+    weights in nn.Linear layout, against the plain version in fp32 at
+    FP32_BLOCK_TOL; timed beside the bf16 instance on the same values, the
+    plain version, F.linear -> GELU -> F.linear in fp32 (TF32 off)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    for n, c, m, drop in ((32 * 2000, 1024, 4096, ()), (TRAIN_BATCH * 2000, 1024, 4096,
+                                                        ((21, -22), OPTION_ACT_DROP)),
+                          (IMAGE_BATCH * IMAGE_T, 768, 3072, ())):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2300 + n)
+        x = torch.randn((n, c), generator=gen, device=dev)
+        w1 = torch.randn((m, c), generator=gen, device=dev) * (2 / (c + m)) ** 0.5
+        w2 = torch.randn((c, m), generator=gen, device=dev) * (2 / (c + m)) ** 0.5
+        b1 = torch.randn((m,), generator=gen, device=dev) * 0.1
+        b2 = torch.randn((c,), generator=gen, device=dev) * 0.1
+        shape = f"N {n}, C {c}, M {m}" + (f", dropout {drop[1]}" if drop else "")
+        with torch.no_grad():
+            got = fused_mlp(x, w1, w2, b1, b2, *drop)
+            want = fused_mlp_plain(x, w1, w2, b1, b2, *drop)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32:
+                raise AssertionError(f"23k #8 fp32: out is {got.dtype}")
+            err("mlp", check_close(f"23k fp32 fused MLP {shape}", got, want, FP32_BLOCK_TOL))
+            del got, want
+            run = lambda a: lambda: fused_mlp(*a, *drop)  # noqa: E731
+            args = (x, w1, w2, b1, b2)
+            bf16_args = tuple(a.to(torch.bfloat16) if i < 3 else a for i, a in enumerate(args))
+            dev_ms = device_ms(run(args), "")
+            row("mlp", None, shape, cuda_ms(run(args)), dev_ms, cuda_ms(run(bf16_args)),
+                cuda_ms(lambda: fused_mlp_plain(*args, *drop), iters=1, warmup=1),
+                cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)),
+                fp32_mlp_bound(n, c, m, c), per_ms(4 * n * c * m, dev_ms),
+                gemm_ms=device_ms(run(args), "gemm_bf16_sm90"))
+        print(f"  23k fp32 fused MLP {shape}: bf16 scratch of the split planes "
+              f"{2 * 3 * (n * c + n * m + 2 * m * c) / 1e9:.3f} GB a launch")
+        del x, w1, w2, b1, b2, args, bf16_args
+        torch.cuda.empty_cache()
+
+
+def fp32_bias_forward_rows(dev, row, err):
+    """23k's #11: the fp32 instance at variant N's b32 serving (H 16, T
+    2000, no bias), the ViT-B/16 b64 serving (H 12, T 196, the 2-D ALiBi
+    bias; also at D 128) and its pretraining student (b128, T 59, per-row
+    keep-set bias, lse, dropout 0.1), against the plain version in fp32
+    (FP32_ATTN_TOL, FP32_LSE_TOL; the dropout's mask drawn alike); timed
+    beside the bf16 instance, the plain version and SDPA in fp32 with the
+    bias as an fp32 float mask (TF32 off; its own dropout_p)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        attention_keep, bias_attention_forward, bias_attention_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 2310)
+    cases = (("b32 H 16 T 2000 serving, no bias", 32, 16, 2000, 64, None, 0.0),
+             ("b64 H 12 T 196 serving, 2-D ALiBi", IMAGE_BATCH, IMAGE_HEADS, IMAGE_T, 64,
+              image_bias(IMAGE_HEADS, IMAGE_T, dev), 0.0),
+             ("b64 H 12 T 196 serving, 2-D ALiBi", IMAGE_BATCH, IMAGE_HEADS, IMAGE_T, 128,
+              image_bias(IMAGE_HEADS, IMAGE_T, dev), 0.0),
+             (f"b128 H 12 T {STUDENT_T} student, per-row bias, lse, dropout {BIAS_DROP}",
+              2 * IMAGE_BATCH, IMAGE_HEADS, STUDENT_T, 64,
+              keep_set_bias(rng, 2 * IMAGE_BATCH, IMAGE_HEADS, STUDENT_T, dev), BIAS_DROP))
+    for shape, b, h, t, d, bias, rate in cases:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2311 + t + d)
+        q, k, v = fp32_dense_inputs(gen, b, h, t, d, dev)
+        train = rate > 0.0
+        keep = attention_keep(b, h, t, rate, BIAS_DROP_SEED, dev) if train else None
+        label = f"23k D {d} fp32 bias attention {shape}"
+        with torch.no_grad():
+            got = bias_attention_forward(q, k, v, bias, None, train, rate, BIAS_DROP_SEED)
+            want = bias_attention_plain(q, k, v, bias, None, train, keep, rate)
+            torch.cuda.synchronize()
+            out, out_p = (got[0], want[0]) if train else (got, want)
+            if out.dtype != torch.float32:
+                raise AssertionError(f"{label}: out is {out.dtype}")
+            err("bias_attention", check_close(f"{label} out", out, out_p, FP32_ATTN_TOL))
+            if train:
+                check_close(f"{label} lse", got[1], want[1], FP32_LSE_TOL)
+            del got, want, out, out_p
+            run = lambda a: lambda: bias_attention_forward(  # noqa: E731
+                *a, bias, None, train, rate, BIAS_DROP_SEED)
+            args = (q, k, v)
+            bf16_args = tuple(x.to(torch.bfloat16) for x in args)
+            qs, ks, vs = (x.transpose(1, 2) for x in args)
+            dev_ms = device_ms(run(args), "bias_attention_kernel")
+            row("bias_attention", d, shape, cuda_ms(run(args)), dev_ms, cuda_ms(run(bf16_args)),
+                cuda_ms(lambda: bias_attention_plain(*args, bias, None, train, keep, rate),
+                        iters=1, warmup=1),
+                cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias,
+                                                               dropout_p=rate)),
+                fp32_bias_bounds(b, h, t, d, 0 if bias is None else bias.shape[0])
+                ["bias_attention"], per_ms(4 * b * h * t * t * d, dev_ms))
+        del q, k, v, args, bf16_args, qs, ks, vs, keep
+        torch.cuda.empty_cache()
+
+
+def fp32_bias_backward_rows(dev, row, err):
+    """23k's #11b: the fp32 dq and dk/dv instances at variant N's b4 step
+    (H 16, T 2000, no bias, dropout 0.1) and the single launch at the
+    ViT-B/16 student's b128 T 59 (per-row keep-set bias, dropout 0.1), at D
+    64 and 128, on the fp32 forward's lse and delta, against the plain
+    version in fp32 (FP32_BWD_TOL; dbias check_fp32_dbias); timed at D 64
+    beside the bf16 instances on the same values, the plain version and
+    SDPA's forward + backward in fp32 (TF32 off; the bias as an fp32 mask
+    that requires grad)."""
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        attention_keep, bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv,
+        bias_attention_dq, bias_attention_forward,
+    )
+
+    rng = np.random.default_rng(SEED + 2320)
+    for d in FP32_DENSE_HEAD_DIMS:
+        for shape, b, h, t, bias in (
+                (f"b{TRAIN_BATCH} H 16 T 2000, no bias, dropout {BIAS_DROP}", TRAIN_BATCH, 16,
+                 2000, None),
+                (f"b128 H 12 T {STUDENT_T} student, per-row bias, dropout {BIAS_DROP}",
+                 2 * IMAGE_BATCH, IMAGE_HEADS, STUDENT_T,
+                 keep_set_bias(rng, 2 * IMAGE_BATCH, IMAGE_HEADS, STUDENT_T, dev))):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 2321 + t + d)
+            label = f"23k D {d} fp32 bias attention backward {shape}"
+            drop = (BIAS_DROP, BIAS_DROP_SEED)
+            keep = attention_keep(b, h, t, BIAS_DROP, BIAS_DROP_SEED, dev)
+            # the fp32 values, and their bf16 roundings for the bf16 instance,
+            # each with its own forward's lse and delta
+            qkvg = (*fp32_dense_inputs(gen, b, h, t, d, dev),
+                    torch.randn((b, t, h, d), generator=gen, device=dev))
+            inputs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v, dout = (x.to(dt) for x in qkvg)
+                out, lse = bias_attention_forward(q, k, v, bias, None, True, *drop)
+                delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, t)
+                inputs[dt] = (q, k, v, dout, lse, delta.contiguous(), bias, None)
+            args = inputs[torch.float32]
+            want = bias_attention_bwd_plain(*args, keep, BIAS_DROP)
+            single = t <= 64
+            if single:
+                got = bias_attention_bwd_single(*args, rate=BIAS_DROP, seed=BIAS_DROP_SEED)
+            else:
+                dq, dbias = bias_attention_dq(*args, rate=BIAS_DROP, seed=BIAS_DROP_SEED)
+                got = (dq, *bias_attention_dkv(*args, rate=BIAS_DROP, seed=BIAS_DROP_SEED), dbias)
+            torch.cuda.synchronize()
+            for i, what in enumerate(("dq", "dk", "dv")):
+                if got[i].dtype != torch.float32:
+                    raise AssertionError(f"{label}: {what} is {got[i].dtype}")
+                e = check_close(f"{label} {what}", got[i], want[i], FP32_BWD_TOL)
+                err("bias_single" if single else ("bias_dq" if i == 0 else "bias_dkv"), e)
+            check_heads(label, ("dq", "dk", "dv"), [x.transpose(1, 2) for x in got[:3]],
+                        [x.transpose(1, 2) for x in want[:3]], FP32_REL_HEAD)
+            if bias is not None:
+                err("bias_single" if single else "bias_dq",
+                    check_fp32_dbias(f"{label} dbias", got[3], want[3]))
+            del got, want
+            if d == 64:
+                fp32_bias_backward_times(row, shape, inputs, keep, single)
+            del inputs, args, keep, qkvg
+            torch.cuda.empty_cache()
+
+
+def fp32_bias_backward_times(row, shape, inputs, keep, single):
+    """23k's #11b rows at D 64: the fp32 launches (inputs[fp32], the
+    forward's lse and delta) by CUDA events and device time, beside the
+    bf16 instances on the bf16 values (inputs[bf16]), the plain version and
+    SDPA's forward + backward in fp32 with the bias as an fp32 mask that
+    requires grad (its own dropout_p)."""
+    import torch.nn.functional as F
+    from animal2vec_tpu_torch.ops.bias_attention import (
+        bias_attention_bwd_plain, bias_attention_bwd_single, bias_attention_dkv,
+        bias_attention_dq,
+    )
+
+    args = inputs[torch.float32]
+    bias = args[6]
+    b, t, h, d = args[0].shape
+    q, k, v = (x.detach().clone().transpose(1, 2).requires_grad_() for x in args[:3])
+    mask = None if bias is None else bias.detach().clone().requires_grad_()
+    g = args[3].transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=BIAS_DROP)
+        torch.autograd.grad(o, [q, k, v] + ([] if mask is None else [mask]), g)
+
+    library = cuda_ms(sdpa)
+    plain = cuda_ms(lambda: bias_attention_bwd_plain(*args, keep, BIAS_DROP), iters=1, warmup=1)
+    bounds = fp32_bias_bounds(b, h, t, d, 0 if bias is None else b, bias is not None)
+    kw = dict(rate=BIAS_DROP, seed=BIAS_DROP_SEED)
+    for key, fn, kernel, mult in (
+            (("bias_single", bias_attention_bwd_single, "bias_attention_bwd_single", 5),)
+            if single else
+            (("bias_dq", bias_attention_dq, "bias_attention_dq", 3),
+             ("bias_dkv", bias_attention_dkv, "bias_attention_dkv", 4))):
+        run = lambda a, _fn=fn: lambda: _fn(*a, **kw)  # noqa: E731
+        dev_ms = device_ms(run(args), kernel)
+        row(key, d, shape, cuda_ms(run(args)), dev_ms, cuda_ms(run(inputs[torch.bfloat16])),
+            plain, library, bounds[key], per_ms(mult * 2 * b * h * t * t * d, dev_ms))
+
+
+def fp32_dense_kernel_rows(dev, row):
+    """23k. The fp32 instances of #8, #11 and #11b against their plain
+    versions in fp32 at the paths' shapes, timed (fp32_mlp_rows,
+    fp32_bias_forward_rows, fp32_bias_backward_rows). Returns the largest
+    error of each kernel key."""
+    errs = dict.fromkeys(FP32_DENSE_KEYS, 0.0)
+
+    def err(key, e):
+        errs[key] = max(errs[key], e)
+
+    fp32_mlp_rows(dev, row, err)
+    fp32_bias_forward_rows(dev, row, err)
+    fp32_bias_backward_rows(dev, row, err)
+    return errs
+
+
+def phase_fp32_dense(card, dev, lib_path):
+    """23. JAX's default compute dtype for pre-LN, ALiBi-free and image
+    encoders on the card (ROADMAP A.13, second slice): 23k the fp32
+    instances of #8, #11 and #11b against their plain versions, timed; 23a
+    variants N and P in fp32 (phase 16a's runs: b2 logits against the plain
+    path and the bf16 model's, b32 clips/s, three b4 finetune steps, b2
+    gradients; one variant P pretrain step at b8 x clone 12); 23c the
+    ViT-B/16 image model in fp32 (b64 served post-LN and pre-LN, two
+    PretrainConfig.vit_b16 steps at b64 x clone 2, b2 gradients). Returns
+    (launches by kernel key of the main paths, errors, rows)."""
+    from animal2vec_tpu_torch.config import PretrainConfig
+
+    t0 = time.perf_counter()
+    print(f"23 fp32 for pre-LN, ALiBi-free and image encoders (ROADMAP A.13) on {card}")
+    rows, row = fp32_row_printer("23k")
+    ptxas = [line for line in ptxas_summary((lib_path.parent / "build.log").read_text())
+             if "f32>" in line and ("bias_attention" in line or "split_planes" in line)]
+    for line in ptxas:
+        print("  23k ptxas:", line)
+    print("  " + fp32_dense_smem_line())
+    errs = fp32_dense_kernel_rows(dev, row)
+    parts = {"23k": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    launches = dict.fromkeys(_counted(), 0)
+    models = {}
+    for variant in OPTION_VARIANTS:
+        got, models[variant] = phase_option_model(variant, card, dev, torch.float32)
+        launches = {k: launches[k] + got[k] for k in launches}
+    got, models["P_pretrain"] = phase_option_pretrain(card, dev, torch.float32)
+    launches = {k: launches[k] + got[k] for k in launches}
+    parts["23a"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    got = phase_image(card, dev, torch.float32)
+    launches = {k: launches[k] + got[k] for k in launches}
+    vit = PretrainConfig.vit_b16()
+    label = "23c fp32 image pretrain (ViT-B/16 post-LN)"
+    got = phase_pretrain(vit, card, dev, IMAGE_BATCH, label, "images", steps=2,
+                         dtype=torch.float32)
+    launches = {k: launches[k] + got[k] for k in launches}
+    models["vit_grad_rel_max"] = phase_pretrain_grads(vit, dev, 2, label, torch.float32,
+                                                      FP32_GRAD_TOL)
+    parts["23c"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    for key in FP32_DENSE_KEYS:
+        if key != "bias_single" and not launches[key]:
+            raise AssertionError(f"23: the fp32 main paths launched no {key}")
+    if not launches["bias_single"]:
+        raise AssertionError("23: the fp32 image pretrain steps launched no single backward")
+    seconds = time.perf_counter() - t0
+    print(f"23 launches over the phase's main-path runs: {launch_line(launches)}")
+    print(json.dumps({"phase23": {"rows": rows, "models": models, "launches": launches,
+                                  "errors": errs, "ptxas": ptxas, "seconds": seconds,
+                                  "parts": parts}}))
+    print(f"23 phase {seconds:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return launches, errs, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6497,6 +6906,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    start = time.perf_counter()
+
+    def lap(what):
+        # the script's own clock after each group of phases (its time limit
+        # counts the build too)
+        print(f"chip_smoke at {time.perf_counter() - start:.1f} s: {what} done", flush=True)
 
     card = card_line()
     print(card)
@@ -6519,6 +6935,7 @@ def main() -> int:
     block_err = max(phase_block(dev), phase_block_train(dev))
     int8_errs = phase_int8_kernels(dev)
     mlp_errs = phase_mlp(dev)
+    lap("phases 1-4")
 
     cfg = FinetuneConfig()
     model = build_model(cfg, dev)
@@ -6538,7 +6955,9 @@ def main() -> int:
     block_err = max(block_err, b32_errs["block"])
     training = phase_train(cfg, card, dev)
     phase_train_grads(cfg, dev)
+    lap("phases 5-8")
     image = phase_image(card, dev)
+    lap("phase 9")
 
     from animal2vec_tpu_torch.config import ImageConfig, PretrainConfig
 
@@ -6555,15 +6974,19 @@ def main() -> int:
     pre_audio = phase_pretrain(a2v, card, dev, 5, "audio pretrain (a2v-large, "
                                "a2v_large_pretrain.yaml)", "10-s clips")
     phase_pretrain_grads(a2v, dev, 1, "audio pretrain (a2v-large)")
+    lap("phases 10-11")
     pretrain = {k: pre_image[k] + pre_image_ln[k] + pre_audio[k] for k in pre_image}
     entry_launches = phase_entry(card, dev)
+    lap("phase 12")
     torch.cuda.empty_cache()
     serving_entry = phase_serving_entry(card, dev)
+    lap("phase 13")
     torch.cuda.empty_cache()
     ring_row, ring_launches, ring_err = phase_ring(dev)
     torch.cuda.empty_cache()
     dp_step = phase_dp_step(card, dev)
     phase_dp_entry(card, dev)
+    lap("phase 14")
     print("dp: train_cli's default group on the card is NCCL with one rank (phase 12's four "
           "train_cli runs, checked there)")
     torch.cuda.empty_cache()
@@ -6575,20 +6998,31 @@ def main() -> int:
     tokens = phase_tokens(card, dev)
     config_launches = phase_config_cli(card, dev)
     print(json.dumps({"phase15": {"remat": remat_rows, "tokens": tokens}}))
+    lap("phase 15")
     torch.cuda.empty_cache()
     option_launches, option_int8_launches, option_errs, option_rows = phase_options(card, dev)
+    lap("phase 16")
     torch.cuda.empty_cache()
     a7_launches, _ = phase_a7(card, dev)
+    lap("phase 17")
     torch.cuda.empty_cache()
     probe_launches, probe_checks, probe_rows = phase_probes(card, dev)
+    lap("phase 18")
     torch.cuda.empty_cache()
     a10_launches, a10_errs, a10_rows = phase_a10(card, dev)
+    lap("phase 19")
     torch.cuda.empty_cache()
     widths_launched, width_errs, width_rows = phase_widths(card, dev, lib_path)
+    lap("phase 20")
     torch.cuda.empty_cache()
     head_launched, head_errs, head_rows = phase_head_dims(card, dev, lib_path)
+    lap("phase 21")
     torch.cuda.empty_cache()
     fp32_launched, fp32_errs, fp32_rows = phase_fp32(card, dev, lib_path, bf16_logits)
+    lap("phase 22")
+    torch.cuda.empty_cache()
+    dense_launched, dense_errs, dense_rows = phase_fp32_dense(card, dev, lib_path)
+    lap("phase 23")
 
     def entry(name, source, replaces, launches, serving_launches, err, key, serving_key=None):
         # source: the .cu file, then the csrc headers its kernels are built on
@@ -6859,6 +7293,33 @@ def main() -> int:
                   if k != "shape"})
         e["fp32_rows"] = {k: v for k, v in fp32_rows.items()
                           if k.startswith(f"{key} ") or k.startswith(f"{key},")}
+    # phase 23: the fp32 instances of #8, #11 and #11b (ROADMAP A.13, second
+    # slice): their errors and 23k's rows (fp32_*, the main path's shape
+    # first; every row under fp32_rows), and every kernel's launches on the
+    # fp32 paths of variants N and P and the ViT-B/16 model (23a, 23c)
+    for name, key, shape in (
+            ("fused_mlp", "mlp", ", N 64000, C 1024, M 4096"),
+            ("bias_flash_attention", "bias_attention", "D 64, b32 H 16 T 2000 serving, no bias"),
+            ("bias_attention_dq", "bias_dq", f"D 64, b{TRAIN_BATCH} H 16 T 2000, no bias, "
+                                             f"dropout {BIAS_DROP}"),
+            ("bias_attention_dkv", "bias_dkv", f"D 64, b{TRAIN_BATCH} H 16 T 2000, no bias, "
+                                               f"dropout {BIAS_DROP}"),
+            ("bias_attention_bwd_single", "bias_single",
+             f"D 64, b128 H 12 T {STUDENT_T} student, per-row bias, dropout {BIAS_DROP}")):
+        e = by_name[name]
+        e["fp32_max_abs_err"] = dense_errs[key]
+        e.update({f"fp32_{k}": v for k, v in
+                  dense_rows[f"{key} {shape}".replace(" ,", ",")].items() if k != "shape"})
+        e["fp32_rows"] = {k: v for k, v in dense_rows.items()
+                          if k.startswith(f"{key} ") or k.startswith(f"{key},")}
+    for name, key in (("alibi_flash_attention_serve", "serve_attention"),
+                      ("alibi_flash_attention", "attention"), ("alibi_attention_dq", "dq"),
+                      ("alibi_attention_dkv", "dkv"), ("fused_block", "block"),
+                      ("fused_mlp", "mlp"), ("bias_flash_attention", "bias_attention"),
+                      ("bias_attention_dq", "bias_dq"), ("bias_attention_dkv", "bias_dkv"),
+                      ("bias_attention_bwd_single", "bias_single")):
+        by_name[name]["launches_fp32_families"] = dense_launched[key]
+        by_name[name]["launches"] += dense_launched[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

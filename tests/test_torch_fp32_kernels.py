@@ -17,13 +17,16 @@ one product along K three times as long). On the CPU:
   them (the slope partials against float64: the plain version's own fp32
   error exceeds a tenth of their bf16 gate at the card's shape);
 * (b) the wrappers' kernel route on a fake card (``FakeCard`` of
-  ``tests/test_torch_head_dim_kernels.py`` and a fake of the block's
-  entry): fp32 tensors take the ``_f32`` entries, each launch counter moves
-  by one, the outputs are fp32 and equal the plain versions; the kernels
-  without an fp32 instance raise on fp32, naming ROADMAP A.13;
+  ``tests/test_torch_head_dim_kernels.py`` and a fake of the block's and
+  the MLP's entries): fp32 tensors take the ``_f32`` entries, each launch
+  counter moves by one, the outputs are fp32 and equal the plain versions;
+  the kernels without an fp32 instance raise on fp32, naming ROADMAP A.13,
+  where #8, #11 and #11b (whose fp32 instances came later:
+  ``tests/test_torch_fp32_dense_bias.py``) take their ``_f32`` entries;
 * the configurations whose paths run such a kernel refused at build on a
-  CUDA device, naming A.13 (``config.check_card_dtype``), and the port's
-  ``CommonConfig()`` default dtype equal to JAX's (``float32``).
+  CUDA device, naming A.13 (``config.check_card_dtype``), the others
+  admitted, and the port's ``CommonConfig()`` default dtype equal to JAX's
+  (``float32``).
 
 On the card (``gpu`` marker; this file imports no JAX, flax or other test
 module at module level), each fp32 instance against its plain version at small shapes, at
@@ -49,7 +52,7 @@ from animal2vec_tpu_torch.ops.attention import (
     alibi_flash_attention_packed, alibi_flash_attention_serve, attention_bwd_plain,
     attention_dkv, attention_dq,
 )
-from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain
+from animal2vec_tpu_torch.ops.fused_mlp import fused_block_mlp, fused_block_plain, fused_mlp_plain
 
 F32 = torch.float32
 SEED = -123457
@@ -243,12 +246,25 @@ def test_split_block_matches_jax_kernel(monkeypatch):
 
 
 class FakeBlockCard:
-    """The fused block's fp32 C entry over host memory: reads x, the
-    weights (nn.Linear layout) and the vectors where the wrapper points,
-    checks the scratch it was handed, writes the plain version's x_out and
-    tap; no dropout. ``calls`` counts its launches."""
+    """The fused block's and the fused MLP's fp32 C entries over host
+    memory: each reads x, the weights (nn.Linear layout) and the vectors
+    where the wrapper points, checks the scratch it was handed, writes the
+    plain version's outputs; no dropout. ``calls`` and ``mlp_calls`` count
+    their launches."""
 
     calls = 0
+    mlp_calls = 0
+
+    def a2v_fused_mlp_f32(self, x, w1, b1, w2, b2, xs, w1s, w2s, hs, out, n, c, m, c2, s0, s1,
+                          thresh, keep_scale, row0, stream):
+        from tests.test_torch_head_dim_kernels import _dense
+
+        assert thresh == 0 and all(p is not None for p in (xs, w1s, w2s, hs))
+        _dense(out, F32, n, c2).copy_(fused_mlp_plain(
+            _dense(x, F32, n, c), _dense(w1, F32, m, c), _dense(w2, F32, c2, m),
+            _dense(b1, F32, m), _dense(b2, F32, c2)))
+        self.mlp_calls += 1
+        return 0
 
     def a2v_fused_block_f32(self, x, l1s, l1b, w1t, b1, w2t, b2, l2s, l2b, r, rs, w1s, w2s, hs,
                             t, x_out, n, c, m, eps, s0, s1, s2, act_t, act_scale, post_t,
@@ -280,7 +296,7 @@ def fake_card(monkeypatch):
     for module in (attention, bias_attention):
         monkeypatch.setattr(module, "_on_cpu", lambda x: False)
         monkeypatch.setattr(module, "_check_device", lambda x, what: None)
-        monkeypatch.setattr(module, "library", lambda: card)
+    monkeypatch.setattr(attention, "library", lambda: card)  # every entry of both modules
     monkeypatch.setattr(fused_mlp, "library", lambda: block)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -375,17 +391,48 @@ def _raises_a13(fn):
         fn()
 
 
+# the kernels whose fp32 instances tests/test_torch_fp32_dense_bias.py
+# holds (ROADMAP A.13): their wrappers take the ``_f32`` entries
+GAINED_FP32 = ("#8", "#11", "#11b")
+
+
 @pytest.mark.parametrize("kernel", ["#5q", "#5", "#6s fc1", "#6s fc2", "#6s ln2", "#7", "#8",
-                                    "#10", "#11"])
+                                    "#10", "#11", "#11b"])
 def test_kernels_without_an_fp32_instance_raise(fake_card, kernel):
     """Each wrapper whose kernel has no fp32 instance yet raises on fp32
     operands, naming ROADMAP A.13, before any launch (#9's wrapper checks
-    its device first: its case is the ``gpu`` test at the end)."""
+    its device first: its case is the ``gpu`` test at the end). The
+    kernels that have one since (``GAINED_FP32``: #8, #11 and #11b's
+    backward launch) take their ``_f32`` entry on the same fp32 operands
+    instead, once, and return fp32 equal to the plain version."""
     rng = np.random.default_rng(7)
     x = _f32(rng, 64, 128)
     w = _f32(rng, 128, 128)
     q = k = v = _f32(rng, 1, 64, 2, 64)
     w_q, w_s = torch.zeros((128, 128), dtype=torch.int8), torch.ones(128)
+    if kernel in GAINED_FP32:
+        called = []
+        for name in ("a2v_bias_attention_f32", "a2v_bias_attention_bwd_single_f32"):
+            fn = getattr(fake_card.attention, name)
+            setattr(fake_card.attention, name,
+                    lambda *a, _fn=fn, _name=name: called.append(_name) or _fn(*a))
+        if kernel == "#8":
+            _close32(fused_mlp._launch_mlp(x, w, w, None, None), fused_mlp_plain(x, w, w))
+            assert fake_card.block.mlp_calls == 1
+            return
+        out, lse = bias_attention.bias_attention_plain(q, k, v, return_lse=True)
+        if kernel == "#11":
+            _close32(bias_attention.bias_attention_forward(q, k, v), out)
+            assert called == ["a2v_bias_attention_f32"]
+            return
+        dout = _f32(rng, 1, 64, 2, 64)
+        delta = (dout * out).sum(-1).transpose(1, 2).reshape(2, 64).contiguous()
+        got = bias_attention.bias_attention_bwd_single(q, k, v, dout, lse, delta)
+        want = bias_attention.bias_attention_bwd_plain(q, k, v, dout, lse, delta)
+        for g, ref in zip(got[:3], want[:3]):
+            _close32(g, ref)
+        assert called == ["a2v_bias_attention_bwd_single_f32"]
+        return
     calls = {
         "#5q": lambda: attention._quantize_op._init_fn(q, k, v, 64),
         "#5": lambda: attention._attention_int8_op._init_fn(
@@ -398,9 +445,7 @@ def test_kernels_without_an_fp32_instance_raise(fake_card, kernel):
                                                  None),
         "#7": lambda: fused_mlp._block_int8_op._init_fn(x, None, None, w_q, w_s, None, w_q, w_s,
                                                         None, None, None, 1e-5),
-        "#8": lambda: fused_mlp._launch_mlp(x, w, w, None, None),
         "#10": lambda: int8_mm._dense_op._init_fn(x, w_q, w_s, None),
-        "#11": lambda: bias_attention._check_qkv(q, k, v),
     }
     _raises_a13(calls[kernel])
 
@@ -419,10 +464,13 @@ def test_common_config_default_dtype_is_jax_default():
                      ).common.compute_dtype == "float32"
 
 
+# each configuration with the kernel its path runs without an fp32
+# instance, or None where every kernel of its path has one (pre-LN trunks
+# on #8, the image modality and ALiBi-free encoders on #11 / #11b)
 _LEFT_OUT = {
-    "pre-LN": (dataclasses.replace(FinetuneConfig(), layer_norm_first=True), "", 1, "#8"),
-    "image": (ImageConfig(), "", 1, "#11"),
-    "no ALiBi": (dataclasses.replace(FinetuneConfig(), use_alibi_encoder=False), "", 1, "#11"),
+    "pre-LN": (dataclasses.replace(FinetuneConfig(), layer_norm_first=True), "", 1, None),
+    "image": (dataclasses.replace(ImageConfig(), layer_norm_first=True), "", 1, None),
+    "no ALiBi": (dataclasses.replace(FinetuneConfig(), use_alibi_encoder=False), "", 1, None),
     "int8": (dataclasses.replace(FinetuneConfig(), matmul_impl="int8"), "", 1, "#7"),
     "int8_attn": (dataclasses.replace(FinetuneConfig(), matmul_impl="int8_attn"), "", 1, "#5"),
     "int8 teacher": (FinetuneConfig(), "int8", 1, "#10"),
@@ -434,11 +482,16 @@ _LEFT_OUT = {
 def test_fp32_on_the_card_refuses_what_this_slice_leaves_out(case):
     """fp32 on a CUDA device raises at build for each configuration whose
     path runs a kernel without an fp32 instance, naming the kernel and
-    ROADMAP A.13; bf16 there, and fp32 on the CPU, pass."""
+    ROADMAP A.13, and passes for those whose kernels all have one (a pre-LN
+    trunk, the pre-LN image model, an ALiBi-free encoder); bf16 there, and
+    fp32 on the CPU, pass."""
     enc, teacher, mp, kernel = _LEFT_OUT[case]
-    with pytest.raises(NotImplementedError, match="A.13") as err:
+    if kernel is None:
         check_card_dtype(enc, "float32", "cuda", teacher, mp)
-    assert kernel in str(err.value)
+    else:
+        with pytest.raises(NotImplementedError, match="A.13") as err:
+            check_card_dtype(enc, "float32", "cuda", teacher, mp)
+        assert kernel in str(err.value)
     check_card_dtype(enc, "bfloat16", "cuda", teacher, mp)
     check_card_dtype(enc, "float32", "cpu", teacher, mp)
 

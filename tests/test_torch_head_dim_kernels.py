@@ -86,8 +86,9 @@ class FakeCard:
     head dim as the C entry does (a multiple of 8 up to 128), reads its
     inputs where the wrapper points, runs the plain version with the scale
     passed (q scaled by scale * sqrt(D) before the plain version's D^-0.5)
-    and writes its outputs; no dropout. The ``_f32`` entries of #1-#4 read
-    and write fp32 where the others read and write bf16 (``dt``).
+    and writes its outputs; no dropout. The ``_f32`` entries of #1-#4, #11
+    and #11b read and write fp32 where the others read and write bf16
+    (``dt``).
     ``head_dims`` records the D of every call."""
 
     def __init__(self):
@@ -186,57 +187,69 @@ class FakeCard:
         _dense(out, BF16, b, t, h, d).copy_(o)
         return 0
 
-    def _bias_inputs(self, q, k, v, sb, st, bias, uniform, mask, b, h, t, d, scale):
+    def _bias_inputs(self, q, k, v, sb, st, bias, uniform, mask, b, h, t, d, scale, dt):
         self._d(d)
-        qv, kv, vv = (_view(p, BF16, (b, t, h, d), (sb, st, d, 1)).float() for p in (q, k, v))
+        qv, kv, vv = (_view(p, dt, (b, t, h, d), (sb, st, d, 1)).float() for p in (q, k, v))
         dense = _dense(bias, torch.float32, 1 if uniform else b, h, t, t)
         m = _dense(mask, torch.uint8, b, t)
         return qv * (scale * d**0.5), kv, vv, dense, None if m is None else m.bool()
 
     def a2v_bias_attention(self, q, k, v, sb, st, bias, uniform, mask, out, lse, b, h, t, d,
-                           scale, seed, thresh, keep, stream):
+                           scale, seed, thresh, keep, stream, dt=BF16):
         assert thresh == 0
         qv, kv, vv, dense, m = self._bias_inputs(q, k, v, sb, st, bias, uniform, mask, b, h, t,
-                                                 d, scale)
+                                                 d, scale, dt)
         o, ls = bias_attention_plain(qv, kv, vv, dense, m, return_lse=True)
-        _dense(out, BF16, b, t, h, d).copy_(o)
+        _dense(out, dt, b, t, h, d).copy_(o)
         if lse is not None:
             _dense(lse, torch.float32, b * h, t).copy_(ls)
         return 0
 
     def _bias_bwd(self, q, k, v, sb, st, dout, lse, delta, bias, uniform, mask, b, h, t, d,
-                  scale, dq, dk, dv, osb, ost, dbias):
+                  scale, dq, dk, dv, osb, ost, dbias, dt):
         qv, kv, vv, dense, m = self._bias_inputs(q, k, v, sb, st, bias, uniform, mask, b, h, t,
-                                                 d, scale)
+                                                 d, scale, dt)
         c = scale * d**0.5
-        g = bias_attention_bwd_plain(qv, kv, vv, _dense(dout, BF16, b, t, h, d).float(),
+        g = bias_attention_bwd_plain(qv, kv, vv, _dense(dout, dt, b, t, h, d).float(),
                                      _dense(lse, torch.float32, b * h, t),
                                      _dense(delta, torch.float32, b * h, t), dense, m)
         for ptr, x in ((dq, g[0] * c), (dk, g[1]), (dv, g[2])):
             if ptr is not None:
-                _view(ptr, BF16, (b, t, h, d), (osb, ost, d, 1)).copy_(x)
+                _view(ptr, dt, (b, t, h, d), (osb, ost, d, 1)).copy_(x)
         if dbias is not None:
             _dense(dbias, torch.float32, b, h, t, t).copy_(g[3])
         return 0
 
     def a2v_bias_attention_bwd_dq(self, q, k, v, sb, st, dout, lse, delta, bias, uniform, mask,
                                   dq, osb, ost, dbias, b, h, t, d, scale, seed, thresh, keep,
-                                  stream):
+                                  stream, dt=BF16):
         return self._bias_bwd(q, k, v, sb, st, dout, lse, delta, bias, uniform, mask, b, h, t, d,
-                              scale, dq, None, None, osb, ost, dbias)
+                              scale, dq, None, None, osb, ost, dbias, dt)
 
     def a2v_bias_attention_bwd_dkv(self, q, k, v, sb, st, dout, lse, delta, bias, uniform, mask,
                                    dk, dv, osb, ost, b, h, t, d, scale, seed, thresh, keep,
-                                   stream):
+                                   stream, dt=BF16):
         return self._bias_bwd(q, k, v, sb, st, dout, lse, delta, bias, uniform, mask, b, h, t, d,
-                              scale, None, dk, dv, osb, ost, None)
+                              scale, None, dk, dv, osb, ost, None, dt)
 
     def a2v_bias_attention_bwd_single(self, q, k, v, sb, st, dout, lse, delta, bias, uniform,
                                       mask, dq, dk, dv, osb, ost, dbias, b, h, t, d, scale, seed,
-                                      thresh, keep, stream):
+                                      thresh, keep, stream, dt=BF16):
         assert t <= 64
         return self._bias_bwd(q, k, v, sb, st, dout, lse, delta, bias, uniform, mask, b, h, t, d,
-                              scale, dq, dk, dv, osb, ost, dbias)
+                              scale, dq, dk, dv, osb, ost, dbias, dt)
+
+    def a2v_bias_attention_f32(self, *args):
+        return self.a2v_bias_attention(*args, dt=torch.float32)
+
+    def a2v_bias_attention_bwd_dq_f32(self, *args):
+        return self.a2v_bias_attention_bwd_dq(*args, dt=torch.float32)
+
+    def a2v_bias_attention_bwd_dkv_f32(self, *args):
+        return self.a2v_bias_attention_bwd_dkv(*args, dt=torch.float32)
+
+    def a2v_bias_attention_bwd_single_f32(self, *args):
+        return self.a2v_bias_attention_bwd_single(*args, dt=torch.float32)
 
 
 @pytest.fixture
@@ -248,7 +261,7 @@ def fake_card(monkeypatch):
     for module in (attention, bias_attention):
         monkeypatch.setattr(module, "_on_cpu", lambda x: False)
         monkeypatch.setattr(module, "_check_device", lambda x, what: None)
-        monkeypatch.setattr(module, "library", lambda: card)
+    monkeypatch.setattr(attention, "library", lambda: card)  # every entry of both modules
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
